@@ -1,0 +1,755 @@
+"""The served power-flow workload and the serving facade.
+
+Port of the ``pf`` part of ``freedm_tpu/serve/service.py``: snapshot AC
+power flow — a named case plus per-bus injection overrides (or a uniform
+stress ``scale``) — solved by the batched dense Newton path
+(:mod:`freedm_tpu_torch.pf.newton`), one lane per request.
+
+Every response carries the solver's own convergence evidence
+(``residual_pu``/``converged``) plus a conservation check (Σ realized P
+= network losses, small and non-negative), so a client never has to
+trust a 200 status alone.
+
+:class:`Service` ties the pieces together: synchronous per-request
+validation (an invalid request never occupies queue depth), admission
+(:mod:`freedm_tpu_torch.serve.queue`), micro-batched dispatch
+(:mod:`freedm_tpu_torch.serve.batcher`) and one engine per case.  Not
+ported yet (``ROADMAP.md``): the n1/vvc/topo workloads, the incremental
+cache tier (``cache_mb`` must stay 0), provenance receipts, the
+consistent-cut ledger and the lane mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+import time as _time
+from concurrent.futures import TimeoutError as _FuturesTimeout
+from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from freedm_tpu_torch.core import metrics as obs
+from freedm_tpu_torch.device import (
+    DeviceLike,
+    platform_name,
+    resolve_device,
+    synchronize,
+)
+from freedm_tpu_torch.grid.bus import PQ
+from freedm_tpu_torch.pf.backend import (
+    BACKENDS,
+    PF_PRECISIONS,
+    BackendNotPorted,
+    resolve_backend,
+    resolve_precision,
+)
+from freedm_tpu_torch.pf.newton import make_newton_solver
+from freedm_tpu_torch.serve.queue import (
+    AdmissionQueue,
+    DeadlineExceeded,
+    InvalidRequest,
+    Overloaded,
+    ServeError,
+    ShuttingDown,
+    Ticket,
+)
+
+WORKLOADS = ("pf",)
+
+
+# ---------------------------------------------------------------------------
+# Request / response records
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PowerFlowRequest:
+    """Snapshot power flow: ``case`` + injection overrides.
+
+    ``p_inj``/``q_inj`` are full per-bus vectors in system pu (length
+    ``n_bus``); omitted, the case's stored injections scaled by
+    ``scale`` are used.  ``v0``/``theta0`` optionally warm-start the
+    Newton iteration from a previous solution; omitted, the flat start
+    is used.
+    """
+
+    case: str
+    p_inj: Optional[Sequence[float]] = None
+    q_inj: Optional[Sequence[float]] = None
+    v0: Optional[Sequence[float]] = None
+    theta0: Optional[Sequence[float]] = None
+    scale: float = 1.0
+    # Full [n] voltage/angle vectors in the response (off by default).
+    return_state: bool = False
+    timeout_s: float = 30.0
+
+
+@dataclass
+class BatchInfo:
+    """How this request was served — the micro-batching receipt.
+    ``tier`` is always ``"full"`` (a dispatched device solve) until the
+    cache tier is ported."""
+
+    lanes: int  # real lanes in the dispatched batch (all requests)
+    bucket: int  # padded static shape the batch ran at
+    queue_ms: float  # admission -> dispatch
+    solve_ms: float  # batched solve wall time (shared by the batch)
+    tier: str = "full"
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclass
+class PowerFlowResponse:
+    workload: str
+    case: str
+    scale: float
+    converged: bool
+    iterations: int
+    residual_pu: float
+    p_balance_pu: float  # Σ realized P = network losses (small, >= ~0)
+    q_balance_pu: float
+    v_min_pu: float
+    v_max_pu: float
+    batch: BatchInfo
+    v: Optional[List[float]] = None  # per-bus |V| (return_state=True)
+    theta: Optional[List[float]] = None  # per-bus angle, rad
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["batch"] = self.batch.to_dict()
+        return d
+
+
+# ---------------------------------------------------------------------------
+# Case registry
+# ---------------------------------------------------------------------------
+
+#: Bus-system cases servable by pf (MATPOWER builtins).
+BUS_CASES = ("case14", "case_ieee30")
+
+#: Cap on the client-named synthetic meshN size: the dense Newton path
+#: is O(n^2) memory, and the case name is attacker-controlled input.
+MAX_MESH_BUSES = 2000
+
+
+def _resolve_bus_case(name: str):
+    if name in BUS_CASES:
+        from freedm_tpu_torch.grid.matpower import load_builtin
+
+        return load_builtin(name)
+    if name.startswith("mesh") and name[4:].isdigit():
+        # meshN: the synthetic transmission generator at N buses.
+        n = int(name[4:])
+        if not 2 <= n <= MAX_MESH_BUSES:
+            raise InvalidRequest(
+                f"meshN size must be in [2, {MAX_MESH_BUSES}], got {n}"
+            )
+        from freedm_tpu_torch.grid.cases import synthetic_mesh
+
+        return synthetic_mesh(n, seed=1, load_mw=10.0, chord_frac=1.0)
+    raise InvalidRequest(
+        f"unknown bus case {name!r} (have: {', '.join(BUS_CASES)}, meshN)"
+    )
+
+
+def _pad_rows(arr: np.ndarray, bucket: int) -> np.ndarray:
+    """Pad a stacked batch up to its bucket by repeating the last row —
+    a real, convergent lane, so padding can never poison batch numerics."""
+    pad = bucket - arr.shape[0]
+    if pad <= 0:
+        return arr
+    return np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
+
+
+def _as_vector(val, n: int, what: str) -> np.ndarray:
+    arr = np.asarray(val, np.float64)
+    if arr.shape != (n,):
+        raise InvalidRequest(f"{what} must be a length-{n} vector, got shape {arr.shape}")
+    if not np.all(np.isfinite(arr)):
+        raise InvalidRequest(f"{what} contains non-finite values")
+    return arr
+
+
+# ---------------------------------------------------------------------------
+# Engines: one solver front per (workload, case)
+# ---------------------------------------------------------------------------
+
+
+class _Engine:
+    """Common engine shape the batcher drives.
+
+    ``validate`` runs on the submitter's thread (before admission);
+    ``assemble`` runs on the batch-assembly lane; ``solve``/``scatter``
+    run on the workload's executor lane (or inline on the dispatch
+    thread at ``pipeline_depth=0``).  ``solve`` returns device tensors;
+    the batcher waits for the device once, at its measurement boundary
+    (:meth:`synchronize`), and ``scatter`` pulls the results to the host.
+    """
+
+    workload = ""
+
+    def __init__(self, case: str, device: torch.device):
+        self.case = case
+        self.key = (self.workload, case)
+        self.device = device
+        self.compiled_buckets: set = set()
+        self.pf_backend: Optional[str] = None
+        self.pf_precision: Optional[str] = None
+
+    def validate(self, req):  # -> prepared payload (host arrays)
+        raise NotImplementedError
+
+    def example_request(self):
+        """A minimal valid request — what :meth:`Service.prewarm` pushes
+        through every bucket at startup."""
+        raise NotImplementedError
+
+    def lanes(self, prepared) -> int:
+        return 1
+
+    def assemble(self, group: List[Ticket], bucket: int):
+        raise NotImplementedError
+
+    def solve(self, batch):
+        raise NotImplementedError
+
+    def synchronize(self) -> None:
+        """Wait for the engine's device work (the batcher's one sync)."""
+        synchronize(self.device)
+
+    def scatter(self, group: List[Ticket], results, info: BatchInfo) -> None:
+        raise NotImplementedError
+
+
+class PowerFlowEngine(_Engine):
+    workload = "pf"
+
+    def __init__(self, case: str, max_iter: int = 12,
+                 backend: str = "auto", precision: str = "auto",
+                 device: DeviceLike = None):
+        super().__init__(case, resolve_device(device))
+        sys_ = _resolve_bus_case(case)
+        self._sys = sys_
+        self.pf_backend = resolve_backend(backend, sys_.n_bus)
+        # The dense path's LU runs in the working dtype: no mixed inner.
+        resolve_precision(precision, platform_name(self.device))
+        self.pf_precision = "f64"
+        self.n_bus = sys_.n_bus
+        self._p0 = np.asarray(sys_.p_inj, np.float64)
+        self._q0 = np.asarray(sys_.q_inj, np.float64)
+        # Flat start (the solver's own default): PQ magnitudes at 1.0,
+        # pinned buses at their setpoint, zero angles.
+        bt = np.asarray(sys_.bus_type)
+        self._v0_flat = np.where(
+            bt == PQ, 1.0, np.asarray(sys_.v_set, np.float64)
+        )
+        self._theta0_flat = np.zeros(self.n_bus)
+        # The while-loop solve: per-lane iteration counts are real
+        # (converged lanes stop updating), so `iterations` shows what a
+        # warm start saves.
+        self._solve, _ = make_newton_solver(
+            sys_, max_iter=max_iter, dtype=torch.float64, backend=backend,
+            precision=precision, device=self.device,
+        )
+
+    def solve(self, batch):
+        # Host -> device copies, then the batched Newton solve.  Returns
+        # device tensors; the batcher synchronizes once, at its
+        # measurement boundary.
+        p, q, v0, th0 = (
+            torch.as_tensor(a, dtype=torch.float64).to(self.device,
+                                                        non_blocking=True)
+            for a in batch
+        )
+        return self._solve(p_inj=p, q_inj=q, v0=v0, theta0=th0)
+
+    def example_request(self):
+        return PowerFlowRequest(case=self.case)
+
+    def validate(self, req: PowerFlowRequest):
+        if not (math.isfinite(req.scale) and 0.0 < req.scale <= 10.0):
+            raise InvalidRequest(f"scale must be in (0, 10], got {req.scale!r}")
+        p = (
+            _as_vector(req.p_inj, self.n_bus, "p_inj")
+            if req.p_inj is not None
+            else self._p0 * req.scale
+        )
+        q = (
+            _as_vector(req.q_inj, self.n_bus, "q_inj")
+            if req.q_inj is not None
+            else self._q0 * req.scale
+        )
+        if req.v0 is not None:
+            v0 = _as_vector(req.v0, self.n_bus, "v0")
+            if np.any(v0 < 0.1) or np.any(v0 > 2.0):
+                raise InvalidRequest(
+                    "v0 magnitudes must be in [0.1, 2.0] pu"
+                )
+        else:
+            v0 = self._v0_flat
+        if req.theta0 is not None:
+            th0 = _as_vector(req.theta0, self.n_bus, "theta0")
+            if np.any(np.abs(th0) > 2.0 * np.pi):
+                raise InvalidRequest("theta0 angles must be within ±2π rad")
+        else:
+            th0 = self._theta0_flat
+        if req.v0 is not None or req.theta0 is not None:
+            obs.SERVE_WARM_START.inc()
+        return {"p": p, "q": q, "v0": v0, "th0": th0}
+
+    def assemble(self, group: List[Ticket], bucket: int):
+        p = _pad_rows(np.stack([t.prepared["p"] for t in group]), bucket)
+        q = _pad_rows(np.stack([t.prepared["q"] for t in group]), bucket)
+        v0 = _pad_rows(np.stack([t.prepared["v0"] for t in group]), bucket)
+        th0 = _pad_rows(np.stack([t.prepared["th0"] for t in group]), bucket)
+        return p, q, v0, th0
+
+    def scatter(self, group: List[Ticket], r, info: BatchInfo) -> None:
+        v = r.v.cpu().numpy()
+        theta = r.theta.cpu().numpy()
+        p = r.p.cpu().numpy()
+        q = r.q.cpu().numpy()
+        its = r.iterations.cpu().numpy()
+        conv = r.converged.cpu().numpy()
+        mism = r.mismatch.cpu().numpy()
+        # Record the served lanes' iteration counts on the pf metrics.
+        obs.PF_ITERATIONS.labels("newton").observe(its[: len(group)])
+        obs.PF_RESIDUAL.labels("newton").set(float(mism[: len(group)].max()))
+        p_bal = p.sum(axis=1)
+        q_bal = q.sum(axis=1)
+        v_min = v.min(axis=1)
+        v_max = v.max(axis=1)
+        for i, t in enumerate(group):
+            want_state = bool(t.request.return_state)
+            t.future.set_result(PowerFlowResponse(
+                workload="pf",
+                case=self.case,
+                scale=float(t.request.scale),
+                converged=bool(conv[i]),
+                iterations=int(its[i]),
+                residual_pu=float(mism[i]),
+                p_balance_pu=float(p_bal[i]),
+                q_balance_pu=float(q_bal[i]),
+                v_min_pu=float(v_min[i]),
+                v_max_pu=float(v_max[i]),
+                v=np.round(v[i], 9).tolist() if want_state else None,
+                theta=np.round(theta[i], 9).tolist() if want_state else None,
+                batch=info,
+            ))
+
+
+_ENGINE_TYPES = {"pf": PowerFlowEngine}
+_REQUEST_TYPES = {"pf": PowerFlowRequest}
+
+
+def parse_request(workload: str, payload: dict):
+    """Build the typed request record from a JSON payload, rejecting
+    unknown workloads and unknown fields with typed errors."""
+    cls = _REQUEST_TYPES.get(workload)
+    if cls is None:
+        raise InvalidRequest(
+            f"unknown workload {workload!r} (have: {', '.join(WORKLOADS)})"
+        )
+    if not isinstance(payload, dict):
+        raise InvalidRequest("request body must be a JSON object")
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(payload) - names
+    if unknown:
+        raise InvalidRequest(
+            f"unknown field(s) {sorted(unknown)} for workload {workload!r}"
+        )
+    if "case" not in payload:
+        raise InvalidRequest("missing required field 'case'")
+    try:
+        return cls(**payload)
+    except TypeError as e:
+        raise InvalidRequest(str(e)) from None
+
+
+# ---------------------------------------------------------------------------
+# Service facade
+# ---------------------------------------------------------------------------
+
+
+def default_buckets(max_batch: int) -> Tuple[int, ...]:
+    """Powers of two plus their 1.5x intermediates up to (and
+    including) ``max_batch`` — the static batch shapes the engines run.
+    The intermediates (3, 6, 12, 24, 48, ...) halve the worst-case
+    padding waste of the pure power-of-two table (from ~50% of a
+    dispatch's lanes to ~33%)."""
+    out = set()
+    b = 1
+    while b < max_batch:
+        out.add(b)
+        mid = b + b // 2  # the 1.5x intermediate (integer for b >= 2)
+        if b >= 2 and mid < max_batch:
+            out.add(mid)
+        b *= 2
+    out.add(int(max_batch))
+    return tuple(sorted(out))
+
+
+def padding_waste_pct(buckets: Tuple[int, ...]) -> float:
+    """Worst-case padded-lane share of a bucket table: the maximum,
+    over every real lane count up to the largest bucket, of
+    ``(bucket - lanes) / bucket`` for the bucket that lane count lands
+    in."""
+    table = tuple(sorted(set(int(b) for b in buckets)))
+    worst = 0.0
+    for lanes in range(1, table[-1] + 1):
+        bucket = next(b for b in table if b >= lanes)
+        worst = max(worst, (bucket - lanes) / bucket)
+    return round(100.0 * worst, 2)
+
+
+class ServeConfig(NamedTuple):
+    """Serving knobs.
+
+    ``max_batch`` bounds lanes per dispatch; ``max_wait_ms`` is the
+    coalescing window (adaptive: a lone request with an empty queue
+    behind it skips it); ``queue_depth`` is the admission bound in lanes
+    (beyond it, requests shed with ``overloaded``); ``buckets`` defaults
+    to :func:`default_buckets`.  ``device`` is where the engines solve —
+    ``cuda`` unless ``"cpu"`` is asked for.  ``cache_mb`` must stay 0 and
+    ``mesh_devices`` 0 or 1 until the cache tier and lane sharding are
+    ported.
+    """
+
+    max_batch: int = 64
+    max_wait_ms: float = 2.0
+    queue_depth: int = 512
+    default_timeout_s: float = 30.0
+    pf_max_iter: int = 12
+    buckets: Optional[Tuple[int, ...]] = None
+    mesh_devices: int = 0
+    pf_backend: str = "auto"
+    pf_precision: str = "auto"
+    # Assembled batches buffered per workload's executor lane (0 =
+    # single-thread dispatch, the equivalence oracle; 1 = double
+    # buffering, the default).
+    pipeline_depth: int = 1
+    # "workload/case" engines to run through every bucket at startup.
+    prewarm: Tuple[str, ...] = ()
+    cache_mb: float = 0.0
+    device: Optional[str] = None
+
+    def bucket_table(self) -> Tuple[int, ...]:
+        bs = self.buckets if self.buckets else default_buckets(self.max_batch)
+        bs = tuple(sorted(set(int(b) for b in bs)))
+        if bs[-1] < self.max_batch:
+            bs = bs + (int(self.max_batch),)
+        return bs
+
+
+class Service:
+    """The query service: validate → admit → micro-batch → solve →
+    scatter.
+
+    ``submit`` returns a :class:`concurrent.futures.Future` resolving to
+    a typed response (or raising a :class:`ServeError`); ``request`` is
+    the blocking convenience.  Engines are built lazily per
+    (workload, case) and kept for the service's lifetime.
+    """
+
+    #: Distinct (workload, case) engines one service will build.
+    MAX_ENGINES = 32
+
+    def __init__(self, config: ServeConfig = ServeConfig(), start: bool = True):
+        from freedm_tpu_torch.serve.batcher import MicroBatcher
+
+        if config.pf_backend not in BACKENDS:
+            raise ValueError(
+                f"unknown pf_backend {config.pf_backend!r} "
+                f"(have: {', '.join(BACKENDS)})"
+            )
+        if config.pf_precision not in PF_PRECISIONS:
+            raise ValueError(
+                f"unknown pf_precision {config.pf_precision!r} "
+                f"(have: {', '.join(PF_PRECISIONS)})"
+            )
+        if config.pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth must be >= 0 (0 = serialized dispatch), "
+                f"got {config.pipeline_depth}"
+            )
+        if config.pf_backend == "sparse":
+            resolve_backend("sparse", 0)  # raises BackendNotPorted
+        if config.cache_mb and config.cache_mb > 0:
+            raise NotImplementedError(
+                "the incremental cache tier is not ported yet (ROADMAP.md, "
+                "module queue item 7); use cache_mb=0"
+            )
+        if config.mesh_devices not in (0, 1):
+            raise NotImplementedError(
+                "lane sharding over several devices is not ported yet "
+                "(ROADMAP.md, module queue item 16); use mesh_devices=0"
+            )
+        self.config = config
+        self.device = resolve_device(config.device)
+        self._engines: Dict[Tuple[str, str], _Engine] = {}
+        # The global lock guards the maps only; engine construction
+        # (case load, Ybus stamp) runs under a per-key build lock.
+        self._engines_lock = threading.Lock()
+        self._build_locks: Dict[Tuple[str, str], threading.Lock] = {}
+        self._ok_counters = {
+            w: obs.SERVE_REQUESTS.labels(w, "ok") for w in WORKLOADS
+        }
+        self.queue = AdmissionQueue(
+            max_depth=config.queue_depth,
+            depth_gauge=obs.SERVE_QUEUE_DEPTH,
+            on_expired=self._expire,
+        )
+        self.batcher = MicroBatcher(self, config)
+        if start:
+            self.batcher.start()
+        if config.prewarm:
+            try:
+                self.prewarm(config.prewarm)
+            except BaseException:
+                # The constructor won't return, so nobody could call
+                # stop() — don't leak the assembly/executor threads.
+                self.batcher.stop()
+                raise
+
+    # -- engine cache --------------------------------------------------------
+    def engine(self, workload: str, case: str) -> _Engine:
+        if workload not in _ENGINE_TYPES:
+            raise InvalidRequest(
+                f"unknown workload {workload!r} (have: {', '.join(WORKLOADS)})"
+            )
+        if not isinstance(case, str) or not case:
+            raise InvalidRequest("'case' must be a non-empty string")
+        key = (workload, case)
+        with self._engines_lock:
+            eng = self._engines.get(key)
+            if eng is not None:
+                return eng
+            if len(self._engines) >= self.MAX_ENGINES:
+                raise InvalidRequest(
+                    f"engine cache full ({self.MAX_ENGINES} cases); "
+                    f"reuse an already-served case"
+                )
+            build_lock = self._build_locks.get(key)
+            if build_lock is None:
+                build_lock = self._build_locks[key] = threading.Lock()
+        with build_lock:
+            with self._engines_lock:
+                eng = self._engines.get(key)
+            if eng is not None:  # another submitter built it meanwhile
+                return eng
+            cfg = self.config
+            try:
+                eng = _ENGINE_TYPES[workload](
+                    case, max_iter=cfg.pf_max_iter, backend=cfg.pf_backend,
+                    precision=cfg.pf_precision, device=self.device,
+                )
+            except BackendNotPorted as e:
+                # e.g. pf_backend="auto" resolving to sparse for a large
+                # meshN: a typed refusal, never a silent dense solve.
+                raise InvalidRequest(str(e)) from None
+            with self._engines_lock:
+                self._engines[key] = eng
+            return eng
+
+    # -- prewarm -------------------------------------------------------------
+    def prewarm(self, specs: Sequence[str]) -> List[str]:
+        """Run every bucket of each ``"workload/case"`` engine named in
+        ``specs`` once before traffic arrives.  Each shape is recorded
+        in the batcher's prewarm table and never counts on
+        ``serve_recompiles_total``.  Returns the
+        ``"workload/case:bucket"`` keys run."""
+        done: List[str] = []
+        for spec in specs:
+            workload, sep, case = str(spec).partition("/")
+            if not sep or not case:
+                raise InvalidRequest(
+                    f"prewarm spec must be 'workload/case', got {spec!r}"
+                )
+            eng = self.engine(workload, case)
+            req = eng.example_request()
+            prepared = eng.validate(req)
+            lanes = eng.lanes(prepared)
+            for bucket in self.config.bucket_table():
+                if bucket in eng.compiled_buckets or lanes > bucket:
+                    continue
+                t = Ticket(eng.key, req, prepared, lanes, None)
+                eng.solve(eng.assemble([t], bucket))
+                eng.synchronize()
+                self.batcher.note_prewarmed(eng, bucket)
+                done.append(f"{workload}/{case}:{bucket}")
+        return done
+
+    # -- submission ----------------------------------------------------------
+    def submit(self, workload: str, request):
+        """Validate and admit one request; returns its Future.
+
+        ``request`` may be a typed record or a JSON-shaped dict.  Raises
+        :class:`InvalidRequest` / :class:`Overloaded` synchronously —
+        an unservable request never occupies queue depth.
+        """
+        wl = workload if workload in WORKLOADS else "unknown"
+        try:
+            if isinstance(request, dict):
+                request = parse_request(workload, request)
+            eng = self.engine(workload, request.case)
+            prepared = eng.validate(request)
+            lanes = eng.lanes(prepared)
+            if lanes > self.config.max_batch:
+                raise InvalidRequest(
+                    f"request needs {lanes} lanes but max_batch is "
+                    f"{self.config.max_batch}; split it"
+                )
+            timeout = float(getattr(request, "timeout_s", 0) or 0)
+        except InvalidRequest:
+            obs.SERVE_REQUESTS.labels(wl, "invalid").inc()
+            raise
+        except (TypeError, ValueError) as e:
+            # Wrong-typed field VALUES (e.g. scale="1.1") come out of
+            # numpy/float coercion as raw TypeError/ValueError — still
+            # the client's fault, still a typed 400.
+            obs.SERVE_REQUESTS.labels(wl, "invalid").inc()
+            raise InvalidRequest(f"malformed request field: {e}") from None
+        if timeout <= 0:
+            timeout = self.config.default_timeout_s
+        ticket = Ticket(
+            key=eng.key, request=request, prepared=prepared, lanes=lanes,
+            deadline=_time.monotonic() + timeout,
+        )
+        try:
+            self.queue.put(ticket)
+        except Overloaded:
+            obs.SERVE_SHED.inc()
+            obs.SERVE_REQUESTS.labels(workload, "overloaded").inc()
+            raise
+        except ShuttingDown:
+            obs.SERVE_REQUESTS.labels(workload, "shutdown").inc()
+            raise
+        return ticket.future
+
+    def request(self, workload: str, request,
+                timeout_s: Optional[float] = None):
+        """Blocking submit: the typed response, or a raised ServeError.
+
+        The wait honors the request's own ``timeout_s`` (plus a margin
+        for the in-flight solve, which is never cancelled); an explicit
+        ``timeout_s`` argument replaces the record's value; a wait that
+        still runs out surfaces as the typed :class:`DeadlineExceeded`.
+        """
+        if isinstance(request, dict):
+            try:
+                request = parse_request(workload, request)
+            except InvalidRequest:
+                wl = workload if workload in WORKLOADS else "unknown"
+                obs.SERVE_REQUESTS.labels(wl, "invalid").inc()
+                raise
+        if timeout_s is not None and hasattr(request, "timeout_s"):
+            request = dataclasses.replace(request, timeout_s=float(timeout_s))
+        fut = self.submit(workload, request)
+        t = float(getattr(request, "timeout_s", 0) or 0)
+        if t <= 0:
+            t = self.config.default_timeout_s
+        wait = t + 10.0
+        try:
+            return fut.result(timeout=wait)
+        except _FuturesTimeout:
+            raise DeadlineExceeded(
+                f"no result within {wait:.0f}s (the batch may still "
+                f"be solving; its result is discarded)"
+            ) from None
+
+    # -- completion accounting (called by the batcher / queue) ---------------
+    def _expire(self, ticket: Ticket) -> None:
+        obs.SERVE_REQUESTS.labels(ticket.key[0], "deadline").inc()
+        obs.SERVE_REQUEST_LATENCY.observe(
+            max(_time.monotonic() - ticket.enqueued_at, 0.0)
+        )
+        ticket.future.set_exception(
+            DeadlineExceeded("deadline passed while queued")
+        )
+
+    def _complete_ok(self, ticket: Ticket, info: BatchInfo) -> None:
+        self._ok_counters[ticket.key[0]].inc()
+        obs.SERVE_REQUEST_LATENCY.observe(
+            max(_time.monotonic() - ticket.enqueued_at, 0.0)
+        )
+
+    def _complete_error(self, ticket: Ticket, err: BaseException) -> None:
+        outcome = err.code if isinstance(err, ServeError) else "error"
+        obs.SERVE_REQUESTS.labels(ticket.key[0], outcome).inc()
+        obs.SERVE_REQUEST_LATENCY.observe(
+            max(_time.monotonic() - ticket.enqueued_at, 0.0)
+        )
+        if not ticket.future.done():
+            ticket.future.set_exception(err)
+
+    # -- introspection / lifecycle -------------------------------------------
+    def stats(self) -> dict:
+        snap = obs.REGISTRY.snapshot()
+
+        def metric(name):
+            return snap.get(name, {}).get("values", {})
+
+        return {
+            "device": str(self.device),
+            "queue_depth_lanes": self.queue.depth_lanes,
+            "engines": sorted(f"{w}/{c}" for (w, c) in self._engines),
+            "buckets": list(self.config.bucket_table()),
+            "padding": {
+                "worst_case_pad_pct": padding_waste_pct(
+                    self.config.bucket_table()
+                ),
+                "dispatched_lanes": self.batcher.dispatched_lanes,
+                "padded_lanes": self.batcher.padded_lanes,
+                "observed_pad_pct": round(
+                    100.0 * self.batcher.padded_lanes
+                    / max(self.batcher.dispatched_lanes
+                          + self.batcher.padded_lanes, 1), 2
+                ),
+            },
+            "max_batch": self.config.max_batch,
+            "max_wait_ms": self.config.max_wait_ms,
+            "pf_backend": self.config.pf_backend,
+            "pf_precision": self.config.pf_precision,
+            "pipeline_depth": self.config.pipeline_depth,
+            "executor_lanes": {
+                w: {"queued": lane.queued(), "busy": lane.busy()}
+                for w, lane in sorted(self.batcher.lanes.items())
+            },
+            "prewarmed": sorted(self.batcher.prewarmed),
+            "requests": metric("serve_requests_total"),
+            "shed": metric("serve_shed_total"),
+            "recompiles": metric("serve_recompiles_total"),
+            "recompiles_by_bucket": dict(
+                sorted(self.batcher.shape_table().items())
+            ),
+            "cache": {"enabled": False},
+            "batch_lanes": metric("serve_batch_lanes"),
+            "queue_wait_seconds": metric("serve_queue_wait_seconds"),
+            "solve_seconds": metric("serve_solve_seconds"),
+            "request_seconds": metric("serve_request_seconds"),
+        }
+
+    def start(self) -> "Service":
+        self.batcher.start()
+        return self
+
+    def stop(self, drain_s: float = 5.0) -> None:
+        """Graceful shutdown: seal admission (new submissions raise the
+        typed ``shutting_down``), let the batcher finish every already-
+        admitted ticket for up to ``drain_s`` seconds, then fail
+        whatever is still queued and stop the pipeline."""
+        self.queue.seal()
+        deadline = _time.monotonic() + max(drain_s, 0.0)
+        while _time.monotonic() < deadline:
+            if self.queue.depth_lanes == 0 and not self.batcher.busy():
+                break
+            _time.sleep(0.02)
+        for t in self.queue.close():
+            self._complete_error(t, ShuttingDown("service stopped"))
+        self.batcher.stop()

@@ -35,3 +35,11 @@ def devices8():
     devs = jax.devices()
     assert len(devs) >= 8, f"expected 8 virtual CPU devices, got {len(devs)}"
     return devs[:8]
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's kernels); skipped "
+        "where there is none",
+    )

@@ -1,0 +1,149 @@
+"""The PyTorch port stands alone: no JAX, nothing of ``freedm_tpu``, the
+card unless the CPU is asked for, and typed refusals for what is not
+ported yet."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from freedm_tpu.pf.krylov import resolve_precision as ref_resolve_precision
+from freedm_tpu.pf.sparse import resolve_backend as ref_resolve_backend
+from freedm_tpu_torch import device as port_device
+from freedm_tpu_torch.grid import cases, matpower
+from freedm_tpu_torch.grid.bus import ybus_dense
+from freedm_tpu_torch.pf.backend import (
+    SPARSE_AUTO_MIN_BUSES,
+    BackendNotPorted,
+    resolve_backend,
+    resolve_precision,
+)
+from freedm_tpu_torch.pf.newton import make_newton_solver
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "freedm_tpu_torch"
+
+
+def _is_forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    return root in ("jax", "jaxlib", "freedm_tpu")
+
+
+def test_importing_every_module_pulls_in_no_jax_or_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import freedm_tpu_torch\n"
+        "for m in pkgutil.walk_packages(freedm_tpu_torch.__path__,\n"
+        "                               'freedm_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'freedm_tpu'))\n"
+        "print(len([k for k in sys.modules if k.startswith('freedm_tpu_torch')]))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15  # every module was imported
+
+
+def test_static_scan_finds_no_jax_or_reference_import():
+    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 15
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{path.name}:{node.lineno} {n}" for n in names
+                      if _is_forbidden(n)]
+    assert found == []
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    sys_ = matpower.load_builtin("case14")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_device.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_newton_solver(sys_)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ybus_dense(sys_)
+    assert port_device.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        port_device.resolve_device("meta")
+    assert port_device.platform_name(torch.device("cuda")) == "gpu"
+    assert port_device.platform_name(torch.device("cpu")) == "cpu"
+
+
+@pytest.mark.parametrize("backend,n", [
+    ("dense", 14), ("dense", 2000), ("auto", 118),
+    ("auto", SPARSE_AUTO_MIN_BUSES - 1),
+])
+def test_dense_resolution_matches_reference(backend, n):
+    assert resolve_backend(backend, n) == ref_resolve_backend(backend, n)
+
+
+@pytest.mark.parametrize("backend,n", [
+    ("sparse", 14), ("auto", SPARSE_AUTO_MIN_BUSES), ("auto", 2000),
+])
+def test_sparse_backend_raises_typed_not_ported(backend, n):
+    assert ref_resolve_backend(backend, n) == "sparse"
+    with pytest.raises(BackendNotPorted, match="ROADMAP"):
+        resolve_backend(backend, n)
+    assert issubclass(BackendNotPorted, NotImplementedError)
+
+
+def test_auto_backend_refuses_large_mesh_in_the_solver():
+    with pytest.raises(BackendNotPorted):
+        make_newton_solver(cases.synthetic_mesh(SPARSE_AUTO_MIN_BUSES),
+                           backend="auto", device="cpu")
+    with pytest.raises(ValueError, match="unknown pf backend"):
+        resolve_backend("banded", 14)
+
+
+@pytest.mark.parametrize("precision", ["f64", "mixed", "auto"])
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+def test_precision_resolution_matches_reference(precision, platform):
+    assert (resolve_precision(precision, platform)
+            == ref_resolve_precision(precision, backend=platform))
+
+
+def test_unknown_precision_is_a_typed_error():
+    with pytest.raises(ValueError, match="unknown pf precision"):
+        resolve_precision("bf16", "gpu")
+
+
+def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
+    """The validator the wrappers run on CUDA inputs before a launch
+    (a CPU call goes to the plain version and never reaches it)."""
+    from freedm_tpu_torch.kernels import newton_kernels as nk
+
+    n = 4
+    x = torch.zeros(2, 2 * n, dtype=torch.float64)
+    y = torch.zeros(n, n, dtype=torch.float64)
+    vec = torch.zeros(2, n, dtype=torch.float64)
+    mask = torch.zeros(n, dtype=torch.float64)
+    assert nk._check(x, y, y, {"p": vec}, {"m": mask}) == n
+    with pytest.raises(ValueError, match="contiguous"):
+        nk._check(x, y, y, {"p": vec[:, :3]}, {"m": mask})
+    with pytest.raises(ValueError, match="float64"):
+        nk._check(x, y.float(), y, {"p": vec}, {"m": mask})
+    with pytest.raises(TypeError, match="float64 or float32"):
+        nk._check(x.half(), y, y, {}, {})
+    with pytest.raises(ValueError, match=r"\[B, 2n\]"):
+        nk._check(torch.zeros(2, 7, dtype=torch.float64), y, y, {}, {})
+    assert set(nk.launches()) == {"newton_assemble", "power_injections",
+                                  "newton_update"}
