@@ -1,6 +1,6 @@
 """``python -m freedm_tpu_torch serve`` — run the power-flow server.
 
-    python -m freedm_tpu_torch serve --port 8080 --pf-backend dense
+    python -m freedm_tpu_torch serve --port 8080 --pf-backend auto --pf-precision auto
 
 serves ``POST /v1/pf`` (plus ``/healthz``, ``/stats``, ``/metrics``) on
 the card until interrupted; ``--device cpu`` runs the plain PyTorch path
@@ -23,6 +23,10 @@ def main(argv=None) -> int:
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--pf-backend", default="auto",
                     choices=("dense", "sparse", "auto"))
+    sp.add_argument("--pf-precision", default="auto",
+                    choices=("f64", "mixed", "auto"),
+                    help="inner-solve precision of the sparse backend "
+                         "(auto: mixed on the card, f64 on the CPU)")
     sp.add_argument("--max-batch", type=int, default=64)
     sp.add_argument("--max-wait-ms", type=float, default=2.0)
     sp.add_argument("--device", default=None,
@@ -36,7 +40,8 @@ def main(argv=None) -> int:
 
     svc = Service(ServeConfig(
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-        pf_backend=args.pf_backend, device=args.device,
+        pf_backend=args.pf_backend, pf_precision=args.pf_precision,
+        device=args.device,
         prewarm=tuple(args.prewarm),
     ))
     server = ServeServer(svc, port=args.port, host=args.host).start()

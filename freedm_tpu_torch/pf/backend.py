@@ -1,11 +1,8 @@
 """Backend and precision resolution for the power-flow engines.
 
 Ports ``BACKENDS``/``SPARSE_AUTO_MIN_BUSES``/``resolve_backend``
-(``freedm_tpu/pf/sparse.py:105-125``) and ``PF_PRECISIONS``/
-``resolve_precision`` (``freedm_tpu/pf/krylov.py:117-132``).  Only the
-dense Jacobian backend is ported so far: asking for ``"sparse"``, or an
-``"auto"`` that resolves to it, raises :class:`BackendNotPorted` — it
-never solves dense in its place.
+(``freedm_tpu/pf/sparse.py:105-120``) and ``PF_PRECISIONS``/
+``resolve_precision`` (``freedm_tpu/pf/krylov.py:117-132``).
 """
 
 from __future__ import annotations
@@ -21,28 +18,16 @@ BACKENDS = ("dense", "sparse", "auto")
 PF_PRECISIONS = ("f64", "mixed", "auto")
 
 
-class BackendNotPorted(NotImplementedError):
-    """The requested power-flow backend has no port yet."""
-
-
 def resolve_backend(backend: str, n_bus: int) -> str:
-    """Resolve a ``--pf-backend`` value to ``"dense"`` for a case of
-    ``n_bus`` buses: a typed ``ValueError`` on unknown values and
-    :class:`BackendNotPorted` where the answer would be ``"sparse"``."""
+    """Resolve a ``--pf-backend`` value to ``"dense"`` or ``"sparse"``
+    for a case of ``n_bus`` buses (typed ``ValueError`` on unknown
+    values)."""
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown pf backend {backend!r} (have: {', '.join(BACKENDS)})"
         )
-    why = "requested"
     if backend == "auto":
-        backend = "sparse" if n_bus >= SPARSE_AUTO_MIN_BUSES else "dense"
-        why = f"what 'auto' picks at {n_bus} >= {SPARSE_AUTO_MIN_BUSES} buses"
-    if backend == "sparse":
-        raise BackendNotPorted(
-            f"the sparse power-flow backend ({why}) is not ported yet "
-            f"(ROADMAP.md, module queue items 4-5: sparse Newton with "
-            f"Krylov and FDLF); use backend='dense'"
-        )
+        return "sparse" if n_bus >= SPARSE_AUTO_MIN_BUSES else "dense"
     return backend
 
 

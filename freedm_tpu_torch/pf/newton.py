@@ -86,82 +86,15 @@ def build_result(x, p, q, f, free, it, tol: float) -> NewtonResult:
     )
 
 
-def make_newton_solver(
-    sys: BusSystem,
-    tol: Optional[float] = None,
-    max_iter: int = 10,
-    dtype: torch.dtype = torch.float64,
-    backend: str = "dense",
-    precision: str = "auto",
-    device: DeviceLike = None,
-    mesh=None,
-    plain: bool = False,
-):
-    """Build the batched NR solvers for a bus system.
-
-    Returns ``(solve, solve_fixed)``, each taking optional ``[B, n]``
-    overrides ``p_inj, q_inj, v0, theta0`` (numpy or tensors; omitted
-    ones broadcast the system's stored injections / the flat start, and
-    ``B`` is 1 when every one is omitted) and returning a
-    :class:`NewtonResult` of ``[B, ...]`` tensors on ``device``:
-
-    - ``solve`` — iterates each lane until its max mismatch (pu) drops
-      below ``tol`` or ``max_iter`` is hit, with the reference's
-      vmapped ``while_loop`` semantics (per-lane iteration counts);
-    - ``solve_fixed`` — always ``max_iter`` steps on every lane.  Forward
-      only on the card (its backward kernels come with the VVC/gradient
-      slice): CUDA inputs that require grad raise.  On the CPU the plain
-      versions are differentiable by ``torch.autograd``.
-
-    ``tol=None`` picks the dtype's default (:func:`default_tol`).
-    ``backend`` resolves through
-    :func:`~freedm_tpu_torch.pf.backend.resolve_backend` (only
-    ``"dense"`` is ported); ``precision`` validates only — the dense LU
-    runs in ``dtype`` regardless, and TF32 never enters.  ``device`` is
-    ``cuda`` unless the caller asks for the CPU.  ``mesh`` (the
-    reference's sharded form) is not ported and raises.  ``plain=True``
-    runs the kernels' plain PyTorch versions on any device — the
-    on-card reference ``chip_smoke.py`` compares the kernel path with.
-    """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded solver form is not ported (ROADMAP.md, module "
-            "queue item 16: multi-GPU lane sharding)"
-        )
-    resolve_backend(backend, sys.n_bus)
-    dev = resolve_device(device)
-    resolve_precision(precision, platform_name(dev))  # typed error only
-    if dtype not in (torch.float64, torch.float32):
-        raise TypeError(f"dtype must be float64 or float32, got {dtype}")
-    if tol is None:
-        tol = default_tol(dtype)
-    tol = float(tol)
-    max_iter = int(max_iter)
-    n = sys.n_bus
-
-    if plain:
-        assemble, injections, update = (
-            nk.newton_assemble_plain, nk.power_injections_plain,
-            nk.newton_update_plain,
-        )
-    else:
-        assemble, injections, update = (
-            nk.newton_assemble, nk.power_injections, nk.newton_update,
-        )
-
-    def vec(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-
-    bus_type = np.asarray(sys.bus_type)
-    th_free = vec(bus_type != SLACK)  # θ unknown
-    v_free = vec(bus_type == PQ)  # V unknown
-    free = torch.cat([th_free, v_free])
-    v_set = vec(sys.v_set)
-    p_sched0 = vec(sys.p_inj)
-    q_sched0 = vec(sys.q_inj)
-    v_flat = torch.where(v_free > 0, torch.ones_like(v_set), v_set)
-    y_re, y_im = ybus_dense(sys, dtype=dtype, device=dev)
-    tol_t = torch.full((1,), tol, dtype=dtype, device=dev)
+def lane_prep(n: int, dtype: torch.dtype, dev: torch.device,
+              p_sched0: torch.Tensor, q_sched0: torch.Tensor,
+              v_flat: torch.Tensor):
+    """The solvers' argument handling: ``prep(p_inj, q_inj, status, v0,
+    theta0) -> (x [B, 2n], ps [B, n], qs [B, n])``, each optional
+    ``[B, n]`` override (numpy or tensor) cast to ``dtype`` on ``dev``;
+    omitted ones broadcast the stored schedule / the flat start, and
+    ``B`` is 1 when every one is omitted.  The caller's tensors are only
+    read: ``x`` is new and the schedules are never written."""
 
     def as_lanes(a, name):
         if a is None:
@@ -196,6 +129,97 @@ def make_newton_solver(
         x = torch.cat([fill(args["theta0"], torch.zeros_like(v_flat)),
                        fill(args["v0"], v_flat)], dim=1).contiguous()
         return x, ps, qs
+
+    return prep
+
+
+def make_newton_solver(
+    sys: BusSystem,
+    tol: Optional[float] = None,
+    max_iter: int = 10,
+    dtype: torch.dtype = torch.float64,
+    backend: str = "dense",
+    precision: str = "auto",
+    device: DeviceLike = None,
+    mesh=None,
+    plain: bool = False,
+):
+    """Build the batched NR solvers for a bus system.
+
+    Returns ``(solve, solve_fixed)``, each taking optional ``[B, n]``
+    overrides ``p_inj, q_inj, v0, theta0`` (numpy or tensors; omitted
+    ones broadcast the system's stored injections / the flat start, and
+    ``B`` is 1 when every one is omitted) and returning a
+    :class:`NewtonResult` of ``[B, ...]`` tensors on ``device``:
+
+    - ``solve`` — iterates each lane until its max mismatch (pu) drops
+      below ``tol`` or ``max_iter`` is hit, with the reference's
+      vmapped ``while_loop`` semantics (per-lane iteration counts);
+    - ``solve_fixed`` — always ``max_iter`` steps on every lane.  Forward
+      only on the card (its backward kernels come with the VVC/gradient
+      slice): CUDA inputs that require grad raise.  On the CPU the plain
+      versions are differentiable by ``torch.autograd``.
+
+    ``tol=None`` picks the dtype's default (:func:`default_tol`).
+    ``backend`` resolves through
+    :func:`~freedm_tpu_torch.pf.backend.resolve_backend`: ``"sparse"``
+    (and ``"auto"`` at 512 buses or more) returns
+    :func:`~freedm_tpu_torch.pf.sparse.make_sparse_newton_solver`'s
+    solvers, which take ``precision``; on the dense path ``precision``
+    validates only — the LU runs in ``dtype`` regardless, and TF32 never
+    enters.  ``device`` is
+    ``cuda`` unless the caller asks for the CPU.  ``mesh`` (the
+    reference's sharded form) is not ported and raises.  ``plain=True``
+    runs the kernels' plain PyTorch versions on any device — the
+    on-card reference ``chip_smoke.py`` compares the kernel path with.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the mesh-sharded solver form is not ported (ROADMAP.md, module "
+            "queue item 16: multi-GPU lane sharding)"
+        )
+    if resolve_backend(backend, sys.n_bus) == "sparse":
+        from freedm_tpu_torch.pf.sparse import make_sparse_newton_solver
+
+        return make_sparse_newton_solver(
+            sys, tol=tol, max_iter=max_iter, dtype=dtype,
+            precision=precision, device=device, plain=plain,
+        )
+    dev = resolve_device(device)
+    resolve_precision(precision, platform_name(dev))  # typed error only
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"dtype must be float64 or float32, got {dtype}")
+    if tol is None:
+        tol = default_tol(dtype)
+    tol = float(tol)
+    max_iter = int(max_iter)
+    n = sys.n_bus
+
+    if plain:
+        assemble, injections, update = (
+            nk.newton_assemble_plain, nk.power_injections_plain,
+            nk.newton_update_plain,
+        )
+    else:
+        assemble, injections, update = (
+            nk.newton_assemble, nk.power_injections, nk.newton_update,
+        )
+
+    def vec(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    bus_type = np.asarray(sys.bus_type)
+    th_free = vec(bus_type != SLACK)  # θ unknown
+    v_free = vec(bus_type == PQ)  # V unknown
+    free = torch.cat([th_free, v_free])
+    v_set = vec(sys.v_set)
+    p_sched0 = vec(sys.p_inj)
+    q_sched0 = vec(sys.q_inj)
+    v_flat = torch.where(v_free > 0, torch.ones_like(v_set), v_set)
+    y_re, y_im = ybus_dense(sys, dtype=dtype, device=dev)
+    tol_t = torch.full((1,), tol, dtype=dtype, device=dev)
+
+    prep = lane_prep(n, dtype, dev, p_sched0, q_sched0, v_flat)
 
     def step(x, ps, qs):
         jac, f = assemble(x, y_re, y_im, ps, qs, th_free, v_free, v_set)

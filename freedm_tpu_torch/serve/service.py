@@ -2,8 +2,10 @@
 
 Port of the ``pf`` part of ``freedm_tpu/serve/service.py``: snapshot AC
 power flow — a named case plus per-bus injection overrides (or a uniform
-stress ``scale``) — solved by the batched dense Newton path
-(:mod:`freedm_tpu_torch.pf.newton`), one lane per request.
+stress ``scale``) — solved by the batched Newton path, one lane per
+request: the dense backend (:mod:`freedm_tpu_torch.pf.newton`) below 512
+buses and the sparse one (:mod:`freedm_tpu_torch.pf.sparse`) at and
+above, under the default ``pf_backend="auto"``.
 
 Every response carries the solver's own convergence evidence
 (``residual_pu``/``converged``) plus a conservation check (Σ realized P
@@ -43,7 +45,6 @@ from freedm_tpu_torch.grid.bus import PQ
 from freedm_tpu_torch.pf.backend import (
     BACKENDS,
     PF_PRECISIONS,
-    BackendNotPorted,
     resolve_backend,
     resolve_precision,
 )
@@ -133,8 +134,8 @@ class PowerFlowResponse:
 #: Bus-system cases servable by pf (MATPOWER builtins).
 BUS_CASES = ("case14", "case_ieee30")
 
-#: Cap on the client-named synthetic meshN size: the dense Newton path
-#: is O(n^2) memory, and the case name is attacker-controlled input.
+#: Cap on the client-named synthetic meshN size: the case name is
+#: attacker-controlled input, and engine builds cost O(n^2) memory.
 MAX_MESH_BUSES = 2000
 
 
@@ -237,9 +238,10 @@ class PowerFlowEngine(_Engine):
         sys_ = _resolve_bus_case(case)
         self._sys = sys_
         self.pf_backend = resolve_backend(backend, sys_.n_bus)
-        # The dense path's LU runs in the working dtype: no mixed inner.
-        resolve_precision(precision, platform_name(self.device))
-        self.pf_precision = "f64"
+        # Only the sparse backend has a reduced-precision inner solve;
+        # the dense LU runs in the working dtype.
+        inner = resolve_precision(precision, platform_name(self.device))
+        self.pf_precision = inner if self.pf_backend == "sparse" else "f64"
         self.n_bus = sys_.n_bus
         self._p0 = np.asarray(sys_.p_inj, np.float64)
         self._q0 = np.asarray(sys_.q_inj, np.float64)
@@ -478,8 +480,6 @@ class Service:
                 f"pipeline_depth must be >= 0 (0 = serialized dispatch), "
                 f"got {config.pipeline_depth}"
             )
-        if config.pf_backend == "sparse":
-            resolve_backend("sparse", 0)  # raises BackendNotPorted
         if config.cache_mb and config.cache_mb > 0:
             raise NotImplementedError(
                 "the incremental cache tier is not ported yet (ROADMAP.md, "
@@ -544,15 +544,10 @@ class Service:
             if eng is not None:  # another submitter built it meanwhile
                 return eng
             cfg = self.config
-            try:
-                eng = _ENGINE_TYPES[workload](
-                    case, max_iter=cfg.pf_max_iter, backend=cfg.pf_backend,
-                    precision=cfg.pf_precision, device=self.device,
-                )
-            except BackendNotPorted as e:
-                # e.g. pf_backend="auto" resolving to sparse for a large
-                # meshN: a typed refusal, never a silent dense solve.
-                raise InvalidRequest(str(e)) from None
+            eng = _ENGINE_TYPES[workload](
+                case, max_iter=cfg.pf_max_iter, backend=cfg.pf_backend,
+                precision=cfg.pf_precision, device=self.device,
+            )
             with self._engines_lock:
                 self._engines[key] = eng
             return eng

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no JAX, nothing of ``freedm_tpu``, the
-card unless the CPU is asked for, and typed refusals for what is not
-ported yet."""
+card unless the CPU is asked for, and the reference's backend and
+precision resolution."""
 
 import ast
 import os
@@ -18,7 +18,6 @@ from freedm_tpu_torch.grid import cases, matpower
 from freedm_tpu_torch.grid.bus import ybus_dense
 from freedm_tpu_torch.pf.backend import (
     SPARSE_AUTO_MIN_BUSES,
-    BackendNotPorted,
     resolve_backend,
     resolve_precision,
 )
@@ -91,25 +90,20 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize("backend,n", [
     ("dense", 14), ("dense", 2000), ("auto", 118),
     ("auto", SPARSE_AUTO_MIN_BUSES - 1),
+    ("sparse", 14), ("auto", SPARSE_AUTO_MIN_BUSES), ("auto", 2000),
 ])
-def test_dense_resolution_matches_reference(backend, n):
+def test_backend_resolution_matches_reference(backend, n):
     assert resolve_backend(backend, n) == ref_resolve_backend(backend, n)
 
 
-@pytest.mark.parametrize("backend,n", [
-    ("sparse", 14), ("auto", SPARSE_AUTO_MIN_BUSES), ("auto", 2000),
-])
-def test_sparse_backend_raises_typed_not_ported(backend, n):
-    assert ref_resolve_backend(backend, n) == "sparse"
-    with pytest.raises(BackendNotPorted, match="ROADMAP"):
-        resolve_backend(backend, n)
-    assert issubclass(BackendNotPorted, NotImplementedError)
-
-
-def test_auto_backend_refuses_large_mesh_in_the_solver():
-    with pytest.raises(BackendNotPorted):
-        make_newton_solver(cases.synthetic_mesh(SPARSE_AUTO_MIN_BUSES),
-                           backend="auto", device="cpu")
+def test_auto_backend_hands_large_mesh_to_the_sparse_solver():
+    sys_ = cases.synthetic_mesh(SPARSE_AUTO_MIN_BUSES, seed=3)
+    solve, fixed = make_newton_solver(sys_, backend="auto", device="cpu")
+    assert solve.__qualname__.startswith("make_sparse_newton_solver")
+    assert fixed.__qualname__.startswith("make_sparse_newton_solver")
+    dense, _ = make_newton_solver(cases.synthetic_mesh(40), backend="auto",
+                                  device="cpu")
+    assert dense.__qualname__.startswith("make_newton_solver")
     with pytest.raises(ValueError, match="unknown pf backend"):
         resolve_backend("banded", 14)
 
@@ -147,3 +141,12 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
         nk._check(torch.zeros(2, 7, dtype=torch.float64), y, y, {}, {})
     assert set(nk.launches()) == {"newton_assemble", "power_injections",
                                   "newton_update"}
+    from freedm_tpu_torch.kernels import sparse_kernels as sk
+
+    assert set(sk.launches()) == {"sparse_assemble", "sparse_matvec",
+                                  "gmres_block_orth", "gmres_lstsq"}
+    vb = torch.zeros(2, 17, 8, dtype=torch.float64)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk._want(vb, {"w": (vb[:, :4], torch.float64, (2, 4, 8))})
+    with pytest.raises(TypeError, match="float64 or float32"):
+        sk._want(vb.half(), {})

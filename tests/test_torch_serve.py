@@ -17,7 +17,6 @@ from freedm_tpu.serve.queue import InvalidRequest as RefInvalidRequest
 from freedm_tpu.serve.service import ServeConfig as RefServeConfig
 from freedm_tpu.serve.service import Service as RefService
 from freedm_tpu_torch.core import metrics as obs
-from freedm_tpu_torch.pf.backend import BackendNotPorted
 from freedm_tpu_torch.serve.http import ServeServer
 from freedm_tpu_torch.serve.queue import InvalidRequest
 from freedm_tpu_torch.serve.service import ServeConfig, Service
@@ -149,17 +148,11 @@ def test_http_roundtrip_and_typed_errors(services):
         server.stop()
 
 
-def test_unported_configurations_raise_typed_errors(services):
-    _, port = services
+def test_unported_configurations_raise_typed_errors():
     with pytest.raises(NotImplementedError, match="cache"):
         Service(ServeConfig(device="cpu", cache_mb=64.0), start=False)
     with pytest.raises(NotImplementedError, match="mesh_devices"):
         Service(ServeConfig(device="cpu", mesh_devices=4), start=False)
-    with pytest.raises(BackendNotPorted):
-        Service(ServeConfig(device="cpu", pf_backend="sparse"), start=False)
-    # auto resolves to sparse at >= 512 buses: a typed 400, never dense.
-    with pytest.raises(InvalidRequest, match="sparse"):
-        port.request("pf", {"case": "mesh600"})
 
 
 def test_prewarm_runs_every_bucket_without_counting_recompiles():
