@@ -30,10 +30,19 @@ Phases (any failure exits non-zero, and no result line is printed):
 4. sparse kernels: S1-S4 against their plain versions at mesh118,
    mesh2000 and mesh5000, B ∈ {1, 3, 64} (B ≤ 8 at mesh5000), float64
    and float32, with a breakdown lane and a forced Cholesky failure
-   (``SPARSE_TOL`` gives each tolerance and its reason); then their
-   times at mesh2000 × 64 beside their plain versions, their bounds,
+   (``SPARSE_TOL`` gives each tolerance and its reason), S3 on the
+   blocks of GMRES cycles with (m, s) ∈ {(16, 4), (16, 1), (16, 8),
+   (32, 4)} (j0 up to 28, 33 basis rows; mesh118's N = 236 splits into
+   ragged slices, mesh5000's 33 rows stream from L2; the float32 blocks
+   of the 8-step chain at mesh5000 are held to the float64 result, see
+   ``ORTH_F64_LIMIT``), S2 and S3 run twice on identical inputs
+   (identical bits), S3 also in both its shared- and its global-memory
+   form (identical bits); then their times at
+   mesh2000 × 64 (CUDA events over back-to-back calls, and device time
+   from ``torch.profiler``) beside their plain versions, their bounds,
    the preconditioner apply and, for S2, one ``torch.sparse.mm`` over a
-   block-diagonal CSR matrix of every lane's J;
+   block-diagonal CSR matrix of every lane's J — S2 and S3 in float64
+   and float32;
 5. sparse solves: mesh2000 × 64 in f64 and in mixed — every lane
    converges, losses ≥ 0, three lanes within 1e-9 pu of the plain-version
    sparse solve and 1e-6 pu of the dense solve — with launches per
@@ -51,8 +60,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    and converged, solved sparse and mixed; every S1-S4 launch count over
    the burst must be > 0.
 
-The line before the last is the kernel table as one JSON object; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table as one JSON object (S2
+and S3 also carry ``device_ms`` and float32 ``*_f32`` times); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -275,6 +285,27 @@ def time_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps):
+    """Mean device time of one call of ``fn``: the kernel rows of a
+    ``torch.profiler`` trace over ``reps`` calls (after one warm call),
+    without the host's launch cost that CUDA events over back-to-back
+    calls also count when a call launches faster than Python issues it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and getattr(e, "self_device_time_total", 0) > 0)
+    check(busy > 0, "the profiler recorded no device time")
+    return busy / 1e3 / reps
+
+
 def bound(bytes_, ops, fp64=True):
     t_bytes = bytes_ / PEAK_BYTES * 1e3
     t_ops = ops / (PEAK_FP64 if fp64 else PEAK_FP32) * 1e3
@@ -470,10 +501,29 @@ def solve_mesh2000(torch, nk):
 #: contraction; S3/S4 also in the Cholesky/triangular-solve order and,
 #: for S4, a Jacobi SVD against cuSOLVER's.
 SPARSE_TOL = {"float64": (1e-12, 1e-9), "float32": (1e-5, 1e-3)}
+#: The one shape S3 is not held to its plain version at SPARSE_TOL: the
+#: float32 blocks of the 8-step chain at mesh5000.  The LU-kind
+#: preconditioner makes M⁻¹J nearly the identity there, so the chain's
+#: eight normalized vectors are nearly parallel: the block's condition
+#: after Gram-Schmidt is ~2e5 and its Gram's ~6e10, past float32's 1/eps,
+#: and rounding the Gram-Schmidt update once instead of twice moves the
+#: plain version's own result by ~6e-3
+#: (``tests/test_torch_krylov.py::test_s8_float32_chain_at_mesh5000_is_ill_posed``).
+#: Those blocks are held to ``ORTH_F64_LIMIT`` of the float64 result of the
+#: same inputs instead (sound float32 results read up to 6e-3 there; the
+#: plain algorithm without its second CholQR pass, its ridge or its
+#: Gram-Schmidt reads 0.3-1), and their distance from the plain version
+#: is printed.
+ORTH_F64_LIMIT = 2e-2
+ILL_POSED_ORTH = ("mesh5000", "float32", (16, 8))
 SPARSE_CASES = (("mesh118", (1, 3, MAIN_LANES)),
                 ("mesh2000", (1, 3, MAIN_LANES)),
                 ("mesh5000", (1, 3, 8)))
 KRYLOV_M, KRYLOV_S = 16, 4
+#: GMRES cycles (m, s) whose S3 blocks phase 4 compares at B = 3: the
+#: solver's (16, 4) at every lane count, then s = 1 and 8, and 33 basis
+#: rows (j0 up to 28).
+ORTH_CYCLES = ((KRYLOV_M, KRYLOV_S), (16, 1), (16, 8), (32, 4))
 
 
 def rel_abs_err(torch, k, p):
@@ -495,13 +545,14 @@ def worst(pairs):
     return max(r for r, _ in pairs), max(a for _, a in pairs)
 
 
-def sparse_setup(torch, sys_, lanes, seed, dtype, pc=None):
+def sparse_setup(torch, sys_, lanes, seed, dtype, pc=None, device="cuda"):
     """Operands, a random state and scaled schedules for one case on the
-    card, the FDLF pair (built once per case) and the M⁻¹ apply."""
+    card (or ``device``), the FDLF pair (built once per case) and the M⁻¹
+    apply."""
     from freedm_tpu_torch.pf.krylov import build_fdlf_precond, fdlf_apply
     from freedm_tpu_torch.pf.sparse import sparse_operands
 
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     rng = np.random.default_rng(seed)
     n = sys_.n_bus
     op = sparse_operands(sys_, dtype=dtype, device=dev)
@@ -522,10 +573,12 @@ def sparse_setup(torch, sys_, lanes, seed, dtype, pc=None):
     return op, x, ps, qs, pc, m_op
 
 
-def gmres_captures(torch, sk, op, ev, bv, f, x, m_op):
-    """The inputs of every S3 and S4 call of one plain GMRES cycle on the
-    Newton system at x (lane 1, when there is one, has a zero right-hand
-    side: its chain breaks down at once)."""
+def gmres_captures(torch, sk, op, ev, bv, f, x, m_op, m=KRYLOV_M,
+                   s=KRYLOV_S):
+    """The inputs of every S3 and S4 call of one plain GMRES cycle of
+    dimension m and block size s on the Newton system at x (lane 1, when
+    there is one, has a zero right-hand side: its chain breaks down at
+    once)."""
     from freedm_tpu_torch.pf.krylov import _pgmres_block
 
     n = op.n
@@ -547,8 +600,7 @@ def gmres_captures(torch, sk, op, ev, bv, f, x, m_op):
     sk.gmres_block_orth_plain, sk.gmres_lstsq_plain = spy_orth, spy_lstsq
     try:
         _pgmres_block(lambda u: sk.sparse_matvec_plain(ev, bv, u, op),
-                      lambda u: m_op(u, x[:, n:]), b, m=KRYLOV_M,
-                      s=KRYLOV_S, plain=True)
+                      lambda u: m_op(u, x[:, n:]), b, m=m, s=s, plain=True)
     finally:
         sk.gmres_block_orth_plain, sk.gmres_lstsq_plain = orth, lstsq
     return caps
@@ -561,17 +613,84 @@ def run_orth(fn, cap):
     return vb, valid
 
 
+def same_bits(torch, a, b):
+    """Bit-for-bit equality (NaNs included)."""
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]),
+                                              b.view(ints[b.dtype]))
+
+
+def compare_orth(torch, sk, cap, label, tol, f64_limit=None):
+    """S3 on one captured block against its plain version; ``(rel, abs)``.
+    At the second block of a cycle (j0 = s) with 3 lanes or more, lane 2's
+    candidate block holds an inf: its Cholesky fails and the block must
+    come out zero.  The kernel runs twice and must give the same bits.
+    With ``f64_limit`` (``ILL_POSED_ORTH``) the block is held to that
+    distance from the float64 result instead, and the returned error is
+    that of the ``valid`` flags alone."""
+    _, vb, valid, w, j0 = cap
+    s_ = w.shape[1]
+    fail = w.shape[0] >= 3 and j0 == s_
+    if fail:
+        w = w.clone()
+        w[2, 0, 0] = float("inf")
+    cap = ("orth", vb, valid, w, j0)
+    vk, ak = run_orth(sk.gmres_block_orth, cap)
+    vk2, ak2 = run_orth(sk.gmres_block_orth, cap)
+    check(same_bits(torch, vk, vk2) and same_bits(torch, ak, ak2),
+          f"S3 not bit-identical on repeat: {label} s={s_} j0={j0}")
+    vp, ap = run_orth(sk.gmres_block_orth_plain, cap)
+    if fail:
+        rows = slice(j0 + 1, j0 + 1 + s_)
+        check(bool((vk[2, rows] == 0).all()) and bool((ak[2, rows] == 0).all()),
+              f"S3 kept a failed block: {label} s={s_}")
+    d_valid = float((ak - ap).abs().max())
+    err = rel_abs_err(torch, vk, vp)
+    if f64_limit is None:
+        return worst([err, (d_valid, d_valid)])
+    c64 = ("orth", vb.double(), valid.double(), w.double(), j0)
+    ref, _ = run_orth(sk.gmres_block_orth_plain, c64)
+    e_k = rel_abs_err(torch, vk.double(), ref)[0]
+    e_p = rel_abs_err(torch, vp.double(), ref)[0]
+    log(f"sparse kernels: {label} S3 s={s_} j0={j0}: kernel vs plain "
+        f"{err[0]:.2e}; vs the float64 result kernel {e_k:.2e} (limit "
+        f"{f64_limit:g}), plain {e_p:.2e}")
+    check(e_k <= f64_limit, f"gmres_block_orth {label} s={s_} j0={j0}: "
+                            f"{e_k} from the float64 result > {f64_limit}")
+    return d_valid, d_valid
+
+
+def check_forms(torch, sk, cap, label):
+    """S3 reading its rows from global memory gives the bits of its
+    shared-memory form (the same cluster, the same arithmetic)."""
+    _, vb, valid, w, j0 = cap
+    nrows, nvec = vb.shape[1:]
+    outs = []
+    for r in (None, False):
+        plan = sk.block_orth_plan(nvec, nrows, w.shape[1], j0,
+                                  vb.element_size(), resident=r)
+        vk, ak = vb.clone(), valid.clone()
+        sk._launch_block_orth(vk, ak, w, j0, plan)
+        outs.append((vk, ak))
+    (v1, a1), (v2, a2) = outs
+    check(same_bits(torch, v1, v2) and same_bits(torch, a1, a2),
+          f"S3's two forms differ: {label} j0={j0}")
+
+
 def compare_sparse_kernels(torch, sk, errs):
     """S1-S4 against their plain versions at mesh118/2000/5000, several
     lane counts, float64 and float32, with a breakdown lane and a forced
     Cholesky failure (an inf in a candidate block: its lane's factor is
-    all NaN, so the block must come out zero)."""
+    all NaN, so the block must come out zero); S3 also over
+    ``ORTH_CYCLES``; S2 and S3 bit-identical on repeat, S3 also across
+    its two forms."""
     for ci, (name, lane_counts) in enumerate(SPARSE_CASES):
         sys_ = case_system(name)
         pc = None
         for lanes in lane_counts:
             for dtype in (torch.float64, torch.float32):
                 tol12, tol34 = SPARSE_TOL[str(dtype).split(".")[-1]]
+                label = f"{name} B={lanes} {str(dtype)[6:]}"
                 op, x, ps, qs, pc, m_op = sparse_setup(
                     torch, sys_, lanes, 10 * ci + lanes, dtype, pc)
                 k1 = sk.sparse_assemble(x, ps, qs, op)
@@ -579,31 +698,32 @@ def compare_sparse_kernels(torch, sk, errs):
                 e1 = worst(rel_abs_err(torch, a, b) for a, b in zip(k1, p1))
                 ev, bv, f = p1
                 u = torch.randn_like(x)
-                e2 = rel_abs_err(torch, sk.sparse_matvec(ev, bv, u, op),
+                y2 = sk.sparse_matvec(ev, bv, u, op)
+                e2 = rel_abs_err(torch, y2,
                                  sk.sparse_matvec_plain(ev, bv, u, op))
-                caps = gmres_captures(torch, sk, op, ev, bv, f, x, m_op)
+                check(same_bits(torch, y2, sk.sparse_matvec(ev, bv, u, op)),
+                      f"S2 not bit-identical on repeat: {label}")
                 e3 = e4 = (0.0, 0.0)
-                for cap in caps:
-                    if cap[0] == "orth":
-                        cap = list(cap)
-                        if lanes >= 3 and cap[4] == KRYLOV_S:
-                            cap[3] = cap[3].clone()
-                            cap[3][2, 0, 0] = float("inf")
-                        vk, ak = run_orth(sk.gmres_block_orth, cap)
-                        vp, ap = run_orth(sk.gmres_block_orth_plain, cap)
-                        d_valid = float((ak - ap).abs().max())
-                        e3 = worst([e3, rel_abs_err(torch, vk, vp),
-                                    (d_valid, d_valid)])
-                        if lanes >= 3 and cap[4] == KRYLOV_S:
-                            rows = slice(cap[4] + 1, cap[4] + 1 + KRYLOV_S)
-                            check(bool((vk[2, rows] == 0).all())
-                                  and bool((ak[2, rows] == 0).all()),
-                                  f"S3 kept a failed block on {name}")
-                    else:
-                        _, vb, valid, ws, zs, beta = cap
-                        e4 = worst([e4, rel_abs_err(
-                            torch, sk.gmres_lstsq(vb, valid, ws, zs, beta),
-                            sk.gmres_lstsq_plain(vb, valid, ws, zs, beta))])
+                cycles = ORTH_CYCLES if lanes == 3 else ORTH_CYCLES[:1]
+                for m_k, s_k in cycles:
+                    caps = gmres_captures(torch, sk, op, ev, bv, f, x, m_op,
+                                          m_k, s_k)
+                    ill = (name, str(dtype)[6:], (m_k, s_k)) == ILL_POSED_ORTH
+                    for cap in caps:
+                        if cap[0] == "orth":
+                            e3 = worst([e3, compare_orth(
+                                torch, sk, cap, label, tol34,
+                                ORTH_F64_LIMIT if ill else None)])
+                        elif (m_k, s_k) == ORTH_CYCLES[0]:
+                            _, vb, valid, ws, zs, beta = cap
+                            e4 = worst([e4, rel_abs_err(
+                                torch, sk.gmres_lstsq(vb, valid, ws, zs, beta),
+                                sk.gmres_lstsq_plain(vb, valid, ws, zs,
+                                                     beta))])
+                    if lanes == 3 and (m_k, s_k) == ORTH_CYCLES[0]:
+                        check_forms(torch, sk,
+                                    [c for c in caps if c[0] == "orth"][-1],
+                                    label)
                 torch.cuda.synchronize()
                 log(f"sparse kernels: {name:>8} B={lanes:<3} {str(dtype)[6:]:<7}"
                     f" relative S1 {e1[0]:.1e}  S2 {e2[0]:.1e}  S3 {e3[0]:.1e}"
@@ -613,8 +733,8 @@ def compare_sparse_kernels(torch, sk, errs):
                         ("sparse_matvec", e2, tol12),
                         ("gmres_block_orth", e3, tol34),
                         ("gmres_lstsq", e4, tol34)):
-                    check(rel <= tol, f"{kname} disagrees on {name} B={lanes} "
-                                      f"{dtype}: {rel} > {tol}")
+                    check(rel <= tol, f"{kname} disagrees on {label}: "
+                                      f"{rel} > {tol}")
                     if dtype == torch.float64:
                         errs[kname] = max(errs[kname], ab)
                 del k1, p1, ev, bv, f, caps
@@ -665,80 +785,123 @@ def sparse_library_matvec(torch, op, ev, bv):
 def time_sparse_kernels(torch, sk):
     """Each of S1-S4 at the main path's shape (mesh2000, 64 lanes,
     float64) against its plain version, its bound and, for S2, the
-    library sparse product."""
+    library sparse product; S2 and S3 (and the library product) also in
+    float32, the dtype of the default mixed path's inner solve, and by
+    device time.  Returns ``(rows, extra)``: the float64 table rows and,
+    for S2 and S3, the further fields of their table entries."""
     sys_ = case_system("mesh2000")
     lanes, n, m = MAIN_LANES, sys_.n_bus, sys_.n_branch
-    nvec, w, iw = 2 * n, 8, 4
-    op, x, ps, qs, pc, m_op = sparse_setup(torch, sys_, lanes, 3,
-                                           torch.float64)
+    nvec, iw = 2 * n, 4
     rows = {}
-    # S1: reads x, the schedules, the per-edge and per-bus operands and
-    # the index arrays; writes ev, bv, f.  ~45 operations per edge and
-    # lane (sincos ~20), ~25 per bus and lane plus 1 per incidence.
-    b1 = (w * (lanes * nvec + 2 * lanes * n + 4 * m + 5 * n
-               + 8 * lanes * m + 6 * lanes * n + lanes * nvec)
-          + iw * (2 * m + n + 1 + 2 * m))
-    o1 = lanes * (45 * m + 25 * n + 2 * m)
-    k = time_ms(torch, lambda: sk.sparse_assemble(x, ps, qs, op), reps=50)
-    p = time_ms(torch, lambda: sk.sparse_assemble_plain(x, ps, qs, op),
-                reps=10)
-    rows["sparse_assemble"] = (k, p, None, *bound(b1, o1))
-    ev, bv, f = sk.sparse_assemble(x, ps, qs, op)
-    # S2: reads u, ev, the four diagonals, masks and the incidence;
-    # writes y.  4 FMAs (8 operations) per incidence and lane, 4 per row.
-    u = torch.randn_like(x)
-    b2 = (w * (lanes * nvec + 8 * lanes * m + 4 * lanes * n + 2 * n
-               + lanes * nvec) + iw * (n + 1 + 4 * m))
-    o2 = lanes * (2 * m * 8 + 8 * n)
-    k = time_ms(torch, lambda: sk.sparse_matvec(ev, bv, u, op), reps=200)
-    p = time_ms(torch, lambda: sk.sparse_matvec_plain(ev, bv, u, op),
-                reps=20)
-    csr = sparse_library_matvec(torch, op, ev, bv)
-    ucol = u.reshape(-1, 1)
-    e_lib = rel_abs_err(torch, (csr @ ucol).reshape(lanes, nvec),
-                        sk.sparse_matvec(ev, bv, u, op))[0]
-    check(e_lib <= 1e-12, f"library CSR product disagrees with S2: {e_lib}")
-    lib = time_ms(torch, lambda: csr @ ucol, reps=50)
-    rows["sparse_matvec"] = (k, p, lib, *bound(b2, o2))
-    del csr
-    # S3 and S4 on the inputs of a real cycle at this state.
-    caps = gmres_captures(torch, sk, op, ev, bv, f, x, m_op)
-    orth = [c for c in caps if c[0] == "orth"][-1]  # j0 = 12
-    _, vb, valid, wb, j0 = orth
-    s_ = wb.shape[1]
-    vk, vp = vb.clone(), vb.clone()
-    ak, ap = valid.clone(), valid.clone()
-    b3 = w * lanes * ((j0 + 1) * nvec + s_ * nvec + s_ * nvec
-                      + (j0 + 1) + s_)
-    o3 = lanes * nvec * (2 * 4 * s_ * (j0 + 1) + 2 * 3 * s_ * s_)
-    k = time_ms(torch, lambda: sk.gmres_block_orth(vk, ak, wb, j0), reps=50)
-    p = time_ms(torch, lambda: sk.gmres_block_orth_plain(vp, ap, wb, j0),
-                reps=10)
-    rows["gmres_block_orth"] = (k, p, None, *bound(b3, o3))
-    _, vb, valid, ws, zs, beta = caps[-1]
-    mm = ws.shape[1]
-    b4 = w * lanes * ((mm + 1) * nvec + (mm + 1) + 2 * mm * nvec + 1 + nvec)
-    o4 = lanes * nvec * (2 * (mm + 1) * mm + 2 * mm)
-    k = time_ms(torch, lambda: sk.gmres_lstsq(vb, valid, ws, zs, beta),
-                reps=50)
-    p = time_ms(torch, lambda: sk.gmres_lstsq_plain(vb, valid, ws, zs, beta),
-                reps=10)
-    rows["gmres_lstsq"] = (k, p, None, *bound(b4, o4))
-    # The preconditioner apply (two bf16 products, a library call of the
-    # port): reads the two [n, n] bf16 inverses and [B, 2n], writes [B, 2n].
-    v = x[:, n:]
-    t_apply = time_ms(torch, lambda: m_op(u, v), reps=100)
-    b_apply = 2 * 2 * n * n + w * 2 * lanes * nvec
-    log(f"timing: precond apply (2 x bf16 [{lanes}, {n}] x [{n}, {n}], "
-        f"torch.matmul) {t_apply:.4f} ms  bound "
-        f"{b_apply / PEAK_BYTES * 1e3:.4f} ms (bytes)")
-    for name, (k, p, lib, b, by) in rows.items():
+    extra = {"sparse_matvec": {}, "gmres_block_orth": {}}
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        sfx = "" if f64 else "_f32"
+        w = 8 if f64 else 4
+        op, x, ps, qs, pc, m_op = sparse_setup(torch, sys_, lanes, 3, dtype)
+        if f64:
+            # S1: reads x, the schedules, the per-edge and per-bus operands
+            # and the index arrays; writes ev, bv, f.  ~45 operations per
+            # edge and lane (sincos ~20), ~25 per bus and lane plus 1 per
+            # incidence.
+            b1 = (w * (lanes * nvec + 2 * lanes * n + 4 * m + 5 * n
+                       + 8 * lanes * m + 6 * lanes * n + lanes * nvec)
+                  + iw * (2 * m + n + 1 + 2 * m))
+            o1 = lanes * (45 * m + 25 * n + 2 * m)
+            k = time_ms(torch, lambda: sk.sparse_assemble(x, ps, qs, op),
+                        reps=50)
+            p = time_ms(torch, lambda: sk.sparse_assemble_plain(x, ps, qs, op),
+                        reps=10)
+            rows["sparse_assemble"] = (k, p, None, *bound(b1, o1))
+        ev, bv, f = sk.sparse_assemble(x, ps, qs, op)
+        # S2: reads u, ev, the four diagonals, masks, the branch ends and
+        # the incidence; writes y.  4 FMAs (8 operations) per incidence
+        # and lane, 4 per row.
+        u = torch.randn_like(x)
+        b2 = (w * (lanes * nvec + 8 * lanes * m + 4 * lanes * n + 2 * n
+                   + lanes * nvec) + iw * (2 * m + n + 1 + 2 * m))
+        o2 = lanes * (2 * m * 8 + 8 * n)
+        k = time_ms(torch, lambda: sk.sparse_matvec(ev, bv, u, op), reps=200)
+        k_dev = device_ms(torch, lambda: sk.sparse_matvec(ev, bv, u, op),
+                          reps=50)
+        p = time_ms(torch, lambda: sk.sparse_matvec_plain(ev, bv, u, op),
+                    reps=20)
+        csr = sparse_library_matvec(torch, op, ev, bv)
+        ucol = u.reshape(-1, 1)
+        e_lib = rel_abs_err(torch, (csr @ ucol).reshape(lanes, nvec),
+                            sk.sparse_matvec(ev, bv, u, op))[0]
+        lib_tol = SPARSE_TOL[str(dtype)[6:]][0]
+        check(e_lib <= lib_tol,
+              f"library CSR product disagrees with S2 ({dtype}): {e_lib}")
+        lib = time_ms(torch, lambda: csr @ ucol, reps=200)
+        lib_dev = device_ms(torch, lambda: csr @ ucol, reps=50)
+        b, by = bound(b2, o2, fp64=f64)
+        if f64:
+            rows["sparse_matvec"] = (k, p, lib, b, by)
+        else:
+            extra["sparse_matvec"].update(
+                ms_f32=k, plain_ms_f32=p, bound_ms_f32=b, library_ms_f32=lib)
+        extra["sparse_matvec"].update(
+            {"device_ms" + sfx: k_dev, "library_device_ms" + sfx: lib_dev})
+        log(f"timing: sparse_matvec{sfx:<4} kernel {k:.4f} ms (device "
+            f"{k_dev:.4f})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
+            f"library torch.sparse.mm {lib:.4f} ms (device {lib_dev:.4f})")
+        del csr
+        # S3 and S4 on the inputs of a real cycle at this state.
+        caps = gmres_captures(torch, sk, op, ev, bv, f, x, m_op)
+        orth = [c for c in caps if c[0] == "orth"][-1]  # j0 = 12
+        _, vb, valid, wb, j0 = orth
+        s_ = wb.shape[1]
+        vk, vp = vb.clone(), vb.clone()
+        ak, ap = valid.clone(), valid.clone()
+        b3 = w * lanes * ((j0 + 1) * nvec + s_ * nvec + s_ * nvec
+                          + (j0 + 1) + s_)
+        o3 = lanes * nvec * (2 * 4 * s_ * (j0 + 1) + 2 * 3 * s_ * s_)
+        k = time_ms(torch, lambda: sk.gmres_block_orth(vk, ak, wb, j0),
+                    reps=50)
+        k_dev = device_ms(torch, lambda: sk.gmres_block_orth(vk, ak, wb, j0),
+                          reps=20)
+        p = time_ms(torch, lambda: sk.gmres_block_orth_plain(vp, ap, wb, j0),
+                    reps=10)
+        b, by = bound(b3, o3, fp64=f64)
+        plan = sk.block_orth_plan(nvec, vb.shape[1], s_, j0, w)
+        if f64:
+            rows["gmres_block_orth"] = (k, p, None, b, by)
+        else:
+            extra["gmres_block_orth"].update(
+                ms_f32=k, plain_ms_f32=p, bound_ms_f32=b, library_ms_f32=None)
+        extra["gmres_block_orth"]["device_ms" + sfx] = k_dev
+        log(f"timing: gmres_block_orth{sfx:<4} kernel {k:.4f} ms (device "
+            f"{k_dev:.4f})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
+            f"[j0={j0}, s={s_}, cluster {plan.cluster}, "
+            f"{plan.smem} B shared, resident {plan.resident}]")
+        if f64:
+            _, vb, valid, ws, zs, beta = caps[-1]
+            mm = ws.shape[1]
+            b4 = w * lanes * ((mm + 1) * nvec + (mm + 1) + 2 * mm * nvec + 1
+                              + nvec)
+            o4 = lanes * nvec * (2 * (mm + 1) * mm + 2 * mm)
+            k = time_ms(torch, lambda: sk.gmres_lstsq(vb, valid, ws, zs, beta),
+                        reps=50)
+            p = time_ms(torch, lambda: sk.gmres_lstsq_plain(vb, valid, ws, zs,
+                                                            beta), reps=10)
+            rows["gmres_lstsq"] = (k, p, None, *bound(b4, o4))
+            # The preconditioner apply (two bf16 products, a library call
+            # of the port): reads the two [n, n] bf16 inverses and [B, 2n],
+            # writes [B, 2n].
+            v = x[:, n:]
+            t_apply = time_ms(torch, lambda: m_op(u, v), reps=100)
+            b_apply = 2 * 2 * n * n + w * 2 * lanes * nvec
+            log(f"timing: precond apply (2 x bf16 [{lanes}, {n}] x [{n}, "
+                f"{n}], torch.matmul) {t_apply:.4f} ms  bound "
+                f"{b_apply / PEAK_BYTES * 1e3:.4f} ms (bytes)")
+        del caps, vb, vk, vp, op, x, ev, bv, f, u
+        torch.cuda.empty_cache()
+    for name in ("sparse_assemble", "gmres_lstsq"):
+        k, p, lib, b, by = rows[name]
         log(f"timing: {name:<17} kernel {k:.4f} ms  plain {p:.4f} ms  "
-            f"bound {b:.4f} ms ({by})"
-            + (f"  library {lib:.4f} ms" if lib is not None else ""))
-    del caps, vb, vk, vp
-    torch.cuda.empty_cache()
-    return rows
+            f"bound {b:.4f} ms ({by})")
+    return rows, extra
 
 
 def profile_solve(torch, fn, label, top=8):
@@ -1025,7 +1188,8 @@ def main() -> int:
         solve_mesh2000(torch, nk)
         solve_f32(torch, nk)
         compare_sparse_kernels(torch, sk, errs)
-        rows.update(time_sparse_kernels(torch, sk))
+        sparse_rows, extra = time_sparse_kernels(torch, sk)
+        rows.update(sparse_rows)
         solve_sparse(torch, nk, sk)
         counts = serve(torch, nk)
         counts.update(serve_default(torch, sk))
@@ -1057,6 +1221,7 @@ def main() -> int:
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": errs[name], "ms": k, "plain_ms": p,
             "bound_ms": b, "bound_by": by, "library_ms": lib,
+            **extra.get(name, {}),
         })
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

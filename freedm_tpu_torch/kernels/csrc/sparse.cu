@@ -22,7 +22,8 @@
 //   candidate block against the masked basis rows 0..j0, CholQR2 with the
 //   ridge, the all-NaN factor on a failed Cholesky (jnp.linalg.cholesky's
 //   rule, which `where(isfinite)` then turns into a zero block), the newv row
-//   mask, and the writes into v_basis[j0+1 : j0+1+s] and valid.
+//   mask, and the writes into v_basis[j0+1 : j0+1+s] and valid.  A cluster
+//   of C <= 8 CTAs per lane splits the N columns into contiguous slices.
 //
 // S4 gmres_lstsq — replaces the finish of `_pgmres_block` (:479-482):
 //   H = (V valid) W^T of shape [mm+1, mm], the SVD minimum-norm least squares
@@ -48,36 +49,53 @@
 //      about 26.6 MB, 8 us.  Design: the edge pass is fully coalesced; the
 //      bus pass gathers from the edge arrays, which stay in L2.
 //   S2 reads u and the 8 edge + 4 diagonal arrays, writes y: bytes, about
-//      24.6 MB, 7.3 us (half in float32).  Design: the gathers hit L2; no
-//      scatter, no atomics.
-//   S3 reads the j0+1 basis rows twice and the [s, N] block a few times: bytes
-//      (about 70 MB per call at j0 = 12).  Design: one block per lane streams
-//      the rows from global memory in 32-column tiles through shared memory
-//      (the block does not have to fit: at mesh5000 it is 320 KB), the s x s
-//      Gram matrix and its Cholesky factor live in shared memory.  Its dot
-//      products (projection coefficients, Gram) accumulate in float64 and
-//      are rounded to the working dtype, as a GEMM's output is: summed in
-//      float32 one term after another over N = 10,000 they lost the
+//      24.6 MB, 7.4 us (half in float32).  Design: the gathers hit L2; no
+//      scatter, no atomics.  A warp is 32 buses of one lane: in this
+//      [lane, array, edge] layout a warp of 32 lanes of one bus gathers
+//      from 32 rows 256 KB apart (1.6-2.0x slower on an H100, and four
+//      lanes per thread 1.3-1.5x slower), and a cluster that first forms
+//      each edge's terms in shared memory was no faster.
+//   S3 reads the j0+1 basis rows and the [s, N] block once and writes the
+//      s new rows: bytes, about 43 MB at j0 = 12, s = 4, 12.8 us.  Design:
+//      a cluster of C CTAs per lane (512 CTAs at 64 lanes) each copies its
+//      slice of those rows into shared memory once (cp.async; 68 KB at
+//      mesh2000 with C = 8) and keeps it there through both Gram-Schmidt
+//      passes and both CholQR passes; Q is written once.  Where the slice
+//      does not fit in 227 KB (33 basis rows at mesh5000's N = 10,000) the
+//      CTA reads it from global memory (L2) in every pass instead, same
+//      arithmetic.  Each dot product (projection coefficients, Gram) is a
+//      float64 sum: per CTA, one warp per product, lanes over the slice's
+//      columns in order and a fixed shuffle tree; after a cluster barrier
+//      every CTA adds the C partials in rank order through distributed
+//      shared memory, so all hold the same bits, and rounds to the working
+//      dtype, as a GEMM's output is (float32 sums over N = 10,000 lost the
 //      orthogonality CholQR2 needs, and mixed solves at mesh5000 fell back
-//      to float64.
-//   S4 reads V, W and Z once: bytes, about 100 MB.  Design: as S3 for H and
-//      for Z^T y; the Jacobi SVD touches only shared memory.
-// S3 and S4 run one block per lane, 64 blocks on 132 SMs at 64 lanes: simple
-// and right first, they stay latency-bound well above their bounds.
+//      to float64).  Each CTA then runs the s x s Cholesky itself.
+//   S4 reads V, W and Z once: bytes, about 100 MB.  Design: one block per
+//      lane streams the rows in 32-column tiles through shared memory; the
+//      Jacobi SVD touches only shared memory.  64 blocks on 132 SMs at 64
+//      lanes: simple and right first, it stays well above its bound.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 32;      // columns staged per step of a row-dot pass
-constexpr int kMaxRows = 40;   // rows of one operand of a row-dot pass
-constexpr int kMaxPer = 8;     // dot products owned by one thread
+constexpr int kTile = 32;      // columns staged per step of S4's row-dot pass
+constexpr int kMaxRows = 40;   // rows of one operand of that pass
+constexpr int kMaxPer = 8;     // dot products owned by one thread there
 constexpr int kMaxS = 8;       // s-step block size
 constexpr int kMaxCols = 32;   // Krylov dimension mm of S4
 constexpr int kMaxSweeps = 60; // Jacobi sweeps
+constexpr int kMaxCluster = 8; // CTAs per lane of S3 (portable size)
+constexpr int kOrthRows = kMaxCols + 1;  // basis rows of S3
+constexpr int kMaxProd = 256;  // dot products of one S3 reduction (s (j0+1) <= 200)
+constexpr int kMaxSmem = 232448;  // shared memory a block may use on Hopper
 
 template <typename T> struct Lim;
 template <> struct Lim<double> {
@@ -232,7 +250,7 @@ __global__ void matvec_kernel(const T* __restrict__ ev, const T* __restrict__ bv
 }
 
 // ---------------------------------------------------------------------------
-// Row dot products for S3 and S4:
+// Row dot products for S4:
 //   out[i * nb + r] = sum_k (A[i, k] ascale[i]) (B[r, k] bscale[r]),
 // k ascending, accumulated in Acc, rows of length N in global memory,
 // staged through shared memory kTile columns at a time.  Thread t owns the
@@ -318,57 +336,165 @@ __device__ void cholesky_or_nan(const T* g, T ridge, int s, T (*L)[kMaxS]) {
       for (int j = 0; j < s; ++j) L[i][j] = j <= i ? quiet_nan<T>() : T(0);
 }
 
+// Element (r, k) of a block of rows at p[r * stride + k].
 template <typename T>
+struct Rows {
+  T* p;
+  int64_t stride;
+  __device__ __forceinline__ T& operator()(int r, int k) const {
+    return p[r * stride + k];
+  }
+};
+
+// Copy one element global -> shared without staging it in registers.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// This CTA's float64 partials of out[a * nbr + b] = sum_k A(a, k) (B(b, k)
+// bscale[b]) over its w columns: one warp per product (products round-robin
+// over the warps); each lane keeps two sums, over k = lane + 64 i and
+// k = lane + 32 + 64 i in order, adds them, and a fixed shuffle tree adds
+// the lanes into lane 0.
+template <typename T>
+__device__ void slice_dots(Rows<T> A, int na, Rows<T> B, int nbr,
+                           const T* bscale, int w, double* out) {
+  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int p = warp; p < na * nbr; p += nwarps) {
+    const int a = p / nbr, b = p - a * nbr;
+    const T sc = bscale != nullptr ? bscale[b] : T(1);
+    double acc0 = 0.0, acc1 = 0.0;
+    int k = ln;
+    for (; k + 32 < w; k += 64) {
+      acc0 += (double)A(a, k) * (double)(B(b, k) * sc);
+      acc1 += (double)A(a, k + 32) * (double)(B(b, k + 32) * sc);
+    }
+    if (k < w) acc0 += (double)A(a, k) * (double)(B(b, k) * sc);
+    double acc = acc0 + acc1;
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (ln == 0) out[p] = acc;
+  }
+}
+
+// out[p] = the cluster's sum of every CTA's part[p], ranks in order, rounded
+// to T: identical bits in every CTA.  Callers alternate between two `part`
+// buffers, so one barrier per reduction keeps a buffer from being rewritten
+// while another CTA still reads it.
+template <typename T>
+__device__ void cluster_sum(cg::cluster_group& cluster, double* part, int np,
+                            T* out) {
+  cluster.sync();
+  const int C = (int)cluster.num_blocks();
+  for (int p = threadIdx.x; p < np; p += blockDim.x) {
+    double acc = 0.0;
+    for (int c = 0; c < C; ++c) acc += cluster.map_shared_rank(part, c)[p];
+    out[p] = (T)acc;
+  }
+  __syncthreads();
+}
+
+// Bytes of S3's shared memory ahead of the resident rows: two partial
+// buffers (double), the coefficients, L, newv and the basis rows' valid.
+__host__ __device__ constexpr int orth_header_bytes(int itemsize) {
+  return (2 * kMaxProd * 8 +
+          (kMaxProd + kMaxS * kMaxS + kMaxS + kOrthRows) * itemsize + 15) /
+         16 * 16;
+}
+
+// One CTA of lane blockIdx.x / C owns the columns [c0, c1) = [rank N / C,
+// (rank + 1) N / C).  kResident: it keeps the basis rows 0..j0 and the block
+// of that slice in shared memory (row stride wmax) for the whole call; else
+// it reads them from global memory in every pass, building Q in place in
+// v_basis rows j0+1..j0+s.  Both run the same arithmetic in the same order.
+template <typename T, bool kResident>
 __global__ void __launch_bounds__(kThreads) block_orth_kernel(
     T* __restrict__ vbasis,     // [B, nrows, N]
     T* __restrict__ valid,      // [B, nrows]
     const T* __restrict__ wblk, // [B, s, N]
-    int nrows, int s, int N, int j0) {
-  __shared__ T sa[kMaxRows][kTile + 1];
-  __shared__ T sb[kMaxRows][kTile + 1];
-  __shared__ double acc[kMaxS * kMaxRows];
-  __shared__ T coef[kMaxS * kMaxRows];
-  __shared__ T L[kMaxS][kMaxS];
-  __shared__ T newv[kMaxS];
-  const T brk = T(1e-30);
+    int nrows, int s, int N, int j0, int wmax) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int64_t lane = blockIdx.x / C;
   const int tid = threadIdx.x;
-  const int64_t lane = blockIdx.x;
+  const int c0 = (int)((int64_t)rank * N / C);
+  const int w = (int)((int64_t)(rank + 1) * N / C) - c0;
+  const int nb = j0 + 1;
+  const T brk = T(1e-30);
+
+  double* part = (double*)smem;  // [2][kMaxProd]
+  T* coef = (T*)(part + 2 * kMaxProd);
+  T* Lf = coef + kMaxProd;
+  T (*L)[kMaxS] = reinterpret_cast<T (*)[kMaxS]>(Lf);
+  T* newv = Lf + kMaxS * kMaxS;
+  T* vs = newv + kMaxS;
+  T* data = (T*)(smem + orth_header_bytes(sizeof(T)));
+
   T* V = vbasis + lane * nrows * (int64_t)N;
   T* val = valid + lane * nrows;
   const T* W = wblk + lane * s * (int64_t)N;
-  T* Q = V + (int64_t)(j0 + 1) * N;
-  const int nb = j0 + 1;
+  T* out = V + (int64_t)nb * N + c0;  // v_basis rows j0+1.., this slice
+  Rows<T> vr, q, src;
+  if (kResident) {
+    for (int r = 0; r < nb + s; ++r) {
+      const T* g = (r < nb ? V + (int64_t)r * N : W + (int64_t)(r - nb) * N) + c0;
+      T* d = data + (int64_t)r * wmax;
+      for (int k = tid; k < w; k += blockDim.x) cp_async(d + k, g + k);
+    }
+    vr = {data, wmax};
+    q = {data + (int64_t)nb * wmax, wmax};
+    src = q;
+  } else {
+    vr = {V + c0, N};
+    q = {out, N};
+    src = {const_cast<T*>(W) + c0, N};
+  }
+  for (int r = tid; r < nb; r += blockDim.x) vs[r] = val[r];
+  if (tid < s) newv[tid] = T(1);
+  if (kResident) cp_async_wait_all();
+  __syncthreads();
 
+  int buf = 0;
   // Two passes of q <- q - (q vb^T) vb, vb = the basis rows 0..j0 times valid.
   for (int pass = 0; pass < 2; ++pass) {
-    const T* src = pass == 0 ? W : Q;
-    dot_rows(src, s, (const T*)nullptr, V, nb, val, N, sa, sb, acc);
-    for (int e = tid; e < s * nb; e += blockDim.x) coef[e] = (T)acc[e];
-    __syncthreads();
-    for (int k = tid; k < N; k += blockDim.x) {
+    slice_dots(src, s, vr, nb, (const T*)vs, w, part + buf * kMaxProd);
+    cluster_sum(cluster, part + buf * kMaxProd, s * nb, coef);
+    buf ^= 1;
+    for (int k = tid; k < w; k += blockDim.x) {
       T t[kMaxS];
 #pragma unroll
       for (int i = 0; i < kMaxS; ++i) t[i] = T(0);
       for (int r = 0; r < nb; ++r) {
-        const T vr = V[(int64_t)r * N + k] * val[r];
+        const T v = vr(r, k) * vs[r];
 #pragma unroll
         for (int i = 0; i < kMaxS; ++i)
-          if (i < s) t[i] += coef[i * nb + r] * vr;
+          if (i < s) t[i] += coef[i * nb + r] * v;
       }
-      for (int i = 0; i < s; ++i)
-        Q[(int64_t)i * N + k] = src[(int64_t)i * N + k] - t[i];
+#pragma unroll
+      for (int i = 0; i < kMaxS; ++i)
+        if (i < s) q(i, k) = src(i, k) - t[i];
     }
+    src = q;
     __syncthreads();
   }
 
   // CholQR2: Gram, ridge-guarded Cholesky, triangular solve, twice.
-  if (tid < s) newv[tid] = T(1);
-  __syncthreads();
   for (int pass = 0; pass < 2; ++pass) {
-    dot_rows((const T*)Q, s, (const T*)nullptr, (const T*)Q, s,
-             (const T*)nullptr, N, sa, sb, acc);
+    slice_dots(q, s, q, s, (const T*)nullptr, w, part + buf * kMaxProd);
+    cluster_sum(cluster, part + buf * kMaxProd, s * s, coef);
+    buf ^= 1;
     if (tid == 0) {
-      for (int e = 0; e < s * s; ++e) coef[e] = (T)acc[e];
       T dmax = coef[0];
       for (int i = 0; i < s; ++i) {
         const T d = coef[i * s + i];
@@ -380,22 +506,33 @@ __global__ void __launch_bounds__(kThreads) block_orth_kernel(
       cholesky_or_nan(coef, ridge, s, L);
     }
     __syncthreads();
-    for (int k = tid; k < N; k += blockDim.x) {
+    for (int k = tid; k < w; k += blockDim.x) {
+      // Fully unrolled over kMaxS, so yv stays in registers.
       T yv[kMaxS];
-      for (int i = 0; i < s; ++i) {
-        T a = Q[(int64_t)i * N + k];
-        for (int j = 0; j < i; ++j) a -= L[i][j] * yv[j];
-        yv[i] = a / L[i][i];
+#pragma unroll
+      for (int i = 0; i < kMaxS; ++i) {
+        if (i < s) {
+          T a = q(i, k);
+#pragma unroll
+          for (int j = 0; j < i; ++j) a -= L[i][j] * yv[j];
+          yv[i] = a / L[i][i];
+        }
       }
-      for (int i = 0; i < s; ++i) {
-        T out = yv[i];
-        if (pass == 1) out = (isfinite(out) ? out : T(0)) * newv[i];
-        Q[(int64_t)i * N + k] = out;
+#pragma unroll
+      for (int i = 0; i < kMaxS; ++i) {
+        if (i >= s) continue;
+        if (pass == 0) {
+          q(i, k) = yv[i];
+        } else {
+          out[(int64_t)i * N + k] =
+              (isfinite(yv[i]) ? yv[i] : T(0)) * newv[i];
+        }
       }
     }
     __syncthreads();
   }
-  if (tid < s) val[j0 + 1 + tid] = newv[tid];
+  if (rank == 0 && tid < s) val[nb + tid] = newv[tid];
+  cluster.sync();  // no CTA leaves while another still reads its partials
 }
 
 // ---------------------------------------------------------------------------
@@ -550,6 +687,41 @@ inline unsigned blocks_for(int64_t total) {
   return (unsigned)((total + kThreads - 1) / kThreads);
 }
 
+// Launch `kernel` on lanes * cluster CTAs in clusters of `cluster`, with
+// `smem` bytes of dynamic shared memory.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int lanes, int cluster,
+                    int smem, cudaStream_t stream, Args... args) {
+  cudaError_t err;
+  if (smem > 48 * 1024) {  // above 48 KB a kernel has to opt in, per device
+    static bool opted[64] = {};
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 64 || !opted[dev]) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < 64) opted[dev] = true;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(lanes * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_assemble(const T* x, const T* ps, const T* qs, const T* th_free,
                     const T* v_free, const T* v_set, const T* yft_re,
@@ -579,15 +751,25 @@ int launch_matvec(const T* ev, const T* bv, const T* u, const T* th_free,
   return (int)cudaGetLastError();
 }
 
+// The plan (cluster, wmax, smem, resident) comes from the wrapper's
+// block_orth_plan; it is checked here against what the kernel needs.
 template <typename T>
 int launch_block_orth(T* vbasis, T* valid, const T* wblk, int lanes,
-                      int nrows, int s, int N, int j0, cudaStream_t stream) {
+                      int nrows, int s, int N, int j0, int cluster, int wmax,
+                      int smem, int resident, cudaStream_t stream) {
+  const int64_t need =
+      orth_header_bytes(sizeof(T)) +
+      (resident ? (int64_t)(j0 + 1 + s) * wmax * (int64_t)sizeof(T) : 0);
   if (lanes <= 0 || N <= 0 || s < 1 || s > kMaxS || j0 < 0 ||
-      j0 + 1 > kMaxRows || j0 + 1 + s > nrows)
+      j0 + 1 + s > nrows || nrows > kOrthRows || s * (j0 + 1) > kMaxProd ||
+      cluster < 1 || cluster > kMaxCluster || cluster > N ||
+      (int64_t)wmax * cluster < N || smem < need || smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  block_orth_kernel<T><<<lanes, kThreads, 0, stream>>>(vbasis, valid, wblk,
-                                                        nrows, s, N, j0);
-  return (int)cudaGetLastError();
+  if (resident)
+    return launch_clusters(block_orth_kernel<T, true>, lanes, cluster, smem,
+                           stream, vbasis, valid, wblk, nrows, s, N, j0, wmax);
+  return launch_clusters(block_orth_kernel<T, false>, lanes, cluster, smem,
+                         stream, vbasis, valid, wblk, nrows, s, N, j0, wmax);
 }
 
 template <typename T>
@@ -626,11 +808,11 @@ int launch_lstsq(const T* vbasis, const T* valid, const T* wstore,
     return launch_matvec<T>(ev, bv, u, th_free, v_free, inc_ptr, inc_code,   \
                             inc_nbr, y, lanes, n, m, (cudaStream_t)stream);  \
   }                                                                          \
-  extern "C" int gmres_block_orth_##SUFFIX(T* vbasis, T* valid,               \
-                                           const T* wblk, int lanes,         \
-                                           int nrows, int s, int N, int j0,  \
-                                           void* stream) {                   \
+  extern "C" int gmres_block_orth_##SUFFIX(                                   \
+      T* vbasis, T* valid, const T* wblk, int lanes, int nrows, int s, int N, \
+      int j0, int cluster, int wmax, int smem, int resident, void* stream) { \
     return launch_block_orth<T>(vbasis, valid, wblk, lanes, nrows, s, N, j0, \
+                                cluster, wmax, smem, resident,               \
                                 (cudaStream_t)stream);                       \
   }                                                                          \
   extern "C" int gmres_lstsq_##SUFFIX(const T* vbasis, const T* valid,        \

@@ -24,13 +24,19 @@ cv_tf, av_ft, av_tf`` in the reference's ``_JacValues`` order — and
 ``bv [B, 6, n]`` — ``h_d, n_d, j_d, l_d, p_calc, q_calc``.  The GMRES
 basis is ``v_basis [B, mm+1, N]`` with ``valid [B, mm+1]``; the stored
 chain is ``z_store``/``w_store [B, mm, N]``.
+
+S3 runs a thread-block cluster per lane; how a lane splits over its
+cluster is a :class:`ClusterPlan` from :func:`block_orth_plan`, plain
+Python that the wrapper hands to the kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import threading
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,6 +60,18 @@ BREAKDOWN = 1e-30
 #: Krylov dimension ``mm`` of one GMRES cycle.
 MAX_BLOCK = 8
 MAX_KRYLOV = 32
+
+#: S3 runs a cluster of at most this many CTAs per lane (the portable
+#: cluster size), each with at most ``SMEM_LIMIT`` bytes of
+#: shared memory (what a block may use on Hopper).
+MAX_CLUSTER = 8
+SMEM_LIMIT = 232_448
+#: S3's shared memory ahead of the rows it keeps (``orth_header_bytes`` in
+#: ``csrc/sparse.cu``): two buffers of 256 float64 partials, then 256
+#: coefficients, the 8 x 8 factor, 8 row flags and 33 basis-row flags in
+#: the working dtype, rounded up to 16 bytes.
+_ORTH_PRODUCTS = 256
+_ORTH_SMALL = _ORTH_PRODUCTS + MAX_BLOCK * MAX_BLOCK + MAX_BLOCK + MAX_KRYLOV + 1
 
 
 def _count(name: str) -> None:
@@ -114,6 +132,62 @@ class SparseOperands(NamedTuple):
         return SparseOperands(*(
             t if t.dtype == torch.int32 else t.to(dtype) for t in self
         ))
+
+
+# ---------------------------------------------------------------------------
+# Launch plans of S2 and S3 (plain Python: the CPU tests hold them)
+# ---------------------------------------------------------------------------
+
+
+class ClusterPlan(NamedTuple):
+    """How S3 splits one lane over a cluster of CTAs.
+
+    CTA ``c`` of a lane's cluster owns the columns ``[bounds[c],
+    bounds[c + 1])`` of the Krylov vectors — the slices of ``c · nvec //
+    cluster``, which the kernel recomputes from its rank.  ``width`` is
+    the widest slice, ``smem`` the dynamic shared memory of one CTA in
+    bytes.  ``resident``: the CTA keeps its slice of the basis rows and
+    the block in shared memory; otherwise it reads them from global
+    memory in every pass, with the same arithmetic in the same order.
+    """
+
+    cluster: int
+    bounds: Tuple[int, ...]
+    width: int
+    smem: int
+    resident: bool
+
+
+@functools.lru_cache(maxsize=1024)
+def block_orth_plan(nvec: int, nrows: int, s: int, j0: int, itemsize: int,
+                    resident: Optional[bool] = None) -> ClusterPlan:
+    """S3's plan for ``v_basis [B, nrows, nvec]``, a block of ``s`` rows
+    after basis row ``j0``, in a dtype of ``itemsize`` bytes.
+
+    A slice of at least 32 columns per CTA, at most ``MAX_CLUSTER`` CTAs:
+    8 at mesh2000 (N = 4000, 500 columns each), 7 at mesh118 (N = 236,
+    slices of 33 and 34).  The CTA keeps the j0 + 1 basis rows and the s
+    block rows of its slice resident when they fit (``resident=None``);
+    ``resident=False`` forces the streamed form.  Raises ``ValueError`` on
+    a block the kernel does not take."""
+    if not (1 <= s <= MAX_BLOCK and 0 <= j0 and j0 + 1 + s <= nrows
+            and nrows <= MAX_KRYLOV + 1 and nvec >= 1):
+        raise ValueError(
+            f"unsupported block: s={s}, j0={j0}, {nrows} basis rows of "
+            f"{nvec} (s <= {MAX_BLOCK}, mm <= {MAX_KRYLOV})"
+        )
+    header = -(-(2 * _ORTH_PRODUCTS * 8 + _ORTH_SMALL * itemsize) // 16) * 16
+    cluster = max(1, min(MAX_CLUSTER, nvec // 32))
+    width = -(-nvec // cluster)
+    fits = header + width * (j0 + 1 + s) * itemsize <= SMEM_LIMIT
+    if resident is None:
+        resident = fits
+    elif resident and not fits:
+        raise ValueError(f"{j0 + 1 + s} rows of {width} columns do not fit "
+                         f"in {SMEM_LIMIT} bytes of shared memory")
+    smem = header + (width * (j0 + 1 + s) * itemsize if resident else 0)
+    bounds = tuple(c * nvec // cluster for c in range(cluster + 1))
+    return ClusterPlan(cluster, bounds, width, smem, bool(resident))
 
 
 # ---------------------------------------------------------------------------
@@ -248,41 +322,52 @@ def gmres_lstsq_plain(v_basis, valid, w_store, z_store, beta) -> Tensor:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _lib_lock = threading.Lock()
-_lib = None
+_fns: Dict[Tuple[str, torch.dtype], object] = {}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+_SIGS = {
+    "sparse_assemble": [_P] * 19 + [_I] * 3 + [_P],
+    "sparse_matvec": [_P] * 9 + [_I] * 3 + [_P],
+    "gmres_block_orth": [_P] * 3 + [_I] * 9 + [_P],
+    "gmres_lstsq": [_P] * 6 + [_I] * 3 + [_P],
+}
 
 
-def _sparse_lib() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = build.load("sparse")
-            for suffix in _SUFFIX.values():
-                sigs = {
-                    "sparse_assemble": [_P] * 19 + [_I] * 3 + [_P],
-                    "sparse_matvec": [_P] * 9 + [_I] * 3 + [_P],
-                    "gmres_block_orth": [_P] * 3 + [_I] * 5 + [_P],
-                    "gmres_lstsq": [_P] * 6 + [_I] * 3 + [_P],
-                }
-                for name, args in sigs.items():
-                    fn = getattr(lib, f"{name}_{suffix}")
-                    fn.argtypes = args
-                    fn.restype = _I
-            _lib = lib
-        return _lib
+def _fn(name: str, dtype: torch.dtype):
+    """The C entry point of kernel ``name`` for ``dtype``; the library is
+    built and loaded at the first call."""
+    fn = _fns.get((name, dtype))
+    if fn is None:
+        with _lib_lock:
+            if not _fns:
+                lib = build.load("sparse")
+                for dt, suffix in _SUFFIX.items():
+                    for kname, args in _SIGS.items():
+                        f = getattr(lib, f"{kname}_{suffix}")
+                        f.argtypes = args
+                        f.restype = _I
+                        _fns[(kname, dt)] = f
+        fn = _fns[(name, dtype)]
+    return fn
+
+
+def _sparse_lib() -> None:
+    """Build and load the kernels' library now (it happens at the first
+    launch otherwise)."""
+    _fn("sparse_matvec", torch.float64)
 
 
 def _want(like: Tensor, spec: Dict[str, Tuple[Tensor, torch.dtype, tuple]]):
     """Check device, dtype, shape and contiguity before a launch."""
     if like.dtype not in _SUFFIX:
         raise TypeError(f"kernels take float64 or float32, got {like.dtype}")
+    dev = like.device
     for name, (t, dtype, shape) in spec.items():
-        if t.device != like.device or t.dtype != dtype:
+        if t.dtype is not dtype or t.device != dev:
             raise ValueError(
-                f"{name} must be {dtype} on {like.device}, got {t.dtype} on "
+                f"{name} must be {dtype} on {dev}, got {t.dtype} on "
                 f"{t.device}"
             )
-        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        if t.shape != shape or not t.is_contiguous():
             raise ValueError(
                 f"{name} must be a contiguous {tuple(shape)} tensor, got "
                 f"{tuple(t.shape)}"
@@ -303,13 +388,42 @@ def _op_spec(op: SparseOperands, dtype) -> dict:
     return spec
 
 
+#: Operand sets already checked, by (id, dtype, device), with their
+#: device pointers; each entry keeps its set alive, so an id is not reused
+#: while it is here.  A solve calls S2 hundreds of times over one or two
+#: sets, and a check costs more host time than the launch.
+_checked_ops: Dict[tuple, Tuple[SparseOperands, Dict[str, int]]] = {}
+
+
+def _op_ptrs(op: SparseOperands, like: Tensor) -> Dict[str, int]:
+    """The device pointers of ``op``'s arrays, checked against ``like``'s
+    dtype and device the first time this set is seen."""
+    key = (id(op), like.dtype, like.get_device())
+    hit = _checked_ops.get(key)
+    if hit is not None and hit[0] is op:
+        return hit[1]
+    _want(like, _op_spec(op, like.dtype))
+    ptrs = {name: t.data_ptr() for name, t in zip(op._fields, op)}
+    with _launch_lock:
+        if len(_checked_ops) >= 64:
+            _checked_ops.clear()
+        _checked_ops[key] = (op, ptrs)
+    return ptrs
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _stream(t: Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _launch_on(t: Tensor):
+    """``(context, stream)`` for a launch on ``t``'s device: a context that
+    makes the device current (a no-op when it already is) and the raw
+    handle of its current stream."""
+    idx = t.get_device()
+    ctx = (contextlib.nullcontext() if idx == torch.cuda.current_device()
+           else torch.cuda.device(idx))
+    return ctx, torch._C._cuda_getCurrentRawStream(idx)
 
 
 def sparse_assemble(x, p_sched, q_sched,
@@ -324,17 +438,20 @@ def sparse_assemble(x, p_sched, q_sched,
     spec = {"x": (x, x.dtype, (lanes, 2 * n)),
             "p_sched": (p_sched, x.dtype, (lanes, n)),
             "q_sched": (q_sched, x.dtype, (lanes, n))}
-    spec.update(_op_spec(op, x.dtype))
     _want(x, spec)
-    fn = getattr(_sparse_lib(), f"sparse_assemble_{_SUFFIX[x.dtype]}")
-    with torch.cuda.device(x.device):
+    o = _op_ptrs(op, x)
+    fn = _fn("sparse_assemble", x.dtype)
+    ctx, stream = _launch_on(x)
+    with ctx:
         ev = torch.empty(lanes, 8, m, dtype=x.dtype, device=x.device)
         bv = torch.empty(lanes, 6, n, dtype=x.dtype, device=x.device)
         f = torch.empty(lanes, 2 * n, dtype=x.dtype, device=x.device)
-        ptrs = (x, p_sched, q_sched, op.th_free, op.v_free, op.v_set,
-                op.yft_re, op.yft_im, op.ytf_re, op.ytf_im, op.g_d, op.b_d,
-                op.f_idx, op.t_idx, op.inc_ptr, op.inc_code, ev, bv, f)
-        rc = fn(*(t.data_ptr() for t in ptrs), lanes, n, m, _stream(x))
+        rc = fn(x.data_ptr(), p_sched.data_ptr(), q_sched.data_ptr(),
+                *(o[k] for k in ("th_free", "v_free", "v_set", "yft_re",
+                                 "yft_im", "ytf_re", "ytf_im", "g_d", "b_d",
+                                 "f_idx", "t_idx", "inc_ptr", "inc_code")),
+                ev.data_ptr(), bv.data_ptr(), f.data_ptr(), lanes, n, m,
+                stream)
     _raise_on(rc, "sparse_assemble")
     _count("sparse_assemble")
     return ev, bv, f
@@ -347,17 +464,17 @@ def sparse_matvec(ev, bv, u, op: SparseOperands) -> Tensor:
         return sparse_matvec_plain(ev, bv, u, op)
     n, m = op.n, op.m
     lanes = u.shape[0]
-    spec = {"u": (u, u.dtype, (lanes, 2 * n)),
-            "ev": (ev, u.dtype, (lanes, 8, m)),
-            "bv": (bv, u.dtype, (lanes, 6, n))}
-    spec.update(_op_spec(op, u.dtype))
-    _want(u, spec)
-    fn = getattr(_sparse_lib(), f"sparse_matvec_{_SUFFIX[u.dtype]}")
-    with torch.cuda.device(u.device):
+    _want(u, {"u": (u, u.dtype, (lanes, 2 * n)),
+              "ev": (ev, u.dtype, (lanes, 8, m)),
+              "bv": (bv, u.dtype, (lanes, 6, n))})
+    o = _op_ptrs(op, u)
+    fn = _fn("sparse_matvec", u.dtype)
+    ctx, stream = _launch_on(u)
+    with ctx:
         y = torch.empty_like(u)
-        ptrs = (ev, bv, u, op.th_free, op.v_free, op.inc_ptr, op.inc_code,
-                op.inc_nbr, y)
-        rc = fn(*(t.data_ptr() for t in ptrs), lanes, n, m, _stream(u))
+        rc = fn(ev.data_ptr(), bv.data_ptr(), u.data_ptr(), o["th_free"],
+                o["v_free"], o["inc_ptr"], o["inc_code"], o["inc_nbr"],
+                y.data_ptr(), lanes, n, m, stream)
     _raise_on(rc, "sparse_matvec")
     _count("sparse_matvec")
     return y
@@ -371,22 +488,27 @@ def gmres_block_orth(v_basis, valid, w_blk, j0: int) -> None:
     if v_basis.device.type == "cpu":
         gmres_block_orth_plain(v_basis, valid, w_blk, j0)
         return
+    _, nrows, nvec = v_basis.shape
+    j0 = int(j0)
+    plan = block_orth_plan(nvec, nrows, w_blk.shape[1], j0,
+                           v_basis.element_size())
+    _launch_block_orth(v_basis, valid, w_blk, j0, plan)
+
+
+def _launch_block_orth(v_basis, valid, w_blk, j0: int,
+                       plan: ClusterPlan) -> None:
     lanes, nrows, nvec = v_basis.shape
     s = w_blk.shape[1]
-    j0 = int(j0)
-    if not (1 <= s <= MAX_BLOCK and 0 <= j0 and j0 + 1 + s <= nrows
-            and nrows <= MAX_KRYLOV + 1):
-        raise ValueError(
-            f"unsupported block: s={s}, j0={j0}, {nrows} basis rows "
-            f"(s <= {MAX_BLOCK}, mm <= {MAX_KRYLOV})"
-        )
-    _want(v_basis, {"v_basis": (v_basis, v_basis.dtype, (lanes, nrows, nvec)),
-                    "valid": (valid, v_basis.dtype, (lanes, nrows)),
-                    "w_blk": (w_blk, v_basis.dtype, (lanes, s, nvec))})
-    fn = getattr(_sparse_lib(), f"gmres_block_orth_{_SUFFIX[v_basis.dtype]}")
-    with torch.cuda.device(v_basis.device):
+    dt = v_basis.dtype
+    _want(v_basis, {"v_basis": (v_basis, dt, (lanes, nrows, nvec)),
+                    "valid": (valid, dt, (lanes, nrows)),
+                    "w_blk": (w_blk, dt, (lanes, s, nvec))})
+    fn = _fn("gmres_block_orth", dt)
+    ctx, stream = _launch_on(v_basis)
+    with ctx:
         rc = fn(v_basis.data_ptr(), valid.data_ptr(), w_blk.data_ptr(), lanes,
-                nrows, s, nvec, j0, _stream(v_basis))
+                nrows, s, nvec, j0, plan.cluster, plan.width, plan.smem,
+                int(plan.resident), stream)
     _raise_on(rc, "gmres_block_orth")
     _count("gmres_block_orth")
 
@@ -407,12 +529,13 @@ def gmres_lstsq(v_basis, valid, w_store, z_store, beta) -> Tensor:
                     "w_store": (w_store, dt, (lanes, mm, nvec)),
                     "z_store": (z_store, dt, (lanes, mm, nvec)),
                     "beta": (beta, dt, (lanes,))})
-    fn = getattr(_sparse_lib(), f"gmres_lstsq_{_SUFFIX[dt]}")
-    with torch.cuda.device(v_basis.device):
+    fn = _fn("gmres_lstsq", dt)
+    ctx, stream = _launch_on(v_basis)
+    with ctx:
         x = torch.empty(lanes, nvec, dtype=dt, device=v_basis.device)
         rc = fn(v_basis.data_ptr(), valid.data_ptr(), w_store.data_ptr(),
                 z_store.data_ptr(), beta.data_ptr(), x.data_ptr(), lanes, mm,
-                nvec, _stream(v_basis))
+                nvec, stream)
     _raise_on(rc, "gmres_lstsq")
     _count("gmres_lstsq")
     return x

@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Time S2 ``sparse_matvec`` and S3 ``gmres_block_orth`` of this checkout
+against those of other checkouts of the repo, in turns on one card.
+
+    python3 kernel_ab.py OTHER [OTHER ...] [--out FILE]
+
+Each ``OTHER`` is the root of another checkout, for example one written
+by ``git archive <commit> | tar -x -C _archive/parent`` into a directory
+that ``.gitignore`` lists.  Every turn runs in a process of its own with
+one checkout first on ``sys.path`` and calls that checkout's own
+wrappers, whose kernels build there at first use: the checkouts may
+differ in their kernels' C signatures, not in the wrappers' Python ones.
+The inputs are made once, in this checkout, at mesh2000 × 64 lanes in
+float64 and float32 — those ``chip_smoke.py`` times: S2 on S1's values
+and a random vector, S3 at the last block of a real GMRES cycle (j0 = 12,
+s = 4) — and every turn reads them.  For each ``OTHER`` the turns run
+OTHER, this, this, OTHER; each turn gives the mean of CUDA events over
+back-to-back calls (wrapper included) and the mean device time from
+``torch.profiler`` (the kernel alone).  Each ``OTHER``'s outputs must
+agree with this checkout's within ``chip_smoke.SPARSE_TOL``.  Prints the
+card's name and power limit, one line per turn and a JSON summary as the
+last line (also written to ``--out``).  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+DTYPES = ("float64", "float32")
+KERNELS = ("sparse_matvec", "gmres_block_orth")
+
+
+def _smoke():
+    """This checkout's ``chip_smoke`` helpers, whatever checkout's package
+    comes first on ``sys.path`` (they import it lazily)."""
+    spec = importlib.util.spec_from_file_location("_ab_smoke",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def prepare(path: Path) -> None:
+    import torch
+
+    cs = _smoke()
+    from freedm_tpu_torch.kernels import sparse_kernels as sk
+
+    sys_ = cs.case_system("mesh2000")
+    data = {}
+    for name in DTYPES:
+        op, x, ps, qs, _, m_op = cs.sparse_setup(torch, sys_, cs.MAIN_LANES,
+                                                 3, getattr(torch, name))
+        ev, bv, f = sk.sparse_assemble(x, ps, qs, op)
+        u = torch.randn_like(x)
+        caps = cs.gmres_captures(torch, sk, op, ev, bv, f, x, m_op)
+        _, vb, valid, w, j0 = [c for c in caps if c[0] == "orth"][-1]
+        data[name] = {"ev": ev.cpu(), "bv": bv.cpu(), "u": u.cpu(),
+                      "vb": vb.cpu(), "valid": valid.cpu(), "w": w.cpu(),
+                      "j0": int(j0)}
+    torch.save(data, path)
+
+
+def measure(root: Path, inputs: Path, outputs: Path) -> None:
+    sys.path.insert(0, str(root))
+    import torch
+
+    cs = _smoke()
+    from freedm_tpu_torch.kernels import sparse_kernels as sk
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    dev = torch.device("cuda")
+    sys_ = cs.case_system("mesh2000")
+    data = torch.load(inputs)
+    times, outs = {}, {}
+    for name in DTYPES:
+        d = {k: v.to(dev) if torch.is_tensor(v) else v
+             for k, v in data[name].items()}
+        op = sparse_operands(sys_, dtype=getattr(torch, name), device=dev)
+        ev, bv, u, w, j0 = d["ev"], d["bv"], d["u"], d["w"], d["j0"]
+        vb, valid = d["vb"].clone(), d["valid"].clone()
+        y = sk.sparse_matvec(ev, bv, u, op)
+        sk.gmres_block_orth(vb, valid, w, j0)
+        outs[name] = {"y": y.cpu(), "vb": vb.cpu(), "valid": valid.cpu()}
+        vt, at = d["vb"].clone(), d["valid"].clone()
+        fns = {"sparse_matvec": (lambda: sk.sparse_matvec(ev, bv, u, op), 200),
+               "gmres_block_orth": (
+                   lambda: sk.gmres_block_orth(vt, at, w, j0), 50)}
+        times[name] = {k: (cs.time_ms(torch, fn, reps=reps),
+                           cs.device_ms(torch, fn, reps=max(reps // 4, 10)))
+                       for k, (fn, reps) in fns.items()}
+    torch.save(outs, outputs)
+    print(json.dumps(times))
+
+
+def _run(*args: str) -> str:
+    proc = subprocess.run([sys.executable, str(HERE / "kernel_ab.py"), *args],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel_ab {' '.join(args)} failed:\n"
+                           f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
+    """Relative S2/S3 differences of two turns' outputs; raises beyond
+    ``SPARSE_TOL`` or on different ``valid`` flags."""
+    errs = {}
+    for name in DTYPES:
+        tol12, tol34 = cs.SPARSE_TOL[name]
+        e2 = cs.rel_abs_err(torch, a[name]["y"], b[name]["y"])[0]
+        e3 = cs.rel_abs_err(torch, a[name]["vb"], b[name]["vb"])[0]
+        cs.check(e2 <= tol12 and e3 <= tol34
+                 and torch.equal(a[name]["valid"], b[name]["valid"]),
+                 f"{label} disagrees with this checkout ({name}): S2 {e2}, "
+                 f"S3 {e3}")
+        errs[name] = {"sparse_matvec": e2, "gmres_block_orth": e3}
+    return errs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("others", type=Path, nargs="*",
+                    help="roots of other checkouts")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="also write the JSON summary here")
+    ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--outputs", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.prepare is not None:
+        prepare(args.prepare)
+        return 0
+    if args.measure is not None:
+        measure(args.measure, args.inputs, args.outputs)
+        return 0
+    import torch
+
+    import chip_smoke as cs
+
+    if not args.others:
+        ap.error("name at least one other checkout")
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    summary = {"card": smi, "shape": "mesh2000 x 64, S3 at j0 = 12, s = 4",
+               "turns": "other, this, this, other", "others": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = Path(tmp) / "inputs.pt"
+        _run("--prepare", str(inputs))
+        for other in args.others:
+            other = other.resolve()
+            turns, outs = [], []
+            for k, root in enumerate((other, HERE, HERE, other)):
+                out = Path(tmp) / f"out{k}.pt"
+                times = json.loads(_run("--measure", str(root), "--inputs",
+                                        str(inputs), "--outputs", str(out))
+                                   .strip().splitlines()[-1])
+                which = "this" if root == HERE else "other"
+                turns.append({"checkout": which, "times": times})
+                outs.append(torch.load(out))
+                for name in DTYPES:
+                    for kern in KERNELS:
+                        ms, dev = times[name][kern]
+                        print(f"ab {other.name} {name} {kern:<17} {which:<5} "
+                              f"{ms:.4f} ms  device {dev:.4f} ms", flush=True)
+            errs = agree(cs, torch, outs[0], outs[1], str(other))
+            print(f"ab {other.name} agreement {json.dumps(errs)}", flush=True)
+            summary["others"][str(other)] = {"turns": turns, "rel_err": errs}
+    line = json.dumps(summary)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

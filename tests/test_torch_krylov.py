@@ -250,3 +250,204 @@ def test_host_oracles_match_reference():
         want = ref_true_mismatch(ref, NewtonResult(*[None] * 8)._replace(
             theta=theta[b], v=v[b]))
         assert abs(got[b] - want) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# S3's launch plan and argument checks (CPU), and S3 on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("itemsize", [8, 4])
+@pytest.mark.parametrize("nvec", [236, 4000, 10000])
+def test_block_orth_plan_tiles_the_columns_within_shared_memory(nvec,
+                                                                itemsize):
+    """Every block the kernel takes (nrows 2-33, s 1-8, every j0): the
+    slices tile [0, N) with none empty, the cluster stays portable, the
+    shared memory within what a Hopper block may use, and the rows stay
+    resident exactly when they fit."""
+    for nrows in range(2, sk.MAX_KRYLOV + 2):
+        for s in range(1, sk.MAX_BLOCK + 1):
+            for j0 in range(nrows - s):
+                plan = sk.block_orth_plan(nvec, nrows, s, j0, itemsize)
+                bounds = np.asarray(plan.bounds)
+                assert 1 <= plan.cluster <= sk.MAX_CLUSTER
+                assert len(bounds) == plan.cluster + 1
+                assert bounds[0] == 0 and bounds[-1] == nvec
+                assert np.diff(bounds).min() >= 1
+                assert plan.width == np.diff(bounds).max()
+                assert plan.smem <= sk.SMEM_LIMIT
+                streamed = sk.block_orth_plan(nvec, nrows, s, j0, itemsize,
+                                              resident=False)
+                assert streamed.bounds == plan.bounds
+                rows = (j0 + 1 + s) * plan.width * itemsize
+                assert plan.resident == (streamed.smem + rows
+                                         <= sk.SMEM_LIMIT)
+                assert plan.smem == streamed.smem + rows * plan.resident
+
+
+def test_block_orth_plan_at_the_served_shapes():
+    # mesh2000, the solver's cycle (m = 16, s = 4) at its last block:
+    # 8 CTAs of 500 columns, 17 rows resident, three CTAs to an SM.
+    plan = sk.block_orth_plan(4000, 17, 4, 12, 8)
+    assert (plan.cluster, plan.width, plan.resident) == (8, 500, True)
+    assert plan.smem == 6992 + 17 * 500 * 8
+    assert 3 * (plan.smem + 1024) <= 228 * 1024
+    # mesh118: N = 236 in 7 ragged slices of 33 and 34 columns.
+    plan = sk.block_orth_plan(236, 17, 4, 12, 8)
+    assert plan.cluster == 7 and set(np.diff(plan.bounds)) == {33, 34}
+    # mesh5000 with 33 basis rows streams in float64, not in float32.
+    assert not sk.block_orth_plan(10000, 33, 4, 28, 8).resident
+    assert sk.block_orth_plan(10000, 33, 4, 28, 4).resident
+    with pytest.raises(ValueError, match="do not fit"):
+        sk.block_orth_plan(10000, 33, 4, 28, 8, resident=True)
+
+
+def _meta(*shape):
+    return torch.empty(*shape, dtype=F64, device="meta")
+
+
+@pytest.mark.parametrize("nrows,s", [(17, 9), (34, 4), (17, 17)])
+def test_block_orth_refuses_unsupported_blocks_before_a_launch(monkeypatch,
+                                                               nrows, s):
+    """s > 8 or more than 33 basis rows raise before the library is even
+    loaded (meta tensors stand in for the card's)."""
+    def no_launch(*args):
+        raise AssertionError("reached the kernel library")
+
+    monkeypatch.setattr(sk, "_fn", no_launch)
+    before = sk.launches()
+    with pytest.raises(ValueError, match="unsupported block"):
+        sk.gmres_block_orth(_meta(2, nrows, 64), _meta(2, nrows),
+                            _meta(2, s, 64), 0)
+    with pytest.raises(ValueError, match="unsupported block"):
+        sk.block_orth_plan(64, nrows, s, 0, 8)
+    assert sk.launches() == before
+
+
+@pytest.mark.parametrize("mm", [0, 33])
+def test_lstsq_refuses_unsupported_cycles_before_a_launch(monkeypatch, mm):
+    def no_launch(*args):
+        raise AssertionError("reached the kernel library")
+
+    monkeypatch.setattr(sk, "_fn", no_launch)
+    before = sk.launches()
+    with pytest.raises(ValueError, match="Krylov dimension"):
+        sk.gmres_lstsq(_meta(2, mm + 1, 64), _meta(2, mm + 1),
+                       _meta(2, mm, 64), _meta(2, mm, 64), _meta(2))
+    assert sk.launches() == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs these checks there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_block_orth_kernel_matches_plain_version_on_card(cuda_device):
+    """S3 against its plain version block by block through a basis of
+    17 rows over N = 236 (ragged slices), a breakdown lane and a lane
+    whose Cholesky fails, in both dtypes, within chip_smoke.py's
+    SPARSE_TOL; every call repeated gives the same bits."""
+    from chip_smoke import SPARSE_TOL
+
+    for dtype in (F64, torch.float32):
+        tol = SPARSE_TOL[str(dtype)[6:]][1]
+        rng = np.random.default_rng(17)
+        lanes, nvec, s, nrows = 3, 236, 4, 17
+
+        def t(a):
+            return torch.as_tensor(a, device=cuda_device).to(dtype)
+
+        v0 = rng.normal(size=(lanes, nvec))
+        v_basis = torch.zeros(lanes, nrows, nvec, dtype=dtype,
+                              device=cuda_device)
+        v_basis[:, 0] = t(v0 / np.linalg.norm(v0, axis=1, keepdims=True))
+        valid = torch.zeros(lanes, nrows, dtype=dtype, device=cuda_device)
+        valid[:, 0] = 1.0
+        for j0 in (0, 4, 8, 12):
+            w = t(rng.normal(size=(lanes, s, nvec)))
+            w[1] = 0.0  # breaks down
+            if j0 == 4:
+                w[2, 0, 0] = float("inf")  # its Cholesky fails
+            runs = []
+            for _ in range(2):
+                vk, ak = v_basis.clone(), valid.clone()
+                sk.gmres_block_orth(vk, ak, w, j0)
+                runs.append((vk, ak))
+            assert torch.equal(runs[0][0], runs[1][0])
+            assert torch.equal(runs[0][1], runs[1][1])
+            sk.gmres_block_orth_plain(v_basis, valid, w, j0)
+            vk, ak = runs[0]
+            scale = float(v_basis.abs().max())
+            assert float((vk - v_basis).abs().max()) <= tol * scale
+            assert torch.equal(ak, valid)
+        assert (valid[1, 1:] == 0).all() and (valid[2, 5:9] == 0).all()
+    torch.cuda.synchronize()
+
+
+def _orth_variant(v_basis, valid, w_blk, j0, gs=2, cq=2, ridge=True,
+                  gs_f64=False):
+    """S3's plain algorithm (``gmres_block_orth_plain``) with one step
+    changed: ``gs``/``cq`` Gram-Schmidt/CholQR passes, the ridge on or
+    off, or the Gram-Schmidt update rounded once (``gs_f64``)."""
+    v_basis, valid = v_basis.clone(), valid.clone()
+    dtype, s = v_basis.dtype, w_blk.shape[1]
+    fin = torch.finfo(dtype)
+    rows = torch.arange(v_basis.shape[1])
+    vb = v_basis * (valid * (rows <= j0).to(dtype))[:, :, None]
+    q = w_blk
+    for _ in range(gs):
+        c = sk._dots(q, vb)
+        q = ((q.double() - c.double() @ vb.double()).to(dtype) if gs_f64
+             else q - c @ vb)
+    newv = torch.ones(valid.shape[0], s, dtype=dtype)
+    for _ in range(cq):
+        g = sk._dots(q, q)
+        d = torch.diagonal(g, dim1=1, dim2=2)
+        newv = newv * (d > sk.BREAKDOWN).to(dtype)
+        r = (torch.clamp(torch.amax(d, dim=1), min=fin.tiny) * fin.eps * s
+             + fin.tiny) * float(ridge)
+        fac = sk._cholesky_or_nan(g + r[:, None, None] * torch.eye(s, dtype=dtype))
+        q = torch.linalg.solve_triangular(fac, q, upper=False)
+    q = torch.where(torch.isfinite(q), q, torch.zeros_like(q))
+    v_basis[:, j0 + 1:j0 + 1 + s] = q * newv[:, :, None]
+    return v_basis
+
+
+def test_s8_float32_chain_at_mesh5000_is_ill_posed():
+    """The readings behind ``chip_smoke.ORTH_F64_LIMIT``, on the float32
+    S3 blocks of the 8-step chain at mesh5000 (B = 3, the LU-kind
+    preconditioner, chip_smoke.py's inputs): rounding the Gram-Schmidt
+    update once instead of twice moves the plain version's result by
+    more than the S3 tolerance, so no other summation order can be held
+    to it there; sound float32 results stay within the limit of the
+    float64 result, and a missing CholQR pass, ridge or Gram-Schmidt
+    does not."""
+    import chip_smoke as cs
+
+    tol = cs.SPARSE_TOL["float32"][1]
+    name, _, (m, s) = cs.ILL_POSED_ORTH
+    sys_ = cs.case_system(name)
+    op, x, ps, qs, _, m_op = cs.sparse_setup(
+        torch, sys_, 3, 23, torch.float32, device="cpu")
+    ev, bv, f = sk.sparse_assemble_plain(x, ps, qs, op)
+    caps = [c for c in cs.gmres_captures(torch, sk, op, ev, bv, f, x, m_op,
+                                         m, s) if c[0] == "orth"]
+    assert [c[4] for c in caps] == [0, 8]
+    moved = 0.0
+    for _, vb, valid, w, j0 in caps:
+        ref = _orth_variant(vb.double(), valid.double(), w.double(), j0)
+        plain = _orth_variant(vb, valid, w, j0)
+        want, flags = vb.clone(), valid.clone()
+        sk.gmres_block_orth_plain(want, flags, w, j0)
+        assert torch.equal(plain, want)
+        once = _orth_variant(vb, valid, w, j0, gs_f64=True)
+        moved = max(moved, cs.rel_abs_err(torch, once, plain)[0])
+        for v in (plain, once):
+            assert cs.rel_abs_err(torch, v.double(), ref)[0] <= cs.ORTH_F64_LIMIT
+        for wrong in (dict(cq=1), dict(ridge=False), dict(gs=0)):
+            v = _orth_variant(vb, valid, w, j0, **wrong)
+            assert cs.rel_abs_err(torch, v.double(), ref)[0] > cs.ORTH_F64_LIMIT
+    assert moved > tol

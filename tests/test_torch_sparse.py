@@ -402,3 +402,56 @@ def test_sparse_kernels_match_plain_versions_on_card(cuda_device, mesh118):
     torch.testing.assert_close(cycle(False), cycle(True), rtol=1e-9,
                                atol=1e-9 * float(cycle(True).abs().max()))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_operand_set_is_checked_once_and_its_pointers_kept(mesh118, dtype):
+    """The wrappers check an operand set against the launch's dtype and
+    device once and keep its device pointers for later launches."""
+    _, sys, _, _ = mesh118
+    op = sparse.sparse_operands(sys, dtype=dtype, device="cpu")
+    like = torch.zeros(2, 2 * sys.n_bus, dtype=dtype)
+    ptrs = sk._op_ptrs(op, like)
+    assert ptrs == {name: t.data_ptr() for name, t in zip(op._fields, op)}
+    assert sk._op_ptrs(op, like) is ptrs
+    with pytest.raises(ValueError):  # the same set, another dtype
+        sk._op_ptrs(op, like.to(torch.float32 if dtype == F64 else F64))
+
+
+@pytest.mark.parametrize("bad", ["float dtype", "index dtype", "shape"])
+def test_operand_check_refuses_a_mismatched_set(mesh118, bad):
+    _, sys, _, _ = mesh118
+    op = sparse.sparse_operands(sys, dtype=F64, device="cpu")
+    if bad == "float dtype":
+        op = op._replace(g_d=op.g_d.float())
+    elif bad == "index dtype":
+        op = op._replace(f_idx=op.f_idx.long())
+    else:
+        op = op._replace(inc_nbr=op.inc_nbr[:-1])
+    with pytest.raises(ValueError):
+        sk._op_ptrs(op, torch.zeros(2, 2 * sys.n_bus, dtype=F64))
+
+
+@pytest.mark.cuda
+def test_matvec_kernel_matches_plain_version_on_card(cuda_device, mesh118):
+    """S2 against its plain version on mesh118 in both dtypes within
+    chip_smoke.py's SPARSE_TOL, bit-identical on repeat."""
+    from chip_smoke import SPARSE_TOL
+
+    _, sys, _, _ = mesh118
+    n, b = sys.n_bus, 3
+    for dtype in (F64, torch.float32):
+        tol = SPARSE_TOL[str(dtype)[6:]][0]
+        op = sparse.sparse_operands(sys, dtype=dtype, device=cuda_device)
+        x = torch.as_tensor(_random_state(n, b, seed=51),
+                            device=cuda_device).to(dtype)
+        ps = torch.as_tensor(np.random.default_rng(52).normal(size=(b, n)),
+                             device=cuda_device).to(dtype)
+        ev, bv, _ = sk.sparse_assemble_plain(x, ps, ps, op)
+        u = torch.randn_like(x)
+        got = sk.sparse_matvec(ev, bv, u, op)
+        want = sk.sparse_matvec_plain(ev, bv, u, op)
+        assert float((got - want).abs().max()) <= tol * float(
+            want.abs().max())
+        assert torch.equal(got, sk.sparse_matvec(ev, bv, u, op))
+    torch.cuda.synchronize()
