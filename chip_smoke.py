@@ -11,16 +11,16 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. build: two ``nvcc`` runs started together compile
    ``freedm_tpu_torch/kernels/csrc/newton.cu`` and ``sparse.cu`` for
-   ``sm_90a`` while Triton compiles K3; prints the build seconds and the
-   ``-Xptxas -v`` reports;
+   ``sm_90a``; prints the build seconds and the ``-Xptxas -v`` reports;
 2. kernels: each kernel against its plain PyTorch version on the card at
    n ∈ {14, 30, 118, 2000} buses and B ∈ {1, 3, 64} lanes (float64,
    1e-10 absolute on J, f, P, Q — the sums run in another order; K3
-   exactly), then each kernel's time (CUDA events) at the main path's
-   shape (mesh2000, 64 lanes) beside its plain version's, its bound
-   and, for K2, one ``torch.matmul`` of the complex pair; also the
-   Newton step's library LU (``torch.linalg.solve_ex``) on K1's
-   Jacobian, batched as the solver calls it and one lane at a time;
+   exactly, and bit-identical on repeat), then each kernel's time (CUDA
+   events) at the main path's shape (mesh2000, 64 lanes) beside its plain
+   version's, its bound and, for K2, one ``torch.matmul`` of the complex
+   pair, K3 also by device time; also the Newton step's library LU
+   (``torch.linalg.solve_ex``) on K1's Jacobian, batched as the solver
+   calls it and one lane at a time;
 3. solve: ``make_newton_solver`` on mesh2000 over 64 lanes at load
    scales 0.5-1.2 — every lane converges, Σp (the losses) is small and
    non-negative, three lanes match the plain-version solve on the card
@@ -35,13 +35,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    (32, 4)} (j0 up to 28, 33 basis rows; mesh118's N = 236 splits into
    ragged slices, mesh5000's 33 rows stream from L2; the float32 blocks
    of the 8-step chain at mesh5000 are held to the float64 result, see
-   ``ORTH_F64_LIMIT``), S2 and S3 run twice on identical inputs
-   (identical bits), S3 also in both its shared- and its global-memory
-   form (identical bits); then their times at
+   ``ORTH_F64_LIMIT``), S4 also on a rank-deficient H (dead rows of
+   V·valid) and on a non-finite H and β (NaN lanes), S2, S3 and S4 run
+   twice on identical inputs (identical bits), S3 also in both its
+   shared- and its global-memory form (identical bits); the sweeps of
+   S4's Jacobi SVD on the served mesh2000 cycles, from its PyTorch mirror
+   (``gmres_lstsq_jacobi``, held to the kernel); then their times at
    mesh2000 × 64 (CUDA events over back-to-back calls, and device time
    from ``torch.profiler``) beside their plain versions, their bounds,
    the preconditioner apply and, for S2, one ``torch.sparse.mm`` over a
-   block-diagonal CSR matrix of every lane's J — S2 and S3 in float64
+   block-diagonal CSR matrix of every lane's J — S2, S3 and S4 in float64
    and float32;
 5. sparse solves: mesh2000 × 64 in f64 and in mixed — every lane
    converges, losses ≥ 0, three lanes within 1e-9 pu of the plain-version
@@ -60,9 +63,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    and converged, solved sparse and mixed; every S1-S4 launch count over
    the burst must be > 0.
 
-The line before the last is the kernel table as one JSON object (S2
-and S3 also carry ``device_ms`` and float32 ``*_f32`` times); the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table as one JSON object (K3,
+S1-S4 also carry ``device_ms``, S2-S4 float32 ``*_f32`` times); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -123,18 +126,6 @@ def build_kernels(torch, nk, sk, build):
                for name in ("newton", "sparse")]
     for th in threads:
         th.start()
-    # Triton compiles K3 while nvcc runs (a short real launch).
-    dev = torch.device("cuda")
-    m = 28
-    x = torch.zeros(2, m, dtype=torch.float64, device=dev)
-    nk.newton_update(x, torch.ones_like(x), torch.ones_like(x),
-                     torch.ones(m, dtype=torch.float64, device=dev),
-                     torch.zeros(2, dtype=torch.int32, device=dev),
-                     torch.zeros(2, dtype=torch.float64, device=dev),
-                     torch.ones(2, dtype=torch.bool, device=dev), 4,
-                     torch.zeros(1, dtype=torch.float64, device=dev))
-    torch.cuda.synchronize()
-    t_triton = time.monotonic() - t0
     for th in threads:
         th.join()
     if "error" in box:
@@ -142,9 +133,8 @@ def build_kernels(torch, nk, sk, build):
     nk._newton_lib()
     sk._sparse_lib()
     t_all = time.monotonic() - t0
-    log(f"build: nvcc x2 + triton {t_all:.1f} s (triton K3 {t_triton:.1f} s, "
-        f"newton.cu {box['newton'][1]:.1f} s, sparse.cu "
-        f"{box['sparse'][1]:.1f} s), {box['newton'][0].name}, "
+    log(f"build: nvcc x2 {t_all:.1f} s (newton.cu {box['newton'][1]:.1f} s, "
+        f"sparse.cu {box['sparse'][1]:.1f} s), {box['newton'][0].name}, "
         f"{box['sparse'][0].name}")
     for name in ("newton", "sparse"):
         log(build.build_log(name).strip())
@@ -259,11 +249,14 @@ def compare_update(torch, nk, x, f, lanes, seed):
     tol = torch.full((1,), 1e-8 if dtype == torch.float64 else 3e-5,
                      dtype=dtype, device=dev)
     states = []
-    for fn in (nk.newton_update, nk.newton_update_plain):
+    for fn in (nk.newton_update, nk.newton_update, nk.newton_update_plain):
         st = (x.clone(), it.clone(), err.clone(), active.clone())
         fn(st[0], dx, f, free, st[1], st[2], st[3], max_iter, tol)
         states.append(st)
-    (xk, ik, ek, ak), (xp, ip, ep, ap) = states
+    (xk, ik, ek, ak), again, (xp, ip, ep, ap) = states
+    check(all(same_bits(torch, a, b) for a, b in zip((xk, ek), again[::2]))
+          and torch.equal(ik, again[1]) and torch.equal(ak, again[3]),
+          f"K3 not bit-identical on repeat: B={lanes} {dtype}")
     same_nan = bool(torch.equal(torch.isnan(ek), torch.isnan(ep)))
     if not (same_nan and torch.equal(ik, ip) and torch.equal(ak, ap)):
         return float("inf")
@@ -285,25 +278,38 @@ def time_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps):
-    """Mean device time of one call of ``fn``: the kernel rows of a
-    ``torch.profiler`` trace over ``reps`` calls (after one warm call),
-    without the host's launch cost that CUDA events over back-to-back
-    calls also count when a call launches faster than Python issues it."""
+def device_ms_by_kernel(torch, fn, reps):
+    """Mean device time of one call of ``fn`` by kernel name: the kernel
+    rows of a ``torch.profiler`` trace over ``reps`` calls (after one warm
+    call), without the host's launch cost that CUDA events over
+    back-to-back calls also count when a call launches faster than Python
+    issues it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and getattr(e, "self_device_time_total", 0) > 0)
-    check(busy > 0, "the profiler recorded no device time")
-    return busy / 1e3 / reps
+    rows = {}
+    # A trace now and then comes back without its device events (seen once
+    # in a hundred-odd windows on the H100): take another window then.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key: e.self_device_time_total / 1e3 / reps
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and getattr(e, "self_device_time_total", 0) > 0}
+        if rows:
+            break
+    check(bool(rows), "the profiler recorded no device time")
+    return rows
+
+
+def device_ms(torch, fn, reps):
+    """Mean device time of one call of ``fn`` (all its kernels)."""
+    return sum(device_ms_by_kernel(torch, fn, reps).values())
 
 
 def bound(bytes_, ops, fp64=True):
@@ -374,14 +380,19 @@ def time_kernels(torch, nk):
     o3 = lanes * m * 4
     k = time_ms(torch, lambda: nk.newton_update(
         xk, dx, f, free, *carries[0], big, tol), reps=100)
+    k_dev = device_ms(torch, lambda: nk.newton_update(
+        xk, dx, f, free, *carries[0], big, tol), reps=50)
     p = time_ms(torch, lambda: nk.newton_update_plain(
         xp, dx, f, free, *carries[1], big, tol), reps=100)
     rows["newton_update"] = (k, p, None, *bound(b3, o3))
+    extra = {"newton_update": {"device_ms": k_dev}}
     for name, (k, p, lib, b, by) in rows.items():
         log(f"timing: {name:<17} kernel {k:.4f} ms  plain {p:.4f} ms  "
             f"bound {b:.4f} ms ({by})"
-            + (f"  library {lib:.4f} ms" if lib is not None else ""))
-    return rows
+            + (f"  library {lib:.4f} ms" if lib is not None else "")
+            + (f"  device {extra[name]['device_ms']:.4f} ms"
+               if name in extra else ""))
+    return rows, extra
 
 
 def time_lu(torch, nk, args):
@@ -660,6 +671,46 @@ def compare_orth(torch, sk, cap, label, tol, f64_limit=None):
     return d_valid, d_valid
 
 
+def compare_lstsq(torch, sk, cap, label, served=False):
+    """S4 on one captured cycle against its plain version; ``(rel,
+    abs)``.  Also on the same cycle with four dead rows of V·valid (a
+    rank-deficient H) and, with 3 lanes or more, with an inf in lane 0's
+    basis and a NaN β in lane 2 (NaN lanes, in the same places as the
+    plain version's).  The kernel runs twice and must give the same bits.
+    ``served``: also the sweeps of the Jacobi SVD on this cycle, from
+    S4's PyTorch mirror, whose solution is held to the kernel's."""
+    _, vb, valid, ws, zs, beta = cap
+    xk = sk.gmres_lstsq(vb, valid, ws, zs, beta)
+    check(same_bits(torch, xk, sk.gmres_lstsq(vb, valid, ws, zs, beta)),
+          f"S4 not bit-identical on repeat: {label}")
+    errs = [rel_abs_err(torch, xk, sk.gmres_lstsq_plain(vb, valid, ws, zs,
+                                                        beta))]
+    dead = valid.clone()
+    dead[:, 5:9] = 0.0
+    errs.append(rel_abs_err(torch, sk.gmres_lstsq(vb, dead, ws, zs, beta),
+                            sk.gmres_lstsq_plain(vb, dead, ws, zs, beta)))
+    if vb.shape[0] >= 3:
+        vbad, bbad = vb.clone(), beta.clone()
+        vbad[0, 3, 7] = float("inf")
+        bbad[2] = float("nan")
+        xbad = sk.gmres_lstsq(vbad, valid, ws, zs, bbad)
+        check(bool(torch.isnan(xbad[[0, 2]]).all())
+              and not bool(torch.isnan(xbad[1]).any()),
+              f"S4's NaN lanes are not lanes 0 and 2: {label}")
+        errs.append(rel_abs_err(torch, xbad, sk.gmres_lstsq_plain(
+            vbad, valid, ws, zs, bbad)))
+    if served:
+        xm, sweeps = sk.gmres_lstsq_jacobi(vb, valid, ws, zs, beta)
+        e_m = rel_abs_err(torch, xk, xm)[0]
+        sw = sweeps.cpu().numpy()
+        log(f"sparse kernels: {label} S4 Jacobi sweeps (mirror) "
+            f"{sw.min()}-{sw.max()}, mean {sw.mean():.2f} over {len(sw)} "
+            f"lanes; kernel vs mirror {e_m:.2e}")
+        tol = SPARSE_TOL[str(vb.dtype)[6:]][1]
+        check(e_m <= tol, f"S4 disagrees with its mirror on {label}: {e_m}")
+    return worst(errs)
+
+
 def check_forms(torch, sk, cap, label):
     """S3 reading its rows from global memory gives the bits of its
     shared-memory form (the same cluster, the same arithmetic)."""
@@ -715,11 +766,10 @@ def compare_sparse_kernels(torch, sk, errs):
                                 torch, sk, cap, label, tol34,
                                 ORTH_F64_LIMIT if ill else None)])
                         elif (m_k, s_k) == ORTH_CYCLES[0]:
-                            _, vb, valid, ws, zs, beta = cap
-                            e4 = worst([e4, rel_abs_err(
-                                torch, sk.gmres_lstsq(vb, valid, ws, zs, beta),
-                                sk.gmres_lstsq_plain(vb, valid, ws, zs,
-                                                     beta))])
+                            e4 = worst([e4, compare_lstsq(
+                                torch, sk, cap, label,
+                                served=(name, lanes) == ("mesh2000",
+                                                         MAIN_LANES))])
                     if lanes == 3 and (m_k, s_k) == ORTH_CYCLES[0]:
                         check_forms(torch, sk,
                                     [c for c in caps if c[0] == "orth"][-1],
@@ -785,15 +835,16 @@ def sparse_library_matvec(torch, op, ev, bv):
 def time_sparse_kernels(torch, sk):
     """Each of S1-S4 at the main path's shape (mesh2000, 64 lanes,
     float64) against its plain version, its bound and, for S2, the
-    library sparse product; S2 and S3 (and the library product) also in
-    float32, the dtype of the default mixed path's inner solve, and by
-    device time.  Returns ``(rows, extra)``: the float64 table rows and,
-    for S2 and S3, the further fields of their table entries."""
+    library sparse product, by CUDA events and by device time; S2-S4
+    (and the library product) also in float32, the dtype of the default
+    mixed path's inner solve.  Returns ``(rows, extra)``: the float64
+    table rows and the further fields of their table entries."""
     sys_ = case_system("mesh2000")
     lanes, n, m = MAIN_LANES, sys_.n_bus, sys_.n_branch
     nvec, iw = 2 * n, 4
     rows = {}
-    extra = {"sparse_matvec": {}, "gmres_block_orth": {}}
+    extra = {"sparse_assemble": {}, "sparse_matvec": {},
+             "gmres_block_orth": {}, "gmres_lstsq": {}}
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
         sfx = "" if f64 else "_f32"
@@ -810,6 +861,8 @@ def time_sparse_kernels(torch, sk):
             o1 = lanes * (45 * m + 25 * n + 2 * m)
             k = time_ms(torch, lambda: sk.sparse_assemble(x, ps, qs, op),
                         reps=50)
+            extra["sparse_assemble"]["device_ms"] = device_ms(
+                torch, lambda: sk.sparse_assemble(x, ps, qs, op), reps=20)
             p = time_ms(torch, lambda: sk.sparse_assemble_plain(x, ps, qs, op),
                         reps=10)
             rows["sparse_assemble"] = (k, p, None, *bound(b1, o1))
@@ -875,17 +928,36 @@ def time_sparse_kernels(torch, sk):
             f"{k_dev:.4f})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
             f"[j0={j0}, s={s_}, cluster {plan.cluster}, "
             f"{plan.smem} B shared, resident {plan.resident}]")
+        _, vb, valid, ws, zs, beta = caps[-1]
+        mm = ws.shape[1]
+        # S4: reads V, valid, W, Z and beta, writes x.  2 (mm+1) mm
+        # operations per column for H, 2 mm for x = Z^T y (the SVD's few
+        # thousand are nothing beside them).
+        b4 = w * lanes * ((mm + 1) * nvec + (mm + 1) + 2 * mm * nvec + 1
+                          + nvec)
+        o4 = lanes * nvec * (2 * (mm + 1) * mm + 2 * mm)
+        k = time_ms(torch, lambda: sk.gmres_lstsq(vb, valid, ws, zs, beta),
+                    reps=50)
+        parts = device_ms_by_kernel(
+            torch, lambda: sk.gmres_lstsq(vb, valid, ws, zs, beta), reps=20)
+        k_dev = sum(parts.values())
+        p = time_ms(torch, lambda: sk.gmres_lstsq_plain(vb, valid, ws, zs,
+                                                        beta), reps=10)
+        b, by = bound(b4, o4, fp64=f64)
+        plan = sk.lstsq_plan(nvec, mm, w)
         if f64:
-            _, vb, valid, ws, zs, beta = caps[-1]
-            mm = ws.shape[1]
-            b4 = w * lanes * ((mm + 1) * nvec + (mm + 1) + 2 * mm * nvec + 1
-                              + nvec)
-            o4 = lanes * nvec * (2 * (mm + 1) * mm + 2 * mm)
-            k = time_ms(torch, lambda: sk.gmres_lstsq(vb, valid, ws, zs, beta),
-                        reps=50)
-            p = time_ms(torch, lambda: sk.gmres_lstsq_plain(vb, valid, ws, zs,
-                                                            beta), reps=10)
-            rows["gmres_lstsq"] = (k, p, None, *bound(b4, o4))
+            rows["gmres_lstsq"] = (k, p, None, b, by)
+        else:
+            extra["gmres_lstsq"].update(
+                ms_f32=k, plain_ms_f32=p, bound_ms_f32=b, library_ms_f32=None)
+        extra["gmres_lstsq"]["device_ms" + sfx] = k_dev
+        log(f"timing: gmres_lstsq{sfx:<4}      kernel {k:.4f} ms (device "
+            f"{k_dev:.4f})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
+            f"[mm={mm}, {plan.ctas} CTAs a lane, {plan.smem} B shared]; "
+            "device by kernel: " + ", ".join(
+                f"{name.split('::')[-1].split('<')[0]} {ms:.4f} ms"
+                for name, ms in parts.items()))
+        if f64:
             # The preconditioner apply (two bf16 products, a library call
             # of the port): reads the two [n, n] bf16 inverses and [B, 2n],
             # writes [B, 2n].
@@ -897,10 +969,10 @@ def time_sparse_kernels(torch, sk):
                 f"{b_apply / PEAK_BYTES * 1e3:.4f} ms (bytes)")
         del caps, vb, vk, vp, op, x, ev, bv, f, u
         torch.cuda.empty_cache()
-    for name in ("sparse_assemble", "gmres_lstsq"):
-        k, p, lib, b, by = rows[name]
-        log(f"timing: {name:<17} kernel {k:.4f} ms  plain {p:.4f} ms  "
-            f"bound {b:.4f} ms ({by})")
+    k, p, lib, b, by = rows["sparse_assemble"]
+    log(f"timing: sparse_assemble   kernel {k:.4f} ms (device "
+        f"{extra['sparse_assemble']['device_ms']:.4f})  plain {p:.4f} ms  "
+        f"bound {b:.4f} ms ({by})")
     return rows, extra
 
 
@@ -1184,12 +1256,13 @@ def main() -> int:
         build_kernels(torch, nk, sk, build)
         errs = dict.fromkeys([*nk.LAUNCHES, *sk.LAUNCHES], 0.0)
         compare_kernels(torch, nk, errs)
-        rows = time_kernels(torch, nk)
+        rows, extra = time_kernels(torch, nk)
         solve_mesh2000(torch, nk)
         solve_f32(torch, nk)
         compare_sparse_kernels(torch, sk, errs)
-        sparse_rows, extra = time_sparse_kernels(torch, sk)
+        sparse_rows, sparse_extra = time_sparse_kernels(torch, sk)
         rows.update(sparse_rows)
+        extra.update(sparse_extra)
         solve_sparse(torch, nk, sk)
         counts = serve(torch, nk)
         counts.update(serve_default(torch, sk))
@@ -1202,7 +1275,7 @@ def main() -> int:
                             "freedm_tpu/pf/newton.py:260"),
         "power_injections": ("cuda", source + "csrc/newton.cu",
                              "freedm_tpu/pf/newton.py:144"),
-        "newton_update": ("triton", source + "newton_update_triton.py",
+        "newton_update": ("cuda", source + "csrc/newton.cu",
                           "freedm_tpu/pf/newton.py:325"),
         "sparse_assemble": ("cuda", source + "csrc/sparse.cu",
                             "freedm_tpu/pf/sparse.py:307"),

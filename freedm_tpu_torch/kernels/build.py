@@ -103,10 +103,3 @@ def build_log(name: str) -> str:
     """The compiler's report of the last build of ``csrc/<name>.cu``."""
     return library_path(name).with_suffix(".log").read_text()
 
-
-def triton_cache_dir() -> str:
-    """Point Triton's compile cache into ``_build/`` (unless the caller
-    chose one), so kernels compiled from this checkout stay inside it."""
-    path = str(BUILD_DIR / "triton")
-    os.environ.setdefault("TRITON_CACHE_DIR", path)
-    return os.environ["TRITON_CACHE_DIR"]

@@ -44,9 +44,32 @@
 //      it needs runs over the nonzeros of Ybus only, so it too is bound by
 //      the bytes of the dense Ybus (64 MB at n = 2000, about 19 us), while
 //      this dense kernel spends 4 FMAs on every (lane, i, j).
+//   K3 reads x, dx, f and the mask and writes x: bytes, 4 * 2n * 8 per
+//      lane, 8.2 MB at n = 2000, B = 64, about 2.5 us.
 // Simple and right first: no TMA/wgmma staging yet.
+//
+// K3 newton_update — replaces the per-lane select that XLA fuses out of the
+//   vmapped lax.while_loop in freedm_tpu/pf/newton.py:325-336:
+//
+//       err_new = max |f * free|          (NaN if any element is NaN)
+//       if active:  x += dx;  it += 1;  err = err_new
+//       active = (it < max_iter) & (err >= tol)
+//
+//   err is the mismatch of the point the step started from (the reference's
+//   pre-update carry); err >= tol is written as the reference writes it, so
+//   a NaN lane stops.  A max and x + dx do not depend on order: the results
+//   are exact whatever the split.  Design: at a small row (2n <= 1024, the
+//   cases below a few hundred buses) one warp per lane; above, one block of
+//   512 threads per lane with 16-byte loads, every load of a thread issued
+//   before any is used.  (A cluster of up to 8 CTAs per lane, the maxima
+//   meeting in distributed shared memory, took 7.6 us at mesh2000 x 64 on
+//   an H100 against 5.8 us for a Triton form, one 4-warp program per
+//   lane: its two cluster barriers cost more than its spread saves.)  At
+//   these sizes the kernel's traffic costs less than a launch, so the
+//   wrapper's host cost is the call's cost.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -242,6 +265,144 @@ __global__ void __launch_bounds__(kThreads) injection_kernel(
       v_pinned ? x[lane * m + n + i] - v_set[i] : Q - q_sched[base + i];
 }
 
+// ---------------------------------------------------------------------------
+// K3
+// ---------------------------------------------------------------------------
+
+constexpr int kUpdWarpMax = 1024;  // rows up to this length: one warp a lane
+constexpr int kUpdLanesPerBlock = 4;
+constexpr int kUpdThreads = 512;  // longer rows: one block a lane
+constexpr int kUpdPer = 4;        // chunks a thread loads before it uses any
+
+// |f free| into the running max; a NaN sets the flag instead.
+template <typename T>
+__device__ __forceinline__ void upd_max(T f, T fr, T& worst, bool& nan) {
+  const T a = fabs(f * fr);
+  if (a != a) nan = true;
+  else if (a > worst) worst = a;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmax(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ void finish_lane(int64_t lane, bool act, T worst,
+                                            bool nan, int* it, T* err,
+                                            unsigned char* active,
+                                            const T* tol, int max_iter) {
+  int i = it[lane];
+  T e = err[lane];
+  if (act) {
+    i += 1;
+    e = nan ? T(NAN) : worst;
+  }
+  it[lane] = i;
+  err[lane] = e;
+  active[lane] = (i < max_iter && e >= tol[0]) ? 1 : 0;
+}
+
+// One warp per lane; kUpdLanesPerBlock lanes per block.
+template <typename T>
+__global__ void __launch_bounds__(32 * kUpdLanesPerBlock) update_warp_kernel(
+    T* __restrict__ x, const T* __restrict__ dx, const T* __restrict__ f,
+    const T* __restrict__ free, int* __restrict__ it, T* __restrict__ err,
+    unsigned char* __restrict__ active, const T* __restrict__ tol, int lanes,
+    int m, int max_iter) {
+  const int64_t lane =
+      (int64_t)blockIdx.x * kUpdLanesPerBlock + threadIdx.x / 32;
+  const int ln = threadIdx.x & 31;
+  if (lane >= lanes) return;  // whole warps
+  const bool act = active[lane] != 0;
+  const int64_t row = lane * m;
+  T worst = T(0);
+  bool nan = false;
+  for (int k = ln; k < m; k += 32) {
+    upd_max(f[row + k], free[k], worst, nan);
+    if (act) x[row + k] += dx[row + k];
+  }
+  worst = warp_max(worst);
+  nan = __any_sync(0xffffffffu, nan);
+  if (ln == 0)
+    finish_lane(lane, act, worst, nan, it, err, active, tol, max_iter);
+}
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Chunk {
+  T v[V];
+};
+
+// One block of kUpdThreads per lane (lane = blockIdx.x): the row in chunks
+// of V elements (16-byte loads when V > 1), kUpdPer chunks a thread loaded
+// before any is used; the block's max and NaN flag meet in shared memory.
+template <typename T, int V>
+__global__ void __launch_bounds__(kUpdThreads) update_block_kernel(
+    T* __restrict__ x, const T* __restrict__ dx, const T* __restrict__ f,
+    const T* __restrict__ free, int* __restrict__ it, T* __restrict__ err,
+    unsigned char* __restrict__ active, const T* __restrict__ tol, int lanes,
+    int m, int max_iter) {
+  using Ch = Chunk<T, V>;
+  __shared__ T red_worst[kUpdThreads / 32];
+  __shared__ int red_nan[kUpdThreads / 32];
+  const int64_t lane = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nch = m / V;
+  const bool act = active[lane] != 0;
+  Ch* xr = reinterpret_cast<Ch*>(x + lane * m);
+  const Ch* dr = reinterpret_cast<const Ch*>(dx + lane * m);
+  const Ch* fr = reinterpret_cast<const Ch*>(f + lane * m);
+  const Ch* mr = reinterpret_cast<const Ch*>(free);
+  T worst = T(0);
+  bool nan = false;
+  for (int base = tid; base < nch; base += kUpdPer * kUpdThreads) {
+    Ch fv[kUpdPer], mv[kUpdPer], xv[kUpdPer], dv[kUpdPer];
+#pragma unroll
+    for (int j = 0; j < kUpdPer; ++j) {
+      const int c = base + j * kUpdThreads;
+      if (c < nch) {
+        fv[j] = fr[c];
+        mv[j] = mr[c];
+        if (act) {
+          xv[j] = xr[c];
+          dv[j] = dr[c];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kUpdPer; ++j) {
+      const int c = base + j * kUpdThreads;
+      if (c < nch) {
+#pragma unroll
+        for (int q = 0; q < V; ++q) upd_max(fv[j].v[q], mv[j].v[q], worst, nan);
+        if (act) {
+#pragma unroll
+          for (int q = 0; q < V; ++q) xv[j].v[q] += dv[j].v[q];
+          xr[c] = xv[j];
+        }
+      }
+    }
+  }
+  worst = warp_max(worst);
+  nan = __any_sync(0xffffffffu, nan);
+  if ((tid & 31) == 0) {
+    red_worst[tid / 32] = worst;
+    red_nan[tid / 32] = nan ? 1 : 0;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    T w = T(0);
+    int n = 0;
+    for (int k = 0; k < kUpdThreads / 32; ++k) {
+      w = fmax(w, red_worst[k]);
+      n |= red_nan[k];
+    }
+    finish_lane(lane, act, w, n != 0, it, err, active, tol, max_iter);
+  }
+}
+
 template <typename T>
 int launch_assemble(const T* x, const T* g, const T* bm, const T* p_sched,
                     const T* q_sched, const T* th_free, const T* v_free,
@@ -276,12 +437,37 @@ int launch_injections(const T* x, const T* g, const T* bm, const T* p_sched,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_update(T* x, const T* dx, const T* f, const T* free, int* it,
+                  T* err, unsigned char* active, const T* tol, int lanes,
+                  int m, int max_iter, cudaStream_t stream) {
+  if (lanes <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  if (m <= kUpdWarpMax) {
+    const unsigned blocks =
+        (unsigned)((lanes + kUpdLanesPerBlock - 1) / kUpdLanesPerBlock);
+    update_warp_kernel<T><<<blocks, 32 * kUpdLanesPerBlock, 0, stream>>>(
+        x, dx, f, free, it, err, active, tol, lanes, m, max_iter);
+    return (int)cudaGetLastError();
+  }
+  constexpr int V = 16 / sizeof(T);
+  const bool vec =
+      m % V == 0 && ((uintptr_t)x | (uintptr_t)dx | (uintptr_t)f |
+                     (uintptr_t)free) % 16 == 0;
+  if (vec)
+    update_block_kernel<T, V><<<lanes, kUpdThreads, 0, stream>>>(
+        x, dx, f, free, it, err, active, tol, lanes, m, max_iter);
+  else
+    update_block_kernel<T, 1><<<lanes, kUpdThreads, 0, stream>>>(
+        x, dx, f, free, it, err, active, tol, lanes, m, max_iter);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  Every pointer is a device pointer to a
 // contiguous tensor; `stream` is the caller's CUDA stream.  ct/st (K1) and
-// vr/vm (K2) are [lanes, n] scratch.  Returns the cudaError_t of the
-// launches.
+// vr/vm (K2) are [lanes, n] scratch; K3's `it` is int32, `active` one byte
+// a lane and `tol` one element.  Returns the cudaError_t of the launches.
 #define NEWTON_ENTRY_POINTS(T, SUFFIX)                                        \
   extern "C" int newton_assemble_##SUFFIX(                                   \
       const T* x, const T* g, const T* bm, const T* p_sched,                \
@@ -299,6 +485,13 @@ int launch_injections(const T* x, const T* g, const T* bm, const T* p_sched,
     return launch_injections<T>(x, g, bm, p_sched, q_sched, th_free,        \
                                 v_free, v_set, vr, vm, f, p_out, q_out,     \
                                 lanes, n, (cudaStream_t)stream);            \
+  }                                                                         \
+  extern "C" int newton_update_##SUFFIX(                                     \
+      T* x, const T* dx, const T* f, const T* free, int* it, T* err,        \
+      unsigned char* active, const T* tol, int lanes, int m, int max_iter,  \
+      void* stream) {                                                       \
+    return launch_update<T>(x, dx, f, free, it, err, active, tol, lanes, m, \
+                            max_iter, (cudaStream_t)stream);                \
   }
 
 NEWTON_ENTRY_POINTS(double, f64)

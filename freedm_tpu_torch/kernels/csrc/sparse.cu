@@ -30,13 +30,12 @@
 //   min |beta e1 - H y| with jnp.linalg.lstsq's cutoff (keep sigma > 0 and
 //   sigma >= eps max(mm+1, mm) sigma_max, eps of the working dtype), then
 //   x = Z^T y.  The SVD is a one-sided (Hestenes) Jacobi on the [mm+1, mm]
-//   matrix in shared memory, eight warps rotating disjoint column pairs in
-//   round-robin order.  H's dot products and the SVD run in float64 for
-//   both instantiations (x = Z^T y stays in the working dtype): in the
-//   mixed inner solve H's condition can reach 1e5 and more, where float32
-//   sums over N = 4000 terms fix the minimizer to only ~1e-2, and the 272
-//   numbers cost nothing in float64.
-//
+//   matrix, column pairs in round-robin order, run by one warp.  H's dot
+//   products and the SVD run in float64 for both instantiations (x = Z^T y
+//   stays in the working dtype): in the mixed inner solve H's condition can
+//   reach 1e5 and more, where float32 sums over N = 4000 terms fix the
+//   minimizer to only ~1e-2, and the 272 numbers cost nothing in float64.
+
 // Every sum runs in a fixed order and no kernel uses atomics, so results are
 // identical run to run.  The incidence list of a bus holds first the edges
 // whose from end it is, then those whose to end it is, each in ascending
@@ -71,10 +70,18 @@
 //      dtype, as a GEMM's output is (float32 sums over N = 10,000 lost the
 //      orthogonality CholQR2 needs, and mixed solves at mesh5000 fell back
 //      to float64).  Each CTA then runs the s x s Cholesky itself.
-//   S4 reads V, W and Z once: bytes, about 100 MB.  Design: one block per
-//      lane streams the rows in 32-column tiles through shared memory; the
-//      Jacobi SVD touches only shared memory.  64 blocks on 132 SMs at 64
-//      lanes: simple and right first, it stays well above its bound.
+//   S4 reads V, W and Z once: bytes, about 100 MB, 30.6 us.  Design: three
+//      kernels.  The H pass splits each lane over 8 CTAs (512 at 64 lanes)
+//      that stream their columns of V and W through two cp.async tile
+//      stages into float64 partials of H; one warp per lane adds the
+//      partials in order and runs the Jacobi SVD with its columns in
+//      registers (no barrier inside the sweeps); then one thread per
+//      (lane, column) writes x = Z^T y.  The SVD is a chain of ~165 rounds
+//      of dependent divisions and square roots: in one kernel with the
+//      streaming pass (a cluster per lane, the SVD by warp 0) it held every
+//      CTA's SM through that chain, and the clusters of a second wave
+//      waited for it (0.83 ms at mesh2000 x 64 on an H100, against 0.60
+//      ms for the first form, one CTA per lane).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -86,9 +93,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 32;      // columns staged per step of S4's row-dot pass
-constexpr int kMaxRows = 40;   // rows of one operand of that pass
-constexpr int kMaxPer = 8;     // dot products owned by one thread there
 constexpr int kMaxS = 8;       // s-step block size
 constexpr int kMaxCols = 32;   // Krylov dimension mm of S4
 constexpr int kMaxSweeps = 60; // Jacobi sweeps
@@ -247,58 +251,6 @@ __global__ void matvec_kernel(const T* __restrict__ ev, const T* __restrict__ bv
   yq = yq + bl[2 * (int64_t)n + i] * ui + bl[3 * (int64_t)n + i] * wi;
   y[b * 2 * n + i] = th_free[i] > T(0) ? yp : ui;
   y[b * 2 * n + n + i] = v_free[i] > T(0) ? yq : wi;
-}
-
-// ---------------------------------------------------------------------------
-// Row dot products for S4:
-//   out[i * nb + r] = sum_k (A[i, k] ascale[i]) (B[r, k] bscale[r]),
-// k ascending, accumulated in Acc, rows of length N in global memory,
-// staged through shared memory kTile columns at a time.  Thread t owns the
-// products t, t + 256, ...
-// ---------------------------------------------------------------------------
-
-template <typename T, typename Acc>
-__device__ void dot_rows(const T* A, int na, const T* ascale, const T* B,
-                         int nb, const T* bscale, int N,
-                         T (*sa)[kTile + 1], T (*sb)[kTile + 1], Acc* out) {
-  const int tid = threadIdx.x;
-  const int ne = na * nb;
-  Acc acc[kMaxPer];
-#pragma unroll
-  for (int p = 0; p < kMaxPer; ++p) acc[p] = Acc(0);
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    for (int e = tid; e < na * kTile; e += blockDim.x) {
-      const int i = e / kTile, kk = e % kTile, k = k0 + kk;
-      T a = k < N ? A[(int64_t)i * N + k] : T(0);
-      if (ascale != nullptr) a = a * ascale[i];
-      sa[i][kk] = a;
-    }
-    for (int e = tid; e < nb * kTile; e += blockDim.x) {
-      const int r = e / kTile, kk = e % kTile, k = k0 + kk;
-      T bval = k < N ? B[(int64_t)r * N + k] : T(0);
-      if (bscale != nullptr) bval = bval * bscale[r];
-      sb[r][kk] = bval;
-    }
-    __syncthreads();
-    const int kn = min(kTile, N - k0);
-#pragma unroll
-    for (int p = 0; p < kMaxPer; ++p) {
-      const int e = tid + p * blockDim.x;
-      if (e < ne) {
-        const int i = e / nb, r = e % nb;
-        Acc s = acc[p];
-        for (int kk = 0; kk < kn; ++kk) s += (Acc)sa[i][kk] * (Acc)sb[r][kk];
-        acc[p] = s;
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int p = 0; p < kMaxPer; ++p) {
-    const int e = tid + p * blockDim.x;
-    if (e < ne) out[e] = acc[p];
-  }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
@@ -539,144 +491,329 @@ __global__ void __launch_bounds__(kThreads) block_orth_kernel(
 // S4
 // ---------------------------------------------------------------------------
 
-// Round-robin (circle) schedule: position k of round `round` holds player
-// p(k); the pairs (p(k), p(nc - 1 - k)) are disjoint and every pair of
-// players meets once in nc - 1 rounds.
-__device__ __forceinline__ int player(int k, int round, int nc) {
-  return k == 0 ? 0 : 1 + (k - 1 + round) % (nc - 1);
+constexpr int kLsqTile = 64;            // columns per staged tile of the H pass
+constexpr int kLsqRows = kMaxCols + 1;  // rows of H: mr = mm + 1 <= 33
+constexpr int kLsqPer = 5;              // H products of one thread: ceil(33 / 8)
+
+template <typename T, int P>
+struct alignas(sizeof(T) * P) Pack {
+  T v[P];
+};
+
+// Row stride of a staged tile, in elements: padded so that 16-byte copies
+// stay aligned and the 16 or 32 rows a warp reads at one column fall on
+// different banks (two ways at most).
+template <typename T>
+__host__ __device__ constexpr int lstsq_stride() {
+  return kLsqTile + 16 / (int)sizeof(T);
 }
 
+// Shared memory of the H pass: valid in the working dtype, then two tile
+// stages of the mm + 1 rows of V and the mm rows of W.
 template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  // Fixed tree to lane 0, then broadcast: every lane gets identical bits.
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return __shfl_sync(0xffffffffu, v, 0);
+__host__ __device__ constexpr int lstsq_smem_bytes(int mm) {
+  return (kLsqRows * (int)sizeof(T) + 15) / 16 * 16 +
+         2 * (2 * mm + 1) * lstsq_stride<T>() * (int)sizeof(T);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) lstsq_kernel(
+// Copy 16 bytes global -> shared (both 16-byte aligned).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// H pass: CTA (blockIdx.x, lane blockIdx.y) of `ctas` per lane owns the
+// tiles [r T / ctas, (r + 1) T / ctas) of kLsqTile columns, T = ceil(N /
+// kLsqTile), and writes its float64 partials of H [mr, mm] to
+// hpart[lane, r].  It streams its columns of V's mr rows and W's mm rows
+// through two cp.async stages (16-byte copies when kVec: N and the bases
+// aligned); thread t owns the products (i, c) with c = t mod mmp (mmp = mm
+// rounded up to a power of two) and i = t / mmp + j 256 / mmp, summed in
+// column order.  The products' shared-memory reads and float64
+// arithmetic, not the loads, bound this pass, so its loops carry no
+// branch that differs between the threads of a warp.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads) lstsq_h_kernel(
     const T* __restrict__ vbasis,  // [B, mm+1, N]
     const T* __restrict__ valid,   // [B, mm+1]
     const T* __restrict__ wstore,  // [B, mm, N]
-    const T* __restrict__ zstore,  // [B, mm, N]
-    const T* __restrict__ beta,    // [B]
-    T* __restrict__ xout,          // [B, N]
-    int mm, int N) {
-  __shared__ T sa[kMaxRows][kTile + 1];
-  __shared__ T sb[kMaxRows][kTile + 1];
-  using R = double;  // the SVD's arithmetic, whatever T is
-  __shared__ R H[(kMaxCols + 1) * kMaxCols];
-  __shared__ R Aj[kMaxCols + 1][kMaxCols + 1];
-  __shared__ R Vj[kMaxCols][kMaxCols + 1];
-  __shared__ R sv[kMaxCols];
-  __shared__ R coef[kMaxCols];
-  __shared__ T ys[kMaxCols];
-  __shared__ int changed, bad;
+    double* __restrict__ hpart,    // [B, ctas, mm+1, mm]
+    int mm, int N, int ntiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ctas = (int)gridDim.x, r = (int)blockIdx.x;
+  const int64_t lane = blockIdx.y;
   const int tid = threadIdx.x;
-  const int64_t lane = blockIdx.x;
   const int mr = mm + 1;
-  const T* V = vbasis + lane * mr * (int64_t)N;
-  const T* val = valid + lane * mr;
-  const T* W = wstore + lane * mm * (int64_t)N;
-  const T* Z = zstore + lane * mm * (int64_t)N;
-  T* x = xout + lane * (int64_t)N;
-  const T bet_t = beta[lane];
-  const R bet = (R)bet_t;
+  const int tile0 = (int)((int64_t)r * ntiles / ctas);
+  const int tile1 = (int)((int64_t)(r + 1) * ntiles / ctas);
+  constexpr int stride = lstsq_stride<T>();
+  constexpr int V = kVec ? 16 / (int)sizeof(T) : 1;
+  T* vs = (T*)smem;
+  T* stage = (T*)(smem + (kLsqRows * sizeof(T) + 15) / 16 * 16);
+  const int rows = mr + mm;  // V's rows, then W's
+  const int stage_elems = rows * stride;
+  const T* Vb = vbasis + lane * mr * (int64_t)N;
+  const T* Wb = wstore + lane * mm * (int64_t)N;
 
-  dot_rows(V, mr, val, W, mm, (const T*)nullptr, N, sa, sb, H);  // H[i*mm + c]
+  auto load_tile = [&](int t, int st) {
+    const int g0 = t * kLsqTile;
+    const int tw = min(kLsqTile, N - g0);
+    T* dst = stage + st * stage_elems;
+    for (int e = tid; e < rows * (kLsqTile / V); e += blockDim.x) {
+      const int row = e / (kLsqTile / V);
+      const int kk = (e - row * (kLsqTile / V)) * V;
+      if (kk < tw) {
+        const T* src = (row < mr ? Vb + (int64_t)row * N
+                                 : Wb + (int64_t)(row - mr) * N) + g0 + kk;
+        if (kVec)
+          cp_async16(dst + row * stride + kk, src);
+        else
+          cp_async(dst + row * stride + kk, src);
+      }
+    }
+    cp_async_commit();
+  };
 
-  const int nc = mm + (mm & 1);  // a zero column pads an odd count
-  if (tid == 0) bad = isfinite(bet_t) ? 0 : 1;
-  __syncthreads();
-  for (int e = tid; e < mr * nc; e += blockDim.x) {
-    const int i = e / nc, c = e % nc;
-    const R h = c < mm ? H[i * mm + c] : R(0);
-    if (!isfinite(h)) bad = 1;
-    Aj[i][c] = h;
+  const int nt = tile1 - tile0;
+  load_tile(tile0, 0);
+  for (int i = tid; i < mr; i += blockDim.x) vs[i] = valid[lane * mr + i];
+  int mmp = 1;
+  while (mmp < mm) mmp <<= 1;
+  const int groups = kThreads / mmp;
+  const int pc = tid % mmp, pg = tid / mmp;
+  const int pg0 = (tid & ~31) / mmp;  // the smallest pg of this warp
+  const bool owner = pc < mm;
+  double acc[kLsqPer];
+  T vsc[kLsqPer];
+#pragma unroll
+  for (int j = 0; j < kLsqPer; ++j) acc[j] = 0.0;
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt) {
+      load_tile(tile0 + t + 1, (t + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {  // valid, written before the first barrier
+#pragma unroll
+      for (int j = 0; j < kLsqPer; ++j) {
+        const int i = pg + groups * j;
+        vsc[j] = i < mr ? vs[i] : T(0);
+      }
+    }
+    const T* sv = stage + (t & 1) * stage_elems;
+    const int tw = min(kLsqTile, N - (tile0 + t) * kLsqTile);
+    if (owner) {
+      // Row by row of this thread's products, so that whether a row
+      // exists is decided once a tile and alike across the warp (a row
+      // past mr is read clamped, with weight 0, by the threads of a warp
+      // that has it for some of its threads); 16 bytes of a row per
+      // shared-memory read, the columns in order, a ragged tail one by one.
+      using Pk = Pack<T, 16 / sizeof(T)>;
+      constexpr int P = 16 / sizeof(T);
+      const T* wrow = sv + (mr + pc) * stride;
+#pragma unroll
+      for (int j = 0; j < kLsqPer; ++j) {
+        if (pg0 + groups * j >= mr) break;
+        const T* arow = sv + min(pg + groups * j, mr - 1) * stride;
+        const T vj = vsc[j];
+        double s = acc[j];
+        int kk = 0;
+        for (; kk + P <= tw; kk += P) {
+          const Pk w = *reinterpret_cast<const Pk*>(wrow + kk);
+          const Pk a = *reinterpret_cast<const Pk*>(arow + kk);
+#pragma unroll
+          for (int q = 0; q < P; ++q) s += (double)(a.v[q] * vj) * (double)w.v[q];
+        }
+        for (; kk < tw; ++kk) s += (double)(arow[kk] * vj) * (double)wrow[kk];
+        acc[j] = s;
+      }
+    }
+    __syncthreads();
   }
-  for (int e = tid; e < nc * nc; e += blockDim.x)
-    Vj[e / nc][e % nc] = (e / nc == e % nc) ? R(1) : R(0);
-  __syncthreads();
-  if (bad) {  // jnp.linalg.lstsq of a non-finite H: a NaN solution
-    for (int k = tid; k < N; k += blockDim.x) x[k] = quiet_nan<T>();
+  if (owner) {
+    double* out = hpart + (lane * ctas + r) * (int64_t)(mr * mm);
+#pragma unroll
+    for (int j = 0; j < kLsqPer; ++j) {
+      const int i = pg + groups * j;
+      if (i < mr) out[i * mm + pc] = acc[j];
+    }
+  }
+}
+
+// The least squares: one warp per lane (blockIdx.x).  H = the ctas
+// partials added in order; then the SVD minimum-norm solution of min |beta
+// e1 - H y| by one-sided Jacobi, column pairs in round-robin (circle)
+// order: in round r, position k holds player 0 (k = 0) or 1 + (k - 1 + r)
+// mod (nc - 1), and positions k and nc - 1 - k pair.  Lane c holds column
+// c of A (H, a zero column padding an odd mm) and of the rotation matrix
+// in registers (kRows >= mm + 1 rows, unrolled); a pair's lanes trade
+// columns by shuffles and compute the same three dot products in row
+// order, so both take identical rotations, and a round needs no barrier.
+// Writes y (rounded to T), NaN for a non-finite H or beta.
+template <typename T, int kRows>
+__global__ void __launch_bounds__(32) lstsq_svd_kernel(
+    const double* __restrict__ hpart,  // [B, ctas, mm+1, mm]
+    const T* __restrict__ beta,        // [B]
+    T* __restrict__ yout,              // [B, mm]
+    int mm, int ctas) {
+  constexpr int kCols = kRows - 1;
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ double vsh[kCols][kCols + 1];
+  __shared__ double coef[kCols];
+  const int64_t lane = blockIdx.x;
+  const int ln = threadIdx.x;
+  const int mr = mm + 1;
+  const int nc = mm + (mm & 1);
+  const double* hp = hpart + lane * ctas * (int64_t)(mr * mm);
+  T* y = yout + lane * mm;
+  double a[kRows];
+  bool fin = true;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    double h = 0.0;
+    if (i < mr && ln < mm) {
+      for (int c = 0; c < ctas; ++c) h += hp[(int64_t)c * mr * mm + i * mm + ln];
+      fin = fin && isfinite(h);
+    }
+    a[i] = h;
+  }
+  const T bet_t = beta[lane];
+  if (__any_sync(kAll, !fin) || !isfinite(bet_t)) {
+    if (ln < mm) y[ln] = quiet_nan<T>();
     return;
   }
+  const double bet = (double)bet_t;
+  double v[kCols];
+#pragma unroll
+  for (int r = 0; r < kCols; ++r) v[r] = r == ln ? 1.0 : 0.0;
 
-  const int warp = tid / 32, ln = tid % 32, nwarps = blockDim.x / 32;
-  const R eps = Lim<R>::eps;
+  const double eps = Lim<double>::eps;
+  // The last round's rotation of this lane's column (c, s, partner): V is
+  // off the rounds' critical path, so it takes that rotation during the
+  // next round's sums.  The first one is the identity.
+  int vpartner = ln;
+  double vc = 1.0, vs = 0.0;
   for (int sweep = 0; sweep < kMaxSweeps; ++sweep) {
-    if (tid == 0) changed = 0;
-    __syncthreads();
+    bool rotated = false;
     for (int round = 0; round < nc - 1; ++round) {
-      for (int pr = warp; pr < nc / 2; pr += nwarps) {
-        const int p = player(pr, round, nc), q = player(nc - 1 - pr, round, nc);
-        R al = R(0), be = R(0), ga = R(0);
-        for (int i = ln; i < mr; i += 32) {
-          const R ap = Aj[i][p], aq = Aj[i][q];
-          al += ap * ap;
-          be += aq * aq;
-          ga += ap * aq;
-        }
-        al = warp_sum(al);
-        be = warp_sum(be);
-        ga = warp_sum(ga);
-        if (ga != R(0) && fabs(ga) > eps * sqrt(al) * sqrt(be)) {
-          const R zeta = (be - al) / (R(2) * ga);
-          const R t = (zeta >= R(0) ? R(1) : R(-1)) /
-                      (fabs(zeta) + sqrt(R(1) + zeta * zeta));
-          const R c = R(1) / sqrt(R(1) + t * t);
-          const R sn = c * t;
-          for (int i = ln; i < mr; i += 32) {
-            const R ap = Aj[i][p], aq = Aj[i][q];
-            Aj[i][p] = c * ap - sn * aq;
-            Aj[i][q] = sn * ap + c * aq;
-          }
-          for (int r = ln; r < nc && r < mm; r += 32) {
-            const R vp = Vj[r][p], vq = Vj[r][q];
-            Vj[r][p] = c * vp - sn * vq;
-            Vj[r][q] = sn * vp + c * vq;
-          }
-          if (ln == 0) changed = 1;
-        }
-        __syncwarp();
+      // This lane's position k in the round and its partner's; lanes
+      // beyond nc pair with themselves and never rotate.
+      int partner = ln;
+      bool isp = true;
+      if (ln < nc) {
+        int q = ln - 1 - round;  // k = 1 + (ln - 1 - round) mod (nc - 1)
+        if (q < 0) q += nc - 1;
+        const int k = ln == 0 ? 0 : 1 + q;
+        const int kp = nc - 1 - k;
+        int qp = kp - 1 + round;  // player(kp, round)
+        if (qp >= nc - 1) qp -= nc - 1;
+        partner = kp == 0 ? 0 : 1 + qp;
+        isp = k < nc / 2;
       }
-      __syncthreads();
+      // Rows past mr are zero and add nothing: the loops run unguarded.
+      double pa[kRows];
+      double so = 0.0, sp = 0.0, g = 0.0;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        pa[i] = __shfl_sync(kAll, a[i], partner);
+        so += a[i] * a[i];
+        sp += pa[i] * pa[i];
+        g += a[i] * pa[i];
+        if (i < kCols) {
+          const double pv = __shfl_sync(kAll, v[i], vpartner);
+          v[i] = fma(vs, pv, vc * v[i]);
+        }
+      }
+      // alpha = |a_p|^2, beta = |a_q|^2, gamma = a_p . a_q: the same
+      // sums in the same order in both lanes of the pair.
+      const double al = isp ? so : sp, be = isp ? sp : so, ga = g;
+      // gamma == 0 implies alpha or beta is 0; the square roots and
+      // divisions below get only positive normal arguments, so no lane
+      // takes their slow paths (and stalls the warp).  Each lane takes the
+      // root of its own column's sum, which is bit for bit its partner's
+      // other sum, and the two trade roots.
+      const bool nz = ln < nc && ga != 0.0;
+      const double rs = sqrt(so > 0.0 ? so : 1.0);
+      const double rp = __shfl_sync(kAll, rs, partner);
+      const bool rot = nz && fabs(ga) > eps * (isp ? rs : rp) * (isp ? rp : rs);
+      const double zeta = (rot ? be - al : 0.0) / (2.0 * (rot ? ga : 1.0));
+      const double t = (zeta >= 0.0 ? 1.0 : -1.0) /
+                       (fabs(zeta) + sqrt(1.0 + zeta * zeta));
+      const double cr = 1.0 / sqrt(1.0 + t * t);
+      const double sn = cr * t;
+      // Column p: c a_p - sn a_q; column q: sn a_p + c a_q.  No rotation:
+      // c = 1, s = 0.
+      const double c = rot ? cr : 1.0;
+      const double sg = rot ? (isp ? -sn : sn) : 0.0;
+      rotated = rotated || rot;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) a[i] = fma(sg, pa[i], c * a[i]);
+      vpartner = partner;
+      vc = c;
+      vs = sg;
     }
-    const int again = changed;
-    __syncthreads();
-    if (!again) break;
+    if (!__any_sync(kAll, rotated)) break;
+  }
+#pragma unroll
+  for (int r = 0; r < kCols; ++r) {
+    const double pv = __shfl_sync(kAll, v[r], vpartner);
+    v[r] = fma(vs, pv, vc * v[r]);
   }
 
   // Singular values are the column norms; the solution keeps those above
   // jnp.linalg.lstsq's cutoff: y = sum_c V[:, c] (beta u[0, c]) / sigma_c.
-  for (int c = tid; c < mm; c += blockDim.x) {
-    R s2 = R(0);
-    for (int i = 0; i < mr; ++i) s2 += Aj[i][c] * Aj[i][c];
-    sv[c] = sqrt(s2);
+  double s2 = 0.0;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) s2 += a[i] * a[i];
+  const double sc = ln < mm ? sqrt(s2) : 0.0;
+  double smax = sc;
+  for (int off = 16; off > 0; off >>= 1)
+    smax = fmax(smax, __shfl_xor_sync(kAll, smax, off));
+  const double cut = double(Lim<T>::eps) * double(mr) * smax;  // working eps
+  if (ln < mm) {
+    coef[ln] = (sc > 0.0 && sc >= cut) ? (1.0 / sc) * ((a[0] / sc) * bet)
+                                       : 0.0;
+#pragma unroll
+    for (int r = 0; r < kCols; ++r)
+      if (r < mm) vsh[r][ln] = v[r];
   }
-  __syncthreads();
-  if (tid == 0) {
-    R smax = sv[0];
-    for (int c = 1; c < mm; ++c) smax = sv[c] > smax ? sv[c] : smax;
-    const R cut = R(Lim<T>::eps) * R(mr) * smax;  // the working dtype's eps
-    for (int c = 0; c < mm; ++c) {
-      const R sc = sv[c];
-      coef[c] = (sc > R(0) && sc >= cut) ? (R(1) / sc) * ((Aj[0][c] / sc) * bet)
-                                         : R(0);
-    }
+  __syncwarp();
+  if (ln < mm) {
+    double acc = 0.0;
+    for (int c = 0; c < mm; ++c) acc += vsh[ln][c] * coef[c];
+    y[ln] = (T)acc;
   }
-  __syncthreads();
-  for (int r = tid; r < mm; r += blockDim.x) {
-    R a = R(0);
-    for (int c = 0; c < mm; ++c) a += Vj[r][c] * coef[c];
-    ys[r] = (T)a;
-  }
-  __syncthreads();
-  for (int k = tid; k < N; k += blockDim.x) {
-    T a = T(0);
-    for (int c = 0; c < mm; ++c) a += Z[(int64_t)c * N + k] * ys[c];
-    x[k] = a;
-  }
+}
+
+// x = Z^T y: one thread per (column, lane), the mm terms in order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) lstsq_x_kernel(
+    const T* __restrict__ zstore,  // [B, mm, N]
+    const T* __restrict__ y,       // [B, mm]
+    T* __restrict__ xout,          // [B, N]
+    int mm, int N) {
+  const int64_t lane = blockIdx.y;
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= N) return;
+  const T* z = zstore + lane * mm * (int64_t)N + k;
+  const T* yl = y + lane * mm;
+  T a = T(0);
+#pragma unroll 8
+  for (int c = 0; c < mm; ++c) a += z[(int64_t)c * N] * yl[c];
+  xout[lane * (int64_t)N + k] = a;
 }
 
 // ---------------------------------------------------------------------------
@@ -772,15 +909,43 @@ int launch_block_orth(T* vbasis, T* valid, const T* wblk, int lanes,
                          stream, vbasis, valid, wblk, nrows, s, N, j0, wmax);
 }
 
+// The plan (ctas, smem) comes from the wrapper's lstsq_plan; it is checked
+// here against what the kernels need.  hpart is [lanes, ctas, mm+1, mm]
+// float64 scratch, y [lanes, mm].
 template <typename T>
 int launch_lstsq(const T* vbasis, const T* valid, const T* wstore,
-                 const T* zstore, const T* beta, T* x, int lanes, int mm,
-                 int N, cudaStream_t stream) {
-  if (lanes <= 0 || N <= 0 || mm < 1 || mm > kMaxCols ||
-      mm + 1 > kMaxRows)
+                 const T* zstore, const T* beta, T* x, double* hpart, T* y,
+                 int lanes, int mm, int N, int ctas, int smem,
+                 cudaStream_t stream) {
+  if (lanes <= 0 || lanes > 65535 || N <= 0 || mm < 1 || mm > kMaxCols)
     return (int)cudaErrorInvalidValue;
-  lstsq_kernel<T><<<lanes, kThreads, 0, stream>>>(vbasis, valid, wstore,
-                                                   zstore, beta, x, mm, N);
+  const int ntiles = (N + kLsqTile - 1) / kLsqTile;
+  if (ctas < 1 || ctas > ntiles || smem != lstsq_smem_bytes<T>(mm) ||
+      smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = N % (16 / (int)sizeof(T)) == 0 &&
+                   ((uintptr_t)vbasis | (uintptr_t)wstore) % 16 == 0;
+  void (*hk)(const T*, const T*, const T*, double*, int, int, int) =
+      vec ? lstsq_h_kernel<T, true> : lstsq_h_kernel<T, false>;
+  cudaError_t err;
+  if (smem > 48 * 1024) {  // above 48 KB a kernel has to opt in
+    err = cudaFuncSetAttribute(hk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  hk<<<dim3((unsigned)ctas, (unsigned)lanes), kThreads, smem, stream>>>(
+      vbasis, valid, wstore, hpart, mm, N, ntiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (mm <= 16)
+    lstsq_svd_kernel<T, 17><<<lanes, 32, 0, stream>>>(hpart, beta, y, mm, ctas);
+  else
+    lstsq_svd_kernel<T, 33><<<lanes, 32, 0, stream>>>(hpart, beta, y, mm, ctas);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lstsq_x_kernel<T><<<dim3((unsigned)((N + kThreads - 1) / kThreads),
+                           (unsigned)lanes), kThreads, 0, stream>>>(
+      zstore, y, x, mm, N);
   return (int)cudaGetLastError();
 }
 
@@ -815,12 +980,12 @@ int launch_lstsq(const T* vbasis, const T* valid, const T* wstore,
                                 cluster, wmax, smem, resident,               \
                                 (cudaStream_t)stream);                       \
   }                                                                          \
-  extern "C" int gmres_lstsq_##SUFFIX(const T* vbasis, const T* valid,        \
-                                      const T* wstore, const T* zstore,      \
-                                      const T* beta, T* x, int lanes,        \
-                                      int mm, int N, void* stream) {         \
-    return launch_lstsq<T>(vbasis, valid, wstore, zstore, beta, x, lanes,    \
-                           mm, N, (cudaStream_t)stream);                     \
+  extern "C" int gmres_lstsq_##SUFFIX(                                        \
+      const T* vbasis, const T* valid, const T* wstore, const T* zstore,     \
+      const T* beta, T* x, double* hpart, T* y, int lanes, int mm, int N,    \
+      int ctas, int smem, void* stream) {                                    \
+    return launch_lstsq<T>(vbasis, valid, wstore, zstore, beta, x, hpart, y, \
+                           lanes, mm, N, ctas, smem, (cudaStream_t)stream);  \
   }
 
 SPARSE_ENTRY_POINTS(double, f64)

@@ -6,7 +6,7 @@ wrapper                     replaces (``freedm_tpu/pf/newton.py``)      route
 :func:`newton_assemble`     ``_newton_step`` (:260-301) minus the solve  CUDA
 :func:`power_injections`    ``s_calc`` (:144-151), ``_residual``         CUDA
                             (:253-258)
-:func:`newton_update`       the per-lane ``select`` of the vmapped       Triton
+:func:`newton_update`       the per-lane ``select`` of the vmapped       CUDA
                             ``while_loop`` (:325-336)
 ==========================  ==========================================  =======
 
@@ -26,6 +26,7 @@ quantity is unknown), ``v_set`` are ``[n]`` and ``free`` is ``[2n]``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Dict, Tuple
@@ -159,6 +160,9 @@ def _newton_lib() -> ctypes.CDLL:
                 fn = getattr(lib, f"power_injections_{suffix}")
                 fn.argtypes = [_P] * 13 + [_I, _I, _P]
                 fn.restype = _I
+                fn = getattr(lib, f"newton_update_{suffix}")
+                fn.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+                fn.restype = _I
             _lib = lib
         return _lib
 
@@ -254,18 +258,25 @@ def power_injections(x, y_re, y_im, p_sched, q_sched, th_free, v_free,
     return p, q, f
 
 
-def newton_update(x, dx, f, free, it, err, active, max_iter: int,
-                  tol: Tensor) -> None:
-    """K3: the per-lane masked update, in place on ``x [B, 2n]``,
-    ``it [B]`` (int32), ``err [B]`` and ``active [B]`` (bool).  ``tol``
-    is a one-element tensor of x's dtype (a float64 comparison needs a
-    float64 operand; a Python float would reach Triton as float32)."""
-    if x.device.type == "cpu":
-        newton_update_plain(x, dx, f, free, it, err, active, max_iter, tol)
-        return
+#: The last carry K3 checked: its tensors, their device pointers, (lanes,
+#: m) and the entry point.  A solve calls K3 once per iteration on one
+#: carry (x, free, it, err, active, tol updated in place), so the carry is
+#: checked at its first call and only the step's new dx and f afterwards;
+#: the entry keeps one solve's carry alive until the next solve replaces it.
+_k3_carry = None
+
+
+def _update_carry(x, free, it, err, active, tol):
+    global _k3_carry
+    carry = (x, free, it, err, active, tol)
+    hit = _k3_carry
+    if hit is not None and all(a is b for a, b in zip(hit[0], carry)):
+        return hit
+    if x.dim() != 2 or x.dtype not in _SUFFIX:
+        raise ValueError(f"x must be a float64 or float32 [B, 2n] tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
     lanes, m = x.shape
-    want = {"x": (x, x.dtype, (lanes, m)), "dx": (dx, x.dtype, (lanes, m)),
-            "f": (f, x.dtype, (lanes, m)), "free": (free, x.dtype, (m,)),
+    want = {"x": (x, x.dtype, (lanes, m)), "free": (free, x.dtype, (m,)),
             "it": (it, torch.int32, (lanes,)),
             "err": (err, x.dtype, (lanes,)),
             "active": (active, torch.bool, (lanes,)),
@@ -281,9 +292,39 @@ def newton_update(x, dx, f, free, it, err, active, max_iter: int,
                 f"{name} must be a contiguous {shape} tensor, got "
                 f"{tuple(t.shape)}"
             )
-    from freedm_tpu_torch.kernels import newton_update_triton
+    if lanes == 0:
+        raise ValueError("unsupported shape: 0 lanes")
+    if x.device.type != "cuda":
+        raise ValueError(f"newton_update runs on CPU or CUDA tensors, got "
+                         f"{x.device}")
+    fn = getattr(_newton_lib(), f"newton_update_{_SUFFIX[x.dtype]}")
+    hit = _k3_carry = (carry, tuple(t.data_ptr() for t in carry), lanes, m,
+                       fn)
+    return hit
 
-    with torch.cuda.device(x.device):
-        newton_update_triton.launch(x, dx, f, free, it, err, active,
-                                    max_iter, tol)
+
+def newton_update(x, dx, f, free, it, err, active, max_iter: int,
+                  tol: Tensor) -> None:
+    """K3: the per-lane masked update, in place on ``x [B, 2n]``,
+    ``it [B]`` (int32), ``err [B]`` and ``active [B]`` (bool).  ``tol``
+    is a one-element tensor of x's dtype (the comparison runs in x's
+    dtype, as the plain version's)."""
+    if x.device.type == "cpu":
+        newton_update_plain(x, dx, f, free, it, err, active, max_iter, tol)
+        return
+    _, ptrs, lanes, m, fn = _update_carry(x, free, it, err, active, tol)
+    for name, t in (("dx", dx), ("f", f)):
+        if (t.dtype != x.dtype or t.device != x.device or t.shape != x.shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {x.dtype} "
+                             f"{tuple(x.shape)} tensor on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    idx = x.get_device()
+    ctx = (contextlib.nullcontext() if idx == torch.cuda.current_device()
+           else torch.cuda.device(idx))
+    with ctx:
+        rc = fn(ptrs[0], dx.data_ptr(), f.data_ptr(), ptrs[1], ptrs[2],
+                ptrs[3], ptrs[4], ptrs[5], lanes, m, int(max_iter),
+                torch._C._cuda_getCurrentRawStream(idx))
+    _raise_on(rc, "newton_update")
     _count("newton_update")

@@ -25,9 +25,12 @@ cv_tf, av_ft, av_tf`` in the reference's ``_JacValues`` order — and
 basis is ``v_basis [B, mm+1, N]`` with ``valid [B, mm+1]``; the stored
 chain is ``z_store``/``w_store [B, mm, N]``.
 
-S3 runs a thread-block cluster per lane; how a lane splits over its
-cluster is a :class:`ClusterPlan` from :func:`block_orth_plan`, plain
-Python that the wrapper hands to the kernel.
+S3 runs a thread-block cluster per lane and S4's H pass several CTAs a
+lane; how a lane splits is a :class:`ClusterPlan` from
+:func:`block_orth_plan` or an :class:`LstsqPlan` from :func:`lstsq_plan`,
+plain Python that the wrapper hands to the kernel.
+:func:`gmres_lstsq_jacobi` mirrors S4's Jacobi least squares in PyTorch
+for the tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -72,6 +75,12 @@ SMEM_LIMIT = 232_448
 #: the working dtype, rounded up to 16 bytes.
 _ORTH_PRODUCTS = 256
 _ORTH_SMALL = _ORTH_PRODUCTS + MAX_BLOCK * MAX_BLOCK + MAX_BLOCK + MAX_KRYLOV + 1
+#: S4 streams the Krylov vectors in tiles of this many columns, over at
+#: most this many CTAs a lane.
+LSTSQ_TILE = 64
+LSTSQ_CTAS = 8
+#: Jacobi sweeps S4 runs at most (``kMaxSweeps``).
+MAX_SWEEPS = 60
 
 
 def _count(name: str) -> None:
@@ -135,7 +144,7 @@ class SparseOperands(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# Launch plans of S2 and S3 (plain Python: the CPU tests hold them)
+# Launch plans of S3 and S4 (plain Python: the CPU tests hold them)
 # ---------------------------------------------------------------------------
 
 
@@ -188,6 +197,42 @@ def block_orth_plan(nvec: int, nrows: int, s: int, j0: int, itemsize: int,
     smem = header + (width * (j0 + 1 + s) * itemsize if resident else 0)
     bounds = tuple(c * nvec // cluster for c in range(cluster + 1))
     return ClusterPlan(cluster, bounds, width, smem, bool(resident))
+
+
+class LstsqPlan(NamedTuple):
+    """How S4's H pass splits one lane over CTAs.
+
+    The ``nvec`` columns fall into ``ceil(nvec / LSTSQ_TILE)`` tiles; CTA
+    ``c`` of a lane owns the tiles ``[c T // ctas, (c + 1) T // ctas)``,
+    the columns ``[bounds[c], bounds[c + 1])``, and writes its float64
+    partials of H.  ``smem`` is the dynamic shared memory of one CTA in
+    bytes (``lstsq_smem_bytes`` in ``csrc/sparse.cu``)."""
+
+    ctas: int
+    bounds: Tuple[int, ...]
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def lstsq_plan(nvec: int, mm: int, itemsize: int) -> LstsqPlan:
+    """S4's plan for a cycle of Krylov dimension ``mm`` over ``nvec``
+    columns in a dtype of ``itemsize`` bytes: at most ``LSTSQ_CTAS`` CTAs
+    a lane and at least one tile each — 8 at mesh2000 (63 tiles), 4 at
+    mesh118 (N = 236).  Raises ``ValueError`` on a cycle the kernels do
+    not take."""
+    if not 1 <= mm <= MAX_KRYLOV:
+        raise ValueError(f"unsupported Krylov dimension {mm} "
+                         f"(1 <= mm <= {MAX_KRYLOV})")
+    if nvec < 1:
+        raise ValueError(f"unsupported vector length {nvec}")
+    tiles = -(-nvec // LSTSQ_TILE)
+    ctas = min(LSTSQ_CTAS, tiles)
+    header = -(-(MAX_KRYLOV + 1) * itemsize // 16) * 16
+    stride = LSTSQ_TILE + 16 // itemsize
+    smem = header + 2 * (2 * mm + 1) * stride * itemsize
+    bounds = tuple(min(nvec, (c * tiles // ctas) * LSTSQ_TILE)
+                   for c in range(ctas + 1))
+    return LstsqPlan(ctas, bounds, smem)
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +360,74 @@ def gmres_lstsq_plain(v_basis, valid, w_store, z_store, beta) -> Tensor:
     return torch.where(bad[:, None], torch.full_like(x, float("nan")), x)
 
 
+def jacobi_lstsq(h: Tensor, beta: Tensor,
+                 cut_eps: float) -> Tuple[Tensor, Tensor]:
+    """S4's least squares as its kernel runs it, in float64: the SVD
+    minimum-norm ``y`` of ``min ‖β e₁ − h y‖`` for ``h [B, mm+1, mm]``
+    by one-sided Jacobi — column pairs in the kernel's round-robin order,
+    its rotation formulas and its convergence test ``|γ| > ε √α √β`` with
+    float64 ε, at most ``MAX_SWEEPS`` sweeps — then the cutoff ``σ > 0``
+    and ``σ ≥ cut_eps · (mm+1) · σ_max``.  Returns ``(y [B, mm], sweeps
+    [B])``, ``sweeps`` the sweeps each lane ran (the last one rotates no
+    pair).  The dot products are summed in another order than the
+    kernel's."""
+    lanes, mr, mm = h.shape
+    nc = mm + (mm & 1)
+    a = h.new_zeros(lanes, mr, nc)
+    a[:, :, :mm] = h
+    v = torch.eye(nc, dtype=h.dtype, device=h.device).repeat(lanes, 1, 1)
+    eps = torch.finfo(torch.float64).eps
+    live = torch.ones(lanes, dtype=torch.bool, device=h.device)
+    sweeps = torch.zeros(lanes, dtype=torch.int64, device=h.device)
+    pos = torch.arange(nc, device=h.device)
+    for _ in range(MAX_SWEEPS):
+        rotated = torch.zeros_like(live)
+        for rnd in range(nc - 1):
+            players = torch.where(pos == 0, 0, 1 + (pos - 1 + rnd) % (nc - 1))
+            p, q = players[:nc // 2], players.flip(0)[:nc // 2]
+            ap, aq = a[:, :, p], a[:, :, q]
+            al = (ap * ap).sum(1)
+            be = (aq * aq).sum(1)
+            ga = (ap * aq).sum(1)
+            rot = ((ga != 0) & (ga.abs() > eps * al.sqrt() * be.sqrt())
+                   & live[:, None])
+            zeta = (be - al) / (2 * torch.where(rot, ga, torch.ones_like(ga)))
+            t = (torch.where(zeta >= 0, 1.0, -1.0)
+                 / (zeta.abs() + torch.sqrt(1 + zeta * zeta)))
+            c = torch.where(rot, 1 / torch.sqrt(1 + t * t), 1.0)
+            sn = torch.where(rot, c * t, 0.0)
+            c, sn = c[:, None], sn[:, None]
+            a[:, :, p], a[:, :, q] = c * ap - sn * aq, sn * ap + c * aq
+            vp, vq = v[:, :mm, p], v[:, :mm, q]
+            v[:, :mm, p], v[:, :mm, q] = c * vp - sn * vq, sn * vp + c * vq
+            rotated |= rot.any(1)
+        sweeps += live.long()
+        live &= rotated
+        if not bool(live.any()):
+            break
+    sv = torch.sqrt((a[:, :, :mm] * a[:, :, :mm]).sum(1))
+    cut = cut_eps * mr * sv.amax(1, keepdim=True)
+    keep = (sv > 0) & (sv >= cut)
+    safe = torch.where(keep, sv, torch.ones_like(sv))
+    coef = torch.where(keep, (1 / safe) * ((a[:, 0, :mm] / safe)
+                                           * beta[:, None]), 0.0)
+    return (v[:, :mm, :mm] @ coef[:, :, None])[:, :, 0], sweeps
+
+
+def gmres_lstsq_jacobi(v_basis, valid, w_store, z_store,
+                       beta) -> Tuple[Tensor, Tensor]:
+    """S4's algorithm in PyTorch (:func:`jacobi_lstsq` on the float64 H):
+    ``(x [B, N], sweeps [B])``.  For the tests and ``chip_smoke.py``; the
+    solvers take :func:`gmres_lstsq`."""
+    dtype = v_basis.dtype
+    h = (v_basis * valid[:, :, None]).double() @ w_store.double().mT
+    bad = ~torch.isfinite(h).flatten(1).all(dim=1) | ~torch.isfinite(beta)
+    h = torch.where(bad[:, None, None], torch.zeros_like(h), h)
+    y, sweeps = jacobi_lstsq(h, beta.double(), torch.finfo(dtype).eps)
+    x = (z_store.mT @ y.to(dtype)[:, :, None])[:, :, 0]
+    return torch.where(bad[:, None], torch.full_like(x, float("nan")), x), sweeps
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -328,7 +441,7 @@ _SIGS = {
     "sparse_assemble": [_P] * 19 + [_I] * 3 + [_P],
     "sparse_matvec": [_P] * 9 + [_I] * 3 + [_P],
     "gmres_block_orth": [_P] * 3 + [_I] * 9 + [_P],
-    "gmres_lstsq": [_P] * 6 + [_I] * 3 + [_P],
+    "gmres_lstsq": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 
@@ -411,6 +524,15 @@ def _op_ptrs(op: SparseOperands, like: Tensor) -> Dict[str, int]:
     return ptrs
 
 
+def _need_cuda(t: Tensor, name: str) -> None:
+    """A wrapper launches only on a CUDA tensor (a CPU one takes the plain
+    version before this); any other device is refused here, before the
+    library is loaded."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got "
+                         f"{t.device}")
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -439,6 +561,7 @@ def sparse_assemble(x, p_sched, q_sched,
             "p_sched": (p_sched, x.dtype, (lanes, n)),
             "q_sched": (q_sched, x.dtype, (lanes, n))}
     _want(x, spec)
+    _need_cuda(x, "sparse_assemble")
     o = _op_ptrs(op, x)
     fn = _fn("sparse_assemble", x.dtype)
     ctx, stream = _launch_on(x)
@@ -467,6 +590,7 @@ def sparse_matvec(ev, bv, u, op: SparseOperands) -> Tensor:
     _want(u, {"u": (u, u.dtype, (lanes, 2 * n)),
               "ev": (ev, u.dtype, (lanes, 8, m)),
               "bv": (bv, u.dtype, (lanes, 6, n))})
+    _need_cuda(u, "sparse_matvec")
     o = _op_ptrs(op, u)
     fn = _fn("sparse_matvec", u.dtype)
     ctx, stream = _launch_on(u)
@@ -503,6 +627,7 @@ def _launch_block_orth(v_basis, valid, w_blk, j0: int,
     _want(v_basis, {"v_basis": (v_basis, dt, (lanes, nrows, nvec)),
                     "valid": (valid, dt, (lanes, nrows)),
                     "w_blk": (w_blk, dt, (lanes, s, nvec))})
+    _need_cuda(v_basis, "gmres_block_orth")
     fn = _fn("gmres_block_orth", dt)
     ctx, stream = _launch_on(v_basis)
     with ctx:
@@ -520,22 +645,26 @@ def gmres_lstsq(v_basis, valid, w_store, z_store, beta) -> Tensor:
         return gmres_lstsq_plain(v_basis, valid, w_store, z_store, beta)
     lanes, nrows, nvec = v_basis.shape
     mm = nrows - 1
-    if not 1 <= mm <= MAX_KRYLOV:
-        raise ValueError(f"unsupported Krylov dimension {mm} "
-                         f"(1 <= mm <= {MAX_KRYLOV})")
+    plan = lstsq_plan(nvec, mm, v_basis.element_size())
     dt = v_basis.dtype
     _want(v_basis, {"v_basis": (v_basis, dt, (lanes, nrows, nvec)),
                     "valid": (valid, dt, (lanes, nrows)),
                     "w_store": (w_store, dt, (lanes, mm, nvec)),
                     "z_store": (z_store, dt, (lanes, mm, nvec)),
                     "beta": (beta, dt, (lanes,))})
+    _need_cuda(v_basis, "gmres_lstsq")
     fn = _fn("gmres_lstsq", dt)
     ctx, stream = _launch_on(v_basis)
     with ctx:
         x = torch.empty(lanes, nvec, dtype=dt, device=v_basis.device)
+        # Scratch: H's float64 partials [lanes, ctas, mm+1, mm], then y.
+        nh = lanes * plan.ctas * nrows * mm
+        scratch = torch.empty(nh + lanes * mm, dtype=torch.float64,
+                              device=v_basis.device)
         rc = fn(v_basis.data_ptr(), valid.data_ptr(), w_store.data_ptr(),
-                z_store.data_ptr(), beta.data_ptr(), x.data_ptr(), lanes, mm,
-                nvec, stream)
+                z_store.data_ptr(), beta.data_ptr(), x.data_ptr(),
+                scratch.data_ptr(), scratch.data_ptr() + 8 * nh, lanes, mm,
+                nvec, plan.ctas, plan.smem, stream)
     _raise_on(rc, "gmres_lstsq")
     _count("gmres_lstsq")
     return x

@@ -70,6 +70,15 @@ def s_calc(y_re, y_im, theta, v):
     return p, q
 
 
+def any_active(active: torch.Tensor) -> bool:
+    """The Newton loops' condition, the reference ``while_loop``'s cond
+    over the lanes: whether any lane of the ``[B]`` bool flags K3 (or the
+    mixed phase's test) left is still active.  One copy of the flag bytes
+    to the host — the loop's one sync — and no reduction launch on the
+    card."""
+    return bool(active.cpu().numpy().any())
+
+
 def build_result(x, p, q, f, free, it, tol: float) -> NewtonResult:
     """Assemble the result record from a final state and K2's outputs."""
     n = p.shape[1]
@@ -237,7 +246,7 @@ def make_newton_solver(
         it = torch.zeros(lanes, dtype=torch.int32, device=dev)
         err = torch.full((lanes,), float("inf"), dtype=dtype, device=dev)
         active = (it < max_iter) & (err >= tol_t)
-        while bool(active.any()):  # the one host sync per iteration
+        while any_active(active):  # the one host sync per iteration
             dx, f = step(x, ps, qs)
             update(x, dx, f, free, it, err, active, max_iter, tol_t)
         return finish(x, ps, qs, it)

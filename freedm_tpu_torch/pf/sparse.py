@@ -54,7 +54,8 @@ from freedm_tpu_torch.pf.krylov import (
     build_fdlf_precond,
     fdlf_apply,
 )
-from freedm_tpu_torch.pf.newton import build_result, default_tol, lane_prep
+from freedm_tpu_torch.pf.newton import (any_active, build_result, default_tol,
+                                        lane_prep)
 
 
 class JacobianPattern(NamedTuple):
@@ -298,7 +299,7 @@ def make_sparse_newton_solver(
         it = lane_zeros(x)
         err = torch.full((x.shape[0],), float("inf"), dtype=dtype, device=dev)
         active = (it < max_iter) & (err >= tol_t)
-        while bool(active.any()):  # the one host sync per iteration
+        while any_active(active):  # the one host sync per iteration
             dx, f = step(x, ps, qs)
             update(x, dx, f, free, it, err, active, max_iter, tol_t)
         return finish(x, ps, qs, it, lane_zeros(x))
@@ -315,7 +316,7 @@ def make_sparse_newton_solver(
                     & (stall < _MIXED_STALL_STEPS))
 
         active = phase1_active()
-        while bool(active.any()):
+        while any_active(active):
             x_new, err1 = step_mixed(x, ps, qs)
             improved = err1 < _MIXED_ACCEPT_RATIO * best
             x_best = torch.where((active & (err1 < best))[:, None], x_new,
@@ -330,7 +331,7 @@ def make_sparse_newton_solver(
         # carrying the post-update mismatch; each step is a fallback.
         x, err, fb = x_best, best, lane_zeros(x)
         active = (it < max_iter) & (err >= tol_t)
-        while bool(active.any()):
+        while any_active(active):
             dx, _ = step(x, ps, qs)
             f_post = assemble(x + dx, ps, qs, op)[2]
             fb += active.to(torch.int32)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time S2 ``sparse_matvec`` and S3 ``gmres_block_orth`` of this checkout
-against those of other checkouts of the repo, in turns on one card.
+"""Time S2 ``sparse_matvec``, S3 ``gmres_block_orth``, S4 ``gmres_lstsq``
+and K3 ``newton_update`` of this checkout against those of other
+checkouts of the repo, in turns on one card.
 
     python3 kernel_ab.py OTHER [OTHER ...] [--out FILE]
 
@@ -9,17 +10,21 @@ by ``git archive <commit> | tar -x -C _archive/parent`` into a directory
 that ``.gitignore`` lists.  Every turn runs in a process of its own with
 one checkout first on ``sys.path`` and calls that checkout's own
 wrappers, whose kernels build there at first use: the checkouts may
-differ in their kernels' C signatures, not in the wrappers' Python ones.
-The inputs are made once, in this checkout, at mesh2000 × 64 lanes in
-float64 and float32 — those ``chip_smoke.py`` times: S2 on S1's values
-and a random vector, S3 at the last block of a real GMRES cycle (j0 = 12,
-s = 4) — and every turn reads them.  For each ``OTHER`` the turns run
-OTHER, this, this, OTHER; each turn gives the mean of CUDA events over
+differ in their kernels' C signatures or routes (CUDA C++ or Triton),
+not in the wrappers' Python ones.  The inputs are made once, in this
+checkout, at mesh2000 × 64 lanes in float64 and float32 — those
+``chip_smoke.py`` times: S2 on S1's values and a random vector, S3 at
+the last block of a real GMRES cycle (j0 = 12, s = 4), S4 at that
+cycle's finish (mm = 16), K3 on a random step of every lane (each timed
+call updates every lane: ``max_iter`` is never reached and ``tol`` is 0)
+— and every turn reads them.  For each ``OTHER`` the turns run OTHER,
+this, this, OTHER; each turn gives the mean of CUDA events over
 back-to-back calls (wrapper included) and the mean device time from
 ``torch.profiler`` (the kernel alone).  Each ``OTHER``'s outputs must
-agree with this checkout's within ``chip_smoke.SPARSE_TOL``.  Prints the
-card's name and power limit, one line per turn and a JSON summary as the
-last line (also written to ``--out``).  Needs a CUDA card.
+agree with this checkout's within ``chip_smoke.SPARSE_TOL`` (K3
+exactly).  Prints the card's name and power limit, one line per turn
+and a JSON summary as the last line (also written to ``--out``).  Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 DTYPES = ("float64", "float32")
-KERNELS = ("sparse_matvec", "gmres_block_orth")
+KERNELS = ("sparse_matvec", "gmres_block_orth", "gmres_lstsq",
+           "newton_update")
 
 
 def _smoke():
@@ -56,15 +62,22 @@ def prepare(path: Path) -> None:
     sys_ = cs.case_system("mesh2000")
     data = {}
     for name in DTYPES:
+        dtype = getattr(torch, name)
         op, x, ps, qs, _, m_op = cs.sparse_setup(torch, sys_, cs.MAIN_LANES,
-                                                 3, getattr(torch, name))
+                                                 3, dtype)
         ev, bv, f = sk.sparse_assemble(x, ps, qs, op)
         u = torch.randn_like(x)
         caps = cs.gmres_captures(torch, sk, op, ev, bv, f, x, m_op)
         _, vb, valid, w, j0 = [c for c in caps if c[0] == "orth"][-1]
-        data[name] = {"ev": ev.cpu(), "bv": bv.cpu(), "u": u.cpu(),
-                      "vb": vb.cpu(), "valid": valid.cpu(), "w": w.cpu(),
-                      "j0": int(j0)}
+        _, lvb, lvalid, ws, zs, beta = [c for c in caps
+                                        if c[0] == "lstsq"][-1]
+        data[name] = {"ev": ev, "bv": bv, "u": u, "vb": vb, "valid": valid,
+                      "w": w, "j0": int(j0), "lvb": lvb, "lvalid": lvalid,
+                      "ws": ws, "zs": zs, "beta": beta, "x": x,
+                      "dx": 1e-12 * torch.randn_like(x), "f": f,
+                      "free": torch.cat([op.th_free, op.v_free])}
+        data[name] = {k: v.cpu() if torch.is_tensor(v) else v
+                      for k, v in data[name].items()}
     torch.save(data, path)
 
 
@@ -73,6 +86,7 @@ def measure(root: Path, inputs: Path, outputs: Path) -> None:
     import torch
 
     cs = _smoke()
+    from freedm_tpu_torch.kernels import newton_kernels as nk
     from freedm_tpu_torch.kernels import sparse_kernels as sk
     from freedm_tpu_torch.pf.sparse import sparse_operands
 
@@ -81,18 +95,44 @@ def measure(root: Path, inputs: Path, outputs: Path) -> None:
     data = torch.load(inputs)
     times, outs = {}, {}
     for name in DTYPES:
+        dtype = getattr(torch, name)
         d = {k: v.to(dev) if torch.is_tensor(v) else v
              for k, v in data[name].items()}
-        op = sparse_operands(sys_, dtype=getattr(torch, name), device=dev)
+        op = sparse_operands(sys_, dtype=dtype, device=dev)
         ev, bv, u, w, j0 = d["ev"], d["bv"], d["u"], d["w"], d["j0"]
+        lvb, lvalid, ws, zs, beta = (d[k] for k in ("lvb", "lvalid", "ws",
+                                                    "zs", "beta"))
+        lanes = u.shape[0]
+
+        def carry(active=True):
+            return (d["x"].clone(), torch.zeros(lanes, dtype=torch.int32,
+                                                device=dev),
+                    torch.full((lanes,), float("inf"), dtype=dtype,
+                               device=dev),
+                    torch.full((lanes,), active, dtype=torch.bool,
+                               device=dev))
+
+        tol = torch.full((1,), 1e-8, dtype=dtype, device=dev)
+        zero = torch.zeros(1, dtype=dtype, device=dev)
         vb, valid = d["vb"].clone(), d["valid"].clone()
         y = sk.sparse_matvec(ev, bv, u, op)
         sk.gmres_block_orth(vb, valid, w, j0)
-        outs[name] = {"y": y.cpu(), "vb": vb.cpu(), "valid": valid.cpu()}
+        xs = sk.gmres_lstsq(lvb, lvalid, ws, zs, beta)
+        k3 = carry()
+        nk.newton_update(k3[0], d["dx"], d["f"], d["free"], *k3[1:], 5, tol)
+        outs[name] = {"y": y.cpu(), "vb": vb.cpu(), "valid": valid.cpu(),
+                      "xs": xs.cpu(), "k3": [t.cpu() for t in k3]}
         vt, at = d["vb"].clone(), d["valid"].clone()
+        kt = carry()
         fns = {"sparse_matvec": (lambda: sk.sparse_matvec(ev, bv, u, op), 200),
                "gmres_block_orth": (
-                   lambda: sk.gmres_block_orth(vt, at, w, j0), 50)}
+                   lambda: sk.gmres_block_orth(vt, at, w, j0), 50),
+               "gmres_lstsq": (
+                   lambda: sk.gmres_lstsq(lvb, lvalid, ws, zs, beta), 50),
+               "newton_update": (
+                   lambda: nk.newton_update(kt[0], d["dx"], d["f"],
+                                            d["free"], *kt[1:], 1 << 30,
+                                            zero), 200)}
         times[name] = {k: (cs.time_ms(torch, fn, reps=reps),
                            cs.device_ms(torch, fn, reps=max(reps // 4, 10)))
                        for k, (fn, reps) in fns.items()}
@@ -110,18 +150,22 @@ def _run(*args: str) -> str:
 
 
 def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
-    """Relative S2/S3 differences of two turns' outputs; raises beyond
-    ``SPARSE_TOL`` or on different ``valid`` flags."""
+    """Relative S2/S3/S4 differences of two turns' outputs; raises beyond
+    ``SPARSE_TOL``, on different ``valid`` flags or on any K3 difference."""
     errs = {}
     for name in DTYPES:
         tol12, tol34 = cs.SPARSE_TOL[name]
         e2 = cs.rel_abs_err(torch, a[name]["y"], b[name]["y"])[0]
         e3 = cs.rel_abs_err(torch, a[name]["vb"], b[name]["vb"])[0]
-        cs.check(e2 <= tol12 and e3 <= tol34
+        e4 = cs.rel_abs_err(torch, a[name]["xs"], b[name]["xs"])[0]
+        same3 = all(torch.equal(p, q) for p, q in zip(a[name]["k3"],
+                                                     b[name]["k3"]))
+        cs.check(e2 <= tol12 and e3 <= tol34 and e4 <= tol34 and same3
                  and torch.equal(a[name]["valid"], b[name]["valid"]),
                  f"{label} disagrees with this checkout ({name}): S2 {e2}, "
-                 f"S3 {e3}")
-        errs[name] = {"sparse_matvec": e2, "gmres_block_orth": e3}
+                 f"S3 {e3}, S4 {e4}, K3 identical {same3}")
+        errs[name] = {"sparse_matvec": e2, "gmres_block_orth": e3,
+                      "gmres_lstsq": e4, "newton_update": 0.0}
     return errs
 
 
@@ -155,7 +199,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    summary = {"card": smi, "shape": "mesh2000 x 64, S3 at j0 = 12, s = 4",
+    summary = {"card": smi, "shape": "mesh2000 x 64, S3 at j0 = 12, s = 4, "
+                                     "S4 at mm = 16",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
@@ -174,7 +219,7 @@ def main() -> int:
                 for name in DTYPES:
                     for kern in KERNELS:
                         ms, dev = times[name][kern]
-                        print(f"ab {other.name} {name} {kern:<17} {which:<5} "
+                        print(f"ab {other.name} {name} {kern:<16} {which:<5} "
                               f"{ms:.4f} ms  device {dev:.4f} ms", flush=True)
             errs = agree(cs, torch, outs[0], outs[1], str(other))
             print(f"ab {other.name} agreement {json.dumps(errs)}", flush=True)

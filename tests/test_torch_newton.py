@@ -29,7 +29,8 @@ from freedm_tpu.utils import cplx
 from freedm_tpu_torch.grid import matpower
 from freedm_tpu_torch.grid.bus import PQ, SLACK, BusSystem, ybus_dense
 from freedm_tpu_torch.kernels import newton_kernels as nk
-from freedm_tpu_torch.pf.newton import branch_flows, make_newton_solver, s_calc
+from freedm_tpu_torch.pf.newton import (any_active, branch_flows,
+                                        make_newton_solver, s_calc)
 
 F64 = torch.float64
 
@@ -176,6 +177,45 @@ def test_update_plain_matches_while_loop_oracle():
     assert np.isnan(got[2][1].item())
 
 
+@pytest.mark.parametrize("max_iter", [0, 1, 5])
+def test_host_active_read_equals_the_while_loop_cond(max_iter):
+    """The loops' host read of K3's flags (``any_active``) equals the
+    reference ``while_loop``'s cond over the lanes, vmapped: every subset
+    of four lanes — a NaN lane, a lane at max_iter, a converged lane and
+    a lane still stepping — after one K3 update, and at max_iter = 0,
+    where no lane may step."""
+    tol = 1e-8
+    rng = np.random.default_rng(max_iter)
+    m = 6
+    x, dx = rng.normal(size=(4, m)), rng.normal(size=(4, m))
+    f = rng.normal(size=(4, m))
+    f[0, 2] = np.nan  # its err becomes NaN
+    f[2] *= 1e-12  # converged
+    free = np.ones(m)
+    it0 = np.array([0, max(max_iter - 1, 0), 0, 0], np.int32)
+    err0 = np.full(4, np.inf)
+
+    def ref_cond(it, err):
+        return jax.vmap(lambda i, e: jnp.logical_and(i < max_iter, e >= tol))(
+            jnp.asarray(it), jnp.asarray(err))
+
+    active0 = np.array(ref_cond(it0, err0))
+    got = [_t(x), torch.as_tensor(it0), _t(err0), torch.as_tensor(active0)]
+    nk.newton_update(got[0], _t(dx), _t(f), _t(free), got[1], got[2], got[3],
+                     max_iter, torch.full((1,), tol, dtype=F64))
+    want = np.asarray(ref_cond(got[1].numpy(), got[2].numpy()))
+    np.testing.assert_array_equal(got[3].numpy(), want)
+    assert not want[0] and not want[2]  # the NaN and the converged lane stop
+    for mask in range(16):
+        lanes = [b for b in range(4) if mask >> b & 1]
+        assert any_active(got[3][lanes]) == bool(want[lanes].any())
+        assert any_active(torch.as_tensor(active0[lanes])) == bool(
+            active0[lanes].any())
+    if max_iter == 0:
+        assert not any_active(torch.as_tensor(active0))
+        np.testing.assert_array_equal(got[0].numpy(), x)  # nothing stepped
+
+
 @pytest.fixture(scope="module")
 def mesh40():
     ref = ref_cases.synthetic_mesh(40, seed=9)
@@ -203,6 +243,21 @@ def test_batched_solve_matches_vmapped_reference(mesh40):
                                    err_msg=k)
     assert (got.mismatch < 1e-8).all()
     np.testing.assert_array_equal(got.fallbacks.numpy(), 0)
+
+
+def test_max_iter_zero_takes_no_step_as_the_reference(mesh40):
+    ref, sys = mesh40
+    scales = np.linspace(0.8, 1.2, 3)[:, None]
+    p, q = scales * ref.p_inj, scales * ref.q_inj
+    ref_solve, _ = ref_make_newton_solver(ref, max_iter=0)
+    want = jax.vmap(lambda a, b: ref_solve(p_inj=a, q_inj=b))(p, q)
+    solve, _ = make_newton_solver(sys, max_iter=0, device="cpu")
+    got = solve(p_inj=p, q_inj=q)
+    np.testing.assert_array_equal(got.iterations.numpy(), 0)
+    np.testing.assert_array_equal(np.asarray(want.iterations), 0)
+    np.testing.assert_array_equal(got.converged.numpy(),
+                                  np.asarray(want.converged))
+    np.testing.assert_allclose(got.v.numpy(), np.asarray(want.v), atol=1e-12)
 
 
 def test_warm_start_lanes_match_reference(mesh40):
