@@ -29,7 +29,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    solve and of the float64 solve;
 4. sparse kernels: S1-S4 against their plain versions at mesh118,
    mesh2000 and mesh5000, B ∈ {1, 3, 64} (B ≤ 8 at mesh5000), float64
-   and float32, with a breakdown lane and a forced Cholesky failure
+   and float32 — S1 in each of its modes (``compare_assemble``: the
+   float32 values of ``VALUES_F32`` are the full fill's cast, bit for
+   bit, the ``RESIDUAL`` outputs the full fill's, P and Q the ordered
+   sums of the c/a values it wrote, every mode bit-identical on repeat)
+   —, with a breakdown lane and a forced Cholesky failure
    (``SPARSE_TOL`` gives each tolerance and its reason), S3 on the
    blocks of GMRES cycles with (m, s) ∈ {(16, 4), (16, 1), (16, 8),
    (32, 4)} (j0 up to 28, 33 basis rows; mesh118's N = 236 splits into
@@ -44,13 +48,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    mesh2000 × 64 (CUDA events over back-to-back calls, and device time
    from ``torch.profiler``) beside their plain versions, their bounds,
    the preconditioner apply and, for S2, one ``torch.sparse.mm`` over a
-   block-diagonal CSR matrix of every lane's J — S2, S3 and S4 in float64
-   and float32;
+   block-diagonal CSR matrix of every lane's J — S1 in each mode, all in
+   float64 and float32;
 5. sparse solves: mesh2000 × 64 in f64 and in mixed — every lane
    converges, losses ≥ 0, three lanes within 1e-9 pu of the plain-version
    sparse solve and 1e-6 pu of the dense solve — with launches per
-   Newton step and a ``torch.profiler`` breakdown; then mesh5000 × 8 on
-   the LU-kind preconditioner;
+   Newton step (S1's by mode), a ``torch.profiler`` breakdown and the
+   device operations per Newton step; then mesh5000 × 8 on the LU-kind
+   preconditioner;
 6. serve (the dense kernels' main path): ``ServeServer`` with
    ``pf_backend="dense"`` and ``max_batch=64``; 64 concurrent ``POST /v1/pf`` per case to
    case14, case_ieee30, mesh118 and mesh2000 — every answer 200 and
@@ -64,8 +69,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    the burst must be > 0.
 
 The line before the last is the kernel table as one JSON object (K3,
-S1-S4 also carry ``device_ms``, S2-S4 float32 ``*_f32`` times); the
-last line is ``{"ok": true, "device": {...}}``.
+S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
+other modes' ``*_values_f32``/``*_residual`` times and bounds and its
+served launches by mode, ``launches_by_mode``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -728,6 +735,79 @@ def check_forms(torch, sk, cap, label):
           f"S3's two forms differ: {label} j0={j0}")
 
 
+def ordered_bus_sums(torch, op, ev, x):
+    """P and Q [B, n] from the c/a values S1 wrote into ``ev`` (rows 1 and
+    0 of ``[B, 4, 2m]``), summed per bus as S1 sums them: the from-side
+    terms, then the to-side terms, each in incidence-list order, one
+    rounded operation at a time; then ``(P_from + P_to) + V² g_d`` and
+    ``(Q_from + Q_to) − V² b_d``."""
+    ptr = op.inc_ptr.cpu().numpy().astype(np.int64)
+    side = op.inc_code.cpu().numpy() & 1
+    deg = np.diff(ptr)
+    dev = ev.device
+    sums = {(s_, k): torch.zeros_like(x[:, :op.n])
+            for s_ in (0, 1) for k in (1, 0)}
+    for slot in range(int(deg.max())):
+        has = deg > slot
+        r = np.where(has, ptr[:-1] + slot, 0)
+        entry = torch.as_tensor(r, device=dev)
+        for s_ in (0, 1):
+            mask = torch.as_tensor(has & (side[r] == s_), device=dev)
+            for k in (1, 0):
+                acc = sums[s_, k]
+                acc.copy_(torch.where(mask, acc + ev[:, k][:, entry], acc))
+    v = x[:, op.n:]
+    v2 = v * v
+    p = (sums[0, 1] + sums[1, 1]) + v2 * op.g_d
+    q = (sums[0, 0] + sums[1, 0]) - v2 * op.b_d
+    return p, q
+
+
+def compare_assemble(torch, sk, op, x, ps, qs, label):
+    """S1 in each of its modes against its plain version (each output at
+    ``SPARSE_TOL`` of its own dtype), twice on identical inputs (identical
+    bits), and the modes against each other bit for bit: ``VALUES_F32``'s
+    ``ev``/``bv`` are ``FULL``'s cast to float32 and its ``f`` is
+    ``FULL``'s; ``RESIDUAL``'s ``p``, ``q``, ``f`` are ``FULL``'s ``bv[:,
+    4]``, ``bv[:, 5]`` and ``f``; the bus role's P and Q are the ordered
+    sums of the c/a values the edge role wrote (:func:`ordered_bus_sums`).
+    Returns the worst ``(rel, abs)`` over the outputs in ``x``'s dtype."""
+    modes = [sk.FULL, sk.RESIDUAL]
+    if x.dtype == torch.float64:
+        modes.append(sk.VALUES_F32)
+    out, errs = {}, []
+    for mode in modes:
+        k = sk.sparse_assemble(x, ps, qs, op, mode)
+        check(all(same_bits(torch, a, b) for a, b in zip(
+            k, sk.sparse_assemble(x, ps, qs, op, mode))),
+            f"S1 mode {mode} not bit-identical on repeat: {label}")
+        for a, b in zip(k, sk.sparse_assemble_plain(x, ps, qs, op, mode)):
+            rel, ab = rel_abs_err(torch, a, b)
+            tol = SPARSE_TOL[str(a.dtype)[6:]][0]
+            check(rel <= tol, f"sparse_assemble mode {mode} disagrees on "
+                              f"{label}: {rel} > {tol}")
+            if a.dtype == x.dtype:
+                errs.append((rel, ab))
+        out[mode] = k
+    ev, bv, f = out[sk.FULL]
+    p, q, f3 = out[sk.RESIDUAL]
+    check(same_bits(torch, p, bv[:, 4].contiguous())
+          and same_bits(torch, q, bv[:, 5].contiguous())
+          and same_bits(torch, f3, f),
+          f"S1's residual mode differs from its full mode: {label}")
+    if sk.VALUES_F32 in out:
+        ev2, bv2, f2 = out[sk.VALUES_F32]
+        check(same_bits(torch, ev2, ev.float())
+              and same_bits(torch, bv2, bv.float())
+              and same_bits(torch, f2, f),
+              f"S1's float32 values are not its float64 values cast: {label}")
+    ps_, qs_ = ordered_bus_sums(torch, op, ev, x)
+    check(same_bits(torch, ps_, bv[:, 4].contiguous())
+          and same_bits(torch, qs_, bv[:, 5].contiguous()),
+          f"S1's P/Q are not the ordered sums of its edge values: {label}")
+    return worst(errs)
+
+
 def compare_sparse_kernels(torch, sk, errs):
     """S1-S4 against their plain versions at mesh118/2000/5000, several
     lane counts, float64 and float32, with a breakdown lane and a forced
@@ -744,10 +824,8 @@ def compare_sparse_kernels(torch, sk, errs):
                 label = f"{name} B={lanes} {str(dtype)[6:]}"
                 op, x, ps, qs, pc, m_op = sparse_setup(
                     torch, sys_, lanes, 10 * ci + lanes, dtype, pc)
-                k1 = sk.sparse_assemble(x, ps, qs, op)
-                p1 = sk.sparse_assemble_plain(x, ps, qs, op)
-                e1 = worst(rel_abs_err(torch, a, b) for a, b in zip(k1, p1))
-                ev, bv, f = p1
+                e1 = compare_assemble(torch, sk, op, x, ps, qs, label)
+                ev, bv, f = sk.sparse_assemble_plain(x, ps, qs, op)
                 u = torch.randn_like(x)
                 y2 = sk.sparse_matvec(ev, bv, u, op)
                 e2 = rel_abs_err(torch, y2,
@@ -779,7 +857,6 @@ def compare_sparse_kernels(torch, sk, errs):
                     f" relative S1 {e1[0]:.1e}  S2 {e2[0]:.1e}  S3 {e3[0]:.1e}"
                     f"  S4 {e4[0]:.1e}")
                 for kname, (rel, ab), tol in (
-                        ("sparse_assemble", e1, tol12),
                         ("sparse_matvec", e2, tol12),
                         ("gmres_block_orth", e3, tol34),
                         ("gmres_lstsq", e4, tol34)):
@@ -787,7 +864,10 @@ def compare_sparse_kernels(torch, sk, errs):
                                       f"{rel} > {tol}")
                     if dtype == torch.float64:
                         errs[kname] = max(errs[kname], ab)
-                del k1, p1, ev, bv, f, caps
+                if dtype == torch.float64:
+                    errs["sparse_assemble"] = max(errs["sparse_assemble"],
+                                                  e1[1])
+                del ev, bv, f, caps
         del pc
         torch.cuda.empty_cache()
 
@@ -798,12 +878,10 @@ def sparse_library_matvec(torch, op, ev, bv):
     yardstick, built here and never called by the port."""
     lanes, n = ev.shape[0], op.n
     dev = ev.device
-    f, t = op.f_idx.long(), op.t_idx.long()
+    i, j = op.inc_rows(), op.inc_nbr.long()
     ar = torch.arange(n, device=dev)
-    # (row, column, sign) of each of ev's eight rows, then bv's diagonals.
-    entries = ((f, t, 1), (t, f, 1), (n + f, t, -1), (n + t, f, -1),
-               (f, n + t, 1), (t, n + f, 1), (n + f, n + t, 1),
-               (n + t, n + f, 1))
+    # (row, column, sign) of each of ev's four rows, then bv's diagonals.
+    entries = ((i, j, 1), (n + i, j, -1), (i, n + j, 1), (n + i, n + j, 1))
     r_list, c_list, v_list = [], [], []
     for k, (r, c, sign) in enumerate(entries):
         r_list.append(r)
@@ -832,6 +910,57 @@ def sparse_library_matvec(torch, op, ev, bv):
     return mat.coalesce().to_sparse_csr()
 
 
+#: S1's modes as the kernel table names them (suffixes of its fields).
+ASSEMBLE_MODES = (("", "FULL"), ("_values_f32", "VALUES_F32"),
+                  ("_residual", "RESIDUAL"))
+
+
+def time_assemble(torch, sk, op, x, ps, qs, rows, extra):
+    """S1 in each mode at the main path's shape by CUDA events and device
+    time, beside its plain version and its bound; the float64 full mode is
+    the table row, the other modes (and float32) fields of its entry."""
+    lanes, n, m = x.shape[0], op.n, op.m
+    f64 = x.dtype == torch.float64
+    w, iw = x.element_size(), 4
+    # Every mode reads x and the schedules once, the incidence list with
+    # its entries' admittances and the per-bus operands; the full modes
+    # write ev, bv (in float32 for VALUES_F32) and f, the residual P, Q
+    # and f.  Operations: ~45 per
+    # edge and lane (sincos ~20), ~25 per bus and lane plus 1 per
+    # incidence; the residual needs the edges' c/a terms (~35) and the
+    # sums (~15 per bus).
+    reads = (w * (4 * lanes * n + 4 * m + 5 * n)
+             + iw * (n + 1 + 4 * m))
+    for sfx, name in ASSEMBLE_MODES:
+        if name == "VALUES_F32" and not f64:
+            continue
+        mode = getattr(sk, name)
+        vw = 4 if name == "VALUES_F32" else w
+        if name == "RESIDUAL":
+            b1 = reads + w * 4 * lanes * n
+            o1 = lanes * (35 * m + 15 * n + 2 * m)
+        else:
+            b1 = reads + vw * lanes * (8 * m + 6 * n) + w * 2 * lanes * n
+            o1 = lanes * (45 * m + 25 * n + 2 * m)
+        k = time_ms(torch, lambda: sk.sparse_assemble(x, ps, qs, op, mode),
+                    reps=50)
+        k_dev = device_ms(torch, lambda: sk.sparse_assemble(x, ps, qs, op,
+                                                            mode), reps=20)
+        p = time_ms(torch, lambda: sk.sparse_assemble_plain(x, ps, qs, op,
+                                                            mode), reps=10)
+        b, by = bound(b1, o1, fp64=f64)
+        key = sfx + ("" if f64 else "_f32")
+        if not key:
+            rows["sparse_assemble"] = (k, p, None, b, by)
+        else:
+            extra["sparse_assemble"].update({
+                "ms" + key: k, "plain_ms" + key: p, "bound_ms" + key: b,
+                "library_ms" + key: None})
+        extra["sparse_assemble"]["device_ms" + key] = k_dev
+        log(f"timing: sparse_assemble{key:<15} kernel {k:.4f} ms (device "
+            f"{k_dev:.4f})  plain {p:.4f} ms  bound {b:.4f} ms ({by})")
+
+
 def time_sparse_kernels(torch, sk):
     """Each of S1-S4 at the main path's shape (mesh2000, 64 lanes,
     float64) against its plain version, its bound and, for S2, the
@@ -850,29 +979,14 @@ def time_sparse_kernels(torch, sk):
         sfx = "" if f64 else "_f32"
         w = 8 if f64 else 4
         op, x, ps, qs, pc, m_op = sparse_setup(torch, sys_, lanes, 3, dtype)
-        if f64:
-            # S1: reads x, the schedules, the per-edge and per-bus operands
-            # and the index arrays; writes ev, bv, f.  ~45 operations per
-            # edge and lane (sincos ~20), ~25 per bus and lane plus 1 per
-            # incidence.
-            b1 = (w * (lanes * nvec + 2 * lanes * n + 4 * m + 5 * n
-                       + 8 * lanes * m + 6 * lanes * n + lanes * nvec)
-                  + iw * (2 * m + n + 1 + 2 * m))
-            o1 = lanes * (45 * m + 25 * n + 2 * m)
-            k = time_ms(torch, lambda: sk.sparse_assemble(x, ps, qs, op),
-                        reps=50)
-            extra["sparse_assemble"]["device_ms"] = device_ms(
-                torch, lambda: sk.sparse_assemble(x, ps, qs, op), reps=20)
-            p = time_ms(torch, lambda: sk.sparse_assemble_plain(x, ps, qs, op),
-                        reps=10)
-            rows["sparse_assemble"] = (k, p, None, *bound(b1, o1))
+        time_assemble(torch, sk, op, x, ps, qs, rows, extra)
         ev, bv, f = sk.sparse_assemble(x, ps, qs, op)
-        # S2: reads u, ev, the four diagonals, masks, the branch ends and
-        # the incidence; writes y.  4 FMAs (8 operations) per incidence
-        # and lane, 4 per row.
+        # S2: reads u, ev, the four diagonals, masks, the incidence
+        # pointers and far ends; writes y.  4 FMAs (8 operations) per
+        # incidence and lane, 4 per row.
         u = torch.randn_like(x)
         b2 = (w * (lanes * nvec + 8 * lanes * m + 4 * lanes * n + 2 * n
-                   + lanes * nvec) + iw * (2 * m + n + 1 + 2 * m))
+                   + lanes * nvec) + iw * (n + 1 + 2 * m))
         o2 = lanes * (2 * m * 8 + 8 * n)
         k = time_ms(torch, lambda: sk.sparse_matvec(ev, bv, u, op), reps=200)
         k_dev = device_ms(torch, lambda: sk.sparse_matvec(ev, bv, u, op),
@@ -969,10 +1083,6 @@ def time_sparse_kernels(torch, sk):
                 f"{b_apply / PEAK_BYTES * 1e3:.4f} ms (bytes)")
         del caps, vb, vk, vp, op, x, ev, bv, f, u
         torch.cuda.empty_cache()
-    k, p, lib, b, by = rows["sparse_assemble"]
-    log(f"timing: sparse_assemble   kernel {k:.4f} ms (device "
-        f"{extra['sparse_assemble']['device_ms']:.4f})  plain {p:.4f} ms  "
-        f"bound {b:.4f} ms ({by})")
     return rows, extra
 
 
@@ -981,7 +1091,9 @@ def profile_solve(torch, fn, label, top=8):
     kernel and the device's busy share of the wall.  Only the kernel
     events count (an aten op's own row repeats its kernels' time); their
     times are summed, so overlap would count twice — this path runs on
-    one stream."""
+    one stream.  Returns ``(operations, busy_ms, wall_ms)``: the device
+    operations it recorded (kernel launches and copies), their summed
+    device time and the run's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -997,13 +1109,14 @@ def profile_solve(torch, fn, label, top=8):
     busy = sum(e.self_device_time_total for e in events)
     if not events:
         log(f"profile: {label}: the profiler recorded no device time")
-        return
+        return 0, 0.0, wall_us / 1e3
     log(f"profile: {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, idle "
         f"{100 - 100 * busy / wall_us:.1f}%)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"profile:   {e.self_device_time_total / 1e3:8.2f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    return sum(e.count for e in events), busy / 1e3, wall_us / 1e3
 
 
 def solve_sparse(torch, nk, sk):
@@ -1042,6 +1155,7 @@ def solve_sparse(torch, nk, sk):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = {**sk.launches(), **nk.launches()}
+        modes = sk.assemble_launches()
         its = r.iterations.cpu().numpy()
         conv = r.converged.cpu().numpy()
         losses = r.p.sum(dim=1).cpu().numpy()
@@ -1050,13 +1164,16 @@ def solve_sparse(torch, nk, sk):
             f"iterations {its.min()}-{its.max()}, fallbacks "
             f"{int(r.fallbacks.sum())}, max mismatch "
             f"{float(r.mismatch.max()):.2e}, losses {losses.min():.4f}-"
-            f"{losses.max():.4f} pu, launches {counts}")
+            f"{losses.max():.4f} pu, launches {counts}, S1 by mode {modes}")
         steps = counts["gmres_lstsq"]  # one GMRES cycle per batched step
         log(f"solve: sparse {prec:<5} {steps} batched Newton steps; launches "
             f"per step " + ", ".join(
                 f"{k} {v / max(steps, 1):g}" for k, v in counts.items() if v))
-        profile_solve(torch, lambda: solve(p_inj=p, q_inj=q),
-                      f"sparse {prec} mesh2000 x{MAIN_LANES}")
+        kernels = profile_solve(torch, lambda: solve(p_inj=p, q_inj=q),
+                                f"sparse {prec} mesh2000 x{MAIN_LANES}")[0]
+        log(f"profile: sparse {prec} mesh2000 x{MAIN_LANES}: {kernels} device "
+            f"operations (kernels and copies), {kernels / max(steps, 1):.1f} "
+            f"per Newton step")
         check(bool(conv.all()),
               f"sparse {prec} lanes not converged: {np.where(~conv)}")
         check(bool(np.all(losses >= -1e-9)), f"negative losses: {losses.min()}")
@@ -1200,6 +1317,7 @@ def serve_default(torch, sk):
         sk.reset_launches()
         wall, out = post_round(server.port, "mesh2000", scales)
         counts = sk.launches()
+        modes = sk.assemble_launches()
         for status, body, _ in out:
             check(status == 200, f"default mesh2000: HTTP {status}: {body}")
             check(body["converged"], f"default mesh2000: not converged: {body}")
@@ -1216,13 +1334,13 @@ def serve_default(torch, sk):
             f"iterations {min(its)}-{max(its)}  backend "
             f"{stats['pf_backend']}/{svc.engine('pf', 'mesh2000').pf_backend}"
             f" precision {svc.engine('pf', 'mesh2000').pf_precision}")
-        log(f"serve default: launches {counts}")
+        log(f"serve default: launches {counts}, S1 by mode {modes}")
         check(svc.engine("pf", "mesh2000").pf_backend == "sparse",
               "the default server did not take the sparse backend")
         check(max(lanes) > 1, "no batch coalesced more than one request")
         check(all(c > 0 for c in counts.values()),
               f"a sparse kernel was not launched on the served path: {counts}")
-        return counts
+        return counts, modes
     finally:
         server.stop()
         svc.stop()
@@ -1265,7 +1383,9 @@ def main() -> int:
         extra.update(sparse_extra)
         solve_sparse(torch, nk, sk)
         counts = serve(torch, nk)
-        counts.update(serve_default(torch, sk))
+        sparse_counts, s1_modes = serve_default(torch, sk)
+        counts.update(sparse_counts)
+        extra["sparse_assemble"]["launches_by_mode"] = s1_modes
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

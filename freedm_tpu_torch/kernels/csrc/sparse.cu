@@ -10,12 +10,18 @@
 //
 //   and C/V, A/V of the far end; then per bus the sums P, Q over the
 //   incident edges, the four block diagonals h, n, j, l and the masked
-//   mismatch f.  Two kernels: one thread per (lane, edge), then one thread
-//   per (lane, bus) that walks the bus's incidence list.
+//   mismatch f.  The off-diagonal values are stored in incidence-list
+//   order (CSR): entry r of bus i's list, edge e to bus j, holds row i's
+//   four values at column j, the terms of e's side at i.  One launch, in
+//   one of three modes: the values in the working dtype; float32 values
+//   from float64 arithmetic (the mixed Newton step's inner solve, each
+//   value rounded once at its store, f kept in float64); and the residual
+//   alone (P, Q and f, no values written).
 //
 // S2 sparse_matvec — replaces `_matvec` (:346-370): y = J u over the same
 //   pattern, pinned rows passing u through.  One thread per (lane, bus row)
-//   walks the incidence list and produces both halves (rows i and n + i).
+//   walks the incidence list, whose values lie contiguous, and produces
+//   both halves (rows i and n + i).
 //
 // S3 gmres_block_orth — replaces the block step of freedm_tpu/pf/krylov.py
 //   `_pgmres_block` (:451-471): two-pass block Gram-Schmidt of the [s, N]
@@ -44,16 +50,21 @@
 //
 // Bounds on an H100 SXM (3.35 TB/s; 34 / 67 TFLOP/s fp64 / fp32 outside the
 // tensor cores), mesh2000 (n = 2000, m = 4000, N = 2n), 64 lanes, float64:
-//   S1 reads x and writes 8 edge values, 6 bus values and f per lane: bytes,
-//      about 26.6 MB, 8 us.  Design: the edge pass is fully coalesced; the
-//      bus pass gathers from the edge arrays, which stay in L2.
-//   S2 reads u and the 8 edge + 4 diagonal arrays, writes y: bytes, about
-//      24.6 MB, 7.4 us (half in float32).  Design: the gathers hit L2; no
-//      scatter, no atomics.  A warp is 32 buses of one lane: in this
-//      [lane, array, edge] layout a warp of 32 lanes of one bus gathers
-//      from 32 rows 256 KB apart (1.6-2.0x slower on an H100, and four
-//      lanes per thread 1.3-1.5x slower), and a cluster that first forms
-//      each edge's terms in shared memory was no faster.
+//   S1 reads x and the schedules and writes 8 values per edge (4 per list
+//      entry), 6 bus values and f per lane: bytes, about 28.7 MB, 8.6 us
+//      (float32 values 17.4 MB, 5.2 us; the residual alone, P, Q and f,
+//      8.2 MB, 2.4 us).  Design: see the kernel.
+//   S2 reads u, the values and the 4 diagonal arrays and writes y: bytes,
+//      about 24.6 MB, 7.4 us (half in float32).  Design: the values of a
+//      row lie contiguous, so the walks of a warp's 32 rows read ~128
+//      consecutive entries of each array; only the gathers of u at the far
+//      ends stay scattered.  In the reference's edge order ([lane, array,
+//      edge]) the values of a bus's random chords lay scattered too, and a
+//      warp of 32 lanes of one bus on a lane-innermost layout ([array,
+//      edge, lane]) gathered u from 32 rows 256 KB apart: both measured
+//      slower on an H100 (PERF.md), as did a cluster form, four lanes per
+//      thread and 32 lanes of a bus per warp on the edge-order layout, and
+//      loads issued four list entries at a time.
 //   S3 reads the j0+1 basis rows and the [s, N] block once and writes the
 //      s new rows: bytes, about 43 MB at j0 = 12, s = 4, 12.8 us.  Design:
 //      a cluster of C CTAs per lane (512 CTAs at 64 lanes) each copies its
@@ -128,123 +139,243 @@ __device__ __forceinline__ T quiet_nan() { return T(NAN); }
 // S1
 // ---------------------------------------------------------------------------
 
-// ev[b, k, e]: k = 0 a_ft, 1 a_tf, 2 c_ft, 3 c_tf, 4 cv_ft, 5 cv_tf, 6 av_ft,
-// 7 av_tf (the reference's _JacValues order).
+// Arithmetic with explicit rounding: nvcc contracts a * b + c into one fma
+// where it sees one.  Every operation of S1 is one of these, so each mode
+// and instantiation, and PyTorch's elementwise ops (which round each
+// operation), give the same bits from the same inputs.
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+
+// The c/a term of one directed edge: f -> t (side 0, the from end's
+// C_ft, A_ft) or t -> f (side 1, C_tf, A_tf), from the end states and the
+// side's two-port admittance (g, b).  With sb = +-b and E = theta_f -
+// theta_t,
+//     c = V_f V_t (g cos E + sb sin E),  a = +-V_f V_t (g sin E - sb cos E),
+// which is the reference's formula of either side exactly: (-b) y = -(b y)
+// and x + (-y) = x - y in IEEE arithmetic.
 template <typename T>
-__global__ void edge_kernel(const T* __restrict__ x, const int* __restrict__ fi,
-                            const int* __restrict__ ti,
-                            const T* __restrict__ yft_re,
-                            const T* __restrict__ yft_im,
-                            const T* __restrict__ ytf_re,
-                            const T* __restrict__ ytf_im, T* __restrict__ ev,
-                            int lanes, int n, int m) {
-  const int64_t k = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (k >= (int64_t)lanes * m) return;
-  const int64_t b = k / m;
-  const int e = (int)(k - b * m);
-  const T* th = x + b * 2 * n;
-  const T* v = th + n;
-  const int f = fi[e], t = ti[e];
-  const T vf = v[f], vt = v[t];
+__device__ __forceinline__ void edge_term(T th_f, T th_t, T v_f, T v_t, T g,
+                                          T b, bool to_side, T* c, T* a) {
   T se, ce;
-  sincos_(th[f] - th[t], &se, &ce);
-  const T vv = vf * vt;
-  const T gft = yft_re[e], bft = yft_im[e], gtf = ytf_re[e], btf = ytf_im[e];
-  const T c_ft = vv * (gft * ce + bft * se);
-  const T a_ft = vv * (gft * se - bft * ce);
-  const T c_tf = vv * (gtf * ce - btf * se);
-  const T a_tf = -vv * (gtf * se + btf * ce);
-  T* out = ev + b * 8 * (int64_t)m + e;
-  out[0] = a_ft;
-  out[m] = a_tf;
-  out[2 * (int64_t)m] = c_ft;
-  out[3 * (int64_t)m] = c_tf;
-  out[4 * (int64_t)m] = c_ft / vt;
-  out[5 * (int64_t)m] = c_tf / vf;
-  out[6 * (int64_t)m] = a_ft / vt;
-  out[7 * (int64_t)m] = a_tf / vf;
+  sincos_(sub_rn(th_f, th_t), &se, &ce);
+  const T vv = mul_rn(v_f, v_t);
+  const T sb = to_side ? -b : b;
+  *c = mul_rn(vv, add_rn(mul_rn(g, ce), mul_rn(sb, se)));
+  const T a0 = mul_rn(vv, sub_rn(mul_rn(g, se), mul_rn(sb, ce)));
+  *a = to_side ? -a0 : a0;
 }
 
-// bv[b, k, i]: k = 0 h_d, 1 n_d, 2 j_d, 3 l_d, 4 p_calc, 5 q_calc.
+// What S1 writes of bus i of lane b from the sums of its from-side and
+// to-side terms: bv[b, k, i] (k = 0 h_d, 1 n_d, 2 j_d, 3 l_d, 4 p_calc,
+// 5 q_calc) when kFull, else p[b, i] into bv and q[b, i] into qout; and
+// the masked mismatch f.
+template <typename T, typename V, bool kFull>
+__device__ __forceinline__ void bus_outputs(
+    T pf, T pt, T qf, T qt, T thi, T vi, int64_t b, int i, int n,
+    const T* __restrict__ ps, const T* __restrict__ qs,
+    const T* __restrict__ th_free, const T* __restrict__ v_free,
+    const T* __restrict__ v_set, const T* __restrict__ g_d,
+    const T* __restrict__ b_d, V* __restrict__ bv, V* __restrict__ qout,
+    T* __restrict__ fout) {
+  const T v2 = mul_rn(vi, vi);
+  const T gd = g_d[i], bd = b_d[i];
+  const T p = add_rn(add_rn(pf, pt), mul_rn(v2, gd));
+  const T q = sub_rn(add_rn(qf, qt), mul_rn(v2, bd));
+  if (kFull) {
+    V* bl = bv + b * 6 * (int64_t)n + i;
+    bl[0] = (V)sub_rn(mul_rn(-v2, bd), q);
+    bl[n] = (V)add_rn(mul_rn(vi, gd), div_rn(p, vi));
+    bl[2 * (int64_t)n] = (V)add_rn(mul_rn(-v2, gd), p);
+    bl[3 * (int64_t)n] = (V)add_rn(mul_rn(-vi, bd), div_rn(q, vi));
+    bl[4 * (int64_t)n] = (V)p;
+    bl[5 * (int64_t)n] = (V)q;
+  } else {
+    bv[b * n + i] = (V)p;
+    qout[b * n + i] = (V)q;
+  }
+  const int64_t xi = b * 2 * n + i;
+  fout[xi] = th_free[i] > T(0) ? sub_rn(p, ps[b * n + i]) : thi;
+  fout[xi + n] = v_free[i] > T(0) ? sub_rn(q, qs[b * n + i])
+                                  : sub_rn(vi, v_set[i]);
+}
+
+// Buses of one lane per CTA of S1's value fill, and its threads: the list
+// entries it takes at a time (32 buses hold ~128 entries at mesh2000, 4 a
+// bus, so a tile takes one pass or two).
+constexpr int kTileBuses = 32;
+constexpr int kTileEntries = 128;
+
+// S1's value fill (FULL, VALUES_F32), a CTA per tile of kTileBuses buses
+// of one lane.  The tile's lists lie contiguous; its threads take them
+// kTileEntries entries at a time, one entry each: the entry's edge term on
+// its bus's side from x (the entry's admittance pair, g = inc_g[r] and
+// b = inc_b[r], is the side's; its bus's state comes from shared memory),
+// whose four values ev[b, k, r] (k = 0 a, 1 c, 2 cv = c / V_j, 3 av =
+// a / V_j) a warp stores coalesced, and whose c/a go to shared memory.
+// Then thread t < kTileBuses adds its bus's terms in list order, from-side
+// and to-side apart: P and Q are the sums of the values written, bit for
+// bit.  A thread per bus writing its own entries (a warp's stores spread
+// over ~128 entries, a sector apart) and that form staging its values in
+// shared memory measured slower on an H100 (PERF.md).
+//
+// T is the arithmetic's type and V the type ev and bv are stored in
+// (float from double: each value is rounded once, at its store).
+template <typename T, typename V>
+__global__ void __launch_bounds__(kTileEntries) assemble_kernel(
+    const T* __restrict__ x, const T* __restrict__ ps,
+    const T* __restrict__ qs, const T* __restrict__ th_free,
+    const T* __restrict__ v_free, const T* __restrict__ v_set,
+    const T* __restrict__ inc_g, const T* __restrict__ inc_b,
+    const T* __restrict__ g_d, const T* __restrict__ b_d,
+    const int* __restrict__ inc_ptr, const int* __restrict__ inc_code,
+    const int* __restrict__ inc_nbr, V* __restrict__ ev,
+    V* __restrict__ bv, T* __restrict__ fout, int lanes, int n, int m) {
+  __shared__ T s_c[kTileEntries], s_a[kTileEntries];
+  __shared__ T s_th[kTileBuses], s_v[kTileBuses];
+  __shared__ unsigned char s_bus[kTileEntries];
+  __shared__ bool s_to[kTileEntries];
+  const int tiles = (n + kTileBuses - 1) / kTileBuses;
+  const int64_t b = blockIdx.x / tiles;
+  const int i0 = (int)(blockIdx.x - b * tiles) * kTileBuses;
+  const int i1 = min(i0 + kTileBuses, n);
+  const T* th = x + b * 2 * n;
+  const T* v = th + n;
+  const int tid = threadIdx.x;
+  const int i = i0 + tid;
+  const bool own = tid < kTileBuses && i < i1;
+  int r_lo = 0, r_hi = 0;
+  T thi = T(0), vi = T(0);
+  if (own) {
+    r_lo = inc_ptr[i];
+    r_hi = inc_ptr[i + 1];
+    thi = th[i];
+    vi = v[i];
+    s_th[tid] = thi;
+    s_v[tid] = vi;
+  }
+  const int rs = inc_ptr[i0], re = inc_ptr[i1];
+  const int64_t m2 = 2 * (int64_t)m;
+  V* evl = ev + b * 4 * m2;
+  T pf = T(0), pt = T(0), qf = T(0), qt = T(0);
+  for (int c0 = rs; c0 < re; c0 += kTileEntries) {
+    if (own)  // which of the tile's buses each entry of this pass is
+      for (int r = max(r_lo, c0); r < min(r_hi, c0 + kTileEntries); ++r)
+        s_bus[r - c0] = (unsigned char)tid;
+    __syncthreads();
+    const int r = c0 + tid;
+    if (r < re) {
+      const bool to_side = inc_code[r] & 1;  // the entry's bus is the to end
+      const int j = inc_nbr[r];
+      const T tho = s_th[s_bus[tid]], vo = s_v[s_bus[tid]];
+      const T thj = th[j], vj = v[j];
+      T c, a;
+      edge_term(to_side ? thj : tho, to_side ? tho : thj, to_side ? vj : vo,
+                to_side ? vo : vj, inc_g[r], inc_b[r], to_side, &c, &a);
+      evl[r] = (V)a;
+      evl[m2 + r] = (V)c;
+      evl[2 * m2 + r] = (V)div_rn(c, vj);
+      evl[3 * m2 + r] = (V)div_rn(a, vj);
+      s_c[tid] = c;
+      s_a[tid] = a;
+      s_to[tid] = to_side;
+    }
+    __syncthreads();
+    if (own) {
+      const int hi = min(r_hi, c0 + kTileEntries) - c0;
+      for (int q = max(r_lo, c0) - c0; q < hi; ++q) {
+        if (s_to[q]) {
+          pt = add_rn(pt, s_c[q]);
+          qt = add_rn(qt, s_a[q]);
+        } else {
+          pf = add_rn(pf, s_c[q]);
+          qf = add_rn(qf, s_a[q]);
+        }
+      }
+    }
+  }
+  if (own)
+    bus_outputs<T, V, true>(pf, pt, qf, qt, thi, vi, b, i, n, ps, qs,
+                            th_free, v_free, v_set, g_d, b_d, bv, nullptr,
+                            fout);
+}
+
+// S1's residual alone (RESIDUAL): one thread per (lane, bus) walks its list
+// and adds the same terms in the same order as assemble_kernel, writing P,
+// Q and f only, so they are that kernel's bits.  With no values to store,
+// the thread per bus is the faster form: the tile's barriers cost more
+// than its warps' unequal walks (PERF.md).
 template <typename T>
-__global__ void bus_kernel(const T* __restrict__ x, const T* __restrict__ ps,
-                           const T* __restrict__ qs,
-                           const T* __restrict__ th_free,
-                           const T* __restrict__ v_free,
-                           const T* __restrict__ v_set,
-                           const T* __restrict__ g_d, const T* __restrict__ b_d,
-                           const int* __restrict__ inc_ptr,
-                           const int* __restrict__ inc_code,
-                           const T* __restrict__ ev, T* __restrict__ bv,
-                           T* __restrict__ fout, int lanes, int n, int m) {
+__global__ void __launch_bounds__(kThreads) residual_kernel(
+    const T* __restrict__ x, const T* __restrict__ ps,
+    const T* __restrict__ qs, const T* __restrict__ th_free,
+    const T* __restrict__ v_free, const T* __restrict__ v_set,
+    const T* __restrict__ inc_g, const T* __restrict__ inc_b,
+    const T* __restrict__ g_d, const T* __restrict__ b_d,
+    const int* __restrict__ inc_ptr, const int* __restrict__ inc_code,
+    const int* __restrict__ inc_nbr, T* __restrict__ pout,
+    T* __restrict__ qout, T* __restrict__ fout, int lanes, int n) {
   const int64_t k = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (k >= (int64_t)lanes * n) return;
   const int64_t b = k / n;
   const int i = (int)(k - b * n);
-  const T* evl = ev + b * 8 * (int64_t)m;
+  const T* th = x + b * 2 * n;
+  const T* v = th + n;
+  const T thi = th[i], vi = v[i];
   T pf = T(0), pt = T(0), qf = T(0), qt = T(0);
   for (int r = inc_ptr[i]; r < inc_ptr[i + 1]; ++r) {
-    const int code = inc_code[r];
-    const int e = code >> 1;
-    if (code & 1) {  // bus i is the to end: the t->f terms
-      pt += evl[3 * (int64_t)m + e];
-      qt += evl[(int64_t)m + e];
+    const bool to_side = inc_code[r] & 1;
+    const int j = inc_nbr[r];
+    const T thj = th[j], vj = v[j];
+    T c, a;
+    edge_term(to_side ? thj : thi, to_side ? thi : thj, to_side ? vj : vi,
+              to_side ? vi : vj, inc_g[r], inc_b[r], to_side, &c, &a);
+    if (to_side) {
+      pt = add_rn(pt, c);
+      qt = add_rn(qt, a);
     } else {
-      pf += evl[2 * (int64_t)m + e];
-      qf += evl[e];
+      pf = add_rn(pf, c);
+      qf = add_rn(qf, a);
     }
   }
-  const int64_t xi = b * 2 * n + i;
-  const T th = x[xi], vi = x[xi + n];
-  const T v2 = vi * vi;
-  const T gd = g_d[i], bd = b_d[i];
-  const T p = (pf + pt) + v2 * gd;
-  const T q = (qf + qt) - v2 * bd;
-  T* bl = bv + b * 6 * (int64_t)n + i;
-  bl[0] = -v2 * bd - q;
-  bl[n] = vi * gd + p / vi;
-  bl[2 * (int64_t)n] = -v2 * gd + p;
-  bl[3 * (int64_t)n] = -vi * bd + q / vi;
-  bl[4 * (int64_t)n] = p;
-  bl[5 * (int64_t)n] = q;
-  fout[xi] = th_free[i] > T(0) ? p - ps[b * n + i] : th;
-  fout[xi + n] = v_free[i] > T(0) ? q - qs[b * n + i] : vi - v_set[i];
+  bus_outputs<T, T, false>(pf, pt, qf, qt, thi, vi, b, i, n, ps, qs,
+                           th_free, v_free, v_set, g_d, b_d, pout, qout,
+                           fout);
 }
 
 // ---------------------------------------------------------------------------
 // S2
 // ---------------------------------------------------------------------------
 
+// ev[b, k, r] as S1 writes it: k = 0 a, 1 c, 2 cv, 3 av of list entry r.
 template <typename T>
 __global__ void matvec_kernel(const T* __restrict__ ev, const T* __restrict__ bv,
                               const T* __restrict__ u,
                               const T* __restrict__ th_free,
                               const T* __restrict__ v_free,
                               const int* __restrict__ inc_ptr,
-                              const int* __restrict__ inc_code,
                               const int* __restrict__ inc_nbr,
                               T* __restrict__ y, int lanes, int n, int m) {
   const int64_t k = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (k >= (int64_t)lanes * n) return;
   const int64_t b = k / n;
   const int i = (int)(k - b * n);
-  const T* evl = ev + b * 8 * (int64_t)m;
+  const int64_t m2 = 2 * (int64_t)m;
+  const T* evl = ev + b * 4 * m2;
   const T* bl = bv + b * 6 * (int64_t)n;
   const T* uth = u + b * 2 * n;
   const T* uv = uth + n;
   T yp = T(0), yq = T(0);
   for (int r = inc_ptr[i]; r < inc_ptr[i + 1]; ++r) {
-    const int code = inc_code[r];
-    const int e = code >> 1;
     const int j = inc_nbr[r];
     const T ua = uth[j], ub = uv[j];
-    if (code & 1) {  // row t, columns f
-      yp += evl[(int64_t)m + e] * ua + evl[5 * (int64_t)m + e] * ub;
-      yq += -evl[3 * (int64_t)m + e] * ua + evl[7 * (int64_t)m + e] * ub;
-    } else {  // row f, columns t
-      yp += evl[e] * ua + evl[4 * (int64_t)m + e] * ub;
-      yq += -evl[2 * (int64_t)m + e] * ua + evl[6 * (int64_t)m + e] * ub;
-    }
+    yp += evl[r] * ua + evl[2 * m2 + r] * ub;
+    yq += -evl[m2 + r] * ua + evl[3 * m2 + r] * ub;
   }
   const T ui = uth[i], wi = uv[i];
   yp = yp + bl[i] * ui + bl[n + i] * wi;
@@ -859,32 +990,46 @@ int launch_clusters(void (*kernel)(Params...), int lanes, int cluster,
   return (int)cudaGetLastError();
 }
 
+// S1's modes (sparse_kernels.FULL, VALUES_F32, RESIDUAL).
+constexpr int kFullMode = 0, kValuesF32Mode = 1, kResidualMode = 2;
+
+// One launch in every mode.  ev and bv are T, or float in VALUES_F32 (T
+// double); in RESIDUAL they are P and Q [lanes, n].
 template <typename T>
 int launch_assemble(const T* x, const T* ps, const T* qs, const T* th_free,
-                    const T* v_free, const T* v_set, const T* yft_re,
-                    const T* yft_im, const T* ytf_re, const T* ytf_im,
-                    const T* g_d, const T* b_d, const int* fi, const int* ti,
-                    const int* inc_ptr, const int* inc_code, T* ev, T* bv,
-                    T* f, int lanes, int n, int m, cudaStream_t stream) {
+                    const T* v_free, const T* v_set, const T* inc_g,
+                    const T* inc_b, const T* g_d, const T* b_d,
+                    const int* inc_ptr, const int* inc_code,
+                    const int* inc_nbr, void* ev, void* bv, T* f, int lanes,
+                    int n, int m, int mode, cudaStream_t stream) {
   if (lanes <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  edge_kernel<T><<<blocks_for((int64_t)lanes * m), kThreads, 0, stream>>>(
-      x, fi, ti, yft_re, yft_im, ytf_re, ytf_im, ev, lanes, n, m);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bus_kernel<T><<<blocks_for((int64_t)lanes * n), kThreads, 0, stream>>>(
-      x, ps, qs, th_free, v_free, v_set, g_d, b_d, inc_ptr, inc_code, ev, bv, f,
-      lanes, n, m);
+  const unsigned tiles =
+      (unsigned)((int64_t)lanes * ((n + kTileBuses - 1) / kTileBuses));
+#define S1_ARGS                                                              \
+  x, ps, qs, th_free, v_free, v_set, inc_g, inc_b, g_d, b_d, inc_ptr,       \
+      inc_code, inc_nbr
+  if (mode == kFullMode)
+    assemble_kernel<T, T><<<tiles, kTileEntries, 0, stream>>>(
+        S1_ARGS, (T*)ev, (T*)bv, f, lanes, n, m);
+  else if (mode == kValuesF32Mode && sizeof(T) == 8)
+    assemble_kernel<T, float><<<tiles, kTileEntries, 0, stream>>>(
+        S1_ARGS, (float*)ev, (float*)bv, f, lanes, n, m);
+  else if (mode == kResidualMode)
+    residual_kernel<T><<<blocks_for((int64_t)lanes * n), kThreads, 0,
+                         stream>>>(S1_ARGS, (T*)ev, (T*)bv, f, lanes, n);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef S1_ARGS
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_matvec(const T* ev, const T* bv, const T* u, const T* th_free,
-                  const T* v_free, const int* inc_ptr, const int* inc_code,
-                  const int* inc_nbr, T* y, int lanes, int n, int m,
-                  cudaStream_t stream) {
+                  const T* v_free, const int* inc_ptr, const int* inc_nbr,
+                  T* y, int lanes, int n, int m, cudaStream_t stream) {
   if (lanes <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
   matvec_kernel<T><<<blocks_for((int64_t)lanes * n), kThreads, 0, stream>>>(
-      ev, bv, u, th_free, v_free, inc_ptr, inc_code, inc_nbr, y, lanes, n, m);
+      ev, bv, u, th_free, v_free, inc_ptr, inc_nbr, y, lanes, n, m);
   return (int)cudaGetLastError();
 }
 
@@ -957,21 +1102,21 @@ int launch_lstsq(const T* vbasis, const T* valid, const T* wstore,
 #define SPARSE_ENTRY_POINTS(T, SUFFIX)                                         \
   extern "C" int sparse_assemble_##SUFFIX(                                    \
       const T* x, const T* ps, const T* qs, const T* th_free,                \
-      const T* v_free, const T* v_set, const T* yft_re, const T* yft_im,     \
-      const T* ytf_re, const T* ytf_im, const T* g_d, const T* b_d,          \
-      const int* fi, const int* ti, const int* inc_ptr, const int* inc_code, \
-      T* ev, T* bv, T* f, int lanes, int n, int m, void* stream) {           \
-    return launch_assemble<T>(x, ps, qs, th_free, v_free, v_set, yft_re,     \
-                              yft_im, ytf_re, ytf_im, g_d, b_d, fi, ti,      \
-                              inc_ptr, inc_code, ev, bv, f, lanes, n, m,     \
+      const T* v_free, const T* v_set, const T* inc_g, const T* inc_b,       \
+      const T* g_d, const T* b_d, const int* inc_ptr, const int* inc_code,   \
+      const int* inc_nbr, void* ev, void* bv, T* f, int lanes, int n, int m, \
+      int mode, void* stream) {                                              \
+    return launch_assemble<T>(x, ps, qs, th_free, v_free, v_set, inc_g,      \
+                              inc_b, g_d, b_d, inc_ptr, inc_code, inc_nbr,   \
+                              ev, bv, f, lanes, n, m, mode,                  \
                               (cudaStream_t)stream);                         \
   }                                                                          \
   extern "C" int sparse_matvec_##SUFFIX(                                      \
       const T* ev, const T* bv, const T* u, const T* th_free,                \
-      const T* v_free, const int* inc_ptr, const int* inc_code,              \
-      const int* inc_nbr, T* y, int lanes, int n, int m, void* stream) {     \
-    return launch_matvec<T>(ev, bv, u, th_free, v_free, inc_ptr, inc_code,   \
-                            inc_nbr, y, lanes, n, m, (cudaStream_t)stream);  \
+      const T* v_free, const int* inc_ptr, const int* inc_nbr, T* y,         \
+      int lanes, int n, int m, void* stream) {                               \
+    return launch_matvec<T>(ev, bv, u, th_free, v_free, inc_ptr, inc_nbr, y, \
+                            lanes, n, m, (cudaStream_t)stream);              \
   }                                                                          \
   extern "C" int gmres_block_orth_##SUFFIX(                                   \
       T* vbasis, T* valid, const T* wblk, int lanes, int nrows, int s, int N, \

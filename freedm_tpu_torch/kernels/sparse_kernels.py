@@ -19,9 +19,13 @@ its kernel or raises.  Each launch counts in :data:`LAUNCHES`.
 
 Layouts, per lane: the state ``x`` and every Krylov vector are ``[B, N]``
 with ``N = 2n`` (θ ‖ V halves); the value fill of one Newton step is
-``ev [B, 8, m]`` — the edge values ``a_ft, a_tf, c_ft, c_tf, cv_ft,
-cv_tf, av_ft, av_tf`` in the reference's ``_JacValues`` order — and
-``bv [B, 6, n]`` — ``h_d, n_d, j_d, l_d, p_calc, q_calc``.  The GMRES
+``ev [B, 4, 2m]`` in incidence-list order (CSR) — for entry ``r`` of
+bus ``i``'s list, edge ``e`` to bus ``j``, row ``i``'s values at column
+``j``: ``a, c, cv = c/V_j, av = a/V_j`` of ``e``'s side at ``i`` (the
+reference's ``_JacValues`` ``*_ft`` where ``i`` is the from end, ``*_tf``
+where it is the to end) — and ``bv [B, 6, n]`` — ``h_d, n_d, j_d, l_d,
+p_calc, q_calc``.  S1 fills them in one launch in one of three modes
+(:data:`FULL`, :data:`VALUES_F32`, :data:`RESIDUAL`).  The GMRES
 basis is ``v_basis [B, mm+1, N]`` with ``valid [B, mm+1]``; the stored
 chain is ``z_store``/``w_store [B, mm, N]``.
 
@@ -54,7 +58,19 @@ LAUNCHES: Dict[str, int] = {
     "gmres_block_orth": 0,
     "gmres_lstsq": 0,
 }
+#: S1's launches by mode (their sum is ``LAUNCHES["sparse_assemble"]``).
+ASSEMBLE_LAUNCHES: Dict[str, int] = {"FULL": 0, "VALUES_F32": 0,
+                                     "RESIDUAL": 0}
 _launch_lock = threading.Lock()
+
+#: S1's modes (``mode=`` of :func:`sparse_assemble`): the value fill in
+#: the working dtype, ``(ev, bv, f)``; the value fill in float32 from
+#: float64 arithmetic with ``f`` in float64 (the mixed Newton step: each
+#: value rounded once, the bits of the full mode's ``ev``/``bv`` cast to
+#: float32); the residual alone, ``(p [B, n], q [B, n], f)``, the bits of
+#: the full mode's ``bv[:, 4]``, ``bv[:, 5]`` and ``f``.
+FULL, VALUES_F32, RESIDUAL = 0, 1, 2
+_MODE_NAMES = ("FULL", "VALUES_F32", "RESIDUAL")
 
 #: The reference's breakdown threshold (``brk`` in ``_pgmres_block``).
 BREAKDOWN = 1e-30
@@ -83,15 +99,18 @@ LSTSQ_CTAS = 8
 MAX_SWEEPS = 60
 
 
-def _count(name: str) -> None:
+def _count(name: str, mode: Optional[str] = None) -> None:
     with _launch_lock:
         LAUNCHES[name] += 1
+        if mode is not None:
+            ASSEMBLE_LAUNCHES[mode] += 1
 
 
 def reset_launches() -> None:
     with _launch_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, ASSEMBLE_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
 def launches() -> Dict[str, int]:
@@ -99,29 +118,32 @@ def launches() -> Dict[str, int]:
         return dict(LAUNCHES)
 
 
+def assemble_launches() -> Dict[str, int]:
+    """S1's launches by mode since the last :func:`reset_launches`."""
+    with _launch_lock:
+        return dict(ASSEMBLE_LAUNCHES)
+
+
 class SparseOperands(NamedTuple):
     """What the sparse kernels need of one bus system, on one device.
 
-    Index arrays are int32: the branch ends ``f_idx``/``t_idx`` ``[m]``,
-    and the bus-sorted incidence list in CSR form — ``inc_ptr [n+1]``,
+    The bus-sorted incidence list in CSR form, int32: ``inc_ptr [n+1]``,
     ``inc_code [2m]`` (``2·edge + side``, side 0 where the bus is the
     edge's from end, 1 where it is the to end; per bus the from-end
     edges come first, then the to-end edges, each in ascending edge
     order) and ``inc_nbr [2m]`` (the edge's other end).  Float arrays
-    are in the working dtype: the per-edge two-port admittances
-    ``yft``/``ytf`` as (re, im), the Ybus diagonal ``g_d``/``b_d`` and
-    the masks ``th_free``, ``v_free``, ``v_set`` ``[n]``.
+    are in the working dtype: per list entry the two-port admittance of
+    its side as (re, im), ``inc_g``/``inc_b [2m]`` (the branch's ``yft``
+    at its from end's entry, ``ytf`` at its to end's), the Ybus diagonal
+    ``g_d``/``b_d`` and the masks ``th_free``, ``v_free``, ``v_set``
+    ``[n]``.
     """
 
-    f_idx: Tensor
-    t_idx: Tensor
     inc_ptr: Tensor
     inc_code: Tensor
     inc_nbr: Tensor
-    yft_re: Tensor
-    yft_im: Tensor
-    ytf_re: Tensor
-    ytf_im: Tensor
+    inc_g: Tensor
+    inc_b: Tensor
     g_d: Tensor
     b_d: Tensor
     th_free: Tensor
@@ -134,13 +156,19 @@ class SparseOperands(NamedTuple):
 
     @property
     def m(self) -> int:
-        return int(self.f_idx.shape[0])
+        return int(self.inc_code.shape[0]) // 2
 
     def to_dtype(self, dtype: torch.dtype) -> "SparseOperands":
         """The same operands with the float arrays cast to ``dtype``."""
         return SparseOperands(*(
             t if t.dtype == torch.int32 else t.to(dtype) for t in self
         ))
+
+    def inc_rows(self) -> Tensor:
+        """The bus whose list holds each entry, ``[2m]`` int64."""
+        return torch.repeat_interleave(
+            torch.arange(self.n, device=self.inc_ptr.device),
+            torch.diff(self.inc_ptr.long()))
 
 
 # ---------------------------------------------------------------------------
@@ -246,48 +274,52 @@ def _seg(vals: Tensor, idx: Tensor, n: int) -> Tensor:
     return out.index_add_(1, idx, vals)
 
 
-def sparse_assemble_plain(x, p_sched, q_sched,
-                          op: SparseOperands) -> Tuple[Tensor, Tensor, Tensor]:
-    """S1's plain version: ``(ev [B, 8, m], bv [B, 6, n], f [B, 2n])``."""
+def sparse_assemble_plain(x, p_sched, q_sched, op: SparseOperands,
+                          mode: int = FULL) -> Tuple[Tensor, Tensor, Tensor]:
+    """S1's plain version in each mode (:data:`FULL`: ``(ev [B, 4, 2m],
+    bv [B, 6, n], f [B, 2n])``); :data:`VALUES_F32` and :data:`RESIDUAL`
+    are the full mode's values cast and sliced."""
+    _check_mode(mode, x.dtype)
     n = op.n
-    fi, ti = op.f_idx.long(), op.t_idx.long()
+    rows, j = op.inc_rows(), op.inc_nbr.long()
+    to = (op.inc_code & 1).bool()
     theta, v = x[:, :n], x[:, n:]
-    v_f, v_t = v[:, fi], v[:, ti]
-    e = theta[:, fi] - theta[:, ti]
+    th_i, th_j, v_i, v_j = theta[:, rows], theta[:, j], v[:, rows], v[:, j]
+    e = torch.where(to, th_j, th_i) - torch.where(to, th_i, th_j)
     ce, se = torch.cos(e), torch.sin(e)
-    vv = v_f * v_t
-    c_ft = vv * (op.yft_re * ce + op.yft_im * se)
-    a_ft = vv * (op.yft_re * se - op.yft_im * ce)
-    c_tf = vv * (op.ytf_re * ce - op.ytf_im * se)
-    a_tf = -vv * (op.ytf_re * se + op.ytf_im * ce)
+    vv = torch.where(to, v_j, v_i) * torch.where(to, v_i, v_j)
+    sb = torch.where(to, -op.inc_b, op.inc_b)
+    c = vv * (op.inc_g * ce + sb * se)
+    a0 = vv * (op.inc_g * se - sb * ce)
+    a = torch.where(to, -a0, a0)
+    zero = torch.zeros_like(c)
     v2 = v * v
-    p = _seg(c_ft, fi, n) + _seg(c_tf, ti, n) + v2 * op.g_d
-    q = _seg(a_ft, fi, n) + _seg(a_tf, ti, n) - v2 * op.b_d
-    ev = torch.stack([a_ft, a_tf, c_ft, c_tf, c_ft / v_t, c_tf / v_f,
-                      a_ft / v_t, a_tf / v_f], dim=1)
-    bv = torch.stack([-v2 * op.b_d - q, v * op.g_d + p / v,
-                      -v2 * op.g_d + p, -v * op.b_d + q / v, p, q], dim=1)
+    p = (_seg(torch.where(to, zero, c), rows, n)
+         + _seg(torch.where(to, c, zero), rows, n) + v2 * op.g_d)
+    q = (_seg(torch.where(to, zero, a), rows, n)
+         + _seg(torch.where(to, a, zero), rows, n) - v2 * op.b_d)
     f_p = torch.where(op.th_free > 0, p - p_sched, theta)
     f_q = torch.where(op.v_free > 0, q - q_sched, v - op.v_set)
-    return ev, bv, torch.cat([f_p, f_q], dim=1)
+    f = torch.cat([f_p, f_q], dim=1)
+    if mode == RESIDUAL:
+        return p, q, f
+    ev = torch.stack([a, c, c / v_j, a / v_j], dim=1)
+    bv = torch.stack([-v2 * op.b_d - q, v * op.g_d + p / v,
+                      -v2 * op.g_d + p, -v * op.b_d + q / v, p, q], dim=1)
+    if mode == VALUES_F32:
+        return ev.to(torch.float32), bv.to(torch.float32), f
+    return ev, bv, f
 
 
 def sparse_matvec_plain(ev, bv, u, op: SparseOperands) -> Tensor:
     """S2's plain version: ``J·u`` over the pattern, ``[B, 2n]``."""
     n = op.n
-    fi, ti = op.f_idx.long(), op.t_idx.long()
-    rows = torch.cat([fi, ti])
-    a_ft, a_tf, c_ft, c_tf, cv_ft, cv_tf, av_ft, av_tf = ev.unbind(1)
+    rows, j = op.inc_rows(), op.inc_nbr.long()
+    a, c, cv, av = ev.unbind(1)
     h_d, n_d, j_d, l_d = bv[:, 0], bv[:, 1], bv[:, 2], bv[:, 3]
     uth, uv = u[:, :n], u[:, n:]
-    uth_f, uth_t = uth[:, fi], uth[:, ti]
-    uv_f, uv_t = uv[:, fi], uv[:, ti]
-    p_vals = torch.cat([a_ft * uth_t + cv_ft * uv_t,
-                        a_tf * uth_f + cv_tf * uv_f], dim=1)
-    q_vals = torch.cat([-c_ft * uth_t + av_ft * uv_t,
-                        -c_tf * uth_f + av_tf * uv_f], dim=1)
-    yp = _seg(p_vals, rows, n) + h_d * uth + n_d * uv
-    yq = _seg(q_vals, rows, n) + j_d * uth + l_d * uv
+    yp = _seg(a * uth[:, j] + cv * uv[:, j], rows, n) + h_d * uth + n_d * uv
+    yq = _seg(-c * uth[:, j] + av * uv[:, j], rows, n) + j_d * uth + l_d * uv
     free = torch.cat([op.th_free, op.v_free])
     return torch.where(free > 0, torch.cat([yp, yq], dim=1), u)
 
@@ -438,8 +470,8 @@ _lib_lock = threading.Lock()
 _fns: Dict[Tuple[str, torch.dtype], object] = {}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _SIGS = {
-    "sparse_assemble": [_P] * 19 + [_I] * 3 + [_P],
-    "sparse_matvec": [_P] * 9 + [_I] * 3 + [_P],
+    "sparse_assemble": [_P] * 16 + [_I] * 4 + [_P],
+    "sparse_matvec": [_P] * 8 + [_I] * 3 + [_P],
     "gmres_block_orth": [_P] * 3 + [_I] * 9 + [_P],
     "gmres_lstsq": [_P] * 8 + [_I] * 5 + [_P],
 }
@@ -490,12 +522,11 @@ def _want(like: Tensor, spec: Dict[str, Tuple[Tensor, torch.dtype, tuple]]):
 def _op_spec(op: SparseOperands, dtype) -> dict:
     n, m = op.n, op.m
     i32 = torch.int32
-    spec = {"f_idx": (op.f_idx, i32, (m,)), "t_idx": (op.t_idx, i32, (m,)),
-            "inc_ptr": (op.inc_ptr, i32, (n + 1,)),
+    spec = {"inc_ptr": (op.inc_ptr, i32, (n + 1,)),
             "inc_code": (op.inc_code, i32, (2 * m,)),
-            "inc_nbr": (op.inc_nbr, i32, (2 * m,))}
-    for name in ("yft_re", "yft_im", "ytf_re", "ytf_im"):
-        spec[name] = (getattr(op, name), dtype, (m,))
+            "inc_nbr": (op.inc_nbr, i32, (2 * m,)),
+            "inc_g": (op.inc_g, dtype, (2 * m,)),
+            "inc_b": (op.inc_b, dtype, (2 * m,))}
     for name in ("g_d", "b_d", "th_free", "v_free", "v_set"):
         spec[name] = (getattr(op, name), dtype, (n,))
     return spec
@@ -524,6 +555,14 @@ def _op_ptrs(op: SparseOperands, like: Tensor) -> Dict[str, int]:
     return ptrs
 
 
+def _check_mode(mode: int, dtype: torch.dtype) -> None:
+    if mode not in (FULL, VALUES_F32, RESIDUAL):
+        raise ValueError(f"unknown sparse_assemble mode {mode!r}")
+    if mode == VALUES_F32 and dtype != torch.float64:
+        raise ValueError("VALUES_F32 rounds float64 arithmetic to float32; "
+                         f"x is {dtype}")
+
+
 def _need_cuda(t: Tensor, name: str) -> None:
     """A wrapper launches only on a CUDA tensor (a CPU one takes the plain
     version before this); any other device is refused here, before the
@@ -548,35 +587,51 @@ def _launch_on(t: Tensor):
     return ctx, torch._C._cuda_getCurrentRawStream(idx)
 
 
-def sparse_assemble(x, p_sched, q_sched,
-                    op: SparseOperands) -> Tuple[Tensor, Tensor, Tensor]:
-    """S1: the value fill and the masked mismatch at ``x [B, 2n]``.
+def sparse_assemble(x, p_sched, q_sched, op: SparseOperands,
+                    mode: int = FULL) -> Tuple[Tensor, Tensor, Tensor]:
+    """S1: the value fill and the masked mismatch at ``x [B, 2n]``, in one
+    launch.
 
-    Returns ``(ev [B, 8, m], bv [B, 6, n], f [B, 2n])``."""
+    ``mode`` :data:`FULL` returns ``(ev [B, 4, 2m], bv [B, 6, n], f [B,
+    2n])`` in ``x``'s dtype; :data:`VALUES_F32` (``x`` float64) the same
+    with ``ev`` and ``bv`` in float32; :data:`RESIDUAL` ``(p [B, n], q [B,
+    n], f)``."""
     if x.device.type == "cpu":
-        return sparse_assemble_plain(x, p_sched, q_sched, op)
+        return sparse_assemble_plain(x, p_sched, q_sched, op, mode)
+    _need_cuda(x, "sparse_assemble")
+    _check_mode(mode, x.dtype)
     n, m = op.n, op.m
     lanes = x.shape[0]
-    spec = {"x": (x, x.dtype, (lanes, 2 * n)),
-            "p_sched": (p_sched, x.dtype, (lanes, n)),
-            "q_sched": (q_sched, x.dtype, (lanes, n))}
-    _want(x, spec)
-    _need_cuda(x, "sparse_assemble")
+    dt, dev = x.dtype, x.device
+    for name, t, cols in (("x", x, 2 * n), ("p_sched", p_sched, n),
+                          ("q_sched", q_sched, n)):
+        if (t.dtype is not dt or t.device != dev or t.dim() != 2
+                or t.shape[0] != lanes or t.shape[1] != cols
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous {dt} [{lanes}, {cols}] tensor "
+                f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     o = _op_ptrs(op, x)
-    fn = _fn("sparse_assemble", x.dtype)
+    fn = _fn("sparse_assemble", dt)
     ctx, stream = _launch_on(x)
+    # One allocation an output: slicing one buffer into views cost more
+    # host time a call than the allocations it saved (PERF.md).
     with ctx:
-        ev = torch.empty(lanes, 8, m, dtype=x.dtype, device=x.device)
-        bv = torch.empty(lanes, 6, n, dtype=x.dtype, device=x.device)
-        f = torch.empty(lanes, 2 * n, dtype=x.dtype, device=x.device)
+        if mode == RESIDUAL:
+            ev = torch.empty(lanes, n, dtype=dt, device=dev)  # P
+            bv = torch.empty(lanes, n, dtype=dt, device=dev)  # Q
+        else:
+            vdt = torch.float32 if mode == VALUES_F32 else dt
+            ev = torch.empty(lanes, 4, 2 * m, dtype=vdt, device=dev)
+            bv = torch.empty(lanes, 6, n, dtype=vdt, device=dev)
+        f = torch.empty(lanes, 2 * n, dtype=dt, device=dev)
         rc = fn(x.data_ptr(), p_sched.data_ptr(), q_sched.data_ptr(),
-                *(o[k] for k in ("th_free", "v_free", "v_set", "yft_re",
-                                 "yft_im", "ytf_re", "ytf_im", "g_d", "b_d",
-                                 "f_idx", "t_idx", "inc_ptr", "inc_code")),
-                ev.data_ptr(), bv.data_ptr(), f.data_ptr(), lanes, n, m,
-                stream)
+                o["th_free"], o["v_free"], o["v_set"], o["inc_g"],
+                o["inc_b"], o["g_d"], o["b_d"], o["inc_ptr"], o["inc_code"],
+                o["inc_nbr"], ev.data_ptr(), bv.data_ptr(), f.data_ptr(),
+                lanes, n, m, mode, stream)
     _raise_on(rc, "sparse_assemble")
-    _count("sparse_assemble")
+    _count("sparse_assemble", _MODE_NAMES[mode])
     return ev, bv, f
 
 
@@ -588,7 +643,7 @@ def sparse_matvec(ev, bv, u, op: SparseOperands) -> Tensor:
     n, m = op.n, op.m
     lanes = u.shape[0]
     _want(u, {"u": (u, u.dtype, (lanes, 2 * n)),
-              "ev": (ev, u.dtype, (lanes, 8, m)),
+              "ev": (ev, u.dtype, (lanes, 4, 2 * m)),
               "bv": (bv, u.dtype, (lanes, 6, n))})
     _need_cuda(u, "sparse_matvec")
     o = _op_ptrs(op, u)
@@ -597,8 +652,8 @@ def sparse_matvec(ev, bv, u, op: SparseOperands) -> Tensor:
     with ctx:
         y = torch.empty_like(u)
         rc = fn(ev.data_ptr(), bv.data_ptr(), u.data_ptr(), o["th_free"],
-                o["v_free"], o["inc_ptr"], o["inc_code"], o["inc_nbr"],
-                y.data_ptr(), lanes, n, m, stream)
+                o["v_free"], o["inc_ptr"], o["inc_nbr"], y.data_ptr(), lanes,
+                n, m, stream)
     _raise_on(rc, "sparse_matvec")
     _count("sparse_matvec")
     return y

@@ -5,10 +5,12 @@ materialized: its pattern is the branch incidence structure, computed
 once per (case, topology) by :func:`jacobian_pattern`, and every Newton
 step only re-fills its values — kernel S1
 :func:`~freedm_tpu_torch.kernels.sparse_kernels.sparse_assemble`, which
-also gives the masked mismatch.  The update solves J dx = −f with one
-cycle of the s-step right-preconditioned block GMRES
-(:func:`~freedm_tpu_torch.pf.krylov._pgmres_block`, kernels S3 and S4)
-whose operator is S2
+also gives the masked mismatch: the mixed step takes its float32 values
+straight from the float64 arithmetic (``VALUES_F32``), and where only the
+mismatch or P and Q are read, S1 runs its ``RESIDUAL`` mode.  The update
+solves J dx = −f with one cycle of the s-step right-preconditioned block
+GMRES (:func:`~freedm_tpu_torch.pf.krylov._pgmres_block`, kernels S3 and
+S4) whose operator is S2
 :func:`~freedm_tpu_torch.kernels.sparse_kernels.sparse_matvec` and whose
 preconditioner is the FDLF pair, built once per solver
 (:func:`~freedm_tpu_torch.pf.krylov.build_fdlf_precond`).
@@ -141,9 +143,10 @@ def jacobian_pattern(sys: BusSystem) -> JacobianPattern:
 def sparse_operands(sys: BusSystem, dtype: torch.dtype = torch.float64,
                     device: DeviceLike = None) -> sk.SparseOperands:
     """The kernels' operands for ``sys`` on ``device``: its pattern, the
-    per-edge admittances and the Ybus diagonal (all in service), the
-    latter stamped on the host in float64 in the reference's order
-    (from-end terms, then to-end terms, then the shunt)."""
+    two-port admittance of each incidence-list entry's side and the Ybus
+    diagonal (all in service), the latter stamped on the host in float64
+    in the reference's order (from-end terms, then to-end terms, then the
+    shunt)."""
     dev = resolve_device(device)
     pat = jacobian_pattern(sys)
     yff, yft, ytf, ytt = branch_admittances(sys)
@@ -166,11 +169,13 @@ def sparse_operands(sys: BusSystem, dtype: torch.dtype = torch.float64,
     def vec(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=dev).to(dtype)
 
+    edge, to = pat.inc_code >> 1, (pat.inc_code & 1).astype(bool)
     return sk.SparseOperands(
-        f_idx=idx(pat.f), t_idx=idx(pat.t), inc_ptr=idx(pat.inc_ptr),
-        inc_code=idx(pat.inc_code), inc_nbr=idx(pat.inc_nbr),
-        yft_re=vec(yft[0]), yft_im=vec(yft[1]), ytf_re=vec(ytf[0]),
-        ytf_im=vec(ytf[1]), g_d=vec(g_d), b_d=vec(b_d),
+        inc_ptr=idx(pat.inc_ptr), inc_code=idx(pat.inc_code),
+        inc_nbr=idx(pat.inc_nbr),
+        inc_g=vec(np.where(to, ytf[0][edge], yft[0][edge])),
+        inc_b=vec(np.where(to, ytf[1][edge], yft[1][edge])),
+        g_d=vec(g_d), b_d=vec(b_d),
         th_free=vec(bt != SLACK), v_free=vec(bt == PQ), v_set=vec(sys.v_set),
     )
 
@@ -247,8 +252,16 @@ def make_sparse_newton_solver(
         assemble, matvec, update = (sk.sparse_assemble, sk.sparse_matvec,
                                     nk.newton_update)
 
+    # S1's float32 value fill for the mixed inner solve (from float64
+    # arithmetic; in a float32 solver the full fill already is float32).
+    values_lo = sk.VALUES_F32 if dtype == torch.float64 else sk.FULL
+
     def mismatch(f):
         return torch.amax(torch.abs(f * free), dim=1)
+
+    def residual(x, ps, qs):
+        """``f`` at ``x`` (S1's residual mode)."""
+        return assemble(x, ps, qs, op, sk.RESIDUAL)[2]
 
     def apply_precond(u, v_now, out_dtype):
         return fdlf_apply(precond, op.th_free, op.v_free, u, v_now,
@@ -277,17 +290,15 @@ def make_sparse_newton_solver(
     def step_mixed(x, ps, qs):
         """Mixed update: float32 inner solve, then ``(x_new, err1)`` with
         ``err1`` the full-precision mismatch at ``x_new``."""
-        ev, bv, fres = assemble(x, ps, qs, op)
+        ev, bv, fres = assemble(x, ps, qs, op, values_lo)
         v = x[:, n:]
-        dx = gmres(ev.to(inner_dtype), bv.to(inner_dtype), op_lo,
-                   (-fres).to(inner_dtype), v.to(inner_dtype))
+        dx = gmres(ev, bv, op_lo, (-fres).to(inner_dtype), v.to(inner_dtype))
         x_new = x + safe(dx.to(dtype), fres, v)
-        return x_new, mismatch(assemble(x_new, ps, qs, op)[2])
+        return x_new, mismatch(residual(x_new, ps, qs))
 
     def finish(x, ps, qs, it, fallbacks):
-        _, bv, f = assemble(x, ps, qs, op)
-        r = build_result(x, bv[:, 4].contiguous(), bv[:, 5].contiguous(), f,
-                         free, it, tol)
+        p, q, f = assemble(x, ps, qs, op, sk.RESIDUAL)
+        r = build_result(x, p, q, f, free, it, tol)
         return r._replace(fallbacks=fallbacks)
 
     prep = lane_prep(n, dtype, dev, p_sched0, q_sched0, v_flat)
@@ -307,7 +318,7 @@ def make_sparse_newton_solver(
     def solve_mixed(x, ps, qs):
         # Phase 1: mixed steps under the best-iterate oracle, seeded with
         # the start point's full-precision mismatch.
-        best = mismatch(assemble(x, ps, qs, op)[2])
+        best = mismatch(residual(x, ps, qs))
         x_best = x.clone()
         it, stall = lane_zeros(x), lane_zeros(x)
 
@@ -333,7 +344,7 @@ def make_sparse_newton_solver(
         active = (it < max_iter) & (err >= tol_t)
         while any_active(active):
             dx, _ = step(x, ps, qs)
-            f_post = assemble(x + dx, ps, qs, op)[2]
+            f_post = residual(x + dx, ps, qs)
             fb += active.to(torch.int32)
             update(x, dx, f_post, free, it, err, active, max_iter, tol_t)
         return finish(x, ps, qs, it, fb)

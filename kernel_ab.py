@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time S2 ``sparse_matvec``, S3 ``gmres_block_orth``, S4 ``gmres_lstsq``
-and K3 ``newton_update`` of this checkout against those of other
-checkouts of the repo, in turns on one card.
+"""Time S1 ``sparse_assemble`` (each mode), S2 ``sparse_matvec``, S3
+``gmres_block_orth``, S4 ``gmres_lstsq`` and K3 ``newton_update`` of this
+checkout against those of other checkouts of the repo, in turns on one
+card.
 
     python3 kernel_ab.py OTHER [OTHER ...] [--out FILE]
 
@@ -10,21 +11,29 @@ by ``git archive <commit> | tar -x -C _archive/parent`` into a directory
 that ``.gitignore`` lists.  Every turn runs in a process of its own with
 one checkout first on ``sys.path`` and calls that checkout's own
 wrappers, whose kernels build there at first use: the checkouts may
-differ in their kernels' C signatures or routes (CUDA C++ or Triton),
-not in the wrappers' Python ones.  The inputs are made once, in this
-checkout, at mesh2000 × 64 lanes in float64 and float32 — those
-``chip_smoke.py`` times: S2 on S1's values and a random vector, S3 at
-the last block of a real GMRES cycle (j0 = 12, s = 4), S4 at that
-cycle's finish (mm = 16), K3 on a random step of every lane (each timed
-call updates every lane: ``max_iter`` is never reached and ``tol`` is 0)
-— and every turn reads them.  For each ``OTHER`` the turns run OTHER,
-this, this, OTHER; each turn gives the mean of CUDA events over
-back-to-back calls (wrapper included) and the mean device time from
-``torch.profiler`` (the kernel alone).  Each ``OTHER``'s outputs must
-agree with this checkout's within ``chip_smoke.SPARSE_TOL`` (K3
-exactly).  Prints the card's name and power limit, one line per turn
-and a JSON summary as the last line (also written to ``--out``).  Needs
-a CUDA card.
+differ in their kernels' C signatures, routes and layouts, not in the
+wrappers' Python ones.  The inputs are made once, in this checkout, at
+mesh2000 × 64 lanes in float64 and float32 — those ``chip_smoke.py``
+times: a state ``x`` with its schedules, a random vector ``u``, S3 at the
+last block of a real GMRES cycle (j0 = 12, s = 4), S4 at that cycle's
+finish (mm = 16), K3 on a random step of every lane (each timed call
+updates every lane: ``max_iter`` is never reached and ``tol`` is 0) —
+and every turn reads them.  Each checkout fills S2's values with its own
+S1 from the same ``x``, so checkouts whose S1 writes another layout time
+S2 on the same function.  S1 is timed in each of its modes; a checkout
+whose S1 has no modes (before they came) is timed on what its solver ran
+in their place: the full fill, plus two float32 casts of ``ev`` and
+``bv`` for ``values_f32``, and the full fill read for P, Q and f for
+``residual``.  For each ``OTHER`` the turns run OTHER, this, this, OTHER;
+each turn gives the mean of CUDA events over back-to-back calls (wrapper
+included) and the mean device time from ``torch.profiler`` (the kernels
+alone), and one default mesh2000 × 64 sparse solve in f64 and in
+mixed is profiled (Newton steps, device operations, device busy and wall
+time).  Each ``OTHER``'s outputs must agree with this checkout's within
+``chip_smoke.SPARSE_TOL`` (K3 exactly): S1's P, Q and f, S2's y, S3's
+block and S4's update.  Prints the card's name and power limit, one line
+per turn and a JSON summary as the last line (also written to
+``--out``).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -39,8 +48,9 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 DTYPES = ("float64", "float32")
-KERNELS = ("sparse_matvec", "gmres_block_orth", "gmres_lstsq",
-           "newton_update")
+KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
+           "sparse_assemble_residual", "sparse_matvec", "gmres_block_orth",
+           "gmres_lstsq", "newton_update")
 
 
 def _smoke():
@@ -71,14 +81,42 @@ def prepare(path: Path) -> None:
         _, vb, valid, w, j0 = [c for c in caps if c[0] == "orth"][-1]
         _, lvb, lvalid, ws, zs, beta = [c for c in caps
                                         if c[0] == "lstsq"][-1]
-        data[name] = {"ev": ev, "bv": bv, "u": u, "vb": vb, "valid": valid,
-                      "w": w, "j0": int(j0), "lvb": lvb, "lvalid": lvalid,
-                      "ws": ws, "zs": zs, "beta": beta, "x": x,
+        data[name] = {"u": u, "vb": vb, "valid": valid, "w": w,
+                      "j0": int(j0), "lvb": lvb, "lvalid": lvalid, "ws": ws,
+                      "zs": zs, "beta": beta, "x": x, "ps": ps, "qs": qs,
                       "dx": 1e-12 * torch.randn_like(x), "f": f,
                       "free": torch.cat([op.th_free, op.v_free])}
         data[name] = {k: v.cpu() if torch.is_tensor(v) else v
                       for k, v in data[name].items()}
     torch.save(data, path)
+
+
+def assemble_fns(torch, sk, x, ps, qs, op) -> dict:
+    """S1's modes as ``KERNELS`` names them, each a call returning its
+    outputs (``values_f32`` only for float64); the stand-ins of a checkout
+    whose S1 has no modes are the module docstring's."""
+    f64 = x.dtype == torch.float64
+    if hasattr(sk, "RESIDUAL"):
+        fns = {"sparse_assemble": sk.FULL,
+               "sparse_assemble_residual": sk.RESIDUAL}
+        if f64:
+            fns["sparse_assemble_values_f32"] = sk.VALUES_F32
+        return {k: (lambda mode=mode: sk.sparse_assemble(x, ps, qs, op, mode))
+                for k, mode in fns.items()}
+
+    def values_f32():
+        ev, bv, f = sk.sparse_assemble(x, ps, qs, op)
+        return ev.float(), bv.float(), f
+
+    def residual():
+        _, bv, f = sk.sparse_assemble(x, ps, qs, op)
+        return bv[:, 4], bv[:, 5], f
+
+    fns = {"sparse_assemble": lambda: sk.sparse_assemble(x, ps, qs, op),
+           "sparse_assemble_residual": residual}
+    if f64:
+        fns["sparse_assemble_values_f32"] = values_f32
+    return fns
 
 
 def measure(root: Path, inputs: Path, outputs: Path) -> None:
@@ -99,7 +137,10 @@ def measure(root: Path, inputs: Path, outputs: Path) -> None:
         d = {k: v.to(dev) if torch.is_tensor(v) else v
              for k, v in data[name].items()}
         op = sparse_operands(sys_, dtype=dtype, device=dev)
-        ev, bv, u, w, j0 = d["ev"], d["bv"], d["u"], d["w"], d["j0"]
+        s1 = assemble_fns(torch, sk, d["x"], d["ps"], d["qs"], op)
+        ev, bv, _ = s1["sparse_assemble"]()
+        p_res, q_res, f_res = s1["sparse_assemble_residual"]()
+        u, w, j0 = d["u"], d["w"], d["j0"]
         lvb, lvalid, ws, zs, beta = (d[k] for k in ("lvb", "lvalid", "ws",
                                                     "zs", "beta"))
         lanes = u.shape[0]
@@ -120,24 +161,56 @@ def measure(root: Path, inputs: Path, outputs: Path) -> None:
         xs = sk.gmres_lstsq(lvb, lvalid, ws, zs, beta)
         k3 = carry()
         nk.newton_update(k3[0], d["dx"], d["f"], d["free"], *k3[1:], 5, tol)
-        outs[name] = {"y": y.cpu(), "vb": vb.cpu(), "valid": valid.cpu(),
+        outs[name] = {"p": p_res.cpu(), "q": q_res.cpu(), "f": f_res.cpu(),
+                      "y": y.cpu(), "vb": vb.cpu(), "valid": valid.cpu(),
                       "xs": xs.cpu(), "k3": [t.cpu() for t in k3]}
         vt, at = d["vb"].clone(), d["valid"].clone()
         kt = carry()
-        fns = {"sparse_matvec": (lambda: sk.sparse_matvec(ev, bv, u, op), 200),
-               "gmres_block_orth": (
-                   lambda: sk.gmres_block_orth(vt, at, w, j0), 50),
-               "gmres_lstsq": (
-                   lambda: sk.gmres_lstsq(lvb, lvalid, ws, zs, beta), 50),
-               "newton_update": (
-                   lambda: nk.newton_update(kt[0], d["dx"], d["f"],
-                                            d["free"], *kt[1:], 1 << 30,
-                                            zero), 200)}
+        fns = {k: (fn, 50) for k, fn in s1.items()}
+        fns.update({
+            "sparse_matvec": (lambda: sk.sparse_matvec(ev, bv, u, op), 200),
+            "gmres_block_orth": (
+                lambda: sk.gmres_block_orth(vt, at, w, j0), 50),
+            "gmres_lstsq": (
+                lambda: sk.gmres_lstsq(lvb, lvalid, ws, zs, beta), 50),
+            "newton_update": (
+                lambda: nk.newton_update(kt[0], d["dx"], d["f"], d["free"],
+                                         *kt[1:], 1 << 30, zero), 200)})
         times[name] = {k: (cs.time_ms(torch, fn, reps=reps),
                            cs.device_ms(torch, fn, reps=max(reps // 4, 10)))
                        for k, (fn, reps) in fns.items()}
+    times["solves"] = profile_solves(torch, cs, sk, sys_, dev)
     torch.save(outs, outputs)
     print(json.dumps(times))
+
+
+def profile_solves(torch, cs, sk, sys_, dev) -> dict:
+    """The default mesh2000 × 64 sparse solve in f64 and in mixed through
+    this checkout's solver, once under ``torch.profiler``: Newton steps,
+    device operations (kernels and copies), device busy and wall ms."""
+    import numpy as np
+
+    from freedm_tpu_torch.pf.krylov import build_fdlf_precond
+    from freedm_tpu_torch.pf.sparse import make_sparse_newton_solver
+
+    scales = np.linspace(0.5, 1.2, cs.MAIN_LANES)[:, None]
+    p, q = scales * sys_.p_inj[None], scales * sys_.q_inj[None]
+    pc = build_fdlf_precond(sys_, device=dev)
+    out = {}
+    for prec in ("f64", "mixed"):
+        solve, _ = make_sparse_newton_solver(sys_, precision=prec,
+                                             precond=pc, device=dev)
+        solve(p_inj=p, q_inj=q)
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        solve(p_inj=p, q_inj=q)
+        torch.cuda.synchronize()
+        steps = sk.launches()["gmres_lstsq"]  # one GMRES cycle a step
+        ops, busy, wall = cs.profile_solve(
+            torch, lambda: solve(p_inj=p, q_inj=q), f"sparse {prec}")
+        out[prec] = {"steps": steps, "operations": ops, "busy_ms": busy,
+                     "wall_ms": wall}
+    return out
 
 
 def _run(*args: str) -> str:
@@ -150,21 +223,26 @@ def _run(*args: str) -> str:
 
 
 def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
-    """Relative S2/S3/S4 differences of two turns' outputs; raises beyond
-    ``SPARSE_TOL``, on different ``valid`` flags or on any K3 difference."""
+    """Relative S1/S2/S3/S4 differences of two turns' outputs; raises
+    beyond ``SPARSE_TOL``, on different ``valid`` flags or on any K3
+    difference."""
     errs = {}
     for name in DTYPES:
         tol12, tol34 = cs.SPARSE_TOL[name]
+        e1 = max(cs.rel_abs_err(torch, a[name][k], b[name][k])[0]
+                 for k in ("p", "q", "f"))
         e2 = cs.rel_abs_err(torch, a[name]["y"], b[name]["y"])[0]
         e3 = cs.rel_abs_err(torch, a[name]["vb"], b[name]["vb"])[0]
         e4 = cs.rel_abs_err(torch, a[name]["xs"], b[name]["xs"])[0]
         same3 = all(torch.equal(p, q) for p, q in zip(a[name]["k3"],
                                                      b[name]["k3"]))
-        cs.check(e2 <= tol12 and e3 <= tol34 and e4 <= tol34 and same3
+        cs.check(e1 <= tol12 and e2 <= tol12 and e3 <= tol34
+                 and e4 <= tol34 and same3
                  and torch.equal(a[name]["valid"], b[name]["valid"]),
-                 f"{label} disagrees with this checkout ({name}): S2 {e2}, "
-                 f"S3 {e3}, S4 {e4}, K3 identical {same3}")
-        errs[name] = {"sparse_matvec": e2, "gmres_block_orth": e3,
+                 f"{label} disagrees with this checkout ({name}): S1 {e1}, "
+                 f"S2 {e2}, S3 {e3}, S4 {e4}, K3 identical {same3}")
+        errs[name] = {"sparse_assemble": e1, "sparse_matvec": e2,
+                      "gmres_block_orth": e3,
                       "gmres_lstsq": e4, "newton_update": 0.0}
     return errs
 
@@ -216,10 +294,18 @@ def main() -> int:
                 which = "this" if root == HERE else "other"
                 turns.append({"checkout": which, "times": times})
                 outs.append(torch.load(out))
+                for prec, sv in times["solves"].items():
+                    print(f"ab {other.name} solve {prec:<5} {which:<5} "
+                          f"{sv['steps']} steps, {sv['operations']} device "
+                          f"operations ({sv['operations'] / sv['steps']:.1f}"
+                          f" a step), busy {sv['busy_ms']:.2f} ms, wall "
+                          f"{sv['wall_ms']:.1f} ms", flush=True)
                 for name in DTYPES:
                     for kern in KERNELS:
+                        if kern not in times[name]:
+                            continue
                         ms, dev = times[name][kern]
-                        print(f"ab {other.name} {name} {kern:<16} {which:<5} "
+                        print(f"ab {other.name} {name} {kern:<26} {which:<5} "
                               f"{ms:.4f} ms  device {dev:.4f} ms", flush=True)
             errs = agree(cs, torch, outs[0], outs[1], str(other))
             print(f"ab {other.name} agreement {json.dumps(errs)}", flush=True)

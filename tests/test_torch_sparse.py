@@ -182,7 +182,7 @@ def test_assemble_plain_matches_reference_injections(mesh118):
     op = sparse.sparse_operands(sys, device="cpu")
     ev, bv, f = sk.sparse_assemble(torch.as_tensor(x), torch.as_tensor(ps),
                                    torch.as_tensor(qs), op)
-    assert ev.shape == (b, 8, ref.n_branch) and bv.shape == (b, 6, n)
+    assert ev.shape == (b, 4, 2 * ref.n_branch) and bv.shape == (b, 6, n)
     y = ref_ybus_dense(ref, dtype=jnp.float64)
     for lane in range(b):
         want_p, want_q = ref_s_calc(y, jnp.asarray(x[lane, :n]),
@@ -425,7 +425,7 @@ def test_operand_check_refuses_a_mismatched_set(mesh118, bad):
     if bad == "float dtype":
         op = op._replace(g_d=op.g_d.float())
     elif bad == "index dtype":
-        op = op._replace(f_idx=op.f_idx.long())
+        op = op._replace(inc_code=op.inc_code.long())
     else:
         op = op._replace(inc_nbr=op.inc_nbr[:-1])
     with pytest.raises(ValueError):
