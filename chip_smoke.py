@@ -5,13 +5,14 @@
 
 Needs one CUDA card; builds the kernels from the sources in this
 checkout and drives the served power-flow paths end to end: the dense
-Newton backend (K1-K3) and the sparse one (S1-S4), which the default
-server takes at 512 buses and more.
+Newton backend (K1-K3), the sparse one (S1-S4), which the default
+server takes at 512 buses and more, and the serving cache's delta tier
+(C1).
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build: two ``nvcc`` runs started together compile
-   ``freedm_tpu_torch/kernels/csrc/newton.cu`` and ``sparse.cu`` for
-   ``sm_90a``; prints the build seconds and the ``-Xptxas -v`` reports;
+1. build: three ``nvcc`` runs started together compile
+   ``freedm_tpu_torch/kernels/csrc/newton.cu``, ``sparse.cu`` and
+   ``cache.cu`` for ``sm_90a``; prints the build seconds and the ``-Xptxas -v`` reports;
 2. kernels: each kernel against its plain PyTorch version on the card at
    n ∈ {14, 30, 118, 2000} buses and B ∈ {1, 3, 64} lanes (float64,
    1e-10 absolute on J, f, P, Q — the sums run in another order; K3
@@ -66,7 +67,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    with the default ``pf_backend="auto"``/``pf_precision="auto"`` and
    ``max_batch=64``; 64 concurrent ``POST /v1/pf`` for mesh2000, all 200
    and converged, solved sparse and mixed; every S1-S4 launch count over
-   the burst must be > 0.
+   the burst must be > 0.  Phases 6 and 7 run with ``cache_mb=0``;
+8. serve cache: C1 against its plain version in every mode at mesh118,
+   mesh2000 and mesh5000, B ∈ {1, 8} (``DELTA_TOL``), bit-identical on
+   repeat, and its times per mode at mesh2000 × 1; then the default
+   server with the cache on at mesh2000 (:func:`serve_cache`): exact,
+   delta, warm and fall-through answers, deltas while a 64-request
+   burst is in flight, every answer within ``CACHE_ATOL`` of a
+   ``cache_mb=0`` service; C1's launch count over it must be > 0.
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
@@ -78,6 +86,7 @@ served launches by mode, ``launches_by_mode``); the last line is
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import http.client
 import json
 import subprocess
@@ -119,7 +128,7 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def build_kernels(torch, nk, sk, build):
+def build_kernels(torch, nk, sk, ck, build):
     t0 = time.monotonic()
     box = {}
 
@@ -130,7 +139,7 @@ def build_kernels(torch, nk, sk, build):
             box["error"] = e
 
     threads = [threading.Thread(target=run_nvcc, args=(name,))
-               for name in ("newton", "sparse")]
+               for name in ("newton", "sparse", "cache")]
     for th in threads:
         th.start()
     for th in threads:
@@ -139,11 +148,13 @@ def build_kernels(torch, nk, sk, build):
         raise box["error"]
     nk._newton_lib()
     sk._sparse_lib()
+    ck._cache_lib()
     t_all = time.monotonic() - t0
-    log(f"build: nvcc x2 {t_all:.1f} s (newton.cu {box['newton'][1]:.1f} s, "
-        f"sparse.cu {box['sparse'][1]:.1f} s), {box['newton'][0].name}, "
-        f"{box['sparse'][0].name}")
-    for name in ("newton", "sparse"):
+    log(f"build: nvcc x3 {t_all:.1f} s (newton.cu {box['newton'][1]:.1f} s, "
+        f"sparse.cu {box['sparse'][1]:.1f} s, cache.cu "
+        f"{box['cache'][1]:.1f} s), {box['newton'][0].name}, "
+        f"{box['sparse'][0].name}, {box['cache'][0].name}")
+    for name in ("newton", "sparse", "cache"):
         log(build.build_log(name).strip())
 
 
@@ -1260,8 +1271,10 @@ def serve(torch, nk):
     from freedm_tpu_torch.serve.http import ServeServer
     from freedm_tpu_torch.serve.service import ServeConfig, Service
 
+    # Cache off: this phase measures the cold dense path (serve_cache
+    # measures the cache).
     svc = Service(ServeConfig(max_batch=MAIN_LANES, pf_backend="dense",
-                              device="cuda"))
+                              device="cuda", cache_mb=0.0))
     server = ServeServer(svc).start()
     try:
         cases = ("case14", "case_ieee30", "mesh118", "mesh2000")
@@ -1306,7 +1319,10 @@ def serve_default(torch, sk):
     from freedm_tpu_torch.serve.http import ServeServer
     from freedm_tpu_torch.serve.service import ServeConfig, Service
 
-    svc = Service(ServeConfig(max_batch=MAIN_LANES, device="cuda"))
+    # Cache off: this phase measures the cold sparse path (serve_cache
+    # measures the cache).
+    svc = Service(ServeConfig(max_batch=MAIN_LANES, device="cuda",
+                              cache_mb=0.0))
     server = ServeServer(svc).start()
     try:
         scales = np.linspace(0.6, 1.2, MAIN_LANES)
@@ -1347,6 +1363,569 @@ def serve_default(torch, sk):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the serving cache (C1 and the exact, delta and warm tiers)
+# ---------------------------------------------------------------------------
+
+#: C1 against its plain version: 1e-10 absolute on dp, dq, P, Q and err
+#: (bus sums of terms up to ~1e2 pu at mesh5000, whose plain version on
+#: the card adds with index_add_ in another order); the corrected half,
+#: it and active exactly (the same rounded operations); the float32
+#: copies bit for bit against the kernel's own dp or dq cast, and within
+#: one float32 rounding of the plain version's.
+DELTA_TOL = 1e-10
+DELTA_CASES = (("mesh118", (1, 8)), ("mesh2000", (1, 8)),
+               ("mesh5000", (1, 8)))
+#: Requests of the serve cache phase: exact repeats and random deltas.
+CACHE_REPEATS = 8
+CACHE_DELTAS = 16
+#: Each answer of the phase against the cache-off service's (pu).
+CACHE_ATOL = 1e-6
+#: Client threads that send the cache requests while a burst is in flight.
+LOAD_CLIENTS = 4
+#: Device cycles of the sleep queued on the cache's stream in the stream
+#: check (~0.5 s at the H100's 1.98 GHz), and the checks' limits (s): the
+#: engine's sync must not wait for it, the cache stream's sync must.
+SLEEP_CYCLES = 1_000_000_000
+ENGINE_SYNC_LIMIT_S = 0.1
+CACHE_SYNC_MIN_S = 0.2
+
+
+def delta_inputs(torch, sys_, lanes, seed, dev="cuda"):
+    """Random states, schedules and a correction for C1 on the card."""
+    rng = np.random.default_rng(seed)
+    n = sys_.n_bus
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                               device=dev)
+
+    return (t(rng.uniform(-0.3, 0.3, (lanes, n))),
+            t(rng.uniform(0.9, 1.1, (lanes, n))),
+            t(rng.normal(size=(lanes, n)) * 0.1),
+            t(rng.normal(size=(lanes, n)) * 0.1),
+            t(rng.normal(size=(lanes, n)) * 1e-3))
+
+
+def compare_delta(torch, ck, op, theta, v, ps, qs, s, label):
+    """C1 in every mode — INIT, THETA and V with a float64 and a float32
+    correction, with and without the float32 copy, and PQ — against its
+    plain version (``DELTA_TOL``), run twice (identical bits), with lane 1
+    frozen (when there is one) and lane 0 reaching ``max_sweeps`` in V.
+    Returns the largest difference."""
+    lanes = theta.shape[0]
+    max_sweeps, tol = 5, 1e-8
+    worst_err = 0.0
+
+    def state0(mode):
+        st = ck.new_state(lanes, theta.device)
+        if mode != ck.INIT:
+            st.active.fill_(True)
+            if lanes > 1:
+                st.active[1] = False
+            st.it.fill_(1)
+            st.it[0] = max_sweeps - 1
+            st.err.fill_(7.0)
+        return st
+
+    def close(k, p, what):
+        nonlocal worst_err
+        d = max_err(k, p)
+        scale = max(1.0, float(p.abs().max()))
+        worst_err = max(worst_err, d)
+        check(d <= DELTA_TOL * scale,
+              f"C1 {label}: {what} off its plain version by {d:.3e}")
+
+    configs = [(ck.INIT, None, False), (ck.INIT, None, True), (ck.PQ, None, False)]
+    for mode in (ck.THETA, ck.V):
+        for sdt in (torch.float64, torch.float32):
+            for lo in (False, True):
+                configs.append((mode, s.to(sdt), lo))
+    for mode, s_, lo in configs:
+        name = f"{ck._MODE_NAMES[mode]}" + (
+            "" if s_ is None else f" s {str(s_.dtype)[6:]}") + (
+            " lo" if lo else "")
+        st_k, st_k2, st_p = state0(mode), state0(mode), state0(mode)
+        args = dict(s=s_, lo=lo, max_sweeps=max_sweeps, tol=tol)
+        out_k = ck.delta_mismatch(mode, theta, v, ps, qs, op, state=st_k,
+                                  **args)
+        out_k2 = ck.delta_mismatch(mode, theta, v, ps, qs, op, state=st_k2,
+                                   **args)
+        out_p = ck.delta_mismatch_plain(mode, theta, v, ps, qs, op,
+                                        state=st_p, **args)
+        torch.cuda.synchronize()
+        for a, b in zip(out_k + st_k, out_k2 + st_k2):
+            check((a is None and b is None) or torch.equal(a, b),
+                  f"C1 {label} {name}: not bit-identical on repeat")
+        x_k, a_k, b_k, lo_k = out_k
+        x_p, a_p, b_p, lo_p = out_p
+        if x_p is not None:
+            check(torch.equal(x_k, x_p),
+                  f"C1 {label} {name}: corrected half differs")
+        close(a_k, a_p, f"{name} dp/P")
+        close(b_k, b_p, f"{name} dq/Q")
+        if lo:
+            want = (b_k if mode == ck.THETA else a_k).float()
+            check(torch.equal(lo_k, want),
+                  f"C1 {label} {name}: float32 copy is not its cast")
+            d32 = float(((lo_k.double() - lo_p.double()).abs()
+                         - lo_p.double().abs() * 2.0 ** -23).max())
+            check(d32 <= DELTA_TOL * max(1.0, float(lo_p.abs().max())),
+                  f"C1 {label} {name}: float32 copy off by {d32:.3e}")
+        else:
+            check(lo_k is None and lo_p is None, f"C1 {label} {name}: lo")
+        if mode != ck.PQ:
+            close(st_k.err, st_p.err, f"{name} err")
+            check(torch.equal(st_k.it, st_p.it)
+                  and torch.equal(st_k.active, st_p.active),
+                  f"C1 {label} {name}: lane bookkeeping differs: "
+                  f"{st_k.it.tolist()} {st_k.active.tolist()} vs "
+                  f"{st_p.it.tolist()} {st_p.active.tolist()}")
+            if mode == ck.V:
+                check(not bool(st_k.active[0]) and int(st_k.it[0]) == max_sweeps,
+                      f"C1 {label} {name}: lane 0 did not stop at max_sweeps")
+                if lanes > 1:
+                    check(int(st_k.it[1]) == 1 and float(st_k.err[1]) == 7.0,
+                          f"C1 {label} {name}: a frozen lane moved")
+    return worst_err
+
+
+def compare_delta_kernels(torch, ck, errs):
+    """C1 against its plain version at mesh118, mesh2000 and mesh5000,
+    B ∈ {1, 8}."""
+    from freedm_tpu_torch.pf.mfree import delta_operands
+
+    for ci, (name, lane_counts) in enumerate(DELTA_CASES):
+        sys_ = case_system(name)
+        op = delta_operands(sys_, device="cuda")
+        for lanes in lane_counts:
+            args = delta_inputs(torch, sys_, lanes, seed=300 + 10 * ci + lanes)
+            e = compare_delta(torch, ck, op, *args, f"{name} B={lanes}")
+            errs["delta_mismatch"] = max(errs["delta_mismatch"], e)
+            log(f"cache kernels: C1 {name:>8} B={lanes}  every mode vs plain "
+                f"{e:.2e} (bit-identical on repeat)")
+
+
+def time_delta(torch, ck):
+    """C1 at the served path's shape (mesh2000, one lane, the mixed
+    program's float32 correction and copies) in each mode, by CUDA events
+    and device time, beside its plain version and its bound.  The V mode
+    (the one that also reduces and updates the lane) is the table row."""
+    from freedm_tpu_torch.pf.mfree import delta_operands
+
+    sys_ = case_system("mesh2000")
+    n, m = sys_.n_bus, sys_.n_branch
+    op = delta_operands(sys_, device="cuda")
+    theta, v, ps, qs, s = delta_inputs(torch, sys_, 1, seed=41)
+    s32 = s.float()
+    st = ck.new_state(1, theta.device)
+    st.active.fill_(True)
+    extra = {}
+    row = None
+    # Every mode reads θ, V and the shunts (8 B per bus each), the
+    # incidence list (4 B per bus, 8 B per entry, 2m entries) and the
+    # branch admittances (8 rows of m), and writes two [n] float64
+    # outputs (dp, dq or P, Q); the mismatch modes also read the
+    # schedules and masks (4 × 8 B per bus), write the float32 copy and
+    # the lane's carry (13 B); THETA and V also read s (float32) and write
+    # the corrected half.  Operations: ~50 per list entry (a sincos ~20,
+    # the four complex products and the sums), ~20 per bus.
+    base = 4 * 8 * n + 4 * (n + 1) + 8 * 2 * m + 8 * 8 * m + 16 * n
+    for mode in (ck.INIT, ck.THETA, ck.V, ck.PQ):
+        name = ck._MODE_NAMES[mode]
+        corr = mode in (ck.THETA, ck.V)
+        s_ = s32 if corr else None
+        b1 = base + (32 * n + 4 * n + 13 if mode != ck.PQ else 0) + (
+            4 * n + 8 * n if corr else 0)
+        o1 = 50 * 2 * m + 20 * n
+
+        # tol 0 and no sweep limit: the lane stays active in every call.
+        def call(mode=mode, s_=s_):
+            return ck.delta_mismatch(mode, theta, v, ps, qs, op, s_, st,
+                                     lo=mode != ck.PQ, max_sweeps=1 << 30,
+                                     tol=0.0)
+
+        def plain(mode=mode, s_=s_):
+            return ck.delta_mismatch_plain(mode, theta, v, ps, qs, op, s_, st,
+                                           lo=mode != ck.PQ,
+                                           max_sweeps=1 << 30, tol=0.0)
+
+        k = time_ms(torch, call, reps=200)
+        k_dev = device_ms_by_kernel(torch, call, reps=50)
+        k_c1 = sum(t for key, t in k_dev.items() if "delta_mismatch" in key)
+        p = time_ms(torch, plain, reps=20)
+        b, by = bound(b1, o1)
+        extra.update({f"ms_{name}": k, f"device_ms_{name}": k_c1,
+                      f"plain_ms_{name}": p, f"bound_ms_{name}": b})
+        log(f"timing: delta_mismatch {name:<6} kernel {k:.4f} ms (device "
+            f"{k_c1:.4f})  plain {p:.4f} ms  bound {b:.5f} ms ({by}, "
+            f"{b1 / 1e6:.3f} MB)")
+        if mode == ck.V:
+            row = (k, p, None, b, by)
+            extra["device_ms"] = k_c1
+    return {"delta_mismatch": row}, {"delta_mismatch": extra}
+
+
+def post_pf(port, body):
+    """One ``POST /v1/pf``: ``(status, body, latency_s, end)`` (``end`` on
+    the monotonic clock)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.monotonic()
+    conn.request("POST", "/v1/pf", body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    end = time.monotonic()
+    conn.close()
+    return resp.status, data, end - t0, end
+
+
+def random_deltas(sys_, rng, count):
+    """``count`` injection pairs, each the case's own with 1-16 random
+    buses moved by up to ±0.05 pu P and ±0.02 pu Q."""
+    p0 = np.asarray(sys_.p_inj, np.float64)
+    q0 = np.asarray(sys_.q_inj, np.float64)
+    out = []
+    for _ in range(count):
+        p, q = p0.copy(), q0.copy()
+        for j in rng.choice(sys_.n_bus, size=int(rng.integers(1, 17)),
+                            replace=False):
+            p[j] += rng.uniform(-0.05, 0.05)
+            q[j] += rng.uniform(-0.02, 0.02)
+        out.append((p, q))
+    return out
+
+
+def check_delta(label, status, data):
+    check(status == 200, f"{label}: HTTP {status}: {str(data)[:300]}")
+    check(data["converged"], f"{label}: not converged")
+    check(data["batch"]["tier"] == "delta",
+          f"{label}: tier {data['batch']['tier']}, not delta")
+    check(data["residual_pu"] <= 1e-8,
+          f"{label}: residual {data['residual_pu']}")
+
+
+def cache_under_load(svc, port, case, deltas):
+    """Cache requests while a 64-request burst of the same case is in
+    flight, in turns: the burst alone; with :data:`CACHE_DELTAS` new
+    deltas of the base case (tier ``delta``, the base case requested just
+    before); with the same requests again (now tier
+    ``exact``: the same HTTP and JSON work, no device work); twice more
+    with new deltas and their repeat; alone.  :data:`LOAD_CLIENTS` client
+    threads send a turn's requests, each thread one after another (the
+    cache combines deltas that meet into lanes of one program call).  The
+    burst's requests carry ``theta0`` = the flat start, which bypasses the
+    cache both ways, so every turn's burst is the same cold batched work.
+    Checks every answer and that the requests ran while the burst did;
+    prints their p50/p99 beside the burst's wall and its
+    ``serve_solve_seconds`` (sum over its batches), and their means by
+    turn kind.  Returns the delta answers ``[(kind, body, data,
+    latency_s)]``."""
+    from freedm_tpu_torch.core import metrics as obs
+
+    hist = obs.SERVE_SOLVE_LATENCY.labels("pf")
+    n = len(deltas[0][0])
+    burst = [{"case": case, "scale": float(x), "theta0": [0.0] * n,
+              "timeout_s": 240.0}
+             for x in np.linspace(0.6, 1.2, MAIN_LANES)]
+    todo = iter(deltas)
+    solve = {"alone": [], "delta": [], "exact": []}
+    answers = []
+
+    def send(bodies):
+        return [(body, *post_pf(port, body)) for body in bodies]
+
+    bodies = []
+    for kind in ("alone", "delta", "exact", "delta", "exact", "alone"):
+        if kind == "delta":
+            bodies = [{"case": case, "p_inj": p.tolist(), "q_inj": q.tolist(),
+                       "return_state": True, "timeout_s": 240.0}
+                      for p, q in (next(todo) for _ in range(CACHE_DELTAS))]
+            # The base case again, so its solution is among the DELTA_SCAN
+            # most recent ones the deltas are measured against.
+            status, data, _, _ = post_pf(port, {"case": case})
+            check(status == 200 and data["batch"]["tier"] == "exact",
+                  f"base repeat: HTTP {status}: {str(data)[:300]}")
+        mine = bodies if kind != "alone" else []
+        s0, c0 = hist.sum, hist.count
+        runs0 = svc.stats()["cache"]["delta_runs"]
+        with cf.ThreadPoolExecutor(MAIN_LANES + LOAD_CLIENTS) as ex:
+            t0 = time.monotonic()
+            bfuts = [ex.submit(post_pf, port, body) for body in burst]
+            time.sleep(0.05)  # the burst is admitted first
+            dfuts = [ex.submit(send, mine[i::LOAD_CLIENTS])
+                     for i in range(LOAD_CLIENTS)]
+            bout = [f.result() for f in bfuts]
+            dout = [x for f in dfuts for x in f.result()]
+        burst_end = max(x[3] for x in bout)
+        wall = burst_end - t0
+        solve_s, batches = hist.sum - s0, hist.count - c0
+        solve[kind].append(solve_s)
+        for status, data, _, _ in bout:
+            check(status == 200, f"load burst: HTTP {status}: "
+                  f"{str(data)[:300]}")
+            check(data["converged"] and data["batch"]["tier"] == "full",
+                  f"load burst: {data['batch']}")
+        blat = np.array([x[2] for x in bout]) * 1e3
+        line = (f"serve cache: under load, {kind:<5} burst of {len(bout)} "
+                f"(theta0 given: no cache) wall {wall * 1e3:.1f} ms, p50 "
+                f"{np.percentile(blat, 50):.1f} ms, serve_solve_seconds "
+                f"{solve_s * 1e3:.1f} ms over {batches} batches")
+        if mine:
+            for body, status, data, lat, end in dout:
+                if kind == "delta":
+                    check_delta("delta under load", status, data)
+                    answers.append(("delta_load", body, data, lat))
+                else:
+                    check(status == 200 and data["batch"]["tier"] == "exact",
+                          f"repeat under load: HTTP {status}: "
+                          f"{str(data)[:300]}")
+            dlat = np.array([x[3] for x in dout]) * 1e3
+            inside = sum(x[4] < burst_end for x in dout)
+            runs = svc.stats()["cache"]["delta_runs"] - runs0
+            line += (f"; {len(dout)} {kind} requests from {LOAD_CLIENTS} "
+                     f"clients ({runs} delta programs), p50 "
+                     f"{np.percentile(dlat, 50):.2f} ms p99 "
+                     f"{np.percentile(dlat, 99):.2f} ms, solve_ms "
+                     f"{np.median([x[2]['batch']['solve_ms'] for x in dout]):.2f}"
+                     f" (median), {inside} answered before the burst ended")
+            check(2 * inside >= len(dout),
+                  f"only {inside} of {len(dout)} requests ran during the "
+                  f"burst")
+        log(line)
+    mean = {k: float(np.mean(v)) for k, v in solve.items()}
+    log(f"serve cache: the burst's serve_solve_seconds, mean ms: alone "
+        f"{mean['alone'] * 1e3:.1f}, with exact repeats "
+        f"{mean['exact'] * 1e3:.1f} ({mean['exact'] / mean['alone']:.3f}x), "
+        f"with deltas {mean['delta'] * 1e3:.1f} "
+        f"({mean['delta'] / mean['alone']:.3f}x)")
+    return answers
+
+
+def serve_cache(torch, ck, sk, dev="cuda", case="mesh2000"):
+    """The default-config server with the cache on (cache_mb=64; mesh2000,
+    sparse and mixed): prime the base case, repeats (exact), random deltas
+    of 1-16 buses (delta), one request with every bus scaled (warm: full,
+    ``hits.warm`` + 1), one delta with the verify bar forced to 1e-300
+    (falls through to a warm-seeded full solve), then deltas under a burst
+    (:func:`cache_under_load`).  Every answer converged and within
+    ``CACHE_ATOL`` of the same request on a ``cache_mb=0`` service; every
+    delta answer's host-verified residual ≤ 1e-8; the engine's sync does
+    not wait for the cache's stream (:func:`stream_isolation`); no
+    request's cache tier raised (``/stats`` ``errors`` 0).  Then the delta program's wall per
+    answer in two turns (identical results) and a profiled answer's device
+    time per sweep, split into C1 and the triangular solves.  Returns C1's
+    launches over the served requests.  (``dev`` and ``case`` let a
+    rehearsal run the phase on the CPU at a small case.)"""
+    from freedm_tpu_torch.serve.cache import injection_digest
+    from freedm_tpu_torch.serve.http import ServeServer
+    from freedm_tpu_torch.serve.service import ServeConfig, Service
+
+    card = dev == "cuda"
+    svc = Service(ServeConfig(max_batch=MAIN_LANES, device=dev))
+    check(svc.cache is not None
+          and svc.cache.precision == ("mixed" if card else "f64"),
+          "the default server has no cache tier of the default precision")
+    server = ServeServer(svc).start()
+    try:
+        sys_ = case_system(case)
+        p0 = np.asarray(sys_.p_inj, np.float64)
+        q0 = np.asarray(sys_.q_inj, np.float64)
+        rng = np.random.default_rng(2026)
+        deltas = random_deltas(sys_, rng, CACHE_DELTAS + 1)
+        base = {"case": case}
+        plan = ([("full", base)] + [("exact", base)] * CACHE_REPEATS
+                + [("delta", {"case": case, "p_inj": p.tolist(),
+                              "q_inj": q.tolist()})
+                   for p, q in deltas[:CACHE_DELTAS]]
+                + [("warm", {"case": case, "scale": 1.1}),
+                   ("fallthrough", {"case": case,
+                                    "p_inj": deltas[-1][0].tolist(),
+                                    "q_inj": deltas[-1][1].tolist()})])
+        ck.reset_launches()
+        sk.reset_launches()
+        answers = []
+        for kind, body in plan:
+            hits = svc.stats()["cache"]["hits"]
+            if kind == "fallthrough":
+                svc.cache.verify_tol = 1e-300
+            try:
+                status, data, lat, _ = post_pf(
+                    server.port,
+                    {**body, "return_state": True, "timeout_s": 240.0})
+            finally:
+                svc.cache.verify_tol = None
+            after = svc.stats()["cache"]["hits"]
+            if kind == "delta":
+                check_delta("cache delta", status, data)
+            check(status == 200, f"cache {kind}: HTTP {status}: "
+                  f"{str(data)[:300]}")
+            check(data["converged"], f"cache {kind}: not converged")
+            tier = data["batch"]["tier"]
+            want = {"full": "full", "exact": "exact", "delta": "delta",
+                    "warm": "full", "fallthrough": "full"}[kind]
+            check(tier == want, f"cache {kind}: tier {tier}, not {want}")
+            if kind in ("warm", "fallthrough"):
+                check(after["warm"] == hits["warm"] + 1
+                      and after["delta"] == hits["delta"],
+                      f"cache {kind}: hits {hits} -> {after}")
+            answers.append((kind, body, data, lat))
+        c1_counts = ck.launches()
+        c1_modes = ck.mode_launches()
+        s_counts = sk.launches()
+        stats = svc.stats()["cache"]
+        log(f"serve cache: launches C1 {c1_counts} by mode {c1_modes}, "
+            f"S1-S4 {s_counts}; cache {json.dumps(stats)}")
+        check(not card or c1_counts["delta_mismatch"] > 0,
+              "C1 was not launched on the served delta path")
+        check(not card or all(c > 0 for c in s_counts.values()),
+              f"a sparse kernel was not launched by the full solves: "
+              f"{s_counts}")
+        eng = svc.engine("pf", case)
+        entry = svc.cache.entry(case, eng._sys, eng.cache_backend,
+                                topo=eng.cache_topo)
+        for kind in ("full", "exact", "delta", "warm", "fallthrough"):
+            lat = np.array([a[3] for a in answers if a[0] == kind]) * 1e3
+            its = [a[2]["iterations"] for a in answers if a[0] == kind]
+            solve = [a[2]["batch"]["solve_ms"] for a in answers
+                     if a[0] == kind]
+            log(f"serve cache: {kind:<11} {len(lat):2d} requests  p50 "
+                f"{np.percentile(lat, 50):.2f} ms  p99 "
+                f"{np.percentile(lat, 99):.2f} ms  iterations/sweeps "
+                f"{its}  solve_ms {solve}")
+        answers += cache_under_load(svc, server.port, case,
+                                    random_deltas(sys_, rng,
+                                                  2 * CACHE_DELTAS))
+        if card:
+            stream_isolation(torch, svc, case)
+        stats = svc.stats()["cache"]
+        log(f"serve cache: after the load turns {json.dumps(stats)}")
+        check(stats["errors"] == 0,
+              f"the cache tier raised {stats['errors']} time(s): see the log")
+    finally:
+        server.stop()
+        svc.stop()
+
+    cold = Service(ServeConfig(max_batch=MAIN_LANES, device=dev,
+                               cache_mb=0.0))
+    try:
+        worst_d = 0.0
+        cold.request("pf", {"case": case, "scale": 0.9})  # engine build
+        cold_lat = {}
+        for kind, body, data, _ in answers:
+            t0 = time.monotonic()
+            r = cold.request("pf", {**body, "return_state": True,
+                                    "timeout_s": 240.0})
+            cold_lat.setdefault(kind, []).append(time.monotonic() - t0)
+            check(r.converged, f"cold {kind}: not converged")
+            d = max(float(np.max(np.abs(np.array(r.v) - np.array(data["v"])))),
+                    float(np.max(np.abs(np.array(r.theta)
+                                        - np.array(data["theta"])))))
+            worst_d = max(worst_d, d)
+            check(d <= CACHE_ATOL, f"cache {kind}: {d:.3e} pu from the "
+                  f"cache-off service")
+        log(f"serve cache: every answer within {worst_d:.2e} pu of the "
+            f"cache-off service (limit {CACHE_ATOL})")
+        for kind, lat in cold_lat.items():
+            lat = np.array(lat) * 1e3
+            log(f"serve cache: the same {kind} requests on the cache-off "
+                f"service (in process): p50 {np.percentile(lat, 50):.2f} ms "
+                f"p99 {np.percentile(lat, 99):.2f} ms")
+    finally:
+        cold.stop()
+
+    # The served delta program alone, on a stream of its own, from the
+    # base solution to each of the first turn's deltas.
+    near = entry.solutions.get(injection_digest(p0, q0))
+    check(near is not None, "the base solution was evicted")
+    deltas = deltas[:CACHE_DELTAS]
+    stream = torch.cuda.Stream() if card else None
+    program = entry.ensure_delta_fn()
+
+    def on_stream():
+        return (torch.cuda.stream(stream) if card
+                else contextlib.nullcontext())
+
+    def run_all():
+        outs = []
+        t0 = time.monotonic()
+        with on_stream():
+            for p, q in deltas:
+                out = program(near.theta, near.v, p, q)
+                outs.append(tuple(o.cpu() for o in out))
+        return (time.monotonic() - t0) / len(deltas) * 1e3, outs
+
+    walls = []
+    ref_outs = None
+    for _ in range(2):
+        w, outs = run_all()
+        walls.append(w)
+        if ref_outs is None:
+            ref_outs = outs
+        check(all(torch.equal(a, b) for o1, o2 in zip(outs, ref_outs)
+                  for a, b in zip(o1, o2)),
+              "the delta program is not bit-identical on repeat")
+    sweeps = [int(o[5]) for o in ref_outs]
+    log(f"serve cache: delta program sweeps {sweeps} (mean "
+        f"{np.mean(sweeps):.2f}); wall per answer {walls[0]:.3f} / "
+        f"{walls[1]:.3f} ms (two turns, identical results)")
+    from torch.profiler import ProfilerActivity, profile
+
+    p, q = deltas[0]
+    with on_stream():
+        program(near.theta, near.v, p, q)[0].cpu()
+        if card:
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            out = program(near.theta, near.v, p, q)
+            nsw = int(out[5].cpu())
+            wall = (time.monotonic() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and getattr(e, "self_device_time_total", 0) > 0]
+    c1_us = sum(e.self_device_time_total for e in events
+                if "delta_mismatch" in e.key)
+    other_us = sum(e.self_device_time_total for e in events
+                   if "delta_mismatch" not in e.key)
+    log(f"serve cache: profiled delta answer, {nsw} sweeps: wall {wall:.3f} "
+        f"ms ({wall / max(nsw, 1):.3f} ms a sweep); device C1 "
+        f"{c1_us / 1e3:.4f} ms ({c1_us / 1e3 / max(nsw, 1):.4f} a sweep), "
+        f"triangular solves and copies {other_us / 1e3:.4f} ms "
+        f"({other_us / 1e3 / max(nsw, 1):.4f} a sweep)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile:   {e.self_device_time_total / 1e3:8.4f} ms "
+            f"{e.count:6d}x  {e.key[:240]}")
+    return c1_counts
+
+
+def stream_isolation(torch, svc, case):
+    """The batcher's one sync waits for the solve's stream alone: with a
+    ~0.5 s device sleep queued on the cache's stream, the pf engine's
+    ``synchronize`` (called from a thread on the default stream, as the
+    batcher's lane is) returns at once, and a sync of the cache's stream
+    waits for the sleep."""
+    eng = svc.engine("pf", case)
+    cache = svc.cache
+    torch.cuda.synchronize()
+    with cache._delta_run:
+        with cache._on_stream():
+            torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.monotonic()
+        eng.synchronize()
+        t_eng = time.monotonic() - t0
+        cache._stream.synchronize()
+        t_cache = time.monotonic() - t0
+    log(f"serve cache: stream check, {SLEEP_CYCLES:.0e} cycles asleep on the "
+        f"cache's stream: the engine's sync returned in {t_eng * 1e3:.3f} ms, "
+        f"the cache stream's in {t_cache * 1e3:.1f} ms")
+    check(t_eng < ENGINE_SYNC_LIMIT_S,
+          f"the engine's sync waited {t_eng:.3f} s for the cache's stream")
+    check(t_cache > CACHE_SYNC_MIN_S,
+          f"the cache stream's sleep took only {t_cache:.3f} s")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1357,6 +1936,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from freedm_tpu_torch.kernels import build
+    from freedm_tpu_torch.kernels import cache_kernels as ck
     from freedm_tpu_torch.kernels import newton_kernels as nk
     from freedm_tpu_torch.kernels import sparse_kernels as sk
 
@@ -1371,8 +1951,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        build_kernels(torch, nk, sk, build)
-        errs = dict.fromkeys([*nk.LAUNCHES, *sk.LAUNCHES], 0.0)
+        build_kernels(torch, nk, sk, ck, build)
+        errs = dict.fromkeys([*nk.LAUNCHES, *sk.LAUNCHES, *ck.LAUNCHES], 0.0)
         compare_kernels(torch, nk, errs)
         rows, extra = time_kernels(torch, nk)
         solve_mesh2000(torch, nk)
@@ -1386,6 +1966,11 @@ def main() -> int:
         sparse_counts, s1_modes = serve_default(torch, sk)
         counts.update(sparse_counts)
         extra["sparse_assemble"]["launches_by_mode"] = s1_modes
+        compare_delta_kernels(torch, ck, errs)
+        delta_rows, delta_extra = time_delta(torch, ck)
+        rows.update(delta_rows)
+        extra.update(delta_extra)
+        counts.update(serve_cache(torch, ck, sk))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1405,6 +1990,8 @@ def main() -> int:
                              "freedm_tpu/pf/krylov.py:451"),
         "gmres_lstsq": ("cuda", source + "csrc/sparse.cu",
                         "freedm_tpu/pf/krylov.py:479"),
+        "delta_mismatch": ("cuda", source + "csrc/cache.cu",
+                           "freedm_tpu/serve/cache.py:284"),
     }
     table = []
     for name, (route, src, replaces) in meta.items():

@@ -3,8 +3,9 @@
     python -m freedm_tpu_torch serve --port 8080 --pf-backend auto --pf-precision auto
 
 serves ``POST /v1/pf`` (plus ``/healthz``, ``/stats``, ``/metrics``) on
-the card until interrupted; ``--device cpu`` runs the plain PyTorch path
-on the CPU instead.
+the card until interrupted, with the incremental cache tier on
+(``--cache-mb 0`` turns it off); ``--device cpu`` runs the plain PyTorch
+path on the CPU instead.
 """
 
 from __future__ import annotations
@@ -33,6 +34,14 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     sp.add_argument("--prewarm", action="append", default=[],
                     help="workload/case to run through every bucket at start")
+    sp.add_argument("--cache-mb", type=float, default=64.0,
+                    help="byte budget of the incremental serving cache, "
+                         "solutions plus artifacts (0 disables it)")
+    sp.add_argument("--cache-ttl-s", type=float, default=600.0,
+                    help="age after which a cached solution is not served")
+    sp.add_argument("--delta-max-rank", type=int, default=16,
+                    help="most changed buses the delta tier corrects "
+                         "before falling to a warm-seeded full solve")
     args = ap.parse_args(argv)
 
     from freedm_tpu_torch.serve.http import ServeServer
@@ -43,6 +52,8 @@ def main(argv=None) -> int:
         pf_backend=args.pf_backend, pf_precision=args.pf_precision,
         device=args.device,
         prewarm=tuple(args.prewarm),
+        cache_mb=args.cache_mb, cache_ttl_s=args.cache_ttl_s,
+        delta_max_rank=args.delta_max_rank,
     ))
     server = ServeServer(svc, port=args.port, host=args.host).start()
     print(f"serving on http://{args.host}:{server.port} "

@@ -459,3 +459,36 @@ SERVE_REQUEST_LATENCY = REGISTRY.histogram(
     "Admission to completion per settled request (ok or failed) — the "
     "user-perceived latency the serve_p99 SLO is judged on",
     buckets=(0.001, 0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 10.0, 60.0))
+SERVE_CACHE_HITS = REGISTRY.counter(
+    "serve_cache_hits_total",
+    "Incremental-tier answers by tier: exact = identical injections "
+    "served from the cached solution without touching the device, "
+    "delta = SMW/FDLF correction off the cached factorization (residual-"
+    "verified), warm = full solve seeded from the nearest cached solution",
+    labels=("tier",))
+for _tier in ("exact", "delta", "warm"):
+    SERVE_CACHE_HITS.labels(_tier)
+SERVE_CACHE_MISSES = REGISTRY.counter(
+    "serve_cache_misses_total",
+    "pf cache lookups that fell through to a cold full solve "
+    "(no usable cached solution for the case/topology/backend)")
+SERVE_CACHE_EVICTIONS = REGISTRY.counter(
+    "serve_cache_evictions_total",
+    "Cached solutions/entries dropped, by reason (lru = byte budget, "
+    "ttl = age, invalidate = explicit/topology invalidation)",
+    labels=("reason",))
+for _reason in ("lru", "ttl", "invalidate"):
+    SERVE_CACHE_EVICTIONS.labels(_reason)
+SERVE_CACHE_HIT_RATIO = REGISTRY.gauge(
+    "serve_cache_hit_ratio",
+    "(exact + delta hits) / lookups since start — the fraction of pf "
+    "traffic answered without a full solve")
+SERVE_CACHE_BYTES = REGISTRY.gauge(
+    "serve_cache_bytes",
+    "Bytes held by the serving cache (solutions + per-case artifacts) "
+    "against the --cache-mb budget")
+SERVE_CACHE_ERRORS = REGISTRY.counter(
+    "serve_cache_errors_total",
+    "pf requests whose cache tier raised (a delta program's build or "
+    "launch, or any cache-side failure) and that took the full path "
+    "instead; the first is logged with its traceback")

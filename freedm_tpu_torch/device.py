@@ -39,7 +39,9 @@ def platform_name(device: torch.device) -> str:
     return {"cuda": "gpu", "cpu": "cpu"}[device.type]
 
 
-def synchronize(device: Optional[torch.device]) -> None:
-    """Wait for all work queued on ``device`` (no-op on the CPU)."""
+def stream_synchronize(device: Optional[torch.device]) -> None:
+    """Wait for the work queued on ``device``'s current stream (no-op on
+    the CPU).  Work on other streams — the serving cache's delta program
+    runs on one of its own — is not waited for."""
     if device is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()

@@ -14,10 +14,11 @@ pipeline:
   deep), so assembly of batch N+1 overlaps the device work of batch N.
 - **Device-executor lanes** (one thread per workload) — run
   ``engine.solve`` (kernels launch on the thread's current CUDA stream;
-  ctypes and Triton launches release the interpreter lock), wait for the
-  device ONCE at the measurement boundary (``engine.synchronize()``, a
-  ``torch.cuda.synchronize`` — so ``serve_solve_seconds`` is honest
-  device wall, not enqueue time), and scatter results to the waiters.
+  ctypes launches release the interpreter lock), wait for the device
+  ONCE at the measurement boundary (``engine.synchronize()``, a sync of
+  the stream the solve ran on — so ``serve_solve_seconds`` is honest
+  device wall, not enqueue time, and waits for no delta answer's work
+  on its own stream), and scatter results to the waiters.
 
 ``pipeline_depth=0`` keeps the single-thread path — the same
 ``_assemble``/``_execute`` code run inline on the dispatch thread — as
@@ -36,7 +37,16 @@ Batching semantics:
   ``serve_recompiles_total`` and attributed in ``recompiles_by_bucket``.
 - **Failure containment** — a solver exception on an executor lane
   fails only that batch's tickets with a typed ``internal`` error; the
-  lane thread and the assembly lane keep running.
+  lane thread and the assembly lane keep running.  A failed batch also
+  fails any single-flight followers parked on its tickets' cache digests
+  (``Service._complete_error`` → ``_abort_flight``).
+- **Incremental tier upstream** — with the serving cache on, exact and
+  verified-delta pf answers complete at submit time
+  (:mod:`freedm_tpu_torch.serve.cache`) and never occupy queue depth, a
+  coalescing window or a dispatch here; the batches this loop does
+  dispatch populate the cache after their scatter (the engine's
+  ``publish`` hook), which is where single-flight followers are answered
+  from their leader's lane.
 
 The reference's tracing spans, profiler, roofline and fault-injection
 hooks are not ported yet (``ROADMAP.md``).
@@ -535,7 +545,12 @@ class MicroBatcher:
                 solve_ms=round(solve_s * 1e3, 3),
                 tier="full",
             )
-            engine.scatter(group, results, info)
+            host = engine.scatter(group, results, info)
+            if engine.publish is not None:
+                # Incremental tier: insert converged lanes into the serving
+                # cache and settle the single-flight followers parked on
+                # these tickets' digests (host arrays only).
+                engine.publish(engine, group, *host, info)
             for t in group:
                 self.service._complete_ok(t, info)
         except Exception as e:  # noqa: BLE001 — waiters must never hang

@@ -103,7 +103,7 @@ class Ticket:
 
     __slots__ = (
         "key", "request", "prepared", "lanes", "enqueued_at",
-        "deadline", "future", "taken",
+        "deadline", "future", "taken", "cache_flight",
     )
 
     def __init__(self, key: Tuple[str, str], request, prepared, lanes: int,
@@ -116,6 +116,9 @@ class Ticket:
         self.deadline = deadline  # monotonic, or None
         self.future: Future = Future()
         self.taken = False  # popped from one index; lazily dropped from the other
+        # Single-flight leadership (serve/cache.py): the (entry key,
+        # injection digest) this ticket's solve populates, or None.
+        self.cache_flight = None
 
     def expired(self, now: Optional[float] = None) -> bool:
         if self.deadline is None:

@@ -15,9 +15,11 @@ trust a 200 status alone.
 :class:`Service` ties the pieces together: synchronous per-request
 validation (an invalid request never occupies queue depth), admission
 (:mod:`freedm_tpu_torch.serve.queue`), micro-batched dispatch
-(:mod:`freedm_tpu_torch.serve.batcher`) and one engine per case.  Not
-ported yet (``ROADMAP.md``): the n1/vvc/topo workloads, the incremental
-cache tier (``cache_mb`` must stay 0), provenance receipts, the
+(:mod:`freedm_tpu_torch.serve.batcher`), one engine per case, and the
+incremental cache tier (:mod:`freedm_tpu_torch.serve.cache`, on by
+default as in the reference: exact and verified-delta answers complete
+at submit time, warm hits seed the full solve).  Not ported yet
+(``ROADMAP.md``): the n1/vvc/topo workloads, provenance receipts, the
 consistent-cut ledger and the lane mesh.
 """
 
@@ -39,7 +41,7 @@ from freedm_tpu_torch.device import (
     DeviceLike,
     platform_name,
     resolve_device,
-    synchronize,
+    stream_synchronize,
 )
 from freedm_tpu_torch.grid.bus import PQ
 from freedm_tpu_torch.pf.backend import (
@@ -92,14 +94,21 @@ class PowerFlowRequest:
 @dataclass
 class BatchInfo:
     """How this request was served — the micro-batching receipt.
-    ``tier`` is always ``"full"`` (a dispatched device solve) until the
-    cache tier is ported."""
+
+    ``tier`` names the incremental-tier path that answered it:
+    ``"full"`` = a dispatched device solve (warm-started or not),
+    ``"exact"`` = the cached solution verbatim (single-flight followers
+    too: they ride the leader's solve and are answered from its
+    solution), ``"delta"`` = the residual-verified fast-decoupled
+    correction off the cached factorization (``bucket`` 0: no batch was
+    dispatched for the cache tiers).
+    """
 
     lanes: int  # real lanes in the dispatched batch (all requests)
     bucket: int  # padded static shape the batch ran at
     queue_ms: float  # admission -> dispatch
     solve_ms: float  # batched solve wall time (shared by the batch)
-    tier: str = "full"
+    tier: str = "full"  # incremental tier: full | exact | delta
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -190,7 +199,8 @@ class _Engine:
     run on the workload's executor lane (or inline on the dispatch
     thread at ``pipeline_depth=0``).  ``solve`` returns device tensors;
     the batcher waits for the device once, at its measurement boundary
-    (:meth:`synchronize`), and ``scatter`` pulls the results to the host.
+    (:meth:`synchronize`), and ``scatter`` pulls the results to the host
+    and returns what the engine's ``publish`` hook (if any) takes.
     """
 
     workload = ""
@@ -202,6 +212,10 @@ class _Engine:
         self.compiled_buckets: set = set()
         self.pf_backend: Optional[str] = None
         self.pf_precision: Optional[str] = None
+        # Set by Service.engine() when a cache is configured: the
+        # scatter-side callback the batcher feeds converged solutions
+        # (and flight settlements) into.
+        self.publish = None
 
     def validate(self, req):  # -> prepared payload (host arrays)
         raise NotImplementedError
@@ -221,10 +235,13 @@ class _Engine:
         raise NotImplementedError
 
     def synchronize(self) -> None:
-        """Wait for the engine's device work (the batcher's one sync)."""
-        synchronize(self.device)
+        """Wait for the engine's device work (the batcher's one sync): the
+        stream ``solve`` ran on, not the device, so a delta answer's
+        program on a stream of its own neither waits here nor counts in
+        the solve time."""
+        stream_synchronize(self.device)
 
-    def scatter(self, group: List[Ticket], results, info: BatchInfo) -> None:
+    def scatter(self, group: List[Ticket], results, info: BatchInfo):
         raise NotImplementedError
 
 
@@ -236,12 +253,18 @@ class PowerFlowEngine(_Engine):
                  device: DeviceLike = None):
         super().__init__(case, resolve_device(device))
         sys_ = _resolve_bus_case(case)
-        self._sys = sys_
+        self._sys = sys_  # the serving cache keys its entry off this
         self.pf_backend = resolve_backend(backend, sys_.n_bus)
         # Only the sparse backend has a reduced-precision inner solve;
         # the dense LU runs in the working dtype.
         inner = resolve_precision(precision, platform_name(self.device))
         self.pf_precision = inner if self.pf_backend == "sparse" else "f64"
+        # Cache attach points, set by Service.engine() when a cache is
+        # configured: the cache key's backend, and the topology digest
+        # computed once (BusSystem is frozen), so per-request entry
+        # resolution is a dict probe, not an O(n + m) hash.
+        self.cache_backend: Optional[str] = None
+        self.cache_topo: Optional[str] = None
         self.n_bus = sys_.n_bus
         self._p0 = np.asarray(sys_.p_inj, np.float64)
         self._q0 = np.asarray(sys_.q_inj, np.float64)
@@ -312,7 +335,10 @@ class PowerFlowEngine(_Engine):
         th0 = _pad_rows(np.stack([t.prepared["th0"] for t in group]), bucket)
         return p, q, v0, th0
 
-    def scatter(self, group: List[Ticket], r, info: BatchInfo) -> None:
+    def scatter(self, group: List[Ticket], r, info: BatchInfo):
+        """Answer the batch's tickets; returns the host arrays ``(v,
+        theta, p, q, iterations, converged, mismatch)`` the ``publish``
+        hook takes."""
         v = r.v.cpu().numpy()
         theta = r.theta.cpu().numpy()
         p = r.p.cpu().numpy()
@@ -344,6 +370,30 @@ class PowerFlowEngine(_Engine):
                 theta=np.round(theta[i], 9).tolist() if want_state else None,
                 batch=info,
             ))
+        return v, theta, p, q, its, conv, mism
+
+
+def _response_from_solution(eng, request: PowerFlowRequest, sol,
+                            info: BatchInfo) -> PowerFlowResponse:
+    """A pf response from a cached or corrected solution record
+    (``CachedSolution``-shaped: host numpy state and stamps) — the same
+    fields the scatter path computes, honoring ``return_state``."""
+    want_state = bool(request.return_state)
+    return PowerFlowResponse(
+        workload="pf",
+        case=eng.case,
+        scale=float(request.scale),
+        converged=bool(sol.converged),
+        iterations=int(sol.iterations),
+        residual_pu=float(sol.mismatch),
+        p_balance_pu=float(np.sum(sol.p)),
+        q_balance_pu=float(np.sum(sol.q)),
+        v_min_pu=float(np.min(sol.v)),
+        v_max_pu=float(np.max(sol.v)),
+        v=np.round(sol.v, 9).tolist() if want_state else None,
+        theta=np.round(sol.theta, 9).tolist() if want_state else None,
+        batch=info,
+    )
 
 
 _ENGINE_TYPES = {"pf": PowerFlowEngine}
@@ -418,9 +468,8 @@ class ServeConfig(NamedTuple):
     behind it skips it); ``queue_depth`` is the admission bound in lanes
     (beyond it, requests shed with ``overloaded``); ``buckets`` defaults
     to :func:`default_buckets`.  ``device`` is where the engines solve —
-    ``cuda`` unless ``"cpu"`` is asked for.  ``cache_mb`` must stay 0 and
-    ``mesh_devices`` 0 or 1 until the cache tier and lane sharding are
-    ported.
+    ``cuda`` unless ``"cpu"`` is asked for.  ``mesh_devices`` must stay 0
+    or 1 until lane sharding is ported.
     """
 
     max_batch: int = 64
@@ -438,7 +487,18 @@ class ServeConfig(NamedTuple):
     pipeline_depth: int = 1
     # "workload/case" engines to run through every bucket at startup.
     prewarm: Tuple[str, ...] = ()
-    cache_mb: float = 0.0
+    # Incremental serving tier (serve/cache.py; CLI --cache-mb,
+    # --cache-ttl-s, --delta-max-rank): byte budget of the
+    # per-(case, topology, backend) cache — solutions plus the reusable
+    # artifacts (FDLF LU pair, Jacobian pattern); 0 disables the tier.
+    # Then the solution TTL, and the largest changed-bus count the delta
+    # tier attempts before falling to warm-start seeding.
+    cache_mb: float = 64.0
+    cache_ttl_s: float = 600.0
+    delta_max_rank: int = 16
+    # Delta-tier verify override (None = the engine tolerance).  Tests
+    # tighten it to force fall-through; never loosen it in service.
+    cache_verify_tol: Optional[float] = None
     device: Optional[str] = None
 
     def bucket_table(self) -> Tuple[int, ...]:
@@ -480,11 +540,6 @@ class Service:
                 f"pipeline_depth must be >= 0 (0 = serialized dispatch), "
                 f"got {config.pipeline_depth}"
             )
-        if config.cache_mb and config.cache_mb > 0:
-            raise NotImplementedError(
-                "the incremental cache tier is not ported yet (ROADMAP.md, "
-                "module queue item 7); use cache_mb=0"
-            )
         if config.mesh_devices not in (0, 1):
             raise NotImplementedError(
                 "lane sharding over several devices is not ported yet "
@@ -492,6 +547,20 @@ class Service:
             )
         self.config = config
         self.device = resolve_device(config.device)
+        # The incremental serving tier (exact/delta/warm answers off
+        # cached base-case solutions and factorizations); None = off.
+        self.cache = None
+        if config.cache_mb and config.cache_mb > 0:
+            from freedm_tpu_torch.serve.cache import ServeCache
+
+            self.cache = ServeCache(
+                max_bytes=int(config.cache_mb * 1024 * 1024),
+                ttl_s=config.cache_ttl_s,
+                delta_max_rank=config.delta_max_rank,
+                precision=config.pf_precision,
+                verify_tol=config.cache_verify_tol,
+                device=self.device,
+            )
         self._engines: Dict[Tuple[str, str], _Engine] = {}
         # The global lock guards the maps only; engine construction
         # (case load, Ybus stamp) runs under a per-key build lock.
@@ -548,6 +617,18 @@ class Service:
                 case, max_iter=cfg.pf_max_iter, backend=cfg.pf_backend,
                 precision=cfg.pf_precision, device=self.device,
             )
+            if workload == "pf" and self.cache is not None:
+                from freedm_tpu_torch.serve.cache import topology_digest
+
+                # The backend is part of the cache key (dense and sparse
+                # solutions agree only to solver tolerance).  The entry's
+                # artifacts are factorized here, inside the engine build
+                # lock: first-touch cost, off the steady-state submit path.
+                eng.cache_backend = eng.pf_backend
+                eng.cache_topo = topology_digest(eng._sys)
+                eng.publish = self._publish_pf
+                self.cache.entry(case, eng._sys, eng.cache_backend,
+                                 topo=eng.cache_topo)
             with self._engines_lock:
                 self._engines[key] = eng
             return eng
@@ -578,6 +659,14 @@ class Service:
                 eng.synchronize()
                 self.batcher.note_prewarmed(eng, bucket)
                 done.append(f"{workload}/{case}:{bucket}")
+            if workload == "pf" and self.cache is not None \
+                    and eng.cache_backend is not None:
+                # Build and run the delta program too, so the first
+                # delta hit pays a correction, not a build.
+                entry = self.cache.entry(case, eng._sys, eng.cache_backend,
+                                         topo=eng.cache_topo)
+                if entry is not None:
+                    self.cache.prewarm_entry(entry)
         return done
 
     # -- submission ----------------------------------------------------------
@@ -616,14 +705,38 @@ class Service:
             key=eng.key, request=request, prepared=prepared, lanes=lanes,
             deadline=_time.monotonic() + timeout,
         )
+        # Incremental tier (pf with the cache on): exact and delta hits
+        # return a completed future without occupying queue depth or a
+        # batch; single-flight followers return a pending future parked
+        # on the leader's solve; warm hits seed the prepared arrays and
+        # fall through to admission.  A request carrying its own
+        # v0/theta0 bypasses the cache both ways: the client is steering
+        # the solver (possibly toward another solution branch), so the
+        # cache may neither answer it nor serve its solution later.
+        if self.cache is not None and workload == "pf" \
+                and eng.cache_backend is not None \
+                and request.v0 is None and request.theta0 is None:
+            try:
+                fut = self._cache_tier(eng, ticket)
+            except Exception as e:  # noqa: BLE001 — the tier is an
+                # optimization: a failing delta build or launch (or any
+                # cache-side surprise) must never turn an answerable
+                # request into an error — fall through to the full path,
+                # counted in serve_cache_errors_total and /stats.
+                self.cache.record_error(e)
+                fut = None
+            if fut is not None:
+                return fut
         try:
             self.queue.put(ticket)
-        except Overloaded:
+        except Overloaded as e:
             obs.SERVE_SHED.inc()
             obs.SERVE_REQUESTS.labels(workload, "overloaded").inc()
+            self._abort_flight(ticket, e)
             raise
-        except ShuttingDown:
+        except ShuttingDown as e:
             obs.SERVE_REQUESTS.labels(workload, "shutdown").inc()
+            self._abort_flight(ticket, e)
             raise
         return ticket.future
 
@@ -658,15 +771,158 @@ class Service:
                 f"be solving; its result is discarded)"
             ) from None
 
+    # -- incremental serving tier (serve/cache.py) ---------------------------
+    def _cache_tier(self, eng, ticket: Ticket):
+        """Run one validated pf ticket through the tier ladder.
+
+        Returns the ticket's future when the cache answered (exact or
+        verified delta) or parked it on an in-flight leader (single
+        flight); returns ``None`` when the ticket must take the full path
+        — possibly warm-seeded, and marked as its digest's flight leader
+        so an identical herd coalesces onto this one solve.
+        """
+        from freedm_tpu_torch.serve.cache import (CachedSolution,
+                                                  injection_digest)
+
+        cache = self.cache
+        entry = cache.entry(eng.case, eng._sys, eng.cache_backend,
+                            topo=eng.cache_topo)
+        if entry is None:  # case over the byte budget: stays uncached
+            return None
+        prepared = ticket.prepared
+        p, q = prepared["p"], prepared["q"]
+        digest = injection_digest(p, q)
+        tier, near = cache.lookup(entry, digest, p, q)
+        if tier == "exact":
+            cache.record("exact")
+            return self._respond_cached(eng, ticket, near, "exact", 0.0)
+        if tier == "delta":
+            t1 = _time.monotonic()
+            ans = cache.delta_answer(entry, near, p, q)
+            if ans is not None:
+                fields = (ans["v"], ans["theta"], ans["p"], ans["q"],
+                          ans["iterations"], ans["mismatch"], True)
+                sol = cache.insert(entry, digest, p, q, *fields)
+                if sol is None:  # entry died mid-answer: serve transient
+                    sol = CachedSolution(digest, p, q, *fields)
+                cache.record("delta")
+                return self._respond_cached(
+                    eng, ticket, sol, "delta",
+                    round((_time.monotonic() - t1) * 1e3, 3),
+                )
+            tier = "warm"  # residual fall-through: never served unverified
+        # Full-solve path: claim the digest's flight (or join one).
+        outcome, late = cache.flight_claim(entry, digest, ticket)
+        if outcome == "exact":  # a leader finished while we classified
+            cache.record("exact")
+            return self._respond_cached(eng, ticket, late, "exact", 0.0)
+        if outcome == "joined":
+            cache.record("miss")
+            return ticket.future
+        ticket.cache_flight = (entry.key, digest)
+        if tier == "warm" and near is not None:
+            # Seed the full solve from the nearest cached solution.
+            prepared["v0"] = near.v
+            prepared["th0"] = near.theta
+            cache.record("warm")
+        else:
+            cache.record("miss")
+        return None
+
+    def _respond_cached(self, eng, ticket: Ticket, sol, tier: str,
+                        solve_ms: float):
+        """Complete one ticket from a cached or corrected solution — no
+        admission, no batch, no device (exact) or one correction
+        (delta)."""
+        info = BatchInfo(lanes=1, bucket=0, queue_ms=0.0,
+                         solve_ms=solve_ms, tier=tier)
+        ticket.future.set_result(
+            _response_from_solution(eng, ticket.request, sol, info))
+        self._complete_ok(ticket, info)
+        return ticket.future
+
+    def _publish_pf(self, eng, group: List[Ticket], v, theta, p, q, its,
+                    conv, mism, info: BatchInfo) -> None:
+        """Scatter-side cache population and single-flight settlement.
+
+        Runs on the executor lane with host arrays only (the scatter
+        already pulled them): converged lanes are inserted as cached
+        solutions; followers parked on a lane's flight are answered from
+        that lane's numbers with an ``exact``-tier receipt.
+        """
+        cache = self.cache
+        from freedm_tpu_torch.serve.cache import (CachedSolution,
+                                                  injection_digest)
+
+        # Peek, never build: an invalidated or evicted entry means the
+        # in-flight inserts land nowhere, and no factorization may run on
+        # the executor lane.
+        entry = cache.peek_entry(eng.case, eng.cache_topo,
+                                 eng.cache_backend)
+        for i, t in enumerate(group):
+            fl = t.cache_flight
+            if fl is None and (t.request.v0 is not None
+                               or t.request.theta0 is not None):
+                # Client-steered solve: never published under an
+                # injections-only digest.
+                continue
+            digest = fl[1] if fl is not None else None
+            sol = None
+            if entry is not None and bool(conv[i]):
+                if digest is None:
+                    digest = injection_digest(t.prepared["p"],
+                                              t.prepared["q"])
+                sol = cache.insert(
+                    entry, digest, t.prepared["p"], t.prepared["q"],
+                    v[i], theta[i], p[i], q[i], int(its[i]),
+                    float(mism[i]), True,
+                )
+            if fl is None:
+                continue
+            # Settle before clearing the ticket's flight mark: an
+            # exception above leaves the mark, so the batcher's error path
+            # still aborts the flight and no follower hangs.
+            _fentry, followers = cache.settle_flight(fl)
+            t.cache_flight = None
+            if not followers:
+                continue
+            if sol is None:  # dead entry or not converged: transient
+                sol = CachedSolution(
+                    fl[1], t.prepared["p"], t.prepared["q"], v[i],
+                    theta[i], p[i], q[i], int(its[i]), float(mism[i]),
+                    bool(conv[i]),
+                )
+            # Followers are answered from the leader's solution — an
+            # exact hit in substance, so the receipt matches one.
+            finfo = BatchInfo(lanes=1, bucket=0, queue_ms=0.0,
+                              solve_ms=0.0, tier="exact")
+            for f in followers:
+                try:
+                    f.future.set_result(
+                        _response_from_solution(eng, f.request, sol, finfo))
+                    self._complete_ok(f, finfo)
+                except Exception as e:  # noqa: BLE001 — never hang the rest
+                    self._complete_error(f, e)
+
+    def _abort_flight(self, ticket: Ticket, err: BaseException) -> None:
+        """A flight leader failed, expired or was shed before populating
+        the cache: fail its followers with the same typed error."""
+        fl = ticket.cache_flight
+        if fl is None or self.cache is None:
+            return
+        ticket.cache_flight = None
+        for f in self.cache.abort_flight(fl):
+            self._complete_error(f, err)
+
     # -- completion accounting (called by the batcher / queue) ---------------
     def _expire(self, ticket: Ticket) -> None:
         obs.SERVE_REQUESTS.labels(ticket.key[0], "deadline").inc()
         obs.SERVE_REQUEST_LATENCY.observe(
             max(_time.monotonic() - ticket.enqueued_at, 0.0)
         )
-        ticket.future.set_exception(
-            DeadlineExceeded("deadline passed while queued")
-        )
+        err = DeadlineExceeded("deadline passed while queued")
+        ticket.future.set_exception(err)
+        self._abort_flight(ticket, err)
 
     def _complete_ok(self, ticket: Ticket, info: BatchInfo) -> None:
         self._ok_counters[ticket.key[0]].inc()
@@ -682,6 +938,7 @@ class Service:
         )
         if not ticket.future.done():
             ticket.future.set_exception(err)
+        self._abort_flight(ticket, err)
 
     # -- introspection / lifecycle -------------------------------------------
     def stats(self) -> dict:
@@ -723,7 +980,12 @@ class Service:
             "recompiles_by_bucket": dict(
                 sorted(self.batcher.shape_table().items())
             ),
-            "cache": {"enabled": False},
+            # Incremental-tier state: hit/miss/eviction counts, byte
+            # budget occupancy, flight joins.
+            "cache": (
+                {"enabled": True, **self.cache.stats()}
+                if self.cache is not None else {"enabled": False}
+            ),
             "batch_lanes": metric("serve_batch_lanes"),
             "queue_wait_seconds": metric("serve_queue_wait_seconds"),
             "solve_seconds": metric("serve_solve_seconds"),

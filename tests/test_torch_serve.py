@@ -2,9 +2,11 @@
 
 The same ``pf`` requests go to the reference
 ``Service(ServeConfig(..., cache_mb=0.0))`` and to the port's
-``Service(ServeConfig(..., device="cpu"))``: convergence flags and
-iteration counts must be identical, the balances, voltage extremes and
-returned states within 1e-9 (float64).
+``Service(ServeConfig(..., cache_mb=0.0, device="cpu"))`` — cold against
+cold, with both caches off: convergence flags and iteration counts must
+be identical, the balances, voltage extremes and returned states within
+1e-9 (float64).  The cache tier is held to the reference in
+``tests/test_torch_cache.py``.
 """
 
 import http.client
@@ -29,7 +31,7 @@ TOL = 1e-8  # engine tolerance in float64
 def services():
     cfg = dict(max_batch=4, max_wait_ms=25.0, queue_depth=64, buckets=(1, 4))
     ref = RefService(RefServeConfig(cache_mb=0.0, **cfg))
-    port = Service(ServeConfig(device="cpu", **cfg))
+    port = Service(ServeConfig(cache_mb=0.0, device="cpu", **cfg))
     yield ref, port
     port.stop()
     ref.stop()
@@ -149,10 +151,16 @@ def test_http_roundtrip_and_typed_errors(services):
 
 
 def test_unported_configurations_raise_typed_errors():
-    with pytest.raises(NotImplementedError, match="cache"):
-        Service(ServeConfig(device="cpu", cache_mb=64.0), start=False)
     with pytest.raises(NotImplementedError, match="mesh_devices"):
         Service(ServeConfig(device="cpu", mesh_devices=4), start=False)
+    # The cache tier is ported: cache_mb=64 (the default) builds a cache.
+    svc = Service(ServeConfig(device="cpu", cache_mb=64.0), start=False)
+    try:
+        assert svc.cache is not None
+        assert svc.cache.max_bytes == 64 * 1024 * 1024
+        assert svc.stats()["cache"]["enabled"] is True
+    finally:
+        svc.stop()
 
 
 def test_prewarm_runs_every_bucket_without_counting_recompiles():
@@ -175,8 +183,11 @@ def test_serialized_dispatch_matches_the_pipeline():
             for s in (0.9, 1.0, 1.1)]
     out = []
     for depth in (0, 1):
+        # Cache off: with it on, a burst request classified after an
+        # earlier one's solve landed would be warm-seeded, in either
+        # service at its own timing.
         svc = Service(ServeConfig(max_batch=4, buckets=(1, 4), device="cpu",
-                                  pipeline_depth=depth))
+                                  pipeline_depth=depth, cache_mb=0.0))
         try:
             assert bool(svc.batcher.lanes) == (depth > 0)
             out.append(_concurrent(svc, reqs))

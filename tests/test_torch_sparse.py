@@ -334,7 +334,7 @@ def test_default_service_matches_reference_on_mesh600():
     both packages (see the module docstring for why that margin)."""
     cfg = dict(max_batch=4, max_wait_ms=25.0, queue_depth=64, buckets=(1, 4))
     ref = RefService(RefServeConfig(cache_mb=0.0, **cfg))
-    port = Service(ServeConfig(device="cpu", **cfg))
+    port = Service(ServeConfig(cache_mb=0.0, device="cpu", **cfg))
     server = ServeServer(port).start()
     try:
         reqs = [{"case": "mesh600", "scale": s} for s in (0.8, 0.9, 1.05)]
