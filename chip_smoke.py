@@ -68,13 +68,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``max_batch=64``; 64 concurrent ``POST /v1/pf`` for mesh2000, all 200
    and converged, solved sparse and mixed; every S1-S4 launch count over
    the burst must be > 0.  Phases 6 and 7 run with ``cache_mb=0``;
-8. serve cache: C1 against its plain version in every mode at mesh118,
-   mesh2000 and mesh5000, B ∈ {1, 8} (``DELTA_TOL``), bit-identical on
-   repeat, and its times per mode at mesh2000 × 1; then the default
-   server with the cache on at mesh2000 (:func:`serve_cache`): exact,
-   delta, warm and fall-through answers, deltas while a 64-request
-   burst is in flight, every answer within ``CACHE_ATOL`` of a
-   ``cache_mb=0`` service; C1's launch count over it must be > 0.
+8. serve cache: C1, the whole delta program in one launch, against its
+   plain version (the host loop around ``torch.linalg.lu_solve``) at
+   mesh118, mesh2000 and mesh5000, B ∈ {1, 8}, f64 and mixed, from a
+   converged base over random 1-16-bus deltas (``PROGRAM_ATOL``; sweep
+   counts equal or one apart on a lane, counted), bit-identical on
+   repeat, and at mesh118 and mesh2000 also against the plain program on
+   the mirror's solves (``lu_solve_mirror``, printed); its times at
+   mesh2000 × {1, 8} lanes in mixed and f64 (events, and device time per
+   program and per sweep), with no ``lu_solve`` kernel in its profile;
+   then the default server with the cache on at mesh2000
+   (:func:`serve_cache`): exact, delta, warm and fall-through answers,
+   deltas while a 64-request burst is in flight, every answer within
+   ``CACHE_ATOL`` of a ``cache_mb=0`` service; C1's launch count over it
+   must be > 0, one a delta program, and a profiled answer's device time,
+   operations and CUDA runtime calls are printed.
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
@@ -1366,15 +1374,20 @@ def serve_default(torch, sk):
 # Phase 8: the serving cache (C1 and the exact, delta and warm tiers)
 # ---------------------------------------------------------------------------
 
-#: C1 against its plain version: 1e-10 absolute on dp, dq, P, Q and err
-#: (bus sums of terms up to ~1e2 pu at mesh5000, whose plain version on
-#: the card adds with index_add_ in another order); the corrected half,
-#: it and active exactly (the same rounded operations); the float32
-#: copies bit for bit against the kernel's own dp or dq cast, and within
-#: one float32 rounding of the plain version's.
-DELTA_TOL = 1e-10
+#: C1, the delta program, against its plain version (the host loop of
+#: the mismatch modes around ``torch.linalg.lu_solve``, on the card):
+#: theta and v within 1e-9 pu in f64 on every lane whose sweep count
+#: agrees (the substitutions round in another order, ~1e-15 relative,
+#: and each lane stops below tol = 1e-8); within ``CACHE_ATOL`` under
+#: mixed, whose float32 solves in two orders propose directions ~1e-6
+#: apart (relative), and on a lane one sweep apart.  Sweep counts equal,
+#: or one apart on a lane (counted and printed).
+PROGRAM_ATOL = {"f64": 1e-9, "mixed": 1e-6}
 DELTA_CASES = (("mesh118", (1, 8)), ("mesh2000", (1, 8)),
                ("mesh5000", (1, 8)))
+#: Cases whose programs also run with the mirror's solves.
+MIRROR_CASES = ("mesh118", "mesh2000")
+DELTA_TOL = 1e-8  # the delta program's exit bar (the engines' tolerance)
 #: Requests of the serve cache phase: exact repeats and random deltas.
 CACHE_REPEATS = 8
 CACHE_DELTAS = 16
@@ -1388,181 +1401,228 @@ LOAD_CLIENTS = 4
 SLEEP_CYCLES = 1_000_000_000
 ENGINE_SYNC_LIMIT_S = 0.1
 CACHE_SYNC_MIN_S = 0.2
+#: Kernels of ``torch.linalg.lu_solve`` that a delta program must not run.
+LIBRARY_SOLVE_KERNELS = ("unpack_pivots", "trsv", "trsm", "getrs")
 
 
-def delta_inputs(torch, sys_, lanes, seed, dev="cuda"):
-    """Random states, schedules and a correction for C1 on the card."""
-    rng = np.random.default_rng(seed)
-    n = sys_.n_bus
+class DeltaCase:
+    """One case's delta-program operands on ``dev``: the operands, the
+    cached LU pair (``build_fdlf_precond(kind="lu")``, as the serving
+    cache builds it) and a converged base state, the plain program from
+    the flat start (fast-decoupled sweeps to 1e-11)."""
 
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
-                               device=dev)
+    def __init__(self, torch, ck, name, dev="cuda"):
+        from freedm_tpu_torch.grid.bus import PQ
+        from freedm_tpu_torch.pf.krylov import build_fdlf_precond
+        from freedm_tpu_torch.pf.mfree import delta_operands
 
-    return (t(rng.uniform(-0.3, 0.3, (lanes, n))),
-            t(rng.uniform(0.9, 1.1, (lanes, n))),
-            t(rng.normal(size=(lanes, n)) * 0.1),
-            t(rng.normal(size=(lanes, n)) * 0.1),
-            t(rng.normal(size=(lanes, n)) * 1e-3))
+        self.name = name
+        self.sys = sys_ = case_system(name)
+        self.op = delta_operands(sys_, device=dev)
+        self.pc = build_fdlf_precond(sys_, kind="lu", device=dev)
+        n = sys_.n_bus
+        v_flat = np.where(np.asarray(sys_.bus_type) == PQ, 1.0,
+                          np.asarray(sys_.v_set, np.float64))
+        flat = [torch.as_tensor(a, dtype=torch.float64, device=dev)[None]
+                for a in (np.zeros(n), v_flat, sys_.p_inj, sys_.q_inj)]
+        out = ck.delta_program_plain(self.op, self.pc.bp, self.pc.bq, *flat,
+                                     100, 1e-11)
+        check(float(out[4][0]) < 1e-11, f"{name}: no converged base state")
+        self.theta0 = out[0][0].cpu().numpy()
+        self.v0 = out[1][0].cpu().numpy()
 
+    def inputs(self, lanes, seed):
+        """``lanes`` random 1-16-bus deltas from the base state, as the
+        program's ``[lanes, n]`` numpy arguments."""
+        d = random_deltas(self.sys, np.random.default_rng(seed), lanes)
+        return (np.repeat(self.theta0[None], lanes, 0),
+                np.repeat(self.v0[None], lanes, 0),
+                np.stack([p for p, _ in d]), np.stack([q for _, q in d]))
 
-def compare_delta(torch, ck, op, theta, v, ps, qs, s, label):
-    """C1 in every mode — INIT, THETA and V with a float64 and a float32
-    correction, with and without the float32 copy, and PQ — against its
-    plain version (``DELTA_TOL``), run twice (identical bits), with lane 1
-    frozen (when there is one) and lane 0 reaching ``max_sweeps`` in V.
-    Returns the largest difference."""
-    lanes = theta.shape[0]
-    max_sweeps, tol = 5, 1e-8
-    worst_err = 0.0
+    def program(self, ck, precision):
+        from freedm_tpu_torch.serve.cache import DELTA_MAX_SWEEPS
 
-    def state0(mode):
-        st = ck.new_state(lanes, theta.device)
-        if mode != ck.INIT:
-            st.active.fill_(True)
-            if lanes > 1:
-                st.active[1] = False
-            st.it.fill_(1)
-            st.it[0] = max_sweeps - 1
-            st.err.fill_(7.0)
-        return st
+        return ck.DeltaProgram(self.op, self.pc.bp, self.pc.bq,
+                               DELTA_MAX_SWEEPS, DELTA_TOL,
+                               mixed=precision == "mixed")
 
-    def close(k, p, what):
-        nonlocal worst_err
-        d = max_err(k, p)
-        scale = max(1.0, float(p.abs().max()))
-        worst_err = max(worst_err, d)
-        check(d <= DELTA_TOL * scale,
-              f"C1 {label}: {what} off its plain version by {d:.3e}")
+    def plain(self, torch, ck, args, precision, solve=None):
+        """The plain program on the card (``solve``: its triangular
+        solve, ``lu_solve`` by default)."""
+        from freedm_tpu_torch.serve.cache import DELTA_MAX_SWEEPS
 
-    configs = [(ck.INIT, None, False), (ck.INIT, None, True), (ck.PQ, None, False)]
-    for mode in (ck.THETA, ck.V):
-        for sdt in (torch.float64, torch.float32):
-            for lo in (False, True):
-                configs.append((mode, s.to(sdt), lo))
-    for mode, s_, lo in configs:
-        name = f"{ck._MODE_NAMES[mode]}" + (
-            "" if s_ is None else f" s {str(s_.dtype)[6:]}") + (
-            " lo" if lo else "")
-        st_k, st_k2, st_p = state0(mode), state0(mode), state0(mode)
-        args = dict(s=s_, lo=lo, max_sweeps=max_sweeps, tol=tol)
-        out_k = ck.delta_mismatch(mode, theta, v, ps, qs, op, state=st_k,
-                                  **args)
-        out_k2 = ck.delta_mismatch(mode, theta, v, ps, qs, op, state=st_k2,
-                                   **args)
-        out_p = ck.delta_mismatch_plain(mode, theta, v, ps, qs, op,
-                                        state=st_p, **args)
-        torch.cuda.synchronize()
-        for a, b in zip(out_k + st_k, out_k2 + st_k2):
-            check((a is None and b is None) or torch.equal(a, b),
-                  f"C1 {label} {name}: not bit-identical on repeat")
-        x_k, a_k, b_k, lo_k = out_k
-        x_p, a_p, b_p, lo_p = out_p
-        if x_p is not None:
-            check(torch.equal(x_k, x_p),
-                  f"C1 {label} {name}: corrected half differs")
-        close(a_k, a_p, f"{name} dp/P")
-        close(b_k, b_p, f"{name} dq/Q")
-        if lo:
-            want = (b_k if mode == ck.THETA else a_k).float()
-            check(torch.equal(lo_k, want),
-                  f"C1 {label} {name}: float32 copy is not its cast")
-            d32 = float(((lo_k.double() - lo_p.double()).abs()
-                         - lo_p.double().abs() * 2.0 ** -23).max())
-            check(d32 <= DELTA_TOL * max(1.0, float(lo_p.abs().max())),
-                  f"C1 {label} {name}: float32 copy off by {d32:.3e}")
-        else:
-            check(lo_k is None and lo_p is None, f"C1 {label} {name}: lo")
-        if mode != ck.PQ:
-            close(st_k.err, st_p.err, f"{name} err")
-            check(torch.equal(st_k.it, st_p.it)
-                  and torch.equal(st_k.active, st_p.active),
-                  f"C1 {label} {name}: lane bookkeeping differs: "
-                  f"{st_k.it.tolist()} {st_k.active.tolist()} vs "
-                  f"{st_p.it.tolist()} {st_p.active.tolist()}")
-            if mode == ck.V:
-                check(not bool(st_k.active[0]) and int(st_k.it[0]) == max_sweeps,
-                      f"C1 {label} {name}: lane 0 did not stop at max_sweeps")
-                if lanes > 1:
-                    check(int(st_k.it[1]) == 1 and float(st_k.err[1]) == 7.0,
-                          f"C1 {label} {name}: a frozen lane moved")
-    return worst_err
+        mixed = precision == "mixed"
+        lu_p, lu_q = self.pc.bp, self.pc.bq
+        if mixed:
+            lu_p = (lu_p[0].float(), lu_p[1])
+            lu_q = (lu_q[0].float(), lu_q[1])
+        dev = self.op.g_sh.device
+        t = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+             for a in args]
+        return ck.delta_program_plain(self.op, lu_p, lu_q, *t,
+                                      DELTA_MAX_SWEEPS, DELTA_TOL, mixed,
+                                      solve)
 
 
-def compare_delta_kernels(torch, ck, errs):
-    """C1 against its plain version at mesh118, mesh2000 and mesh5000,
-    B ∈ {1, 8}."""
-    from freedm_tpu_torch.pf.mfree import delta_operands
+def program_gap(torch, a, b):
+    """Per lane: the largest |Δtheta|, |Δv| of two programs' results, and
+    their sweep counts."""
+    d = torch.maximum((a[0] - b[0]).abs().amax(dim=-1),
+                      (a[1] - b[1]).abs().amax(dim=-1))
+    return d.cpu().tolist(), a[5].cpu().tolist(), b[5].cpu().tolist()
 
+
+def compare_program(torch, ck, case, lanes, precision, seed, mirror=False):
+    """The kernel's program against the plain one at ``lanes`` random
+    deltas (``PROGRAM_ATOL``), run twice (identical bits); with
+    ``mirror``, also against the plain program on the mirror's solves
+    (printed).  Returns ``(worst gap, lanes one sweep apart, sweeps)``."""
+    args = case.inputs(lanes, seed)
+    prog = case.program(ck, precision)
+    first = [r.clone() for r in prog(*args)]
+    again = prog(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"delta program {case.name} B={lanes} {precision}: not "
+          f"bit-identical on repeat")
+    plain = case.plain(torch, ck, args, precision)
+    gaps, sk_, sp_ = program_gap(torch, first, plain)
+    apart = 0
+    for lane, (g, a, b) in enumerate(zip(gaps, sk_, sp_)):
+        check(abs(a - b) <= 1, f"delta program {case.name} B={lanes} "
+              f"{precision} lane {lane}: {a} sweeps, plain {b}")
+        apart += a != b
+        limit = PROGRAM_ATOL[precision] if a == b else CACHE_ATOL
+        check(g <= limit, f"delta program {case.name} B={lanes} "
+              f"{precision} lane {lane}: {g:.3e} pu off the plain program "
+              f"(limit {limit})")
+    for k in (2, 3):  # P and Q at the answer
+        check(bool(torch.isfinite(first[k]).all()),
+              f"delta program {case.name}: non-finite P or Q")
+    line = (f"cache kernels: C1 {case.name:>8} B={lanes} {precision:<5} vs "
+            f"plain {max(gaps):.2e} pu, sweeps {sk_} (plain {sp_}, {apart} "
+            f"lane(s) one apart), bit-identical on repeat")
+    if mirror:
+        mir = case.plain(torch, ck, args, precision, ck.lu_solve_mirror)
+        gm, _, sm = program_gap(torch, first, mir)
+        gpm, _, _ = program_gap(torch, plain, mir)
+        line += (f"; mirror's solves: kernel {max(gm):.2e} pu, plain "
+                 f"{max(gpm):.2e} pu from it, sweeps {sm}")
+    log(line)
+    return max(gaps), apart, sk_
+
+
+def compare_delta_programs(torch, ck, errs, extra):
+    """C1 against its plain program at mesh118, mesh2000 and mesh5000,
+    B ∈ {1, 8}, f64 and mixed.  Returns the cases (their base states are
+    reused by the timings)."""
+    cases = {}
+    worst = {"f64": 0.0, "mixed": 0.0}
+    apart = 0
     for ci, (name, lane_counts) in enumerate(DELTA_CASES):
-        sys_ = case_system(name)
-        op = delta_operands(sys_, device="cuda")
+        case = cases[name] = DeltaCase(torch, ck, name)
         for lanes in lane_counts:
-            args = delta_inputs(torch, sys_, lanes, seed=300 + 10 * ci + lanes)
-            e = compare_delta(torch, ck, op, *args, f"{name} B={lanes}")
-            errs["delta_mismatch"] = max(errs["delta_mismatch"], e)
-            log(f"cache kernels: C1 {name:>8} B={lanes}  every mode vs plain "
-                f"{e:.2e} (bit-identical on repeat)")
+            for precision in ("f64", "mixed"):
+                g, a, _ = compare_program(
+                    torch, ck, case, lanes, precision,
+                    seed=300 + 10 * ci + lanes, mirror=name in MIRROR_CASES)
+                worst[precision] = max(worst[precision], g)
+                apart += a
+    errs["delta_program"] = worst["f64"]
+    extra["delta_program"] = {"max_abs_err_mixed": worst["mixed"],
+                              "lanes_one_sweep_apart": apart}
+    return cases
 
 
-def time_delta(torch, ck):
-    """C1 at the served path's shape (mesh2000, one lane, the mixed
-    program's float32 correction and copies) in each mode, by CUDA events
-    and device time, beside its plain version and its bound.  The V mode
-    (the one that also reduces and updates the lane) is the table row."""
-    from freedm_tpu_torch.pf.mfree import delta_operands
+def runtime_calls(prof):
+    """CUDA runtime calls in a profile (the host's calls into the card)."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cuda") and not e.key.startswith("cudaGet"))
 
-    sys_ = case_system("mesh2000")
-    n, m = sys_.n_bus, sys_.n_branch
-    op = delta_operands(sys_, device="cuda")
-    theta, v, ps, qs, s = delta_inputs(torch, sys_, 1, seed=41)
-    s32 = s.float()
-    st = ck.new_state(1, theta.device)
-    st.active.fill_(True)
+
+def runtime_call_names(prof):
+    return ", ".join(f"{e.key} {e.count}" for e in prof.key_averages()
+                     if e.key.startswith("cuda")
+                     and not e.key.startswith("cudaGet"))
+
+
+def device_kernels(prof):
+    return [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and getattr(e, "self_device_time_total", 0) > 0]
+
+
+def program_bound(case, sweeps, lanes, mixed):
+    """The least time for a program: each input read once (the factor
+    pair, the operands and the lanes' states and schedules), each output
+    written once; the operations are the substitutions' multiply-adds
+    (2 n² a solve, two solves a sweep) for the sweeps this run took."""
+    n, m = case.sys.n_bus, case.sys.n_branch
+    esz = 4 if mixed else 8
+    bytes_ = (2 * n * n * esz + 2 * 4 * n  # factors, permutations
+              + 4 * (n + 1) + 8 * 2 * m + 8 * 8 * m + 4 * 8 * n  # operands
+              + lanes * (4 * 8 * n + (4 * 8 * n + 16)))  # in, out
+    ops = sum(sweeps) * 2 * 2 * n * n + lanes * 50 * 2 * m
+    return bound(bytes_, ops, fp64=not mixed)
+
+
+def time_delta(torch, ck, cases):
+    """C1 at the served path's shape (mesh2000, one lane, mixed; also 8
+    lanes and f64): CUDA events over back-to-back calls (the wrapper's
+    input copy and the launch) and device time per program and per sweep
+    from ``torch.profiler``, beside the plain program on the card and the
+    bound.  A program's profile must hold C1 alone: no ``lu_solve``
+    kernel.  Mixed × 1 is the table row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    case = cases["mesh2000"]
     extra = {}
     row = None
-    # Every mode reads θ, V and the shunts (8 B per bus each), the
-    # incidence list (4 B per bus, 8 B per entry, 2m entries) and the
-    # branch admittances (8 rows of m), and writes two [n] float64
-    # outputs (dp, dq or P, Q); the mismatch modes also read the
-    # schedules and masks (4 × 8 B per bus), write the float32 copy and
-    # the lane's carry (13 B); THETA and V also read s (float32) and write
-    # the corrected half.  Operations: ~50 per list entry (a sincos ~20,
-    # the four complex products and the sums), ~20 per bus.
-    base = 4 * 8 * n + 4 * (n + 1) + 8 * 2 * m + 8 * 8 * m + 16 * n
-    for mode in (ck.INIT, ck.THETA, ck.V, ck.PQ):
-        name = ck._MODE_NAMES[mode]
-        corr = mode in (ck.THETA, ck.V)
-        s_ = s32 if corr else None
-        b1 = base + (32 * n + 4 * n + 13 if mode != ck.PQ else 0) + (
-            4 * n + 8 * n if corr else 0)
-        o1 = 50 * 2 * m + 20 * n
+    for precision in ("mixed", "f64"):
+        prog = case.program(ck, precision)
+        for lanes in (1, 8):
+            args = case.inputs(lanes, seed=41 + lanes)
+            sweeps = prog(*args)[5].cpu().tolist()
 
-        # tol 0 and no sweep limit: the lane stays active in every call.
-        def call(mode=mode, s_=s_):
-            return ck.delta_mismatch(mode, theta, v, ps, qs, op, s_, st,
-                                     lo=mode != ck.PQ, max_sweeps=1 << 30,
-                                     tol=0.0)
+            def call():
+                return prog(*args)
 
-        def plain(mode=mode, s_=s_):
-            return ck.delta_mismatch_plain(mode, theta, v, ps, qs, op, s_, st,
-                                           lo=mode != ck.PQ,
-                                           max_sweeps=1 << 30, tol=0.0)
-
-        k = time_ms(torch, call, reps=200)
-        k_dev = device_ms_by_kernel(torch, call, reps=50)
-        k_c1 = sum(t for key, t in k_dev.items() if "delta_mismatch" in key)
-        p = time_ms(torch, plain, reps=20)
-        b, by = bound(b1, o1)
-        extra.update({f"ms_{name}": k, f"device_ms_{name}": k_c1,
-                      f"plain_ms_{name}": p, f"bound_ms_{name}": b})
-        log(f"timing: delta_mismatch {name:<6} kernel {k:.4f} ms (device "
-            f"{k_c1:.4f})  plain {p:.4f} ms  bound {b:.5f} ms ({by}, "
-            f"{b1 / 1e6:.3f} MB)")
-        if mode == ck.V:
-            row = (k, p, None, b, by)
-            extra["device_ms"] = k_c1
-    return {"delta_mismatch": row}, {"delta_mismatch": extra}
+            k = time_ms(torch, call, reps=20)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    ck.results_to_host(call())
+            kern = device_kernels(prof)
+            names = [e.key for e in kern]
+            check(not any(lib in key for key in names
+                          for lib in LIBRARY_SOLVE_KERNELS),
+                  f"a delta program ran a library solve kernel: {names}")
+            dev_ms = sum(e.self_device_time_total for e in kern
+                         if "delta_program" in e.key) / 1e3 / 5
+            check(dev_ms > 0, "the profiler recorded no C1 device time")
+            p = time_ms(torch, lambda: case.plain(torch, ck, args, precision),
+                        reps=3)
+            b, by = program_bound(case, sweeps, lanes, precision == "mixed")
+            per_sweep = dev_ms / max(max(sweeps), 1)
+            tag = f"{precision}_B{lanes}"
+            extra.update({f"ms_{tag}": k, f"device_ms_{tag}": dev_ms,
+                          f"device_ms_per_sweep_{tag}": per_sweep,
+                          f"sweeps_{tag}": sweeps, f"plain_ms_{tag}": p,
+                          f"bound_ms_{tag}": b,
+                          f"runtime_calls_per_program_{tag}":
+                              runtime_calls(prof) / 5})
+            log(f"timing: delta_program {precision:<5} B={lanes} kernel "
+                f"{k:.4f} ms a program (device {dev_ms:.4f} ms, "
+                f"{per_sweep:.4f} a sweep, sweeps {sweeps})  plain "
+                f"{p:.4f} ms  bound {b:.5f} ms ({by}); profile: "
+                f"{', '.join(sorted(set(names)))[:200]}; "
+                f"{runtime_calls(prof) / 5:.1f} CUDA runtime calls a program "
+                f"({runtime_call_names(prof)}, over 5 programs)")
+            if precision == "mixed" and lanes == 1:
+                row = (k, p, None, b, by)
+                extra["device_ms"] = dev_ms
+                extra["device_ms_per_sweep"] = per_sweep
+    return {"delta_program": row}, {"delta_program": extra}
 
 
 def post_pf(port, body):
@@ -1587,8 +1647,8 @@ def random_deltas(sys_, rng, count):
     out = []
     for _ in range(count):
         p, q = p0.copy(), q0.copy()
-        for j in rng.choice(sys_.n_bus, size=int(rng.integers(1, 17)),
-                            replace=False):
+        k = min(int(rng.integers(1, 17)), sys_.n_bus)
+        for j in rng.choice(sys_.n_bus, size=k, replace=False):
             p[j] += rng.uniform(-0.05, 0.05)
             q[j] += rng.uniform(-0.02, 0.02)
         out.append((p, q))
@@ -1711,10 +1771,11 @@ def serve_cache(torch, ck, sk, dev="cuda", case="mesh2000"):
     ``CACHE_ATOL`` of the same request on a ``cache_mb=0`` service; every
     delta answer's host-verified residual ≤ 1e-8; the engine's sync does
     not wait for the cache's stream (:func:`stream_isolation`); no
-    request's cache tier raised (``/stats`` ``errors`` 0).  Then the delta program's wall per
-    answer in two turns (identical results) and a profiled answer's device
-    time per sweep, split into C1 and the triangular solves.  Returns C1's
-    launches over the served requests.  (``dev`` and ``case`` let a
+    request's cache tier raised (``/stats`` ``errors`` 0); C1 launched once
+    a delta program.  Then the delta program's wall per answer in two
+    turns (identical results) and profiled answers' device time, device
+    operations and CUDA runtime calls (no ``lu_solve`` kernel among
+    them).  Returns C1's launches over the served requests.  (``dev`` and ``case`` let a
     rehearsal run the phase on the CPU at a small case.)"""
     from freedm_tpu_torch.serve.cache import injection_digest
     from freedm_tpu_torch.serve.http import ServeServer
@@ -1770,13 +1831,15 @@ def serve_cache(torch, ck, sk, dev="cuda", case="mesh2000"):
                       f"cache {kind}: hits {hits} -> {after}")
             answers.append((kind, body, data, lat))
         c1_counts = ck.launches()
-        c1_modes = ck.mode_launches()
         s_counts = sk.launches()
         stats = svc.stats()["cache"]
-        log(f"serve cache: launches C1 {c1_counts} by mode {c1_modes}, "
-            f"S1-S4 {s_counts}; cache {json.dumps(stats)}")
-        check(not card or c1_counts["delta_mismatch"] > 0,
+        log(f"serve cache: launches C1 {c1_counts}, S1-S4 {s_counts}; "
+            f"cache {json.dumps(stats)}")
+        check(not card or c1_counts["delta_program"] > 0,
               "C1 was not launched on the served delta path")
+        check(not card or c1_counts["delta_program"] == stats["delta_runs"],
+              f"C1 launches {c1_counts} are not one a delta program "
+              f"({stats['delta_runs']} programs)")
         check(not card or all(c > 0 for c in s_counts.values()),
               f"a sparse kernel was not launched by the full solves: "
               f"{s_counts}")
@@ -1850,8 +1913,8 @@ def serve_cache(torch, ck, sk, dev="cuda", case="mesh2000"):
         t0 = time.monotonic()
         with on_stream():
             for p, q in deltas:
-                out = program(near.theta, near.v, p, q)
-                outs.append(tuple(o.cpu() for o in out))
+                out = ck.results_to_host(program(near.theta, near.v, p, q))
+                outs.append(tuple(np.array(o) for o in out))
         return (time.monotonic() - t0) / len(deltas) * 1e3, outs
 
     walls = []
@@ -1861,7 +1924,7 @@ def serve_cache(torch, ck, sk, dev="cuda", case="mesh2000"):
         walls.append(w)
         if ref_outs is None:
             ref_outs = outs
-        check(all(torch.equal(a, b) for o1, o2 in zip(outs, ref_outs)
+        check(all(np.array_equal(a, b) for o1, o2 in zip(outs, ref_outs)
                   for a, b in zip(o1, o2)),
               "the delta program is not bit-identical on repeat")
     sweeps = [int(o[5]) for o in ref_outs]
@@ -1870,32 +1933,47 @@ def serve_cache(torch, ck, sk, dev="cuda", case="mesh2000"):
         f"{walls[1]:.3f} ms (two turns, identical results)")
     from torch.profiler import ProfilerActivity, profile
 
-    p, q = deltas[0]
-    with on_stream():
-        program(near.theta, near.v, p, q)[0].cpu()
-        if card:
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            out = program(near.theta, near.v, p, q)
-            nsw = int(out[5].cpu())
-            wall = (time.monotonic() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and getattr(e, "self_device_time_total", 0) > 0]
+    # Three answers a window; a window that comes back without device
+    # events (now and then on the H100) is taken again.
+    answers_in_window = 3
+    for _ in range(3):
+        with on_stream():
+            ck.results_to_host(program(near.theta, near.v, *deltas[0]))
+            if card:
+                torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                outs = [ck.results_to_host(program(near.theta, near.v, p, q))
+                        for p, q in deltas[:answers_in_window]]
+                wall = (time.monotonic() - t0) * 1e3 / answers_in_window
+        events = device_kernels(prof)
+        if events or not card:
+            break
+    nsw = float(np.mean([int(o[5]) for o in outs]))
+    per = answers_in_window
     c1_us = sum(e.self_device_time_total for e in events
-                if "delta_mismatch" in e.key)
+                if "delta_program" in e.key) / per
     other_us = sum(e.self_device_time_total for e in events
-                   if "delta_mismatch" not in e.key)
-    log(f"serve cache: profiled delta answer, {nsw} sweeps: wall {wall:.3f} "
-        f"ms ({wall / max(nsw, 1):.3f} ms a sweep); device C1 "
+                   if "delta_program" not in e.key) / per
+    ops = sum(e.count for e in events) / per
+    calls = runtime_calls(prof) / per
+    log(f"serve cache: profiled delta answers ({per} in the window), "
+        f"{nsw:.2f} sweeps each: wall {wall:.3f} ms an answer "
+        f"({wall / max(nsw, 1):.3f} ms a sweep); device C1 "
         f"{c1_us / 1e3:.4f} ms ({c1_us / 1e3 / max(nsw, 1):.4f} a sweep), "
-        f"triangular solves and copies {other_us / 1e3:.4f} ms "
-        f"({other_us / 1e3 / max(nsw, 1):.4f} a sweep)")
+        f"copies and the rest {other_us / 1e3:.4f} ms; {ops:.1f} device "
+        f"operations and {calls:.1f} CUDA runtime calls an answer "
+        f"({runtime_call_names(prof)})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile:   {e.self_device_time_total / 1e3:8.4f} ms "
             f"{e.count:6d}x  {e.key[:240]}")
+    if card:
+        names = [e.key for e in events]
+        check(c1_us > 0, "the profiled delta answer ran no C1")
+        check(not any(lib in key for key in names
+                      for lib in LIBRARY_SOLVE_KERNELS),
+              f"the delta answer ran a library solve kernel: {names}")
     return c1_counts
 
 
@@ -1966,10 +2044,10 @@ def main() -> int:
         sparse_counts, s1_modes = serve_default(torch, sk)
         counts.update(sparse_counts)
         extra["sparse_assemble"]["launches_by_mode"] = s1_modes
-        compare_delta_kernels(torch, ck, errs)
-        delta_rows, delta_extra = time_delta(torch, ck)
+        cases = compare_delta_programs(torch, ck, errs, extra)
+        delta_rows, delta_extra = time_delta(torch, ck, cases)
         rows.update(delta_rows)
-        extra.update(delta_extra)
+        extra["delta_program"].update(delta_extra["delta_program"])
         counts.update(serve_cache(torch, ck, sk))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -1990,8 +2068,8 @@ def main() -> int:
                              "freedm_tpu/pf/krylov.py:451"),
         "gmres_lstsq": ("cuda", source + "csrc/sparse.cu",
                         "freedm_tpu/pf/krylov.py:479"),
-        "delta_mismatch": ("cuda", source + "csrc/cache.cu",
-                           "freedm_tpu/serve/cache.py:284"),
+        "delta_program": ("cuda", source + "csrc/cache.cu",
+                          "freedm_tpu/serve/cache.py:284"),
     }
     table = []
     for name, (route, src, replaces) in meta.items():

@@ -4,7 +4,7 @@
   ``newton_update`` — CUDA C++ (``csrc/newton.cu``);
 - S1-S4, the sparse Newton backend's kernels — CUDA C++
   (``csrc/sparse.cu``);
-- C1 ``delta_mismatch``, the serving cache's delta sweep — CUDA C++
+- C1 ``delta_program``, the serving cache's delta program — CUDA C++
   (``csrc/cache.cu``).
 
 Each source is built by :mod:`.build` and bound with ctypes.

@@ -6,7 +6,7 @@ products per branch, two segment sums per part, then the shunts — which
 is the Ybus product written as its sparsity pattern.  The arithmetic is
 :func:`freedm_tpu_torch.kernels.cache_kernels.branch_injections`, which is
 also the plain version of the injection part of kernel C1 (the serving
-cache's delta sweep); :func:`delta_operands` builds the operands both
+cache's delta program); :func:`delta_operands` builds the operands both
 take.  The matrix-free Newton–Krylov solver that the reference builds on
 this module is a later slice (ROADMAP item 12).
 """

@@ -2,8 +2,9 @@
 
 Port of ``smw_delta_solve`` (``freedm_tpu/pf/n1.py:86-121``), the
 correction solve of the incremental machinery: the serving cache's
-delta tier calls it at rank 0 (an injection delta moves the right-hand
-side, not B′/B″), and the N-1 screen (ROADMAP item 8) at rank ≤ 2 with
+delta program runs it at rank 0 on the CPU and in the plain version of
+kernel C1, which solves on the card itself (an injection delta moves the
+right-hand side, not B′/B″), and the N-1 screen (ROADMAP item 8) at rank ≤ 2 with
 ``z``/``cap`` precomputed for every branch.  The rest of the reference
 module — the SMW and sparse N-1 screens, ``secure_outages``,
 ``dc_prefilter`` — belongs to item 8.

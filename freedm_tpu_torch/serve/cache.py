@@ -23,9 +23,9 @@ Three answer tiers, cheapest first (:class:`ServeCache` classifies,
    ``delta_max_rank`` buses (and ≤ ``delta_max_pu`` per bus): answered by
    warm-started fast-decoupled sweeps whose inner solve is rank-0
    :func:`freedm_tpu_torch.pf.n1.smw_delta_solve` over the cached LU pair
-   (:func:`_build_delta_program`; on the card each sweep's mismatch work
-   is kernel C1 :func:`~freedm_tpu_torch.kernels.cache_kernels.
-   delta_mismatch`).  Every delta answer is verified by a host float64
+   (:func:`_build_delta_program`; on the card the whole program is one
+   launch of kernel C1, :class:`~freedm_tpu_torch.kernels.cache_kernels.
+   DeltaProgram`).  Every delta answer is verified by a host float64
    residual check (:func:`freedm_tpu_torch.pf.krylov.host_injections`);
    a residual above the engine tolerance falls through to tier 3, so a
    wrong answer is never served.
@@ -46,20 +46,22 @@ account (lookups are host work: dict probes and O(n) numpy compares);
 artifact builds run under a per-entry build lock.  Delta programs run
 one at a time, combined: the submitting thread that holds the program
 lock runs every pending delta request of its entry as the lanes of one
-program call, so concurrent answers share one thread's host work (the
-per-sweep loop is host-bound, and each extra thread running it would
-contend with the batcher's host-bound solve for the interpreter lock).
+program call, so concurrent answers share one launch and one thread's
+host work (each extra thread would contend with the batcher's
+host-bound solve for the interpreter lock).
 On the card the program runs on a CUDA stream of the cache's own and its
 results come back with a sync of that stream alone: it is not queued
 behind a batched solve in stream order, though it shares the card's SMs
 and the interpreter lock with one, and the batcher's sync of its own
 stream waits for no delta work.  An entry's LU pair is factorized on the building thread's stream,
 which is synchronized before the build returns; the delta program's
-operands (and, under ``precision="mixed"``, the float32 copy of the
-pair) are synchronized the same way when the program is built, so no
-other stream reads them unfinished.  The float32 copy is made once per
-entry and is not counted in the byte account (the reference does not
-count it either).
+operands (and on the card the factors in the kernel's layout — a
+float32 copy under ``precision="mixed"``, the float64 factors themselves
+where their columns are 16-byte aligned — and its buffers) are
+synchronized the same way when the program is built, so no other stream
+reads them unfinished.  A copy is made once per entry and is not counted
+in the byte account (the reference does not count its float32 copy
+either).
 
 Not ported here: the DC screen sharing the entry's B′ LU
 (``CaseEntry.dc_solver``, ROADMAP item 8), the topology engine's use of
@@ -89,8 +91,6 @@ from freedm_tpu_torch.kernels import cache_kernels as ck
 from freedm_tpu_torch.pf.backend import resolve_backend, resolve_precision
 from freedm_tpu_torch.pf.krylov import build_fdlf_precond, host_injections
 from freedm_tpu_torch.pf.mfree import delta_operands
-from freedm_tpu_torch.pf.n1 import smw_delta_solve
-from freedm_tpu_torch.pf.newton import any_active
 from freedm_tpu_torch.pf.sparse import jacobian_pattern
 
 #: Recent solutions scanned per lookup for the nearest delta/warm base.
@@ -287,65 +287,34 @@ def _build_delta_program(sys, precond, tol: float, max_sweeps: int,
     until the mismatch clears ``tol`` or ``max_sweeps`` run out.
 
     Returns ``correct(theta0, v0, p_sched, q_sched) -> (theta, v, p_calc,
-    q_calc, err, sweeps)``.  The arguments are ``[n]`` (one answer; then
-    ``err`` and ``sweeps`` are 0-d) or ``[B, n]`` lanes, numpy or float64
-    tensors.  Each lane runs the reference's ``while_loop``: the exit
-    test ``it < max_sweeps and err >= tol`` before each sweep, the sweep
-    ``theta += solve_p(dp)·th_free``, ``dq = mismatch(theta, v).dq``,
-    ``v += solve_q(dq)·v_free``, ``dp, dq = mismatch(theta, v)``.  Each
-    mismatch, correction and exit test is one launch of kernel C1 on CUDA
-    tensors (its plain version on the CPU); the loop reads the lanes'
-    ``active`` flags on the host before each sweep (one sync of the
-    program's stream), and a lane that is done stops updating.
+    q_calc, err, sweeps)``, a :class:`~freedm_tpu_torch.kernels.
+    cache_kernels.DeltaProgram`.  The arguments are ``[n]`` (one answer;
+    then ``err`` and ``sweeps`` are 0-d) or ``[B, n]`` lanes, numpy or
+    float64 tensors.  Each lane runs the reference's ``while_loop``: the
+    exit test ``it < max_sweeps and err >= tol`` before each sweep, the
+    sweep ``theta += solve_p(dp)·th_free``, ``dq = mismatch(theta,
+    v).dq``, ``v += solve_q(dq)·v_free``, ``dp, dq = mismatch(theta, v)``;
+    a lane that is done stops updating.  On the card one launch of kernel
+    C1 runs the whole program (its own triangular solves on the factors,
+    the pivots as a permutation, the exit tests on the device) and the
+    results come back in one copy; on the CPU it is the plain host loop
+    of C1's mismatch modes around ``torch.linalg.lu_solve``.
 
     ``precision="mixed"`` runs the triangular solves in float32, on a
     float32 copy of the LU factors made here once, as mixed-precision
     iterative refinement: the iterates, the mismatch and the exit test
-    stay in float64, and C1 writes the float32 right-hand sides itself.
-    The acceptance contract is unchanged: the host float64 verify is the
-    only gate between a delta answer and the client.
+    stay in float64, and the right-hand sides are the float32 roundings
+    of dp and dq.  The acceptance contract is unchanged: the host float64
+    verify is the only gate between a delta answer and the client.
     """
     dev = resolve_device(device)
-    n = sys.n_bus
-    mixed = precision == "mixed"
-    op = delta_operands(sys, device=dev)
-    if mixed:
-        lu_p = (precond.bp[0].to(torch.float32), precond.bp[1])
-        lu_q = (precond.bq[0].to(torch.float32), precond.bq[1])
-    else:
-        lu_p, lu_q = precond.bp, precond.bq
-    # The operands and copies are done before any stream may read them.
+    program = ck.DeltaProgram(delta_operands(sys, device=dev), precond.bp,
+                              precond.bq, max_sweeps, tol,
+                              mixed=precision == "mixed")
+    # The operands, copies and buffers are done before any stream may
+    # read them.
     stream_synchronize(dev)
-
-    def solve(lu, rhs):
-        """The base solve over lanes: ``rhs [B, n]`` -> ``[B, n]``."""
-        return smw_delta_solve(lu, None, None, rhs.T).T.contiguous()
-
-    def c1(mode, theta, v, ps, qs, s=None, state=None):
-        return ck.delta_mismatch(mode, theta, v, ps, qs, op, s, state,
-                                 lo=mixed, max_sweeps=max_sweeps, tol=tol)
-
-    def correct(theta0, v0, p_sched, q_sched):
-        args = [torch.as_tensor(
-            a if isinstance(a, torch.Tensor) else np.array(a, np.float64),
-            dtype=torch.float64, device=dev)
-            for a in (theta0, v0, p_sched, q_sched)]
-        one = args[0].dim() == 1
-        theta, v, ps, qs = (a.reshape(-1, n).contiguous() for a in args)
-        state = ck.new_state(theta.shape[0], dev)
-        _, dp, dq, lo = c1(ck.INIT, theta, v, ps, qs, state=state)
-        for _ in range(max_sweeps):
-            if not any_active(state.active):
-                break
-            theta, dp, dq, lo = c1(ck.THETA, theta, v, ps, qs,
-                                   solve(lu_p, lo if mixed else dp), state)
-            v, dp, dq, lo = c1(ck.V, theta, v, ps, qs,
-                               solve(lu_q, lo if mixed else dq), state)
-        _, p_calc, q_calc, _ = c1(ck.PQ, theta, v, ps, qs)
-        out = (theta, v, p_calc, q_calc, state.err, state.it)
-        return tuple(o[0] for o in out) if one else out
-
-    return correct
+    return program
 
 
 class _DeltaJob:
@@ -566,17 +535,15 @@ class ServeCache:
 
     def _run_delta_jobs(self, entry: CaseEntry, jobs: List[_DeltaJob]):
         """One program call with a lane per job (the caller holds
-        ``_delta_run``); the ``.cpu()`` pulls are the results coming
-        back, a sync of the cache's stream alone."""
+        ``_delta_run``); the one device-to-host copy of its results is a
+        sync of the cache's stream alone."""
         self._delta_runs += 1
         try:
             with self._on_stream():
                 fn = entry.ensure_delta_fn()
                 res = fn(*(np.stack(a) for a in zip(
                     *((j.near.theta, j.near.v, j.p, j.q) for j in jobs))))
-                theta, v, p_calc, q_calc = (
-                    r.cpu().numpy().astype(np.float64) for r in res[:4])
-                sweeps = res[5].cpu().numpy()
+                theta, v, p_calc, q_calc, _, sweeps = ck.results_to_host(res)
         except Exception as e:  # noqa: BLE001 — raised in each caller
             for j in jobs:
                 j.out = e

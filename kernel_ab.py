@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time S1 ``sparse_assemble`` (each mode), S2 ``sparse_matvec``, S3
-``gmres_block_orth``, S4 ``gmres_lstsq`` and K3 ``newton_update`` of this
-checkout against those of other checkouts of the repo, in turns on one
-card.
+``gmres_block_orth``, S4 ``gmres_lstsq``, K3 ``newton_update`` and the
+serving cache's delta program (C1) of this checkout against those of
+other checkouts of the repo, in turns on one card.
 
-    python3 kernel_ab.py OTHER [OTHER ...] [--out FILE]
+    python3 kernel_ab.py OTHER [OTHER ...] [--sections sparse,delta]
+                         [--out FILE]
 
 Each ``OTHER`` is the root of another checkout, for example one written
 by ``git archive <commit> | tar -x -C _archive/parent`` into a directory
@@ -31,9 +32,21 @@ alone), and one default mesh2000 × 64 sparse solve in f64 and in
 mixed is profiled (Newton steps, device operations, device busy and wall
 time).  Each ``OTHER``'s outputs must agree with this checkout's within
 ``chip_smoke.SPARSE_TOL`` (K3 exactly): S1's P, Q and f, S2's y, S3's
-block and S4's update.  Prints the card's name and power limit, one line
-per turn and a JSON summary as the last line (also written to
-``--out``).  Needs a CUDA card.
+block and S4's update.
+
+The ``delta`` section times each checkout's delta program as the serving
+cache builds it (``serve.cache._build_delta_program`` over its own
+``build_fdlf_precond(kind="lu")``) at mesh2000 × {1, 8} lanes, f64 and
+mixed, on 8 random 1-16-bus deltas from a converged base made once here:
+the wall per program with its results on the host (one answer's device
+work, host calls and copies), and from ``torch.profiler`` its device time,
+device operations and CUDA runtime calls per program.  The checkouts'
+theta and v must agree within ``chip_smoke.CACHE_ATOL`` with sweep counts
+at most one apart (each turn factorizes the pair anew, and cuSOLVER's
+factors may differ in the last bits between processes).
+
+Prints the card's name and power limit, one line per turn and a JSON
+summary as the last line (also written to ``--out``).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -46,11 +59,16 @@ import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
+
 HERE = Path(__file__).resolve().parent
 DTYPES = ("float64", "float32")
 KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "sparse_assemble_residual", "sparse_matvec", "gmres_block_orth",
            "gmres_lstsq", "newton_update")
+SECTIONS = ("sparse", "delta")
+DELTA_LANES = (1, 8)
+DELTA_PRECISIONS = ("f64", "mixed")
 
 
 def _smoke():
@@ -63,15 +81,20 @@ def _smoke():
     return mod
 
 
-def prepare(path: Path) -> None:
+def prepare(path: Path, sections) -> None:
     import torch
 
     cs = _smoke()
+    from freedm_tpu_torch.kernels import cache_kernels as ck
     from freedm_tpu_torch.kernels import sparse_kernels as sk
 
     sys_ = cs.case_system("mesh2000")
     data = {}
-    for name in DTYPES:
+    if "delta" in sections:
+        case = cs.DeltaCase(torch, ck, "mesh2000")
+        data["delta"] = [np.asarray(a) for a in case.inputs(
+            max(DELTA_LANES), seed=77)]
+    for name in DTYPES if "sparse" in sections else ():
         dtype = getattr(torch, name)
         op, x, ps, qs, _, m_op = cs.sparse_setup(torch, sys_, cs.MAIN_LANES,
                                                  3, dtype)
@@ -119,7 +142,7 @@ def assemble_fns(torch, sk, x, ps, qs, op) -> dict:
     return fns
 
 
-def measure(root: Path, inputs: Path, outputs: Path) -> None:
+def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
     sys.path.insert(0, str(root))
     import torch
 
@@ -130,9 +153,12 @@ def measure(root: Path, inputs: Path, outputs: Path) -> None:
 
     dev = torch.device("cuda")
     sys_ = cs.case_system("mesh2000")
-    data = torch.load(inputs)
+    data = torch.load(inputs, weights_only=False)
     times, outs = {}, {}
-    for name in DTYPES:
+    if "delta" in sections:
+        times["delta"], outs["delta"] = measure_delta(torch, cs, sys_,
+                                                      data["delta"], dev)
+    for name in DTYPES if "sparse" in sections else ():
         dtype = getattr(torch, name)
         d = {k: v.to(dev) if torch.is_tensor(v) else v
              for k, v in data[name].items()}
@@ -179,9 +205,59 @@ def measure(root: Path, inputs: Path, outputs: Path) -> None:
         times[name] = {k: (cs.time_ms(torch, fn, reps=reps),
                            cs.device_ms(torch, fn, reps=max(reps // 4, 10)))
                        for k, (fn, reps) in fns.items()}
-    times["solves"] = profile_solves(torch, cs, sk, sys_, dev)
+    if "sparse" in sections:
+        times["solves"] = profile_solves(torch, cs, sk, sys_, dev)
     torch.save(outs, outputs)
     print(json.dumps(times))
+
+
+def measure_delta(torch, cs, sys_, args, dev):
+    """This checkout's delta program at mesh2000 (``DELTA_LANES`` ×
+    ``DELTA_PRECISIONS``): per configuration the wall per program with
+    its results on the host (host clock over back-to-back programs), and
+    from one ``torch.profiler`` window over 3 programs the device time,
+    device operations and CUDA runtime calls per program; and the first
+    program's (theta, v, sweeps)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from freedm_tpu_torch.kernels import cache_kernels as ck
+    from freedm_tpu_torch.pf.krylov import build_fdlf_precond
+    from freedm_tpu_torch.serve.cache import (DELTA_MAX_SWEEPS,
+                                              _build_delta_program)
+
+    to_host = getattr(ck, "results_to_host", None) or (
+        lambda res: tuple(r.cpu().numpy() for r in res))
+    pc = build_fdlf_precond(sys_, kind="lu", device=dev)
+    times, outs = {}, {}
+    for prec in DELTA_PRECISIONS:
+        fn = _build_delta_program(sys_, pc, cs.DELTA_TOL, DELTA_MAX_SWEEPS,
+                                  precision=prec, device=dev)
+        for lanes in DELTA_LANES:
+            a = [x[:lanes] for x in args]
+            out = to_host(fn(*a))
+            key = f"{prec}_B{lanes}"
+            outs[key] = [torch.as_tensor(np.array(out[k])) for k in (0, 1, 5)]
+            reps = 10
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(reps):
+                to_host(fn(*a))
+            wall = (time.monotonic() - t0) / reps * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    to_host(fn(*a))
+            kern = cs.device_kernels(prof)
+            times[key] = {
+                "wall_ms": wall,
+                "device_ms": sum(e.self_device_time_total for e in kern)
+                / 1e3 / 3,
+                "device_operations": sum(e.count for e in kern) / 3,
+                "runtime_calls": cs.runtime_calls(prof) / 3,
+                "sweeps": [int(x) for x in np.atleast_1d(out[5])]}
+    return times, outs
 
 
 def profile_solves(torch, cs, sk, sys_, dev) -> dict:
@@ -225,9 +301,20 @@ def _run(*args: str) -> str:
 def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
     """Relative S1/S2/S3/S4 differences of two turns' outputs; raises
     beyond ``SPARSE_TOL``, on different ``valid`` flags or on any K3
-    difference."""
+    difference; the delta programs' largest |Δtheta|, |Δv| (limit
+    ``CACHE_ATOL``, sweeps at most one apart)."""
     errs = {}
+    for key, (ta, va, sa) in a.get("delta", {}).items():
+        tb, vb, sb = b["delta"][key]
+        d = max(float((ta - tb).abs().max()), float((va - vb).abs().max()))
+        apart = int((sa.long() - sb.long()).abs().max())
+        cs.check(d <= cs.CACHE_ATOL and apart <= 1,
+                 f"{label} disagrees with this checkout (delta {key}): "
+                 f"{d:.3e} pu, sweeps {sa.tolist()} vs {sb.tolist()}")
+        errs[f"delta_{key}"] = {"max_abs_pu": d, "sweeps_apart": apart}
     for name in DTYPES:
+        if name not in a:
+            continue
         tol12, tol34 = cs.SPARSE_TOL[name]
         e1 = max(cs.rel_abs_err(torch, a[name][k], b[name][k])[0]
                  for k in ("p", "q", "f"))
@@ -253,16 +340,22 @@ def main() -> int:
                     help="roots of other checkouts")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the JSON summary here")
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help="comma-separated: sparse (S1-S4, K3 and the "
+                         "solves), delta (the delta program)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--outputs", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    sections = [x for x in args.sections.split(",") if x]
+    if any(x not in SECTIONS for x in sections):
+        ap.error(f"unknown section in {args.sections!r}")
     if args.prepare is not None:
-        prepare(args.prepare)
+        prepare(args.prepare, sections)
         return 0
     if args.measure is not None:
-        measure(args.measure, args.inputs, args.outputs)
+        measure(args.measure, args.inputs, args.outputs, sections)
         return 0
     import torch
 
@@ -277,24 +370,33 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    summary = {"card": smi, "shape": "mesh2000 x 64, S3 at j0 = 12, s = 4, "
-                                     "S4 at mm = 16",
+    summary = {"card": smi, "sections": sections,
+               "shape": "mesh2000 x 64, S3 at j0 = 12, s = 4, S4 at mm = 16;"
+                        " delta programs mesh2000 x {1, 8} lanes",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
-        _run("--prepare", str(inputs))
+        _run("--prepare", str(inputs), "--sections", args.sections)
         for other in args.others:
             other = other.resolve()
             turns, outs = [], []
             for k, root in enumerate((other, HERE, HERE, other)):
                 out = Path(tmp) / f"out{k}.pt"
                 times = json.loads(_run("--measure", str(root), "--inputs",
-                                        str(inputs), "--outputs", str(out))
+                                        str(inputs), "--outputs", str(out),
+                                        "--sections", args.sections)
                                    .strip().splitlines()[-1])
                 which = "this" if root == HERE else "other"
                 turns.append({"checkout": which, "times": times})
                 outs.append(torch.load(out))
-                for prec, sv in times["solves"].items():
+                for key, dv in times.get("delta", {}).items():
+                    print(f"ab {other.name} delta {key:<9} {which:<5} wall "
+                          f"{dv['wall_ms']:.3f} ms a program, device "
+                          f"{dv['device_ms']:.4f} ms, "
+                          f"{dv['device_operations']:.1f} device operations "
+                          f"and {dv['runtime_calls']:.1f} CUDA runtime calls "
+                          f"a program, sweeps {dv['sweeps']}", flush=True)
+                for prec, sv in times.get("solves", {}).items():
                     print(f"ab {other.name} solve {prec:<5} {which:<5} "
                           f"{sv['steps']} steps, {sv['operations']} device "
                           f"operations ({sv['operations'] / sv['steps']:.1f}"
@@ -302,7 +404,7 @@ def main() -> int:
                           f"{sv['wall_ms']:.1f} ms", flush=True)
                 for name in DTYPES:
                     for kern in KERNELS:
-                        if kern not in times[name]:
+                        if kern not in times.get(name, {}):
                             continue
                         ms, dev = times[name][kern]
                         print(f"ab {other.name} {name} {kern:<26} {which:<5} "

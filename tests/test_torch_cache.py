@@ -275,7 +275,7 @@ def test_c1_plain_version_in_every_mode(c1_case, s_dtype):
     state = ck.new_state(3, "cpu")
     state.active[:] = torch.tensor([True, True, False])
     # INIT overwrites active from it and err (it = 0 < max_sweeps).
-    x, dp, dq, lo = ck.delta_mismatch(ck.INIT, theta, v, ps, qs, op,
+    x, dp, dq, lo = ck.delta_mismatch_plain(ck.INIT, theta, v, ps, qs, op,
                                       state=state, lo=True, max_sweeps=5,
                                       tol=TOL)
     want = _ref_mismatch(ref, theta.numpy(), v.numpy(), ps.numpy(),
@@ -287,7 +287,7 @@ def test_c1_plain_version_in_every_mode(c1_case, s_dtype):
     assert state.active.tolist() == [True] * 3
     # THETA with lane 2 frozen: its theta is copied, lanes 0-1 corrected.
     state.active[2] = False
-    th1, dp, dq, lo = ck.delta_mismatch(ck.THETA, theta, v, ps, qs, op, s,
+    th1, dp, dq, lo = ck.delta_mismatch_plain(ck.THETA, theta, v, ps, qs, op, s,
                                         state, lo=True)
     s64 = s.to(F64)
     want_th = torch.where(torch.tensor([[True], [True], [False]]),
@@ -300,7 +300,7 @@ def test_c1_plain_version_in_every_mode(c1_case, s_dtype):
     # frozen and keeps err, it and active.
     state.it[:] = torch.tensor([2, 4, 1], dtype=torch.int32)
     state.err[2] = 123.0
-    v1, dp, dq, lo = ck.delta_mismatch(ck.V, th1, v, ps, qs, op, s, state,
+    v1, dp, dq, lo = ck.delta_mismatch_plain(ck.V, th1, v, ps, qs, op, s, state,
                                        lo=True, max_sweeps=5, tol=TOL)
     assert torch.equal(v1[2], v[2])
     assert torch.equal(v1[:2], (v + s64 * op.v_free)[:2])
@@ -319,37 +319,45 @@ def test_c1_plain_version_in_every_mode(c1_case, s_dtype):
     bar = float(errs[0] + errs[1]) / 2
     state.active[:] = True
     state.it[:] = 0
-    ck.delta_mismatch(ck.V, th1, v1, ps, qs, op, s * 0, state,
+    ck.delta_mismatch_plain(ck.V, th1, v1, ps, qs, op, s * 0, state,
                       max_sweeps=50, tol=bar)
     assert state.active.tolist() == (want[4] >= bar).tolist()
     assert state.active.sum() == 2 and state.it.tolist() == [1, 1, 1]
-    _, p, q, lo = ck.delta_mismatch(ck.PQ, th1, v1, ps, qs, op)
+    _, p, q, lo = ck.delta_mismatch_plain(ck.PQ, th1, v1, ps, qs, op)
     assert lo is None
     assert np.max(np.abs(p.numpy() - want[0])) <= 1e-12
     assert np.max(np.abs(q.numpy() - want[1])) <= 1e-12
-    # CPU calls take the plain version and count nothing.
-    assert ck.launches() == {"delta_mismatch": 0}
-    assert sum(ck.mode_launches().values()) == 0
+    # The plain version counts no launch.
+    assert ck.launches() == {"delta_program": 0}
     with pytest.raises(ValueError, match="unknown delta_mismatch mode"):
-        ck.delta_mismatch(7, theta, v, ps, qs, op, state=state)
+        ck.delta_mismatch_plain(7, theta, v, ps, qs, op, state=state)
 
 
 def test_c1_wrapper_refuses_bad_inputs_before_any_launch(c1_case):
-    """The validator the wrapper runs on CUDA inputs before a launch (a
-    CPU call goes to the plain version and never reaches it)."""
-    _, op, theta, v, ps, qs, s = c1_case
-    state = ck.new_state(3, "cpu")
-    ck._check(ck.V, theta, v, ps, qs, op, s, state)
+    """The validator a program built for the card runs once, before its
+    first launch (a CPU program runs the plain version and never reaches
+    it), and the program's refusal of other devices."""
+    ref, op, *_ = c1_case
+    sys = BusSystem.from_arrays(dataclasses.asdict(ref))
+    pc = build_fdlf_precond(sys, kind="lu", device="cpu")
+    dev = torch.device("cpu")
+    ck._check_program(op, pc.bp, pc.bq, dev)
+    bad = op._replace(y=op.y[:, :-1])
     with pytest.raises(ValueError, match="contiguous"):
-        ck._check(ck.V, theta, v, ps, qs, op, s[:, :-1], state)
-    with pytest.raises(ValueError, match="float64 or float32"):
-        ck._check(ck.V, theta, v, ps, qs, op, None, state)
-    with pytest.raises(ValueError, match="DeltaState"):
-        ck._check(ck.INIT, theta, v, ps, qs, op, None, None)
+        ck._check_program(bad, pc.bp, pc.bq, dev)
     with pytest.raises(ValueError, match="float64"):
-        ck._check(ck.PQ, theta.float(), v, ps, qs, op, None, None)
+        ck._check_program(op._replace(g_sh=op.g_sh.float()), pc.bp, pc.bq,
+                          dev)
+    with pytest.raises(ValueError, match="int32"):
+        ck._check_program(op._replace(inc_ptr=op.inc_ptr.long()), pc.bp,
+                          pc.bq, dev)
+    with pytest.raises(ValueError, match="LU factor"):
+        ck._check_program(op, (pc.bp[0].float(), pc.bp[1]), pc.bq, dev)
+    with pytest.raises(ValueError, match="pivots"):
+        ck._check_program(op, pc.bp, (pc.bq[0], pc.bq[1][:-1]), dev)
+    meta = op._replace(g_sh=op.g_sh.to("meta"))
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        ck.delta_mismatch(ck.PQ, theta.to("meta"), v, ps, qs, op)
+        ck.DeltaProgram(meta, pc.bp, pc.bq, 5, TOL)
 
 
 @pytest.mark.parametrize("name", ["case14", "case_ieee30", "mesh118"])
@@ -940,13 +948,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_c1_matches_plain_version_on_card(cuda_device, c1_case):
-    """C1 in every mode against its plain version within
-    ``chip_smoke.DELTA_TOL``, the corrected half and the bookkeeping
-    exactly, bit-identical on repeat (``chip_smoke.compare_delta``)."""
-    ref, _, theta, v, ps, qs, s = c1_case
-    sys = BusSystem.from_arrays(dataclasses.asdict(ref))
-    op = delta_operands(sys, device=cuda_device)
-    args = [t.to(cuda_device) for t in (theta, v, ps, qs, s)]
-    chip_smoke.compare_delta(torch, ck, op, *args, "card")
-    torch.cuda.synchronize()
+@pytest.mark.parametrize("name", ["mesh118", "case14"])
+def test_c1_matches_plain_version_on_card(cuda_device, name):
+    """C1, the whole delta program in one launch, against its plain
+    version (the host loop around ``torch.linalg.lu_solve``) on 1 and 8
+    random deltas from a converged base, f64 and mixed, within
+    ``chip_smoke.PROGRAM_ATOL``, bit-identical on repeat, and beside the
+    plain loop on the mirror's solves (``chip_smoke.compare_program``)."""
+    case = chip_smoke.DeltaCase(torch, ck, name, dev=cuda_device)
+    for lanes in (1, 8):
+        for precision in ("f64", "mixed"):
+            chip_smoke.compare_program(torch, ck, case, lanes, precision,
+                                       seed=lanes, mirror=lanes == 1)

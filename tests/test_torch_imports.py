@@ -161,7 +161,7 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
                                   "gmres_block_orth", "gmres_lstsq"}
     from freedm_tpu_torch.kernels import cache_kernels as ck
 
-    assert set(ck.launches()) == {"delta_mismatch"}
+    assert set(ck.launches()) == {"delta_program"}
     vb = torch.zeros(2, 17, 8, dtype=torch.float64)
     with pytest.raises(ValueError, match="contiguous"):
         sk._want(vb, {"w": (vb[:, :4], torch.float64, (2, 4, 8))})
