@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 Needs one CUDA card; builds the kernels from the sources in this
-checkout and drives the served power-flow paths end to end: the dense
-Newton backend (K1-K3), the sparse one (S1-S4), which the default
+checkout and drives the served paths end to end: ``POST /v1/pf`` on the
+dense Newton backend (K1-K3), the sparse one (S1-S4), which the default
 server takes at 512 buses and more, and the serving cache's delta tier
-(C1).
+(C1); ``POST /v1/n1`` on the SMW screen (N1) below 512 buses and the
+status-traced sparse screen (S1 with status, S2-S4, K3) at and above;
+the DC solver and ``dc_prefilter`` (D1).
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build: three ``nvcc`` runs started together compile
-   ``freedm_tpu_torch/kernels/csrc/newton.cu``, ``sparse.cu`` and
-   ``cache.cu`` for ``sm_90a``; prints the build seconds and the ``-Xptxas -v`` reports;
+1. build: four ``nvcc`` runs started together compile
+   ``freedm_tpu_torch/kernels/csrc/newton.cu``, ``sparse.cu``,
+   ``cache.cu`` and ``screen.cu`` for ``sm_90a``; prints the build
+   seconds and the ``-Xptxas -v`` reports;
 2. kernels: each kernel against its plain PyTorch version on the card at
    n ∈ {14, 30, 118, 2000} buses and B ∈ {1, 3, 64} lanes (float64,
    1e-10 absolute on J, f, P, Q — the sums run in another order; K3
@@ -82,13 +85,53 @@ Phases (any failure exits non-zero, and no result line is printed):
    deltas while a 64-request burst is in flight, every answer within
    ``CACHE_ATOL`` of a ``cache_mb=0`` service; C1's launch count over it
    must be > 0, one a delta program, and a profiled answer's device time,
-   operations and CUDA runtime calls are printed.
+   operations and CUDA runtime calls are printed;
+9. screen kernels: S1 with a per-lane status in each mode against its
+   plain version at mesh118 and mesh2000, B ∈ {1, 3, 64, 256}, float64
+   and float32, random 0/1 status and single outages
+   (``compare_assemble``: ``SPARSE_TOL``, bit-identical on repeat, the
+   modes' bit relations; an all-in-service status gives the no-status
+   bits); N1 in every mode on identical inputs at case_ieee30, mesh118
+   and mesh511 × L ∈ {1, 64, 256} (``SMW_ATOL``); D1 in both modes at
+   mesh118 and mesh2000 × L ∈ {1, 1024} (``DC_ATOL``), and the bridges
+   of case14 and case_ieee30 flagged islanded by kernel and plain
+   version; then their times (events and device time) beside the plain
+   versions and the bounds: S1 with status at mesh2000 × 64 and × 256,
+   device time in turns with S1 without status on the same inputs
+   (with, without, without, with), N1 at mesh511 × 256 and
+   case_ieee30 × 64 in each mode, D1 SCREEN at mesh2000 × 1024 and SOLVE
+   at × 4096;
+10. n1 screens: ``make_n1_screen`` on mesh2000 × 256 chord outages
+   (sparse; mixed on the served bf16 pair, f64 on the float64 LU pair)
+   against the plain-version screen (every lane converged; f64: three
+   lanes within 1e-9 pu with equal iterations, every lane's fallbacks
+   equal and iterations ±1; mixed: equal flags and fallbacks, iterations
+   ±1), its
+   launches (every S1
+   call with the lanes' status) and a profile; the SMW screen over every
+   secure outage of case_ieee30 and mesh511 × 256 against its plain
+   version (1e-9 pu), 2 + 2 × 24 N1 launches a screen; ``make_dc_solver``
+   at mesh2000 (4096 injection lanes, 1024 outage lanes) and
+   ``dc_prefilter=8`` over 64 chord outages against their plain versions;
+11. serve n1: the default config but ``max_batch=256`` (a request of
+   more lanes than ``max_batch`` is refused, as the reference's is),
+   engines prewarmed (build and prewarm times printed apart): mesh2000
+   — one request of 64 outages, 16 concurrent requests of 1-16, one of
+   256 — and case_ieee30 over all its secure outages, each answer
+   all_converged with ``v_min_pu``/``v_max_pu`` within 1e-9 pu of the
+   direct screen of the same outages; an islanding outage refused (400);
+   p50/p99 latency and lanes a batch; S1 (with status on every call),
+   S2-S4 and N1 launched.
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
-other modes' ``*_values_f32``/``*_residual`` times and bounds and its
-served launches by mode, ``launches_by_mode``); the last line is
-``{"ok": true, "device": {...}}``.
+other modes' ``*_values_f32``/``*_residual`` times and bounds, its
+status-mode times ``*_status_x64``/``*_status_x256`` with device times
+in turns with and without status on the same inputs
+(``device_ms_turns_*``), its served launches by mode,
+``launches_by_mode``, and those of the n1 path, all with status; N1 and
+D1 their other modes' times); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -136,7 +179,7 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def build_kernels(torch, nk, sk, ck, build):
+def build_kernels(torch, nk, sk, ck, sck, build):
     t0 = time.monotonic()
     box = {}
 
@@ -147,7 +190,7 @@ def build_kernels(torch, nk, sk, ck, build):
             box["error"] = e
 
     threads = [threading.Thread(target=run_nvcc, args=(name,))
-               for name in ("newton", "sparse", "cache")]
+               for name in ("newton", "sparse", "cache", "screen")]
     for th in threads:
         th.start()
     for th in threads:
@@ -157,12 +200,13 @@ def build_kernels(torch, nk, sk, ck, build):
     nk._newton_lib()
     sk._sparse_lib()
     ck._cache_lib()
+    sck._screen_lib()
     t_all = time.monotonic() - t0
-    log(f"build: nvcc x3 {t_all:.1f} s (newton.cu {box['newton'][1]:.1f} s, "
-        f"sparse.cu {box['sparse'][1]:.1f} s, cache.cu "
-        f"{box['cache'][1]:.1f} s), {box['newton'][0].name}, "
-        f"{box['sparse'][0].name}, {box['cache'][0].name}")
-    for name in ("newton", "sparse", "cache"):
+    names = ("newton", "sparse", "cache", "screen")
+    log(f"build: nvcc x{len(names)} {t_all:.1f} s ("
+        + ", ".join(f"{k}.cu {box[k][1]:.1f} s" for k in names) + "), "
+        + ", ".join(box[k][0].name for k in names))
+    for name in names:
         log(build.build_log(name).strip())
 
 
@@ -782,25 +826,27 @@ def ordered_bus_sums(torch, op, ev, x):
     return p, q
 
 
-def compare_assemble(torch, sk, op, x, ps, qs, label):
+def compare_assemble(torch, sk, op, x, ps, qs, label, status=None):
     """S1 in each of its modes against its plain version (each output at
     ``SPARSE_TOL`` of its own dtype), twice on identical inputs (identical
     bits), and the modes against each other bit for bit: ``VALUES_F32``'s
     ``ev``/``bv`` are ``FULL``'s cast to float32 and its ``f`` is
     ``FULL``'s; ``RESIDUAL``'s ``p``, ``q``, ``f`` are ``FULL``'s ``bv[:,
-    4]``, ``bv[:, 5]`` and ``f``; the bus role's P and Q are the ordered
-    sums of the c/a values the edge role wrote (:func:`ordered_bus_sums`).
-    Returns the worst ``(rel, abs)`` over the outputs in ``x``'s dtype."""
+    4]``, ``bv[:, 5]`` and ``f``; without a ``status``, the bus role's P
+    and Q are the ordered sums of the c/a values the edge role wrote
+    (:func:`ordered_bus_sums`, on the stored diagonal).  Returns the worst
+    ``(rel, abs)`` over the outputs in ``x``'s dtype."""
     modes = [sk.FULL, sk.RESIDUAL]
     if x.dtype == torch.float64:
         modes.append(sk.VALUES_F32)
     out, errs = {}, []
     for mode in modes:
-        k = sk.sparse_assemble(x, ps, qs, op, mode)
+        k = sk.sparse_assemble(x, ps, qs, op, mode, status)
         check(all(same_bits(torch, a, b) for a, b in zip(
-            k, sk.sparse_assemble(x, ps, qs, op, mode))),
+            k, sk.sparse_assemble(x, ps, qs, op, mode, status))),
             f"S1 mode {mode} not bit-identical on repeat: {label}")
-        for a, b in zip(k, sk.sparse_assemble_plain(x, ps, qs, op, mode)):
+        for a, b in zip(k, sk.sparse_assemble_plain(x, ps, qs, op, mode,
+                                                    status)):
             rel, ab = rel_abs_err(torch, a, b)
             tol = SPARSE_TOL[str(a.dtype)[6:]][0]
             check(rel <= tol, f"sparse_assemble mode {mode} disagrees on "
@@ -820,10 +866,12 @@ def compare_assemble(torch, sk, op, x, ps, qs, label):
               and same_bits(torch, bv2, bv.float())
               and same_bits(torch, f2, f),
               f"S1's float32 values are not its float64 values cast: {label}")
-    ps_, qs_ = ordered_bus_sums(torch, op, ev, x)
-    check(same_bits(torch, ps_, bv[:, 4].contiguous())
-          and same_bits(torch, qs_, bv[:, 5].contiguous()),
-          f"S1's P/Q are not the ordered sums of its edge values: {label}")
+    if status is None:
+        ps_, qs_ = ordered_bus_sums(torch, op, ev, x)
+        check(same_bits(torch, ps_, bv[:, 4].contiguous())
+              and same_bits(torch, qs_, bv[:, 5].contiguous()),
+              f"S1's P/Q are not the ordered sums of its edge values: "
+              f"{label}")
     return worst(errs)
 
 
@@ -2006,6 +2054,668 @@ def stream_isolation(torch, svc, case):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the screening kernels (S1 with status, N1, D1)
+# ---------------------------------------------------------------------------
+
+#: S1 with a per-lane status against its plain version: the cases and
+#: lane counts (the served N-1 shape is mesh2000 × up to 256 lanes).
+STATUS_CASES = (("mesh118", (1, 3, 64, 256)), ("mesh2000", (1, 3, 64, 256)))
+#: N1 against its plain version: every mode on identical inputs, θ, V, the
+#: right-hand sides, P, Q and err within 1e-12 absolute (the two differ in
+#: sin/cos and the order of the lane's sums only; ≤ 3.1e-14 on an H100).
+SMW_ATOL = 1e-12
+SMW_CASES = ("case_ieee30", "mesh118", "mesh511")
+SMW_LANES = (1, 64, 256)
+#: D1 against its plain version: angles, flows and severity within 1e-12
+#: absolute, ``islanded`` exactly.
+DC_ATOL = 1e-12
+DC_CASES = (("mesh118", (1, 1024)), ("mesh2000", (1, 1024)))
+#: The served screens' sizes: mesh2000 × 256 chord outages (sparse), the
+#: DC solver's 4096 injection lanes and 1024 outage lanes.
+N1_LANES = 256
+DC_INJECTION_LANES = 4096
+DC_OUTAGE_LANES = 1024
+N1_MAX_ITER = 24  # ServeConfig.n1_max_iter
+
+
+def sync(torch, dev):
+    """Wait for the card (no-op for a CPU rehearsal of a phase)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def chords(sys_, count, start=0):
+    """``count`` chord outages of a synthetic mesh (branches past the
+    first n, which never island it)."""
+    return np.asarray(sys_.n_bus + (start + np.arange(count))
+                      % (sys_.n_branch - sys_.n_bus), np.int64)
+
+
+def outage_status(torch, sys_, lanes, seed, single, dtype, dev):
+    """``[lanes, m]`` 0/1 status: one chord out a lane (``single``) or
+    about one branch in ten out at random."""
+    m = sys_.n_branch
+    if single:
+        st = np.ones((lanes, m))
+        st[np.arange(lanes), chords(sys_, lanes, seed)] = 0.0
+    else:
+        st = (np.random.default_rng(seed).uniform(size=(lanes, m))
+              > 0.1).astype(np.float64)
+    return torch.as_tensor(st, device=dev).to(dtype)
+
+
+def compare_status_assemble(torch, sk, errs, dev="cuda"):
+    """S1 with a per-lane status in each mode against its plain version
+    (``compare_assemble``: ``SPARSE_TOL``, bit-identical on repeat, the
+    modes' bit relations), random and single-outage status, float64 and
+    float32; in float64 an all-in-service status gives the no-status
+    bits."""
+    for name, lane_counts in STATUS_CASES:
+        sys_ = case_system(name)
+        for lanes in lane_counts:
+            for dtype in (torch.float64, torch.float32):
+                op, x, ps, qs, _, _ = sparse_setup(torch, sys_, lanes,
+                                                   lanes + 5, dtype,
+                                                   pc=False, device=dev)
+                e = (0.0, 0.0)
+                for single in (False, True):
+                    st = outage_status(torch, sys_, lanes, lanes, single,
+                                       dtype, x.device)
+                    label = (f"{name} B={lanes} {str(dtype)[6:]} status "
+                             f"{'single' if single else 'random'}")
+                    e = worst([e, compare_assemble(torch, sk, op, x, ps, qs,
+                                                   label, status=st)])
+                if dtype == torch.float64:
+                    ones = torch.ones(lanes, sys_.n_branch, dtype=dtype,
+                                      device=x.device)
+                    for mode in (sk.FULL, sk.VALUES_F32, sk.RESIDUAL):
+                        check(all(same_bits(torch, a, b) for a, b in zip(
+                            sk.sparse_assemble(x, ps, qs, op, mode, ones),
+                            sk.sparse_assemble(x, ps, qs, op, mode))),
+                            f"S1 with an all-in-service status differs from "
+                            f"S1 without one: {name} B={lanes} mode {mode}")
+                    errs["sparse_assemble"] = max(errs["sparse_assemble"],
+                                                  e[1])
+                sync(torch, dev)
+                log(f"screen kernels: S1 status {name:>8} B={lanes:<3} "
+                    f"{str(dtype)[6:]:<7} relative {e[0]:.1e} abs "
+                    f"{e[1]:.1e}")
+
+
+def smw_steps(torch, sck, lu_p, lu_q, op, ks, sweep):
+    """One INIT, THETA, V, FINISH chain of N1 (``sweep``: the wrapper or
+    its plain version) from the flat start: every mode's outputs."""
+    lanes, n = int(ks.shape[0]), op.n
+    th, v, rhs = (torch.empty(lanes, n, dtype=torch.float64,
+                              device=ks.device) for _ in range(3))
+    outs = []
+    sweep(sck.INIT, ks, th, v, rhs, op)
+    outs += [th.clone(), v.clone(), rhs.clone()]
+    for mode, lu in ((sck.THETA, lu_p), (sck.V, lu_q)):
+        x0 = torch.linalg.lu_solve(lu[0], lu[1], rhs.mT)
+        sweep(mode, ks, th, v, rhs, op, x0)
+        outs += [th.clone(), v.clone(), rhs.clone()]
+    outs += list(sweep(sck.FINISH, ks, th, v, rhs, op))
+    return outs
+
+
+def compare_smw(torch, sck, errs, dev="cuda"):
+    """N1 in every mode against its plain version on identical inputs
+    (``SMW_ATOL``) and bit-identical on repeat, at case_ieee30, mesh118
+    and mesh511 over ``SMW_LANES`` of their secure outages (the pinned
+    endpoints of case_ieee30 among them)."""
+    from freedm_tpu_torch.pf.n1 import secure_outages, smw_operands
+
+    for name in SMW_CASES:
+        sys_ = case_system(name)
+        sec = np.asarray(secure_outages(sys_), np.int64)
+        lu_p, lu_q, op = smw_operands(sys_, device=dev)
+        worst_e = 0.0
+        for lanes in SMW_LANES:
+            ks = torch.as_tensor(np.resize(sec, lanes), device=dev)
+            got = smw_steps(torch, sck, lu_p, lu_q, op, ks, sck.smw_sweep)
+            again = smw_steps(torch, sck, lu_p, lu_q, op, ks, sck.smw_sweep)
+            check(all(same_bits(torch, a, b) for a, b in zip(got, again)),
+                  f"N1 not bit-identical on repeat: {name} L={lanes}")
+            # Each mode on the kernel's own inputs: the plain chain from
+            # the same start would drift apart by its own roundings.
+            th, v, rhs = (t.clone() for t in got[:3])
+            for i, (mode, lu) in enumerate(((sck.THETA, lu_p),
+                                            (sck.V, lu_q))):
+                th0, v0, r0 = (t.clone() for t in got[3 * i:3 * i + 3])
+                x0 = torch.linalg.lu_solve(lu[0], lu[1], r0.mT)
+                sck.smw_sweep_plain(mode, ks, th0, v0, r0, op, x0)
+                for a, b in zip((th0, v0, r0), got[3 * i + 3:3 * i + 6]):
+                    worst_e = max(worst_e, float((a - b).abs().max()))
+            p_th, p_v, p_r = (t.clone() for t in got[6:9])
+            for a, b in zip(sck.smw_sweep_plain(sck.FINISH, ks, p_th, p_v,
+                                                p_r, op), got[9:]):
+                worst_e = max(worst_e, float((a - b).abs().max()))
+            sck.smw_sweep_plain(sck.INIT, ks, th, v, rhs, op)
+            for a, b in zip((th, v, rhs), got[:3]):
+                worst_e = max(worst_e, float((a - b).abs().max()))
+        sync(torch, dev)
+        log(f"screen kernels: N1 {name:>11} L in {SMW_LANES} "
+            f"({len(sec)} secure outages) max abs {worst_e:.1e}")
+        check(worst_e <= SMW_ATOL, f"smw_sweep disagrees on {name}: "
+                                   f"{worst_e} > {SMW_ATOL}")
+        errs["smw_sweep"] = max(errs["smw_sweep"], worst_e)
+
+
+def compare_dc(torch, sck, errs, dev="cuda"):
+    """D1 in both modes against its plain version (``DC_ATOL``,
+    ``islanded`` exactly), bit-identical on repeat, at mesh118 and
+    mesh2000 (L ∈ {1, 1024}); the bridges of case14 and case_ieee30
+    flagged islanded by both, exactly the branches whose removal islands
+    the network."""
+    from freedm_tpu_torch.pf.dc import make_dc_solver
+    from freedm_tpu_torch.pf.n1 import secure_outages
+
+    worst_e = 0.0
+
+    def agree(a, b, label):
+        nonlocal worst_e
+        check(torch.equal(a.islanded, b.islanded),
+              f"dc_screen islanded flags differ: {label}")
+        for k in ("theta", "flows", "severity"):
+            x, y = getattr(a, k), getattr(b, k)
+            fin = torch.isfinite(y)
+            check(torch.equal(fin, torch.isfinite(x)),
+                  f"dc_screen {k}: finite entries differ: {label}")
+            worst_e = max(worst_e, float((x[fin] - y[fin]).abs().max()))
+
+    for name in ("case14", "case_ieee30"):
+        sys_ = case_system(name)
+        ks = np.arange(sys_.n_branch)
+        dc = make_dc_solver(sys_, device=dev)
+        got = dc.screen_outages(ks)
+        agree(got, make_dc_solver(sys_, device=dev,
+                                  plain=True).screen_outages(ks), name)
+        bridges = sorted(set(range(sys_.n_branch)) - set(secure_outages(sys_)))
+        flagged = torch.nonzero(got.islanded).flatten().cpu().tolist()
+        check(bridges and flagged == bridges,
+              f"{name}: islanded lanes {flagged} are not the bridges "
+              f"{bridges}")
+        log(f"screen kernels: D1 {name}: bridges {bridges} flagged islanded "
+            f"(severity inf) by kernel and plain version")
+    for name, lane_counts in DC_CASES:
+        sys_ = case_system(name)
+        dc = make_dc_solver(sys_, device=dev)
+        plain = make_dc_solver(sys_, device=dev, plain=True)
+        for lanes in lane_counts:
+            ks = chords(sys_, lanes)
+            got = dc.screen_outages(ks)
+            again = dc.screen_outages(ks)
+            check(all(same_bits(torch, getattr(got, k), getattr(again, k))
+                      for k in ("theta", "flows", "severity"))
+                  and torch.equal(got.islanded, again.islanded),
+                  f"D1 SCREEN not bit-identical on repeat: {name} L={lanes}")
+            agree(got, plain.screen_outages(ks), f"{name} L={lanes}")
+            pj = torch.as_tensor(np.random.default_rng(lanes).uniform(
+                0.5, 1.5, (lanes, 1)) * sys_.p_inj, device=dev)
+            a, b = dc.solve(pj), plain.solve(pj)
+            check(same_bits(torch, a.flows, dc.solve(pj).flows),
+                  f"D1 SOLVE not bit-identical on repeat: {name} L={lanes}")
+            worst_e = max(worst_e, float((a.flows - b.flows).abs().max()))
+        sync(torch, dev)
+        log(f"screen kernels: D1 {name:>8} L in {lane_counts} max abs "
+            f"{worst_e:.1e}")
+    check(worst_e <= DC_ATOL, f"dc_screen disagrees: {worst_e} > {DC_ATOL}")
+    errs["dc_screen"] = max(errs["dc_screen"], worst_e)
+
+
+def time_screen_kernels(torch, sk, sck, rows, extra, dev="cuda"):
+    """Times at the served shapes, CUDA events and device time, beside
+    the plain versions and the bounds: S1 with status at mesh2000 × 256
+    (and × 64, beside S1 without status on the same inputs); N1 at
+    mesh511 × 256 (each mode) and case_ieee30 × 64; D1 SCREEN at mesh2000
+    × 1024 and SOLVE at × 4096."""
+    from freedm_tpu_torch.pf.dc import (dc_operands, make_dc_solver,
+                                        outage_columns)
+    from freedm_tpu_torch.pf.fdlf import decoupled_parts
+    from freedm_tpu_torch.pf.n1 import secure_outages, smw_operands
+
+    sys_ = case_system("mesh2000")
+    n, m = sys_.n_bus, sys_.n_branch
+    w = 8
+    for lanes in (MAIN_LANES, N1_LANES):
+        op, x, ps, qs, _, _ = sparse_setup(torch, sys_, lanes, 9,
+                                           torch.float64, pc=False, device=dev)
+        st = outage_status(torch, sys_, lanes, 0, True, torch.float64,
+                           x.device)
+        reads = w * (4 * lanes * n + 6 * m + 7 * n) + 4 * (n + 1 + 4 * m)
+        for sfx, name in ASSEMBLE_MODES:
+            mode = getattr(sk, name)
+            vw = 4 if name == "VALUES_F32" else w
+            if name == "RESIDUAL":
+                b1 = reads + w * 4 * lanes * n
+                o1 = lanes * (35 * m + 15 * n + 2 * m)
+            else:
+                b1 = reads + vw * lanes * (8 * m + 6 * n) + w * 2 * lanes * n
+                o1 = lanes * (45 * m + 25 * n + 2 * m)
+            b1 += w * lanes * m  # the status
+            o1 += lanes * 8 * m  # the scaled admittances and self terms
+            b, by = bound(b1, o1)
+
+            def fn(s_):
+                return lambda: sk.sparse_assemble(x, ps, qs, op, mode, s_)
+            k = time_ms(torch, fn(st), reps=50)
+            # Device time in turns: with, without, without, with status.
+            turns = [device_ms(torch, fn(s_), reps=20)
+                     for s_ in (st, None, None, st)]
+            with_st, without = (turns[0] + turns[3]) / 2, turns[1:3]
+            p = time_ms(torch, lambda: sk.sparse_assemble_plain(
+                x, ps, qs, op, mode, st), reps=5)
+            key = f"{sfx}_status_x{lanes}"
+            extra["sparse_assemble"].update({
+                "ms" + key: k, "device_ms" + key: with_st,
+                "plain_ms" + key: p, "bound_ms" + key: b,
+                "device_ms_turns" + key: turns})
+            log(f"timing: sparse_assemble{sfx} status x{lanes:<4} kernel "
+                f"{k:.4f} ms (device {with_st:.4f}; in turns with / "
+                f"without / without / with status "
+                + " / ".join(f"{t_:.4f}" for t_ in turns)
+                + f")  plain {p:.4f} ms  bound {b:.4f} ms ({by})")
+        del op, x, ps, qs, st
+    # N1: the served SMW shapes.
+    for name, lanes, main in (("mesh511", N1_LANES, True),
+                              ("case_ieee30", MAIN_LANES, False)):
+        sys5 = case_system(name)
+        n5, m5 = sys5.n_bus, sys5.n_branch
+        sec = np.asarray(secure_outages(sys5), np.int64)
+        lu_p, lu_q, op5 = smw_operands(sys5, device=dev)
+        ks = torch.as_tensor(np.resize(sec, lanes), device=dev)
+        th, v, rhs = (torch.empty(lanes, n5, dtype=torch.float64,
+                                  device=dev) for _ in range(3))
+        sck.smw_sweep(sck.INIT, ks, th, v, rhs, op5)
+        x0 = torch.linalg.lu_solve(lu_p[0], lu_p[1], rhs.mT)
+        # Bytes: x0, the lane's ZM rows, θ and V read, a half and the
+        # right-hand side written; the operands once.  Operations: sincos
+        # (~40) a bus, ~30 a list entry, ~8 a bus for the update.
+        opnd = 8 * (8 * m5 + 9 * n5) + 4 * (n5 + 1 + 4 * m5) + 16 * m5
+        b_mode = {
+            "INIT": opnd + w * 3 * lanes * n5,
+            "THETA": opnd + w * lanes * n5 * 7,
+            "V": opnd + w * lanes * n5 * 7,
+            "FINISH": opnd + w * lanes * (4 * n5 + 1)}
+        o_mode = lanes * (48 * n5 + 60 * m5)
+        times = {}
+        for mname in ("INIT", "THETA", "V", "FINISH"):
+            mode = getattr(sck, mname)
+
+            def fn(mode=mode):
+                # THETA and V rewrite θ (V) from the same x0 each call:
+                # the timed work of one half-iteration.
+                return sck.smw_sweep(mode, ks, th, v, rhs, op5,
+                                     x0 if mode in (sck.THETA, sck.V)
+                                     else None)
+            k = time_ms(torch, fn, reps=50)
+            kd = device_ms(torch, fn, reps=20)
+            pl = time_ms(torch, lambda mode=mode: sck.smw_sweep_plain(
+                mode, ks, th.clone(), v.clone(), rhs.clone(), op5,
+                x0 if mode in (sck.THETA, sck.V) else None), reps=5)
+            b, by = bound(b_mode[mname], o_mode)
+            times[mname] = (k, kd, pl, b, by)
+            log(f"timing: smw_sweep {name} x{lanes} {mname:<6} kernel "
+                f"{k:.4f} ms (device {kd:.4f})  plain {pl:.4f} ms  bound "
+                f"{b:.5f} ms ({by})")
+        lu_ms = device_ms(torch, lambda: torch.linalg.lu_solve(
+            lu_p[0], lu_p[1], rhs.mT), reps=20)
+        log(f"timing: lu_solve {name} [{n5}, {lanes}] device {lu_ms:.4f} ms "
+            f"(the SMW screen's base solve, 2 an iteration)")
+        key = "" if main else f"_{name}_x{lanes}"
+        if main:
+            k, kd, pl, b, by = times["THETA"]
+            rows["smw_sweep"] = (k, pl, None, b, by)
+            extra["smw_sweep"] = {"device_ms": kd, "shape": f"{name} x{lanes}"
+                                  " THETA (a half-iteration)",
+                                  "lu_solve_device_ms": lu_ms}
+        for mname, (k, kd, pl, b, by) in times.items():
+            extra["smw_sweep"].update({
+                f"ms_{mname}{key}": k, f"device_ms_{mname}{key}": kd,
+                f"plain_ms_{mname}{key}": pl, f"bound_ms_{mname}{key}": b})
+        del op5, lu_p, lu_q
+    # D1 at mesh2000, on the operands screen_outages hands it.
+    dcs = make_dc_solver(sys_, device=dev)
+    ks = torch.as_tensor(chords(sys_, DC_OUTAGE_LANES), device=dev)
+    theta0 = dcs.solve().theta
+    lanes = DC_OUTAGE_LANES
+    op_d = dc_operands(sys_, device=dev)
+    lu = torch.linalg.lu_factor(decoupled_parts(sys_, device=dev)
+                                .b_prime(None))
+    z = torch.linalg.lu_solve(lu[0], lu[1], outage_columns(op_d, ks).mT)
+    log(f"timing: dc_screen z [{n}, {lanes}] strides {tuple(z.stride())} "
+        f"(lanes read contiguous: {z.stride(0) == 1})")
+    fn = lambda: sck.dc_screen(theta0, z, ks, op_d)  # noqa: E731
+    k, kd = time_ms(torch, fn, reps=50), device_ms(torch, fn, reps=20)
+    pl = time_ms(torch, lambda: sck.dc_screen_plain(theta0, z, ks, op_d),
+                 reps=10)
+    b, by = bound(w * (2 * lanes * n + n + lanes * m + 3 * m + 2 * lanes)
+                  + 8 * lanes, lanes * (2 * n + 3 * m + 12))
+    rows["dc_screen"] = (k, pl, None, b, by)
+    extra["dc_screen"] = {"device_ms": kd,
+                          "shape": f"mesh2000 x{lanes} SCREEN"}
+    log(f"timing: dc_screen  mesh2000 x{lanes} SCREEN kernel {k:.4f} ms "
+        f"(device {kd:.4f})  plain {pl:.4f} ms  bound {b:.5f} ms ({by})")
+    lanes = DC_INJECTION_LANES
+    theta = dcs.solve(torch.as_tensor(np.random.default_rng(4).uniform(
+        0.5, 1.5, (lanes, 1)) * sys_.p_inj, device=dev)).theta
+    fn = lambda: sck.dc_flows(theta, op_d)  # noqa: E731
+    k, kd = time_ms(torch, fn, reps=50), device_ms(torch, fn, reps=20)
+    pl = time_ms(torch, lambda: sck.dc_flows_plain(theta, op_d), reps=10)
+    b, by = bound(w * (lanes * n + lanes * m + 3 * m), 2 * lanes * m)
+    extra["dc_screen"].update({"ms_SOLVE": k, "device_ms_SOLVE": kd,
+                               "plain_ms_SOLVE": pl, "bound_ms_SOLVE": b,
+                               "shape_SOLVE": f"mesh2000 x{lanes} SOLVE"})
+    log(f"timing: dc_screen  mesh2000 x{lanes} SOLVE  kernel {k:.4f} ms "
+        f"(device {kd:.4f})  plain {pl:.4f} ms  bound {b:.5f} ms ({by}); "
+        f"theta strides {tuple(theta.stride())}")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the N-1 and DC screens (solver level)
+# ---------------------------------------------------------------------------
+
+
+def screen_launches(torch, sk, sck, nk, fn, dev):
+    """``fn()`` with every count at 0 before it; returns (result, wall
+    ms, launches by kernel, S1's status launches, N1 and D1 by mode)."""
+    for mod in (sk, sck, nk):
+        mod.reset_launches()
+    sync(torch, dev)
+    t0 = time.monotonic()
+    r = fn()
+    sync(torch, dev)
+    wall = (time.monotonic() - t0) * 1e3
+    counts = {**sk.launches(), **nk.launches(), **sck.launches()}
+    return r, wall, counts, sk.status_launches(), sck.mode_launches()
+
+
+def n1_screens(torch, sk, sck, nk, dev="cuda"):
+    """The screens through their entry points on the card: the sparse
+    screen at mesh2000 × 256 chord outages (mixed and f64) against its
+    plain-version screen, the SMW screen over case_ieee30's secure
+    outages and mesh511 × 256 against its plain version, the DC solver at
+    mesh2000 (4096 injection lanes, 1024 outage lanes) and dc_prefilter=8
+    over 64 chord outages on the sparse screen; launches, walls and a
+    profile of the mesh2000 screen.  Returns the launch counts of the DC
+    runs (D1's main path at solver level)."""
+    from freedm_tpu_torch.pf.dc import make_dc_solver
+    from freedm_tpu_torch.pf.krylov import build_fdlf_precond
+    from freedm_tpu_torch.pf.n1 import make_n1_screen, secure_outages
+
+    on_card = torch.device(dev).type == "cuda"
+    sys_ = case_system("mesh2000")
+    ks = chords(sys_, N1_LANES)
+    for prec in ("mixed", "f64"):
+        # f64 on the float64 LU pair (kind="lu"): on the default bf16 pair
+        # the inexact inner solve moves a warm-started lane's mismatch by
+        # tens of percent between two roundings, and a lane whose step
+        # starts near tol stops one step apart (2 of 256 lanes on an H100,
+        # 8e-13 pu apart); mixed runs on the served default pair.
+        pc = (build_fdlf_precond(sys_, kind="lu", device=dev)
+              if prec == "f64" else None)
+        t0 = time.monotonic()
+        screen = make_n1_screen(sys_, max_iter=N1_MAX_ITER, backend="sparse",
+                                precision=prec, device=dev, precond=pc)
+        build = time.monotonic() - t0
+        screen(ks)  # the first calls of these shapes
+        r, wall, counts, st, _ = screen_launches(torch, sk, sck, nk,
+                                                 lambda: screen(ks), dev)
+        plain = make_n1_screen(sys_, max_iter=N1_MAX_ITER, backend="sparse",
+                               precision=prec, device=dev, plain=True,
+                               precond=pc)
+        rp = plain(ks)
+        its, itp = r.iterations.cpu().numpy(), rp.iterations.cpu().numpy()
+        conv = r.converged.cpu().numpy()
+        check(conv.all(), f"n1 sparse {prec}: lanes not converged: "
+                          f"{np.flatnonzero(~conv)}")
+        check(torch.equal(r.converged, rp.converged),
+              f"n1 sparse {prec}: flags differ from the plain screen")
+        dv = float((r.v - rp.v).abs().max())
+        dth = float((r.theta - rp.theta).abs().max())
+        apart = int(np.abs(its - itp).max())
+        n_apart = int(np.sum(its != itp))
+        fb, fbp = int(r.fallbacks.sum()), int(rp.fallbacks.sum())
+        lanes3 = [0, N1_LANES // 2, N1_LANES - 1]
+        d3 = max(float((r.v[lanes3] - rp.v[lanes3]).abs().max()),
+                 float((r.theta[lanes3] - rp.theta[lanes3]).abs().max()))
+        if prec == "f64":
+            check(d3 <= SOLVE_ATOL and np.array_equal(its[lanes3],
+                                                      itp[lanes3])
+                  and apart <= 1 and torch.equal(r.fallbacks, rp.fallbacks),
+                  f"n1 sparse f64 vs plain: {d3:.2e} pu on lanes {lanes3}, "
+                  f"iterations {its[lanes3]} vs {itp[lanes3]} ({apart} "
+                  f"apart at most), fallbacks {fb} vs {fbp}")
+        else:
+            check(apart <= 1 and torch.equal(r.fallbacks, rp.fallbacks),
+                  f"n1 sparse mixed vs plain: iterations {apart} apart, "
+                  f"fallbacks {fb} vs {fbp}")
+        check(not on_card or (sum(st.values()) == counts["sparse_assemble"]
+                              and counts["sparse_assemble"] > 0),
+              f"n1 sparse {prec}: S1 ran without the lanes' status: {st}, "
+              f"{counts}")
+        log(f"n1 screens: sparse {prec:<5} "
+            f"({'LU' if pc is not None else 'bf16'} pair) mesh2000 "
+            f"x{N1_LANES} chord "
+            f"outages: build {build:.2f} s, wall {wall:.1f} ms, iterations "
+            f"{its.min()}-{its.max()} (plain {itp.min()}-{itp.max()}; "
+            f"{n_apart} lanes one apart), fallbacks {fb} (plain {fbp}), vs "
+            f"plain max "
+            f"|dv| {dv:.2e} |dtheta| {dth:.2e} (3 lanes {d3:.2e}), v_min "
+            f"{float(r.v.min()):.4f}; launches {counts}, S1 with status "
+            f"{st}")
+        if prec == "mixed":
+            profile_solve(torch, lambda: screen(ks),
+                          f"n1 sparse mixed mesh2000 x{N1_LANES}")
+        del screen, plain, r, rp
+        torch.cuda.empty_cache()
+    for name, lanes in (("case_ieee30", None), ("mesh511", N1_LANES)):
+        sys5 = case_system(name)
+        sec = np.asarray(secure_outages(sys5), np.int64)
+        ks5 = sec if lanes is None else np.resize(sec, lanes)
+        t0 = time.monotonic()
+        screen = make_n1_screen(sys5, max_iter=N1_MAX_ITER, device=dev)
+        build = time.monotonic() - t0
+        screen(ks5)  # the first calls of these shapes
+        r, wall, counts, _, modes = screen_launches(torch, sk, sck, nk,
+                                                    lambda: screen(ks5), dev)
+        rp = make_n1_screen(sys5, max_iter=N1_MAX_ITER, device=dev,
+                            plain=True)(ks5)
+        d = max(float((getattr(r, k) - getattr(rp, k)).abs().max())
+                for k in ("v", "theta", "p", "q"))
+        check(d <= SOLVE_ATOL and torch.equal(r.converged, rp.converged)
+              and bool(r.converged.all()),
+              f"n1 SMW {name}: {d:.2e} pu from the plain screen, converged "
+              f"{int(r.converged.sum())}/{len(ks5)}")
+        check(not on_card or counts["smw_sweep"] == 2 + 2 * N1_MAX_ITER,
+              f"n1 SMW {name}: {counts['smw_sweep']} N1 launches, want "
+              f"{2 + 2 * N1_MAX_ITER}")
+        ops, busy, pwall = profile_solve(
+            torch, lambda: screen(ks5), f"n1 SMW {name} x{len(ks5)}", top=4)
+        log(f"n1 screens: SMW {name} x{len(ks5)}: build {build:.2f} s, wall "
+            f"{wall:.2f} ms, max mismatch {float(r.mismatch.max()):.2e}, vs "
+            f"plain {d:.2e} pu; N1 launches {modes['smw_sweep']}, device "
+            f"operations {ops} (2 + 4 x {N1_MAX_ITER} = "
+            f"{2 + 4 * N1_MAX_ITER} calls: lu_solve's own kernels counted "
+            f"apart)")
+    dc = make_dc_solver(sys_, device=dev)
+    dcp = make_dc_solver(sys_, device=dev, plain=True)
+    pj = torch.as_tensor(np.random.default_rng(8).uniform(
+        0.5, 1.5, (DC_INJECTION_LANES, 1)) * sys_.p_inj, device=dev)
+    dc.solve(pj[:4])
+    ko = chords(sys_, DC_OUTAGE_LANES)
+    rs, w1, c1, _, _ = screen_launches(torch, sk, sck, nk,
+                                       lambda: dc.solve(pj), dev)
+    ro, w2, c2, _, _ = screen_launches(torch, sk, sck, nk,
+                                       lambda: dc.screen_outages(ko), dev)
+    es = float((rs.flows - dcp.solve(pj).flows).abs().max())
+    po = dcp.screen_outages(ko)
+    eo = max(float((ro.theta - po.theta).abs().max()),
+             float((ro.flows - po.flows).abs().max()))
+    check(es <= DC_ATOL and eo <= DC_ATOL
+          and torch.equal(ro.islanded, po.islanded)
+          and not bool(ro.islanded.any()),
+          f"DC solver vs plain: injections {es:.2e}, outages {eo:.2e}")
+    log(f"n1 screens: DC mesh2000 {DC_INJECTION_LANES} injection lanes "
+        f"{w1:.2f} ms, {DC_OUTAGE_LANES} outage lanes {w2:.2f} ms (walls "
+        f"with the lu_solves), vs plain {es:.1e} / {eo:.1e}, max severity "
+        f"{float(ro.severity.max()):.3f} pu")
+    ac = make_n1_screen(sys_, max_iter=N1_MAX_ITER, backend="sparse",
+                        dc_prefilter=8, device=dev)
+    acp = make_n1_screen(sys_, max_iter=N1_MAX_ITER, backend="sparse",
+                         dc_prefilter=8, device=dev, plain=True)
+    k64 = chords(sys_, 64, 500)
+    out, w3, c3, _, _ = screen_launches(torch, sk, sck, nk,
+                                        lambda: ac(k64), dev)
+    outp = acp(k64)
+    check(np.array_equal(out.outages, outp.outages)
+          and bool(out.result.converged.all())
+          and float(np.abs(out.dc_severity_all
+                           - outp.dc_severity_all).max()) <= DC_ATOL,
+          f"dc_prefilter: shortlist {out.outages} vs plain {outp.outages}")
+    log(f"n1 screens: dc_prefilter=8 over 64 chord outages: {w3:.1f} ms, "
+        f"shortlist {out.outages.tolist()} (the plain version's), AC lanes "
+        f"converged, launches {c3}")
+    return {k: c2.get(k, 0) + c3.get(k, 0) + c1.get(k, 0)
+            for k in ("dc_screen",)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the served n1 workload
+# ---------------------------------------------------------------------------
+
+N1_BURST = 16
+
+
+def post_n1(port, body):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.monotonic()
+    conn.request("POST", "/v1/n1", body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    lat = time.monotonic() - t0
+    conn.close()
+    return resp.status, data, lat
+
+
+def serve_n1(torch, sk, sck, nk, dev="cuda", case="mesh2000"):
+    """``POST /v1/n1`` on a server with the default config but
+    ``max_batch=256`` (``N1Engine.MAX_OUTAGES``: a request of more lanes
+    than ``max_batch`` is refused, as the reference refuses it):
+    mesh2000 (the sparse screen, mixed) — one request of 64 outages, a
+    burst of 16 concurrent requests of 1-16 outages, one of 256 — and
+    case_ieee30 (the SMW screen) over all its secure outages, and an
+    islanding outage refused with 400.  Every answer all_converged, with
+    ``v_min_pu``/``v_max_pu`` within 1e-9 pu of the same outages through
+    the direct screen.  Returns the launch counts over the served
+    requests."""
+    from freedm_tpu_torch.pf.n1 import make_n1_screen
+    from freedm_tpu_torch.serve.http import ServeServer
+    from freedm_tpu_torch.serve.service import ServeConfig, Service
+
+    t0 = time.monotonic()
+    svc = Service(ServeConfig(max_batch=N1_LANES, device=dev))
+    eng = svc.engine("n1", case)
+    build = time.monotonic() - t0
+    t0 = time.monotonic()
+    svc.prewarm((f"n1/{case}", "n1/case_ieee30"))
+    prewarm = time.monotonic() - t0
+    eng30 = svc.engine("n1", "case_ieee30")
+    mixed = "mixed" if torch.device(dev).type == "cuda" else "f64"
+    check(eng.pf_backend == "sparse" and eng.pf_precision == mixed
+          and eng30.pf_backend == "dense",
+          f"n1 engines: {case} {eng.pf_backend}/{eng.pf_precision}, "
+          f"case_ieee30 {eng30.pf_backend}")
+    log(f"serve n1: {case} engine build {build:.2f} s (secure_outages, "
+        f"the base solve), prewarm of {len(svc.config.bucket_table())} "
+        f"buckets x 2 cases {prewarm:.2f} s")
+    server = ServeServer(svc).start()
+    rng = np.random.default_rng(81)
+    sys_ = case_system(case)
+    sec = np.asarray(eng._secure)
+    try:
+        for mod in (sk, sck, nk):
+            mod.reset_launches()
+        runs = []
+        one = chords(sys_, 64, 1000).tolist()
+        runs.append(("64 outages", [one],
+                     [post_n1(server.port, {"case": case,
+                                            "outages": one})]))
+        burst = [rng.choice(sec, size=int(rng.integers(1, 17)),
+                            replace=False).tolist()
+                 for _ in range(N1_BURST)]
+        with cf.ThreadPoolExecutor(N1_BURST) as ex:
+            out = list(ex.map(lambda ks: post_n1(
+                server.port, {"case": case, "outages": ks}), burst))
+        runs.append((f"burst of {N1_BURST}", burst, out))
+        big = chords(sys_, N1_LANES, 1200).tolist()
+        runs.append((f"{N1_LANES} outages", [big],
+                     [post_n1(server.port, {"case": case,
+                                            "outages": big})]))
+        s30 = list(eng30._secure)
+        runs.append(("case_ieee30 all secure", [s30],
+                     [post_n1(server.port, {"case": "case_ieee30",
+                                            "outages": s30})]))
+        counts = {**sk.launches(), **nk.launches(), **sck.launches()}
+        st = sk.status_launches()
+        bridge = sorted(set(range(eng30.n_branch)) - set(s30))[0]
+        status, data, _ = post_n1(server.port, {"case": "case_ieee30",
+                                                "outages": [bridge]})
+        check(status == 400 and "island" in data["error"]["detail"],
+              f"islanding outage {bridge}: HTTP {status} {data}")
+        direct = {case: make_n1_screen(
+            sys_, max_iter=N1_MAX_ITER, backend="auto", device=dev),
+            "case_ieee30": make_n1_screen(
+                case_system("case_ieee30"), max_iter=N1_MAX_ITER,
+                backend="auto", device=dev)}
+        worst_pu = 0.0
+        for label, reqs, outs in runs:
+            name = "case_ieee30" if label.startswith("case") else case
+            lat = []
+            for ks, (status, body, sec_) in zip(reqs, outs):
+                check(status == 200 and body["all_converged"],
+                      f"serve n1 {label}: HTTP {status}: "
+                      f"{str(body)[:300]}")
+                check(body["outages"] == list(ks),
+                      f"serve n1 {label}: outages echoed {body['outages']}")
+                r = direct[name](ks)
+                for k, red in (("v_min_pu", r.v.min(dim=1).values),
+                               ("v_max_pu", r.v.max(dim=1).values)):
+                    worst_pu = max(worst_pu, float(np.abs(
+                        np.asarray(body[k]) - red.cpu().numpy()).max()))
+                lat.append(sec_ * 1e3)
+            lanes = [o[1]["batch"]["lanes"] for o in outs]
+            buckets = [o[1]["batch"]["bucket"] for o in outs]
+            solve = [o[1]["batch"]["solve_ms"] for o in outs]
+            log(f"serve n1: {name} {label}: {len(outs)} requests, latency "
+                f"p50 {np.percentile(lat, 50):.1f} ms p99 "
+                f"{np.percentile(lat, 99):.1f} ms, lanes a batch "
+                f"{min(lanes)}-{max(lanes)} (buckets {sorted(set(buckets))})"
+                f", solve_ms {min(solve):.1f}-{max(solve):.1f}, v_min "
+                f"{min(min(o[1]['v_min_pu']) for o in outs):.4f}")
+        check(worst_pu <= SOLVE_ATOL,
+              f"serve n1: answers {worst_pu:.2e} pu from the direct screen")
+        log(f"serve n1: every answer all_converged, max |v_min/v_max - "
+            f"direct screen| {worst_pu:.2e} pu; islanding outage {bridge} "
+            f"refused (400); launches {counts}, S1 with status {st}")
+        on_card = torch.device(dev).type == "cuda"
+        # K3 runs on the mixed path only in its full-precision phase.
+        check(not on_card or all(counts[k] > 0 for k in (
+            "sparse_assemble", "sparse_matvec", "gmres_block_orth",
+            "gmres_lstsq", "smw_sweep")),
+              f"a kernel of the n1 path was not launched: {counts}")
+        check(sum(st.values()) == counts["sparse_assemble"],
+              f"S1 ran without status on the n1 path: {st}")
+        return counts, st
+    finally:
+        server.stop()
+        svc.stop()
+
+
 def main() -> int:
     import torch
 
@@ -2016,6 +2726,7 @@ def main() -> int:
     from freedm_tpu_torch.kernels import build
     from freedm_tpu_torch.kernels import cache_kernels as ck
     from freedm_tpu_torch.kernels import newton_kernels as nk
+    from freedm_tpu_torch.kernels import screen_kernels as sck
     from freedm_tpu_torch.kernels import sparse_kernels as sk
 
     smi = subprocess.run(
@@ -2029,8 +2740,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        build_kernels(torch, nk, sk, ck, build)
-        errs = dict.fromkeys([*nk.LAUNCHES, *sk.LAUNCHES, *ck.LAUNCHES], 0.0)
+        build_kernels(torch, nk, sk, ck, sck, build)
+        errs = dict.fromkeys([*nk.LAUNCHES, *sk.LAUNCHES, *ck.LAUNCHES,
+                              *sck.LAUNCHES], 0.0)
         compare_kernels(torch, nk, errs)
         rows, extra = time_kernels(torch, nk)
         solve_mesh2000(torch, nk)
@@ -2049,6 +2761,17 @@ def main() -> int:
         rows.update(delta_rows)
         extra["delta_program"].update(delta_extra["delta_program"])
         counts.update(serve_cache(torch, ck, sk))
+        compare_status_assemble(torch, sk, errs)
+        compare_smw(torch, sck, errs)
+        compare_dc(torch, sck, errs)
+        time_screen_kernels(torch, sk, sck, rows, extra)
+        counts.update(n1_screens(torch, sk, sck, nk))
+        n1_counts, n1_status = serve_n1(torch, sk, sck, nk)
+        counts["smw_sweep"] = n1_counts["smw_sweep"]
+        extra["sparse_assemble"]["launches_n1_with_status"] = n1_status
+        extra["smw_sweep"]["launches_path"] = "serve n1 phase"
+        extra["dc_screen"]["launches_path"] = (
+            "n1 screens phase: make_dc_solver and dc_prefilter")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2070,6 +2793,10 @@ def main() -> int:
                         "freedm_tpu/pf/krylov.py:479"),
         "delta_program": ("cuda", source + "csrc/cache.cu",
                           "freedm_tpu/serve/cache.py:284"),
+        "smw_sweep": ("cuda", source + "csrc/screen.cu",
+                      "freedm_tpu/pf/n1.py:340"),
+        "dc_screen": ("cuda", source + "csrc/screen.cu",
+                      "freedm_tpu/pf/dc.py:145"),
     }
     table = []
     for name, (route, src, replaces) in meta.items():

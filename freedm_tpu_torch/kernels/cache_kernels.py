@@ -63,7 +63,6 @@ import numpy as np
 import torch
 
 from freedm_tpu_torch.kernels import build
-from freedm_tpu_torch.pf.n1 import smw_delta_solve
 
 Tensor = torch.Tensor
 
@@ -163,14 +162,20 @@ def _seg(vals: Tensor, idx: Tensor, n: int) -> Tensor:
     return out.index_add_(out.dim() - 1, idx, vals)
 
 
-def branch_injections(theta: Tensor, v: Tensor,
-                      op: DeltaOperands) -> Tuple[Tensor, Tensor]:
+def branch_injections(theta: Tensor, v: Tensor, op: DeltaOperands,
+                      status: Optional[Tensor] = None
+                      ) -> Tuple[Tensor, Tensor]:
     """``(P, Q)`` at ``theta``, ``v`` (``[n]`` or ``[B, n]``): the
     reference ``make_injection_fn``'s branch-wise arithmetic, operation
     for operation — two gathers, four complex products, two segment sums
-    per part, then the shunts."""
+    per part, then the shunts.  ``status`` (``[m]`` or ``[B, m]``, float64)
+    scales the four admittances of each branch first, as the reference's
+    ``branch_admittances(sys, status)`` does."""
     n = op.n
-    y = op.y.unbind(0)
+    if status is None:
+        y = op.y.unbind(0)
+    else:
+        y = (op.y * status.unsqueeze(-2)).unbind(-2)
     yff, yft, ytf, ytt = (y[0], y[1]), (y[2], y[3]), (y[4], y[5]), (y[6], y[7])
     vc = (v * torch.cos(theta), v * torch.sin(theta))
     vf = (vc[0][..., op.f], vc[1][..., op.f])
@@ -269,6 +274,9 @@ def lu_solve_mirror(lu, rhs: Tensor) -> Tensor:
 def _lu_solve(lu, rhs: Tensor) -> Tensor:
     """The base solve over lanes, ``rhs [B, n]`` -> ``[B, n]``: rank-0
     ``smw_delta_solve`` (``torch.linalg.lu_solve``)."""
+    # Imported here: importing freedm_tpu_torch.pf imports this module.
+    from freedm_tpu_torch.pf.n1 import smw_delta_solve
+
     return smw_delta_solve(lu, None, None, rhs.T).T.contiguous()
 
 

@@ -16,7 +16,14 @@
 //   one of three modes: the values in the working dtype; float32 values
 //   from float64 arithmetic (the mixed Newton step's inner solve, each
 //   value rounded once at its store, f kept in float64); and the residual
-//   alone (P, Q and f, no values written).
+//   alone (P, Q and f, no values written).  With a per-lane branch status
+//   (the reference's `_assemble(theta, v, status)`, the N-1 screen's
+//   outage lanes), every mode scales each entry's two-port admittances by
+//   status[lane, edge] and builds the lane's Ybus diagonal from the
+//   entries' self admittances (yff at a from end, ytt at a to end) times
+//   the same factor, summed by side in list order next to P and Q, plus
+//   the bus shunt; without it the kernels are the all-in-service ones
+//   (a template parameter: no test in their inner loops).
 //
 // S2 sparse_matvec — replaces `_matvec` (:346-370): y = J u over the same
 //   pattern, pinned rows passing u through.  One thread per (lane, bus row)
@@ -53,7 +60,9 @@
 //   S1 reads x and the schedules and writes 8 values per edge (4 per list
 //      entry), 6 bus values and f per lane: bytes, about 28.7 MB, 8.6 us
 //      (float32 values 17.4 MB, 5.2 us; the residual alone, P, Q and f,
-//      8.2 MB, 2.4 us).  Design: see the kernel.
+//      8.2 MB, 2.4 us).  A status adds B m words a call (at 256 lanes in
+//      float64, 8.2 MB, 2.4 us) and the 2m self terms.  Design: see the
+//      kernel.
 //   S2 reads u, the values and the 4 diagonal arrays and writes y: bytes,
 //      about 24.6 MB, 7.4 us (half in float32).  Design: the values of a
 //      row lie contiguous, so the walks of a warp's 32 rows read ~128
@@ -172,19 +181,17 @@ __device__ __forceinline__ void edge_term(T th_f, T th_t, T v_f, T v_t, T g,
 }
 
 // What S1 writes of bus i of lane b from the sums of its from-side and
-// to-side terms: bv[b, k, i] (k = 0 h_d, 1 n_d, 2 j_d, 3 l_d, 4 p_calc,
-// 5 q_calc) when kFull, else p[b, i] into bv and q[b, i] into qout; and
-// the masked mismatch f.
+// to-side terms and its Ybus diagonal (gd, bd): bv[b, k, i] (k = 0 h_d,
+// 1 n_d, 2 j_d, 3 l_d, 4 p_calc, 5 q_calc) when kFull, else p[b, i] into
+// bv and q[b, i] into qout; and the masked mismatch f.
 template <typename T, typename V, bool kFull>
 __device__ __forceinline__ void bus_outputs(
-    T pf, T pt, T qf, T qt, T thi, T vi, int64_t b, int i, int n,
-    const T* __restrict__ ps, const T* __restrict__ qs,
+    T pf, T pt, T qf, T qt, T thi, T vi, T gd, T bd, int64_t b, int i,
+    int n, const T* __restrict__ ps, const T* __restrict__ qs,
     const T* __restrict__ th_free, const T* __restrict__ v_free,
-    const T* __restrict__ v_set, const T* __restrict__ g_d,
-    const T* __restrict__ b_d, V* __restrict__ bv, V* __restrict__ qout,
+    const T* __restrict__ v_set, V* __restrict__ bv, V* __restrict__ qout,
     T* __restrict__ fout) {
   const T v2 = mul_rn(vi, vi);
-  const T gd = g_d[i], bd = b_d[i];
   const T p = add_rn(add_rn(pf, pt), mul_rn(v2, gd));
   const T q = sub_rn(add_rn(qf, qt), mul_rn(v2, bd));
   if (kFull) {
@@ -225,8 +232,11 @@ constexpr int kTileEntries = 128;
 // shared memory measured slower on an H100 (PERF.md).
 //
 // T is the arithmetic's type and V the type ev and bv are stored in
-// (float from double: each value is rounded once, at its store).
-template <typename T, typename V>
+// (float from double: each value is rounded once, at its store).  With
+// kStatus the entry's thread scales its admittances and its side's self
+// term by status[b, edge], and the owner adds the self terms by side
+// beside the c/a terms: the lane's Ybus diagonal.
+template <typename T, typename V, bool kStatus>
 __global__ void __launch_bounds__(kTileEntries) assemble_kernel(
     const T* __restrict__ x, const T* __restrict__ ps,
     const T* __restrict__ qs, const T* __restrict__ th_free,
@@ -234,9 +244,13 @@ __global__ void __launch_bounds__(kTileEntries) assemble_kernel(
     const T* __restrict__ inc_g, const T* __restrict__ inc_b,
     const T* __restrict__ g_d, const T* __restrict__ b_d,
     const int* __restrict__ inc_ptr, const int* __restrict__ inc_code,
-    const int* __restrict__ inc_nbr, V* __restrict__ ev,
-    V* __restrict__ bv, T* __restrict__ fout, int lanes, int n, int m) {
+    const int* __restrict__ inc_nbr, const T* __restrict__ status,
+    const T* __restrict__ inc_gs, const T* __restrict__ inc_bs,
+    const T* __restrict__ g_sh, const T* __restrict__ b_sh,
+    V* __restrict__ ev, V* __restrict__ bv, T* __restrict__ fout,
+    int lanes, int n, int m) {
   __shared__ T s_c[kTileEntries], s_a[kTileEntries];
+  __shared__ T s_gs[kStatus ? kTileEntries : 1], s_bs[kStatus ? kTileEntries : 1];
   __shared__ T s_th[kTileBuses], s_v[kTileBuses];
   __shared__ unsigned char s_bus[kTileEntries];
   __shared__ bool s_to[kTileEntries];
@@ -263,6 +277,7 @@ __global__ void __launch_bounds__(kTileEntries) assemble_kernel(
   const int64_t m2 = 2 * (int64_t)m;
   V* evl = ev + b * 4 * m2;
   T pf = T(0), pt = T(0), qf = T(0), qt = T(0);
+  T gf = T(0), gt = T(0), bf = T(0), bt = T(0);  // kStatus: the diagonal
   for (int c0 = rs; c0 < re; c0 += kTileEntries) {
     if (own)  // which of the tile's buses each entry of this pass is
       for (int r = max(r_lo, c0); r < min(r_hi, c0 + kTileEntries); ++r)
@@ -270,13 +285,22 @@ __global__ void __launch_bounds__(kTileEntries) assemble_kernel(
     __syncthreads();
     const int r = c0 + tid;
     if (r < re) {
-      const bool to_side = inc_code[r] & 1;  // the entry's bus is the to end
+      const int code = inc_code[r];
+      const bool to_side = code & 1;  // the entry's bus is the to end
       const int j = inc_nbr[r];
       const T tho = s_th[s_bus[tid]], vo = s_v[s_bus[tid]];
       const T thj = th[j], vj = v[j];
+      T g = inc_g[r], bb = inc_b[r];
+      if (kStatus) {
+        const T st = status[b * m + (code >> 1)];
+        g = mul_rn(g, st);
+        bb = mul_rn(bb, st);
+        s_gs[tid] = mul_rn(inc_gs[r], st);
+        s_bs[tid] = mul_rn(inc_bs[r], st);
+      }
       T c, a;
       edge_term(to_side ? thj : tho, to_side ? tho : thj, to_side ? vj : vo,
-                to_side ? vo : vj, inc_g[r], inc_b[r], to_side, &c, &a);
+                to_side ? vo : vj, g, bb, to_side, &c, &a);
       evl[r] = (V)a;
       evl[m2 + r] = (V)c;
       evl[2 * m2 + r] = (V)div_rn(c, vj);
@@ -292,17 +316,27 @@ __global__ void __launch_bounds__(kTileEntries) assemble_kernel(
         if (s_to[q]) {
           pt = add_rn(pt, s_c[q]);
           qt = add_rn(qt, s_a[q]);
+          if (kStatus) {
+            gt = add_rn(gt, s_gs[q]);
+            bt = add_rn(bt, s_bs[q]);
+          }
         } else {
           pf = add_rn(pf, s_c[q]);
           qf = add_rn(qf, s_a[q]);
+          if (kStatus) {
+            gf = add_rn(gf, s_gs[q]);
+            bf = add_rn(bf, s_bs[q]);
+          }
         }
       }
     }
   }
-  if (own)
-    bus_outputs<T, V, true>(pf, pt, qf, qt, thi, vi, b, i, n, ps, qs,
-                            th_free, v_free, v_set, g_d, b_d, bv, nullptr,
-                            fout);
+  if (own) {
+    const T gd = kStatus ? add_rn(add_rn(gf, gt), g_sh[i]) : g_d[i];
+    const T bd = kStatus ? add_rn(add_rn(bf, bt), b_sh[i]) : b_d[i];
+    bus_outputs<T, V, true>(pf, pt, qf, qt, thi, vi, gd, bd, b, i, n, ps,
+                            qs, th_free, v_free, v_set, bv, nullptr, fout);
+  }
 }
 
 // S1's residual alone (RESIDUAL): one thread per (lane, bus) walks its list
@@ -310,7 +344,7 @@ __global__ void __launch_bounds__(kTileEntries) assemble_kernel(
 // Q and f only, so they are that kernel's bits.  With no values to store,
 // the thread per bus is the faster form: the tile's barriers cost more
 // than its warps' unequal walks (PERF.md).
-template <typename T>
+template <typename T, bool kStatus>
 __global__ void __launch_bounds__(kThreads) residual_kernel(
     const T* __restrict__ x, const T* __restrict__ ps,
     const T* __restrict__ qs, const T* __restrict__ th_free,
@@ -318,8 +352,11 @@ __global__ void __launch_bounds__(kThreads) residual_kernel(
     const T* __restrict__ inc_g, const T* __restrict__ inc_b,
     const T* __restrict__ g_d, const T* __restrict__ b_d,
     const int* __restrict__ inc_ptr, const int* __restrict__ inc_code,
-    const int* __restrict__ inc_nbr, T* __restrict__ pout,
-    T* __restrict__ qout, T* __restrict__ fout, int lanes, int n) {
+    const int* __restrict__ inc_nbr, const T* __restrict__ status,
+    const T* __restrict__ inc_gs, const T* __restrict__ inc_bs,
+    const T* __restrict__ g_sh, const T* __restrict__ b_sh,
+    T* __restrict__ pout, T* __restrict__ qout, T* __restrict__ fout,
+    int lanes, int n, int m) {
   const int64_t k = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (k >= (int64_t)lanes * n) return;
   const int64_t b = k / n;
@@ -328,24 +365,43 @@ __global__ void __launch_bounds__(kThreads) residual_kernel(
   const T* v = th + n;
   const T thi = th[i], vi = v[i];
   T pf = T(0), pt = T(0), qf = T(0), qt = T(0);
+  T gf = T(0), gt = T(0), bf = T(0), bt = T(0);  // kStatus: the diagonal
   for (int r = inc_ptr[i]; r < inc_ptr[i + 1]; ++r) {
-    const bool to_side = inc_code[r] & 1;
+    const int code = inc_code[r];
+    const bool to_side = code & 1;
     const int j = inc_nbr[r];
     const T thj = th[j], vj = v[j];
+    T g = inc_g[r], bb = inc_b[r], gs = T(0), bs = T(0);
+    if (kStatus) {
+      const T st = status[b * m + (code >> 1)];
+      g = mul_rn(g, st);
+      bb = mul_rn(bb, st);
+      gs = mul_rn(inc_gs[r], st);
+      bs = mul_rn(inc_bs[r], st);
+    }
     T c, a;
     edge_term(to_side ? thj : thi, to_side ? thi : thj, to_side ? vj : vi,
-              to_side ? vi : vj, inc_g[r], inc_b[r], to_side, &c, &a);
+              to_side ? vi : vj, g, bb, to_side, &c, &a);
     if (to_side) {
       pt = add_rn(pt, c);
       qt = add_rn(qt, a);
+      if (kStatus) {
+        gt = add_rn(gt, gs);
+        bt = add_rn(bt, bs);
+      }
     } else {
       pf = add_rn(pf, c);
       qf = add_rn(qf, a);
+      if (kStatus) {
+        gf = add_rn(gf, gs);
+        bf = add_rn(bf, bs);
+      }
     }
   }
-  bus_outputs<T, T, false>(pf, pt, qf, qt, thi, vi, b, i, n, ps, qs,
-                           th_free, v_free, v_set, g_d, b_d, pout, qout,
-                           fout);
+  const T gd = kStatus ? add_rn(add_rn(gf, gt), g_sh[i]) : g_d[i];
+  const T bd = kStatus ? add_rn(add_rn(bf, bt), b_sh[i]) : b_d[i];
+  bus_outputs<T, T, false>(pf, pt, qf, qt, thi, vi, gd, bd, b, i, n, ps, qs,
+                           th_free, v_free, v_set, pout, qout, fout);
 }
 
 // ---------------------------------------------------------------------------
@@ -995,32 +1051,56 @@ constexpr int kFullMode = 0, kValuesF32Mode = 1, kResidualMode = 2;
 
 // One launch in every mode.  ev and bv are T, or float in VALUES_F32 (T
 // double); in RESIDUAL they are P and Q [lanes, n].
+template <typename T, bool kStatus>
+int launch_assemble_as(const T* x, const T* ps, const T* qs,
+                       const T* th_free, const T* v_free, const T* v_set,
+                       const T* inc_g, const T* inc_b, const T* g_d,
+                       const T* b_d, const int* inc_ptr, const int* inc_code,
+                       const int* inc_nbr, const T* status, const T* inc_gs,
+                       const T* inc_bs, const T* g_sh, const T* b_sh,
+                       void* ev, void* bv, T* f, int lanes, int n, int m,
+                       int mode, cudaStream_t stream) {
+  const unsigned tiles =
+      (unsigned)((int64_t)lanes * ((n + kTileBuses - 1) / kTileBuses));
+#define S1_ARGS                                                              \
+  x, ps, qs, th_free, v_free, v_set, inc_g, inc_b, g_d, b_d, inc_ptr,       \
+      inc_code, inc_nbr, status, inc_gs, inc_bs, g_sh, b_sh
+  if (mode == kFullMode)
+    assemble_kernel<T, T, kStatus><<<tiles, kTileEntries, 0, stream>>>(
+        S1_ARGS, (T*)ev, (T*)bv, f, lanes, n, m);
+  else if (mode == kValuesF32Mode && sizeof(T) == 8)
+    assemble_kernel<T, float, kStatus><<<tiles, kTileEntries, 0, stream>>>(
+        S1_ARGS, (float*)ev, (float*)bv, f, lanes, n, m);
+  else if (mode == kResidualMode)
+    residual_kernel<T, kStatus><<<blocks_for((int64_t)lanes * n), kThreads,
+                                  0, stream>>>(S1_ARGS, (T*)ev, (T*)bv, f,
+                                               lanes, n, m);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef S1_ARGS
+  return (int)cudaGetLastError();
+}
+
+// status [lanes, m] or null (every branch in service: the stored diagonal).
 template <typename T>
 int launch_assemble(const T* x, const T* ps, const T* qs, const T* th_free,
                     const T* v_free, const T* v_set, const T* inc_g,
                     const T* inc_b, const T* g_d, const T* b_d,
                     const int* inc_ptr, const int* inc_code,
-                    const int* inc_nbr, void* ev, void* bv, T* f, int lanes,
-                    int n, int m, int mode, cudaStream_t stream) {
+                    const int* inc_nbr, const T* status, const T* inc_gs,
+                    const T* inc_bs, const T* g_sh, const T* b_sh, void* ev,
+                    void* bv, T* f, int lanes, int n, int m, int mode,
+                    cudaStream_t stream) {
   if (lanes <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  const unsigned tiles =
-      (unsigned)((int64_t)lanes * ((n + kTileBuses - 1) / kTileBuses));
-#define S1_ARGS                                                              \
-  x, ps, qs, th_free, v_free, v_set, inc_g, inc_b, g_d, b_d, inc_ptr,       \
-      inc_code, inc_nbr
-  if (mode == kFullMode)
-    assemble_kernel<T, T><<<tiles, kTileEntries, 0, stream>>>(
-        S1_ARGS, (T*)ev, (T*)bv, f, lanes, n, m);
-  else if (mode == kValuesF32Mode && sizeof(T) == 8)
-    assemble_kernel<T, float><<<tiles, kTileEntries, 0, stream>>>(
-        S1_ARGS, (float*)ev, (float*)bv, f, lanes, n, m);
-  else if (mode == kResidualMode)
-    residual_kernel<T><<<blocks_for((int64_t)lanes * n), kThreads, 0,
-                         stream>>>(S1_ARGS, (T*)ev, (T*)bv, f, lanes, n);
-  else
-    return (int)cudaErrorInvalidValue;
-#undef S1_ARGS
-  return (int)cudaGetLastError();
+  return status == nullptr
+             ? launch_assemble_as<T, false>(
+                   x, ps, qs, th_free, v_free, v_set, inc_g, inc_b, g_d, b_d,
+                   inc_ptr, inc_code, inc_nbr, status, inc_gs, inc_bs, g_sh,
+                   b_sh, ev, bv, f, lanes, n, m, mode, stream)
+             : launch_assemble_as<T, true>(
+                   x, ps, qs, th_free, v_free, v_set, inc_g, inc_b, g_d, b_d,
+                   inc_ptr, inc_code, inc_nbr, status, inc_gs, inc_bs, g_sh,
+                   b_sh, ev, bv, f, lanes, n, m, mode, stream);
 }
 
 template <typename T>
@@ -1104,12 +1184,13 @@ int launch_lstsq(const T* vbasis, const T* valid, const T* wstore,
       const T* x, const T* ps, const T* qs, const T* th_free,                \
       const T* v_free, const T* v_set, const T* inc_g, const T* inc_b,       \
       const T* g_d, const T* b_d, const int* inc_ptr, const int* inc_code,   \
-      const int* inc_nbr, void* ev, void* bv, T* f, int lanes, int n, int m, \
-      int mode, void* stream) {                                              \
+      const int* inc_nbr, const T* status, const T* inc_gs, const T* inc_bs, \
+      const T* g_sh, const T* b_sh, void* ev, void* bv, T* f, int lanes,     \
+      int n, int m, int mode, void* stream) {                                \
     return launch_assemble<T>(x, ps, qs, th_free, v_free, v_set, inc_g,      \
                               inc_b, g_d, b_d, inc_ptr, inc_code, inc_nbr,   \
-                              ev, bv, f, lanes, n, m, mode,                  \
-                              (cudaStream_t)stream);                         \
+                              status, inc_gs, inc_bs, g_sh, b_sh, ev, bv, f, \
+                              lanes, n, m, mode, (cudaStream_t)stream);      \
   }                                                                          \
   extern "C" int sparse_matvec_##SUFFIX(                                      \
       const T* ev, const T* bv, const T* u, const T* th_free,                \

@@ -25,7 +25,9 @@ bus ``i``'s list, edge ``e`` to bus ``j``, row ``i``'s values at column
 reference's ``_JacValues`` ``*_ft`` where ``i`` is the from end, ``*_tf``
 where it is the to end) — and ``bv [B, 6, n]`` — ``h_d, n_d, j_d, l_d,
 p_calc, q_calc``.  S1 fills them in one launch in one of three modes
-(:data:`FULL`, :data:`VALUES_F32`, :data:`RESIDUAL`).  The GMRES
+(:data:`FULL`, :data:`VALUES_F32`, :data:`RESIDUAL`), optionally with a
+per-lane branch status ``[B, m]`` (each lane's admittances scaled and its
+Ybus diagonal summed per lane; :data:`STATUS_LAUNCHES`).  The GMRES
 basis is ``v_basis [B, mm+1, N]`` with ``valid [B, mm+1]``; the stored
 chain is ``z_store``/``w_store [B, mm, N]``.
 
@@ -61,6 +63,8 @@ LAUNCHES: Dict[str, int] = {
 #: S1's launches by mode (their sum is ``LAUNCHES["sparse_assemble"]``).
 ASSEMBLE_LAUNCHES: Dict[str, int] = {"FULL": 0, "VALUES_F32": 0,
                                      "RESIDUAL": 0}
+#: Those of S1's launches, by mode, that took a per-lane branch status.
+STATUS_LAUNCHES: Dict[str, int] = dict.fromkeys(ASSEMBLE_LAUNCHES, 0)
 _launch_lock = threading.Lock()
 
 #: S1's modes (``mode=`` of :func:`sparse_assemble`): the value fill in
@@ -99,16 +103,19 @@ LSTSQ_CTAS = 8
 MAX_SWEEPS = 60
 
 
-def _count(name: str, mode: Optional[str] = None) -> None:
+def _count(name: str, mode: Optional[str] = None,
+           status: bool = False) -> None:
     with _launch_lock:
         LAUNCHES[name] += 1
         if mode is not None:
             ASSEMBLE_LAUNCHES[mode] += 1
+            if status:
+                STATUS_LAUNCHES[mode] += 1
 
 
 def reset_launches() -> None:
     with _launch_lock:
-        for counts in (LAUNCHES, ASSEMBLE_LAUNCHES):
+        for counts in (LAUNCHES, ASSEMBLE_LAUNCHES, STATUS_LAUNCHES):
             for k in counts:
                 counts[k] = 0
 
@@ -124,6 +131,13 @@ def assemble_launches() -> Dict[str, int]:
         return dict(ASSEMBLE_LAUNCHES)
 
 
+def status_launches() -> Dict[str, int]:
+    """S1's launches with a per-lane status, by mode, since the last
+    :func:`reset_launches`."""
+    with _launch_lock:
+        return dict(STATUS_LAUNCHES)
+
+
 class SparseOperands(NamedTuple):
     """What the sparse kernels need of one bus system, on one device.
 
@@ -136,7 +150,10 @@ class SparseOperands(NamedTuple):
     its side as (re, im), ``inc_g``/``inc_b [2m]`` (the branch's ``yft``
     at its from end's entry, ``ytf`` at its to end's), the Ybus diagonal
     ``g_d``/``b_d`` and the masks ``th_free``, ``v_free``, ``v_set``
-    ``[n]``.
+    ``[n]``.  For S1's per-lane branch status: per list entry the
+    self admittance of its side, ``inc_gs``/``inc_bs [2m]`` (the
+    branch's ``yff`` at its from end's entry, ``ytt`` at its to end's),
+    and the bus shunts ``g_sh``/``b_sh [n]``.
     """
 
     inc_ptr: Tensor
@@ -149,6 +166,10 @@ class SparseOperands(NamedTuple):
     th_free: Tensor
     v_free: Tensor
     v_set: Tensor
+    inc_gs: Tensor
+    inc_bs: Tensor
+    g_sh: Tensor
+    b_sh: Tensor
 
     @property
     def n(self) -> int:
@@ -275,37 +296,51 @@ def _seg(vals: Tensor, idx: Tensor, n: int) -> Tensor:
 
 
 def sparse_assemble_plain(x, p_sched, q_sched, op: SparseOperands,
-                          mode: int = FULL) -> Tuple[Tensor, Tensor, Tensor]:
+                          mode: int = FULL, status: Optional[Tensor] = None
+                          ) -> Tuple[Tensor, Tensor, Tensor]:
     """S1's plain version in each mode (:data:`FULL`: ``(ev [B, 4, 2m],
     bv [B, 6, n], f [B, 2n])``); :data:`VALUES_F32` and :data:`RESIDUAL`
-    are the full mode's values cast and sliced."""
+    are the full mode's values cast and sliced.  ``status [B, m]`` scales
+    each lane's branch admittances (the reference's
+    ``branch_admittances(sys, status)``), and the Ybus diagonal becomes
+    the lane's: its self terms summed apart by side, then the shunt."""
     _check_mode(mode, x.dtype)
     n = op.n
     rows, j = op.inc_rows(), op.inc_nbr.long()
     to = (op.inc_code & 1).bool()
+    inc_g, inc_b, g_d, b_d = op.inc_g, op.inc_b, op.g_d, op.b_d
+    if status is not None:
+        st = status[:, (op.inc_code >> 1).long()]
+        inc_g, inc_b = inc_g * st, inc_b * st
+        gs, bs = op.inc_gs * st, op.inc_bs * st
+        zs = torch.zeros_like(gs)
+        g_d = (_seg(torch.where(to, zs, gs), rows, n)
+               + _seg(torch.where(to, gs, zs), rows, n) + op.g_sh)
+        b_d = (_seg(torch.where(to, zs, bs), rows, n)
+               + _seg(torch.where(to, bs, zs), rows, n) + op.b_sh)
     theta, v = x[:, :n], x[:, n:]
     th_i, th_j, v_i, v_j = theta[:, rows], theta[:, j], v[:, rows], v[:, j]
     e = torch.where(to, th_j, th_i) - torch.where(to, th_i, th_j)
     ce, se = torch.cos(e), torch.sin(e)
     vv = torch.where(to, v_j, v_i) * torch.where(to, v_i, v_j)
-    sb = torch.where(to, -op.inc_b, op.inc_b)
-    c = vv * (op.inc_g * ce + sb * se)
-    a0 = vv * (op.inc_g * se - sb * ce)
+    sb = torch.where(to, -inc_b, inc_b)
+    c = vv * (inc_g * ce + sb * se)
+    a0 = vv * (inc_g * se - sb * ce)
     a = torch.where(to, -a0, a0)
     zero = torch.zeros_like(c)
     v2 = v * v
     p = (_seg(torch.where(to, zero, c), rows, n)
-         + _seg(torch.where(to, c, zero), rows, n) + v2 * op.g_d)
+         + _seg(torch.where(to, c, zero), rows, n) + v2 * g_d)
     q = (_seg(torch.where(to, zero, a), rows, n)
-         + _seg(torch.where(to, a, zero), rows, n) - v2 * op.b_d)
+         + _seg(torch.where(to, a, zero), rows, n) - v2 * b_d)
     f_p = torch.where(op.th_free > 0, p - p_sched, theta)
     f_q = torch.where(op.v_free > 0, q - q_sched, v - op.v_set)
     f = torch.cat([f_p, f_q], dim=1)
     if mode == RESIDUAL:
         return p, q, f
     ev = torch.stack([a, c, c / v_j, a / v_j], dim=1)
-    bv = torch.stack([-v2 * op.b_d - q, v * op.g_d + p / v,
-                      -v2 * op.g_d + p, -v * op.b_d + q / v, p, q], dim=1)
+    bv = torch.stack([-v2 * b_d - q, v * g_d + p / v,
+                      -v2 * g_d + p, -v * b_d + q / v, p, q], dim=1)
     if mode == VALUES_F32:
         return ev.to(torch.float32), bv.to(torch.float32), f
     return ev, bv, f
@@ -470,7 +505,7 @@ _lib_lock = threading.Lock()
 _fns: Dict[Tuple[str, torch.dtype], object] = {}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _SIGS = {
-    "sparse_assemble": [_P] * 16 + [_I] * 4 + [_P],
+    "sparse_assemble": [_P] * 21 + [_I] * 4 + [_P],
     "sparse_matvec": [_P] * 8 + [_I] * 3 + [_P],
     "gmres_block_orth": [_P] * 3 + [_I] * 9 + [_P],
     "gmres_lstsq": [_P] * 8 + [_I] * 5 + [_P],
@@ -526,8 +561,10 @@ def _op_spec(op: SparseOperands, dtype) -> dict:
             "inc_code": (op.inc_code, i32, (2 * m,)),
             "inc_nbr": (op.inc_nbr, i32, (2 * m,)),
             "inc_g": (op.inc_g, dtype, (2 * m,)),
-            "inc_b": (op.inc_b, dtype, (2 * m,))}
-    for name in ("g_d", "b_d", "th_free", "v_free", "v_set"):
+            "inc_b": (op.inc_b, dtype, (2 * m,)),
+            "inc_gs": (op.inc_gs, dtype, (2 * m,)),
+            "inc_bs": (op.inc_bs, dtype, (2 * m,))}
+    for name in ("g_d", "b_d", "th_free", "v_free", "v_set", "g_sh", "b_sh"):
         spec[name] = (getattr(op, name), dtype, (n,))
     return spec
 
@@ -588,23 +625,29 @@ def _launch_on(t: Tensor):
 
 
 def sparse_assemble(x, p_sched, q_sched, op: SparseOperands,
-                    mode: int = FULL) -> Tuple[Tensor, Tensor, Tensor]:
+                    mode: int = FULL, status: Optional[Tensor] = None
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
     """S1: the value fill and the masked mismatch at ``x [B, 2n]``, in one
     launch.
 
     ``mode`` :data:`FULL` returns ``(ev [B, 4, 2m], bv [B, 6, n], f [B,
     2n])`` in ``x``'s dtype; :data:`VALUES_F32` (``x`` float64) the same
     with ``ev`` and ``bv`` in float32; :data:`RESIDUAL` ``(p [B, n], q [B,
-    n], f)``."""
+    n], f)``.  ``status [B, m]`` (``x``'s dtype) scales each lane's branch
+    admittances and makes its Ybus diagonal per lane; without it the
+    kernel is the all-in-service one, which reads the stored diagonal."""
     if x.device.type == "cpu":
-        return sparse_assemble_plain(x, p_sched, q_sched, op, mode)
+        return sparse_assemble_plain(x, p_sched, q_sched, op, mode, status)
     _need_cuda(x, "sparse_assemble")
     _check_mode(mode, x.dtype)
     n, m = op.n, op.m
     lanes = x.shape[0]
     dt, dev = x.dtype, x.device
-    for name, t, cols in (("x", x, 2 * n), ("p_sched", p_sched, n),
-                          ("q_sched", q_sched, n)):
+    lane_args = [("x", x, 2 * n), ("p_sched", p_sched, n),
+                 ("q_sched", q_sched, n)]
+    if status is not None:
+        lane_args.append(("status", status, m))
+    for name, t, cols in lane_args:
         if (t.dtype is not dt or t.device != dev or t.dim() != 2
                 or t.shape[0] != lanes or t.shape[1] != cols
                 or not t.is_contiguous()):
@@ -628,10 +671,12 @@ def sparse_assemble(x, p_sched, q_sched, op: SparseOperands,
         rc = fn(x.data_ptr(), p_sched.data_ptr(), q_sched.data_ptr(),
                 o["th_free"], o["v_free"], o["v_set"], o["inc_g"],
                 o["inc_b"], o["g_d"], o["b_d"], o["inc_ptr"], o["inc_code"],
-                o["inc_nbr"], ev.data_ptr(), bv.data_ptr(), f.data_ptr(),
+                o["inc_nbr"], None if status is None else status.data_ptr(),
+                o["inc_gs"], o["inc_bs"], o["g_sh"], o["b_sh"],
+                ev.data_ptr(), bv.data_ptr(), f.data_ptr(),
                 lanes, n, m, mode, stream)
     _raise_on(rc, "sparse_assemble")
-    _count("sparse_assemble", _MODE_NAMES[mode])
+    _count("sparse_assemble", _MODE_NAMES[mode], status is not None)
     return ev, bv, f
 
 

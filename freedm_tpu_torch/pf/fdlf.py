@@ -2,8 +2,9 @@
 
 Port of ``DecoupledParts``/``decoupled_parts`` (``freedm_tpu/pf/fdlf.py:
 44-91``), the part of the FDLF module that the sparse Newton backend's
-preconditioner needs (:func:`freedm_tpu_torch.pf.krylov.build_fdlf_precond`).
-The FDLF solver itself belongs to the N-1 slice.
+preconditioner (:func:`freedm_tpu_torch.pf.krylov.build_fdlf_precond`),
+the SMW N-1 screen and the DC screen need.  The FDLF solver itself,
+:func:`make_fdlf_solver`, is not ported yet and raises.
 
 Both matrices are stamped on the host in float64, in the reference's
 ``.at[].add`` order — (f, f), (t, t), (f, t), (t, f) — the same way
@@ -77,3 +78,12 @@ def decoupled_parts(sys: BusSystem, dtype: torch.dtype = torch.float64,
 
     return DecoupledParts(to_dev(th_keep), to_dev(v_keep), b_prime,
                           b_dblprime)
+
+
+def make_fdlf_solver(sys: BusSystem, *args, **kwargs):
+    """The reference's fast-decoupled solver (``freedm_tpu/pf/fdlf.py:102``)
+    with its per-lane ``status`` re-factorization: not ported."""
+    raise NotImplementedError(
+        "make_fdlf_solver is not ported (ROADMAP.md, module queue item 8: "
+        "the fast-decoupled solver with per-lane status)"
+    )

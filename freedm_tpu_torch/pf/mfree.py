@@ -6,8 +6,9 @@ products per branch, two segment sums per part, then the shunts — which
 is the Ybus product written as its sparsity pattern.  The arithmetic is
 :func:`freedm_tpu_torch.kernels.cache_kernels.branch_injections`, which is
 also the plain version of the injection part of kernel C1 (the serving
-cache's delta program); :func:`delta_operands` builds the operands both
-take.  The matrix-free Newton–Krylov solver that the reference builds on
+cache's delta program) and of the injection part of kernel N1 (the SMW
+N-1 screen, with a per-lane branch status); :func:`delta_operands`
+builds the operands they take.  The matrix-free Newton–Krylov solver that the reference builds on
 this module is a later slice (ROADMAP item 12).
 """
 
@@ -57,16 +58,19 @@ def make_injection_fn(sys: BusSystem, device: DeviceLike = None):
     """``inject(theta, v, status=None) -> (p_calc, q_calc)`` for ``[n]``
     or ``[B, n]`` float64 tensors: exactly the injections of the
     assembled Ybus (``s_calc``), evaluated branch-wise in the reference's
-    operation order.  A per-lane branch ``status`` belongs to DC and N-1
-    screening (ROADMAP item 8) and raises."""
+    operation order.  ``status`` is the 0/1 branch in-service vector,
+    ``[m]`` or one row per lane ``[B, m]`` (numpy or tensor): each
+    branch's four admittances are scaled by it, as the reference's
+    ``branch_admittances(sys, status)`` does."""
     op = delta_operands(sys, device=device)
 
     def inject(theta, v, status=None):
         if status is not None:
-            raise NotImplementedError(
-                "per-lane branch status is not ported (ROADMAP.md, module "
-                "queue item 8: DC and N-1 screening)"
-            )
-        return branch_injections(theta, v, op)
+            status = torch.as_tensor(status, dtype=torch.float64,
+                                     device=op.y.device)
+            if status.shape[-1:] != (op.m,) or status.dim() > 2:
+                raise ValueError(f"status must be [{op.m}] or [B, {op.m}], "
+                                 f"got {tuple(status.shape)}")
+        return branch_injections(theta, v, op, status)
 
     return inject

@@ -97,13 +97,17 @@ def build_result(x, p, q, f, free, it, tol: float) -> NewtonResult:
 
 def lane_prep(n: int, dtype: torch.dtype, dev: torch.device,
               p_sched0: torch.Tensor, q_sched0: torch.Tensor,
-              v_flat: torch.Tensor):
+              v_flat: torch.Tensor, m: Optional[int] = None):
     """The solvers' argument handling: ``prep(p_inj, q_inj, status, v0,
-    theta0) -> (x [B, 2n], ps [B, n], qs [B, n])``, each optional
+    theta0) -> (x [B, 2n], ps [B, n], qs [B, n], st)``, each optional
     ``[B, n]`` override (numpy or tensor) cast to ``dtype`` on ``dev``;
     omitted ones broadcast the stored schedule / the flat start, and
-    ``B`` is 1 when every one is omitted.  The caller's tensors are only
-    read: ``x`` is new and the schedules are never written."""
+    ``B`` is 1 when every one is omitted.  ``status`` (the 0/1 branch
+    in-service vector, ``[m]`` for every lane or ``[B, m]``) comes back as
+    a contiguous ``[B, m]`` ``st``, ``None`` when omitted; a solver that
+    passes no branch count ``m`` (the dense backend) raises on it.  The
+    caller's tensors are only read: ``x`` is new and the schedules are
+    never written."""
 
     def as_lanes(a, name):
         if a is None:
@@ -116,19 +120,35 @@ def lane_prep(n: int, dtype: torch.dtype, dev: torch.device,
             )
         return t
 
-    def prep(p_inj, q_inj, status, v0, theta0):
-        if status is not None:
+    def as_status(a):
+        if a is None:
+            return None
+        if m is None:
             raise NotImplementedError(
-                "per-lane branch status is not ported (ROADMAP.md, module "
-                "queue item 8: DC and N-1 screening)"
+                "per-lane branch status on the dense Newton backend is not "
+                "ported (ROADMAP.md, module queue item 8 (per-lane Ybus "
+                "stamp)); the sparse backend takes it"
             )
+        t = torch.as_tensor(a, dtype=dtype, device=dev)
+        if t.shape[-1:] != (m,) or t.dim() not in (1, 2):
+            raise ValueError(
+                f"status must be [{m}] or [B, {m}], got {tuple(t.shape)}"
+            )
+        return t
+
+    def prep(p_inj, q_inj, status, v0, theta0):
+        st = as_status(status)
         args = {"p_inj": as_lanes(p_inj, "p_inj"),
                 "q_inj": as_lanes(q_inj, "q_inj"),
                 "v0": as_lanes(v0, "v0"), "theta0": as_lanes(theta0, "theta0")}
         lanes = {t.shape[0] for t in args.values() if t is not None}
+        if st is not None and st.dim() == 2:
+            lanes.add(st.shape[0])
         if len(lanes) > 1:
             raise ValueError(f"lane counts differ across arguments: {lanes}")
         b = lanes.pop() if lanes else 1
+        if st is not None:
+            st = st.expand(b, m).contiguous()
 
         def fill(t, default):
             return default.expand(b, n) if t is None else t
@@ -137,7 +157,7 @@ def lane_prep(n: int, dtype: torch.dtype, dev: torch.device,
         qs = fill(args["q_inj"], q_sched0).contiguous()
         x = torch.cat([fill(args["theta0"], torch.zeros_like(v_flat)),
                        fill(args["v0"], v_flat)], dim=1).contiguous()
-        return x, ps, qs
+        return x, ps, qs, st
 
     return prep
 
@@ -177,8 +197,10 @@ def make_newton_solver(
     solvers, which take ``precision``; on the dense path ``precision``
     validates only — the LU runs in ``dtype`` regardless, and TF32 never
     enters.  ``device`` is
-    ``cuda`` unless the caller asks for the CPU.  ``mesh`` (the
-    reference's sharded form) is not ported and raises.  ``plain=True``
+    ``cuda`` unless the caller asks for the CPU.  A per-lane branch
+    ``status`` is taken by the sparse backend; the dense one raises on it
+    (the per-lane Ybus stamp is not ported).  ``mesh`` (the reference's
+    sharded form) is not ported and raises.  ``plain=True``
     runs the kernels' plain PyTorch versions on any device — the
     on-card reference ``chip_smoke.py`` compares the kernel path with.
     """
@@ -241,7 +263,7 @@ def make_newton_solver(
         return build_result(x, p, q, f, free, it, tol)
 
     def solve(p_inj=None, q_inj=None, status=None, v0=None, theta0=None):
-        x, ps, qs = prep(p_inj, q_inj, status, v0, theta0)
+        x, ps, qs, _ = prep(p_inj, q_inj, status, v0, theta0)
         lanes = x.shape[0]
         it = torch.zeros(lanes, dtype=torch.int32, device=dev)
         err = torch.full((lanes,), float("inf"), dtype=dtype, device=dev)
@@ -260,7 +282,7 @@ def make_newton_solver(
                 "solve_fixed is forward-only on the card: its backward "
                 "kernels come with the VVC/gradient slice (ROADMAP.md)"
             )
-        x, ps, qs = prep(p_inj, q_inj, status, v0, theta0)
+        x, ps, qs, _ = prep(p_inj, q_inj, status, v0, theta0)
         for _ in range(max_iter):
             dx, _f = step(x, ps, qs)
             x = x + dx

@@ -146,7 +146,8 @@ def sparse_operands(sys: BusSystem, dtype: torch.dtype = torch.float64,
     two-port admittance of each incidence-list entry's side and the Ybus
     diagonal (all in service), the latter stamped on the host in float64
     in the reference's order (from-end terms, then to-end terms, then the
-    shunt)."""
+    shunt); for a per-lane status, each entry's self admittance and the
+    shunts."""
     dev = resolve_device(device)
     pat = jacobian_pattern(sys)
     yff, yft, ytf, ytt = branch_admittances(sys)
@@ -177,6 +178,9 @@ def sparse_operands(sys: BusSystem, dtype: torch.dtype = torch.float64,
         inc_b=vec(np.where(to, ytf[1][edge], yft[1][edge])),
         g_d=vec(g_d), b_d=vec(b_d),
         th_free=vec(bt != SLACK), v_free=vec(bt == PQ), v_set=vec(sys.v_set),
+        inc_gs=vec(np.where(to, ytt[0][edge], yff[0][edge])),
+        inc_bs=vec(np.where(to, ytt[1][edge], yff[1][edge])),
+        g_sh=vec(sys.g_shunt), b_sh=vec(sys.b_shunt),
     )
 
 
@@ -213,8 +217,11 @@ def make_sparse_newton_solver(
     kernels' plain versions on any device.  ``solve_fixed`` takes
     ``max_iter`` steps on every lane (for mixed: ``max_iter − 1`` mixed
     steps and one full-precision step, ``fallbacks`` counting stalled
-    steps) and is forward-only on the card.  Per-lane branch ``status``
-    and the ``mesh=`` form are not ported and raise.
+    steps) and is forward-only on the card.  ``status`` (``[m]`` or
+    ``[B, m]`` 0/1 branch in-service factors) runs each lane on its own
+    topology, every S1 call scaling that lane's admittances; the
+    preconditioner stays the base topology's pair, as in the reference.
+    The ``mesh=`` form is not ported and raises.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -259,9 +266,9 @@ def make_sparse_newton_solver(
     def mismatch(f):
         return torch.amax(torch.abs(f * free), dim=1)
 
-    def residual(x, ps, qs):
+    def residual(x, ps, qs, st):
         """``f`` at ``x`` (S1's residual mode)."""
-        return assemble(x, ps, qs, op, sk.RESIDUAL)[2]
+        return assemble(x, ps, qs, op, sk.RESIDUAL, st)[2]
 
     def apply_precond(u, v_now, out_dtype):
         return fdlf_apply(precond, op.th_free, op.v_free, u, v_now,
@@ -280,45 +287,46 @@ def make_sparse_newton_solver(
         ok = torch.isfinite(dx).all(dim=1, keepdim=True)
         return torch.where(ok, dx, apply_precond(-fres, v, dtype))
 
-    def step(x, ps, qs):
+    def step(x, ps, qs, st):
         """Full-precision update: ``(dx, f)`` with ``f`` the mismatch
         the step starts from."""
-        ev, bv, fres = assemble(x, ps, qs, op)
+        ev, bv, fres = assemble(x, ps, qs, op, sk.FULL, st)
         v = x[:, n:]
         return safe(gmres(ev, bv, op, -fres, v), fres, v), fres
 
-    def step_mixed(x, ps, qs):
+    def step_mixed(x, ps, qs, st):
         """Mixed update: float32 inner solve, then ``(x_new, err1)`` with
         ``err1`` the full-precision mismatch at ``x_new``."""
-        ev, bv, fres = assemble(x, ps, qs, op, values_lo)
+        ev, bv, fres = assemble(x, ps, qs, op, values_lo, st)
         v = x[:, n:]
         dx = gmres(ev, bv, op_lo, (-fres).to(inner_dtype), v.to(inner_dtype))
         x_new = x + safe(dx.to(dtype), fres, v)
-        return x_new, mismatch(residual(x_new, ps, qs))
+        return x_new, mismatch(residual(x_new, ps, qs, st))
 
-    def finish(x, ps, qs, it, fallbacks):
-        p, q, f = assemble(x, ps, qs, op, sk.RESIDUAL)
+    def finish(x, ps, qs, st, it, fallbacks):
+        p, q, f = assemble(x, ps, qs, op, sk.RESIDUAL, st)
         r = build_result(x, p, q, f, free, it, tol)
         return r._replace(fallbacks=fallbacks)
 
-    prep = lane_prep(n, dtype, dev, p_sched0, q_sched0, v_flat)
+    prep = lane_prep(n, dtype, dev, p_sched0, q_sched0, v_flat,
+                     m=sys.n_branch)
 
     def lane_zeros(x):
         return torch.zeros(x.shape[0], dtype=torch.int32, device=dev)
 
-    def solve_f64(x, ps, qs):
+    def solve_f64(x, ps, qs, st):
         it = lane_zeros(x)
         err = torch.full((x.shape[0],), float("inf"), dtype=dtype, device=dev)
         active = (it < max_iter) & (err >= tol_t)
         while any_active(active):  # the one host sync per iteration
-            dx, f = step(x, ps, qs)
+            dx, f = step(x, ps, qs, st)
             update(x, dx, f, free, it, err, active, max_iter, tol_t)
-        return finish(x, ps, qs, it, lane_zeros(x))
+        return finish(x, ps, qs, st, it, lane_zeros(x))
 
-    def solve_mixed(x, ps, qs):
+    def solve_mixed(x, ps, qs, st):
         # Phase 1: mixed steps under the best-iterate oracle, seeded with
         # the start point's full-precision mismatch.
-        best = mismatch(residual(x, ps, qs))
+        best = mismatch(residual(x, ps, qs, st))
         x_best = x.clone()
         it, stall = lane_zeros(x), lane_zeros(x)
 
@@ -328,7 +336,7 @@ def make_sparse_newton_solver(
 
         active = phase1_active()
         while any_active(active):
-            x_new, err1 = step_mixed(x, ps, qs)
+            x_new, err1 = step_mixed(x, ps, qs, st)
             improved = err1 < _MIXED_ACCEPT_RATIO * best
             x_best = torch.where((active & (err1 < best))[:, None], x_new,
                                  x_best)
@@ -343,17 +351,17 @@ def make_sparse_newton_solver(
         x, err, fb = x_best, best, lane_zeros(x)
         active = (it < max_iter) & (err >= tol_t)
         while any_active(active):
-            dx, _ = step(x, ps, qs)
-            f_post = residual(x + dx, ps, qs)
+            dx, _ = step(x, ps, qs, st)
+            f_post = residual(x + dx, ps, qs, st)
             fb += active.to(torch.int32)
             update(x, dx, f_post, free, it, err, active, max_iter, tol_t)
-        return finish(x, ps, qs, it, fb)
+        return finish(x, ps, qs, st, it, fb)
 
     def solve(p_inj=None, q_inj=None, status=None, v0=None, theta0=None):
-        x, ps, qs = prep(p_inj, q_inj, status, v0, theta0)
+        x, ps, qs, st = prep(p_inj, q_inj, status, v0, theta0)
         if precision == "mixed":
-            return solve_mixed(x, ps, qs)
-        return solve_f64(x, ps, qs)
+            return solve_mixed(x, ps, qs, st)
+        return solve_f64(x, ps, qs, st)
 
     def solve_fixed(p_inj=None, q_inj=None, status=None, v0=None,
                     theta0=None):
@@ -364,13 +372,13 @@ def make_sparse_newton_solver(
                 "solve_fixed is forward-only on the card: its backward "
                 "kernels come with the VVC/gradient slice (ROADMAP.md)"
             )
-        x, ps, qs = prep(p_inj, q_inj, status, v0, theta0)
+        x, ps, qs, st = prep(p_inj, q_inj, status, v0, theta0)
         fb = lane_zeros(x)
         if precision == "mixed":
             best = torch.full((x.shape[0],), float("inf"), dtype=dtype,
                               device=dev)
             for _ in range(max(max_iter - 1, 0)):
-                x, err1 = step_mixed(x, ps, qs)
+                x, err1 = step_mixed(x, ps, qs, st)
                 stalled = ((err1 >= _MIXED_ACCEPT_RATIO * best)
                            & (best >= tol_t))
                 best = torch.minimum(best, err1)
@@ -379,9 +387,9 @@ def make_sparse_newton_solver(
         else:
             steps = max_iter
         for _ in range(steps):
-            x = x + step(x, ps, qs)[0]
+            x = x + step(x, ps, qs, st)[0]
         it = torch.full((x.shape[0],), max_iter, dtype=torch.int32,
                         device=dev)
-        return finish(x, ps, qs, it, fb)
+        return finish(x, ps, qs, st, it, fb)
 
     return solve, solve_fixed

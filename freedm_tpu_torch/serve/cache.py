@@ -63,9 +63,9 @@ reads them unfinished.  A copy is made once per entry and is not counted
 in the byte account (the reference does not count its float32 copy
 either).
 
-Not ported here: the DC screen sharing the entry's B′ LU
-(``CaseEntry.dc_solver``, ROADMAP item 8), the topology engine's use of
-the entry's LU (item 11), provenance receipts, the
+``CaseEntry.dc_solver`` builds the DC screen of
+:mod:`freedm_tpu_torch.pf.dc` on the entry's own B′ LU pair, once.  Not
+ported here: the topology engine's use of the entry's LU (item 11), provenance receipts, the
 ``serve.cache.corrupt`` fault point, the profiler's host spans, the
 loose-accept event journal and ``snapshot_state`` (item 15).
 """
@@ -191,7 +191,7 @@ class CaseEntry:
                  "build_lock", "precond", "pattern", "delta_fn",
                  "solutions", "artifact_bytes", "accounted", "alive",
                  "last_used", "ttl_sweep", "_th_free", "_v_free",
-                 "precision")
+                 "precision", "_dc")
 
     def __init__(self, case: str, sys, backend: str, topo: str,
                  precision: str = "f64", device: DeviceLike = None):
@@ -205,6 +205,7 @@ class CaseEntry:
         self.precond = None
         self.pattern = None
         self.delta_fn = None
+        self._dc = None
         self.solutions: "OrderedDict[str, CachedSolution]" = OrderedDict()
         self.artifact_bytes = 0
         # artifact_bytes has been added to the owning cache's byte
@@ -261,11 +262,17 @@ class CaseEntry:
         return self.delta_fn
 
     def dc_solver(self):
-        """The reference's DC screen over the entry's B′ LU."""
-        raise NotImplementedError(
-            "the DC screen is not ported (ROADMAP.md, module queue item 8: "
-            "DC and N-1 screening)"
-        )
+        """DC screen over this case, sharing the entry's B′ LU pair (no
+        second factorization — ``make_dc_solver(lu=...)``); built once,
+        under the build lock."""
+        with self.build_lock:
+            self.build_artifacts()
+            if self._dc is None:
+                from freedm_tpu_torch.pf.dc import make_dc_solver
+
+                self._dc = make_dc_solver(self.sys, lu=self.precond.bp,
+                                          device=self.device)
+        return self._dc
 
     def verify(self, theta: np.ndarray, v: np.ndarray, p_req: np.ndarray,
                q_req: np.ndarray) -> float:

@@ -1,4 +1,4 @@
-"""Zero-dependency JSON front end for the power-flow service.
+"""Zero-dependency JSON front end for the power-flow and N-1 service.
 
 Port of ``ServeServer`` from ``freedm_tpu/serve/http.py``: a stdlib
 ``ThreadingHTTPServer`` on a daemon thread, loopback bind by default,
@@ -8,16 +8,18 @@ coalesces.
 
 Routes:
 
-- ``POST /v1/pf`` — a JSON body matching
-  :class:`~freedm_tpu_torch.serve.service.PowerFlowRequest`; 200 with
-  the typed response dict on success;
+- ``POST /v1/<workload>`` for each of ``WORKLOADS`` — ``/v1/pf`` with a
+  JSON body matching
+  :class:`~freedm_tpu_torch.serve.service.PowerFlowRequest`, ``/v1/n1``
+  with one matching :class:`~freedm_tpu_torch.serve.service.N1Request`;
+  200 with the typed response dict on success;
 - ``GET /healthz`` — liveness + the workload/case table;
 - ``GET /stats`` — queue depth, buckets, per-shape dispatch counts and
   the serve metric snapshot;
 - ``GET /metrics`` — the registry in the Prometheus text format.
 
-Every other route answers a typed 404 (the reference's other workloads,
-jobs and snapshots are not ported yet).  Errors are typed: the body is
+Every other route answers a typed 404 (the reference's vvc and topo
+workloads, jobs and snapshots are not ported yet).  Errors are typed: the body is
 always ``{"error": {"type": <ServeError.code>, "detail": ...}}`` with
 the matching HTTP status (400 invalid_request, 404 not_found, 429
 overloaded, 503 shutting_down, 504 deadline_exceeded, 500 internal);

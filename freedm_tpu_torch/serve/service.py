@@ -1,11 +1,18 @@
-"""The served power-flow workload and the serving facade.
+"""The served power-flow and N-1 workloads and the serving facade.
 
-Port of the ``pf`` part of ``freedm_tpu/serve/service.py``: snapshot AC
-power flow — a named case plus per-bus injection overrides (or a uniform
-stress ``scale``) — solved by the batched Newton path, one lane per
-request: the dense backend (:mod:`freedm_tpu_torch.pf.newton`) below 512
-buses and the sparse one (:mod:`freedm_tpu_torch.pf.sparse`) at and
-above, under the default ``pf_backend="auto"``.
+Port of the ``pf`` and ``n1`` parts of ``freedm_tpu/serve/service.py``:
+
+- **pf** — snapshot AC power flow: a named case plus per-bus injection
+  overrides (or a uniform stress ``scale``), solved by the batched Newton
+  path, one lane per request: the dense backend
+  (:mod:`freedm_tpu_torch.pf.newton`) below 512 buses and the sparse one
+  (:mod:`freedm_tpu_torch.pf.sparse`) at and above, under the default
+  ``pf_backend="auto"``.
+- **n1** — N-1 contingency screen over a subset of branches
+  (:mod:`freedm_tpu_torch.pf.n1`): the SMW fast-decoupled screen below
+  512 buses, the status-traced sparse screen at and above.  One request
+  = ``len(outages)`` lanes; islanding (bridge) outages are rejected at
+  validation, because their lanes are singular.
 
 Every response carries the solver's own convergence evidence
 (``residual_pu``/``converged``) plus a conservation check (Σ realized P
@@ -19,7 +26,7 @@ validation (an invalid request never occupies queue depth), admission
 incremental cache tier (:mod:`freedm_tpu_torch.serve.cache`, on by
 default as in the reference: exact and verified-delta answers complete
 at submit time, warm hits seed the full solve).  Not ported yet
-(``ROADMAP.md``): the n1/vvc/topo workloads, provenance receipts, the
+(``ROADMAP.md``): the vvc/topo workloads, provenance receipts, the
 consistent-cut ledger and the lane mesh.
 """
 
@@ -61,7 +68,7 @@ from freedm_tpu_torch.serve.queue import (
     Ticket,
 )
 
-WORKLOADS = ("pf",)
+WORKLOADS = ("pf", "n1")
 
 
 # ---------------------------------------------------------------------------
@@ -136,11 +143,40 @@ class PowerFlowResponse:
         return d
 
 
+@dataclass(frozen=True)
+class N1Request:
+    """Contingency screen over a branch subset (indices into the case's
+    branch table; each must be non-islanding)."""
+
+    case: str
+    outages: Sequence[int] = ()
+    timeout_s: float = 30.0
+
+
+@dataclass
+class N1Response:
+    workload: str
+    case: str
+    outages: List[int]
+    converged: List[bool]
+    residual_pu: List[float]
+    v_min_pu: List[float]
+    v_max_pu: List[float]
+    worst_residual_pu: float
+    all_converged: bool
+    batch: BatchInfo
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["batch"] = self.batch.to_dict()
+        return d
+
+
 # ---------------------------------------------------------------------------
 # Case registry
 # ---------------------------------------------------------------------------
 
-#: Bus-system cases servable by pf (MATPOWER builtins).
+#: Bus-system cases servable by pf/n1 (MATPOWER builtins).
 BUS_CASES = ("case14", "case_ieee30")
 
 #: Cap on the client-named synthetic meshN size: the case name is
@@ -373,6 +409,99 @@ class PowerFlowEngine(_Engine):
         return v, theta, p, q, its, conv, mism
 
 
+class N1Engine(_Engine):
+    workload = "n1"
+
+    #: Validation cap on outages per request.
+    MAX_OUTAGES = 256
+
+    def __init__(self, case: str, max_iter: int = 24, backend: str = "auto",
+                 precision: str = "auto", device: DeviceLike = None):
+        super().__init__(case, resolve_device(device))
+        from freedm_tpu_torch.pf.n1 import make_n1_screen, secure_outages
+
+        sys_ = _resolve_bus_case(case)
+        self.pf_backend = resolve_backend(backend, sys_.n_bus)
+        inner = resolve_precision(precision, platform_name(self.device))
+        self.pf_precision = inner if self.pf_backend == "sparse" else "f64"
+        self.n_branch = sys_.n_branch
+        self._secure = sorted(secure_outages(sys_))
+        self._secure_set = frozenset(self._secure)
+        self._screen = make_n1_screen(sys_, max_iter=max_iter,
+                                      backend=backend, precision=precision,
+                                      device=self.device)
+
+    def validate(self, req: N1Request):
+        ks = list(req.outages)
+        if not ks:
+            raise InvalidRequest(
+                "outages must be a non-empty list of branch indices")
+        if len(ks) > self.MAX_OUTAGES:
+            raise InvalidRequest(
+                f"at most {self.MAX_OUTAGES} outages per request, got "
+                f"{len(ks)}"
+            )
+        bad = [
+            k for k in ks
+            if not (isinstance(k, (int, np.integer)) and 0 <= k < self.n_branch)
+        ]
+        if bad:
+            raise InvalidRequest(
+                f"outage indices must be ints in [0, {self.n_branch}), got "
+                f"{bad}"
+            )
+        islanding = [k for k in ks if k not in self._secure_set]
+        if islanding:
+            raise InvalidRequest(
+                f"outages {islanding} island the network (bridge branches); "
+                f"their screen lanes would be singular"
+            )
+        return {"ks": np.asarray(ks, np.int64)}
+
+    def lanes(self, prepared) -> int:
+        return int(prepared["ks"].shape[0])
+
+    def assemble(self, group: List[Ticket], bucket: int):
+        ks = np.concatenate([t.prepared["ks"] for t in group])
+        if ks.shape[0] < bucket:
+            # Pad with replicas of the first requested outage: a real
+            # non-islanding lane the screen solves anyway.
+            ks = np.concatenate(
+                [ks, np.full(bucket - ks.shape[0], ks[0], np.int64)]
+            )
+        return ks
+
+    def solve(self, batch):
+        return self._screen(batch)  # device tensors; the batcher syncs
+
+    def example_request(self):
+        return N1Request(case=self.case, outages=[self._secure[0]])
+
+    def scatter(self, group: List[Ticket], r, info: BatchInfo):
+        v = r.v.cpu().numpy()
+        conv = r.converged.cpu().numpy()
+        mism = r.mismatch.cpu().numpy()
+        off = 0
+        for t in group:
+            k = int(t.prepared["ks"].shape[0])
+            sl = slice(off, off + k)
+            off += k
+            res = mism[sl].astype(np.float64).tolist()
+            t.future.set_result(N1Response(
+                workload="n1",
+                case=self.case,
+                outages=t.prepared["ks"].tolist(),
+                converged=conv[sl].tolist(),
+                residual_pu=res,
+                v_min_pu=v[sl].min(axis=1).astype(np.float64).tolist(),
+                v_max_pu=v[sl].max(axis=1).astype(np.float64).tolist(),
+                worst_residual_pu=max(res),
+                all_converged=bool(conv[sl].all()),
+                batch=info,
+            ))
+        return None
+
+
 def _response_from_solution(eng, request: PowerFlowRequest, sol,
                             info: BatchInfo) -> PowerFlowResponse:
     """A pf response from a cached or corrected solution record
@@ -396,8 +525,8 @@ def _response_from_solution(eng, request: PowerFlowRequest, sol,
     )
 
 
-_ENGINE_TYPES = {"pf": PowerFlowEngine}
-_REQUEST_TYPES = {"pf": PowerFlowRequest}
+_ENGINE_TYPES = {"pf": PowerFlowEngine, "n1": N1Engine}
+_REQUEST_TYPES = {"pf": PowerFlowRequest, "n1": N1Request}
 
 
 def parse_request(workload: str, payload: dict):
@@ -477,6 +606,7 @@ class ServeConfig(NamedTuple):
     queue_depth: int = 512
     default_timeout_s: float = 30.0
     pf_max_iter: int = 12
+    n1_max_iter: int = 24
     buckets: Optional[Tuple[int, ...]] = None
     mesh_devices: int = 0
     pf_backend: str = "auto"
@@ -613,8 +743,9 @@ class Service:
             if eng is not None:  # another submitter built it meanwhile
                 return eng
             cfg = self.config
+            max_iter = {"pf": cfg.pf_max_iter, "n1": cfg.n1_max_iter}[workload]
             eng = _ENGINE_TYPES[workload](
-                case, max_iter=cfg.pf_max_iter, backend=cfg.pf_backend,
+                case, max_iter=max_iter, backend=cfg.pf_backend,
                 precision=cfg.pf_precision, device=self.device,
             )
             if workload == "pf" and self.cache is not None:

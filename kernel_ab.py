@@ -32,7 +32,8 @@ alone), and one default mesh2000 × 64 sparse solve in f64 and in
 mixed is profiled (Newton steps, device operations, device busy and wall
 time).  Each ``OTHER``'s outputs must agree with this checkout's within
 ``chip_smoke.SPARSE_TOL`` (K3 exactly): S1's P, Q and f, S2's y, S3's
-block and S4's update.
+block and S4's update; whether S1's outputs (P, Q, f and the full fill's
+values) are the same bits is reported as ``sparse_assemble_same_bits``.
 
 The ``delta`` section times each checkout's delta program as the serving
 cache builds it (``serve.cache._build_delta_program`` over its own
@@ -188,6 +189,7 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
         k3 = carry()
         nk.newton_update(k3[0], d["dx"], d["f"], d["free"], *k3[1:], 5, tol)
         outs[name] = {"p": p_res.cpu(), "q": q_res.cpu(), "f": f_res.cpu(),
+                      "ev": ev.cpu(), "bv": bv.cpu(),
                       "y": y.cpu(), "vb": vb.cpu(), "valid": valid.cpu(),
                       "xs": xs.cpu(), "k3": [t.cpu() for t in k3]}
         vt, at = d["vb"].clone(), d["valid"].clone()
@@ -330,7 +332,11 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
                  f"S2 {e2}, S3 {e3}, S4 {e4}, K3 identical {same3}")
         errs[name] = {"sparse_assemble": e1, "sparse_matvec": e2,
                       "gmres_block_orth": e3,
-                      "gmres_lstsq": e4, "newton_update": 0.0}
+                      "gmres_lstsq": e4, "newton_update": 0.0,
+                      # S1's outputs bit for bit (checkouts of one layout)
+                      "sparse_assemble_same_bits": all(
+                          cs.same_bits(torch, a[name][k], b[name][k])
+                          for k in ("p", "q", "f", "ev", "bv"))}
     return errs
 
 

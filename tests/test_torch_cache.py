@@ -113,9 +113,15 @@ def test_injection_fn_matches_reference(name):
         assert np.max(np.abs(q[b].numpy() - np.asarray(rq))) <= 1e-12
         p1, q1 = inject(torch.as_tensor(theta[b]), torch.as_tensor(v[b]))
         assert torch.equal(p1, p[b]) and torch.equal(q1, q[b])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        inject(torch.as_tensor(theta), torch.as_tensor(v),
-               status=np.ones(sys.n_branch))
+    # A per-lane branch status: the reference's make_injection_fn(...,
+    # status), each lane its own row, within 1e-12.
+    status = (rng.uniform(size=(3, sys.n_branch)) > 0.2).astype(np.float64)
+    p, q = inject(torch.as_tensor(theta), torch.as_tensor(v), status=status)
+    for b in range(3):
+        rp, rq = ref_inject(jnp.asarray(theta[b]), jnp.asarray(v[b]),
+                            status=jnp.asarray(status[b]))
+        assert np.max(np.abs(p[b].numpy() - np.asarray(rp))) <= 1e-12
+        assert np.max(np.abs(q[b].numpy() - np.asarray(rq))) <= 1e-12
 
 
 def _smw_problem(n=30, k=2, seed=4):
@@ -383,8 +389,8 @@ def test_entry_byte_accounting_equals_the_reference(name, backend):
     assert entry.artifact_bytes == ref_entry.artifact_bytes > 0
     assert (entry.pattern is None) == (backend == "dense")
     assert entry.key == ref_entry.key
-    with pytest.raises(NotImplementedError, match="item 8"):
-        entry.dc_solver()
+    dc = entry.dc_solver()  # the DC screen on the entry's own B′ pair
+    assert entry.dc_solver() is dc
 
 
 # ---------------------------------------------------------------------------

@@ -40,8 +40,9 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
         "                               'freedm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('freedm_tpu_torch.serve.cache', 'freedm_tpu_torch.pf.mfree',\n"
-        "          'freedm_tpu_torch.pf.n1',\n"
-        "          'freedm_tpu_torch.kernels.cache_kernels'):\n"
+        "          'freedm_tpu_torch.pf.n1', 'freedm_tpu_torch.pf.dc',\n"
+        "          'freedm_tpu_torch.kernels.cache_kernels',\n"
+        "          'freedm_tpu_torch.kernels.screen_kernels'):\n"
         "    assert m in sys.modules, m\n"
         "import chip_smoke, kernel_ab\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -61,9 +62,11 @@ def test_static_scan_finds_no_jax_or_reference_import():
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py",
                                              REPO / "kernel_ab.py"]
     assert len(files) >= 15
-    # Among them the modules the kernel redesigns touch, and the cache
-    # slice's.
+    # Among them the modules the kernel redesigns touch, the cache
+    # slice's and the screening slice's.
     assert {PACKAGE / "kernels" / "newton_kernels.py",
+            PACKAGE / "kernels" / "screen_kernels.py",
+            PACKAGE / "pf" / "dc.py",
             PACKAGE / "kernels" / "sparse_kernels.py",
             PACKAGE / "pf" / "newton.py", PACKAGE / "pf" / "sparse.py",
             PACKAGE / "pf" / "krylov.py",
@@ -162,6 +165,9 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
     from freedm_tpu_torch.kernels import cache_kernels as ck
 
     assert set(ck.launches()) == {"delta_program"}
+    from freedm_tpu_torch.kernels import screen_kernels as sck
+
+    assert set(sck.launches()) == {"smw_sweep", "dc_screen"}
     vb = torch.zeros(2, 17, 8, dtype=torch.float64)
     with pytest.raises(ValueError, match="contiguous"):
         sk._want(vb, {"w": (vb[:, :4], torch.float64, (2, 4, 8))})

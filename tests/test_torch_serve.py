@@ -136,6 +136,10 @@ def test_http_roundtrip_and_typed_errors(services):
         assert status == 400
         status, data = _post(server.port, "/v1/n1",
                              json.dumps({"case": "case14"}))
+        assert status == 400  # the n1 workload is served: no outages
+        assert json.loads(data)["error"]["type"] == "invalid_request"
+        status, data = _post(server.port, "/v1/vvc",
+                             json.dumps({"case": "case14"}))
         assert status == 404
         assert json.loads(data)["error"]["type"] == "not_found"
 

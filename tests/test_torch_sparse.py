@@ -305,8 +305,10 @@ def test_solver_argument_errors_are_typed(mesh118):
                                                 device="cpu")
     with pytest.raises(ValueError, match="one row per lane"):
         solve(p_inj=np.zeros(sys.n_bus))
-    with pytest.raises(NotImplementedError, match="status"):
-        solve(status=np.ones(sys.n_branch))
+    with pytest.raises(ValueError, match="status"):
+        solve(status=np.ones(sys.n_branch + 1))
+    with pytest.raises(ValueError, match="lane counts"):
+        solve(status=np.ones((2, sys.n_branch)), p_inj=np.zeros((3, sys.n_bus)))
     with pytest.raises(NotImplementedError, match="mesh"):
         sparse.make_sparse_newton_solver(sys, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="precision"):
