@@ -9,13 +9,14 @@ dense Newton backend (K1-K3), the sparse one (S1-S4), which the default
 server takes at 512 buses and more, and the serving cache's delta tier
 (C1); ``POST /v1/n1`` on the SMW screen (N1) below 512 buses and the
 status-traced sparse screen (S1 with status, S2-S4, K3) at and above;
-the DC solver and ``dc_prefilter`` (D1).
+the DC solver and ``dc_prefilter`` (D1); the radial ladder solve (L1)
+and its adjoint (L2) under the VVC controller, and ``POST /v1/vvc`` (L1).
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build: four ``nvcc`` runs started together compile
+1. build: five ``nvcc`` runs started together compile
    ``freedm_tpu_torch/kernels/csrc/newton.cu``, ``sparse.cu``,
-   ``cache.cu`` and ``screen.cu`` for ``sm_90a``; prints the build
-   seconds and the ``-Xptxas -v`` reports;
+   ``cache.cu``, ``screen.cu`` and ``ladder.cu`` for ``sm_90a``; prints
+   the build seconds and the ``-Xptxas -v`` reports;
 2. kernels: each kernel against its plain PyTorch version on the card at
    n ∈ {14, 30, 118, 2000} buses and B ∈ {1, 3, 64} lanes (float64,
    1e-10 absolute on J, f, P, Q — the sums run in another order; K3
@@ -121,7 +122,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    all_converged with ``v_min_pu``/``v_max_pu`` within 1e-9 pu of the
    direct screen of the same outages; an islanding outage refused (400);
    p50/p99 latency and lanes a batch; S1 (with status on every call),
-   S2-S4 and N1 launched.
+   S2-S4 and N1 launched;
+12. ladder kernels: L1 against its plain version through
+   ``make_ladder_solver`` and its ``plain=True`` twin on vvc_9bus, the Dl
+   table (``tests/data/Dl_new.mat``, 0.5 × load, 60 iterations),
+   ``synthetic_radial(512, seed=0)`` and ``synthetic_radial(10000,
+   seed=0, load_kw=1.0)`` × B ∈ {1, 8, 64} (load scales uniform in
+   0.7-1.3, ``default_rng(0)``) × {solve, solve_fixed} × {float64,
+   float32} (``LADDER_ATOL``: 1e-10 pu with equal iterations and flags,
+   1e-4 pu with equal flags, on the lanes that converge; a lane in
+   voltage collapse is held to equal flags and iterations and every
+   lane's single iteration to the same limits; a float32 flag whose
+   residual lies within rounding of eps, ``F32_FLAG_ULPS``, is printed;
+   bit-identical on repeat); L2 through
+   ``LadderFixed`` against ``torch.autograd.grad`` of the plain fixed
+   solve for the total loss in Q on vvc_9bus and the 10k feeder × {1,
+   64} (rtol 1e-8, atol 1e-10) and a central difference on three live
+   coordinates at 10k × 1 (1e-4); then their times (events and device
+   time) at the 10k feeder × 64 and × 1 and vvc_9bus × 64 beside the
+   plain versions and the bounds;
+13. vvc: one controller step on vvc_9bus from zero q at loads P·(1 +
+   0.6j) — it improves and is within 1e-9 of the plain step, one L2
+   launch —, 120 rounds (non-increasing, below 0.92 of the base, L2
+   once a round), one step on the 10k feeder × 64 lanes (per-lane alphas
+   equal to the plain step's, losses within 1e-9 relative);
+14. serve vvc: the default server, 64 concurrent ``POST /v1/vvc`` to
+   vvc_9bus with random q in ±50 kvar on live phases (seed 9): every
+   answer 200 and converged, loss and voltage extremes within 1e-9 of a
+   direct ``solve_fixed``; p50/p99; L1 launched over the burst.
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
@@ -130,7 +158,8 @@ status-mode times ``*_status_x64``/``*_status_x256`` with device times
 in turns with and without status on the same inputs
 (``device_ms_turns_*``), its served launches by mode,
 ``launches_by_mode``, and those of the n1 path, all with status; N1 and
-D1 their other modes' times); the last line is ``{"ok": true, "device":
+D1 their other modes' times; L1 and L2 their per-iteration device times
+and other shapes); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -179,7 +208,7 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def build_kernels(torch, nk, sk, ck, sck, build):
+def build_kernels(torch, nk, sk, ck, sck, lk, build):
     t0 = time.monotonic()
     box = {}
 
@@ -189,8 +218,9 @@ def build_kernels(torch, nk, sk, ck, sck, build):
         except Exception as e:  # noqa: BLE001 — re-raised on the main thread
             box["error"] = e
 
+    names = ("newton", "sparse", "cache", "screen", "ladder")
     threads = [threading.Thread(target=run_nvcc, args=(name,))
-               for name in ("newton", "sparse", "cache", "screen")]
+               for name in names]
     for th in threads:
         th.start()
     for th in threads:
@@ -201,8 +231,8 @@ def build_kernels(torch, nk, sk, ck, sck, build):
     sk._sparse_lib()
     ck._cache_lib()
     sck._screen_lib()
+    lk._ladder_lib()
     t_all = time.monotonic() - t0
-    names = ("newton", "sparse", "cache", "screen")
     log(f"build: nvcc x{len(names)} {t_all:.1f} s ("
         + ", ".join(f"{k}.cu {box[k][1]:.1f} s" for k in names) + "), "
         + ", ".join(box[k][0].name for k in names))
@@ -2716,6 +2746,546 @@ def serve_n1(torch, sk, sck, nk, dev="cuda", case="mesh2000"):
         svc.stop()
 
 
+# ---------------------------------------------------------------------------
+# Phases 12-14: the ladder kernels (L1, L2), the VVC controller, serve vvc
+# ---------------------------------------------------------------------------
+
+LADDER_LANES = (1, 8, MAIN_LANES)
+#: f64: the sums run in another order than the plain version's (1e-14
+#: seen); f32: a 10k-bus feeder's prefix sums lose relative precision.
+LADDER_ATOL = {"float64": 1e-10, "float32": 1e-4}
+#: The ladder's convergence threshold (``make_ladder_solver``'s eps).
+LADDER_EPS = 1e-4
+#: float32 flags: a lane whose residual lies within this many float32
+#: ulps of its largest root current from eps converges or not by rounding
+#: (the residual is the change of a root current that sums nb rounded
+#: terms a sweep), so its flag is printed, not gated.
+F32_FLAG_ULPS = 64
+GRAD_RTOL = 1e-8
+GRAD_ATOL = 1e-10
+FD_REL = 1e-4
+VVC_ATOL = 1e-9
+VVC_ROUNDS = 120
+VVC_BURST = 64
+#: Operations a branch and iteration: L1 (the complex division of the
+#: load currents ~30, the two prefixes ~24 with their y and group sums,
+#: the branch currents and root error ~21, the 3 × 3 complex drop 72, the
+#: voltage update 12) and L2 (the masked prefix ~18, the adjoint drop 72,
+#: the path prefix ~18, the two complex divisions of the load-current
+#: derivative ~96).
+L1_OPS = 171
+L2_OPS = 210
+
+
+def ladder_feeders():
+    """The phase's feeders: (name, feeder, load factor, max_iter)."""
+    from pathlib import Path
+
+    from freedm_tpu_torch.grid import cases, feeder
+
+    dl = Path(__file__).resolve().parent / "tests" / "data" / "Dl_new.mat"
+    return (("vvc_9bus", cases.vvc_9bus(), 1.0, 20),
+            ("Dl_new", feeder.load_dl_mat(str(dl)), 0.5, 60),
+            ("radial512", cases.synthetic_radial(512, seed=0), 1.0, 20),
+            ("radial10k", cases.synthetic_radial(10000, seed=0, load_kw=1.0),
+             1.0, 20))
+
+
+def lane_loads(f, lanes, factor=1.0):
+    """``lanes`` load lanes: the feeder's loads times scales uniform in
+    0.7-1.3 from ``default_rng(0)`` (the reference's ``bench.py``)."""
+    scale = np.random.default_rng(0).uniform(0.7, 1.3, (lanes, 1, 1))
+    return factor * scale * f.s_load[None]
+
+
+def ladder_same_bits(torch, a, b):
+    return all(torch.equal(getattr(a, k).re, getattr(b, k).re)
+               and torch.equal(getattr(a, k).im, getattr(b, k).im)
+               for k in ("v_node", "i_branch", "i_load"))
+
+
+def lane_gaps(torch, a, b):
+    """Per lane, the largest |a - b| over v_node, i_branch and i_load."""
+    out = None
+    for k in ("v_node", "i_branch", "i_load"):
+        for part in ("re", "im"):
+            d = (getattr(getattr(a, k), part) - getattr(getattr(b, k), part))
+            d = d.abs().flatten(1).amax(dim=1)
+            out = d if out is None else torch.maximum(out, d)
+    return out
+
+
+def compare_ladder(torch, errs):
+    """L1 against its plain version on the card: every feeder of
+    :func:`ladder_feeders` × B ∈ {1, 8, 64} × {solve, solve_fixed} ×
+    {float64, float32} through ``make_ladder_solver`` and its
+    ``plain=True`` twin, and bit-identical on repeat.  Lanes the plain
+    version finds converged are held to ``LADDER_ATOL``; a lane in
+    voltage collapse (radial512 at 1.1-1.3 × load: the ladder diverges
+    there, as the reference's does) is held to equal flags and
+    iterations, its gap printed — its iteration is no contraction, and
+    two float64 summation orders part exponentially on it (on the CPU
+    L1's plain sweeps and the doubling sweeps: 8e-15 after one
+    iteration, 7.6e-11 after 20) — and every lane's iteration map is held
+    to ``LADDER_ATOL`` by a one-iteration fixed solve.  In float32 a
+    lane's flag is gated unless its residual lies within
+    ``F32_FLAG_ULPS`` of eps."""
+    from freedm_tpu_torch.pf.ladder import make_ladder_solver
+
+    worst = {"float64": 0.0, "float32": 0.0}
+    for name, f, factor, max_iter in ladder_feeders():
+        for dtype in (torch.float64, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            tol = LADDER_ATOL[dn]
+            kern = make_ladder_solver(f, max_iter=max_iter, dtype=dtype,
+                                      device="cuda")
+            plain = make_ladder_solver(f, max_iter=max_iter, dtype=dtype,
+                                       device="cuda", plain=True)
+            its, diverged, div_gap, near, flipped = set(), 0, 0.0, 0, 0
+            root = torch.as_tensor(f.parent < 0, device="cuda")
+            for lanes in LADDER_LANES:
+                loads = lane_loads(f, lanes, factor)
+                for mode, label in ((0, "solve"), (1, "solve_fixed")):
+                    a, a2 = kern[mode](loads), kern[mode](loads)
+                    p = plain[mode](loads)
+                    torch.cuda.synchronize()
+                    gaps = lane_gaps(torch, a, p)
+                    where = f"ladder {name} {dn} x{lanes} {label}"
+                    clear = torch.ones_like(p.converged)
+                    if dn == "float32":
+                        i_root = p.i_branch.abs()[:, root].flatten(1).amax(1)
+                        band = F32_FLAG_ULPS * torch.finfo(dtype).eps * i_root
+                        clear = (p.residual - LADDER_EPS).abs() > band
+                        near += int((~clear).sum())
+                        flipped += int((a.converged != p.converged).sum())
+                    check(torch.equal(a.converged[clear],
+                                      p.converged[clear]),
+                          f"{where}: converged flags differ")
+                    conv = p.converged & a.converged
+                    err = float(gaps[conv].max()) if bool(conv.any()) else 0.0
+                    check(err <= tol, f"{where}: {err:.3e} from the plain "
+                          f"version on a converged lane")
+                    check(dn == "float32"
+                          or torch.equal(a.iterations, p.iterations),
+                          f"{where}: iterations {a.iterations.tolist()} vs "
+                          f"{p.iterations.tolist()}")
+                    check(ladder_same_bits(torch, a, a2),
+                          f"{where}: not bit-identical on repeat")
+                    worst[dn] = max(worst[dn], err)
+                    its.update(a.iterations.tolist())
+                    if not bool(conv.all()):
+                        diverged += int((~conv).sum())
+                        div_gap = max(div_gap, float(gaps[~conv].max()))
+            loads = lane_loads(f, LADDER_LANES[-1], factor)
+            one = [make_ladder_solver(f, max_iter=1, dtype=dtype,
+                                      device="cuda", plain=pl)[1](loads)
+                   for pl in (False, True)]
+            torch.cuda.synchronize()
+            err1 = float(lane_gaps(torch, *one).max())
+            check(err1 <= tol, f"ladder {name} {dn}: one iteration "
+                  f"{err1:.3e} from the plain version")
+            worst[dn] = max(worst[dn], err1)
+            log(f"ladder kernels: {name:<9} (nb {f.n_branches}) {dn} B "
+                f"{LADDER_LANES} solve/fixed: iterations {min(its)}-"
+                f"{max(its)}, flags equal, bit-identical on repeat; one "
+                f"iteration x{LADDER_LANES[-1]} {err1:.2e}"
+                + (f"; {diverged} lane solves not converged (voltage collapse), "
+                   f"their gap {div_gap:.2e}, not gated" if diverged else "")
+                + (f"; {near} lane solves within {F32_FLAG_ULPS} ulps of eps "
+                   f"(flags not gated, {flipped} differ)" if near else ""))
+    errs["ladder_solve"] = worst["float64"]
+    log(f"ladder kernels: L1 max |kernel - plain| f64 {worst['float64']:.3e}"
+        f" pu (limit 1e-10), f32 {worst['float32']:.3e} (limit 1e-4)")
+    return worst
+
+
+def compare_ladder_vjp(torch, errs):
+    """L2 (through ``LadderFixed``) against ``torch.autograd.grad`` of
+    the plain fixed solve, for the total loss in Q, on vvc_9bus and the
+    10k feeder × {1, 64}; then a central difference on three live
+    coordinates at 10k × 1."""
+    from freedm_tpu_torch.pf.ladder import make_ladder_solver, total_loss_kw
+
+    feeders = {n: f for n, f, _, _ in ladder_feeders()}
+    worst = 0.0
+    dev = torch.device("cuda")
+    for name in ("vvc_9bus", "radial10k"):
+        f = feeders[name]
+        for lanes in (1, MAIN_LANES):
+            loads = lane_loads(f, lanes)
+            p = torch.tensor(loads.real, dtype=torch.float64, device=dev)
+            grads = []
+            for plain in (False, True):
+                _, fixed = make_ladder_solver(f, device=dev, plain=plain)
+                q = torch.tensor(loads.imag, dtype=torch.float64, device=dev,
+                                 requires_grad=True)
+                loss = total_loss_kw(f, fixed((p, q))).sum()
+                grads.append(torch.autograd.grad(loss, q)[0])
+            torch.cuda.synchronize()
+            g, want = grads
+            check(bool(torch.isfinite(g).all()), f"L2 {name}: non-finite")
+            excess = float(((g - want).abs() - GRAD_RTOL * want.abs()).max())
+            check(excess <= GRAD_ATOL,
+                  f"L2 {name} x{lanes}: |g - autograd| beyond rtol 1e-8 by "
+                  f"{excess:.3e} (atol 1e-10)")
+            gap = max_err(g, want)
+            worst = max(worst, gap)
+            log(f"ladder vjp: {name} x{lanes}: max |L2 - autograd of the "
+                f"plain fixed solve| {gap:.3e} (max |g| "
+                f"{float(want.abs().max()):.3e})")
+    f = feeders["radial10k"]
+    _, fixed = make_ladder_solver(f, device=dev)
+    p = torch.tensor(f.s_load.real, dtype=torch.float64, device=dev)
+    q0 = torch.tensor(f.s_load.imag, dtype=torch.float64, device=dev)
+
+    def loss(q):
+        return float(total_loss_kw(f, fixed((p, q))))
+
+    qg = q0.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(total_loss_kw(f, fixed((p, qg))), qg)
+    h = 1e-3
+    for idx in ((0, 0), (f.n_branches // 2, 1), (f.n_branches - 1, 2)):
+        e = torch.zeros_like(q0)
+        e[idx] = h
+        fd = (loss(q0 + e) - loss(q0 - e)) / (2 * h)
+        rel = abs(fd - float(g[idx])) / max(abs(fd), 1e-30)
+        check(rel <= FD_REL, f"L2 radial10k x1 {idx}: gradient "
+              f"{float(g[idx]):.6e} vs central difference {fd:.6e}")
+        log(f"ladder vjp: radial10k x1 dloss/dq{idx} = {float(g[idx]):.9e}, "
+            f"central difference {fd:.9e} (rel {rel:.2e})")
+    errs["ladder_vjp"] = worst
+
+
+def ladder_device_ms(torch, fn, reps, log_key):
+    """Device time of one call of ``fn``: the profiler's kernel rows
+    (:func:`device_ms`), or, where a trace holds no device events for the
+    ladder kernels, CUDA events around each call with the device idle
+    before it (the launch gap counted in: a few µs).  Returns (ms,
+    source)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and getattr(e, "self_device_time_total", 0) > 0]
+    if rows:
+        return sum(e.self_device_time_total for e in rows) / 1e3 / reps, \
+            "profiler"
+    top = sorted(prof.key_averages(), key=lambda e: -e.cpu_time_total)
+    n_dev = sum(1 for e in prof.events()
+                if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    log(f"timing: {log_key}: the trace holds no device time "
+        f"({len(prof.events())} events, {n_dev} on the device; top CPU rows "
+        + ", ".join(f"{e.key} {getattr(e, 'device_type', '')}"
+                    for e in top[:4]) + "); CUDA events per call")
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts)), "events per call"
+
+
+
+def preorder_inputs(torch, lk, f, lanes, dtype):
+    """L1's raw operands for ``lanes`` load lanes of feeder ``f``."""
+    from freedm_tpu_torch.cplx import C
+    from freedm_tpu_torch.pf.ladder import SOURCE_UNIT
+
+    dev = torch.device("cuda")
+    work, perm = f.reorder_preorder()
+    op = lk.ladder_operands(work, dtype, dev)
+    s = lane_loads(f, lanes)[:, perm] / f.s_base_per_phase_kva
+    u = SOURCE_UNIT * f.v_source_pu
+
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    return (C(t(s.real), t(s.imag)),
+            C(t(np.tile(u.real, (lanes, 1))), t(np.tile(u.imag, (lanes, 1)))),
+            op)
+
+
+def ladder_bytes(op, lanes, w, iters, save):
+    """L1's inputs read once and outputs written once (the saved iterates
+    too, when asked)."""
+    nb = op.nb
+    tree = w * (3 * nb + 18 * nb + nb) + 4 * (2 * nb + 1
+                                              + int(op.grp_idx.shape[0]))
+    out = w * 18 * lanes * nb + (4 + w + 1) * lanes
+    return (w * (6 * lanes * nb + 6 * lanes) + tree + out
+            + (w * 6 * lanes * nb * iters if save else 0))
+
+
+def time_ladder(torch, lk, rows, extra):
+    """L1 and L2 at the VVC shapes, CUDA events and device time, beside
+    the plain versions and the bounds: the 10k feeder × 64 (the table's
+    row) and × 1 lanes, 20 fixed iterations, float64 (and float32 for
+    L1), and L1 on the served vvc_9bus × 64.  Device time by
+    :func:`ladder_device_ms`, its source recorded."""
+    feeders = {n: f for n, f, _, _ in ladder_feeders()}
+    eps, iters = LADDER_EPS, 20
+    for name, lanes, dtype in (("radial10k", MAIN_LANES, torch.float64),
+                               ("radial10k", 1, torch.float64),
+                               ("radial10k", MAIN_LANES, torch.float32),
+                               ("vvc_9bus", MAIN_LANES, torch.float64)):
+        f = feeders[name]
+        s, v0, op = preorder_inputs(torch, lk, f, lanes, dtype)
+        nb, w = op.nb, (8 if dtype == torch.float64 else 4)
+        fp64 = dtype == torch.float64
+        fixed = lambda: lk.ladder_solve(s, v0, op, eps, iters, True)  # noqa: E731
+        saving = lambda: lk.ladder_solve(s, v0, op, eps, iters, True,  # noqa: E731
+                                         save=True)
+        solving = lambda: lk.ladder_solve(s, v0, op, eps, iters, False)  # noqa: E731
+        tag = f"{name} x{lanes} {str(dtype).split('.')[-1]}"
+        k = time_ms(torch, fixed, reps=10)
+        kd, src = ladder_device_ms(torch, fixed, 5, f"L1 fixed {tag}")
+        k_save = time_ms(torch, saving, reps=5)
+        kd_save, src_save = ladder_device_ms(torch, saving, 5,
+                                             f"L1 fixed+save {tag}")
+        k_solve = time_ms(torch, solving, reps=10)
+        kd_solve, src_solve = ladder_device_ms(torch, solving, 5,
+                                               f"L1 solve {tag}")
+        pl = time_ms(torch, lambda: lk.ladder_solve_plain(
+            s, v0, op, eps, iters, True), reps=2)
+        b, by = bound(ladder_bytes(op, lanes, w, iters, False),
+                      L1_OPS * nb * lanes * iters, fp64)
+        sv = saving()
+        n_it = int(solving().iterations.sum())
+        key = f"{name}_x{lanes}_{str(dtype).split('.')[-1]}"
+        row = {"ms": k, "device_ms": kd, "plain_ms": pl, "bound_ms": b,
+               "bound_by": by, "device_ms_per_iteration": kd / iters,
+               "device_ms_source": src, "ms_save": k_save,
+               "device_ms_save": kd_save, "device_ms_source_save": src_save,
+               "ms_solve": k_solve, "device_ms_solve": kd_solve,
+               "device_ms_source_solve": src_solve,
+               "solve_iterations": n_it}
+        log(f"timing: ladder_solve {tag} fixed x{iters}: kernel {k:.4f} ms "
+            f"(device {kd:.4f} [{src}], {kd / iters:.5f} an iteration); "
+            f"saving iterates {k_save:.4f} (device {kd_save:.4f} "
+            f"[{src_save}]); solve mode {k_solve:.4f} (device "
+            f"{kd_solve:.4f} [{src_solve}]) for {n_it} lane-iterations; "
+            f"plain {pl:.4f} ms  bound {b:.5f} ms ({by})")
+        if name == "radial10k" and lanes == MAIN_LANES and fp64:
+            rows["ladder_solve"] = (k, pl, None, b, by)
+            extra["ladder_solve"] = {"device_ms": kd, "shape": (
+                f"synthetic_radial(10000) x{lanes} f64, solve_fixed, "
+                f"{iters} iterations"), **{k_: v for k_, v in row.items()
+                                           if k_ not in ("ms", "plain_ms",
+                                                         "bound_ms",
+                                                         "bound_by")}}
+        else:
+            extra["ladder_solve"].setdefault("shapes", {})[key] = row
+        if not fp64:
+            continue
+        rng = np.random.default_rng(5)
+        from freedm_tpu_torch.cplx import C
+
+        gs = [C(torch.tensor(rng.normal(size=(lanes, nb, 3)), dtype=dtype,
+                             device="cuda"),
+                torch.tensor(rng.normal(size=(lanes, nb, 3)), dtype=dtype,
+                             device="cuda")) for _ in range(3)]
+        vjp = lambda: lk.ladder_vjp(sv.saved, s, op, *gs)  # noqa: E731
+        k2 = time_ms(torch, vjp, reps=10)
+        kd2, src2 = ladder_device_ms(torch, vjp, 5, f"L2 {tag}")
+        pl2 = time_ms(torch, lambda: lk.ladder_vjp_plain(sv.saved, s, op,
+                                                         *gs), reps=1)
+        tree = w * (3 * nb + 18 * nb) + 4 * (2 * nb + 1
+                                             + int(op.grp_idx.shape[0]))
+        b2, by2 = bound(w * 6 * lanes * nb * iters + w * 6 * lanes * nb * 4
+                        + tree, L2_OPS * nb * lanes * iters)
+        log(f"timing: ladder_vjp   {tag} {iters} iterates: kernel {k2:.4f} ms "
+            f"(device {kd2:.4f} [{src2}], {kd2 / iters:.5f} an iteration)  "
+            f"plain {pl2:.4f} ms  bound {b2:.5f} ms ({by2})")
+        if name == "radial10k" and lanes == MAIN_LANES:
+            rows["ladder_vjp"] = (k2, pl2, None, b2, by2)
+            extra["ladder_vjp"] = {
+                "device_ms": kd2, "device_ms_per_iteration": kd2 / iters,
+                "device_ms_source": src2,
+                "shape": f"synthetic_radial(10000) x{lanes} f64, {iters} "
+                         f"saved iterates"}
+        else:
+            extra["ladder_vjp"].update({f"ms_{key}": k2,
+                                        f"device_ms_{key}": kd2,
+                                        f"device_ms_source_{key}": src2,
+                                        f"plain_ms_{key}": pl2,
+                                        f"bound_ms_{key}": b2})
+        del sv, gs
+    torch.cuda.empty_cache()
+
+
+def vvc_phase(torch, lk):
+    """The controller through its entry points on the card: one step on
+    vvc_9bus from zero q at loads P·(1 + 0.6j) against the plain step,
+    120 rounds, one step on the 10k feeder × 64 lanes against the plain
+    step.  Counts reset before each and read after; L2 launches once a
+    step.  Returns the counts of the 10k step."""
+    from freedm_tpu_torch.grid import cases
+    from freedm_tpu_torch.modules import vvc
+
+    f = cases.vvc_9bus()
+    s = f.s_load.real * (1 + 0.6j)
+    q0 = np.zeros((f.n_branches, 3))
+    step = vvc.make_vvc_controller(f, device="cuda")
+    plain = vvc.make_vvc_controller(f, device="cuda", plain=True)
+    step(s, q0)  # warm-up: the timed step below is a steady one
+    lk.reset_launches()
+    t0 = time.monotonic()
+    out = step(s, q0)
+    torch.cuda.synchronize()
+    wall = (time.monotonic() - t0) * 1e3
+    counts = lk.launches()
+    want = plain(s, q0)
+    gap = 0.0
+    for k in vvc.VVCStep._fields:
+        a, b = getattr(out, k), getattr(want, k)
+        if a.dtype == torch.bool:
+            check(torch.equal(a, b), f"vvc 9bus step: {k} differs")
+        else:
+            gap = max(gap, max_err(a, b))
+    check(gap <= VVC_ATOL, f"vvc 9bus step: {gap:.3e} from the plain step")
+    check(bool(out.improved) and float(out.loss_after_kw)
+          < float(out.loss_before_kw), f"vvc 9bus step did not improve: {out}")
+    check(counts["ladder_vjp"] == 1 and counts["ladder_solve"] >= 2,
+          f"vvc 9bus step launches {counts}")
+    log(f"vvc: 9bus step {float(out.loss_before_kw):.6f} -> "
+        f"{float(out.loss_after_kw):.6f} kW, alpha {float(out.alpha):g}, "
+        f"{wall:.2f} ms wall, launches {counts}, max |kernel - plain step| "
+        f"{gap:.3e}")
+    lk.reset_launches()
+    t0 = time.monotonic()
+    qf, losses, alphas, improved = vvc.run_rounds(step, s, q0, VVC_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = lk.launches()
+    ls = losses.cpu().numpy()
+    check(bool(np.all(np.diff(ls) <= 1e-12)), "vvc rounds: loss increased")
+    check(ls[-1] < 0.92 * float(out.loss_before_kw),
+          f"vvc rounds: {ls[-1]:.6f} kW not below 0.92 x base "
+          f"{float(out.loss_before_kw):.6f}")
+    check(counts["ladder_vjp"] == VVC_ROUNDS,
+          f"vvc rounds: L2 launched {counts['ladder_vjp']} times")
+    log(f"vvc: {VVC_ROUNDS} rounds {ls[0]:.6f} -> {ls[-1]:.6f} kW "
+        f"({ls[-1] / float(out.loss_before_kw):.4f} of the base), "
+        f"{int(improved.sum())} improved, {wall:.2f} s "
+        f"({wall / VVC_ROUNDS * 1e3:.2f} ms a round), launches {counts}")
+    f10 = cases.synthetic_radial(10000, seed=0, load_kw=1.0)
+    loads = lane_loads(f10, MAIN_LANES)
+    q10 = np.zeros((f10.n_branches, 3))
+    step10 = vvc.make_vvc_controller(f10, device="cuda")
+    plain10 = vvc.make_vvc_controller(f10, device="cuda", plain=True)
+    step10(loads, q10)
+    lk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = step10(loads, q10)
+    torch.cuda.synchronize()
+    wall = (time.monotonic() - t0) * 1e3
+    counts = lk.launches()
+    t0 = time.monotonic()
+    want = plain10(loads, q10)
+    torch.cuda.synchronize()
+    plain_wall = (time.monotonic() - t0) * 1e3
+    check(torch.equal(got.alpha, want.alpha)
+          and torch.equal(got.improved, want.improved),
+          f"vvc 10k x64: alphas {got.alpha.tolist()} vs "
+          f"{want.alpha.tolist()}")
+    rel = max(float(((getattr(got, k) - getattr(want, k)).abs()
+                     / getattr(want, k).abs().clamp_min(1.0)).max())
+              for k in ("loss_before_kw", "loss_after_kw"))
+    check(rel <= VVC_ATOL, f"vvc 10k x64: losses {rel:.3e} from the plain "
+          f"step's")
+    check(counts["ladder_vjp"] == 1, f"vvc 10k x64 launches {counts}")
+    log(f"vvc: 10k x{MAIN_LANES} step: {wall:.2f} ms wall (plain step "
+        f"{plain_wall:.1f} ms), alphas {sorted(set(got.alpha.tolist()))}, "
+        f"{int(got.improved.sum())} of {MAIN_LANES} improved, losses "
+        f"{float(got.loss_before_kw.mean()):.4f} -> "
+        f"{float(got.loss_after_kw.mean()):.4f} kW a lane, max relative "
+        f"|kernel - plain| of the losses {rel:.3e}, launches {counts}")
+    return counts
+
+
+def post_vvc(port, body):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.monotonic()
+    conn.request("POST", "/v1/vvc", body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    lat = time.monotonic() - t0
+    conn.close()
+    return resp.status, data, lat
+
+
+def serve_vvc(torch, lk):
+    """``POST /v1/vvc`` on the default config: 64 concurrent what-ifs to
+    vvc_9bus, random q in ±50 kvar on live phases (seed 9), each answer
+    200 and converged, its loss and voltage extremes within 1e-9 of a
+    direct ``solve_fixed``.  Returns the launch counts over the burst."""
+    from freedm_tpu_torch.pf.ladder import make_ladder_solver, total_loss_kw
+    from freedm_tpu_torch.serve.http import ServeServer
+    from freedm_tpu_torch.serve.service import ServeConfig, Service
+
+    svc = Service(ServeConfig(device="cuda"))
+    server = ServeServer(svc).start()
+    try:
+        eng = svc.engine("vvc", "vvc_9bus")
+        f = eng._feeder
+        mask = f.phase_mask
+        rng = np.random.default_rng(9)
+        qs = [rng.uniform(-50.0, 50.0, (f.n_branches, 3)) * mask
+              for _ in range(VVC_BURST)]
+        status, data, _ = post_vvc(server.port, {
+            "case": "vvc_9bus", "q_ctrl_kvar": qs[0].tolist()})
+        check(status == 200, f"serve vvc warm-up: HTTP {status} {data}")
+        lk.reset_launches()
+        t0 = time.monotonic()
+        with cf.ThreadPoolExecutor(VVC_BURST) as ex:
+            out = list(ex.map(lambda q: post_vvc(server.port, {
+                "case": "vvc_9bus", "q_ctrl_kvar": q.tolist()}), qs))
+        wall = time.monotonic() - t0
+        counts = lk.launches()
+        _, fixed = make_ladder_solver(f, max_iter=20, device="cuda")
+        s = np.stack([f.s_load.real + 1j * (f.s_load.imag - q) for q in qs])
+        res = fixed(s)
+        loss = total_loss_kw(f, res).cpu().numpy()
+        live = np.concatenate([np.ones((1, 3)), mask]) > 0
+        vm = res.v_node.abs().cpu().numpy()[:, live]
+        worst = 0.0
+        for i, (status, body, _) in enumerate(out):
+            check(status == 200 and body["converged"],
+                  f"serve vvc: HTTP {status}: {str(body)[:300]}")
+            worst = max(worst, abs(body["loss_kw"] - loss[i]),
+                        abs(body["v_min_pu"] - vm[i].min()),
+                        abs(body["v_max_pu"] - vm[i].max()))
+        check(worst <= VVC_ATOL,
+              f"serve vvc: answers {worst:.3e} from the direct solve")
+        lat = np.array([x for _, _, x in out]) * 1e3
+        lanes = [b["batch"]["lanes"] for _, b, _ in out]
+        log(f"serve vvc: {VVC_BURST} concurrent requests {VVC_BURST / wall:.1f}"
+            f" what-ifs/s  p50 {np.percentile(lat, 50):.1f} ms  p99 "
+            f"{np.percentile(lat, 99):.1f} ms  lanes a batch "
+            f"{min(lanes)}-{max(lanes)}, max |answer - direct solve_fixed| "
+            f"{worst:.3e}, launches {counts}")
+        check(counts["ladder_solve"] > 0,
+              f"L1 was not launched on the vvc path: {counts}")
+        return counts
+    finally:
+        server.stop()
+        svc.stop()
+
+
 def main() -> int:
     import torch
 
@@ -2725,6 +3295,7 @@ def main() -> int:
         return 2
     from freedm_tpu_torch.kernels import build
     from freedm_tpu_torch.kernels import cache_kernels as ck
+    from freedm_tpu_torch.kernels import ladder_kernels as lk
     from freedm_tpu_torch.kernels import newton_kernels as nk
     from freedm_tpu_torch.kernels import screen_kernels as sck
     from freedm_tpu_torch.kernels import sparse_kernels as sk
@@ -2740,9 +3311,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        build_kernels(torch, nk, sk, ck, sck, build)
+        build_kernels(torch, nk, sk, ck, sck, lk, build)
         errs = dict.fromkeys([*nk.LAUNCHES, *sk.LAUNCHES, *ck.LAUNCHES,
-                              *sck.LAUNCHES], 0.0)
+                              *sck.LAUNCHES, *lk.LAUNCHES], 0.0)
         compare_kernels(torch, nk, errs)
         rows, extra = time_kernels(torch, nk)
         solve_mesh2000(torch, nk)
@@ -2772,6 +3343,20 @@ def main() -> int:
         extra["smw_sweep"]["launches_path"] = "serve n1 phase"
         extra["dc_screen"]["launches_path"] = (
             "n1 screens phase: make_dc_solver and dc_prefilter")
+        worst = compare_ladder(torch, errs)
+        compare_ladder_vjp(torch, errs)
+        time_ladder(torch, lk, rows, extra)
+        extra["ladder_solve"]["max_abs_err_f32"] = worst["float32"]
+        vvc_counts = vvc_phase(torch, lk)
+        serve_counts = serve_vvc(torch, lk)
+        counts["ladder_solve"] = serve_counts["ladder_solve"]
+        counts["ladder_vjp"] = vvc_counts["ladder_vjp"]
+        extra["ladder_solve"]["launches_path"] = (
+            "serve vvc phase: 64 concurrent POST /v1/vvc")
+        extra["ladder_solve"]["launches_vvc_step_10k_x64"] = (
+            vvc_counts["ladder_solve"])
+        extra["ladder_vjp"]["launches_path"] = (
+            "vvc phase: one controller step on synthetic_radial(10000) x64")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2797,6 +3382,10 @@ def main() -> int:
                       "freedm_tpu/pf/n1.py:340"),
         "dc_screen": ("cuda", source + "csrc/screen.cu",
                       "freedm_tpu/pf/dc.py:145"),
+        "ladder_solve": ("cuda", source + "csrc/ladder.cu",
+                         "freedm_tpu/pf/ladder.py:184"),
+        "ladder_vjp": ("cuda", source + "csrc/ladder.cu",
+                       "freedm_tpu/pf/ladder.py:209"),
     }
     table = []
     for name, (route, src, replaces) in meta.items():

@@ -2,8 +2,8 @@
 
     python -m freedm_tpu_torch serve --port 8080 --pf-backend auto --pf-precision auto
 
-serves ``POST /v1/pf`` (plus ``/healthz``, ``/stats``, ``/metrics``) on
-the card until interrupted, with the incremental cache tier on
+serves ``POST /v1/pf``, ``/v1/n1`` and ``/v1/vvc`` (plus ``/healthz``,
+``/stats``, ``/metrics``) on the card until interrupted, with the incremental cache tier on
 (``--cache-mb 0`` turns it off); ``--device cpu`` runs the plain PyTorch
 path on the CPU instead.
 """
@@ -18,7 +18,7 @@ import threading
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m freedm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("serve", help="run the POST /v1/pf server")
+    sp = sub.add_parser("serve", help="run the POST /v1/{pf,n1,vvc} server")
     sp.add_argument("--port", type=int, default=0,
                     help="listen port (0 = ephemeral, printed at start)")
     sp.add_argument("--host", default="127.0.0.1")
@@ -33,7 +33,8 @@ def main(argv=None) -> int:
     sp.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     sp.add_argument("--prewarm", action="append", default=[],
-                    help="workload/case to run through every bucket at start")
+                    help="workload/case to run through every bucket at start "
+                         "(e.g. pf/mesh2000, vvc/vvc_9bus)")
     sp.add_argument("--cache-mb", type=float, default=64.0,
                     help="byte budget of the incremental serving cache, "
                          "solutions plus artifacts (0 disables it)")

@@ -1,13 +1,19 @@
-"""Hand-written Hopper kernels of the power-flow path and the serving cache.
+"""Hand-written Hopper kernels of the power-flow, screening and ladder
+paths and the serving cache.
 
 - K1 ``newton_assemble``, K2 ``power_injections`` and K3
   ``newton_update`` — CUDA C++ (``csrc/newton.cu``);
 - S1-S4, the sparse Newton backend's kernels — CUDA C++
   (``csrc/sparse.cu``);
 - C1 ``delta_program``, the serving cache's delta program — CUDA C++
-  (``csrc/cache.cu``).
+  (``csrc/cache.cu``);
+- N1 ``smw_sweep`` and D1 ``dc_screen``, the N-1 and DC screens' kernels
+  — CUDA C++ (``csrc/screen.cu``);
+- L1 ``ladder_solve`` and L2 ``ladder_vjp``, the radial ladder solve and
+  its adjoint — CUDA C++ (``csrc/ladder.cu``).
 
 Each source is built by :mod:`.build` and bound with ctypes.
-:mod:`.newton_kernels`, :mod:`.sparse_kernels` and :mod:`.cache_kernels`
-hold the wrappers, their plain PyTorch versions and the launch counters.
+:mod:`.newton_kernels`, :mod:`.sparse_kernels`, :mod:`.cache_kernels`,
+:mod:`.screen_kernels` and :mod:`.ladder_kernels` hold the wrappers,
+their plain PyTorch versions and the launch counters.
 """

@@ -1,5 +1,5 @@
 """Power-flow solvers (dense and sparse Newton-Raphson, backend
-resolution) and N-1 and DC screening.
+resolution, the radial ladder) and N-1 and DC screening.
 
 The public names of the reference's ``freedm_tpu/pf/__init__.py`` that
 the port has so far.
@@ -11,6 +11,15 @@ from freedm_tpu_torch.pf.backend import (  # noqa: F401
     resolve_backend,
 )
 from freedm_tpu_torch.pf.dc import make_dc_solver  # noqa: F401
+from freedm_tpu_torch.pf.ladder import (  # noqa: F401
+    LadderResult,
+    branch_power_kva,
+    load_power_kva,
+    make_ladder_solver,
+    substation_power_kva,
+    total_loss_kw,
+    v_polar,
+)
 from freedm_tpu_torch.pf.mfree import make_injection_fn  # noqa: F401
 from freedm_tpu_torch.pf.n1 import (  # noqa: F401
     N1Prefiltered,

@@ -185,8 +185,8 @@ def make_newton_solver(
       below ``tol`` or ``max_iter`` is hit, with the reference's
       vmapped ``while_loop`` semantics (per-lane iteration counts);
     - ``solve_fixed`` — always ``max_iter`` steps on every lane.  Forward
-      only on the card (its backward kernels come with the VVC/gradient
-      slice): CUDA inputs that require grad raise.  On the CPU the plain
+      only on the card (its backward kernels are module queue item 9's
+      remainder): CUDA inputs that require grad raise.  On the CPU the plain
       versions are differentiable by ``torch.autograd``.
 
     ``tol=None`` picks the dtype's default (:func:`default_tol`).
@@ -279,8 +279,9 @@ def make_newton_solver(
                    if isinstance(a, torch.Tensor)]
         if dev.type == "cuda" and any(t.requires_grad for t in tensors):
             raise NotImplementedError(
-                "solve_fixed is forward-only on the card: its backward "
-                "kernels come with the VVC/gradient slice (ROADMAP.md)"
+                "solve_fixed is forward-only on the card: the Newton "
+                "solve_fixed backward is module queue item 9's remainder "
+                "(ROADMAP.md)"
             )
         x, ps, qs, _ = prep(p_inj, q_inj, status, v0, theta0)
         for _ in range(max_iter):

@@ -369,8 +369,9 @@ def make_sparse_newton_solver(
                    if isinstance(a, torch.Tensor)]
         if dev.type == "cuda" and any(t.requires_grad for t in tensors):
             raise NotImplementedError(
-                "solve_fixed is forward-only on the card: its backward "
-                "kernels come with the VVC/gradient slice (ROADMAP.md)"
+                "solve_fixed is forward-only on the card: the Newton "
+                "solve_fixed backward is module queue item 9's remainder "
+                "(ROADMAP.md)"
             )
         x, ps, qs, st = prep(p_inj, q_inj, status, v0, theta0)
         fb = lane_zeros(x)

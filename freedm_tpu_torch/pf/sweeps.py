@@ -1,0 +1,249 @@
+"""Tree-sweep operators for radial power flow (plain PyTorch).
+
+Port of ``freedm_tpu/pf/sweeps.py``.  The ladder method's two sweeps are
+linear operators fixed by the feeder tree:
+
+- **backward**: ``I_branch[i] = Σ_{j ∈ subtree(i)} I_load[j]`` — subtree
+  sums (rootward accumulation of load currents);
+- **forward**: ``path[i] = Σ_{k ∈ ancestors(i) ∪ {i}} drop[k]`` — root-to-
+  node path sums (leafward accumulation of voltage drops).
+
+Three realizations, each in the reference's operations and order:
+
+- :func:`dense_sweeps` — a ``torch.matmul`` against the ``[nb, nb]``
+  subtree incidence matrix (the reference leaves it to a plain matmul);
+- :func:`doubling_sweeps` — pointer jumping, ``ceil(log2(levels))``
+  gather or scatter-add rounds;
+- :func:`euler_sweeps` — Euler-tour prefix sums, with the reference's
+  shorter form when the feeder is already in DFS preorder.
+
+These are the plain versions.  On the card the ladder does not call
+them: its whole iteration, sweeps included, is the hand-written kernel
+L1 (:mod:`freedm_tpu_torch.kernels.ladder_kernels`) in preorder space;
+the dense and doubling forms run on the CPU only.
+
+Operands are :class:`~freedm_tpu_torch.cplx.C` pairs whose tree axis is
+the second to last (``[..., nb, p]``), so a leading lane axis passes
+through — the reference's ``vmap`` written out.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from freedm_tpu_torch.cplx import C
+from freedm_tpu_torch.device import DeviceLike, resolve_device
+from freedm_tpu_torch.grid.feeder import Feeder
+
+SweepFn = Callable[[C], C]
+
+# Above this branch count the dense [nb, nb] subtree matrix is not built
+# (10k buses would need ~400 MB) and the sweeps take another form.
+DENSE_MAX_BRANCHES = 2048
+
+
+def _pack(val: C) -> torch.Tensor:
+    # (re ‖ im) on the last axis: one prefix, gather or scatter a step.
+    return torch.cat([val.re, val.im], dim=-1)
+
+
+def _unpack(x: torch.Tensor, p: int) -> C:
+    return C(x[..., :p], x[..., p:])
+
+
+def _zero_row(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(x.shape[:-2] + (1, x.shape[-1]), dtype=x.dtype,
+                       device=x.device)
+
+
+def dense_sweeps(feeder: Feeder, dtype, device: DeviceLike = None
+                 ) -> Tuple[SweepFn, SweepFn]:
+    """Sweeps as matmuls against the subtree incidence matrix."""
+    if feeder.subtree is None:
+        raise ValueError("feeder compiled without a dense subtree matrix")
+    dev = resolve_device(device)
+    sub = torch.as_tensor(feeder.subtree, dtype=dtype, device=dev)
+    sub_t = sub.T
+
+    def backward(i_load: C) -> C:
+        return C(torch.matmul(sub, i_load.re), torch.matmul(sub, i_load.im))
+
+    def forward(drop: C) -> C:
+        return C(torch.matmul(sub_t, drop.re), torch.matmul(sub_t, drop.im))
+
+    return backward, forward
+
+
+def doubling_sweeps(feeder: Feeder, dtype, device: DeviceLike = None
+                    ) -> Tuple[SweepFn, SweepFn]:
+    """Sweeps by pointer jumping — O(log depth) gather/scatter rounds.
+
+    With ``jump`` initially the parent pointer, each round does
+    ``val ← val + P^(2^m)·val`` (a scatter-add into the 2^m-th ancestor
+    for the subtree sums, a gather from it for the path sums) and then
+    ``jump ← jump∘jump``.  A sentinel slot ``nb`` takes the roots'
+    pointers; it points to itself and its value is dropped (scatter) or
+    zero (gather).  The jump tables are made once on the host.
+    """
+    dev = resolve_device(device)
+    nb = feeder.n_branches
+    parent = np.where(feeder.parent < 0, nb, feeder.parent).astype(np.int64)
+    rounds = max(1, math.ceil(math.log2(max(feeder.levels, 2))))
+    jumps = []
+    j = np.concatenate([parent, [nb]]).astype(np.int64)
+    for _ in range(rounds):
+        jumps.append(torch.as_tensor(j, device=dev))
+        j = j[j]
+
+    def _rounds(val: C, combine) -> C:
+        x = _pack(val)
+        x = torch.cat([x, _zero_row(x)], dim=-2)
+        for jump in jumps:
+            x = combine(x, jump)
+        return _unpack(x[..., :nb, :], val.re.shape[-1])
+
+    def _scatter(x, jump):
+        out = x.index_add(x.dim() - 2, jump, x)
+        # The sentinel row took the roots' contributions: zero it, so
+        # later rounds don't carry it back.
+        out[..., nb, :] = 0.0
+        return out
+
+    def _gather(x, jump):
+        return x + x[..., jump, :]
+
+    def backward(i_load: C) -> C:
+        return _rounds(i_load, _scatter)
+
+    def forward(drop: C) -> C:
+        return _rounds(drop, _gather)
+
+    return backward, forward
+
+
+def euler_tour(feeder: Feeder):
+    """The DFS numbering of the Euler-tour sweeps: ``(preorder, tin,
+    tout, entry, exit)`` — the preorder list, each branch's preorder
+    position, the end of its subtree's interval (``tin + size``) and its
+    entry and exit events on the 2·nb-event tour."""
+    nb = feeder.n_branches
+    parent = feeder.parent
+    children: list[list[int]] = [[] for _ in range(nb)]
+    roots = []
+    for i in range(nb):
+        if parent[i] < 0:
+            roots.append(i)
+        else:
+            children[parent[i]].append(i)
+    tin = np.zeros(nb, np.int64)
+    size = np.ones(nb, np.int64)
+    entry = np.zeros(nb, np.int64)
+    exit_ = np.zeros(nb, np.int64)
+    preorder = np.zeros(nb, np.int64)
+    t = 0
+    ev = 0
+    stack = [(r, False) for r in reversed(roots)]
+    while stack:
+        node, done = stack.pop()
+        if done:
+            exit_[node] = ev
+            ev += 1
+            for c in children[node]:
+                size[node] += size[c]
+            continue
+        tin[node] = t
+        preorder[t] = node
+        t += 1
+        entry[node] = ev
+        ev += 1
+        stack.append((node, True))
+        for c in reversed(children[node]):
+            stack.append((c, False))
+    return preorder, tin, tin + size, entry, exit_
+
+
+def euler_sweeps(feeder: Feeder, dtype, device: DeviceLike = None
+                 ) -> Tuple[SweepFn, SweepFn]:
+    """Sweeps by Euler-tour prefix sums — a fixed number of operations
+    at any depth.
+
+    - **backward** (subtree sums): in DFS preorder every subtree is a
+      contiguous interval, so ``sub[i] = P[tout_i] − P[tin_i]`` with
+      ``P`` the exclusive prefix sum of the preorder-permuted values;
+    - **forward** (path sums): on the 2·nb-event Euler tour (+x at
+      entry, −x at exit) the inclusive prefix at a node's entry event is
+      its path sum.
+
+    A feeder already in DFS preorder (:meth:`Feeder.reorder_preorder`)
+    takes the reference's shorter form: ``backward[i] = P[tout_i] −
+    P[i]`` and ``forward[i] = P_incl[i] − cumsum(q)[i]`` with ``q`` the
+    scatter of ``x`` onto ``tout`` — ancestors-or-self of ``i`` are the
+    ``k ≤ i`` whose subtree interval is still open at ``i``.
+    """
+    dev = resolve_device(device)
+    nb = feeder.n_branches
+    preorder, tin, tout, entry, exit_ = euler_tour(feeder)
+    preorder_t = torch.as_tensor(preorder, device=dev)
+    tin_t = torch.as_tensor(tin, device=dev)
+    tout_t = torch.as_tensor(tout, device=dev)
+    entry_t = torch.as_tensor(entry, device=dev)
+    exit_t = torch.as_tensor(exit_, device=dev)
+
+    if bool(np.all(tin == np.arange(nb))):
+
+        def backward(i_load: C) -> C:
+            x = _pack(i_load)
+            ps = torch.cat([_zero_row(x), torch.cumsum(x, dim=-2)], dim=-2)
+            return _unpack(ps[..., tout_t, :] - ps[..., :nb, :],
+                           i_load.re.shape[-1])
+
+        def forward(drop: C) -> C:
+            x = _pack(drop)
+            p_incl = torch.cumsum(x, dim=-2)
+            q = torch.zeros(x.shape[:-2] + (nb + 1, x.shape[-1]),
+                            dtype=x.dtype, device=x.device)
+            q = q.index_add(x.dim() - 2, tout_t, x)
+            return _unpack(p_incl - torch.cumsum(q, dim=-2)[..., :nb, :],
+                           drop.re.shape[-1])
+
+        return backward, forward
+
+    def backward(i_load: C) -> C:
+        x = _pack(i_load)
+        ps = torch.cumsum(x[..., preorder_t, :], dim=-2)
+        ps = torch.cat([_zero_row(x), ps], dim=-2)  # exclusive prefix
+        return _unpack(ps[..., tout_t, :] - ps[..., tin_t, :],
+                       i_load.re.shape[-1])
+
+    def forward(drop: C) -> C:
+        x = _pack(drop)
+        events = torch.zeros(x.shape[:-2] + (2 * nb, x.shape[-1]),
+                             dtype=x.dtype, device=x.device)
+        events[..., entry_t, :] = x
+        events[..., exit_t, :] = -x
+        es = torch.cumsum(events, dim=-2)
+        return _unpack(es[..., entry_t, :], drop.re.shape[-1])
+
+    return backward, forward
+
+
+def make_sweeps(feeder: Feeder, dtype, method: Optional[str] = None,
+                device: DeviceLike = None) -> Tuple[SweepFn, SweepFn]:
+    """Pick the sweep realization: ``method`` in {"dense", "doubling",
+    "euler", None}.  ``None`` selects as the reference does: dense
+    whenever the incidence matrix was built, Euler-tour otherwise."""
+    if method == "dense":
+        return dense_sweeps(feeder, dtype, device)
+    if method == "doubling":
+        return doubling_sweeps(feeder, dtype, device)
+    if method == "euler":
+        return euler_sweeps(feeder, dtype, device)
+    if method is not None:
+        raise ValueError(f"unknown sweep method: {method!r}")
+    if feeder.subtree is not None:
+        return dense_sweeps(feeder, dtype, device)
+    return euler_sweeps(feeder, dtype, device)

@@ -1,4 +1,4 @@
-"""Zero-dependency JSON front end for the power-flow and N-1 service.
+"""Zero-dependency JSON front end for the power-flow, N-1 and VVC service.
 
 Port of ``ServeServer`` from ``freedm_tpu/serve/http.py``: a stdlib
 ``ThreadingHTTPServer`` on a daemon thread, loopback bind by default,
@@ -11,15 +11,17 @@ Routes:
 - ``POST /v1/<workload>`` for each of ``WORKLOADS`` — ``/v1/pf`` with a
   JSON body matching
   :class:`~freedm_tpu_torch.serve.service.PowerFlowRequest`, ``/v1/n1``
-  with one matching :class:`~freedm_tpu_torch.serve.service.N1Request`;
-  200 with the typed response dict on success;
+  with one matching :class:`~freedm_tpu_torch.serve.service.N1Request`,
+  ``/v1/vvc`` with one matching
+  :class:`~freedm_tpu_torch.serve.service.VVCRequest`; 200 with the typed
+  response dict on success;
 - ``GET /healthz`` — liveness + the workload/case table;
 - ``GET /stats`` — queue depth, buckets, per-shape dispatch counts and
   the serve metric snapshot;
 - ``GET /metrics`` — the registry in the Prometheus text format.
 
-Every other route answers a typed 404 (the reference's vvc and topo
-workloads, jobs and snapshots are not ported yet).  Errors are typed: the body is
+Every other route answers a typed 404 (the reference's topo workload,
+jobs and snapshots are not ported yet).  Errors are typed: the body is
 always ``{"error": {"type": <ServeError.code>, "detail": ...}}`` with
 the matching HTTP status (400 invalid_request, 404 not_found, 429
 overloaded, 503 shutting_down, 504 deadline_exceeded, 500 internal);
@@ -39,7 +41,8 @@ from urllib.parse import urlparse
 
 from freedm_tpu_torch.core.metrics import REGISTRY, BackgroundHttpServer
 from freedm_tpu_torch.serve.queue import InvalidRequest, NotFound, ServeError
-from freedm_tpu_torch.serve.service import BUS_CASES, WORKLOADS, Service
+from freedm_tpu_torch.serve.service import (BUS_CASES, FEEDER_CASES,
+                                            WORKLOADS, Service)
 
 #: Request bodies past this are refused unread.
 MAX_BODY_BYTES = 4_000_000
@@ -119,6 +122,7 @@ class ServeServer(BackgroundHttpServer):
                             "device": str(svc.device),
                             "workloads": list(WORKLOADS),
                             "bus_cases": list(BUS_CASES),
+                            "feeder_cases": list(FEEDER_CASES),
                         })
                     elif path == "/stats":
                         self._reply(200, svc.stats())

@@ -1,6 +1,7 @@
-"""The served power-flow and N-1 workloads and the serving facade.
+"""The served power-flow, N-1 and Volt-VAR workloads and the serving facade.
 
-Port of the ``pf`` and ``n1`` parts of ``freedm_tpu/serve/service.py``:
+Port of the ``pf``, ``n1`` and ``vvc`` parts of
+``freedm_tpu/serve/service.py``:
 
 - **pf** — snapshot AC power flow: a named case plus per-bus injection
   overrides (or a uniform stress ``scale``), solved by the batched Newton
@@ -13,6 +14,11 @@ Port of the ``pf`` and ``n1`` parts of ``freedm_tpu/serve/service.py``:
   512 buses, the status-traced sparse screen at and above.  One request
   = ``len(outages)`` lanes; islanding (bridge) outages are rejected at
   validation, because their lanes are singular.
+- **vvc** — Volt-VAR what-if: a proposed ``[nb, 3]`` Q-setpoint table
+  for a feeder case, answered with the fixed-iteration ladder solve's
+  losses (against the zero-injection baseline), voltage extremes and
+  band violations; a batch is one launch of the ladder kernel L1 over
+  its lanes (:mod:`freedm_tpu_torch.pf.ladder`).
 
 Every response carries the solver's own convergence evidence
 (``residual_pu``/``converged``) plus a conservation check (Σ realized P
@@ -26,7 +32,7 @@ validation (an invalid request never occupies queue depth), admission
 incremental cache tier (:mod:`freedm_tpu_torch.serve.cache`, on by
 default as in the reference: exact and verified-delta answers complete
 at submit time, warm hits seed the full solve).  Not ported yet
-(``ROADMAP.md``): the vvc/topo workloads, provenance receipts, the
+(``ROADMAP.md``): the topo workload, provenance receipts, the
 consistent-cut ledger and the lane mesh.
 """
 
@@ -57,6 +63,7 @@ from freedm_tpu_torch.pf.backend import (
     resolve_backend,
     resolve_precision,
 )
+from freedm_tpu_torch.pf.ladder import make_ladder_solver, total_loss_kw
 from freedm_tpu_torch.pf.newton import make_newton_solver
 from freedm_tpu_torch.serve.queue import (
     AdmissionQueue,
@@ -68,7 +75,10 @@ from freedm_tpu_torch.serve.queue import (
     Ticket,
 )
 
-WORKLOADS = ("pf", "n1")
+WORKLOADS = ("pf", "n1", "vvc")
+
+#: Voltage band for the VVC report, pu (ANSI C84.1 service band).
+V_BAND = (0.95, 1.05)
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +163,16 @@ class N1Request:
     timeout_s: float = 30.0
 
 
+@dataclass(frozen=True)
+class VVCRequest:
+    """Volt-VAR what-if: a proposed ``[nb, 3]`` Q-setpoint table (kvar,
+    0 where not controlled) for a feeder case."""
+
+    case: str
+    q_ctrl_kvar: Sequence[Sequence[float]] = ()
+    timeout_s: float = 30.0
+
+
 @dataclass
 class N1Response:
     workload: str
@@ -172,12 +192,34 @@ class N1Response:
         return d
 
 
+@dataclass
+class VVCResponse:
+    workload: str
+    case: str
+    converged: bool
+    residual: float
+    loss_kw: float
+    loss_base_kw: float  # losses at the zero-injection baseline
+    loss_delta_kw: float  # loss_kw - loss_base_kw (negative = improvement)
+    v_min_pu: float
+    v_max_pu: float
+    band_violations: int  # live node-phases outside V_BAND
+    batch: BatchInfo
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["batch"] = self.batch.to_dict()
+        return d
+
+
 # ---------------------------------------------------------------------------
 # Case registry
 # ---------------------------------------------------------------------------
 
 #: Bus-system cases servable by pf/n1 (MATPOWER builtins).
 BUS_CASES = ("case14", "case_ieee30")
+#: Feeder cases servable by vvc.
+FEEDER_CASES = ("vvc_9bus",)
 
 #: Cap on the client-named synthetic meshN size: the case name is
 #: attacker-controlled input, and engine builds cost O(n^2) memory.
@@ -201,6 +243,16 @@ def _resolve_bus_case(name: str):
         return synthetic_mesh(n, seed=1, load_mw=10.0, chord_frac=1.0)
     raise InvalidRequest(
         f"unknown bus case {name!r} (have: {', '.join(BUS_CASES)}, meshN)"
+    )
+
+
+def _resolve_feeder_case(name: str):
+    if name in FEEDER_CASES:
+        from freedm_tpu_torch.grid import cases
+
+        return getattr(cases, name)()
+    raise InvalidRequest(
+        f"unknown feeder case {name!r} (have: {', '.join(FEEDER_CASES)})"
     )
 
 
@@ -502,6 +554,95 @@ class N1Engine(_Engine):
         return None
 
 
+class VVCEngine(_Engine):
+    workload = "vvc"
+
+    def __init__(self, case: str, pf_iters: int = 20, backend: str = "auto",
+                 precision: str = "auto", device: DeviceLike = None):
+        # ``backend``/``precision`` are accepted for engine-construction
+        # uniformity; the ladder sweep has no Jacobian and no Krylov
+        # inner, so both are no-ops here.
+        super().__init__(case, resolve_device(device))
+        feeder = _resolve_feeder_case(case)
+        self._feeder = feeder
+        self.nb = feeder.n_branches
+        mask = np.asarray(feeder.phase_mask, np.float64)
+        self._mask = mask
+        # Live node-phases incl. the always-3-phase substation row — the
+        # denominator of the voltage-band report.
+        live = np.concatenate([np.ones((1, 3)), mask]) > 0
+        # As flat indices: a boolean-mask gather on the card would sync.
+        self._live = torch.as_tensor(np.flatnonzero(live), device=self.device)
+        _, self._solve_fixed = make_ladder_solver(
+            feeder, max_iter=pf_iters, dtype=torch.float64,
+            device=self.device)
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   dtype=torch.float64, device=self.device)
+
+        self._s_re, self._s_im = t(feeder.s_load.real), t(feeder.s_load.imag)
+        self._mask_t = t(mask)
+        base = self._solve_fixed(feeder.s_load)
+        self.loss_base_kw = float(total_loss_kw(feeder, base))
+
+    def validate(self, req: VVCRequest):
+        q = np.asarray(req.q_ctrl_kvar, np.float64)
+        if q.shape != (self.nb, 3):
+            raise InvalidRequest(
+                f"q_ctrl_kvar must be [{self.nb}, 3] (kvar per node-phase), "
+                f"got shape {q.shape}"
+            )
+        if not np.all(np.isfinite(q)):
+            raise InvalidRequest("q_ctrl_kvar contains non-finite values")
+        dead = (self._mask == 0) & (q != 0)
+        if dead.any():
+            raise InvalidRequest(
+                f"q_ctrl_kvar proposes injection on {int(dead.sum())} dead "
+                f"node-phase(s) (phase does not exist there)"
+            )
+        return {"q": q}
+
+    def assemble(self, group: List[Ticket], bucket: int):
+        return _pad_rows(np.stack([t.prepared["q"] for t in group]), bucket)
+
+    def solve(self, batch):
+        # One L1 launch over the bucket's lanes, then the loss and the
+        # band report as torch reductions; device tensors, the batcher
+        # syncs.  Injecting Q reduces the load's Q draw.
+        q = torch.as_tensor(batch, dtype=torch.float64).to(
+            self.device, non_blocking=True)
+        s_im = self._s_im - q * self._mask_t
+        res = self._solve_fixed((self._s_re.expand_as(s_im), s_im))
+        loss = total_loss_kw(self._feeder, res)
+        vm = res.v_node.abs().flatten(1)[:, self._live]  # [b, n_live]
+        viols = ((vm < V_BAND[0]) | (vm > V_BAND[1])).sum(dim=1)
+        return (loss, vm.amin(dim=1), vm.amax(dim=1), viols, res.converged,
+                res.residual)
+
+    def example_request(self):
+        return VVCRequest(case=self.case, q_ctrl_kvar=np.zeros((self.nb, 3)))
+
+    def scatter(self, group: List[Ticket], out, info: BatchInfo) -> None:
+        loss, v_min, v_max, viols, conv, residual = (
+            x.cpu().numpy() for x in out)
+        for i, t in enumerate(group):
+            t.future.set_result(VVCResponse(
+                workload="vvc",
+                case=self.case,
+                converged=bool(conv[i]),
+                residual=float(residual[i]),
+                loss_kw=float(loss[i]),
+                loss_base_kw=self.loss_base_kw,
+                loss_delta_kw=float(loss[i]) - self.loss_base_kw,
+                v_min_pu=float(v_min[i]),
+                v_max_pu=float(v_max[i]),
+                band_violations=int(viols[i]),
+                batch=info,
+            ))
+        return None
+
+
 def _response_from_solution(eng, request: PowerFlowRequest, sol,
                             info: BatchInfo) -> PowerFlowResponse:
     """A pf response from a cached or corrected solution record
@@ -525,8 +666,9 @@ def _response_from_solution(eng, request: PowerFlowRequest, sol,
     )
 
 
-_ENGINE_TYPES = {"pf": PowerFlowEngine, "n1": N1Engine}
-_REQUEST_TYPES = {"pf": PowerFlowRequest, "n1": N1Request}
+_ENGINE_TYPES = {"pf": PowerFlowEngine, "n1": N1Engine, "vvc": VVCEngine}
+_REQUEST_TYPES = {"pf": PowerFlowRequest, "n1": N1Request,
+                  "vvc": VVCRequest}
 
 
 def parse_request(workload: str, payload: dict):
@@ -607,6 +749,7 @@ class ServeConfig(NamedTuple):
     default_timeout_s: float = 30.0
     pf_max_iter: int = 12
     n1_max_iter: int = 24
+    vvc_pf_iters: int = 20
     buckets: Optional[Tuple[int, ...]] = None
     mesh_devices: int = 0
     pf_backend: str = "auto"
@@ -743,10 +886,14 @@ class Service:
             if eng is not None:  # another submitter built it meanwhile
                 return eng
             cfg = self.config
-            max_iter = {"pf": cfg.pf_max_iter, "n1": cfg.n1_max_iter}[workload]
+            kwargs = {
+                "pf": {"max_iter": cfg.pf_max_iter},
+                "n1": {"max_iter": cfg.n1_max_iter},
+                "vvc": {"pf_iters": cfg.vvc_pf_iters},
+            }[workload]
             eng = _ENGINE_TYPES[workload](
-                case, max_iter=max_iter, backend=cfg.pf_backend,
-                precision=cfg.pf_precision, device=self.device,
+                case, backend=cfg.pf_backend, precision=cfg.pf_precision,
+                device=self.device, **kwargs,
             )
             if workload == "pf" and self.cache is not None:
                 from freedm_tpu_torch.serve.cache import topology_digest

@@ -42,7 +42,11 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
         "for m in ('freedm_tpu_torch.serve.cache', 'freedm_tpu_torch.pf.mfree',\n"
         "          'freedm_tpu_torch.pf.n1', 'freedm_tpu_torch.pf.dc',\n"
         "          'freedm_tpu_torch.kernels.cache_kernels',\n"
-        "          'freedm_tpu_torch.kernels.screen_kernels'):\n"
+        "          'freedm_tpu_torch.kernels.screen_kernels',\n"
+        "          'freedm_tpu_torch.kernels.ladder_kernels',\n"
+        "          'freedm_tpu_torch.grid.feeder', 'freedm_tpu_torch.cplx',\n"
+        "          'freedm_tpu_torch.pf.sweeps', 'freedm_tpu_torch.pf.ladder',\n"
+        "          'freedm_tpu_torch.modules.vvc'):\n"
         "    assert m in sys.modules, m\n"
         "import chip_smoke, kernel_ab\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -72,7 +76,11 @@ def test_static_scan_finds_no_jax_or_reference_import():
             PACKAGE / "pf" / "krylov.py",
             PACKAGE / "kernels" / "cache_kernels.py",
             PACKAGE / "pf" / "mfree.py", PACKAGE / "pf" / "n1.py",
-            PACKAGE / "serve" / "cache.py"} <= set(files)
+            PACKAGE / "serve" / "cache.py",
+            PACKAGE / "kernels" / "ladder_kernels.py",
+            PACKAGE / "grid" / "feeder.py", PACKAGE / "pf" / "sweeps.py",
+            PACKAGE / "pf" / "ladder.py", PACKAGE / "modules" / "vvc.py",
+            PACKAGE / "cplx.py"} <= set(files)
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -168,6 +176,11 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
     from freedm_tpu_torch.kernels import screen_kernels as sck
 
     assert set(sck.launches()) == {"smw_sweep", "dc_screen"}
+    from freedm_tpu_torch.kernels import ladder_kernels as lk
+
+    assert set(lk.launches()) == {"ladder_solve", "ladder_vjp"}
+    with pytest.raises(TypeError, match="float64 or float32"):
+        lk._suffix(torch.float16)
     vb = torch.zeros(2, 17, 8, dtype=torch.float64)
     with pytest.raises(ValueError, match="contiguous"):
         sk._want(vb, {"w": (vb[:, :4], torch.float64, (2, 4, 8))})

@@ -35,6 +35,7 @@ versions on the card (``chip_smoke.py`` does so at full size).
 """
 
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -449,6 +450,12 @@ def test_n1_roundtrip_matches_reference(services, case):
     ks = list(eng._secure)[:3]
     ok = obs.SERVE_REQUESTS.labels("n1", "ok").value
     r = svc.request("n1", {"case": case, "outages": ks})
+    # The future resolves inside scatter, before the batcher counts the
+    # completion: wait (bounded) for the count instead of racing it.
+    deadline = time.monotonic() + 10
+    while (obs.SERVE_REQUESTS.labels("n1", "ok").value < ok + 1
+           and time.monotonic() < deadline):
+        time.sleep(0.005)
     assert obs.SERVE_REQUESTS.labels("n1", "ok").value == ok + 1
     want = ref.request("n1", {"case": case, "outages": ks})
     assert r.outages == ks == want.outages

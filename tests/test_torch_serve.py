@@ -140,6 +140,10 @@ def test_http_roundtrip_and_typed_errors(services):
         assert json.loads(data)["error"]["type"] == "invalid_request"
         status, data = _post(server.port, "/v1/vvc",
                              json.dumps({"case": "case14"}))
+        assert status == 400  # the vvc workload is served: not a feeder
+        assert "unknown feeder case" in json.loads(data)["error"]["detail"]
+        status, data = _post(server.port, "/v1/topo",
+                             json.dumps({"case": "case14"}))
         assert status == 404
         assert json.loads(data)["error"]["type"] == "not_found"
 
