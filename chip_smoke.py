@@ -10,13 +10,16 @@ server takes at 512 buses and more, and the serving cache's delta tier
 (C1); ``POST /v1/n1`` on the SMW screen (N1) below 512 buses and the
 status-traced sparse screen (S1 with status, S2-S4, K3) at and above;
 the DC solver and ``dc_prefilter`` (D1); the radial ladder solve (L1)
-and its adjoint (L2) under the VVC controller, and ``POST /v1/vvc`` (L1).
+and its adjoint (L2) under the VVC controller, and ``POST /v1/vvc`` (L1);
+QSTS studies through ``run_study`` — the agent step (A1), the bus and
+feeder streaming reductions (Q1, Q2), feeder chunks on L1 — and the jobs
+API behind ``POST /v1/qsts``.
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build: five ``nvcc`` runs started together compile
+1. build: six ``nvcc`` runs started together compile
    ``freedm_tpu_torch/kernels/csrc/newton.cu``, ``sparse.cu``,
-   ``cache.cu``, ``screen.cu`` and ``ladder.cu`` for ``sm_90a``; prints
-   the build seconds and the ``-Xptxas -v`` reports;
+   ``cache.cu``, ``screen.cu``, ``ladder.cu`` and ``qsts.cu`` for
+   ``sm_90a``; prints the build seconds and the ``-Xptxas -v`` reports;
 2. kernels: each kernel against its plain PyTorch version on the card at
    n ∈ {14, 30, 118, 2000} buses and B ∈ {1, 3, 64} lanes (float64,
    1e-10 absolute on J, f, P, Q — the sums run in another order; K3
@@ -149,7 +152,39 @@ Phases (any failure exits non-zero, and no result line is printed):
 14. serve vvc: the default server, 64 concurrent ``POST /v1/vvc`` to
    vvc_9bus with random q in ±50 kvar on live phases (seed 9): every
    answer 200 and converged, loss and voltage extremes within 1e-9 of a
-   direct ``solve_fixed``; p50/p99; L1 launched over the burst.
+   direct ``solve_fixed``; p50/p99; L1 launched over the burst;
+15. qsts kernels: A1 against its plain version on the 6-bus world × 2 and
+   the million-agent population (400k EV, 300k thermostats, 150k
+   inverters, 150k DR) on case_ieee30 × {1, 4}, observations flat and
+   solved, hours 0, 7.5, 15, 19 and 23.75, DR signal 0 and 1
+   (``A1_STATE_RTOL``, ``QSTS_SUM_RTOL``, relays equal, bit-identical on
+   repeat); Q1 at mesh2000 × 64 (a solved mixed step) and case_ieee30 × 1,
+   Q2 at vvc_9bus × 24·64 lanes (counts, worst count and envelope equal,
+   losses and peak within ``QSTS_SUM_RTOL``, bit-identical on repeat);
+   then their times (events and device time) beside the plain versions
+   and the bounds;
+16. qsts: studies through ``run_study`` — (a) case14 × 16, 96 steps of
+   15 min, chunks of 24, seed 5: warm against cold iterations, kill after
+   2 chunks and resume exactly, the kernel path within ``QSTS_ATOL`` of
+   ``plain=True`` with equal iteration sums; (b) mesh2000 × 64 (sparse,
+   mixed), 96 steps, chunks of 24, residential, seed 5: every lane-step
+   of the ``MIDDAY_STEP`` steps before midday converged, the whole day
+   completed (its non-converged count printed), Q1 once a step, a second
+   run, kill and resume and chunks of 32 equal, scenario-steps/s, Newton
+   steps a lane-step and the chunk wall split; mesh2000 × 8 × 4 steps
+   within ``QSTS_MIXED_ATOL`` of ``plain=True``, flags equal; (c) the
+   million-agent day on case_ieee30 × {1, 4}, 24 one-hour steps, chunks
+   of 8: agent-steps/s on the engine's second run, A1 and Q1 once a step,
+   closed-loop against replayed, kill and resume; (d) vvc_9bus × 64, 96
+   steps: L1 and Q2 once a chunk, within ``QSTS_ATOL`` of ``plain=True``,
+   kill and resume;
+17. serve qsts: a ``ServeServer`` with a ``JobManager`` over a temporary
+   checkpoint directory: a mesh2000 × 16 job while the 64-request
+   ``/v1/pf`` burst on case14 runs (p50/p99 beside the burst alone; every
+   answer 200 and converged), its summary equal to a direct
+   ``run_study``; a keyed job cancelled mid-run and resubmitted (resumed,
+   equal); an agents job (A1 launched); an unknown id 404; ``/healthz``
+   ``qsts``.
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
@@ -159,8 +194,8 @@ in turns with and without status on the same inputs
 (``device_ms_turns_*``), its served launches by mode,
 ``launches_by_mode``, and those of the n1 path, all with status; N1 and
 D1 their other modes' times; L1 and L2 their per-iteration device times
-and other shapes); the last line is ``{"ok": true, "device":
-{...}}``.
+and other shapes; A1 its S = 4 times; A1, Q1 and Q2 the path of their
+launches); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -169,6 +204,7 @@ import concurrent.futures as cf
 import contextlib
 import http.client
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -208,7 +244,7 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def build_kernels(torch, nk, sk, ck, sck, lk, build):
+def build_kernels(torch, nk, sk, ck, sck, lk, qk, build):
     t0 = time.monotonic()
     box = {}
 
@@ -218,7 +254,7 @@ def build_kernels(torch, nk, sk, ck, sck, lk, build):
         except Exception as e:  # noqa: BLE001 — re-raised on the main thread
             box["error"] = e
 
-    names = ("newton", "sparse", "cache", "screen", "ladder")
+    names = ("newton", "sparse", "cache", "screen", "ladder", "qsts")
     threads = [threading.Thread(target=run_nvcc, args=(name,))
                for name in names]
     for th in threads:
@@ -232,6 +268,7 @@ def build_kernels(torch, nk, sk, ck, sck, lk, build):
     ck._cache_lib()
     sck._screen_lib()
     lk._ladder_lib()
+    qk._qsts_lib()
     t_all = time.monotonic() - t0
     log(f"build: nvcc x{len(names)} {t_all:.1f} s ("
         + ", ".join(f"{k}.cu {box[k][1]:.1f} s" for k in names) + "), "
@@ -3286,6 +3323,688 @@ def serve_vvc(torch, lk):
         svc.stop()
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-17: QSTS — A1 agent_step, Q1 qsts_bus_reduce, Q2
+# qsts_feeder_reduce, the studies through run_study, the jobs API
+# ---------------------------------------------------------------------------
+
+#: The reference's bench_agents population (bench.py:1192).
+BENCH_AGENTS = dict(ev=400_000, thermostat=300_000, inverter=150_000,
+                    dr=150_000)
+SMALL_AGENTS = dict(ev=12, thermostat=10, inverter=8, dr=6)
+SMALL_P0 = np.array([-1.0, -0.5, 0.0, -2.0, -0.3, 0.2])
+AGENT_HOURS = (0.0, 7.5, 15.0, 19.0, 23.75)
+#: A1 against its plain version: the state within 1e-13 of the largest
+#: value of its array (the kernel repeats the plain version's operations
+#: without contraction; libm's exp and cos on the card are shared), the
+#: per-bus and served sums within 1e-12 (the served load is a tree over
+#: buses in the kernel, torch.sum in the plain version).
+A1_STATE_RTOL = 1e-13
+QSTS_SUM_RTOL = 1e-12
+QSTS_ATOL = 1e-9  # kernel-path study vs plain=True (f64)
+QSTS_MIXED_ATOL = 2e-4  # the same on the mixed sparse solver
+#: The residential day of mesh2000 (seed 5) is solvable through the first
+#: 40 steps (10:00); after that some lanes diverge at the midday PV peak,
+#: in the JAX package as in the port (CPU runs of both, 4 lanes: 7
+#: non-converged lane-steps by step 48).
+MIDDAY_STEP = 40
+#: Operations an agent and step (exp and cos counted as 20 each), a
+#: branch end of Q1 (sin, cos, two complex products, |.|), a branch
+#: phase of Q2 (three complex products, |.|): rough counts for the bounds.
+A1_OPS = 40
+Q1_OPS = 60
+Q2_OPS = 40
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b| (the plain version's scale)."""
+    d = float((a - b).abs().max()) if a.numel() else 0.0
+    s = float(b.abs().max()) if b.numel() else 0.0
+    return d / s if s > 0 else d
+
+
+def agent_world(torch, qk, kw, case, lanes, seed=11):
+    """A1's operands and a varied sorted-order state for ``kw`` agents on
+    ``case`` (None: the 6-bus world) × ``lanes``, with the solved |V| of
+    one step (the 6-bus world: random |V|)."""
+    from freedm_tpu_torch.pf.newton import make_newton_solver
+    from freedm_tpu_torch.scenarios import agents
+    from freedm_tpu_torch.scenarios.profiles import ProfileSet, ProfileSpec
+    from freedm_tpu_torch.serve.service import _resolve_bus_case
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    if case is None:
+        n, p0 = 6, SMALL_P0
+        obs = torch.tensor(rng.uniform(0.86, 1.1, (lanes, n)), device=dev)
+    else:
+        sys_ = _resolve_bus_case(case)
+        n, p0 = sys_.n_bus, np.asarray(sys_.p_inj)
+        solve, _ = make_newton_solver(sys_, device=dev)
+        scale = rng.uniform(0.8, 1.2, (lanes, 1))
+        r = solve(p_inj=scale * sys_.p_inj, q_inj=scale * sys_.q_inj)
+        check(bool(r.converged.all()), f"agent world {case}: not converged")
+        obs = r.v.contiguous()
+    prof = ProfileSet(ProfileSpec(scenarios=lanes, steps=96, seed=seed), n)
+    pop, st0, _ = agents.build_population(agents.AgentSpec(**kw), prof, p0)
+    op = qk.agent_operands(pop, n, dev)
+    st = st0._asdict()
+    st["th_on"] = rng.integers(0, 2, st["th_on"].shape).astype(np.float64)
+    st["th_temp"] = st["th_temp"] + rng.normal(0.0, 1.5, st["th_temp"].shape)
+    st["inv_q"] = rng.uniform(-0.02, 0.02, st["inv_q"].shape)
+    st["dr_eng"] = rng.uniform(0.0, 1.0, st["dr_eng"].shape)
+    return op, st, n, obs
+
+
+def a1_call(torch, qk, fn, op, st, lanes, n, obs, sig, h):
+    dev = torch.device("cuda")
+    state = op.to_sorted(st, lanes)
+    zero = torch.zeros(lanes, n, dtype=torch.float64, device=dev)
+    out = [torch.empty_like(zero), torch.empty_like(zero)]
+    acc = [torch.full((lanes,), 0.5, dtype=torch.float64, device=dev),
+           torch.zeros(lanes, dtype=torch.float64, device=dev),
+           torch.empty(lanes, dtype=torch.float64, device=dev)]
+    fn(op, state, obs, sig, h, 0.25, zero, zero, *out, *acc)
+    return state, out, acc
+
+
+def compare_a1(torch, qk, errs):
+    """A1 against its plain version: the 6-bus world × 2 and the
+    million-agent population on case_ieee30 × {1, 4}; observations flat
+    and solved; hours 0, 7.5, 15, 19, 23.75; the DR signal 0 and 1."""
+    worst = {"state": 0.0, "sums": 0.0}
+    for kw, case, lanes in ((SMALL_AGENTS, None, 2),
+                            (BENCH_AGENTS, "case_ieee30", 1),
+                            (BENCH_AGENTS, "case_ieee30", 4)):
+        op, st, n, solved = agent_world(torch, qk, kw, case, lanes)
+        for obs in (None, solved):
+            for h in AGENT_HOURS:
+                for sv in (0.0, 1.0):
+                    sig = torch.full((lanes,), sv, dtype=torch.float64,
+                                     device="cuda")
+                    k = a1_call(torch, qk, qk.agent_step, op, st, lanes, n,
+                                obs, sig, h)
+                    p = a1_call(torch, qk, qk.agent_step_plain, op, st,
+                                lanes, n, obs, sig, h)
+                    again = a1_call(torch, qk, qk.agent_step, op, st, lanes,
+                                    n, obs, sig, h)
+                    torch.cuda.synchronize()
+                    tag = (f"A1 {case or '6-bus'} x{lanes} "
+                           f"{'flat' if obs is None else 'solved'} h={h} "
+                           f"sig={sv}")
+                    for a, c in zip(sum(k, []), sum(again, [])):
+                        check(torch.equal(a, c), f"{tag}: not bit-identical "
+                              f"on repeat")
+                    check(torch.equal(k[0][2], p[0][2]),
+                          f"{tag}: thermostat relays differ")
+                    e_state = max(rel_err(a, b) for a, b in zip(k[0], p[0]))
+                    e_sums = max(rel_err(a, b) for a, b in
+                                 zip(k[1] + k[2], p[1] + p[2]))
+                    check(e_state <= A1_STATE_RTOL,
+                          f"{tag}: state {e_state:.3e} from the plain version")
+                    check(e_sums <= QSTS_SUM_RTOL,
+                          f"{tag}: sums {e_sums:.3e} from the plain version")
+                    worst["state"] = max(worst["state"], e_state)
+                    worst["sums"] = max(worst["sums"], e_sums)
+        log(f"qsts kernels: A1 {case or '6-bus'} ({sum(kw.values())} agents, "
+            f"{op.n_tiles} tiles, {op.n_seg} segments) x{lanes}: state "
+            f"rel {worst['state']:.3e}, sums rel {worst['sums']:.3e}, "
+            f"relays equal, bit-identical on repeat")
+        del op
+    errs["agent_step"] = max(worst.values())
+    torch.cuda.empty_cache()
+
+
+def random_acc(torch, qk, lanes, seed):
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+
+    def f(lo, hi):
+        return torch.tensor(rng.uniform(lo, hi, lanes), device=dev)
+
+    def i(hi):
+        return torch.tensor(rng.integers(0, hi, lanes).astype(np.int32),
+                            device=dev)
+
+    return qk.StepAcc(f(0, 5), f(0, 1), i(50), i(5), i(3), f(0.9, 1.1),
+                      f(0.9, 1.1), f(0, 1))
+
+
+def compare_acc(torch, tag, k, p, again):
+    """Q1/Q2 accumulators: the counts, worst count, violation minutes and
+    envelope equal, the losses and peak within QSTS_SUM_RTOL; the kernel
+    bit-identical on repeat.  Returns the largest relative gap."""
+    for a, c in zip(k, again):
+        check(torch.equal(a, c), f"{tag}: not bit-identical on repeat")
+    for name in ("viol", "it_sum", "it_max", "nonconv", "v_lo", "v_hi"):
+        check(torch.equal(getattr(k, name), getattr(p, name)),
+              f"{tag}: {name} differs from the plain version")
+    e = max(rel_err(k.loss, p.loss), rel_err(k.peak, p.peak))
+    check(e <= QSTS_SUM_RTOL, f"{tag}: sums {e:.3e} from the plain version")
+    return e
+
+
+def reduce_calls(torch, qk, kernel, plain, acc0):
+    outs = []
+    for fn in (kernel, plain, kernel):
+        acc = qk.StepAcc(*(t.clone() for t in acc0))
+        fn(acc)
+        outs.append(acc)
+    torch.cuda.synchronize()
+    return outs
+
+
+def q1_inputs(torch, case, lanes, seed=4):
+    """A solved step of ``case`` × ``lanes`` as the engine solves it
+    (mesh2000: sparse, mixed; below 512 buses dense)."""
+    from freedm_tpu_torch.pf.newton import make_newton_solver
+    from freedm_tpu_torch.serve.service import _resolve_bus_case
+
+    sys_ = _resolve_bus_case(case)
+    solve, _ = make_newton_solver(sys_, backend="auto", precision="auto",
+                                  device="cuda")
+    scale = np.random.default_rng(seed).uniform(0.6, 1.2, (lanes, 1))
+    r = solve(p_inj=scale * sys_.p_inj, q_inj=scale * sys_.q_inj)
+    check(bool(r.converged.all()), f"Q1 inputs {case}: not converged")
+    return sys_, r
+
+
+def q2_inputs(torch, steps, lanes, seed=6):
+    """vvc_9bus: ``steps · lanes`` ladder lanes solved by L1 at load scales
+    0.5-1.3."""
+    from freedm_tpu_torch.grid.cases import vvc_9bus
+    from freedm_tpu_torch.pf.ladder import make_ladder_solver
+
+    f = vvc_9bus()
+    scale = np.random.default_rng(seed).uniform(0.5, 1.3,
+                                                (steps * lanes, 1, 1))
+    solve, _ = make_ladder_solver(f, device="cuda")
+    return f, solve(scale * f.s_load)
+
+
+def compare_q(torch, qk, errs):
+    """Q1 at mesh2000 × 64 (a solved mixed step) and case_ieee30 × 1, Q2
+    at vvc_9bus × 24·64 lanes, against their plain versions."""
+    dev = torch.device("cuda")
+    worst = 0.0
+    for case, lanes in (("mesh2000", MAIN_LANES), ("case_ieee30", 1)):
+        sys_, r = q1_inputs(torch, case, lanes)
+        op = qk.bus_reduce_operands(sys_, dev)
+
+        def run(fn):
+            return lambda acc: fn(r.v, r.theta, r.p, r.iterations,
+                                  r.converged, op, acc, 15.0, 0.25, 0.95,
+                                  1.05)
+
+        k, p, again = reduce_calls(torch, qk, run(qk.qsts_bus_reduce),
+                                   run(qk.qsts_bus_reduce_plain),
+                                   random_acc(torch, qk, lanes, 5))
+        e = compare_acc(torch, f"Q1 {case} x{lanes}", k, p, again)
+        worst = max(worst, e)
+        log(f"qsts kernels: Q1 {case} x{lanes}: counts, envelope equal, "
+            f"losses/peak rel {e:.3e}, bit-identical on repeat")
+    errs["qsts_bus_reduce"] = worst
+    steps, lanes = 24, MAIN_LANES
+    f, r = q2_inputs(torch, steps, lanes)
+    op = qk.feeder_reduce_operands(f, dev)
+
+    def run2(fn):
+        return lambda acc: fn(r, op, acc, steps, 15.0, 0.25, 0.95, 1.05)
+
+    k, p, again = reduce_calls(torch, qk, run2(qk.qsts_feeder_reduce),
+                               run2(qk.qsts_feeder_reduce_plain),
+                               random_acc(torch, qk, lanes, 7))
+    e = compare_acc(torch, f"Q2 vvc_9bus x{steps}*{lanes}", k, p, again)
+    errs["qsts_feeder_reduce"] = e
+    log(f"qsts kernels: Q2 vvc_9bus {steps} steps x{lanes} lanes: counts, "
+        f"envelope equal, losses/peak rel {e:.3e}, bit-identical on repeat")
+
+
+def tensor_bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def time_qsts(torch, qk, rows, extra):
+    """A1 at the bench_agents shape × {1, 4} (the row: × 1), Q1 at
+    mesh2000 × 64, Q2 at vvc_9bus × 24·64: CUDA events over back-to-back
+    calls and device time, beside the plain versions and the bounds.  No
+    single PyTorch call computes any of them: library "none"."""
+    dev = torch.device("cuda")
+    for lanes in (1, 4):
+        op, st, n, obs = agent_world(torch, qk, BENCH_AGENTS, "case_ieee30",
+                                     lanes)
+        state = op.to_sorted(st, lanes)
+        zero = torch.zeros(lanes, n, dtype=torch.float64, device=dev)
+        outs = [torch.empty_like(zero), torch.empty_like(zero)]
+        acc = [torch.zeros(lanes, dtype=torch.float64, device=dev)
+               for _ in range(3)]
+        sig = torch.ones(lanes, dtype=torch.float64, device=dev)
+
+        def call(fn=qk.agent_step):
+            fn(op, state, obs, sig, 19.0, 0.25, zero, zero, *outs, *acc)
+
+        k = time_ms(torch, call, reps=20)
+        kd, src = ladder_device_ms(torch, call, 10, f"A1 x{lanes}")
+        pl = time_ms(torch, lambda: call(qk.agent_step_plain), reps=2)
+        tables = (op.seg_start, op.seg_end, op.tile_seg_ptr, op.bus_seg_ptr)
+        nbytes = (tensor_bytes(*op.params, *op.bus, *tables, obs, sig, zero,
+                               zero, *outs) + 2 * tensor_bytes(*state)
+                  + 5 * 8 * lanes)
+        b, by = bound(nbytes, A1_OPS * sum(op.counts) * lanes)
+        log(f"timing: agent_step bench_agents x{lanes}: kernel {k:.4f} ms "
+            f"(device {kd:.4f} [{src}])  plain {pl:.4f} ms  bound {b:.5f} ms "
+            f"({by}, {nbytes / 1e6:.1f} MB)")
+        if lanes == 1:
+            rows["agent_step"] = (k, pl, None, b, by)
+            extra["agent_step"] = {
+                "device_ms": kd, "device_ms_source": src, "bytes": nbytes,
+                "shape": "bench_agents: 400k EV, 300k thermostats, 150k "
+                         "inverters, 150k DR on case_ieee30 x1"}
+        else:
+            extra["agent_step"].update({
+                "ms_x4": k, "device_ms_x4": kd, "plain_ms_x4": pl,
+                "bound_ms_x4": b, "bytes_x4": nbytes})
+        del op, state
+        torch.cuda.empty_cache()
+    sys_, r = q1_inputs(torch, "mesh2000", MAIN_LANES)
+    op = qk.bus_reduce_operands(sys_, dev)
+    acc = random_acc(torch, qk, MAIN_LANES, 5)
+    v, th, p = r.v.contiguous(), r.theta.contiguous(), r.p.contiguous()
+
+    def q1(fn=qk.qsts_bus_reduce):
+        fn(v, th, p, r.iterations, r.converged, op, acc, 15.0, 0.25, 0.95,
+           1.05)
+
+    k = time_ms(torch, q1, reps=50)
+    kd, src = ladder_device_ms(torch, q1, 20, "Q1 mesh2000 x64")
+    pl = time_ms(torch, lambda: q1(qk.qsts_bus_reduce_plain), reps=5)
+    nbytes = (tensor_bytes(v, th, p, r.iterations, r.converged, *op)
+              + 2 * tensor_bytes(*acc))
+    b, by = bound(nbytes, Q1_OPS * 2 * int(op.f_idx.shape[0]) * MAIN_LANES)
+    log(f"timing: qsts_bus_reduce mesh2000 x{MAIN_LANES}: kernel {k:.4f} ms "
+        f"(device {kd:.4f} [{src}])  plain {pl:.4f} ms  bound {b:.5f} ms "
+        f"({by})")
+    rows["qsts_bus_reduce"] = (k, pl, None, b, by)
+    extra["qsts_bus_reduce"] = {"device_ms": kd, "device_ms_source": src,
+                                "shape": "mesh2000 x64, a solved mixed step"}
+    steps, lanes = 24, MAIN_LANES
+    f, res = q2_inputs(torch, steps, lanes)
+    op2 = qk.feeder_reduce_operands(f, dev)
+    acc2 = random_acc(torch, qk, lanes, 7)
+
+    def q2(fn=qk.qsts_feeder_reduce):
+        fn(res, op2, acc2, steps, 15.0, 0.25, 0.95, 1.05)
+
+    k = time_ms(torch, q2, reps=50)
+    kd, src = ladder_device_ms(torch, q2, 20, "Q2 vvc_9bus")
+    pl = time_ms(torch, lambda: q2(qk.qsts_feeder_reduce_plain), reps=3)
+    nbytes = (tensor_bytes(*res.v_node, *res.i_branch, *res.i_load,
+                           res.iterations, res.converged, op2.root,
+                           op2.live) + 2 * tensor_bytes(*acc2))
+    b, by = bound(nbytes, Q2_OPS * 3 * f.n_branches * steps * lanes)
+    log(f"timing: qsts_feeder_reduce vvc_9bus {steps} steps x{lanes}: kernel "
+        f"{k:.4f} ms (device {kd:.4f} [{src}])  plain {pl:.4f} ms  bound "
+        f"{b:.5f} ms ({by})")
+    rows["qsts_feeder_reduce"] = (k, pl, None, b, by)
+    extra["qsts_feeder_reduce"] = {
+        "device_ms": kd, "device_ms_source": src,
+        "shape": f"vvc_9bus, {steps} steps x{lanes} lanes"}
+
+
+def study_states(eng):
+    """The engine's final carried state, chunk by chunk."""
+    spec = eng.spec
+    state = eng.initial_state()
+    for t0 in range(0, spec.steps, spec.chunk_steps):
+        state = eng.run_chunk(state, t0, min(spec.steps, t0 + spec.chunk_steps))
+    return state
+
+
+def compare_states(tag, a, b, atol, exact_ints=True):
+    """Float fields within ``atol``; integer fields equal (with
+    ``exact_ints``: else only ``nonconv``, the flags)."""
+    worst = 0.0
+    for name in a._fields:
+        x, y = np.asarray(getattr(a, name)), np.asarray(getattr(b, name))
+        if x.dtype.kind in "iu":
+            if exact_ints or name == "nonconv":
+                check(np.array_equal(x, y), f"{tag}: {name} {x} vs {y}")
+            continue
+        gap = float(np.max(np.abs(x - y))) if x.size else 0.0
+        check(gap <= atol, f"{tag}: {name} {gap:.3e} from plain=True")
+        worst = max(worst, gap)
+    return worst
+
+
+def same_summary(a, b, drop=()):
+    """Two summaries equal but for their timing keys (and ``drop``), NaN
+    equal to NaN (a diverged lane's envelope is NaN in both)."""
+    from freedm_tpu_torch.scenarios.engine import strip_timing
+
+    def view(x):
+        return json.dumps({k: v for k, v in strip_timing(x).items()
+                           if k not in drop}, sort_keys=True)
+
+    return view(a) == view(b)
+
+
+def kill_and_resume(tag, spec, want, tmp, **kw):
+    """Stop after ``kw['stop']`` chunks, resume from the checkpoint; the
+    resumed summary must equal ``want`` (strip_timing)."""
+    from freedm_tpu_torch.scenarios.engine import run_study, strip_timing
+
+    ck = os.path.join(tmp, f"{tag}.json")
+    t0 = time.monotonic()
+    part = run_study(spec, checkpoint_path=ck, stop_after_chunks=kw["stop"])
+    check(part["completed"] is False, f"{tag}: the killed run completed")
+    out = run_study(spec, checkpoint_path=ck)
+    check(out["resumed_from_chunk"] == kw["stop"],
+          f"{tag}: resumed from {out['resumed_from_chunk']}")
+    check(same_summary(out, want),
+          f"{tag}: the resumed summary differs: {strip_timing(out)} vs "
+          f"{strip_timing(want)}")
+    log(f"qsts: {tag}: killed after {kw['stop']} chunks and resumed: equal "
+        f"to the uninterrupted run ({time.monotonic() - t0:.1f} s with "
+        f"checkpoints, {os.path.getsize(ck) / 1e6:.1f} MB)")
+
+
+def split_line(eng, before):
+    parts = {k: eng.wall_split[k] - before.get(k, 0.0)
+             for k in eng.wall_split}
+    return ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+
+
+def qsts_phase(torch, qk, lk):
+    """The studies through ``run_study`` on the card: (a) the bench_qsts
+    shape, (b) mesh2000 × 64 at full width, (c) the million-agent day,
+    (d) the vvc_9bus feeder.  Returns the kernels' launches on their
+    paths: Q1 over (b), A1 over (c)'s second run, Q2 and L1 over (d)."""
+    import dataclasses
+    import tempfile
+
+    from freedm_tpu_torch.scenarios.agents import AgentSpec
+    from freedm_tpu_torch.scenarios.engine import (QstsEngine, StudySpec,
+                                                   run_study, strip_timing)
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) bench_qsts: case14 x16, 96 steps of 15 min, chunks of 24.
+        spec = StudySpec(case="case14", scenarios=16, steps=96,
+                         dt_minutes=15.0, chunk_steps=24, seed=5)
+        warm = run_study(spec)
+        cold = run_study(dataclasses.replace(spec, warm_start=False))
+        log(f"qsts: (a) case14 x16 x96: warm iters_mean {warm['iters_mean']}"
+            f" vs cold {cold['iters_mean']}; {warm['scenario_steps_per_sec']}"
+            f" scenario-steps/s warm, {cold['scenario_steps_per_sec']} cold")
+        check(warm["completed"] and warm["lane_steps_not_converged"] == 0,
+              f"(a): {warm}")
+        check(cold["iters_mean"] > warm["iters_mean"],
+              "(a): warm starts saved no iterations")
+        kill_and_resume("a-case14", spec, warm, tmp, stop=2)
+        got = study_states(QstsEngine(spec))
+        want = study_states(QstsEngine(spec, plain=True))
+        gap = compare_states("(a) vs plain=True", got, want, QSTS_ATOL)
+        log(f"qsts: (a) kernel path vs plain=True: states within {gap:.3e} "
+            f"pu, iteration sums equal")
+
+        # (b) full width, the served default path.  The residential day
+        # of this case is not solvable at midday: the reference diverges
+        # on it too (MIDDAY_STEP), and a lane that diverges seeds its next
+        # step with its diverged point, as the reference's carry does.  So
+        # every lane-step must converge before midday, and the whole day
+        # must complete and be reproducible.
+        spec = StudySpec(case="mesh2000", scenarios=MAIN_LANES, steps=96,
+                         dt_minutes=15.0, chunk_steps=24, seed=5,
+                         profile="residential")
+        morning = run_study(dataclasses.replace(spec, steps=MIDDAY_STEP))
+        check(morning["completed"]
+              and morning["lane_steps_not_converged"] == 0
+              and morning["energy_balance_ok"],
+              f"(b) mesh2000 before midday: {morning}")
+        log(f"qsts: (b) mesh2000 x{MAIN_LANES}, the {MIDDAY_STEP} steps "
+            f"before midday: every lane-step converged, "
+            f"{morning['iters_mean']} Newton steps a lane-step, "
+            f"{morning['scenario_steps_per_sec']} scenario-steps/s")
+        t0 = time.monotonic()
+        eng = QstsEngine(spec)
+        build_s = time.monotonic() - t0
+        qk.reset_launches()
+        before = dict(eng.wall_split)
+        full = run_study(spec, engine=eng)
+        counts["qsts_bus_reduce"] = qk.launches()["qsts_bus_reduce"]
+        check(full["completed"] and full["compiles"] <= 2,
+              f"(b) mesh2000: {full}")
+        check(counts["qsts_bus_reduce"] == spec.steps,
+              f"(b): Q1 launched {counts['qsts_bus_reduce']} times")
+        log(f"qsts: (b) mesh2000 x{MAIN_LANES} x96 ({full['pf_backend']}, "
+            f"{full['pf_precision']}): {full['scenario_steps_per_sec']} "
+            f"scenario-steps/s, {full['iters_mean']} Newton steps a "
+            f"lane-step (max {full['iters_max']}), "
+            f"{full['lane_steps_not_converged']} of "
+            f"{MAIN_LANES * spec.steps} lane-steps not converged, wall "
+            f"{full['wall_s']} s (engine build {build_s:.1f} s); chunk wall "
+            f"split: {split_line(eng, before)}; v {full['v_min_pu']}-"
+            f"{full['v_max_pu']} pu, Q1 launches "
+            f"{counts['qsts_bus_reduce']}")
+        again = run_study(spec, engine=eng)
+        log(f"qsts: (b) second run on the built engine: "
+            f"{again['scenario_steps_per_sec']} scenario-steps/s")
+        check(same_summary(again, full),
+              "(b): a second run differs from the first")
+        kill_and_resume("b-mesh2000", spec, full, tmp, stop=2)
+        other = run_study(dataclasses.replace(spec, chunk_steps=32))
+        check(same_summary(full, other, drop=("chunks_total", "compiles")),
+              f"(b): chunks of 32 differ: {strip_timing(full)} vs "
+              f"{strip_timing(other)}")
+        log("qsts: (b) chunks of 32: the summary equals chunks of 24")
+        small = StudySpec(case="mesh2000", scenarios=8, steps=4,
+                          chunk_steps=4, seed=5)
+        got = study_states(QstsEngine(small))
+        want = study_states(QstsEngine(small, plain=True))
+        gap = compare_states("(b) mesh2000 x8 x4 vs plain=True", got, want,
+                             QSTS_MIXED_ATOL, exact_ints=False)
+        log(f"qsts: (b) mesh2000 x8 x4 kernel path vs plain=True: within "
+            f"{gap:.3e} pu, flags equal (iteration sums {got.it_sum.tolist()}"
+            f" vs {want.it_sum.tolist()})")
+        del eng
+        torch.cuda.empty_cache()
+
+        # (c) bench_agents: a million agents on case_ieee30, 24 h steps.
+        for lanes in (1, 4):
+            spec = StudySpec(case="case_ieee30", scenarios=lanes, steps=24,
+                             dt_minutes=60.0, chunk_steps=8, seed=11,
+                             agents=AgentSpec(**BENCH_AGENTS))
+            t0 = time.monotonic()
+            eng = QstsEngine(spec)
+            build_s = time.monotonic() - t0
+            first = run_study(spec, engine=eng)
+            qk.reset_launches()
+            lk.reset_launches()
+            before = dict(eng.wall_split)
+            closed = run_study(spec, engine=eng)
+            launched = qk.launches()
+            if lanes == 1:
+                counts["agent_step"] = launched["agent_step"]
+            check(launched["agent_step"] == spec.steps
+                  and launched["qsts_bus_reduce"] == spec.steps,
+                  f"(c): launches {launched}")
+            check(same_summary(closed, first),
+                  "(c): a second run differs from the first")
+            check(closed["completed"]
+                  and closed["lane_steps_not_converged"] == 0,
+                  f"(c): {closed}")
+            log(f"qsts: (c) case_ieee30 x{lanes}, 10^6 agents, 24 h: "
+                f"{closed['agent_steps_per_sec']} agent-steps/s on the "
+                f"engine's second run (first {first['agent_steps_per_sec']}; "
+                f"engine build {build_s:.1f} s), {closed['iters_mean']} "
+                f"Newton steps a lane-step; chunk wall split: "
+                f"{split_line(eng, before)}; launches {launched}; served "
+                f"{closed['agent_energy_puh_mean']} pu·h, |q| peak "
+                f"{closed['agent_q_peak_pu']} pu")
+            if lanes == 1:
+                replayed = run_study(dataclasses.replace(
+                    spec, agents=dataclasses.replace(spec.agents,
+                                                     closed_loop=False)))
+                check(replayed["agent_q_peak_pu"] == 0.0
+                      and closed["agent_q_peak_pu"] > 0.0
+                      and closed["energy_loss_mwh_mean"]
+                      != replayed["energy_loss_mwh_mean"],
+                      f"(c): closed {closed} vs replayed {replayed}")
+                log(f"qsts: (c) closed-loop |q| peak "
+                    f"{closed['agent_q_peak_pu']} vs replayed "
+                    f"{replayed['agent_q_peak_pu']}; losses "
+                    f"{closed['energy_loss_mwh_mean']:.6f} vs "
+                    f"{replayed['energy_loss_mwh_mean']:.6f} MWh")
+            kill_and_resume(f"c-agents-x{lanes}", spec, closed, tmp, stop=1)
+            del eng
+            torch.cuda.empty_cache()
+
+        # (d) the feeder: vvc_9bus x64, 96 steps, one L1 launch a chunk.
+        spec = StudySpec(case="vvc_9bus", scenarios=MAIN_LANES, steps=96,
+                         dt_minutes=15.0, chunk_steps=24, seed=5)
+        eng = QstsEngine(spec)
+        qk.reset_launches()
+        lk.reset_launches()
+        feeder = run_study(spec, engine=eng)
+        counts["qsts_feeder_reduce"] = qk.launches()["qsts_feeder_reduce"]
+        l1 = lk.launches()["ladder_solve"]
+        n_chunks = spec.steps // spec.chunk_steps
+        check(l1 == n_chunks and counts["qsts_feeder_reduce"] == n_chunks,
+              f"(d): L1 {l1}, Q2 {counts['qsts_feeder_reduce']} launches for "
+              f"{n_chunks} chunks")
+        check(feeder["completed"] and feeder["energy_balance_ok"]
+              and feeder["lane_steps_not_converged"] == 0, f"(d): {feeder}")
+        got = study_states(QstsEngine(spec))
+        want = study_states(QstsEngine(spec, plain=True))
+        gap = compare_states("(d) vs plain=True", got, want, QSTS_ATOL)
+        kill_and_resume("d-feeder", spec, feeder, tmp, stop=2)
+        log(f"qsts: (d) vvc_9bus x{MAIN_LANES} x96: "
+            f"{feeder['scenario_steps_per_sec']} scenario-steps/s, L1 "
+            f"{l1} and Q2 {counts['qsts_feeder_reduce']} launches for "
+            f"{n_chunks} chunks, within {gap:.3e} of plain=True, losses "
+            f"{feeder['energy_loss_kwh_mean']:.3f} kWh a scenario")
+    return counts
+
+
+def post_json(port, method, path, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request(method, path, body=None if body is None else json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    conn.close()
+    return resp.status, data
+
+
+def wait_job(port, job_id, until=("completed", "failed", "cancelled"),
+             timeout_s=600.0, pred=None):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        status, j = post_json(port, "GET", f"/v1/jobs/{job_id}")
+        check(status == 200, f"GET /v1/jobs/{job_id}: HTTP {status} {j}")
+        if j["state"] in until or (pred is not None and pred(j)):
+            return j
+        time.sleep(0.02)
+    raise SmokeFailure(f"job {job_id} did not finish: {j}")
+
+
+def serve_qsts(torch, qk):
+    """``ServeServer`` with a ``JobManager`` over a temporary checkpoint
+    directory: a mesh2000 study while a 64-request ``/v1/pf`` burst runs
+    on case14, its summary against a direct ``run_study``, a cancelled
+    keyed job resumed, an agents job, and the typed 404s."""
+    import tempfile
+
+    from freedm_tpu_torch.scenarios.engine import run_study
+    from freedm_tpu_torch.scenarios.jobs import JobManager, parse_job_request
+    from freedm_tpu_torch.serve.http import ServeServer
+    from freedm_tpu_torch.serve.service import ServeConfig, Service
+
+    def burst(tag):
+        wall, out = post_round(server.port, "case14", scales)
+        for status, body, _ in out:
+            check(status == 200 and body["converged"],
+                  f"serve qsts {tag}: HTTP {status}: {str(body)[:300]}")
+        lat = np.array([x for _, _, x in out]) * 1e3
+        return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        svc = Service(ServeConfig(max_batch=MAIN_LANES, device="cuda",
+                                  cache_mb=0.0))
+        jm = JobManager(workers=1, checkpoint_dir=tmp, device="cuda").start()
+        server = ServeServer(svc, jobs=jm).start()
+        try:
+            scales = np.linspace(0.6, 1.2, MAIN_LANES)
+            post_round(server.port, "case14", scales[:4])  # engine build
+            alone = burst("alone")
+            payload = {"case": "mesh2000", "scenarios": 16, "steps": 48,
+                       "chunk_steps": 12, "seed": 5, "job_key": "s1"}
+            status, d = post_json(server.port, "POST", "/v1/qsts", payload)
+            check(status == 202 and d["state"] == "queued",
+                  f"POST /v1/qsts: HTTP {status} {d}")
+            wait_job(server.port, d["job_id"],
+                     pred=lambda j: j["state"] == "running")
+            during = burst("during a job")
+            _, jstate = post_json(server.port, "GET", f"/v1/jobs/{d['job_id']}")
+            job = wait_job(server.port, d["job_id"])
+            check(job["state"] == "completed", f"job s1: {job}")
+            spec, _ = parse_job_request(payload)
+            direct = run_study(spec)
+            check(same_summary(job["summary"], direct),
+                  f"job s1 differs from a direct run_study: "
+                  f"{job['summary']} vs {direct}")
+            log(f"serve qsts: 64-request /v1/pf burst on case14 p50/p99 "
+                f"{alone[0]:.1f}/{alone[1]:.1f} ms alone, "
+                f"{during[0]:.1f}/{during[1]:.1f} ms while a mesh2000 x16 "
+                f"job ran (job {jstate['state']} after the burst, chunk "
+                f"{jstate['chunks_done']}/{jstate['chunks_total']}); the "
+                f"job's summary equals a direct run_study "
+                f"({job['summary']['scenario_steps_per_sec']} scenario-"
+                f"steps/s)")
+            payload2 = dict(payload, steps=96, job_key="s2")
+            _, d2 = post_json(server.port, "POST", "/v1/qsts", payload2)
+            wait_job(server.port, d2["job_id"],
+                     pred=lambda j: j["chunks_done"] >= 1)
+            status, c = post_json(server.port, "POST",
+                                  f"/v1/jobs/{d2['job_id']}/cancel", {})
+            check(status == 200, f"cancel: HTTP {status} {c}")
+            j2 = wait_job(server.port, d2["job_id"])
+            ck = os.path.join(tmp, "qsts_s2.json")
+            check(j2["state"] == "cancelled" and os.path.exists(ck),
+                  f"job s2 after cancel: {j2}")
+            _, d3 = post_json(server.port, "POST", "/v1/qsts", payload2)
+            j3 = wait_job(server.port, d3["job_id"])
+            spec2, _ = parse_job_request(payload2)
+            check(j3["state"] == "completed"
+                  and j3["resumed_from_chunk"] > 0
+                  and same_summary(j3["summary"], run_study(spec2)),
+                  f"job s2 resubmitted: {j3}")
+            log(f"serve qsts: job s2 cancelled after chunk "
+                f"{j2['chunks_done']}, resubmitted: resumed from chunk "
+                f"{j3['resumed_from_chunk']}, equal to the uninterrupted run")
+            qk.reset_launches()
+            _, d4 = post_json(server.port, "POST", "/v1/qsts", {
+                "case": "case_ieee30", "scenarios": 2, "steps": 8,
+                "chunk_steps": 4, "agents": {"ev": 4000, "thermostat": 3000,
+                                             "inverter": 1500, "dr": 1500}})
+            j4 = wait_job(server.port, d4["job_id"])
+            a1 = qk.launches()["agent_step"]
+            check(j4["state"] == "completed" and a1 == 8,
+                  f"agents job: {j4.get('error')} A1 launches {a1}")
+            status, e = post_json(server.port, "GET", "/v1/jobs/deadbeef")
+            check(status == 404 and e["error"]["type"] == "not_found",
+                  f"unknown job id: HTTP {status} {e}")
+            status, h = post_json(server.port, "GET", "/healthz")
+            check(status == 200 and h["qsts"] is True, f"/healthz: {h}")
+            log(f"serve qsts: agents job (10^4 agents on case_ieee30 x2) "
+                f"completed, A1 launched {a1} times; unknown id 404 "
+                f"not_found; /healthz qsts {h['qsts']}")
+        finally:
+            server.stop()
+            jm.stop()
+            svc.stop()
+
+
 def main() -> int:
     import torch
 
@@ -3297,6 +4016,7 @@ def main() -> int:
     from freedm_tpu_torch.kernels import cache_kernels as ck
     from freedm_tpu_torch.kernels import ladder_kernels as lk
     from freedm_tpu_torch.kernels import newton_kernels as nk
+    from freedm_tpu_torch.kernels import qsts_kernels as qk
     from freedm_tpu_torch.kernels import screen_kernels as sck
     from freedm_tpu_torch.kernels import sparse_kernels as sk
 
@@ -3311,9 +4031,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        build_kernels(torch, nk, sk, ck, sck, lk, build)
+        build_kernels(torch, nk, sk, ck, sck, lk, qk, build)
         errs = dict.fromkeys([*nk.LAUNCHES, *sk.LAUNCHES, *ck.LAUNCHES,
-                              *sck.LAUNCHES, *lk.LAUNCHES], 0.0)
+                              *sck.LAUNCHES, *lk.LAUNCHES, *qk.LAUNCHES], 0.0)
         compare_kernels(torch, nk, errs)
         rows, extra = time_kernels(torch, nk)
         solve_mesh2000(torch, nk)
@@ -3357,6 +4077,18 @@ def main() -> int:
             vvc_counts["ladder_solve"])
         extra["ladder_vjp"]["launches_path"] = (
             "vvc phase: one controller step on synthetic_radial(10000) x64")
+        compare_a1(torch, qk, errs)
+        compare_q(torch, qk, errs)
+        time_qsts(torch, qk, rows, extra)
+        counts.update(qsts_phase(torch, qk, lk))
+        extra["agent_step"]["launches_path"] = (
+            "qsts phase (c): the million-agent day on case_ieee30 x1, the "
+            "engine's second run")
+        extra["qsts_bus_reduce"]["launches_path"] = (
+            "qsts phase (b): mesh2000 x64 x96 steps, sparse mixed")
+        extra["qsts_feeder_reduce"]["launches_path"] = (
+            "qsts phase (d): vvc_9bus x64 x96 steps, chunks of 24")
+        serve_qsts(torch, qk)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3386,6 +4118,12 @@ def main() -> int:
                          "freedm_tpu/pf/ladder.py:184"),
         "ladder_vjp": ("cuda", source + "csrc/ladder.cu",
                        "freedm_tpu/pf/ladder.py:209"),
+        "agent_step": ("cuda", source + "csrc/qsts.cu",
+                       "freedm_tpu/scenarios/agents.py:459"),
+        "qsts_bus_reduce": ("cuda", source + "csrc/qsts.cu",
+                            "freedm_tpu/scenarios/engine.py:401"),
+        "qsts_feeder_reduce": ("cuda", source + "csrc/qsts.cu",
+                               "freedm_tpu/scenarios/engine.py:647"),
     }
     table = []
     for name, (route, src, replaces) in meta.items():

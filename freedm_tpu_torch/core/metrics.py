@@ -130,6 +130,14 @@ class _GaugeChild(_Child):
         with self._lock:
             self._value = float(value)
 
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value -= amount
+
     @property
     def value(self) -> float:
         with self._lock:
@@ -241,6 +249,12 @@ class Gauge(_Metric):
 
     def set(self, value: float) -> None:
         self.labels().set(value)  # type: ignore[attr-defined]
+
+    def inc(self, amount: float = 1.0) -> None:
+        self.labels().inc(amount)  # type: ignore[attr-defined]
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.labels().dec(amount)  # type: ignore[attr-defined]
 
 
 
@@ -492,3 +506,37 @@ SERVE_CACHE_ERRORS = REGISTRY.counter(
     "pf requests whose cache tier raised (a delta program's build or "
     "launch, or any cache-side failure) and that took the full path "
     "instead; the first is logged with its traceback")
+
+# -- QSTS scenario engine (freedm_tpu_torch.scenarios) ----------------------
+QSTS_SUBMITTED = REGISTRY.counter(
+    "qsts_jobs_submitted_total", "QSTS jobs accepted by the jobs API")
+QSTS_JOBS = REGISTRY.counter(
+    "qsts_jobs_total",
+    "QSTS jobs by final outcome (completed/failed/cancelled)",
+    labels=("outcome",))
+for _outcome in ("completed", "failed", "cancelled"):
+    QSTS_JOBS.labels(_outcome)
+QSTS_RUNNING = REGISTRY.gauge(
+    "qsts_jobs_running", "QSTS jobs currently executing on a worker")
+QSTS_CHUNK_SECONDS = REGISTRY.histogram(
+    "qsts_chunk_seconds",
+    "Wall time per QSTS time-chunk (profile materialize + batched solve)",
+    buckets=(0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 20.0, 60.0, 240.0))
+QSTS_SCENARIO_RATE = REGISTRY.gauge(
+    "qsts_scenario_steps_per_sec",
+    "Scenario-timesteps per second of the most recent QSTS chunk")
+QSTS_AGENT_RATE = REGISTRY.gauge(
+    "qsts_agent_steps_per_sec",
+    "Agent-steps per second of the most recent QSTS chunk (scenario-"
+    "timesteps x population size; zero unless the study attached an "
+    "agent population)")
+QSTS_AGENTS_TOTAL = REGISTRY.gauge(
+    "qsts_agents_total",
+    "Agent population size of the most recently executed agent-"
+    "population QSTS study")
+QSTS_RESUMES = REGISTRY.counter(
+    "qsts_resumes_total", "QSTS jobs resumed from a chunk checkpoint")
+QSTS_REQUEUED = REGISTRY.counter(
+    "qsts_jobs_requeued_total",
+    "QSTS jobs auto-requeued after a worker crash (resumed from their "
+    "last chunk checkpoint instead of requiring manual resubmission)")

@@ -36,6 +36,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+#: Flags of one source on top of :data:`NVCC_FLAGS`: the QSTS kernels are
+#: compiled without multiply-add contraction, so each operation rounds as
+#: the plain PyTorch version's operation does.
+EXTRA_FLAGS = {"qsts": ("-fmad=false",)}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -55,10 +60,14 @@ def nvcc_path() -> str:
     return found
 
 
+def _flags(name: str):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + "\0".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -75,7 +84,7 @@ def build(name: str) -> Path:
             if out.exists():  # another process built it while we waited
                 return out
             tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
                    str(CSRC_DIR / f"{name}.cu")]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:

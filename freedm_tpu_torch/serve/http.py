@@ -1,4 +1,5 @@
-"""Zero-dependency JSON front end for the power-flow, N-1 and VVC service.
+"""Zero-dependency JSON front end for the power-flow, N-1 and VVC service
+and the QSTS jobs API.
 
 Port of ``ServeServer`` from ``freedm_tpu/serve/http.py``: a stdlib
 ``ThreadingHTTPServer`` on a daemon thread, loopback bind by default,
@@ -15,13 +16,21 @@ Routes:
   ``/v1/vvc`` with one matching
   :class:`~freedm_tpu_torch.serve.service.VVCRequest`; 200 with the typed
   response dict on success;
-- ``GET /healthz`` — liveness + the workload/case table;
+- ``POST /v1/qsts`` — submit a QSTS study to the
+  :class:`~freedm_tpu_torch.scenarios.jobs.JobManager` given as ``jobs``
+  (202 with the job record); ``GET /v1/jobs/<id>`` polls it and ``POST
+  /v1/jobs/<id>/cancel`` cancels it; without ``jobs`` these answer the
+  reference's typed 404 "QSTS jobs are not enabled on this server";
+- ``GET /healthz`` — liveness + the workload/case table and ``"qsts"``
+  (whether jobs are enabled);
 - ``GET /stats`` — queue depth, buckets, per-shape dispatch counts and
-  the serve metric snapshot;
+  the serve metric snapshot, with the job table's counts under
+  ``"qsts"``;
 - ``GET /metrics`` — the registry in the Prometheus text format.
 
-Every other route answers a typed 404 (the reference's topo workload,
-jobs and snapshots are not ported yet).  Errors are typed: the body is
+Every other route answers a typed 404: ``POST /v1/topo/sweep`` names
+ROADMAP.md module queue item 11 (topology sweeps); snapshots are not
+ported yet.  Errors are typed: the body is
 always ``{"error": {"type": <ServeError.code>, "detail": ...}}`` with
 the matching HTTP status (400 invalid_request, 404 not_found, 429
 overloaded, 503 shutting_down, 504 deadline_exceeded, 500 internal);
@@ -75,10 +84,11 @@ class ServeServer(BackgroundHttpServer):
     """The JSON query endpoint of a :class:`Service`."""
 
     def __init__(self, service: Service, port: int = 0,
-                 host: str = "127.0.0.1"):
+                 host: str = "127.0.0.1", jobs=None):
         # Loopback by default: the service has no auth; widening the
         # bind is an explicit caller decision.
         svc = service
+        jm = jobs
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -110,6 +120,11 @@ class ServeServer(BackgroundHttpServer):
                             {"error": {"type": err.code, "detail": str(err)}},
                             retry_after_s=err.retry_after_s)
 
+            def _jobs(self):
+                if jm is None:
+                    raise NotFound("QSTS jobs are not enabled on this server")
+                return jm
+
             def do_GET(self):
                 path = urlparse(self.path).path
                 try:
@@ -123,12 +138,19 @@ class ServeServer(BackgroundHttpServer):
                             "workloads": list(WORKLOADS),
                             "bus_cases": list(BUS_CASES),
                             "feeder_cases": list(FEEDER_CASES),
+                            "qsts": jm is not None,
                         })
                     elif path == "/stats":
-                        self._reply(200, svc.stats())
+                        stats = svc.stats()
+                        if jm is not None:
+                            stats["qsts"] = jm.stats()
+                        self._reply(200, stats)
                     elif path == "/metrics":
                         self._send(200, REGISTRY.render_prometheus().encode(),
                                    "text/plain; version=0.0.4; charset=utf-8")
+                    elif path.startswith("/v1/jobs/"):
+                        self._reply(200, self._jobs().get(
+                            path[len("/v1/jobs/"):]))
                     else:
                         raise NotFound(f"no route GET {path}")
                 except ServeError as e:
@@ -143,8 +165,17 @@ class ServeServer(BackgroundHttpServer):
                     # Drain FIRST: everything after this point can fail
                     # without corrupting the persistent connection.
                     body = read_request_body(self)
+                    if path.startswith("/v1/jobs/") and path.endswith("/cancel"):
+                        job_id = path[len("/v1/jobs/"):-len("/cancel")]
+                        self._reply(200, self._jobs().cancel(job_id))
+                        return
+                    if path == "/v1/topo/sweep":
+                        raise NotFound(
+                            "no route POST /v1/topo/sweep: topology sweeps "
+                            "are not ported (ROADMAP.md, module queue item 11)"
+                        )
                     workload = path[len("/v1/"):] if path.startswith("/v1/") else ""
-                    if workload not in WORKLOADS:
+                    if workload not in WORKLOADS and path != "/v1/qsts":
                         raise NotFound(f"no route POST {path}")
                     if not body:
                         raise InvalidRequest("missing JSON request body")
@@ -152,6 +183,9 @@ class ServeServer(BackgroundHttpServer):
                         payload = json.loads(body)
                     except ValueError as e:
                         raise InvalidRequest(f"malformed JSON: {e}") from None
+                    if path == "/v1/qsts":
+                        self._reply(202, self._jobs().submit(payload))
+                        return
                     response = svc.request(workload, payload)
                     self._reply(200, response.to_dict())
                 except ServeError as e:

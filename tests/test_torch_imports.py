@@ -46,7 +46,13 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
         "          'freedm_tpu_torch.kernels.ladder_kernels',\n"
         "          'freedm_tpu_torch.grid.feeder', 'freedm_tpu_torch.cplx',\n"
         "          'freedm_tpu_torch.pf.sweeps', 'freedm_tpu_torch.pf.ladder',\n"
-        "          'freedm_tpu_torch.modules.vvc'):\n"
+        "          'freedm_tpu_torch.modules.vvc',\n"
+        "          'freedm_tpu_torch.kernels.qsts_kernels',\n"
+        "          'freedm_tpu_torch.runtime.checkpoint',\n"
+        "          'freedm_tpu_torch.scenarios.profiles',\n"
+        "          'freedm_tpu_torch.scenarios.agents',\n"
+        "          'freedm_tpu_torch.scenarios.engine',\n"
+        "          'freedm_tpu_torch.scenarios.jobs'):\n"
         "    assert m in sys.modules, m\n"
         "import chip_smoke, kernel_ab\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -59,7 +65,7 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 19  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 26  # every module was imported
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
@@ -80,7 +86,12 @@ def test_static_scan_finds_no_jax_or_reference_import():
             PACKAGE / "kernels" / "ladder_kernels.py",
             PACKAGE / "grid" / "feeder.py", PACKAGE / "pf" / "sweeps.py",
             PACKAGE / "pf" / "ladder.py", PACKAGE / "modules" / "vvc.py",
-            PACKAGE / "cplx.py"} <= set(files)
+            PACKAGE / "cplx.py", PACKAGE / "kernels" / "qsts_kernels.py",
+            PACKAGE / "runtime" / "checkpoint.py",
+            PACKAGE / "scenarios" / "profiles.py",
+            PACKAGE / "scenarios" / "agents.py",
+            PACKAGE / "scenarios" / "engine.py",
+            PACKAGE / "scenarios" / "jobs.py"} <= set(files)
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -179,6 +190,10 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
     from freedm_tpu_torch.kernels import ladder_kernels as lk
 
     assert set(lk.launches()) == {"ladder_solve", "ladder_vjp"}
+    from freedm_tpu_torch.kernels import qsts_kernels as qk
+
+    assert set(qk.launches()) == {"agent_step", "qsts_bus_reduce",
+                                  "qsts_feeder_reduce"}
     with pytest.raises(TypeError, match="float64 or float32"):
         lk._suffix(torch.float16)
     vb = torch.zeros(2, 17, 8, dtype=torch.float64)
