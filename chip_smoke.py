@@ -13,12 +13,15 @@ the DC solver and ``dc_prefilter`` (D1); the radial ladder solve (L1)
 and its adjoint (L2) under the VVC controller, and ``POST /v1/vvc`` (L1);
 QSTS studies through ``run_study`` — the agent step (A1), the bus and
 feeder streaming reductions (Q1, Q2), feeder chunks on L1 — and the jobs
-API behind ``POST /v1/qsts``.
+API behind ``POST /v1/qsts``; topology sweeps through ``run_topo_sweep``
+— the radiality check (T1) and the rank-r SMW screen (T2), the AC verify
+on S1 with status, S2-S4 and K3 —, ``POST /v1/topo`` and ``POST
+/v1/topo/sweep``.
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build: six ``nvcc`` runs started together compile
+1. build: seven ``nvcc`` runs started together compile
    ``freedm_tpu_torch/kernels/csrc/newton.cu``, ``sparse.cu``,
-   ``cache.cu``, ``screen.cu``, ``ladder.cu`` and ``qsts.cu`` for
+   ``cache.cu``, ``screen.cu``, ``ladder.cu``, ``qsts.cu`` and ``topo.cu`` for
    ``sm_90a``; prints the build seconds and the ``-Xptxas -v`` reports;
 2. kernels: each kernel against its plain PyTorch version on the card at
    n ∈ {14, 30, 118, 2000} buses and B ∈ {1, 3, 64} lanes (float64,
@@ -56,7 +59,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    mesh2000 × 64 (CUDA events over back-to-back calls, and device time
    from ``torch.profiler``) beside their plain versions, their bounds,
    the preconditioner apply and, for S2, one ``torch.sparse.mm`` over a
-   block-diagonal CSR matrix of every lane's J — S1 in each mode, all in
+   block-diagonal CSR matrix of every lane's J, for S4 the SVD
+   minimum-norm solve of its float64 H (``torch.linalg.pinv``; the card's
+   ``torch.linalg.lstsq`` refuses a rank-deficient H) — S1 in each mode, all in
    float64 and float32;
 5. sparse solves: mesh2000 × 64 in f64 and in mixed — every lane
    converges, losses ≥ 0, three lanes within 1e-9 pu of the plain-version
@@ -184,7 +189,37 @@ Phases (any failure exits non-zero, and no result line is printed):
    answer 200 and converged), its summary equal to a direct
    ``run_study``; a keyed job cancelled mid-run and resubmitted (resumed,
    equal); an agents job (A1 launched); an unknown id 404; ``/healthz``
-   ``qsts``.
+   ``qsts``;
+18. topo kernels: T1 and T2 (both modes) against their plain versions at
+   case14, case_ieee30, mesh118 and mesh2000 × V ∈ {1, 4096} (capped at a
+   rank's distinct open-sets) × r ∈ {1, 2, 6}, random distinct open-sets
+   (seeded), and every rank-<=2 variant of case14, case_ieee30 and mesh118
+   (``TOPO_ATOL``; T1's booleans, T2's islanding flags and violation
+   counts equal; both bit-identical on repeat, SCREEN equal to DETAIL);
+   the bridges of case14 and case_ieee30 flagged by both; the least |det
+   C| of a connected lane and the largest of an islanded one; then their
+   times (events and device time) beside the plain versions and the
+   bounds: T1 and T2 SCREEN at mesh118 × 4096, r = 2 (a chunk of the gate
+   sweep) and mesh2000 × 16384, r ≤ 3, T2 DETAIL at mesh118 × 4096; the
+   library row: ``torch.linalg.solve_ex`` of the chunk's re-formed B′,
+   and per variant on the reference bench's 32 mixed-rank lanes;
+19. topo sweeps through ``run_topo_sweep``: (a) every rank-<=2 variant of
+   mesh118 in chunks of 4096, top 8 by loss — variants/s beside the
+   reference bench's floor (10⁴), the AC verify of the top 8 apart, every
+   entry converged under ``AC_TRUE_MISMATCH`` and no bridge, a second
+   run, a kill after 3 chunks and its resume, chunks of 1024 and the
+   plain versions' sweep equal; T1 and T2 once a chunk; (b) full width:
+   mesh2000, ``TOPO_FULL_SAMPLES`` neighborhood samples of rank <= 3 (seed
+   7) in chunks of ``TOPO_FULL_CHUNK`` — variants/s, the host draw, the
+   chunk walls and T1 + T2's share, T1's sweeps, the excluded counts;
+20. serve topo: the default server (cache on) with a ``JobManager``:
+   ``POST /v1/topo`` case14 at rank 2 (210 variants, counts partition,
+   verified, the shortlist of ``run_topo_sweep``), mesh118 after a
+   ``/v1/pf`` request (the cache entry's B′ LU adopted: no
+   ``lu_factor``), 16 concurrent mesh118 rank-1 requests (p50/p99), an
+   invalid spec 400; a keyed mesh118 rank-2 ``POST /v1/topo/sweep`` job
+   cancelled mid-run and resubmitted (resumed, equal to a direct sweep,
+   ``kind: "topo"``), an invalid job 400; T1 and T2 launched on both.
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
@@ -195,7 +230,9 @@ in turns with and without status on the same inputs
 ``launches_by_mode``, and those of the n1 path, all with status; N1 and
 D1 their other modes' times; L1 and L2 their per-iteration device times
 and other shapes; A1 its S = 4 times; A1, Q1 and Q2 the path of their
-launches); the last line is ``{"ok": true, "device": {...}}``.
+launches; T1 and T2 their mesh2000 × 16384 times, T2 DETAIL, the
+refactorization head-to-head and the |det C| margin, both their launches
+on the served paths); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -244,7 +281,7 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def build_kernels(torch, nk, sk, ck, sck, lk, qk, build):
+def build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, build):
     t0 = time.monotonic()
     box = {}
 
@@ -254,7 +291,7 @@ def build_kernels(torch, nk, sk, ck, sck, lk, qk, build):
         except Exception as e:  # noqa: BLE001 — re-raised on the main thread
             box["error"] = e
 
-    names = ("newton", "sparse", "cache", "screen", "ladder", "qsts")
+    names = ("newton", "sparse", "cache", "screen", "ladder", "qsts", "topo")
     threads = [threading.Thread(target=run_nvcc, args=(name,))
                for name in names]
     for th in threads:
@@ -269,6 +306,7 @@ def build_kernels(torch, nk, sk, ck, sck, lk, qk, build):
     sck._screen_lib()
     lk._ladder_lib()
     qk._qsts_lib()
+    tk._topo_lib()
     t_all = time.monotonic() - t0
     log(f"build: nvcc x{len(names)} {t_all:.1f} s ("
         + ", ".join(f"{k}.cu {box[k][1]:.1f} s" for k in names) + "), "
@@ -1098,7 +1136,9 @@ def time_assemble(torch, sk, op, x, ps, qs, rows, extra):
 def time_sparse_kernels(torch, sk):
     """Each of S1-S4 at the main path's shape (mesh2000, 64 lanes,
     float64) against its plain version, its bound and, for S2, the
-    library sparse product, by CUDA events and by device time; S2-S4
+    library sparse product (for S4 the SVD minimum-norm solve of its H,
+    ``torch.linalg.pinv``), by
+    CUDA events and by device time; S2-S4
     (and the library product) also in float32, the dtype of the default
     mixed path's inner solve.  Returns ``(rows, extra)``: the float64
     table rows and the further fields of their table entries."""
@@ -1193,14 +1233,32 @@ def time_sparse_kernels(torch, sk):
                                                         beta), reps=10)
         b, by = bound(b4, o4, fp64=f64)
         plan = sk.lstsq_plan(nvec, mm, w)
+        # The library yardstick: the SVD minimum-norm solve of the same
+        # float64 H [B, mm+1, mm] and β e₁ with S4's cutoff,
+        # torch.linalg.pinv and its product — the least-squares solve
+        # alone, without H = Vᵀ W and x = Zᵀ y.  torch.linalg.lstsq on the
+        # card takes only full-rank H (LAPACK's gels) and refuses a cycle
+        # whose lanes have dead rows.
+        h = (vb * valid[:, :, None]).double() @ ws.double().mT
+        e1 = torch.zeros(lanes, mm + 1, 1, dtype=torch.float64,
+                         device=h.device)
+        e1[:, 0, 0] = beta.double()
+        rtol = torch.finfo(dtype).eps * (mm + 1)
+        lib = time_ms(torch, lambda: torch.linalg.pinv(h, rtol=rtol) @ e1,
+                      reps=20)
         if f64:
-            rows["gmres_lstsq"] = (k, p, None, b, by)
+            rows["gmres_lstsq"] = (k, p, lib, b, by)
         else:
             extra["gmres_lstsq"].update(
-                ms_f32=k, plain_ms_f32=p, bound_ms_f32=b, library_ms_f32=None)
+                ms_f32=k, plain_ms_f32=p, bound_ms_f32=b, library_ms_f32=lib)
         extra["gmres_lstsq"]["device_ms" + sfx] = k_dev
+        extra["gmres_lstsq"]["library"] = (
+            "torch.linalg.pinv(H, rtol) @ beta e1 of the same float64 H (the "
+            "least-squares solve alone; torch.linalg.lstsq on the card "
+            "refuses rank-deficient H)")
         log(f"timing: gmres_lstsq{sfx:<4}      kernel {k:.4f} ms (device "
             f"{k_dev:.4f})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
+            f"library torch.linalg.pinv @ b {lib:.4f} ms  "
             f"[mm={mm}, {plan.ctas} CTAs a lane, {plan.smem} B shared]; "
             "device by kernel: " + ", ".join(
                 f"{name.split('::')[-1].split('<')[0]} {ms:.4f} ms"
@@ -4005,6 +4063,634 @@ def serve_qsts(torch, qk):
             svc.stop()
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the topology kernels (T1, T2)
+# ---------------------------------------------------------------------------
+
+#: T2 against its plain version: θ, flows, loss and worst flow within
+#: 1e-10 pu absolute (the r × r solve and the sums round in another
+#: order); T2's islanding flags and violation counts and T1's booleans
+#: equal; both bit-identical on repeat.
+TOPO_ATOL = 1e-10
+TOPO_CASES = ("case14", "case_ieee30", "mesh118", "mesh2000")
+TOPO_LANES = (1, 4096)  # capped by a case's distinct open-sets of a rank
+TOPO_RANKS = (1, 2, 6)
+#: The flow bar of the compared and timed screens, pu.
+TOPO_LIMIT = 0.5
+#: H100 SXM int32 rate outside the tensor cores: 64 INT32 lanes an SM a
+#: clock (Hopper architecture white paper) x 132 SMs x 1.98 GHz.
+PEAK_INT32 = 16.7e12
+#: The integer operations that labelling a lane's components needs at
+#: least, one pass over its inputs (loads not counted): per closed edge a
+#: compare and a min, per bus the compare of the connected test.
+T1_EDGE_OPS, T1_BUS_OPS = 2, 1
+#: T2's float64 operations a lane: per bus and active slot a multiply and
+#: an add, per bus an add, per branch a subtract, three multiplies, an
+#: add, an abs and a compare.
+T2_SLOT_OPS, T2_BUS_OPS, T2_EDGE_OPS = 2, 1, 7
+#: The sweep gate of the reference's bench (``bench.py`` ``bench_topo``):
+#: variants/s over every rank-<=2 variant of mesh118 — its gate value, for
+#: orientation only; no time of another device is quoted here.
+TOPO_GATE_FLOOR = 10_000
+#: The full-width sweep: mesh2000 neighborhood samples of rank <= 3, in
+#: chunks of this many (the largest chunk a job takes).
+TOPO_FULL_SAMPLES = 65536
+TOPO_FULL_CHUNK = 16384
+#: The served shortlist's AC lanes: converged, and the host float64
+#: residual of each variant's own topology under this bar.
+AC_TRUE_MISMATCH = 1e-6
+
+
+def random_open_sets(m, lanes, rank, seed):
+    """``lanes`` distinct random open-sets of rank 1..``rank`` of ``m``
+    branches (int32, ``-1`` pads)."""
+    rng = np.random.default_rng(seed)
+    rows, seen = [], set()
+    while len(rows) < lanes:
+        r = int(rng.integers(1, rank + 1))
+        combo = tuple(sorted(rng.choice(m, size=r, replace=False).tolist()))
+        if combo in seen:
+            continue
+        seen.add(combo)
+        row = np.full(rank, -1, np.int32)
+        row[:r] = combo
+        rows.append(row)
+    return np.stack(rows)
+
+
+def topo_inputs(torch, tp, name, dev="cuda"):
+    """One case's T1/T2 operands on the card, its Zᵀ and base angles θ0."""
+    from freedm_tpu_torch.pf.fdlf import decoupled_parts
+
+    sys_ = case_system(name)
+    dev = torch.device(dev)
+    op = tp.topo_operands(sys_, device=dev)
+    parts = decoupled_parts(sys_, device=dev)
+    lu = torch.linalg.lu_factor(parts.b_prime(None))
+    zt = tp.z_transpose(sys_, lu, op)
+    p0 = torch.as_tensor(np.asarray(sys_.p_inj, np.float64), device=dev)
+    rhs = torch.where(parts.th_free > 0, p0, torch.zeros_like(p0))
+    theta0 = torch.linalg.lu_solve(*lu, rhs[:, None])[:, 0].contiguous()
+    return sys_, op, zt, theta0
+
+
+def compare_topo_block(torch, tk, op, zt, theta0, sl, tag):
+    """T1 and T2 (both modes) against their plain versions on one slot
+    block; returns (T2's worst gap, |det C| max over islanded lanes, min
+    over the others)."""
+    cap = op.n + 1
+    k1 = tk.topo_radiality(sl, op, cap)
+    again1 = tk.topo_radiality(sl, op, cap)
+    p1 = tk.topo_radiality_plain(sl, op, cap)
+    check(torch.equal(k1[0], p1[0]) and torch.equal(k1[1], p1[1]),
+          f"topo_radiality {tag}: connected/radial differ from the plain "
+          f"version")
+    # The verdict is the fixed point's; the sweep count of the asynchronous
+    # sweeps depends on the threads' timing and is not compared.
+    check(torch.equal(k1[0], again1[0]) and torch.equal(k1[1], again1[1]),
+          f"topo_radiality {tag}: not bit-identical on repeat")
+    k2 = tk.topo_screen(zt, theta0, sl, TOPO_LIMIT, op, tk.DETAIL)
+    again2 = tk.topo_screen(zt, theta0, sl, TOPO_LIMIT, op, tk.DETAIL)
+    s2 = tk.topo_screen(zt, theta0, sl, TOPO_LIMIT, op, tk.SCREEN)
+    p2 = tk.topo_screen_plain(zt, theta0, sl, TOPO_LIMIT, op, tk.DETAIL)
+    check(torch.equal(k2.islanded, p2.islanded),
+          f"topo_screen {tag}: islanding flags differ "
+          f"({int((k2.islanded != p2.islanded).sum())} lanes)")
+    check(torch.equal(k2.violations, p2.violations),
+          f"topo_screen {tag}: violation counts differ")
+    gap = 0.0
+    for field in ("theta", "flows", "loss", "worst_flow"):
+        g = max_err(getattr(k2, field), getattr(p2, field))
+        check(g <= TOPO_ATOL, f"topo_screen {tag}: {field} {g:.3e} from the "
+              f"plain version")
+        gap = max(gap, g)
+    check(all(torch.equal(getattr(k2, f), getattr(again2, f))
+              for f in k2._fields),
+          f"topo_screen {tag}: not bit-identical on repeat")
+    check(all(torch.equal(getattr(k2, f), getattr(s2, f))
+              for f in ("loss", "worst_flow", "violations", "islanded")),
+          f"topo_screen {tag}: SCREEN differs from DETAIL")
+    det = tk.capacitance_det(zt, sl, op).abs()
+    isl = k2.islanded
+    hi = float(det[isl].max()) if bool(isl.any()) else 0.0
+    lo = float(det[~isl].min()) if bool((~isl).any()) else float("inf")
+    return gap, hi, lo, int(isl.sum()), int((~k1[0]).sum())
+
+
+def compare_topo(torch, tk, tp, errs, dev="cuda", cases=TOPO_CASES):
+    """T1 and T2 against their plain versions at case14, case_ieee30,
+    mesh118 and mesh2000 × V ∈ {1, 4096} × r ∈ {1, 2, 6} (random distinct
+    open-sets, seeded), every rank-<=2 variant of case14, case_ieee30 and
+    mesh118, and the bridges of case14 and case_ieee30."""
+    from freedm_tpu_torch.pf.n1 import secure_outages
+
+    t0 = time.monotonic()
+    worst, det_hi, det_lo, blocks = 0.0, 0.0, float("inf"), 0
+    for ci, name in enumerate(cases):
+        sys_, op, zt, theta0 = topo_inputs(torch, tp, name, dev)
+        m = sys_.n_branch
+        cases = [(f"r{rank} x{lanes}", random_open_sets(
+            m, min(lanes, tp.count_exhaustive(m, rank)), rank,
+            seed=100 * ci + 10 * rank + (lanes > 1)))
+            for rank in TOPO_RANKS for lanes in TOPO_LANES]
+        if name != "mesh2000":
+            cases.append(("every rank<=2",
+                          tp.enumerate_variants(np.arange(m), 2)))
+        line = []
+        for tag, slots in cases:
+            sl = torch.as_tensor(slots, device=dev)
+            gap, hi, lo, n_isl, n_disc = compare_topo_block(
+                torch, tk, op, zt, theta0, sl, f"{name} {tag}")
+            worst, det_hi, det_lo = max(worst, gap), max(det_hi, hi), \
+                min(det_lo, lo)
+            blocks += 1
+            line.append(f"{tag} ({sl.shape[0]} lanes, {n_disc} disconnected, "
+                        f"{n_isl} islanded) {gap:.1e}")
+        log(f"topo kernels: {name}: " + "; ".join(line))
+        if name in ("case14", "case_ieee30"):
+            bridges = sorted(set(range(m)) - set(secure_outages(sys_)))
+            slots = np.full((len(bridges), 2), -1, np.int32)
+            slots[:, 0] = bridges
+            sl = torch.as_tensor(slots, device=dev)
+            conn = tk.topo_radiality(sl, op, sys_.n_bus + 1)[0]
+            isl = tk.topo_screen(zt, theta0, sl, TOPO_LIMIT, op).islanded
+            check(not bool(conn.any()) and bool(isl.all()),
+                  f"topo kernels: {name}'s bridges {bridges} not all flagged "
+                  f"(T1 connected {conn.tolist()}, T2 islanded "
+                  f"{isl.tolist()})")
+            log(f"topo kernels: {name}'s {len(bridges)} bridges flagged by T1 "
+                f"and T2")
+    sync(torch, torch.device(dev))
+    errs["topo_radiality"] = 0.0  # booleans: equal
+    errs["topo_screen"] = worst
+    log(f"topo kernels: {blocks} blocks, T1 booleans equal, T2 flags and "
+        f"violations equal, theta/flows/loss/worst within {worst:.2e} "
+        f"(<= {TOPO_ATOL:g}), both bit-identical on repeat; |det C| <= "
+        f"{det_hi:.3e} on islanded lanes, >= {det_lo:.3e} on the others "
+        f"(threshold {tk.ISLAND_EPS:g}) "
+        f"({time.monotonic() - t0:.1f} s)")
+    return {"det_max_islanded": det_hi, "det_min_connected": det_lo}
+
+
+def t1_bound(op, sl):
+    """T1's least time from its inputs alone: its bytes (slots, branch
+    ends, the two boolean outputs) or one pass of integer operations over
+    each lane's closed edges and buses — not the sweeps the kernel makes."""
+    lanes, r = int(sl.shape[0]), int(sl.shape[1])
+    nbytes = lanes * r * 4 + 2 * op.m * 4 + lanes * 2
+    closed = op.m - ((sl >= 0) & (sl < op.m)).sum(dim=1)
+    ops = float((T1_EDGE_OPS * closed.double() + T1_BUS_OPS * op.n).sum())
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT32 * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"),
+            nbytes)
+
+
+def t2_bound(op, sl, detail=False):
+    """T2's least time: the active rows of Zᵀ, θ0, the branch arrays, the
+    slots and the outputs (DETAIL: the [V, n] and [V, m] writes too), or
+    its float64 operations."""
+    lanes, r = int(sl.shape[0]), int(sl.shape[1])
+    n, m = op.n, op.m
+    active = int(((sl >= 0) & (sl < m)).sum())
+    nbytes = (active * n * 8 + n * 8 + m * (4 + 4 + 4 * 8) + lanes * r * 4
+              + lanes * (3 * 8 + 1))
+    if detail:
+        nbytes += lanes * (n + m) * 8
+    ops = (T2_SLOT_OPS * n * active + lanes * (T2_BUS_OPS * n
+                                               + T2_EDGE_OPS * m
+                                               + 4 * r * r + r ** 3))
+    return bound(nbytes, ops), nbytes
+
+
+def time_t1_t2(torch, tk, op, zt, theta0, sl, tag, detail_too=False):
+    """Events, device time and the plain versions' times of T1 and T2
+    SCREEN (and DETAIL) on one block, with their bounds."""
+    cap = op.n + 1
+    out = {}
+    t1 = lambda: tk.topo_radiality(sl, op, cap)  # noqa: E731
+    # The sweep count is a diagnostic (it follows the threads' timing).
+    sweeps = tk.topo_radiality(sl, op, cap, with_sweeps=True)[2]
+    (b1, by1), bytes1 = t1_bound(op, sl)
+    k = time_ms(torch, t1, reps=20)
+    kd, src = ladder_device_ms(torch, t1, 10, f"T1 {tag}")
+    pl = time_ms(torch, lambda: tk.topo_radiality_plain(sl, op, cap), reps=2)
+    out["topo_radiality"] = dict(
+        ms=k, device_ms=kd, device_ms_source=src, plain_ms=pl, bound_ms=b1,
+        bound_by=by1, bytes=bytes1, sweeps_max=int(sweeps.max()),
+        sweeps_mean=float(sweeps.double().mean()))
+    log(f"timing: topo_radiality {tag}: kernel {k:.4f} ms (device {kd:.4f} "
+        f"[{src}])  plain {pl:.3f} ms  bound {b1:.5f} ms ({by1}); sweeps "
+        f"{int(sweeps.min())}-{int(sweeps.max())}, mean "
+        f"{float(sweeps.double().mean()):.2f}")
+    modes = (("SCREEN", tk.SCREEN),) + ((("DETAIL", tk.DETAIL),)
+                                        if detail_too else ())
+    for label, mode in modes:
+        def t2(fn=tk.topo_screen, mode=mode):
+            fn(zt, theta0, sl, TOPO_LIMIT, op, mode)
+
+        (b2, by2), bytes2 = t2_bound(op, sl, detail=mode == tk.DETAIL)
+        k = time_ms(torch, t2, reps=20)
+        kd, src = ladder_device_ms(torch, t2, 10, f"T2 {label} {tag}")
+        pl = time_ms(torch, lambda: t2(tk.topo_screen_plain), reps=2)
+        out[f"topo_screen_{label}"] = dict(
+            ms=k, device_ms=kd, device_ms_source=src, plain_ms=pl,
+            bound_ms=b2, bound_by=by2, bytes=bytes2)
+        log(f"timing: topo_screen {label} {tag}: kernel {k:.4f} ms (device "
+            f"{kd:.4f} [{src}])  plain {pl:.3f} ms  bound {b2:.5f} ms "
+            f"({by2}, {bytes2 / 1e6:.2f} MB)")
+    return out
+
+
+def refactor_solve(torch, sys_, op, sl):
+    """The per-variant refactorization the SMW lanes replace (the
+    reference bench's head-to-head): B′ re-formed with each lane's
+    branches open, ``B′ − Σ_S w_k a_k a_kᵀ`` ``[V, n, n]``, and the
+    right-hand side; the timed library call is ``torch.linalg.solve_ex``
+    of the stack."""
+    from freedm_tpu_torch.pf.fdlf import decoupled_parts
+
+    dev = sl.device
+    parts = decoupled_parts(sys_, device=dev)
+    lanes, r = int(sl.shape[0]), int(sl.shape[1])
+    ok = (sl >= 0) & (sl < op.m)
+    k = torch.where(ok, sl, 0).long()
+    a = torch.zeros(lanes, op.n, r, dtype=torch.float64, device=dev)
+    lane = torch.arange(lanes, device=dev)[:, None].expand(lanes, r)
+    col = torch.arange(r, device=dev)[None, :].expand(lanes, r)
+    act = ok.double()
+    a.index_put_((lane, op.f.long()[k], col), op.mask_f[k] * act,
+                 accumulate=True)
+    a.index_put_((lane, op.t.long()[k], col), -op.mask_t[k] * act,
+                 accumulate=True)
+    w = op.w[k] * act
+    b = parts.b_prime(None) - torch.bmm(a * w[:, None, :], a.mT)
+    p0 = torch.as_tensor(np.asarray(sys_.p_inj, np.float64), device=dev)
+    rhs = torch.where(parts.th_free > 0, p0, torch.zeros_like(p0))
+    return b, rhs[None, :, None].expand(lanes, op.n, 1).contiguous()
+
+
+def time_topo(torch, tk, tp, rows, extra):
+    """T1 and T2 SCREEN at mesh118 × 4096, r = 2 (a chunk of the gate
+    sweep) and mesh2000 × 16384, r = 3 (the first chunk of the full-width
+    neighborhood sweep), T2 DETAIL at mesh118 × 4096; the library row: the
+    re-formed B′ stack of the mesh118 chunk through
+    ``torch.linalg.solve_ex``, and per variant on the reference bench's 32
+    mixed-rank lanes."""
+    dev = torch.device("cuda")
+    sys_, op, zt, theta0 = topo_inputs(torch, tp, "mesh118")
+    chunk = tp.enumerate_variants(np.arange(sys_.n_branch), 2)[4096:8192]
+    sl = torch.as_tensor(chunk, device=dev)
+    small = time_t1_t2(torch, tk, op, zt, theta0, sl, "mesh118 x4096 r2",
+                       detail_too=True)
+    b, rhs = refactor_solve(torch, sys_, op, sl)
+    lib = time_ms(torch, lambda: torch.linalg.solve_ex(b, rhs), reps=5)
+    # The reference bench's head-to-head: 32 mixed-rank lanes (8 rank 1,
+    # 24 rank 2 of branches 0-8), per variant, each side one call.
+    pool = tp.enumerate_variants(np.arange(9), 2)
+    sample = np.concatenate([pool[pool[:, 1] < 0][:8],
+                             pool[pool[:, 1] >= 0][:24]])
+    s32 = torch.as_tensor(sample, device=dev)
+    b32, rhs32 = refactor_solve(torch, sys_, op, s32)
+    ref_theta = torch.linalg.solve_ex(b32, rhs32)[0][..., 0]
+    det32 = tk.topo_screen(zt, theta0, s32, TOPO_LIMIT, op, tk.DETAIL)
+    okl = ~det32.islanded
+    dth = max_err(ref_theta[okl], det32.theta[okl])
+    check(dth < 1e-8, f"topo: SMW lanes {dth:.3e} from refactorization")
+    lib32 = time_ms(torch, lambda: torch.linalg.solve_ex(b32, rhs32),
+                    reps=20) * 1e3 / 32
+    smw32 = time_ms(torch, lambda: tk.topo_screen(zt, theta0, s32,
+                                                  TOPO_LIMIT, op),
+                    reps=20) * 1e3 / 32
+    log(f"timing: refactorization head-to-head, mesh118: torch.linalg."
+        f"solve_ex of 4096 re-formed B' {lib:.3f} ms; 32 mixed-rank lanes "
+        f"{lib32:.2f} us a variant against T2 SCREEN {smw32:.2f} us a "
+        f"variant (x{lib32 / smw32:.1f}); theta within {dth:.1e}")
+    del b, b32
+    sys2, op2, zt2, th2 = topo_inputs(torch, tp, "mesh2000")
+    big = tp.neighborhood_variants(np.arange(sys2.n_branch), 3, 16384, 7)
+    sl2 = torch.as_tensor(big, device=dev)
+    large = time_t1_t2(torch, tk, op2, zt2, th2, sl2, "mesh2000 x16384 r<=3")
+    del zt2
+    torch.cuda.empty_cache()
+    r1, r2 = small["topo_radiality"], small["topo_screen_SCREEN"]
+    rows["topo_radiality"] = (r1["ms"], r1["plain_ms"], None, r1["bound_ms"],
+                              r1["bound_by"])
+    rows["topo_screen"] = (r2["ms"], r2["plain_ms"], lib, r2["bound_ms"],
+                           r2["bound_by"])
+    shape = "mesh118 x4096 lanes, rank 2 (rows 4096-8191 of the gate sweep)"
+    extra["topo_radiality"] = {
+        "shape": shape, **{k: v for k, v in r1.items()
+                           if k not in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+        "mesh2000_x16384": large["topo_radiality"]}
+    extra["topo_screen"] = {
+        "shape": shape, **{k: v for k, v in r2.items()
+                           if k not in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+        "library": "torch.linalg.solve_ex of the 4096 re-formed B' "
+                   "[4096, 118, 118] (forming excluded)",
+        "detail_mesh118_x4096": small["topo_screen_DETAIL"],
+        "mesh2000_x16384": large["topo_screen_SCREEN"],
+        "refactor_us_per_variant_32": lib32,
+        "smw_us_per_variant_32": smw32}
+    return {"mesh2000": large, "mesh118": small}
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: topology sweeps through run_topo_sweep
+# ---------------------------------------------------------------------------
+
+
+def same_topo(a, b, drop=()):
+    """Two sweep summaries equal but for the timing keys (and ``drop``)."""
+    from freedm_tpu_torch.pf.topo import strip_topo_timing
+
+    def view(x):
+        return json.dumps({k: v for k, v in strip_topo_timing(x).items()
+                           if k not in drop}, sort_keys=True)
+
+    return view(a) == view(b)
+
+
+def check_shortlist(tag, summary, bridges=frozenset()):
+    sl = summary["shortlist"]
+    check(sl, f"{tag}: empty shortlist")
+    for e in sl:
+        check(e["ac_converged"], f"{tag}: AC lane not converged: {e}")
+        check(e["ac_true_mismatch_pu"] < AC_TRUE_MISMATCH,
+              f"{tag}: AC true mismatch {e['ac_true_mismatch_pu']:.3e}")
+        check(not set(e["open_branches"]) & set(bridges),
+              f"{tag}: a bridge in the shortlist: {e}")
+    return max(e["ac_true_mismatch_pu"] for e in sl)
+
+
+def topo_sweeps(torch, tk, tp, timed, dev="cuda"):
+    """(a) the reference bench's gate shape: every rank-<=2 variant of
+    mesh118 in chunks of 4096, top 8 by loss — variants/s beside the
+    reference's floor, the AC verify of the top 8 apart, kill after 3 chunks
+    and resume, chunks of 1024, the plain versions' shortlist, T1 and T2
+    once a chunk; (b) full width: mesh2000, 65,536 neighborhood samples of
+    rank <= 3 (seed 7) in four chunks of 16,384.  Returns T1's and T2's
+    launches over (a)'s timed run."""
+    import dataclasses
+    import tempfile
+
+    from freedm_tpu_torch.pf.n1 import secure_outages
+
+    dev = torch.device(dev)
+
+    def run(spec, **kw):
+        return tp.run_topo_sweep(spec, device=dev, **kw)
+
+    t_phase = time.monotonic()
+    spec = tp.TopoSweepSpec(case="mesh118", max_rank=2, chunk_variants=4096,
+                            top_k=8, objective="loss")
+    first = run(spec)  # builds the verifier of the case
+    tk.reset_launches()
+    summary = run(spec)
+    counts = tk.launches()
+    modes = tk.mode_launches()["topo_screen"]
+    n_chunks = summary["chunks_total"]
+    check(summary["variants_total"] == 27966 and summary["completed"],
+          f"topo sweep (a): {summary}")
+    want = n_chunks if dev.type == "cuda" else 0
+    check(counts == {"topo_radiality": want, "topo_screen": want}
+          and modes["SCREEN"] == want,
+          f"topo sweep (a): launches {counts} {modes} over {n_chunks} chunks")
+    check(same_topo(first, summary), "topo sweep (a): a second run differs")
+    sys_ = case_system("mesh118")
+    bridges = set(range(sys_.n_branch)) - set(secure_outages(sys_))
+    worst_ac = check_shortlist("topo sweep (a)", summary, bridges)
+    check(len(summary["shortlist"]) == 8, "topo sweep (a): short shortlist")
+    verifier = tp._cached_ac_verifier("mesh118", sys_, 8, device=dev)
+    status = tp.status_from_slots(torch.as_tensor(np.array(
+        [e["open_branches"] + [-1] * (2 - len(e["open_branches"]))
+         for e in summary["shortlist"]], np.int32), device=dev),
+        sys_.n_branch)
+    verifier(status)
+    sync(torch, dev)
+    ts = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        verifier(status).v.cpu()
+        ts.append((time.monotonic() - t0) * 1e3)
+    ac_ms = float(np.median(ts))
+    log(f"topo sweep (a): mesh118, {summary['variants_total']} rank<=2 "
+        f"variants in {n_chunks} chunks of 4096: {summary['variants_per_sec']}"
+        f" variants/s (wall {summary['wall_s']} s; the reference bench's "
+        f"floor {TOPO_GATE_FLOOR}), disconnected {summary['disconnected']}, "
+        f"islanded {summary['islanded']}; AC verify of the top 8: {ac_ms:.1f} "
+        f"ms (median of 3), every lane converged, true mismatch <= "
+        f"{worst_ac:.2e}, no bridge; T1 and T2 launched {counts} times")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "topo.json")
+        part = run(spec, checkpoint_path=ck, stop_after_chunks=3)
+        check(part["completed"] is False and part["chunks_done"] == 3,
+              f"topo sweep (a): the kill: {part}")
+        resumed = run(spec, checkpoint_path=ck)
+        check(resumed["resumed_from_chunk"] == 3
+              and same_topo(resumed, summary),
+              f"topo sweep (a): resumed {tp.strip_topo_timing(resumed)} vs "
+              f"{tp.strip_topo_timing(summary)}")
+    rechunked = run(dataclasses.replace(spec, chunk_variants=1024))
+    check(same_topo(rechunked, summary, drop=("chunks_total",)),
+          "topo sweep (a): chunks of 1024 differ from chunks of 4096")
+    screen_only = dataclasses.replace(spec, ac_verify=False)
+    mine = run(screen_only)
+    plain = run(screen_only, plain=True)
+    check([(e["open_branches"], e["gid"]) for e in mine["shortlist"]]
+          == [(e["open_branches"], e["gid"]) for e in plain["shortlist"]]
+          and same_topo(mine, plain, drop=("shortlist",)),
+          f"topo sweep (a): the plain versions' shortlist differs: "
+          f"{plain['shortlist']} vs {mine['shortlist']}")
+    gap = max(abs(a["objective"] - b["objective"])
+              for a, b in zip(mine["shortlist"], plain["shortlist"]))
+    log(f"topo sweep (a): killed after 3 chunks and resumed, chunks of 1024: "
+        f"equal; the plain versions' sweep: the same shortlist, objectives "
+        f"within {gap:.1e}")
+
+    spec_b = tp.TopoSweepSpec(case="mesh2000", max_rank=3,
+                              search="neighborhood",
+                              samples=TOPO_FULL_SAMPLES, seed=7,
+                              chunk_variants=TOPO_FULL_CHUNK, top_k=8)
+    t0 = time.monotonic()
+    tp.sweep_variants(spec_b, case_system("mesh2000").n_branch)
+    draw_s = time.monotonic() - t0
+    chunk_s = []
+    t0 = time.monotonic()
+    big = run(spec_b,
+              on_chunk=lambda done, total, s, real: chunk_s.append(s))
+    total_s = time.monotonic() - t0
+    check(big["completed"] and big["variants_total"] == TOPO_FULL_SAMPLES,
+          f"topo sweep (b): {tp.strip_topo_timing(big)}")
+    worst_b = check_shortlist("topo sweep (b)", big)
+    k = timed["mesh2000"]
+    t12 = (k["topo_radiality"]["ms"] + k["topo_screen_SCREEN"]["ms"])
+    log(f"topo sweep (b): mesh2000 (4000 branches, Z^T 64 MB), "
+        f"{TOPO_FULL_SAMPLES} neighborhood samples of rank <= 3 in "
+        f"{big['chunks_total']} chunks of {TOPO_FULL_CHUNK}: "
+        f"{big['variants_per_sec']} variants/s (wall {big['wall_s']} s; "
+        f"{total_s:.2f} s with the builds, the draw and the AC verify); the "
+        f"host draw {draw_s:.2f} s; chunk walls "
+        + ", ".join(f"{s * 1e3:.1f}" for s in chunk_s)
+        + f" ms, T1 + T2 on a chunk {t12:.2f} ms by events "
+        f"({100 * t12 / (np.mean(chunk_s[1:] or chunk_s) * 1e3):.0f}% of a "
+        f"later chunk's wall); T1 sweeps {k['topo_radiality']['sweeps_max']} "
+        f"at most, mean {k['topo_radiality']['sweeps_mean']:.2f}; "
+        f"disconnected {big['disconnected']}, islanded {big['islanded']}; "
+        f"top {len(big['shortlist'])} verified, true mismatch <= "
+        f"{worst_b:.2e} ({time.monotonic() - t_phase:.1f} s phase)")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the served topology workload and the sweep jobs
+# ---------------------------------------------------------------------------
+
+
+def serve_topo(torch, tk, tp, dev="cuda"):
+    """The default server (cache on) with a ``JobManager``: ``POST
+    /v1/topo`` on case14 at rank 2 and mesh118 (16 concurrent rank-1
+    requests, after a ``/v1/pf`` request to mesh118: the engine adopts the
+    cache entry's B′ LU, no second ``lu_factor``), the sync shortlist
+    against ``run_topo_sweep``'s, a keyed mesh118 rank-2 sweep job
+    cancelled mid-run and resubmitted, and an invalid spec.  Returns T1's
+    and T2's launches on the sync path and the job path."""
+    import tempfile
+
+    from freedm_tpu_torch.pf.n1 import secure_outages
+    from freedm_tpu_torch.scenarios.jobs import (JobManager,
+                                                 parse_topo_job_request)
+    from freedm_tpu_torch.serve.http import ServeServer
+    from freedm_tpu_torch.serve.service import ServeConfig, Service
+
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        svc = Service(ServeConfig(device=dev))
+        jm = JobManager(workers=1, checkpoint_dir=tmp, device=dev).start()
+        server = ServeServer(svc, jobs=jm).start()
+        port = server.port
+        on_card = svc.device.type == "cuda"
+        try:
+            sweep14 = tp.run_topo_sweep(tp.TopoSweepSpec(
+                case="case14", max_rank=2, top_k=4, ac_verify=False),
+                device=dev)
+            tk.reset_launches()
+            status, r14 = post_json(port, "POST", "/v1/topo", {
+                "case": "case14", "max_rank": 2, "timeout_s": 240})
+            check(status == 200, f"POST /v1/topo case14: HTTP {status} {r14}")
+            parts = (r14["n_feasible"] + r14["n_disconnected"]
+                     + r14["n_nonradial"] + r14["n_islanded"])
+            bridges = (set(range(20))
+                       - set(secure_outages(case_system("case14"))))
+            check(r14["n_variants"] == 210 and parts == 210
+                  and r14["all_verified"] and len(r14["shortlist"]) == 4
+                  and not any(set(e["open_branches"]) & bridges
+                              for e in r14["shortlist"]),
+                  f"POST /v1/topo case14: {r14}")
+            check([e["open_branches"] for e in r14["shortlist"]]
+                  == [e["open_branches"] for e in sweep14["shortlist"]],
+                  "POST /v1/topo case14: the shortlist differs from "
+                  "run_topo_sweep's")
+            status, pf = post_json(port, "POST", "/v1/pf",
+                                   {"case": "mesh118", "timeout_s": 240})
+            check(status == 200 and pf["converged"],
+                  f"POST /v1/pf mesh118: {status} {pf}")
+            calls = []
+            real = torch.linalg.lu_factor
+
+            def counted(*a, **kw):
+                calls.append(tuple(a[0].shape))
+                return real(*a, **kw)
+
+            torch.linalg.lu_factor = counted
+            try:
+                t0 = time.monotonic()
+                status, r118 = post_json(port, "POST", "/v1/topo", {
+                    "case": "mesh118", "max_rank": 1, "timeout_s": 240})
+                build_s = time.monotonic() - t0
+            finally:
+                torch.linalg.lu_factor = real
+            eng = svc.engine("topo", "mesh118")
+            entry = svc.cache.entry("mesh118", eng._sys, "dense")
+            check(status == 200 and r118["all_verified"],
+                  f"POST /v1/topo mesh118: {status} {r118}")
+            check(eng._lu is entry.precond.bp and (118, 118) not in calls,
+                  f"the mesh118 topo engine factorized B' again: {calls}")
+
+            def one(_):
+                t0 = time.monotonic()
+                st, body = post_json(port, "POST", "/v1/topo", {
+                    "case": "mesh118", "max_rank": 1, "timeout_s": 240})
+                return st, body, time.monotonic() - t0
+
+            t0 = time.monotonic()
+            with cf.ThreadPoolExecutor(16) as ex:
+                out = list(ex.map(one, range(16)))
+            wall = time.monotonic() - t0
+            for st, body, _ in out:
+                check(st == 200 and body["all_verified"]
+                      and body["n_variants"] == 236
+                      and body["shortlist"] == r118["shortlist"],
+                      f"16 x POST /v1/topo mesh118: {st} {str(body)[:300]}")
+            lat = np.array([x for _, _, x in out]) * 1e3
+            sync_counts = tk.launches()
+            check(all(c > 0 for c in sync_counts.values()) or not on_card,
+                  f"POST /v1/topo: T1/T2 not launched: {sync_counts}")
+            status, bad = post_json(port, "POST", "/v1/topo", {
+                "case": "mesh118", "objective": "nope"})
+            check(status == 400 and bad["error"]["type"] == "invalid_request",
+                  f"an invalid topo spec: {status} {bad}")
+            log(f"serve topo: case14 rank 2: 210 variants, counts partition, "
+                f"top 4 verified and equal to run_topo_sweep's; mesh118 after "
+                f"/v1/pf: the cache entry's B' LU adopted, no lu_factor "
+                f"({build_s:.2f} s with the engine build); 16 concurrent "
+                f"mesh118 rank-1 requests: p50 {np.percentile(lat, 50):.1f} "
+                f"ms p99 {np.percentile(lat, 99):.1f} ms, "
+                f"{16 / wall:.1f} requests/s; launches {sync_counts}; an "
+                f"invalid spec 400")
+
+            tk.reset_launches()
+            payload = {"case": "mesh118", "max_rank": 2, "chunk_variants": 64,
+                       "job_key": "sweep1"}
+            status, d = post_json(port, "POST", "/v1/topo/sweep", payload)
+            check(status == 202 and d["kind"] == "topo",
+                  f"POST /v1/topo/sweep: {status} {d}")
+            wait_job(port, d["job_id"], pred=lambda j: j["chunks_done"] >= 1)
+            status, c = post_json(port, "POST",
+                                  f"/v1/jobs/{d['job_id']}/cancel", {})
+            check(status == 200, f"cancel: {status} {c}")
+            j1 = wait_job(port, d["job_id"])
+            ck = os.path.join(tmp, "topo_sweep1.json")
+            check(j1["state"] == "cancelled" and j1["kind"] == "topo"
+                  and os.path.exists(ck), f"sweep job after cancel: {j1}")
+            _, d2 = post_json(port, "POST", "/v1/topo/sweep", payload)
+            j2 = wait_job(port, d2["job_id"])
+            job_counts = tk.launches()
+            spec, _, _ = parse_topo_job_request(payload)
+            direct = tp.run_topo_sweep(spec, device=dev)
+            check(j2["state"] == "completed" and j2["kind"] == "topo"
+                  and j2["resumed_from_chunk"] > 0
+                  and same_topo(j2["summary"], direct),
+                  f"sweep job resubmitted: {j2}")
+            check(all(c > 0 for c in job_counts.values()) or not on_card,
+                  f"the sweep job did not launch T1/T2: {job_counts}")
+            status, bad = post_json(port, "POST", "/v1/topo/sweep",
+                                    {"case": "mesh118", "max_rank": 9})
+            check(status == 400, f"an invalid sweep job: {status} {bad}")
+            log(f"serve topo: a keyed mesh118 rank-2 sweep job (437 chunks of "
+                f"64) cancelled after chunk {j1['chunks_done']}, resubmitted: "
+                f"resumed from chunk {j2['resumed_from_chunk']}, equal to a "
+                f"direct run_topo_sweep; kind 'topo'; launches {job_counts}; "
+                f"an invalid job 400 ({time.monotonic() - t_phase:.1f} s "
+                f"phase)")
+            return sync_counts, job_counts
+        finally:
+            server.stop()
+            jm.stop()
+            svc.stop()
+
+
 def main() -> int:
     import torch
 
@@ -4019,6 +4705,8 @@ def main() -> int:
     from freedm_tpu_torch.kernels import qsts_kernels as qk
     from freedm_tpu_torch.kernels import screen_kernels as sck
     from freedm_tpu_torch.kernels import sparse_kernels as sk
+    from freedm_tpu_torch.kernels import topo_kernels as tk
+    from freedm_tpu_torch.pf import topo as tp
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4031,9 +4719,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        build_kernels(torch, nk, sk, ck, sck, lk, qk, build)
+        build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, build)
         errs = dict.fromkeys([*nk.LAUNCHES, *sk.LAUNCHES, *ck.LAUNCHES,
-                              *sck.LAUNCHES, *lk.LAUNCHES, *qk.LAUNCHES], 0.0)
+                              *sck.LAUNCHES, *lk.LAUNCHES, *qk.LAUNCHES,
+                              *tk.LAUNCHES], 0.0)
         compare_kernels(torch, nk, errs)
         rows, extra = time_kernels(torch, nk)
         solve_mesh2000(torch, nk)
@@ -4089,6 +4778,24 @@ def main() -> int:
         extra["qsts_feeder_reduce"]["launches_path"] = (
             "qsts phase (d): vvc_9bus x64 x96 steps, chunks of 24")
         serve_qsts(torch, qk)
+        t_topo = time.monotonic()
+        margin = compare_topo(torch, tk, tp, errs)
+        timed = time_topo(torch, tk, tp, rows, extra)
+        extra["topo_screen"].update(margin)
+        log(f"topo: phase 18 {time.monotonic() - t_topo:.1f} s")
+        t19 = time.monotonic()
+        counts.update(topo_sweeps(torch, tk, tp, timed))
+        log(f"topo: phase 19 {time.monotonic() - t19:.1f} s")
+        t20 = time.monotonic()
+        sync_counts, job_counts = serve_topo(torch, tk, tp)
+        log(f"topo: phase 20 {time.monotonic() - t20:.1f} s; phases 18-20 "
+            f"{time.monotonic() - t_topo:.1f} s")
+        for name in tk.LAUNCHES:
+            extra[name]["launches_path"] = (
+                "topo sweeps phase (a): mesh118, every rank<=2 variant, "
+                "chunks of 4096")
+            extra[name]["launches_serve_sync"] = sync_counts[name]
+            extra[name]["launches_serve_job"] = job_counts[name]
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4124,6 +4831,10 @@ def main() -> int:
                             "freedm_tpu/scenarios/engine.py:401"),
         "qsts_feeder_reduce": ("cuda", source + "csrc/qsts.cu",
                                "freedm_tpu/scenarios/engine.py:647"),
+        "topo_radiality": ("cuda", source + "csrc/topo.cu",
+                           "freedm_tpu/pf/topo.py:182"),
+        "topo_screen": ("cuda", source + "csrc/topo.cu",
+                        "freedm_tpu/pf/topo.py:455"),
     }
     table = []
     for name, (route, src, replaces) in meta.items():

@@ -2,13 +2,17 @@
 
     python -m freedm_tpu_torch serve --port 8080 --pf-backend auto --pf-precision auto
 
-serves ``POST /v1/pf``, ``/v1/n1`` and ``/v1/vvc`` (plus ``/healthz``,
-``/stats``, ``/metrics``) on the card until interrupted, with the incremental cache tier on
-(``--cache-mb 0`` turns it off), and the QSTS jobs API (``POST /v1/qsts``,
-``GET /v1/jobs/<id>``, ``POST /v1/jobs/<id>/cancel``) on a
+serves ``POST /v1/pf``, ``/v1/n1``, ``/v1/vvc`` and ``/v1/topo`` (plus
+``/healthz``, ``/stats``, ``/metrics``) on the card until interrupted, with
+the incremental cache tier on (``--cache-mb 0`` turns it off; with it on
+the topo engine screens on the cache entry's B′ LU), and the jobs API
+(``POST /v1/qsts``, ``POST /v1/topo/sweep``, ``GET /v1/jobs/<id>``,
+``POST /v1/jobs/<id>/cancel``) on a
 :class:`~freedm_tpu_torch.scenarios.jobs.JobManager` of ``--qsts-workers``
 workers; keyed jobs checkpoint into ``--qsts-checkpoint-dir`` and resume
-from it.  ``--device cpu`` runs the plain PyTorch path on the CPU
+from it.  ``--topo-max-rank``, ``--topo-max-variants`` and
+``--topo-top-k`` cap the sync topology screen, ``--topo-chunk-variants``
+is a sweep job's default chunk.  ``--device cpu`` runs the plain PyTorch path on the CPU
 instead.
 """
 
@@ -23,7 +27,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m freedm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     sp = sub.add_parser("serve",
-                        help="run the POST /v1/{pf,n1,vvc,qsts} server")
+                        help="run the POST /v1/{pf,n1,vvc,topo,qsts} server")
     sp.add_argument("--port", type=int, default=0,
                     help="listen port (0 = ephemeral, printed at start)")
     sp.add_argument("--host", default="127.0.0.1")
@@ -62,6 +66,22 @@ def main(argv=None) -> int:
                     help="largest agent population a QSTS job may attach")
     sp.add_argument("--qsts-agents-cells-max", type=int, default=4_000_000,
                     help="largest scenarios x agents a QSTS job may attach")
+    sp.add_argument("--topo-max-rank", type=int, default=2, metavar="R",
+                    help="simultaneous switch flips per topology-sweep "
+                         "variant (POST /v1/topo; default 2, hard cap 6)")
+    sp.add_argument("--topo-max-variants", type=int, default=20000,
+                    metavar="V",
+                    help="variant ceiling per synchronous /v1/topo "
+                         "request (async sweeps chunk past it; "
+                         "default 20000)")
+    sp.add_argument("--topo-top-k", type=int, default=8, metavar="K",
+                    help="AC-verified shortlist size of topology screens "
+                         "(also the verifier's lane count; default 8)")
+    sp.add_argument("--topo-chunk-variants", type=int, default=4096,
+                    metavar="V",
+                    help="default chunk length (variants) of async "
+                         "topology sweep jobs — each chunk checkpoints "
+                         "for exact resume (default 4096)")
     args = ap.parse_args(argv)
 
     from freedm_tpu_torch.scenarios.jobs import JobManager
@@ -75,13 +95,17 @@ def main(argv=None) -> int:
         prewarm=tuple(args.prewarm),
         cache_mb=args.cache_mb, cache_ttl_s=args.cache_ttl_s,
         delta_max_rank=args.delta_max_rank,
+        topo_max_rank=args.topo_max_rank,
+        topo_max_variants=args.topo_max_variants,
+        topo_top_k=args.topo_top_k,
     ))
     jobs = JobManager(
         workers=args.qsts_workers, max_pending=args.qsts_max_jobs,
         checkpoint_dir=args.qsts_checkpoint_dir,
         default_chunk_steps=args.qsts_chunk_steps,
         agents_max=args.qsts_agents_max,
-        agents_cells_max=args.qsts_agents_cells_max, device=args.device,
+        agents_cells_max=args.qsts_agents_cells_max,
+        default_topo_chunk=args.topo_chunk_variants, device=args.device,
     ).start()
     server = ServeServer(svc, port=args.port, host=args.host,
                          jobs=jobs).start()

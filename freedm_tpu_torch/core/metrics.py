@@ -540,3 +540,35 @@ QSTS_REQUEUED = REGISTRY.counter(
     "qsts_jobs_requeued_total",
     "QSTS jobs auto-requeued after a worker crash (resumed from their "
     "last chunk checkpoint instead of requiring manual resubmission)")
+
+# -- topology sweeps (freedm_tpu_torch.pf.topo / POST /v1/topo) -------------
+TOPO_VARIANTS = REGISTRY.counter(
+    "topo_variants_screened_total",
+    "Switch-state variants DC-screened by the topology sweep engine "
+    "(sync /v1/topo requests and async sweep jobs combined)")
+TOPO_RATE = REGISTRY.gauge(
+    "topo_variants_per_sec",
+    "Screen throughput of the most recent topology sweep chunk "
+    "(radiality check + rank-r SMW lanes)")
+TOPO_SCREEN_SECONDS = REGISTRY.histogram(
+    "topo_screen_seconds",
+    "Wall time per topology screen chunk (connectivity + SMW lanes + "
+    "top-k merge)",
+    buckets=(0.005, 0.02, 0.1, 0.5, 1.0, 5.0, 20.0, 60.0))
+TOPO_SWEEPS = REGISTRY.counter(
+    "topo_sweeps_total",
+    "Async topology sweep jobs by final outcome "
+    "(completed/failed/cancelled)",
+    labels=("outcome",))
+for _outcome in ("completed", "failed", "cancelled"):
+    TOPO_SWEEPS.labels(_outcome)
+TOPO_RESUMES = REGISTRY.counter(
+    "topo_resumes_total",
+    "Topology sweep jobs resumed from a chunk checkpoint")
+TOPO_RUNNING = REGISTRY.gauge(
+    "topo_sweeps_running",
+    "Async topology sweeps currently executing on a job worker")
+TOPO_REQUEUED = REGISTRY.counter(
+    "topo_sweeps_requeued_total",
+    "Topology sweeps auto-requeued after a worker crash (resumed from "
+    "their last chunk checkpoint)")

@@ -1,5 +1,5 @@
 """Power-flow solvers (dense and sparse Newton-Raphson, backend
-resolution, the radial ladder) and N-1 and DC screening.
+resolution, the radial ladder), N-1 and DC screening and topology sweeps.
 
 The public names of the reference's ``freedm_tpu/pf/__init__.py`` that
 the port has so far.
@@ -34,4 +34,15 @@ from freedm_tpu_torch.pf.newton import (  # noqa: F401
 from freedm_tpu_torch.pf.sparse import (  # noqa: F401
     jacobian_pattern,
     make_sparse_newton_solver,
+)
+from freedm_tpu_torch.pf.topo import (  # noqa: F401
+    TopoSweepSpec,
+    enumerate_variants,
+    make_ac_verifier,
+    make_radiality_check,
+    make_topk_merge,
+    make_topo_screen,
+    neighborhood_variants,
+    run_topo_sweep,
+    screen_chunk,
 )

@@ -1,14 +1,18 @@
-"""Async jobs API for QSTS studies.
+"""Async jobs API for QSTS studies and topology sweeps.
 
-Port of ``freedm_tpu/scenarios/jobs.py``.  A QSTS study is seconds to
-minutes of device work, not the milliseconds the synchronous
-micro-batched queries answer in, so it gets the long-running-batch
-contract instead: ``POST /v1/qsts`` validates and **returns immediately**
-with a ``job_id``; ``GET /v1/jobs/<id>`` polls progress and, once
+Port of ``freedm_tpu/scenarios/jobs.py``.  A QSTS study (or a large
+switching sweep) is seconds to minutes of device work, not the
+milliseconds the synchronous micro-batched queries answer in, so both get
+the long-running-batch contract instead: ``POST /v1/qsts`` (or ``POST
+/v1/topo/sweep``) validates and **returns immediately** with a
+``job_id``; ``GET /v1/jobs/<id>`` polls progress and, once
 completed, the summary; ``POST /v1/jobs/<id>/cancel`` stops the job at
 its next chunk boundary (the chunk checkpoint stays on disk, so a
 cancelled or killed job resumes when an identical spec is resubmitted
-with the same ``job_key``).
+with the same ``job_key``).  One worker pool, one lifecycle and requeue
+machinery, two job kinds (``JobRecord.kind``): QSTS studies chunk over
+timesteps (:func:`freedm_tpu_torch.scenarios.engine.run_study`), topology
+sweeps over variants (:func:`freedm_tpu_torch.pf.topo.run_topo_sweep`).
 
 Errors reuse the serving hierarchy (:mod:`freedm_tpu_torch.serve.queue`):
 ``invalid_request`` for a malformed spec, ``overloaded`` when the bounded
@@ -16,22 +20,26 @@ pending queue is full, ``not_found`` for unknown job ids,
 ``shutting_down`` after :meth:`JobManager.stop`.
 
 A bounded worker pool (default 1 — the studies share one card) drains the
-pending queue.  On the card each worker runs its studies on a CUDA stream
-of its own and syncs only that stream, so a study does not stall the
+pending queue.  On the card each worker runs its jobs on a CUDA stream of
+its own and syncs only that stream, so a job does not stall the
 ``/v1/pf`` batcher.  Metrics (:mod:`freedm_tpu_torch.core.metrics`, the
 reference's names): ``qsts_jobs_submitted_total``,
 ``qsts_jobs_total{outcome}``, ``qsts_jobs_running``,
 ``qsts_chunk_seconds``, ``qsts_scenario_steps_per_sec``,
 ``qsts_agent_steps_per_sec`` / ``qsts_agents_total``,
-``qsts_resumes_total``, ``qsts_jobs_requeued_total``.
+``qsts_resumes_total``, ``qsts_jobs_requeued_total``; for sweeps
+``topo_sweeps_total{outcome}``, ``topo_sweeps_running``,
+``topo_resumes_total``, ``topo_sweeps_requeued_total`` (the sweep records
+its own ``topo_*`` chunk metrics).
 
-Not ported: topology sweep jobs (``submit_topo``, ROADMAP.md module queue
-item 11), the ``qsts.job`` tracing span and the journal's job events
-(item 15), the ``qsts.worker.crash`` fault point (item 14).
+Not ported: the ``qsts.job``/``topo.job`` tracing spans and the journal's
+job events (item 15), the ``qsts.worker.crash``/``topo.worker.crash``
+fault points (item 14).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import re
@@ -46,6 +54,15 @@ import torch
 from freedm_tpu_torch.core import metrics as obs
 from freedm_tpu_torch.device import DeviceLike, resolve_device
 from freedm_tpu_torch.pf.backend import BACKENDS, PF_PRECISIONS
+from freedm_tpu_torch.pf.topo import (
+    MAX_TOPO_RANK,
+    SweepCancelled,
+    TopoSweepSpec,
+    _resolve_sweep_case,
+    count_exhaustive,
+    run_topo_sweep,
+    validate_sweep_spec,
+)
 from freedm_tpu_torch.scenarios.engine import (
     QstsEngine,
     StudyCancelled,
@@ -74,6 +91,14 @@ MAX_LANE_CELLS = 1_000_000  # scenarios * n_bus ceiling
 DEFAULT_AGENTS_MAX = 1_000_000
 DEFAULT_AGENTS_CELLS_MAX = 4_000_000
 
+#: Topology sweep job bounds (``POST /v1/topo/sweep``): async sweeps may
+#: enumerate far past the sync endpoint's per-request cap, but the variant
+#: space must still be bounded up front.
+MAX_TOPO_JOB_VARIANTS = 500_000
+MAX_TOPO_JOB_TOPK = 32
+MIN_TOPO_CHUNK = 64
+MAX_TOPO_CHUNK = 16_384
+
 _JOB_KEY_RE = re.compile(r"^[A-Za-z0-9_.-]{1,64}$")
 
 _FIELDS = {
@@ -82,10 +107,15 @@ _FIELDS = {
     "pf_backend", "pf_precision", "agents",
 }
 
-_TOPO_NOT_PORTED = (
-    "topology sweep jobs (POST /v1/topo/sweep) are not ported (ROADMAP.md, "
-    "module queue item 11: topology sweeps)"
-)
+
+def _mesh_devices(mesh_devices: int) -> None:
+    """A value that comes to one card runs; more is an ``InvalidRequest``
+    (the sharded forms are module queue item 16)."""
+    if mesh_devices not in (0, 1):
+        try:
+            resolve_mesh_devices(mesh_devices)
+        except NotImplementedError as e:
+            raise InvalidRequest(str(e)) from None
 
 
 def parse_job_request(payload: dict, default_chunk_steps: int = 24,
@@ -158,11 +188,7 @@ def parse_job_request(payload: dict, default_chunk_steps: int = 24,
             max_agents=int(agents_max), max_cells=int(agents_cells_max),
         )
     mesh_devices = _int("mesh_devices", int(default_mesh_devices), -1, 4096)
-    if mesh_devices not in (0, 1):
-        try:
-            resolve_mesh_devices(mesh_devices)
-        except NotImplementedError as e:
-            raise InvalidRequest(str(e)) from None
+    _mesh_devices(mesh_devices)
     job_key = payload.get("job_key")
     if job_key is not None and (
         not isinstance(job_key, str) or not _JOB_KEY_RE.match(job_key)
@@ -197,20 +223,114 @@ def parse_job_request(payload: dict, default_chunk_steps: int = 24,
     return spec, job_key
 
 
+_TOPO_FIELDS = {
+    "case", "switches", "max_rank", "mode", "objective", "flow_limit",
+    "top_k", "search", "samples", "seed", "chunk_variants", "ac_verify",
+    "job_key", "mesh_devices",
+}
+
+
 def parse_topo_job_request(payload: dict, default_chunk: int = 4096,
                            default_mesh_devices: int = 0):
-    """Not ported: raises ``NotImplementedError`` (module queue item 11)."""
-    raise NotImplementedError(_TOPO_NOT_PORTED)
+    """``(TopoSweepSpec, job_key, v_total)`` from a ``POST
+    /v1/topo/sweep`` payload, every field range-checked with typed errors
+    and the reference's messages — the async twin of the sync workload's
+    ``TopoEngine.validate``.  ``mesh_devices`` follows the QSTS rule."""
+    if not isinstance(payload, dict):
+        raise InvalidRequest("request body must be a JSON object")
+    unknown = set(payload) - _TOPO_FIELDS
+    if unknown:
+        raise InvalidRequest(
+            f"unknown field(s) {sorted(unknown)} for topo sweep"
+        )
+    if "case" not in payload:
+        raise InvalidRequest("missing required field 'case'")
+    case = payload["case"]
+    if not isinstance(case, str) or not case:
+        raise InvalidRequest("'case' must be a non-empty string")
+
+    def _int(name, default, lo, hi):
+        v = payload.get(name, default)
+        if isinstance(v, bool) or not isinstance(v, int):
+            raise InvalidRequest(f"{name!r} must be an integer")
+        if not lo <= v <= hi:
+            raise InvalidRequest(f"{name!r} must be in [{lo}, {hi}], got {v}")
+        return v
+
+    max_rank = _int("max_rank", 2, 1, MAX_TOPO_RANK)
+    top_k = _int("top_k", 8, 1, MAX_TOPO_JOB_TOPK)
+    samples = _int("samples", 0, 0, MAX_TOPO_JOB_VARIANTS)
+    seed = _int("seed", 0, 0, 2**31 - 1)
+    chunk = _int("chunk_variants", int(default_chunk), MIN_TOPO_CHUNK,
+                 MAX_TOPO_CHUNK)
+    flow_limit = payload.get("flow_limit", 1.0)
+    if isinstance(flow_limit, bool) or not isinstance(
+        flow_limit, (int, float)
+    ) or not math.isfinite(flow_limit):
+        raise InvalidRequest("'flow_limit' must be a finite number")
+    ac_verify = payload.get("ac_verify", True)
+    if not isinstance(ac_verify, bool):
+        raise InvalidRequest("'ac_verify' must be a boolean")
+    switches = payload.get("switches")
+    if switches is not None:
+        if not isinstance(switches, (list, tuple)) or not switches or any(
+            isinstance(s, bool) or not isinstance(s, int) for s in switches
+        ):
+            raise InvalidRequest(
+                "'switches' must be a non-empty list of branch indices "
+                "(or omitted for the full branch set)"
+            )
+        switches = tuple(int(s) for s in switches)
+    mesh_devices = _int("mesh_devices", int(default_mesh_devices),
+                        -1, 4096)
+    _mesh_devices(mesh_devices)
+    job_key = payload.get("job_key")
+    if job_key is not None and (
+        not isinstance(job_key, str) or not _JOB_KEY_RE.match(job_key)
+    ):
+        raise InvalidRequest(
+            "'job_key' must match [A-Za-z0-9_.-]{1,64} (it names the "
+            "checkpoint file)"
+        )
+    spec = TopoSweepSpec(
+        case=case, switches=switches, max_rank=max_rank,
+        mode=payload.get("mode", "mesh"),
+        objective=payload.get("objective", "loss"),
+        flow_limit=float(flow_limit), top_k=top_k,
+        search=payload.get("search", "exhaustive"), samples=samples,
+        seed=seed, chunk_variants=chunk, ac_verify=ac_verify,
+        mesh_devices=mesh_devices,
+    )
+    # Resolve the case NOW (typed error + the variant-space bound).
+    try:
+        sys_ = _resolve_sweep_case(case)
+        validate_sweep_spec(spec, sys_.n_branch)
+    except ValueError as e:
+        raise InvalidRequest(str(e)) from None
+    n_switch = (sys_.n_branch if spec.switches is None
+                else len(spec.switches))
+    # Neighborhood draws are capped by the distinct-subset space, so the
+    # admission response's chunks_total cannot over-report a tiny space.
+    v_total = (min(spec.samples, count_exhaustive(n_switch, spec.max_rank))
+               if spec.search == "neighborhood"
+               else count_exhaustive(n_switch, spec.max_rank))
+    if v_total > MAX_TOPO_JOB_VARIANTS:
+        raise InvalidRequest(
+            f"the sweep enumerates {v_total} variants, over the "
+            f"{MAX_TOPO_JOB_VARIANTS} job ceiling; lower max_rank, "
+            f"shrink switches, or use search='neighborhood'"
+        )
+    return spec, job_key, v_total
 
 
 @dataclass
 class JobRecord:
-    """One submitted study and its lifecycle."""
+    """One submitted study/sweep and its lifecycle."""
 
     id: str
-    spec: StudySpec
+    spec: object  # StudySpec | TopoSweepSpec
     job_key: Optional[str]
-    kind: str = "qsts"
+    kind: str = "qsts"  # qsts | topo
     state: str = "queued"  # queued|running|completed|failed|cancelled
     submitted_ts: float = field(default_factory=time.time)
     started_ts: Optional[float] = None
@@ -249,9 +369,9 @@ class JobRecord:
 
 
 class JobManager:
-    """Bounded background execution of QSTS studies.
+    """Bounded background execution of QSTS studies and topology sweeps.
 
-    ``submit`` -> job dict (typed errors synchronously); ``get``/
+    ``submit`` / ``submit_topo`` -> job dict (typed errors synchronously); ``get``/
     ``cancel`` by job id.  Finished jobs stay pollable until the table
     (``MAX_TABLE``) evicts the oldest finished entries.  Studies run on
     ``device`` (``cuda`` unless asked otherwise).
@@ -269,6 +389,7 @@ class JobManager:
                  checkpoint_dir: Optional[str] = None,
                  default_chunk_steps: int = 24,
                  default_mesh_devices: int = 0,
+                 default_topo_chunk: int = 4096,
                  agents_max: int = DEFAULT_AGENTS_MAX,
                  agents_cells_max: int = DEFAULT_AGENTS_CELLS_MAX,
                  device: DeviceLike = None):
@@ -278,6 +399,7 @@ class JobManager:
         self.checkpoint_dir = checkpoint_dir
         self.default_chunk_steps = int(default_chunk_steps)
         self.default_mesh_devices = int(default_mesh_devices)
+        self.default_topo_chunk = int(default_topo_chunk)
         self.agents_max = int(agents_max)
         self.agents_cells_max = int(agents_cells_max)
         self._cond = threading.Condition()
@@ -327,9 +449,18 @@ class JobManager:
         return out
 
     def submit_topo(self, payload: dict) -> dict:
-        """Not ported: raises ``NotImplementedError`` (module queue item
-        11)."""
-        raise NotImplementedError(_TOPO_NOT_PORTED)
+        """Admit one async topology sweep (``POST /v1/topo/sweep``) — the
+        QSTS studies' lifecycle, polling and cancel contract, run by
+        :func:`freedm_tpu_torch.pf.topo.run_topo_sweep` (chunked,
+        checkpointed under the job key, exact resume)."""
+        spec, job_key, v_total = parse_topo_job_request(
+            payload, self.default_topo_chunk,
+            default_mesh_devices=self.default_mesh_devices,
+        )
+        rec = JobRecord(id=os.urandom(8).hex(), spec=spec,
+                        job_key=job_key, kind="topo")
+        rec.chunks_total = math.ceil(v_total / spec.chunk_variants)
+        return self._admit(rec)
 
     def _admit(self, rec: JobRecord) -> dict:
         with self._cond:
@@ -374,8 +505,12 @@ class JobManager:
                 # Never started: settle it here (the worker skips it).
                 rec.state = "cancelled"
                 rec.finished_ts = time.time()
-                obs.QSTS_JOBS.labels("cancelled").inc()
+                self._outcome_counter(rec).labels("cancelled").inc()
         return rec.to_dict()
+
+    @staticmethod
+    def _outcome_counter(rec: JobRecord):
+        return obs.TOPO_SWEEPS if rec.kind == "topo" else obs.QSTS_JOBS
 
     # -- watchdog surface ----------------------------------------------------
     def progress_age(self) -> float:
@@ -446,16 +581,22 @@ class JobManager:
 
     def _execute(self, rec: JobRecord, stream=None) -> None:
         spec = rec.spec
-        obs.QSTS_RUNNING.inc()
+        is_topo = rec.kind == "topo"
+        running = obs.TOPO_RUNNING if is_topo else obs.QSTS_RUNNING
+        running.inc()
         ident = threading.get_ident()
         with self._cond:
             self._worker_beats[ident] = time.monotonic()
-        n_agents = spec.agents.total() if spec.agents is not None else 0
+        n_agents = (spec.agents.total()
+                    if not is_topo and spec.agents is not None else 0)
 
         def on_chunk(done, total, chunk_s, lane_steps):
             rec.chunks_done = done
             rec.chunks_total = total
             self._worker_beats[ident] = time.monotonic()
+            if is_topo:
+                # The sweep records its own topo_* chunk metrics.
+                return
             obs.QSTS_CHUNK_SECONDS.observe(chunk_s)
             if chunk_s > 0:
                 obs.QSTS_SCENARIO_RATE.set(lane_steps / chunk_s)
@@ -467,34 +608,46 @@ class JobManager:
                 obs.QSTS_AGENTS_TOTAL.set(n_agents)
 
         ckpt_path = self._checkpoint_path(rec)
+        outcome_counter = self._outcome_counter(rec)
         try:
-            engine = QstsEngine(spec, device=self.device, stream=stream)
-            summary = run_study(
-                spec, checkpoint_path=ckpt_path, resume=True,
-                cancel=rec.cancel, on_chunk=on_chunk, engine=engine,
-            )
+            if is_topo:
+                # On the worker's stream: the sweep's one copy to the host
+                # a chunk syncs only that stream.
+                with (contextlib.nullcontext() if stream is None
+                      else torch.cuda.stream(stream)):
+                    summary = run_topo_sweep(
+                        spec, checkpoint_path=ckpt_path, resume=True,
+                        cancel=rec.cancel, on_chunk=on_chunk,
+                        device=self.device,
+                    )
+            else:
+                engine = QstsEngine(spec, device=self.device, stream=stream)
+                summary = run_study(
+                    spec, checkpoint_path=ckpt_path, resume=True,
+                    cancel=rec.cancel, on_chunk=on_chunk, engine=engine,
+                )
             rec.summary = summary
             rec.error = None  # clear a prior requeue's crash record
             rec.resumed_from_chunk = summary.get("resumed_from_chunk", 0)
             if rec.resumed_from_chunk:
-                obs.QSTS_RESUMES.inc()
+                (obs.TOPO_RESUMES if is_topo else obs.QSTS_RESUMES).inc()
             rec.state = "completed"
-            obs.QSTS_JOBS.labels("completed").inc()
-        except StudyCancelled:
+            outcome_counter.labels("completed").inc()
+        except (StudyCancelled, SweepCancelled):
             rec.state = "cancelled"
-            obs.QSTS_JOBS.labels("cancelled").inc()
+            outcome_counter.labels("cancelled").inc()
         except Exception as e:  # noqa: BLE001 — pollers must see failures
             if self._try_requeue(rec, ckpt_path, e):
                 return  # back on the pending queue; not terminal
             rec.state = "failed"
             rec.error = repr(e)
-            obs.QSTS_JOBS.labels("failed").inc()
+            outcome_counter.labels("failed").inc()
         finally:
             if rec.state in ("completed", "failed", "cancelled"):
                 rec.finished_ts = time.time()
             with self._cond:
                 self._worker_beats.pop(ident, None)
-            obs.QSTS_RUNNING.dec()
+            running.dec()
 
     def _try_requeue(self, rec: JobRecord, ckpt_path: Optional[str],
                      err: BaseException) -> bool:
@@ -513,5 +666,6 @@ class JobManager:
             rec.error = repr(err)  # visible to pollers mid-requeue
             self._pending.append(rec)
             self._cond.notify()
-        obs.QSTS_REQUEUED.inc()
+        (obs.TOPO_REQUEUED if rec.kind == "topo"
+         else obs.QSTS_REQUEUED).inc()
         return True

@@ -64,8 +64,9 @@ in the byte account (the reference does not count its float32 copy
 either).
 
 ``CaseEntry.dc_solver`` builds the DC screen of
-:mod:`freedm_tpu_torch.pf.dc` on the entry's own B′ LU pair, once.  Not
-ported here: the topology engine's use of the entry's LU (item 11), provenance receipts, the
+:mod:`freedm_tpu_torch.pf.dc` on the entry's own B′ LU pair, once, and the
+``topo`` engine screens its variants on the same pair
+(``TopoEngine.attach_cache_lu``).  Not ported here: provenance receipts, the
 ``serve.cache.corrupt`` fault point, the profiler's host spans, the
 loose-accept event journal and ``snapshot_state`` (item 15).
 """

@@ -1,5 +1,5 @@
-"""Zero-dependency JSON front end for the power-flow, N-1 and VVC service
-and the QSTS jobs API.
+"""Zero-dependency JSON front end for the power-flow, N-1, VVC and
+topology service and the jobs API (QSTS studies, topology sweeps).
 
 Port of ``ServeServer`` from ``freedm_tpu/serve/http.py``: a stdlib
 ``ThreadingHTTPServer`` on a daemon thread, loopback bind by default,
@@ -14,11 +14,13 @@ Routes:
   :class:`~freedm_tpu_torch.serve.service.PowerFlowRequest`, ``/v1/n1``
   with one matching :class:`~freedm_tpu_torch.serve.service.N1Request`,
   ``/v1/vvc`` with one matching
-  :class:`~freedm_tpu_torch.serve.service.VVCRequest`; 200 with the typed
-  response dict on success;
+  :class:`~freedm_tpu_torch.serve.service.VVCRequest`, ``/v1/topo`` with
+  one matching :class:`~freedm_tpu_torch.serve.service.TopoRequest`; 200
+  with the typed response dict on success;
 - ``POST /v1/qsts`` — submit a QSTS study to the
   :class:`~freedm_tpu_torch.scenarios.jobs.JobManager` given as ``jobs``
-  (202 with the job record); ``GET /v1/jobs/<id>`` polls it and ``POST
+  (202 with the job record), ``POST /v1/topo/sweep`` a topology sweep
+  (202); ``GET /v1/jobs/<id>`` polls either and ``POST
   /v1/jobs/<id>/cancel`` cancels it; without ``jobs`` these answer the
   reference's typed 404 "QSTS jobs are not enabled on this server";
 - ``GET /healthz`` — liveness + the workload/case table and ``"qsts"``
@@ -28,9 +30,8 @@ Routes:
   ``"qsts"``;
 - ``GET /metrics`` — the registry in the Prometheus text format.
 
-Every other route answers a typed 404: ``POST /v1/topo/sweep`` names
-ROADMAP.md module queue item 11 (topology sweeps); snapshots are not
-ported yet.  Errors are typed: the body is
+Every other route answers a typed 404 (snapshots are not ported yet).
+Errors are typed: the body is
 always ``{"error": {"type": <ServeError.code>, "detail": ...}}`` with
 the matching HTTP status (400 invalid_request, 404 not_found, 429
 overloaded, 503 shutting_down, 504 deadline_exceeded, 500 internal);
@@ -169,13 +170,9 @@ class ServeServer(BackgroundHttpServer):
                         job_id = path[len("/v1/jobs/"):-len("/cancel")]
                         self._reply(200, self._jobs().cancel(job_id))
                         return
-                    if path == "/v1/topo/sweep":
-                        raise NotFound(
-                            "no route POST /v1/topo/sweep: topology sweeps "
-                            "are not ported (ROADMAP.md, module queue item 11)"
-                        )
                     workload = path[len("/v1/"):] if path.startswith("/v1/") else ""
-                    if workload not in WORKLOADS and path != "/v1/qsts":
+                    if workload not in WORKLOADS and path not in (
+                            "/v1/qsts", "/v1/topo/sweep"):
                         raise NotFound(f"no route POST {path}")
                     if not body:
                         raise InvalidRequest("missing JSON request body")
@@ -185,6 +182,9 @@ class ServeServer(BackgroundHttpServer):
                         raise InvalidRequest(f"malformed JSON: {e}") from None
                     if path == "/v1/qsts":
                         self._reply(202, self._jobs().submit(payload))
+                        return
+                    if path == "/v1/topo/sweep":
+                        self._reply(202, self._jobs().submit_topo(payload))
                         return
                     response = svc.request(workload, payload)
                     self._reply(200, response.to_dict())

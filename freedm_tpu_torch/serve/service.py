@@ -1,7 +1,7 @@
-"""The served power-flow, N-1 and Volt-VAR workloads and the serving facade.
+"""The served power-flow, N-1, Volt-VAR and topology workloads and the
+serving facade.
 
-Port of the ``pf``, ``n1`` and ``vvc`` parts of
-``freedm_tpu/serve/service.py``:
+Port of ``freedm_tpu/serve/service.py``:
 
 - **pf** — snapshot AC power flow: a named case plus per-bus injection
   overrides (or a uniform stress ``scale``), solved by the batched Newton
@@ -19,6 +19,12 @@ Port of the ``pf``, ``n1`` and ``vvc`` parts of
   losses (against the zero-injection baseline), voltage extremes and
   band violations; a batch is one launch of the ladder kernel L1 over
   its lanes (:mod:`freedm_tpu_torch.pf.ladder`).
+- **topo** — switching screen: enumerate (or neighborhood-sample) the
+  open-sets of up to ``max_rank`` candidate switches, screen every variant
+  (kernels T1 and T2, :mod:`freedm_tpu_torch.pf.topo`) over the case's B′
+  LU — the serving cache's, when the cache is on —, rank them and
+  AC-verify the ``top_k`` shortlist on the sparse backend.  One request =
+  one sweep.
 
 Every response carries the solver's own convergence evidence
 (``residual_pu``/``converged``) plus a conservation check (Σ realized P
@@ -32,8 +38,8 @@ validation (an invalid request never occupies queue depth), admission
 incremental cache tier (:mod:`freedm_tpu_torch.serve.cache`, on by
 default as in the reference: exact and verified-delta answers complete
 at submit time, warm hits seed the full solve).  Not ported yet
-(``ROADMAP.md``): the topo workload, provenance receipts, the
-consistent-cut ledger and the lane mesh.
+(``ROADMAP.md``): provenance receipts, the consistent-cut ledger and the
+lane mesh.
 """
 
 from __future__ import annotations
@@ -75,7 +81,7 @@ from freedm_tpu_torch.serve.queue import (
     Ticket,
 )
 
-WORKLOADS = ("pf", "n1", "vvc")
+WORKLOADS = ("pf", "n1", "vvc", "topo")
 
 #: Voltage band for the VVC report, pu (ANSI C84.1 service band).
 V_BAND = (0.95, 1.05)
@@ -173,6 +179,35 @@ class VVCRequest:
     timeout_s: float = 30.0
 
 
+@dataclass(frozen=True)
+class TopoRequest:
+    """Switching screen: enumerate (or neighborhood-sample) open-sets of
+    up to ``max_rank`` candidate switches, DC-screen every variant
+    through the rank-r SMW lanes over the case's B′ LU, rank by
+    ``objective`` (lower is better), and AC-verify the ``top_k``
+    shortlist on the sparse backend before answering
+    (:mod:`freedm_tpu_torch.pf.topo`).
+
+    ``switches`` is the candidate branch list (``None`` = every
+    branch); ``mode="radial"`` additionally requires each surviving
+    variant's closed set to be a spanning tree.  Caps: ``max_rank`` ≤
+    ``--topo-max-rank``, variant count ≤ ``--topo-max-variants``,
+    ``top_k`` ≤ ``--topo-top-k``.
+    """
+
+    case: str
+    switches: Optional[Sequence[int]] = None
+    max_rank: int = 2
+    mode: str = "mesh"
+    objective: str = "loss"
+    flow_limit: float = 1.0
+    top_k: int = 4
+    search: str = "exhaustive"
+    samples: int = 0
+    seed: int = 0
+    timeout_s: float = 30.0
+
+
 @dataclass
 class N1Response:
     workload: str
@@ -204,6 +239,34 @@ class VVCResponse:
     v_min_pu: float
     v_max_pu: float
     band_violations: int  # live node-phases outside V_BAND
+    batch: BatchInfo
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["batch"] = self.batch.to_dict()
+        return d
+
+
+@dataclass
+class TopoResponse:
+    """One switching screen's verdict: exclusion accounting (structural
+    + SMW backstop), the AC-verified shortlist, and the batch receipt."""
+
+    workload: str
+    case: str
+    mode: str
+    objective: str
+    max_rank: int
+    n_variants: int
+    # The exclusion accounting partitions the variant space exactly:
+    # n_feasible + n_disconnected + n_nonradial + n_islanded
+    # == n_variants.
+    n_feasible: int
+    n_islanded: int  # SMW singular-capacitance backstop fired ALONE
+    n_disconnected: int  # structural connectivity check fires
+    n_nonradial: int  # connected but not a spanning tree (mode=radial)
+    shortlist: List[dict]  # open_branches/objective/ac stamps per entry
+    all_verified: bool  # every shortlist entry's AC lane converged
     batch: BatchInfo
 
     def to_dict(self) -> dict:
@@ -643,6 +706,290 @@ class VVCEngine(_Engine):
         return None
 
 
+class TopoEngine(_Engine):
+    """The switching-screen workload: one request = one full variant
+    sweep (enumerate → radiality check T1 → SMW screen T2 → top-k select
+    → AC verify), dispatched as a single lane through the micro-batcher.
+
+    With the serving cache on, :meth:`Service.engine` hands this engine
+    the case's already-factorized B′ LU pair (:meth:`attach_cache_lu`), so
+    a served case pays no second factorization.  Variant counts are
+    shape-bucketed (powers of two up to the cap), as in the reference.
+    """
+
+    workload = "topo"
+
+    def __init__(self, case: str, backend: str = "auto",
+                 precision: str = "auto", max_rank: int = 2,
+                 max_variants: int = 20000, top_k: int = 8,
+                 device: DeviceLike = None):
+        super().__init__(case, resolve_device(device))
+        from freedm_tpu_torch.pf.topo import MAX_TOPO_RANK
+
+        sys_ = _resolve_bus_case(case)
+        self._sys = sys_
+        self.n_branch = sys_.n_branch
+        self.max_rank = min(int(max_rank), MAX_TOPO_RANK)
+        self.max_variants = int(max_variants)
+        self.top_k = max(int(top_k), 1)
+        self._precision = precision
+        self._lu = None  # serving-cache B′ LU pair (attach_cache_lu)
+        self._built = False
+        self._build_lock = threading.Lock()
+        # Variant-lane shape buckets: powers of two up to the variant cap.
+        b, buckets = 1, []
+        while b < self.max_variants:
+            buckets.append(b)
+            b *= 2
+        buckets.append(self.max_variants)
+        self._vbuckets = tuple(sorted(set(buckets)))
+
+    def attach_cache_lu(self, lu) -> None:
+        """Adopt a cached B′ ``lu_factor`` pair (must be called before
+        the first solve; the lazily-built screen factorizes its own
+        otherwise)."""
+        if not self._built:
+            self._lu = lu
+
+    def _ensure_built(self) -> None:
+        """Build the screen, radiality check and verifier once (on the
+        submitter's thread, under a lock so a first-touch herd builds one
+        set)."""
+        if self._built:
+            return
+        with self._build_lock:
+            if self._built:
+                return
+            from freedm_tpu_torch.pf import topo as tp
+
+            self._screen = tp.make_topo_screen(
+                self._sys, r_max=self.max_rank, lu=self._lu,
+                device=self.device,
+            )
+            self._rad = tp.make_radiality_check(
+                self._sys, self.max_rank, device=self.device)
+            self._verify = tp.make_ac_verifier(
+                self._sys, k=self.top_k, precision=self._precision,
+                device=self.device,
+            )
+            self._built = True
+
+    def example_request(self):
+        return TopoRequest(case=self.case, switches=[0], max_rank=1,
+                           top_k=1)
+
+    def validate(self, req: TopoRequest):
+        from freedm_tpu_torch.pf import topo as tp
+
+        # Build NOW, on the submitter's thread — before the ticket
+        # deadline starts — so a first-touch request pays the build like
+        # every other engine's first touch, not against its own timeout.
+        self._ensure_built()
+        # Field/vocabulary validation is the one checker the async path
+        # shares (pf/topo.validate_sweep_spec); the engine layers its
+        # serving caps (--topo-* flags) on top.
+        int_fields = {"max_rank": req.max_rank, "top_k": req.top_k,
+                      "samples": req.samples, "seed": req.seed}
+        for name, v in int_fields.items():
+            if isinstance(v, bool) or not isinstance(v, (int, np.integer)):
+                raise InvalidRequest(f"{name!r} must be an integer")
+        if isinstance(req.flow_limit, bool) or not isinstance(
+            req.flow_limit, (int, float)
+        ) or not math.isfinite(req.flow_limit):
+            raise InvalidRequest("'flow_limit' must be a finite number")
+        if req.switches is not None and (
+            not isinstance(req.switches, (list, tuple))
+            or not req.switches
+            or any(isinstance(k, bool)
+                   or not isinstance(k, (int, np.integer))
+                   for k in req.switches)
+        ):
+            raise InvalidRequest(
+                "'switches' must be a non-empty list of integer branch "
+                "indices (or omitted for the full branch set)"
+            )
+        try:
+            spec = tp.TopoSweepSpec(
+                case=self.case,
+                switches=(None if req.switches is None
+                          else tuple(int(k) for k in req.switches)),
+                max_rank=int(req.max_rank), mode=req.mode,
+                objective=req.objective,
+                flow_limit=float(req.flow_limit), top_k=int(req.top_k),
+                search=req.search, samples=int(req.samples),
+                seed=int(req.seed),
+            )
+            tp.validate_sweep_spec(spec, self.n_branch)
+        except (TypeError, ValueError) as e:
+            raise InvalidRequest(str(e)) from None
+        if req.max_rank > self.max_rank:
+            raise InvalidRequest(
+                f"max_rank must be <= {self.max_rank} "
+                f"(--topo-max-rank), got {req.max_rank}"
+            )
+        if req.top_k > self.top_k:
+            raise InvalidRequest(
+                f"top_k must be <= {self.top_k} (--topo-top-k), "
+                f"got {req.top_k}"
+            )
+        if spec.search == "neighborhood" and spec.samples > self.max_variants:
+            raise InvalidRequest(
+                f"neighborhood search needs samples in "
+                f"[1, {self.max_variants}], got {spec.samples}"
+            )
+        if spec.search == "exhaustive":
+            n_switch = (self.n_branch if spec.switches is None
+                        else len(spec.switches))
+            count = tp.count_exhaustive(n_switch, spec.max_rank)
+            if count > self.max_variants:
+                raise InvalidRequest(
+                    f"exhaustive enumeration is {count} variants, over "
+                    f"the {self.max_variants} cap (--topo-max-variants); "
+                    f"lower max_rank, shrink switches, or use "
+                    f"search='neighborhood'"
+                )
+        variants = tp.sweep_variants(spec, self.n_branch)
+        if variants.shape[0] == 0:
+            raise InvalidRequest("the request produces zero variants")
+        # Pad the rank axis to the engine's r_max: one screen serves every
+        # requested rank.
+        if variants.shape[1] < self.max_rank:
+            variants = np.concatenate([
+                variants,
+                np.full((variants.shape[0],
+                         self.max_rank - variants.shape[1]), -1, np.int32),
+            ], axis=1)
+        return {
+            "variants": variants,
+            "mode": req.mode,
+            "objective": req.objective,
+            "flow_limit": float(req.flow_limit),
+            "top_k": int(req.top_k),
+        }
+
+    def assemble(self, group: List[Ticket], bucket: int):
+        # One request = one sweep; the group shares a dispatch slot but
+        # each sweep is its own chain of launches (no padding).
+        return [t.prepared for t in group]
+
+    def solve(self, batch):
+        # Device work only (screen → top-k select → AC verify); the
+        # batcher syncs once, at its measurement boundary.
+        self._ensure_built()
+        return [self._solve_one(prep) for prep in batch]
+
+    def _solve_one(self, prep):
+        from freedm_tpu_torch.pf import topo as tp
+
+        variants = prep["variants"]
+        v_real = int(variants.shape[0])
+        bucket = next(b for b in self._vbuckets if b >= v_real)
+        if v_real < bucket:
+            variants = np.concatenate([
+                variants,
+                np.repeat(variants[-1:], bucket - v_real, axis=0),
+            ])
+        slots = torch.as_tensor(variants, device=self.device)
+        valid = torch.arange(bucket, device=self.device) < v_real
+        # The shared per-chunk ladder (pf/topo.screen_chunk): the sync
+        # endpoint and the async sweep compose masking, objective and
+        # exclusion accounting through this one helper.
+        verdict = tp.screen_chunk(
+            self._screen, self._rad, slots, valid, prep["mode"],
+            prep["objective"], prep["flow_limit"],
+        )
+        obj = verdict.objective
+        # top_k cannot exceed the lane count (a 2-variant request under
+        # an 8-deep shortlist cap is legal); the shortlist pads back to
+        # the verifier's K with infeasible rows.  A stable ascending sort
+        # puts the lower index first among ties, as the reference's
+        # lax.top_k(-obj) does (torch.topk promises no order there).
+        k_eff = min(self.top_k, int(obj.shape[0]))
+        idx = torch.sort(obj, stable=True).indices[:k_eff]
+        short_obj = obj[idx]
+        short_feas = torch.isfinite(short_obj)
+        # Infeasible shortlist slots collapse to the base topology — an
+        # islanding/disconnected variant can never reach an AC lane.
+        short_slots = torch.where(short_feas[:, None], slots[idx],
+                                  torch.full_like(slots[idx], -1))
+        short_worst = verdict.screen.worst_flow[idx]
+        if k_eff < self.top_k:
+            pad = self.top_k - k_eff
+            short_obj = torch.cat(
+                [short_obj, short_obj.new_full((pad,), math.inf)])
+            short_feas = torch.cat([short_feas, short_feas.new_zeros(pad)])
+            short_slots = torch.cat([
+                short_slots,
+                short_slots.new_full((pad, short_slots.shape[1]), -1)])
+            short_worst = torch.cat([short_worst,
+                                     short_worst.new_zeros(pad)])
+        ac = self._verify(tp.status_from_slots(short_slots, self.n_branch))
+        return {
+            "n_variants": v_real,
+            "short_obj": short_obj,
+            "short_slots": short_slots,
+            "short_feas": short_feas,
+            "short_worst": short_worst,
+            "ac_converged": ac.converged,
+            "ac_mismatch": ac.mismatch,
+            "ac_v": ac.v,
+            # The exclusion accounting partitions the variant space
+            # exactly: feasible + disconnected + nonradial + islanded
+            # (the SMW backstop firing ALONE) == n_variants.
+            "counts": torch.stack([verdict.feasible, verdict.islanded,
+                                   verdict.disconnected, verdict.nonradial]),
+        }
+
+    def scatter(self, group: List[Ticket], results,
+                info: BatchInfo) -> None:
+        for j, t in enumerate(group):
+            r = results[j]
+            obj = r["short_obj"].cpu().numpy()
+            slots = r["short_slots"].cpu().numpy()
+            feas = r["short_feas"].cpu().numpy()
+            worst = r["short_worst"].cpu().numpy()
+            conv = r["ac_converged"].cpu().numpy()
+            mism = r["ac_mismatch"].cpu().numpy()
+            v = r["ac_v"].cpu().numpy()
+            nf, ni, nd, nr = (int(c) for c in r["counts"].cpu().numpy())
+            want = int(t.prepared["top_k"])
+            shortlist = []
+            for i in range(min(want, obj.shape[0])):
+                if not feas[i]:
+                    break  # trailing slots past the feasible count
+                shortlist.append({
+                    "open_branches": sorted(
+                        int(s) for s in slots[i] if s >= 0
+                    ),
+                    "objective": float(obj[i]),
+                    "worst_flow_pu": float(worst[i]),
+                    "ac_converged": bool(conv[i]),
+                    "ac_residual_pu": float(mism[i]),
+                    "v_min_pu": float(v[i].min()),
+                    "v_max_pu": float(v[i].max()),
+                })
+            n_variants = int(r["n_variants"])
+            obs.TOPO_VARIANTS.inc(n_variants)
+            t.future.set_result(TopoResponse(
+                workload="topo",
+                case=self.case,
+                mode=t.prepared["mode"],
+                objective=t.prepared["objective"],
+                max_rank=int(t.request.max_rank),
+                n_variants=n_variants,
+                n_feasible=nf,
+                n_islanded=ni,
+                n_disconnected=nd,
+                n_nonradial=nr,
+                shortlist=shortlist,
+                all_verified=bool(
+                    all(e["ac_converged"] for e in shortlist)
+                ) if shortlist else False,
+                batch=info,
+            ))
+        return None
+
+
 def _response_from_solution(eng, request: PowerFlowRequest, sol,
                             info: BatchInfo) -> PowerFlowResponse:
     """A pf response from a cached or corrected solution record
@@ -666,9 +1013,10 @@ def _response_from_solution(eng, request: PowerFlowRequest, sol,
     )
 
 
-_ENGINE_TYPES = {"pf": PowerFlowEngine, "n1": N1Engine, "vvc": VVCEngine}
+_ENGINE_TYPES = {"pf": PowerFlowEngine, "n1": N1Engine, "vvc": VVCEngine,
+                 "topo": TopoEngine}
 _REQUEST_TYPES = {"pf": PowerFlowRequest, "n1": N1Request,
-                  "vvc": VVCRequest}
+                  "vvc": VVCRequest, "topo": TopoRequest}
 
 
 def parse_request(workload: str, payload: dict):
@@ -773,6 +1121,13 @@ class ServeConfig(NamedTuple):
     # tighten it to force fall-through; never loosen it in service.
     cache_verify_tol: Optional[float] = None
     device: Optional[str] = None
+    # Topology sweeps (the topo workload; CLI --topo-max-rank,
+    # --topo-max-variants, --topo-top-k): simultaneous flips a variant,
+    # variants a sync request, and the AC-verified shortlist's size (the
+    # verifier's lane count).
+    topo_max_rank: int = 2
+    topo_max_variants: int = 20000
+    topo_top_k: int = 8
 
     def bucket_table(self) -> Tuple[int, ...]:
         bs = self.buckets if self.buckets else default_buckets(self.max_batch)
@@ -890,11 +1245,30 @@ class Service:
                 "pf": {"max_iter": cfg.pf_max_iter},
                 "n1": {"max_iter": cfg.n1_max_iter},
                 "vvc": {"pf_iters": cfg.vvc_pf_iters},
+                "topo": {"max_rank": cfg.topo_max_rank,
+                         "max_variants": cfg.topo_max_variants,
+                         "top_k": cfg.topo_top_k},
             }[workload]
             eng = _ENGINE_TYPES[workload](
                 case, backend=cfg.pf_backend, precision=cfg.pf_precision,
                 device=self.device, **kwargs,
             )
+            if workload == "topo" and self.cache is not None:
+                from freedm_tpu_torch.serve.cache import topology_digest
+
+                # The topology screen rides the serving cache's B′ LU: a
+                # case already served by pf answers switching sweeps with
+                # no second factorization.  A topo-first tenant builds the
+                # whole entry (B″ and the pattern too), which a later pf
+                # engine of the case reuses; a case over the byte budget
+                # gets None, and the engine factorizes B′ itself.
+                entry = self.cache.entry(
+                    case, eng._sys, resolve_backend(cfg.pf_backend,
+                                                    eng._sys.n_bus),
+                    topo=topology_digest(eng._sys),
+                )
+                if entry is not None:
+                    eng.attach_cache_lu(entry.precond.bp)
             if workload == "pf" and self.cache is not None:
                 from freedm_tpu_torch.serve.cache import topology_digest
 

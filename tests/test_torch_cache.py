@@ -770,6 +770,11 @@ def test_cache_tier_failure_is_counted_and_served_full(caplog):
         p0, q0 = _base_inj(svc2)
         r = svc2.request("pf", PowerFlowRequest(case="case14", timeout_s=T))
         assert r.batch.tier == "full"
+        # The base solution is inserted after its future resolves: wait
+        # for it, so each delta request below reaches the delta tier.
+        deadline = time.monotonic() + 10
+        while svc2.batcher.busy() and time.monotonic() < deadline:
+            time.sleep(0.005)
 
         def boom(*args, **kwargs):
             raise RuntimeError("delta_mismatch kernel launch failed")

@@ -52,7 +52,9 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
         "          'freedm_tpu_torch.scenarios.profiles',\n"
         "          'freedm_tpu_torch.scenarios.agents',\n"
         "          'freedm_tpu_torch.scenarios.engine',\n"
-        "          'freedm_tpu_torch.scenarios.jobs'):\n"
+        "          'freedm_tpu_torch.scenarios.jobs',\n"
+        "          'freedm_tpu_torch.pf.topo',\n"
+        "          'freedm_tpu_torch.kernels.topo_kernels'):\n"
         "    assert m in sys.modules, m\n"
         "import chip_smoke, kernel_ab\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -65,7 +67,7 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 26  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 28  # every module was imported
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
@@ -91,7 +93,9 @@ def test_static_scan_finds_no_jax_or_reference_import():
             PACKAGE / "scenarios" / "profiles.py",
             PACKAGE / "scenarios" / "agents.py",
             PACKAGE / "scenarios" / "engine.py",
-            PACKAGE / "scenarios" / "jobs.py"} <= set(files)
+            PACKAGE / "scenarios" / "jobs.py",
+            PACKAGE / "pf" / "topo.py",
+            PACKAGE / "kernels" / "topo_kernels.py"} <= set(files)
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -194,6 +198,21 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
 
     assert set(qk.launches()) == {"agent_step", "qsts_bus_reduce",
                                   "qsts_feeder_reduce"}
+    from freedm_tpu_torch.kernels import topo_kernels as tk
+
+    assert set(tk.launches()) == {"topo_radiality", "topo_screen"}
+    # Neither CPU nor CUDA: refused before the library loads.
+    meta = torch.zeros(2, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tk.topo_radiality(meta, None, 3)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tk.topo_screen(meta.double(), None, meta, 1.0, None)
+    with pytest.raises(ValueError, match=r"\[V, r\]"):
+        tk._slots_shape(torch.zeros(2, 7, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        tk._want(torch.device("cpu"), slots=(
+            torch.zeros(4, 4, dtype=torch.int32)[:, :2], torch.int32,
+            (4, 2)))
     with pytest.raises(TypeError, match="float64 or float32"):
         lk._suffix(torch.float16)
     vb = torch.zeros(2, 17, 8, dtype=torch.float64)

@@ -100,10 +100,16 @@ def test_parse_job_request_refusals_match_reference(bad):
 def test_sharded_and_topo_jobs_are_refused():
     with pytest.raises(InvalidRequest, match="item 16"):
         parse_job_request({"case": "case14", "mesh_devices": 4})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        jobs.parse_topo_job_request({"case": "case14"})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        JobManager(device="cpu").submit_topo({"case": "case14"})
+    # Topology sweep jobs are ported: a sharded one is refused like a
+    # sharded study, an invalid one with the reference's typed error.
+    with pytest.raises(InvalidRequest, match="item 16"):
+        jobs.parse_topo_job_request({"case": "case14", "mesh_devices": 4})
+    with pytest.raises(InvalidRequest, match="objective"):
+        JobManager(device="cpu").submit_topo({"case": "case14",
+                                              "objective": "nope"})
+    spec, key, total = jobs.parse_topo_job_request({"case": "case14",
+                                                    "mesh_devices": 1})
+    assert (spec.max_rank, key, total) == (2, None, 210)
 
 
 def _wait_terminal(jm, job_id, timeout_s=120.0):
@@ -306,8 +312,8 @@ def test_jobs_http_roundtrip(tmp_path):
         status, e = _call(srv.port, "POST", "/v1/qsts", {"case": "nope"})
         assert status == 400 and e["error"]["type"] == "invalid_request"
         status, e = _call(srv.port, "POST", "/v1/topo/sweep",
-                          {"case": "case14"})
-        assert status == 404 and "item 11" in e["error"]["detail"]
+                          {"case": "case14", "objective": "nope"})
+        assert status == 400 and e["error"]["type"] == "invalid_request"
         status, h = _call(srv.port, "GET", "/healthz")
         assert status == 200 and h["qsts"] is True
         status, s = _call(srv.port, "GET", "/stats")

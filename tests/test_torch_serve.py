@@ -143,9 +143,10 @@ def test_http_roundtrip_and_typed_errors(services):
         assert status == 400  # the vvc workload is served: not a feeder
         assert "unknown feeder case" in json.loads(data)["error"]["detail"]
         status, data = _post(server.port, "/v1/topo",
-                             json.dumps({"case": "case14"}))
-        assert status == 404
-        assert json.loads(data)["error"]["type"] == "not_found"
+                             json.dumps({"case": "case14", "max_rank": 1,
+                                         "top_k": 1}))
+        assert status == 200  # the topo workload is served
+        assert json.loads(data)["n_variants"] == 20
 
         status, data = _post(server.port, "/healthz", None, method="GET")
         assert status == 200 and json.loads(data)["device"] == "cpu"
@@ -193,14 +194,23 @@ def test_serialized_dispatch_matches_the_pipeline():
     for depth in (0, 1):
         # Cache off: with it on, a burst request classified after an
         # earlier one's solve landed would be warm-seeded, in either
-        # service at its own timing.
+        # service at its own timing.  A lane's bits depend on its batch's
+        # bucket, so both services must coalesce the same batch: the
+        # burst is admitted whole under the queue's (re-entrant) lock
+        # before the batcher can take its head, and a long window keeps a
+        # busy machine from flushing it early.
         svc = Service(ServeConfig(max_batch=4, buckets=(1, 4), device="cpu",
-                                  pipeline_depth=depth, cache_mb=0.0))
+                                  pipeline_depth=depth, cache_mb=0.0,
+                                  max_wait_ms=5000.0))
         try:
             assert bool(svc.batcher.lanes) == (depth > 0)
-            out.append(_concurrent(svc, reqs))
+            with svc.queue._cond:
+                futs = [svc.submit("pf", dict(r)) for r in reqs]
+            out.append([f.result(timeout=120) for f in futs])
         finally:
             svc.stop()
+    for got in out:
+        assert [g.batch.lanes for g in got] == [3, 3, 3]
     for a, b in zip(*out):
         assert (a.iterations, a.converged) == (b.iterations, b.converged)
         assert a.v == b.v and a.theta == b.theta
