@@ -16,12 +16,17 @@ feeder streaming reductions (Q1, Q2), feeder chunks on L1 — and the jobs
 API behind ``POST /v1/qsts``; topology sweeps through ``run_topo_sweep``
 — the radiality check (T1) and the rank-r SMW screen (T2), the AC verify
 on S1 with status, S2-S4 and K3 —, ``POST /v1/topo`` and ``POST
-/v1/topo/sweep``.
+/v1/topo/sweep``; the rest of the solver family at the reference
+bench's sizes — dense Newton with per-lane status on the Ybus stamp (Y1)
+and K1/K2's per-lane form, the fast-decoupled solver (Y1's B′/B″ modes,
+F1), the matrix-free Newton–Krylov solver (J1) and the three-phase CIM
+(I1).
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build: seven ``nvcc`` runs started together compile
+1. build: eight ``nvcc`` runs started together compile
    ``freedm_tpu_torch/kernels/csrc/newton.cu``, ``sparse.cu``,
-   ``cache.cu``, ``screen.cu``, ``ladder.cu``, ``qsts.cu`` and ``topo.cu`` for
+   ``cache.cu``, ``screen.cu``, ``ladder.cu``, ``qsts.cu``, ``topo.cu`` and
+   ``solvers.cu`` for
    ``sm_90a``; prints the build seconds and the ``-Xptxas -v`` reports;
 2. kernels: each kernel against its plain PyTorch version on the card at
    n ∈ {14, 30, 118, 2000} buses and B ∈ {1, 3, 64} lanes (float64,
@@ -219,7 +224,38 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``lu_factor``), 16 concurrent mesh118 rank-1 requests (p50/p99), an
    invalid spec 400; a keyed mesh118 rank-2 ``POST /v1/topo/sweep`` job
    cancelled mid-run and resubmitted (resumed, equal to a direct sweep,
-   ``kind: "topo"``), an invalid job 400; T1 and T2 launched on both.
+   ``kind: "topo"``), an invalid job 400; T1 and T2 launched on both;
+21. solver kernels: Y1 in its three modes, F1 in its three modes on a
+   shared and a per-lane Ybus, J1 with and without status and K1/K2 on a
+   per-lane Ybus against their plain versions at case14, case_ieee30,
+   mesh118 and mesh2000 × B ∈ {1, 3} (mesh118 also × 118, the reference
+   bench's N-1 batch), float64 (``KERNEL_ATOL``) and float32
+   (``KERNEL_ATOL_F32``; J1 relative to max |J u| above 1), then I1
+   through ``make_cim_solver`` and its ``plain=True`` twin on vvc_9bus and
+   the CIM feeder (``cim_feeder``) × B ∈ {1, 8}; each kernel
+   bit-identical on repeat; then their times (events and device time)
+   beside the plain versions, the bounds and the library rows: Y1 at
+   mesh118 × 118 (library: a sparse COO tensor to dense, duplicates
+   summed), K1/K2 on that per-lane Ybus, F1 at mesh2000 × 1 (library: the
+   complex ``torch.matmul`` of Ybus with V), mesh118 × 1024 and mesh2000
+   × 16 per lane, J1 at mesh2000 × 256 (library: ``torch.sparse.mm`` of
+   the S1-assembled Jacobian), I1 at the CIM feeder × 64 (library: the
+   complex ``torch.matmul`` of A with the injections);
+22. solvers at the reference bench's sizes (not cut): (a) ``bench_n1_118``
+   (dense ``solve_fixed``, 118 outage lanes, against the plain path within
+   ``SOLVE_ATOL``), (b) FDLF ``bench_nr_2000`` (solves/s), (c) FDLF
+   ``bench_mc_1024`` (lane solves/s), (d) FDLF N-1 at mesh2000 × 16 chord
+   outages, (e) ``bench_nr_2k_krylov_lanes`` mixed and f64 (mesh2000 ×
+   256: lane solves/s, all converged, equal flags, within
+   ``MIXED_DV_BOUND``, fallbacks, a profile), (f)
+   ``bench_n1_2000bus_krylov`` (256 warm-started chord outages) and (g)
+   ``bench_nr_10k_mesh`` (ms a solve and an iteration beside the north
+   star's ``NORTH_STAR_MS``, the host f64 true mismatch, a profile); each
+   prints its Y1/F1/J1 launches and its device busy share;
+23. cim: vvc_9bus radial against L1's ladder fixed point (1e-8 pu); the
+   CIM feeder × 64 load scales — all converged, the KCL residual under
+   ``CIM_KCL_KVA``, the kernel path within ``SOLVE_ATOL`` of the plain
+   path with equal iterations, ms a solve.
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
@@ -232,7 +268,9 @@ D1 their other modes' times; L1 and L2 their per-iteration device times
 and other shapes; A1 its S = 4 times; A1, Q1 and Q2 the path of their
 launches; T1 and T2 their mesh2000 × 16384 times, T2 DETAIL, the
 refactorization head-to-head and the |det C| margin, both their launches
-on the served paths); the last line is ``{"ok": true, "device": {...}}``.
+on the served paths; Y1-I1 their other shapes and modes, the float32
+gaps and the path of their launches, F1 the numbers of phase 22); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -254,6 +292,9 @@ import numpy as np
 PEAK_BYTES = 3.35e12
 PEAK_FP64 = 34e12
 PEAK_FP32 = 67e12
+#: fp64 through the tensor cores (DMMA; NVIDIA's data sheet): the least
+#: time of a dense fp64 matrix product such as I1's.
+PEAK_FP64_TENSOR = 67e12
 
 MAIN_LANES = 64
 KERNEL_ATOL = 1e-10
@@ -281,7 +322,7 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, build):
+def build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, sol, build):
     t0 = time.monotonic()
     box = {}
 
@@ -291,7 +332,8 @@ def build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, build):
         except Exception as e:  # noqa: BLE001 — re-raised on the main thread
             box["error"] = e
 
-    names = ("newton", "sparse", "cache", "screen", "ladder", "qsts", "topo")
+    names = ("newton", "sparse", "cache", "screen", "ladder", "qsts", "topo",
+             "solvers")
     threads = [threading.Thread(target=run_nvcc, args=(name,))
                for name in names]
     for th in threads:
@@ -307,6 +349,7 @@ def build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, build):
     lk._ladder_lib()
     qk._qsts_lib()
     tk._topo_lib()
+    sol._solvers_lib()
     t_all = time.monotonic() - t0
     log(f"build: nvcc x{len(names)} {t_all:.1f} s ("
         + ", ".join(f"{k}.cu {box[k][1]:.1f} s" for k in names) + "), "
@@ -1285,12 +1328,14 @@ def profile_solve(torch, fn, label, top=8):
     times are summed, so overlap would count twice — this path runs on
     one stream.  Returns ``(operations, busy_ms, wall_ms)``: the device
     operations it recorded (kernel launches and copies), their summed
-    device time and the run's wall time."""
+    device time and the run's wall time.  It records device activity
+    alone: with the host's operators recorded too, ``key_averages`` over
+    the ~26k device operations of an FDLF N-1 solve (the batched LU's
+    kernels) took minutes on the host, and seconds without."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         fn()
         torch.cuda.synchronize()
@@ -4691,6 +4736,766 @@ def serve_topo(torch, tk, tp, dev="cuda"):
             svc.stop()
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the solver kernels Y1, F1, J1 and I1 against their plain versions
+# ---------------------------------------------------------------------------
+
+SOLVER_CASES = ("case14", "case_ieee30", "mesh118", "mesh2000")
+SOLVER_LANES = (1, 3)
+#: The reference bench's N-1 batch (``bench.py:343`` ``bench_n1_118``):
+#: mesh118, the first 118 branches out one per lane.
+N1_118_LANES = 118
+#: The CIM feeder of phases 21 and 23: ``synthetic_radial(1000, seed=0,
+#: load_kw=1.0)`` with this many closed ties, under ``CIM_LANES`` load
+#: scales.
+CIM_TIES = 2
+CIM_LANES = 64
+
+
+def exact_or_close(torch, a, b):
+    """Largest |a − b| counting equal entries (infinities too) as 0."""
+    if a.dtype == torch.bool or not a.is_floating_point():
+        return 0.0 if torch.equal(a, b) else float("inf")
+    d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def solver_status(sys_, lanes, seed):
+    """``[lanes, m]`` 0/1 status: lane 0 all in service, the others with
+    ~10% of their branches out (seeded)."""
+    rng = np.random.default_rng(seed)
+    st = (rng.random((lanes, sys_.n_branch)) > 0.1).astype(np.float64)
+    st[0] = 1.0
+    return st
+
+
+def n1_118_status(sys_):
+    st = np.ones((N1_118_LANES, sys_.n_branch))
+    st[np.arange(N1_118_LANES), np.arange(N1_118_LANES)] = 0.0
+    return st
+
+
+def cim_feeder():
+    """``synthetic_radial(1000, seed=0, load_kw=1.0)`` and ``CIM_TIES``
+    ties, each of branch 0's per-unit impedance, from the deepest nodes
+    to nodes halfway down the node list (every node is three-phase)."""
+    from freedm_tpu_torch.grid.cases import synthetic_radial
+
+    f = synthetic_radial(1000, seed=0, load_kw=1.0)
+    deep = np.argsort(-np.asarray(f.depth), kind="stable") + 1
+    mid = f.n_nodes // 2
+    ties = [(int(deep[k]), mid + 7 * k, f.z_pu[0]) for k in range(CIM_TIES)]
+    check(all(a != b for a, b, _ in ties), f"cim: degenerate ties {ties}")
+    return f, ties
+
+
+def cim_loads(f, lanes, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0.7, 1.3, (lanes, 1, 1)) * f.s_load[None]
+
+
+def compare_solver_kernels(torch, sol, nk, errs):
+    """Y1 (three modes), F1 (three modes; shared and per-lane Ybus), J1
+    (with and without status) and K1/K2 on per-lane Ybus against their
+    plain versions at ``SOLVER_CASES`` × ``SOLVER_LANES`` (and mesh118 ×
+    118, the reference bench's N-1 batch) in float64 and float32, then I1
+    on vvc_9bus and the CIM feeder; each kernel bit-identical on repeat."""
+    from freedm_tpu_torch.grid.bus import stamp_operands, ybus_lanes
+    from freedm_tpu_torch.pf.cim import make_cim_solver
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    worst = {}
+
+    def hold(name, tag, got, want, again, atol, f64):
+        e = max(exact_or_close(torch, a, b) for a, b in zip(got, want))
+        same = all(torch.equal(a, b) or (a.is_floating_point()
+                                        and same_bits(torch, a, b))
+                   for a, b in zip(got, again))
+        check(e <= atol, f"{name} {tag}: {e:.3e} from its plain version")
+        check(same, f"{name} {tag}: not bit-identical on repeat")
+        key = (name, f64)
+        worst[key] = max(worst.get(key, 0.0), e)
+
+    for cname in SOLVER_CASES:
+        sys_ = case_system(cname)
+        n = sys_.n_bus
+        lane_set = SOLVER_LANES + ((N1_118_LANES,) if cname == "mesh118"
+                                   else ())
+        for dtype in (torch.float64, torch.float32):
+            f64 = dtype == torch.float64
+            atol = KERNEL_ATOL if f64 else KERNEL_ATOL_F32
+            op = stamp_operands(sys_, dtype=dtype, device=dev)
+            sop = sparse_operands(sys_, dtype=dtype, device=dev)
+            rng = np.random.default_rng(21)
+            for lanes in lane_set:
+                tag = f"{cname} x{lanes} {str(dtype)[6:]}"
+                st = torch.as_tensor(
+                    n1_118_status(sys_) if lanes == N1_118_LANES
+                    else solver_status(sys_, lanes, 21), dtype=dtype,
+                    device=dev)
+                for mode in (sol.YBUS, sol.BPRIME, sol.BDBL):
+                    run = [fn(mode, op, st) for fn in
+                           (sol.ybus_stamp, sol.ybus_stamp_plain,
+                            sol.ybus_stamp)]
+                    run = [r if isinstance(r, tuple) else (r,) for r in run]
+                    hold("ybus_stamp", f"{tag} mode {mode}", *run, atol, f64)
+                y = ybus_lanes(sys_, st, dtype=dtype, device=dev, op=op)
+                x = torch.cat([
+                    torch.as_tensor(rng.normal(0, 0.1, (lanes, n)),
+                                    dtype=dtype, device=dev),
+                    torch.as_tensor(rng.uniform(0.95, 1.05, (lanes, n)),
+                                    dtype=dtype, device=dev)], 1)
+                ps = torch.as_tensor(rng.normal(size=(lanes, n)),
+                                     dtype=dtype, device=dev)
+                qs = 0.3 * ps
+                thf, vf, vs = sop.th_free, sop.v_free, sop.v_set
+                k12 = [(nk.newton_assemble, nk.power_injections),
+                       (nk.newton_assemble_plain, nk.power_injections_plain),
+                       (nk.newton_assemble, nk.power_injections)]
+                if n <= 118:
+                    hold("newton_assemble", f"{tag} per-lane Ybus",
+                         *[k1(x, y[0], y[1], ps, qs, thf, vf, vs)
+                           for k1, _ in k12], atol, f64)
+                hold("power_injections", f"{tag} per-lane Ybus",
+                     *[k2(x, y[0], y[1], ps, qs, thf, vf, vs)
+                       for _, k2 in k12], atol, f64)
+                d_th = torch.as_tensor(rng.normal(0, 1e-3, (n, lanes)),
+                                       dtype=dtype, device=dev).T
+                d_v = torch.as_tensor(rng.normal(0, 1e-3, (lanes, n)),
+                                      dtype=dtype, device=dev)
+                active = torch.as_tensor(np.arange(lanes) % 3 != 1,
+                                         device=dev)
+                for yy, form in (((y[0][0].contiguous(),
+                                   y[1][0].contiguous()), "shared"),
+                                 (y, "per-lane")):
+                    outs = []
+                    for fn in (sol.fdlf_half_step, sol.fdlf_half_step_plain,
+                               sol.fdlf_half_step):
+                        xx = x.clone()
+                        dp = torch.zeros(lanes, n, dtype=dtype, device=dev)
+                        dq = torch.zeros_like(dp)
+                        err = torch.full((lanes,), float("inf"), dtype=dtype,
+                                         device=dev)
+                        it = torch.zeros(lanes, dtype=torch.int32,
+                                         device=dev)
+                        act = active.clone()
+                        tol = torch.full((1,), 1e-8, dtype=dtype, device=dev)
+                        for mode, d in ((sol.INIT, None), (sol.THETA, d_th),
+                                        (sol.VHALF, d_v)):
+                            fn(mode, xx, d, yy[0], yy[1], ps, qs, thf, vf, dp,
+                               dq, err, it, act, tol, 10, False)
+                        outs.append((xx, dp, dq, err, it, act))
+                    hold("fdlf_half_step", f"{tag} {form} Ybus", *outs, atol,
+                         f64)
+                u = torch.as_tensor(rng.normal(size=(lanes, 2 * n)),
+                                    dtype=dtype, device=dev)
+                for s_ in (None, st):
+                    run = [(fn(x, u, sop, s_),) for fn in
+                           (sol.residual_jvp, sol.residual_jvp_plain,
+                            sol.residual_jvp)]
+                    scale = max(1.0, float(run[1][0].abs().max()))
+                    hold("residual_jvp", f"{tag} status {s_ is not None}",
+                         *run, atol * scale, f64)
+    from freedm_tpu_torch.grid.cases import vvc_9bus
+
+    for f, ties, label in ((vvc_9bus(), (), "vvc_9bus"),
+                           (*cim_feeder(), "radial1000+ties")):
+        for dtype in (torch.float64, torch.float32):
+            f64 = dtype == torch.float64
+            atol = KERNEL_ATOL if f64 else KERNEL_ATOL_F32
+            for lanes in (1, 8):
+                s = cim_loads(f, lanes, seed=lanes)
+                outs = []
+                for plain in (False, True, False):
+                    solve, fixed = make_cim_solver(f, ties=ties, dtype=dtype,
+                                                   device=dev, plain=plain,
+                                                   max_iter=40)
+                    r = solve(s)
+                    r3 = fixed(s) if lanes == 1 else r
+                    outs.append((r.v_node.re, r.v_node.im, r.iterations,
+                                 r.converged, r3.v_node.re))
+                hold("cim_iterate", f"{label} x{lanes} {str(dtype)[6:]}",
+                     *outs, atol, f64)
+    for (name, f64), e in worst.items():
+        if name in errs and f64:
+            errs[name] = max(errs[name], e)
+    log("solver kernels: " + ", ".join(
+        f"{name} {'f64' if f64 else 'f32'} {e:.2e}"
+        for (name, f64), e in sorted(worst.items()))
+        + f" (max abs from the plain versions; J1 relative to max |J u| "
+          f"above 1); each bit-identical on repeat "
+          f"({time.monotonic() - t0:.1f} s)")
+    return {f"{name}{'' if f64 else '_f32'}": e
+            for (name, f64), e in worst.items()}
+
+
+def time_solver_kernels(torch, sol, nk, rows, extra):
+    """Y1, F1, J1 and I1 at the shapes of phase 22's paths, each by CUDA
+    events over back-to-back calls and by device time (the profiler, or
+    events around each call where its trace has no device events), beside
+    the plain version, the bound and the library row; K1/K2 on the
+    per-lane Ybus of the mesh118 N-1 batch."""
+    from freedm_tpu_torch.grid.bus import stamp_operands, ybus_lanes
+    from freedm_tpu_torch.pf.cim import make_cim_solver
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    t0 = time.monotonic()
+
+    def timed(name, fn, plain, reps, preps=3):
+        k = time_ms(torch, fn, reps=reps)
+        k_dev, src = ladder_device_ms(torch, fn, max(reps // 2, 5), name)
+        p = time_ms(torch, plain, reps=preps)
+        return k, k_dev, src, p
+
+    # Y1 YBUS at the reference bench's N-1 batch: writes B n² (re, im).
+    sys118 = case_system("mesh118")
+    n, m = sys118.n_bus, sys118.n_branch
+    op = stamp_operands(sys118, dtype=f64, device=dev)
+    st = torch.as_tensor(n1_118_status(sys118), dtype=f64, device=dev)
+    lanes = st.shape[0]
+    k, k_dev, src, p = timed(
+        "ybus_stamp", lambda: sol.ybus_stamp(sol.YBUS, op, st),
+        lambda: sol.ybus_stamp_plain(sol.YBUS, op, st), 50)
+    b_y1 = 8 * (2 * lanes * n * n + lanes * m + 9 * m) + 4 * (n + 1 + 4 * m)
+    # The library row: one sparse COO (duplicates summed) to dense, complex.
+    lane = torch.arange(lanes, device=dev)[:, None]
+    f_, t_ = op.f[None].expand(lanes, m), op.t[None].expand(lanes, m)
+    yb = [torch.complex(op.br[2 * r], op.br[2 * r + 1]) * st
+          for r in range(4)]
+    ar = torch.arange(n, device=dev)[None].expand(lanes, n)
+    idx = torch.stack([torch.cat([lane.expand(lanes, 4 * m),
+                                  lane.expand(lanes, n)], 1).reshape(-1),
+                       torch.cat([f_, t_, f_, t_, ar], 1).reshape(-1),
+                       torch.cat([f_, t_, t_, f_, ar], 1).reshape(-1)])
+    sh = torch.complex(op.g_sh, op.b_sh)[None].expand(lanes, n)
+    vals = torch.cat([yb[0], yb[3], yb[1], yb[2], sh], 1).reshape(-1)
+
+    def library_y1():
+        return torch.sparse_coo_tensor(idx, vals, (lanes, n, n)).to_dense()
+
+    want = library_y1()
+    got = sol.ybus_stamp(sol.YBUS, op, st)
+    check(float((want.real - got[0]).abs().max()) <= KERNEL_ATOL
+          and float((want.imag - got[1]).abs().max()) <= KERNEL_ATOL,
+          "Y1's library row computes another Ybus")
+    lib = time_ms(torch, library_y1, reps=20)
+    b, by = bound(b_y1, 0)
+    rows["ybus_stamp"] = (k, p, lib, b, by)
+    extra["ybus_stamp"] = {"device_ms": k_dev, "device_ms_source": src,
+                           "shape": "mesh118 x 118 (bench_n1_118), YBUS",
+                           "library": "torch.sparse_coo_tensor(idx, vals, "
+                                      "(B, n, n)).to_dense(), complex128"}
+    log(f"timing: ybus_stamp YBUS mesh118 x118 kernel {k:.4f} ms (device "
+        f"{k_dev:.4f}, {src})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
+        f"library sparse COO to dense {lib:.4f} ms")
+    for mode, key in ((sol.BPRIME, "bprime"), (sol.BDBL, "bdbl")):
+        km, km_dev, src, pm = timed(
+            "ybus_stamp", lambda: sol.ybus_stamp(mode, op, st),
+            lambda: sol.ybus_stamp_plain(mode, op, st), 50)
+        bm, _ = bound(b_y1 - 8 * lanes * n * n, 0)
+        extra["ybus_stamp"].update({f"ms_{key}": km,
+                                    f"device_ms_{key}": km_dev,
+                                    f"plain_ms_{key}": pm,
+                                    f"bound_ms_{key}": bm})
+        log(f"timing: ybus_stamp {key.upper()} mesh118 x118 kernel {km:.4f} "
+            f"ms (device {km_dev:.4f})  plain {pm:.4f} ms  bound {bm:.4f} ms")
+    # K1/K2 on that per-lane Ybus (the dense N-1 path).
+    y = ybus_lanes(sys118, st, dtype=f64, device=dev, op=op)
+    rng = np.random.default_rng(22)
+    x = torch.cat([torch.zeros(lanes, n, dtype=f64, device=dev),
+                   torch.ones(lanes, n, dtype=f64, device=dev)], 1)
+    x[:, :n] += torch.as_tensor(rng.normal(0, 0.05, (lanes, n)), device=dev)
+    sop = sparse_operands(sys118, dtype=f64, device=dev)
+    ps = torch.as_tensor(np.tile(sys118.p_inj, (lanes, 1)), device=dev)
+    qs = torch.as_tensor(np.tile(sys118.q_inj, (lanes, 1)), device=dev)
+    args = (x, y[0], y[1], ps, qs, sop.th_free, sop.v_free, sop.v_set)
+    for name, fn, pfn in (("newton_assemble", nk.newton_assemble,
+                           nk.newton_assemble_plain),
+                          ("power_injections", nk.power_injections,
+                           nk.power_injections_plain)):
+        kk, kk_dev, src, pp = timed(name, lambda: fn(*args),
+                                    lambda: pfn(*args), 50)
+        extra.setdefault(name, {}).update({
+            "ms_lanes_ybus_n1_118": kk, "device_ms_lanes_ybus_n1_118": kk_dev,
+            "plain_ms_lanes_ybus_n1_118": pp})
+        log(f"timing: {name} per-lane Ybus mesh118 x118 kernel {kk:.4f} ms "
+            f"(device {kk_dev:.4f}, {src})  plain {pp:.4f} ms")
+
+    # F1 at bench_nr_2000 (mesh2000 x 1, one Ybus), V mode: reads Ybus once.
+    sys2k = synthetic_mesh_bench(2000, 1.0)
+    n2 = sys2k.n_bus
+    from freedm_tpu_torch.grid.bus import ybus_dense
+
+    y2 = ybus_dense(sys2k, dtype=f64, device=dev)
+    sop2 = sparse_operands(sys2k, dtype=f64, device=dev)
+
+    def f1_inputs(lanes_, yy):
+        x_ = torch.cat([torch.zeros(lanes_, n2, dtype=f64, device=dev),
+                        torch.ones(lanes_, n2, dtype=f64, device=dev)], 1)
+        ps_ = torch.as_tensor(np.tile(sys2k.p_inj, (lanes_, 1)), device=dev)
+        qs_ = torch.as_tensor(np.tile(sys2k.q_inj, (lanes_, 1)), device=dev)
+        carry = (sop2.th_free, sop2.v_free,
+                 torch.zeros(lanes_, n2, dtype=f64, device=dev),
+                 torch.zeros(lanes_, n2, dtype=f64, device=dev),
+                 torch.zeros(lanes_, dtype=f64, device=dev),
+                 torch.zeros(lanes_, dtype=torch.int32, device=dev),
+                 torch.ones(lanes_, dtype=torch.bool, device=dev),
+                 torch.zeros(1, dtype=f64, device=dev), 1 << 30, True)
+        d_ = torch.zeros(lanes_, n2, dtype=f64, device=dev)
+        return (sol.VHALF, x_, d_, yy[0], yy[1], ps_, qs_, *carry)
+
+    a1 = f1_inputs(1, y2)
+    k, k_dev, src, p = timed("fdlf_half_step",
+                             lambda: sol.fdlf_half_step(*a1),
+                             lambda: sol.fdlf_half_step_plain(*a1), 50)
+    b_f1 = 8 * (2 * n2 * n2 + 8 * n2 + 3) + 4
+    yc = torch.complex(y2[0], y2[1])
+    vc = torch.polar(a1[1][:, n2:].T.contiguous(),
+                     a1[1][:, :n2].T.contiguous())
+    lib = time_ms(torch, lambda: torch.matmul(yc, vc), reps=50)
+    b, by = bound(b_f1, 8 * n2 * n2)
+    rows["fdlf_half_step"] = (k, p, lib, b, by)
+    extra["fdlf_half_step"] = {
+        "device_ms": k_dev, "device_ms_source": src,
+        "shape": "mesh2000 x 1 (bench_nr_2000), one Ybus, V mode",
+        "library": "complex128 torch.matmul of Ybus with V alone"}
+    log(f"timing: fdlf_half_step V mesh2000 x1 kernel {k:.4f} ms (device "
+        f"{k_dev:.4f}, {src})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
+        f"library complex matmul {lib:.4f} ms")
+    del yc, vc
+    # ... at bench_mc_1024's shape (mesh118 x 1024, one Ybus) and the FDLF
+    # N-1 shape (mesh2000 x 16, per-lane Ybus).
+    y118 = ybus_dense(sys118, dtype=f64, device=dev)
+    x118 = torch.cat([torch.zeros(1024, n, dtype=f64, device=dev),
+                      torch.ones(1024, n, dtype=f64, device=dev)], 1)
+    car = (sop.th_free, sop.v_free,
+           torch.zeros(1024, n, dtype=f64, device=dev),
+           torch.zeros(1024, n, dtype=f64, device=dev),
+           torch.zeros(1024, dtype=f64, device=dev),
+           torch.zeros(1024, dtype=torch.int32, device=dev),
+           torch.ones(1024, dtype=torch.bool, device=dev),
+           torch.zeros(1, dtype=f64, device=dev), 1 << 30, True)
+    ps1k = torch.as_tensor(np.tile(sys118.p_inj, (1024, 1)), device=dev)
+    a2 = (sol.VHALF, x118, torch.zeros(1024, n, dtype=f64, device=dev),
+          y118[0], y118[1], ps1k, ps1k, *car)
+    k2, k2_dev, src, p2 = timed("fdlf_half_step",
+                                lambda: sol.fdlf_half_step(*a2),
+                                lambda: sol.fdlf_half_step_plain(*a2), 50)
+    b2, _ = bound(8 * (2 * n * n + 1024 * 8 * n), 8 * 1024 * n * n)
+    opn = stamp_operands(sys2k, dtype=f64, device=dev)
+    st16 = torch.ones(16, sys2k.n_branch, dtype=f64, device=dev)
+    st16[torch.arange(16), n2 + torch.arange(16)] = 0.0
+    y16 = sol.ybus_stamp(sol.YBUS, opn, st16)
+    a3 = f1_inputs(16, y16)
+    k3, k3_dev, src, p3 = timed("fdlf_half_step",
+                                lambda: sol.fdlf_half_step(*a3),
+                                lambda: sol.fdlf_half_step_plain(*a3), 20)
+    b3, _ = bound(8 * (2 * 16 * n2 * n2 + 16 * 8 * n2), 8 * 16 * n2 * n2)
+    extra["fdlf_half_step"].update({
+        "ms_mesh118_x1024": k2, "device_ms_mesh118_x1024": k2_dev,
+        "plain_ms_mesh118_x1024": p2, "bound_ms_mesh118_x1024": b2,
+        "ms_mesh2000_x16_lanes_ybus": k3,
+        "device_ms_mesh2000_x16_lanes_ybus": k3_dev,
+        "plain_ms_mesh2000_x16_lanes_ybus": p3,
+        "bound_ms_mesh2000_x16_lanes_ybus": b3})
+    log(f"timing: fdlf_half_step V mesh118 x1024 kernel {k2:.4f} ms (device "
+        f"{k2_dev:.4f})  plain {p2:.4f}  bound {b2:.4f}; mesh2000 x16 "
+        f"per-lane Ybus {k3:.4f} ms (device {k3_dev:.4f})  plain {p3:.4f}  "
+        f"bound {b3:.4f}")
+    del y16, a3
+
+    # J1 at bench_nr_2k_krylov_lanes (mesh2000 x 256): x, u in, J u out.
+    from freedm_tpu_torch.kernels import sparse_kernels as sk
+
+    lanes = 256
+    xk = torch.cat([torch.as_tensor(rng.normal(0, 0.1, (lanes, n2)),
+                                    device=dev),
+                    torch.as_tensor(rng.uniform(0.95, 1.05, (lanes, n2)),
+                                    device=dev)], 1)
+    u = torch.randn_like(xk)
+    ps2 = torch.as_tensor(np.tile(sys2k.p_inj, (lanes, 1)), device=dev)
+    k, k_dev, src, p = timed("residual_jvp",
+                             lambda: sol.residual_jvp(xk, u, sop2),
+                             lambda: sol.residual_jvp_plain(xk, u, sop2), 100)
+    m2 = sys2k.n_branch
+    b_j1 = 8 * 3 * lanes * 2 * n2 + 8 * (4 * 2 * m2 + 4 * n2) \
+        + 4 * (n2 + 1 + 4 * m2)
+    o_j1 = lanes * (2 * m2 * 60 + n2 * 20)
+    ev, bv, _ = sk.sparse_assemble(xk, ps2, ps2, sop2)
+    csr = sparse_library_matvec(torch, sop2, ev, bv)
+    ucol = u.reshape(-1, 1)
+    e_lib = rel_abs_err(torch, (csr @ ucol).reshape(lanes, 2 * n2),
+                        sol.residual_jvp(xk, u, sop2))[0]
+    check(e_lib <= 1e-10, f"J1's library row computes another J u: {e_lib}")
+    lib = time_ms(torch, lambda: csr @ ucol, reps=100)
+    b, by = bound(b_j1, o_j1)
+    rows["residual_jvp"] = (k, p, lib, b, by)
+    extra["residual_jvp"] = {
+        "device_ms": k_dev, "device_ms_source": src,
+        "shape": "mesh2000 x 256 (bench_nr_2k_krylov_lanes), float64",
+        "library": "torch.sparse.mm of the S1-assembled Jacobian (CSR, "
+                   "assembly excluded)"}
+    log(f"timing: residual_jvp mesh2000 x256 kernel {k:.4f} ms (device "
+        f"{k_dev:.4f}, {src})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
+        f"library torch.sparse.mm {lib:.4f} ms")
+    del csr, ev, bv
+    sop2lo = sop2.to_dtype(torch.float32)
+    x32, u32 = xk.float(), u.float()
+    kf, kf_dev, _, pf = timed("residual_jvp",
+                              lambda: sol.residual_jvp(x32, u32, sop2lo),
+                              lambda: sol.residual_jvp_plain(x32, u32,
+                                                             sop2lo), 100)
+    st256 = torch.ones(lanes, m2, dtype=f64, device=dev)
+    st256[torch.arange(lanes), n2 + torch.arange(lanes)] = 0.0
+    ks, ks_dev, _, ps_ = timed(
+        "residual_jvp", lambda: sol.residual_jvp(xk, u, sop2, st256),
+        lambda: sol.residual_jvp_plain(xk, u, sop2, st256), 100)
+    extra["residual_jvp"].update({
+        "ms_f32": kf, "device_ms_f32": kf_dev, "plain_ms_f32": pf,
+        "bound_ms_f32": bound(b_j1 / 2, o_j1, fp64=False)[0],
+        "ms_status": ks, "device_ms_status": ks_dev, "plain_ms_status": ps_,
+        "bound_ms_status": bound(b_j1 + 8 * lanes * m2, o_j1)[0]})
+    log(f"timing: residual_jvp f32 {kf:.4f} ms (device {kf_dev:.4f})  plain "
+        f"{pf:.4f}; with status {ks:.4f} ms (device {ks_dev:.4f})  plain "
+        f"{ps_:.4f}")
+
+    # I1 on the CIM feeder x 64 (phase 23's batch): reads A once a tile of
+    # 16 lanes; the bound reads it once.
+    f, ties = cim_feeder()
+    s = cim_loads(f, CIM_LANES)
+    big_n = 3 * f.n_branches
+    a_args = _cim_operands(torch, f, ties, s, dev)
+    k, k_dev, src, p = timed("cim_iterate",
+                             lambda: sol.cim_iterate(*a_args),
+                             lambda: sol.cim_iterate_plain(*a_args[:-1],
+                                                           fixed=True), 20)
+    b_i1 = 8 * (2 * big_n * big_n + CIM_LANES * big_n * 8 + big_n) \
+        + 13 * CIM_LANES
+    o_i1 = 8 * CIM_LANES * big_n * big_n
+    ac = torch.complex(a_args[0], a_args[1])
+    inj = torch.complex(a_args[2], a_args[3]).T.contiguous()
+    lib = time_ms(torch, lambda: torch.matmul(ac, inj), reps=20)
+    # The product is a dense fp64 GEMM: its least time is at the tensor
+    # cores' rate, which the library row reaches and I1 does not use.
+    t_bytes = b_i1 / PEAK_BYTES * 1e3
+    t_ops = o_i1 / PEAK_FP64_TENSOR * 1e3
+    b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    rows["cim_iterate"] = (k, p, lib, b, by)
+    extra["cim_iterate"] = {
+        "device_ms": k_dev, "device_ms_source": src,
+        "shape": f"synthetic_radial(1000) + {CIM_TIES} ties x {CIM_LANES}",
+        "library": "complex128 torch.matmul of A with the lanes' "
+                   "injections alone"}
+    log(f"timing: cim_iterate radial1000+ties x{CIM_LANES} kernel {k:.4f} ms "
+        f"(device {k_dev:.4f}, {src})  plain {p:.4f} ms  bound {b:.4f} ms "
+        f"({by})  library complex matmul {lib:.4f} ms "
+        f"({time.monotonic() - t0:.1f} s timings)")
+
+
+def _cim_operands(torch, f, ties, s, dev):
+    """I1's arguments for loads ``s [B, nb, 3]`` at the no-load profile
+    (``fixed``: every lane stays active), as ``make_cim_solver`` forms
+    them."""
+    from freedm_tpu_torch.pf.cim import assemble_yabc
+    from freedm_tpu_torch.pf.ladder import SOURCE_UNIT
+
+    y, mask_np = assemble_yabc(f, ties)
+    a_inv = np.linalg.inv(y[3:, 3:])
+    vb = ((-a_inv @ y[3:, :3]) @ (SOURCE_UNIT * f.v_source_pu)
+          ) * mask_np[1:].reshape(-1)
+    lanes, big_n = s.shape[0], 3 * f.n_branches
+    sp = -(s.reshape(lanes, big_n) / f.s_base_per_phase_kva)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                               device=dev)
+
+    vbl = np.tile(vb, (lanes, 1))
+    return (t(a_inv.real), t(a_inv.imag), t(vbl.real), t(vbl.imag),
+            t(sp.real), t(sp.imag), t(vbl.real), t(vbl.imag),
+            t(mask_np[1:].reshape(-1)),
+            torch.zeros(lanes, dtype=torch.float64, device=dev),
+            torch.zeros(lanes, dtype=torch.int32, device=dev),
+            torch.ones(lanes, dtype=torch.bool, device=dev),
+            torch.zeros(1, dtype=torch.float64, device=dev), 1 << 30, True)
+
+
+def synthetic_mesh_bench(n, chord_frac):
+    """The reference bench's meshes: ``synthetic_mesh(n, seed=4,
+    load_mw=2.0, chord_frac)`` (``bench.py:130``, ``:149``, ``:172``)."""
+    from freedm_tpu_torch.grid.cases import synthetic_mesh
+
+    return synthetic_mesh(n, seed=4, load_mw=2.0, chord_frac=chord_frac)
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the solvers at the reference bench's sizes
+# ---------------------------------------------------------------------------
+
+#: Mixed against f64 on the krylov lane batch (``tests/test_precision.py``
+#: ``MIXED_DV_BOUND``).
+MIXED_DV_BOUND = 2e-4
+KRYLOV_LANES = 256
+#: The north star of ``BASELINE.json`` (``bench.py:149``): ms a Newton
+#: iteration of the 10k-bus meshed solve.
+NORTH_STAR_MS = 10.0
+
+
+def median_ms(torch, fn, reps):
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.monotonic() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def launches_of(sol, fn):
+    """``fn()``'s result and Y1/F1/J1/I1's launches over it."""
+    sol.reset_launches()
+    out = fn()
+    return out, {k: v for k, v in sol.launches().items() if v}
+
+
+def busy_share(torch, fn, label, top=0):
+    ops, busy, wall = profile_solve(torch, fn, label, top=top)
+    return f"device busy {busy:.1f} of {wall:.1f} ms ({100 * busy / max(wall, 1e-9):.1f}%, {ops} operations)"
+
+
+def solver_benches(torch, sol):
+    """(a)-(g) of the module docstring."""
+    from freedm_tpu_torch.pf.fdlf import make_fdlf_solver
+    from freedm_tpu_torch.pf.krylov import (build_fdlf_precond,
+                                            make_krylov_solver,
+                                            true_mismatch)
+    from freedm_tpu_torch.pf.newton import make_newton_solver
+
+    dev = torch.device("cuda")
+    t_phase = time.monotonic()
+    out, paths = {}, {}
+    t_step = [t_phase]
+
+    def took():
+        now = time.monotonic()
+        dt, t_step[0] = now - t_step[0], now
+        return f" ({dt:.1f} s)"
+
+    # (a) bench_n1_118: dense solve_fixed over 118 per-lane outages.
+    sys_ = case_system("mesh118")
+    st = n1_118_status(sys_)
+    _, fixed = make_newton_solver(sys_, max_iter=6, device=dev)
+    _, fixed_p = make_newton_solver(sys_, max_iter=6, device=dev, plain=True)
+    r, counts = launches_of(sol, lambda: fixed(status=st))
+    rp = fixed_p(status=st)
+    gap = max(max_err(r.v, rp.v), max_err(r.theta, rp.theta))
+    check(gap <= SOLVE_ATOL and torch.equal(r.converged, rp.converged),
+          f"(a) n1_118: kernel path {gap:.3e} pu from the plain path")
+    ms = median_ms(torch, lambda: fixed(status=st), 5)
+    check(counts.get("ybus_stamp", 0) == (dev.type == "cuda"),
+          f"(a) n1_118: Y1 launches {counts}")
+    paths["ybus_stamp"] = (counts.get("ybus_stamp", 0), "solvers phase (a): "
+                           "bench_n1_118, mesh118 x 118 dense solve_fixed")
+    log(f"solvers (a) bench_n1_118: mesh118 x {N1_118_LANES} outage lanes, "
+        f"dense solve_fixed max_iter=6: {ms:.2f} ms (median of 5), "
+        f"{int(r.converged.sum())}/{N1_118_LANES} converged, kernel path "
+        f"within {gap:.2e} pu of the plain path; launches {counts}; "
+        + busy_share(torch, lambda: fixed(status=st), "(a) n1_118") + took())
+    out["n1_118_ms"] = ms
+
+    # (b) bench_nr_2000 with make_fdlf_solver, one lane, max_iter=30.
+    sys2k = synthetic_mesh_bench(2000, 1.0)
+    solve, _ = make_fdlf_solver(sys2k, max_iter=30, device=dev)
+    r, counts = launches_of(sol, solve)
+    check(bool(r.converged.all()), f"(b) fdlf mesh2000: {r.mismatch}")
+    paths["fdlf_half_step"] = (counts.get("fdlf_half_step", 0),
+                               "solvers phase (b): fdlf bench_nr_2000, "
+                               "mesh2000 x 1 solve")
+    ms = median_ms(torch, solve, 10)
+    log(f"solvers (b) fdlf bench_nr_2000: mesh2000 x1, {int(r.iterations[0])}"
+        f" iterations, mismatch {float(r.mismatch[0]):.2e}: {ms:.2f} ms, "
+        f"{1e3 / ms:.1f} solves/s; launches {counts}; "
+        + busy_share(torch, solve, "(b) fdlf mesh2000") + took())
+    out["fdlf_2000_solves_per_sec"] = 1e3 / ms
+
+    # (c) bench_mc_1024 with make_fdlf_solver: mesh118 x 1024, fixed 16.
+    rng = np.random.default_rng(0)
+    scale = rng.uniform(0.7, 1.3, (1024, 1))
+    p, q = scale * sys_.p_inj[None], scale * sys_.q_inj[None]
+    _, fixed = make_fdlf_solver(sys_, max_iter=16, device=dev)
+    r, counts = launches_of(sol, lambda: fixed(p_inj=p, q_inj=q))
+    ms = median_ms(torch, lambda: fixed(p_inj=p, q_inj=q), 5)
+    log(f"solvers (c) fdlf bench_mc_1024: mesh118 x1024, solve_fixed "
+        f"max_iter=16: {ms:.2f} ms, {1024e3 / ms:.0f} lane solves/s, "
+        f"{int(r.converged.sum())}/1024 converged; launches {counts}; "
+        + busy_share(torch, lambda: fixed(p_inj=p, q_inj=q), "(c) fdlf mc")
+        + took())
+    out["fdlf_mc_1024_lane_solves_per_sec"] = 1024e3 / ms
+
+    # (d) FDLF N-1: mesh2000 x 16 chord outages, per-lane factors.
+    n2 = sys2k.n_bus
+    st16 = np.ones((16, sys2k.n_branch))
+    st16[np.arange(16), n2 + np.arange(16)] = 0.0
+    t0 = time.monotonic()
+    _, fixed = make_fdlf_solver(sys2k, max_iter=30, device=dev)
+    t1 = time.monotonic()
+    r, counts = launches_of(sol, lambda: fixed(status=st16))
+    sync(torch, dev)
+    first = f"build {t1 - t0:.1f} s, first solve {time.monotonic() - t1:.1f} s"
+    check(bool(r.converged.all()), f"(d) fdlf N-1: {r.mismatch}")
+    ms = median_ms(torch, lambda: fixed(status=st16), 3)
+    log(f"solvers (d) fdlf N-1: mesh2000 x16 chord outages, per-lane Ybus, "
+        f"B', B'' and LU, solve_fixed max_iter=30: {ms:.1f} ms, all "
+        f"converged (worst {float(r.mismatch.max()):.2e}); {first}; "
+        f"launches {counts}; " + busy_share(torch, lambda: fixed(status=st16),
+                                            "(d) fdlf N-1") + took())
+    out["fdlf_n1_2000x16_ms"] = ms
+
+    # (e) bench_nr_2k_krylov_lanes: mesh2000 x 256, fixed 8, inner 16.
+    rng = np.random.default_rng(0)
+    scale = rng.uniform(0.9, 1.1, (KRYLOV_LANES, 1))
+    p, q = scale * sys2k.p_inj[None], scale * sys2k.q_inj[None]
+    pc = build_fdlf_precond(sys2k, device=dev)
+    res = {}
+    for prec in ("mixed", "f64"):
+        _, fixed = make_krylov_solver(sys2k, max_iter=8, inner_iters=16,
+                                      precision=prec, precond=pc, device=dev)
+        r, counts = launches_of(sol, lambda: fixed(p_inj=p, q_inj=q))
+        check(bool(r.converged.all()),
+              f"(e) krylov {prec}: {int(r.converged.sum())} converged")
+        ms = median_ms(torch, lambda: fixed(p_inj=p, q_inj=q), 3)
+        res[prec] = r
+        if prec == "mixed":
+            paths["residual_jvp"] = (
+                counts.get("residual_jvp", 0), "solvers phase (e): krylov "
+                "mixed, mesh2000 x 256 solve_fixed max_iter=8 inner 16")
+        log(f"solvers (e) krylov {prec} bench_nr_2k_krylov_lanes: mesh2000 "
+            f"x{KRYLOV_LANES}, solve_fixed max_iter=8 inner 16: {ms:.1f} ms, "
+            f"{KRYLOV_LANES * 1e3 / ms:.0f} lane solves/s, all converged, "
+            f"fallbacks {int(r.fallbacks.sum())}; launches {counts}; "
+            + busy_share(torch, lambda: fixed(p_inj=p, q_inj=q),
+                         f"(e) krylov {prec}, 8 Newton steps", top=10)
+            + took())
+        out[f"krylov_lanes_{prec}_lane_solves_per_sec"] = (
+            KRYLOV_LANES * 1e3 / ms)
+    dv = max_err(res["mixed"].v, res["f64"].v)
+    check(torch.equal(res["mixed"].converged, res["f64"].converged)
+          and dv < MIXED_DV_BOUND, f"(e) mixed vs f64: {dv:.3e} pu")
+    log(f"solvers (e) mixed vs f64: equal flags, max |dv| {dv:.2e} pu "
+        f"(< {MIXED_DV_BOUND})")
+
+    # (f) bench_n1_2000bus_krylov: base solve, then 256 chord outages.
+    solve, _ = make_krylov_solver(sys2k, max_iter=8, inner_iters=16,
+                                  precond=pc, device=dev)
+    base = solve()
+    check(bool(base.converged.all()), "(f) krylov base solve")
+    _, screen = make_krylov_solver(sys2k, max_iter=3, inner_iters=16,
+                                   precond=pc, device=dev)
+    stk = np.ones((KRYLOV_LANES, sys2k.n_branch))
+    stk[np.arange(KRYLOV_LANES), n2 + np.arange(KRYLOV_LANES)] = 0.0
+    v0 = base.v.expand(KRYLOV_LANES, n2)
+    th0 = base.theta.expand(KRYLOV_LANES, n2)
+
+    def run_f():
+        return screen(status=stk, v0=v0, theta0=th0)
+
+    r, counts = launches_of(sol, run_f)
+    check(bool(r.converged.all()),
+          f"(f) krylov N-1: {int(r.converged.sum())} converged")
+    ms = median_ms(torch, run_f, 3)
+    log(f"solvers (f) bench_n1_2000bus_krylov: mesh2000 x{KRYLOV_LANES} "
+        f"chord outages warm-started, max_iter=3: {ms:.1f} ms, all "
+        f"converged; launches {counts}; "
+        + busy_share(torch, run_f, "(f) krylov N-1") + took())
+    out["krylov_n1_2000x256_ms"] = ms
+
+    # (g) bench_nr_10k_mesh: the north star.
+    t0 = time.monotonic()
+    sys10k = synthetic_mesh_bench(10_000, 0.3)
+    pre = build_fdlf_precond(sys10k, kind="auto", device=dev)
+    solve, _ = make_krylov_solver(sys10k, max_iter=15, inner_iters=16,
+                                  precond=pre, device=dev)
+    build_s = time.monotonic() - t0
+    r, counts = launches_of(sol, solve)
+    check(bool(r.converged.all()), f"(g) 10k mesh: {r.mismatch}")
+    ms = median_ms(torch, solve, 5)
+    its = int(r.iterations[0])
+    true = float(true_mismatch(sys10k, r)[0])
+    log(f"solvers (g) bench_nr_10k_mesh: mesh10000 (chord_frac 0.3), LU "
+        f"preconditioner ({pre.kind}), max_iter=15 inner 16, precision "
+        f"auto: {ms:.1f} ms a solve, {its} Newton iterations, "
+        f"{ms / its:.2f} ms an iteration (north star {NORTH_STAR_MS} ms an "
+        f"iteration) on {torch.cuda.get_device_name(0)}; host f64 true "
+        f"mismatch {true:.2e}; build {build_s:.1f} s; launches {counts}; "
+        + busy_share(torch, solve, "(g) 10k mesh solve", top=10) + took())
+    out.update(nr_10k_ms_per_solve=ms, nr_10k_ms_per_iteration=ms / its,
+               nr_10k_true_mismatch=true)
+    del pre, solve
+    torch.cuda.empty_cache()
+    log(f"solvers: phase 22 {time.monotonic() - t_phase:.1f} s")
+    return out, paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the three-phase CIM
+# ---------------------------------------------------------------------------
+
+#: KCL check of the CIM feeder's solves (kVA per load-node phase).
+CIM_KCL_KVA = 1e-6
+
+
+def cim_phase(torch, sol):
+    """vvc_9bus radial against L1's ladder fixed point; then the CIM
+    feeder (two closed ties) × ``CIM_LANES`` load scales: converged, KCL,
+    kernel path against the plain path, ms a solve."""
+    from freedm_tpu_torch.grid.cases import vvc_9bus
+    from freedm_tpu_torch.pf.cim import kcl_residual_kva, make_cim_solver
+    from freedm_tpu_torch.pf.ladder import make_ladder_solver
+
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    f = vvc_9bus()
+    lad, _ = make_ladder_solver(f, eps=1e-12, max_iter=200, device=dev)
+    solve, _ = make_cim_solver(f, max_iter=200, device=dev)
+    rl, (rc, counts) = lad(f.s_load), launches_of(sol, lambda: solve(
+        f.s_load))
+    gap = max(max_err(rl.v_node.re, rc.v_node.re),
+              max_err(rl.v_node.im, rc.v_node.im))
+    check(bool(rl.converged) and bool(rc.converged) and gap <= 1e-8,
+          f"cim: vvc_9bus radial {gap:.3e} pu from the ladder")
+    log(f"cim: vvc_9bus radial, {int(rc.iterations)} iterations, within "
+        f"{gap:.2e} pu of L1's ladder fixed point; launches {counts}")
+    f, ties = cim_feeder()
+    s = cim_loads(f, CIM_LANES)
+    solve, fixed = make_cim_solver(f, ties=ties, device=dev, max_iter=100)
+    solve_p, _ = make_cim_solver(f, ties=ties, device=dev, max_iter=100,
+                                 plain=True)
+    r, counts = launches_of(sol, lambda: solve(s))
+    rp = solve_p(s)
+    check(bool(r.converged.all()), f"cim: {int(r.converged.sum())} converged")
+    gap = max(max_err(r.v_node.re, rp.v_node.re),
+              max_err(r.v_node.im, rp.v_node.im))
+    check(gap <= SOLVE_ATOL and torch.equal(r.iterations, rp.iterations),
+          f"cim: kernel path {gap:.3e} pu from the plain path")
+    kcl = float(kcl_residual_kva(f, ties, r, s).max())
+    check(kcl < CIM_KCL_KVA, f"cim: KCL residual {kcl:.3e} kVA")
+    ms = median_ms(torch, lambda: solve(s), 5)
+    log(f"cim: synthetic_radial(1000) + {CIM_TIES} closed ties x "
+        f"{CIM_LANES} load scales (0.7-1.3, seed 0): all converged in "
+        f"{int(r.iterations.min())}-{int(r.iterations.max())} iterations, "
+        f"KCL residual <= {kcl:.2e} kVA, kernel path within {gap:.2e} pu of "
+        f"the plain path with equal iterations; {ms:.2f} ms a solve "
+        f"(median of 5); launches {counts}; "
+        + busy_share(torch, lambda: solve(s), "cim radial1000+ties")
+        + f" ({time.monotonic() - t0:.1f} s phase)")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4704,6 +5509,7 @@ def main() -> int:
     from freedm_tpu_torch.kernels import newton_kernels as nk
     from freedm_tpu_torch.kernels import qsts_kernels as qk
     from freedm_tpu_torch.kernels import screen_kernels as sck
+    from freedm_tpu_torch.kernels import solver_kernels as sol
     from freedm_tpu_torch.kernels import sparse_kernels as sk
     from freedm_tpu_torch.kernels import topo_kernels as tk
     from freedm_tpu_torch.pf import topo as tp
@@ -4719,10 +5525,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, build)
+        build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, sol, build)
         errs = dict.fromkeys([*nk.LAUNCHES, *sk.LAUNCHES, *ck.LAUNCHES,
                               *sck.LAUNCHES, *lk.LAUNCHES, *qk.LAUNCHES,
-                              *tk.LAUNCHES], 0.0)
+                              *tk.LAUNCHES, *sol.LAUNCHES], 0.0)
         compare_kernels(torch, nk, errs)
         rows, extra = time_kernels(torch, nk)
         solve_mesh2000(torch, nk)
@@ -4796,6 +5602,22 @@ def main() -> int:
                 "chunks of 4096")
             extra[name]["launches_serve_sync"] = sync_counts[name]
             extra[name]["launches_serve_job"] = job_counts[name]
+        t21 = time.monotonic()
+        f32_errs = compare_solver_kernels(torch, sol, nk, errs)
+        time_solver_kernels(torch, sol, nk, rows, extra)
+        log(f"solvers: phase 21 {time.monotonic() - t21:.1f} s")
+        bench, paths = solver_benches(torch, sol)
+        cim_counts = cim_phase(torch, sol)
+        paths["cim_iterate"] = (cim_counts.get("cim_iterate", 0),
+                                "cim phase: synthetic_radial(1000) + 2 ties "
+                                "x 64 solve")
+        for name, (count, path) in paths.items():
+            counts[name] = count
+            extra[name]["launches_path"] = path
+            if name + "_f32" in f32_errs:
+                extra[name]["max_abs_err_f32"] = f32_errs[name + "_f32"]
+        extra["fdlf_half_step"]["bench"] = bench
+        log(f"solvers: phases 21-23 {time.monotonic() - t21:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4835,6 +5657,14 @@ def main() -> int:
                            "freedm_tpu/pf/topo.py:182"),
         "topo_screen": ("cuda", source + "csrc/topo.cu",
                         "freedm_tpu/pf/topo.py:455"),
+        "ybus_stamp": ("cuda", source + "csrc/solvers.cu",
+                       "freedm_tpu/grid/bus.py:130"),
+        "fdlf_half_step": ("cuda", source + "csrc/solvers.cu",
+                           "freedm_tpu/pf/fdlf.py:167"),
+        "residual_jvp": ("cuda", source + "csrc/solvers.cu",
+                         "freedm_tpu/pf/krylov.py:594"),
+        "cim_iterate": ("cuda", source + "csrc/solvers.cu",
+                        "freedm_tpu/pf/cim.py:163"),
     }
     table = []
     for name, (route, src, replaces) in meta.items():

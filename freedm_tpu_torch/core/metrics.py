@@ -429,8 +429,16 @@ PF_ITERATIONS = REGISTRY.histogram(
 PF_RESIDUAL = REGISTRY.gauge(
     "pf_residual_pu", "Final masked power mismatch of the last recorded solve",
     labels=("solver",))
-PF_ITERATIONS.labels("newton")
-PF_RESIDUAL.labels("newton")
+PF_FALLBACKS = REGISTRY.counter(
+    "pf_precision_fallbacks_total",
+    "Newton iterations re-run at full precision after a mixed-precision "
+    "inner solve stalled a lane (--pf-precision mixed; summed over lanes "
+    "from already-materialized result tuples)",
+    labels=("solver",))
+for _solver in ("newton", "fdlf", "krylov"):
+    PF_ITERATIONS.labels(_solver)
+    PF_RESIDUAL.labels(_solver)
+    PF_FALLBACKS.labels(_solver)
 
 # -- query serving (freedm_tpu_torch.serve) --------------------------------
 SERVE_REQUESTS = REGISTRY.counter(
@@ -572,3 +580,28 @@ TOPO_REQUEUED = REGISTRY.counter(
     "topo_sweeps_requeued_total",
     "Topology sweeps auto-requeued after a worker crash (resumed from "
     "their last chunk checkpoint)")
+
+
+def observe_pf_result(solver: str, result) -> None:
+    """Record a solver result's iteration count and final residual.
+
+    ``result`` is a Newton/Krylov-style result tuple whose
+    ``iterations``/``mismatch`` fields the caller is already pulling to
+    the host (a convergence check, a bench report, a summary); this reads
+    them once more and adds no device work of its own.  Batched results
+    record every lane's iteration count and the worst lane's residual;
+    ``fallbacks``, where the result has them, add to
+    ``pf_precision_fallbacks_total``."""
+
+    def host(t):
+        if hasattr(t, "detach"):
+            t = t.detach().cpu().numpy()
+        return np.asarray(t)
+
+    PF_ITERATIONS.labels(solver).observe(np.ravel(host(result.iterations)))
+    PF_RESIDUAL.labels(solver).set(float(np.max(host(result.mismatch))))
+    fb = getattr(result, "fallbacks", None)
+    if fb is not None:
+        total = int(np.sum(host(fb)))
+        if total:
+            PF_FALLBACKS.labels(solver).inc(total)

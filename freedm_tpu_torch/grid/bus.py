@@ -7,8 +7,11 @@ float64**, in the reference's stamp order and with its exact (re, im)
 pair arithmetic, then moved to the requested device as a ``(re, im)``
 pair of real tensors: deterministic, no atomics, and bit-identical to
 the reference's eager ``ybus_dense`` on the same network.  The serve
-path builds it once per engine (branch ``status`` is ``None`` there); a
-per-lane ``status`` stamp on the card belongs to the N-1 slice.
+path builds it once per engine (branch ``status`` is ``None`` there).  A
+per-lane ``status`` (the dense backend's N-1 lanes) is stamped by
+:func:`ybus_lanes`: on the card by kernel Y1
+(:func:`~freedm_tpu_torch.kernels.solver_kernels.ybus_stamp`), one
+``[n, n]`` stamp per lane, in the same order.
 """
 
 from __future__ import annotations
@@ -188,3 +191,81 @@ def ybus_dense(sys: BusSystem, status=None, dtype: torch.dtype = torch.float64,
     y_re, y_im = ybus_pair(sys, status=status)
     return (torch.as_tensor(y_re, dtype=dtype, device=dev),
             torch.as_tensor(y_im, dtype=dtype, device=dev))
+
+
+def stamp_operands(sys: BusSystem, dtype: torch.dtype = torch.float64,
+                   device: DeviceLike = None):
+    """Y1's operands for ``sys`` on ``device`` (``cuda`` unless the CPU is
+    asked for): the incidence list of
+    :func:`~freedm_tpu_torch.pf.sparse.jacobian_pattern`, the branch ends,
+    the two-port admittances of every branch in service and 1/x (host
+    float64, then ``dtype``), the shunts and the masks."""
+    from freedm_tpu_torch.kernels.solver_kernels import StampOperands
+    from freedm_tpu_torch.pf.sparse import jacobian_pattern
+
+    dev = resolve_device(device)
+    pat = jacobian_pattern(sys)
+    yff, yft, ytf, ytt = branch_admittances(sys)
+    bt = np.asarray(sys.bus_type)
+
+    def vec(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev).to(dtype)
+
+    def idx(a, dt):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    return StampOperands(
+        inc_ptr=idx(pat.inc_ptr, torch.int32),
+        inc_code=idx(pat.inc_code, torch.int32),
+        inc_nbr=idx(pat.inc_nbr, torch.int32),
+        f=idx(pat.f, torch.int64), t=idx(pat.t, torch.int64),
+        br=vec(np.stack([yff[0], yff[1], yft[0], yft[1], ytf[0], ytf[1],
+                         ytt[0], ytt[1]])),
+        inv_x=vec(1.0 / np.asarray(sys.x, np.float64)),
+        g_sh=vec(sys.g_shunt), b_sh=vec(sys.b_shunt),
+        th_free=vec(bt != SLACK), v_free=vec(bt == PQ),
+    )
+
+
+def stamp_lanes(mode: int, sys: BusSystem, status,
+                dtype: torch.dtype = torch.float64, device: DeviceLike = None,
+                op=None, plain: bool = False):
+    """One Y1 stamp (``mode``: ``YBUS``, ``BPRIME`` or ``BDBL`` of
+    :mod:`~freedm_tpu_torch.kernels.solver_kernels`) for a branch
+    ``status`` (0/1 in-service factors, numpy or tensor): ``[n, n]`` for
+    a shared ``[m]`` status, stamped once, and ``[B, n, n]`` for ``[B,
+    m]``, one stamp a lane; ``YBUS`` gives the ``(re, im)`` pair.  ``op``
+    passes built :func:`stamp_operands`; ``plain=True`` runs Y1's plain
+    version on any device."""
+    from freedm_tpu_torch.kernels import solver_kernels as sol
+
+    dev = resolve_device(device)
+    if op is None:
+        op = stamp_operands(sys, dtype=dtype, device=dev)
+    st = torch.as_tensor(status, dtype=dtype, device=dev)
+    if st.shape[-1:] != (sys.n_branch,) or st.dim() not in (1, 2):
+        raise ValueError(f"status must be [{sys.n_branch}] or "
+                         f"[B, {sys.n_branch}], got {tuple(st.shape)}")
+    stamp = sol.ybus_stamp_plain if plain else sol.ybus_stamp
+    out = stamp(mode, op, st.reshape(-1, sys.n_branch).contiguous())
+    if st.dim() == 2:
+        return out
+    if isinstance(out, tuple):
+        return out[0][0], out[1][0]
+    return out[0]
+
+
+def ybus_lanes(sys: BusSystem, status=None,
+               dtype: torch.dtype = torch.float64, device: DeviceLike = None,
+               op=None, plain: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ybus for a branch ``status`` as a ``(y_re, y_im)`` pair: the host
+    stamp (:func:`ybus_dense`) without one, Y1's ``[n, n]`` for a shared
+    ``[m]`` status and ``[B, n, n]``, one stamp a lane, for ``[B, m]``
+    (:func:`stamp_lanes`)."""
+    from freedm_tpu_torch.kernels import solver_kernels as sol
+
+    if status is None:
+        return ybus_dense(sys, dtype=dtype, device=device)
+    return stamp_lanes(sol.YBUS, sys, status, dtype=dtype, device=device,
+                       op=op, plain=plain)

@@ -15,11 +15,15 @@ and topology-sweep paths and the serving cache.
   the QSTS agent step and streaming reductions — CUDA C++
   (``csrc/qsts.cu``);
 - T1 ``topo_radiality`` and T2 ``topo_screen``, the topology sweep's
-  connectivity check and rank-r SMW screen — CUDA C++ (``csrc/topo.cu``).
+  connectivity check and rank-r SMW screen — CUDA C++ (``csrc/topo.cu``);
+- Y1 ``ybus_stamp``, F1 ``fdlf_half_step``, J1 ``residual_jvp`` and I1
+  ``cim_iterate``, the per-lane Ybus stamp, the fast-decoupled
+  half-step, the residual JVP of the matrix-free solver and the
+  three-phase CIM iteration — CUDA C++ (``csrc/solvers.cu``).
 
 Each source is built by :mod:`.build` and bound with ctypes.
 :mod:`.newton_kernels`, :mod:`.sparse_kernels`, :mod:`.cache_kernels`,
-:mod:`.screen_kernels`, :mod:`.ladder_kernels`, :mod:`.qsts_kernels` and
-:mod:`.topo_kernels` hold the wrappers, their plain PyTorch versions and
-the launch counters.
+:mod:`.screen_kernels`, :mod:`.ladder_kernels`, :mod:`.qsts_kernels`,
+:mod:`.topo_kernels` and :mod:`.solver_kernels` hold the wrappers, their
+plain PyTorch versions and the launch counters.
 """

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` source is compiled by ``nvcc`` for Hopper
 with :mod:`ctypes` — seconds per build, where a source that includes
 PyTorch's headers takes minutes.  The library lands in ``_build/``
 beside this file (listed in ``.gitignore``) under a name that carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.
+hash of the source, the shared ``csrc/*.cuh`` headers it may include and
+the flags, so an edited source or header is rebuilt and a stale library
+is never loaded.
 
 Builds run at first use, never at import.  A process-wide lock keeps two
 executor threads from building at once; a file lock does the same for
@@ -65,8 +66,11 @@ def _flags(name: str):
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
+    """Where ``csrc/<name>.cu`` builds to (content-addressed: the source,
+    the shared ``csrc/*.cuh`` headers and the flags)."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += b"\0" + header.name.encode() + b"\0" + header.read_bytes()
     digest = hashlib.sha256(src + "\0".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -28,13 +28,14 @@
 // cos E = c_i c_j + s_i s_j, sin E = s_i c_j - c_i s_j on per-lane cos/sin
 // tables that a small pre-pass (`trig_kernel`) writes.
 //
-// K2 design: the product Y [n, n] x V [n, B] tiled like a GEMM.  A block
-// owns 16 rows x 16 lanes and walks j in tiles of 32, staging the Ybus and
-// V tiles in shared memory, so Ybus is read B/16 times and V n/16 times
-// (instead of B and n times with one block per (lane, row)).  Each thread
-// owns one (row, lane) and sums its j terms in order — deterministic, no
-// reduction across threads.  A pre-pass (`polar_kernel`) writes V's
-// real and imaginary parts.
+// K2 design: the product Y [n, n] x V [n, B] tiled like a GEMM
+// (row_product.cuh, shared with F1 and I1).  A block owns 16 rows x 16
+// lanes and walks j in tiles of 32, staging the Ybus and V tiles in shared
+// memory, so Ybus is read B/16 times and V n/16 times (instead of B and n
+// times with one block per (lane, row)).  Each thread owns one (row, lane)
+// and sums its j terms in order — deterministic, no reduction across
+// threads.  A pre-pass (`polar_kernel`) writes V's real and imaginary
+// parts.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 34 TFLOP/s fp64 outside the tensor
 // cores), for B lanes of an n-bus case in float64:
@@ -47,6 +48,14 @@
 //   K3 reads x, dx, f and the mask and writes x: bytes, 4 * 2n * 8 per
 //      lane, 8.2 MB at n = 2000, B = 64, about 2.5 us.
 // Simple and right first: no TMA/wgmma staging yet.
+//
+// Per-lane Ybus (the dense backend's branch status, stamped by Y1 in
+// solvers.cu): K1 and K2 take a lane stride for Ybus, 0 when every lane
+// shares one [n, n] matrix (the path above, unchanged) and n * n for a
+// [B, n, n] stack.  K1 reads lane b's rows at that offset; K2 cannot share
+// a Ybus tile between lanes there, so it runs `injection_lane_kernel`: a
+// warp per (lane, row) reading the row coalesced, summed by a fixed
+// xor-shuffle tree (row_product.cuh's warp form).  Both then read B n^2 Ybus values, the bound.
 //
 // K3 newton_update — replaces the per-lane select that XLA fuses out of the
 //   vmapped lax.while_loop in freedm_tpu/pf/newton.py:325-336:
@@ -71,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "row_product.cuh"
 
 namespace {
 
@@ -107,7 +118,7 @@ __global__ void __launch_bounds__(kThreads) assemble_kernel(
     const T* __restrict__ v_set,    // [n]
     T* __restrict__ f,              // [B, 2n]
     T* __restrict__ jac,            // [B, 2n, 2n]
-    int n) {
+    int n, int64_t y_stride) {      // Ybus lane stride: 0 or n * n
   const int lane = blockIdx.x;
   const int i = blockIdx.y;
   const int tid = threadIdx.x;
@@ -116,8 +127,8 @@ __global__ void __launch_bounds__(kThreads) assemble_kernel(
   const T* v = x + lane * m + n;
   const T* ctl = ct + base;
   const T* stl = st + base;
-  const T* grow = g + (int64_t)i * n;
-  const T* brow = bm + (int64_t)i * n;
+  const T* grow = g + lane * y_stride + (int64_t)i * n;
+  const T* brow = bm + lane * y_stride + (int64_t)i * n;
   const T cti = ctl[i], sti = stl[i], vi = v[i];
   const bool th_pinned = !(th_free[i] > T(0));
   const bool v_pinned = !(v_free[i] > T(0));
@@ -188,13 +199,36 @@ __global__ void polar_kernel(const T* __restrict__ x, T* __restrict__ vr,
   vm[k] = v * s;
 }
 
-constexpr int kRows = 16;   // K2 tile: rows of Ybus per block
-constexpr int kLanes = 16;  // K2 tile: lanes per block
-constexpr int kTileJ = 32;  // K2 tile: columns staged per step
-static_assert(kRows * kLanes == kThreads, "one thread per (row, lane)");
-static_assert(kRows == kLanes, "the Ybus and V tiles share one staging loop");
+using row_product::kLanes;
+using row_product::kRows;
+using row_product::kWarpsPerBlock;
+static_assert(row_product::kThreads == kThreads, "one block size");
 
-// K2: a (16 rows) x (16 lanes) block of I = Y V, then S = V conj(I).
+// S = V conj(I) at row i of lane `lane` and the masked mismatch there.
+template <typename T>
+__device__ __forceinline__ void injection_epilogue(
+    int64_t lane, int i, int n, T ire, T iim, const T* __restrict__ x,
+    const T* __restrict__ vr, const T* __restrict__ vm,
+    const T* __restrict__ p_sched, const T* __restrict__ q_sched,
+    const T* __restrict__ th_free, const T* __restrict__ v_free,
+    const T* __restrict__ v_set, T* __restrict__ f, T* __restrict__ p_out,
+    T* __restrict__ q_out) {
+  const int64_t base = lane * n;
+  const int64_t m = 2 * (int64_t)n;
+  const T vri = vr[base + i], vmi = vm[base + i];
+  const T P = vri * ire + vmi * iim;
+  const T Q = vmi * ire - vri * iim;
+  p_out[base + i] = P;
+  q_out[base + i] = Q;
+  const bool th_pinned = !(th_free[i] > T(0));
+  const bool v_pinned = !(v_free[i] > T(0));
+  f[lane * m + i] = th_pinned ? x[lane * m + i] : P - p_sched[base + i];
+  f[lane * m + n + i] =
+      v_pinned ? x[lane * m + n + i] - v_set[i] : Q - q_sched[base + i];
+}
+
+// K2: a (16 rows) x (16 lanes) block of I = Y V (row_product.cuh's tiled
+// form), then S = V conj(I).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) injection_kernel(
     const T* __restrict__ x,        // [B, 2n] = theta || v
@@ -211,58 +245,44 @@ __global__ void __launch_bounds__(kThreads) injection_kernel(
     T* __restrict__ p_out,          // [B, n]
     T* __restrict__ q_out,          // [B, n]
     int lanes, int n) {
-  // The +1 pads keep a warp's shared-memory reads on distinct banks.
-  __shared__ T gs[kRows][kTileJ + 1];
-  __shared__ T bs[kRows][kTileJ + 1];
-  __shared__ T vrs[kLanes][kTileJ + 1];
-  __shared__ T vms[kLanes][kTileJ + 1];
-  const int tid = threadIdx.x;
-  const int r = tid % kRows;  // rows fastest: the final writes coalesce
-  const int l = tid / kRows;
-  const int i0 = blockIdx.x * kRows;
-  const int b0 = blockIdx.y * kLanes;
-  const int i = i0 + r;
-  const int lane = b0 + l;
-
-  T ire = T(0), iim = T(0);
-  for (int j0 = 0; j0 < n; j0 += kTileJ) {
-    // 256 threads stage 16 x 32 of each tile, two elements each, with
-    // consecutive threads on consecutive columns.
-    for (int e = tid; e < kRows * kTileJ; e += kThreads) {
-      const int rr = e / kTileJ, jj = e % kTileJ;
-      const int gi = i0 + rr, gj = j0 + jj;
-      const bool ok = gi < n && gj < n;
-      gs[rr][jj] = ok ? g[(int64_t)gi * n + gj] : T(0);
-      bs[rr][jj] = ok ? bm[(int64_t)gi * n + gj] : T(0);
-      const int gb = b0 + rr;
-      const bool okv = gb < lanes && gj < n;
-      vrs[rr][jj] = okv ? vr[(int64_t)gb * n + gj] : T(0);
-      vms[rr][jj] = okv ? vm[(int64_t)gb * n + gj] : T(0);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int jj = 0; jj < kTileJ; ++jj) {
-      const T gij = gs[r][jj], bij = bs[r][jj];
-      const T a = vrs[l][jj], b = vms[l][jj];
-      ire += gij * a - bij * b;
-      iim += gij * b + bij * a;
-    }
-    __syncthreads();
-  }
+  T ire, iim;
+  row_product::tiled_product<T>(
+      g, bm, lanes, n,
+      [=](int b, int j, T& a, T& c) {
+        a = vr[(int64_t)b * n + j];
+        c = vm[(int64_t)b * n + j];
+      },
+      ire, iim);
+  const int i = blockIdx.x * kRows + threadIdx.x % kRows;
+  const int lane = blockIdx.y * kLanes + threadIdx.x / kRows;
   if (i >= n || lane >= lanes) return;
+  injection_epilogue<T>(lane, i, n, ire, iim, x, vr, vm, p_sched, q_sched,
+                        th_free, v_free, v_set, f, p_out, q_out);
+}
 
-  const int64_t base = (int64_t)lane * n;
-  const int64_t m = 2 * (int64_t)n;
-  const T vri = vr[base + i], vmi = vm[base + i];
-  const T P = vri * ire + vmi * iim;
-  const T Q = vmi * ire - vri * iim;
-  p_out[base + i] = P;
-  q_out[base + i] = Q;
-  const bool th_pinned = !(th_free[i] > T(0));
-  const bool v_pinned = !(v_free[i] > T(0));
-  f[lane * m + i] = th_pinned ? x[lane * m + i] : P - p_sched[base + i];
-  f[lane * m + n + i] =
-      v_pinned ? x[lane * m + n + i] - v_set[i] : Q - q_sched[base + i];
+// K2 with a per-lane Ybus [B, n, n] (the dense backend's branch status):
+// no tile of Ybus serves two lanes, so a warp owns a (lane, row)
+// (row_product.cuh's warp form).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) injection_lane_kernel(
+    const T* __restrict__ x, const T* __restrict__ vr,
+    const T* __restrict__ vm, const T* __restrict__ g,
+    const T* __restrict__ bm, const T* __restrict__ p_sched,
+    const T* __restrict__ q_sched, const T* __restrict__ th_free,
+    const T* __restrict__ v_free, const T* __restrict__ v_set,
+    T* __restrict__ f, T* __restrict__ p_out, T* __restrict__ q_out, int n) {
+  const int i = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  const int ln = threadIdx.x & 31;
+  const int64_t lane = blockIdx.y;
+  if (i >= n) return;  // whole warps
+  const int64_t base = lane * n;
+  T ire, iim;
+  row_product::warp_product<T>(g + (base + i) * (int64_t)n,
+                               bm + (base + i) * (int64_t)n, vr + base,
+                               vm + base, n, ln, ire, iim);
+  if (ln != 0) return;
+  injection_epilogue<T>(lane, i, n, ire, iim, x, vr, vm, p_sched, q_sched,
+                        th_free, v_free, v_set, f, p_out, q_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -407,7 +427,7 @@ template <typename T>
 int launch_assemble(const T* x, const T* g, const T* bm, const T* p_sched,
                     const T* q_sched, const T* th_free, const T* v_free,
                     const T* v_set, T* ct, T* st, T* f, T* jac, int lanes,
-                    int n, cudaStream_t stream) {
+                    int n, int64_t y_stride, cudaStream_t stream) {
   if (lanes <= 0 || n <= 0 || n > 65535) return (int)cudaErrorInvalidValue;
   const int64_t total = (int64_t)lanes * n;
   trig_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
@@ -415,7 +435,8 @@ int launch_assemble(const T* x, const T* g, const T* bm, const T* p_sched,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   assemble_kernel<T><<<dim3(lanes, n), kThreads, 0, stream>>>(
-      x, ct, st, g, bm, p_sched, q_sched, th_free, v_free, v_set, f, jac, n);
+      x, ct, st, g, bm, p_sched, q_sched, th_free, v_free, v_set, f, jac, n,
+      y_stride);
   return (int)cudaGetLastError();
 }
 
@@ -423,13 +444,22 @@ template <typename T>
 int launch_injections(const T* x, const T* g, const T* bm, const T* p_sched,
                       const T* q_sched, const T* th_free, const T* v_free,
                       const T* v_set, T* vr, T* vm, T* f, T* p_out, T* q_out,
-                      int lanes, int n, cudaStream_t stream) {
+                      int lanes, int n, int64_t y_stride,
+                      cudaStream_t stream) {
   if (lanes <= 0 || n <= 0 || n > 65535) return (int)cudaErrorInvalidValue;
   const int64_t total = (int64_t)lanes * n;
   polar_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
                     stream>>>(x, vr, vm, lanes, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (y_stride != 0) {
+    if (lanes > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, lanes);
+    injection_lane_kernel<T><<<grid, kThreads, 0, stream>>>(
+        x, vr, vm, g, bm, p_sched, q_sched, th_free, v_free, v_set, f, p_out,
+        q_out, n);
+    return (int)cudaGetLastError();
+  }
   const dim3 grid((n + kRows - 1) / kRows, (lanes + kLanes - 1) / kLanes);
   injection_kernel<T><<<grid, kThreads, 0, stream>>>(
       x, vr, vm, g, bm, p_sched, q_sched, th_free, v_free, v_set, f, p_out,
@@ -465,26 +495,29 @@ int launch_update(T* x, const T* dx, const T* f, const T* free, int* it,
 }  // namespace
 
 // Plain C interface for ctypes.  Every pointer is a device pointer to a
-// contiguous tensor; `stream` is the caller's CUDA stream.  ct/st (K1) and
+// contiguous tensor; `stream` is the caller's CUDA stream.  K1 and K2 read
+// lane b's Ybus at g + b * y_stride: 0 for one [n, n] Ybus of every lane,
+// n * n for a [B, n, n] stack.  ct/st (K1) and
 // vr/vm (K2) are [lanes, n] scratch; K3's `it` is int32, `active` one byte
 // a lane and `tol` one element.  Returns the cudaError_t of the launches.
 #define NEWTON_ENTRY_POINTS(T, SUFFIX)                                        \
   extern "C" int newton_assemble_##SUFFIX(                                   \
       const T* x, const T* g, const T* bm, const T* p_sched,                \
       const T* q_sched, const T* th_free, const T* v_free, const T* v_set,  \
-      T* ct, T* st, T* f, T* jac, int lanes, int n, void* stream) {         \
+      T* ct, T* st, T* f, T* jac, int lanes, int n, long long y_stride,     \
+      void* stream) {                                                       \
     return launch_assemble<T>(x, g, bm, p_sched, q_sched, th_free, v_free,  \
-                              v_set, ct, st, f, jac, lanes, n,              \
+                              v_set, ct, st, f, jac, lanes, n, y_stride,    \
                               (cudaStream_t)stream);                        \
   }                                                                         \
   extern "C" int power_injections_##SUFFIX(                                  \
       const T* x, const T* g, const T* bm, const T* p_sched,                \
       const T* q_sched, const T* th_free, const T* v_free, const T* v_set,  \
       T* vr, T* vm, T* f, T* p_out, T* q_out, int lanes, int n,             \
-      void* stream) {                                                       \
+      long long y_stride, void* stream) {                                   \
     return launch_injections<T>(x, g, bm, p_sched, q_sched, th_free,        \
                                 v_free, v_set, vr, vm, f, p_out, q_out,     \
-                                lanes, n, (cudaStream_t)stream);            \
+                                lanes, n, y_stride, (cudaStream_t)stream);  \
   }                                                                         \
   extern "C" int newton_update_##SUFFIX(                                     \
       T* x, const T* dx, const T* f, const T* free, int* it, T* err,        \

@@ -1,0 +1,563 @@
+// Power-flow solver kernels for Hopper (sm_90a): the per-lane Ybus stamp,
+// the fast-decoupled half-step, the residual JVP of the matrix-free Newton
+// solver and the three-phase current-injection iteration.
+//
+// Y1 ybus_stamp — replaces freedm_tpu/grid/bus.py:130-158 `ybus_dense(sys,
+//   status)` under vmap (a [B, n, n] stamp per outage lane), and the lane
+//   forms of freedm_tpu/pf/fdlf.py:70-90 `b_prime(status)` and
+//   `b_dblprime(y)`.  Modes:
+//     YBUS   (re, im) of Ybus, the shunts on the diagonal;
+//     BPRIME 1/x scaled by status, pinned rows/columns identity (th_free);
+//     BDBL   -Im Ybus, pinned by v_free.
+//   Design: one CTA per (row, lane).  Its threads zero the row with
+//   coalesced stores; then thread 0 walks the row's incidence list (the
+//   bus's from-end edges, then its to-end edges, each ascending) and is
+//   the one owner of every entry of the row, so parallel branches add in a
+//   fixed order — the reference's scatter order: the diagonal sums its
+//   from-end terms, then its to-end terms, then the shunt; an off-diagonal
+//   entry its yft terms, then its ytf terms.  Bound: the output bytes,
+//   B n^2 values per output (26.3 MB at mesh118 x 118 in YBUS, ~7.8 us).
+//
+// F1 fdlf_half_step — replaces the body of freedm_tpu/pf/fdlf.py:167-179
+//   `_step` around its two LU solves, with `_mismatch` (:128-132),
+//   `_err_from` (:134-138) and the lane select of `_solve_impl`'s vmapped
+//   while_loop (:186-205).  Modes:
+//     INIT   dp, dq at the start point;
+//     THETA  theta += d th_free on active lanes, then dq at the new theta;
+//     V      V += d v_free on active lanes, then dp (kept on active lanes),
+//            the lane's error max(|dp V|, |dq V|), it + 1 and
+//            active = it < max_iter and err >= tol (unless `fixed`).
+//   Three launches: a pre-pass applies the update and writes V's real and
+//   imaginary parts; the product I = Y V with its epilogue (the mismatch);
+//   in V mode a finish kernel, one warp a lane, reduces the per-row errors
+//   (a max: exact in any order, NaN kept) and updates it/err/active.  With
+//   a shared y [n, n] and at least kTiledMinLanes lanes the product is
+//   K2's tiled form (row_product.cuh: 16 rows x 16 lanes a block, tiles of
+//   32 columns in shared memory), so one read of a y tile serves 16 lanes
+//   and each thread sums its row in column order; with a per-lane y [B, n,
+//   n], or fewer lanes (a 16-lane tile would idle), K2's warp form: a warp
+//   owns a (lane, row), reads the row coalesced and reduces it with a
+//   fixed xor-shuffle tree.  The same product code gives F1 K2's bits.
+//   Bound at mesh2000 x 1: one read of y, 64 MB, ~19 us.
+//
+// J1 residual_jvp — replaces the `jax.linearize` JVP of the masked
+//   residual in freedm_tpu/pf/krylov.py:594-608 (and :643-687 in float32)
+//   over freedm_tpu/pf/mfree.py:34-65 `make_injection_fn`: J u for
+//   x, u [B, 2n].  Per branch end, with Vc = V e^{j theta}:
+//     dVc = (dV cos - V sin dtheta, dV sin + V cos dtheta),
+//     I = y_self Vc_i + y_mut Vc_j, dI = y_self dVc_i + y_mut dVc_j,
+//     dS = dVc_i conj(I) + Vc_i conj(dI);
+//   the shunts add 2 g V dV and -2 b V dV; pinned rows pass u through.
+//   Design: one thread per (lane, bus) walks its incidence list in CSR
+//   order and recomputes each branch's I and dI at its own end: no scratch,
+//   no atomics; from-end and to-end sums are kept apart and added last, as
+//   the reference's two segment sums are.  Bound: the bytes of x, u,
+//   status and the output (~24.6 MB at mesh2000 x 256 without status).
+//
+// I1 cim_iterate — replaces freedm_tpu/pf/cim.py:157-170 `_matvec` and
+//   `_iterate` with the loop's max |v_new - v| (:195-240): the injection
+//   conj(S/V) on live node-phases, the complex product with A = Y_LL^-1,
+//   v_base +, the phase mask, and it/active as in F1.  Design: a GEMM over
+//   the lanes in row_product.cuh's tiled form (16 rows x 16 lanes, 32
+//   columns a tile): the prologue computes the lanes' injections while it
+//   stages a tile, the epilogue writes v_new (a second buffer: other blocks still
+//   read v) and each row's |dv|; the finish kernel reduces a lane's rows.
+//   Bound: one read of A, 16 (3 nb)^2 bytes an iteration (144 MB, ~43 us
+//   at nb = 1000); this simple form reads A once per 16 lanes.
+//
+// Every sum runs in a fixed order and no kernel uses a float atomic, so
+// each is bit-identical on repeat.  Simple and right first.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "row_product.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ void sincos_(double x, double* s, double* c) { sincos(x, s, c); }
+__device__ __forceinline__ void sincos_(float x, float* s, float* c) { sincosf(x, s, c); }
+
+template <typename T>
+__device__ __forceinline__ T nan_() { return T(NAN); }
+
+// ---------------------------------------------------------------------------
+// Y1
+// ---------------------------------------------------------------------------
+
+constexpr int YBUS = 0, BPRIME = 1, BDBL = 2;
+constexpr int kStampThreads = 128;
+
+// Rows of the branch table `br` [8, m] (YBUS, BDBL): the two-port
+// admittances yff, yft, ytf, ytt as (re, im).  BPRIME reads 1/x [m].
+template <typename T>
+__global__ void __launch_bounds__(kStampThreads) stamp_kernel(
+    int mode, const int* __restrict__ inc_ptr, const int* __restrict__ inc_code,
+    const int* __restrict__ inc_nbr, const T* __restrict__ br,
+    const T* __restrict__ status,  // [lanes, m]
+    const T* __restrict__ g_sh, const T* __restrict__ b_sh,
+    const T* __restrict__ keep,  // [n] th_free (BPRIME) or v_free (BDBL)
+    T* __restrict__ out_a, T* __restrict__ out_b, int n, int m) {
+  const int i = blockIdx.x;
+  const int64_t lane = blockIdx.y;
+  const int64_t row = (lane * n + i) * (int64_t)n;
+  T* ra = out_a + row;
+  T* rb = mode == YBUS ? out_b + row : nullptr;
+  for (int j = threadIdx.x; j < n; j += kStampThreads) {
+    ra[j] = T(0);
+    if (rb != nullptr) rb[j] = T(0);
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  if (mode != YBUS && !(keep[i] > T(0))) {  // a pinned row: identity
+    ra[i] = T(1);
+    return;
+  }
+  const T* st = status + lane * m;
+  T d_re = T(0), d_im = T(0);
+  const int r1 = inc_ptr[i + 1];
+  for (int r = inc_ptr[i]; r < r1; ++r) {
+    const int code = inc_code[r];
+    const int e = code >> 1, side = code & 1, j = inc_nbr[r];
+    const T on = st[e];
+    if (mode == BPRIME) {
+      const T w = br[e] * on;
+      d_re += w;
+      if (keep[j] > T(0)) ra[j] += -w;
+      continue;
+    }
+    // Self term: yff at the from end, ytt at the to end; mutual term: yft
+    // at the from end (column t), ytf at the to end (column f).
+    const int64_t s_row = side ? 6 : 0, m_row = side ? 4 : 2;
+    const T s_im = br[(s_row + 1) * m + e] * on;
+    const T m_im = br[(m_row + 1) * m + e] * on;
+    d_im += s_im;
+    if (mode == YBUS) {
+      d_re += br[s_row * m + e] * on;
+      ra[j] += br[m_row * m + e] * on;
+      rb[j] += m_im;
+    } else if (keep[j] > T(0)) {
+      ra[j] += -m_im;  // -(a + b) == (-a) + (-b) exactly
+    }
+  }
+  if (mode == YBUS) {
+    ra[i] = d_re + g_sh[i];
+    rb[i] = d_im + b_sh[i];
+  } else if (mode == BPRIME) {
+    ra[i] = d_re + T(0);
+  } else {
+    ra[i] = -(d_im + b_sh[i]) + T(0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The lane finish shared by F1 (V mode) and I1
+// ---------------------------------------------------------------------------
+
+constexpr int kFinishLanes = 4;  // one warp a lane, four lanes a block
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kFinishLanes) finish_kernel(
+    const T* __restrict__ rowerr, int rows, T* __restrict__ err,
+    int* __restrict__ it, unsigned char* __restrict__ active,
+    const T* __restrict__ tol, int max_iter, int fixed, int lanes) {
+  const int64_t lane = (int64_t)blockIdx.x * kFinishLanes + threadIdx.x / 32;
+  const int ln = threadIdx.x & 31;
+  if (lane >= lanes) return;  // whole warps
+  T worst = T(0);
+  bool nan = false;
+  const T* r = rowerr + lane * rows;
+  for (int k = ln; k < rows; k += 32) {
+    const T e = r[k];
+    if (e != e) nan = true;
+    else if (e > worst) worst = e;
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    worst = fmax(worst, __shfl_xor_sync(0xffffffffu, worst, off));
+  nan = __any_sync(0xffffffffu, nan);
+  if (ln != 0) return;
+  int i = it[lane];
+  T e = err[lane];
+  if (active[lane]) {
+    i += 1;
+    e = nan ? nan_<T>() : worst;
+  }
+  it[lane] = i;
+  err[lane] = e;
+  if (!fixed) active[lane] = (i < max_iter && e >= tol[0]) ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// F1
+// ---------------------------------------------------------------------------
+
+constexpr int INIT = 0, THETA = 1, VHALF = 2;
+
+// The update of the half (THETA: theta, V: V) on active lanes, then
+// vr/vm = V cos theta, V sin theta.  d[b, j] is d[b * d_bs + j * d_js]:
+// the LU solve's answer is read through its own strides.
+template <typename T>
+__global__ void fdlf_prepass_kernel(int mode, T* __restrict__ x,
+                                    const T* __restrict__ d, int64_t d_bs,
+                                    int64_t d_js, const T* __restrict__ th_free,
+                                    const T* __restrict__ v_free,
+                                    const unsigned char* __restrict__ active,
+                                    T* __restrict__ vr, T* __restrict__ vm,
+                                    int lanes, int n) {
+  const int64_t k = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (k >= (int64_t)lanes * n) return;
+  const int64_t b = k / n, j = k - b * n;
+  T* xr = x + b * 2 * n;
+  T th = xr[j], v = xr[n + j];
+  if (mode != INIT && active[b]) {
+    const T dd = d[b * d_bs + j * d_js];
+    if (mode == THETA) {
+      th = th + dd * th_free[j];
+      xr[j] = th;
+    } else {
+      v = v + dd * v_free[j];
+      xr[n + j] = v;
+    }
+  }
+  T s, c;
+  sincos_(th, &s, &c);
+  vr[k] = v * c;
+  vm[k] = v * s;
+}
+
+// The mismatch of row i of lane b from its current injection I = ire + j iim.
+template <typename T>
+__device__ __forceinline__ void fdlf_epilogue(
+    int mode, int64_t b, int i, int n, T ire, T iim, const T* __restrict__ x,
+    const T* __restrict__ vr, const T* __restrict__ vm,
+    const T* __restrict__ ps, const T* __restrict__ qs,
+    const T* __restrict__ th_free, const T* __restrict__ v_free,
+    const unsigned char* __restrict__ active, T* __restrict__ dp,
+    T* __restrict__ dq, T* __restrict__ rowerr) {
+  const int64_t k = b * n + i;
+  const T vri = vr[k], vmi = vm[k];
+  const T P = vri * ire + vmi * iim;
+  const T Q = vmi * ire - vri * iim;
+  const T v = x[b * 2 * n + n + i];
+  const T dpi = (ps[k] - P) / v * th_free[i];
+  const T dqi = (qs[k] - Q) / v * v_free[i];
+  if (mode == INIT) {
+    dp[k] = dpi;
+    dq[k] = dqi;
+  } else if (mode == THETA) {
+    dq[k] = dqi;
+  } else {
+    if (active[b]) dp[k] = dpi;
+    const T ep = fabs(dpi * v), eq = fabs(dqi * v);
+    rowerr[k] = (ep != ep || eq != eq) ? nan_<T>() : (ep > eq ? ep : eq);
+  }
+}
+
+using row_product::kLanes;
+using row_product::kRows;
+using row_product::kWarpsPerBlock;
+static_assert(row_product::kThreads == kThreads, "one block size");
+constexpr int kTiledMinLanes = 4;  // a shared y below this: the warp form
+
+// Shared y: a (16 rows) x (16 lanes) block of I = Y V (row_product.cuh's
+// tiled form, K2's), then the epilogue.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) fdlf_tiled_kernel(
+    int mode, const T* __restrict__ x, const T* __restrict__ vr,
+    const T* __restrict__ vm, const T* __restrict__ g,
+    const T* __restrict__ bm, const T* __restrict__ ps,
+    const T* __restrict__ qs, const T* __restrict__ th_free,
+    const T* __restrict__ v_free, const unsigned char* __restrict__ active,
+    T* __restrict__ dp, T* __restrict__ dq, T* __restrict__ rowerr, int lanes,
+    int n) {
+  T ire, iim;
+  row_product::tiled_product<T>(
+      g, bm, lanes, n,
+      [=](int b, int j, T& a, T& c) {
+        a = vr[(int64_t)b * n + j];
+        c = vm[(int64_t)b * n + j];
+      },
+      ire, iim);
+  const int i = blockIdx.x * kRows + threadIdx.x % kRows;
+  const int b = blockIdx.y * kLanes + threadIdx.x / kRows;
+  if (i >= n || b >= lanes) return;
+  fdlf_epilogue<T>(mode, b, i, n, ire, iim, x, vr, vm, ps, qs, th_free,
+                   v_free, active, dp, dq, rowerr);
+}
+
+// A warp per (lane, row) (row_product.cuh's warp form, K2's per-lane one);
+// lane b's y at g + b * y_stride (0: one y of every lane).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) fdlf_lane_kernel(
+    int mode, const T* __restrict__ x, const T* __restrict__ vr,
+    const T* __restrict__ vm, const T* __restrict__ g,
+    const T* __restrict__ bm, int64_t y_stride, const T* __restrict__ ps,
+    const T* __restrict__ qs, const T* __restrict__ th_free,
+    const T* __restrict__ v_free, const unsigned char* __restrict__ active,
+    T* __restrict__ dp, T* __restrict__ dq, T* __restrict__ rowerr, int n) {
+  const int i = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  const int ln = threadIdx.x & 31;
+  const int64_t b = blockIdx.y;
+  if (i >= n) return;  // whole warps
+  T ire, iim;
+  row_product::warp_product<T>(g + b * y_stride + (int64_t)i * n,
+                               bm + b * y_stride + (int64_t)i * n, vr + b * n,
+                               vm + b * n, n, ln, ire, iim);
+  if (ln != 0) return;
+  fdlf_epilogue<T>(mode, b, i, n, ire, iim, x, vr, vm, ps, qs, th_free,
+                   v_free, active, dp, dq, rowerr);
+}
+
+// ---------------------------------------------------------------------------
+// J1
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) jvp_kernel(
+    const T* __restrict__ x, const T* __restrict__ u,
+    const int* __restrict__ inc_ptr, const int* __restrict__ inc_code,
+    const int* __restrict__ inc_nbr, const T* __restrict__ inc_g,
+    const T* __restrict__ inc_b, const T* __restrict__ inc_gs,
+    const T* __restrict__ inc_bs, const T* __restrict__ g_sh,
+    const T* __restrict__ b_sh, const T* __restrict__ th_free,
+    const T* __restrict__ v_free, const T* __restrict__ status,
+    T* __restrict__ out, int lanes, int n, int m) {
+  const int64_t k = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (k >= (int64_t)lanes * n) return;
+  const int64_t b = k / n;
+  const int i = (int)(k - b * n);
+  const T* xb = x + b * 2 * n;
+  const T* ub = u + b * 2 * n;
+  const T* st = status != nullptr ? status + b * m : nullptr;
+  const T th = xb[i], v = xb[n + i], dth = ub[i], dv = ub[n + i];
+  T s, c;
+  sincos_(th, &s, &c);
+  const T vcr = v * c, vci = v * s;
+  const T dvr = dv * c - vci * dth, dvi = dv * s + vcr * dth;
+  T acc_re[2] = {T(0), T(0)}, acc_im[2] = {T(0), T(0)};
+  const int r1 = inc_ptr[i + 1];
+  for (int r = inc_ptr[i]; r < r1; ++r) {
+    const int code = inc_code[r];
+    const int side = code & 1, j = inc_nbr[r];
+    const T on = st != nullptr ? st[code >> 1] : T(1);
+    const T ysr = inc_gs[r] * on, ysi = inc_bs[r] * on;
+    const T ymr = inc_g[r] * on, ymi = inc_b[r] * on;
+    const T thj = xb[j], vj = xb[n + j], dthj = ub[j], dvj = ub[n + j];
+    T sj, cj;
+    sincos_(thj, &sj, &cj);
+    const T wr = vj * cj, wi = vj * sj;
+    const T dwr = dvj * cj - wi * dthj, dwi = dvj * sj + wr * dthj;
+    const T ir = (ysr * vcr - ysi * vci) + (ymr * wr - ymi * wi);
+    const T ii = (ysr * vci + ysi * vcr) + (ymr * wi + ymi * wr);
+    const T dir = (ysr * dvr - ysi * dvi) + (ymr * dwr - ymi * dwi);
+    const T dii = (ysr * dvi + ysi * dvr) + (ymr * dwi + ymi * dwr);
+    acc_re[side] += (dvr * ir + dvi * ii) + (vcr * dir + vci * dii);
+    acc_im[side] += (dvi * ir - dvr * ii) + (vci * dir - vcr * dii);
+  }
+  const T vdv = T(2) * v * dv;
+  const T dP = (acc_re[0] + acc_re[1]) + g_sh[i] * vdv;
+  const T dQ = (acc_im[0] + acc_im[1]) - b_sh[i] * vdv;
+  T* ob = out + b * 2 * n;
+  ob[i] = th_free[i] > T(0) ? dP : dth;
+  ob[n + i] = v_free[i] > T(0) ? dQ : dv;
+}
+
+// ---------------------------------------------------------------------------
+// I1
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) cim_kernel(
+    const T* __restrict__ a_re, const T* __restrict__ a_im,
+    const T* __restrict__ v_re, const T* __restrict__ v_im,
+    const T* __restrict__ s_re, const T* __restrict__ s_im,
+    const T* __restrict__ vb_re, const T* __restrict__ vb_im,
+    const T* __restrict__ mask, const unsigned char* __restrict__ active,
+    T* __restrict__ o_re, T* __restrict__ o_im, T* __restrict__ rowerr,
+    int lanes, int N) {
+  T dre, dim;
+  row_product::tiled_product<T>(
+      a_re, a_im, lanes, N,
+      // The prologue: lane b's injection conj(S / V) at node-phase j, zero
+      // where V is 0 (a dead phase).
+      [=](int b, int j, T& jr, T& ji) {
+        const int64_t q = (int64_t)b * N + j;
+        const T vr = v_re[q], vi = v_im[q];
+        if (vr * vr + vi * vi > T(0)) {
+          const T sr = s_re[q], si = s_im[q];
+          const T d = vr * vr + vi * vi;
+          jr = (sr * vr + si * vi) / d;
+          ji = -((si * vr - sr * vi) / d);
+        }
+      },
+      dre, dim);
+  const int i = blockIdx.x * kRows + threadIdx.x % kRows;
+  const int b = blockIdx.y * kLanes + threadIdx.x / kRows;
+  if (i >= N || b >= lanes) return;
+  const int64_t k = (int64_t)b * N + i;
+  const T vr = v_re[k], vi = v_im[k];
+  if (!active[b]) {
+    o_re[k] = vr;
+    o_im[k] = vi;
+    rowerr[k] = T(0);
+    return;
+  }
+  const T nr = (vb_re[k] + dre) * mask[i];
+  const T ni = (vb_im[k] + dim) * mask[i];
+  o_re[k] = nr;
+  o_im[k] = ni;
+  const T er = nr - vr, ei = ni - vi;
+  rowerr[k] = sqrt(er * er + ei * ei);
+}
+
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
+
+template <typename T>
+int launch_stamp(int mode, const int* inc_ptr, const int* inc_code,
+                 const int* inc_nbr, const T* br, const T* status,
+                 const T* g_sh, const T* b_sh, const T* keep, T* out_a,
+                 T* out_b, int lanes, int n, int m, cudaStream_t stream) {
+  if (lanes <= 0 || lanes > 65535 || n <= 0 || m < 0 || status == nullptr ||
+      (mode != YBUS && mode != BPRIME && mode != BDBL) ||
+      (mode == YBUS && out_b == nullptr) || (mode != YBUS && keep == nullptr))
+    return (int)cudaErrorInvalidValue;
+  stamp_kernel<T><<<dim3(n, lanes), kStampThreads, 0, stream>>>(
+      mode, inc_ptr, inc_code, inc_nbr, br, status, g_sh, b_sh, keep, out_a,
+      out_b, n, m);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_finish(const T* rowerr, int rows, T* err, int* it,
+                  unsigned char* active, const T* tol, int max_iter, int fixed,
+                  int lanes, cudaStream_t stream) {
+  finish_kernel<T><<<(lanes + kFinishLanes - 1) / kFinishLanes,
+                      32 * kFinishLanes, 0, stream>>>(
+      rowerr, rows, err, it, active, tol, max_iter, fixed, lanes);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fdlf(int mode, T* x, const T* d, int64_t d_bs, int64_t d_js,
+                const T* g, const T* bm, int lane_y, const T* ps, const T* qs,
+                const T* th_free, const T* v_free, T* dp, T* dq, T* vr, T* vm,
+                T* rowerr, T* err, int* it, unsigned char* active,
+                const T* tol, int max_iter, int fixed, int lanes, int n,
+                cudaStream_t stream) {
+  if (lanes <= 0 || lanes > 65535 || n <= 0 ||
+      (mode != INIT && mode != THETA && mode != VHALF) ||
+      (mode != INIT && d == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int64_t total = (int64_t)lanes * n;
+  fdlf_prepass_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads),
+                           kThreads, 0, stream>>>(
+      mode, x, d, d_bs, d_js, th_free, v_free, active, vr, vm, lanes, n);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (lane_y || lanes < kTiledMinLanes) {
+    const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, lanes);
+    fdlf_lane_kernel<T><<<grid, kThreads, 0, stream>>>(
+        mode, x, vr, vm, g, bm, lane_y ? (int64_t)n * n : 0, ps, qs, th_free,
+        v_free, active, dp, dq, rowerr, n);
+  } else {
+    const dim3 grid((n + kRows - 1) / kRows, (lanes + kLanes - 1) / kLanes);
+    fdlf_tiled_kernel<T><<<grid, kThreads, 0, stream>>>(
+        mode, x, vr, vm, g, bm, ps, qs, th_free, v_free, active, dp, dq,
+        rowerr, lanes, n);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess || mode != VHALF) return (int)e;
+  return launch_finish<T>(rowerr, n, err, it, active, tol, max_iter, fixed,
+                          lanes, stream);
+}
+
+template <typename T>
+int launch_jvp(const T* x, const T* u, const int* inc_ptr,
+               const int* inc_code, const int* inc_nbr, const T* inc_g,
+               const T* inc_b, const T* inc_gs, const T* inc_bs,
+               const T* g_sh, const T* b_sh, const T* th_free,
+               const T* v_free, const T* status, T* out, int lanes, int n,
+               int m, cudaStream_t stream) {
+  if (lanes <= 0 || n <= 0 || m < 0) return (int)cudaErrorInvalidValue;
+  const int64_t total = (int64_t)lanes * n;
+  jvp_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
+                  stream>>>(x, u, inc_ptr, inc_code, inc_nbr, inc_g, inc_b,
+                            inc_gs, inc_bs, g_sh, b_sh, th_free, v_free,
+                            status, out, lanes, n, m);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cim(const T* a_re, const T* a_im, const T* v_re, const T* v_im,
+               const T* s_re, const T* s_im, const T* vb_re, const T* vb_im,
+               const T* mask, T* o_re, T* o_im, T* rowerr, T* err, int* it,
+               unsigned char* active, const T* tol, int max_iter, int fixed,
+               int lanes, int N, cudaStream_t stream) {
+  if (lanes <= 0 || lanes > 65535 * kLanes || N <= 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kRows - 1) / kRows, (lanes + kLanes - 1) / kLanes);
+  cim_kernel<T><<<grid, kThreads, 0, stream>>>(
+      a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im, mask, active, o_re,
+      o_im, rowerr, lanes, N);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_finish<T>(rowerr, N, err, it, active, tol, max_iter, fixed,
+                          lanes, stream);
+}
+
+}  // namespace
+
+// Plain C interface for ctypes.  Every pointer is a device pointer to a
+// contiguous tensor unless a stride says otherwise (F1's `d`); `stream` is
+// the caller's CUDA stream.  `it` is int32, `active` one byte a lane, `tol`
+// one element.  J1's null `status` means every branch in service.  Returns
+// the cudaError_t of the launches.
+#define SOLVER_ENTRY_POINTS(T, SUFFIX)                                         \
+  extern "C" int ybus_stamp_##SUFFIX(                                         \
+      int mode, const int* inc_ptr, const int* inc_code, const int* inc_nbr,  \
+      const T* br, const T* status, const T* g_sh, const T* b_sh,            \
+      const T* keep, T* out_a, T* out_b, int lanes, int n, int m,            \
+      void* stream) {                                                        \
+    return launch_stamp<T>(mode, inc_ptr, inc_code, inc_nbr, br, status,     \
+                           g_sh, b_sh, keep, out_a, out_b, lanes, n, m,      \
+                           (cudaStream_t)stream);                            \
+  }                                                                          \
+  extern "C" int fdlf_half_step_##SUFFIX(                                     \
+      int mode, T* x, const T* d, long long d_bs, long long d_js, const T* g, \
+      const T* bm, int lane_y, const T* ps, const T* qs, const T* th_free,    \
+      const T* v_free, T* dp, T* dq, T* vr, T* vm, T* rowerr, T* err,         \
+      int* it, unsigned char* active, const T* tol, int max_iter, int fixed,  \
+      int lanes, int n, void* stream) {                                      \
+    return launch_fdlf<T>(mode, x, d, d_bs, d_js, g, bm, lane_y, ps, qs,     \
+                          th_free, v_free, dp, dq, vr, vm, rowerr, err, it,  \
+                          active, tol, max_iter, fixed, lanes, n,            \
+                          (cudaStream_t)stream);                             \
+  }                                                                          \
+  extern "C" int residual_jvp_##SUFFIX(                                       \
+      const T* x, const T* u, const int* inc_ptr, const int* inc_code,        \
+      const int* inc_nbr, const T* inc_g, const T* inc_b, const T* inc_gs,    \
+      const T* inc_bs, const T* g_sh, const T* b_sh, const T* th_free,        \
+      const T* v_free, const T* status, T* out, int lanes, int n, int m,      \
+      void* stream) {                                                        \
+    return launch_jvp<T>(x, u, inc_ptr, inc_code, inc_nbr, inc_g, inc_b,     \
+                         inc_gs, inc_bs, g_sh, b_sh, th_free, v_free, status, \
+                         out, lanes, n, m, (cudaStream_t)stream);            \
+  }                                                                          \
+  extern "C" int cim_iterate_##SUFFIX(                                        \
+      const T* a_re, const T* a_im, const T* v_re, const T* v_im,             \
+      const T* s_re, const T* s_im, const T* vb_re, const T* vb_im,           \
+      const T* mask, T* o_re, T* o_im, T* rowerr, T* err, int* it,            \
+      unsigned char* active, const T* tol, int max_iter, int fixed,           \
+      int lanes, int N, void* stream) {                                      \
+    return launch_cim<T>(a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im,   \
+                         mask, o_re, o_im, rowerr, err, it, active, tol,     \
+                         max_iter, fixed, lanes, N, (cudaStream_t)stream);   \
+  }
+
+SOLVER_ENTRY_POINTS(double, f64)
+SOLVER_ENTRY_POINTS(float, f32)

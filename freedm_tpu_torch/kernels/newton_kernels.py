@@ -20,8 +20,10 @@ show that the main path went through the kernels.
 
 Layout: the Newton state ``x`` is ``[B, 2n]`` = θ ‖ V per lane (the
 reference's ``x``); Ybus is a ``(re, im)`` pair of ``[n, n]`` tensors
-shared by every lane; the masks ``th_free``, ``v_free`` (1 where the
-quantity is unknown), ``v_set`` are ``[n]`` and ``free`` is ``[2n]``.
+shared by every lane (lane stride 0), or of ``[B, n, n]`` tensors, one
+per lane (the dense backend's branch ``status``); the masks ``th_free``,
+``v_free`` (1 where the quantity is unknown), ``v_set`` are ``[n]`` and
+``free`` is ``[2n]``.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ def launches() -> Dict[str, int]:
 def _c_a(x: Tensor, y_re: Tensor, y_im: Tensor):
     """The reference's shared intermediates, ``[B, n, n]`` each:
     C = V_iV_j(G cos E + B sin E), A = V_iV_j(G sin E − B cos E)."""
-    n = y_re.shape[0]
+    n = y_re.shape[-1]
     theta, v = x[:, :n], x[:, n:]
     ct, st = torch.cos(theta), torch.sin(theta)
     cos_e = ct[:, :, None] * ct[:, None, :] + st[:, :, None] * st[:, None, :]
@@ -92,7 +94,7 @@ def _mismatch(x, p, q, p_sched, q_sched, th_free, v_free, v_set):
 def newton_assemble_plain(x, y_re, y_im, p_sched, q_sched, th_free, v_free,
                           v_set) -> Tuple[Tensor, Tensor]:
     """K1's plain version: ``(jac [B, 2n, 2n], f [B, 2n])``."""
-    n = y_re.shape[0]
+    n = y_re.shape[-1]
     lanes = x.shape[0]
     c, a = _c_a(x, y_re, y_im)
     p, q = c.sum(dim=2), a.sum(dim=2)
@@ -114,16 +116,27 @@ def newton_assemble_plain(x, y_re, y_im, p_sched, q_sched, th_free, v_free,
     return jac, f
 
 
+def injections_plain(vr: Tensor, vm: Tensor, y_re: Tensor, y_im: Tensor):
+    """``(P, Q)`` of S = V conj(Y V) for ``[B, n]`` voltages (rectangular
+    ``vr``, ``vm``) and a shared ``[n, n]`` or per-lane ``[B, n, n]``
+    Ybus."""
+    if y_re.dim() == 2:
+        i_re = vr @ y_re.T - vm @ y_im.T
+        i_im = vm @ y_re.T + vr @ y_im.T
+    else:
+        i_re = (y_re @ vr[:, :, None] - y_im @ vm[:, :, None])[:, :, 0]
+        i_im = (y_re @ vm[:, :, None] + y_im @ vr[:, :, None])[:, :, 0]
+    return vr * i_re + vm * i_im, vm * i_re - vr * i_im
+
+
 def power_injections_plain(x, y_re, y_im, p_sched, q_sched, th_free, v_free,
                            v_set) -> Tuple[Tensor, Tensor, Tensor]:
     """K2's plain version: ``(p [B, n], q [B, n], f [B, 2n])``, in the
     reference ``s_calc``'s current-injection form S = V conj(Y V)."""
-    n = y_re.shape[0]
+    n = y_re.shape[-1]
     theta, v = x[:, :n], x[:, n:]
-    vr, vm = v * torch.cos(theta), v * torch.sin(theta)
-    i_re = vr @ y_re.T - vm @ y_im.T
-    i_im = vm @ y_re.T + vr @ y_im.T
-    p, q = vr * i_re + vm * i_im, vm * i_re - vr * i_im
+    p, q = injections_plain(v * torch.cos(theta), v * torch.sin(theta), y_re,
+                            y_im)
     f = _mismatch(x, p, q, p_sched, q_sched, th_free, v_free, v_set)
     return p, q, f
 
@@ -144,6 +157,7 @@ def newton_update_plain(x, dx, f, free, it, err, active, max_iter: int,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _lib_lock = threading.Lock()
 _lib = None
 
@@ -155,10 +169,10 @@ def _newton_lib() -> ctypes.CDLL:
             lib = build.load("newton")
             for suffix in ("f64", "f32"):
                 fn = getattr(lib, f"newton_assemble_{suffix}")
-                fn.argtypes = [_P] * 12 + [_I, _I, _P]
+                fn.argtypes = [_P] * 12 + [_I, _I, _L, _P]
                 fn.restype = _I
                 fn = getattr(lib, f"power_injections_{suffix}")
-                fn.argtypes = [_P] * 13 + [_I, _I, _P]
+                fn.argtypes = [_P] * 13 + [_I, _I, _L, _P]
                 fn.restype = _I
                 fn = getattr(lib, f"newton_update_{suffix}")
                 fn.argtypes = [_P] * 8 + [_I] * 3 + [_P]
@@ -172,14 +186,16 @@ _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 def _check(x: Tensor, y_re: Tensor, y_im: Tensor, vecs: Dict[str, Tensor],
            masks: Dict[str, Tensor]) -> int:
-    """Validate the shared K1/K2 inputs on the card; returns n."""
+    """Validate the shared K1/K2 inputs on the card; returns n.  Ybus is
+    ``[n, n]`` or ``[B, n, n]``."""
     if x.dim() != 2 or x.shape[1] % 2:
         raise ValueError(f"x must be [B, 2n], got {tuple(x.shape)}")
     if x.dtype not in _SUFFIX:
         raise TypeError(f"kernels take float64 or float32, got {x.dtype}")
     lanes, n = x.shape[0], x.shape[1] // 2
-    want = {"x": (x, (lanes, 2 * n)), "y_re": (y_re, (n, n)),
-            "y_im": (y_im, (n, n))}
+    ysh = (n, n) if y_re.dim() == 2 else (lanes, n, n)
+    want = {"x": (x, (lanes, 2 * n)), "y_re": (y_re, ysh),
+            "y_im": (y_im, ysh)}
     want.update({k: (t, (lanes, n)) for k, t in vecs.items()})
     want.update({k: (t, (n,)) for k, t in masks.items()})
     for name, (t, shape) in want.items():
@@ -193,9 +209,14 @@ def _check(x: Tensor, y_re: Tensor, y_im: Tensor, vecs: Dict[str, Tensor],
                 f"{name} must be a contiguous {shape} tensor, got "
                 f"{tuple(t.shape)}"
             )
-    if lanes == 0 or n > 65535:
+    if lanes == 0 or n > 65535 or (len(ysh) == 3 and lanes > 65535):
         raise ValueError(f"unsupported shape: {lanes} lanes, {n} buses")
     return n
+
+
+def _lane_stride(y_re: Tensor) -> int:
+    """K1/K2's Ybus lane stride: 0 for ``[n, n]``, n² for a stack."""
+    return 0 if y_re.dim() == 2 else y_re.shape[1] * y_re.shape[2]
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -217,6 +238,7 @@ def newton_assemble(x, y_re, y_im, p_sched, q_sched, th_free, v_free,
                                      th_free, v_free, v_set)
     n = _check(x, y_re, y_im, {"p_sched": p_sched, "q_sched": q_sched},
                {"th_free": th_free, "v_free": v_free, "v_set": v_set})
+    y_stride = _lane_stride(y_re)
     lanes = x.shape[0]
     fn = getattr(_newton_lib(), f"newton_assemble_{_SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
@@ -226,7 +248,8 @@ def newton_assemble(x, y_re, y_im, p_sched, q_sched, th_free, v_free,
         st = torch.empty_like(ct)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(*map(_ptr, (x, y_re, y_im, p_sched, q_sched, th_free, v_free,
-                            v_set, ct, st, f, jac)), lanes, n, stream)
+                            v_set, ct, st, f, jac)), lanes, n, y_stride,
+                stream)
     _raise_on(rc, "newton_assemble")
     _count("newton_assemble")
     return jac, f
@@ -242,6 +265,7 @@ def power_injections(x, y_re, y_im, p_sched, q_sched, th_free, v_free,
                                       th_free, v_free, v_set)
     n = _check(x, y_re, y_im, {"p_sched": p_sched, "q_sched": q_sched},
                {"th_free": th_free, "v_free": v_free, "v_set": v_set})
+    y_stride = _lane_stride(y_re)
     lanes = x.shape[0]
     fn = getattr(_newton_lib(), f"power_injections_{_SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
@@ -252,7 +276,8 @@ def power_injections(x, y_re, y_im, p_sched, q_sched, th_free, v_free,
         vm = torch.empty_like(p)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(*map(_ptr, (x, y_re, y_im, p_sched, q_sched, th_free, v_free,
-                            v_set, vr, vm, f, p, q)), lanes, n, stream)
+                            v_set, vr, vm, f, p, q)), lanes, n, y_stride,
+                stream)
     _raise_on(rc, "power_injections")
     _count("power_injections")
     return p, q, f

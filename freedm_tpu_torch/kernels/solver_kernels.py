@@ -1,0 +1,526 @@
+"""Wrappers, plain versions and launch counters of the solver kernels.
+
+==========================  =============================================  =====
+wrapper                     replaces                                       route
+==========================  =============================================  =====
+:func:`ybus_stamp`          ``freedm_tpu/grid/bus.py`` ``ybus_dense(sys,   CUDA
+                            status)`` (:130-158) per lane; the lane forms
+                            of ``pf/fdlf.py`` ``b_prime``/``b_dblprime``
+                            (:70-90)
+:func:`fdlf_half_step`      ``freedm_tpu/pf/fdlf.py`` ``_step`` around its  CUDA
+                            LU solves (:167-179), ``_mismatch``,
+                            ``_err_from`` (:128-138) and the lane select
+                            of ``_solve_impl`` (:186-205)
+:func:`residual_jvp`        the ``jax.linearize`` JVP of the residual in   CUDA
+                            ``freedm_tpu/pf/krylov.py`` (:594-608,
+                            :643-687) over ``pf/mfree.py:34-65``
+:func:`cim_iterate`         ``freedm_tpu/pf/cim.py`` ``_matvec`` and       CUDA
+                            ``_iterate`` (:157-170) with the loop's
+                            ``max |v_new − v|`` (:195-240)
+==========================  =============================================  =====
+
+All four live in ``csrc/solvers.cu`` (float64 and float32).  As in the
+other kernel modules, a wrapper given CPU tensors runs its plain PyTorch
+version; given CUDA tensors it launches its kernel or raises.  Each
+launch counts in :data:`LAUNCHES` (Y1 and F1 also by mode).
+
+Layouts: Y1 writes ``[L, n, n]`` per output; F1 works in place on the
+Newton state ``x [B, 2n]`` (θ ‖ V), the carried mismatch ``dp``, ``dq
+[B, n]`` and the lane carry ``err [B]``, ``it [B]`` (int32), ``active
+[B]`` (bool); its ``y`` is ``[n, n]`` (one for every lane) or ``[B, n,
+n]``.  J1 takes the sparse backend's
+:class:`~freedm_tpu_torch.kernels.sparse_kernels.SparseOperands` (the
+incidence list with each entry's mutual and self admittance) and returns
+``[B, 2n]``.  I1 works on the three-phase load-node voltages as (re, im)
+pairs of ``[B, N]`` tensors, ``N = 3 nb``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from freedm_tpu_torch.kernels import build
+from freedm_tpu_torch.kernels.newton_kernels import injections_plain
+from freedm_tpu_torch.kernels.sparse_kernels import (SparseOperands,
+                                                     _launch_on, _need_cuda,
+                                                     _op_ptrs, _raise_on,
+                                                     _want)
+
+Tensor = torch.Tensor
+
+#: Kernel launches per wrapper since the last :func:`reset_launches`.
+LAUNCHES: Dict[str, int] = {
+    "ybus_stamp": 0,
+    "fdlf_half_step": 0,
+    "residual_jvp": 0,
+    "cim_iterate": 0,
+}
+
+#: Y1's modes: Ybus ``(re, im)``; B′ (1/x scaled by status, pinned by
+#: ``th_free``); B″ (−Im Ybus, pinned by ``v_free``).
+YBUS, BPRIME, BDBL = 0, 1, 2
+#: F1's modes: the start point's mismatch; the θ half; the V half.
+INIT, THETA, VHALF = 0, 1, 2
+_MODES = {"ybus_stamp": ("YBUS", "BPRIME", "BDBL"),
+          "fdlf_half_step": ("INIT", "THETA", "V")}
+#: Y1's and F1's launches by mode (their sums are in :data:`LAUNCHES`).
+MODE_LAUNCHES: Dict[str, Dict[str, int]] = {
+    k: dict.fromkeys(v, 0) for k, v in _MODES.items()}
+_launch_lock = threading.Lock()
+
+
+def _count(name: str, mode: Optional[int] = None) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
+        if mode is not None:
+            MODE_LAUNCHES[name][_MODES[name][mode]] += 1
+
+
+def reset_launches() -> None:
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        for counts in MODE_LAUNCHES.values():
+            for k in counts:
+                counts[k] = 0
+
+
+def launches() -> Dict[str, int]:
+    with _launch_lock:
+        return dict(LAUNCHES)
+
+
+def mode_launches() -> Dict[str, Dict[str, int]]:
+    with _launch_lock:
+        return {k: dict(v) for k, v in MODE_LAUNCHES.items()}
+
+
+class StampOperands(NamedTuple):
+    """What Y1 needs of one bus system, on one device, in one dtype.
+
+    The bus-sorted incidence list of
+    :func:`~freedm_tpu_torch.pf.sparse.jacobian_pattern` (int32 CSR
+    ``inc_ptr [n+1]``, ``inc_code [2m]`` = 2·edge + side, ``inc_nbr
+    [2m]``), the branch ends ``f``, ``t [m]`` (int64, the plain version's
+    scatters), the two-port admittances ``br [8, m]`` (rows ``yff, yft,
+    ytf, ytt`` as (re, im), all in service, stamped on the host in
+    float64), ``inv_x [m]`` = 1/x, the bus shunts ``g_sh``, ``b_sh`` and
+    the masks ``th_free``, ``v_free [n]``."""
+
+    inc_ptr: Tensor
+    inc_code: Tensor
+    inc_nbr: Tensor
+    f: Tensor
+    t: Tensor
+    br: Tensor
+    inv_x: Tensor
+    g_sh: Tensor
+    b_sh: Tensor
+    th_free: Tensor
+    v_free: Tensor
+
+    @property
+    def n(self) -> int:
+        return int(self.g_sh.shape[0])
+
+    @property
+    def m(self) -> int:
+        return int(self.f.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path; the on-card comparison's reference)
+# ---------------------------------------------------------------------------
+
+
+def _scatter_add(lanes: int, n: int, rows: Tensor, cols: Tensor,
+                 vals: Tensor) -> Tensor:
+    """``[lanes, n, n]`` zeros with ``vals [lanes, k]`` added at ``(rows,
+    cols) [k]`` of each lane, one addition after another in ``k``'s order
+    (the reference's scatter order)."""
+    out = vals.new_zeros(lanes * n * n)
+    base = torch.arange(lanes, device=vals.device)[:, None] * (n * n)
+    idx = (base + (rows * n + cols)[None, :]).reshape(-1)
+    out.index_add_(0, idx, vals.reshape(-1))
+    return out.view(lanes, n, n)
+
+
+def _pin(mat: Tensor, keep: Tensor) -> Tensor:
+    """Pinned rows and columns become identity, as the reference writes it:
+    ``m * keep[:, None] * keep[None, :] + diag(1 − keep)``."""
+    return mat * keep[:, None] * keep[None, :] + torch.diag(1.0 - keep)
+
+
+def ybus_stamp_plain(mode: int, op: StampOperands, status: Tensor):
+    """Y1's plain version: ``(y_re, y_im)`` in :data:`YBUS` mode, else one
+    ``[L, n, n]`` tensor for ``status [L, m]``.  The stamps run in the
+    reference's order: ff, tt, ft, tf, then the shunt diagonal."""
+    _check_stamp_mode(mode)
+    n, lanes, on = op.n, status.shape[0], status
+    f, t = op.f, op.t
+    if mode == BPRIME:
+        w = op.inv_x * on
+        mat = _scatter_add(lanes, n, torch.cat([f, t, f, t]),
+                           torch.cat([f, t, t, f]),
+                           torch.cat([w, w, -w, -w], dim=1))
+        return _pin(mat, op.th_free)
+    y = op.br[:, None, :] * on[None]  # [8, L, m]
+
+    def stamp(part):
+        return _scatter_add(lanes, n, torch.cat([f, t, f, t]),
+                            torch.cat([f, t, t, f]),
+                            torch.cat([y[part], y[6 + part], y[2 + part],
+                                       y[4 + part]], dim=1))
+
+    y_im = stamp(1) + torch.diag(op.b_sh)
+    if mode == BDBL:
+        return _pin(-y_im, op.v_free)
+    return stamp(0) + torch.diag(op.g_sh), y_im
+
+
+def fdlf_half_step_plain(mode: int, x, d, y_re, y_im, ps, qs, th_free,
+                         v_free, dp, dq, err, it, active, tol: Tensor,
+                         max_iter: int, fixed: bool) -> None:
+    """F1's plain version (in place on ``x``, ``dp``, ``dq`` and the lane
+    carry; the module docstring's modes)."""
+    _check_fdlf_mode(mode)
+    n = dp.shape[1]
+    live = active[:, None]
+    if mode == THETA:
+        x[:, :n] = torch.where(live, x[:, :n] + d * th_free, x[:, :n])
+    elif mode == VHALF:
+        x[:, n:] = torch.where(live, x[:, n:] + d * v_free, x[:, n:])
+    theta, v = x[:, :n], x[:, n:]
+    p, q = injections_plain(v * torch.cos(theta), v * torch.sin(theta), y_re,
+                            y_im)
+    dpi = (ps - p) / v * th_free
+    dqi = (qs - q) / v * v_free
+    if mode == INIT:
+        dp.copy_(dpi)
+        dq.copy_(dqi)
+        return
+    if mode == THETA:
+        dq.copy_(dqi)
+        return
+    dp.copy_(torch.where(live, dpi, dp))
+    e = torch.maximum(torch.amax(torch.abs(dpi * v), dim=1),
+                      torch.amax(torch.abs(dqi * v), dim=1))
+    _finish_plain(e, err, it, active, tol, max_iter, fixed)
+
+
+def _finish_plain(e, err, it, active, tol, max_iter, fixed) -> None:
+    """The lane finish of F1's V mode and I1: on active lanes ``it + 1``
+    and ``err = e``; then, unless ``fixed``, ``active = it < max_iter and
+    err >= tol``."""
+    it.add_(active.to(it.dtype))
+    err.copy_(torch.where(active, e.to(err.dtype), err))
+    if not fixed:
+        active.copy_((it < max_iter) & (err >= tol))
+
+
+def residual_jvp_plain(x: Tensor, u: Tensor, op: SparseOperands,
+                       status: Optional[Tensor] = None) -> Tensor:
+    """J1's plain version: ``J u [B, 2n]``, the derivative of the masked
+    residual at ``x`` along ``u``, written out branch end by branch end
+    (the kernel's arithmetic; not ``torch.func``, so that it stays the
+    kernel's yardstick)."""
+    n = op.n
+    rows = op.inc_rows()
+    j = op.inc_nbr.long()
+    side = (op.inc_code & 1).bool()
+    theta, v, dth, dv = x[:, :n], x[:, n:], u[:, :n], u[:, n:]
+    c, s = torch.cos(theta), torch.sin(theta)
+    vc = (v * c, v * s)
+    dvc = (dv * c - vc[1] * dth, dv * s + vc[0] * dth)
+    ys, ym = (op.inc_gs, op.inc_bs), (op.inc_g, op.inc_b)
+    if status is not None:
+        on = status[:, (op.inc_code >> 1).long()]
+        ys, ym = (ys[0] * on, ys[1] * on), (ym[0] * on, ym[1] * on)
+
+    def at(a, idx):
+        return a[0][:, idx], a[1][:, idx]
+
+    def mul(a, b):
+        return a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]
+
+    def add(a, b):
+        return a[0] + b[0], a[1] + b[1]
+
+    def mul_conj(a, b):  # a · conj(b)
+        return a[0] * b[0] + a[1] * b[1], a[1] * b[0] - a[0] * b[1]
+
+    vi, vj, dvi, dvj = at(vc, rows), at(vc, j), at(dvc, rows), at(dvc, j)
+    cur = add(mul(ys, vi), mul(ym, vj))
+    dcur = add(mul(ys, dvi), mul(ym, dvj))
+    ds = add(mul_conj(dvi, cur), mul_conj(vi, dcur))
+
+    def seg(vals, pick):
+        out = vals.new_zeros(vals.shape[0], n)
+        return out.index_add_(1, rows, torch.where(pick, vals,
+                                                   torch.zeros_like(vals)))
+
+    d_p = seg(ds[0], ~side) + seg(ds[0], side)
+    d_q = seg(ds[1], ~side) + seg(ds[1], side)
+    vdv = 2.0 * v * dv
+    d_p = d_p + op.g_sh * vdv
+    d_q = d_q - op.b_sh * vdv
+    return torch.cat([torch.where(op.th_free > 0, d_p, dth),
+                      torch.where(op.v_free > 0, d_q, dv)], dim=1)
+
+
+def cim_iterate_plain(a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im, mask,
+                      err, it, active, tol: Tensor, max_iter: int,
+                      fixed: bool) -> Tuple[Tensor, Tensor]:
+    """I1's plain version: returns ``v_new`` as ``(re, im)`` (inactive
+    lanes keep ``v``) and updates the lane carry in place.  Functional in
+    ``v``: ``torch.autograd`` differentiates it (the residual is taken
+    without a gradient, as the reference's ``stop_gradient`` does)."""
+    live = v_re * v_re + v_im * v_im > 0
+    safe_re = torch.where(live, v_re, torch.ones_like(v_re))
+    safe_im = torch.where(live, v_im, torch.zeros_like(v_im))
+    d = safe_re * safe_re + safe_im * safe_im
+    q_re = (s_re * safe_re + s_im * safe_im) / d
+    q_im = (s_im * safe_re - s_re * safe_im) / d
+    j_re = torch.where(live, q_re, torch.zeros_like(q_re))
+    j_im = torch.where(live, -q_im, torch.zeros_like(q_im))
+    dv_re = j_re @ a_re.T - j_im @ a_im.T
+    dv_im = j_im @ a_re.T + j_re @ a_im.T
+    n_re = (vb_re + dv_re) * mask
+    n_im = (vb_im + dv_im) * mask
+    lane = active[:, None]
+    n_re = torch.where(lane, n_re, v_re)
+    n_im = torch.where(lane, n_im, v_im)
+    with torch.no_grad():
+        e = torch.amax(torch.sqrt((n_re - v_re) ** 2 + (n_im - v_im) ** 2),
+                       dim=1)
+        _finish_plain(e, err, it, active, tol, max_iter, fixed)
+    return n_re, n_im
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_lib_lock = threading.Lock()
+_fns: Dict[Tuple[str, torch.dtype], object] = {}
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+_SIGS = {
+    "ybus_stamp": [_I] + [_P] * 10 + [_I] * 3 + [_P],
+    "fdlf_half_step": [_I, _P, _P, _L, _L, _P, _P, _I] + [_P] * 13
+    + [_I] * 4 + [_P],
+    "residual_jvp": [_P] * 15 + [_I] * 3 + [_P],
+    "cim_iterate": [_P] * 16 + [_I] * 4 + [_P],
+}
+
+
+def _fn(name: str, dtype: torch.dtype):
+    """The C entry point of kernel ``name`` for ``dtype``; the library is
+    built and loaded at the first call."""
+    fn = _fns.get((name, dtype))
+    if fn is None:
+        with _lib_lock:
+            if not _fns:
+                lib = build.load("solvers")
+                for dt, suffix in _SUFFIX.items():
+                    for kname, args in _SIGS.items():
+                        f = getattr(lib, f"{kname}_{suffix}")
+                        f.argtypes = args
+                        f.restype = _I
+                        _fns[(kname, dt)] = f
+        fn = _fns[(name, dtype)]
+    return fn
+
+
+def _solvers_lib() -> None:
+    """Build and load the kernels' library now (it happens at the first
+    launch otherwise)."""
+    _fn("ybus_stamp", torch.float64)
+
+
+def _check_stamp_mode(mode: int) -> None:
+    if mode not in (YBUS, BPRIME, BDBL):
+        raise ValueError(f"unknown ybus_stamp mode {mode!r}")
+
+
+def _check_fdlf_mode(mode: int) -> None:
+    if mode not in (INIT, THETA, VHALF):
+        raise ValueError(f"unknown fdlf_half_step mode {mode!r}")
+
+
+def _ptr(t: Optional[Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def ybus_stamp(mode: int, op: StampOperands, status: Tensor):
+    """Y1: the per-lane stamp of Ybus (:data:`YBUS`, returns ``(y_re,
+    y_im)``), B′ (:data:`BPRIME`) or B″ (:data:`BDBL`), ``[L, n, n]`` in
+    ``op``'s dtype for ``status [L, m]``."""
+    if op.g_sh.device.type == "cpu":
+        return ybus_stamp_plain(mode, op, status)
+    _need_cuda(op.g_sh, "ybus_stamp")
+    _check_stamp_mode(mode)
+    n, m, dt = op.n, op.m, op.g_sh.dtype
+    lanes = status.shape[0]
+    i32 = torch.int32
+    spec = {"inc_ptr": (op.inc_ptr, i32, (n + 1,)),
+            "inc_code": (op.inc_code, i32, (2 * m,)),
+            "inc_nbr": (op.inc_nbr, i32, (2 * m,)),
+            "br": (op.br, dt, (8, m)), "inv_x": (op.inv_x, dt, (m,))}
+    for name in ("g_sh", "b_sh", "th_free", "v_free"):
+        spec[name] = (getattr(op, name), dt, (n,))
+    spec["status"] = (status, dt, (lanes, m))
+    _want(op.g_sh, spec)
+    if not 1 <= lanes <= 65535:
+        raise ValueError(f"ybus_stamp takes 1-65535 lanes, got {lanes}")
+    fn = _fn("ybus_stamp", dt)
+    ctx, stream = _launch_on(op.g_sh)
+    with ctx:
+        out_a = torch.empty(lanes, n, n, dtype=dt, device=op.g_sh.device)
+        out_b = torch.empty_like(out_a) if mode == YBUS else None
+        keep = {YBUS: None, BPRIME: op.th_free, BDBL: op.v_free}[mode]
+        br = op.inv_x if mode == BPRIME else op.br
+        rc = fn(mode, op.inc_ptr.data_ptr(), op.inc_code.data_ptr(),
+                op.inc_nbr.data_ptr(), br.data_ptr(), status.data_ptr(),
+                op.g_sh.data_ptr(), op.b_sh.data_ptr(), _ptr(keep),
+                out_a.data_ptr(), _ptr(out_b), lanes, n, m, stream)
+    _raise_on(rc, "ybus_stamp")
+    _count("ybus_stamp", mode)
+    return (out_a, out_b) if mode == YBUS else out_a
+
+
+def fdlf_half_step(mode: int, x, d, y_re, y_im, ps, qs, th_free, v_free, dp,
+                   dq, err, it, active, tol: Tensor, max_iter: int,
+                   fixed: bool) -> None:
+    """F1: one half of a fast-decoupled iteration, in place (the module
+    docstring's modes).  ``d [B, n]`` is the half's LU solve (unused in
+    :data:`INIT`), read through its strides; ``y`` is ``[n, n]`` for
+    every lane or ``[B, n, n]``.  ``fixed`` keeps every lane active (the
+    reference's ``solve_fixed``)."""
+    if x.device.type == "cpu":
+        fdlf_half_step_plain(mode, x, d, y_re, y_im, ps, qs, th_free, v_free,
+                             dp, dq, err, it, active, tol, max_iter, fixed)
+        return
+    _need_cuda(x, "fdlf_half_step")
+    _check_fdlf_mode(mode)
+    dt = x.dtype
+    lanes, n = x.shape[0], x.shape[1] // 2
+    lane_y = y_re.dim() == 3
+    ysh = (lanes, n, n) if lane_y else (n, n)
+    spec = {"x": (x, dt, (lanes, 2 * n)), "y_re": (y_re, dt, ysh),
+            "y_im": (y_im, dt, ysh), "ps": (ps, dt, (lanes, n)),
+            "qs": (qs, dt, (lanes, n)), "th_free": (th_free, dt, (n,)),
+            "v_free": (v_free, dt, (n,)), "dp": (dp, dt, (lanes, n)),
+            "dq": (dq, dt, (lanes, n)), "err": (err, dt, (lanes,)),
+            "it": (it, torch.int32, (lanes,)),
+            "active": (active, torch.bool, (lanes,)), "tol": (tol, dt, (1,))}
+    _want(x, spec)
+    if mode != INIT and (d is None or d.dtype is not dt or d.device != x.device
+                         or tuple(d.shape) != (lanes, n)):
+        raise ValueError(f"d must be a {dt} [{lanes}, {n}] tensor on "
+                         f"{x.device}")
+    if not 1 <= lanes <= 65535:
+        raise ValueError(f"fdlf_half_step takes 1-65535 lanes, got {lanes}")
+    fn = _fn("fdlf_half_step", dt)
+    ctx, stream = _launch_on(x)
+    with ctx:
+        vr = torch.empty(lanes, n, dtype=dt, device=x.device)
+        vm = torch.empty_like(vr)
+        rowerr = torch.empty_like(vr) if mode == VHALF else None
+        d_bs, d_js = (0, 0) if mode == INIT else d.stride()
+        rc = fn(mode, x.data_ptr(), None if mode == INIT else d.data_ptr(),
+                d_bs, d_js, y_re.data_ptr(), y_im.data_ptr(), int(lane_y),
+                ps.data_ptr(), qs.data_ptr(), th_free.data_ptr(),
+                v_free.data_ptr(), dp.data_ptr(), dq.data_ptr(),
+                vr.data_ptr(), vm.data_ptr(), _ptr(rowerr), err.data_ptr(),
+                it.data_ptr(), active.data_ptr(), tol.data_ptr(),
+                int(max_iter), int(bool(fixed)), lanes, n, stream)
+    _raise_on(rc, "fdlf_half_step")
+    _count("fdlf_half_step", mode)
+
+
+def residual_jvp(x: Tensor, u: Tensor, op: SparseOperands,
+                 status: Optional[Tensor] = None) -> Tensor:
+    """J1: ``J u [B, 2n]``, the masked residual's derivative at ``x [B,
+    2n]`` along ``u [B, 2n]``; ``status [B, m]`` (``x``'s dtype) scales
+    each lane's branch admittances.  The operands are in ``x``'s dtype
+    (float32 for the mixed inner solve: ``op.to_dtype(torch.float32)``)."""
+    if x.device.type == "cpu":
+        return residual_jvp_plain(x, u, op, status)
+    _need_cuda(x, "residual_jvp")
+    lanes, n, m, dt = x.shape[0], op.n, op.m, x.dtype
+    spec = {"x": (x, dt, (lanes, 2 * n)), "u": (u, dt, (lanes, 2 * n))}
+    if status is not None:
+        spec["status"] = (status, dt, (lanes, m))
+    _want(x, spec)
+    o = _op_ptrs(op, x)
+    fn = _fn("residual_jvp", dt)
+    ctx, stream = _launch_on(x)
+    with ctx:
+        out = torch.empty_like(x)
+        rc = fn(x.data_ptr(), u.data_ptr(), o["inc_ptr"], o["inc_code"],
+                o["inc_nbr"], o["inc_g"], o["inc_b"], o["inc_gs"],
+                o["inc_bs"], o["g_sh"], o["b_sh"], o["th_free"],
+                o["v_free"], _ptr(status), out.data_ptr(), lanes, n, m,
+                stream)
+    _raise_on(rc, "residual_jvp")
+    _count("residual_jvp")
+    return out
+
+
+def cim_iterate(a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im, mask, err,
+                it, active, tol: Tensor, max_iter: int, fixed: bool,
+                out: Optional[Tuple[Tensor, Tensor]] = None
+                ) -> Tuple[Tensor, Tensor]:
+    """I1: one current-injection iteration of every lane: returns
+    ``v_new`` as ``(re, im)`` ``[B, N]`` (inactive lanes keep ``v``;
+    written into ``out`` when given, which must not be ``v``) and updates
+    ``err``, ``it`` and ``active`` in place.  ``A = Y_LL⁻¹`` is ``[N,
+    N]``, the loads ``s`` and the no-load profile ``vb`` are ``[B, N]``,
+    the phase mask ``[N]``."""
+    if v_re.device.type == "cpu":
+        n_re, n_im = cim_iterate_plain(a_re, a_im, v_re, v_im, s_re, s_im,
+                                       vb_re, vb_im, mask, err, it, active,
+                                       tol, max_iter, fixed)
+        if out is None:
+            return n_re, n_im
+        out[0].copy_(n_re)
+        out[1].copy_(n_im)
+        return out
+    _need_cuda(v_re, "cim_iterate")
+    dt = v_re.dtype
+    lanes, big_n = v_re.shape
+    lane = (lanes, big_n)
+    if out is None:
+        out = (torch.empty_like(v_re), torch.empty_like(v_im))
+    spec = {"a_re": (a_re, dt, (big_n, big_n)),
+            "a_im": (a_im, dt, (big_n, big_n)), "v_re": (v_re, dt, lane),
+            "v_im": (v_im, dt, lane), "s_re": (s_re, dt, lane),
+            "s_im": (s_im, dt, lane), "vb_re": (vb_re, dt, lane),
+            "vb_im": (vb_im, dt, lane), "mask": (mask, dt, (big_n,)),
+            "out_re": (out[0], dt, lane), "out_im": (out[1], dt, lane),
+            "err": (err, dt, (lanes,)), "it": (it, torch.int32, (lanes,)),
+            "active": (active, torch.bool, (lanes,)), "tol": (tol, dt, (1,))}
+    _want(v_re, spec)
+    if out[0].data_ptr() in (v_re.data_ptr(), v_im.data_ptr()):
+        raise ValueError("cim_iterate writes v_new beside v, not over it")
+    fn = _fn("cim_iterate", dt)
+    ctx, stream = _launch_on(v_re)
+    with ctx:
+        rowerr = torch.empty_like(v_re)
+        rc = fn(a_re.data_ptr(), a_im.data_ptr(), v_re.data_ptr(),
+                v_im.data_ptr(), s_re.data_ptr(), s_im.data_ptr(),
+                vb_re.data_ptr(), vb_im.data_ptr(), mask.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), rowerr.data_ptr(),
+                err.data_ptr(), it.data_ptr(), active.data_ptr(),
+                tol.data_ptr(), int(max_iter), int(bool(fixed)), lanes, big_n,
+                stream)
+    _raise_on(rc, "cim_iterate")
+    _count("cim_iterate")
+    return out

@@ -1,5 +1,8 @@
-"""Power-flow solvers (dense and sparse Newton-Raphson, backend
-resolution, the radial ladder), N-1 and DC screening and topology sweeps.
+"""Power-flow solvers (dense and sparse Newton-Raphson, fast-decoupled,
+backend resolution, the radial ladder), N-1 and DC screening and
+topology sweeps.  The matrix-free solver and the three-phase CIM are in
+:mod:`freedm_tpu_torch.pf.krylov` and :mod:`freedm_tpu_torch.pf.cim`,
+which the reference does not export here either.
 
 The public names of the reference's ``freedm_tpu/pf/__init__.py`` that
 the port has so far.
@@ -11,6 +14,7 @@ from freedm_tpu_torch.pf.backend import (  # noqa: F401
     resolve_backend,
 )
 from freedm_tpu_torch.pf.dc import make_dc_solver  # noqa: F401
+from freedm_tpu_torch.pf.fdlf import make_fdlf_solver  # noqa: F401
 from freedm_tpu_torch.pf.ladder import (  # noqa: F401
     LadderResult,
     branch_power_kva,

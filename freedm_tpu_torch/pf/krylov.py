@@ -1,12 +1,17 @@
-"""The Krylov toolkit of the sparse Newton backend.
+"""Matrix-free Newton–Krylov and the Krylov toolkit of the sparse backend.
 
-Port of the parts of ``freedm_tpu/pf/krylov.py`` that
-:mod:`freedm_tpu_torch.pf.sparse` runs: the FDLF preconditioner (built
+Port of ``freedm_tpu/pf/krylov.py``: the FDLF preconditioner (built
 once per engine — B′/B″ inverted by the Newton–Schulz GEMM iteration and
 stored in bf16, or LU-factorized), its half-system apply, the s-step
 block GMRES cycle with a written-out lane axis, the scalar GMRES cycle it
-is held against, and the host float64 oracles.  The matrix-free solver
-``make_krylov_solver`` is a later slice (ROADMAP item 12).
+is held against, the host float64 oracles, and the matrix-free solver
+:func:`make_krylov_solver`.  That solver runs the sparse backend's
+inexact-Newton loops (:func:`freedm_tpu_torch.pf.sparse.newton_krylov`)
+with the residual's linearization as the GMRES operator: J1
+(:func:`~freedm_tpu_torch.kernels.solver_kernels.residual_jvp`) applies
+it branch-wise at the Newton iterate, where the reference takes
+``jax.linearize`` of its branch-wise residual; the residual itself is
+S1's ``RESIDUAL`` mode.  No Jacobian value is ever stored.
 
 Where the reference ``vmap``s one GMRES cycle per lane, every vector here
 is ``[B, N]`` and every per-lane scalar (``β``, the chain's ``alive``
@@ -27,7 +32,9 @@ import torch
 
 from freedm_tpu_torch.device import DeviceLike, platform_name, resolve_device
 from freedm_tpu_torch.grid.bus import PQ, SLACK, BusSystem, ybus_pair
+from freedm_tpu_torch.kernels import solver_kernels as sol
 from freedm_tpu_torch.kernels import sparse_kernels as sk
+from freedm_tpu_torch.pf.backend import resolve_precision
 from freedm_tpu_torch.pf.fdlf import decoupled_parts
 
 _NS_TARGET = 0.05  # ‖I − A·X‖_max good enough for a preconditioner
@@ -282,6 +289,120 @@ def _pgmres_block(a_op, m_op, b: torch.Tensor, m: int, s: int = 4,
         orth(v_basis, valid, w_blk, j0)
         alive = a
     return lstsq(v_basis, valid, w_store, z_store, beta)
+
+
+class KrylovResult(NamedTuple):
+    """Power-flow solution in per-unit, one row per lane: the fields of
+    :class:`~freedm_tpu_torch.pf.newton.NewtonResult` (the matrix-free
+    variant's record, as in the reference)."""
+
+    v: torch.Tensor
+    theta: torch.Tensor
+    p: torch.Tensor
+    q: torch.Tensor
+    iterations: torch.Tensor
+    converged: torch.Tensor
+    mismatch: torch.Tensor
+    #: [B] int32: Newton iterations re-run at full precision after the
+    #: mixed-precision inner solve stalled a lane (0 on the f64 path).
+    fallbacks: torch.Tensor
+
+
+def make_krylov_solver(
+    sys: BusSystem,
+    tol: Optional[float] = None,
+    max_iter: int = 12,
+    inner_iters: int = 24,
+    dtype: torch.dtype = torch.float64,
+    precond_dtype: torch.dtype = torch.bfloat16,
+    precond: Optional[FdlfPrecond] = None,
+    precision: str = "auto",
+    block_size: int = 4,
+    donate: bool = True,
+    mesh=None,
+    device: DeviceLike = None,
+    plain: bool = False,
+):
+    """Build the matrix-free Newton solvers with the s-step GMRES inner.
+
+    Returns ``(solve, solve_fixed)`` with the call signature of
+    :func:`~freedm_tpu_torch.pf.newton.make_newton_solver` (optional ``[B,
+    n]`` overrides and a ``[m]`` or ``[B, m]`` branch ``status``) and a
+    :class:`KrylovResult` of ``[B, ...]`` tensors.  ``inner_iters`` is the
+    Krylov dimension of the inner solve (that many operator applications
+    a Newton step) and ``block_size`` its s-step block.  ``precision``:
+    ``"f64"`` runs the inner solve in ``dtype``; ``"mixed"`` in float32,
+    linearized at the iterate cast to float32 on float32 admittances,
+    under the full-precision acceptance oracle with per-lane full-precision
+    fallbacks (``solve_fixed``: ``max_iter − 1`` mixed steps, then one
+    full-precision polish); ``"auto"`` is mixed on the card and f64 on the
+    CPU.  ``precond`` passes a built :class:`FdlfPrecond`; otherwise one is
+    built (``precond_dtype`` as in :func:`build_fdlf_precond`, whose
+    default kind is explicit bf16 inverses below
+    :data:`PRECOND_INVERSE_MAX_BUSES` buses, the LU pair at and above).
+    ``donate`` is accepted and ignored: PyTorch has no buffer donation,
+    and the solver never writes its caller's tensors.  ``mesh`` (the
+    reference's sharded form) is not ported and raises.  ``solve_fixed``
+    is forward-only on the card.  ``plain=True`` runs the kernels' plain
+    versions on any device; ``device`` is ``cuda`` unless the CPU is asked
+    for.
+    """
+    from freedm_tpu_torch.pf.sparse import newton_krylov, sparse_operands
+
+    del donate  # no donation in PyTorch (docstring)
+    if mesh is not None:
+        raise NotImplementedError(
+            "the mesh-sharded solver form is not ported (ROADMAP.md, module "
+            "queue item 16: multi-GPU lane sharding)"
+        )
+    dev = resolve_device(device)
+    precision = resolve_precision(precision, platform_name(dev))
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"dtype must be float64 or float32, got {dtype}")
+    op = sparse_operands(sys, dtype=dtype, device=dev)
+    op_lo = op.to_dtype(torch.float32)
+    if precond is None:
+        precond = build_fdlf_precond(sys, dtype=dtype,
+                                     precond_dtype=precond_dtype,
+                                     device=dev)
+    assemble = sk.sparse_assemble_plain if plain else sk.sparse_assemble
+    jvp = sol.residual_jvp_plain if plain else sol.residual_jvp
+
+    def linearize(x, ps, qs, st):
+        """The residual at ``x`` (S1) and ``u -> J u`` there (J1)."""
+        fres = assemble(x, ps, qs, op, sk.RESIDUAL, st)[2]
+        return (lambda u: jvp(x, u, op, st)), fres
+
+    def linearize_lo(x, ps, qs, st):
+        """The full-precision residual and the float32 linearization at
+        ``x`` cast to float32, on float32 admittances."""
+        fres = assemble(x, ps, qs, op, sk.RESIDUAL, st)[2]
+        x_lo = x.to(torch.float32)
+        st_lo = None if st is None else st.to(torch.float32)
+        return (lambda u: jvp(x_lo, u, op_lo, st_lo)), fres
+
+    solve_n, fixed_n = newton_krylov(
+        sys, op, precond, linearize, linearize_lo, tol=tol,
+        max_iter=max_iter, inner_iters=inner_iters, dtype=dtype,
+        precision=precision, block_size=block_size, plain=plain)
+
+    def solve(p_inj=None, q_inj=None, status=None, v0=None, theta0=None):
+        return KrylovResult(*solve_n(p_inj, q_inj, status, v0, theta0))
+
+    def solve_fixed(p_inj=None, q_inj=None, status=None, v0=None,
+                    theta0=None):
+        return KrylovResult(*fixed_n(p_inj, q_inj, status, v0, theta0))
+
+    return solve, solve_fixed
+
+
+def record_result(result: KrylovResult) -> None:
+    """Publish a matrix-free result to the solver metrics under
+    ``solver="krylov"`` (:func:`freedm_tpu_torch.pf.newton.record_result`'s
+    contract: call it where the result is read on the host anyway)."""
+    from freedm_tpu_torch.core import metrics
+
+    metrics.observe_pf_result("krylov", result)
 
 
 def host_injections(sys: BusSystem, theta, v, status=None):

@@ -8,8 +8,9 @@ is the Ybus product written as its sparsity pattern.  The arithmetic is
 also the plain version of the injection part of kernel C1 (the serving
 cache's delta program) and of the injection part of kernel N1 (the SMW
 N-1 screen, with a per-lane branch status); :func:`delta_operands`
-builds the operands they take.  The matrix-free Newton–Krylov solver that the reference builds on
-this module is a later slice (ROADMAP item 12).
+builds the operands they take.  The matrix-free Newton–Krylov solver
+(:func:`freedm_tpu_torch.pf.krylov.make_krylov_solver`) linearizes the
+same branch-wise residual: :func:`residual_jvp`.
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ import torch
 
 from freedm_tpu_torch.device import DeviceLike, resolve_device
 from freedm_tpu_torch.grid.bus import PQ, SLACK, BusSystem, branch_admittances
+from freedm_tpu_torch.kernels import solver_kernels as sol
 from freedm_tpu_torch.kernels.cache_kernels import (DeltaOperands,
                                                     branch_injections)
-from freedm_tpu_torch.pf.sparse import jacobian_pattern
+from freedm_tpu_torch.pf.sparse import jacobian_pattern, sparse_operands
 
 
 def delta_operands(sys: BusSystem, device: DeviceLike = None) -> DeltaOperands:
@@ -74,3 +76,32 @@ def make_injection_fn(sys: BusSystem, device: DeviceLike = None):
         return branch_injections(theta, v, op, status)
 
     return inject
+
+
+def residual_jvp(sys: BusSystem, dtype: torch.dtype = torch.float64,
+                 device: DeviceLike = None, plain: bool = False):
+    """``jvp(x, u, status=None) -> J u``: the derivative of the masked
+    power-flow residual (``where(th_free, P − P_sched, θ) ‖ where(v_free,
+    Q − Q_sched, V − V_set)`` on :func:`make_injection_fn`'s injections)
+    at ``x = θ ‖ V`` along ``u``, both ``[B, 2n]`` ``dtype`` tensors;
+    pinned rows return ``u``'s θ or V entry.  ``status`` (``[m]`` or
+    ``[B, m]``) scales each branch's admittances.  On the card this is
+    kernel J1 (:func:`~freedm_tpu_torch.kernels.solver_kernels.
+    residual_jvp`); ``plain=True`` runs its plain version on any
+    device."""
+    op = sparse_operands(sys, dtype=dtype, device=device)
+    fn = sol.residual_jvp_plain if plain else sol.residual_jvp
+
+    def jvp(x, u, status=None):
+        x = torch.as_tensor(x, dtype=dtype, device=op.th_free.device)
+        u = torch.as_tensor(u, dtype=dtype, device=op.th_free.device)
+        st = None
+        if status is not None:
+            st = torch.as_tensor(status, dtype=dtype, device=x.device)
+            if st.shape[-1:] != (op.m,) or st.dim() > 2:
+                raise ValueError(f"status must be [{op.m}] or [B, {op.m}], "
+                                 f"got {tuple(st.shape)}")
+            st = st.expand(x.shape[0], op.m).contiguous()
+        return fn(x.contiguous(), u.contiguous(), op, st)
+
+    return jvp

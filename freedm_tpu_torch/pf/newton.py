@@ -22,6 +22,13 @@ The loop ends when no lane is active, which costs one host sync per
 Newton iteration (the ``any()`` read) plus one for the last check.  The
 final mismatch, P and Q come from K2
 (:func:`~freedm_tpu_torch.kernels.newton_kernels.power_injections`).
+
+A branch ``status`` runs each lane on its own topology, as the
+reference's ``_prep`` stamps ``ybus_dense(sys, status)`` under ``vmap``:
+``[B, m]`` stamps one Ybus a lane (Y1,
+:func:`~freedm_tpu_torch.kernels.solver_kernels.ybus_stamp`) and K1/K2
+read the ``[B, n, n]`` stack; a shared ``[m]`` status stamps once and
+every lane reads that one matrix.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ import numpy as np
 import torch
 
 from freedm_tpu_torch.device import DeviceLike, platform_name, resolve_device
-from freedm_tpu_torch.grid.bus import PQ, SLACK, BusSystem, branch_admittances, ybus_dense
+from freedm_tpu_torch.grid.bus import (PQ, SLACK, BusSystem, branch_admittances,
+                                       stamp_operands, ybus_dense, ybus_lanes)
 from freedm_tpu_torch.kernels import newton_kernels as nk
 from freedm_tpu_torch.pf.backend import resolve_backend, resolve_precision
 
@@ -97,17 +105,16 @@ def build_result(x, p, q, f, free, it, tol: float) -> NewtonResult:
 
 def lane_prep(n: int, dtype: torch.dtype, dev: torch.device,
               p_sched0: torch.Tensor, q_sched0: torch.Tensor,
-              v_flat: torch.Tensor, m: Optional[int] = None):
+              v_flat: torch.Tensor, m: int):
     """The solvers' argument handling: ``prep(p_inj, q_inj, status, v0,
     theta0) -> (x [B, 2n], ps [B, n], qs [B, n], st)``, each optional
     ``[B, n]`` override (numpy or tensor) cast to ``dtype`` on ``dev``;
     omitted ones broadcast the stored schedule / the flat start, and
     ``B`` is 1 when every one is omitted.  ``status`` (the 0/1 branch
-    in-service vector, ``[m]`` for every lane or ``[B, m]``) comes back as
-    a contiguous ``[B, m]`` ``st``, ``None`` when omitted; a solver that
-    passes no branch count ``m`` (the dense backend) raises on it.  The
-    caller's tensors are only read: ``x`` is new and the schedules are
-    never written."""
+    in-service vector of ``m`` branches, ``[m]`` for every lane or ``[B,
+    m]``) comes back as a contiguous ``[B, m]`` ``st``, ``None`` when
+    omitted.  The caller's tensors are only read: ``x`` is new and the
+    schedules are never written."""
 
     def as_lanes(a, name):
         if a is None:
@@ -123,12 +130,6 @@ def lane_prep(n: int, dtype: torch.dtype, dev: torch.device,
     def as_status(a):
         if a is None:
             return None
-        if m is None:
-            raise NotImplementedError(
-                "per-lane branch status on the dense Newton backend is not "
-                "ported (ROADMAP.md, module queue item 8 (per-lane Ybus "
-                "stamp)); the sparse backend takes it"
-            )
         t = torch.as_tensor(a, dtype=dtype, device=dev)
         if t.shape[-1:] != (m,) or t.dim() not in (1, 2):
             raise ValueError(
@@ -197,9 +198,10 @@ def make_newton_solver(
     solvers, which take ``precision``; on the dense path ``precision``
     validates only — the LU runs in ``dtype`` regardless, and TF32 never
     enters.  ``device`` is
-    ``cuda`` unless the caller asks for the CPU.  A per-lane branch
-    ``status`` is taken by the sparse backend; the dense one raises on it
-    (the per-lane Ybus stamp is not ported).  ``mesh`` (the reference's
+    ``cuda`` unless the caller asks for the CPU.  ``status`` (0/1 branch
+    in-service factors, ``[m]`` or ``[B, m]``) runs each lane on its own
+    topology on either backend: the dense one stamps the lanes' Ybus (Y1,
+    module docstring).  ``mesh`` (the reference's
     sharded form) is not ported and raises.  ``plain=True``
     runs the kernels' plain PyTorch versions on any device — the
     on-card reference ``chip_smoke.py`` compares the kernel path with.
@@ -247,31 +249,42 @@ def make_newton_solver(
     p_sched0 = vec(sys.p_inj)
     q_sched0 = vec(sys.q_inj)
     v_flat = torch.where(v_free > 0, torch.ones_like(v_set), v_set)
-    y_re, y_im = ybus_dense(sys, dtype=dtype, device=dev)
+    y0 = ybus_dense(sys, dtype=dtype, device=dev)
     tol_t = torch.full((1,), tol, dtype=dtype, device=dev)
+    stamp_op = stamp_operands(sys, dtype=dtype, device=dev)  # Y1's
 
-    prep = lane_prep(n, dtype, dev, p_sched0, q_sched0, v_flat)
+    prep = lane_prep(n, dtype, dev, p_sched0, q_sched0, v_flat,
+                     m=sys.n_branch)
 
-    def step(x, ps, qs):
-        jac, f = assemble(x, y_re, y_im, ps, qs, th_free, v_free, v_set)
+    def lanes_ybus(status):
+        """The lanes' Ybus: the stored one without a status, one stamp
+        for a shared ``[m]`` status, a ``[B, n, n]`` stack for ``[B, m]``."""
+        if status is None:
+            return y0
+        return ybus_lanes(sys, status, dtype=dtype, device=dev, op=stamp_op,
+                          plain=plain)
+
+    def step(x, ps, qs, y):
+        jac, f = assemble(x, y[0], y[1], ps, qs, th_free, v_free, v_set)
         dx = torch.linalg.solve_ex(jac, -f.unsqueeze(-1),
                                    check_errors=False).result.squeeze(-1)
         return dx, f
 
-    def finish(x, ps, qs, it):
-        p, q, f = injections(x, y_re, y_im, ps, qs, th_free, v_free, v_set)
+    def finish(x, ps, qs, it, y):
+        p, q, f = injections(x, y[0], y[1], ps, qs, th_free, v_free, v_set)
         return build_result(x, p, q, f, free, it, tol)
 
     def solve(p_inj=None, q_inj=None, status=None, v0=None, theta0=None):
         x, ps, qs, _ = prep(p_inj, q_inj, status, v0, theta0)
+        y = lanes_ybus(status)
         lanes = x.shape[0]
         it = torch.zeros(lanes, dtype=torch.int32, device=dev)
         err = torch.full((lanes,), float("inf"), dtype=dtype, device=dev)
         active = (it < max_iter) & (err >= tol_t)
         while any_active(active):  # the one host sync per iteration
-            dx, f = step(x, ps, qs)
+            dx, f = step(x, ps, qs, y)
             update(x, dx, f, free, it, err, active, max_iter, tol_t)
-        return finish(x, ps, qs, it)
+        return finish(x, ps, qs, it, y)
 
     def solve_fixed(p_inj=None, q_inj=None, status=None, v0=None,
                     theta0=None):
@@ -284,14 +297,27 @@ def make_newton_solver(
                 "(ROADMAP.md)"
             )
         x, ps, qs, _ = prep(p_inj, q_inj, status, v0, theta0)
+        y = lanes_ybus(status)
         for _ in range(max_iter):
-            dx, _f = step(x, ps, qs)
+            dx, _f = step(x, ps, qs, y)
             x = x + dx
         it = torch.full((x.shape[0],), max_iter, dtype=torch.int32,
                         device=dev)
-        return finish(x, ps, qs, it)
+        return finish(x, ps, qs, it, y)
 
     return solve, solve_fixed
+
+
+def record_result(result: NewtonResult, solver: str = "newton") -> None:
+    """Publish a result's per-lane iteration counts, its worst lane's
+    final mismatch and its fallbacks to the solver metrics
+    (``pf_newton_iterations``, ``pf_residual_pu``,
+    ``pf_precision_fallbacks_total``; :mod:`freedm_tpu_torch.core.metrics`).
+    Call it where the result is read on the host anyway: it copies the
+    small per-lane fields and adds no device work."""
+    from freedm_tpu_torch.core import metrics
+
+    metrics.observe_pf_result(solver, result)
 
 
 def branch_flows(sys: BusSystem, result: NewtonResult, status=None):

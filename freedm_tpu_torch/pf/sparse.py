@@ -232,13 +232,54 @@ def make_sparse_newton_solver(
     precision = resolve_precision(precision, platform_name(dev))
     if dtype not in (torch.float64, torch.float32):
         raise TypeError(f"dtype must be float64 or float32, got {dtype}")
+    op = sparse_operands(sys, dtype=dtype, device=dev)
+    op_lo = op.to_dtype(torch.float32)
+    if precond is None:
+        precond = build_fdlf_precond(sys, dtype=dtype,
+                                     precond_dtype=precond_dtype,
+                                     kind=precond_kind, device=dev)
+    assemble = sk.sparse_assemble_plain if plain else sk.sparse_assemble
+    matvec = sk.sparse_matvec_plain if plain else sk.sparse_matvec
+    # S1's float32 value fill for the mixed inner solve (from float64
+    # arithmetic; in a float32 solver the full fill already is float32).
+    values_lo = sk.VALUES_F32 if dtype == torch.float64 else sk.FULL
+
+    def linearize(x, ps, qs, st):
+        """J's values at ``x`` (S1) and ``u -> J u`` (S2)."""
+        ev, bv, fres = assemble(x, ps, qs, op, sk.FULL, st)
+        return (lambda u: matvec(ev, bv, u, op)), fres
+
+    def linearize_lo(x, ps, qs, st):
+        ev, bv, fres = assemble(x, ps, qs, op, values_lo, st)
+        return (lambda u: matvec(ev, bv, u, op_lo)), fres
+
+    return newton_krylov(sys, op, precond, linearize, linearize_lo, tol=tol,
+                         max_iter=max_iter, inner_iters=inner_iters,
+                         dtype=dtype, precision=precision,
+                         block_size=block_size, plain=plain)
+
+
+def newton_krylov(sys: BusSystem, op: sk.SparseOperands, precond,
+                  linearize, linearize_lo, tol: Optional[float],
+                  max_iter: int, inner_iters: int, dtype: torch.dtype,
+                  precision: str, block_size: int, plain: bool):
+    """The inexact-Newton loops over lanes that the sparse backend and the
+    matrix-free solver (:func:`~freedm_tpu_torch.pf.krylov.
+    make_krylov_solver`) share; they differ in the operator of the inner
+    solve alone.
+
+    ``linearize(x, ps, qs, st) -> (a_op, f)`` gives the full-precision
+    operator ``u -> J u`` at ``x`` and the mismatch ``f`` there;
+    ``linearize_lo`` the float32 operator of the mixed step with ``f`` in
+    ``dtype``.  ``precision`` is resolved (``"f64"`` or ``"mixed"``);
+    ``op`` (on the solver's device, in ``dtype``) gives the masks and S1's
+    residual mode.  Returns ``(solve, solve_fixed)`` (module docstring).
+    """
+    dev = op.th_free.device
     tol = float(default_tol(dtype) if tol is None else tol)
     max_iter = int(max_iter)
     n = sys.n_bus
     inner_dtype = torch.float32
-
-    op = sparse_operands(sys, dtype=dtype, device=dev)
-    op_lo = op.to_dtype(inner_dtype)
     free = torch.cat([op.th_free, op.v_free])
     v_flat = torch.where(op.v_free > 0, torch.ones_like(op.v_set), op.v_set)
     p_sched0 = torch.as_tensor(np.asarray(sys.p_inj, np.float64),
@@ -246,22 +287,8 @@ def make_sparse_newton_solver(
     q_sched0 = torch.as_tensor(np.asarray(sys.q_inj, np.float64),
                                device=dev).to(dtype)
     tol_t = torch.full((1,), tol, dtype=dtype, device=dev)
-    if precond is None:
-        precond = build_fdlf_precond(sys, dtype=dtype,
-                                     precond_dtype=precond_dtype,
-                                     kind=precond_kind, device=dev)
-
-    if plain:
-        assemble, matvec, update = (sk.sparse_assemble_plain,
-                                    sk.sparse_matvec_plain,
-                                    nk.newton_update_plain)
-    else:
-        assemble, matvec, update = (sk.sparse_assemble, sk.sparse_matvec,
-                                    nk.newton_update)
-
-    # S1's float32 value fill for the mixed inner solve (from float64
-    # arithmetic; in a float32 solver the full fill already is float32).
-    values_lo = sk.VALUES_F32 if dtype == torch.float64 else sk.FULL
+    assemble = sk.sparse_assemble_plain if plain else sk.sparse_assemble
+    update = nk.newton_update_plain if plain else nk.newton_update
 
     def mismatch(f):
         return torch.amax(torch.abs(f * free), dim=1)
@@ -274,10 +301,9 @@ def make_sparse_newton_solver(
         return fdlf_apply(precond, op.th_free, op.v_free, u, v_now,
                           out_dtype)
 
-    def gmres(ev, bv, o, rhs, v_now):
+    def gmres(a_op, rhs, v_now):
         return _pgmres_block(
-            lambda u: matvec(ev, bv, u, o),
-            lambda u: apply_precond(u, v_now, rhs.dtype),
+            a_op, lambda u: apply_precond(u, v_now, rhs.dtype),
             rhs, m=inner_iters, s=block_size, plain=plain,
         )
 
@@ -290,16 +316,16 @@ def make_sparse_newton_solver(
     def step(x, ps, qs, st):
         """Full-precision update: ``(dx, f)`` with ``f`` the mismatch
         the step starts from."""
-        ev, bv, fres = assemble(x, ps, qs, op, sk.FULL, st)
+        a_op, fres = linearize(x, ps, qs, st)
         v = x[:, n:]
-        return safe(gmres(ev, bv, op, -fres, v), fres, v), fres
+        return safe(gmres(a_op, -fres, v), fres, v), fres
 
     def step_mixed(x, ps, qs, st):
         """Mixed update: float32 inner solve, then ``(x_new, err1)`` with
         ``err1`` the full-precision mismatch at ``x_new``."""
-        ev, bv, fres = assemble(x, ps, qs, op, values_lo, st)
+        a_op, fres = linearize_lo(x, ps, qs, st)
         v = x[:, n:]
-        dx = gmres(ev, bv, op_lo, (-fres).to(inner_dtype), v.to(inner_dtype))
+        dx = gmres(a_op, (-fres).to(inner_dtype), v.to(inner_dtype))
         x_new = x + safe(dx.to(dtype), fres, v)
         return x_new, mismatch(residual(x_new, ps, qs, st))
 

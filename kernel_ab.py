@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time S1 ``sparse_assemble`` (each mode), S2 ``sparse_matvec``, S3
-``gmres_block_orth``, S4 ``gmres_lstsq``, K3 ``newton_update`` and the
-serving cache's delta program (C1) of this checkout against those of
-other checkouts of the repo, in turns on one card.
+``gmres_block_orth``, S4 ``gmres_lstsq``, K3 ``newton_update``, K1
+``newton_assemble`` and K2 ``power_injections`` and the serving cache's
+delta program (C1) of this checkout against those of other checkouts of
+the repo, in turns on one card.
 
-    python3 kernel_ab.py OTHER [OTHER ...] [--sections sparse,delta]
+    python3 kernel_ab.py OTHER [OTHER ...] [--sections sparse,delta,newton]
                          [--out FILE]
 
 Each ``OTHER`` is the root of another checkout, for example one written
@@ -46,6 +47,13 @@ theta and v must agree within ``chip_smoke.CACHE_ATOL`` with sweep counts
 at most one apart (each turn factorizes the pair anew, and cuSOLVER's
 factors may differ in the last bits between processes).
 
+The ``newton`` section times K1 and K2 at mesh2000 × 64 lanes in
+float64 with one Ybus for every lane (the dense backend without a branch
+status), on the state ``chip_smoke.newton_inputs`` makes once here: CUDA
+events over back-to-back calls and device time, as above.  The
+checkouts' Jacobians, mismatches, P and Q must be the same bits
+(``newton_same_bits``).
+
 Prints the card's name and power limit, one line per turn and a JSON
 summary as the last line (also written to ``--out``).  Needs a CUDA card.
 """
@@ -67,7 +75,8 @@ DTYPES = ("float64", "float32")
 KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "sparse_assemble_residual", "sparse_matvec", "gmres_block_orth",
            "gmres_lstsq", "newton_update")
-SECTIONS = ("sparse", "delta")
+SECTIONS = ("sparse", "delta", "newton")
+NEWTON_KERNELS = ("newton_assemble", "power_injections")
 DELTA_LANES = (1, 8)
 DELTA_PRECISIONS = ("f64", "mixed")
 
@@ -91,6 +100,9 @@ def prepare(path: Path, sections) -> None:
 
     sys_ = cs.case_system("mesh2000")
     data = {}
+    if "newton" in sections:
+        data["newton"] = [a.cpu() for a in cs.newton_inputs(
+            torch, sys_, cs.MAIN_LANES, seed=7)]
     if "delta" in sections:
         case = cs.DeltaCase(torch, ck, "mesh2000")
         data["delta"] = [np.asarray(a) for a in case.inputs(
@@ -156,6 +168,19 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
     sys_ = cs.case_system("mesh2000")
     data = torch.load(inputs, weights_only=False)
     times, outs = {}, {}
+    if "newton" in sections:
+        args = [a.to(dev) for a in data["newton"]]
+        jac, f = nk.newton_assemble(*args)
+        p, q, f2 = nk.power_injections(*args)
+        outs["newton"] = [t.cpu() for t in (jac, f, p, q, f2)]
+        times["newton"] = {
+            "newton_assemble": (cs.time_ms(torch, lambda: nk.newton_assemble(
+                *args), reps=20), cs.device_ms(
+                torch, lambda: nk.newton_assemble(*args), reps=10)),
+            "power_injections": (cs.time_ms(
+                torch, lambda: nk.power_injections(*args), reps=200),
+                cs.device_ms(torch, lambda: nk.power_injections(*args),
+                             reps=50))}
     if "delta" in sections:
         times["delta"], outs["delta"] = measure_delta(torch, cs, sys_,
                                                       data["delta"], dev)
@@ -306,6 +331,11 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
     difference; the delta programs' largest |Δtheta|, |Δv| (limit
     ``CACHE_ATOL``, sweeps at most one apart)."""
     errs = {}
+    if "newton" in a:
+        same = all(cs.same_bits(torch, x, y)
+                   for x, y in zip(a["newton"], b["newton"]))
+        cs.check(same, f"{label}: K1/K2 outputs differ from this checkout's")
+        errs["newton_same_bits"] = same
     for key, (ta, va, sa) in a.get("delta", {}).items():
         tb, vb, sb = b["delta"][key]
         d = max(float((ta - tb).abs().max()), float((va - vb).abs().max()))
@@ -348,7 +378,8 @@ def main() -> int:
                     help="also write the JSON summary here")
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help="comma-separated: sparse (S1-S4, K3 and the "
-                         "solves), delta (the delta program)")
+                         "solves), delta (the delta program), newton (K1 "
+                         "and K2)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
@@ -378,7 +409,8 @@ def main() -> int:
     print(smi, flush=True)
     summary = {"card": smi, "sections": sections,
                "shape": "mesh2000 x 64, S3 at j0 = 12, s = 4, S4 at mm = 16;"
-                        " delta programs mesh2000 x {1, 8} lanes",
+                        " K1/K2 mesh2000 x 64, one Ybus; delta programs "
+                        "mesh2000 x {1, 8} lanes",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
@@ -408,6 +440,9 @@ def main() -> int:
                           f"operations ({sv['operations'] / sv['steps']:.1f}"
                           f" a step), busy {sv['busy_ms']:.2f} ms, wall "
                           f"{sv['wall_ms']:.1f} ms", flush=True)
+                for kern, (ms, dev) in times.get("newton", {}).items():
+                    print(f"ab {other.name} float64 {kern:<26} {which:<5} "
+                          f"{ms:.4f} ms  device {dev:.4f} ms", flush=True)
                 for name in DTYPES:
                     for kern in KERNELS:
                         if kern not in times.get(name, {}):

@@ -54,7 +54,10 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
         "          'freedm_tpu_torch.scenarios.engine',\n"
         "          'freedm_tpu_torch.scenarios.jobs',\n"
         "          'freedm_tpu_torch.pf.topo',\n"
-        "          'freedm_tpu_torch.kernels.topo_kernels'):\n"
+        "          'freedm_tpu_torch.kernels.topo_kernels',\n"
+        "          'freedm_tpu_torch.kernels.solver_kernels',\n"
+        "          'freedm_tpu_torch.pf.fdlf', 'freedm_tpu_torch.pf.krylov',\n"
+        "          'freedm_tpu_torch.pf.cim'):\n"
         "    assert m in sys.modules, m\n"
         "import chip_smoke, kernel_ab\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -67,7 +70,7 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 28  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 30  # every module was imported
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
@@ -95,7 +98,11 @@ def test_static_scan_finds_no_jax_or_reference_import():
             PACKAGE / "scenarios" / "engine.py",
             PACKAGE / "scenarios" / "jobs.py",
             PACKAGE / "pf" / "topo.py",
-            PACKAGE / "kernels" / "topo_kernels.py"} <= set(files)
+            PACKAGE / "kernels" / "topo_kernels.py",
+            PACKAGE / "kernels" / "solver_kernels.py",
+            PACKAGE / "pf" / "fdlf.py", PACKAGE / "pf" / "cim.py",
+            PACKAGE / "grid" / "bus.py",
+            PACKAGE / "core" / "metrics.py"} <= set(files)
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -139,8 +146,9 @@ def test_backend_resolution_matches_reference(backend, n):
 def test_auto_backend_hands_large_mesh_to_the_sparse_solver():
     sys_ = cases.synthetic_mesh(SPARSE_AUTO_MIN_BUSES, seed=3)
     solve, fixed = make_newton_solver(sys_, backend="auto", device="cpu")
-    assert solve.__qualname__.startswith("make_sparse_newton_solver")
-    assert fixed.__qualname__.startswith("make_sparse_newton_solver")
+    # The sparse backend's loops (shared with the matrix-free solver).
+    assert solve.__qualname__.startswith("newton_krylov")
+    assert fixed.__qualname__.startswith("newton_krylov")
     dense, _ = make_newton_solver(cases.synthetic_mesh(40), backend="auto",
                                   device="cpu")
     assert dense.__qualname__.startswith("make_newton_solver")
@@ -201,6 +209,19 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
     from freedm_tpu_torch.kernels import topo_kernels as tk
 
     assert set(tk.launches()) == {"topo_radiality", "topo_screen"}
+    from freedm_tpu_torch.kernels import solver_kernels as sol
+
+    assert set(sol.launches()) == {"ybus_stamp", "fdlf_half_step",
+                                   "residual_jvp", "cim_iterate"}
+    for x in (torch.zeros(2, 8, dtype=torch.float64, device="meta"),):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            sol.residual_jvp(x, x, None)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            sol.fdlf_half_step(sol.INIT, x, *[None] * 15)
+    with pytest.raises(ValueError, match="unknown ybus_stamp mode"):
+        sol._check_stamp_mode(7)
+    with pytest.raises(ValueError, match="unknown fdlf_half_step mode"):
+        sol._check_fdlf_mode(3)
     # Neither CPU nor CUDA: refused before the library loads.
     meta = torch.zeros(2, 2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):

@@ -391,12 +391,13 @@ def test_screen_arguments_are_typed():
         make_n1_screen(sys, device="cpu", dtype=torch.float32)
     with pytest.raises(ValueError, match="dc_prefilter"):
         make_n1_screen(sys, device="cpu", dc_prefilter=0)
-    # The rest of item 8: the FDLF solver, status on the dense backend.
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_fdlf_solver(sys)
+    # The rest of item 8 is ported: the FDLF solver and status on the dense
+    # backend take the same typed status check as the sparse one.
+    fdlf, _ = make_fdlf_solver(sys, device="cpu")
     dense, _ = make_newton_solver(sys, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dense(status=np.ones(sys.n_branch))
+    for solve in (fdlf, dense):
+        with pytest.raises(ValueError, match="status must be"):
+            solve(status=np.ones((2, sys.n_branch - 1)))
 
 
 # ---------------------------------------------------------------------------

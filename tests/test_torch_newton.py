@@ -362,8 +362,8 @@ def test_solver_argument_errors_are_typed(mesh40):
         solve(p_inj=np.zeros(n))
     with pytest.raises(ValueError, match="lane counts"):
         solve(p_inj=np.zeros((2, n)), q_inj=np.zeros((3, n)))
-    with pytest.raises(NotImplementedError, match="status"):
-        solve(status=np.ones(sys.n_branch))
+    with pytest.raises(ValueError, match="status must be"):
+        solve(status=np.ones(sys.n_branch + 1))
     with pytest.raises(NotImplementedError, match="mesh"):
         make_newton_solver(sys, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="precision"):
