@@ -20,13 +20,16 @@ on S1 with status, S2-S4 and K3 —, ``POST /v1/topo`` and ``POST
 bench's sizes — dense Newton with per-lane status on the Ybus stamp (Y1)
 and K1/K2's per-lane form, the fast-decoupled solver (Y1's B′/B″ modes,
 F1), the matrix-free Newton–Krylov solver (J1) and the three-phase CIM
-(I1).
+(I1); the DGI round — FID-gated reachability (R1), group formation and
+election (G1), the draft auction (B1), the state-collection matmul and
+the VVC step (L1/L2) — through ``make_superstep``, ``lb.run_rounds``,
+``gm.form_groups`` and ``topology.node_reachability``.
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build: eight ``nvcc`` runs started together compile
+1. build: nine ``nvcc`` runs started together compile
    ``freedm_tpu_torch/kernels/csrc/newton.cu``, ``sparse.cu``,
-   ``cache.cu``, ``screen.cu``, ``ladder.cu``, ``qsts.cu``, ``topo.cu`` and
-   ``solvers.cu`` for
+   ``cache.cu``, ``screen.cu``, ``ladder.cu``, ``qsts.cu``, ``topo.cu``,
+   ``solvers.cu`` and ``dgi.cu`` for
    ``sm_90a``; prints the build seconds and the ``-Xptxas -v`` reports;
 2. kernels: each kernel against its plain PyTorch version on the card at
    n ∈ {14, 30, 118, 2000} buses and B ∈ {1, 3, 64} lanes (float64,
@@ -256,6 +259,44 @@ Phases (any failure exits non-zero, and no result line is printed):
    CIM feeder × 64 load scales — all converged, the KCL residual under
    ``CIM_KCL_KVA``, the kernel path within ``SOLVE_ATOL`` of the plain
    path with equal iterations, ms a solve.
+24. dgi kernels: G1 against its plain version at N ∈ {3, 16, 256, 1024,
+   4096} (lanes of alive masks, ~10% dead; sparse random groups and, from
+   256, a chain of diameter N; one [B, N, N] case; 4096 takes G1's GLOBAL
+   form, the rest SHARED), R1 on the synthetic topology
+   (``dgi_topology_text``) at V = 48, 1024 × 64 FID scenarios and 2048
+   (R1's device-memory form), B1 at N ∈ {3, 256, 4096} in float32,
+   float64 and float64/float32 (imbalance/gateway), at 1024 fleets × 256
+   and at N = 20000 (B1's GLOBAL form) — one round with malicious nodes and
+   the gate, one without, and a run of rounds; each bit for bit and
+   bit-identical on repeat (G1's and R1's label sweeps printed); then
+   their times (events and device time) beside the plain versions, the
+   bounds and, for G1 and R1, the plain version's float32 ``torch.bmm``
+   squarings alone (a composite of library calls, not one call): G1 at
+   1024 × 1 (the superstep's), 256 × 64 and 4096 × 1, R1 at 1024 × 64, B1
+   at ``bench_lb_256`` (256 × 64 rounds), 1024 × 1 round, 4096 × 64 and
+   1024 fleets × 256 × 64;
+25. dgi: (a) ``bench_lb_256`` (N = 256, normal(0, 10), seed 0, 64 rounds,
+   float32): converged, the kernel and plain trajectories equal,
+   rounds/s; (b) N ∈ {1024, 4096}, one group: the round of convergence
+   and rounds/s (the BASELINE's LB convergence wall-clock against node
+   count); (c) 1024 fleets × 256 nodes, 64 rounds in one launch:
+   fleet-rounds/s; (d) the synthetic topology (1024 vertices, 64 FIDs)
+   over 64 FID scenarios: R1, ``node_reachability`` to 256 SST nodes,
+   batched G1 — groups equal to the plain path's, one R1 and one G1
+   launch;
+26. superstep: ``make_superstep`` against its ``plain=True`` twin, each
+   round from the same state — groups and the LB round equal, the
+   snapshot within ``SUPERSTEP_SC_RTOL``, the VVC loss within
+   ``SUPERSTEP_LOSS_RTOL`` or ``SUPERSTEP_LOSS_ULPS`` of the load power, q
+   within ``SUPERSTEP_Q_ATOL``: (a) the reference dry run's shapes (16
+   nodes, ``synthetic_radial(96, seed=3, load_kw=5.0)``, 8 lanes, two
+   rounds); (b) 1024 nodes (readings through ``devices.tensor.net_value``
+   from SST, DRER and LOAD rows, reachability from (d)'s topology, 2%
+   dead), ``synthetic_radial(10000, seed=0, load_kw=1.0)`` × 64 lanes, 10
+   rounds: ms a round by CUDA events split into GM, LB, SC and VVC, G1,
+   B1, L1 and L2 launches a round (R1 once, the reachability; these are
+   the kernel table's launches of G1, R1 and B1) and the device busy
+   share.
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
@@ -269,8 +310,10 @@ and other shapes; A1 its S = 4 times; A1, Q1 and Q2 the path of their
 launches; T1 and T2 their mesh2000 × 16384 times, T2 DETAIL, the
 refactorization head-to-head and the |det C| margin, both their launches
 on the served paths; Y1-I1 their other shapes and modes, the float32
-gaps and the path of their launches, F1 the numbers of phase 22); the
-last line is ``{"ok": true, "device": {...}}``.
+gaps and the path of their launches, F1 the numbers of phase 22; G1, R1
+and B1 their other shapes, device times, G1's and R1's float32 squarings
+as a library composite, their launches in phase 25 (d) and the
+superstep's split); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -322,7 +365,7 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, sol, build):
+def build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, sol, dk, build):
     t0 = time.monotonic()
     box = {}
 
@@ -333,7 +376,7 @@ def build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, sol, build):
             box["error"] = e
 
     names = ("newton", "sparse", "cache", "screen", "ladder", "qsts", "topo",
-             "solvers")
+             "solvers", "dgi")
     threads = [threading.Thread(target=run_nvcc, args=(name,))
                for name in names]
     for th in threads:
@@ -350,6 +393,7 @@ def build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, sol, build):
     qk._qsts_lib()
     tk._topo_lib()
     sol._solvers_lib()
+    dk._dgi_lib()
     t_all = time.monotonic() - t0
     log(f"build: nvcc x{len(names)} {t_all:.1f} s ("
         + ", ".join(f"{k}.cu {box[k][1]:.1f} s" for k in names) + "), "
@@ -5245,13 +5289,15 @@ KRYLOV_LANES = 256
 NORTH_STAR_MS = 10.0
 
 
-def median_ms(torch, fn, reps):
+def median_ms(torch, fn, reps, dev="cuda"):
+    """Median host wall of ``fn`` over ``reps`` runs, each ending in a
+    sync of the device (none on the CPU)."""
     ts = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        sync(torch, dev)
         t0 = time.monotonic()
         fn()
-        torch.cuda.synchronize()
+        sync(torch, dev)
         ts.append((time.monotonic() - t0) * 1e3)
     return float(np.median(ts))
 
@@ -5496,6 +5542,663 @@ def cim_phase(torch, sol):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 24-26: the on-device DGI modules (G1, R1, B1) and the superstep
+# ---------------------------------------------------------------------------
+
+#: Phase 24's widths: G1 at each N (lanes of alive masks; the 4096-node
+#: matrix takes G1's GLOBAL form), B1 at each N, R1 on the synthetic
+#: topology (phase 25 (d)'s).
+DGI_G1_NODES = ((3, 8), (16, 8), (256, 8), (256, 256), (1024, 2),
+                (4096, 1))
+DGI_B1_NODES = (3, 256, 4096)
+#: B1's GLOBAL form (the working set in device memory), once.
+DGI_B1_GLOBAL_NODES = 20000
+DGI_FLEETS = 1024
+DGI_FLEET_NODES = 256
+DGI_ROUNDS = 64
+#: The synthetic topology of phases 25 (d) and 26 (b): vertices, FIDs,
+#: FID scenarios, SST nodes of (d).
+DGI_VERTICES = 1024
+DGI_FIDS = 64
+DGI_SCENARIOS = 64
+DGI_SST_NODES = 256
+#: Phase 26 (b): fleet nodes, the 10k feeder's scenario lanes, rounds.
+SUPERSTEP_NODES = 1024
+SUPERSTEP_LANES = 64
+SUPERSTEP_ROUNDS = 10
+SUPERSTEP_FEEDER = 10000
+#: The CPU test's tolerances of the superstep's VVC leg (float32 ladder,
+#: tests/test_torch_superstep.py): loss relative, q in kvar; the snapshot
+#: relative (the same library product on the same inputs).
+SUPERSTEP_LOSS_RTOL = 1e-4
+SUPERSTEP_Q_ATOL = 1e-3
+SUPERSTEP_SC_RTOL = 1e-5
+#: The float32 loss is the substation's power less the loads' (a
+#: difference of two sums of the lane's size): kernel and plain path may
+#: differ by a few float32 ulps of the lane's load power, which is more
+#: than 1e-4 of a small loss.  On the dry run's feeder (96 nodes x 5 kW)
+#: phase 26 (a) measured 5.0e-4 of the loss, 1.6e-7 of the load power
+#: (H100), so the loss gap is held to SUPERSTEP_LOSS_RTOL of the loss or
+#: this many ulps of the load power.
+SUPERSTEP_LOSS_ULPS = 16
+
+
+def dgi_topology_text(n_vertices=None, n_fids=None, seed=13):
+    """A synthetic ``topology.cfg``: a random tree over ``n_vertices``
+    (each vertex's parent among the 8 before it), three quarters of the
+    FIDs on tree edges (opening one splits the tree), the rest ties
+    between vertices further apart, an ``sst`` line a vertex
+    (uuid ``n<i>``)."""
+    n_vertices = n_vertices or DGI_VERTICES
+    n_fids = n_fids or DGI_FIDS
+    rng = np.random.default_rng(seed)
+    parent = [int(rng.integers(max(0, i - 8), i)) for i in range(1, n_vertices)]
+    on_tree = set(rng.choice(n_vertices - 1, size=3 * n_fids // 4,
+                             replace=False).tolist())
+    lines, k = [], 0
+    for c, p in enumerate(parent):
+        if c in on_tree:
+            lines.append(f"fid v{p} v{c + 1} F{k}")
+            k += 1
+        else:
+            lines.append(f"edge v{p} v{c + 1}")
+    pairs = {frozenset((p, c + 1)) for c, p in enumerate(parent)}
+    while k < n_fids:
+        a, b = (int(x) for x in rng.integers(0, n_vertices, 2))
+        if a != b and frozenset((a, b)) not in pairs:
+            pairs.add(frozenset((a, b)))
+            lines.append(f"fid v{a} v{b} F{k}")
+            k += 1
+    lines += [f"sst v{i} n{i}" for i in range(n_vertices)]
+    return "\n".join(lines) + "\n"
+
+
+def g1_graph(n, lanes, seed, chain=False):
+    """G1 inputs: a sparse symmetric reachability (a random path through
+    each of ``n // 32 + 1`` random groups plus a few chords in the group,
+    or one path through every node: diameter n), alive masks with ~10%
+    dead nodes (lane 0 all alive) and raw 32-bit priorities."""
+    rng = np.random.default_rng(seed)
+    reach = np.zeros((n, n), np.float32)
+    groups = (np.zeros(n, np.int64) if chain
+              else rng.integers(0, n // 32 + 1, n))
+    for g in np.unique(groups):
+        members = rng.permutation(np.nonzero(groups == g)[0])
+        reach[members[:-1], members[1:]] = 1.0
+        if not chain and len(members) > 2:
+            a, b = rng.choice(members, (2, len(members) // 4))
+            reach[a, b] = 1.0
+    reach = np.maximum(reach, reach.T)
+    alive = rng.uniform(size=(lanes, n)) >= 0.1
+    alive[0] = True
+    prio = rng.integers(0, 2 ** 32, n).astype(np.float64)
+    return reach, alive, prio
+
+
+def gm_priority(n):
+    """The default election priority (``gm.node_priority``)."""
+    from freedm_tpu_torch.modules.gm import node_priority
+
+    return node_priority(n).astype(np.float64)
+
+
+def g1_rank(torch, prio, dev):
+    p = torch.as_tensor(prio, device=dev)
+    return (torch.argsort(torch.argsort(p, stable=True), stable=True)
+            + 1).to(torch.int32)
+
+
+def same_fields(torch, a, b):
+    """Every tensor field of two named tuples equal (bit for bit for
+    floats: NaN-free 0/1 and ±step sums)."""
+    return all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def compare_dgi(torch, dk, errs, dev="cuda"):
+    """Phase 24's checks: G1, R1 and B1 against their plain versions on the
+    card, bit for bit, and bit-identical on repeat."""
+    from freedm_tpu_torch.grid import topology as top
+    from freedm_tpu_torch.modules import lb
+
+    t0 = time.monotonic()
+    sweeps_seen = {}
+    for n, lanes in DGI_G1_NODES:
+        for chain in (False, True, "directed"):
+            if chain and n < 256 or chain == "directed" and n > 1024:
+                continue
+            reach, alive, prio = g1_graph(n, lanes, seed=n + bool(chain),
+                                          chain=chain is True)
+            if chain == "directed":  # outside the contract: the reference's
+                reach = np.triu(reach)  # directed closure, label sweeps
+            rank = g1_rank(torch, prio, dev)
+            al = torch.as_tensor(alive, device=dev)
+            rs = torch.as_tensor(reach, device=dev)[None]
+            per_lane = n == 256 and not chain  # [B, N, N]: the lane stride
+            if per_lane:
+                rs = rs.expand(lanes, n, n).clone()
+                rs[1:, :, : n // 2] = 0.0  # other graphs in other lanes
+                rs = torch.maximum(rs, rs.mT).contiguous()
+            sw = torch.empty(lanes, dtype=torch.int32, device=dev)
+            got = dk.form_groups(al, rs, rank, sweeps=sw)
+            again = dk.form_groups(al, rs, rank)
+            want = dk.form_groups_plain(al, rs, rank)
+            if dev != "cpu" and n <= 1024:  # the other form, the same bits
+                other = (dk.SHARED if dk.g1_form(n, lanes) == dk.GLOBAL
+                         else dk.GLOBAL)
+                check(same_fields(torch, got, dk.form_groups(
+                    al, rs, rank, form=other)),
+                      f"dgi kernels: G1 n={n} {other} form differs")
+            sync(torch, dev)
+            tag = f"G1 n={n} x{lanes}{' ' + str(chain) if chain else ''}"
+            check(same_fields(torch, got, want),
+                  f"dgi kernels: {tag} differs from its plain version: "
+                  f"{[torch.equal(x, y) for x, y in zip(got, want)]}")
+            check(same_fields(torch, got, again),
+                  f"dgi kernels: {tag} not bit-identical on repeat")
+            sweeps_seen[tag] = (sw.tolist() if dev != "cpu" else [],
+                                got.n_groups.tolist(), dk.g1_form(n, lanes))
+    log(f"dgi kernels: G1 equal to its plain version and on repeat "
+        f"(hooking rounds, or minus the directed label sweeps; groups; "
+        f"form): {sweeps_seen}")
+    for v, s in ((48, 4), (DGI_VERTICES, DGI_SCENARIOS), (2048, 4)):
+        topo = top.parse_topology(dgi_topology_text(v, min(DGI_FIDS, v // 2)))
+        op = dk.reach_operands(topo.adj, topo.fid_edges, torch.device(dev))
+        rng = np.random.default_rng(v)
+        closed = torch.as_tensor(rng.uniform(size=(s, topo.n_fids)) > 0.3,
+                                 dtype=torch.float32, device=dev)
+        sw = torch.empty(s, dtype=torch.int32, device=dev)
+        got = dk.reach_closure(op, closed, sweeps=sw)
+        again = dk.reach_closure(op, closed)
+        want = dk.reach_closure_plain(op, closed)
+        sync(torch, dev)
+        check(torch.equal(got, want),
+              f"dgi kernels: R1 V={v} x{s} differs from its plain version "
+              f"({int((got != want).sum())} entries)")
+        check(torch.equal(got, again),
+              f"dgi kernels: R1 V={v} x{s} not bit-identical on repeat")
+        comps = [len(torch.unique(got[k], dim=0)) for k in range(min(s, 4))]
+        log(f"dgi kernels: R1 V={v} x {s} FID scenarios equal and "
+            f"repeatable; components of the first scenarios {comps}; hooking "
+            f"rounds {sorted(set(sw.tolist())) if dev != 'cpu' else '-'}; "
+            f"form {'SHARED' if dk.r1_smem_bytes(v, True) <= dk.SMEM_LIMIT else 'GLOBAL'}")
+    f32, f64 = torch.float32, torch.float64
+    b1_cases = [(n, 1, t) for n in DGI_B1_NODES
+                for t in ((f32, f32), (f64, f64), (f64, f32))]
+    b1_cases += [(DGI_FLEET_NODES, DGI_FLEETS, (f32, f32)),
+                 (DGI_B1_GLOBAL_NODES, 1, (f64, f64))]
+    for n, fleets, (tn, tg) in b1_cases:
+        rng = np.random.default_rng(n + fleets)
+        g = rng.integers(0, max(1, n // 48), (fleets, n))
+        gid = torch.as_tensor(np.stack([lb_gid(x) for x in g]),
+                              dtype=torch.int32, device=dev)
+        ng = torch.as_tensor(rng.normal(0, 10, (fleets, n)), dtype=tn,
+                             device=dev)
+        gw = torch.as_tensor(np.round(rng.normal(0, 2, (fleets, n)), 1),
+                             dtype=tg, device=dev)
+        mal = torch.as_tensor(rng.uniform(size=(fleets, n)) < 0.2,
+                              dtype=torch.float32, device=dev)
+        gate = torch.as_tensor(rng.uniform(size=(fleets, n)) < 0.9,
+                               device=dev)
+        tag = f"B1 n={n} x{fleets} {tn}/{tg}".replace("torch.", "")
+        for step, rounds, kw in ((0.5, 1, dict(malicious=mal, gate=gate,
+                                                round_outputs=True)),
+                                 (1.0, 1, dict(round_outputs=True)),
+                                 (1.0, 8 if n > 4096 else DGI_ROUNDS // 2,
+                                  dict(malicious=mal))):
+            got = dk.lb_rounds(ng, gw, gid, step, rounds, **kw)
+            again = dk.lb_rounds(ng, gw, gid, step, rounds, **kw)
+            want = dk.lb_rounds_plain(ng, gw, gid, step, rounds, **kw)
+            sync(torch, dev)
+            check(same_fields(torch, got, want),
+                  f"dgi kernels: {tag} step {step} x{rounds} differs from "
+                  f"its plain version: "
+                  f"{[x is None or torch.equal(x, y) for x, y in zip(got, want)]}")
+            check(same_fields(torch, got, again),
+                  f"dgi kernels: {tag} x{rounds} not bit-identical on repeat")
+        log(f"dgi kernels: {tag} equal and repeatable (one round with "
+            f"malicious and gate, one without, {rounds} rounds), form "
+            f"{dk.lb_form(n, torch.empty((), dtype=tg).element_size())}, "
+            f"migrations of the last round {int(got.migrations[:, -1].sum())}")
+    for name in ("form_groups", "reach_closure", "lb_rounds"):
+        errs[name] = 0.0  # every comparison above is exact
+    log(f"dgi kernels: phase 24 checks {time.monotonic() - t0:.1f} s")
+
+
+def lb_gid(groups):
+    """:func:`lb.group_ids` of a partition given by labels: each node's
+    smallest same-label index."""
+    first = {}
+    for i, g in enumerate(groups.tolist()):
+        first.setdefault(g, i)
+    return np.array([first[g] for g in groups.tolist()], np.int32)
+
+
+def events_ms(torch, fn, reps):
+    """Median device time of one call of ``fn`` by CUDA events around it,
+    the device idle before each (the launch gap counted in: µs)."""
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
+def dgi_device_ms(torch, fn, reps, label):
+    """The profiler's device time of one call (:func:`device_ms`), or CUDA
+    events per call where the whole script's traces come back without
+    device events (as for L1/L2, T1/T2 before)."""
+    try:
+        return device_ms(torch, fn, reps)
+    except SmokeFailure:
+        log(f"timing: {label}: the profiler recorded no device time; CUDA "
+            f"events per call")
+        return events_ms(torch, fn, reps)
+
+
+def g1_bound(n, lanes, reach_lanes):
+    """G1's bytes: reach, alive and rank read once; coordinator,
+    group_mask, is_coordinator, group_size and n_groups written once."""
+    read = reach_lanes * n * n * 4 + lanes * n + 4 * n
+    write = lanes * (n * n * 4 + 9 * n + 4)
+    return bound(read + write, 0, fp64=False)
+
+
+def time_dgi(torch, dk, rows, extra):
+    """Phase 24's times (events and device time) beside the plain versions,
+    the bounds and, for G1 and R1, the plain version's float32 squarings
+    alone (a composite of library calls)."""
+    from freedm_tpu_torch.grid import topology as top
+
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    g1_rows = {}
+    for n, lanes in ((SUPERSTEP_NODES, 1), (DGI_SST_NODES, DGI_SCENARIOS),
+                     (4096, 1)):
+        reach, alive, prio = g1_graph(n, lanes, seed=7 * n)
+        rank = g1_rank(torch, prio, dev)
+        al = torch.as_tensor(alive, device=dev)
+        rs = torch.as_tensor(reach, device=dev)[None].contiguous()
+        k = time_ms(torch, lambda: dk.form_groups(al, rs, rank), 20)
+        d = dgi_device_ms(torch, lambda: dk.form_groups(al, rs, rank), 20,
+                          f"form_groups n={n} x{lanes}")
+        p = time_ms(torch, lambda: dk.form_groups_plain(al, rs, rank), 3)
+        adj = rs.expand(lanes, n, n).contiguous()
+        sq = dk.closure_rounds(n) + 1
+        lib = time_ms(torch, lambda: [torch.bmm(adj, adj) for _ in range(sq)],
+                      3)
+        b, by = g1_bound(n, lanes, 1)
+        g1_rows[f"{n}x{lanes}"] = dict(ms=k, device_ms=d, plain_ms=p,
+                                       bound_ms=b, form=dk.g1_form(n, lanes),
+                                       matmul_squarings_ms=lib,
+                                       matmul_squarings=sq)
+        log(f"timing: form_groups n={n} x{lanes} ({dk.g1_form(n, lanes)}) event "
+            f"{k:.4f} ms, device {d:.4f} ms; plain {p:.4f} ms; bound "
+            f"{b:.5f} ms ({by}); library composite: {sq} float32 "
+            f"torch.bmm squarings {lib:.4f} ms")
+    forms = {}
+    for n in (256, SUPERSTEP_NODES):  # the forms against lanes (g1_form)
+        for lanes in (1, 16, 64, 128):
+            reach, alive, prio = g1_graph(n, lanes, seed=3)
+            rank = g1_rank(torch, prio, dev)
+            al = torch.as_tensor(alive, device=dev)
+            for name, rs in (("sparse", torch.as_tensor(reach, device=dev)[
+                    None].contiguous()), ("all-ones", torch.ones(
+                        1, n, n, device=dev))):
+                ms = [events_ms(torch, lambda: dk.form_groups(
+                    al, rs, rank, form=f), 10) for f in (dk.SHARED, dk.GLOBAL)]
+                forms[f"{n}x{lanes} {name}"] = ms
+    log("timing: form_groups ms (CUDA events per call) SHARED / GLOBAL by "
+        "N x lanes: "
+        + "; ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in forms.items()))
+    main = g1_rows[f"{SUPERSTEP_NODES}x1"]
+    rows["form_groups"] = (main["ms"], main["plain_ms"], None,
+                           main["bound_ms"], "bytes")
+    extra["form_groups"] = {"shape": f"N={SUPERSTEP_NODES} x 1 lane",
+                            "device_ms": main["device_ms"],
+                            "library_composite_ms": main[
+                                "matmul_squarings_ms"],
+                            "library_composite": (
+                                f"{main['matmul_squarings']} float32 "
+                                "torch.bmm squarings (TF32 off), not one call"),
+                            "other_shapes": g1_rows,
+                            "forms_device_ms": forms}
+    topo = top.parse_topology(dgi_topology_text())
+    op = dk.reach_operands(topo.adj, topo.fid_edges, dev)
+    rng = np.random.default_rng(1)
+    closed = torch.as_tensor(rng.uniform(size=(DGI_SCENARIOS, DGI_FIDS)) > 0.3,
+                             dtype=torch.float32, device=dev)
+    k = time_ms(torch, lambda: dk.reach_closure(op, closed), 20)
+    d = dgi_device_ms(torch, lambda: dk.reach_closure(op, closed), 20,
+                      "reach_closure")
+    p = time_ms(torch, lambda: dk.reach_closure_plain(op, closed), 3)
+    v = DGI_VERTICES
+    r = torch.ones(DGI_SCENARIOS, v, v, device=dev)
+    sq = dk.closure_rounds(v)
+    lib = time_ms(torch, lambda: [torch.bmm(r, r) for _ in range(sq)], 3)
+    b, by = bound(op.bits.numel() * 4 + 8 * DGI_FIDS + closed.numel() * 4
+                  + DGI_SCENARIOS * v * v * 4, 0)
+    rows["reach_closure"] = (k, p, None, b, by)
+    extra["reach_closure"] = {
+        "shape": f"V={v} x S={DGI_SCENARIOS} FID scenarios, {DGI_FIDS} FIDs",
+        "device_ms": d, "library_composite_ms": lib,
+        "library_composite": f"{sq} float32 torch.bmm squarings (TF32 off), "
+                             "not one call"}
+    log(f"timing: reach_closure V={v} x{DGI_SCENARIOS} event {k:.4f} ms, "
+        f"device {d:.4f} ms; plain {p:.4f} ms; bound {b:.5f} ms ({by}); "
+        f"library composite: {sq} float32 torch.bmm squarings {lib:.4f} ms")
+    b1_rows = {}
+    for n, fleets, rounds in ((256, 1, DGI_ROUNDS), (SUPERSTEP_NODES, 1, 1),
+                              (4096, 1, DGI_ROUNDS),
+                              (DGI_FLEET_NODES, DGI_FLEETS, DGI_ROUNDS)):
+        rng = np.random.default_rng(0)
+        ng = torch.as_tensor(rng.normal(0, 10, (fleets, n)),
+                             dtype=torch.float32, device=dev)
+        gw = torch.zeros(fleets, n, dtype=torch.float32, device=dev)
+        gid = torch.zeros(1, n, dtype=torch.int32, device=dev)
+        call = lambda: dk.lb_rounds(ng, gw, gid, 1.0, rounds)  # noqa: E731
+        k = time_ms(torch, call, 20)
+        d = dgi_device_ms(torch, call, 20, f"lb_rounds n={n} x{fleets}")
+        p = time_ms(torch, lambda: dk.lb_rounds_plain(ng, gw, gid, 1.0,
+                                                      rounds), 2)
+        b, by = bound(fleets * n * 8 + 4 * n + fleets * n * 4
+                      + fleets * rounds * (4 + 4 * n), 0, fp64=False)
+        b1_rows[f"{n}x{fleets}x{rounds}"] = dict(ms=k, device_ms=d,
+                                                 plain_ms=p, bound_ms=b)
+        log(f"timing: lb_rounds n={n} x{fleets} fleets x{rounds} rounds "
+            f"float32 event {k:.4f} ms, device {d:.4f} ms; plain {p:.4f} "
+            f"ms; bound {b:.5f} ms ({by}); no single library call")
+    main = b1_rows[f"256x1x{DGI_ROUNDS}"]
+    rows["lb_rounds"] = (main["ms"], main["plain_ms"], None, main["bound_ms"],
+                         "bytes")
+    extra["lb_rounds"] = {"shape": f"bench_lb_256: N=256, {DGI_ROUNDS} "
+                                   "rounds, float32",
+                          "device_ms": main["device_ms"],
+                          "other_shapes": b1_rows}
+    log(f"timing: phase 24 times {time.monotonic() - t0:.1f} s")
+
+
+def lb_trajectory(torch, lb, ng, gw, mask, rounds, dev):
+    """``run_rounds`` on the kernel path and its plain twin: equal final
+    gateways, per-round migrations and states; the kernel's result."""
+    got = lb.run_rounds(ng, gw, mask, 1.0, rounds, device=dev)
+    want = lb.run_rounds(ng, gw, mask, 1.0, rounds, device=dev, plain=True)
+    check(all(torch.equal(x, y) for x, y in zip(got, want)),
+          "dgi: run_rounds differs from its plain twin")
+    return got
+
+
+def converged_at(migs):
+    """The first round with no migration (-1 if none)."""
+    zero = np.nonzero(np.asarray(migs) == 0)[0]
+    return int(zero[0]) if len(zero) else -1
+
+
+def dgi_phase(torch, dk, dev="cuda"):
+    """Phase 25 (a)-(d) of the module docstring; returns R1 and G1's
+    launches in (d).  ``dev="cpu"`` rehearses it on the plain versions."""
+    from freedm_tpu_torch.grid import topology as top
+    from freedm_tpu_torch.modules import gm, lb
+
+    dev = torch.device(dev)
+    t0 = time.monotonic()
+    rng = np.random.default_rng(0)
+    ng = rng.normal(0, 10, 256)
+    gw0 = np.zeros(256)
+    mask = torch.ones(256, 256, device=dev)
+    gw, migs, _ = lb_trajectory(torch, lb, ng.astype(np.float32),
+                                gw0.astype(np.float32), mask, DGI_ROUNDS, dev)
+    check(int(migs[-1]) == 0, "dgi (a): bench_lb_256 did not converge")
+    run = lambda: lb.run_rounds(ng.astype(np.float32),  # noqa: E731
+                                gw0.astype(np.float32), mask, 1.0,
+                                DGI_ROUNDS, device=dev)
+    ms = median_ms(torch, run, 10, dev)
+    log(f"dgi (a): bench_lb_256 (N=256, normal(0, 10), seed 0, {DGI_ROUNDS} "
+        f"rounds, float32): converged at round {converged_at(migs.tolist())}"
+        f", kernel and plain trajectories equal; {ms:.4f} ms a run "
+        f"(median of 10, host clock), {DGI_ROUNDS / ms * 1e3:.0f} rounds/s "
+        f"(the reference bench's lb_256node_rounds_per_sec)")
+    for n in (1024, 4096):
+        rng = np.random.default_rng(n)
+        ng = rng.normal(0, 10, n).astype(np.float32)
+        gw0 = np.zeros(n, np.float32)
+        mask = torch.ones(n, n, device=dev)
+        rounds = 2 * DGI_ROUNDS
+        _, migs, _ = lb_trajectory(torch, lb, ng, gw0, mask, rounds, dev)
+        at = converged_at(migs.tolist())
+        check(at > 0, f"dgi (b): N={n} did not converge in {rounds} rounds")
+        ms = median_ms(torch, lambda: lb.run_rounds(ng, gw0, mask, 1.0,
+                                                  rounds, device=dev), 5, dev)
+        log(f"dgi (b): N={n} one group, normal(0, 10): converged at round "
+            f"{at}; {rounds} rounds {ms:.4f} ms (median of 5), "
+            f"{rounds / ms * 1e3:.0f} rounds/s, convergence wall "
+            f"{ms * at / rounds:.4f} ms")
+    rng = np.random.default_rng(3)
+    f, n = DGI_FLEETS, DGI_FLEET_NODES
+    ng = rng.normal(0, 10, (f, n)).astype(np.float32)
+    groups = rng.integers(0, 4, (f, n))
+    masks = torch.as_tensor(groups[:, :, None] == groups[:, None, :],
+                            dtype=torch.float32, device=dev)
+    gw, migs, _ = lb_trajectory(torch, lb, ng, np.zeros_like(ng), masks,
+                                DGI_ROUNDS, dev)
+    ms = median_ms(torch, lambda: lb.run_rounds(
+        ng, np.zeros_like(ng), masks, 1.0, DGI_ROUNDS, device=dev), 5, dev)
+    done = int((migs[:, -1] == 0).sum())
+    log(f"dgi (c): {f} fleets x {n} nodes (4 groups each), {DGI_ROUNDS} "
+        f"rounds in one launch: {done}/{f} fleets converged, kernel and "
+        f"plain equal; {ms:.3f} ms (median of 5), "
+        f"{f * DGI_ROUNDS / ms * 1e3:.0f} fleet-rounds/s")
+    topo = top.parse_topology(dgi_topology_text())
+    uuids = tuple(f"n{4 * i}" for i in range(DGI_SST_NODES))
+    closed = rng.uniform(size=(DGI_SCENARIOS, DGI_FIDS)) > 0.3
+    alive = rng.uniform(size=(DGI_SCENARIOS, DGI_SST_NODES)) >= 0.05
+    dk.reset_launches()
+    node_reach = top.node_reachability(topo, uuids, device=dev)
+    nr = node_reach(closed)
+    g = gm.form_groups(alive, nr, device=dev)
+    sync(torch, dev)
+    counts = dk.launches()
+    nr_p = top.node_reachability(topo, uuids, device=dev, plain=True)(closed)
+    g_p = gm.form_groups(alive, nr_p, device=dev, plain=True)
+    check(torch.equal(nr, nr_p), "dgi (d): node reachability differs")
+    check(torch.equal(g.n_groups, g_p.n_groups)
+          and same_fields(torch, g, g_p), "dgi (d): groups differ")
+    check(dev.type == "cpu" or counts["reach_closure"] == 1
+          and counts["form_groups"] == 1, f"dgi (d): launches {counts}")
+    ms = median_ms(torch, lambda: gm.form_groups(alive, node_reach(closed),
+                                               device=dev), 5, dev)
+    ng_ = g.n_groups.tolist()
+    log(f"dgi (d): topology V={DGI_VERTICES}, {DGI_FIDS} FIDs x "
+        f"{DGI_SCENARIOS} FID scenarios -> R1 -> node_reachability to "
+        f"{DGI_SST_NODES} SST nodes -> batched G1 (5% dead): groups a "
+        f"scenario {min(ng_)}-{max(ng_)}, equal to the plain path; "
+        f"launches {counts}; {ms:.3f} ms the three (median of 5)")
+    log(f"dgi: phase 25 {time.monotonic() - t0:.1f} s")
+    return counts
+
+
+def superstep_fleet(torch, n, seed, dev):
+    """Host readings of ``n`` nodes (SST gateway 0, DRER generation and
+    LOAD drain |normal(0, 5)|) as a DeviceTensor ``[n, 3, ns]``; the
+    netgen and gateway vectors through ``devices.tensor.net_value``."""
+    from freedm_tpu_torch.devices import compile_layout
+    from freedm_tpu_torch.devices import tensor as dt
+
+    lay = compile_layout()
+    rng = np.random.default_rng(seed)
+    state = np.zeros((n, 3, lay.n_signals))
+    state[:, 1, lay.signal_index("generation")] = np.abs(rng.normal(0, 5, n))
+    state[:, 2, lay.signal_index("drain")] = np.abs(rng.normal(0, 5, n))
+    one = dt.from_host(lay, 3, ("Sst", "Drer", "Load"), state[0], device=dev)
+    t = dt.DeviceTensor(
+        state=torch.as_tensor(state, dtype=torch.float32, device=dev),
+        command=one.command.expand(n, -1, -1).contiguous(),
+        type_id=one.type_id.expand(n, -1).contiguous(),
+        alive=one.alive.expand(n, -1).contiguous())
+    ids = lay.type_ids
+    netgen = (dt.net_value(t, ids["Drer"], lay.signal_index("generation"))
+              - dt.net_value(t, ids["Load"], lay.signal_index("drain")))
+    gateway = dt.net_value(t, ids["Sst"], lay.signal_index("gateway"))
+    return netgen, gateway
+
+
+def superstep_gaps(torch, out, want):
+    """The CPU test's comparison of a kernel-path superstep with its plain
+    twin: group and lb_out equal; the snapshot, losses and q gaps."""
+    check(same_fields(torch, out.group, want.group), "superstep: groups differ")
+    check(same_fields(torch, out.lb_out, want.lb_out),
+          "superstep: lb_out differs")
+    sc_gap = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                 for a, b in zip(out.collected[:6], want.collected[:6]))
+    check(torch.equal(out.collected.members, want.collected.members)
+          and sc_gap <= SUPERSTEP_SC_RTOL, f"superstep: collected {sc_gap:.3e}")
+    gap = (out.vvc_loss - want.vvc_loss).abs()
+    p_load = want.state.s_load.re.abs().sum(dim=(-2, -1))
+    eps = torch.finfo(torch.float32).eps
+    limit = torch.maximum(SUPERSTEP_LOSS_RTOL * want.vvc_loss.abs(),
+                          SUPERSTEP_LOSS_ULPS * eps * p_load)
+    loss = float((gap / want.vvc_loss.abs().clamp(min=1e-30)).max())
+    of_load = float((gap / p_load).max())
+    q = max_err(out.state.q_ctrl, want.state.q_ctrl)
+    check(bool((gap <= limit).all()) and q <= SUPERSTEP_Q_ATOL,
+          f"superstep: vvc loss {loss:.3e} relative ({of_load:.3e} of the "
+          f"load), q {q:.3e} kvar")
+    return sc_gap, loss, q, of_load
+
+
+def superstep_phase(torch, dk, lk, dev="cuda"):
+    """Phase 26 (a) and (b) of the module docstring; returns G1, B1 and
+    R1's launches over (b)'s kernel rounds (R1: the reachability) and the
+    ms a round by phase.  ``dev="cpu"`` rehearses it on the plain
+    versions (no times)."""
+    from freedm_tpu_torch.grid import topology as top
+    from freedm_tpu_torch.grid.cases import synthetic_radial
+    from freedm_tpu_torch.parallel import make_superstep
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    t0 = time.monotonic()
+    feeder = synthetic_radial(96, seed=3, load_kw=5.0)
+    step, shard = make_superstep(feeder=feeder, device=dev)
+    step_p, _ = make_superstep(feeder=feeder, device=dev, plain=True)
+    netgen, gateway = superstep_fleet(torch, 16, 0, dev)
+    st = shard(netgen.cpu().numpy(), gateway.cpu().numpy(),
+               np.linspace(0.8, 1.2, 8))
+    worst = (0.0, 0.0, 0.0, 0.0)
+    for _ in range(2):
+        out, want = step(st), step_p(st)
+        gaps = superstep_gaps(torch, out, want)
+        worst = tuple(max(a, b) for a, b in zip(worst, gaps))
+        check(bool(torch.isfinite(out.vvc_loss).all()), "superstep (a)")
+        st = out.state
+    log(f"superstep (a): the dry run's shapes (16 nodes, synthetic_radial(96,"
+        f" seed=3, load_kw=5.0), 8 scenario lanes), two rounds: groups and "
+        f"lb_out equal to the plain twin, snapshot {worst[0]:.2e}, loss "
+        f"{worst[1]:.2e} relative ({worst[3]:.2e} of the load power), q "
+        f"{worst[2]:.2e} kvar; "
+        f"{int(out.group.n_groups)} group(s), {int(out.lb_out.n_migrations)} "
+        f"migrations in round 2")
+    n = SUPERSTEP_NODES
+    feeder = synthetic_radial(SUPERSTEP_FEEDER, seed=0, load_kw=1.0)
+    dk.reset_launches()
+    lk.reset_launches()
+    topo = top.parse_topology(dgi_topology_text())
+    rng = np.random.default_rng(26)
+    reach = top.node_reachability(
+        topo, tuple(f"n{i}" for i in range(n)), device=dev)(
+        rng.uniform(size=DGI_FIDS) > 0.1)
+    step, shard = make_superstep(feeder=feeder, device=dev)
+    step_p, _ = make_superstep(feeder=feeder, device=dev, plain=True)
+    netgen, gateway = superstep_fleet(torch, n, 1, dev)
+    alive = (rng.uniform(size=n) >= 0.02).astype(np.float32)
+    st = shard(netgen.cpu().numpy(), gateway.cpu().numpy(),
+               rng.uniform(0.7, 1.3, SUPERSTEP_LANES), alive=alive,
+               reachable=reach.cpu().numpy())
+    split = {k: [] for k in ("gm", "lb", "sc", "vvc")}
+    host = {k: [] for k in split}
+    worst = (0.0, 0.0, 0.0, 0.0)
+    walls, plain_walls = [], []
+    for r in range(SUPERSTEP_ROUNDS):
+        marks, names, stamps = [], [], []
+
+        def record(name=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            stamps.append(time.perf_counter())
+            if name is not None:
+                names.append(name)
+
+        sync(torch, dev)
+        t1 = time.monotonic()
+        if on_card:
+            record()
+        out = step(st, record=record if on_card else None)
+        sync(torch, dev)
+        walls.append((time.monotonic() - t1) * 1e3)
+        if r > 0 and on_card:
+            for a, b, name in zip(marks, marks[1:], names):
+                split[name].append(a.elapsed_time(b))
+            for a, b, name in zip(stamps, stamps[1:], names):
+                host[name].append((b - a) * 1e3)
+        t1 = time.monotonic()
+        want = step_p(st)
+        sync(torch, dev)
+        plain_walls.append((time.monotonic() - t1) * 1e3)
+        gaps = superstep_gaps(torch, out, want)
+        worst = tuple(max(a, b) for a, b in zip(worst, gaps))
+        st = out.state
+    counts = {**dk.launches(), **lk.launches()}
+    check(not on_card or counts["form_groups"] == SUPERSTEP_ROUNDS
+          and counts["lb_rounds"] == SUPERSTEP_ROUNDS
+          and counts["reach_closure"] == 1 and counts["ladder_solve"] > 0
+          and counts["ladder_vjp"] == SUPERSTEP_ROUNDS,
+          f"superstep (b): launches {counts}")
+    per = {k: float(np.mean(v)) if v else 0.0 for k, v in split.items()}
+    if on_card:  # G1 alone on this reachability, in each form
+        al = st.alive[None] >= 0.5
+        rs = st.reachable[None].contiguous()
+        rank = g1_rank(torch, gm_priority(n), dev)
+        g1 = {f: events_ms(torch, lambda: dk.form_groups(al, rs, rank, form=f),
+                           20) for f in (dk.SHARED, dk.GLOBAL)}
+        log(f"superstep (b): G1 alone on the round's reachability (density "
+            f"{float(st.reachable.mean()):.3f}), CUDA events per call: SHARED "
+            f"{g1[dk.SHARED]:.4f} ms, GLOBAL {g1[dk.GLOBAL]:.4f} ms")
+    busy = (busy_share(torch, lambda: step(st), "superstep 1024 nodes")
+            if on_card else "")
+    log(f"superstep (b): {n} nodes (readings through devices.tensor."
+        f"net_value; reachability from (d)'s topology, 10% FIDs open; 2% "
+        f"dead), synthetic_radial({SUPERSTEP_FEEDER}, seed=0, load_kw=1.0) x "
+        f"{SUPERSTEP_LANES} lanes, {SUPERSTEP_ROUNDS} rounds, each against "
+        f"the plain twin from the same state: groups and lb_out equal, "
+        f"snapshot {worst[0]:.2e}, loss {worst[1]:.2e} relative "
+        f"({worst[3]:.2e} of the load power), q {worst[2]:.2e} kvar; "
+        f"{int(out.group.n_groups)} groups, "
+        f"{int(out.lb_out.n_migrations)} migrations in the last round; ms a "
+        f"round by CUDA events (rounds 2-{SUPERSTEP_ROUNDS}): "
+        + ", ".join(f"{k.upper()} {v:.3f}" for k, v in per.items())
+        + " (host, to each phase's return: " + ", ".join(
+            f"{k.upper()} {float(np.mean(v)) if v else 0.0:.3f}"
+            for k, v in host.items())
+        + f"; sum {sum(per.values()):.3f}; host wall median "
+        f"{float(np.median(walls[1:])):.3f}; the plain twin's "
+        f"{float(np.median(plain_walls)):.1f}); launches a round: G1 "
+        f"{counts['form_groups'] / SUPERSTEP_ROUNDS:g}, B1 "
+        f"{counts['lb_rounds'] / SUPERSTEP_ROUNDS:g}, L1 "
+        f"{counts['ladder_solve'] / SUPERSTEP_ROUNDS:g}, L2 "
+        f"{counts['ladder_vjp'] / SUPERSTEP_ROUNDS:g} (R1 once: the "
+        f"reachability); {busy}")
+    log(f"superstep: phase 26 {time.monotonic() - t0:.1f} s")
+    return counts, per
+
+
 def main() -> int:
     import torch
 
@@ -5505,6 +6208,7 @@ def main() -> int:
         return 2
     from freedm_tpu_torch.kernels import build
     from freedm_tpu_torch.kernels import cache_kernels as ck
+    from freedm_tpu_torch.kernels import dgi_kernels as dk
     from freedm_tpu_torch.kernels import ladder_kernels as lk
     from freedm_tpu_torch.kernels import newton_kernels as nk
     from freedm_tpu_torch.kernels import qsts_kernels as qk
@@ -5525,10 +6229,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, sol, build)
+        build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, sol, dk, build)
         errs = dict.fromkeys([*nk.LAUNCHES, *sk.LAUNCHES, *ck.LAUNCHES,
                               *sck.LAUNCHES, *lk.LAUNCHES, *qk.LAUNCHES,
-                              *tk.LAUNCHES, *sol.LAUNCHES], 0.0)
+                              *tk.LAUNCHES, *sol.LAUNCHES, *dk.LAUNCHES],
+                             0.0)
         compare_kernels(torch, nk, errs)
         rows, extra = time_kernels(torch, nk)
         solve_mesh2000(torch, nk)
@@ -5618,6 +6323,19 @@ def main() -> int:
                 extra[name]["max_abs_err_f32"] = f32_errs[name + "_f32"]
         extra["fdlf_half_step"]["bench"] = bench
         log(f"solvers: phases 21-23 {time.monotonic() - t21:.1f} s")
+        t24 = time.monotonic()
+        compare_dgi(torch, dk, errs)
+        time_dgi(torch, dk, rows, extra)
+        d_counts = dgi_phase(torch, dk)
+        s_counts, split = superstep_phase(torch, dk, lk)
+        for name in dk.LAUNCHES:
+            counts[name] = s_counts[name]
+            extra[name]["launches_path"] = (
+                "superstep phase (b): 1024 nodes, 10 rounds (R1 once, the "
+                "reachability from the synthetic topology)")
+            extra[name]["launches_dgi_d"] = d_counts[name]
+        extra["form_groups"]["superstep_ms_a_round"] = split
+        log(f"dgi: phases 24-26 {time.monotonic() - t24:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5665,6 +6383,12 @@ def main() -> int:
                          "freedm_tpu/pf/krylov.py:594"),
         "cim_iterate": ("cuda", source + "csrc/solvers.cu",
                         "freedm_tpu/pf/cim.py:163"),
+        "form_groups": ("cuda", source + "csrc/dgi.cu",
+                        "freedm_tpu/modules/gm.py:78"),
+        "reach_closure": ("cuda", source + "csrc/dgi.cu",
+                          "freedm_tpu/grid/topology.py:131"),
+        "lb_rounds": ("cuda", source + "csrc/dgi.cu",
+                      "freedm_tpu/modules/lb.py:114"),
     }
     table = []
     for name, (route, src, replaces) in meta.items():

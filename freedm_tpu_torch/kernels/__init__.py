@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the power-flow, screening, ladder, QSTS
-and topology-sweep paths and the serving cache.
+"""Hand-written Hopper kernels of the power-flow, screening, ladder, QSTS,
+topology-sweep and DGI paths and the serving cache.
 
 - K1 ``newton_assemble``, K2 ``power_injections`` and K3
   ``newton_update`` — CUDA C++ (``csrc/newton.cu``);
@@ -19,11 +19,15 @@ and topology-sweep paths and the serving cache.
 - Y1 ``ybus_stamp``, F1 ``fdlf_half_step``, J1 ``residual_jvp`` and I1
   ``cim_iterate``, the per-lane Ybus stamp, the fast-decoupled
   half-step, the residual JVP of the matrix-free solver and the
-  three-phase CIM iteration — CUDA C++ (``csrc/solvers.cu``).
+  three-phase CIM iteration — CUDA C++ (``csrc/solvers.cu``);
+- G1 ``form_groups``, R1 ``reach_closure`` and B1 ``lb_rounds``, the DGI
+  round's group formation and election, FID-gated reachability and draft
+  auction (every round of a run in one launch) — CUDA C++
+  (``csrc/dgi.cu``).
 
 Each source is built by :mod:`.build` and bound with ctypes.
 :mod:`.newton_kernels`, :mod:`.sparse_kernels`, :mod:`.cache_kernels`,
 :mod:`.screen_kernels`, :mod:`.ladder_kernels`, :mod:`.qsts_kernels`,
-:mod:`.topo_kernels` and :mod:`.solver_kernels` hold the wrappers, their
-plain PyTorch versions and the launch counters.
+:mod:`.topo_kernels`, :mod:`.solver_kernels` and :mod:`.dgi_kernels` hold
+the wrappers, their plain PyTorch versions and the launch counters.
 """

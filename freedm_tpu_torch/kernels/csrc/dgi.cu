@@ -1,0 +1,868 @@
+// On-device DGI kernels for Hopper (sm_90a).
+//
+// G1 form_groups — replaces the XLA program of freedm_tpu/modules/gm.py:78
+//   `form_groups` (:112-145): per lane (an alive mask over N nodes), the
+//   connected components of the alive-masked reachability graph and their
+//   coordinators.  An edge i-j exists when both nodes are alive and
+//   reach[i][j] > 0.  The reference runs ceil(log2 N) + 1 rounds of "label =
+//   max over my row of the labels; A = min(A @ A, 1)" from label = rank
+//   (the rank-compressed priority, 1..N; 0 dead): each live node ends with
+//   the largest rank in its closed row.  Outputs as :127-145: coordinator =
+//   the node of that rank (-1 dead), group_mask[i][j] = both live and equal
+//   labels, is_coordinator, group_size, n_groups.
+//
+// R1 reach_closure — replaces freedm_tpu/grid/topology.py:131
+//   `make_reachability`: per FID scenario, the ungated adjacency with the
+//   closed FID edges set both ways, plus I, closed by ceil(log2 V) float32
+//   squarings; written [S, V, V] float32 0/1.
+//
+// B1 lb_rounds — replaces freedm_tpu/modules/lb.py:114 `lb_round`, iterated
+//   by :256 `run_rounds` (`lb/auction_round`): per round, classification by
+//   the +-step band, the stable lexicographic sort by (group id, class,
+//   -|imbalance| as float32, index), the rank inside each (group, class)
+//   segment, per-group supply and demand counts, rank-vs-count matching,
+//   the +-step gateway update with the malicious drop.
+//
+// Design.  All three are exact functions (integers, 0/1 matrices, sums of
+//   +-step): each kernel matches its plain version bit for bit and gives the
+//   same bits on every run.  No float atomics.
+//
+//   G1 and R1 share the closure.  The adjacency is packed one bit an entry,
+//   a row of w = ceil(N/32) words (128 KB at N = 1024), and the closure is
+//   never formed as a matrix.  A symmetric adjacency — R1's always (the
+//   wrapper refuses another topology; the FID gates are set both ways),
+//   G1's under the reference's contract, checked in one pass — has the
+//   closure "in one component": `components` (Shiloach-Vishkin hooking and
+//   shortcutting, integer atomicMin) gives each node its component's least
+//   index in O(log N) rounds of one pass over the packed rows each (a full
+//   word through the word's least pointer), so a deep radial topology costs
+//   no more rounds than a mesh.  G1's label is then the component's largest
+//   live rank (integer atomicMax); R1 writes "same component".  A
+//   non-symmetric G1 input falls back to `close_labels`, the reference's
+//   directed closure: labels driven to the fixed point "label_i >= label_j
+//   for every edge i->j" by sweeps (max over the row's set bits, then a
+//   jump through the node of one's label), as many as the graph's depth.
+//   Every pointer and label only moves one way and always names a node of
+//   the closed row, so the result is the fixed point whatever order the
+//   racing in-place updates take: the same bits on every run.  The squaring
+//   the reference does costs N^3 multiply-adds a round.
+//
+//   G1 form SHARED (the packed rows fit a CTA, N <= 1312, and N x lanes >=
+//   65536): one CTA a lane packs its rows from reach (a warp a row,
+//   __ballot_sync over 32 floats, sixteen words' loads in flight), checks
+//   symmetry (32 x 32 bit blocks transposed by ballots), closes, counts the
+//   groups (integer atomicAdd on shared counters: the same counts in any
+//   order) and writes every output.  Form GLOBAL (fewer lanes, or N > 1312;
+//   2 MB of bits at N = 4096, L2-resident): four launches — pack and the
+//   symmetry check over grids of row and bit blocks, the labels (one CTA a
+//   lane, the rows read from L2), the mask (a grid of row blocks writing
+//   group_mask from the labels).  A lane's pack and mask move its N^2 floats
+//   in and out, so one SM a lane is too few for few lanes.  R1 is one
+//   CTA a scenario: it copies the packed ungated rows (shared memory, or a
+//   device-memory scratch above V = 1344), sets the closed FID edges with
+//   atomicOr, closes and writes its [V, V] rows.
+//
+//   B1 is one CTA a fleet, R rounds in one launch.  A node's sort key is one
+//   64-bit word: group id (15 bits) | class (2) | ~bits(float32 |imbalance|)
+//   (32; non-negative floats order as their bits) | index (15).  The key is
+//   a total order equal to the reference's stable sort, so an unstable
+//   bitonic sort in shared memory gives its permutation.  Segment starts
+//   come from a block max-scan, segment lengths are written at segment ends,
+//   and a node reads its group's supply and demand counts from its own
+//   segment and the neighbouring one.  The gateway stays in shared memory
+//   across rounds (form SHARED; N <= 8192 in float64) or in a device-memory
+//   scratch (form GLOBAL, up to N = 2^15 - 1).  Float arithmetic is written
+//   with __f*_rn / __d*_rn intrinsics (no contraction), each operation
+//   rounding as the plain version's does.
+//
+// Bounds on an H100 SXM (3.35 TB/s).  G1 at N = 1024 x 1 lane reads reach
+//   (4 MB) and writes group_mask (4 MB): 2.5 us; at B = 64 x N = 256 the
+//   same 32 MB.  R1 at V = 1024 x S = 64 writes 256 MB: 80 us.  B1 reads
+//   and writes a few vectors a fleet (bytes: microseconds); its work is the
+//   sort, N log^2 N compare-exchanges a round, latency-bound in one CTA.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxSmem = 232448;  // shared memory a block may use on Hopper
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowsPerBlock = 32;  // G1 form GLOBAL: rows a pack/mask block
+constexpr int kGridThreads = 256;
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Block-wide integer sum (every thread gets it); `red` is >= 32 shared ints.
+__device__ int block_sum(int v, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // red may still be read by a previous caller
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  int t = 0;
+  for (int k = 0; k < (int)(blockDim.x >> 5); ++k) t += red[k];
+  return t;
+}
+
+// ---------------------------------------------------------------------------
+// G1 / R1: labels of a packed adjacency's closure
+// ---------------------------------------------------------------------------
+
+// Drives lab[0..n) to the largest label reachable from each node along the
+// (directed) set bits.  `bits`: n rows of w words (shared or device
+// memory); lab (shared): > 0 live, 0 dead (a dead node has no set bit in
+// any row); inv[l] the node whose own label is l; wmax: w shared ints.
+// Returns the sweeps run.
+__device__ int close_labels(const uint32_t* bits, int n, int w, int* lab,
+                            const int* inv, int* wmax) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  volatile int* vlab = lab;
+  int sweeps = 0;
+  for (;;) {
+    for (int k = threadIdx.x; k < w; k += blockDim.x) {
+      const int hi = min(32, n - 32 * k);
+      int m = 0;
+      for (int b = 0; b < hi; ++b) m = max(m, vlab[32 * k + b]);
+      wmax[k] = m;
+    }
+    __syncthreads();
+    int changed = 0;
+    for (int i = warp; i < n; i += nwarps) {
+      const uint32_t* row = bits + (size_t)i * w;
+      int m = 0;
+      for (int k = lane; k < w; k += 32) {
+        uint32_t x = row[k];
+        if (x == kFull) {
+          m = max(m, wmax[k]);
+        } else {
+          while (x) {
+            const int b = __ffs(x) - 1;
+            x &= x - 1;
+            m = max(m, vlab[32 * k + b]);
+          }
+        }
+      }
+      m = warp_max(m);
+      if (lane == 0 && m > vlab[i]) {
+        vlab[i] = m;
+        changed = 1;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int l = vlab[i];
+      if (l > 0) {
+        const int l2 = vlab[inv[l]];
+        if (l2 > l) {
+          vlab[i] = l2;
+          changed = 1;
+        }
+      }
+    }
+    ++sweeps;
+    if (!__syncthreads_or(changed)) break;
+  }
+  return sweeps;
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// Nonzero when a 32 x 32 bit block of the packed adjacency breaks symmetry.
+// The calling warp takes blocks first, first + step, ... < w*w: block (I, J)
+// is rows 32I.. word J; it is transposed with 32 ballots, and lane t's
+// transposed row is compared with row 32J + t, word I (the mirror block).
+__device__ int asym_blocks(const uint32_t* bits, int n, int w, int first,
+                           int step) {
+  const int lane = threadIdx.x & 31;
+  int bad = 0;
+  for (int blk = first; blk < w * w; blk += step) {
+    const int bi = blk / w, bj = blk % w;
+    const int row = 32 * bi + lane, mirror = 32 * bj + lane;
+    const uint32_t x = row < n ? bits[(size_t)row * w + bj] : 0u;
+    const uint32_t y = mirror < n ? bits[(size_t)mirror * w + bi] : 0u;
+    uint32_t t = 0;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) {
+      const uint32_t col = __ballot_sync(kFull, (x >> b) & 1u);
+      if (lane == b) t = col;
+    }
+    bad |= t != y;
+  }
+  return __any_sync(kFull, bad);
+}
+
+// Connected components of a symmetric packed adjacency, Shiloach-Vishkin
+// style: p[i] (shared, set to i by the caller) ends as the least node index
+// of i's component.  A round shortcuts every pointer to its root (repeated
+// jumps until none moves), then each node hooks its root onto the least
+// root among its neighbours (integer atomicMin; a full word through the
+// word's least pointer, taken at the round's start).  A pointer only falls
+// and always names a node of its component, so the result is the same
+// whatever order the racing updates take; a round without a hook ends the
+// loop (every edge then joins equal roots).  Each round at least halves
+// the trees that can still hook, so rounds grow as log N, not as the
+// graph's diameter.  A word holding a neighbour whose pointer is the
+// word's least (wmin, at the positions wmask) takes that least at once; so
+// does every word of a dense component after its first round.  wbuf: 2w
+// shared ints.  Returns the hooking rounds.
+__device__ int components(const uint32_t* bits, int n, int w, int* p,
+                          int* wbuf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  volatile int* vp = p;
+  int* wmin = wbuf;
+  unsigned* wmask = (unsigned*)(wbuf + w);
+  int rounds = 0;
+  for (;;) {
+    for (;;) {
+      int moved = 0;
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int up = vp[i], top = vp[up];
+        if (top < up) {
+          vp[i] = top;
+          moved = 1;
+        }
+      }
+      if (!__syncthreads_or(moved)) break;
+    }
+    for (int k = threadIdx.x; k < w; k += blockDim.x) {
+      const int hi = min(32, n - 32 * k);
+      int m = 32 * k;
+      unsigned at = 0;
+      for (int b = 0; b < hi; ++b) {
+        const int v = vp[32 * k + b];
+        if (v < m) {
+          m = v;
+          at = 0;
+        }
+        if (v == m) at |= 1u << b;
+      }
+      wmin[k] = m;
+      wmask[k] = at;
+    }
+    __syncthreads();
+    int hooked = 0;
+    for (int i = warp; i < n; i += nwarps) {
+      const uint32_t* row = bits + (size_t)i * w;
+      int m = n;
+      for (int k = lane; k < w; k += 32) {
+        uint32_t x = row[k];
+        if (x & wmask[k]) {
+          m = min(m, wmin[k]);
+        } else {
+          while (x) {
+            const int b = __ffs(x) - 1;
+            x &= x - 1;
+            m = min(m, vp[32 * k + b]);
+          }
+        }
+      }
+      m = warp_min(m);
+      if (lane == 0) {
+        const int root = vp[i];
+        if (m < root) {
+          atomicMin(&p[root], m);
+          hooked = 1;
+        }
+      }
+    }
+    ++rounds;
+    if (!__syncthreads_or(hooked)) break;
+  }
+  return rounds;
+}
+
+// Row i of G1's masked adjacency, packed by one warp: bit j of word k set iff
+// nodes i and j = 32k + bit are alive and reach_row[j] > 0.  Sixteen words'
+// loads are issued before their ballots (a row is latency-bound otherwise).
+constexpr int kPackUnroll = 16;
+__device__ void pack_row(const float* reach_row, const unsigned char* alive,
+                         bool alive_i, int n, int w, uint32_t* out_row) {
+  const int lane = threadIdx.x & 31;
+  for (int k0 = 0; k0 < w; k0 += kPackUnroll) {
+    float r[kPackUnroll];
+    bool a[kPackUnroll];
+#pragma unroll
+    for (int u = 0; u < kPackUnroll; ++u) {
+      const int j = 32 * (k0 + u) + lane;
+      const bool in = alive_i && j < n;
+      r[u] = in ? reach_row[j] : 0.f;
+      a[u] = in && alive[j];
+    }
+#pragma unroll
+    for (int u = 0; u < kPackUnroll; ++u) {
+      const uint32_t word = __ballot_sync(kFull, a[u] && r[u] > 0.f);
+      if (lane == 0 && k0 + u < w) out_row[k0 + u] = word;
+    }
+  }
+}
+
+// Row i of a 0/1 "same label" matrix, written by one warp (li > 0: live).
+__device__ void label_row(const int* lab, int li, int n, float* out_row) {
+  for (int j = threadIdx.x & 31; j < n; j += 32)
+    out_row[j] = (li > 0 && lab[j] == li) ? 1.f : 0.f;
+}
+
+struct G1Layout {
+  size_t lab, inv, wmax, cnt, red, total;
+};
+
+// Shared memory of G1's CTA a lane (dgi_kernels.g1_smem_bytes): the packed
+// rows when with_bits, then labels, rank -> node, word maxima, group
+// counts and a reduction buffer.
+__host__ __device__ inline G1Layout g1_layout(int n, int w, bool with_bits) {
+  G1Layout s;
+  size_t off = with_bits ? align16((size_t)n * w * 4) : 0;
+  s.lab = off;
+  off = align16(off + 4 * (size_t)n);
+  s.inv = off;
+  off = align16(off + 4 * ((size_t)n + 1));
+  s.wmax = off;  // word maxima, or word minima and their masks: 2w ints
+  off = align16(off + 8 * (size_t)w);
+  s.cnt = off;
+  off = align16(off + 4 * ((size_t)n + 1));
+  s.red = off;
+  s.total = off + 128;
+  return s;
+}
+
+struct G1Args {
+  const float* reach;
+  long long reach_stride;  // floats between lanes' matrices (0: shared)
+  const unsigned char* alive;  // [lanes, n]
+  const int* rank;             // [n], a permutation of 1..n
+  int* coord;
+  float* mask;
+  unsigned char* is_coord;
+  int* size;
+  int* ngroups;
+  int* sweeps;      // [lanes] or null
+  uint32_t* bits;   // form GLOBAL: [lanes, n, w]
+  int* labels;      // form GLOBAL: [lanes, n]
+  int* asym;        // form GLOBAL: [lanes], zeroed; nonzero: not symmetric
+  int n, w;
+};
+
+// Labels of lane b (bits ready), then coordinator, is_coordinator,
+// group_size and n_groups.  A symmetric adjacency (the reference's
+// contract) takes `components`, then each component's largest live rank
+// (integer atomicMax); any other runs the label sweeps of `close_labels`,
+// the reference's directed closure.  Leaves lab in shared memory.
+__device__ void g1_groups(const G1Args& a, int b, const uint32_t* bits,
+                          unsigned char* smem, bool with_bits,
+                          bool symmetric) {
+  const int n = a.n, w = a.w, tid = threadIdx.x, bd = blockDim.x;
+  const G1Layout L = g1_layout(n, w, with_bits);
+  int* lab = (int*)(smem + L.lab);
+  int* inv = (int*)(smem + L.inv);
+  int* wbuf = (int*)(smem + L.wmax);
+  int* cnt = (int*)(smem + L.cnt);
+  int* red = (int*)(smem + L.red);
+  const unsigned char* alive = a.alive + (size_t)b * n;
+  for (int i = tid; i < n; i += bd) inv[a.rank[i]] = i;
+  for (int l = tid; l <= n; l += bd) cnt[l] = 0;
+  __syncthreads();
+  int sweeps;
+  if (symmetric) {
+    for (int i = tid; i < n; i += bd) lab[i] = i;
+    __syncthreads();
+    sweeps = components(bits, n, w, lab, wbuf);
+    for (int i = tid; i < n; i += bd)  // cnt: a component's largest rank
+      if (alive[i]) atomicMax(&cnt[lab[i]], a.rank[i]);
+    __syncthreads();
+    for (int i = tid; i < n; i += bd) lab[i] = alive[i] ? cnt[lab[i]] : 0;
+    __syncthreads();
+    for (int l = tid; l <= n; l += bd) cnt[l] = 0;
+  } else {
+    for (int i = tid; i < n; i += bd) lab[i] = alive[i] ? a.rank[i] : 0;
+    __syncthreads();
+    sweeps = -close_labels(bits, n, w, lab, inv, wbuf);
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += bd)
+    if (lab[i] > 0) atomicAdd(&cnt[lab[i]], 1);
+  __syncthreads();
+  int mine = 0;
+  for (int i = tid; i < n; i += bd) {
+    const int l = lab[i];
+    const size_t o = (size_t)b * n + i;
+    const bool c = l > 0 && a.rank[i] == l;
+    a.coord[o] = l > 0 ? inv[l] : -1;
+    a.is_coord[o] = c;
+    a.size[o] = l > 0 ? cnt[l] : 0;
+    mine += c;
+  }
+  const int groups = block_sum(mine, red);
+  if (tid == 0) {
+    a.ngroups[b] = groups;
+    if (a.sweeps) a.sweeps[b] = sweeps;
+  }
+}
+
+__global__ void __launch_bounds__(1024) g1_shared_kernel(const G1Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x, n = a.n, w = a.w;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  uint32_t* bits = (uint32_t*)smem;
+  const unsigned char* alive = a.alive + (size_t)b * n;
+  const float* reach = a.reach + (size_t)b * a.reach_stride;
+  for (int i = warp; i < n; i += nwarps)
+    pack_row(reach + (size_t)i * n, alive, alive[i] != 0, n, w,
+             bits + (size_t)i * w);
+  __syncthreads();
+  const bool symmetric =
+      !__syncthreads_or(asym_blocks(bits, n, w, warp, nwarps));
+  g1_groups(a, b, bits, smem, true, symmetric);
+  const int* lab = (const int*)(smem + g1_layout(n, w, true).lab);
+  for (int i = warp; i < n; i += nwarps)
+    label_row(lab, lab[i], n, a.mask + ((size_t)b * n + i) * n);
+}
+
+__global__ void __launch_bounds__(kGridThreads) g1_pack_kernel(const G1Args a) {
+  const int b = blockIdx.y, n = a.n, w = a.w;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const unsigned char* alive = a.alive + (size_t)b * n;
+  const float* reach = a.reach + (size_t)b * a.reach_stride;
+  const int r0 = blockIdx.x * kRowsPerBlock;
+  const int r1 = min(n, r0 + kRowsPerBlock);
+  for (int i = r0 + warp; i < r1; i += nwarps)
+    pack_row(reach + (size_t)i * n, alive, alive[i] != 0, n, w,
+             a.bits + ((size_t)b * n + i) * w);
+}
+
+// Form GLOBAL's symmetry check: kSymBlocks bit blocks a CTA, a grid over
+// the blocks and lanes; a block that breaks symmetry flags its lane.
+constexpr int kSymBlocks = 64;
+__global__ void __launch_bounds__(kGridThreads) g1_sym_kernel(const G1Args a) {
+  const int b = blockIdx.y, warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * kSymBlocks;
+  const uint32_t* bits = a.bits + (size_t)b * a.n * a.w;
+  int bad = 0;
+  for (int blk = first + warp; blk < min(first + kSymBlocks, a.w * a.w);
+       blk += kGridThreads / 32)
+    bad |= asym_blocks(bits, a.n, a.w, blk, a.w * a.w);  // one block each
+  if ((threadIdx.x & 31) == 0 && bad) atomicOr(&a.asym[b], 1);
+}
+
+__global__ void __launch_bounds__(1024) g1_label_kernel(const G1Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x, n = a.n;
+  g1_groups(a, b, a.bits + (size_t)b * n * a.w, smem, false, a.asym[b] == 0);
+  const int* lab = (const int*)(smem + g1_layout(n, a.w, false).lab);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    a.labels[(size_t)b * n + i] = lab[i];
+}
+
+__global__ void __launch_bounds__(kGridThreads) g1_mask_kernel(const G1Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.y, n = a.n;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  int* lab = (int*)smem;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    lab[i] = a.labels[(size_t)b * n + i];
+  __syncthreads();
+  const int r0 = blockIdx.x * kRowsPerBlock;
+  const int r1 = min(n, r0 + kRowsPerBlock);
+  for (int i = r0 + warp; i < r1; i += nwarps)
+    label_row(lab, lab[i], n, a.mask + ((size_t)b * n + i) * n);
+}
+
+struct R1Args {
+  const uint32_t* base;  // [v, w] packed ungated rows
+  const int* fr;
+  const int* to;
+  const float* closed;  // [scenarios, nf]
+  float* out;           // [scenarios, v, v]
+  uint32_t* scratch;    // [scenarios, v, w] above the shared-memory size
+  int* sweeps;          // [scenarios] or null
+  int v, w, nf;
+};
+
+// Shared memory of R1's CTA (dgi_kernels.r1_smem_bytes).
+__host__ __device__ inline size_t r1_lab_offset(int v, int w, bool bits) {
+  return bits ? align16((size_t)v * w * 4) : 0;
+}
+__host__ __device__ inline size_t r1_bytes(int v, int w, bool bits) {
+  const size_t lab = r1_lab_offset(v, w, bits);
+  const size_t wbuf = align16(lab + 4 * (size_t)v);
+  return align16(wbuf + 8 * (size_t)w);
+}
+
+__global__ void __launch_bounds__(1024) r1_kernel(const R1Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int s = blockIdx.x, v = a.v, w = a.w, tid = threadIdx.x;
+  const int bd = blockDim.x, warp = tid >> 5, nwarps = bd >> 5;
+  const bool in_smem = a.scratch == nullptr;
+  uint32_t* bits = in_smem ? (uint32_t*)smem
+                           : a.scratch + (size_t)s * v * w;
+  int* lab = (int*)(smem + r1_lab_offset(v, w, in_smem));
+  int* wmax = (int*)(smem + align16(r1_lab_offset(v, w, in_smem) +
+                                    4 * (size_t)v));
+  for (size_t k = tid; k < (size_t)v * w; k += bd) bits[k] = a.base[k];
+  for (int i = tid; i < v; i += bd) lab[i] = i;
+  __syncthreads();
+  const float* closed = a.closed + (size_t)s * a.nf;
+  for (int f = tid; f < a.nf; f += bd) {
+    if (closed[f] > 0.f) {
+      const int x = a.fr[f], y = a.to[f];
+      atomicOr(&bits[(size_t)x * w + (y >> 5)], 1u << (y & 31));
+      atomicOr(&bits[(size_t)y * w + (x >> 5)], 1u << (x & 31));
+    }
+  }
+  __syncthreads();
+  const int rounds = components(bits, v, w, lab, wmax);
+  for (int i = tid; i < v; i += bd) lab[i] += 1;  // label_row's live mark
+  __syncthreads();
+  for (int i = warp; i < v; i += nwarps)
+    label_row(lab, lab[i], v, a.out + ((size_t)s * v + i) * v);
+  if (tid == 0 && a.sweeps) a.sweeps[s] = rounds;
+}
+
+// ---------------------------------------------------------------------------
+// B1: the draft auction
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float sub_rn(float x, float y) {
+  return __fsub_rn(x, y);
+}
+__device__ __forceinline__ double sub_rn(double x, double y) {
+  return __dsub_rn(x, y);
+}
+__device__ __forceinline__ float add_rn(float x, float y) {
+  return __fadd_rn(x, y);
+}
+__device__ __forceinline__ double add_rn(double x, double y) {
+  return __dadd_rn(x, y);
+}
+// float32 |x| of the imbalance (the reference's abs(imbalance).astype(f32)).
+__device__ __forceinline__ float key_of(float x) { return fabsf(x); }
+__device__ __forceinline__ float key_of(double x) {
+  return __double2float_rn(fabs(x));
+}
+
+struct LBLayout {
+  size_t keys, gw, start, seglen, total;
+};
+
+// A fleet's working set (dgi_kernels.lb_state_bytes), after the 128-byte
+// reduction buffer at the start of shared memory.
+__host__ __device__ inline LBLayout lb_layout(int npad, int n, int gsize) {
+  LBLayout s;
+  s.keys = 0;
+  size_t off = align16(8 * (size_t)npad);
+  s.gw = off;
+  off = align16(off + (size_t)gsize * n);
+  s.start = off;
+  off = align16(off + 4 * (size_t)npad);
+  s.seglen = off;
+  s.total = align16(off + 4 * (size_t)npad);
+  return s;
+}
+
+template <typename T, typename G>
+struct LBArgs {
+  const T* ng;   // [fleets, n] in the imbalance's type
+  const G* gw0;  // [fleets, n]
+  const int* gid;
+  long long gid_stride;
+  const float* mal;
+  long long mal_stride;
+  const unsigned char* gate;
+  long long gate_stride;
+  double step;
+  G* gw_out;
+  int* migs;    // [fleets, rounds]
+  int* states;  // [fleets, rounds, n]
+  int* rank;    // round outputs (one round) or null
+  float* sup;
+  float* dem;
+  float* intr;
+  unsigned char* scratch;  // form GLOBAL: [fleets, state bytes]
+  size_t scratch_stride;
+  int n, npad, rounds;
+};
+
+// Ascending bitonic sort of npad (a power of two) keys.
+__device__ void bitonic_sort(uint64_t* keys, int npad) {
+  for (int k = 2; k <= npad; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < npad; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const uint64_t x = keys[i], y = keys[ixj];
+          if ((x > y) == ((i & k) == 0)) {
+            keys[i] = y;
+            keys[ixj] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Inclusive max-scan of a[0..npad) in place; npad a multiple of blockDim,
+// each thread a contiguous run; `red` >= 32 shared ints.
+__device__ void block_max_scan(int* a, int npad, int* red) {
+  const int per = npad / blockDim.x, base = threadIdx.x * per;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int run = 0;
+  for (int c = 0; c < per; ++c) {
+    run = max(run, a[base + c]);
+    a[base + c] = run;
+  }
+  int v = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v = max(v, u);
+  }
+  if (lane == 31) red[warp] = v;
+  __syncthreads();
+  int before = __shfl_up_sync(kFull, v, 1);
+  if (lane == 0) before = 0;
+  for (int k = 0; k < warp; ++k) before = max(before, red[k]);
+  for (int c = 0; c < per; ++c) a[base + c] = max(a[base + c], before);
+  __syncthreads();
+}
+
+template <typename T, typename G>
+__global__ void __launch_bounds__(1024) lb_rounds_kernel(const LBArgs<T, G> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x, n = a.n, npad = a.npad;
+  const int tid = threadIdx.x, bd = blockDim.x;
+  int* red = (int*)smem;
+  unsigned char* base =
+      a.scratch ? a.scratch + (size_t)b * a.scratch_stride : smem + 128;
+  const LBLayout L = lb_layout(npad, n, (int)sizeof(G));
+  uint64_t* keys = (uint64_t*)(base + L.keys);
+  G* gw = (G*)(base + L.gw);
+  int* start = (int*)(base + L.start);
+  int* seglen = (int*)(base + L.seglen);
+  const T* ng = a.ng + (size_t)b * n;
+  const int* gid = a.gid + (size_t)b * a.gid_stride;
+  const float* mal = a.mal ? a.mal + (size_t)b * a.mal_stride : nullptr;
+  const unsigned char* gate =
+      a.gate ? a.gate + (size_t)b * a.gate_stride : nullptr;
+  const T step = (T)a.step;
+  const float step_f = (float)a.step;
+  for (int i = tid; i < n; i += bd) gw[i] = a.gw0[(size_t)b * n + i];
+  __syncthreads();
+  for (int r = 0; r < a.rounds; ++r) {
+    // Classification and sort keys, in node order.
+    for (int i = tid; i < npad; i += bd) {
+      uint64_t key = ~0ull;  // padding sorts last
+      if (i < n) {
+        const T imb = sub_rn(ng[i], (T)gw[i]);
+        const int st = imb >= step ? 1 : (imb <= -step ? -1 : 0);
+        if (a.states) a.states[((size_t)b * a.rounds + r) * n + i] = st;
+        const bool ok = gate == nullptr || gate[i] != 0;
+        const int cls = (st == 1 && ok) ? 0 : ((st == -1 && ok) ? 1 : 2);
+        const uint32_t kb = cls < 2 ? ~__float_as_uint(key_of(imb)) : 0u;
+        key = ((uint64_t)(uint32_t)gid[i] << 49) | ((uint64_t)cls << 47) |
+              ((uint64_t)kb << 15) | (uint64_t)i;
+      }
+      keys[i] = key;
+    }
+    __syncthreads();
+    bitonic_sort(keys, npad);
+    // Segment (group, class) starts: a max-scan of the boundaries.
+    for (int q = tid; q < npad; q += bd)
+      start[q] = (q == 0 || (keys[q] >> 47) != (keys[q - 1] >> 47)) ? q : 0;
+    __syncthreads();
+    block_max_scan(start, npad, red);
+    // Segment lengths, written at each segment's start by its last node.
+    for (int q = tid; q < n; q += bd)
+      if (q == n - 1 || (keys[q + 1] >> 47) != (keys[q] >> 47))
+        seglen[start[q]] = q - start[q] + 1;
+    __syncthreads();
+    int mig = 0;
+    for (int q = tid; q < n; q += bd) {
+      const uint64_t key = keys[q];
+      const int p = (int)(key & 0x7fff);
+      const uint32_t pre = (uint32_t)(key >> 47);
+      const int cls = (int)(pre & 3);
+      const int s = start[q], rin = q - s;
+      int scnt = 0, dcnt = 0;
+      if (cls == 0) {  // the group's demand segment follows its supply one
+        scnt = seglen[s];
+        const int e = s + scnt;
+        if (e < n && (uint32_t)(keys[e] >> 47) == pre + 1) dcnt = seglen[e];
+      } else if (cls == 1) {
+        dcnt = seglen[s];
+        if (s > 0 && (uint32_t)(keys[s - 1] >> 47) == pre - 1)
+          scnt = seglen[start[s - 1]];
+      }
+      const bool sm = cls == 0 && rin < dcnt;
+      const bool dm = cls == 1 && rin < scnt;
+      const float one_m = __fsub_rn(1.f, mal ? mal[p] : 0.f);
+      const float delta = __fsub_rn(sm ? step_f : 0.f,
+                                    dm ? __fmul_rn(step_f, one_m) : 0.f);
+      gw[p] = add_rn(gw[p], (G)delta);
+      mig += sm;
+      if (a.rank) {  // one round: lb_round's per-node outputs
+        const size_t o = (size_t)b * n + p;
+        const float acc = __fmul_rn(dm ? 1.f : 0.f, step_f);
+        const float app = mal ? __fmul_rn(acc, one_m) : acc;
+        a.rank[o] = cls < 2 ? rin : n;
+        a.sup[o] = __fmul_rn(sm ? 1.f : 0.f, step_f);
+        a.dem[o] = -app;
+        a.intr[o] = __fsub_rn(app, acc);
+      }
+    }
+    mig = block_sum(mig, red);
+    if (tid == 0) a.migs[(size_t)b * a.rounds + r] = mig;
+    __syncthreads();
+  }
+  for (int i = tid; i < n; i += bd) a.gw_out[(size_t)b * n + i] = gw[i];
+}
+
+template <typename Args>
+int launch(void (*kernel)(const Args), dim3 grid, int threads, size_t smem,
+           cudaStream_t stream, const Args& a) {
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // above 48 KB a kernel has to opt in
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Threads of a CTA that works through n rows or nodes.
+int cta_threads(int n) { return n <= 64 ? 64 : (n <= 256 ? 256 : 1024); }
+
+template <typename T, typename G>
+int lb_launch(const T* ng, const G* gw0, const int* gid, long long gid_stride,
+              const float* mal, long long mal_stride,
+              const unsigned char* gate, long long gate_stride, double step,
+              G* gw_out, int* migs, int* states, int* rank, float* sup,
+              float* dem, float* intr, void* scratch, int n, int rounds,
+              int fleets, void* stream) {
+  if (n <= 0 || n > 32767 || rounds <= 0 || fleets <= 0 ||
+      (rank && (rounds != 1 || !sup || !dem || !intr)))
+    return (int)cudaErrorInvalidValue;
+  int npad = 32;
+  while (npad < n) npad <<= 1;
+  const LBLayout L = lb_layout(npad, n, (int)sizeof(G));
+  LBArgs<T, G> a{ng,     gw0,     gid,  gid_stride, mal,   mal_stride,
+                 gate,   gate_stride, step, gw_out,  migs,  states,
+                 rank,   sup,     dem,  intr,       (unsigned char*)scratch,
+                 L.total, n,      npad, rounds};
+  const size_t smem = 128 + (scratch ? 0 : L.total);
+  return launch(lb_rounds_kernel<T, G>, dim3(fleets), min(npad, 1024), smem,
+                (cudaStream_t)stream, a);
+}
+
+}  // namespace
+
+// Plain C interface for ctypes.  Every pointer is a device pointer (indices
+// int32, masks one byte); `stream` is the caller's CUDA stream.  Each
+// returns the cudaError_t of its launches.
+extern "C" int form_groups_shared(const float* reach, long long reach_stride,
+                                  const unsigned char* alive, const int* rank,
+                                  int* coord, float* mask,
+                                  unsigned char* is_coord, int* size,
+                                  int* ngroups, int* sweeps, int n, int lanes,
+                                  void* stream) {
+  if (n <= 0 || lanes <= 0) return (int)cudaErrorInvalidValue;
+  const int w = (n + 31) / 32;
+  G1Args a{reach, reach_stride, alive,   rank,    coord,   mask,    is_coord,
+           size,  ngroups,      sweeps,  nullptr, nullptr, nullptr, n, w};
+  return launch(g1_shared_kernel, dim3(lanes), cta_threads(n),
+                g1_layout(n, w, true).total, (cudaStream_t)stream, a);
+}
+
+// `asym` must hold `lanes` zeros.
+extern "C" int form_groups_global(const float* reach, long long reach_stride,
+                                  const unsigned char* alive, const int* rank,
+                                  int* coord, float* mask,
+                                  unsigned char* is_coord, int* size,
+                                  int* ngroups, int* sweeps, uint32_t* bits,
+                                  int* labels, int* asym, int n, int lanes,
+                                  void* stream) {
+  if (n <= 0 || lanes <= 0 || lanes > 65535) return (int)cudaErrorInvalidValue;
+  const int w = (n + 31) / 32;
+  G1Args a{reach, reach_stride, alive,  rank, coord,  mask, is_coord,
+           size,  ngroups,      sweeps, bits, labels, asym, n,    w};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 rows((n + kRowsPerBlock - 1) / kRowsPerBlock, lanes);
+  int rc = launch(g1_pack_kernel, rows, kGridThreads, 0, st, a);
+  if (rc) return rc;
+  rc = launch(g1_sym_kernel, dim3((w * w + kSymBlocks - 1) / kSymBlocks, lanes),
+              kGridThreads, 0, st, a);
+  if (rc) return rc;
+  rc = launch(g1_label_kernel, dim3(lanes), 1024,
+              g1_layout(n, w, false).total, st, a);
+  if (rc) return rc;
+  return launch(g1_mask_kernel, rows, kGridThreads, 4 * (size_t)n, st, a);
+}
+
+extern "C" int reach_closure(const uint32_t* base, const int* fr,
+                             const int* to, const float* closed, float* out,
+                             uint32_t* scratch, int* sweeps, int v, int nf,
+                             int scenarios, void* stream) {
+  if (v <= 0 || nf < 0 || scenarios <= 0) return (int)cudaErrorInvalidValue;
+  const int w = (v + 31) / 32;
+  R1Args a{base, fr, to, closed, out, scratch, sweeps, v, w, nf};
+  return launch(r1_kernel, dim3(scenarios), cta_threads(v),
+                r1_bytes(v, w, scratch == nullptr), (cudaStream_t)stream, a);
+}
+
+extern "C" int lb_rounds_ff(const float* ng, const float* gw0, const int* gid,
+                            long long gid_stride, const float* mal,
+                            long long mal_stride, const unsigned char* gate,
+                            long long gate_stride, double step, float* gw_out,
+                            int* migs, int* states, int* rank, float* sup,
+                            float* dem, float* intr, void* scratch, int n,
+                            int rounds, int fleets, void* stream) {
+  return lb_launch<float, float>(ng, gw0, gid, gid_stride, mal, mal_stride,
+                                 gate, gate_stride, step, gw_out, migs,
+                                 states, rank, sup, dem, intr, scratch, n,
+                                 rounds, fleets, stream);
+}
+
+extern "C" int lb_rounds_dd(const double* ng, const double* gw0,
+                            const int* gid, long long gid_stride,
+                            const float* mal, long long mal_stride,
+                            const unsigned char* gate, long long gate_stride,
+                            double step, double* gw_out, int* migs,
+                            int* states, int* rank, float* sup, float* dem,
+                            float* intr, void* scratch, int n, int rounds,
+                            int fleets, void* stream) {
+  return lb_launch<double, double>(ng, gw0, gid, gid_stride, mal, mal_stride,
+                                   gate, gate_stride, step, gw_out, migs,
+                                   states, rank, sup, dem, intr, scratch, n,
+                                   rounds, fleets, stream);
+}
+
+extern "C" int lb_rounds_df(const double* ng, const float* gw0,
+                            const int* gid, long long gid_stride,
+                            const float* mal, long long mal_stride,
+                            const unsigned char* gate, long long gate_stride,
+                            double step, float* gw_out, int* migs,
+                            int* states, int* rank, float* sup, float* dem,
+                            float* intr, void* scratch, int n, int rounds,
+                            int fleets, void* stream) {
+  return lb_launch<double, float>(ng, gw0, gid, gid_stride, mal, mal_stride,
+                                  gate, gate_stride, step, gw_out, migs,
+                                  states, rank, sup, dem, intr, scratch, n,
+                                  rounds, fleets, stream);
+}

@@ -1,1 +1,3 @@
-"""On-device DGI modules of the port (so far: gradient Volt-VAR control)."""
+"""On-device DGI modules of the port: group management (:mod:`.gm`),
+load balancing (:mod:`.lb`), state collection (:mod:`.sc`) and gradient
+Volt-VAR control (:mod:`.vvc`)."""

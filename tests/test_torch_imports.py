@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,7 +58,16 @@ def test_importing_every_module_pulls_in_no_jax_or_reference():
         "          'freedm_tpu_torch.kernels.topo_kernels',\n"
         "          'freedm_tpu_torch.kernels.solver_kernels',\n"
         "          'freedm_tpu_torch.pf.fdlf', 'freedm_tpu_torch.pf.krylov',\n"
-        "          'freedm_tpu_torch.pf.cim'):\n"
+        "          'freedm_tpu_torch.pf.cim',\n"
+        "          'freedm_tpu_torch.grid.topology',\n"
+        "          'freedm_tpu_torch.modules.gm', 'freedm_tpu_torch.modules.lb',\n"
+        "          'freedm_tpu_torch.modules.sc',\n"
+        "          'freedm_tpu_torch.parallel.superstep',\n"
+        "          'freedm_tpu_torch.devices.schema',\n"
+        "          'freedm_tpu_torch.devices.tensor',\n"
+        "          'freedm_tpu_torch.kernels.dgi_kernels',\n"
+        "          'freedm_tpu_torch.utils.textio',\n"
+        "          'freedm_tpu_torch.core.config'):\n"
         "    assert m in sys.modules, m\n"
         "import chip_smoke, kernel_ab\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -102,7 +112,15 @@ def test_static_scan_finds_no_jax_or_reference_import():
             PACKAGE / "kernels" / "solver_kernels.py",
             PACKAGE / "pf" / "fdlf.py", PACKAGE / "pf" / "cim.py",
             PACKAGE / "grid" / "bus.py",
-            PACKAGE / "core" / "metrics.py"} <= set(files)
+            PACKAGE / "core" / "metrics.py",
+            PACKAGE / "grid" / "topology.py", PACKAGE / "modules" / "gm.py",
+            PACKAGE / "modules" / "lb.py", PACKAGE / "modules" / "sc.py",
+            PACKAGE / "parallel" / "superstep.py",
+            PACKAGE / "devices" / "schema.py",
+            PACKAGE / "devices" / "tensor.py",
+            PACKAGE / "kernels" / "dgi_kernels.py",
+            PACKAGE / "utils" / "textio.py",
+            PACKAGE / "core" / "config.py"} <= set(files)
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -132,6 +150,28 @@ def test_default_device_is_the_card():
         port_device.resolve_device("meta")
     assert port_device.platform_name(torch.device("cuda")) == "gpu"
     assert port_device.platform_name(torch.device("cpu")) == "cpu"
+
+
+def test_dgi_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    from freedm_tpu_torch.grid import topology
+    from freedm_tpu_torch.modules import gm, lb
+    from freedm_tpu_torch.parallel import make_superstep
+
+    topo = topology.parse_topology("edge a b\nfid b c F\n")
+    calls = (
+        lambda: gm.form_groups(np.ones(3), np.ones((3, 3))),
+        lambda: lb.lb_round(np.zeros(3), np.zeros(3), np.ones((3, 3)), 1.0),
+        lambda: lb.run_rounds(np.zeros(3), np.zeros(3), np.ones((3, 3)), 1.0,
+                              2),
+        lambda: topology.make_reachability(topo),
+        lambda: topology.node_reachability(topo, ("x",)),
+        lambda: make_superstep(),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 @pytest.mark.parametrize("backend,n", [
@@ -213,6 +253,31 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
 
     assert set(sol.launches()) == {"ybus_stamp", "fdlf_half_step",
                                    "residual_jvp", "cim_iterate"}
+    from freedm_tpu_torch.kernels import dgi_kernels as dk
+
+    assert set(dk.launches()) == {"form_groups", "reach_closure",
+                                  "lb_rounds"}
+    meta32 = torch.zeros(2, 4, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        dk.form_groups(meta32.bool(), meta32[None], None)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        dk.reach_closure(None, meta32)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        dk.lb_rounds(meta32, meta32, None, 1.0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        dk._want(torch.device("cpu"), gid=(
+            torch.zeros(4, 4, dtype=torch.int32)[:, :2], torch.int32, (4, 2)))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        dk._lb_inputs(torch.zeros(3, dtype=torch.float16), torch.zeros(3))
+    with pytest.raises(ValueError, match="exactly one round"):
+        dk.lb_rounds_plain(torch.zeros(1, 3), torch.zeros(1, 3),
+                           torch.zeros(1, 3, dtype=torch.int32), 1.0, 2,
+                           round_outputs=True)
+    assert dk.g1_form(1024) == dk.GLOBAL and dk.g1_form(4096, 512) == dk.GLOBAL
+    assert dk.g1_form(1024, 64) == dk.SHARED == dk.g1_form(256, 256)
+    assert dk.g1_form(256, 128) == dk.GLOBAL
+    assert dk.lb_form(4096, 8) == dk.SHARED
+    assert dk.lb_form(dk.LB_MAX_NODES, 8) == dk.GLOBAL
     for x in (torch.zeros(2, 8, dtype=torch.float64, device="meta"),):
         with pytest.raises(ValueError, match="CPU or CUDA"):
             sol.residual_jvp(x, x, None)
