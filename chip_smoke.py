@@ -34,10 +34,14 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. kernels: each kernel against its plain PyTorch version on the card at
    n ∈ {14, 30, 118, 2000} buses and B ∈ {1, 3, 64} lanes (float64,
    1e-10 absolute on J, f, P, Q — the sums run in another order; K3
-   exactly, and bit-identical on repeat), then each kernel's time (CUDA
-   events) at the main path's shape (mesh2000, 64 lanes) beside its plain
-   version's, its bound and, for K2, one ``torch.matmul`` of the complex
-   pair, K3 also by device time; also the Newton step's library LU
+   exactly, and bit-identical on repeat), K2 also at 67 lanes (a full
+   and a ragged tile of its tiled product) and in float32
+   (``KERNEL_ATOL_F32``), bit-identical on repeat; then each kernel's time
+   (CUDA events) at the main path's shape (mesh2000, 64 lanes) beside its
+   plain version's, its bound and, for K2, one ``torch.matmul`` of the
+   complex pair, K2's device time (profiler and events a call), its
+   dense tensor-core floor and float32 times, K3 also by device time;
+   also the Newton step's library LU
    (``torch.linalg.solve_ex``) on K1's Jacobian, batched as the solver
    calls it and one lane at a time;
 3. solve: ``make_newton_solver`` on mesh2000 over 64 lanes at load
@@ -235,15 +239,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    bench's N-1 batch), float64 (``KERNEL_ATOL``) and float32
    (``KERNEL_ATOL_F32``; J1 relative to max |J u| above 1), then I1
    through ``make_cim_solver`` and its ``plain=True`` twin on vvc_9bus and
-   the CIM feeder (``cim_feeder``) × B ∈ {1, 8}; each kernel
-   bit-identical on repeat; then their times (events and device time)
-   beside the plain versions, the bounds and the library rows: Y1 at
-   mesh118 × 118 (library: a sparse COO tensor to dense, duplicates
-   summed), K1/K2 on that per-lane Ybus, F1 at mesh2000 × 1 (library: the
-   complex ``torch.matmul`` of Ybus with V), mesh118 × 1024 and mesh2000
-   × 16 per lane, J1 at mesh2000 × 256 (library: ``torch.sparse.mm`` of
-   the S1-assembled Jacobian), I1 at the CIM feeder × 64 (library: the
-   complex ``torch.matmul`` of A with the injections);
+   the CIM feeder (``cim_feeder``) × B ∈ ``CIM_CHECK_LANES``; F1's tile
+   mode (one Ybus, K2's tiled product) at ``F1_TILE_SHAPES`` in its three
+   modes, float64 and float32, and its product K2's bits
+   (``compare_fdlf_tiles``); each kernel bit-identical on repeat; then
+   their times (events and device time) beside the plain versions, the
+   bounds and the library rows: Y1 at mesh118 × 118 (library: a sparse
+   COO tensor to dense, duplicates summed), K1/K2 on that per-lane Ybus,
+   F1 at mesh2000 × 1 (library: the complex ``torch.matmul`` of Ybus with
+   V), mesh118 × 1024 (the tile mode; library the same product, float32
+   too) and mesh2000 × 16 per lane, J1 at mesh2000 × 256 (library:
+   ``torch.sparse.mm`` of the S1-assembled Jacobian), I1 at the CIM feeder
+   × 64 (device time by events a call; library: the complex
+   ``torch.matmul`` of A with the injections; float32 too);
 22. solvers at the reference bench's sizes (not cut): (a) ``bench_n1_118``
    (dense ``solve_fixed``, 118 outage lanes, against the plain path within
    ``SOLVE_ATOL``), (b) FDLF ``bench_nr_2000`` (solves/s), (c) FDLF
@@ -443,32 +451,62 @@ def max_err(a, b):
     return float((a - b).abs().max())
 
 
+#: K2's lane counts: 67 is one full 64-lane tile of the tiled product and a
+#: ragged one (K1 and K3 run at the others).
+K2_LANES = (1, 3, MAIN_LANES, 67)
+
+
+def compare_injections(torch, nk, args):
+    """K2 against its plain version on ``args`` (f64 and their float32
+    cast), each bit-identical on repeat; returns the largest |Δ| a dtype
+    and the float64 plain outputs."""
+    gaps, plain64 = [], None
+    for dtype in (torch.float64, torch.float32):
+        a = args if dtype == torch.float64 else [t.float() for t in args]
+        got, again = nk.power_injections(*a), nk.power_injections(*a)
+        want = nk.power_injections_plain(*a)
+        check(all(same_bits(torch, x, y) for x, y in zip(got, again)),
+              f"K2 not bit-identical on repeat ({dtype})")
+        gaps.append(max(max_err(x, y) for x, y in zip(got, want)))
+        plain64 = want if plain64 is None else plain64
+    return gaps, plain64
+
+
 def compare_kernels(torch, nk, errs):
-    """Each kernel against its plain version at every (case, lanes)."""
+    """Each kernel against its plain version at every (case, lanes); K2
+    also in float32 and at 67 lanes."""
     cases = ("case14", "case_ieee30", "mesh118", "mesh2000")
+    worst32 = 0.0
     for ci, name in enumerate(cases):
         sys_ = case_system(name)
-        for lanes in (1, 3, MAIN_LANES):
+        for lanes in K2_LANES:
             args = newton_inputs(torch, sys_, lanes, seed=100 * ci + lanes)
-            jac_k, f_k = nk.newton_assemble(*args)
-            jac_p, f_p = nk.newton_assemble_plain(*args)
-            e_jac = float(jac_k.sub_(jac_p).abs_().max())
-            del jac_k, jac_p
-            e1 = max(e_jac, max_err(f_k, f_p))
-            p_k, q_k, g_k = nk.power_injections(*args)
-            p_p, q_p, g_p = nk.power_injections_plain(*args)
-            e2 = max(max_err(p_k, p_p), max_err(q_k, q_p), max_err(g_k, g_p))
-            e3 = compare_update(torch, nk, args[0], f_p, lanes, ci)
-            torch.cuda.synchronize()
-            log(f"kernels: {name:>11} n={sys_.n_bus:<5} B={lanes:<3} "
-                f"K1 {e1:.2e}  K2 {e2:.2e}  K3 {e3:.2e}")
-            check(e1 <= KERNEL_ATOL, f"K1 disagrees on {name} B={lanes}: {e1}")
+            (e2, e2_32), (p_p, q_p, g_p) = compare_injections(torch, nk, args)
             check(e2 <= KERNEL_ATOL, f"K2 disagrees on {name} B={lanes}: {e2}")
-            check(e3 == 0.0, f"K3 disagrees on {name} B={lanes}: {e3}")
-            errs["newton_assemble"] = max(errs["newton_assemble"], e1)
+            check(e2_32 <= KERNEL_ATOL_F32,
+                  f"float32 K2 disagrees on {name} B={lanes}: {e2_32}")
             errs["power_injections"] = max(errs["power_injections"], e2)
-            errs["newton_update"] = max(errs["newton_update"], e3)
-            del args, f_k, f_p
+            worst32 = max(worst32, e2_32)
+            line = (f"kernels: {name:>11} n={sys_.n_bus:<5} B={lanes:<3} "
+                    f"K2 {e2:.2e} (f32 {e2_32:.2e}, "
+                    f"{nk.product_splits(sys_.n_bus, lanes)} K slices)")
+            if lanes != 67:
+                jac_k, f_k = nk.newton_assemble(*args)
+                jac_p, f_p = nk.newton_assemble_plain(*args)
+                e_jac = float(jac_k.sub_(jac_p).abs_().max())
+                del jac_k, jac_p
+                e1 = max(e_jac, max_err(f_k, f_p))
+                e3 = compare_update(torch, nk, args[0], f_p, lanes, ci)
+                torch.cuda.synchronize()
+                line += f"  K1 {e1:.2e}  K3 {e3:.2e}"
+                check(e1 <= KERNEL_ATOL,
+                      f"K1 disagrees on {name} B={lanes}: {e1}")
+                check(e3 == 0.0, f"K3 disagrees on {name} B={lanes}: {e3}")
+                errs["newton_assemble"] = max(errs["newton_assemble"], e1)
+                errs["newton_update"] = max(errs["newton_update"], e3)
+                del f_k, f_p
+            log(line)
+            del args, p_p, q_p, g_p
             torch.cuda.empty_cache()
     # float32, the kernels' other instantiation: sums of ~1e2-sized terms
     # in another order differ by a few float32 ulps of the largest term;
@@ -480,9 +518,11 @@ def compare_kernels(torch, nk, errs):
         nk.newton_assemble(*args) + nk.power_injections(*args),
         f32 + nk.power_injections_plain(*args)))
     e32_k3 = compare_update(torch, nk, args[0], f32[1], 3, seed=5)
-    log(f"kernels: float32 mesh118 B=3 K1/K2 {e32:.2e}  K3 {e32_k3:.2e}")
+    log(f"kernels: float32 mesh118 B=3 K1/K2 {e32:.2e}  K3 {e32_k3:.2e}; "
+        f"K2 float32 at every shape above within {worst32:.2e}")
     check(e32 <= KERNEL_ATOL_F32, f"float32 K1/K2 disagree: {e32}")
     check(e32_k3 == 0.0, f"float32 K3 disagrees: {e32_k3}")
+    return worst32
 
 
 def compare_update(torch, nk, x, f, lanes, seed):
@@ -574,9 +614,40 @@ def device_ms(torch, fn, reps):
     return sum(device_ms_by_kernel(torch, fn, reps).values())
 
 
-def bound(bytes_, ops, fp64=True):
+#: A sleep of about 2 ms on the card (cycles at ~2 GHz): longer than the
+#: host takes to issue one call of any wrapper timed behind it.
+QUEUE_SLEEP_CYCLES = 4_000_000
+
+
+def queued_events_ms(torch, fn, reps):
+    """Median device time of one call of ``fn``: CUDA events around it,
+    queued behind a sleep kernel so that the host has issued the whole
+    call before the card reaches it.  The host's issue time is not
+    counted (back-to-back events count it when the host is the slower);
+    the gaps between the call's kernels on the card are (the profiler's
+    kernel sums leave them out, and came back short for I1 in the whole
+    script)."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
+def bound(bytes_, ops, fp64=True, tensor=False):
+    """The larger of the bytes' and the operations' least times, in ms;
+    ``tensor``: a dense fp64 product the kernel runs on the tensor cores."""
     t_bytes = bytes_ / PEAK_BYTES * 1e3
-    t_ops = ops / (PEAK_FP64 if fp64 else PEAK_FP32) * 1e3
+    peak = PEAK_FP64_TENSOR if tensor else PEAK_FP64 if fp64 else PEAK_FP32
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -606,11 +677,15 @@ def time_kernels(torch, nk):
 
     # K2: same reads; writes P, Q and f.  4 FMAs (8 operations) per
     # nonzero of Ybus per lane for I = Y V; ~12 per row for V's parts, S
-    # and the mismatch.
+    # and the mismatch.  The dense product the kernel runs has a floor of
+    # its own: 8 n^2 B operations at the tensor cores' fp64 rate.
     b2 = w * (lanes * m + 2 * lanes * n + 2 * n * n + 3 * n
               + 2 * lanes * n + lanes * m)
     o2 = lanes * (8 * nnz + 12 * n)
     k = time_ms(torch, lambda: nk.power_injections(*args), reps=20)
+    k2_prof = device_ms(torch, lambda: nk.power_injections(*args), reps=20)
+    k2_dev = queued_events_ms(torch, lambda: nk.power_injections(*args),
+                              reps=20)
     p = time_ms(torch, lambda: nk.power_injections_plain(*args), reps=3)
     # Library yardstick: one complex matmul I = Y V, then S = V conj(I).
     yc = torch.complex(y_re, y_im)
@@ -623,6 +698,13 @@ def time_kernels(torch, nk):
     lib = time_ms(torch, library, reps=20)
     rows["power_injections"] = (k, p, lib, *bound(b2, o2))
     del yc, vc
+    a32 = [t.float() for t in args]
+    k32 = time_ms(torch, lambda: nk.power_injections(*a32), reps=20)
+    k32_dev = queued_events_ms(torch, lambda: nk.power_injections(*a32),
+                               reps=20)
+    p32 = time_ms(torch, lambda: nk.power_injections_plain(*a32), reps=3)
+    del a32
+    dense_floor = 8 * n * n * lanes / PEAK_FP64_TENSOR * 1e3
 
     # K3: reads x, dx, f, the mask and the lane carries; writes x and the
     # carries.  ~4 operations per element.
@@ -648,6 +730,21 @@ def time_kernels(torch, nk):
         xp, dx, f, free, *carries[1], big, tol), reps=100)
     rows["newton_update"] = (k, p, None, *bound(b3, o3))
     extra = {"newton_update": {"device_ms": k_dev}}
+    k2 = rows["power_injections"]
+    extra["power_injections"] = {
+        "device_ms": k2_dev, "device_ms_source": "queued events",
+        "device_ms_profiler": k2_prof,
+        "bound_ms_dense_tensor": dense_floor,
+        "k_splits": nk.product_splits(n, lanes),
+        "library": "vc * torch.matmul(yc, vc).conj(), complex128",
+        "ms_f32": k32, "device_ms_f32": k32_dev, "plain_ms_f32": p32,
+        "bound_ms_f32": bound(b2 / 2, o2, fp64=False)[0]}
+    log(f"timing: power_injections mesh2000 x{lanes}: device {k2_dev:.4f} ms "
+        f"(queued events; profiler {k2_prof:.4f}), {k2[2] / k2_dev:.2f}x "
+        f"faster than its library row ({k2_dev / k2[2]:.2f}x its time), "
+        f"{nk.product_splits(n, lanes)} K slices; bytes bound {k2[3]:.4f} "
+        f"ms, dense tensor-core floor {dense_floor:.4f} ms; float32 event "
+        f"{k32:.4f} ms, device {k32_dev:.4f} ms, plain {p32:.4f} ms")
     for name, (k, p, lib, b, by) in rows.items():
         log(f"timing: {name:<17} kernel {k:.4f} ms  plain {p:.4f} ms  "
             f"bound {b:.4f} ms ({by})"
@@ -4794,6 +4891,13 @@ N1_118_LANES = 118
 #: scales.
 CIM_TIES = 2
 CIM_LANES = 64
+#: I1's lane counts in phase 21: 64 fills one tile of the tiled product,
+#: 67 adds a ragged one.
+CIM_CHECK_LANES = (1, 8, CIM_LANES, 67)
+#: F1's tile mode (one Ybus for every lane, K2's tiled product): the
+#: reference bench's Monte-Carlo batch (``bench_mc_1024``) and the FDLF
+#: N-1 width with a shared Ybus.
+F1_TILE_SHAPES = (("mesh118", 1024), ("mesh2000", 16))
 
 
 def exact_or_close(torch, a, b):
@@ -4949,7 +5053,7 @@ def compare_solver_kernels(torch, sol, nk, errs):
         for dtype in (torch.float64, torch.float32):
             f64 = dtype == torch.float64
             atol = KERNEL_ATOL if f64 else KERNEL_ATOL_F32
-            for lanes in (1, 8):
+            for lanes in CIM_CHECK_LANES:
                 s = cim_loads(f, lanes, seed=lanes)
                 outs = []
                 for plain in (False, True, False):
@@ -4973,6 +5077,88 @@ def compare_solver_kernels(torch, sol, nk, errs):
           f"({time.monotonic() - t0:.1f} s)")
     return {f"{name}{'' if f64 else '_f32'}": e
             for (name, f64), e in worst.items()}
+
+
+def f1_run(torch, fn, sol, x, d_th, d_v, y, ps, qs, thf, vf, active):
+    """F1's three modes in turn (INIT, THETA, V) through ``fn`` from a copy
+    of ``x``; returns the state, mismatch and lane carry."""
+    lanes, n = ps.shape
+    xx = x.clone()
+    dp, dq = torch.zeros_like(ps), torch.zeros_like(ps)
+    err = torch.full((lanes,), float("inf"), dtype=x.dtype, device=x.device)
+    it = torch.zeros(lanes, dtype=torch.int32, device=x.device)
+    act = active.clone()
+    tol = torch.full((1,), 1e-8, dtype=x.dtype, device=x.device)
+    for mode, d in ((sol.INIT, None), (sol.THETA, d_th), (sol.VHALF, d_v)):
+        fn(mode, xx, d, y[0], y[1], ps, qs, thf, vf, dp, dq, err, it, act,
+           tol, 10, False)
+    return xx, dp, dq, err, it, act
+
+
+def compare_fdlf_tiles(torch, sol, nk):
+    """F1's tile mode at ``F1_TILE_SHAPES`` (one Ybus of every lane) against
+    its plain version in its three modes, float64 and float32, bit-identical
+    on repeat; and its product K2's bits: at |V| = 1 with zero schedules
+    and every quantity free, F1's INIT mismatch is exactly -(P, Q), so it
+    must equal K2's -P, -Q bit for bit on the same state.  Returns the
+    largest gaps by dtype."""
+    from freedm_tpu_torch.grid.bus import ybus_dense
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    dev = torch.device("cuda")
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    for cname, lanes in F1_TILE_SHAPES:
+        sys_ = case_system(cname)
+        n = sys_.n_bus
+        check(lanes >= sol.TILED_MIN_LANES, "F1 tile shapes take the tile")
+        rng = np.random.default_rng(lanes)
+        for dtype in (torch.float64, torch.float32):
+            f64 = dtype == torch.float64
+            y = ybus_dense(sys_, dtype=dtype, device=dev)
+            sop = sparse_operands(sys_, dtype=dtype, device=dev)
+
+            def t(a):
+                return torch.as_tensor(a, dtype=dtype, device=dev)
+
+            x = torch.cat([t(rng.normal(0, 0.1, (lanes, n))),
+                           t(rng.uniform(0.95, 1.05, (lanes, n)))], 1)
+            ps = t(rng.normal(size=(lanes, n)))
+            d_th = t(rng.normal(0, 1e-3, (n, lanes))).T
+            d_v = t(rng.normal(0, 1e-3, (lanes, n)))
+            active = torch.as_tensor(np.arange(lanes) % 3 != 1, device=dev)
+            outs = [f1_run(torch, fn, sol, x, d_th, d_v, y, ps, 0.3 * ps,
+                           sop.th_free, sop.v_free, active)
+                    for fn in (sol.fdlf_half_step, sol.fdlf_half_step_plain,
+                               sol.fdlf_half_step)]
+            e = max(exact_or_close(torch, a, b)
+                    for a, b in zip(outs[0], outs[1]))
+            tag = f"F1 tile {cname} x{lanes} {str(dtype)[6:]}"
+            check(e <= (KERNEL_ATOL if f64 else KERNEL_ATOL_F32),
+                  f"{tag}: {e:.3e} from its plain version")
+            check(all(torch.equal(a, b) or same_bits(torch, a, b)
+                      for a, b in zip(outs[0], outs[2])),
+                  f"{tag}: not bit-identical on repeat")
+            worst[dtype] = max(worst[dtype], e)
+            one = torch.ones(n, dtype=dtype, device=dev)
+            zero = torch.zeros(lanes, n, dtype=dtype, device=dev)
+            x1 = torch.cat([t(rng.uniform(-0.3, 0.3, (lanes, n))),
+                            torch.ones(lanes, n, dtype=dtype, device=dev)], 1)
+            p, q, _ = nk.power_injections(x1, y[0], y[1], zero, zero, one,
+                                          one, one)
+            dp, dq = torch.zeros_like(zero), torch.zeros_like(zero)
+            sol.fdlf_half_step(
+                sol.INIT, x1, None, y[0], y[1], zero, zero, one, one, dp, dq,
+                torch.zeros(lanes, dtype=dtype, device=dev),
+                torch.zeros(lanes, dtype=torch.int32, device=dev),
+                torch.ones(lanes, dtype=torch.bool, device=dev),
+                torch.zeros(1, dtype=dtype, device=dev), 10, False)
+            torch.cuda.synchronize()
+            check(same_bits(torch, dp, -p) and same_bits(torch, dq, -q),
+                  f"{tag}: F1's tiled product is not K2's bits")
+            log(f"solver kernels: {tag} (K slices "
+                f"{nk.product_splits(n, lanes)}): {e:.2e} from the plain "
+                f"version, bit-identical on repeat, its product K2's bits")
+    return worst
 
 
 def time_solver_kernels(torch, sol, nk, rows, extra):
@@ -5129,7 +5315,23 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
     k2, k2_dev, src, p2 = timed("fdlf_half_step",
                                 lambda: sol.fdlf_half_step(*a2),
                                 lambda: sol.fdlf_half_step_plain(*a2), 50)
-    b2, _ = bound(8 * (2 * n * n + 1024 * 8 * n), 8 * 1024 * n * n)
+    k2_prof = k2_dev
+    k2_dev = queued_events_ms(torch, lambda: sol.fdlf_half_step(*a2), 50)
+    # Tile mode runs the dense product on the FP64 tensor cores.
+    b2, by2 = bound(8 * (2 * n * n + 1024 * 8 * n), 8 * 1024 * n * n,
+                    tensor=True)
+    # F1's tile mode there: the library row is the complex product alone.
+    yc = torch.complex(y118[0], y118[1])
+    vc = torch.polar(x118[:, n:].T.contiguous(), x118[:, :n].T.contiguous())
+    lib2 = time_ms(torch, lambda: torch.matmul(yc, vc), reps=50)
+    del yc, vc
+    a2_32 = tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                  else a for a in a2)
+    k2_32 = time_ms(torch, lambda: sol.fdlf_half_step(*a2_32), reps=50)
+    k2_32_dev = queued_events_ms(torch,
+                                 lambda: sol.fdlf_half_step(*a2_32), 50)
+    p2_32 = time_ms(torch, lambda: sol.fdlf_half_step_plain(*a2_32), reps=3)
+    del a2_32
     opn = stamp_operands(sys2k, dtype=f64, device=dev)
     st16 = torch.ones(16, sys2k.n_branch, dtype=f64, device=dev)
     st16[torch.arange(16), n2 + torch.arange(16)] = 0.0
@@ -5141,15 +5343,26 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
     b3, _ = bound(8 * (2 * 16 * n2 * n2 + 16 * 8 * n2), 8 * 16 * n2 * n2)
     extra["fdlf_half_step"].update({
         "ms_mesh118_x1024": k2, "device_ms_mesh118_x1024": k2_dev,
+        "device_ms_profiler_mesh118_x1024": k2_prof,
         "plain_ms_mesh118_x1024": p2, "bound_ms_mesh118_x1024": b2,
+        "bound_by_mesh118_x1024": by2,
+        "library_ms_mesh118_x1024": lib2,
+        "k_splits_mesh118_x1024": nk.product_splits(n, 1024),
+        "ms_f32_mesh118_x1024": k2_32,
+        "device_ms_f32_mesh118_x1024": k2_32_dev,
+        "plain_ms_f32_mesh118_x1024": p2_32,
         "ms_mesh2000_x16_lanes_ybus": k3,
         "device_ms_mesh2000_x16_lanes_ybus": k3_dev,
         "plain_ms_mesh2000_x16_lanes_ybus": p3,
         "bound_ms_mesh2000_x16_lanes_ybus": b3})
-    log(f"timing: fdlf_half_step V mesh118 x1024 kernel {k2:.4f} ms (device "
-        f"{k2_dev:.4f})  plain {p2:.4f}  bound {b2:.4f}; mesh2000 x16 "
-        f"per-lane Ybus {k3:.4f} ms (device {k3_dev:.4f})  plain {p3:.4f}  "
-        f"bound {b3:.4f}")
+    log(f"timing: fdlf_half_step V mesh118 x1024 (tile mode) kernel {k2:.4f} "
+        f"ms (device {k2_dev:.4f} by queued events, profiler "
+        f"{k2_prof:.4f})  plain "
+        f"{p2:.4f}  bound {b2:.4f} ({by2})  library complex matmul "
+        f"{lib2:.4f}; "
+        f"float32 {k2_32:.4f} ms (device {k2_32_dev:.4f})  plain "
+        f"{p2_32:.4f}; mesh2000 x16 per-lane Ybus {k3:.4f} ms (device "
+        f"{k3_dev:.4f})  plain {p3:.4f}  bound {b3:.4f}")
     del y16, a3
 
     # J1 at bench_nr_2k_krylov_lanes (mesh2000 x 256): x, u in, J u out.
@@ -5207,16 +5420,25 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
         f"{pf:.4f}; with status {ks:.4f} ms (device {ks_dev:.4f})  plain "
         f"{ps_:.4f}")
 
-    # I1 on the CIM feeder x 64 (phase 23's batch): reads A once a tile of
-    # 16 lanes; the bound reads it once.
+    # I1 on the CIM feeder x 64 (phase 23's batch).  Its device time is
+    # queued CUDA events around each call: the profiler's come back short
+    # for I1 in the whole script.
     f, ties = cim_feeder()
     s = cim_loads(f, CIM_LANES)
     big_n = 3 * f.n_branches
     a_args = _cim_operands(torch, f, ties, s, dev)
-    k, k_dev, src, p = timed("cim_iterate",
-                             lambda: sol.cim_iterate(*a_args),
-                             lambda: sol.cim_iterate_plain(*a_args[:-1],
-                                                           fixed=True), 20)
+    k = time_ms(torch, lambda: sol.cim_iterate(*a_args), reps=20)
+    k_dev = queued_events_ms(torch, lambda: sol.cim_iterate(*a_args), 20)
+    src = "queued events"
+    p = time_ms(torch, lambda: sol.cim_iterate_plain(*a_args[:-1],
+                                                     fixed=True), reps=3)
+    a32 = tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                else a for a in a_args)
+    k32 = time_ms(torch, lambda: sol.cim_iterate(*a32), reps=20)
+    k32_dev = queued_events_ms(torch, lambda: sol.cim_iterate(*a32), 20)
+    p32 = time_ms(torch, lambda: sol.cim_iterate_plain(*a32[:-1],
+                                                       fixed=True), reps=3)
+    del a32
     b_i1 = 8 * (2 * big_n * big_n + CIM_LANES * big_n * 8 + big_n) \
         + 13 * CIM_LANES
     o_i1 = 8 * CIM_LANES * big_n * big_n
@@ -5226,18 +5448,23 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
     # The product is a dense fp64 GEMM: its least time is at the tensor
     # cores' rate, which the library row reaches and I1 does not use.
     t_bytes = b_i1 / PEAK_BYTES * 1e3
-    t_ops = o_i1 / PEAK_FP64_TENSOR * 1e3
-    b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    b, by = bound(b_i1, o_i1, tensor=True)
     rows["cim_iterate"] = (k, p, lib, b, by)
     extra["cim_iterate"] = {
         "device_ms": k_dev, "device_ms_source": src,
         "shape": f"synthetic_radial(1000) + {CIM_TIES} ties x {CIM_LANES}",
         "library": "complex128 torch.matmul of A with the lanes' "
-                   "injections alone"}
+                   "injections alone",
+        "bound_ms_bytes": t_bytes,
+        "k_splits": nk.product_splits(big_n, CIM_LANES),
+        "ms_f32": k32, "device_ms_f32": k32_dev, "plain_ms_f32": p32}
     log(f"timing: cim_iterate radial1000+ties x{CIM_LANES} kernel {k:.4f} ms "
-        f"(device {k_dev:.4f}, {src})  plain {p:.4f} ms  bound {b:.4f} ms "
-        f"({by})  library complex matmul {lib:.4f} ms "
-        f"({time.monotonic() - t0:.1f} s timings)")
+        f"(device {k_dev:.4f}, {src}; {lib / k_dev:.2f}x its library row's "
+        f"speed, {k_dev / lib:.2f}x its time)  plain {p:.4f} ms  bound "
+        f"{b:.4f} ms ({by}; A read once {t_bytes:.4f})  library complex "
+        f"matmul {lib:.4f} ms; {nk.product_splits(big_n, CIM_LANES)} K "
+        f"slices; float32 {k32:.4f} ms (device {k32_dev:.4f})  plain "
+        f"{p32:.4f} ({time.monotonic() - t0:.1f} s timings)")
 
 
 def _cim_operands(torch, f, ties, s, dev):
@@ -6234,8 +6461,9 @@ def main() -> int:
                               *sck.LAUNCHES, *lk.LAUNCHES, *qk.LAUNCHES,
                               *tk.LAUNCHES, *sol.LAUNCHES, *dk.LAUNCHES],
                              0.0)
-        compare_kernels(torch, nk, errs)
+        k2_f32 = compare_kernels(torch, nk, errs)
         rows, extra = time_kernels(torch, nk)
+        extra["power_injections"]["max_abs_err_f32"] = k2_f32
         solve_mesh2000(torch, nk)
         solve_f32(torch, nk)
         compare_sparse_kernels(torch, sk, errs)
@@ -6309,6 +6537,12 @@ def main() -> int:
             extra[name]["launches_serve_job"] = job_counts[name]
         t21 = time.monotonic()
         f32_errs = compare_solver_kernels(torch, sol, nk, errs)
+        tile_gaps = compare_fdlf_tiles(torch, sol, nk)
+        errs["fdlf_half_step"] = max(errs["fdlf_half_step"],
+                                     tile_gaps[torch.float64])
+        f32_errs["fdlf_half_step_f32"] = max(
+            f32_errs.get("fdlf_half_step_f32", 0.0),
+            tile_gaps[torch.float32])
         time_solver_kernels(torch, sol, nk, rows, extra)
         log(f"solvers: phase 21 {time.monotonic() - t21:.1f} s")
         bench, paths = solver_benches(torch, sol)

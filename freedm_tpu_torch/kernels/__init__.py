@@ -25,6 +25,11 @@ topology-sweep and DGI paths and the serving cache.
   auction (every round of a run in one launch) — CUDA C++
   (``csrc/dgi.cu``).
 
+K2 (one Ybus), F1 (one Ybus, 4 lanes or more) and I1 share one tiled
+complex product, ``csrc/row_product.cuh`` (float64 on the tensor cores,
+float32 on the CUDA cores; its K slices from
+:func:`.newton_kernels.product_splits`).
+
 Each source is built by :mod:`.build` and bound with ctypes.
 :mod:`.newton_kernels`, :mod:`.sparse_kernels`, :mod:`.cache_kernels`,
 :mod:`.screen_kernels`, :mod:`.ladder_kernels`, :mod:`.qsts_kernels`,

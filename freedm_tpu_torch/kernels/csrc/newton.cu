@@ -28,30 +28,30 @@
 // cos E = c_i c_j + s_i s_j, sin E = s_i c_j - c_i s_j on per-lane cos/sin
 // tables that a small pre-pass (`trig_kernel`) writes.
 //
-// K2 design: the product Y [n, n] x V [n, B] tiled like a GEMM
-// (row_product.cuh, shared with F1 and I1).  A block owns 16 rows x 16
-// lanes and walks j in tiles of 32, staging the Ybus and V tiles in shared
-// memory, so Ybus is read B/16 times and V n/16 times (instead of B and n
-// times with one block per (lane, row)).  Each thread owns one (row, lane)
-// and sums its j terms in order — deterministic, no reduction across
-// threads.  A pre-pass (`polar_kernel`) writes V's real and imaginary
-// parts.
+// K2 design: a pre-pass (`polar_kernel`) writes V's real and
+// imaginary parts; the product I = Y V is row_product.cuh's tiled form (64
+// rows x 64 lanes a block over a K slice, staged by cp.async, float64 on
+// the FP64 tensor cores, float32 by FFMA micro-tiles; its K slices' partial
+// sums in a [splits, 2, B, n] scratch), whose epilogue pass adds them in
+// split order and runs `InjectionEpilogue`: S = V conj(I) and the masked
+// mismatch.  Deterministic: fixed k order within a slice, slices added in
+// order, no atomics.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 34 TFLOP/s fp64 outside the tensor
-// cores), for B lanes of an n-bus case in float64:
+// cores, 67 through them), for B lanes of an n-bus case in float64:
 //   K1 writes 4n^2 + 2n values per lane and reads the 2n^2 Ybus once:
 //      bytes-bound; at n = 2000, B = 64 that is 8.3 GB, about 2.5 ms.
 //   K2 reads the 2n^2 Ybus and writes 4n values per lane; the arithmetic
-//      it needs runs over the nonzeros of Ybus only, so it too is bound by
-//      the bytes of the dense Ybus (64 MB at n = 2000, about 19 us), while
-//      this dense kernel spends 4 FMAs on every (lane, i, j).
+//      it needs runs over the nonzeros of Ybus only, so it is bound by the
+//      bytes of the dense Ybus (64 MB at n = 2000, about 19 us); a dense
+//      product, which this kernel runs, has a floor of 8 n^2 B operations
+//      at the tensor-core rate: 2.05 GFLOP, 31 us at mesh2000 x 64.
 //   K3 reads x, dx, f and the mask and writes x: bytes, 4 * 2n * 8 per
 //      lane, 8.2 MB at n = 2000, B = 64, about 2.5 us.
-// Simple and right first: no TMA/wgmma staging yet.
 //
 // Per-lane Ybus (the dense backend's branch status, stamped by Y1 in
 // solvers.cu): K1 and K2 take a lane stride for Ybus, 0 when every lane
-// shares one [n, n] matrix (the path above, unchanged) and n * n for a
+// shares one [n, n] matrix (the tiled path above) and n * n for a
 // [B, n, n] stack.  K1 reads lane b's rows at that offset; K2 cannot share
 // a Ybus tile between lanes there, so it runs `injection_lane_kernel`: a
 // warp per (lane, row) reading the row coalesced, summed by a fixed
@@ -199,8 +199,6 @@ __global__ void polar_kernel(const T* __restrict__ x, T* __restrict__ vr,
   vm[k] = v * s;
 }
 
-using row_product::kLanes;
-using row_product::kRows;
 using row_product::kWarpsPerBlock;
 static_assert(row_product::kThreads == kThreads, "one block size");
 
@@ -215,50 +213,36 @@ __device__ __forceinline__ void injection_epilogue(
     T* __restrict__ q_out) {
   const int64_t base = lane * n;
   const int64_t m = 2 * (int64_t)n;
-  const T vri = vr[base + i], vmi = vm[base + i];
-  const T P = vri * ire + vmi * iim;
-  const T Q = vmi * ire - vri * iim;
+  // Read-only inputs (__ldg): a thread's outputs need not wait for each
+  // other's stores.
+  const T vri = __ldg(vr + base + i), vmi = __ldg(vm + base + i);
+  const T ps = __ldg(p_sched + base + i), qs = __ldg(q_sched + base + i);
+  const bool th_pinned = !(__ldg(th_free + i) > T(0));
+  const bool v_pinned = !(__ldg(v_free + i) > T(0));
+  const T th = __ldg(x + lane * m + i), v = __ldg(x + lane * m + n + i);
+  const T vs = __ldg(v_set + i);
+  T P, Q;
+  row_product::power(vri, vmi, ire, iim, P, Q);
   p_out[base + i] = P;
   q_out[base + i] = Q;
-  const bool th_pinned = !(th_free[i] > T(0));
-  const bool v_pinned = !(v_free[i] > T(0));
-  f[lane * m + i] = th_pinned ? x[lane * m + i] : P - p_sched[base + i];
-  f[lane * m + n + i] =
-      v_pinned ? x[lane * m + n + i] - v_set[i] : Q - q_sched[base + i];
+  f[lane * m + i] = th_pinned ? th : P - ps;
+  f[lane * m + n + i] = v_pinned ? v - vs : Q - qs;
 }
 
-// K2: a (16 rows) x (16 lanes) block of I = Y V (row_product.cuh's tiled
-// form), then S = V conj(I).
+// K2's epilogue, handed each (lane, row)'s I by the tiled product.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) injection_kernel(
-    const T* __restrict__ x,        // [B, 2n] = theta || v
-    const T* __restrict__ vr,       // [B, n] Re V
-    const T* __restrict__ vm,       // [B, n] Im V
-    const T* __restrict__ g,        // [n, n] Ybus real part
-    const T* __restrict__ bm,       // [n, n] Ybus imaginary part
-    const T* __restrict__ p_sched,  // [B, n]
-    const T* __restrict__ q_sched,  // [B, n]
-    const T* __restrict__ th_free,  // [n]
-    const T* __restrict__ v_free,   // [n]
-    const T* __restrict__ v_set,    // [n]
-    T* __restrict__ f,              // [B, 2n]
-    T* __restrict__ p_out,          // [B, n]
-    T* __restrict__ q_out,          // [B, n]
-    int lanes, int n) {
-  T ire, iim;
-  row_product::tiled_product<T>(
-      g, bm, lanes, n,
-      [=](int b, int j, T& a, T& c) {
-        a = vr[(int64_t)b * n + j];
-        c = vm[(int64_t)b * n + j];
-      },
-      ire, iim);
-  const int i = blockIdx.x * kRows + threadIdx.x % kRows;
-  const int lane = blockIdx.y * kLanes + threadIdx.x / kRows;
-  if (i >= n || lane >= lanes) return;
-  injection_epilogue<T>(lane, i, n, ire, iim, x, vr, vm, p_sched, q_sched,
-                        th_free, v_free, v_set, f, p_out, q_out);
-}
+struct InjectionEpilogue {
+  const T *x, *vr, *vm, *p_sched, *q_sched, *th_free, *v_free, *v_set;
+  T *f, *p_out, *q_out;
+  int n;
+  __device__ __forceinline__ T operator()(int64_t lane, int i, T ire,
+                                          T iim) const {
+    injection_epilogue<T>(lane, i, n, ire, iim, x, vr, vm, p_sched, q_sched,
+                          th_free, v_free, v_set, f, p_out, q_out);
+    return T(0);
+  }
+  __device__ __forceinline__ void lane_tile(int64_t, int, T, bool) const {}
+};
 
 // K2 with a per-lane Ybus [B, n, n] (the dense backend's branch status):
 // no tile of Ybus serves two lanes, so a warp owns a (lane, row)
@@ -444,7 +428,7 @@ template <typename T>
 int launch_injections(const T* x, const T* g, const T* bm, const T* p_sched,
                       const T* q_sched, const T* th_free, const T* v_free,
                       const T* v_set, T* vr, T* vm, T* f, T* p_out, T* q_out,
-                      int lanes, int n, int64_t y_stride,
+                      T* part, int lanes, int n, int64_t y_stride, int splits,
                       cudaStream_t stream) {
   if (lanes <= 0 || n <= 0 || n > 65535) return (int)cudaErrorInvalidValue;
   const int64_t total = (int64_t)lanes * n;
@@ -460,11 +444,10 @@ int launch_injections(const T* x, const T* g, const T* bm, const T* p_sched,
         q_out, n);
     return (int)cudaGetLastError();
   }
-  const dim3 grid((n + kRows - 1) / kRows, (lanes + kLanes - 1) / kLanes);
-  injection_kernel<T><<<grid, kThreads, 0, stream>>>(
-      x, vr, vm, g, bm, p_sched, q_sched, th_free, v_free, v_set, f, p_out,
-      q_out, lanes, n);
-  return (int)cudaGetLastError();
+  const InjectionEpilogue<T> epi{x,      vr, vm,    p_sched, q_sched, th_free,
+                                 v_free, v_set, f, p_out,   q_out,   n};
+  return row_product::launch_tiled<T>(g, bm, vr, vm, part, lanes, n, splits,
+                                      epi, stream);
 }
 
 template <typename T>
@@ -498,8 +481,11 @@ int launch_update(T* x, const T* dx, const T* f, const T* free, int* it,
 // contiguous tensor; `stream` is the caller's CUDA stream.  K1 and K2 read
 // lane b's Ybus at g + b * y_stride: 0 for one [n, n] Ybus of every lane,
 // n * n for a [B, n, n] stack.  ct/st (K1) and
-// vr/vm (K2) are [lanes, n] scratch; K3's `it` is int32, `active` one byte
-// a lane and `tol` one element.  Returns the cudaError_t of the launches.
+// vr/vm (K2) are [lanes, n] scratch; with a shared Ybus, K2's `splits`
+// (the tiled product's K slices) comes from newton_kernels.product_splits
+// and `part` is the product's [splits, 2, lanes, n] scratch (unused with a
+// per-lane Ybus).  K3's `it` is int32, `active` one byte a lane and `tol`
+// one element.  Returns the cudaError_t of the launches.
 #define NEWTON_ENTRY_POINTS(T, SUFFIX)                                        \
   extern "C" int newton_assemble_##SUFFIX(                                   \
       const T* x, const T* g, const T* bm, const T* p_sched,                \
@@ -513,11 +499,12 @@ int launch_update(T* x, const T* dx, const T* f, const T* free, int* it,
   extern "C" int power_injections_##SUFFIX(                                  \
       const T* x, const T* g, const T* bm, const T* p_sched,                \
       const T* q_sched, const T* th_free, const T* v_free, const T* v_set,  \
-      T* vr, T* vm, T* f, T* p_out, T* q_out, int lanes, int n,             \
-      long long y_stride, void* stream) {                                   \
+      T* vr, T* vm, T* f, T* p_out, T* q_out, T* part, int lanes, int n,    \
+      long long y_stride, int splits, void* stream) {                       \
     return launch_injections<T>(x, g, bm, p_sched, q_sched, th_free,        \
                                 v_free, v_set, vr, vm, f, p_out, q_out,     \
-                                lanes, n, y_stride, (cudaStream_t)stream);  \
+                                part, lanes, n, y_stride, splits,           \
+                                (cudaStream_t)stream);                      \
   }                                                                         \
   extern "C" int newton_update_##SUFFIX(                                     \
       T* x, const T* dx, const T* f, const T* free, int* it, T* err,        \

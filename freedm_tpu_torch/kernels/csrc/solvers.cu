@@ -29,15 +29,17 @@
 //            active = it < max_iter and err >= tol (unless `fixed`).
 //   Three launches: a pre-pass applies the update and writes V's real and
 //   imaginary parts; the product I = Y V with its epilogue (the mismatch);
-//   in V mode a finish kernel, one warp a lane, reduces the per-row errors
-//   (a max: exact in any order, NaN kept) and updates it/err/active.  With
-//   a shared y [n, n] and at least kTiledMinLanes lanes the product is
-//   K2's tiled form (row_product.cuh: 16 rows x 16 lanes a block, tiles of
-//   32 columns in shared memory), so one read of a y tile serves 16 lanes
-//   and each thread sums its row in column order; with a per-lane y [B, n,
-//   n], or fewer lanes (a 16-lane tile would idle), K2's warp form: a warp
-//   owns a (lane, row), reads the row coalesced and reduces it with a
-//   fixed xor-shuffle tree.  The same product code gives F1 K2's bits.
+//   in V mode a finish kernel, one warp a lane, reduces the row errors (a
+//   max: exact in any order, NaN kept) and updates it/err/active.  With a
+//   shared y [n, n] and at least 4 lanes (solver_kernels.TILED_MIN_LANES;
+//   the wrapper passes `splits` > 0) the product is K2's tiled form
+//   (row_product.cuh: 64 rows x 64 lanes a block over a K slice, float64
+//   on the tensor cores) handing each (lane, row) to `FdlfEpilogue`, which
+//   leaves the finish a max a (lane, 64-row tile); with a per-lane y [B, n,
+//   n], or fewer lanes (a tile would idle), K2's warp form: a warp owns a
+//   (lane, row), reads the row coalesced and reduces it with a fixed
+//   xor-shuffle tree, and the finish reduces every row.  The same product
+//   code and split plan give F1 K2's bits.
 //   Bound at mesh2000 x 1: one read of y, 64 MB, ~19 us.
 //
 // J1 residual_jvp — replaces the `jax.linearize` JVP of the masked
@@ -57,13 +59,18 @@
 // I1 cim_iterate — replaces freedm_tpu/pf/cim.py:157-170 `_matvec` and
 //   `_iterate` with the loop's max |v_new - v| (:195-240): the injection
 //   conj(S/V) on live node-phases, the complex product with A = Y_LL^-1,
-//   v_base +, the phase mask, and it/active as in F1.  Design: a GEMM over
-//   the lanes in row_product.cuh's tiled form (16 rows x 16 lanes, 32
-//   columns a tile): the prologue computes the lanes' injections while it
-//   stages a tile, the epilogue writes v_new (a second buffer: other blocks still
-//   read v) and each row's |dv|; the finish kernel reduces a lane's rows.
-//   Bound: one read of A, 16 (3 nb)^2 bytes an iteration (144 MB, ~43 us
-//   at nb = 1000); this simple form reads A once per 16 lanes.
+//   v_base +, the phase mask, and it/active as in F1.  Design: a pre-pass
+//   writes each lane's injection once an iteration into a [B, N] (re, im)
+//   scratch (computed while a tile is staged, it costs two divisions in
+//   every row block that stages it: N/64 times an iteration); the product
+//   is row_product.cuh's tiled form over that scratch (float64 on the
+//   tensor cores), its epilogue (`CimEpilogue`) v_new (into a second
+//   buffer: the solver's loop keeps v and v_new apart) and the row's |dv|,
+//   reduced to a max a (lane, 64-row tile); the finish kernel reduces a
+//   lane's ceil(N / 64) maxima (N row errors a lane took it 8.5 us on an
+//   H100 at N = 3000, B = 64).  Bound: 8 N^2 B operations at the
+//   tensor-core rate (4.6 GFLOP, ~69 us at nb = 1000, B = 64) above one
+//   read of A, 16 N^2 bytes (144 MB, ~43 us).
 //
 // Every sum runs in a fixed order and no kernel uses a float atomic, so
 // each is bit-identical on repeat.  Simple and right first.
@@ -228,65 +235,67 @@ __global__ void fdlf_prepass_kernel(int mode, T* __restrict__ x,
   vm[k] = v * s;
 }
 
-// The mismatch of row i of lane b from its current injection I = ire + j iim.
+// The mismatch of row i of lane b from its current injection I = ire + j
+// iim; in V mode returns the row's error max(|dp V|, |dq V|) (NaN kept),
+// else 0.
 template <typename T>
-__device__ __forceinline__ void fdlf_epilogue(
+__device__ __forceinline__ T fdlf_epilogue(
     int mode, int64_t b, int i, int n, T ire, T iim, const T* __restrict__ x,
     const T* __restrict__ vr, const T* __restrict__ vm,
     const T* __restrict__ ps, const T* __restrict__ qs,
     const T* __restrict__ th_free, const T* __restrict__ v_free,
     const unsigned char* __restrict__ active, T* __restrict__ dp,
-    T* __restrict__ dq, T* __restrict__ rowerr) {
+    T* __restrict__ dq) {
+  // Read-only inputs (__ldg): a thread's outputs need not wait for each
+  // other's stores.
   const int64_t k = b * n + i;
-  const T vri = vr[k], vmi = vm[k];
-  const T P = vri * ire + vmi * iim;
-  const T Q = vmi * ire - vri * iim;
-  const T v = x[b * 2 * n + n + i];
-  const T dpi = (ps[k] - P) / v * th_free[i];
-  const T dqi = (qs[k] - Q) / v * v_free[i];
+  const T vri = __ldg(vr + k), vmi = __ldg(vm + k);
+  const T v = __ldg(x + b * 2 * n + n + i);
+  const T psk = __ldg(ps + k), qsk = __ldg(qs + k);
+  const T thf = __ldg(th_free + i), vf = __ldg(v_free + i);
+  const bool live = __ldg(active + b) != 0;
+  T P, Q;
+  row_product::power(vri, vmi, ire, iim, P, Q);
+  const T dpi = (psk - P) / v * thf;
+  const T dqi = (qsk - Q) / v * vf;
   if (mode == INIT) {
     dp[k] = dpi;
     dq[k] = dqi;
-  } else if (mode == THETA) {
-    dq[k] = dqi;
-  } else {
-    if (active[b]) dp[k] = dpi;
-    const T ep = fabs(dpi * v), eq = fabs(dqi * v);
-    rowerr[k] = (ep != ep || eq != eq) ? nan_<T>() : (ep > eq ? ep : eq);
+    return T(0);
   }
+  if (mode == THETA) {
+    dq[k] = dqi;
+    return T(0);
+  }
+  if (live) dp[k] = dpi;
+  const T ep = fabs(dpi * v), eq = fabs(dqi * v);
+  return (ep != ep || eq != eq) ? nan_<T>() : (ep > eq ? ep : eq);
 }
 
-using row_product::kLanes;
-using row_product::kRows;
 using row_product::kWarpsPerBlock;
 static_assert(row_product::kThreads == kThreads, "one block size");
-constexpr int kTiledMinLanes = 4;  // a shared y below this: the warp form
 
-// Shared y: a (16 rows) x (16 lanes) block of I = Y V (row_product.cuh's
-// tiled form, K2's), then the epilogue.
+// F1's epilogue, handed each (lane, row)'s I by the tiled product (K2's);
+// in V mode a lane's row errors a row tile, reduced to their max, land in
+// rowerr [B, row_tiles(n)].
 template <typename T>
-__global__ void __launch_bounds__(kThreads) fdlf_tiled_kernel(
-    int mode, const T* __restrict__ x, const T* __restrict__ vr,
-    const T* __restrict__ vm, const T* __restrict__ g,
-    const T* __restrict__ bm, const T* __restrict__ ps,
-    const T* __restrict__ qs, const T* __restrict__ th_free,
-    const T* __restrict__ v_free, const unsigned char* __restrict__ active,
-    T* __restrict__ dp, T* __restrict__ dq, T* __restrict__ rowerr, int lanes,
-    int n) {
-  T ire, iim;
-  row_product::tiled_product<T>(
-      g, bm, lanes, n,
-      [=](int b, int j, T& a, T& c) {
-        a = vr[(int64_t)b * n + j];
-        c = vm[(int64_t)b * n + j];
-      },
-      ire, iim);
-  const int i = blockIdx.x * kRows + threadIdx.x % kRows;
-  const int b = blockIdx.y * kLanes + threadIdx.x / kRows;
-  if (i >= n || b >= lanes) return;
-  fdlf_epilogue<T>(mode, b, i, n, ire, iim, x, vr, vm, ps, qs, th_free,
-                   v_free, active, dp, dq, rowerr);
-}
+struct FdlfEpilogue {
+  int mode;
+  const T *x, *vr, *vm, *ps, *qs, *th_free, *v_free;
+  const unsigned char* active;
+  T *dp, *dq, *rowerr;
+  int n;
+  __device__ __forceinline__ T operator()(int64_t b, int i, T ire,
+                                          T iim) const {
+    return fdlf_epilogue<T>(mode, b, i, n, ire, iim, x, vr, vm, ps, qs,
+                            th_free, v_free, active, dp, dq);
+  }
+  __device__ __forceinline__ void lane_tile(int64_t b, int tile, T worst,
+                                            bool nan) const {
+    if (mode == VHALF)
+      rowerr[b * row_product::row_tiles(n) + tile] = nan ? nan_<T>() : worst;
+  }
+};
 
 // A warp per (lane, row) (row_product.cuh's warp form, K2's per-lane one);
 // lane b's y at g + b * y_stride (0: one y of every lane).
@@ -307,8 +316,9 @@ __global__ void __launch_bounds__(kThreads) fdlf_lane_kernel(
                                bm + b * y_stride + (int64_t)i * n, vr + b * n,
                                vm + b * n, n, ln, ire, iim);
   if (ln != 0) return;
-  fdlf_epilogue<T>(mode, b, i, n, ire, iim, x, vr, vm, ps, qs, th_free,
-                   v_free, active, dp, dq, rowerr);
+  const T e = fdlf_epilogue<T>(mode, b, i, n, ire, iim, x, vr, vm, ps, qs,
+                               th_free, v_free, active, dp, dq);
+  if (mode == VHALF) rowerr[b * n + i] = e;
 }
 
 // ---------------------------------------------------------------------------
@@ -369,49 +379,63 @@ __global__ void __launch_bounds__(kThreads) jvp_kernel(
 // I1
 // ---------------------------------------------------------------------------
 
+// I1's pre-pass: lane b's injection conj(S / V) at node-phase j, zero
+// where V is 0 (a dead phase).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) cim_kernel(
-    const T* __restrict__ a_re, const T* __restrict__ a_im,
-    const T* __restrict__ v_re, const T* __restrict__ v_im,
-    const T* __restrict__ s_re, const T* __restrict__ s_im,
-    const T* __restrict__ vb_re, const T* __restrict__ vb_im,
-    const T* __restrict__ mask, const unsigned char* __restrict__ active,
-    T* __restrict__ o_re, T* __restrict__ o_im, T* __restrict__ rowerr,
-    int lanes, int N) {
-  T dre, dim;
-  row_product::tiled_product<T>(
-      a_re, a_im, lanes, N,
-      // The prologue: lane b's injection conj(S / V) at node-phase j, zero
-      // where V is 0 (a dead phase).
-      [=](int b, int j, T& jr, T& ji) {
-        const int64_t q = (int64_t)b * N + j;
-        const T vr = v_re[q], vi = v_im[q];
-        if (vr * vr + vi * vi > T(0)) {
-          const T sr = s_re[q], si = s_im[q];
-          const T d = vr * vr + vi * vi;
-          jr = (sr * vr + si * vi) / d;
-          ji = -((si * vr - sr * vi) / d);
-        }
-      },
-      dre, dim);
-  const int i = blockIdx.x * kRows + threadIdx.x % kRows;
-  const int b = blockIdx.y * kLanes + threadIdx.x / kRows;
-  if (i >= N || b >= lanes) return;
-  const int64_t k = (int64_t)b * N + i;
-  const T vr = v_re[k], vi = v_im[k];
-  if (!active[b]) {
-    o_re[k] = vr;
-    o_im[k] = vi;
-    rowerr[k] = T(0);
-    return;
+__global__ void cim_inject_kernel(const T* __restrict__ v_re,
+                                  const T* __restrict__ v_im,
+                                  const T* __restrict__ s_re,
+                                  const T* __restrict__ s_im,
+                                  T* __restrict__ j_re, T* __restrict__ j_im,
+                                  int64_t total) {
+  const int64_t q = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (q >= total) return;
+  const T vr = v_re[q], vi = v_im[q];
+  T jr = T(0), ji = T(0);
+  if (vr * vr + vi * vi > T(0)) {
+    const T sr = s_re[q], si = s_im[q];
+    const T d = vr * vr + vi * vi;
+    jr = (sr * vr + si * vi) / d;
+    ji = -((si * vr - sr * vi) / d);
   }
-  const T nr = (vb_re[k] + dre) * mask[i];
-  const T ni = (vb_im[k] + dim) * mask[i];
-  o_re[k] = nr;
-  o_im[k] = ni;
-  const T er = nr - vr, ei = ni - vi;
-  rowerr[k] = sqrt(er * er + ei * ei);
+  j_re[q] = jr;
+  j_im[q] = ji;
 }
+
+// I1's epilogue, handed each (lane, row)'s A-product dv by the tiled
+// product: v_base + dv under the phase mask, |dv| a row (0 on inactive
+// lanes, which copy v), reduced to a max a row tile into rowerr [B,
+// row_tiles(N)].
+template <typename T>
+struct CimEpilogue {
+  const T *v_re, *v_im, *vb_re, *vb_im, *mask;
+  const unsigned char* active;
+  T *o_re, *o_im, *rowerr;
+  int N;
+  __device__ __forceinline__ T operator()(int64_t b, int i, T dre,
+                                          T dim) const {
+    // Read-only inputs (__ldg): a thread's outputs need not wait for each
+    // other's stores.
+    const int64_t k = b * N + i;
+    const T vr = __ldg(v_re + k), vi = __ldg(v_im + k);
+    if (!__ldg(active + b)) {
+      o_re[k] = vr;
+      o_im[k] = vi;
+      return T(0);
+    }
+    const T mk = __ldg(mask + i);
+    const T nr = (__ldg(vb_re + k) + dre) * mk;
+    const T ni = (__ldg(vb_im + k) + dim) * mk;
+    o_re[k] = nr;
+    o_im[k] = ni;
+    const T er = nr - vr, ei = ni - vi;
+    return sqrt(er * er + ei * ei);
+  }
+  __device__ __forceinline__ void lane_tile(int64_t b, int tile, T worst,
+                                            bool nan) const {
+    rowerr[b * row_product::row_tiles(N) + tile] = nan ? nan_<T>() : worst;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Launches
@@ -446,12 +470,12 @@ template <typename T>
 int launch_fdlf(int mode, T* x, const T* d, int64_t d_bs, int64_t d_js,
                 const T* g, const T* bm, int lane_y, const T* ps, const T* qs,
                 const T* th_free, const T* v_free, T* dp, T* dq, T* vr, T* vm,
-                T* rowerr, T* err, int* it, unsigned char* active,
+                T* part, T* rowerr, T* err, int* it, unsigned char* active,
                 const T* tol, int max_iter, int fixed, int lanes, int n,
-                cudaStream_t stream) {
+                int splits, cudaStream_t stream) {
   if (lanes <= 0 || lanes > 65535 || n <= 0 ||
       (mode != INIT && mode != THETA && mode != VHALF) ||
-      (mode != INIT && d == nullptr))
+      (mode != INIT && d == nullptr) || (lane_y && splits != 0))
     return (int)cudaErrorInvalidValue;
   const int64_t total = (int64_t)lanes * n;
   fdlf_prepass_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads),
@@ -459,20 +483,23 @@ int launch_fdlf(int mode, T* x, const T* d, int64_t d_bs, int64_t d_js,
       mode, x, d, d_bs, d_js, th_free, v_free, active, vr, vm, lanes, n);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (lane_y || lanes < kTiledMinLanes) {
+  if (splits == 0) {
     const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, lanes);
     fdlf_lane_kernel<T><<<grid, kThreads, 0, stream>>>(
         mode, x, vr, vm, g, bm, lane_y ? (int64_t)n * n : 0, ps, qs, th_free,
         v_free, active, dp, dq, rowerr, n);
   } else {
-    const dim3 grid((n + kRows - 1) / kRows, (lanes + kLanes - 1) / kLanes);
-    fdlf_tiled_kernel<T><<<grid, kThreads, 0, stream>>>(
-        mode, x, vr, vm, g, bm, ps, qs, th_free, v_free, active, dp, dq,
-        rowerr, lanes, n);
+    const FdlfEpilogue<T> epi{mode,   x,      vr, vm, ps,     qs, th_free,
+                              v_free, active, dp, dq, rowerr, n};
+    e = (cudaError_t)row_product::launch_tiled<T>(g, bm, vr, vm, part, lanes,
+                                                n, splits, epi, stream);
+    if (e != cudaSuccess) return (int)e;
   }
   e = cudaGetLastError();
   if (e != cudaSuccess || mode != VHALF) return (int)e;
-  return launch_finish<T>(rowerr, n, err, it, active, tol, max_iter, fixed,
+  // The tile form left a max a (lane, row tile), the warp form a row each.
+  const int rows = splits == 0 ? n : row_product::row_tiles(n);
+  return launch_finish<T>(rowerr, rows, err, it, active, tol, max_iter, fixed,
                           lanes, stream);
 }
 
@@ -495,19 +522,24 @@ int launch_jvp(const T* x, const T* u, const int* inc_ptr,
 template <typename T>
 int launch_cim(const T* a_re, const T* a_im, const T* v_re, const T* v_im,
                const T* s_re, const T* s_im, const T* vb_re, const T* vb_im,
-               const T* mask, T* o_re, T* o_im, T* rowerr, T* err, int* it,
-               unsigned char* active, const T* tol, int max_iter, int fixed,
-               int lanes, int N, cudaStream_t stream) {
-  if (lanes <= 0 || lanes > 65535 * kLanes || N <= 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kRows - 1) / kRows, (lanes + kLanes - 1) / kLanes);
-  cim_kernel<T><<<grid, kThreads, 0, stream>>>(
-      a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im, mask, active, o_re,
-      o_im, rowerr, lanes, N);
-  const cudaError_t e = cudaGetLastError();
+               const T* mask, T* j_re, T* j_im, T* part, T* o_re, T* o_im,
+               T* rowerr, T* err, int* it, unsigned char* active,
+               const T* tol, int max_iter, int fixed, int lanes, int N,
+               int splits, cudaStream_t stream) {
+  if (lanes <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t total = (int64_t)lanes * N;
+  cim_inject_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads),
+                         kThreads, 0, stream>>>(v_re, v_im, s_re, s_im, j_re,
+                                                j_im, total);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return launch_finish<T>(rowerr, N, err, it, active, tol, max_iter, fixed,
-                          lanes, stream);
+  const CimEpilogue<T> epi{v_re,   v_im, vb_re, vb_im,  mask,
+                           active, o_re, o_im,  rowerr, N};
+  e = (cudaError_t)row_product::launch_tiled<T>(a_re, a_im, j_re, j_im, part,
+                                              lanes, N, splits, epi, stream);
+  if (e != cudaSuccess) return (int)e;
+  return launch_finish<T>(rowerr, row_product::row_tiles(N), err, it, active,
+                          tol, max_iter, fixed, lanes, stream);
 }
 
 }  // namespace
@@ -515,8 +547,12 @@ int launch_cim(const T* a_re, const T* a_im, const T* v_re, const T* v_im,
 // Plain C interface for ctypes.  Every pointer is a device pointer to a
 // contiguous tensor unless a stride says otherwise (F1's `d`); `stream` is
 // the caller's CUDA stream.  `it` is int32, `active` one byte a lane, `tol`
-// one element.  J1's null `status` means every branch in service.  Returns
-// the cudaError_t of the launches.
+// one element.  J1's null `status` means every branch in service.  F1's and
+// I1's `splits` (the tiled product's K slices) comes from
+// newton_kernels.product_splits (F1 takes 0 for its warp form, and then no
+// `part`), `part` is the product's [splits, 2, lanes, n] scratch; I1's
+// `j_re`/`j_im` are its [lanes, N] injection scratch.  Returns the
+// cudaError_t of the launches.
 #define SOLVER_ENTRY_POINTS(T, SUFFIX)                                         \
   extern "C" int ybus_stamp_##SUFFIX(                                         \
       int mode, const int* inc_ptr, const int* inc_code, const int* inc_nbr,  \
@@ -530,13 +566,13 @@ int launch_cim(const T* a_re, const T* a_im, const T* v_re, const T* v_im,
   extern "C" int fdlf_half_step_##SUFFIX(                                     \
       int mode, T* x, const T* d, long long d_bs, long long d_js, const T* g, \
       const T* bm, int lane_y, const T* ps, const T* qs, const T* th_free,    \
-      const T* v_free, T* dp, T* dq, T* vr, T* vm, T* rowerr, T* err,         \
-      int* it, unsigned char* active, const T* tol, int max_iter, int fixed,  \
-      int lanes, int n, void* stream) {                                      \
+      const T* v_free, T* dp, T* dq, T* vr, T* vm, T* part, T* rowerr,        \
+      T* err, int* it, unsigned char* active, const T* tol, int max_iter,     \
+      int fixed, int lanes, int n, int splits, void* stream) {               \
     return launch_fdlf<T>(mode, x, d, d_bs, d_js, g, bm, lane_y, ps, qs,     \
-                          th_free, v_free, dp, dq, vr, vm, rowerr, err, it,  \
-                          active, tol, max_iter, fixed, lanes, n,            \
-                          (cudaStream_t)stream);                             \
+                          th_free, v_free, dp, dq, vr, vm, part, rowerr,     \
+                          err, it, active, tol, max_iter, fixed, lanes, n,   \
+                          splits, (cudaStream_t)stream);                     \
   }                                                                          \
   extern "C" int residual_jvp_##SUFFIX(                                       \
       const T* x, const T* u, const int* inc_ptr, const int* inc_code,        \
@@ -551,12 +587,13 @@ int launch_cim(const T* a_re, const T* a_im, const T* v_re, const T* v_im,
   extern "C" int cim_iterate_##SUFFIX(                                        \
       const T* a_re, const T* a_im, const T* v_re, const T* v_im,             \
       const T* s_re, const T* s_im, const T* vb_re, const T* vb_im,           \
-      const T* mask, T* o_re, T* o_im, T* rowerr, T* err, int* it,            \
-      unsigned char* active, const T* tol, int max_iter, int fixed,           \
-      int lanes, int N, void* stream) {                                      \
+      const T* mask, T* j_re, T* j_im, T* part, T* o_re, T* o_im,             \
+      T* rowerr, T* err, int* it, unsigned char* active, const T* tol,        \
+      int max_iter, int fixed, int lanes, int N, int splits, void* stream) { \
     return launch_cim<T>(a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im,   \
-                         mask, o_re, o_im, rowerr, err, it, active, tol,     \
-                         max_iter, fixed, lanes, N, (cudaStream_t)stream);   \
+                         mask, j_re, j_im, part, o_re, o_im, rowerr, err,    \
+                         it, active, tol, max_iter, fixed, lanes, N, splits, \
+                         (cudaStream_t)stream);                              \
   }
 
 SOLVER_ENTRY_POINTS(double, f64)

@@ -24,12 +24,22 @@ shared by every lane (lane stride 0), or of ``[B, n, n]`` tensors, one
 per lane (the dense backend's branch ``status``); the masks ``th_free``,
 ``v_free`` (1 where the quantity is unknown), ``v_set`` are ``[n]`` and
 ``free`` is ``[2n]``.
+
+K2's product with one Ybus for every lane is ``csrc/row_product.cuh``'s
+tiled form, which F1 and I1 (:mod:`~freedm_tpu_torch.kernels.solver_kernels`)
+share: a GEMM of n rows, B lanes and n columns in 64 × 64 tiles, its
+columns cut into :func:`product_splits` slices whose partial sums the
+wrapper's scratch holds (:func:`product_scratch`) and an epilogue pass
+adds in split order; float64 runs on the tensor cores, float32 by FFMA
+on the CUDA cores.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
+import re
 import threading
 from typing import Dict, Tuple
 
@@ -152,6 +162,79 @@ def newton_update_plain(x, dx, f, free, it, err, active, max_iter: int,
 
 
 # ---------------------------------------------------------------------------
+# The tiled product's launch plan
+# ---------------------------------------------------------------------------
+
+
+
+def _header_constants(*names: str) -> Tuple[int, ...]:
+    """``constexpr int`` values of ``csrc/row_product.cuh``, the one place
+    the tile geometry is written."""
+    text = (build.CSRC_DIR / "row_product.cuh").read_text()
+    out = []
+    for name in names:
+        m = re.search(rf"^constexpr int {name} = (\d+);", text, re.MULTILINE)
+        if m is None:
+            raise RuntimeError(f"row_product.cuh defines no {name}")
+        out.append(int(m.group(1)))
+    return tuple(out)
+
+
+#: ``csrc/row_product.cuh``'s tile: rows of Y and lanes a block, columns a
+#: pipeline stage, and the most K slices a launch takes.
+TILE_ROWS, TILE_LANES, TILE_K, MAX_SPLITS = _header_constants(
+    "kTileRows", "kTileLanes", "kTileK", "kMaxSplits")
+#: SMs of an H100 SXM.  A card with another SM count runs the same plan
+#: (the bits do not depend on the card).
+PLAN_SMS = 132
+#: Two blocks on one SM take this share of the time of running them one
+#: after the other (they fill each other's barrier and load stalls;
+#: measured at mesh2000 × 64 and the CIM feeder × 64 on an H100).
+PLAN_SHARED_SM = 0.87
+
+
+def product_splits(n: int, lanes: int) -> int:
+    """The K slices of the tiled product of an ``[n, n]`` Y with ``lanes``
+    lanes.  A function of the shape alone, so every kernel on the product
+    (K2, F1, I1) gets the same bits from the same operands.
+
+    Cost of ``s`` slices, in a stage's time on one SM: the blocks an SM
+    runs (``tiles × s`` over :data:`PLAN_SMS`, rounded up) times a
+    block's stages (its slice, plus two for the pipeline's fill and its
+    store), times :data:`PLAN_SHARED_SM` when SMs run more than one
+    block, plus half a stage a slice for the epilogue pass's reads.  The
+    smallest cost wins, ties to fewer slices; no slice is empty.  On an
+    H100 this picks 8 at mesh2000 × 64 (the product 0.047 ms against 0.053
+    for 4) and on the CIM feeder (n = 3000) × 64 (0.103 ms against 0.108
+    for 5)."""
+    if n <= 0 or lanes <= 0:
+        raise ValueError(f"product_splits needs n, lanes > 0, got {n}, "
+                         f"{lanes}")
+    tiles = math.ceil(n / TILE_ROWS) * math.ceil(lanes / TILE_LANES)
+    stages = math.ceil(n / TILE_K)
+    best, best_cost = 1, None
+    for s in range(1, min(MAX_SPLITS, stages) + 1):
+        per = math.ceil(stages / s)
+        if (s - 1) * per >= stages:
+            continue
+        waves = math.ceil(tiles * s / PLAN_SMS)
+        cost = waves * (per + 2) * (PLAN_SHARED_SM if waves > 1 else 1.0) \
+            + s / 2
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def product_scratch(n: int, lanes: int, dtype: torch.dtype,
+                    device: torch.device) -> Tuple[int, Tensor]:
+    """``(splits, part)``: the plan and the ``[splits, 2, lanes, n]``
+    partial sums the tiled product writes and its epilogue pass reads."""
+    splits = product_splits(n, lanes)
+    return splits, torch.empty(splits, 2, lanes, n, dtype=dtype,
+                               device=device)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -172,7 +255,7 @@ def _newton_lib() -> ctypes.CDLL:
                 fn.argtypes = [_P] * 12 + [_I, _I, _L, _P]
                 fn.restype = _I
                 fn = getattr(lib, f"power_injections_{suffix}")
-                fn.argtypes = [_P] * 13 + [_I, _I, _L, _P]
+                fn.argtypes = [_P] * 14 + [_I, _I, _L, _I, _P]
                 fn.restype = _I
                 fn = getattr(lib, f"newton_update_{suffix}")
                 fn.argtypes = [_P] * 8 + [_I] * 3 + [_P]
@@ -274,10 +357,13 @@ def power_injections(x, y_re, y_im, p_sched, q_sched, th_free, v_free,
         f = torch.empty(lanes, 2 * n, dtype=x.dtype, device=x.device)
         vr = torch.empty_like(p)
         vm = torch.empty_like(p)
+        splits, part = ((0, None) if y_stride else
+                        product_scratch(n, lanes, x.dtype, x.device))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(*map(_ptr, (x, y_re, y_im, p_sched, q_sched, th_free, v_free,
-                            v_set, vr, vm, f, p, q)), lanes, n, y_stride,
-                stream)
+                            v_set, vr, vm, f, p, q)),
+                None if part is None else part.data_ptr(), lanes, n,
+                y_stride, splits, stream)
     _raise_on(rc, "power_injections")
     _count("power_injections")
     return p, q, f

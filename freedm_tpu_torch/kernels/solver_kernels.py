@@ -44,7 +44,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from freedm_tpu_torch.kernels import build
-from freedm_tpu_torch.kernels.newton_kernels import injections_plain
+from freedm_tpu_torch.kernels.newton_kernels import (injections_plain,
+                                                     product_scratch)
 from freedm_tpu_torch.kernels.sparse_kernels import (SparseOperands,
                                                      _launch_on, _need_cuda,
                                                      _op_ptrs, _raise_on,
@@ -65,6 +66,10 @@ LAUNCHES: Dict[str, int] = {
 YBUS, BPRIME, BDBL = 0, 1, 2
 #: F1's modes: the start point's mismatch; the θ half; the V half.
 INIT, THETA, VHALF = 0, 1, 2
+#: F1 takes K2's tiled product (``csrc/row_product.cuh``) for one Ybus of
+#: every lane from this many lanes; below, a 64-lane tile would idle and a
+#: warp a (lane, row) reads Ybus once a lane.
+TILED_MIN_LANES = 4
 _MODES = {"ybus_stamp": ("YBUS", "BPRIME", "BDBL"),
           "fdlf_half_step": ("INIT", "THETA", "V")}
 #: Y1's and F1's launches by mode (their sums are in :data:`LAUNCHES`).
@@ -313,10 +318,10 @@ _fns: Dict[Tuple[str, torch.dtype], object] = {}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _SIGS = {
     "ybus_stamp": [_I] + [_P] * 10 + [_I] * 3 + [_P],
-    "fdlf_half_step": [_I, _P, _P, _L, _L, _P, _P, _I] + [_P] * 13
-    + [_I] * 4 + [_P],
+    "fdlf_half_step": [_I, _P, _P, _L, _L, _P, _P, _I] + [_P] * 14
+    + [_I] * 5 + [_P],
     "residual_jvp": [_P] * 15 + [_I] * 3 + [_P],
-    "cim_iterate": [_P] * 16 + [_I] * 4 + [_P],
+    "cim_iterate": [_P] * 19 + [_I] * 5 + [_P],
 }
 
 
@@ -433,14 +438,17 @@ def fdlf_half_step(mode: int, x, d, y_re, y_im, ps, qs, th_free, v_free, dp,
         vr = torch.empty(lanes, n, dtype=dt, device=x.device)
         vm = torch.empty_like(vr)
         rowerr = torch.empty_like(vr) if mode == VHALF else None
+        splits, part = ((0, None) if lane_y or lanes < TILED_MIN_LANES
+                        else product_scratch(n, lanes, dt, x.device))
         d_bs, d_js = (0, 0) if mode == INIT else d.stride()
         rc = fn(mode, x.data_ptr(), None if mode == INIT else d.data_ptr(),
                 d_bs, d_js, y_re.data_ptr(), y_im.data_ptr(), int(lane_y),
                 ps.data_ptr(), qs.data_ptr(), th_free.data_ptr(),
                 v_free.data_ptr(), dp.data_ptr(), dq.data_ptr(),
-                vr.data_ptr(), vm.data_ptr(), _ptr(rowerr), err.data_ptr(),
-                it.data_ptr(), active.data_ptr(), tol.data_ptr(),
-                int(max_iter), int(bool(fixed)), lanes, n, stream)
+                vr.data_ptr(), vm.data_ptr(), _ptr(part), _ptr(rowerr),
+                err.data_ptr(), it.data_ptr(), active.data_ptr(),
+                tol.data_ptr(), int(max_iter), int(bool(fixed)), lanes, n,
+                splits, stream)
     _raise_on(rc, "fdlf_half_step")
     _count("fdlf_half_step", mode)
 
@@ -514,13 +522,16 @@ def cim_iterate(a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im, mask, err,
     ctx, stream = _launch_on(v_re)
     with ctx:
         rowerr = torch.empty_like(v_re)
+        j_re, j_im = torch.empty_like(v_re), torch.empty_like(v_re)
+        splits, part = product_scratch(big_n, lanes, dt, v_re.device)
         rc = fn(a_re.data_ptr(), a_im.data_ptr(), v_re.data_ptr(),
                 v_im.data_ptr(), s_re.data_ptr(), s_im.data_ptr(),
                 vb_re.data_ptr(), vb_im.data_ptr(), mask.data_ptr(),
+                j_re.data_ptr(), j_im.data_ptr(), part.data_ptr(),
                 out[0].data_ptr(), out[1].data_ptr(), rowerr.data_ptr(),
                 err.data_ptr(), it.data_ptr(), active.data_ptr(),
                 tol.data_ptr(), int(max_iter), int(bool(fixed)), lanes, big_n,
-                stream)
+                splits, stream)
     _raise_on(rc, "cim_iterate")
     _count("cim_iterate")
     return out

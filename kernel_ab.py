@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time S1 ``sparse_assemble`` (each mode), S2 ``sparse_matvec``, S3
 ``gmres_block_orth``, S4 ``gmres_lstsq``, K3 ``newton_update``, K1
-``newton_assemble`` and K2 ``power_injections`` and the serving cache's
-delta program (C1) of this checkout against those of other checkouts of
-the repo, in turns on one card.
+``newton_assemble``, K2 ``power_injections``, I1 ``cim_iterate``, F1
+``fdlf_half_step`` in its tile mode and the serving cache's delta program
+(C1) of this checkout against those of other checkouts of the repo, in
+turns on one card.
 
-    python3 kernel_ab.py OTHER [OTHER ...] [--sections sparse,delta,newton]
+    python3 kernel_ab.py OTHER [OTHER ...]
+                         [--sections sparse,delta,newton,solvers]
                          [--out FILE]
 
 Each ``OTHER`` is the root of another checkout, for example one written
@@ -50,9 +52,24 @@ factors may differ in the last bits between processes).
 The ``newton`` section times K1 and K2 at mesh2000 × 64 lanes in
 float64 with one Ybus for every lane (the dense backend without a branch
 status), on the state ``chip_smoke.newton_inputs`` makes once here: CUDA
-events over back-to-back calls and device time, as above.  The
-checkouts' Jacobians, mismatches, P and Q must be the same bits
-(``newton_same_bits``).
+events over back-to-back calls and device time, K1's from the profiler
+as above, K2's from queued events (``chip_smoke.queued_events_ms``).  The
+checkouts' K1 Jacobians and mismatches must be the same bits
+(``newton_same_bits``); K2's P, Q and mismatch agree within
+``chip_smoke.KERNEL_ATOL`` (its product's summation order is not a
+contract: ``power_injections_max_abs`` is printed, and
+``power_injections_same_bits``).
+
+The ``solvers`` section times I1 on the CIM feeder × 64 lanes
+(``chip_smoke.cim_feeder``, one fixed iteration a call, the operands
+``chip_smoke._cim_operands`` forms) and F1's V half in its tile mode at
+mesh118 × 1024 lanes (one Ybus, the reference bench's Monte-Carlo
+batch), float64: CUDA events over back-to-back calls, and device time
+from CUDA events around each call queued behind a sleep kernel
+(``chip_smoke.queued_events_ms``: the profiler's I1 times come back
+short).  Each checkout's I1 iteration (v_new, err, it) and F1's three
+modes (x, dp, dq, err, it) from the same inputs agree within
+``KERNEL_ATOL`` (``*_max_abs``, ``*_same_bits`` printed).
 
 Prints the card's name and power limit, one line per turn and a JSON
 summary as the last line (also written to ``--out``).  Needs a CUDA card.
@@ -75,7 +92,10 @@ DTYPES = ("float64", "float32")
 KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "sparse_assemble_residual", "sparse_matvec", "gmres_block_orth",
            "gmres_lstsq", "newton_update")
-SECTIONS = ("sparse", "delta", "newton")
+SECTIONS = ("sparse", "delta", "newton", "solvers")
+SOLVER_KERNELS = ("cim_iterate", "fdlf_half_step")
+#: F1's tile-mode lanes in the ``solvers`` section (``bench_mc_1024``).
+F1_LANES = 1024
 NEWTON_KERNELS = ("newton_assemble", "power_injections")
 DELTA_LANES = (1, 8)
 DELTA_PRECISIONS = ("f64", "mixed")
@@ -103,6 +123,8 @@ def prepare(path: Path, sections) -> None:
     if "newton" in sections:
         data["newton"] = [a.cpu() for a in cs.newton_inputs(
             torch, sys_, cs.MAIN_LANES, seed=7)]
+    if "solvers" in sections:
+        data["solvers"] = solver_inputs(torch, cs)
     if "delta" in sections:
         case = cs.DeltaCase(torch, ck, "mesh2000")
         data["delta"] = [np.asarray(a) for a in case.inputs(
@@ -125,6 +147,70 @@ def prepare(path: Path, sections) -> None:
         data[name] = {k: v.cpu() if torch.is_tensor(v) else v
                       for k, v in data[name].items()}
     torch.save(data, path)
+
+
+def solver_inputs(torch, cs) -> dict:
+    """I1's arguments on the CIM feeder × ``cs.CIM_LANES`` and F1's at
+    mesh118 × ``F1_LANES`` (one Ybus), on the CPU."""
+    from freedm_tpu_torch.grid.bus import ybus_dense
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    cpu = torch.device("cpu")
+    f, ties = cs.cim_feeder()
+    cim = cs._cim_operands(torch, f, ties, cs.cim_loads(f, cs.CIM_LANES),
+                           cpu)
+    sys_ = cs.case_system("mesh118")
+    n = sys_.n_bus
+    rng = np.random.default_rng(118)
+    y = ybus_dense(sys_, dtype=torch.float64, device=cpu)
+    sop = sparse_operands(sys_, dtype=torch.float64, device=cpu)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64)
+
+    x = torch.cat([t(rng.normal(0, 0.1, (F1_LANES, n))),
+                   t(rng.uniform(0.95, 1.05, (F1_LANES, n)))], 1)
+    ps = t(rng.normal(size=(F1_LANES, n)))
+    return {"cim": cim, "f1": {
+        "x": x, "y": y, "ps": ps, "qs": 0.3 * ps, "thf": sop.th_free,
+        "vf": sop.v_free, "d_th": t(rng.normal(0, 1e-3, (F1_LANES, n))),
+        "d_v": t(rng.normal(0, 1e-3, (F1_LANES, n))),
+        "active": torch.as_tensor(np.arange(F1_LANES) % 3 != 1)}}
+
+
+def measure_solvers(torch, cs, data, dev):
+    """This checkout's I1 and F1 tile mode on ``solver_inputs``: times
+    (events back to back, events a call) and outputs."""
+    from freedm_tpu_torch.kernels import solver_kernels as sol
+
+    def on(a):
+        if isinstance(a, tuple):
+            return tuple(on(t) for t in a)
+        return a.to(dev) if torch.is_tensor(a) else a
+
+    cim = [on(a) for a in data["cim"]]
+    carry = [a.clone() for a in cim[9:12]]
+    out = sol.cim_iterate(*cim[:9], *carry, *cim[12:])
+    outs = {"cim_iterate": [t.cpu() for t in (*out, *carry)]}
+    f = {k: on(v) for k, v in data["f1"].items()}
+    outs["fdlf_half_step"] = [t.cpu() for t in cs.f1_run(
+        torch, sol.fdlf_half_step, sol, f["x"], f["d_th"], f["d_v"], f["y"],
+        f["ps"], f["qs"], f["thf"], f["vf"], f["active"])[:5]]
+    lanes, n = f["ps"].shape
+    z = torch.zeros_like(f["ps"])
+    v_args = (sol.VHALF, f["x"].clone(), z, f["y"][0], f["y"][1], f["ps"],
+              f["qs"], f["thf"], f["vf"], torch.zeros_like(z),
+              torch.zeros_like(z), torch.zeros(lanes, dtype=z.dtype,
+                                               device=dev),
+              torch.zeros(lanes, dtype=torch.int32, device=dev),
+              torch.ones(lanes, dtype=torch.bool, device=dev),
+              torch.zeros(1, dtype=z.dtype, device=dev), 1 << 30, True)
+    fns = {"cim_iterate": (lambda: sol.cim_iterate(*cim), 20),
+           "fdlf_half_step": (lambda: sol.fdlf_half_step(*v_args), 50)}
+    times = {k: (cs.time_ms(torch, fn, reps=reps),
+                 cs.queued_events_ms(torch, fn, reps))
+             for k, (fn, reps) in fns.items()}
+    return times, outs
 
 
 def assemble_fns(torch, sk, x, ps, qs, op) -> dict:
@@ -179,8 +265,11 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
                 torch, lambda: nk.newton_assemble(*args), reps=10)),
             "power_injections": (cs.time_ms(
                 torch, lambda: nk.power_injections(*args), reps=200),
-                cs.device_ms(torch, lambda: nk.power_injections(*args),
-                             reps=50))}
+                cs.queued_events_ms(torch, lambda: nk.power_injections(*args),
+                                    reps=50))}
+    if "solvers" in sections:
+        times["solvers"], outs["solvers"] = measure_solvers(
+            torch, cs, data["solvers"], dev)
     if "delta" in sections:
         times["delta"], outs["delta"] = measure_delta(torch, cs, sys_,
                                                       data["delta"], dev)
@@ -333,9 +422,26 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
     errs = {}
     if "newton" in a:
         same = all(cs.same_bits(torch, x, y)
-                   for x, y in zip(a["newton"], b["newton"]))
-        cs.check(same, f"{label}: K1/K2 outputs differ from this checkout's")
+                   for x, y in zip(a["newton"][:2], b["newton"][:2]))
+        cs.check(same, f"{label}: K1 outputs differ from this checkout's")
         errs["newton_same_bits"] = same
+        k2 = max(cs.max_err(x, y) for x, y in zip(a["newton"][2:],
+                                                   b["newton"][2:]))
+        cs.check(k2 <= cs.KERNEL_ATOL,
+                 f"{label}: K2 outputs {k2:.3e} from this checkout's")
+        errs["power_injections_max_abs"] = k2
+        errs["power_injections_same_bits"] = all(
+            cs.same_bits(torch, x, y)
+            for x, y in zip(a["newton"][2:], b["newton"][2:]))
+    for kern, outs in a.get("solvers", {}).items():
+        other = b["solvers"][kern]
+        d = max(cs.exact_or_close(torch, x, y) for x, y in zip(outs, other))
+        cs.check(d <= cs.KERNEL_ATOL,
+                 f"{label}: {kern} outputs {d:.3e} from this checkout's")
+        errs[f"{kern}_max_abs"] = d
+        errs[f"{kern}_same_bits"] = all(
+            torch.equal(x, y) or cs.same_bits(torch, x, y)
+            for x, y in zip(outs, other))
     for key, (ta, va, sa) in a.get("delta", {}).items():
         tb, vb, sb = b["delta"][key]
         d = max(float((ta - tb).abs().max()), float((va - vb).abs().max()))
@@ -379,7 +485,7 @@ def main() -> int:
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help="comma-separated: sparse (S1-S4, K3 and the "
                          "solves), delta (the delta program), newton (K1 "
-                         "and K2)")
+                         "and K2), solvers (I1 and F1's tile mode)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
@@ -410,7 +516,8 @@ def main() -> int:
     summary = {"card": smi, "sections": sections,
                "shape": "mesh2000 x 64, S3 at j0 = 12, s = 4, S4 at mm = 16;"
                         " K1/K2 mesh2000 x 64, one Ybus; delta programs "
-                        "mesh2000 x {1, 8} lanes",
+                        "mesh2000 x {1, 8} lanes; I1 the CIM feeder x 64; "
+                        "F1 tile mode mesh118 x 1024",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
@@ -443,6 +550,10 @@ def main() -> int:
                 for kern, (ms, dev) in times.get("newton", {}).items():
                     print(f"ab {other.name} float64 {kern:<26} {which:<5} "
                           f"{ms:.4f} ms  device {dev:.4f} ms", flush=True)
+                for kern, (ms, dev) in times.get("solvers", {}).items():
+                    print(f"ab {other.name} float64 {kern:<26} {which:<5} "
+                          f"{ms:.4f} ms  device (queued events) {dev:.4f} "
+                          f"ms", flush=True)
                 for name in DTYPES:
                     for kern in KERNELS:
                         if kern not in times.get(name, {}):
