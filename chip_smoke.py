@@ -154,13 +154,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    voltage collapse is held to equal flags and iterations and every
    lane's single iteration to the same limits; a float32 flag whose
    residual lies within rounding of eps, ``F32_FLAG_ULPS``, is printed;
-   bit-identical on repeat); L2 through
+   bit-identical on repeat); L1's routes (``compare_ladder_routes``): its
+   plan and the clusters the card holds at once, at the 10k feeder a
+   lane's outputs the same bits in launches of 1, 8 and 64 lanes (fixed
+   and solve, float64 and float32), the global route above the cluster
+   route's float64 capacity (``synthetic_radial(20904)``, its float32 run
+   on the cluster route) and a feeder whose group outgrows a CTA's staged
+   members (``broom_feeder``) against the plain version (fixed, saved
+   iterates, solve); L2 through
    ``LadderFixed`` against ``torch.autograd.grad`` of the plain fixed
    solve for the total loss in Q on vvc_9bus and the 10k feeder × {1,
    64} (rtol 1e-8, atol 1e-10) and a central difference on three live
-   coordinates at 10k × 1 (1e-4); then their times (events and device
-   time) at the 10k feeder × 64 and × 1 and vvc_9bus × 64 beside the
-   plain versions and the bounds;
+   coordinates at 10k × 1 (1e-4); then their times (events back to back,
+   and device time by events queued behind a sleep kernel,
+   ``queued_events_ms``) at the 10k feeder × 64 and × 1 and vvc_9bus × 64
+   beside the plain versions and the bounds;
 13. vvc: one controller step on vvc_9bus from zero q at loads P·(1 +
    0.6j) — it improves and is within 1e-9 of the plain step, one L2
    launch —, 120 rounds (non-increasing, below 0.92 of the base, L2
@@ -246,9 +254,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    their times (events and device time) beside the plain versions, the
    bounds and the library rows: Y1 at mesh118 × 118 (library: a sparse
    COO tensor to dense, duplicates summed), K1/K2 on that per-lane Ybus,
-   F1 at mesh2000 × 1 (library: the complex ``torch.matmul`` of Ybus with
-   V), mesh118 × 1024 (the tile mode; library the same product, float32
-   too) and mesh2000 × 16 per lane, J1 at mesh2000 × 256 (library:
+   F1 at mesh2000 × 1 (its warp form, one kernel a call; device time and
+   the library row — the complex ``torch.matmul`` of Ybus with V — both by
+   queued events), mesh118 × 1024 (the tile mode; library the same
+   product, float32 too) and mesh2000 × 16 per lane (queued events), J1
+   at mesh2000 × 256 (library:
    ``torch.sparse.mm`` of the S1-assembled Jacobian), I1 at the CIM feeder
    × 64 (device time by events a call; library: the complex
    ``torch.matmul`` of A with the injections; float32 too);
@@ -3237,6 +3247,115 @@ def compare_ladder_vjp(torch, errs):
     errs["ladder_vjp"] = worst
 
 
+def broom_feeder(nb=10000, chain=3000, load_kw=0.2):
+    """A feeder whose first ``chain`` branches form one path and whose
+    others hang off the substation: every path branch's subtree closes at
+    branch ``chain``, so that branch's group holds ``chain`` members, more
+    than L1's cluster route stages in a CTA."""
+    from freedm_tpu_torch.grid import cases, feeder
+
+    rng = np.random.default_rng(7)
+    dl = np.zeros((nb, 13))
+    for i in range(nb):
+        p = load_kw * rng.uniform(0.5, 1.5)
+        dl[i] = [i + 1, i if 0 < i < chain else 0, i + 1, 1,
+                 rng.uniform(0.001, 0.01), 1, p, 0.3 * p, p, 0.3 * p, p,
+                 0.3 * p, 0]
+    return feeder.from_branch_table(dl, cases.default_z_codes(1),
+                                    base_kva=10000.0, v_source_pu=1.02)
+
+
+def compare_ladder_routes(torch, lk, errs):
+    """L1's two routes and its plan.  At ``synthetic_radial(10000)`` (the
+    cluster route) a lane's outputs are the same bits in launches of 1, 8
+    and 64 lanes, float64 and float32, fixed and solve modes; above the
+    cluster route's float64 capacity (``synthetic_radial(20904)``) the
+    global route, and in float32 the same feeder on the cluster route, and
+    a feeder one of whose groups holds more members than a CTA stages
+    (:func:`broom_feeder`), are held to the plain version in fixed,
+    fixed-with-saved-iterates and solve modes (``LADDER_ATOL``); prints
+    each plan and how many clusters the card holds at once."""
+    from freedm_tpu_torch.cplx import C
+    from freedm_tpu_torch.grid import cases
+
+    feeders = {n: f for n, f, _, _ in ladder_feeders()}
+    dev = torch.device("cuda")
+
+    def head(x, k):
+        return C(x.re[:k].contiguous(), x.im[:k].contiguous())
+
+    def one(x, k):
+        return C(x.re[k:k + 1].contiguous(), x.im[k:k + 1].contiguous())
+
+    fields = ("v", "i_branch", "i_load")
+    for dtype in (torch.float64, torch.float32):
+        s, v0, op = preorder_inputs(torch, lk, feeders["radial10k"],
+                                    MAIN_LANES, dtype)
+        plan = lk.ladder_plan(op.nb, dtype)
+        resident = lk.resident_clusters(plan, dtype, dev)
+        for fixed in (True, False):
+            wide = lk.ladder_solve(s, v0, op, LADDER_EPS, 20, fixed)
+            mid = lk.ladder_solve(head(s, 8), head(v0, 8), op, LADDER_EPS,
+                                  20, fixed)
+            for k in (0, 5, 7):
+                o = lk.ladder_solve(one(s, k), one(v0, k), op, LADDER_EPS,
+                                    20, fixed)
+                torch.cuda.synchronize()
+                same = all(torch.equal(getattr(getattr(o, f), part)[0],
+                                       getattr(getattr(x, f), part)[k])
+                           for f in fields for part in ("re", "im")
+                           for x in (mid, wide))
+                same = same and int(o.iterations[0]) == int(
+                    wide.iterations[k]) and torch.equal(o.residual[0],
+                                                        wide.residual[k])
+                check(same, f"L1 radial10k {dtype} fixed={fixed}: lane {k} "
+                      f"differs between launches of 1, 8 and 64 lanes")
+        log(f"ladder kernels: radial10k {str(dtype)[6:]} plan {plan._asdict()}"
+            f", {resident} clusters at once; lanes 0, 5, 7 the same bits in "
+            f"launches of 1, 8 and {MAIN_LANES} lanes (fixed and solve)")
+    big = cases.synthetic_radial(lk.cluster_capacity(torch.float64) + 424,
+                                 seed=3, load_kw=1.0)
+    for f, dtype in ((big, torch.float64), (big, torch.float32),
+                     (broom_feeder(), torch.float64),
+                     (broom_feeder(), torch.float32)):
+        dn = str(dtype).split(".")[-1]
+        worst = 0.0
+        for lanes in (1, 3):
+            s, v0, op = preorder_inputs(torch, lk, f, lanes, dtype)
+            plan = lk.ladder_plan(op.nb, dtype)
+            for fixed, save in ((True, False), (True, True), (False, False)):
+                a = lk.ladder_solve(s, v0, op, LADDER_EPS, 20, fixed, save)
+                a2 = lk.ladder_solve(s, v0, op, LADDER_EPS, 20, fixed, save)
+                p = lk.ladder_solve_plain(s, v0, op, LADDER_EPS, 20, fixed,
+                                          save)
+                torch.cuda.synchronize()
+                where = (f"ladder nb {op.nb} {dn} x{lanes} {plan.route} "
+                         f"fixed={fixed} save={save}")
+                gap = max(float((getattr(a, f).re - getattr(p, f).re).abs()
+                                .max()) for f in fields)
+                gap = max(gap, max(float((getattr(a, f).im - getattr(p, f).im)
+                                         .abs().max()) for f in fields))
+                if save:
+                    gap = max(gap, float((a.saved - p.saved).abs().max()))
+                check(gap <= LADDER_ATOL[dn], f"{where}: {gap:.3e} from the "
+                      f"plain version")
+                check(torch.equal(a.converged, p.converged)
+                      and (dn == "float32"
+                           or torch.equal(a.iterations, p.iterations)),
+                      f"{where}: flags or iterations differ")
+                check(all(torch.equal(getattr(a, f).re, getattr(a2, f).re)
+                          for f in fields), f"{where}: not bit-identical on "
+                      f"repeat")
+                worst = max(worst, gap)
+        if dn == "float64":
+            errs["ladder_solve"] = max(errs["ladder_solve"], worst)
+        name = "broom" if f is not big else "radial"
+        log(f"ladder kernels: {name}{f.n_branches} {dn} on the "
+            f"{plan.route} route ({plan.cluster} CTAs a lane) x{{1, 3}} "
+            f"fixed/save/solve: {worst:.3e} from the plain version, flags "
+            f"equal, bit-identical on repeat")
+
+
 def ladder_device_ms(torch, fn, reps, log_key):
     """Device time of one call of ``fn``: the profiler's kernel rows
     (:func:`device_ms`), or, where a trace holds no device events for the
@@ -3314,7 +3433,8 @@ def time_ladder(torch, lk, rows, extra):
     the plain versions and the bounds: the 10k feeder × 64 (the table's
     row) and × 1 lanes, 20 fixed iterations, float64 (and float32 for
     L1), and L1 on the served vvc_9bus × 64.  Device time by
-    :func:`ladder_device_ms`, its source recorded."""
+    :func:`queued_events_ms` (the profiler records no device events for
+    L1/L2 in the whole script)."""
     feeders = {n: f for n, f, _, _ in ladder_feeders()}
     eps, iters = LADDER_EPS, 20
     for name, lanes, dtype in (("radial10k", MAIN_LANES, torch.float64),
@@ -3330,14 +3450,13 @@ def time_ladder(torch, lk, rows, extra):
                                          save=True)
         solving = lambda: lk.ladder_solve(s, v0, op, eps, iters, False)  # noqa: E731
         tag = f"{name} x{lanes} {str(dtype).split('.')[-1]}"
+        src = src_save = src_solve = "queued events"
         k = time_ms(torch, fixed, reps=10)
-        kd, src = ladder_device_ms(torch, fixed, 5, f"L1 fixed {tag}")
+        kd = queued_events_ms(torch, fixed, 7)
         k_save = time_ms(torch, saving, reps=5)
-        kd_save, src_save = ladder_device_ms(torch, saving, 5,
-                                             f"L1 fixed+save {tag}")
+        kd_save = queued_events_ms(torch, saving, 5)
         k_solve = time_ms(torch, solving, reps=10)
-        kd_solve, src_solve = ladder_device_ms(torch, solving, 5,
-                                               f"L1 solve {tag}")
+        kd_solve = queued_events_ms(torch, solving, 7)
         pl = time_ms(torch, lambda: lk.ladder_solve_plain(
             s, v0, op, eps, iters, True), reps=2)
         b, by = bound(ladder_bytes(op, lanes, w, iters, False),
@@ -3345,14 +3464,17 @@ def time_ladder(torch, lk, rows, extra):
         sv = saving()
         n_it = int(solving().iterations.sum())
         key = f"{name}_x{lanes}_{str(dtype).split('.')[-1]}"
+        plan = lk.ladder_plan(nb, dtype)
         row = {"ms": k, "device_ms": kd, "plain_ms": pl, "bound_ms": b,
+               "route": plan.route, "cluster": plan.cluster,
                "bound_by": by, "device_ms_per_iteration": kd / iters,
                "device_ms_source": src, "ms_save": k_save,
                "device_ms_save": kd_save, "device_ms_source_save": src_save,
                "ms_solve": k_solve, "device_ms_solve": kd_solve,
                "device_ms_source_solve": src_solve,
                "solve_iterations": n_it}
-        log(f"timing: ladder_solve {tag} fixed x{iters}: kernel {k:.4f} ms "
+        log(f"timing: ladder_solve {tag} ({plan.route} route, {plan.cluster} "
+            f"CTAs a lane) fixed x{iters}: kernel {k:.4f} ms "
             f"(device {kd:.4f} [{src}], {kd / iters:.5f} an iteration); "
             f"saving iterates {k_save:.4f} (device {kd_save:.4f} "
             f"[{src_save}]); solve mode {k_solve:.4f} (device "
@@ -3379,7 +3501,7 @@ def time_ladder(torch, lk, rows, extra):
                              device="cuda")) for _ in range(3)]
         vjp = lambda: lk.ladder_vjp(sv.saved, s, op, *gs)  # noqa: E731
         k2 = time_ms(torch, vjp, reps=10)
-        kd2, src2 = ladder_device_ms(torch, vjp, 5, f"L2 {tag}")
+        kd2, src2 = queued_events_ms(torch, vjp, 7), "queued events"
         pl2 = time_ms(torch, lambda: lk.ladder_vjp_plain(sv.saved, s, op,
                                                          *gs), reps=1)
         tree = w * (3 * nb + 18 * nb) + 4 * (2 * nb + 1
@@ -5278,24 +5400,44 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
         d_ = torch.zeros(lanes_, n2, dtype=f64, device=dev)
         return (sol.VHALF, x_, d_, yy[0], yy[1], ps_, qs_, *carry)
 
+    # The warp form is one launch a half-step: its device time and the
+    # library row's are queued CUDA events (one clock for both).
     a1 = f1_inputs(1, y2)
-    k, k_dev, src, p = timed("fdlf_half_step",
-                             lambda: sol.fdlf_half_step(*a1),
-                             lambda: sol.fdlf_half_step_plain(*a1), 50)
+    k = time_ms(torch, lambda: sol.fdlf_half_step(*a1), reps=50)
+    k_dev, src = queued_events_ms(torch, lambda: sol.fdlf_half_step(*a1),
+                                  50), "queued events"
+    p = time_ms(torch, lambda: sol.fdlf_half_step_plain(*a1), reps=3)
     b_f1 = 8 * (2 * n2 * n2 + 8 * n2 + 3) + 4
     yc = torch.complex(y2[0], y2[1])
     vc = torch.polar(a1[1][:, n2:].T.contiguous(),
                      a1[1][:, :n2].T.contiguous())
-    lib = time_ms(torch, lambda: torch.matmul(yc, vc), reps=50)
+    lib_b2b = time_ms(torch, lambda: torch.matmul(yc, vc), reps=50)
+    lib = queued_events_ms(torch, lambda: torch.matmul(yc, vc), 50)
     b, by = bound(b_f1, 8 * n2 * n2)
+    from torch.profiler import ProfilerActivity, profile
+
+    sol.fdlf_half_step(*a1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sol.fdlf_half_step(*a1)
+        torch.cuda.synchronize()
+    per_call = sum(e.count for e in device_kernels(prof))
+    check(per_call in (0, 1), f"F1's warp form ran {per_call} kernels in one "
+          f"call (one launch a half-step)")
     rows["fdlf_half_step"] = (k, p, lib, b, by)
     extra["fdlf_half_step"] = {
         "device_ms": k_dev, "device_ms_source": src,
+        "library_ms_source": "queued events",
+        "library_ms_back_to_back": lib_b2b,
+        "kernels_a_call": per_call if per_call else "not recorded",
+        "plan": sol.fdlf_warp_plan(n2, 1, f64)._asdict(),
         "shape": "mesh2000 x 1 (bench_nr_2000), one Ybus, V mode",
         "library": "complex128 torch.matmul of Ybus with V alone"}
-    log(f"timing: fdlf_half_step V mesh2000 x1 kernel {k:.4f} ms (device "
-        f"{k_dev:.4f}, {src})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
-        f"library complex matmul {lib:.4f} ms")
+    log(f"timing: fdlf_half_step V mesh2000 x1 (warp form, "
+        f"{per_call or 'unrecorded'} kernel a call) kernel {k:.4f} ms "
+        f"(device {k_dev:.4f}, {src})  plain {p:.4f} ms  bound {b:.4f} ms "
+        f"({by})  library complex matmul {lib:.4f} ms by queued events "
+        f"({lib_b2b:.4f} back to back); {k_dev / lib:.2f}x its time")
     del yc, vc
     # ... at bench_mc_1024's shape (mesh118 x 1024, one Ybus) and the FDLF
     # N-1 shape (mesh2000 x 16, per-lane Ybus).
@@ -5337,9 +5479,9 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
     st16[torch.arange(16), n2 + torch.arange(16)] = 0.0
     y16 = sol.ybus_stamp(sol.YBUS, opn, st16)
     a3 = f1_inputs(16, y16)
-    k3, k3_dev, src, p3 = timed("fdlf_half_step",
-                                lambda: sol.fdlf_half_step(*a3),
-                                lambda: sol.fdlf_half_step_plain(*a3), 20)
+    k3 = time_ms(torch, lambda: sol.fdlf_half_step(*a3), reps=20)
+    k3_dev = queued_events_ms(torch, lambda: sol.fdlf_half_step(*a3), 20)
+    p3 = time_ms(torch, lambda: sol.fdlf_half_step_plain(*a3), reps=3)
     b3, _ = bound(8 * (2 * 16 * n2 * n2 + 16 * 8 * n2), 8 * 16 * n2 * n2)
     extra["fdlf_half_step"].update({
         "ms_mesh118_x1024": k2, "device_ms_mesh118_x1024": k2_dev,
@@ -5362,7 +5504,7 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
         f"{lib2:.4f}; "
         f"float32 {k2_32:.4f} ms (device {k2_32_dev:.4f})  plain "
         f"{p2_32:.4f}; mesh2000 x16 per-lane Ybus {k3:.4f} ms (device "
-        f"{k3_dev:.4f})  plain {p3:.4f}  bound {b3:.4f}")
+        f"{k3_dev:.4f} by queued events)  plain {p3:.4f}  bound {b3:.4f}")
     del y16, a3
 
     # J1 at bench_nr_2k_krylov_lanes (mesh2000 x 256): x, u in, J u out.
@@ -6492,6 +6634,7 @@ def main() -> int:
         extra["dc_screen"]["launches_path"] = (
             "n1 screens phase: make_dc_solver and dc_prefilter")
         worst = compare_ladder(torch, errs)
+        compare_ladder_routes(torch, lk, errs)
         compare_ladder_vjp(torch, errs)
         time_ladder(torch, lk, rows, extra)
         extra["ladder_solve"]["max_abs_err_f32"] = worst["float32"]

@@ -22,11 +22,12 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -110,6 +111,19 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def constants(source: str, *names: str) -> Tuple[int, ...]:
+    """``constexpr int`` values of ``csrc/<source>``, the one place each is
+    written (a wrapper's launch plan reads them)."""
+    text = (CSRC_DIR / source).read_text()
+    out = []
+    for name in names:
+        m = re.search(rf"^constexpr int {name} = (\d+);", text, re.MULTILINE)
+        if m is None:
+            raise RuntimeError(f"{source} defines no {name}")
+        out.append(int(m.group(1)))
+    return tuple(out)
 
 
 def build_log(name: str) -> str:

@@ -37,31 +37,74 @@
 //   vice versa, so L2 runs L1's two scans, swapped.  The root error carries
 //   no gradient (ladder.py:148-157).
 //
-// Design.  One CTA of 512 threads a lane, the lane's state in device memory
-//   (at 10k buses a lane's v, i_br, i_load and two scratch rows are 2.4 MB
-//   in float64; 64 lanes stay within the 50 MB L2).  Each warp owns a
-//   contiguous run of branches and walks it in chunks of 32, a branch a
-//   lane, so every load is coalesced and a branch stays with one thread in
-//   every pass.  A prefix is two walks of the run: the warp's sum, then,
-//   after the warps' sums (added in warp order), each chunk's shuffle scan
-//   on the running carry.  The order of every sum is fixed and nothing is
-//   atomic, so the results are the same bits on every run.  The groups
-//   {k : tout_k = t} come from the host as CSR in increasing k.  An
-//   iteration is seven walks of the run and four barriers.  (A first form
-//   gave each thread a contiguous run of its own, so its loads were
-//   strided by the run's length.)
+// Design: two routes, chosen by ladder_kernels.ladder_plan from (nb, dtype)
+//   alone, so a lane's result is the same bits whatever the lanes beside it.
+//
+//   Cluster route (up to 20,480 branches in float64, 32,768 in float32;
+//   ladder_kernels.cluster_capacity): one lane is one thread-block cluster,
+//   the smallest whose CTAs fit the dtype's thread cap and shared memory
+//   (at 10k branches 8 CTAs of 640 threads in float64, 5 of 1024 in
+//   float32: two or three clusters a GPC, 15 / 22 lanes at once on an
+//   H100).  CTA r owns the
+//   preorder interval [r per, (r + 1) per), two branches a thread.  The
+//   lane's state lives in the cluster's shared memory, three [6, 2 threads]
+//   buffers a CTA (v, the drops, the CTA's prefix), beside the CTA's group
+//   members {k : tout_k in its interval}, staged once; the previous i_br
+//   lives in a device scratch in the CTAs' row layout, as z does (a warp
+//   reads a row contiguously).  An iteration:
+//     1. i_load of the thread's branches (s from device memory, v from
+//        shared memory); the CTA's exclusive scan (a shuffle scan a warp,
+//        then warp 0's scan of the warps' sums) into `ps`, its interval sum
+//        into a slot; cluster barrier;
+//     2. warp 0 adds the ranks' slots by a shuffle scan over the ranks (the
+//        offsets: the same bits in every CTA); i_br = P[tout_i] - P[i],
+//        P[tout_i] read from the owning CTA's `ps` (distributed shared
+//        memory, mapa); the root error; the drop into `drop`; barrier;
+//     3. y = drop[t] - the sum of drop[k] over tout_k = t: the CTA's staged
+//        members' drops gathered two a thread (remote ones through
+//        distributed shared memory), their CTA prefix G, a group's sum
+//        G[end] - G[start] (balanced however the groups fall); the CTA's
+//        scan of y, its interval sum and error max into slots; barrier;
+//     4. warp 0 adds the ranks' slots and takes the lane's error (every
+//        rank's, NaN kept); v' = (v0 - path) mask into `v`.
+//   Three cluster barriers an iteration; every sum in a fixed order, no
+//   atomics.  The lane's error is known to every CTA before the loop test
+//   (`solve` mode exits on the device, cluster-uniform); i_load is
+//   written in the last iteration only, recomputed from that iteration's
+//   v.  i_br on a dead phase (mask 0: the phase is dead in the whole
+//   subtree) is an exact zero, not a difference of two prefixes.  Lanes
+//   beyond the resident clusters run in waves.  A thread's loads are
+//   issued in batches its registers hold before any is used: one at a
+//   time, each costs an L2 round trip (~12k cycles an iteration for the
+//   previous i_br alone, measured).
+//
+//   Global route (larger nb): one CTA of 512 threads a lane, the lane's
+//   state in device memory (the port's first form).  Each warp owns a contiguous
+//   run of branches and walks it in chunks of 32, a branch a lane, so every
+//   load is coalesced and a branch stays with one thread in every pass.  A
+//   prefix is two walks of the run: the warp's sum, then, after the warps'
+//   sums (added in warp order), each chunk's shuffle scan on the running
+//   carry.  The groups {k : tout_k = t} come from the host as CSR in
+//   increasing k.  An iteration is seven walks of the run and four
+//   barriers.  Its state is 2.4 MB a lane at 10k buses in float64, so 64
+//   lanes (154 MB) do not stay in the 50 MB L2.
 //
 // Bounds on an H100 SXM (3.35 TB/s; 34 / 67 TFLOP/s fp64 / fp32 outside the
 //   tensor cores).  At synthetic_radial(10000) x 64 lanes, 20 iterations,
 //   float64: the loads read once (31 MB) and v, i_br, i_load written once
-//   (92 MB), 37 us; ~150 operations a branch, phase pair and iteration
-//   (a complex division, two scans, the 3 x 3 drop), 1.9 GFLOP, 57 us:
-//   operations.  A CTA a lane walks its state from L2 five times an
-//   iteration; a simple first kernel, it leaves the SMs beyond B idle.
+//   (92 MB), 37 us; ~171 operations a branch and iteration (a complex
+//   division a phase, two scans, the 3 x 3 drop), 2.2 GFLOP, 64 us:
+//   operations.  What holds both routes back is latency, not bytes or
+//   operations: a chain of dependent steps an iteration.  The cluster route
+//   puts that chain in shared memory across C SMs a lane; the global route
+//   walks it from L2 on one SM a lane.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -506,6 +549,502 @@ __global__ void __launch_bounds__(kThreads, 1) ladder_vjp_kernel(VjpArgs<T> a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// L1's cluster route
+// ---------------------------------------------------------------------------
+
+// ladder_kernels.py reads these for ladder_plan: keep each a
+// `constexpr int name = value;`.  Threads a CTA at most (two branches
+// each) by dtype: a thread's register budget is 65536 / threads, and a
+// float64 thread spills below ~100 (at 1024 threads, 64 registers, 300
+// bytes).  Measured on an H100 at 10k branches x 64 lanes, 20 iterations:
+// float64 on 7 CTAs of 736 threads 3.18 ms, 8 of 640 2.93 ms (15 clusters
+// at once either way), 9 of 576 4.12 ms (9 at once); float32 on 5 CTAs of
+// 1024 1.52 ms (22 at once), 6 of 864 1.74, 8 of 640 1.79.
+constexpr int kCtaThreadsF64 = 640;
+constexpr int kCtaThreadsF32 = 1024;
+constexpr int kMaxCluster = 16;     // CTAs a lane at most (above 8: non-portable)
+constexpr int kScratchWords = 464;  // shared words beside the three [6, ld] buffers
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may take (227 KB)
+
+// The scratch after the buffers, in words of T.
+constexpr int kWsum = 0;  // [33][6]: the warps' sums, then their offsets; row 32 the CTA's total
+constexpr int kWmax = kWsum + 33 * 6;                  // [32] the warps' error maxima
+constexpr int kOffA = kWmax + 32;                       // [kMaxCluster + 1][6]
+constexpr int kOffC = kOffA + (kMaxCluster + 1) * 6;  // [kMaxCluster + 1][6]
+constexpr int kSlotA = kOffC + (kMaxCluster + 1) * 6;  // [6] the interval sum of i_load
+constexpr int kSlotC = kSlotA + 6;  // [6] the interval sum of y
+constexpr int kSlotE = kSlotC + 6;  // [1] the CTA's error max
+constexpr int kErrB = kSlotE + 1;   // [1] the lane's error
+constexpr int kV0 = kErrB + 1;      // [6] the lane's source phasors
+constexpr int kSlotG = kV0 + 6;     // [6] the CTA's total of its members' drops
+static_assert(kSlotG + 6 <= kScratchWords, "the scratch fits kScratchWords");
+
+template <typename T>
+struct CtaMax {
+  static constexpr int threads = sizeof(T) == 8 ? kCtaThreadsF64 : kCtaThreadsF32;
+};
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// i_load of one branch from its v (six words at v[c * ld], SoA) and its
+// loads s (three phases): conj(s / v) on live phases.
+template <typename T>
+__device__ __forceinline__ void load_current(const T* v, int ld,
+                                             const T (&s_re)[3],
+                                             const T (&s_im)[3], T (&x)[6]) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const T vr = v[p * ld], vi = v[(3 + p) * ld];
+    const T sr = s_re[p], si = s_im[p];
+    const T d = vr * vr + vi * vi;
+    T lr = T(0), li = T(0);
+    if (d > T(0)) {
+      lr = (sr * vr + si * vi) / d;
+      li = -((si * vr - sr * vi) / d);
+    }
+    x[p] = lr;
+    x[3 + p] = li;
+  }
+}
+
+// Exclusive prefix over the CTA's threads of six values a thread, in a
+// fixed order (a shuffle scan in each warp, then warp 0's scan of the
+// warps' sums), in place; thread 0 writes the CTA's total to `total`.
+// With `emax`, the CTA's max of it (NaN kept) goes to *emax_out as well.
+// Two CTA barriers.
+template <typename T, bool kMax>
+__device__ __forceinline__ void cta_scan6(T (&x)[6], T* scr, T* total,
+                                          T emax = T(0),
+                                          T* emax_out = nullptr) {
+  T* wsum = scr + kWsum;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  T inc[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) inc[c] = x[c];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      const T y = __shfl_up_sync(kFull, inc[c], o);
+      if (lane >= o) inc[c] += y;
+    }
+  }
+  if (kMax) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) emax = nan_max(emax, __shfl_xor_sync(kFull, emax, o));
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) wsum[warp * 6 + c] = inc[c];
+  }
+  if (kMax && lane == 0) scr[kWmax + warp] = emax;
+  __syncthreads();
+  if (warp == 0) {
+    T w[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) w[c] = lane < nw ? wsum[lane * 6 + c] : T(0);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        const T y = __shfl_up_sync(kFull, w[c], o);
+        if (lane >= o) w[c] += y;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      T e = __shfl_up_sync(kFull, w[c], 1);
+      if (lane == 0) e = T(0);
+      if (lane < nw) wsum[lane * 6 + c] = e;
+      if (lane == 31) wsum[32 * 6 + c] = w[c];
+    }
+    if (kMax) {
+      T m = lane < nw ? scr[kWmax + lane] : T(0);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = nan_max(m, __shfl_xor_sync(kFull, m, o));
+      if (lane == 0) *emax_out = m;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    T e = __shfl_up_sync(kFull, inc[c], 1);
+    if (lane == 0) e = T(0);
+    x[c] = wsum[warp * 6 + c] + e;
+    if (threadIdx.x == 0) total[c] = wsum[32 * 6 + c];
+  }
+}
+
+// Warp 0: the ranks' six-word slots in rank order, by a shuffle scan over
+// the ranks (a fixed tree: the same bits in every CTA); off[r] gets the
+// sum of the ranks below r, off[C] the lane's total.  With `slot_e`, the
+// ranks' error maxima too (NaN kept): returned to every lane.
+template <typename T>
+__device__ __forceinline__ T rank_offsets(cg::cluster_group& cl, T* slot,
+                                          T* off, int C,
+                                          T* slot_e = nullptr) {
+  const int lane = threadIdx.x & 31;
+  T run[6];
+  T e = T(0);
+  if (lane < C) {
+    const T* src = cl.map_shared_rank(slot, lane);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) run[c] = src[c];
+    if (slot_e != nullptr) e = *cl.map_shared_rank(slot_e, lane);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) run[c] = T(0);
+  }
+#pragma unroll
+  for (int o = 1; o < kMaxCluster; o <<= 1) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      const T y = __shfl_up_sync(kFull, run[c], o);
+      if (lane >= o) run[c] += y;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    T ex = __shfl_up_sync(kFull, run[c], 1);
+    if (lane == 0) ex = T(0);
+    if (lane < C) off[lane * 6 + c] = ex;
+    if (lane == C - 1) off[C * 6 + c] = run[c];
+  }
+  if (slot_e != nullptr) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) e = nan_max(e, __shfl_xor_sync(kFull, e, o));
+  }
+  return e;
+}
+
+// y of local branch 2t + u: its drop less the sum of its group's drops,
+// G[g1] - G[g0] over the staged members (G, the CTA's exclusive prefix of
+// their drops, in ps; G[ld] in `gtotal`) plus the members past them, one
+// at a time; 0 for a branch the thread does not own.
+template <typename T>
+__device__ __forceinline__ void branch_y(cg::cluster_group& cl, int u, bool own,
+                                         int g0, int g1, int gcount, int gbase,
+                                         int ld, int per, int rank, int t,
+                                         const T* ps_s, T* drop_s,
+                                         const T* gtotal, const int* gidx,
+                                         T (&y)[6]) {
+  const int e0 = min(g0, gcount), e1 = min(g1, gcount);
+  T q[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    const T ge = e1 == ld ? gtotal[c] : ps_s[c * ld + e1];
+    const T gb = e0 == ld ? gtotal[c] : ps_s[c * ld + e0];
+    q[c] = e1 > e0 ? ge - gb : T(0);
+  }
+  for (int j = max(g0, gcount); j < g1; ++j) {  // past the staged members
+    const int k = __ldg(gidx + gbase + j);
+    const int rk = k / per;
+    const T* src = rk == rank ? drop_s : cl.map_shared_rank(drop_s, rk);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) q[c] += src[c * ld + k - rk * per];
+  }
+#pragma unroll
+  for (int c = 0; c < 6; ++c) y[c] = own ? drop_s[c * ld + 2 * t + u] - q[c] : T(0);
+}
+
+// One lane a cluster of C = gridDim.x / lanes CTAs; CTA `rank` owns the
+// branches [rank per, min(nb, (rank + 1) per)), local branches 2t and
+// 2t + 1 on thread t (a buffer's row `ld` = 2 blockDim.x).  Rows of width
+// W = C ld hold a word a branch in the CTAs' local order (branch i of rank r
+// at r ld + i - r per), so a warp's reads of a row are contiguous: z, zt
+// [2][9][W] (re, im; entry 3 q + p), and the previous i_br, a scratch ibp
+// [lanes][6][W].
+template <typename T>
+__global__ void __launch_bounds__(CtaMax<T>::threads, 1)
+    ladder_cluster_kernel(SolveArgs<T> a, const T* __restrict__ zt,
+                          T* __restrict__ ibp_all, int per) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = 2 * blockDim.x;
+  T* v_s = reinterpret_cast<T*>(smem_raw);  // [6][ld] each
+  T* drop_s = v_s + 6 * ld;
+  T* ps_s = v_s + 12 * ld;
+  T* scr = v_s + 18 * ld;
+  int* grp_s = reinterpret_cast<int*>(scr + kScratchWords);  // [ld]
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int64_t b = blockIdx.x / C;
+  const Tree<T>& tr = a.tr;
+  const int nb = tr.nb;
+  const int lo = rank * per, hi = min(nb, lo + per);
+  // The CTA's slice of the group members {k : tout_k in [lo, hi)}, in
+  // (t, k) order; its first ld entries staged here (a tree with more reads
+  // the rest from device memory, one member at a time).
+  const int gbase = tr.gptr[lo];
+  const int gcount = min(tr.gptr[hi] - gbase, ld);
+  for (int j = threadIdx.x; j < gcount; j += blockDim.x) grp_s[j] = tr.gidx[gbase + j];
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const size_t o3 = (size_t)b * nb * 3;
+  const size_t wrow = (size_t)C * ld;               // a row of zt and ibp
+  const size_t slot = (size_t)rank * ld + 2 * t;    // the thread's pair in it
+  T* ibp = ibp_all + (size_t)b * 6 * wrow;
+  // The two branches' tree constants, read once; the phase masks and
+  // root flags (0 or 1) as bits: live phase p of branch u at bit 3u + p,
+  // root at bit 6 + u.
+  bool own[2];
+  int tout[2], g0[2], g1[2];  // the group's members [g0, g1), from gbase
+  unsigned bits = 0;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int i = lo + 2 * t + u;
+    own[u] = i < hi;
+    tout[u] = nb;
+    g0[u] = g1[u] = 0;
+    if (own[u]) {
+      tout[u] = tr.tout[i];
+      g0[u] = tr.gptr[i] - gbase;
+      g1[u] = tr.gptr[i + 1] - gbase;
+      if (tr.root[i] > T(0)) bits |= 1u << (6 + u);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        if (tr.mask[i * 3 + p] > T(0)) bits |= 1u << (3 * u + p);
+    }
+  }
+  if (t < 6) scr[kV0 + t] = t < 3 ? a.v0_re[b * 3 + t] : a.v0_im[b * 3 + t - 3];
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 6; ++c) ibp[c * wrow + slot] = ibp[c * wrow + slot + 1] = T(0);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (!own[u]) continue;
+    const size_t k = o3 + (size_t)(lo + 2 * t + u) * 3;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const T m = (bits >> (3 * u + p)) & 1u ? T(1) : T(0);
+      v_s[p * ld + 2 * t + u] = scr[kV0 + p] * m;
+      v_s[(3 + p) * ld + 2 * t + u] = scr[kV0 + 3 + p] * m;
+      if (a.max_iter == 0) {
+        a.il_re[k + p] = T(0);
+        a.il_im[k + p] = T(0);
+      }
+    }
+  }
+  T err = T(INFINITY);
+  int it = 0;
+  while (it < a.max_iter && (a.fixed || err >= a.eps)) {
+    if (a.saved != nullptr) {
+      T* sv = a.saved + ((size_t)it * a.lanes + b) * nb * 6;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (!own[u]) continue;
+#pragma unroll
+        for (int c = 0; c < 6; ++c)
+          sv[(size_t)(lo + 2 * t + u) * 6 + c] = v_s[c * ld + 2 * t + u];
+      }
+    }
+    // 1. Load currents; the CTA's exclusive prefix of them into ps (the
+    //    first branch's current parked there meanwhile).  Both branches'
+    //    loads are issued before either is used.
+    T sre[2][3], sim[2][3];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const size_t k = o3 + (size_t)min(lo + 2 * t + u, nb - 1) * 3;
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        sre[u][p] = __ldg(a.s_re + k + p);
+        sim[u][p] = __ldg(a.s_im + k + p);
+      }
+    }
+    T x[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      T xu[6];
+      load_current<T>(v_s + 2 * t + u, ld, sre[u], sim[u], xu);
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        if (!own[u]) xu[c] = T(0);
+        if (u == 0) ps_s[c * ld + 2 * t] = xu[c];
+        x[c] += xu[c];
+      }
+    }
+    cta_scan6<T, false>(x, scr, scr + kSlotA);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      ps_s[c * ld + 2 * t + 1] = x[c] + ps_s[c * ld + 2 * t];
+      ps_s[c * ld + 2 * t] = x[c];
+    }
+    cluster_sync_all();  // every CTA's prefix and interval sum are out
+    // 2. Branch currents (the previous ones from the output), the root
+    //    error, the drops, once warp 0 has added the interval sums.
+    if (warp == 0) rank_offsets<T>(cl, scr + kSlotA, scr + kOffA, C);
+    __syncthreads();  // the offsets are out
+    T emax = T(0);
+#pragma unroll 1
+    for (int u = 0; u < 2; ++u) {
+      const int r_t = tout[u] < nb ? tout[u] / per : C;  // C: P[nb], the total
+      const T* src = r_t == rank || r_t == C ? ps_s : cl.map_shared_rank(ps_s, r_t);
+      const int l_t = r_t < C ? tout[u] - r_t * per : 0;
+      T br[6], prev[6];  // P at tout_i (then i_br), the previous i_br
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        br[c] = src[c * ld + l_t];
+        prev[c] = ibp[c * wrow + slot + u];
+      }
+      const T* oi = scr + kOffA + rank * 6;
+      const T* ot = scr + kOffA + r_t * 6;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        const T pi = ps_s[c * ld + 2 * t + u];
+        // P[tout_i] - P[i]: within the CTA the offsets cancel exactly; a
+        // dead phase is dead in the whole subtree, its current an exact 0.
+        const T d = r_t == rank ? br[c] - pi
+                    : r_t == C   ? ot[c] - (oi[c] + pi)
+                                 : (ot[c] + br[c]) - (oi[c] + pi);
+        br[c] = own[u] && (bits >> (3 * u + c % 3)) & 1u ? d : T(0);
+        ibp[c * wrow + slot + u] = br[c];
+      }
+      const T rt = (bits >> (6 + u)) & 1u ? T(1) : T(0);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const T dr = br[p] - prev[p], di = br[3 + p] - prev[3 + p];
+        emax = nan_max(emax, sqrt(dr * dr + di * di) * rt);
+      }
+      // The drops, a column of z at a time (the pair's other half is the
+      // other branch's, from L1 when its turn comes).
+#pragma unroll 1
+      for (int p = 0; p < 3; ++p) {
+        T zr[3], zi[3];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          zr[q] = __ldg(zt + (size_t)(q * 3 + p) * wrow + slot + u);
+          zi[q] = __ldg(zt + (size_t)(9 + q * 3 + p) * wrow + slot + u);
+        }
+        T dr = T(0), di = T(0);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          dr += br[q] * zr[q] - br[3 + q] * zi[q];
+          di += br[q] * zi[q] + br[3 + q] * zr[q];
+        }
+        drop_s[p * ld + 2 * t + u] = dr;
+        drop_s[(3 + p) * ld + 2 * t + u] = di;
+      }
+    }
+    cluster_sync_all();  // every CTA's drops are out
+    // 3. y = drop[t] - the sum of the group's drops (tout_k = t).  The
+    //    CTA's staged members, two a thread: their drops gathered (in this
+    //    CTA or another) in one batch, then the CTA's exclusive prefix G of
+    //    them into ps (free now), so a group's sum is G[g1] - G[g0], G[ld]
+    //    the total (members past the staged ones, in a tree that has them,
+    //    added one at a time).  Then the CTA's prefix of y, its error max
+    //    beside it.
+    T gsum[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+    T g0v[6];
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const int j = 2 * t + w;
+      T gw[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+      if (j < gcount) {
+        const int k = grp_s[j];
+        const int rk = k / per;
+        const T* src = rk == rank ? drop_s : cl.map_shared_rank(drop_s, rk);
+#pragma unroll
+        for (int c = 0; c < 6; ++c) gw[c] = src[c * ld + k - rk * per];
+      }
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        if (w == 0) g0v[c] = gw[c];
+        gsum[c] += gw[c];
+      }
+    }
+    cta_scan6<T, false>(gsum, scr, scr + kSlotG);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      ps_s[c * ld + 2 * t] = gsum[c];
+      ps_s[c * ld + 2 * t + 1] = gsum[c] + g0v[c];
+    }
+    __syncthreads();  // G is out (its total in the kSlotG slot)
+    T y[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+    T yp[2][6];  // each branch's y, parked in ps once every G is read
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      branch_y<T>(cl, u, own[u], g0[u], g1[u], gcount, gbase, ld, per, rank,
+                  t, ps_s, drop_s, scr + kSlotG, tr.gidx, yp[u]);
+#pragma unroll
+      for (int c = 0; c < 6; ++c) y[c] += yp[u][c];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      ps_s[c * ld + 2 * t] = yp[0][c];
+      ps_s[c * ld + 2 * t + 1] = yp[1][c];
+    }
+    cta_scan6<T, true>(y, scr, scr + kSlotC, emax, scr + kSlotE);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {  // the CTA's inclusive prefix of y
+      const T p0 = y[c] + ps_s[c * ld + 2 * t];
+      ps_s[c * ld + 2 * t + 1] = p0 + ps_s[c * ld + 2 * t + 1];
+      ps_s[c * ld + 2 * t] = p0;
+    }
+    cluster_sync_all();  // every CTA's interval sum of y and error are out
+    // 4. The lane's error (every rank's), the path sums, the new voltages.
+    if (warp == 0) {
+      const T e = rank_offsets<T>(cl, scr + kSlotC, scr + kOffC, C, scr + kSlotE);
+      if (t == 0) scr[kErrB] = e;
+    }
+    __syncthreads();
+    err = scr[kErrB];
+    const bool last = it + 1 >= a.max_iter || (!a.fixed && !(err >= a.eps));
+    const T* oc = scr + kOffC + rank * 6;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (!own[u]) continue;
+      const int l = 2 * t + u;
+      const size_t k = o3 + (size_t)(lo + l) * 3;
+      if (last) {  // this iteration's i_load, from its input v
+        T sr[3], si[3], il[6];
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          sr[p] = __ldg(a.s_re + k + p);
+          si[p] = __ldg(a.s_im + k + p);
+        }
+        load_current<T>(v_s + l, ld, sr, si, il);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          a.il_re[k + p] = il[p];
+          a.il_im[k + p] = il[3 + p];
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const T m = (bits >> (3 * u + p)) & 1u ? T(1) : T(0);
+        v_s[p * ld + l] = (scr[kV0 + p] - (oc[p] + ps_s[p * ld + l])) * m;
+        v_s[(3 + p) * ld + l] =
+            (scr[kV0 + 3 + p] - (oc[3 + p] + ps_s[(3 + p) * ld + l])) * m;
+      }
+    }
+    ++it;
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (!own[u]) continue;
+    const size_t k = o3 + (size_t)(lo + 2 * t + u) * 3;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      a.v_re[k + p] = v_s[p * ld + 2 * t + u];
+      a.v_im[k + p] = v_s[(3 + p) * ld + 2 * t + u];
+      a.ib_re[k + p] = ibp[p * wrow + slot + u];
+      a.ib_im[k + p] = ibp[(3 + p) * wrow + slot + u];
+    }
+  }
+  if (rank == 0 && t == 0) {
+    a.iters[b] = it;
+    a.resid[b] = err;
+    a.conv[b] = err < a.eps ? 1 : 0;
+  }
+  cluster_sync_all();  // no CTA leaves while another may read its slots
+}
+
 }  // namespace
 
 template <typename T>
@@ -514,20 +1053,100 @@ static Tree<T> make_tree(const T* mask, const T* z_re, const T* z_im, const T* r
   return Tree<T>{mask, z_re, z_im, root, tout, gptr, gidx, nb};
 }
 
+// The cluster route's shape at (cluster, per, threads, smem) must be what
+// ladder_plan gives: every CTA's interval whole and non-empty, two
+// branches a thread, three [6, 2 threads] buffers, the scratch and the
+// staged group indices [2 threads].
+template <typename T>
+static bool cluster_shape_ok(int nb, int cluster, int per, int threads, int smem) {
+  return cluster >= 1 && cluster <= kMaxCluster && per >= 1 &&
+         (int64_t)cluster * per >= nb && (int64_t)(cluster - 1) * per < nb &&
+         2 * threads >= per && threads % 32 == 0 && threads <= CtaMax<T>::threads &&
+         (int64_t)smem ==
+             (int64_t)(36 * threads + kScratchWords) * (int64_t)sizeof(T) +
+                 2 * threads * (int64_t)sizeof(int) &&
+         smem <= kSmemLimit;
+}
+
+// Opt the cluster kernel in to a non-portable cluster size and to all the
+// shared memory a block may take, once a device.
+template <typename T>
+static cudaError_t cluster_attributes() {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && opted[dev])) return e;
+  e = cudaFuncSetAttribute(ladder_cluster_kernel<T>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(ladder_cluster_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (e == cudaSuccess && dev < 64) opted[dev] = true;
+  return e;
+}
+
+template <typename T>
+static cudaLaunchConfig_t cluster_config(int lanes, int cluster, int threads, int smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)lanes * (unsigned)cluster);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of this shape the card holds at once (0: it cannot
+// place one).
+template <typename T>
+static int ladder_cluster_check(int cluster, int threads, int smem, int* active) {
+  cudaError_t e = cluster_attributes<T>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config<T>(1, cluster, threads, smem, nullptr, attr);
+  return (int)cudaOccupancyMaxActiveClusters(active, ladder_cluster_kernel<T>, &cfg);
+}
+
+// `cluster` 0 takes the global route (with its ps and drop scratch), else
+// the cluster route at (cluster, per, threads, smem) from ladder_plan,
+// with z in its layout (zt [2][9][cluster 2 threads]) and the previous
+// i_br's scratch (ibp [lanes][6][cluster 2 threads]).
 template <typename T>
 static int ladder_solve(const T* s_re, const T* s_im, const T* v0_re, const T* v0_im,
                         const T* mask, const T* z_re, const T* z_im, const T* root,
                         const int* tout, const int* gptr, const int* gidx, T* v_re,
                         T* v_im, T* ib_re, T* ib_im, T* il_re, T* il_im, int* iters,
                         T* resid, unsigned char* conv, T* saved, T* ps, T* drop,
-                        int nb, int lanes, int max_iter, int fixed, double eps,
-                        void* stream) {
+                        const T* zt, T* ibp, int nb, int lanes, int max_iter,
+                        int fixed, double eps, int cluster, int per, int threads,
+                        int smem, void* stream) {
   if (nb <= 0 || lanes <= 0 || max_iter < 0) return (int)cudaErrorInvalidValue;
   SolveArgs<T> a{s_re, s_im, v0_re, v0_im,
                  make_tree<T>(mask, z_re, z_im, root, tout, gptr, gidx, nb),
                  v_re, v_im, ib_re, ib_im, il_re, il_im, iters, resid, conv,
                  saved, ps, drop, lanes, max_iter, fixed, (T)eps};
-  ladder_solve_kernel<T><<<(unsigned)lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (cluster == 0) {
+    if (ps == nullptr || drop == nullptr) return (int)cudaErrorInvalidValue;
+    ladder_solve_kernel<T><<<(unsigned)lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (!cluster_shape_ok<T>(nb, cluster, per, threads, smem) || zt == nullptr ||
+      ibp == nullptr ||
+      (int64_t)lanes * cluster > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cluster_attributes<T>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      cluster_config<T>(lanes, cluster, threads, smem, (cudaStream_t)stream, attr);
+  e = cudaLaunchKernelEx(&cfg, ladder_cluster_kernel<T>, a, zt, ibp, per);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -553,12 +1172,18 @@ static int ladder_vjp(const T* saved, const T* s_re, const T* s_im, const T* mas
       const T* z_re, const T* z_im, const T* root, const int* tout,                \
       const int* gptr, const int* gidx, T* v_re, T* v_im, T* ib_re, T* ib_im,      \
       T* il_re, T* il_im, int* iters, T* resid, unsigned char* conv, T* saved,     \
-      T* ps, T* drop, int nb, int lanes, int max_iter, int fixed, double eps,      \
+      T* ps, T* drop, const T* zt, T* ibp, int nb, int lanes, int max_iter,        \
+      int fixed, double eps, int cluster, int per, int threads, int smem,          \
       void* stream) {                                                              \
     return ladder_solve<T>(s_re, s_im, v0_re, v0_im, mask, z_re, z_im, root, tout, \
                            gptr, gidx, v_re, v_im, ib_re, ib_im, il_re, il_im,     \
-                           iters, resid, conv, saved, ps, drop, nb, lanes,         \
-                           max_iter, fixed, eps, stream);                          \
+                           iters, resid, conv, saved, ps, drop, zt, ibp, nb, lanes,\
+                           max_iter, fixed, eps, cluster, per, threads, smem,      \
+                           stream);                                                \
+  }                                                                                \
+  extern "C" int ladder_cluster_check_##SUFFIX(int cluster, int threads, int smem, \
+                                               int* active) {                      \
+    return ladder_cluster_check<T>(cluster, threads, smem, active);                \
   }                                                                                \
   extern "C" int ladder_vjp_##SUFFIX(                                               \
       const T* saved, const T* s_re, const T* s_im, const T* mask, const T* z_re,  \

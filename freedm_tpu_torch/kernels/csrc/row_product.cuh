@@ -9,8 +9,9 @@
 //           sum to the caller's epilogue functor.  Y and V come from device
 //           memory: V [B, n] is written by each caller's pre-pass (K2's and
 //           F1's V = v e^{j theta}, I1's injection conj(S/V)).
-//   warp_product  a warp per (lane, row): the row read coalesced, the lane's
-//           V beside it, reduced by a fixed xor-shuffle tree.  For a
+//   warp_product  a warp per (lane, row): the row read coalesced, eight
+//           loads in flight a thread, the lane's V beside it (F1 keeps it
+//           in shared memory), reduced by a fixed xor-shuffle tree.  For a
 //           per-lane Y [B, n, n], where no tile of Y serves two lanes,
 //           or a lane count too small to fill a tile.
 //
@@ -462,9 +463,15 @@ __device__ __forceinline__ void power(T vr, T vm, T ire, T iim, T& p, T& q) {
   q = vm * ire - vr * iim;
 }
 
-// Row `row` of Y (y_re/y_im point at it) times one lane's V (vr/vm, [n]),
-// summed by the 32 threads of a warp (ln = the thread's index in it); every
-// thread of the warp gets the sum.
+// Row `row` of Y (y_re/y_im point at it) times one lane's V (vr/vm, [n], in
+// device or shared memory), summed by the 32 threads of a warp (ln = the
+// thread's index in it); every thread of the warp gets the sum.  A thread
+// takes the columns j = ln (mod 32) in increasing order; it issues the Y
+// loads of kWarpUnroll such columns before it adds any, so that many loads
+// are in flight a thread, and adds them in the same order: the bits do not
+// depend on the unrolling.
+constexpr int kWarpUnroll = 8;
+
 template <typename T>
 __device__ __forceinline__ void warp_product(const T* __restrict__ y_re,
                                              const T* __restrict__ y_im,
@@ -473,7 +480,22 @@ __device__ __forceinline__ void warp_product(const T* __restrict__ y_re,
                                              int ln, T& ire, T& iim) {
   ire = T(0);
   iim = T(0);
-  for (int j = ln; j < n; j += 32) {
+  int j = ln;
+  for (; j + 32 * (kWarpUnroll - 1) < n; j += 32 * kWarpUnroll) {
+    T gs[kWarpUnroll], bs[kWarpUnroll];
+#pragma unroll
+    for (int u = 0; u < kWarpUnroll; ++u) {
+      gs[u] = y_re[j + 32 * u];
+      bs[u] = y_im[j + 32 * u];
+    }
+#pragma unroll
+    for (int u = 0; u < kWarpUnroll; ++u) {
+      const T gij = gs[u], bij = bs[u], a = vr[j + 32 * u], c = vm[j + 32 * u];
+      ire += gij * a - bij * c;
+      iim += gij * c + bij * a;
+    }
+  }
+  for (; j < n; j += 32) {
     const T gij = y_re[j], bij = y_im[j], a = vr[j], c = vm[j];
     ire += gij * a - bij * c;
     iim += gij * c + bij * a;

@@ -27,19 +27,27 @@
 //     V      V += d v_free on active lanes, then dp (kept on active lanes),
 //            the lane's error max(|dp V|, |dq V|), it + 1 and
 //            active = it < max_iter and err >= tol (unless `fixed`).
-//   Three launches: a pre-pass applies the update and writes V's real and
-//   imaginary parts; the product I = Y V with its epilogue (the mismatch);
-//   in V mode a finish kernel, one warp a lane, reduces the row errors (a
-//   max: exact in any order, NaN kept) and updates it/err/active.  With a
-//   shared y [n, n] and at least 4 lanes (solver_kernels.TILED_MIN_LANES;
-//   the wrapper passes `splits` > 0) the product is K2's tiled form
-//   (row_product.cuh: 64 rows x 64 lanes a block over a K slice, float64
-//   on the tensor cores) handing each (lane, row) to `FdlfEpilogue`, which
-//   leaves the finish a max a (lane, 64-row tile); with a per-lane y [B, n,
-//   n], or fewer lanes (a tile would idle), K2's warp form: a warp owns a
-//   (lane, row), reads the row coalesced and reduces it with a fixed
-//   xor-shuffle tree, and the finish reduces every row.  The same product
-//   code and split plan give F1 K2's bits.
+//   Two forms.  With a shared y [n, n] and at least 4 lanes
+//   (solver_kernels.TILED_MIN_LANES; the wrapper passes `splits` > 0), three
+//   launches: a pre-pass applies the update and writes V's real and
+//   imaginary parts; K2's tiled product (row_product.cuh: 64 rows x 64
+//   lanes a block over a K slice, float64 on the tensor cores) handing each
+//   (lane, row) to `FdlfEpilogue`, which leaves a max a (lane, 64-row
+//   tile); in V mode a finish kernel, one warp a lane, reduces those (a
+//   max: exact in any order, NaN kept) and updates it/err/active.
+//   With a per-lane y [B, n, n], or fewer lanes (a tile would idle), one
+//   launch a half-step (`fdlf_warp_kernel`): a CTA of 8 warps takes `rows`
+//   consecutive rows of one lane (solver_kernels.fdlf_warp_plan).  It
+//   first forms the lane's whole updated V (V cos theta, V sin theta) in
+//   shared memory from x and the LU answer d (16 n bytes in float64: n <=
+//   14,272; 8 n in float32: n <= 28,544), then a warp a row streams the
+//   row with eight independent loads in flight a thread (each thread's
+//   columns j = ln mod 32 in increasing order, the fixed xor-shuffle tree:
+//   K2's warp form's bits) and runs the mismatch epilogue.  Two integer
+//   tickets a lane (a __threadfence before each, the counter reset by its
+//   last taker): the last CTA to have read x writes the half's update of
+//   x (while the others stream y), the last CTA to finish runs the lane
+//   finish; a CTA's row errors reach it as one max.
 //   Bound at mesh2000 x 1: one read of y, 64 MB, ~19 us.
 //
 // J1 residual_jvp — replaces the `jax.linearize` JVP of the masked
@@ -235,25 +243,19 @@ __global__ void fdlf_prepass_kernel(int mode, T* __restrict__ x,
   vm[k] = v * s;
 }
 
-// The mismatch of row i of lane b from its current injection I = ire + j
-// iim; in V mode returns the row's error max(|dp V|, |dq V|) (NaN kept),
-// else 0.
+// The mismatch of row i (k = b n + i) of a lane from its current injection
+// I = ire + j iim, at V's parts vri, vmi and magnitude v; in V mode returns
+// the row's error max(|dp V|, |dq V|) (NaN kept), else 0.
 template <typename T>
-__device__ __forceinline__ T fdlf_epilogue(
-    int mode, int64_t b, int i, int n, T ire, T iim, const T* __restrict__ x,
-    const T* __restrict__ vr, const T* __restrict__ vm,
+__device__ __forceinline__ T fdlf_row(
+    int mode, int64_t k, int i, T vri, T vmi, T v, T ire, T iim,
     const T* __restrict__ ps, const T* __restrict__ qs,
-    const T* __restrict__ th_free, const T* __restrict__ v_free,
-    const unsigned char* __restrict__ active, T* __restrict__ dp,
-    T* __restrict__ dq) {
+    const T* __restrict__ th_free, const T* __restrict__ v_free, bool live,
+    T* __restrict__ dp, T* __restrict__ dq) {
   // Read-only inputs (__ldg): a thread's outputs need not wait for each
   // other's stores.
-  const int64_t k = b * n + i;
-  const T vri = __ldg(vr + k), vmi = __ldg(vm + k);
-  const T v = __ldg(x + b * 2 * n + n + i);
   const T psk = __ldg(ps + k), qsk = __ldg(qs + k);
   const T thf = __ldg(th_free + i), vf = __ldg(v_free + i);
-  const bool live = __ldg(active + b) != 0;
   T P, Q;
   row_product::power(vri, vmi, ire, iim, P, Q);
   const T dpi = (psk - P) / v * thf;
@@ -270,6 +272,21 @@ __device__ __forceinline__ T fdlf_epilogue(
   if (live) dp[k] = dpi;
   const T ep = fabs(dpi * v), eq = fabs(dqi * v);
   return (ep != ep || eq != eq) ? nan_<T>() : (ep > eq ? ep : eq);
+}
+
+// fdlf_row on lane b's V parts and state as the pre-pass left them.
+template <typename T>
+__device__ __forceinline__ T fdlf_epilogue(
+    int mode, int64_t b, int i, int n, T ire, T iim, const T* __restrict__ x,
+    const T* __restrict__ vr, const T* __restrict__ vm,
+    const T* __restrict__ ps, const T* __restrict__ qs,
+    const T* __restrict__ th_free, const T* __restrict__ v_free,
+    const unsigned char* __restrict__ active, T* __restrict__ dp,
+    T* __restrict__ dq) {
+  const int64_t k = b * n + i;
+  return fdlf_row<T>(mode, k, i, __ldg(vr + k), __ldg(vm + k),
+                     __ldg(x + b * 2 * n + n + i), ire, iim, ps, qs, th_free,
+                     v_free, __ldg(active + b) != 0, dp, dq);
 }
 
 using row_product::kWarpsPerBlock;
@@ -297,28 +314,154 @@ struct FdlfEpilogue {
   }
 };
 
-// A warp per (lane, row) (row_product.cuh's warp form, K2's per-lane one);
-// lane b's y at g + b * y_stride (0: one y of every lane).
+constexpr int kForm = 8;  // F1's warp form: columns a thread forms a pass
+// solver_kernels.py reads these two: keep each a `constexpr int name =
+// value;`.  A warp-form CTA's rows at most, and its dynamic shared memory
+// at most (227 KB less room for the kernel's static shared memory).
+constexpr int kF1MaxRows = 256;
+constexpr int kF1SmemMax = 228352;
+
+// F1's one-launch warp form: CTA (blockIdx.x, lane blockIdx.y) takes rows
+// [blockIdx.x rows, + rows) of that lane (rows <= kF1MaxRows); lane b's y at
+// g + b * y_stride (0: one y of every lane).  Dynamic shared memory: V's
+// parts [2][n].  `ctaerr` [B, gridDim.x] gets each CTA's row-error max (V
+// mode).  `ticket` [B][2], zero between launches: ticket[b][0] counts the
+// CTAs that have read x (the last writes the half's update of x, while the
+// others may still stream y), ticket[b][1] those that are done (the last
+// runs the lane finish).  Each counter is reset by its last taker.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) fdlf_lane_kernel(
-    int mode, const T* __restrict__ x, const T* __restrict__ vr,
-    const T* __restrict__ vm, const T* __restrict__ g,
-    const T* __restrict__ bm, int64_t y_stride, const T* __restrict__ ps,
-    const T* __restrict__ qs, const T* __restrict__ th_free,
-    const T* __restrict__ v_free, const unsigned char* __restrict__ active,
-    T* __restrict__ dp, T* __restrict__ dq, T* __restrict__ rowerr, int n) {
-  const int i = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  const int ln = threadIdx.x & 31;
+__global__ void __launch_bounds__(kThreads) fdlf_warp_kernel(
+    int mode, T* x, const T* __restrict__ d, int64_t d_bs, int64_t d_js,
+    const T* __restrict__ g, const T* __restrict__ bm, int64_t y_stride,
+    const T* __restrict__ ps, const T* __restrict__ qs,
+    const T* __restrict__ th_free, const T* __restrict__ v_free,
+    unsigned char* active, T* __restrict__ dp, T* __restrict__ dq, T* ctaerr,
+    int* ticket, T* err, int* it, const T* __restrict__ tol, int max_iter,
+    int fixed, int n, int rows) {
+  extern __shared__ __align__(16) unsigned char f1_smem[];
+  T* svr = reinterpret_cast<T*>(f1_smem);
+  T* svm = svr + n;
+  __shared__ T vrow[kF1MaxRows];  // the CTA's rows' updated |V|
+  __shared__ T red[kWarpsPerBlock];
+  __shared__ int is_last;
   const int64_t b = blockIdx.y;
-  if (i >= n) return;  // whole warps
-  T ire, iim;
-  row_product::warp_product<T>(g + b * y_stride + (int64_t)i * n,
-                               bm + b * y_stride + (int64_t)i * n, vr + b * n,
-                               vm + b * n, n, ln, ire, iim);
-  if (ln != 0) return;
-  const T e = fdlf_epilogue<T>(mode, b, i, n, ire, iim, x, vr, vm, ps, qs,
-                               th_free, v_free, active, dp, dq);
-  if (mode == VHALF) rowerr[b * n + i] = e;
+  const int ctas = gridDim.x;
+  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int r0 = blockIdx.x * rows, r1 = min(n, r0 + rows);
+  // Every CTA reads `active` and x before its first ticket; x is written
+  // after every CTA has taken that ticket, `active` after the second.
+  const bool live = active[b] != 0;
+  const bool upd = mode != INIT && live;
+  T* xb = x + b * 2 * n;
+  const T* db = mode == INIT ? nullptr : d + b * d_bs;
+  const T* fr = mode == THETA ? th_free : v_free;
+  // kForm columns a thread a pass, every load issued before any is used.
+  for (int j0 = threadIdx.x; j0 < n; j0 += kForm * kThreads) {
+    T th[kForm], v[kForm], dd[kForm], f[kForm];
+#pragma unroll
+    for (int u = 0; u < kForm; ++u) {
+      const int j = min(j0 + u * kThreads, n - 1);
+      th[u] = xb[j];
+      v[u] = xb[n + j];
+      dd[u] = upd ? db[j * d_js] : T(0);
+      f[u] = upd ? fr[j] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kForm; ++u) {
+      const int j = j0 + u * kThreads;
+      if (j >= n) break;
+      if (upd) {
+        if (mode == THETA) th[u] = th[u] + dd[u] * f[u];
+        else v[u] = v[u] + dd[u] * f[u];
+      }
+      T s, c;
+      sincos_(th[u], &s, &c);
+      svr[j] = v[u] * c;
+      svm[j] = v[u] * s;
+      if (j >= r0 && j < r1) vrow[j - r0] = v[u];
+    }
+  }
+  __syncthreads();
+  if (upd && threadIdx.x == 0) {  // this CTA is done with x
+    __threadfence();
+    is_last = atomicAdd(ticket + 2 * b, 1) == ctas - 1;
+  }
+  __syncthreads();
+  if (upd && is_last) {  // every CTA has read x: the half's update of it
+    __threadfence();
+    T* xh = mode == THETA ? xb : xb + n;
+    for (int j0 = threadIdx.x; j0 < n; j0 += kForm * kThreads) {
+      T xv[kForm], dd[kForm], f[kForm];
+#pragma unroll
+      for (int u = 0; u < kForm; ++u) {
+        const int j = min(j0 + u * kThreads, n - 1);
+        xv[u] = xh[j];
+        dd[u] = db[j * d_js];
+        f[u] = fr[j];
+      }
+#pragma unroll
+      for (int u = 0; u < kForm; ++u) {
+        const int j = j0 + u * kThreads;
+        if (j < n) xh[j] = xv[u] + dd[u] * f[u];
+      }
+    }
+    if (threadIdx.x == 0) ticket[2 * b] = 0;
+  }
+  T worst = T(0);
+  bool nan = false;
+  for (int i = r0 + warp; i < r1; i += kWarpsPerBlock) {
+    T ire, iim;
+    row_product::warp_product<T>(g + b * y_stride + (int64_t)i * n,
+                                 bm + b * y_stride + (int64_t)i * n, svr, svm,
+                                 n, ln, ire, iim);
+    if (ln == 0) {
+      const T e = fdlf_row<T>(mode, b * n + i, i, svr[i], svm[i],
+                              vrow[i - r0], ire, iim, ps, qs, th_free, v_free,
+                              live, dp, dq);
+      if (e != e) nan = true;
+      else if (e > worst) worst = e;
+    }
+  }
+  if (mode != VHALF) return;  // no lane finish
+  if (ln == 0) red[warp] = nan ? nan_<T>() : worst;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T w = T(0);
+    bool nn = false;
+    for (int k = 0; k < kWarpsPerBlock; ++k) {
+      const T e = red[k];
+      if (e != e) nn = true;
+      else if (e > w) w = e;
+    }
+    ctaerr[b * ctas + blockIdx.x] = nn ? nan_<T>() : w;
+    __threadfence();
+    is_last = atomicAdd(ticket + 2 * b + 1, 1) == ctas - 1;
+  }
+  __syncthreads();
+  if (!is_last || warp != 0) return;
+  __threadfence();
+  T w = T(0);  // the lane finish
+  bool nn = false;
+  for (int k = ln; k < ctas; k += 32) {
+    const T e = __ldcg(ctaerr + b * ctas + k);
+    if (e != e) nn = true;
+    else if (e > w) w = e;
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    w = fmax(w, __shfl_xor_sync(0xffffffffu, w, off));
+  nn = __any_sync(0xffffffffu, nn);
+  if (ln == 0) {
+    int i = it[b];
+    T e = err[b];
+    if (live) {
+      i += 1;
+      e = nn ? nan_<T>() : w;
+    }
+    it[b] = i;
+    err[b] = e;
+    if (!fixed) active[b] = (i < max_iter && e >= tol[0]) ? 1 : 0;
+    ticket[2 * b + 1] = 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -472,35 +615,49 @@ int launch_fdlf(int mode, T* x, const T* d, int64_t d_bs, int64_t d_js,
                 const T* th_free, const T* v_free, T* dp, T* dq, T* vr, T* vm,
                 T* part, T* rowerr, T* err, int* it, unsigned char* active,
                 const T* tol, int max_iter, int fixed, int lanes, int n,
-                int splits, cudaStream_t stream) {
+                int splits, int* ticket, int rows, cudaStream_t stream) {
   if (lanes <= 0 || lanes > 65535 || n <= 0 ||
       (mode != INIT && mode != THETA && mode != VHALF) ||
       (mode != INIT && d == nullptr) || (lane_y && splits != 0))
     return (int)cudaErrorInvalidValue;
+  if (splits == 0) {  // one launch: fdlf_warp_kernel
+    const int64_t smem = 2 * (int64_t)n * (int64_t)sizeof(T);
+    if (rows < 1 || rows > kF1MaxRows || smem > kF1SmemMax ||
+        (mode != INIT && ticket == nullptr) ||
+        (mode == VHALF && rowerr == nullptr))
+      return (int)cudaErrorInvalidValue;
+    static bool opted[64] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (smem > 48 * 1024 && (dev >= 64 || !opted[dev])) {
+      e = cudaFuncSetAttribute(fdlf_warp_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kF1SmemMax);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < 64) opted[dev] = true;
+    }
+    const dim3 grid((n + rows - 1) / rows, lanes);
+    fdlf_warp_kernel<T><<<grid, kThreads, (size_t)smem, stream>>>(
+        mode, x, d, d_bs, d_js, g, bm, lane_y ? (int64_t)n * n : 0, ps, qs,
+        th_free, v_free, active, dp, dq, rowerr, ticket, err, it, tol,
+        max_iter, fixed, n, rows);
+    return (int)cudaGetLastError();
+  }
   const int64_t total = (int64_t)lanes * n;
   fdlf_prepass_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads),
                            kThreads, 0, stream>>>(
       mode, x, d, d_bs, d_js, th_free, v_free, active, vr, vm, lanes, n);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (splits == 0) {
-    const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, lanes);
-    fdlf_lane_kernel<T><<<grid, kThreads, 0, stream>>>(
-        mode, x, vr, vm, g, bm, lane_y ? (int64_t)n * n : 0, ps, qs, th_free,
-        v_free, active, dp, dq, rowerr, n);
-  } else {
-    const FdlfEpilogue<T> epi{mode,   x,      vr, vm, ps,     qs, th_free,
-                              v_free, active, dp, dq, rowerr, n};
-    e = (cudaError_t)row_product::launch_tiled<T>(g, bm, vr, vm, part, lanes,
-                                                n, splits, epi, stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  e = cudaGetLastError();
+  const FdlfEpilogue<T> epi{mode,   x,      vr, vm, ps,     qs, th_free,
+                            v_free, active, dp, dq, rowerr, n};
+  e = (cudaError_t)row_product::launch_tiled<T>(g, bm, vr, vm, part, lanes,
+                                              n, splits, epi, stream);
   if (e != cudaSuccess || mode != VHALF) return (int)e;
-  // The tile form left a max a (lane, row tile), the warp form a row each.
-  const int rows = splits == 0 ? n : row_product::row_tiles(n);
-  return launch_finish<T>(rowerr, rows, err, it, active, tol, max_iter, fixed,
-                          lanes, stream);
+  // The tile form left a max a (lane, row tile).
+  return launch_finish<T>(rowerr, row_product::row_tiles(n), err, it, active,
+                          tol, max_iter, fixed, lanes, stream);
 }
 
 template <typename T>
@@ -550,7 +707,9 @@ int launch_cim(const T* a_re, const T* a_im, const T* v_re, const T* v_im,
 // one element.  J1's null `status` means every branch in service.  F1's and
 // I1's `splits` (the tiled product's K slices) comes from
 // newton_kernels.product_splits (F1 takes 0 for its warp form, and then no
-// `part`), `part` is the product's [splits, 2, lanes, n] scratch; I1's
+// `part`, `vr` or `vm`; its `rowerr` is the [lanes, ctas] CTA maxima, its
+// `ticket` [lanes, 2] int32 zeros and `rows` from solver_kernels.
+// fdlf_warp_plan), `part` is the product's [splits, 2, lanes, n] scratch; I1's
 // `j_re`/`j_im` are its [lanes, N] injection scratch.  Returns the
 // cudaError_t of the launches.
 #define SOLVER_ENTRY_POINTS(T, SUFFIX)                                         \
@@ -568,11 +727,12 @@ int launch_cim(const T* a_re, const T* a_im, const T* v_re, const T* v_im,
       const T* bm, int lane_y, const T* ps, const T* qs, const T* th_free,    \
       const T* v_free, T* dp, T* dq, T* vr, T* vm, T* part, T* rowerr,        \
       T* err, int* it, unsigned char* active, const T* tol, int max_iter,     \
-      int fixed, int lanes, int n, int splits, void* stream) {               \
+      int fixed, int lanes, int n, int splits, int* ticket, int rows,         \
+      void* stream) {                                                        \
     return launch_fdlf<T>(mode, x, d, d_bs, d_js, g, bm, lane_y, ps, qs,     \
                           th_free, v_free, dp, dq, vr, vm, part, rowerr,     \
                           err, it, active, tol, max_iter, fixed, lanes, n,   \
-                          splits, (cudaStream_t)stream);                     \
+                          splits, ticket, rows, (cudaStream_t)stream);       \
   }                                                                          \
   extern "C" int residual_jvp_##SUFFIX(                                       \
       const T* x, const T* u, const int* inc_ptr, const int* inc_code,        \

@@ -17,6 +17,12 @@ wrapper                     replaces                                       route
 Both live in ``csrc/ladder.cu`` (float64 and float32).  A wrapper given
 CPU tensors runs its plain PyTorch version; given CUDA tensors it
 launches its kernel or raises.  Each launch counts in :data:`LAUNCHES`.
+L1 takes one of two routes, chosen by :func:`ladder_plan` from the
+branch count and dtype alone (so a lane's result is the same bits
+whatever the lanes beside it): up to :func:`cluster_capacity` branches a
+lane is one thread-block cluster whose
+shared memory holds its state, above that one CTA a lane with its state
+in device memory.
 
 The kernels work in DFS preorder (:meth:`Feeder.reorder_preorder`), on
 :class:`LadderOperands` made once per feeder.  Lanes are ``[B, nb, 3]``
@@ -35,6 +41,7 @@ function whose forward is L1 in fixed mode and whose backward is L2.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -73,7 +80,8 @@ class LadderOperands(NamedTuple):
     3]``, the impedances ``z_re``, ``z_im [nb, 3, 3]`` (pu), ``root
     [nb]`` (1 on substation-fed branches), in the working dtype; the
     subtree ends ``tout [nb]`` and the groups ``{k : tout_k = t}`` as CSR
-    ``grp_ptr [nb + 1]``, ``grp_idx`` in increasing ``k`` (int32)."""
+    ``grp_ptr [nb + 1]``, ``grp_idx`` in increasing ``k`` (int32); ``zt``,
+    the impedances in the cluster route's layout (``_cluster_z``)."""
 
     mask: Tensor
     z_re: Tensor
@@ -82,6 +90,7 @@ class LadderOperands(NamedTuple):
     tout: Tensor
     grp_ptr: Tensor
     grp_idx: Tensor
+    zt: Tensor
 
     @property
     def nb(self) -> int:
@@ -130,10 +139,118 @@ def ladder_operands(feeder: Feeder, dtype: torch.dtype,
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
     z = np.asarray(feeder.z_pu)
+    zt = _cluster_z(z, ladder_plan(nb, dtype))
     return LadderOperands(
         mask=real(feeder.phase_mask), z_re=real(z.real), z_im=real(z.imag),
         root=real((parent < 0).astype(np.float64)), tout=i32(tout),
-        grp_ptr=i32(ptr), grp_idx=i32(order))
+        grp_ptr=i32(ptr), grp_idx=i32(order), zt=real(zt))
+
+
+# ---------------------------------------------------------------------------
+# L1's launch plan
+# ---------------------------------------------------------------------------
+
+
+#: The cluster route: threads a CTA at most (two branches each) by dtype
+#: (a thread's register budget is 65536 / threads), CTAs a lane at most,
+#: the shared words a CTA keeps beside its three ``[6, 2 · threads]``
+#: buffers (v, the drops, the prefix) and its staged group indices, and
+#: the dynamic shared memory a block may take on an H100.
+(_THREADS_F64, _THREADS_F32, MAX_CLUSTER, SCRATCH_WORDS,
+ SMEM_LIMIT) = build.constants("ladder.cu", "kCtaThreadsF64", "kCtaThreadsF32",
+                               "kMaxCluster", "kScratchWords", "kSmemLimit")
+CTA_THREADS = {torch.float64: _THREADS_F64, torch.float32: _THREADS_F32}
+#: Threads a CTA of the global route (one CTA a lane).
+GLOBAL_THREADS = 512
+_ITEMSIZE = {torch.float64: 8, torch.float32: 4}
+
+
+def _cta_smem(threads: int, itemsize: int) -> int:
+    """A CTA's buffers [3, 6, 2·threads], its scratch and the staged group
+    indices (int32, 2·threads)."""
+    return (36 * threads + SCRATCH_WORDS) * itemsize + 8 * threads
+
+
+def cluster_capacity(dtype: torch.dtype) -> int:
+    """The most branches the cluster route takes in ``dtype``: the widest
+    CTA whose buffers fit in shared memory, two branches a thread, times
+    :data:`MAX_CLUSTER` (float64 20,480, float32 32,768)."""
+    item = _itemsize(dtype)
+    threads = CTA_THREADS[dtype]
+    while _cta_smem(threads, item) > SMEM_LIMIT:
+        threads -= 32
+    return MAX_CLUSTER * 2 * threads
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    if dtype not in _ITEMSIZE:
+        raise TypeError(f"the ladder kernels take float64 or float32, got "
+                        f"{dtype}")
+    return _ITEMSIZE[dtype]
+
+
+class LadderPlan(NamedTuple):
+    """L1's launch shape at ``nb`` branches: the ``route`` (``"cluster"``
+    or ``"global"``), the CTAs a lane (``cluster``; 1 on the global
+    route), the branches a CTA owns (``per``: CTA ``r`` the preorder
+    interval ``[r·per, min(nb, (r+1)·per))``, two a thread), its
+    ``threads`` and its dynamic shared memory in bytes (``smem``; 0 on the
+    global route)."""
+
+    route: str
+    cluster: int
+    per: int
+    threads: int
+    smem: int
+
+    def intervals(self, nb: int) -> Tuple[Tuple[int, int], ...]:
+        """Each CTA's branch interval ``[lo, hi)``, in rank order."""
+        return tuple((r * self.per, min(nb, (r + 1) * self.per))
+                     for r in range(self.cluster))
+
+
+def ladder_plan(nb: int, dtype: torch.dtype) -> LadderPlan:
+    """L1's launch plan: a function of the branch count and the dtype
+    alone — never of the lane count or the card's free SMs — so that a
+    lane gives the same bits in a launch of any width (QSTS rechunking
+    and resumes rely on it).  Up to :func:`cluster_capacity` branches a
+    lane is the smallest cluster whose CTAs' buffers fit in shared memory
+    with the branches split evenly (fewer SMs a lane: more lanes at once;
+    at 10k branches 8 CTAs in float64, 5 in float32); above it the global
+    route, one CTA a lane."""
+    nb = int(nb)
+    if nb <= 0:
+        raise ValueError(f"ladder_plan needs nb >= 1, got {nb}")
+    item = _itemsize(dtype)
+    most = CTA_THREADS[dtype]
+    for cluster in range(math.ceil(nb / (2 * most)), MAX_CLUSTER + 1):
+        per = math.ceil(nb / cluster)
+        threads = 32 * math.ceil(per / 64)
+        smem = _cta_smem(threads, item)
+        if threads <= most and smem <= SMEM_LIMIT and (cluster - 1) * per < nb:
+            return LadderPlan("cluster", cluster, per, threads, smem)
+    return LadderPlan("global", 1, nb, GLOBAL_THREADS, 0)
+
+
+def _row_width(plan: LadderPlan) -> int:
+    return plan.cluster * 2 * plan.threads if plan.route == "cluster" else 0
+
+
+def _cluster_z(z: np.ndarray, plan: LadderPlan) -> np.ndarray:
+    """z ``[nb, 3, 3]`` complex in the cluster route's row layout ``[2
+    (re, im), 9 (entry 3 q + p), cluster · 2 · threads]``: each row holds
+    CTA ``r``'s branches at ``r · 2 · threads + (i − r · per)`` (zeros
+    elsewhere), so a warp reads a row contiguously; ``[2, 9, 0]`` on the
+    global route."""
+    nb = z.shape[0]
+    out = np.zeros((2, 9, _row_width(plan)))
+    if plan.route == "cluster":
+        i = np.arange(nb)
+        r = i // plan.per
+        col = r * 2 * plan.threads + i - r * plan.per
+        out[0][:, col] = z.real.reshape(nb, 9).T
+        out[1][:, col] = z.imag.reshape(nb, 9).T
+    return out
 
 
 class LadderOut(NamedTuple):
@@ -303,8 +420,10 @@ def ladder_vjp_plain(saved: Tensor, s: C, op: LadderOperands, gv: C, gb: C,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
-    "ladder_solve": [_P] * 23 + [_I] * 4 + [ctypes.c_double, _P],
+    "ladder_solve": [_P] * 25 + [_I] * 4 + [ctypes.c_double] + [_I] * 4
+    + [_P],
     "ladder_vjp": [_P] * 20 + [_I] * 3 + [_P],
+    "ladder_cluster_check": [_I] * 3 + [_P],
 }
 _lib_lock = threading.Lock()
 _fns: Dict[str, object] = {}
@@ -368,11 +487,41 @@ def _check_op(op: LadderOperands, dev, dtype) -> None:
           z_re=(op.z_re, (nb, 3, 3), False), z_im=(op.z_im, (nb, 3, 3), False),
           root=(op.root, (nb,), False), tout=(op.tout, (nb,), True),
           grp_ptr=(op.grp_ptr, (nb + 1,), True),
-          grp_idx=(op.grp_idx, (int(op.grp_idx.shape[0]),), True))
+          grp_idx=(op.grp_idx, (int(op.grp_idx.shape[0]),), True),
+          zt=(op.zt, (2, 9, _row_width(ladder_plan(nb, dtype))), False))
     with _launch_lock:
         if len(_checked) >= 64:
             _checked.clear()
         _checked[id(op)] = op
+
+
+#: Clusters of a plan's shape the card holds at once, by (device, dtype,
+#: plan), from the first launch of that shape on that device.
+_resident: Dict[tuple, int] = {}
+
+
+def resident_clusters(plan: LadderPlan, dtype: torch.dtype,
+                      device: torch.device) -> int:
+    """How many clusters of ``plan``'s shape the card places at once
+    (``cudaOccupancyMaxActiveClusters``); raises, naming the shape, where
+    it cannot place one."""
+    key = (device.index, dtype, plan)
+    got = _resident.get(key)
+    if got is None:
+        active = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = _fn(f"ladder_cluster_check_{_suffix(dtype)}")(
+                plan.cluster, plan.threads, plan.smem, ctypes.byref(active))
+        _raise_on(rc, "ladder_cluster_check")
+        got = int(active.value)
+        if got < 1:
+            raise RuntimeError(
+                f"ladder_solve: the card cannot place a cluster of "
+                f"{plan.cluster} CTAs x {plan.threads} threads with "
+                f"{plan.smem} bytes of shared memory each")
+        with _launch_lock:
+            _resident[key] = got
+    return got
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -396,7 +545,8 @@ def _on_card(t: Tensor, name: str) -> bool:
 def ladder_solve(s: C, v0: C, op: LadderOperands, eps: float, max_iter: int,
                  fixed: bool, save: bool = False) -> LadderOut:
     """L1: a whole ladder solve of every lane in one launch — ``s [B,
-    nb, 3]`` pu and ``v0 [B, 3]`` contiguous pairs, preorder space."""
+    nb, 3]`` pu and ``v0 [B, 3]`` contiguous pairs, preorder space — on
+    :func:`ladder_plan`'s route."""
     if not _on_card(s.re, "ladder_solve"):
         return ladder_solve_plain(s, v0, op, eps, max_iter, fixed, save)
     dev, dtype = s.re.device, s.re.dtype
@@ -410,6 +560,10 @@ def ladder_solve(s: C, v0: C, op: LadderOperands, eps: float, max_iter: int,
           s_im=(s.im, (lanes, nb, 3), False),
           v0_re=(v0.re, (lanes, 3), False), v0_im=(v0.im, (lanes, 3), False))
     _check_op(op, dev, dtype)
+    plan = ladder_plan(nb, dtype)
+    cluster = plan.route == "cluster"
+    if cluster:
+        resident_clusters(plan, dtype, dev)
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=dev)
@@ -419,8 +573,11 @@ def ladder_solve(s: C, v0: C, op: LadderOperands, eps: float, max_iter: int,
     resid = empty(lanes)
     conv = empty(lanes, dt=torch.bool)
     saved = empty(max_iter, lanes, nb, 6) if (save and fixed) else None
-    ps = empty(lanes, nb + 1, 6)
-    drop = empty(lanes, nb, 6)
+    # The global route's scratch; the cluster route keeps it on chip but
+    # the previous i_br (in its row layout).
+    ps = None if cluster else empty(lanes, nb + 1, 6)
+    drop = None if cluster else empty(lanes, nb, 6)
+    ibp = empty(lanes, 6, _row_width(plan)) if cluster else None
     with torch.cuda.device(dev):
         rc = _fn(f"ladder_solve_{sfx}")(
             s.re.data_ptr(), s.im.data_ptr(), v0.re.data_ptr(),
@@ -429,8 +586,12 @@ def ladder_solve(s: C, v0: C, op: LadderOperands, eps: float, max_iter: int,
             op.grp_ptr.data_ptr(), op.grp_idx.data_ptr(),
             *(t.data_ptr() for t in out), iters.data_ptr(), resid.data_ptr(),
             conv.data_ptr(), None if saved is None else saved.data_ptr(),
-            ps.data_ptr(), drop.data_ptr(), nb, lanes, int(max_iter),
-            int(bool(fixed)), float(eps), _stream(s.re))
+            None if ps is None else ps.data_ptr(),
+            None if drop is None else drop.data_ptr(), op.zt.data_ptr(),
+            None if ibp is None else ibp.data_ptr(), nb, lanes,
+            int(max_iter), int(bool(fixed)), float(eps),
+            plan.cluster if cluster else 0, plan.per, plan.threads,
+            plan.smem, _stream(s.re))
     _raise_on(rc, "ladder_solve")
     _count("ladder_solve")
     return LadderOut(C(out[0], out[1]), C(out[2], out[3]), C(out[4], out[5]),

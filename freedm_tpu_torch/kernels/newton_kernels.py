@@ -39,7 +39,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
-import re
 import threading
 from typing import Dict, Tuple
 
@@ -166,24 +165,10 @@ def newton_update_plain(x, dx, f, free, it, err, active, max_iter: int,
 # ---------------------------------------------------------------------------
 
 
-
-def _header_constants(*names: str) -> Tuple[int, ...]:
-    """``constexpr int`` values of ``csrc/row_product.cuh``, the one place
-    the tile geometry is written."""
-    text = (build.CSRC_DIR / "row_product.cuh").read_text()
-    out = []
-    for name in names:
-        m = re.search(rf"^constexpr int {name} = (\d+);", text, re.MULTILINE)
-        if m is None:
-            raise RuntimeError(f"row_product.cuh defines no {name}")
-        out.append(int(m.group(1)))
-    return tuple(out)
-
-
 #: ``csrc/row_product.cuh``'s tile: rows of Y and lanes a block, columns a
 #: pipeline stage, and the most K slices a launch takes.
-TILE_ROWS, TILE_LANES, TILE_K, MAX_SPLITS = _header_constants(
-    "kTileRows", "kTileLanes", "kTileK", "kMaxSplits")
+TILE_ROWS, TILE_LANES, TILE_K, MAX_SPLITS = build.constants(
+    "row_product.cuh", "kTileRows", "kTileLanes", "kTileK", "kMaxSplits")
 #: SMs of an H100 SXM.  A card with another SM count runs the same plan
 #: (the bits do not depend on the card).
 PLAN_SMS = 132

@@ -38,6 +38,7 @@ pairs of ``[B, N]`` tensors, ``N = 3 nb``.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -70,6 +71,18 @@ INIT, THETA, VHALF = 0, 1, 2
 #: every lane from this many lanes; below, a 64-lane tile would idle and a
 #: warp a (lane, row) reads Ybus once a lane.
 TILED_MIN_LANES = 4
+#: F1's warp form: warps a CTA (``csrc/solvers.cu``'s block of 256
+#: threads), the CTAs a launch aims at (two to each of an H100's 132 SMs:
+#: at mesh2000 × 2 lanes 250 CTAs ran its V half in 0.0356 ms, 500 in
+#: 0.0570), the most rows a CTA takes and the shared memory its lane's V
+#: parts may fill (``csrc/solvers.cu``), and the most buses it takes by
+#: dtype (``2 n`` values of V parts a CTA).
+FDLF_WARPS = 8
+FDLF_TARGET_CTAS = 2 * 132
+FDLF_MAX_ROWS, FDLF_WARP_SMEM = build.constants("solvers.cu", "kF1MaxRows",
+                                                "kF1SmemMax")
+FDLF_WARP_MAX_N = {torch.float64: FDLF_WARP_SMEM // 16,
+                   torch.float32: FDLF_WARP_SMEM // 8}
 _MODES = {"ybus_stamp": ("YBUS", "BPRIME", "BDBL"),
           "fdlf_half_step": ("INIT", "THETA", "V")}
 #: Y1's and F1's launches by mode (their sums are in :data:`LAUNCHES`).
@@ -135,6 +148,39 @@ class StampOperands(NamedTuple):
     @property
     def m(self) -> int:
         return int(self.f.shape[0])
+
+
+class FdlfWarpPlan(NamedTuple):
+    """F1's warp-form launch: ``rows`` consecutive rows of one lane a CTA,
+    ``ctas`` CTAs a lane, ``smem`` bytes of V parts a CTA."""
+
+    rows: int
+    ctas: int
+    smem: int
+
+
+def fdlf_warp_plan(n: int, lanes: int, dtype: torch.dtype) -> FdlfWarpPlan:
+    """The rows a CTA of F1's one-launch warp form takes: a multiple of
+    :data:`FDLF_WARPS`, the fewest that keep the launch near
+    :data:`FDLF_TARGET_CTAS` CTAs (each CTA forms its lane's whole V in
+    shared memory, so fewer CTAs a lane repeat that less).  The rows' bits
+    do not depend on it.  Raises above :data:`FDLF_WARP_MAX_N` buses."""
+    n, lanes = int(n), int(lanes)
+    if n < 1 or lanes < 1:
+        raise ValueError(f"fdlf_warp_plan needs n, lanes >= 1, got {n}, "
+                         f"{lanes}")
+    if dtype not in FDLF_WARP_MAX_N:
+        raise TypeError(f"kernels take float64 or float32, got {dtype}")
+    if n > FDLF_WARP_MAX_N[dtype]:
+        raise ValueError(
+            f"fdlf_half_step's warp form takes at most "
+            f"{FDLF_WARP_MAX_N[dtype]} buses in {dtype} (its lane's V in "
+            f"shared memory), got {n}")
+    per_warp = max(1, math.ceil(lanes * n / (FDLF_TARGET_CTAS * FDLF_WARPS)))
+    rows = min(FDLF_WARPS * per_warp, FDLF_WARPS * math.ceil(n / FDLF_WARPS),
+               FDLF_MAX_ROWS)
+    itemsize = 8 if dtype == torch.float64 else 4
+    return FdlfWarpPlan(rows, math.ceil(n / rows), 2 * n * itemsize)
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +365,7 @@ _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _SIGS = {
     "ybus_stamp": [_I] + [_P] * 10 + [_I] * 3 + [_P],
     "fdlf_half_step": [_I, _P, _P, _L, _L, _P, _P, _I] + [_P] * 14
-    + [_I] * 5 + [_P],
+    + [_I] * 5 + [_P, _I, _P],
     "residual_jvp": [_P] * 15 + [_I] * 3 + [_P],
     "cim_iterate": [_P] * 19 + [_I] * 5 + [_P],
 }
@@ -361,6 +407,24 @@ def _check_fdlf_mode(mode: int) -> None:
 
 def _ptr(t: Optional[Tensor]):
     return None if t is None else t.data_ptr()
+
+
+#: F1's lane tickets (two int32 a lane, ``[lanes, 2]``) by (device,
+#: stream): zeros that each launch's last takers reset, so launches on one
+#: stream share them.
+_tickets: Dict[Tuple[int, int], Tensor] = {}
+
+
+def _lane_tickets(device: torch.device, stream: int, lanes: int) -> Tensor:
+    key = (device.index, stream)
+    with _launch_lock:
+        t = _tickets.get(key)
+        if t is None or t.numel() < 2 * lanes:
+            if len(_tickets) >= 64:
+                _tickets.clear()
+            t = _tickets[key] = torch.zeros(max(lanes, 64), 2,
+                                            dtype=torch.int32, device=device)
+    return t
 
 
 def ybus_stamp(mode: int, op: StampOperands, status: Tensor):
@@ -417,6 +481,8 @@ def fdlf_half_step(mode: int, x, d, y_re, y_im, ps, qs, th_free, v_free, dp,
     dt = x.dtype
     lanes, n = x.shape[0], x.shape[1] // 2
     lane_y = y_re.dim() == 3
+    warp_form = lane_y or lanes < TILED_MIN_LANES
+    plan = fdlf_warp_plan(n, lanes, dt) if warp_form else None
     ysh = (lanes, n, n) if lane_y else (n, n)
     spec = {"x": (x, dt, (lanes, 2 * n)), "y_re": (y_re, dt, ysh),
             "y_im": (y_im, dt, ysh), "ps": (ps, dt, (lanes, n)),
@@ -435,20 +501,28 @@ def fdlf_half_step(mode: int, x, d, y_re, y_im, ps, qs, th_free, v_free, dp,
     fn = _fn("fdlf_half_step", dt)
     ctx, stream = _launch_on(x)
     with ctx:
-        vr = torch.empty(lanes, n, dtype=dt, device=x.device)
-        vm = torch.empty_like(vr)
-        rowerr = torch.empty_like(vr) if mode == VHALF else None
-        splits, part = ((0, None) if lane_y or lanes < TILED_MIN_LANES
-                        else product_scratch(n, lanes, dt, x.device))
+        if warp_form:  # one launch: V in shared memory, a lane's tickets
+            vr = vm = part = None
+            splits = 0
+            rowerr = (torch.empty(lanes, plan.ctas, dtype=dt,
+                                  device=x.device)
+                      if mode == VHALF else None)
+            ticket = _lane_tickets(x.device, stream, lanes)
+        else:
+            vr = torch.empty(lanes, n, dtype=dt, device=x.device)
+            vm = torch.empty_like(vr)
+            rowerr = torch.empty_like(vr) if mode == VHALF else None
+            splits, part = product_scratch(n, lanes, dt, x.device)
+            ticket = None
         d_bs, d_js = (0, 0) if mode == INIT else d.stride()
         rc = fn(mode, x.data_ptr(), None if mode == INIT else d.data_ptr(),
                 d_bs, d_js, y_re.data_ptr(), y_im.data_ptr(), int(lane_y),
                 ps.data_ptr(), qs.data_ptr(), th_free.data_ptr(),
                 v_free.data_ptr(), dp.data_ptr(), dq.data_ptr(),
-                vr.data_ptr(), vm.data_ptr(), _ptr(part), _ptr(rowerr),
+                _ptr(vr), _ptr(vm), _ptr(part), _ptr(rowerr),
                 err.data_ptr(), it.data_ptr(), active.data_ptr(),
                 tol.data_ptr(), int(max_iter), int(bool(fixed)), lanes, n,
-                splits, stream)
+                splits, _ptr(ticket), plan.rows if plan else 0, stream)
     _raise_on(rc, "fdlf_half_step")
     _count("fdlf_half_step", mode)
 

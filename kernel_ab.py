@@ -69,7 +69,20 @@ from CUDA events around each call queued behind a sleep kernel
 (``chip_smoke.queued_events_ms``: the profiler's I1 times come back
 short).  Each checkout's I1 iteration (v_new, err, it) and F1's three
 modes (x, dp, dq, err, it) from the same inputs agree within
-``KERNEL_ATOL`` (``*_max_abs``, ``*_same_bits`` printed).
+``KERNEL_ATOL`` (``*_max_abs``, ``*_same_bits`` printed).  It also times
+F1's warp form (one Ybus below four lanes) at mesh2000 × 1 beside the
+complex128 ``torch.matmul`` of Ybus with V by the same clock
+(``fdlf_half_step_warp_library``) and with a per-lane Ybus at mesh2000 ×
+16 (``fdlf_half_step_lanes16``, timed only), and runs K2 on a per-lane
+Ybus (mesh118 × 118), whose warp form shares F1's row product
+(``power_injections_lanes_same_bits``).
+
+The ``ladder`` section times L1 ``ladder_solve`` at ``LADDER_SHAPES``
+(``synthetic_radial(10000)`` × 1 and × 64 in float64 and float32,
+``vvc_9bus`` × 64), 20 iterations in fixed and in solve mode, by queued
+events, each checkout on its own operands built from the same feeder and
+loads; their outputs agree within ``chip_smoke.LADDER_ATOL`` on lanes both
+converge (float64: equal iterations).
 
 Prints the card's name and power limit, one line per turn and a JSON
 summary as the last line (also written to ``--out``).  Needs a CUDA card.
@@ -92,8 +105,13 @@ DTYPES = ("float64", "float32")
 KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "sparse_assemble_residual", "sparse_matvec", "gmres_block_orth",
            "gmres_lstsq", "newton_update")
-SECTIONS = ("sparse", "delta", "newton", "solvers")
-SOLVER_KERNELS = ("cim_iterate", "fdlf_half_step")
+SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder")
+SOLVER_KERNELS = ("cim_iterate", "fdlf_half_step", "fdlf_half_step_warp",
+                  "power_injections_lanes")
+#: The ``ladder`` section's L1 shapes: (feeder, lanes, dtype).
+LADDER_SHAPES = (("radial10k", 1, "float64"), ("radial10k", 64, "float64"),
+                 ("radial10k", 1, "float32"), ("radial10k", 64, "float32"),
+                 ("vvc_9bus", 64, "float64"))
 #: F1's tile-mode lanes in the ``solvers`` section (``bench_mc_1024``).
 F1_LANES = 1024
 NEWTON_KERNELS = ("newton_assemble", "power_injections")
@@ -179,8 +197,10 @@ def solver_inputs(torch, cs) -> dict:
 
 
 def measure_solvers(torch, cs, data, dev):
-    """This checkout's I1 and F1 tile mode on ``solver_inputs``: times
-    (events back to back, events a call) and outputs."""
+    """This checkout's I1 and F1 tile mode on ``solver_inputs``, F1's warp
+    form and K2's per-lane form on states made here: times (events back to
+    back, events a call) and outputs."""
+    from freedm_tpu_torch.kernels import newton_kernels as nk
     from freedm_tpu_torch.kernels import solver_kernels as sol
 
     def on(a):
@@ -207,9 +227,136 @@ def measure_solvers(torch, cs, data, dev):
               torch.zeros(1, dtype=z.dtype, device=dev), 1 << 30, True)
     fns = {"cim_iterate": (lambda: sol.cim_iterate(*cim), 20),
            "fdlf_half_step": (lambda: sol.fdlf_half_step(*v_args), 50)}
+    # F1's warp form at bench_nr_2000's shape (mesh2000 x 1, one Ybus): its
+    # three modes for agreement, its V half timed beside the library row.
+    w = warp_inputs(torch, cs, dev)
+    outs["fdlf_half_step_warp"] = [t.cpu() for t in cs.f1_run(
+        torch, sol.fdlf_half_step, sol, w["x"], w["d_th"], w["d_v"], w["y"],
+        w["ps"], w["qs"], w["thf"], w["vf"], w["active"])[:5]]
+    zw = torch.zeros_like(w["ps"])
+    w_args = (sol.VHALF, w["x"].clone(), zw, w["y"][0], w["y"][1], w["ps"],
+              w["qs"], w["thf"], w["vf"], torch.zeros_like(zw),
+              torch.zeros_like(zw), torch.zeros(1, dtype=zw.dtype, device=dev),
+              torch.zeros(1, dtype=torch.int32, device=dev),
+              torch.ones(1, dtype=torch.bool, device=dev),
+              torch.zeros(1, dtype=zw.dtype, device=dev), 1 << 30, True)
+    fns["fdlf_half_step_warp"] = (lambda: sol.fdlf_half_step(*w_args), 50)
+    # ... and with a per-lane Ybus, the FDLF N-1 shape (mesh2000 x 16).
+    l16 = lanes16_inputs(torch, cs, sol, dev)
+    fns["fdlf_half_step_lanes16"] = (lambda: sol.fdlf_half_step(*l16), 20)
+    # K2's per-lane warp form (the dense N-1 shape, mesh118 x 118): its bits
+    # must not move (it shares row_product::warp_product with F1).
+    k2 = lanes_k2_inputs(torch, cs, dev)
+    outs["power_injections_lanes"] = [
+        t.cpu() for t in nk.power_injections(*k2)]
+    fns["power_injections_lanes"] = (lambda: nk.power_injections(*k2), 50)
     times = {k: (cs.time_ms(torch, fn, reps=reps),
                  cs.queued_events_ms(torch, fn, reps))
              for k, (fn, reps) in fns.items()}
+    yc = torch.complex(w["y"][0], w["y"][1])
+    vc = torch.polar(w["x"][:, w["ps"].shape[1]:].T.contiguous(),
+                     w["x"][:, :w["ps"].shape[1]].T.contiguous())
+    lib = cs.queued_events_ms(torch, lambda: torch.matmul(yc, vc), 50)
+    times["fdlf_half_step_warp_library"] = (cs.time_ms(
+        torch, lambda: torch.matmul(yc, vc), reps=50), lib)
+    return times, outs
+
+
+def warp_inputs(torch, cs, dev) -> dict:
+    """F1's warp-form state at mesh2000 x 1 (``chip_smoke``'s
+    ``synthetic_mesh_bench(2000, 1.0)``, one Ybus), made from a seed in
+    every turn."""
+    from freedm_tpu_torch.grid.bus import ybus_dense
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    sys_ = cs.synthetic_mesh_bench(2000, 1.0)
+    n = sys_.n_bus
+    rng = np.random.default_rng(2000)
+    f64 = torch.float64
+
+    def t(a):
+        return torch.as_tensor(a, dtype=f64, device=dev)
+
+    sop = sparse_operands(sys_, dtype=f64, device=dev)
+    ps = t(np.tile(sys_.p_inj, (1, 1)))
+    return {"x": torch.cat([t(rng.normal(0, 0.1, (1, n))),
+                            t(rng.uniform(0.95, 1.05, (1, n)))], 1),
+            "y": ybus_dense(sys_, dtype=f64, device=dev), "ps": ps,
+            "qs": t(np.tile(sys_.q_inj, (1, 1))), "thf": sop.th_free,
+            "vf": sop.v_free, "d_th": t(rng.normal(0, 1e-3, (n, 1))).T,
+            "d_v": t(rng.normal(0, 1e-3, (1, n))),
+            "active": torch.ones(1, dtype=torch.bool, device=dev)}
+
+
+def lanes16_inputs(torch, cs, sol, dev):
+    """F1's V half at mesh2000 x 16 chord outages, a per-lane Ybus stamped
+    by this checkout's Y1 (``chip_smoke``'s phase 22 shape)."""
+    from freedm_tpu_torch.grid.bus import stamp_operands
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    sys_ = cs.synthetic_mesh_bench(2000, 1.0)
+    n, f64 = sys_.n_bus, torch.float64
+    st = torch.ones(16, sys_.n_branch, dtype=f64, device=dev)
+    st[torch.arange(16), n + torch.arange(16)] = 0.0
+    y = sol.ybus_stamp(sol.YBUS, stamp_operands(sys_, dtype=f64, device=dev),
+                       st)
+    sop = sparse_operands(sys_, dtype=f64, device=dev)
+    z = torch.zeros(16, n, dtype=f64, device=dev)
+    x = torch.cat([z, torch.ones_like(z)], 1)
+    ps = torch.as_tensor(np.tile(sys_.p_inj, (16, 1)), device=dev)
+    return (sol.VHALF, x, z.clone(), y[0], y[1], ps, ps, sop.th_free,
+            sop.v_free, z.clone(), z.clone(),
+            torch.zeros(16, dtype=f64, device=dev),
+            torch.zeros(16, dtype=torch.int32, device=dev),
+            torch.ones(16, dtype=torch.bool, device=dev),
+            torch.zeros(1, dtype=f64, device=dev), 1 << 30, True)
+
+
+def lanes_k2_inputs(torch, cs, dev):
+    """K2's arguments with a per-lane Ybus: mesh118 x 118 single outages
+    (``chip_smoke.n1_118_status``), the state of ``chip_smoke``'s phase
+    22."""
+    from freedm_tpu_torch.grid.bus import stamp_operands, ybus_lanes
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    sys_ = cs.case_system("mesh118")
+    n = sys_.n_bus
+    f64 = torch.float64
+    op = stamp_operands(sys_, dtype=f64, device=dev)
+    st = torch.as_tensor(cs.n1_118_status(sys_), dtype=f64, device=dev)
+    lanes = st.shape[0]
+    y = ybus_lanes(sys_, st, dtype=f64, device=dev, op=op)
+    rng = np.random.default_rng(22)
+    x = torch.cat([torch.as_tensor(rng.normal(0, 0.05, (lanes, n)),
+                                   device=dev),
+                   torch.ones(lanes, n, dtype=f64, device=dev)], 1)
+    sop = sparse_operands(sys_, dtype=f64, device=dev)
+    ps = torch.as_tensor(np.tile(sys_.p_inj, (lanes, 1)), device=dev)
+    qs = torch.as_tensor(np.tile(sys_.q_inj, (lanes, 1)), device=dev)
+    return (x, y[0], y[1], ps, qs, sop.th_free, sop.v_free, sop.v_set)
+
+
+def measure_ladder(torch, cs, dev):
+    """L1 at ``LADDER_SHAPES`` through this checkout's own operands (made
+    from the feeder in every turn), 20 iterations: fixed and solve mode
+    device times by queued events, and the fixed and solve outputs."""
+    from freedm_tpu_torch.kernels import ladder_kernels as lk
+
+    feeders = {n: f for n, f, _, _ in cs.ladder_feeders()}
+    times, outs = {}, {}
+    for name, lanes, dn in LADDER_SHAPES:
+        dtype = getattr(torch, dn)
+        s, v0, op = cs.preorder_inputs(torch, lk, feeders[name], lanes,
+                                       dtype)
+        key = f"{name}_x{lanes}_{dn}"
+        for mode, fixed in (("fixed", True), ("solve", False)):
+            def fn(fixed=fixed):
+                return lk.ladder_solve(s, v0, op, cs.LADDER_EPS, 20, fixed)
+            o = fn()
+            outs[f"{key}_{mode}"] = [x.cpu() for x in (
+                o.v.re, o.v.im, o.i_branch.re, o.i_branch.im, o.i_load.re,
+                o.i_load.im, o.iterations, o.converged)]
+            times[f"{key}_{mode}"] = cs.queued_events_ms(torch, fn, 7)
     return times, outs
 
 
@@ -270,6 +417,8 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
     if "solvers" in sections:
         times["solvers"], outs["solvers"] = measure_solvers(
             torch, cs, data["solvers"], dev)
+    if "ladder" in sections:
+        times["ladder"], outs["ladder"] = measure_ladder(torch, cs, dev)
     if "delta" in sections:
         times["delta"], outs["delta"] = measure_delta(torch, cs, sys_,
                                                       data["delta"], dev)
@@ -442,6 +591,18 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
         errs[f"{kern}_same_bits"] = all(
             torch.equal(x, y) or cs.same_bits(torch, x, y)
             for x, y in zip(outs, other))
+    for key, outs in a.get("ladder", {}).items():
+        other = b["ladder"][key]
+        tol = cs.LADDER_ATOL["float32" if "float32" in key else "float64"]
+        conv = outs[7] & other[7]
+        d = max(float((x - y)[conv].abs().max()) if bool(conv.any()) else 0.0
+                for x, y in zip(outs[:6], other[:6]))
+        cs.check(d <= tol and ("float32" in key
+                               or torch.equal(outs[6], other[6])),
+                 f"{label}: ladder {key} outputs {d:.3e} from this "
+                 f"checkout's (iterations {outs[6].tolist()[:4]} vs "
+                 f"{other[6].tolist()[:4]})")
+        errs[f"ladder_{key}_max_abs"] = d
     for key, (ta, va, sa) in a.get("delta", {}).items():
         tb, vb, sb = b["delta"][key]
         d = max(float((ta - tb).abs().max()), float((va - vb).abs().max()))
@@ -485,7 +646,8 @@ def main() -> int:
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help="comma-separated: sparse (S1-S4, K3 and the "
                          "solves), delta (the delta program), newton (K1 "
-                         "and K2), solvers (I1 and F1's tile mode)")
+                         "and K2), solvers (I1, F1's tile mode and warp "
+                         "form, K2's per-lane form), ladder (L1)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
@@ -517,7 +679,9 @@ def main() -> int:
                "shape": "mesh2000 x 64, S3 at j0 = 12, s = 4, S4 at mm = 16;"
                         " K1/K2 mesh2000 x 64, one Ybus; delta programs "
                         "mesh2000 x {1, 8} lanes; I1 the CIM feeder x 64; "
-                        "F1 tile mode mesh118 x 1024",
+                        "F1 tile mode mesh118 x 1024, warp form mesh2000 x "
+                        "1; K2 per-lane mesh118 x 118; L1 radial10k x "
+                        "{1, 64} f64/f32, vvc_9bus x 64, 20 iterations",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
@@ -554,6 +718,9 @@ def main() -> int:
                     print(f"ab {other.name} float64 {kern:<26} {which:<5} "
                           f"{ms:.4f} ms  device (queued events) {dev:.4f} "
                           f"ms", flush=True)
+                for key, dev in times.get("ladder", {}).items():
+                    print(f"ab {other.name} ladder_solve {key:<28} {which:<5}"
+                          f" device (queued events) {dev:.4f} ms", flush=True)
                 for name in DTYPES:
                     for kern in KERNELS:
                         if kern not in times.get(name, {}):

@@ -7,8 +7,9 @@ inputs: the reference's contracts (``tests/test_newton.py:297-345``,
 and ``solve_fixed`` — v and θ within 1e-10 with equal iterations and
 flags — with and without a per-lane branch status.  F1's plain version
 is held to the reference's mismatch and error on random states (its
-``solve_fixed`` after 0 and 1 iterations).  The ``cuda``-marked test
-holds F1 to its plain version on the card.
+``solve_fixed`` after 0 and 1 iterations).  F1's warp-form launch plan
+(``fdlf_warp_plan``) is plain Python, tested here.  The ``cuda``-marked
+test holds F1 to its plain version on the card.
 """
 
 import dataclasses
@@ -237,6 +238,41 @@ def test_arguments_are_typed():
     solve, _ = make_fdlf_solver(sys_, device="cpu")
     with pytest.raises(ValueError, match="one row per lane"):
         solve(p_inj=sys_.p_inj)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 118, 2000, 10000])
+@pytest.mark.parametrize("lanes", [1, 2, 3, 16, 256])
+def test_f1_warp_plan_covers_every_row(n, lanes):
+    for dtype, item in ((torch.float64, 8), (torch.float32, 4)):
+        plan = sol.fdlf_warp_plan(n, lanes, dtype)
+        assert plan.rows % sol.FDLF_WARPS == 0 and plan.rows >= 1
+        assert plan.ctas == -(-n // plan.rows)
+        assert (plan.ctas - 1) * plan.rows < n  # the last CTA holds a row
+        assert plan.smem == 2 * n * item
+        assert plan == sol.fdlf_warp_plan(n, lanes, dtype)
+
+
+def test_f1_warp_plan_spreads_small_batches_thin():
+    one = sol.fdlf_warp_plan(2000, 1, torch.float64)
+    assert (one.rows, one.ctas) == (8, 250)  # a warp a row at mesh2000 x 1
+    two = sol.fdlf_warp_plan(2000, 2, torch.float64)
+    assert (two.rows, two.ctas) == (16, 125)
+    many = sol.fdlf_warp_plan(2000, 16, torch.float64)
+    assert many.rows > two.rows
+    assert many.ctas * 16 <= 2 * sol.FDLF_TARGET_CTAS
+
+
+def test_f1_warp_plan_refuses_what_shared_memory_cannot_hold():
+    for dtype in (torch.float64, torch.float32):
+        top = sol.FDLF_WARP_MAX_N[dtype]
+        assert sol.fdlf_warp_plan(top, 1, dtype).smem <= sol.FDLF_WARP_SMEM
+        with pytest.raises(ValueError, match="at most"):
+            sol.fdlf_warp_plan(top + 1, 1, dtype)
+    assert sol.FDLF_WARP_MAX_N[torch.float64] == 14272
+    with pytest.raises(ValueError):
+        sol.fdlf_warp_plan(0, 1, torch.float64)
+    with pytest.raises(TypeError):
+        sol.fdlf_warp_plan(10, 1, torch.float16)
 
 
 @pytest.fixture

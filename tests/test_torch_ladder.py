@@ -17,11 +17,16 @@ inputs, float64:
   through the plain loop (dense, doubling) and through ``LadderFixed``
   (L1's and L2's plain versions on the CPU), at dead phases too; L2's
   plain version against ``torch.autograd`` of L1's plain version on
-  random cotangents; a central finite difference.
+  random cotangents; a central finite difference;
+- L1's launch plan (``ladder_plan``): a function of the branch count and
+  dtype alone, whole contiguous intervals that cover the branches, the
+  route switching only at the cluster route's capacity.
 
 The ``cuda``-marked tests hold L1 and L2 to their plain versions on the
 card (``chip_smoke.py`` does so at full size).
 """
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -453,6 +458,78 @@ def test_v_source_gradient_runs_the_plain_loop_on_the_cpu():
     want = jax.grad(lambda v: ref_ladder.total_loss_kw(
         ref_cases.vvc_9bus(), r_fixed(ref_cases.vvc_9bus().s_load, v)))(1.01)
     np.testing.assert_allclose(float(g), float(want), rtol=GRAD_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# L1's launch plan (plain Python)
+# ---------------------------------------------------------------------------
+
+PLAN_NBS = [1, 8, 31, 32, 33, 64, 65, 512, 1023, 1024, 2048, 2049, 5000,
+            10000, 16384, 20480, 24576, 32768]
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("nb", PLAN_NBS)
+def test_ladder_plan_cuts_whole_contiguous_intervals(nb, dtype):
+    plan = lk.ladder_plan(nb, dtype)
+    if nb > lk.cluster_capacity(dtype):
+        assert plan.route == "global"
+        return
+    assert plan.route == "cluster"
+    assert 1 <= plan.cluster <= lk.MAX_CLUSTER
+    assert plan.per <= 2 * plan.threads  # two branches a thread
+    assert plan.threads % 32 == 0 and plan.threads <= lk.CTA_THREADS[dtype]
+    spans = plan.intervals(nb)
+    assert len(spans) == plan.cluster
+    assert spans[0][0] == 0 and spans[-1][1] == nb
+    for (lo, hi), (lo2, _) in zip(spans, spans[1:]):
+        assert hi == lo2  # contiguous, in rank order
+    assert all(hi > lo for lo, hi in spans)  # every CTA owns a branch
+    item = 8 if dtype == F64 else 4
+    assert plan.smem == ((36 * plan.threads + lk.SCRATCH_WORDS) * item
+                         + 8 * plan.threads)
+    assert plan.smem <= lk.SMEM_LIMIT == 232448  # an H100 block's
+
+
+@pytest.mark.parametrize("nb", [1, 9, 1000, 10000, 20480, 20481, 40000])
+def test_ladder_plan_is_a_function_of_nb_and_dtype_alone(nb):
+    for dtype in (F64, torch.float32):
+        first = lk.ladder_plan(nb, dtype)
+        assert lk.ladder_plan(int(np.int64(nb)), dtype) == first
+        assert lk.ladder_plan(nb, dtype) == first
+    params = set(inspect.signature(lk.ladder_plan).parameters)
+    assert params == {"nb", "dtype"}
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_ladder_plan_route_changes_only_at_capacity(dtype):
+    cap = lk.cluster_capacity(dtype)
+    assert cap == {F64: 20480, torch.float32: 32768}[dtype]
+    for nb in (1, 2, 3, 17, 1000, cap // 2, cap - 1, cap):
+        assert lk.ladder_plan(nb, dtype).route == "cluster", nb
+    for nb in (cap + 1, cap + 2, 2 * cap, 100000):
+        plan = lk.ladder_plan(nb, dtype)
+        assert plan.route == "global"
+        assert plan.cluster == 1 and plan.smem == 0
+        assert plan.threads == lk.GLOBAL_THREADS
+        assert plan.intervals(nb) == ((0, nb),)
+
+
+def test_ladder_plan_at_the_served_feeders():
+    assert lk.ladder_plan(8, F64).cluster == 1  # vvc_9bus: a cluster of 1
+    assert lk.ladder_plan(10000, F64)[:3] == ("cluster", 8, 1250)
+    assert lk.ladder_plan(10000, torch.float32)[:3] == ("cluster", 5, 2000)
+
+
+@pytest.mark.parametrize("nb", [0, -1, -16384])
+def test_ladder_plan_refuses_no_branches(nb):
+    with pytest.raises(ValueError, match="nb >= 1"):
+        lk.ladder_plan(nb, F64)
+
+
+def test_ladder_plan_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="float64 or float32"):
+        lk.ladder_plan(100, torch.float16)
 
 
 # ---------------------------------------------------------------------------
