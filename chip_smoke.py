@@ -23,7 +23,10 @@ F1), the matrix-free Newton–Krylov solver (J1) and the three-phase CIM
 (I1); the DGI round — FID-gated reachability (R1), group formation and
 election (G1), the draft auction (B1), the state-collection matmul and
 the VVC step (L1/L2) — through ``make_superstep``, ``lb.run_rounds``,
-``gm.form_groups`` and ``topology.node_reachability``.
+``gm.form_groups`` and ``topology.node_reachability``; and the reverse
+modes of the fixed solves — ``torch.autograd`` through ``solve_fixed`` of
+the Newton family (the residual VJP J2 and an adjoint solve at the last
+iterate), FDLF (J2 over the saved half-steps) and the CIM (I2).
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. build: nine ``nvcc`` runs started together compile
@@ -314,7 +317,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    rounds: ms a round by CUDA events split into GM, LB, SC and VVC, G1,
    B1, L1 and L2 launches a round (R1 once, the reachability; these are
    the kernel table's launches of G1, R1 and B1) and the device busy
-   share.
+   share;
+27. reverse modes (``reverse_phase``): (a) J2 ``residual_vjp`` in both
+   modes, with and without status, at case14, case_ieee30, mesh118 and
+   mesh2000 × B ∈ {1, 3, 64}, and I2 ``cim_vjp`` on vvc_9bus with the
+   reference's ``TIE_5_8`` and the CIM feeder × 64, against their plain
+   versions (``KERNEL_ATOL`` of the largest entry above 1), each
+   bit-identical on repeat, J2 against J1 by ⟨w, J u⟩ = ⟨Jᵀ w, u⟩; their
+   times beside the plain versions, the bounds and the library rows (J2 at
+   mesh2000 × 256: ``torch.sparse.mm`` of the transposed S1-assembled
+   Jacobian; I2 at the CIM feeder × 64: the complex ``torch.matmul`` of
+   Aᴴ with the cotangents); (b) the reference's gradient gates on the card
+   against central differences (rtol 1e-4, atol 1e-8): dense Newton,
+   krylov, the CIM, and FDLF at case_ieee30; (c) each ``solve_fixed``
+   gradient at full width — dense ``bench_n1_118``, sparse mesh2000 × 64
+   f64 and mixed, krylov ``bench_nr_2k_krylov_lanes`` (f64), FDLF mesh2000
+   × 16, the CIM feeder × 64: the kernel route within 1e-9 of the plain
+   route, route B within 1e-6 of the unrolled plain gradient on converged
+   lanes (``UNROLLED_LANES`` of the sparse and krylov batches), route A
+   within 1e-9, every entry finite; forward and backward ms, their ratio,
+   the adjoint GMRES cycles, J2/I2 launches a backward and the saving
+   forward's peak memory.
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
@@ -331,7 +354,8 @@ on the served paths; Y1-I1 their other shapes and modes, the float32
 gaps and the path of their launches, F1 the numbers of phase 22; G1, R1
 and B1 their other shapes, device times, G1's and R1's float32 squarings
 as a library composite, their launches in phase 25 (d) and the
-superstep's split); the last line is ``{"ok": true, "device": {...}}``.
+superstep's split; J2 and I2 their backward rows of phase 27 (c)); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -6568,6 +6592,558 @@ def superstep_phase(torch, dk, lk, dev="cuda"):
     return counts, per
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the reverse modes of the fixed solves
+# ---------------------------------------------------------------------------
+
+#: J2's cases and lanes (phase 21's, plus the 64-lane main batch).
+REVERSE_CASES = ("case14", "case_ieee30", "mesh118", "mesh2000")
+REVERSE_LANES = (1, 3, MAIN_LANES)
+#: A Function's kernel route against its plain route on the same card: the
+#: same algorithm, its sums in another order.
+ROUTE_KERNEL_RTOL = 1e-9
+#: Route B (the implicit derivative at the last iterate) against the
+#: unrolled plain gradient on lanes that converged; route A (the iterates
+#: walked back) against the unrolled plain gradient.
+ROUTE_B_RTOL = 1e-6
+ROUTE_A_RTOL = 1e-9
+#: The reference's gates: central differences, rtol 1e-4, atol 1e-8.
+GATE_RTOL = 1e-4
+GATE_ATOL = 1e-8
+#: Timed turns of each full-width gradient (medians printed).
+REVERSE_REPS = 3
+#: Lanes of a sparse or krylov full-width batch whose unrolled plain
+#: gradient is formed: autograd through every plain GMRES cycle keeps each
+#: cycle's basis, which at mesh2000 × 256 would not fit the card.
+UNROLLED_LANES = 8
+
+
+def tie_5_8():
+    """The reference's ``TIE_5_8`` (``tests/test_cim.py:18``): a tie from
+    node 5 to node 8 of vvc_9bus with line code 0's impedance in pu."""
+    from freedm_tpu_torch.grid.cases import Z_CODES_9BUS
+
+    return (5, 8, Z_CODES_9BUS[0] / (1000.0 * 12.47**2 / 1000.0))
+
+
+def compare_reverse_kernels(torch, sol, errs):
+    """J2 in both modes, with and without status, at ``REVERSE_CASES`` ×
+    ``REVERSE_LANES`` and I2 on vvc_9bus (:func:`tie_5_8`) and the CIM feeder ×
+    64 against their plain versions (``KERNEL_ATOL`` of the largest entry
+    above 1), each bit-identical on repeat; J2's MASKED mode also against
+    J1 by ``⟨w, J u⟩ = ⟨Jᵀ w, u⟩``."""
+    from freedm_tpu_torch.grid.cases import vvc_9bus
+    from freedm_tpu_torch.pf.cim import assemble_yabc
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    worst = {"residual_vjp": 0.0, "cim_vjp": 0.0}
+    dot_gap = 0.0
+    for cname in REVERSE_CASES:
+        sys_ = case_system(cname)
+        n, m = sys_.n_bus, sys_.n_branch
+        op = sparse_operands(sys_, device=dev)
+        vop = sol.vjp_operands(op)
+        for lanes in REVERSE_LANES:
+            rng = np.random.default_rng(27 + lanes)
+
+            def t(a):
+                return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+            x = torch.cat([t(rng.normal(0, 0.1, (lanes, n))),
+                           t(rng.uniform(0.95, 1.05, (lanes, n)))], 1)
+            w = t(rng.normal(size=(lanes, 2 * n)))
+            u = t(rng.normal(size=(lanes, 2 * n)))
+            st = t(solver_status(sys_, lanes, 27))
+            for mode in (sol.MASKED, sol.FULL):
+                for s_ in (None, st):
+                    tag = (f"J2 {cname} x{lanes} mode {mode} status "
+                           f"{s_ is not None}")
+                    k = sol.residual_vjp(x, w, op, vop, mode, s_)
+                    again = sol.residual_vjp(x, w, op, vop, mode, s_)
+                    p = sol.residual_vjp_plain(x, w, op, vop, mode, s_)
+                    e = max_err(k, p) / max(1.0, float(p.abs().max()))
+                    check(e <= KERNEL_ATOL, f"{tag}: {e:.3e} from its plain "
+                          f"version")
+                    check(same_bits(torch, k, again),
+                          f"{tag}: not bit-identical on repeat")
+                    worst["residual_vjp"] = max(worst["residual_vjp"], e)
+                    if mode == sol.MASKED:
+                        lhs = w * sol.residual_jvp(x, u, op, s_)
+                        rhs = k * u
+                        gap = float(((lhs.sum(1) - rhs.sum(1)).abs()
+                                     / (lhs.abs().sum(1) + rhs.abs().sum(1)
+                                        )).max())
+                        check(gap <= 1e-12, f"{tag}: <w, J u> - <J^T w, u> "
+                              f"{gap:.3e} relative")
+                        dot_gap = max(dot_gap, gap)
+    f9 = vvc_9bus()
+    for f, ties, label in ((f9, [tie_5_8()], "vvc_9bus+tie"),
+                           (*cim_feeder(), "radial1000+ties")):
+        y, mask_np = assemble_yabc(f, ties)
+        a_inv = np.linalg.inv(y[3:, 3:])
+        mask = mask_np[1:].reshape(-1)
+        big_n = 3 * f.n_branches
+        h = sol.cim_adjoint_matrix(torch.as_tensor(a_inv.real, device=dev),
+                                   torch.as_tensor(a_inv.imag, device=dev))
+        rng = np.random.default_rng(27)
+
+        def lane_c(loc, scale):
+            z = (rng.normal(loc, scale, (CIM_LANES, big_n))
+                 + 1j * rng.normal(0.0, scale, (CIM_LANES, big_n))) * mask
+            return (torch.as_tensor(z.real.copy(), device=dev),
+                    torch.as_tensor(z.imag.copy(), device=dev))
+
+        g, v, s = lane_c(0.0, 1.0), lane_c(1.0, 0.05), lane_c(0.0, 0.3)
+        mk = torch.as_tensor(mask, device=dev)
+        outs = []
+        for fn in (sol.cim_vjp, sol.cim_vjp_plain, sol.cim_vjp):
+            acc = [torch.full_like(v[0], 0.5) for _ in range(4)]
+            outs.append((*fn(*h, *g, *v, *s, mk, *acc), *acc))
+        for k, p, again in zip(*outs):
+            e = max_err(k, p) / max(1.0, float(p.abs().max()))
+            check(e <= KERNEL_ATOL, f"I2 {label} x{CIM_LANES}: {e:.3e} from "
+                  f"its plain version")
+            check(same_bits(torch, k, again),
+                  f"I2 {label}: not bit-identical on repeat")
+            worst["cim_vjp"] = max(worst["cim_vjp"], e)
+    for name, e in worst.items():
+        errs[name] = max(errs[name], e)
+    log(f"reverse kernels: residual_vjp {worst['residual_vjp']:.2e}, cim_vjp "
+        f"{worst['cim_vjp']:.2e} (max abs from the plain versions relative "
+        f"to the largest entry above 1); <w, J1 u> = <J2 w, u> within "
+        f"{dot_gap:.2e}; each bit-identical on repeat "
+        f"({time.monotonic() - t0:.1f} s)")
+
+
+def time_reverse_kernels(torch, sol, rows, extra):
+    """J2 at the krylov lane batch's adjoint (bench_nr_2k_krylov_lanes:
+    mesh2000 × 256, MASKED, its GMRES operator; FULL too) and I2 at the CIM
+    feeder × 64 (phase 27 (c)'s backward), by CUDA events and device time,
+    beside the plain versions, the bounds and the library rows: J2 against
+    ``torch.sparse.mm`` of the transposed S1-assembled Jacobian, I2 against
+    the complex ``torch.matmul`` of Aᴴ with the lanes' cotangents."""
+    from freedm_tpu_torch.kernels import sparse_kernels as sk
+    from freedm_tpu_torch.pf.cim import assemble_yabc
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    sys2k = synthetic_mesh_bench(2000, 1.0)
+    n, m = sys2k.n_bus, sys2k.n_branch
+    lanes = KRYLOV_LANES
+    op = sparse_operands(sys2k, device=dev)
+    vop = sol.vjp_operands(op)
+    rng = np.random.default_rng(5)
+    x = torch.cat([torch.as_tensor(rng.normal(0, 0.1, (lanes, n)),
+                                   device=dev),
+                   torch.as_tensor(rng.uniform(0.95, 1.05, (lanes, n)),
+                                   device=dev)], 1)
+    w = torch.randn_like(x)
+    # Device time by queued CUDA events, as K2's, F1's and I1's: the
+    # profiler's came back at 0.0337 and 0.0764 ms in two runs of one tree.
+    k, k_dev = {}, {}
+    for mode in (sol.MASKED, sol.FULL):
+        fn = (lambda md=mode: sol.residual_vjp(x, w, op, vop, md))
+        k[mode] = time_ms(torch, fn, reps=100)
+        k_dev[mode] = queued_events_ms(torch, fn, 50)
+    p = time_ms(torch, lambda: sol.residual_vjp_plain(x, w, op, vop,
+                                                      sol.MASKED), reps=3)
+    b_j2 = 8 * 3 * lanes * 2 * n + 8 * (6 * 2 * m + 4 * n) \
+        + 4 * (n + 1 + 4 * m)
+    o_j2 = lanes * (2 * m * 80 + n * 30)
+    ps = torch.as_tensor(np.tile(sys2k.p_inj, (lanes, 1)), device=dev)
+    ev, bv, _ = sk.sparse_assemble(x, ps, ps, op)
+    csr_t = sparse_library_matvec(torch, op, ev, bv).to_sparse_coo().t() \
+        .coalesce().to_sparse_csr()
+    wcol = w.reshape(-1, 1)
+    e_lib = rel_abs_err(torch, (csr_t @ wcol).reshape(lanes, 2 * n),
+                        sol.residual_vjp(x, w, op, vop, sol.MASKED))[0]
+    check(e_lib <= 1e-10, f"J2's library row computes another J^T w: {e_lib}")
+    lib = time_ms(torch, lambda: csr_t @ wcol, reps=100)
+    b, by = bound(b_j2, o_j2)
+    rows["residual_vjp"] = (k[sol.MASKED], p, lib, b, by)
+    extra["residual_vjp"] = {
+        "device_ms": k_dev[sol.MASKED], "device_ms_source": "queued events",
+        "shape": "mesh2000 x 256 (bench_nr_2k_krylov_lanes' adjoint), "
+                 "float64, MASKED",
+        "ms_full": k[sol.FULL], "device_ms_full": k_dev[sol.FULL],
+        "library": "torch.sparse.mm of the transposed S1-assembled "
+                   "Jacobian (CSR, assembly and transpose excluded)"}
+    log(f"timing: residual_vjp mesh2000 x{lanes} MASKED kernel "
+        f"{k[sol.MASKED]:.4f} ms (device {k_dev[sol.MASKED]:.4f}, queued "
+        f"events), FULL {k[sol.FULL]:.4f} ms (device "
+        f"{k_dev[sol.FULL]:.4f})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
+        f"library torch.sparse.mm of J^T {lib:.4f} ms")
+    del csr_t, ev, bv
+
+    f, ties = cim_feeder()
+    y, mask_np = assemble_yabc(f, ties)
+    a_inv = np.linalg.inv(y[3:, 3:])
+    big_n = 3 * f.n_branches
+    h = sol.cim_adjoint_matrix(torch.as_tensor(a_inv.real, device=dev),
+                               torch.as_tensor(a_inv.imag, device=dev))
+    mask = mask_np[1:].reshape(-1)
+    s = cim_loads(f, CIM_LANES)
+    sp = -(s.reshape(CIM_LANES, big_n) / f.s_base_per_phase_kva)
+    vb = ((-a_inv @ y[3:, :3]) @ (np.array(
+        [1.0, np.exp(-2j * np.pi / 3), np.exp(2j * np.pi / 3)])
+        * f.v_source_pu)) * mask
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    g = rng.normal(size=(CIM_LANES, big_n)) * mask
+    args = (*h, t(g), t(0.5 * g), t(np.tile(vb.real, (CIM_LANES, 1))),
+            t(np.tile(vb.imag, (CIM_LANES, 1))), t(sp.real), t(sp.imag),
+            t(mask), *(torch.zeros(CIM_LANES, big_n, dtype=torch.float64,
+                                   device=dev) for _ in range(4)))
+    k2 = time_ms(torch, lambda: sol.cim_vjp(*args), reps=20)
+    k2_dev = queued_events_ms(torch, lambda: sol.cim_vjp(*args), 20)
+    p2 = time_ms(torch, lambda: sol.cim_vjp_plain(*args), reps=3)
+    hc = torch.complex(h[0], h[1])
+    gc = torch.complex(args[2], args[3]).T.contiguous()
+    lib2 = time_ms(torch, lambda: torch.matmul(hc, gc), reps=20)
+    b_i2 = 8 * (2 * big_n * big_n + CIM_LANES * big_n * 16 + big_n)
+    o_i2 = 8 * CIM_LANES * big_n * big_n
+    b2, by2 = bound(b_i2, o_i2, tensor=True)
+    rows["cim_vjp"] = (k2, p2, lib2, b2, by2)
+    extra["cim_vjp"] = {
+        "device_ms": k2_dev, "device_ms_source": "queued events",
+        "shape": f"synthetic_radial(1000) + {CIM_TIES} ties x {CIM_LANES}",
+        "library": "complex128 torch.matmul of A^H with the lanes' "
+                   "cotangents alone",
+        "bound_ms_bytes": b_i2 / PEAK_BYTES * 1e3}
+    log(f"timing: cim_vjp radial1000+ties x{CIM_LANES} kernel {k2:.4f} ms "
+        f"(device {k2_dev:.4f}, queued events)  plain {p2:.4f} ms  bound "
+        f"{b2:.4f} ms ({by2})  library complex matmul {lib2:.4f} ms "
+        f"({time.monotonic() - t0:.1f} s timings)")
+
+
+def fd_gate(label, grad, loss, base, points, h):
+    """Central differences of ``loss`` around ``base`` at ``points``
+    against ``grad`` (the reference's gates: ``GATE_RTOL``,
+    ``GATE_ATOL``)."""
+    worst = 0.0
+    for idx in points:
+        e = np.zeros(base.shape)
+        e[idx] = h
+        fd = (loss(base + e) - loss(base - e)) / (2 * h)
+        g = float(grad[idx])
+        gap = abs(g - fd)
+        check(gap <= GATE_ATOL + GATE_RTOL * abs(fd),
+              f"{label} gate at {idx}: gradient {g:.10e}, central "
+              f"difference {fd:.10e}")
+        worst = max(worst, gap / max(abs(fd), 1e-300))
+    return worst
+
+
+def reverse_gates(torch, sol):
+    """The reference's three gradient gates and FDLF's on the card (the
+    kernel routes, ``adjoint`` left to its default): dense Newton
+    ``synthetic_mesh(20, seed=10)`` 8 iterations, total losses, at the
+    gradient's largest coordinate (step 1e-6); the krylov solver on
+    ``synthetic_mesh(120, seed=4, load_mw=2.0, chord_frac=1.0)``, 6
+    iterations, inner 16, slack P at 3, 47 and 101 (step 1e-5); the CIM on
+    vvc_9bus with ``TIE_5_8``, 80 iterations, the voltage-profile loss at
+    (1, 0), (4, 2), (7, 1) (step 1e-3); FDLF on case_ieee30, 30
+    iterations, slack P at 5, 11 and 20 (step 1e-5)."""
+    from freedm_tpu_torch.cplx import C
+    from freedm_tpu_torch.grid.cases import synthetic_mesh, vvc_9bus
+    from freedm_tpu_torch.pf.cim import make_cim_solver
+    from freedm_tpu_torch.pf.fdlf import make_fdlf_solver
+    from freedm_tpu_torch.pf.krylov import make_krylov_solver
+    from freedm_tpu_torch.pf.newton import branch_flows, make_newton_solver
+
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    out = {}
+
+    def grad_of(loss, a):
+        t = torch.as_tensor(a, device=dev).clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(loss(t), t)
+        return g.cpu().numpy()
+
+    sys_ = synthetic_mesh(20, seed=10)
+    _, fixed = make_newton_solver(sys_, max_iter=8, device=dev)
+
+    def losses(q):
+        s_f, s_t = branch_flows(sys_, fixed(q_inj=q))
+        return (s_f[0] + s_t[0]).sum()
+
+    q0 = sys_.q_inj[None].copy()
+    g = grad_of(losses, q0)
+    i = int(np.argmax(np.abs(g)))
+    out["dense"] = fd_gate("dense", g, lambda q: float(losses(q)), q0,
+                           [(0, i)], 1e-6)
+
+    s120 = synthetic_mesh(120, seed=4, load_mw=2.0, chord_frac=1.0)
+    _, fixed = make_krylov_solver(s120, max_iter=6, inner_iters=16,
+                                  precision="f64", device=dev)
+
+    def slack_p(q):
+        return fixed(q_inj=q).p[0, s120.slack]
+
+    q0 = s120.q_inj[None].copy()
+    out["krylov"] = fd_gate("krylov", grad_of(slack_p, q0),
+                            lambda q: float(slack_p(q)), q0,
+                            [(0, 3), (0, 47), (0, 101)], 1e-5)
+
+    f9 = vvc_9bus()
+    _, fixed = make_cim_solver(f9, ties=[tie_5_8()], max_iter=80,
+                               device=dev)
+    p0 = torch.as_tensor(f9.s_load.real, device=dev)
+
+    def profile_loss(q):
+        v = fixed(C(p0, torch.as_tensor(q, device=dev))).v_node
+        return (((v.re ** 2 + v.im ** 2)[1:] - 1.0) ** 2).sum()
+
+    q0 = f9.s_load.imag.copy()
+    out["cim"] = fd_gate("cim", grad_of(profile_loss, q0),
+                         lambda q: float(profile_loss(q)), q0,
+                         [(1, 0), (4, 2), (7, 1)], 1e-3)
+
+    s30 = case_system("case_ieee30")
+    _, fixed = make_fdlf_solver(s30, max_iter=30, device=dev)
+
+    def slack30(q):
+        return fixed(q_inj=q).p[0, s30.slack]
+
+    q0 = s30.q_inj[None].copy()
+    g = grad_of(slack30, q0)
+    out["fdlf"] = fd_gate("fdlf", g, lambda q: float(slack30(q)), q0,
+                          [(0, 5), (0, 11), (0, 20)], 1e-5)
+    log(f"reverse gates: dense, krylov, cim, fdlf gradients on the card "
+        f"against central differences (rtol {GATE_RTOL}, atol {GATE_ATOL}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in out.items())
+        + f" worst relative gap; fdlf d(slack P)/d(q_inj[5]) {g[0, 5]:.10f} "
+          f"({time.monotonic() - t0:.1f} s)")
+
+
+def _gradient(torch, fn, args):
+    ts = [a.clone().requires_grad_(True) for a in args]
+    return torch.autograd.grad(fn(*ts), ts)
+
+
+def _rel_gap(torch, got, want, rows=None):
+    gap = 0.0
+    for g, w in zip(got, want):
+        if rows is not None:
+            g, w = g[rows], w[rows]
+        scale = float(w.abs().max())
+        gap = max(gap, float((g - w).abs().max()) / max(scale, 1e-300))
+    return gap
+
+
+def reverse_full_width(torch, sol):
+    """(c): each solver's ``solve_fixed`` gradient at the reference bench's
+    shapes — dense ``bench_n1_118``, sparse mesh2000 × 64 f64 and mixed,
+    krylov ``bench_nr_2k_krylov_lanes`` (f64), FDLF mesh2000 × 16 and the
+    CIM feeder × 64 — the kernel route against the plain route (rtol
+    ``ROUTE_KERNEL_RTOL``) and against the unrolled plain gradient (route B
+    on converged lanes, ``ROUTE_B_RTOL``, on ``UNROLLED_LANES`` lanes of the
+    sparse and krylov batches; route A ``ROUTE_A_RTOL``), every entry
+    finite; forward and backward ms by CUDA events, their ratio, the
+    adjoint GMRES cycles, J2 and I2 launches a backward and the peak memory
+    of the forward that saves (medians of ``REVERSE_REPS`` turns after a
+    warm forward and backward).  Returns each kernel's launches over its
+    main path's backward."""
+    from freedm_tpu_torch.cplx import C
+    from freedm_tpu_torch.pf import adjoint as adj
+    from freedm_tpu_torch.pf.cim import make_cim_solver
+    from freedm_tpu_torch.pf.fdlf import make_fdlf_solver
+    from freedm_tpu_torch.pf.krylov import (build_fdlf_precond,
+                                            make_krylov_solver)
+    from freedm_tpu_torch.pf.newton import make_newton_solver
+    from freedm_tpu_torch.pf.sparse import make_sparse_newton_solver
+
+    dev = torch.device("cuda")
+    t_phase = time.monotonic()
+    counts, rows = {}, {}
+
+    def events_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    def run(label, make, loss, args, kernel, route_rtol, lane_rows=None,
+            converged=None, gmres=False):
+        t0 = time.monotonic()
+        # The Function's kernel route (the default on the card; named here
+        # so that a CPU rehearsal takes it too).
+        fixed = make(plain=False, adjoint=True)
+        _gradient(torch, lambda *t: loss(fixed, *t), args)  # warm
+        fwd, fwd_g, bwd = [], [], []
+        for _ in range(REVERSE_REPS):
+            with torch.no_grad():
+                fwd.append(events_ms(lambda: loss(fixed, *args))[1])
+            ts = [a.clone().requires_grad_(True) for a in args]
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            val, ms = events_ms(lambda: loss(fixed, *ts))
+            fwd_g.append(ms)
+            peak = torch.cuda.max_memory_allocated() - base_mem
+            sol.reset_launches()
+            got, ms = events_ms(lambda: torch.autograd.grad(val, ts))
+            launched = sol.launches()
+            bwd.append(ms)
+        fwd_ms, fwd_g_ms, bwd_ms = (float(np.median(t))
+                                    for t in (fwd, fwd_g, bwd))
+        check(launched[kernel] > 0,
+              f"{label}: {kernel} launched {launched[kernel]} times")
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{label}: a non-finite gradient entry")
+        cycles = dict(adj.ADJOINT_STATS)
+        want = _gradient(torch, lambda *t: loss(
+            make(plain=True, adjoint=True), *t), args)
+        gap_route = _rel_gap(torch, got, want)
+        check(gap_route <= ROUTE_KERNEL_RTOL,
+              f"{label}: kernel route {gap_route:.3e} from the plain route")
+        sub = args if lane_rows is None else [a[lane_rows] for a in args]
+        unrolled = _gradient(torch, lambda *t: loss(
+            make(plain=True, adjoint=False), *t), sub)
+        mine = got if lane_rows is None else [g[lane_rows] for g in got]
+        keep = None if converged is None else converged(sub)
+        gap_unrolled = _rel_gap(torch, mine, unrolled, keep)
+        check(gap_unrolled <= route_rtol,
+              f"{label}: {gap_unrolled:.3e} from the unrolled plain gradient")
+        counts[label] = launched[kernel]
+        rows[label] = dict(fwd_ms=fwd_ms, fwd_save_ms=fwd_g_ms,
+                           bwd_ms=bwd_ms, ratio=bwd_ms / fwd_ms,
+                           launches=launched[kernel], peak_bytes=peak)
+        extra = ""
+        if gmres:
+            rows[label].update(adjoint_cycles=cycles["cycles"],
+                               adjoint_residual=cycles["residual"])
+            extra = (f", adjoint GMRES {cycles['cycles']} cycles (residual "
+                     f"{cycles['residual']:.1e})")
+        log(f"reverse (c) {label}: forward {fwd_ms:.2f} ms (saving "
+            f"{fwd_g_ms:.2f} ms, peak {peak / 2**20:.1f} MiB above the "
+            f"inputs), backward {bwd_ms:.2f} ms, backward/forward "
+            f"{bwd_ms / fwd_ms:.2f}; {kernel} {launched[kernel]} launches a "
+            f"backward{extra}; kernel route {gap_route:.2e} from the plain "
+            f"route, {gap_unrolled:.2e} from the unrolled plain gradient"
+            + ("" if lane_rows is None else f" ({len(lane_rows)} lanes)")
+            + f" ({time.monotonic() - t0:.1f} s)")
+
+    def newton_loss(fixed, p, q):
+        r = fixed(p_inj=p, q_inj=q)
+        return ((r.v ** 2).sum() + r.p[:, 0].sum() + (r.q ** 2).sum()
+                + torch.sin(r.theta).sum())
+
+    def pq(sys_, lanes, seed):
+        scale = np.random.default_rng(seed).uniform(0.9, 1.1, (lanes, 1))
+        return (torch.as_tensor(scale * sys_.p_inj[None], device=dev),
+                torch.as_tensor(scale * sys_.q_inj[None], device=dev))
+
+    # Dense: bench_n1_118, mesh118 x 118 outage lanes with per-lane status.
+    sys118 = case_system("mesh118")
+    st118 = n1_118_status(sys118)
+
+    def make_dense(plain, adjoint):
+        fixed = make_newton_solver(sys118, max_iter=6, device=dev,
+                                   plain=plain, adjoint=adjoint)[1]
+        return lambda **kw: fixed(status=st118, **kw)
+
+    p, q = pq(sys118, N1_118_LANES, 1)
+    with torch.no_grad():
+        conv = make_dense(False, False)(p_inj=p, q_inj=q).converged
+    run("dense bench_n1_118", make_dense, newton_loss, (p, q),
+        "residual_vjp", ROUTE_B_RTOL, converged=lambda sub: conv)
+
+    # Sparse: mesh2000 x 64, f64 and mixed.
+    sys2k = synthetic_mesh_bench(2000, 1.0)
+    pc = build_fdlf_precond(sys2k, device=dev)
+    sub = list(range(0, MAIN_LANES, MAIN_LANES // UNROLLED_LANES))
+    p, q = pq(sys2k, MAIN_LANES, 2)
+    for prec in ("f64", "mixed"):
+        def make_sparse(plain, adjoint, prec=prec):
+            return make_sparse_newton_solver(
+                sys2k, precision=prec, precond=pc, device=dev, plain=plain,
+                adjoint=adjoint)[1]
+
+        with torch.no_grad():
+            conv = make_sparse(False, False)(p_inj=p, q_inj=q).converged
+        check(bool(conv.all()), f"sparse {prec}: a lane did not converge")
+        run(f"sparse mesh2000 x{MAIN_LANES} {prec}", make_sparse,
+            newton_loss, (p, q), "residual_vjp", ROUTE_B_RTOL,
+            lane_rows=sub, gmres=True)
+
+    # Krylov: bench_nr_2k_krylov_lanes, mesh2000 x 256, f64.
+    p, q = pq(sys2k, KRYLOV_LANES, 0)
+    sub = list(range(0, KRYLOV_LANES, KRYLOV_LANES // UNROLLED_LANES))
+
+    def make_krylov(plain, adjoint):
+        return make_krylov_solver(sys2k, max_iter=8, inner_iters=16,
+                                  precision="f64", precond=pc, device=dev,
+                                  plain=plain, adjoint=adjoint)[1]
+
+    with torch.no_grad():
+        conv = make_krylov(False, False)(p_inj=p, q_inj=q).converged
+    check(bool(conv.all()), "krylov: a lane did not converge")
+    run(f"krylov bench_nr_2k_krylov_lanes x{KRYLOV_LANES} f64", make_krylov,
+        newton_loss, (p, q), "residual_vjp", ROUTE_B_RTOL, lane_rows=sub,
+        gmres=True)
+
+    # FDLF: mesh2000 x 16, one Ybus (F1's tile mode), 30 iterations.
+    p, q = pq(sys2k, 16, 3)
+
+    def make_fdlf(plain, adjoint):
+        return make_fdlf_solver(sys2k, max_iter=30, device=dev, plain=plain,
+                                adjoint=adjoint)[1]
+
+    run("fdlf mesh2000 x16", make_fdlf, newton_loss, (p, q), "residual_vjp",
+        ROUTE_A_RTOL)
+
+    # The CIM feeder x 64, 60 iterations.
+    f, ties = cim_feeder()
+    s = cim_loads(f, CIM_LANES)
+
+    def make_cim(plain, adjoint):
+        return make_cim_solver(f, ties=ties, max_iter=60, device=dev,
+                               plain=plain, adjoint=adjoint)[1]
+
+    def cim_loss(fixed, p, q, vs):
+        v = fixed(C(p, q), vs).v_node
+        return ((v.re ** 2 + v.im ** 2 - 1.0) ** 2).sum()
+
+    run(f"cim radial1000+ties x{CIM_LANES}", make_cim, cim_loss,
+        (torch.as_tensor(s.real, device=dev),
+         torch.as_tensor(s.imag, device=dev),
+         torch.full((CIM_LANES,), 1.02, dtype=torch.float64, device=dev)),
+        "cim_vjp", ROUTE_A_RTOL)
+    torch.cuda.empty_cache()
+    log(f"reverse: phase 27 (c) {time.monotonic() - t_phase:.1f} s")
+    return counts, rows
+
+
+def reverse_phase(torch, sol, errs, rows, extra):
+    """Phase 27: the kernels against their plain versions, their times,
+    the gates and the full-width gradients; returns J2's and I2's launches
+    over their main paths' backward."""
+    t27 = time.monotonic()
+    compare_reverse_kernels(torch, sol, errs)
+    time_reverse_kernels(torch, sol, rows, extra)
+    reverse_gates(torch, sol)
+    counts, full = reverse_full_width(torch, sol)
+    krylov = f"krylov bench_nr_2k_krylov_lanes x{KRYLOV_LANES} f64"
+    cim = f"cim radial1000+ties x{CIM_LANES}"
+    extra["residual_vjp"].update(
+        launches_path=f"reverse phase (c): the {krylov} backward",
+        backward=full)
+    extra["cim_vjp"].update(launches_path=f"reverse phase (c): the {cim} "
+                            "backward", backward=full[cim])
+    log(f"reverse: phase 27 {time.monotonic() - t27:.1f} s")
+    return {"residual_vjp": counts[krylov], "cim_vjp": counts[cim]}
+
+
 def main() -> int:
     import torch
 
@@ -6713,6 +7289,7 @@ def main() -> int:
             extra[name]["launches_dgi_d"] = d_counts[name]
         extra["form_groups"]["superstep_ms_a_round"] = split
         log(f"dgi: phases 24-26 {time.monotonic() - t24:.1f} s")
+        counts.update(reverse_phase(torch, sol, errs, rows, extra))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -6760,6 +7337,10 @@ def main() -> int:
                          "freedm_tpu/pf/krylov.py:594"),
         "cim_iterate": ("cuda", source + "csrc/solvers.cu",
                         "freedm_tpu/pf/cim.py:163"),
+        "residual_vjp": ("cuda", source + "csrc/solvers.cu",
+                         "freedm_tpu/pf/newton.py:341"),
+        "cim_vjp": ("cuda", source + "csrc/solvers.cu",
+                    "freedm_tpu/pf/cim.py:163"),
         "form_groups": ("cuda", source + "csrc/dgi.cu",
                         "freedm_tpu/modules/gm.py:78"),
         "reach_closure": ("cuda", source + "csrc/dgi.cu",

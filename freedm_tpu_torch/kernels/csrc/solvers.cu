@@ -1,6 +1,7 @@
 // Power-flow solver kernels for Hopper (sm_90a): the per-lane Ybus stamp,
 // the fast-decoupled half-step, the residual JVP of the matrix-free Newton
-// solver and the three-phase current-injection iteration.
+// solver, the three-phase current-injection iteration, and the reverse
+// modes of the residual (J2) and of the current-injection iteration (I2).
 //
 // Y1 ybus_stamp — replaces freedm_tpu/grid/bus.py:130-158 `ybus_dense(sys,
 //   status)` under vmap (a [B, n, n] stamp per outage lane), and the lane
@@ -79,6 +80,39 @@
 //   H100 at N = 3000, B = 64).  Bound: 8 N^2 B operations at the
 //   tensor-core rate (4.6 GFLOP, ~69 us at nb = 1000, B = 64) above one
 //   read of A, 16 N^2 bytes (144 MB, ~43 us).
+//
+// J2 residual_vjp — replaces the reverse mode of the residual and of the
+//   injections that jax.grad takes through the fixed solves:
+//   freedm_tpu/pf/newton.py:341-352 (the `lax.scan` of `_newton_step` and
+//   `build_result`'s s_calc), pf/krylov.py:594 and pf/fdlf.py:207.  w^T dF/dx
+//   for x = theta || V, w [B, 2n]: MASKED, the transpose of J1's masked
+//   residual Jacobian (pinned rows pass w through); FULL, the injections
+//   (P, Q) of every bus.  With omega = w_P + j w_Q (masked to the free rows
+//   in MASKED mode), each incidence entry of bus k (neighbour j) adds to the
+//   gradient in Vc_k
+//     conj(omega_k y_self) Vc_k + omega_k I + conj(omega_j y_mut') Vc_j,
+//   I = y_self Vc_k + y_mut Vc_j the branch current at k's end and y_mut'
+//   the other end's mutual admittance (solver_kernels.VjpOperands); then
+//   theta_bar = V (G_im cos - G_re sin), V_bar = G_re cos + G_im sin +
+//   2 V (omega_P g_sh - omega_Q b_sh).  Design: J1's, one thread per (lane,
+//   bus) walking its incidence list in CSR order, recomputing each branch's
+//   current at its own end; one accumulator, no scratch, no atomics.  Bound:
+//   the bytes of x, w, status and the output (~24.6 MB at mesh2000 x 256
+//   without status).
+//
+// I2 cim_vjp — replaces the reverse mode of one freedm_tpu/pf/cim.py:163
+//   `_iterate` (with `_matvec` :157) under jax.grad of `_solve_fixed`
+//   (:215): for the masked cotangent g of v' = mask (v_base + A conj(s/v)),
+//   the product p = A^H g on row_product.cuh's tiled form (A^H staged once
+//   a solver, solver_kernels.cim_adjoint_matrix: the real pair's transpose of
+//   A's product), and an epilogue (`CimVjpEpilogue`) that applies each
+//   entry's 2 x 2 real derivative of conj(s/v): with q = conj(p) on live
+//   node-phases, sbar += conj(1/v) q (the load cotangent, accumulated over
+//   the iterations), g_v = mask conj(-s/v^2) q (0 on dead phases), written
+//   beside g and added to vbbar (v_base's cotangent).  Each (lane, row) is
+//   one thread's: the split-K order of the shared product, no atomics.
+//   Bound: I1's, 8 N^2 B operations at the tensor-core rate above one read of
+//   A^H (16 N^2 bytes).
 //
 // Every sum runs in a fixed order and no kernel uses a float atomic, so
 // each is bit-identical on repeat.  Simple and right first.
@@ -581,6 +615,110 @@ struct CimEpilogue {
 };
 
 // ---------------------------------------------------------------------------
+// J2
+// ---------------------------------------------------------------------------
+
+constexpr int MASKED = 0, FULL = 1;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) vjp_kernel(
+    int mode, const T* __restrict__ x, const T* __restrict__ w,
+    const int* __restrict__ inc_ptr, const int* __restrict__ inc_code,
+    const int* __restrict__ inc_nbr, const T* __restrict__ inc_g,
+    const T* __restrict__ inc_b, const T* __restrict__ inc_gs,
+    const T* __restrict__ inc_bs, const T* __restrict__ inc_gt,
+    const T* __restrict__ inc_bt, const T* __restrict__ g_sh,
+    const T* __restrict__ b_sh, const T* __restrict__ th_free,
+    const T* __restrict__ v_free, const T* __restrict__ status,
+    T* __restrict__ out, int lanes, int n, int m) {
+  const int64_t k = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (k >= (int64_t)lanes * n) return;
+  const int64_t b = k / n;
+  const int i = (int)(k - b * n);
+  const T* xb = x + b * 2 * n;
+  const T* wb = w + b * 2 * n;
+  const T* st = status != nullptr ? status + b * m : nullptr;
+  const bool full = mode == FULL;
+  const T th = xb[i], v = xb[n + i], wp = wb[i], wq = wb[n + i];
+  const bool tf = th_free[i] > T(0), vf = v_free[i] > T(0);
+  const T okr = (full || tf) ? wp : T(0), oki = (full || vf) ? wq : T(0);
+  T s, c;
+  sincos_(th, &s, &c);
+  const T kr = v * c, ki = v * s;
+  T gr = T(0), gi = T(0);
+  const int r1 = inc_ptr[i + 1];
+  for (int r = inc_ptr[i]; r < r1; ++r) {
+    const int code = inc_code[r], j = inc_nbr[r];
+    const T on = st != nullptr ? st[code >> 1] : T(1);
+    const T ysr = inc_gs[r] * on, ysi = inc_bs[r] * on;
+    const T ymr = inc_g[r] * on, ymi = inc_b[r] * on;
+    const T ytr = inc_gt[r] * on, yti = inc_bt[r] * on;
+    const T thj = xb[j], vj = xb[n + j];
+    const T ojr = (full || th_free[j] > T(0)) ? wb[j] : T(0);
+    const T oji = (full || v_free[j] > T(0)) ? wb[n + j] : T(0);
+    T sj, cj;
+    sincos_(thj, &sj, &cj);
+    const T jr = vj * cj, ji = vj * sj;
+    const T ir = (ysr * kr - ysi * ki) + (ymr * jr - ymi * ji);
+    const T ii = (ysr * ki + ysi * kr) + (ymr * ji + ymi * jr);
+    const T ar = okr * ysr - oki * ysi, ai = okr * ysi + oki * ysr;
+    const T br = ojr * ytr - oji * yti, bi = ojr * yti + oji * ytr;
+    gr += ((ar * kr + ai * ki) + (okr * ir - oki * ii)) + (br * jr + bi * ji);
+    gi += ((ar * ki - ai * kr) + (okr * ii + oki * ir)) + (br * ji - bi * jr);
+  }
+  T dth = v * (gi * c - gr * s);
+  T dv = (gr * c + gi * s) + T(2) * v * (okr * g_sh[i] - oki * b_sh[i]);
+  if (!full) {  // pinned rows: theta_ref and V - V_set
+    if (!tf) dth = dth + wp;
+    if (!vf) dv = dv + wq;
+  }
+  T* ob = out + b * 2 * n;
+  ob[i] = dth;
+  ob[n + i] = dv;
+}
+
+// ---------------------------------------------------------------------------
+// I2
+// ---------------------------------------------------------------------------
+
+// I2's epilogue, handed each (lane, row)'s p = (A^H g) by the tiled
+// product: the load cotangent sbar += conj(1/v) conj(p), and v's masked
+// cotangent mask conj(-s/v^2) conj(p) into o (and onto vbbar); dead
+// node-phases (v = 0) get 0.
+template <typename T>
+struct CimVjpEpilogue {
+  const T *v_re, *v_im, *s_re, *s_im, *mask;
+  T *sbar_re, *sbar_im, *vbbar_re, *vbbar_im, *o_re, *o_im;
+  int N;
+  __device__ __forceinline__ T operator()(int64_t b, int i, T pre,
+                                          T pim) const {
+    const int64_t k = b * N + i;
+    const T vr = __ldg(v_re + k), vi = __ldg(v_im + k);
+    const T d = vr * vr + vi * vi;
+    if (!(d > T(0))) {  // a dead node-phase: no load current, no term
+      o_re[k] = T(0);
+      o_im[k] = T(0);
+      return T(0);
+    }
+    const T qr = pre, qi = -pim;
+    const T dsr = (vr * qr - vi * qi) / d, dsi = (vr * qi + vi * qr) / d;
+    const T sr = __ldg(s_re + k), si = __ldg(s_im + k);
+    const T ur = (sr * vr + si * vi) / d, ui = (si * vr - sr * vi) / d;
+    const T cr = -(ur * vr + ui * vi) / d, ci = -(ur * vi - ui * vr) / d;
+    const T mk = __ldg(mask + i);
+    const T gr = (cr * qr - ci * qi) * mk, gi = (cr * qi + ci * qr) * mk;
+    sbar_re[k] = sbar_re[k] + dsr;
+    sbar_im[k] = sbar_im[k] + dsi;
+    vbbar_re[k] = vbbar_re[k] + gr;
+    vbbar_im[k] = vbbar_im[k] + gi;
+    o_re[k] = gr;
+    o_im[k] = gi;
+    return T(0);
+  }
+  __device__ __forceinline__ void lane_tile(int64_t, int, T, bool) const {}
+};
+
+// ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
 
@@ -699,6 +837,39 @@ int launch_cim(const T* a_re, const T* a_im, const T* v_re, const T* v_im,
                           tol, max_iter, fixed, lanes, stream);
 }
 
+template <typename T>
+int launch_vjp(int mode, const T* x, const T* w, const int* inc_ptr,
+               const int* inc_code, const int* inc_nbr, const T* inc_g,
+               const T* inc_b, const T* inc_gs, const T* inc_bs,
+               const T* inc_gt, const T* inc_bt, const T* g_sh,
+               const T* b_sh, const T* th_free, const T* v_free,
+               const T* status, T* out, int lanes, int n, int m,
+               cudaStream_t stream) {
+  if (lanes <= 0 || n <= 0 || m < 0 || (mode != MASKED && mode != FULL))
+    return (int)cudaErrorInvalidValue;
+  const int64_t total = (int64_t)lanes * n;
+  vjp_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
+                  stream>>>(mode, x, w, inc_ptr, inc_code, inc_nbr, inc_g,
+                            inc_b, inc_gs, inc_bs, inc_gt, inc_bt, g_sh, b_sh,
+                            th_free, v_free, status, out, lanes, n, m);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cim_vjp(const T* h_re, const T* h_im, const T* g_re,
+                   const T* g_im, const T* v_re, const T* v_im,
+                   const T* s_re, const T* s_im, const T* mask, T* sbar_re,
+                   T* sbar_im, T* vbbar_re, T* vbbar_im, T* part, T* o_re,
+                   T* o_im, int lanes, int N, int splits,
+                   cudaStream_t stream) {
+  if (lanes <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const CimVjpEpilogue<T> epi{v_re,     v_im,    s_re,     s_im,
+                              mask,     sbar_re, sbar_im,  vbbar_re,
+                              vbbar_im, o_re,    o_im,     N};
+  return row_product::launch_tiled<T>(h_re, h_im, g_re, g_im, part, lanes, N,
+                                      splits, epi, stream);
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  Every pointer is a device pointer to a
@@ -710,8 +881,12 @@ int launch_cim(const T* a_re, const T* a_im, const T* v_re, const T* v_im,
 // `part`, `vr` or `vm`; its `rowerr` is the [lanes, ctas] CTA maxima, its
 // `ticket` [lanes, 2] int32 zeros and `rows` from solver_kernels.
 // fdlf_warp_plan), `part` is the product's [splits, 2, lanes, n] scratch; I1's
-// `j_re`/`j_im` are its [lanes, N] injection scratch.  Returns the
-// cudaError_t of the launches.
+// `j_re`/`j_im` are its [lanes, N] injection scratch.  J2 takes J1's
+// operands plus `inc_gt`/`inc_bt`, the other end's mutual admittance of each
+// incidence entry; I2 the staged A^H (`h_re`/`h_im` [N, N]), its product
+// scratch `part` like I1's, `sbar`/`vbbar` [lanes, N] added to in place and
+// `o_re`/`o_im` [lanes, N] written.  Returns the cudaError_t of the
+// launches.
 #define SOLVER_ENTRY_POINTS(T, SUFFIX)                                         \
   extern "C" int ybus_stamp_##SUFFIX(                                         \
       int mode, const int* inc_ptr, const int* inc_code, const int* inc_nbr,  \
@@ -754,6 +929,29 @@ int launch_cim(const T* a_re, const T* a_im, const T* v_re, const T* v_im,
                          mask, j_re, j_im, part, o_re, o_im, rowerr, err,    \
                          it, active, tol, max_iter, fixed, lanes, N, splits, \
                          (cudaStream_t)stream);                              \
+  }                                                                          \
+  extern "C" int residual_vjp_##SUFFIX(                                       \
+      int mode, const T* x, const T* w, const int* inc_ptr,                   \
+      const int* inc_code, const int* inc_nbr, const T* inc_g,                \
+      const T* inc_b, const T* inc_gs, const T* inc_bs, const T* inc_gt,      \
+      const T* inc_bt, const T* g_sh, const T* b_sh, const T* th_free,        \
+      const T* v_free, const T* status, T* out, int lanes, int n, int m,      \
+      void* stream) {                                                        \
+    return launch_vjp<T>(mode, x, w, inc_ptr, inc_code, inc_nbr, inc_g,      \
+                         inc_b, inc_gs, inc_bs, inc_gt, inc_bt, g_sh, b_sh,  \
+                         th_free, v_free, status, out, lanes, n, m,          \
+                         (cudaStream_t)stream);                              \
+  }                                                                          \
+  extern "C" int cim_vjp_##SUFFIX(                                            \
+      const T* h_re, const T* h_im, const T* g_re, const T* g_im,             \
+      const T* v_re, const T* v_im, const T* s_re, const T* s_im,             \
+      const T* mask, T* sbar_re, T* sbar_im, T* vbbar_re, T* vbbar_im,        \
+      T* part, T* o_re, T* o_im, int lanes, int N, int splits,                \
+      void* stream) {                                                        \
+    return launch_cim_vjp<T>(h_re, h_im, g_re, g_im, v_re, v_im, s_re, s_im, \
+                             mask, sbar_re, sbar_im, vbbar_re, vbbar_im,     \
+                             part, o_re, o_im, lanes, N, splits,             \
+                             (cudaStream_t)stream);                          \
   }
 
 SOLVER_ENTRY_POINTS(double, f64)

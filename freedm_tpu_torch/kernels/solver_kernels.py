@@ -17,9 +17,16 @@ wrapper                     replaces                                       route
 :func:`cim_iterate`         ``freedm_tpu/pf/cim.py`` ``_matvec`` and       CUDA
                             ``_iterate`` (:157-170) with the loop's
                             ``max |v_new − v|`` (:195-240)
+:func:`residual_vjp`        the reverse mode of the residual and the       CUDA
+                            injections under ``jax.grad`` of the fixed
+                            solves (``pf/newton.py:341-352``,
+                            ``pf/krylov.py:594``, ``pf/fdlf.py:207``)
+:func:`cim_vjp`             the reverse mode of one ``_iterate``           CUDA
+                            (``freedm_tpu/pf/cim.py:163``) under
+                            ``jax.grad`` of ``_solve_fixed`` (:215)
 ==========================  =============================================  =====
 
-All four live in ``csrc/solvers.cu`` (float64 and float32).  As in the
+All six live in ``csrc/solvers.cu`` (float64 and float32).  As in the
 other kernel modules, a wrapper given CPU tensors runs its plain PyTorch
 version; given CUDA tensors it launches its kernel or raises.  Each
 launch counts in :data:`LAUNCHES` (Y1 and F1 also by mode).
@@ -32,7 +39,9 @@ n]``.  J1 takes the sparse backend's
 :class:`~freedm_tpu_torch.kernels.sparse_kernels.SparseOperands` (the
 incidence list with each entry's mutual and self admittance) and returns
 ``[B, 2n]``.  I1 works on the three-phase load-node voltages as (re, im)
-pairs of ``[B, N]`` tensors, ``N = 3 nb``.
+pairs of ``[B, N]`` tensors, ``N = 3 nb``.  J2 is J1's transpose on the
+same operands plus :class:`VjpOperands`; I2 walks one I1 iteration back
+on the staged ``Aᴴ`` (:func:`cim_adjoint_matrix`).
 """
 
 from __future__ import annotations
@@ -60,6 +69,8 @@ LAUNCHES: Dict[str, int] = {
     "fdlf_half_step": 0,
     "residual_jvp": 0,
     "cim_iterate": 0,
+    "residual_vjp": 0,
+    "cim_vjp": 0,
 }
 
 #: Y1's modes: Ybus ``(re, im)``; B′ (1/x scaled by status, pinned by
@@ -67,6 +78,9 @@ LAUNCHES: Dict[str, int] = {
 YBUS, BPRIME, BDBL = 0, 1, 2
 #: F1's modes: the start point's mismatch; the θ half; the V half.
 INIT, THETA, VHALF = 0, 1, 2
+#: J2's modes: the transpose of the masked residual's Jacobian (J1's;
+#: pinned rows pass through), and the injections' VJP over every row.
+MASKED, FULL = 0, 1
 #: F1 takes K2's tiled product (``csrc/row_product.cuh``) for one Ybus of
 #: every lane from this many lanes; below, a 64-lane tile would idle and a
 #: warp a (lane, row) reads Ybus once a lane.
@@ -84,8 +98,10 @@ FDLF_MAX_ROWS, FDLF_WARP_SMEM = build.constants("solvers.cu", "kF1MaxRows",
 FDLF_WARP_MAX_N = {torch.float64: FDLF_WARP_SMEM // 16,
                    torch.float32: FDLF_WARP_SMEM // 8}
 _MODES = {"ybus_stamp": ("YBUS", "BPRIME", "BDBL"),
-          "fdlf_half_step": ("INIT", "THETA", "V")}
-#: Y1's and F1's launches by mode (their sums are in :data:`LAUNCHES`).
+          "fdlf_half_step": ("INIT", "THETA", "V"),
+          "residual_vjp": ("MASKED", "FULL")}
+#: Y1's, F1's and J2's launches by mode (their sums are in
+#: :data:`LAUNCHES`).
 MODE_LAUNCHES: Dict[str, Dict[str, int]] = {
     k: dict.fromkeys(v, 0) for k, v in _MODES.items()}
 _launch_lock = threading.Lock()
@@ -148,6 +164,27 @@ class StampOperands(NamedTuple):
     @property
     def m(self) -> int:
         return int(self.f.shape[0])
+
+
+class VjpOperands(NamedTuple):
+    """What J2 needs beside :class:`SparseOperands`: per incidence-list
+    entry the mutual admittance of the same branch's other end (the
+    entry's transpose in J), ``inc_gt``/``inc_bt [2m]``, and the list
+    position of that other end, ``inc_pair [2m]`` (int64)."""
+
+    inc_gt: Tensor
+    inc_bt: Tensor
+    inc_pair: Tensor
+
+
+def vjp_operands(op: SparseOperands) -> VjpOperands:
+    """J2's :class:`VjpOperands` for ``op`` (same device and dtype)."""
+    code = op.inc_code.long()
+    pos = torch.empty_like(code)
+    pos[code] = torch.arange(code.numel(), device=code.device)
+    pair = pos[code ^ 1]
+    return VjpOperands(op.inc_g[pair].contiguous(),
+                       op.inc_b[pair].contiguous(), pair)
 
 
 class FdlfWarpPlan(NamedTuple):
@@ -237,15 +274,22 @@ def fdlf_half_step_plain(mode: int, x, d, y_re, y_im, ps, qs, th_free,
                          v_free, dp, dq, err, it, active, tol: Tensor,
                          max_iter: int, fixed: bool) -> None:
     """F1's plain version (in place on ``x``, ``dp``, ``dq`` and the lane
-    carry; the module docstring's modes)."""
+    carry; the module docstring's modes).  The half's state is formed out
+    of place and copied into ``x``, so that ``torch.autograd`` records the
+    iteration: the injections save the new state, which no later half
+    writes."""
     _check_fdlf_mode(mode)
     n = dp.shape[1]
     live = active[:, None]
-    if mode == THETA:
-        x[:, :n] = torch.where(live, x[:, :n] + d * th_free, x[:, :n])
-    elif mode == VHALF:
-        x[:, n:] = torch.where(live, x[:, n:] + d * v_free, x[:, n:])
     theta, v = x[:, :n], x[:, n:]
+    if mode == THETA:
+        theta = torch.where(live, theta + d * th_free, theta)
+    elif mode == VHALF:
+        v = torch.where(live, v + d * v_free, v)
+    xn = torch.cat([theta, v], dim=1)
+    if mode != INIT:
+        x.copy_(xn)
+    theta, v = xn[:, :n], xn[:, n:]
     p, q = injections_plain(v * torch.cos(theta), v * torch.sin(theta), y_re,
                             y_im)
     dpi = (ps - p) / v * th_free
@@ -323,6 +367,101 @@ def residual_jvp_plain(x: Tensor, u: Tensor, op: SparseOperands,
                       torch.where(op.v_free > 0, d_q, dv)], dim=1)
 
 
+def residual_vjp_plain(x: Tensor, w: Tensor, op: SparseOperands,
+                       vop: VjpOperands, mode: int,
+                       status: Optional[Tensor] = None) -> Tensor:
+    """J2's plain version: ``wᵀ ∂F/∂x [B, 2n]`` at ``x`` for ``w [B,
+    2n]`` — in :data:`MASKED` mode ``F`` is the masked residual (J1's
+    transpose), in :data:`FULL` mode the injections ``(P, Q)`` of every
+    bus.  Written out entry by entry as the kernel computes it: with
+    ``ω = w_P + j w_Q`` (masked to the free rows in :data:`MASKED` mode)
+    and ``Vc = V e^{jθ}``, each incidence entry at bus ``k`` (neighbour
+    ``j``) adds to the gradient in ``Vc_k``
+
+        conj(ω_k y_self) Vc_k + ω_k I + conj(ω_j y_mut′) Vc_j,
+
+    ``I = y_self Vc_k + y_mut Vc_j`` its branch current and ``y_mut′`` the
+    other end's mutual admittance; the shunts add ``2 V (ω_P g − ω_Q b)``
+    to ``V̄``; pinned rows of :data:`MASKED` mode pass ``w`` through."""
+    _check_vjp_mode(mode)
+    n = op.n
+    rows = op.inc_rows()
+    j = op.inc_nbr.long()
+    theta, v = x[:, :n], x[:, n:]
+    c, s = torch.cos(theta), torch.sin(theta)
+    vr, vi = v * c, v * s
+    w_p, w_q = w[:, :n], w[:, n:]
+    if mode == MASKED:
+        o_r = torch.where(op.th_free > 0, w_p, torch.zeros_like(w_p))
+        o_i = torch.where(op.v_free > 0, w_q, torch.zeros_like(w_q))
+    else:
+        o_r, o_i = w_p, w_q
+    ysr, ysi, ymr, ymi = op.inc_gs, op.inc_bs, op.inc_g, op.inc_b
+    ytr, yti = vop.inc_gt, vop.inc_bt
+    if status is not None:
+        on = status[:, (op.inc_code >> 1).long()]
+        ysr, ysi, ymr, ymi = ysr * on, ysi * on, ymr * on, ymi * on
+        ytr, yti = ytr * on, yti * on
+    kr, ki, jr, ji = vr[:, rows], vi[:, rows], vr[:, j], vi[:, j]
+    okr, oki, ojr, oji = o_r[:, rows], o_i[:, rows], o_r[:, j], o_i[:, j]
+    ir = (ysr * kr - ysi * ki) + (ymr * jr - ymi * ji)
+    ii = (ysr * ki + ysi * kr) + (ymr * ji + ymi * jr)
+    ar, ai = okr * ysr - oki * ysi, okr * ysi + oki * ysr
+    br, bi = ojr * ytr - oji * yti, ojr * yti + oji * ytr
+    t_r = ((ar * kr + ai * ki) + (okr * ir - oki * ii)) + (br * jr + bi * ji)
+    t_i = ((ar * ki - ai * kr) + (okr * ii + oki * ir)) + (br * ji - bi * jr)
+    g_r = t_r.new_zeros(t_r.shape[0], n).index_add_(1, rows, t_r)
+    g_i = t_i.new_zeros(t_i.shape[0], n).index_add_(1, rows, t_i)
+    d_th = v * (g_i * c - g_r * s)
+    d_v = (g_r * c + g_i * s) + 2.0 * v * (o_r * op.g_sh - o_i * op.b_sh)
+    if mode == MASKED:
+        d_th = torch.where(op.th_free > 0, d_th, d_th + w_p)
+        d_v = torch.where(op.v_free > 0, d_v, d_v + w_q)
+    return torch.cat([d_th, d_v], dim=1)
+
+
+def cim_adjoint_matrix(a_re: Tensor, a_im: Tensor) -> Tuple[Tensor, Tensor]:
+    """I2's staged ``Aᴴ = conj(A)ᵀ`` as ``(re, im)`` ``[N, N]``: the real
+    pair's transpose of the product ``A j`` is the product with ``Aᴴ``."""
+    return a_re.T.contiguous(), (-a_im).T.contiguous()
+
+
+def cim_vjp_plain(h_re, h_im, g_re, g_im, v_re, v_im, s_re, s_im, mask,
+                  sbar_re, sbar_im, vbbar_re, vbbar_im
+                  ) -> Tuple[Tensor, Tensor]:
+    """I2's plain version: one CIM iteration ``v′ = mask (v_base + A
+    conj(s / v))`` walked back.  ``g`` is the masked cotangent of ``v′``;
+    with ``ḡ = Aᴴ g`` (``h = Aᴴ``, :func:`cim_adjoint_matrix`) and ``q̄ =
+    conj(ḡ)`` on live node-phases it adds ``conj(1/v) q̄`` to the load
+    cotangent ``sbar`` and returns the masked cotangent of ``v``,
+    ``mask conj(−s/v²) q̄`` (0 where ``v`` is 0), which it also adds to
+    ``vbbar`` (``v_base``'s); ``sbar`` and ``vbbar`` in place."""
+    p_re = g_re @ h_re.T - g_im @ h_im.T
+    p_im = g_im @ h_re.T + g_re @ h_im.T
+    q_re, q_im = p_re, -p_im
+    d = v_re * v_re + v_im * v_im
+    live = d > 0
+    dd = torch.where(live, d, torch.ones_like(d))
+    # conj(1/v) = v / |v|²
+    ds_re = (v_re * q_re - v_im * q_im) / dd
+    ds_im = (v_re * q_im + v_im * q_re) / dd
+    # u = s / v; conj(−s/v²) = −conj(u) v / |v|²
+    u_re = (s_re * v_re + s_im * v_im) / dd
+    u_im = (s_im * v_re - s_re * v_im) / dd
+    c_re = -(u_re * v_re + u_im * v_im) / dd
+    c_im = -(u_re * v_im - u_im * v_re) / dd
+    o_re = (c_re * q_re - c_im * q_im) * mask
+    o_im = (c_re * q_im + c_im * q_re) * mask
+    zero = torch.zeros_like(d)
+    sbar_re.add_(torch.where(live, ds_re, zero))
+    sbar_im.add_(torch.where(live, ds_im, zero))
+    o_re = torch.where(live, o_re, zero)
+    o_im = torch.where(live, o_im, zero)
+    vbbar_re.add_(o_re)
+    vbbar_im.add_(o_im)
+    return o_re, o_im
+
+
 def cim_iterate_plain(a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im, mask,
                       err, it, active, tol: Tensor, max_iter: int,
                       fixed: bool) -> Tuple[Tensor, Tensor]:
@@ -368,6 +507,8 @@ _SIGS = {
     + [_I] * 5 + [_P, _I, _P],
     "residual_jvp": [_P] * 15 + [_I] * 3 + [_P],
     "cim_iterate": [_P] * 19 + [_I] * 5 + [_P],
+    "residual_vjp": [_I] + [_P] * 17 + [_I] * 3 + [_P],
+    "cim_vjp": [_P] * 16 + [_I] * 3 + [_P],
 }
 
 
@@ -403,6 +544,11 @@ def _check_stamp_mode(mode: int) -> None:
 def _check_fdlf_mode(mode: int) -> None:
     if mode not in (INIT, THETA, VHALF):
         raise ValueError(f"unknown fdlf_half_step mode {mode!r}")
+
+
+def _check_vjp_mode(mode: int) -> None:
+    if mode not in (MASKED, FULL):
+        raise ValueError(f"unknown residual_vjp mode {mode!r}")
 
 
 def _ptr(t: Optional[Tensor]):
@@ -609,3 +755,74 @@ def cim_iterate(a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im, mask, err,
     _raise_on(rc, "cim_iterate")
     _count("cim_iterate")
     return out
+
+
+def residual_vjp(x: Tensor, w: Tensor, op: SparseOperands, vop: VjpOperands,
+                 mode: int, status: Optional[Tensor] = None) -> Tensor:
+    """J2: ``wᵀ ∂F/∂x [B, 2n]`` at ``x [B, 2n]`` for ``w [B, 2n]``
+    (:func:`residual_vjp_plain`'s modes); ``status [B, m]`` (``x``'s
+    dtype) scales each lane's branch admittances.  The operands are in
+    ``x``'s dtype."""
+    if x.device.type == "cpu":
+        return residual_vjp_plain(x, w, op, vop, mode, status)
+    _need_cuda(x, "residual_vjp")
+    _check_vjp_mode(mode)
+    lanes, n, m, dt = x.shape[0], op.n, op.m, x.dtype
+    spec = {"x": (x, dt, (lanes, 2 * n)), "w": (w, dt, (lanes, 2 * n)),
+            "inc_gt": (vop.inc_gt, dt, (2 * m,)),
+            "inc_bt": (vop.inc_bt, dt, (2 * m,))}
+    if status is not None:
+        spec["status"] = (status, dt, (lanes, m))
+    _want(x, spec)
+    o = _op_ptrs(op, x)
+    fn = _fn("residual_vjp", dt)
+    ctx, stream = _launch_on(x)
+    with ctx:
+        out = torch.empty_like(x)
+        rc = fn(mode, x.data_ptr(), w.data_ptr(), o["inc_ptr"],
+                o["inc_code"], o["inc_nbr"], o["inc_g"], o["inc_b"],
+                o["inc_gs"], o["inc_bs"], vop.inc_gt.data_ptr(),
+                vop.inc_bt.data_ptr(), o["g_sh"], o["b_sh"], o["th_free"],
+                o["v_free"], _ptr(status), out.data_ptr(), lanes, n, m,
+                stream)
+    _raise_on(rc, "residual_vjp")
+    _count("residual_vjp", mode)
+    return out
+
+
+def cim_vjp(h_re, h_im, g_re, g_im, v_re, v_im, s_re, s_im, mask, sbar_re,
+            sbar_im, vbbar_re, vbbar_im) -> Tuple[Tensor, Tensor]:
+    """I2: one CIM iteration walked back (:func:`cim_vjp_plain`): returns
+    the masked cotangent of ``v`` as ``(re, im)`` ``[B, N]`` and adds to
+    ``sbar`` and ``vbbar`` in place.  ``h = Aᴴ`` is ``[N, N]``
+    (:func:`cim_adjoint_matrix`), every other tensor ``[B, N]`` but the
+    phase mask ``[N]``."""
+    if v_re.device.type == "cpu":
+        return cim_vjp_plain(h_re, h_im, g_re, g_im, v_re, v_im, s_re, s_im,
+                             mask, sbar_re, sbar_im, vbbar_re, vbbar_im)
+    _need_cuda(v_re, "cim_vjp")
+    dt = v_re.dtype
+    lanes, big_n = v_re.shape
+    lane = (lanes, big_n)
+    spec = {"h_re": (h_re, dt, (big_n, big_n)),
+            "h_im": (h_im, dt, (big_n, big_n)), "mask": (mask, dt, (big_n,))}
+    for name, t in (("g_re", g_re), ("g_im", g_im), ("v_re", v_re),
+                    ("v_im", v_im), ("s_re", s_re), ("s_im", s_im),
+                    ("sbar_re", sbar_re), ("sbar_im", sbar_im),
+                    ("vbbar_re", vbbar_re), ("vbbar_im", vbbar_im)):
+        spec[name] = (t, dt, lane)
+    _want(v_re, spec)
+    fn = _fn("cim_vjp", dt)
+    ctx, stream = _launch_on(v_re)
+    with ctx:
+        o_re, o_im = torch.empty_like(v_re), torch.empty_like(v_re)
+        splits, part = product_scratch(big_n, lanes, dt, v_re.device)
+        rc = fn(h_re.data_ptr(), h_im.data_ptr(), g_re.data_ptr(),
+                g_im.data_ptr(), v_re.data_ptr(), v_im.data_ptr(),
+                s_re.data_ptr(), s_im.data_ptr(), mask.data_ptr(),
+                sbar_re.data_ptr(), sbar_im.data_ptr(), vbbar_re.data_ptr(),
+                vbbar_im.data_ptr(), part.data_ptr(), o_re.data_ptr(),
+                o_im.data_ptr(), lanes, big_n, splits, stream)
+    _raise_on(rc, "cim_vjp")
+    _count("cim_vjp")
+    return o_re, o_im

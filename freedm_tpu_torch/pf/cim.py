@@ -33,6 +33,7 @@ from freedm_tpu_torch.cplx import C
 from freedm_tpu_torch.device import DeviceLike, resolve_device
 from freedm_tpu_torch.grid.feeder import Feeder
 from freedm_tpu_torch.kernels import solver_kernels as sol
+from freedm_tpu_torch.pf import adjoint as adj
 from freedm_tpu_torch.pf.ladder import SOURCE_UNIT
 from freedm_tpu_torch.pf.newton import any_active
 
@@ -108,6 +109,7 @@ def make_cim_solver(
     dtype: torch.dtype = torch.float64,
     device: DeviceLike = None,
     plain: bool = False,
+    adjoint: bool = False,
 ):
     """Build the current-injection solvers of a (possibly meshed) feeder.
 
@@ -118,8 +120,13 @@ def make_cim_solver(
     scalar or ``[B]`` (default the feeder's).  ``solve`` iterates each
     lane while ``it < max_iter`` and its last ``max |ΔV|`` (infinite
     before the first) is ``>= tol``; ``solve_fixed`` runs exactly
-    ``max_iter`` iterations on every lane, differentiable in the loads on
-    the CPU (forward-only on the card).  ``ties`` lists extra branches
+    ``max_iter`` iterations on every lane, differentiable in the loads and
+    ``v_source_pu`` — on the CPU and with ``plain=True`` by autograd through
+    I1's plain version, on the card by
+    :class:`~freedm_tpu_torch.pf.adjoint.CimFixed`, which saves every
+    iterate and walks them back on I2 (``adjoint`` as in
+    :func:`~freedm_tpu_torch.pf.newton.make_newton_solver`).  ``ties``
+    lists extra branches
     ``(node_a, node_b, z_pu_3x3)``; none gives the radial solve, which
     matches the ladder's fixed point.  ``tol=None`` is 1e-9 in float64
     and 1e-5 in float32.  ``plain=True`` runs I1's plain version on any
@@ -144,6 +151,7 @@ def make_cim_solver(
                                device=dev)
 
     a_re, a_im = real(a_inv.real), real(a_inv.imag)
+    adjoint_a = []  # I2's staged Aᴴ, at the first differentiated solve
     base_re, base_im = real(base_op.real), real(base_op.imag)
     mask = real(mask_np[1:].reshape(-1))
     tol_t = torch.full((1,), tol, dtype=dtype, device=dev)
@@ -189,6 +197,31 @@ def make_cim_solver(
         return CimResult(C(v_node.re[0], v_node.im[0]), it[0], res.converged[0],
                          err[0])
 
+    def iterate(v_re, v_im, s_re, s_im, vb_re, vb_im, err, it, active,
+                out):
+        args = (s_re, s_im, vb_re, vb_im, mask, err, it, active, tol_t,
+                max_iter, True)
+        if plain:
+            n_re, n_im = sol.cim_iterate_plain(a_re, a_im, v_re, v_im, *args)
+            out[0].copy_(n_re)
+            out[1].copy_(n_im)
+            return out
+        return sol.cim_iterate(a_re, a_im, v_re, v_im, *args, out=out)
+
+    def run_adjoint(s_load_kva, v_source_pu):
+        s, v_s, vb, batched = prep(s_load_kva, v_source_pu)
+        if not adjoint_a:
+            adjoint_a.append(sol.cim_adjoint_matrix(a_re, a_im))
+        h_re, h_im = adjoint_a[0]
+        route = adj.CimRoute(iterate,
+                             sol.cim_vjp_plain if plain else sol.cim_vjp,
+                             h_re, h_im, mask, max_iter)
+        v_re, v_im, err = adj.CimFixed.apply(s.re, s.im, vb.re, vb.im,
+                                             route)
+        it = torch.full((s.re.shape[0],), max_iter, dtype=torch.int32,
+                        device=dev)
+        return finish(v_s, C(v_re, v_im), it, err, batched)
+
     def run(s_load_kva, v_source_pu, fixed):
         s, v_s, vb, batched = prep(s_load_kva, v_source_pu)
         lanes = s.re.shape[0]
@@ -219,12 +252,10 @@ def make_cim_solver(
         return run(s_load_kva, v_source_pu, fixed=False)
 
     def solve_fixed(s_load_kva, v_source_pu=None) -> CimResult:
-        if on_card and any(isinstance(t, Tensor) and t.requires_grad
-                           for t in _tensors(s_load_kva, v_source_pu)):
-            raise NotImplementedError(
-                "solve_fixed is forward-only on the card: the CIM backward "
-                "is module queue item 9's remainder (ROADMAP.md)"
-            )
+        tensors = [t for t in _tensors(s_load_kva, v_source_pu)
+                   if isinstance(t, Tensor)]
+        if adj.function_route(adjoint, dev, plain, *tensors):
+            return run_adjoint(s_load_kva, v_source_pu)
         return run(s_load_kva, v_source_pu, fixed=True)
 
     return solve, solve_fixed

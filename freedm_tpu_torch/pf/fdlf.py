@@ -125,6 +125,7 @@ def make_fdlf_solver(
     dtype: torch.dtype = torch.float64,
     device: DeviceLike = None,
     plain: bool = False,
+    adjoint: bool = False,
 ):
     """Build the fast-decoupled solvers of a bus system.
 
@@ -141,7 +142,16 @@ def make_fdlf_solver(
     1e-8 in float64 and 3e-5 in float32.  ``plain=True`` runs the kernels'
     plain versions on any device.  ``device`` is ``cuda`` unless the CPU
     is asked for.
+
+    ``solve_fixed`` is differentiable in ``p_inj``, ``q_inj``, ``v0`` and
+    ``theta0``: on the CPU and with ``plain=True`` autograd records the
+    plain versions' iterations; on the card
+    :class:`~freedm_tpu_torch.pf.adjoint.FdlfFixed` saves the state after
+    every half-step and walks them back (the library LU's adjoint solves
+    and J2).  ``adjoint`` as in
+    :func:`~freedm_tpu_torch.pf.newton.make_newton_solver`.
     """
+    from freedm_tpu_torch.pf import adjoint as adj
     from freedm_tpu_torch.pf.newton import (NewtonResult, any_active,
                                             default_tol, lane_prep)
 
@@ -183,16 +193,33 @@ def make_fdlf_solver(
         lu_p, lu_q = (torch.linalg.lu_factor_ex(b)[:2] for b in (b_p, b_q))
         return y, lu_p, lu_q, b_p.dim() == 2
 
-    def lu_half(lu, rhs, shared):
-        """The half's solve for every lane: ``[B, n]`` (a view through the
-        solve's own strides, which F1 reads as they are)."""
-        if shared:  # one factorization, the lanes as right-hand sides
-            return torch.linalg.lu_solve(lu[0], lu[1], rhs.T).T
-        return torch.linalg.lu_solve(lu[0], lu[1], rhs[:, :, None])[:, :, 0]
+    lu_half = adj.lu_half  # [B, n], F1 reads the solve through its strides
+
+    def sparse_ops():
+        from freedm_tpu_torch.pf.sparse import sparse_operands
+
+        return sparse_operands(sys, dtype=dtype, device=dev)
+
+    j2 = adj.lazy_residual_vjp(sparse_ops, plain)
+
+    def result(x, p, q, it, err):
+        return NewtonResult(v=x[:, n:].contiguous(), theta=x[:, :n].contiguous(),
+                            p=p, q=q, iterations=it, converged=err < tol,
+                            mismatch=err, fallbacks=torch.zeros_like(it))
 
     def run(p_inj, q_inj, status, v0, theta0, fixed):
-        x, ps, qs, _ = prep(p_inj, q_inj, status, v0, theta0)
+        x, ps, qs, st = prep(p_inj, q_inj, status, v0, theta0)
         y, lu_p, lu_q, shared = factors(status)
+        if fixed and adj.function_route(adjoint, dev, plain, x, ps, qs, st):
+            adj.refuse_status_grad(st)
+            route = adj.FdlfRoute(
+                half, y, lu_p, lu_q, shared, injections,
+                lambda xx, w: j2(xx, w, sol.FULL, st), th_free, v_free,
+                v_set, tol_t, max_iter)
+            x, p, q, err = adj.FdlfFixed.apply(ps, qs, x, route)
+            it = torch.full((x.shape[0],), max_iter, dtype=torch.int32,
+                            device=dev)
+            return result(x, p, q, it, err)
         lanes = x.shape[0]
         dp = torch.empty(lanes, n, dtype=dtype, device=dev)
         dq = torch.empty_like(dp)
@@ -221,9 +248,7 @@ def make_fdlf_solver(
             while any_active(active):  # the one host sync per iteration
                 iteration()
         p, q, _ = injections(x, y[0], y[1], ps, qs, th_free, v_free, v_set)
-        return NewtonResult(v=x[:, n:].contiguous(), theta=x[:, :n].contiguous(),
-                            p=p, q=q, iterations=it, converged=err < tol,
-                            mismatch=err, fallbacks=torch.zeros_like(it))
+        return result(x, p, q, it, err)
 
     def solve(p_inj=None, q_inj=None, status=None, v0=None, theta0=None):
         return run(p_inj, q_inj, status, v0, theta0, fixed=False)

@@ -273,7 +273,9 @@ def _pgmres_block(a_op, m_op, b: torch.Tensor, m: int, s: int = 4,
     alive = b.new_ones(lanes)
     for k in range(nb):
         j0 = k * s
-        u = v_basis[:, j0]
+        # A copy: S3 writes v_basis in place, and the preconditioner's
+        # plain apply saves its input for autograd.
+        u = v_basis[:, j0].clone()
         a = alive * valid[:, j0]
         ws = []
         for i in range(s):  # the serial chain
@@ -322,6 +324,7 @@ def make_krylov_solver(
     mesh=None,
     device: DeviceLike = None,
     plain: bool = False,
+    adjoint: bool = False,
 ):
     """Build the matrix-free Newton solvers with the s-step GMRES inner.
 
@@ -343,7 +346,10 @@ def make_krylov_solver(
     ``donate`` is accepted and ignored: PyTorch has no buffer donation,
     and the solver never writes its caller's tensors.  ``mesh`` (the
     reference's sharded form) is not ported and raises.  ``solve_fixed``
-    is forward-only on the card.  ``plain=True`` runs the kernels' plain
+    differentiates on the card by one adjoint solve at the last iterate
+    (GMRES on Jᵀ with J2; ``adjoint`` as in
+    :func:`~freedm_tpu_torch.pf.newton.make_newton_solver`).
+    ``plain=True`` runs the kernels' plain
     versions on any device; ``device`` is ``cuda`` unless the CPU is asked
     for.
     """
@@ -384,7 +390,8 @@ def make_krylov_solver(
     solve_n, fixed_n = newton_krylov(
         sys, op, precond, linearize, linearize_lo, tol=tol,
         max_iter=max_iter, inner_iters=inner_iters, dtype=dtype,
-        precision=precision, block_size=block_size, plain=plain)
+        precision=precision, block_size=block_size, plain=plain,
+        adjoint=adjoint)
 
     def solve(p_inj=None, q_inj=None, status=None, v0=None, theta0=None):
         return KrylovResult(*solve_n(p_inj, q_inj, status, v0, theta0))

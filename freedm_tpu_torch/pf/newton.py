@@ -42,6 +42,8 @@ from freedm_tpu_torch.device import DeviceLike, platform_name, resolve_device
 from freedm_tpu_torch.grid.bus import (PQ, SLACK, BusSystem, branch_admittances,
                                        stamp_operands, ybus_dense, ybus_lanes)
 from freedm_tpu_torch.kernels import newton_kernels as nk
+from freedm_tpu_torch.kernels import solver_kernels as sol
+from freedm_tpu_torch.pf import adjoint as adj
 from freedm_tpu_torch.pf.backend import resolve_backend, resolve_precision
 
 
@@ -173,6 +175,7 @@ def make_newton_solver(
     device: DeviceLike = None,
     mesh=None,
     plain: bool = False,
+    adjoint: bool = False,
 ):
     """Build the batched NR solvers for a bus system.
 
@@ -185,10 +188,15 @@ def make_newton_solver(
     - ``solve`` — iterates each lane until its max mismatch (pu) drops
       below ``tol`` or ``max_iter`` is hit, with the reference's
       vmapped ``while_loop`` semantics (per-lane iteration counts);
-    - ``solve_fixed`` — always ``max_iter`` steps on every lane.  Forward
-      only on the card (its backward kernels are module queue item 9's
-      remainder): CUDA inputs that require grad raise.  On the CPU the plain
-      versions are differentiable by ``torch.autograd``.
+    - ``solve_fixed`` — always ``max_iter`` steps on every lane,
+      differentiable in ``p_inj``, ``q_inj``, ``v0`` and ``theta0``.  On
+      the CPU and with ``plain=True`` autograd records the plain versions'
+      iterations (the reference's unrolled program); on the card the
+      backward is one adjoint solve at the last iterate
+      (:class:`~freedm_tpu_torch.pf.adjoint.NewtonFixed`: J2 and the library
+      LU on K1's Jacobian).  ``adjoint=True`` takes that Function on any
+      device (its plain route on the CPU or with ``plain``).  A ``status``
+      that requires grad raises there.
 
     ``tol=None`` picks the dtype's default (:func:`default_tol`).
     ``backend`` resolves through
@@ -216,7 +224,7 @@ def make_newton_solver(
 
         return make_sparse_newton_solver(
             sys, tol=tol, max_iter=max_iter, dtype=dtype,
-            precision=precision, device=device, plain=plain,
+            precision=precision, device=device, plain=plain, adjoint=adjoint,
         )
     dev = resolve_device(device)
     resolve_precision(precision, platform_name(dev))  # typed error only
@@ -274,6 +282,36 @@ def make_newton_solver(
         p, q, f = injections(x, y[0], y[1], ps, qs, th_free, v_free, v_set)
         return build_result(x, p, q, f, free, it, tol)
 
+    def fixed_steps(x, ps, qs, y):
+        for _ in range(max_iter):
+            dx, _f = step(x, ps, qs, y)
+            x = x + dx
+        return x
+
+    def sparse_ops():
+        from freedm_tpu_torch.pf.sparse import sparse_operands
+
+        return sparse_operands(sys, dtype=dtype, device=dev)
+
+    j2 = adj.lazy_residual_vjp(sparse_ops, plain)
+
+    def route(y, st):
+        """Route B of :mod:`~freedm_tpu_torch.pf.adjoint` on K1, the
+        library LU and J2."""
+        def forward(ps, qs, x0):
+            x = fixed_steps(x0, ps, qs, y)
+            p, q, f = injections(x, y[0], y[1], ps, qs, th_free, v_free,
+                                 v_set)
+            return x, p, q, f
+
+        def adjoint_solve(x, ps, qs, g):
+            jac, _ = assemble(x, y[0], y[1], ps, qs, th_free, v_free, v_set)
+            return adj.dense_adjoint_solve(jac, g)
+
+        return adj.NewtonRoute(forward, adjoint_solve,
+                               lambda x, w: j2(x, w, sol.FULL, st),
+                               th_free, v_free)
+
     def solve(p_inj=None, q_inj=None, status=None, v0=None, theta0=None):
         x, ps, qs, _ = prep(p_inj, q_inj, status, v0, theta0)
         y = lanes_ybus(status)
@@ -288,22 +326,15 @@ def make_newton_solver(
 
     def solve_fixed(p_inj=None, q_inj=None, status=None, v0=None,
                     theta0=None):
-        tensors = [a for a in (p_inj, q_inj, v0, theta0)
-                   if isinstance(a, torch.Tensor)]
-        if dev.type == "cuda" and any(t.requires_grad for t in tensors):
-            raise NotImplementedError(
-                "solve_fixed is forward-only on the card: the Newton "
-                "solve_fixed backward is module queue item 9's remainder "
-                "(ROADMAP.md)"
-            )
-        x, ps, qs, _ = prep(p_inj, q_inj, status, v0, theta0)
+        x, ps, qs, st = prep(p_inj, q_inj, status, v0, theta0)
         y = lanes_ybus(status)
-        for _ in range(max_iter):
-            dx, _f = step(x, ps, qs, y)
-            x = x + dx
         it = torch.full((x.shape[0],), max_iter, dtype=torch.int32,
                         device=dev)
-        return finish(x, ps, qs, it, y)
+        if adj.function_route(adjoint, dev, plain, x, ps, qs, st):
+            adj.refuse_status_grad(st)
+            x, p, q, f = adj.NewtonFixed.apply(ps, qs, x, route(y, st))
+            return build_result(x, p, q, f, free, it, tol)
+        return finish(fixed_steps(x, ps, qs, y), ps, qs, it, y)
 
     return solve, solve_fixed
 

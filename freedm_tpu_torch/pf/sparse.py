@@ -47,7 +47,9 @@ import torch
 from freedm_tpu_torch.device import DeviceLike, platform_name, resolve_device
 from freedm_tpu_torch.grid.bus import PQ, SLACK, BusSystem, branch_admittances
 from freedm_tpu_torch.kernels import newton_kernels as nk
+from freedm_tpu_torch.kernels import solver_kernels as sol
 from freedm_tpu_torch.kernels import sparse_kernels as sk
+from freedm_tpu_torch.pf import adjoint as adj
 from freedm_tpu_torch.pf.backend import resolve_precision
 from freedm_tpu_torch.pf.krylov import (
     _MIXED_ACCEPT_RATIO,
@@ -198,6 +200,7 @@ def make_sparse_newton_solver(
     device: DeviceLike = None,
     plain: bool = False,
     mesh=None,
+    adjoint: bool = False,
 ):
     """Build the BCSR sparse Newton solvers for a bus system.
 
@@ -217,7 +220,10 @@ def make_sparse_newton_solver(
     kernels' plain versions on any device.  ``solve_fixed`` takes
     ``max_iter`` steps on every lane (for mixed: ``max_iter − 1`` mixed
     steps and one full-precision step, ``fallbacks`` counting stalled
-    steps) and is forward-only on the card.  ``status`` (``[m]`` or
+    steps); its gradient on the card is one adjoint solve at the last
+    iterate (``adjoint`` as in
+    :func:`~freedm_tpu_torch.pf.newton.make_newton_solver`;
+    :func:`newton_krylov`).  ``status`` (``[m]`` or
     ``[B, m]`` 0/1 branch in-service factors) runs each lane on its own
     topology, every S1 call scaling that lane's admittances; the
     preconditioner stays the base topology's pair, as in the reference.
@@ -256,13 +262,14 @@ def make_sparse_newton_solver(
     return newton_krylov(sys, op, precond, linearize, linearize_lo, tol=tol,
                          max_iter=max_iter, inner_iters=inner_iters,
                          dtype=dtype, precision=precision,
-                         block_size=block_size, plain=plain)
+                         block_size=block_size, plain=plain, adjoint=adjoint)
 
 
 def newton_krylov(sys: BusSystem, op: sk.SparseOperands, precond,
                   linearize, linearize_lo, tol: Optional[float],
                   max_iter: int, inner_iters: int, dtype: torch.dtype,
-                  precision: str, block_size: int, plain: bool):
+                  precision: str, block_size: int, plain: bool,
+                  adjoint: bool = False):
     """The inexact-Newton loops over lanes that the sparse backend and the
     matrix-free solver (:func:`~freedm_tpu_torch.pf.krylov.
     make_krylov_solver`) share; they differ in the operator of the inner
@@ -274,6 +281,13 @@ def newton_krylov(sys: BusSystem, op: sk.SparseOperands, precond,
     ``dtype``.  ``precision`` is resolved (``"f64"`` or ``"mixed"``);
     ``op`` (on the solver's device, in ``dtype``) gives the masks and S1's
     residual mode.  Returns ``(solve, solve_fixed)`` (module docstring).
+
+    ``solve_fixed``'s Function route (``adjoint``, as in
+    :func:`~freedm_tpu_torch.pf.newton.make_newton_solver`) solves ``J(x*)ᵀ
+    λ = ḡ`` in float64 whatever ``precision``: restarted GMRES
+    (:func:`~freedm_tpu_torch.pf.adjoint.adjoint_gmres`, the cycle's
+    dimension and block as the forward's) with J2 in MASKED mode as the
+    operator and the FDLF pair transposed as the preconditioner.
     """
     dev = op.th_free.device
     tol = float(default_tol(dtype) if tol is None else tol)
@@ -389,17 +403,37 @@ def newton_krylov(sys: BusSystem, op: sk.SparseOperands, precond,
             return solve_mixed(x, ps, qs, st)
         return solve_f64(x, ps, qs, st)
 
-    def solve_fixed(p_inj=None, q_inj=None, status=None, v0=None,
-                    theta0=None):
-        tensors = [a for a in (p_inj, q_inj, v0, theta0)
-                   if isinstance(a, torch.Tensor)]
-        if dev.type == "cuda" and any(t.requires_grad for t in tensors):
-            raise NotImplementedError(
-                "solve_fixed is forward-only on the card: the Newton "
-                "solve_fixed backward is module queue item 9's remainder "
-                "(ROADMAP.md)"
-            )
-        x, ps, qs, st = prep(p_inj, q_inj, status, v0, theta0)
+    j2 = adj.lazy_residual_vjp(  # float64, whatever the working dtype
+        lambda: op.to_dtype(torch.float64), plain)
+
+    def route(st, box):
+        """Route B of :mod:`~freedm_tpu_torch.pf.adjoint`: GMRES on Jᵀ
+        (J2 MASKED, S3, S4, Mᵀ) in float64."""
+        st64 = None if st is None else st.to(torch.float64)
+        f64 = torch.float64
+
+        def forward(ps, qs, x0):
+            x, box["fb"] = fixed_steps(x0, ps, qs, st)
+            p, q, f = assemble(x, ps, qs, op, sk.RESIDUAL, st)
+            return x, p, q, f
+
+        def adjoint_solve(x, ps, qs, g):
+            x64 = x.to(f64)
+            lam, _, _ = adj.adjoint_gmres(
+                lambda u: j2(x64, u, sol.MASKED, st64),
+                adj.transposed_precond(precond, free[:n].to(f64),
+                                       free[n:].to(f64), x64[:, n:]),
+                g.to(f64), m=inner_iters, s=block_size, plain=plain)
+            return lam.to(dtype)
+
+        def injections_vjp(x, w):
+            return j2(x.to(f64), w.to(f64), sol.FULL, st64).to(dtype)
+
+        return adj.NewtonRoute(forward, adjoint_solve, injections_vjp,
+                               op.th_free, op.v_free)
+
+    def fixed_steps(x, ps, qs, st):
+        """``max_iter`` steps on every lane: ``(x, fallbacks)``."""
         fb = lane_zeros(x)
         if precision == "mixed":
             best = torch.full((x.shape[0],), float("inf"), dtype=dtype,
@@ -415,8 +449,20 @@ def newton_krylov(sys: BusSystem, op: sk.SparseOperands, precond,
             steps = max_iter
         for _ in range(steps):
             x = x + step(x, ps, qs, st)[0]
+        return x, fb
+
+    def solve_fixed(p_inj=None, q_inj=None, status=None, v0=None,
+                    theta0=None):
+        x, ps, qs, st = prep(p_inj, q_inj, status, v0, theta0)
         it = torch.full((x.shape[0],), max_iter, dtype=torch.int32,
                         device=dev)
+        if adj.function_route(adjoint, dev, plain, x, ps, qs, st):
+            adj.refuse_status_grad(st)
+            box = {}
+            x, p, q, f = adj.NewtonFixed.apply(ps, qs, x, route(st, box))
+            r = build_result(x, p, q, f, free, it, tol)
+            return r._replace(fallbacks=box["fb"])
+        x, fb = fixed_steps(x, ps, qs, st)
         return finish(x, ps, qs, st, it, fb)
 
     return solve, solve_fixed

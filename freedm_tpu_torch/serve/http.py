@@ -28,9 +28,13 @@ Routes:
 - ``GET /stats`` — queue depth, buckets, per-shape dispatch counts and
   the serve metric snapshot, with the job table's counts under
   ``"qsts"``;
-- ``GET /metrics`` — the registry in the Prometheus text format.
+- ``GET /metrics`` — the registry in the Prometheus text format;
+- ``GET /`` — the route index (:data:`ROUTES`).
 
-Every other route answers a typed 404 (snapshots are not ported yet).
+``POST /v1/<name>`` for a name that is no workload answers the service's
+typed 400 ``invalid_request`` ("unknown workload ..."), as the reference
+does.  Every other route answers a typed 404 (snapshots and
+``/provenance`` are not ported yet).
 Errors are typed: the body is
 always ``{"error": {"type": <ServeError.code>, "detail": ...}}`` with
 the matching HTTP status (400 invalid_request, 404 not_found, 429
@@ -56,6 +60,16 @@ from freedm_tpu_torch.serve.service import (BUS_CASES, FEEDER_CASES,
 
 #: Request bodies past this are refused unread.
 MAX_BODY_BYTES = 4_000_000
+
+#: ``GET /``: the route index, with the reference's keys; it lists the
+#: routes this server answers (``/provenance`` and ``/v1/snapshot`` come
+#: with module queue items 15 and 14).
+ROUTES = {
+    "service": "freedm_tpu_torch serve",
+    "post": [f"/v1/{w}" for w in WORKLOADS]
+    + ["/v1/qsts", "/v1/topo/sweep", "/v1/jobs/<id>/cancel"],
+    "get": ["/healthz", "/stats", "/metrics", "/v1/jobs/<id>"],
+}
 
 
 def retry_after_header(seconds) -> str:
@@ -152,6 +166,8 @@ class ServeServer(BackgroundHttpServer):
                     elif path.startswith("/v1/jobs/"):
                         self._reply(200, self._jobs().get(
                             path[len("/v1/jobs/"):]))
+                    elif path == "/":
+                        self._reply(200, ROUTES)
                     else:
                         raise NotFound(f"no route GET {path}")
                 except ServeError as e:
@@ -170,9 +186,7 @@ class ServeServer(BackgroundHttpServer):
                         job_id = path[len("/v1/jobs/"):-len("/cancel")]
                         self._reply(200, self._jobs().cancel(job_id))
                         return
-                    workload = path[len("/v1/"):] if path.startswith("/v1/") else ""
-                    if workload not in WORKLOADS and path not in (
-                            "/v1/qsts", "/v1/topo/sweep"):
+                    if not path.startswith("/v1/"):
                         raise NotFound(f"no route POST {path}")
                     if not body:
                         raise InvalidRequest("missing JSON request body")
@@ -186,7 +200,9 @@ class ServeServer(BackgroundHttpServer):
                     if path == "/v1/topo/sweep":
                         self._reply(202, self._jobs().submit_topo(payload))
                         return
-                    response = svc.request(workload, payload)
+                    # An unknown workload is the service's typed 400, as
+                    # in the reference.
+                    response = svc.request(path[len("/v1/"):], payload)
                     self._reply(200, response.to_dict())
                 except ServeError as e:
                     self._error(e)

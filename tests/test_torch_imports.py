@@ -252,7 +252,8 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
     from freedm_tpu_torch.kernels import solver_kernels as sol
 
     assert set(sol.launches()) == {"ybus_stamp", "fdlf_half_step",
-                                   "residual_jvp", "cim_iterate"}
+                                   "residual_jvp", "cim_iterate",
+                                   "residual_vjp", "cim_vjp"}
     from freedm_tpu_torch.kernels import dgi_kernels as dk
 
     assert set(dk.launches()) == {"form_groups", "reach_closure",
@@ -283,6 +284,10 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
             sol.residual_jvp(x, x, None)
         with pytest.raises(ValueError, match="CPU or CUDA"):
             sol.fdlf_half_step(sol.INIT, x, *[None] * 15)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            sol.residual_vjp(x, x, None, None, sol.MASKED)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            sol.cim_vjp(*[None] * 4, x, *[None] * 8)
     with pytest.raises(ValueError, match="unknown ybus_stamp mode"):
         sol._check_stamp_mode(7)
     with pytest.raises(ValueError, match="unknown fdlf_half_step mode"):

@@ -402,12 +402,22 @@ def test_kernels_match_plain_versions_on_card(cuda_device, name, lanes):
 
 @pytest.mark.cuda
 def test_solve_on_card_matches_plain_and_refuses_grad(cuda_device):
+    """The card's solve against the plain path; ``solve_fixed`` on the
+    card differentiates (route B: J2 and the LU's adjoint solve) to the
+    plain route's gradient — the refusal it once checked is gone."""
     sys = matpower.load_builtin("case_ieee30")
     solve, fixed = make_newton_solver(sys, device=cuda_device)
-    plain, _ = make_newton_solver(sys, device=cuda_device, plain=True)
+    plain, fixed_plain = make_newton_solver(sys, device=cuda_device,
+                                            plain=True, adjoint=True)
     p = np.linspace(0.8, 1.2, 4)[:, None] * sys.p_inj
     got, want = solve(p_inj=p), plain(p_inj=p)
     torch.testing.assert_close(got.v, want.v, rtol=0, atol=1e-9)
     assert torch.equal(got.iterations, want.iterations)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        fixed(p_inj=torch.as_tensor(p, device=cuda_device).requires_grad_(True))
+    grads = []
+    for fn in (fixed, fixed_plain):
+        pt = torch.as_tensor(p, device=cuda_device).requires_grad_(True)
+        r = fn(p_inj=pt)
+        (g,) = torch.autograd.grad(r.p[:, sys.slack].sum() + r.v.sum(), pt)
+        grads.append(g)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-9,
+                               atol=1e-9 * float(grads[1].abs().max()))

@@ -215,3 +215,42 @@ def test_serialized_dispatch_matches_the_pipeline():
         assert (a.iterations, a.converged) == (b.iterations, b.converged)
         assert a.v == b.v and a.theta == b.theta
         assert a.p_balance_pu == b.p_balance_pu
+
+
+def test_unknown_workload_and_route_index_answer_like_the_reference(
+        services):
+    """``POST /v1/<unknown>`` with a JSON body is the typed 400 of the
+    reference's service, and ``GET /`` its route index, listing only the
+    routes the port serves."""
+    from freedm_tpu.serve.http import ServeServer as RefServeServer
+
+    ref, port = services
+    servers = [RefServeServer(ref).start(), ServeServer(port).start()]
+    try:
+        (ref_s, ref_b), (got_s, got_b) = (
+            _post(s.port, "/v1/bogus", json.dumps({"case": "case14"}))
+            for s in servers)
+        assert ref_s == got_s == 400
+        assert json.loads(got_b) == json.loads(ref_b)
+        assert json.loads(got_b)["error"] == {
+            "type": "invalid_request",
+            "detail": "unknown workload 'bogus' (have: pf, n1, vvc, topo)"}
+        (ref_s, ref_b), (got_s, got_b) = (_post(s.port, "/", None,
+                                                method="GET")
+                                          for s in servers)
+        assert ref_s == got_s == 200
+        want, got = json.loads(ref_b), json.loads(got_b)
+        assert set(got) == set(want) == {"service", "post", "get"}
+        unported = {"/v1/snapshot", "/provenance"}
+        for key in ("post", "get"):
+            assert got[key] == [r for r in want[key] if r not in unported]
+        for route in got["get"]:
+            if "<id>" not in route:
+                assert _post(servers[1].port, route, None,
+                             method="GET")[0] == 200, route
+        status, data = _post(servers[1].port, "/nowhere", b"{}")
+        assert status == 404
+        assert json.loads(data)["error"]["type"] == "not_found"
+    finally:
+        for s in servers:
+            s.stop()
