@@ -26,7 +26,10 @@ the VVC step (L1/L2) — through ``make_superstep``, ``lb.run_rounds``,
 ``gm.form_groups`` and ``topology.node_reachability``; and the reverse
 modes of the fixed solves — ``torch.autograd`` through ``solve_fixed`` of
 the Newton family (the residual VJP J2 and an adjoint solve at the last
-iterate), FDLF (J2 over the saved half-steps) and the CIM (I2).
+iterate), FDLF (J2 over the saved half-steps) and the CIM (I2); the
+ladder's dense and doubling sweep forms (L3, L4) with the source
+voltage's gradient through every ladder reverse mode; and the LB round
+past 2¹⁵ nodes on B1's WIDE form.
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. build: nine ``nvcc`` runs started together compile
@@ -337,7 +340,33 @@ Phases (any failure exits non-zero, and no result line is printed):
    lanes (``UNROLLED_LANES`` of the sparse and krylov batches), route A
    within 1e-9, every entry finite; forward and backward ms, their ratio,
    the adjoint GMRES cycles, J2/I2 launches a backward and the saving
-   forward's peak memory.
+   forward's peak memory;
+28. ladder forms and B1 WIDE (``forms_phase``): (a) L3 ``ladder_dense``
+   and L4 ``ladder_doubling`` through ``make_ladder_solver(sweep_method=
+   "dense" | "doubling")`` against their ``plain=True`` twins at vvc_9bus
+   and ``synthetic_radial(2048, seed=0, load_kw=1.0)`` (L3) and also
+   ``synthetic_radial(10000, seed=0, load_kw=1.0)`` (L4) × 64 lanes ×
+   {solve, solve_fixed} × {float64, float32} (``LADDER_ATOL``, flags and
+   float64 iterations equal, L4 float64 bit for bit), bit-identical on
+   repeat and in launches of 1 and 64 lanes, and the 2048 feeder at its
+   default load (every lane in voltage collapse: flags and iterations
+   equal); (b) the reverse modes of L3, L4 and L2 with the source
+   phasors' cotangent against autograd of the plain fixed solves (rtol
+   1e-8) × {1, 64} on vvc_9bus, × {1, 8} on the larger feeders, central
+   differences in ``v_source_pu`` and three live
+   loads on the 10k feeder × 1 (L4, L2) and the 2048 feeder × 1 (L3);
+   (c) their times beside L1 on the same lanes, the plain versions, the
+   bounds (the function's own work, as L1's: the forms' redundant products
+   and rounds are not counted), L3's library row (``torch.matmul`` of the
+   subtree matrix, 2 × 20 products), and each reverse mode's cotangents
+   at the timed shapes (× 64 too) against its plain version's (within
+   1e-8 of the largest); (d) B1 WIDE over 64 rounds of ``bench_lb_256``'s draw
+   at 2¹⁵ × 4 fleets, 40,961 × 1 and 2¹⁶ × 1 bit for bit, ``lb.run_rounds``
+   and ``lb.lb_round(..., gid=...)`` at 2¹⁵ from a block-diagonal mask of
+   512-node groups, and B1's packed form at 2¹⁵ − 1; (e) L3's and L4's main
+   paths (a solve, ``solve_fixed`` and its backward: the kernel table's
+   launches, every kernel launch counted — L3 1 + 2 · 20 a solve and
+   2 + 3 · 20 a reverse mode — and split by mode).
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
@@ -354,8 +383,9 @@ on the served paths; Y1-I1 their other shapes and modes, the float32
 gaps and the path of their launches, F1 the numbers of phase 22; G1, R1
 and B1 their other shapes, device times, G1's and R1's float32 squarings
 as a library composite, their launches in phase 25 (d) and the
-superstep's split; J2 and I2 their backward rows of phase 27 (c)); the
-last line is ``{"ok": true, "device": {...}}``.
+superstep's split, B1 its WIDE rows of phase 28 (d); J2 and I2 their
+backward rows of phase 27 (c); L3 and L4 their other shapes beside L1);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -7144,6 +7174,590 @@ def reverse_phase(torch, sol, errs, rows, extra):
     return {"residual_vjp": counts[krylov], "cim_vjp": counts[cim]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the dense and doubling ladder forms (L3, L4), the source
+# phasors' cotangent of every ladder reverse mode, B1's WIDE form
+# ---------------------------------------------------------------------------
+
+FORM_LANES = MAIN_LANES
+FORM_ITERS = 20
+#: The feeders of each form: the served vvc_9bus, 2048 branches (the
+#: largest feeder that compiles a subtree matrix) and, for L4, the
+#: reference's 10k-bus path.
+FORM_CASES = {"dense": ("vvc_9bus", "radial2048"),
+              "doubling": ("vvc_9bus", "radial2048", "radial10k")}
+WIDE_ROUNDS = 64
+WIDE_SHAPES = ((1 << 15, 4), (40961, 1), (1 << 16, 1))
+WIDE_GROUP = 512
+
+
+def form_feeders():
+    """Phase 28's feeders.  At its default load every lane of
+    ``synthetic_radial(2048, seed=0)`` is in voltage collapse (no version
+    converges, ``radial2048_collapse``); the compared one carries 1 kW a
+    load, as the 10k feeder does."""
+    from freedm_tpu_torch.grid import cases
+
+    return {"vvc_9bus": cases.vvc_9bus(),
+            "radial2048": cases.synthetic_radial(2048, seed=0, load_kw=1.0),
+            "radial10k": cases.synthetic_radial(10000, seed=0, load_kw=1.0),
+            "radial2048_collapse": cases.synthetic_radial(2048, seed=0)}
+
+
+def compare_forms(torch, errs, dev="cuda"):
+    """(a) L3 and L4 through ``make_ladder_solver(sweep_method=...)``
+    against their ``plain=True`` twins at ``FORM_CASES`` × 64 lanes ×
+    {solve, solve_fixed} × {float64, float32}: ``LADDER_ATOL`` on converged
+    lanes, equal flags (float32: outside ``F32_FLAG_ULPS`` of eps) and, in
+    float64, equal iterations; L4's bits against its plain version's
+    (required in float64); bit-identical on repeat; a lane's bits the same
+    in launches of 1 and 64 lanes; the default-load 2048 feeder (every lane
+    in collapse) with equal flags and iterations."""
+    from freedm_tpu_torch.pf.ladder import make_ladder_solver
+
+    t0 = time.monotonic()
+    feeders = form_feeders()
+    worst = {}
+    for form, names in FORM_CASES.items():
+        for name in names:
+            f = feeders[name]
+            loads = lane_loads(f, FORM_LANES)
+            root = torch.as_tensor(f.parent < 0, device=dev)
+            for dtype in (torch.float64, torch.float32):
+                dn = str(dtype).split(".")[-1]
+                kern = make_ladder_solver(f, dtype=dtype, sweep_method=form,
+                                          device=dev)
+                plain = make_ladder_solver(f, dtype=dtype, sweep_method=form,
+                                           device=dev, plain=True)
+                bits, its = [], set()
+                for mode, label in ((0, "solve"), (1, "solve_fixed")):
+                    where = f"forms {form} {name} {dn} x{FORM_LANES} {label}"
+                    a, a2 = kern[mode](loads), kern[mode](loads)
+                    p = plain[mode](loads)
+                    sync(torch, dev)
+                    clear = torch.ones_like(p.converged)
+                    if dn == "float32":
+                        i_root = p.i_branch.abs()[:, root].flatten(1).amax(1)
+                        band = F32_FLAG_ULPS * torch.finfo(dtype).eps * i_root
+                        clear = (p.residual - LADDER_EPS).abs() > band
+                    check(torch.equal(a.converged[clear], p.converged[clear]),
+                          f"{where}: converged flags differ")
+                    conv = a.converged & p.converged
+                    check(bool(conv.all()), f"{where}: "
+                          f"{int((~conv).sum())} lanes did not converge")
+                    gap = float(lane_gaps(torch, a, p).max())
+                    check(gap <= LADDER_ATOL[dn],
+                          f"{where}: {gap:.3e} from the plain version")
+                    check(dn == "float32"
+                          or torch.equal(a.iterations, p.iterations),
+                          f"{where}: iterations differ")
+                    check(ladder_same_bits(torch, a, a2),
+                          f"{where}: not bit-identical on repeat")
+                    same = ladder_same_bits(torch, a, p)
+                    check(form == "dense" or dn == "float32" or same,
+                          f"{where}: L4 is not its plain version's bits")
+                    bits.append(same)
+                    its.update(a.iterations.tolist())
+                    key = f"{form}_{dn}"
+                    worst[key] = max(worst.get(key, 0.0), gap)
+                log(f"forms (a): {form:<8} {name:<10} (nb {f.n_branches}) "
+                    f"{dn} x{FORM_LANES} solve/fixed: iterations {min(its)}-"
+                    f"{max(its)}, flags equal, bit-identical on repeat, "
+                    f"{worst[f'{form}_{dn}']:.2e} worst so far; the plain "
+                    f"version's bits: {bits}")
+            # A lane's bits do not depend on the lanes beside it (the
+            # kernels'; a CPU rehearsal's BLAS may sum otherwise).
+            for mode in (0, 1) if dev == "cuda" else ():
+                solve = make_ladder_solver(f, sweep_method=form,
+                                           device=dev)[mode]
+                wide = solve(loads)
+                for k in (0, FORM_LANES - 1):
+                    one = solve(loads[k:k + 1])
+                    sync(torch, dev)
+                    check(all(torch.equal(getattr(getattr(one, fl), pt)[0],
+                                          getattr(getattr(wide, fl), pt)[k])
+                              for fl in ("v_node", "i_branch", "i_load")
+                              for pt in ("re", "im")),
+                          f"forms {form} {name}: lane {k} differs in a "
+                          f"launch of 1 lane")
+    f = feeders["radial2048_collapse"]
+    loads = lane_loads(f, FORM_LANES)
+    for form in FORM_CASES:
+        kern = make_ladder_solver(f, sweep_method=form, device=dev)[0]
+        plain = make_ladder_solver(f, sweep_method=form, device=dev,
+                                   plain=True)[0]
+        a, p = kern(loads), plain(loads)
+        sync(torch, dev)
+        check(torch.equal(a.converged, p.converged)
+              and torch.equal(a.iterations, p.iterations),
+              f"forms {form} radial2048 at its default load: flags or "
+              f"iterations differ")
+        check(form == "dense" or ladder_same_bits(torch, a, p),
+              "forms doubling radial2048 at its default load: not the plain "
+              "version's bits")
+        log(f"forms (a): {form} synthetic_radial(2048, seed=0) at its default "
+            f"load x{FORM_LANES}: {int(a.converged.sum())} lanes converge "
+            f"(voltage collapse), flags and iterations equal"
+            + ("" if form == "dense" else ", the plain version's bits"))
+    errs["ladder_dense"] = worst["dense_float64"]
+    errs["ladder_doubling"] = worst["doubling_float64"]
+    log(f"forms (a): max |kernel - plain| L3 f64 {worst['dense_float64']:.3e}"
+        f" f32 {worst['dense_float32']:.3e}, L4 f64 "
+        f"{worst['doubling_float64']:.3e} f32 {worst['doubling_float32']:.3e}"
+        f" ({time.monotonic() - t0:.1f} s)")
+    return worst
+
+
+def form_grads(torch, f, form, loads, vs, dev, plain):
+    """The lanes' summed total loss and its gradient in (Q, vs) through
+    ``solve_fixed``."""
+    from freedm_tpu_torch.pf.ladder import make_ladder_solver, total_loss_kw
+
+    _, fixed = make_ladder_solver(f, sweep_method=form, device=dev,
+                                  plain=plain)
+    p = torch.as_tensor(loads.real, dtype=torch.float64, device=dev)
+    q = torch.as_tensor(loads.imag, dtype=torch.float64,
+                        device=dev).clone().requires_grad_(True)
+    v = torch.as_tensor(vs, dtype=torch.float64,
+                        device=dev).clone().requires_grad_(True)
+    loss = total_loss_kw(f, fixed((p, q), v)).sum()
+    gq, gv = torch.autograd.grad(loss, (q, v))
+    return float(loss.detach()), gq, gv
+
+
+def compare_form_vjps(torch, extra, dev="cuda"):
+    """(b) Each form's reverse mode through ``solve_fixed`` — L3 and L4, and
+    L2 on the Euler form — against ``torch.autograd`` of its plain fixed
+    solve, in the loads and in ``v_source_pu`` (per lane), at vvc_9bus ×
+    {1, 64} and the larger feeders × {1, 8} (rtol ``GRAD_RTOL``, atol
+    ``GRAD_ATOL``); then central differences in ``v_source_pu`` (step 1e-6)
+    and in three live loads (step 1e-3 kvar) on the 10k feeder × 1 (L4, L2)
+    and the 2048-branch feeder × 1 (L3), relative ``FD_REL``."""
+    t0 = time.monotonic()
+    feeders = form_feeders()
+    worst = {}
+    cases = {"dense": FORM_CASES["dense"],
+             "doubling": FORM_CASES["doubling"],
+             "euler": ("vvc_9bus", "radial10k")}
+    for form, names in cases.items():
+        for name in names:
+            t1 = time.monotonic()
+            f = feeders[name]
+            # The plain versions' autograd at 64 lanes of the large
+            # feeders costs minutes; 8 lanes there.
+            for lanes in (1, FORM_LANES if f.n_branches < 100 else 8):
+                loads = lane_loads(f, lanes)
+                vs = np.linspace(0.98, 1.04, lanes)
+                _, gq, gv = form_grads(torch, f, form, loads, vs, dev, False)
+                _, wq, wv = form_grads(torch, f, form, loads, vs, dev, True)
+                sync(torch, dev)
+                for g, w, what in ((gq, wq, "loads"), (gv, wv, "v_source")):
+                    check(bool(torch.isfinite(g).all()),
+                          f"vjp {form} {name}: non-finite")
+                    excess = float(((g - w).abs()
+                                    - GRAD_RTOL * w.abs()).max())
+                    check(excess <= GRAD_ATOL,
+                          f"vjp {form} {name} x{lanes} {what}: beyond rtol "
+                          f"{GRAD_RTOL} by {excess:.3e}")
+                    rel = float((g - w).abs().max() / w.abs().max())
+                    worst[(form, what)] = max(worst.get((form, what), 0.0),
+                                              rel)
+            log(f"forms (b): {form} {name} x1/x{lanes}: the gradient in "
+                f"the loads and in v_source_pu within rtol {GRAD_RTOL} of "
+                f"autograd of the plain fixed solve "
+                f"({time.monotonic() - t1:.1f} s)")
+    from freedm_tpu_torch.pf.ladder import make_ladder_solver, total_loss_kw
+
+    for form, name in (("doubling", "radial10k"), ("euler", "radial10k"),
+                       ("dense", "radial2048")):
+        f = feeders[name]
+        loads = f.s_load[None].copy()
+        vs = np.array([f.v_source_pu])
+        _, gq, gv = form_grads(torch, f, form, loads, vs, dev, False)
+        fixed = make_ladder_solver(f, sweep_method=form, device=dev)[1]
+
+        def loss_at(l, v, f=f, fixed=fixed):
+            return float(total_loss_kw(f, fixed(l, torch.as_tensor(
+                v, dtype=torch.float64, device=dev))).sum())
+
+        h = 1e-6
+        fd = (loss_at(loads, vs + h) - loss_at(loads, vs - h)) / (2 * h)
+        rel = abs(fd - float(gv[0])) / max(abs(fd), 1e-30)
+        check(rel <= FD_REL, f"vjp {form} {name} x1: d/dv_source "
+              f"{float(gv[0]):.9e} vs central difference {fd:.9e}")
+        out = [f"v_source {float(gv[0]):.9e} (cd {fd:.9e}, rel {rel:.1e})"]
+        live = np.argwhere(f.phase_mask > 0)
+        for idx in (live[0], live[len(live) // 2], live[-1]):
+            e = np.zeros_like(loads)
+            e[0, idx[0], idx[1]] = 1e-3j
+            fd = (loss_at(loads + e, vs) - loss_at(loads - e, vs)) / 2e-3
+            g = float(gq[0, idx[0], idx[1]])
+            rel = abs(fd - g) / max(abs(fd), 1e-30)
+            check(rel <= FD_REL, f"vjp {form} {name} x1 dq{tuple(idx)}: "
+                  f"{g:.9e} vs central difference {fd:.9e}")
+            out.append(f"dq{tuple(int(i) for i in idx)} {g:.6e} (rel "
+                       f"{rel:.1e})")
+        log(f"forms (b): {form} {name} x1 central differences: "
+            + ", ".join(out))
+    extra["v0bar_rel_gap"] = worst[("euler", "v_source")]
+    log("forms (b): worst relative gap to the plain gradient: "
+        + ", ".join(f"{k[0]} {k[1]} {v:.2e}" for k, v in worst.items())
+        + f" ({time.monotonic() - t0:.1f} s)")
+    return worst
+
+
+def form_inputs(torch, f, lanes, dtype, dev="cuda"):
+    """The kernels' raw inputs in the caller's branch order."""
+    from freedm_tpu_torch.cplx import C
+    from freedm_tpu_torch.pf.ladder import SOURCE_UNIT
+
+    s = lane_loads(f, lanes) / f.s_base_per_phase_kva
+    u = SOURCE_UNIT * f.v_source_pu
+
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    return (C(t(s.real), t(s.imag)),
+            C(t(np.tile(u.real, (lanes, 1))), t(np.tile(u.imag, (lanes, 1)))))
+
+
+def form_bytes(lanes, nb, w, table_bytes):
+    """A solve's inputs read once (loads, source phasors, the tree and the
+    form's tables) and outputs written once (v, i_br, i_load)."""
+    return (w * (6 * lanes * nb + 6 * lanes) + w * 22 * nb + table_bytes
+            + w * 18 * lanes * nb + (4 + w + 1) * lanes)
+
+
+def time_forms(torch, lk, rows, extra):
+    """(c) L3 and L4 beside L1 on the same feeders and lanes: the fixed
+    solve of ``FORM_ITERS`` iterations and its reverse mode by queued CUDA
+    events (float64; float32 solves too), the plain versions, the bounds,
+    and L3's library row: one ``torch.matmul`` of the subtree matrix with
+    the packed ``[nb, 6 · 64]`` currents, times the 2 × ``FORM_ITERS``
+    products a solve runs.  The three forms compute one function, so each
+    is bounded by that function's own work — its inputs read and outputs
+    written once (``form_bytes``, the form's tables included) and L1's
+    ``L1_OPS`` (a reverse mode L2's ``L2_OPS``) a branch and iteration,
+    whose sweeps cost O(nb) — not by a form's redundant work (L3's dense
+    nb² products, L4's pointer-jumping rounds).  Each reverse mode's
+    cotangents (loads and ``v0``) are held to its plain version's on the
+    same random cotangents, within ``GRAD_RTOL`` of the largest.  Returns
+    the head-to-head a shape."""
+    from freedm_tpu_torch.cplx import C
+
+    t0 = time.monotonic()
+    feeders = form_feeders()
+    eps, iters = LADDER_EPS, FORM_ITERS
+    heads = {}
+    rng = np.random.default_rng(5)
+    for form, name, lanes, dtype in (
+            ("dense", "radial2048", FORM_LANES, torch.float64),
+            ("dense", "radial2048", FORM_LANES, torch.float32),
+            ("dense", "vvc_9bus", FORM_LANES, torch.float64),
+            ("doubling", "radial10k", FORM_LANES, torch.float64),
+            ("doubling", "radial10k", FORM_LANES, torch.float32),
+            ("doubling", "radial2048", FORM_LANES, torch.float64),
+            ("doubling", "vvc_9bus", FORM_LANES, torch.float64),
+            ("doubling", "radial10k", 1, torch.float64)):
+        f = feeders[name]
+        dn = str(dtype).split(".")[-1]
+        w = 8 if dtype == torch.float64 else 4
+        fp64 = dtype == torch.float64
+        nb = f.n_branches
+        s, v0 = form_inputs(torch, f, lanes, dtype)
+        if form == "dense":
+            op = lk.dense_operands(f, dtype, torch.device("cuda"))
+            kernel, plain = lk.ladder_dense, lk.ladder_dense_plain
+            vjp, vjp_plain = lk.ladder_dense_vjp, lk.ladder_dense_vjp_plain
+            tables = 2 * nb * nb
+        else:
+            op = lk.doubling_operands(f, dtype, torch.device("cuda"))
+            kernel, plain = lk.ladder_doubling, lk.ladder_doubling_plain
+            vjp, vjp_plain = (lk.ladder_doubling_vjp,
+                              lk.ladder_doubling_vjp_plain)
+            tables = 4 * (op.jump.numel() + op.pre_ptr.numel()
+                          + int(op.pre_idx.shape[0]))
+        b, by = bound(form_bytes(lanes, nb, w, tables),
+                      L1_OPS * nb * lanes * iters, fp64)
+        fixed = lambda: kernel(s, v0, op, eps, iters, True)  # noqa: E731
+        k = time_ms(torch, fixed, reps=5)
+        kd = queued_events_ms(torch, fixed, 5)
+        kd_solve = queued_events_ms(
+            torch, lambda: kernel(s, v0, op, eps, iters, False), 5)
+        n_it = int(kernel(s, v0, op, eps, iters, False).iterations.sum())
+        pl = time_ms(torch, lambda: plain(s, v0, op, eps, iters, True),
+                     reps=1)
+        # L1 on the same lanes (preorder space, its own operands).
+        l1_s, l1_v0, l1_op = preorder_inputs(torch, lk, f, lanes, dtype)
+        l1 = queued_events_ms(torch, lambda: lk.ladder_solve(
+            l1_s, l1_v0, l1_op, eps, iters, True), 5)
+        row = {"ms": k, "device_ms": kd, "plain_ms": pl, "bound_ms": b,
+               "bound_by": by, "device_ms_solve": kd_solve,
+               "solve_iterations": n_it, "l1_device_ms": l1}
+        lib = None
+        if form == "dense":
+            sub = op.sub.to(dtype)
+            x = torch.randn(nb, 6 * lanes, dtype=dtype, device="cuda")
+            one = queued_events_ms(torch, lambda: torch.matmul(sub, x), 5)
+            lib = one * 2 * iters
+            row.update(library_ms=lib, library_one_product_ms=one)
+        extra_vjp = ""
+        if fp64:
+            sv = kernel(s, v0, op, eps, iters, True, save=True)
+            gs = [C(torch.tensor(rng.normal(size=(lanes, nb, 3)),
+                                 dtype=dtype, device="cuda"),
+                    torch.tensor(rng.normal(size=(lanes, nb, 3)),
+                                 dtype=dtype, device="cuda"))
+                  for _ in range(3)]
+            back = lambda: vjp(sv.saved, s, op, *gs)  # noqa: E731
+            kb = queued_events_ms(torch, back, 5)
+            kept = []
+            pb = time_ms(torch, lambda: kept.append(vjp_plain(
+                sv.saved, s, op, *gs)), reps=1)
+            got, want = back(), kept[-1]
+            sync(torch, "cuda")
+            where = f"forms (c) {form} {name} x{lanes} reverse mode"
+            rel, same = 0.0, True
+            for g, wt in ((got[0].re, want[0].re), (got[0].im, want[0].im),
+                          (got[1].re, want[1].re), (got[1].im, want[1].im)):
+                check(bool(torch.isfinite(g).all()), f"{where}: non-finite")
+                top = float(wt.abs().max())
+                gap = float((g - wt).abs().max())
+                check(gap <= GRAD_RTOL * top, f"{where}: {gap:.3e} from the "
+                      f"plain version (largest {top:.3e})")
+                rel = max(rel, gap / max(top, 1e-300))
+                same = same and torch.equal(g, wt)
+            # The saved iterates, the loads and three cotangents read, the
+            # two cotangents written; L2's operations a branch and iteration.
+            bb, bby = bound(w * 6 * lanes * nb * (iters + 5) + w * 22 * nb
+                            + tables, L2_OPS * nb * lanes * iters)
+            row.update(vjp_device_ms=kb, vjp_plain_ms=pb, vjp_bound_ms=bb,
+                       vjp_bound_by=bby, vjp_max_rel_err=rel,
+                       vjp_plain_bits=same)
+            extra_vjp = (f"; reverse mode {kb:.4f} ms (plain {pb:.4f}, bound "
+                         f"{bb:.5f} ({bby}); within {rel:.2e} of the plain "
+                         f"version's cotangents"
+                         + (", its bits)" if same else ")"))
+            del sv, gs, kept, got, want
+        key = f"{name}_x{lanes}_{dn}"
+        heads[f"{form}_{key}"] = row
+        log(f"timing: ladder_{form:<8} {key}: fixed x{iters} {k:.4f} ms "
+            f"(queued {kd:.4f}), solve mode {kd_solve:.4f} ms for {n_it} "
+            f"lane-iterations; L1 fixed x{iters} on the same lanes "
+            f"{l1:.4f} ms; plain {pl:.4f} ms; bound {b:.5f} ms ({by})"
+            + ("" if lib is None else
+               f"; library: torch.matmul x{2 * iters} {lib:.4f} ms")
+            + extra_vjp)
+        del op
+    main_dense = heads[f"dense_radial2048_x{FORM_LANES}_float64"]
+    main_doub = heads[f"doubling_radial10k_x{FORM_LANES}_float64"]
+    doub_2048 = heads[f"doubling_radial2048_x{FORM_LANES}_float64"]
+    log(f"forms (c): at synthetic_radial(2048) x{FORM_LANES} f64 fixed x"
+        f"{iters}: L3 {main_dense['device_ms']:.4f} ms = "
+        f"{main_dense['device_ms'] / main_dense['l1_device_ms']:.1f}x L1 "
+        f"({main_dense['l1_device_ms']:.4f}), L4 "
+        f"{doub_2048['device_ms']:.4f} ms; L3 "
+        f"{main_dense['device_ms'] / main_dense['bound_ms']:.0f}x its bound, "
+        f"L1 {main_dense['l1_device_ms'] / main_dense['bound_ms']:.0f}x")
+    rows["ladder_dense"] = (main_dense["ms"], main_dense["plain_ms"],
+                            main_dense["library_ms"], main_dense["bound_ms"],
+                            main_dense["bound_by"])
+    rows["ladder_doubling"] = (main_doub["ms"], main_doub["plain_ms"], None,
+                               main_doub["bound_ms"], main_doub["bound_by"])
+    def reverse(row):
+        return {k[4:]: row[k] for k in row if k.startswith("vjp_")}
+
+    extra["ladder_dense"] = {
+        "shape": f"synthetic_radial(2048, seed=0, load_kw=1.0) x{FORM_LANES} "
+                 f"f64, solve_fixed, {iters} iterations",
+        "device_ms": main_dense["device_ms"],
+        "reverse_mode": reverse(main_dense), "shapes": heads}
+    extra["ladder_doubling"] = {
+        "shape": f"synthetic_radial(10000, seed=0, load_kw=1.0) x{FORM_LANES}"
+                 f" f64, solve_fixed, {iters} iterations",
+        "device_ms": main_doub["device_ms"],
+        "reverse_mode": reverse(main_doub)}
+    torch.cuda.empty_cache()
+    log(f"forms (c): {time.monotonic() - t0:.1f} s")
+    return heads
+
+
+def form_main_paths(torch, lk, dev="cuda"):
+    """(e) The main paths of L3 and L4, counts set to 0 just before and
+    read just after: ``make_ladder_solver(sweep_method=...)`` — a solve and
+    a ``solve_fixed`` with the gradient of the total loss in the loads and
+    in ``v_source_pu`` — on the 2048-branch feeder × 64 (L3) and the 10k
+    feeder × 64 (L4).  Every kernel launch counts: L3 issues ``1 + 2 ·
+    max_iter`` a solve (either mode) and ``2 + 3 · max_iter`` a reverse
+    mode, L4 one each.  Returns the counts and their split by mode."""
+    from freedm_tpu_torch.pf.ladder import make_ladder_solver, total_loss_kw
+
+    feeders = form_feeders()
+    counts, modes = {}, {}
+    n = FORM_ITERS
+    expect = {"ladder_dense": {"forward": 2 * (1 + 2 * n),
+                               "reverse": 2 + 3 * n},
+              "ladder_doubling": {"forward": 2, "reverse": 1}}
+    for form, name, key in (("dense", "radial2048", "ladder_dense"),
+                            ("doubling", "radial10k", "ladder_doubling")):
+        f = feeders[name]
+        loads = lane_loads(f, FORM_LANES)
+        solve, fixed = make_ladder_solver(f, max_iter=n, sweep_method=form,
+                                          device=dev)
+        p = torch.as_tensor(loads.real, device=dev)
+        q = torch.as_tensor(loads.imag, device=dev).requires_grad_(True)
+        v = torch.full((FORM_LANES,), f.v_source_pu, dtype=torch.float64,
+                       device=dev, requires_grad=True)
+        lk.reset_launches()
+        res = solve(loads)
+        loss = total_loss_kw(f, fixed((p, q), v)).sum()
+        gq, gv = torch.autograd.grad(loss, (q, v))
+        sync(torch, dev)
+        counts[key] = lk.launches()[key]
+        modes[key] = lk.mode_launches()[key]
+        check(modes[key] == expect[key]
+              and counts[key] == sum(expect[key].values())
+              and bool(res.converged.all())
+              and bool(torch.isfinite(gq).all() & torch.isfinite(gv).all()),
+              f"forms (e) {form} {name}: {lk.launches()} "
+              f"{lk.mode_launches()} (want {expect[key]}), converged "
+              f"{int(res.converged.sum())}/{FORM_LANES}")
+        log(f"forms (e): {form} {name} x{FORM_LANES}: solve, solve_fixed and "
+            f"its backward: {key} {counts[key]} launches ({modes[key]}), "
+            f"every lane converged, the gradients finite")
+    return counts, modes
+
+
+def wide_inputs(torch, n, fleets, dev):
+    """B1 WIDE's inputs: ``bench_lb_256``'s draw (``normal(0, 10)``,
+    ``default_rng(0)``, float32) for ``fleets`` fleets of ``n`` nodes,
+    zero gateways, one group."""
+    rng = np.random.default_rng(0)
+    ng = torch.as_tensor(rng.normal(0, 10, (fleets, n)), dtype=torch.float32,
+                         device=dev)
+    gw = torch.zeros(fleets, n, dtype=torch.float32, device=dev)
+    gid = torch.zeros(1, n, dtype=torch.int32, device=dev)
+    return ng, gw, gid
+
+
+def wide_phase(torch, dk, extra, dev="cuda", shapes=WIDE_SHAPES,
+               entry_nodes=1 << 15):
+    """(d) B1's WIDE form against its plain version bit for bit (and on
+    repeat) over ``WIDE_ROUNDS`` rounds at ``WIDE_SHAPES``, and its times;
+    then ``lb.run_rounds`` and ``lb.lb_round(..., gid=...)`` at 2¹⁵ nodes
+    from a block-diagonal mask of ``WIDE_GROUP``-node groups built on the
+    card (the GM → LB hand-off: ``lb.group_ids``), counts set to 0 before
+    and read after; B1's packed form at 2¹⁵ − 1 against its plain version.
+    Returns B1's launches over that ``run_rounds``."""
+    from freedm_tpu_torch.modules import lb
+
+    t0 = time.monotonic()
+    timed = {}
+    on_card = dev == "cuda"
+    for n, fleets in shapes:
+        ng, gw, gid = wide_inputs(torch, n, fleets, dev)
+        check(dk.lb_form(n, 4) == dk.WIDE, f"B1 at n={n}: form "
+              f"{dk.lb_form(n, 4)}")
+        call = lambda: dk.lb_rounds(ng, gw, gid, 1.0, WIDE_ROUNDS)  # noqa: E731
+        got, again = call(), call()
+        want = dk.lb_rounds_plain(ng, gw, gid, 1.0, WIDE_ROUNDS)
+        sync(torch, dev)
+        check(same_fields(torch, got, want) and same_fields(torch, got, again),
+              f"B1 WIDE n={n} x{fleets}: not its plain version's bits")
+        row = {"migrations_first_last": [int(got.migrations[0, 0]),
+                                         int(got.migrations[0, -1])]}
+        if on_card:
+            k = events_ms(torch, call, 3)
+            p = time_ms(torch, lambda: dk.lb_rounds_plain(
+                ng, gw, gid, 1.0, WIDE_ROUNDS), 1)
+            b, by = bound(fleets * n * 8 + 4 * n + fleets * n * 4
+                          + fleets * WIDE_ROUNDS * (4 + 4 * n), 0, fp64=False)
+            row.update(ms=k, plain_ms=p, bound_ms=b, bound_by=by)
+        timed[f"{n}x{fleets}x{WIDE_ROUNDS}"] = row
+        log(f"dgi (wide): B1 WIDE n={n} x{fleets} fleets x{WIDE_ROUNDS} "
+            f"rounds: the plain version's bits, bit-identical on repeat; "
+            f"migrations {row['migrations_first_last']} (first, last round)"
+            + (f"; {row['ms']:.3f} ms (plain {row['plain_ms']:.3f} ms, bound "
+               f"{row['bound_ms']:.5f} ms)" if on_card else ""))
+    n = entry_nodes
+    blk = torch.arange(n, device=dev) // WIDE_GROUP
+    mask = (blk[:, None] == blk[None, :]).to(torch.float32)
+    rng = np.random.default_rng(0)
+    ng = torch.as_tensor(rng.normal(0, 10, n), dtype=torch.float32,
+                         device=dev)
+    gw0 = torch.zeros(n, dtype=torch.float32, device=dev)
+    dk.reset_launches()
+    t1 = time.monotonic()
+    gw, migs, states = lb.run_rounds(ng, gw0, mask, 1.0, WIDE_ROUNDS,
+                                     device=dev)
+    sync(torch, dev)
+    wall = time.monotonic() - t1
+    launched = dk.launches()["lb_rounds"]
+    gid = lb.group_ids(mask)
+    want = dk.lb_rounds_plain(ng[None], gw0[None], gid[None], 1.0,
+                              WIDE_ROUNDS)
+    check(launched == (1 if on_card else 0) and torch.equal(
+        gw, want.gateway[0]) and torch.equal(migs, want.migrations[0])
+        and torch.equal(states, want.states[0]),
+        f"run_rounds at {n} nodes: {launched} launches, or not B1's plain "
+        f"version's trajectory")
+    rnd = lb.lb_round(ng, gw, mask, 1.0, gid=gid, device=dev)
+    one = dk.lb_rounds_plain(ng[None], gw[None], gid[None], 1.0, 1,
+                             round_outputs=True)
+    check(torch.equal(rnd.gateway, one.gateway[0])
+          and torch.equal(rnd.state, one.states[0, 0])
+          and int(rnd.n_migrations) == int(one.migrations[0, 0]),
+          f"lb_round at {n} nodes differs from B1's plain version")
+    del rnd, mask
+    log(f"dgi (wide): lb.run_rounds at N={n} ({n // WIDE_GROUP} groups of "
+        f"{WIDE_GROUP} from a block-diagonal mask, group_ids on the card) x"
+        f"{WIDE_ROUNDS} rounds: B1 launched {launched} time(s), the plain "
+        f"version's trajectory, migrations {int(migs[0])} -> "
+        f"{int(migs[-1])}, {wall * 1e3:.1f} ms with group_ids; "
+        f"lb_round(..., gid=...) equal too")
+    n = (1 << 15) - 1
+    ng, gw, gid = wide_inputs(torch, n, 1, dev)
+    check(dk.lb_form(n, 4) == dk.GLOBAL, "B1 below 2^15: not GLOBAL")
+    got = dk.lb_rounds(ng, gw, gid, 1.0, WIDE_ROUNDS)
+    want = dk.lb_rounds_plain(ng, gw, gid, 1.0, WIDE_ROUNDS)
+    check(same_fields(torch, got, want), "B1 packed n=2^15-1: not its plain "
+          "version's bits")
+    packed = {}
+    if on_card:
+        packed = {"ms": events_ms(torch, lambda: dk.lb_rounds(
+            ng, gw, gid, 1.0, WIDE_ROUNDS), 3)}
+    log(f"dgi (wide): B1 packed (GLOBAL) n={n} x{WIDE_ROUNDS} rounds: the "
+        f"plain version's bits" + (f", {packed['ms']:.3f} ms"
+                                   if on_card else "")
+        + f" ({time.monotonic() - t0:.1f} s)")
+    extra.setdefault("lb_rounds", {}).update(
+        wide=timed, packed_at_2_15_minus_1=packed,
+        launches_run_rounds_2_15=launched)
+    return launched
+
+
+def forms_phase(torch, lk, dk, errs, rows, extra):
+    """Phase 28: L3 and L4 against their plain versions, the reverse
+    modes with the source phasors' cotangent, the times, B1 WIDE and the
+    forms' main paths; returns L3's and L4's main-path launches."""
+    t28 = time.monotonic()
+    compare_forms(torch, errs)
+    compare_form_vjps(torch, extra.setdefault("ladder_vjp", {}))
+    time_forms(torch, lk, rows, extra)
+    wide_phase(torch, dk, extra)
+    counts, modes = form_main_paths(torch, lk)
+    for key, path in (("ladder_dense", "forms phase (e): make_ladder_solver("
+                       "sweep_method='dense') on synthetic_radial(2048) x64, "
+                       "solve + solve_fixed + backward"),
+                      ("ladder_doubling", "forms phase (e): make_ladder_solver("
+                       "sweep_method='doubling') on synthetic_radial(10000) "
+                       "x64, solve + solve_fixed + backward")):
+        extra[key]["launches_path"] = path
+        extra[key]["launches_by_mode"] = modes[key]
+    log(f"forms: phase 28 {time.monotonic() - t28:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -7290,6 +7904,7 @@ def main() -> int:
         extra["form_groups"]["superstep_ms_a_round"] = split
         log(f"dgi: phases 24-26 {time.monotonic() - t24:.1f} s")
         counts.update(reverse_phase(torch, sol, errs, rows, extra))
+        counts.update(forms_phase(torch, lk, dk, errs, rows, extra))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -7319,6 +7934,10 @@ def main() -> int:
                          "freedm_tpu/pf/ladder.py:184"),
         "ladder_vjp": ("cuda", source + "csrc/ladder.cu",
                        "freedm_tpu/pf/ladder.py:209"),
+        "ladder_dense": ("cuda", source + "csrc/ladder.cu",
+                         "freedm_tpu/pf/sweeps.py:45"),
+        "ladder_doubling": ("cuda", source + "csrc/ladder.cu",
+                            "freedm_tpu/pf/sweeps.py:60"),
         "agent_step": ("cuda", source + "csrc/qsts.cu",
                        "freedm_tpu/scenarios/agents.py:459"),
         "qsts_bus_reduce": ("cuda", source + "csrc/qsts.cu",

@@ -62,16 +62,24 @@
 //   device-memory scratch above V = 1344), sets the closed FID edges with
 //   atomicOr, closes and writes its [V, V] rows.
 //
-//   B1 is one CTA a fleet, R rounds in one launch.  A node's sort key is one
-//   64-bit word: group id (15 bits) | class (2) | ~bits(float32 |imbalance|)
-//   (32; non-negative floats order as their bits) | index (15).  The key is
-//   a total order equal to the reference's stable sort, so an unstable
-//   bitonic sort in shared memory gives its permutation.  Segment starts
-//   come from a block max-scan, segment lengths are written at segment ends,
-//   and a node reads its group's supply and demand counts from its own
-//   segment and the neighbouring one.  The gateway stays in shared memory
-//   across rounds (form SHARED; N <= 8192 in float64) or in a device-memory
-//   scratch (form GLOBAL, up to N = 2^15 - 1).  Float arithmetic is written
+//   B1 is one CTA a fleet, R rounds in one launch.  Below 2^15 nodes a
+//   node's sort key is one 64-bit word: group id (15 bits) | class (2) |
+//   ~bits(float32 |imbalance|) (32; non-negative floats order as their bits)
+//   | index (15).  The key is a total order equal to the reference's stable
+//   sort, so an unstable bitonic sort gives its permutation.  From 2^15
+//   nodes — where the reference takes its unpacked branch (lb.py:178-189) —
+//   form WIDE sorts a key pair instead, (group id (30 bits) | class (2) |
+//   ~bits(|imbalance|) (32), index (32)), compared lexicographically in the
+//   same bitonic network: the same total order up to N = 2^30.  Segment
+//   starts come from a block max-scan, segment lengths are written at
+//   segment ends, and a node reads its group's supply and demand counts
+//   from its own segment and the neighbouring one (the counts the reference's
+//   two segment sums give).  The working set stays in shared memory across
+//   rounds (form SHARED; N <= 8192 in float64) or in a device-memory scratch
+//   (form GLOBAL up to N = 2^15 - 1; form WIDE, 20 bytes a padded node and
+//   the gateway: 1.8 MB a fleet at N = 2^16 in float64, L2-resident; its
+//   sort is 136 passes over the scratch at 2^16, latency-bound in one CTA —
+//   a multi-CTA or cluster sort is later work).  Float arithmetic is written
 //   with __f*_rn / __d*_rn intrinsics (no contraction), each operation
 //   rounding as the plain version's does.
 //
@@ -557,16 +565,26 @@ __device__ __forceinline__ float key_of(double x) {
   return __double2float_rn(fabs(x));
 }
 
+// B1 sorts the packed 64-bit key below 2^15 nodes and the WIDE key pair
+// from there (the reference's unpacked branch, freedm_tpu/modules/lb.py
+// :178-189, begins at 2^15 nodes as well).
+constexpr int kLBWideNodes = 32768;     // 2^15
+constexpr int kLBMaxNodes = 1073741824;  // 2^30: the WIDE key's 30-bit group id
+
 struct LBLayout {
-  size_t keys, gw, start, seglen, total;
+  size_t keys, idx, gw, start, seglen, total;
 };
 
 // A fleet's working set (dgi_kernels.lb_state_bytes), after the 128-byte
-// reduction buffer at the start of shared memory.
-__host__ __device__ inline LBLayout lb_layout(int npad, int n, int gsize) {
+// reduction buffer at the start of shared memory (forms SHARED and GLOBAL;
+// form WIDE keeps it in device memory): the sort keys, the WIDE form's
+// node indices, the gateway, the segment starts and lengths.
+__host__ __device__ inline LBLayout lb_layout(int npad, int n, int gsize, bool wide) {
   LBLayout s;
   s.keys = 0;
   size_t off = align16(8 * (size_t)npad);
+  s.idx = off;
+  if (wide) off = align16(off + 4 * (size_t)npad);
   s.gw = off;
   off = align16(off + (size_t)gsize * n);
   s.start = off;
@@ -599,6 +617,38 @@ struct LBArgs {
   int n, npad, rounds;
 };
 
+// The sort keys of a fleet.  Packed (below 2^15 nodes): one 64-bit word,
+// group id (15 bits) | class (2) | ~bits(float32 |imbalance|) (32) | index
+// (15).  WIDE: a pair compared lexicographically, the 64-bit group id (30
+// bits) | class (2) | ~bits(|imbalance|) (32) and the 32-bit index.  Both
+// are total orders equal to the reference's stable sort by (group, class,
+// -key), index order breaking ties.  `prefix` is a node's (group, class),
+// `node` its index.
+template <bool kWide>
+struct LBKeys {
+  uint64_t* key;
+  uint32_t* idx;  // WIDE only
+  __device__ __forceinline__ void set(int q, uint32_t gid, int cls, uint32_t kb) const {
+    if (kWide) {
+      key[q] = ((uint64_t)gid << 34) | ((uint64_t)cls << 32) | (uint64_t)kb;
+      idx[q] = (uint32_t)q;
+    } else {
+      key[q] = ((uint64_t)gid << 49) | ((uint64_t)cls << 47) | ((uint64_t)kb << 15) |
+               (uint64_t)q;
+    }
+  }
+  __device__ __forceinline__ void pad(int q) const {  // padding sorts last
+    key[q] = ~0ull;
+    if (kWide) idx[q] = ~0u;
+  }
+  __device__ __forceinline__ uint32_t prefix(int q) const {
+    return kWide ? (uint32_t)(key[q] >> 32) : (uint32_t)(key[q] >> 47);
+  }
+  __device__ __forceinline__ int node(int q) const {
+    return kWide ? (int)idx[q] : (int)(key[q] & 0x7fff);
+  }
+};
+
 // Ascending bitonic sort of npad (a power of two) keys.
 __device__ void bitonic_sort(uint64_t* keys, int npad) {
   for (int k = 2; k <= npad; k <<= 1) {
@@ -610,6 +660,30 @@ __device__ void bitonic_sort(uint64_t* keys, int npad) {
           if ((x > y) == ((i & k) == 0)) {
             keys[i] = y;
             keys[ixj] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Ascending bitonic sort of npad (a power of two) key pairs (hi, lo),
+// compared lexicographically.
+__device__ void bitonic_sort_wide(uint64_t* hi, uint32_t* lo, int npad) {
+  for (int k = 2; k <= npad; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < npad; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const uint64_t x = hi[i], y = hi[ixj];
+          const uint32_t xl = lo[i], yl = lo[ixj];
+          const bool gt = x > y || (x == y && xl > yl);
+          if (gt == ((i & k) == 0)) {
+            hi[i] = y;
+            hi[ixj] = x;
+            lo[i] = yl;
+            lo[ixj] = xl;
           }
         }
       }
@@ -642,7 +716,7 @@ __device__ void block_max_scan(int* a, int npad, int* red) {
   __syncthreads();
 }
 
-template <typename T, typename G>
+template <typename T, typename G, bool kWide>
 __global__ void __launch_bounds__(1024) lb_rounds_kernel(const LBArgs<T, G> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x, n = a.n, npad = a.npad;
@@ -650,8 +724,8 @@ __global__ void __launch_bounds__(1024) lb_rounds_kernel(const LBArgs<T, G> a) {
   int* red = (int*)smem;
   unsigned char* base =
       a.scratch ? a.scratch + (size_t)b * a.scratch_stride : smem + 128;
-  const LBLayout L = lb_layout(npad, n, (int)sizeof(G));
-  uint64_t* keys = (uint64_t*)(base + L.keys);
+  const LBLayout L = lb_layout(npad, n, (int)sizeof(G), kWide);
+  const LBKeys<kWide> keys{(uint64_t*)(base + L.keys), (uint32_t*)(base + L.idx)};
   G* gw = (G*)(base + L.gw);
   int* start = (int*)(base + L.start);
   int* seglen = (int*)(base + L.seglen);
@@ -667,7 +741,6 @@ __global__ void __launch_bounds__(1024) lb_rounds_kernel(const LBArgs<T, G> a) {
   for (int r = 0; r < a.rounds; ++r) {
     // Classification and sort keys, in node order.
     for (int i = tid; i < npad; i += bd) {
-      uint64_t key = ~0ull;  // padding sorts last
       if (i < n) {
         const T imb = sub_rn(ng[i], (T)gw[i]);
         const int st = imb >= step ? 1 : (imb <= -step ? -1 : 0);
@@ -675,39 +748,40 @@ __global__ void __launch_bounds__(1024) lb_rounds_kernel(const LBArgs<T, G> a) {
         const bool ok = gate == nullptr || gate[i] != 0;
         const int cls = (st == 1 && ok) ? 0 : ((st == -1 && ok) ? 1 : 2);
         const uint32_t kb = cls < 2 ? ~__float_as_uint(key_of(imb)) : 0u;
-        key = ((uint64_t)(uint32_t)gid[i] << 49) | ((uint64_t)cls << 47) |
-              ((uint64_t)kb << 15) | (uint64_t)i;
+        keys.set(i, (uint32_t)gid[i], cls, kb);
+      } else {
+        keys.pad(i);
       }
-      keys[i] = key;
     }
     __syncthreads();
-    bitonic_sort(keys, npad);
+    if (kWide)
+      bitonic_sort_wide(keys.key, keys.idx, npad);
+    else
+      bitonic_sort(keys.key, npad);
     // Segment (group, class) starts: a max-scan of the boundaries.
     for (int q = tid; q < npad; q += bd)
-      start[q] = (q == 0 || (keys[q] >> 47) != (keys[q - 1] >> 47)) ? q : 0;
+      start[q] = (q == 0 || keys.prefix(q) != keys.prefix(q - 1)) ? q : 0;
     __syncthreads();
     block_max_scan(start, npad, red);
     // Segment lengths, written at each segment's start by its last node.
     for (int q = tid; q < n; q += bd)
-      if (q == n - 1 || (keys[q + 1] >> 47) != (keys[q] >> 47))
+      if (q == n - 1 || keys.prefix(q + 1) != keys.prefix(q))
         seglen[start[q]] = q - start[q] + 1;
     __syncthreads();
     int mig = 0;
     for (int q = tid; q < n; q += bd) {
-      const uint64_t key = keys[q];
-      const int p = (int)(key & 0x7fff);
-      const uint32_t pre = (uint32_t)(key >> 47);
+      const int p = keys.node(q);
+      const uint32_t pre = keys.prefix(q);
       const int cls = (int)(pre & 3);
       const int s = start[q], rin = q - s;
       int scnt = 0, dcnt = 0;
       if (cls == 0) {  // the group's demand segment follows its supply one
         scnt = seglen[s];
         const int e = s + scnt;
-        if (e < n && (uint32_t)(keys[e] >> 47) == pre + 1) dcnt = seglen[e];
+        if (e < n && keys.prefix(e) == pre + 1) dcnt = seglen[e];
       } else if (cls == 1) {
         dcnt = seglen[s];
-        if (s > 0 && (uint32_t)(keys[s - 1] >> 47) == pre - 1)
-          scnt = seglen[start[s - 1]];
+        if (s > 0 && keys.prefix(s - 1) == pre - 1) scnt = seglen[start[s - 1]];
       }
       const bool sm = cls == 0 && rin < dcnt;
       const bool dm = cls == 1 && rin < scnt;
@@ -756,18 +830,22 @@ int lb_launch(const T* ng, const G* gw0, const int* gid, long long gid_stride,
               G* gw_out, int* migs, int* states, int* rank, float* sup,
               float* dem, float* intr, void* scratch, int n, int rounds,
               int fleets, void* stream) {
-  if (n <= 0 || n > 32767 || rounds <= 0 || fleets <= 0 ||
-      (rank && (rounds != 1 || !sup || !dem || !intr)))
+  const bool wide = n >= kLBWideNodes;
+  if (n <= 0 || n > kLBMaxNodes || rounds <= 0 || fleets <= 0 ||
+      (wide && !scratch) || (rank && (rounds != 1 || !sup || !dem || !intr)))
     return (int)cudaErrorInvalidValue;
   int npad = 32;
   while (npad < n) npad <<= 1;
-  const LBLayout L = lb_layout(npad, n, (int)sizeof(G));
+  const LBLayout L = lb_layout(npad, n, (int)sizeof(G), wide);
   LBArgs<T, G> a{ng,     gw0,     gid,  gid_stride, mal,   mal_stride,
                  gate,   gate_stride, step, gw_out,  migs,  states,
                  rank,   sup,     dem,  intr,       (unsigned char*)scratch,
                  L.total, n,      npad, rounds};
   const size_t smem = 128 + (scratch ? 0 : L.total);
-  return launch(lb_rounds_kernel<T, G>, dim3(fleets), min(npad, 1024), smem,
+  if (wide)
+    return launch(lb_rounds_kernel<T, G, true>, dim3(fleets), 1024, smem,
+                  (cudaStream_t)stream, a);
+  return launch(lb_rounds_kernel<T, G, false>, dim3(fleets), min(npad, 1024), smem,
                 (cudaStream_t)stream, a);
 }
 

@@ -35,7 +35,47 @@
 //
 //   The path-sum operator is the adjoint of the subtree-sum operator and
 //   vice versa, so L2 runs L1's two scans, swapped.  The root error carries
-//   no gradient (ladder.py:148-157).
+//   no gradient (ladder.py:148-157).  The source phasors v0 enter every
+//   iteration's v0 - path and the initial iterate v0 mask, so their
+//   cotangent v0bar [B, 3] sums mask vbar over the branches for each walked
+//   iteration and for the initial iterate: the total of the subtree sums'
+//   prefix, added in a fixed order.
+//
+// L3 ladder_dense — the same iteration (and its reverse mode) on
+//   freedm_tpu/pf/sweeps.py:45 `dense_sweeps`: i_br = S i_load and path =
+//   S^T drop with S [nb, nb] the 0/1 subtree matrix (nb <= 2048), in the
+//   caller's branch order.  A call is one launch of the initial state and
+//   two product launches an iteration, issued without a host read: the
+//   product S X [nb, 6 B] over tiles of 64 rows x 16 lanes (six columns a
+//   lane, four rows a thread), K walked in stages of 32 in increasing order
+//   (a lane's bits do not depend on the lanes beside it), S kept as bytes
+//   and widened in shared memory.  The product with S forms the loads'
+//   currents as it stages them (the first row tile also writes them out and
+//   saves the iterate) and takes i_br, the drops and the lane's root error
+//   in its epilogue; the product with S^T writes v' = (v0 - path) mask.  A
+//   lane's iterations and error live in three slots used in turn (slot
+//   it mod 3 read, slot it + 1 mod 3 written, slot it + 2 mod 3 cleared by
+//   the S^T product), so every tile of an iteration reads the same
+//   activity: a lane that has stopped is frozen, as the reference's vmapped
+//   while_loop leaves it, and a tile without an active lane returns at
+//   once.  The tiles' errors meet in an integer atomicMax on the bits (a
+//   non-negative float orders as its bits, a NaN above +inf).  The reverse
+//   mode runs the same two products swapped: mask vbar's sum for v0bar (a
+//   CTA a lane, fixed order), -S(mask vbar) with conj(z)^T in its epilogue,
+//   S^T ibbar with sbar and the new vbar in its epilogue: 2 + 3 iters
+//   launches.  Both entries report the launches they issued (`launched`),
+//   which the wrapper adds to its count.
+//
+// L4 ladder_doubling — the same on :60 `doubling_sweeps`: ceil(log2 levels)
+//   rounds, the subtree sums a scatter-add into each branch's 2^m-th
+//   ancestor, the path sums a gather from it, a sentinel slot nb for the
+//   roots.  One CTA a lane runs a whole solve (or reverse mode) in one
+//   launch, its [nb + 1, 6] state double-buffered in device scratch with a
+//   barrier between rounds.  The scatter-add is a gather-sum over host-built
+//   preimage lists {i : jump_m[i] = a}, i ascending — the order of the
+//   plain version's index_add, no atomics — and every forward operation is
+//   written with __d*_rn / __f*_rn in the plain version's order, so L4 gives
+//   the plain version's bits.
 //
 // Design: two routes, chosen by ladder_kernels.ladder_plan from (nb, dtype)
 //   alone, so a lane's result is the same bits whatever the lanes beside it.
@@ -88,6 +128,14 @@
 //   increasing k.  An iteration is seven walks of the run and four
 //   barriers.  Its state is 2.4 MB a lane at 10k buses in float64, so 64
 //   lanes (154 MB) do not stay in the 50 MB L2.
+//
+// Bounds of L3 and L4 (chip_smoke.py phase 28 (c)): L3 by its products'
+//   operations, 24 nb^2 B an iteration (6.4 GFLOP at 2048 x 64: 96 us at
+//   the FP64 tensor cores' 67 TFLOP/s; this kernel multiplies on the CUDA
+//   cores, whose fp64 peak is half that);
+//   L4 by its operations, ~132 a branch and iteration beside 6 an edge a
+//   round.  What holds L4 back is latency: one SM a lane walks 2 R + 4
+//   dependent passes an iteration through L2.
 //
 // Bounds on an H100 SXM (3.35 TB/s; 34 / 67 TFLOP/s fp64 / fp32 outside the
 //   tensor cores).  At synthetic_radial(10000) x 64 lanes, 20 iterations,
@@ -448,6 +496,7 @@ struct VjpArgs {
   const T* gl_im;
   T* sbar_re;  // [B, nb, 3] out
   T* sbar_im;
+  T* v0bar;  // [B, 6] out: the source phasors' cotangent (re3, im3)
   T* ps;  // scratch [B, nb + 1, 6]
   T* w;   // scratch [B, nb, 6]: vbar
   T* g;   // scratch [B, nb, 6]: ibbar
@@ -478,18 +527,25 @@ __global__ void __launch_bounds__(kThreads, 1) ladder_vjp_kernel(VjpArgs<T> a) {
       sbar_im[k * 3 + p] = T(0);
     }
   }
+  // mask vbar, the input of the subtree sums; their total is the source
+  // phasors' share of vbar (v0 enters every iteration's v0 - path and the
+  // initial iterate v0 mask).
+  const auto masked = [&](int k, T (&x)[6]) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const T m = tr.mask[k * 3 + p];
+      x[p] = w[k * 6 + p] * m;
+      x[3 + p] = w[k * 6 + 3 + p] * m;
+    }
+  };
+  T v0acc[6] = {0, 0, 0, 0, 0, 0};
   for (int it = a.iters - 1; it >= 0; --it) {
     const bool last = it == a.iters - 1;
     const T* vk = a.saved + ((size_t)it * a.lanes + b) * nb * 6;
-    // dropbar = -B(mask vbar): the prefix of mask vbar.
-    prefix_exclusive<T>(r, nb, ps, sm_b, [&](int k, T (&x)[6]) {
+    // dropbar = -B(mask vbar): the prefix of mask vbar, its total in ps[nb].
+    prefix_exclusive<T>(r, nb, ps, sm_b, masked);
 #pragma unroll
-      for (int p = 0; p < 3; ++p) {
-        const T m = tr.mask[k * 3 + p];
-        x[p] = w[k * 6 + p] * m;
-        x[3 + p] = w[k * 6 + 3 + p] * m;
-      }
-    });
+    for (int c = 0; c < 6; ++c) v0acc[c] += ps[(size_t)nb * 6 + c];
     // ibbar = conj(z)^T dropbar (+ the final i_br's cotangent).
     for (int i = r.lo + r.lane; i < r.hi; i += 32) {
       const int t = tr.tout[i];
@@ -546,6 +602,11 @@ __global__ void __launch_bounds__(kThreads, 1) ladder_vjp_kernel(VjpArgs<T> a) {
         w[t * 6 + 3 + p] = wi;
       }
     });
+  }
+  prefix_exclusive<T>(r, nb, ps, sm_b, masked);  // the initial iterate's share
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) a.v0bar[b * 6 + c] = v0acc[c] + ps[(size_t)nb * 6 + c];
   }
 }
 
@@ -1045,6 +1106,784 @@ __global__ void __launch_bounds__(CtaMax<T>::threads, 1)
   cluster_sync_all();  // no CTA leaves while another may read its slots
 }
 
+// ---------------------------------------------------------------------------
+// Exact rounding (no contraction), for L4's forward arithmetic
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ double add_rn(double x, double y) { return __dadd_rn(x, y); }
+__device__ __forceinline__ float add_rn(float x, float y) { return __fadd_rn(x, y); }
+__device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
+__device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
+__device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
+__device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
+__device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
+__device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
+__device__ __forceinline__ double sqrt_rn(double x) { return __dsqrt_rn(x); }
+__device__ __forceinline__ float sqrt_rn(float x) { return __fsqrt_rn(x); }
+
+// The largest of non-negative values (or NaN) by an integer atomicMax on
+// their bits: non-negative floats order as their bits, and a NaN's bits
+// (either sign) lie above +inf's, so a NaN is kept as nan_max keeps it.
+__device__ __forceinline__ void atomic_max_bits(double* p, double x) {
+  atomicMax(reinterpret_cast<unsigned long long*>(p),
+            static_cast<unsigned long long>(__double_as_longlong(x)));
+}
+__device__ __forceinline__ void atomic_max_bits(float* p, float x) {
+  atomicMax(reinterpret_cast<unsigned int*>(p), __float_as_uint(x));
+}
+
+// ---------------------------------------------------------------------------
+// L3 ladder_dense
+// ---------------------------------------------------------------------------
+
+constexpr int kDenseThreads = 256;
+constexpr int kDenseRows = 64;   // rows of a product tile, four a thread
+constexpr int kDenseLanes = 16;  // lanes of a product tile, one a thread
+constexpr int kDenseK = 32;      // columns of the subtree matrix a stage
+constexpr int kDenseGroups = kDenseThreads / kDenseLanes;  // row groups
+static_assert(kDenseGroups * 4 == kDenseRows, "four rows a thread");
+
+// The four products of an iteration and of its reverse mode.
+enum DenseMode { kSolveSub = 0, kSolveSubT = 1, kVjpSub = 2, kVjpSubT = 3 };
+
+template <typename T>
+struct DenseArgs {
+  const unsigned char* sub;    // [nb, nb] 0/1: sub[i][j] = 1 iff j lies in i's subtree
+  const unsigned char* sub_t;  // its transpose
+  const T* mask;               // [nb, 3]
+  const T* z_re;               // [nb, 3, 3]
+  const T* z_im;
+  const T* root;  // [nb]
+  const T* s_re;  // [B, nb, 3] loads, pu
+  const T* s_im;
+  const T* v0_re;  // [B, 3] source phasors
+  const T* v0_im;
+  T* v_re;  // [B, nb, 3] the state and the outputs: v, i_br, i_load
+  T* v_im;
+  T* ib_re;
+  T* ib_im;
+  T* il_re;
+  T* il_im;
+  T* drop;   // [B, nb, 6] scratch: the drops
+  T* saved;  // [max_iter, B, nb, 6] each iteration's input v, or null
+  int* it;   // [3, B] a lane's iterations, one slot an iteration mod 3
+  T* err;    // [3, B] its root error, the same slots (atomicMax on the bits)
+  // The reverse mode.
+  const T* gv_re;  // [B, nb, 3] cotangents of the final v, i_br, i_load
+  const T* gv_im;
+  const T* gb_re;
+  const T* gb_im;
+  const T* gl_re;
+  const T* gl_im;
+  T* sbar_re;  // [B, nb, 3] out
+  T* sbar_im;
+  T* v0bar;  // [B, 6] out
+  T* w;      // [B, nb, 6] scratch: vbar
+  T* g;      // [B, nb, 6] scratch: ibbar
+  int nb, lanes, max_iter, fixed, k, last;
+  T eps;
+};
+
+// The initial state: v = v0 mask, i_br = i_load = 0; slot 0 holds no
+// iterations and an infinite error, slot 1 (iteration 0's) a zero error.
+template <typename T>
+__global__ void __launch_bounds__(kDenseThreads) dense_init_kernel(const DenseArgs<T> a) {
+  const int b = blockIdx.x, n3 = a.nb * 3;
+  const size_t o3 = (size_t)b * n3;
+  for (int i = threadIdx.x; i < n3; i += blockDim.x) {
+    const int p = i % 3;
+    const T m = a.mask[i];
+    a.v_re[o3 + i] = a.v0_re[b * 3 + p] * m;
+    a.v_im[o3 + i] = a.v0_im[b * 3 + p] * m;
+    a.ib_re[o3 + i] = a.ib_im[o3 + i] = T(0);
+    a.il_re[o3 + i] = a.il_im[o3 + i] = T(0);
+  }
+  if (threadIdx.x == 0) {
+    a.it[b] = 0;
+    a.err[b] = T(INFINITY);
+    a.err[a.lanes + b] = T(0);
+  }
+}
+
+// The reverse mode's initial state: vbar = the final v's cotangent,
+// sbar = 0, v0bar = 0.
+template <typename T>
+__global__ void __launch_bounds__(kDenseThreads) dense_vjp_init_kernel(const DenseArgs<T> a) {
+  const int b = blockIdx.x, n3 = a.nb * 3;
+  const size_t o3 = (size_t)b * n3;
+  for (int i = threadIdx.x; i < n3; i += blockDim.x) {
+    const int row = i / 3, p = i % 3;
+    a.w[(o3 + row * 3) * 2 + p] = a.gv_re[o3 + i];
+    a.w[(o3 + row * 3) * 2 + 3 + p] = a.gv_im[o3 + i];
+    a.sbar_re[o3 + i] = a.sbar_im[o3 + i] = T(0);
+  }
+  if (threadIdx.x < 6) a.v0bar[b * 6 + threadIdx.x] = T(0);
+}
+
+// v0bar += sum over the branches of mask vbar, one CTA a lane: each
+// thread's rows in increasing order, a fixed butterfly a warp, the warps
+// in order.
+template <typename T>
+__global__ void __launch_bounds__(kDenseThreads) dense_vsum_kernel(const DenseArgs<T> a) {
+  __shared__ T red[(kDenseThreads / 32) * 6];
+  const int b = blockIdx.x;
+  const T* w = a.w + (size_t)b * a.nb * 6;
+  T part[6] = {0, 0, 0, 0, 0, 0};
+  for (int row = threadIdx.x; row < a.nb; row += blockDim.x) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const T m = a.mask[row * 3 + p];
+      part[p] += w[row * 6 + p] * m;
+      part[3 + p] += w[row * 6 + 3 + p] * m;
+    }
+  }
+  warp_sum6(part);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) red[(threadIdx.x >> 5) * 6 + c] = part[c];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T tot[6] = {0, 0, 0, 0, 0, 0};
+    for (int wp = 0; wp < kDenseThreads / 32; ++wp) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) tot[c] += red[wp * 6 + c];
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) a.v0bar[b * 6 + c] += tot[c];
+  }
+}
+
+// One (row k, lane b) of the product's right-hand side, six words: the
+// loads' currents from v and s (kSolveSub; the first row tile also writes
+// them out, and the saved iterate), the drops (kSolveSubT), mask vbar
+// (kVjpSub), ibbar (kVjpSubT).
+template <typename T, int MODE>
+__device__ __forceinline__ void dense_stage(const DenseArgs<T>& a, int b, int k,
+                                            bool first, T (&x)[6]) {
+  const int nb = a.nb;
+  const size_t o3 = ((size_t)b * nb + k) * 3, o6 = o3 * 2;
+  if constexpr (MODE == kSolveSub) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const T vr = a.v_re[o3 + p], vi = a.v_im[o3 + p];
+      const T sr = a.s_re[o3 + p], si = a.s_im[o3 + p];
+      const T d = vr * vr + vi * vi;
+      T lr = T(0), li = T(0);
+      if (d > T(0)) {
+        lr = (sr * vr + si * vi) / d;
+        li = -((si * vr - sr * vi) / d);
+      }
+      x[p] = lr;
+      x[3 + p] = li;
+      if (first) {
+        a.il_re[o3 + p] = lr;
+        a.il_im[o3 + p] = li;
+        if (a.saved != nullptr) {
+          T* sv = a.saved + (((size_t)a.k * a.lanes + b) * nb + k) * 6;
+          sv[p] = vr;
+          sv[3 + p] = vi;
+        }
+      }
+    }
+  } else if constexpr (MODE == kSolveSubT) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) x[c] = a.drop[o6 + c];
+  } else if constexpr (MODE == kVjpSub) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const T m = a.mask[k * 3 + p];
+      x[p] = a.w[o6 + p] * m;
+      x[3 + p] = a.w[o6 + 3 + p] * m;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) x[c] = a.g[o6 + c];
+  }
+}
+
+// One (row, lane b) of the product's result y, six words: i_br (kSolveSub:
+// the root error, i_br and the drops out), the path sums (kSolveSubT: the
+// new v), B(mask vbar) (kVjpSub: ibbar = conj(z)^T (-y) out), F(ibbar)
+// (kVjpSubT: sbar and the new vbar).
+template <typename T, int MODE>
+__device__ __forceinline__ void dense_epilogue(const DenseArgs<T>& a, int b, int row,
+                                               const T (&y)[6], T& emax) {
+  const int nb = a.nb;
+  const size_t o3 = ((size_t)b * nb + row) * 3, o6 = o3 * 2;
+  const T* zr = a.z_re + row * 9;
+  const T* zi = a.z_im + row * 9;
+  if constexpr (MODE == kSolveSub) {
+    const T rt = a.root[row];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const T dr = y[p] - a.ib_re[o3 + p], di = y[3 + p] - a.ib_im[o3 + p];
+      emax = nan_max(emax, sqrt(dr * dr + di * di) * rt);
+      a.ib_re[o3 + p] = y[p];
+      a.ib_im[o3 + p] = y[3 + p];
+    }
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      T dr = T(0), di = T(0);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        dr += y[q] * zr[q * 3 + p] - y[3 + q] * zi[q * 3 + p];
+        di += y[q] * zi[q * 3 + p] + y[3 + q] * zr[q * 3 + p];
+      }
+      a.drop[o6 + p] = dr;
+      a.drop[o6 + 3 + p] = di;
+    }
+  } else if constexpr (MODE == kSolveSubT) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const T m = a.mask[row * 3 + p];
+      a.v_re[o3 + p] = (a.v0_re[b * 3 + p] - y[p]) * m;
+      a.v_im[o3 + p] = (a.v0_im[b * 3 + p] - y[3 + p]) * m;
+    }
+  } else if constexpr (MODE == kVjpSub) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      T gr = T(0), gi = T(0);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        gr += zr[q * 3 + p] * -y[p] + zi[q * 3 + p] * -y[3 + p];
+        gi += zr[q * 3 + p] * -y[3 + p] - zi[q * 3 + p] * -y[p];
+      }
+      if (a.last) {
+        gr += a.gb_re[o3 + q];
+        gi += a.gb_im[o3 + q];
+      }
+      a.g[o6 + q] = gr;
+      a.g[o6 + 3 + q] = gi;
+    }
+  } else {
+    const T* vk = a.saved + (((size_t)a.k * a.lanes + b) * nb + row) * 6;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      T lr = y[p], li = y[3 + p];
+      if (a.last) {
+        lr += a.gl_re[o3 + p];
+        li += a.gl_im[o3 + p];
+      }
+      const T vr = vk[p], vi = vk[3 + p];
+      const T d = vr * vr + vi * vi;
+      T wr = T(0), wi = T(0);
+      if (d > T(0)) {
+        a.sbar_re[o3 + p] += (lr * vr + li * vi) / d;
+        a.sbar_im[o3 + p] += -((li * vr - lr * vi) / d);
+        const T sr = a.s_re[o3 + p], si = a.s_im[o3 + p];
+        const T pr = -(sr * lr - si * li), pi = -(sr * li + si * lr);
+        const T v2r = vr * vr - vi * vi, v2i = vr * vi + vi * vr;
+        const T d2 = v2r * v2r + v2i * v2i;
+        wr = (pr * v2r + pi * v2i) / d2;
+        wi = -((pi * v2r - pr * v2i) / d2);
+      }
+      a.w[o6 + p] = wr;
+      a.w[o6 + 3 + p] = wi;
+    }
+  }
+}
+
+// One product of an iteration, S X or S^T X, over a tile of 64 rows x 16
+// lanes (six columns a lane), the K range walked in stages of 32 in
+// increasing order (a lane's bits do not depend on the lanes beside it).
+// The solve's products read the lane's slot (the iteration mod 3) to
+// decide whether the lane is still active; a lane that has stopped is
+// frozen, and a tile none of whose lanes is active returns at once.  The
+// first row tile keeps the books: kSolveSub writes the next slot's
+// iteration count (and copies a stopped lane's error), kSolveSubT clears
+// the error slot that the next iteration's kSolveSub takes the max into.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kDenseThreads) ladder_dense_kernel(const DenseArgs<T> a) {
+  constexpr bool kSolve = MODE == kSolveSub || MODE == kSolveSubT;
+  constexpr bool kSub = MODE == kSolveSub || MODE == kVjpSub;
+  __shared__ T as[kDenseRows][kDenseK];
+  __shared__ T xs[kDenseK][6][kDenseLanes];
+  __shared__ T red[kDenseGroups][kDenseLanes];
+  __shared__ int act[kDenseLanes];
+  const int nb = a.nb, t = threadIdx.x;
+  const int l = t % kDenseLanes, rg = t / kDenseLanes;
+  const int r0 = blockIdx.x * kDenseRows, b0 = blockIdx.y * kDenseLanes;
+  const bool first = blockIdx.x == 0;
+  if (t < kDenseLanes) {
+    const int b = b0 + t;
+    int on = 0;
+    if (b < a.lanes) {
+      if constexpr (kSolve) {
+        const int cur = a.k % 3, nxt = (a.k + 1) % 3;
+        const int itb = a.it[cur * a.lanes + b];
+        const T e = a.err[cur * a.lanes + b];
+        on = itb < a.max_iter && (a.fixed || e >= a.eps);
+        if (first && MODE == kSolveSub) {
+          a.it[nxt * a.lanes + b] = itb + on;
+          if (!on) a.err[nxt * a.lanes + b] = e;
+        }
+        if (first && MODE == kSolveSubT) a.err[((a.k + 2) % 3) * a.lanes + b] = T(0);
+      } else {
+        on = 1;
+      }
+    }
+    act[t] = on;
+  }
+  __syncthreads();
+  int any = 0;
+#pragma unroll
+  for (int j = 0; j < kDenseLanes; ++j) any |= act[j];
+  if (!any) return;
+  const unsigned char* A = kSub ? a.sub : a.sub_t;
+  T acc[4][6];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) acc[i][c] = T(0);
+  }
+  for (int k0 = 0; k0 < nb; k0 += kDenseK) {
+    for (int e = t; e < kDenseRows * kDenseK; e += kDenseThreads) {
+      const int r = e / kDenseK, kk = e % kDenseK, gr = r0 + r, gk = k0 + kk;
+      as[r][kk] = (gr < nb && gk < nb) ? T(A[(size_t)gr * nb + gk]) : T(0);
+    }
+    for (int e = t; e < kDenseK * kDenseLanes; e += kDenseThreads) {
+      const int ll = e % kDenseLanes, kk = e / kDenseLanes, gk = k0 + kk;
+      T x[6] = {0, 0, 0, 0, 0, 0};
+      if (gk < nb && act[ll]) dense_stage<T, MODE>(a, b0 + ll, gk, first, x);
+#pragma unroll
+      for (int c = 0; c < 6; ++c) xs[kk][c][ll] = x[c];
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kDenseK; ++kk) {
+      T x[6];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) x[c] = xs[kk][c][l];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const T s = as[rg + kDenseGroups * i][kk];
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc[i][c] += s * x[c];
+      }
+    }
+    __syncthreads();
+  }
+  T emax = T(0);
+  if (act[l]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + rg + kDenseGroups * i;
+      if (row < nb) dense_epilogue<T, MODE>(a, b0 + l, row, acc[i], emax);
+    }
+  }
+  if constexpr (MODE == kSolveSub) {
+    red[rg][l] = emax;
+    __syncthreads();
+    if (t < kDenseLanes && act[t]) {
+      T m = red[0][t];
+      for (int j = 1; j < kDenseGroups; ++j) m = nan_max(m, red[j][t]);
+      atomic_max_bits(a.err + ((a.k + 1) % 3) * a.lanes + b0 + t, m);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// L4 ladder_doubling
+// ---------------------------------------------------------------------------
+
+constexpr int kDoublingThreads = 512;  // 128 registers a thread
+
+template <typename T>
+struct DoublingArgs {
+  const T* mask;  // [nb, 3]
+  const T* z_re;  // [nb, 3, 3]
+  const T* z_im;
+  const T* root;       // [nb]
+  const int* jump;     // [rounds, nb + 1] round m's 2^m-th ancestor (nb: none)
+  const int* pre_ptr;  // [rounds, nb + 1] CSR (absolute) of {i < nb : jump_m[i] = a}
+  const int* pre_idx;  //   in increasing i
+  const T* s_re;       // [B, nb, 3] loads, pu
+  const T* s_im;
+  const T* v0_re;  // [B, 3]
+  const T* v0_im;
+  T* v_re;  // [B, nb, 3] the state and the outputs: v, i_br, i_load
+  T* v_im;
+  T* ib_re;
+  T* ib_im;
+  T* il_re;
+  T* il_im;
+  int* iters;  // [B] out
+  T* resid;
+  unsigned char* conv;
+  T* saved;  // [max_iter, B, nb, 6] each iteration's input v, or null
+  T* buf;    // [B, 2, nb + 1, 6] scratch: the rounds' two buffers
+  // The reverse mode.
+  const T* gv_re;
+  const T* gv_im;
+  const T* gb_re;
+  const T* gb_im;
+  const T* gl_re;
+  const T* gl_im;
+  T* sbar_re;  // [B, nb, 3] out
+  T* sbar_im;
+  T* v0bar;  // [B, 6] out
+  T* w;      // [B, nb, 6] scratch: vbar
+  int nb, rounds, lanes, max_iter, fixed;
+  T eps;
+};
+
+// One round of the subtree sums: y[a] = x[a] plus the x[i] with jump_m[i]
+// = a, added in increasing i (the order of the plain version's index_add);
+// y[nb] = 0.  x and y are distinct buffers (__restrict__), so the
+// compiler may issue an unrolled batch of rows' loads before their stores:
+// a row at a time, each is an L2 round trip.
+template <typename T>
+__device__ __forceinline__ void subtree_round(const T* __restrict__ x, T* __restrict__ y,
+                                              const int* __restrict__ ptr,
+                                              const int* __restrict__ idx, int nb) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i <= nb; i += blockDim.x) {
+    T acc[6] = {0, 0, 0, 0, 0, 0};
+    if (i < nb) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) acc[c] = x[(size_t)i * 6 + c];
+      // Four preimages' loads in flight before their adds, which stay in
+      // increasing i (a list is hundreds deep in the last rounds at 10k).
+      const int hi = ptr[i + 1];
+      int j = ptr[i];
+      for (; j + 4 <= hi; j += 4) {
+        T v[4][6];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const size_t q = (size_t)idx[j + u] * 6;
+#pragma unroll
+          for (int c = 0; c < 6; ++c) v[u][c] = x[q + c];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int c = 0; c < 6; ++c) acc[c] = add_rn(acc[c], v[u][c]);
+        }
+      }
+      for (; j < hi; ++j) {
+        const size_t q = (size_t)idx[j] * 6;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc[c] = add_rn(acc[c], x[q + c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) y[(size_t)i * 6 + c] = acc[c];
+  }
+}
+
+// One round of the path sums: y[a] = x[a] + x[jump_m[a]] (the sentinel's
+// zero above a root; y[nb] = 0 + 0).
+template <typename T>
+__device__ __forceinline__ void path_round(const T* __restrict__ x, T* __restrict__ y,
+                                           const int* __restrict__ jm, int nb) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i <= nb; i += blockDim.x) {
+    const size_t q = (size_t)jm[i] * 6;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) y[(size_t)i * 6 + c] = add_rn(x[(size_t)i * 6 + c], x[q + c]);
+  }
+}
+
+// Subtree sums of x [nb + 1, 6] (row nb zero) by the doubling rounds into
+// the other buffer y and back; returns the buffer that holds them.
+template <typename T>
+__device__ T* doubling_subtree(const DoublingArgs<T>& a, T* x, T* y) {
+  for (int m = 0; m < a.rounds; ++m) {
+    subtree_round<T>(x, y, a.pre_ptr + (size_t)m * (a.nb + 1), a.pre_idx, a.nb);
+    __syncthreads();
+    T* s = x;
+    x = y;
+    y = s;
+  }
+  return x;
+}
+
+// Path sums of x [nb + 1, 6] (row nb zero) by the doubling rounds: round m
+// adds the value of the 2^m-th ancestor; returns the buffer that holds
+// them.
+template <typename T>
+__device__ T* doubling_path(const DoublingArgs<T>& a, T* x, T* y) {
+  for (int m = 0; m < a.rounds; ++m) {
+    path_round<T>(x, y, a.jump + (size_t)m * (a.nb + 1), a.nb);
+    __syncthreads();
+    T* s = x;
+    x = y;
+    y = s;
+  }
+  return x;
+}
+
+// The block's max of one value a thread (NaN kept), in every thread.
+template <typename T>
+__device__ __forceinline__ T block_max(T v, T* sm) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(kFull, v, o));
+  if ((threadIdx.x & 31) == 0) sm[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T m = sm[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = nan_max(m, sm[w]);
+  __syncthreads();
+  return m;
+}
+
+// The block's sums of six values a thread, in every thread, in a fixed
+// order: a butterfly a warp, then the warps in order.
+template <typename T>
+__device__ __forceinline__ void block_sum6(T (&x)[6], T* sm) {
+  warp_sum6(x);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) sm[(threadIdx.x >> 5) * 6 + c] = x[c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 6; ++c) x[c] = T(0);
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) x[c] += sm[w * 6 + c];
+  }
+  __syncthreads();
+}
+
+// A whole solve of one lane a CTA, in the plain version's operations and
+// order, each rounded on its own (the plain version's bits).
+template <typename T>
+__global__ void __launch_bounds__(kDoublingThreads, 1) ladder_doubling_kernel(const DoublingArgs<T> a) {
+  __shared__ T sm[32];
+  const int b = blockIdx.x, nb = a.nb, n3 = nb * 3;
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const size_t o3 = (size_t)b * n3;
+  const T* s_re = a.s_re + o3;
+  const T* s_im = a.s_im + o3;
+  T* v_re = a.v_re + o3;
+  T* v_im = a.v_im + o3;
+  T* ib_re = a.ib_re + o3;
+  T* ib_im = a.ib_im + o3;
+  T* il_re = a.il_re + o3;
+  T* il_im = a.il_im + o3;
+  T* x = a.buf + (size_t)b * 2 * (nb + 1) * 6;
+  T* y = x + (size_t)(nb + 1) * 6;
+  T v0r[3], v0i[3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    v0r[p] = a.v0_re[b * 3 + p];
+    v0i[p] = a.v0_im[b * 3 + p];
+  }
+  for (int i = tid; i < n3; i += bd) {
+    const T m = a.mask[i];
+    v_re[i] = mul_rn(v0r[i % 3], m);
+    v_im[i] = mul_rn(v0i[i % 3], m);
+    ib_re[i] = ib_im[i] = il_re[i] = il_im[i] = T(0);
+  }
+  __syncthreads();
+  T err = T(INFINITY);
+  int it = 0;
+  while (it < a.max_iter && (a.fixed || err >= a.eps)) {
+    if (a.saved != nullptr) {
+      T* sv = a.saved + ((size_t)it * a.lanes + b) * nb * 6;
+      for (int i = tid; i < n3; i += bd) {
+        sv[(i / 3) * 6 + i % 3] = v_re[i];
+        sv[(i / 3) * 6 + 3 + i % 3] = v_im[i];
+      }
+    }
+    // Load currents conj(s / v) on live phases, into x.
+    for (int i = tid; i <= nb; i += bd) {
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        T lr = T(0), li = T(0);
+        if (i < nb) {
+          const T vr = v_re[i * 3 + p], vi = v_im[i * 3 + p];
+          const T sr = s_re[i * 3 + p], si = s_im[i * 3 + p];
+          const T d = add_rn(mul_rn(vr, vr), mul_rn(vi, vi));
+          if (d > T(0)) {
+            lr = div_rn(add_rn(mul_rn(sr, vr), mul_rn(si, vi)), d);
+            li = -div_rn(sub_rn(mul_rn(si, vr), mul_rn(sr, vi)), d);
+          }
+          il_re[i * 3 + p] = lr;
+          il_im[i * 3 + p] = li;
+        }
+        x[(size_t)i * 6 + p] = lr;
+        x[(size_t)i * 6 + 3 + p] = li;
+      }
+    }
+    __syncthreads();
+    T* br_buf = doubling_subtree(a, x, y);
+    T* dr_buf = br_buf == x ? y : x;
+    // Branch currents, the root error, the drops (sum over q in order).
+    T emax = T(0);
+    for (int i = tid; i <= nb; i += bd) {
+      T out[6] = {0, 0, 0, 0, 0, 0};
+      if (i < nb) {
+        const T rt = a.root[i];
+        T br[3], bi[3];
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          br[p] = br_buf[(size_t)i * 6 + p];
+          bi[p] = br_buf[(size_t)i * 6 + 3 + p];
+          const T dr = sub_rn(br[p], ib_re[i * 3 + p]);
+          const T di = sub_rn(bi[p], ib_im[i * 3 + p]);
+          emax = nan_max(emax, mul_rn(sqrt_rn(add_rn(mul_rn(dr, dr), mul_rn(di, di))), rt));
+          ib_re[i * 3 + p] = br[p];
+          ib_im[i * 3 + p] = bi[p];
+        }
+        const T* zr = a.z_re + i * 9;
+        const T* zi = a.z_im + i * 9;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          const T rr = add_rn(add_rn(mul_rn(br[0], zr[p]), mul_rn(br[1], zr[3 + p])),
+                              mul_rn(br[2], zr[6 + p]));
+          const T ii = add_rn(add_rn(mul_rn(bi[0], zi[p]), mul_rn(bi[1], zi[3 + p])),
+                              mul_rn(bi[2], zi[6 + p]));
+          const T ri = add_rn(add_rn(mul_rn(br[0], zi[p]), mul_rn(br[1], zi[3 + p])),
+                              mul_rn(br[2], zi[6 + p]));
+          const T ir = add_rn(add_rn(mul_rn(bi[0], zr[p]), mul_rn(bi[1], zr[3 + p])),
+                              mul_rn(bi[2], zr[6 + p]));
+          out[p] = sub_rn(rr, ii);
+          out[3 + p] = add_rn(ri, ir);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 6; ++c) dr_buf[(size_t)i * 6 + c] = out[c];
+    }
+    err = block_max(emax, sm);
+    const T* path = doubling_path(a, dr_buf, br_buf);
+    for (int i = tid; i < n3; i += bd) {
+      const int row = i / 3, p = i % 3;
+      const T m = a.mask[i];
+      v_re[i] = mul_rn(sub_rn(v0r[p], path[(size_t)row * 6 + p]), m);
+      v_im[i] = mul_rn(sub_rn(v0i[p], path[(size_t)row * 6 + 3 + p]), m);
+    }
+    __syncthreads();
+    ++it;
+  }
+  if (tid == 0) {
+    a.iters[b] = it;
+    a.resid[b] = err;
+    a.conv[b] = err < a.eps ? 1 : 0;
+  }
+}
+
+// L4's reverse mode, one lane a CTA: L2's recurrence on the doubling
+// sweeps, and v0bar summed over the branches in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(kDoublingThreads, 1)
+    ladder_doubling_vjp_kernel(const DoublingArgs<T> a) {
+  __shared__ T sm[32 * 6];
+  const int b = blockIdx.x, nb = a.nb, n3 = nb * 3;
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const size_t o3 = (size_t)b * n3;
+  T* x = a.buf + (size_t)b * 2 * (nb + 1) * 6;
+  T* y = x + (size_t)(nb + 1) * 6;
+  T* w = a.w + (size_t)b * nb * 6;
+  T* sbar_re = a.sbar_re + o3;
+  T* sbar_im = a.sbar_im + o3;
+  for (int i = tid; i < n3; i += bd) {
+    w[(i / 3) * 6 + i % 3] = a.gv_re[o3 + i];
+    w[(i / 3) * 6 + 3 + i % 3] = a.gv_im[o3 + i];
+    sbar_re[i] = sbar_im[i] = T(0);
+  }
+  __syncthreads();
+  T v0acc[6] = {0, 0, 0, 0, 0, 0};
+  for (int k = a.max_iter - 1; k >= 0; --k) {
+    const bool last = k == a.max_iter - 1;
+    const T* vk = a.saved + ((size_t)k * a.lanes + b) * nb * 6;
+    // x = mask vbar; its total is v0's share of this iteration.
+    T part[6] = {0, 0, 0, 0, 0, 0};
+    for (int i = tid; i <= nb; i += bd) {
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        T xr = T(0), xi = T(0);
+        if (i < nb) {
+          const T m = a.mask[i * 3 + p];
+          xr = w[(size_t)i * 6 + p] * m;
+          xi = w[(size_t)i * 6 + 3 + p] * m;
+        }
+        x[(size_t)i * 6 + p] = xr;
+        x[(size_t)i * 6 + 3 + p] = xi;
+        part[p] += xr;
+        part[3 + p] += xi;
+      }
+    }
+    block_sum6(part, sm);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) v0acc[c] += part[c];
+    // dropbar = -B(mask vbar); ibbar = conj(z)^T dropbar (+ the final
+    // i_br's cotangent).
+    T* sub = doubling_subtree(a, x, y);
+    T* gbuf = sub == x ? y : x;
+    for (int i = tid; i <= nb; i += bd) {
+      T out[6] = {0, 0, 0, 0, 0, 0};
+      if (i < nb) {
+        const T* zr = a.z_re + i * 9;
+        const T* zi = a.z_im + i * 9;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          T gr = T(0), gi = T(0);
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            const T dr = -sub[(size_t)i * 6 + p], di = -sub[(size_t)i * 6 + 3 + p];
+            gr += zr[q * 3 + p] * dr + zi[q * 3 + p] * di;
+            gi += zr[q * 3 + p] * di - zi[q * 3 + p] * dr;
+          }
+          if (last) {
+            gr += a.gb_re[o3 + i * 3 + q];
+            gi += a.gb_im[o3 + i * 3 + q];
+          }
+          out[q] = gr;
+          out[3 + q] = gi;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 6; ++c) gbuf[(size_t)i * 6 + c] = out[c];
+    }
+    __syncthreads();
+    // ilbar = F(ibbar) (+ the final i_load's cotangent); sbar and vbar.
+    const T* path = doubling_path(a, gbuf, sub);
+    for (int i = tid; i < nb; i += bd) {
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        T lr = path[(size_t)i * 6 + p], li = path[(size_t)i * 6 + 3 + p];
+        if (last) {
+          lr += a.gl_re[o3 + i * 3 + p];
+          li += a.gl_im[o3 + i * 3 + p];
+        }
+        const T vr = vk[(size_t)i * 6 + p], vi = vk[(size_t)i * 6 + 3 + p];
+        const T d = vr * vr + vi * vi;
+        T wr = T(0), wi = T(0);
+        if (d > T(0)) {
+          sbar_re[i * 3 + p] += (lr * vr + li * vi) / d;
+          sbar_im[i * 3 + p] += -((li * vr - lr * vi) / d);
+          const T sr = a.s_re[o3 + i * 3 + p], si = a.s_im[o3 + i * 3 + p];
+          const T pr = -(sr * lr - si * li), pi = -(sr * li + si * lr);
+          const T v2r = vr * vr - vi * vi, v2i = vr * vi + vi * vr;
+          const T d2 = v2r * v2r + v2i * v2i;
+          wr = (pr * v2r + pi * v2i) / d2;
+          wi = -((pi * v2r - pr * v2i) / d2);
+        }
+        w[(size_t)i * 6 + p] = wr;
+        w[(size_t)i * 6 + 3 + p] = wi;
+      }
+    }
+    __syncthreads();
+  }
+  // The initial iterate v0 mask.
+  T part[6] = {0, 0, 0, 0, 0, 0};
+  for (int i = tid; i < nb; i += bd) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const T m = a.mask[i * 3 + p];
+      part[p] += w[(size_t)i * 6 + p] * m;
+      part[3 + p] += w[(size_t)i * 6 + 3 + p] * m;
+    }
+  }
+  block_sum6(part, sm);
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) a.v0bar[b * 6 + c] = v0acc[c] + part[c];
+  }
+}
+
 }  // namespace
 
 template <typename T>
@@ -1155,14 +1994,219 @@ static int ladder_vjp(const T* saved, const T* s_re, const T* s_im, const T* mas
                       const T* z_re, const T* z_im, const int* tout, const int* gptr,
                       const int* gidx, const T* gv_re, const T* gv_im, const T* gb_re,
                       const T* gb_im, const T* gl_re, const T* gl_im, T* sbar_re,
-                      T* sbar_im, T* ps, T* w, T* g, int nb, int lanes, int iters,
-                      void* stream) {
+                      T* sbar_im, T* v0bar, T* ps, T* w, T* g, int nb, int lanes,
+                      int iters, void* stream) {
   if (nb <= 0 || lanes <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
   VjpArgs<T> a{saved, s_re, s_im,
                make_tree<T>(mask, z_re, z_im, nullptr, tout, gptr, gidx, nb),
-               gv_re, gv_im, gb_re, gb_im, gl_re, gl_im, sbar_re, sbar_im, ps, w, g,
-               lanes, iters};
+               gv_re, gv_im, gb_re, gb_im, gl_re, gl_im, sbar_re, sbar_im, v0bar, ps,
+               w, g, lanes, iters};
   ladder_vjp_kernel<T><<<(unsigned)lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int ladder_dense(const unsigned char* sub, const unsigned char* sub_t,
+                        const T* mask, const T* z_re, const T* z_im, const T* root,
+                        const T* s_re, const T* s_im, const T* v0_re, const T* v0_im,
+                        T* v_re, T* v_im, T* ib_re, T* ib_im, T* il_re, T* il_im,
+                        T* drop, T* saved, int* it, T* err, int nb, int lanes,
+                        int max_iter, int fixed, double eps, int* launched,
+                        void* stream) {
+  *launched = 0;
+  if (nb <= 0 || lanes <= 0 || max_iter < 0 ||
+      (lanes + kDenseLanes - 1) / kDenseLanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  DenseArgs<T> a = {};
+  a.sub = sub;
+  a.sub_t = sub_t;
+  a.mask = mask;
+  a.z_re = z_re;
+  a.z_im = z_im;
+  a.root = root;
+  a.s_re = s_re;
+  a.s_im = s_im;
+  a.v0_re = v0_re;
+  a.v0_im = v0_im;
+  a.v_re = v_re;
+  a.v_im = v_im;
+  a.ib_re = ib_re;
+  a.ib_im = ib_im;
+  a.il_re = il_re;
+  a.il_im = il_im;
+  a.drop = drop;
+  a.saved = saved;
+  a.it = it;
+  a.err = err;
+  a.nb = nb;
+  a.lanes = lanes;
+  a.max_iter = max_iter;
+  a.fixed = fixed;
+  a.eps = (T)eps;
+  const cudaStream_t st = (cudaStream_t)stream;
+  dense_init_kernel<T><<<(unsigned)lanes, kDenseThreads, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  *launched += e == cudaSuccess;
+  const dim3 grid((unsigned)((nb + kDenseRows - 1) / kDenseRows),
+                  (unsigned)((lanes + kDenseLanes - 1) / kDenseLanes));
+  for (int k = 0; k < max_iter && e == cudaSuccess; ++k) {
+    a.k = k;
+    ladder_dense_kernel<T, kSolveSub><<<grid, kDenseThreads, 0, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) break;
+    ++*launched;
+    ladder_dense_kernel<T, kSolveSubT><<<grid, kDenseThreads, 0, st>>>(a);
+    e = cudaGetLastError();
+    *launched += e == cudaSuccess;
+  }
+  return (int)e;
+}
+
+template <typename T>
+static int ladder_dense_vjp(const unsigned char* sub, const unsigned char* sub_t,
+                            const T* mask, const T* z_re, const T* z_im, const T* saved,
+                            const T* s_re, const T* s_im, const T* gv_re,
+                            const T* gv_im, const T* gb_re, const T* gb_im,
+                            const T* gl_re, const T* gl_im, T* sbar_re, T* sbar_im,
+                            T* v0bar, T* w, T* g, int nb, int lanes, int iters,
+                            int* launched, void* stream) {
+  *launched = 0;
+  if (nb <= 0 || lanes <= 0 || iters < 0 ||
+      (lanes + kDenseLanes - 1) / kDenseLanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  DenseArgs<T> a = {};
+  a.sub = sub;
+  a.sub_t = sub_t;
+  a.mask = mask;
+  a.z_re = z_re;
+  a.z_im = z_im;
+  a.saved = const_cast<T*>(saved);
+  a.s_re = s_re;
+  a.s_im = s_im;
+  a.gv_re = gv_re;
+  a.gv_im = gv_im;
+  a.gb_re = gb_re;
+  a.gb_im = gb_im;
+  a.gl_re = gl_re;
+  a.gl_im = gl_im;
+  a.sbar_re = sbar_re;
+  a.sbar_im = sbar_im;
+  a.v0bar = v0bar;
+  a.w = w;
+  a.g = g;
+  a.nb = nb;
+  a.lanes = lanes;
+  a.max_iter = iters;
+  const cudaStream_t st = (cudaStream_t)stream;
+  dense_vjp_init_kernel<T><<<(unsigned)lanes, kDenseThreads, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  *launched += e == cudaSuccess;
+  const dim3 grid((unsigned)((nb + kDenseRows - 1) / kDenseRows),
+                  (unsigned)((lanes + kDenseLanes - 1) / kDenseLanes));
+  for (int k = iters - 1; k >= 0 && e == cudaSuccess; --k) {
+    a.k = k;
+    a.last = k == iters - 1;
+    dense_vsum_kernel<T><<<(unsigned)lanes, kDenseThreads, 0, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) break;
+    ++*launched;
+    ladder_dense_kernel<T, kVjpSub><<<grid, kDenseThreads, 0, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) break;
+    ++*launched;
+    ladder_dense_kernel<T, kVjpSubT><<<grid, kDenseThreads, 0, st>>>(a);
+    e = cudaGetLastError();
+    *launched += e == cudaSuccess;
+  }
+  if (e != cudaSuccess) return (int)e;
+  dense_vsum_kernel<T><<<(unsigned)lanes, kDenseThreads, 0, st>>>(a);
+  e = cudaGetLastError();
+  *launched += e == cudaSuccess;
+  return (int)e;
+}
+
+template <typename T>
+static int ladder_doubling(const T* mask, const T* z_re, const T* z_im, const T* root,
+                           const int* jump, const int* pre_ptr, const int* pre_idx,
+                           const T* s_re, const T* s_im, const T* v0_re,
+                           const T* v0_im, T* v_re, T* v_im, T* ib_re, T* ib_im,
+                           T* il_re, T* il_im, int* iters, T* resid,
+                           unsigned char* conv, T* saved, T* buf, int nb, int rounds,
+                           int lanes, int max_iter, int fixed, double eps,
+                           void* stream) {
+  if (nb <= 0 || rounds <= 0 || lanes <= 0 || max_iter < 0)
+    return (int)cudaErrorInvalidValue;
+  DoublingArgs<T> a = {};
+  a.mask = mask;
+  a.z_re = z_re;
+  a.z_im = z_im;
+  a.root = root;
+  a.jump = jump;
+  a.pre_ptr = pre_ptr;
+  a.pre_idx = pre_idx;
+  a.s_re = s_re;
+  a.s_im = s_im;
+  a.v0_re = v0_re;
+  a.v0_im = v0_im;
+  a.v_re = v_re;
+  a.v_im = v_im;
+  a.ib_re = ib_re;
+  a.ib_im = ib_im;
+  a.il_re = il_re;
+  a.il_im = il_im;
+  a.iters = iters;
+  a.resid = resid;
+  a.conv = conv;
+  a.saved = saved;
+  a.buf = buf;
+  a.nb = nb;
+  a.rounds = rounds;
+  a.lanes = lanes;
+  a.max_iter = max_iter;
+  a.fixed = fixed;
+  a.eps = (T)eps;
+  ladder_doubling_kernel<T>
+      <<<(unsigned)lanes, kDoublingThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int ladder_doubling_vjp(const T* mask, const T* z_re, const T* z_im,
+                               const int* jump, const int* pre_ptr, const int* pre_idx,
+                               const T* saved, const T* s_re, const T* s_im,
+                               const T* gv_re, const T* gv_im, const T* gb_re,
+                               const T* gb_im, const T* gl_re, const T* gl_im,
+                               T* sbar_re, T* sbar_im, T* v0bar, T* buf, T* w, int nb,
+                               int rounds, int lanes, int iters, void* stream) {
+  if (nb <= 0 || rounds <= 0 || lanes <= 0 || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  DoublingArgs<T> a = {};
+  a.mask = mask;
+  a.z_re = z_re;
+  a.z_im = z_im;
+  a.jump = jump;
+  a.pre_ptr = pre_ptr;
+  a.pre_idx = pre_idx;
+  a.saved = const_cast<T*>(saved);
+  a.s_re = s_re;
+  a.s_im = s_im;
+  a.gv_re = gv_re;
+  a.gv_im = gv_im;
+  a.gb_re = gb_re;
+  a.gb_im = gb_im;
+  a.gl_re = gl_re;
+  a.gl_im = gl_im;
+  a.sbar_re = sbar_re;
+  a.sbar_im = sbar_im;
+  a.v0bar = v0bar;
+  a.buf = buf;
+  a.w = w;
+  a.nb = nb;
+  a.rounds = rounds;
+  a.lanes = lanes;
+  a.max_iter = iters;
+  ladder_doubling_vjp_kernel<T>
+      <<<(unsigned)lanes, kDoublingThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1189,12 +2233,63 @@ static int ladder_vjp(const T* saved, const T* s_re, const T* s_im, const T* mas
       const T* saved, const T* s_re, const T* s_im, const T* mask, const T* z_re,  \
       const T* z_im, const int* tout, const int* gptr, const int* gidx,            \
       const T* gv_re, const T* gv_im, const T* gb_re, const T* gb_im,              \
-      const T* gl_re, const T* gl_im, T* sbar_re, T* sbar_im, T* ps, T* w, T* g,   \
-      int nb, int lanes, int iters, void* stream) {                                \
+      const T* gl_re, const T* gl_im, T* sbar_re, T* sbar_im, T* v0bar, T* ps,     \
+      T* w, T* g, int nb, int lanes, int iters, void* stream) {                    \
     return ladder_vjp<T>(saved, s_re, s_im, mask, z_re, z_im, tout, gptr, gidx,   \
                          gv_re, gv_im, gb_re, gb_im, gl_re, gl_im, sbar_re,        \
-                         sbar_im, ps, w, g, nb, lanes, iters, stream);             \
+                         sbar_im, v0bar, ps, w, g, nb, lanes, iters, stream);      \
   }
 
 LADDER_ENTRY(f64, double)
 LADDER_ENTRY(f32, float)
+
+#define LADDER_FORMS_ENTRY(SUFFIX, T)                                                \
+  extern "C" int ladder_dense_##SUFFIX(                                              \
+      const unsigned char* sub, const unsigned char* sub_t, const T* mask,          \
+      const T* z_re, const T* z_im, const T* root, const T* s_re, const T* s_im,    \
+      const T* v0_re, const T* v0_im, T* v_re, T* v_im, T* ib_re, T* ib_im,         \
+      T* il_re, T* il_im, T* drop, T* saved, int* it, T* err, int nb, int lanes,    \
+      int max_iter, int fixed, double eps, int* launched, void* stream) {           \
+    return ladder_dense<T>(sub, sub_t, mask, z_re, z_im, root, s_re, s_im, v0_re,   \
+                           v0_im, v_re, v_im, ib_re, ib_im, il_re, il_im, drop,     \
+                           saved, it, err, nb, lanes, max_iter, fixed, eps,         \
+                           launched, stream);                                       \
+  }                                                                                 \
+  extern "C" int ladder_dense_vjp_##SUFFIX(                                          \
+      const unsigned char* sub, const unsigned char* sub_t, const T* mask,          \
+      const T* z_re, const T* z_im, const T* saved, const T* s_re, const T* s_im,   \
+      const T* gv_re, const T* gv_im, const T* gb_re, const T* gb_im,               \
+      const T* gl_re, const T* gl_im, T* sbar_re, T* sbar_im, T* v0bar, T* w,       \
+      T* g, int nb, int lanes, int iters, int* launched, void* stream) {            \
+    return ladder_dense_vjp<T>(sub, sub_t, mask, z_re, z_im, saved, s_re, s_im,     \
+                               gv_re, gv_im, gb_re, gb_im, gl_re, gl_im, sbar_re,   \
+                               sbar_im, v0bar, w, g, nb, lanes, iters, launched,    \
+                               stream);                                             \
+  }                                                                                 \
+  extern "C" int ladder_doubling_##SUFFIX(                                           \
+      const T* mask, const T* z_re, const T* z_im, const T* root, const int* jump,  \
+      const int* pre_ptr, const int* pre_idx, const T* s_re, const T* s_im,         \
+      const T* v0_re, const T* v0_im, T* v_re, T* v_im, T* ib_re, T* ib_im,         \
+      T* il_re, T* il_im, int* iters, T* resid, unsigned char* conv, T* saved,      \
+      T* buf, int nb, int rounds, int lanes, int max_iter, int fixed, double eps,   \
+      void* stream) {                                                               \
+    return ladder_doubling<T>(mask, z_re, z_im, root, jump, pre_ptr, pre_idx, s_re, \
+                              s_im, v0_re, v0_im, v_re, v_im, ib_re, ib_im, il_re,  \
+                              il_im, iters, resid, conv, saved, buf, nb, rounds,    \
+                              lanes, max_iter, fixed, eps, stream);                 \
+  }                                                                                 \
+  extern "C" int ladder_doubling_vjp_##SUFFIX(                                       \
+      const T* mask, const T* z_re, const T* z_im, const int* jump,                 \
+      const int* pre_ptr, const int* pre_idx, const T* saved, const T* s_re,        \
+      const T* s_im, const T* gv_re, const T* gv_im, const T* gb_re,                \
+      const T* gb_im, const T* gl_re, const T* gl_im, T* sbar_re, T* sbar_im,       \
+      T* v0bar, T* buf, T* w, int nb, int rounds, int lanes, int iters,             \
+      void* stream) {                                                               \
+    return ladder_doubling_vjp<T>(mask, z_re, z_im, jump, pre_ptr, pre_idx, saved,  \
+                                  s_re, s_im, gv_re, gv_im, gb_re, gb_im, gl_re,    \
+                                  gl_im, sbar_re, sbar_im, v0bar, buf, w, nb,       \
+                                  rounds, lanes, iters, stream);                    \
+  }
+
+LADDER_FORMS_ENTRY(f64, double)
+LADDER_FORMS_ENTRY(f32, float)

@@ -38,7 +38,10 @@ kernel gives the same bits on every run (no float atomics).
 - **B1** runs ``n_rounds`` rounds of the draft auction over ``[B, N]``
   fleets in one launch (:class:`LBLanes`); ``round_outputs=True`` (one
   round) also writes the per-node rank and the step, demand and
-  in-transit vectors ``lb_round`` returns.
+  in-transit vectors ``lb_round`` returns.  Its form (:func:`lb_form`)
+  follows ``N``: the packed sort key below 2¹⁵ nodes, the WIDE key pair
+  from there (the reference's unpacked branch) up to
+  :data:`LB_MAX_NODES`.
 """
 
 from __future__ import annotations
@@ -62,13 +65,17 @@ LAUNCHES: Dict[str, int] = {"form_groups": 0, "reach_closure": 0,
 _launch_lock = threading.Lock()
 
 #: The forms of G1 and B1: the working set in a CTA's shared memory, or in
-#: device memory.
-SHARED, GLOBAL = "SHARED", "GLOBAL"
+#: device memory; B1's WIDE form sorts a key pair (device memory).
+SHARED, GLOBAL, WIDE = "SHARED", "GLOBAL", "WIDE"
 
 #: B1 packs a node's group id and index in 15 bits each of its sort key
-#: (``freedm_tpu/modules/lb.py`` :160's packed branch); the reference's
-#: second, unpacked branch (:178-189) is ROADMAP item 13's remainder.
-LB_MAX_NODES = (1 << 15) - 1
+#: below this many nodes; from it on (where the reference takes its
+#: unpacked branch, ``freedm_tpu/modules/lb.py`` :178-189) the WIDE form
+#: sorts (group id (30 bits) | class | key, index (32 bits)) pairs.
+LB_WIDE_NODES, _LB_MAX = build.constants("dgi.cu", "kLBWideNodes",
+                                         "kLBMaxNodes")
+#: The most nodes B1 takes: the WIDE key's 30-bit group id.
+LB_MAX_NODES = _LB_MAX
 
 
 def _count(name: str) -> None:
@@ -180,17 +187,23 @@ def lb_pad(n: int) -> int:
 
 def lb_state_bytes(n: int, gw_size: int) -> int:
     """B1's working set a fleet (``csrc/dgi.cu`` ``lb_layout``): the sort
-    keys, the gateway, the segment starts and lengths."""
+    keys, the WIDE form's node indices (n ≥ :data:`LB_WIDE_NODES`), the
+    gateway, the segment starts and lengths."""
     npad = lb_pad(n)
     off = _align16(8 * npad)
+    if n >= LB_WIDE_NODES:
+        off = _align16(off + 4 * npad)
     off = _align16(off + gw_size * n)
     off = _align16(off + 4 * npad)
     return _align16(off + 4 * npad)
 
 
 def lb_form(n: int, gw_size: int) -> str:
-    """The form B1 takes: SHARED while a fleet's working set fits a CTA's
-    shared memory (n ≤ 8192 in float64), else GLOBAL."""
+    """The form B1 takes: WIDE from :data:`LB_WIDE_NODES` nodes; below,
+    SHARED while a fleet's working set fits a CTA's shared memory (n ≤
+    8192 in float64), else GLOBAL."""
+    if n >= LB_WIDE_NODES:
+        return WIDE
     return SHARED if 128 + lb_state_bytes(n, gw_size) <= SMEM_LIMIT else GLOBAL
 
 
@@ -612,10 +625,8 @@ def lb_rounds(net_generation: Tensor, gateway: Tensor, gid: Tensor,
     if lanes < 1 or n < 1 or rounds < 0:
         raise ValueError("lb_rounds needs a fleet, a node and rounds >= 0")
     if n > LB_MAX_NODES:
-        raise ValueError(
-            f"lb_rounds packs node indices in 15 bits: N = {n} > "
-            f"{LB_MAX_NODES} needs the reference's unpacked branch "
-            f"(ROADMAP.md, module queue item 13's remainder)")
+        raise ValueError(f"lb_rounds takes at most {LB_MAX_NODES} nodes (a "
+                         f"30-bit group id), got {n}")
     _want(dev, net_generation=(ng, ng.dtype, (lanes, n)),
           gateway=(gw, gw.dtype, (lanes, n)))
     gid, gid_stride = _lanes_of(gid, lanes, n, torch.int32, dev, "gid")
@@ -635,7 +646,7 @@ def lb_rounds(net_generation: Tensor, gateway: Tensor, gid: Tensor,
         return LBLanes(out_gw, migs, states)
     form = lb_form(n, gw.element_size())
     scratch = None
-    if form == GLOBAL:
+    if form != SHARED:
         scratch = torch.empty(lanes, lb_state_bytes(n, gw.element_size()),
                               dtype=torch.uint8, device=dev)
     suffix = _LB_SUFFIX[(ng.dtype, gw.dtype)]

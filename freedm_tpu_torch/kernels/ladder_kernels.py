@@ -1,41 +1,56 @@
 """Wrappers, plain versions and launch counters of the ladder kernels.
 
-==========================  =============================================  =====
-wrapper                     replaces                                       route
-==========================  =============================================  =====
-:func:`ladder_solve` (L1)   ``freedm_tpu/pf/ladder.py`` ``_solve``          CUDA
-                            (:184) and ``_solve_fixed`` (:209): the
-                            iteration ``_sweep`` (:138) and
-                            ``_root_err`` (:148) on the preorder
-                            ``euler_sweeps`` of ``pf/sweeps.py``
-                            (:124, :204-226)
-:func:`ladder_vjp` (L2)     the reverse mode of ``_solve_fixed`` (the       CUDA
-                            ``jax.value_and_grad`` of
-                            ``freedm_tpu/modules/vvc.py:117``)
-==========================  =============================================  =====
+================================  ========================================  =====
+wrapper                           replaces                                  route
+================================  ========================================  =====
+:func:`ladder_solve` (L1)         ``freedm_tpu/pf/ladder.py`` ``_solve``     CUDA
+                                  (:184) and ``_solve_fixed`` (:209): the
+                                  iteration ``_sweep`` (:138) and
+                                  ``_root_err`` (:148) on the preorder
+                                  ``euler_sweeps`` of ``pf/sweeps.py``
+                                  (:124, :204-226)
+:func:`ladder_vjp` (L2)           the reverse mode of ``_solve_fixed`` (the  CUDA
+                                  ``jax.value_and_grad`` of
+                                  ``freedm_tpu/modules/vvc.py:117``) on
+                                  L1's sweeps
+:func:`ladder_dense` (L3)         ``_solve`` and ``_solve_fixed`` on         CUDA
+                                  ``pf/sweeps.py:45`` ``dense_sweeps``,
+                                  and their reverse mode
+                                  (:func:`ladder_dense_vjp`)
+:func:`ladder_doubling` (L4)      the same on ``pf/sweeps.py:60``            CUDA
+                                  ``doubling_sweeps``, and their reverse
+                                  mode (:func:`ladder_doubling_vjp`)
+================================  ========================================  =====
 
-Both live in ``csrc/ladder.cu`` (float64 and float32).  A wrapper given
+All live in ``csrc/ladder.cu`` (float64 and float32).  A wrapper given
 CPU tensors runs its plain PyTorch version; given CUDA tensors it
-launches its kernel or raises.  Each launch counts in :data:`LAUNCHES`.
-L1 takes one of two routes, chosen by :func:`ladder_plan` from the
+launches its kernel or raises.  Each call that launches adds the kernel
+launches it issued to :data:`LAUNCHES` — one, but for L3, whose C entry
+reports its ``1 + 2 · max_iter`` (solve) and ``2 + 3 · iters`` (reverse
+mode) launches — and :data:`MODE_LAUNCHES` splits L3's and L4's between
+their forward and reverse modes.  L1 takes one of two routes, chosen by :func:`ladder_plan` from the
 branch count and dtype alone (so a lane's result is the same bits
 whatever the lanes beside it): up to :func:`cluster_capacity` branches a
 lane is one thread-block cluster whose
 shared memory holds its state, above that one CTA a lane with its state
 in device memory.
 
-The kernels work in DFS preorder (:meth:`Feeder.reorder_preorder`), on
-:class:`LadderOperands` made once per feeder.  Lanes are ``[B, nb, 3]``
-:class:`~freedm_tpu_torch.cplx.C` pairs: the loads ``s`` in pu and the
-per-lane source phasors ``v0 [B, 3]``.  L1 runs every iteration of a
-solve in one launch — in ``solve`` mode each lane stops on its own at
-``err < eps`` or ``max_iter``; in ``fixed`` mode every lane runs
-``max_iter`` iterations and, with ``save=True``, keeps each iteration's
-input voltages (``[max_iter, B, nb, 6]``, re ‖ im, 8 · 6 · nb · B ·
-max_iter bytes in float64: 0.6 GB at 10k buses × 64 lanes × 20) for L2.
-L2 walks those iterates backwards in one launch and returns the
-cotangent of ``s``.  :class:`LadderFixed` is the ``torch.autograd``
-function whose forward is L1 in fixed mode and whose backward is L2.
+L1 and L2 work in DFS preorder (:meth:`Feeder.reorder_preorder`), on
+:class:`LadderOperands` made once per feeder; L3 and L4 in the caller's
+branch order, as the reference's dense and doubling sweeps do, on
+:class:`DenseOperands` and :class:`DoublingOperands`.  Lanes are ``[B,
+nb, 3]`` :class:`~freedm_tpu_torch.cplx.C` pairs: the loads ``s`` in pu
+and the per-lane source phasors ``v0 [B, 3]``.  A solve runs every
+iteration of every lane in one call — in ``solve`` mode each lane stops
+on its own at ``err < eps`` or ``max_iter``; in ``fixed`` mode every lane
+runs ``max_iter`` iterations and, with ``save=True``, keeps each
+iteration's input voltages (``[max_iter, B, nb, 6]``, re ‖ im, 8 · 6 · nb
+· B · max_iter bytes in float64: 0.6 GB at 10k buses × 64 lanes × 20) for
+the reverse mode.  A reverse mode walks those iterates backwards and
+returns the cotangents of ``s`` and of ``v0``.  :class:`LadderFixed` is
+the ``torch.autograd`` function whose forward is a form's fixed solve and
+whose backward is that form's reverse mode; the form follows the
+operands.
 """
 
 from __future__ import annotations
@@ -51,28 +66,45 @@ import torch
 from freedm_tpu_torch.cplx import C, einsum
 from freedm_tpu_torch.grid.feeder import Feeder
 from freedm_tpu_torch.kernels import build
+from freedm_tpu_torch.pf import sweeps
 
 Tensor = torch.Tensor
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {"ladder_solve": 0, "ladder_vjp": 0}
+LAUNCHES: Dict[str, int] = {"ladder_solve": 0, "ladder_vjp": 0,
+                            "ladder_dense": 0, "ladder_doubling": 0}
+#: L3's and L4's launches of :data:`LAUNCHES` by mode: ``forward`` (a
+#: solve, fixed or not) and ``reverse``.
+MODE_LAUNCHES: Dict[str, Dict[str, int]] = {
+    k: {"forward": 0, "reverse": 0} for k in ("ladder_dense",
+                                              "ladder_doubling")}
 _launch_lock = threading.Lock()
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1, mode: Optional[str] = None) -> None:
     with _launch_lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
+        if mode is not None:
+            MODE_LAUNCHES[name][mode] += n
 
 
 def reset_launches() -> None:
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        for counts in MODE_LAUNCHES.values():
+            for k in counts:
+                counts[k] = 0
 
 
 def launches() -> Dict[str, int]:
     with _launch_lock:
         return dict(LAUNCHES)
+
+
+def mode_launches() -> Dict[str, Dict[str, int]]:
+    with _launch_lock:
+        return {k: dict(v) for k, v in MODE_LAUNCHES.items()}
 
 
 class LadderOperands(NamedTuple):
@@ -320,16 +352,35 @@ def preorder_sweeps(op: LadderOperands) -> Tuple[Callable, Callable]:
     return backward, forward
 
 
+def _drop_einsum(i_branch: C, z_re: Tensor, z_im: Tensor) -> C:
+    return einsum("...bq,bqp->...bp", i_branch, C(z_re, z_im))
+
+
+def drop_ordered(i_branch: C, z_re: Tensor, z_im: Tensor) -> C:
+    """The drops ``Σ_q i_br[q] z[q, p]`` as the reference's four real
+    products, each summed over ``q`` in increasing order with every
+    product and sum rounded on its own (L4's arithmetic, so that L4 gives
+    this version's bits)."""
+
+    def dot(a, z):
+        return ((a[..., 0:1] * z[:, 0, :] + a[..., 1:2] * z[:, 1, :])
+                + a[..., 2:3] * z[:, 2, :])
+
+    return C(dot(i_branch.re, z_re) - dot(i_branch.im, z_im),
+             dot(i_branch.re, z_im) + dot(i_branch.im, z_re))
+
+
 def ladder_iterate_plain(s: C, v0: C, mask: Tensor, z_re: Tensor,
                          z_im: Tensor, root: Tensor, backward, forward,
                          eps: float, max_iter: int, fixed: bool,
-                         save: bool = False) -> LadderOut:
+                         save: bool = False, drop=_drop_einsum) -> LadderOut:
     """The ladder fixed point in PyTorch on any pair of sweeps: ``s [B,
     nb, 3]`` pu, ``v0 [B, 3]``.  ``fixed``: exactly ``max_iter``
     iterations (differentiable by ``torch.autograd``); else the
     reference's vmapped ``while_loop``: every iteration runs on all lanes
     and a lane's state updates while ``it < max_iter`` and ``err >= eps``
-    held on it (one host read of the flags an iteration)."""
+    held on it (one host read of the flags an iteration).  ``drop(i_br,
+    z_re, z_im)`` forms the voltage drops (the reference's einsum)."""
     lanes = s.re.shape[0]
     dtype, dev = s.re.dtype, s.re.device
     v = C(v0.re[:, None, :] * mask, v0.im[:, None, :] * mask)
@@ -348,8 +399,7 @@ def ladder_iterate_plain(s: C, v0: C, mask: Tensor, z_re: Tensor,
         live = v.abs2() > 0
         i_load = (s / v.where(live, 1.0)).conj().where(live)
         i_branch = backward(i_load)
-        drop = einsum("...bq,bqp->...bp", i_branch, C(z_re, z_im))
-        v_new = forward(drop)
+        v_new = forward(drop(i_branch, z_re, z_im))
         v_new = C((v0.re[:, None, :] - v_new.re) * mask,
                   (v0.im[:, None, :] - v_new.im) * mask)
         # The residual is diagnostics: no gradient (|z|'s backward is
@@ -384,33 +434,48 @@ def ladder_solve_plain(s: C, v0: C, op: LadderOperands, eps: float,
                                 backward, forward, eps, max_iter, fixed, save)
 
 
-def ladder_vjp_plain(saved: Tensor, s: C, op: LadderOperands, gv: C, gb: C,
-                     gl: C) -> C:
-    """L2's plain version: the cotangent of ``s`` from those of the
-    final ``v`` (``gv``), ``i_branch`` (``gb``) and ``i_load`` (``gl``),
-    walking the saved iterates backwards (the module docstring of
-    ``csrc/ladder.cu`` gives the recurrence)."""
-    backward, forward = preorder_sweeps(op)
-    mask = op.mask
-    z_re, z_im = op.z_re, op.z_im
+def vjp_iterate_plain(saved: Tensor, s: C, mask: Tensor, z_re: Tensor,
+                      z_im: Tensor, backward, forward, gv: C, gb: C,
+                      gl: C) -> Tuple[C, C]:
+    """The reverse mode of the fixed ladder solve on any pair of sweeps
+    (``forward`` the adjoint of ``backward``): the cotangents of ``s`` and
+    of the source phasors ``v0 [B, 3]`` from those of the final ``v``
+    (``gv``), ``i_branch`` (``gb``) and ``i_load`` (``gl``), walking the
+    saved iterates backwards (the module docstring of ``csrc/ladder.cu``
+    gives the recurrence).  ``v0``'s cotangent sums ``mask · vbar`` over
+    the branches for every iteration's ``v0 − path`` and for the initial
+    iterate ``v0 · mask``."""
     vbar = gv
     sbar = C(torch.zeros_like(s.re), torch.zeros_like(s.im))
+    v0bar = C(torch.zeros_like(s.re[:, 0]), torch.zeros_like(s.im[:, 0]))
     spec = "...bp,bqp->...bq"
-    for k in range(saved.shape[0] - 1, -1, -1):
+    last = saved.shape[0] - 1
+    for k in range(last, -1, -1):
         vk = _unpack(saved[k])
         a = C(vbar.re * mask, vbar.im * mask)
+        v0bar = v0bar + a.sum(dim=-2)
         db = -backward(a)
         ibb = einsum(spec, db, C(z_re, -z_im))  # conj(z)^T dropbar
-        if k == saved.shape[0] - 1:
+        if k == last:
             ibb = ibb + gb
         ilb = forward(ibb)
-        if k == saved.shape[0] - 1:
+        if k == last:
             ilb = ilb + gl
         live = vk.abs2() > 0
         safe = vk.where(live, 1.0)
         sbar = sbar + (ilb / safe).conj().where(live)
         vbar = ((-(s * ilb)) / (safe * safe)).conj().where(live)
-    return sbar
+    v0bar = v0bar + C(vbar.re * mask, vbar.im * mask).sum(dim=-2)
+    return sbar, v0bar
+
+
+def ladder_vjp_plain(saved: Tensor, s: C, op: LadderOperands, gv: C, gb: C,
+                     gl: C) -> Tuple[C, C]:
+    """L2's plain version: :func:`vjp_iterate_plain` on
+    :func:`preorder_sweeps`."""
+    backward, forward = preorder_sweeps(op)
+    return vjp_iterate_plain(saved, s, op.mask, op.z_re, op.z_im, backward,
+                             forward, gv, gb, gl)
 
 
 # ---------------------------------------------------------------------------
@@ -422,8 +487,12 @@ _I = ctypes.c_int
 _SIGS = {
     "ladder_solve": [_P] * 25 + [_I] * 4 + [ctypes.c_double] + [_I] * 4
     + [_P],
-    "ladder_vjp": [_P] * 20 + [_I] * 3 + [_P],
+    "ladder_vjp": [_P] * 21 + [_I] * 3 + [_P],
     "ladder_cluster_check": [_I] * 3 + [_P],
+    "ladder_dense": [_P] * 20 + [_I] * 4 + [ctypes.c_double] + [_P] * 2,
+    "ladder_dense_vjp": [_P] * 19 + [_I] * 3 + [_P] * 2,
+    "ladder_doubling": [_P] * 22 + [_I] * 5 + [ctypes.c_double] + [_P],
+    "ladder_doubling_vjp": [_P] * 20 + [_I] * 4 + [_P],
 }
 _lib_lock = threading.Lock()
 _fns: Dict[str, object] = {}
@@ -599,10 +668,11 @@ def ladder_solve(s: C, v0: C, op: LadderOperands, eps: float, max_iter: int,
 
 
 def ladder_vjp(saved: Tensor, s: C, op: LadderOperands, gv: C, gb: C,
-               gl: C) -> C:
-    """L2: the cotangent of ``s [B, nb, 3]`` from the cotangents ``gv``,
-    ``gb``, ``gl`` of L1's final ``v``, ``i_branch``, ``i_load`` and its
-    saved iterates ``[iters, B, nb, 6]``, in one launch."""
+               gl: C) -> Tuple[C, C]:
+    """L2: the cotangents of ``s [B, nb, 3]`` and of the source phasors
+    ``v0 [B, 3]`` from the cotangents ``gv``, ``gb``, ``gl`` of L1's final
+    ``v``, ``i_branch``, ``i_load`` and its saved iterates ``[iters, B, nb,
+    6]``, in one launch."""
     if not _on_card(s.re, "ladder_vjp"):
         return ladder_vjp_plain(saved, s, op, gv, gb, gl)
     dev, dtype = s.re.device, s.re.dtype
@@ -610,15 +680,9 @@ def ladder_vjp(saved: Tensor, s: C, op: LadderOperands, gv: C, gb: C,
     nb = op.nb
     lanes = int(s.re.shape[0])
     iters = int(saved.shape[0])
-    lane3 = (lanes, nb, 3)
-    _want(dev, dtype, saved=(saved, (iters, lanes, nb, 6), False),
-          s_re=(s.re, lane3, False), s_im=(s.im, lane3, False),
-          gv_re=(gv.re, lane3, False), gv_im=(gv.im, lane3, False),
-          gb_re=(gb.re, lane3, False), gb_im=(gb.im, lane3, False),
-          gl_re=(gl.re, lane3, False), gl_im=(gl.im, lane3, False))
+    _want_vjp(dev, dtype, saved, s, gv, gb, gl)
     _check_op(op, dev, dtype)
-    sbar = C(torch.empty(lane3, dtype=dtype, device=dev),
-             torch.empty(lane3, dtype=dtype, device=dev))
+    sbar, v0bar = _vjp_outputs(s)
     ps = torch.empty(lanes, nb + 1, 6, dtype=dtype, device=dev)
     w = torch.empty(lanes, nb, 6, dtype=dtype, device=dev)
     g = torch.empty(lanes, nb, 6, dtype=dtype, device=dev)
@@ -629,26 +693,398 @@ def ladder_vjp(saved: Tensor, s: C, op: LadderOperands, gv: C, gb: C,
             op.tout.data_ptr(), op.grp_ptr.data_ptr(), op.grp_idx.data_ptr(),
             gv.re.data_ptr(), gv.im.data_ptr(), gb.re.data_ptr(),
             gb.im.data_ptr(), gl.re.data_ptr(), gl.im.data_ptr(),
-            sbar.re.data_ptr(), sbar.im.data_ptr(), ps.data_ptr(),
-            w.data_ptr(), g.data_ptr(), nb, lanes, iters, _stream(s.re))
+            sbar.re.data_ptr(), sbar.im.data_ptr(), v0bar.data_ptr(),
+            ps.data_ptr(), w.data_ptr(), g.data_ptr(), nb, lanes, iters,
+            _stream(s.re))
     _raise_on(rc, "ladder_vjp")
     _count("ladder_vjp")
-    return sbar
+    return sbar, _unpack(v0bar)
+
+
+def _want_vjp(dev, dtype, saved: Tensor, s: C, gv: C, gb: C, gl: C) -> None:
+    lanes, nb = int(s.re.shape[0]), int(s.re.shape[1])
+    lane3 = (lanes, nb, 3)
+    _want(dev, dtype,
+          saved=(saved, (int(saved.shape[0]), lanes, nb, 6), False),
+          s_re=(s.re, lane3, False), s_im=(s.im, lane3, False),
+          gv_re=(gv.re, lane3, False), gv_im=(gv.im, lane3, False),
+          gb_re=(gb.re, lane3, False), gb_im=(gb.im, lane3, False),
+          gl_re=(gl.re, lane3, False), gl_im=(gl.im, lane3, False))
+
+
+def _vjp_outputs(s: C) -> Tuple[C, Tensor]:
+    """A reverse mode's outputs: the loads' cotangent pair ``[B, nb, 3]``
+    and the source phasors' ``[B, 6]`` (re ‖ im)."""
+    kw = dict(dtype=s.re.dtype, device=s.re.device)
+    return (C(torch.empty(s.re.shape, **kw), torch.empty(s.re.shape, **kw)),
+            torch.empty(int(s.re.shape[0]), 6, **kw))
+
+
+# ---------------------------------------------------------------------------
+# L3 and L4: the dense and doubling sweep forms, in the caller's order
+# ---------------------------------------------------------------------------
+
+
+class DenseOperands(NamedTuple):
+    """A feeder's tree for L3, in the caller's branch order: the phase
+    ``mask [nb, 3]``, the impedances ``z_re``, ``z_im [nb, 3, 3]`` and
+    ``root [nb]`` in the working dtype; the subtree matrix ``sub [nb,
+    nb]`` (uint8 0/1: ``sub[i, j] = 1`` iff branch ``j`` lies in branch
+    ``i``'s subtree, ``Feeder.subtree``) and its transpose ``sub_t``."""
+
+    mask: Tensor
+    z_re: Tensor
+    z_im: Tensor
+    root: Tensor
+    sub: Tensor
+    sub_t: Tensor
+
+    @property
+    def nb(self) -> int:
+        return int(self.mask.shape[0])
+
+
+class DoublingOperands(NamedTuple):
+    """A feeder's tree for L4, in the caller's branch order: ``mask``,
+    ``z_re``, ``z_im``, ``root`` as :class:`DenseOperands`; each round's
+    jump table ``jump [rounds, nb + 1]`` (int32: round ``m``'s
+    ``2^m``-th ancestor, the roots' and the sentinel's the sentinel slot
+    ``nb``) and its preimage lists, the CSR ``pre_ptr [rounds, nb + 1]``
+    (absolute offsets) into ``pre_idx`` of ``{i < nb : jump_m[i] = a}``
+    for each ``a < nb`` in increasing ``i``."""
+
+    mask: Tensor
+    z_re: Tensor
+    z_im: Tensor
+    root: Tensor
+    jump: Tensor
+    pre_ptr: Tensor
+    pre_idx: Tensor
+
+    @property
+    def nb(self) -> int:
+        return int(self.mask.shape[0])
+
+    @property
+    def rounds(self) -> int:
+        return int(self.jump.shape[0])
+
+
+def _tree_tensors(feeder: Feeder, dtype, device):
+    def real(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    z = np.asarray(feeder.z_pu)
+    return (real(feeder.phase_mask), real(z.real), real(z.imag),
+            real((np.asarray(feeder.parent) < 0).astype(np.float64)))
+
+
+def dense_operands(feeder: Feeder, dtype: torch.dtype,
+                   device: torch.device) -> DenseOperands:
+    """L3's operands of a feeder that compiled its subtree matrix."""
+    if feeder.subtree is None:
+        raise ValueError("feeder compiled without a dense subtree matrix")
+    sub = np.asarray(feeder.subtree) != 0
+
+    def u8(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.uint8),
+                               device=device)
+
+    return DenseOperands(*_tree_tensors(feeder, dtype, device), sub=u8(sub),
+                         sub_t=u8(sub.T))
+
+
+def doubling_operands(feeder: Feeder, dtype: torch.dtype,
+                      device: torch.device) -> DoublingOperands:
+    """L4's operands of a feeder: the jump tables and preimage lists,
+    made once on the host."""
+    jumps = sweeps.doubling_jumps(np.asarray(feeder.parent), feeder.levels)
+    ptr, idx = sweeps.preimage_lists(jumps)
+
+    def i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                               device=device)
+
+    return DoublingOperands(*_tree_tensors(feeder, dtype, device),
+                            jump=i32(jumps), pre_ptr=i32(ptr),
+                            pre_idx=i32(idx))
+
+
+def form_sweeps(op) -> Tuple[Callable, Callable]:
+    """The plain sweeps of L3's or L4's operands, from
+    :mod:`freedm_tpu_torch.pf.sweeps` (the one plain implementation of
+    each form): products with the subtree matrix, or the doubling rounds
+    on the operands' jump tables and preimage lists (whose gather-sum adds
+    in the kernel's order: no atomics, the same bits on the card as on
+    the CPU)."""
+    if isinstance(op, DenseOperands):
+        return sweeps.subtree_sweeps(op.sub.to(op.mask.dtype))
+
+    def host(t):
+        return t.cpu().numpy().astype(np.int64)
+
+    return sweeps.jump_sweeps(host(op.jump), host(op.pre_ptr),
+                              host(op.pre_idx), device=op.jump.device)
+
+
+def ladder_dense_plain(s: C, v0: C, op: DenseOperands, eps: float,
+                       max_iter: int, fixed: bool,
+                       save: bool = False) -> LadderOut:
+    """L3's plain version: :func:`ladder_iterate_plain` on
+    :func:`form_sweeps` (differentiable by ``torch.autograd`` in fixed
+    mode)."""
+    backward, forward = form_sweeps(op)
+    return ladder_iterate_plain(s, v0, op.mask, op.z_re, op.z_im, op.root,
+                                backward, forward, eps, max_iter, fixed, save)
+
+
+def ladder_doubling_plain(s: C, v0: C, op: DoublingOperands, eps: float,
+                          max_iter: int, fixed: bool,
+                          save: bool = False) -> LadderOut:
+    """L4's plain version: :func:`ladder_iterate_plain` on
+    :func:`form_sweeps` with :func:`drop_ordered`."""
+    backward, forward = form_sweeps(op)
+    return ladder_iterate_plain(s, v0, op.mask, op.z_re, op.z_im, op.root,
+                                backward, forward, eps, max_iter, fixed, save,
+                                drop=drop_ordered)
+
+
+def ladder_dense_vjp_plain(saved: Tensor, s: C, op: DenseOperands, gv: C,
+                           gb: C, gl: C) -> Tuple[C, C]:
+    """L3's reverse mode in PyTorch: :func:`vjp_iterate_plain` on
+    :func:`form_sweeps`."""
+    backward, forward = form_sweeps(op)
+    return vjp_iterate_plain(saved, s, op.mask, op.z_re, op.z_im, backward,
+                             forward, gv, gb, gl)
+
+
+def ladder_doubling_vjp_plain(saved: Tensor, s: C, op: DoublingOperands,
+                              gv: C, gb: C, gl: C) -> Tuple[C, C]:
+    """L4's reverse mode in PyTorch: :func:`vjp_iterate_plain` on
+    :func:`form_sweeps`."""
+    backward, forward = form_sweeps(op)
+    return vjp_iterate_plain(saved, s, op.mask, op.z_re, op.z_im, backward,
+                             forward, gv, gb, gl)
+
+
+def _check_form_op(op, dev, dtype) -> None:
+    """Device, dtype and shapes of L3's or L4's operands, once a set."""
+    if _checked.get(id(op)) is op and op.mask.dtype is dtype \
+            and op.mask.device == dev:
+        return
+    nb = op.nb
+    _want(dev, dtype, mask=(op.mask, (nb, 3), False),
+          z_re=(op.z_re, (nb, 3, 3), False), z_im=(op.z_im, (nb, 3, 3), False),
+          root=(op.root, (nb,), False))
+    if isinstance(op, DenseOperands):
+        for name, t in (("sub", op.sub), ("sub_t", op.sub_t)):
+            if t.device != dev or t.dtype is not torch.uint8 or tuple(
+                    t.shape) != (nb, nb) or not t.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous uint8 "
+                                 f"({nb}, {nb}) tensor on {dev}")
+    else:
+        r = op.rounds
+        _want(dev, None, jump=(op.jump, (r, nb + 1), True),
+              pre_ptr=(op.pre_ptr, (r, nb + 1), True),
+              pre_idx=(op.pre_idx, (int(op.pre_idx.shape[0]),), True))
+    with _launch_lock:
+        if len(_checked) >= 64:
+            _checked.clear()
+        _checked[id(op)] = op
+
+
+def _want_solve(s: C, v0: C, op, max_iter: int, name: str):
+    dev, dtype = s.re.device, s.re.dtype
+    lanes = int(s.re.shape[0])
+    if lanes < 1 or max_iter < 0:
+        raise ValueError(f"{name} needs lanes >= 1 and max_iter >= 0, got "
+                         f"{lanes} and {max_iter}")
+    nb = op.nb
+    _want(dev, dtype, s_re=(s.re, (lanes, nb, 3), False),
+          s_im=(s.im, (lanes, nb, 3), False),
+          v0_re=(v0.re, (lanes, 3), False), v0_im=(v0.im, (lanes, 3), False))
+    _check_form_op(op, dev, dtype)
+    return dev, dtype, lanes
+
+
+#: L3's lanes a product tile: the wrapper refuses more lanes than the
+#: grid's second dimension (65,535 tiles) takes.
+(DENSE_TILE_LANES,) = build.constants("ladder.cu", "kDenseLanes")
+
+
+def ladder_dense(s: C, v0: C, op: DenseOperands, eps: float, max_iter: int,
+                 fixed: bool, save: bool = False) -> LadderOut:
+    """L3: a whole ladder solve of every lane on the dense sweeps — ``s [B,
+    nb, 3]`` pu and ``v0 [B, 3]`` contiguous pairs in the caller's branch
+    order — as one call of ``1 + 2 · max_iter`` launches issued without
+    a host read: an initial state, then per iteration the product with the
+    subtree matrix (the loads' currents formed as it stages them, the
+    drops and the root error in its epilogue) and the product with its
+    transpose (the new voltages in its epilogue).  A lane that has
+    stopped is frozen, as the reference's vmapped ``while_loop`` leaves
+    it."""
+    if not _on_card(s.re, "ladder_dense"):
+        return ladder_dense_plain(s, v0, op, eps, max_iter, fixed, save)
+    dev, dtype, lanes = _want_solve(s, v0, op, max_iter, "ladder_dense")
+    if lanes > DENSE_TILE_LANES * 65535:
+        raise ValueError(f"ladder_dense takes at most "
+                         f"{DENSE_TILE_LANES * 65535} lanes, got {lanes}")
+    nb = op.nb
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    out = [empty(lanes, nb, 3) for _ in range(6)]
+    drop = empty(lanes, nb, 6)
+    saved = empty(max_iter, lanes, nb, 6) if (save and fixed) else None
+    it = empty(3, lanes, dt=torch.int32)
+    err = empty(3, lanes)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = _fn(f"ladder_dense_{_suffix(dtype)}")(
+            op.sub.data_ptr(), op.sub_t.data_ptr(), op.mask.data_ptr(),
+            op.z_re.data_ptr(), op.z_im.data_ptr(), op.root.data_ptr(),
+            s.re.data_ptr(), s.im.data_ptr(), v0.re.data_ptr(),
+            v0.im.data_ptr(), *(t.data_ptr() for t in out), drop.data_ptr(),
+            None if saved is None else saved.data_ptr(), it.data_ptr(),
+            err.data_ptr(), nb, lanes, int(max_iter), int(bool(fixed)),
+            float(eps), ctypes.byref(launched), _stream(s.re))
+    _count("ladder_dense", launched.value, "forward")
+    _raise_on(rc, "ladder_dense")
+    slot = int(max_iter) % 3
+    resid = err[slot]
+    return LadderOut(C(out[0], out[1]), C(out[2], out[3]), C(out[4], out[5]),
+                     it[slot], resid < eps, resid, saved)
+
+
+def ladder_dense_vjp(saved: Tensor, s: C, op: DenseOperands, gv: C, gb: C,
+                     gl: C) -> Tuple[C, C]:
+    """L3's reverse mode: the cotangents of ``s`` and ``v0`` (as
+    :func:`ladder_vjp`) on the dense sweeps, in one call of ``2 + 3 ·
+    iters`` launches: per iteration the ``mask · vbar`` sum for ``v0``'s
+    cotangent, the product with the subtree matrix (``−S(mask vbar)``,
+    ``conj(z)ᵀ`` in its epilogue) and with its transpose (the loads' and
+    the voltages' cotangents in its epilogue)."""
+    if not _on_card(s.re, "ladder_dense_vjp"):
+        return ladder_dense_vjp_plain(saved, s, op, gv, gb, gl)
+    dev, dtype = s.re.device, s.re.dtype
+    _want_vjp(dev, dtype, saved, s, gv, gb, gl)
+    _check_form_op(op, dev, dtype)
+    lanes, nb, iters = int(s.re.shape[0]), op.nb, int(saved.shape[0])
+    if lanes > DENSE_TILE_LANES * 65535:
+        raise ValueError(f"ladder_dense takes at most "
+                         f"{DENSE_TILE_LANES * 65535} lanes, got {lanes}")
+    sbar, v0bar = _vjp_outputs(s)
+    w = torch.empty(lanes, nb, 6, dtype=dtype, device=dev)
+    g = torch.empty(lanes, nb, 6, dtype=dtype, device=dev)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = _fn(f"ladder_dense_vjp_{_suffix(dtype)}")(
+            op.sub.data_ptr(), op.sub_t.data_ptr(), op.mask.data_ptr(),
+            op.z_re.data_ptr(), op.z_im.data_ptr(), saved.data_ptr(),
+            s.re.data_ptr(), s.im.data_ptr(), gv.re.data_ptr(),
+            gv.im.data_ptr(), gb.re.data_ptr(), gb.im.data_ptr(),
+            gl.re.data_ptr(), gl.im.data_ptr(), sbar.re.data_ptr(),
+            sbar.im.data_ptr(), v0bar.data_ptr(), w.data_ptr(), g.data_ptr(),
+            nb, lanes, iters, ctypes.byref(launched), _stream(s.re))
+    _count("ladder_dense", launched.value, "reverse")
+    _raise_on(rc, "ladder_dense_vjp")
+    return sbar, _unpack(v0bar)
+
+
+def ladder_doubling(s: C, v0: C, op: DoublingOperands, eps: float,
+                    max_iter: int, fixed: bool,
+                    save: bool = False) -> LadderOut:
+    """L4: a whole ladder solve of every lane on the doubling sweeps in
+    one launch, one CTA a lane — ``s [B, nb, 3]`` pu and ``v0 [B, 3]``
+    contiguous pairs in the caller's branch order."""
+    if not _on_card(s.re, "ladder_doubling"):
+        return ladder_doubling_plain(s, v0, op, eps, max_iter, fixed, save)
+    dev, dtype, lanes = _want_solve(s, v0, op, max_iter, "ladder_doubling")
+    nb = op.nb
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    out = [empty(lanes, nb, 3) for _ in range(6)]
+    iters = empty(lanes, dt=torch.int32)
+    resid = empty(lanes)
+    conv = empty(lanes, dt=torch.bool)
+    saved = empty(max_iter, lanes, nb, 6) if (save and fixed) else None
+    buf = empty(lanes, 2, nb + 1, 6)
+    with torch.cuda.device(dev):
+        rc = _fn(f"ladder_doubling_{_suffix(dtype)}")(
+            op.mask.data_ptr(), op.z_re.data_ptr(), op.z_im.data_ptr(),
+            op.root.data_ptr(), op.jump.data_ptr(), op.pre_ptr.data_ptr(),
+            op.pre_idx.data_ptr(), s.re.data_ptr(), s.im.data_ptr(),
+            v0.re.data_ptr(), v0.im.data_ptr(),
+            *(t.data_ptr() for t in out), iters.data_ptr(), resid.data_ptr(),
+            conv.data_ptr(), None if saved is None else saved.data_ptr(),
+            buf.data_ptr(), nb, op.rounds, lanes, int(max_iter),
+            int(bool(fixed)), float(eps), _stream(s.re))
+    _raise_on(rc, "ladder_doubling")
+    _count("ladder_doubling", mode="forward")
+    return LadderOut(C(out[0], out[1]), C(out[2], out[3]), C(out[4], out[5]),
+                     iters, conv, resid, saved)
+
+
+def ladder_doubling_vjp(saved: Tensor, s: C, op: DoublingOperands, gv: C,
+                        gb: C, gl: C) -> Tuple[C, C]:
+    """L4's reverse mode: the cotangents of ``s`` and ``v0`` (as
+    :func:`ladder_vjp`) on the doubling sweeps, one CTA a lane in one
+    launch."""
+    if not _on_card(s.re, "ladder_doubling_vjp"):
+        return ladder_doubling_vjp_plain(saved, s, op, gv, gb, gl)
+    dev, dtype = s.re.device, s.re.dtype
+    _want_vjp(dev, dtype, saved, s, gv, gb, gl)
+    _check_form_op(op, dev, dtype)
+    lanes, nb, iters = int(s.re.shape[0]), op.nb, int(saved.shape[0])
+    sbar, v0bar = _vjp_outputs(s)
+    buf = torch.empty(lanes, 2, nb + 1, 6, dtype=dtype, device=dev)
+    w = torch.empty(lanes, nb, 6, dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = _fn(f"ladder_doubling_vjp_{_suffix(dtype)}")(
+            op.mask.data_ptr(), op.z_re.data_ptr(), op.z_im.data_ptr(),
+            op.jump.data_ptr(), op.pre_ptr.data_ptr(), op.pre_idx.data_ptr(),
+            saved.data_ptr(), s.re.data_ptr(), s.im.data_ptr(),
+            gv.re.data_ptr(), gv.im.data_ptr(), gb.re.data_ptr(),
+            gb.im.data_ptr(), gl.re.data_ptr(), gl.im.data_ptr(),
+            sbar.re.data_ptr(), sbar.im.data_ptr(), v0bar.data_ptr(),
+            buf.data_ptr(), w.data_ptr(), nb, op.rounds, lanes, iters,
+            _stream(s.re))
+    _raise_on(rc, "ladder_doubling_vjp")
+    _count("ladder_doubling", mode="reverse")
+    return sbar, _unpack(v0bar)
+
+
+def _form(op):
+    """A form's fixed solve and reverse mode, by its operands' type."""
+    if isinstance(op, LadderOperands):
+        return ladder_solve, ladder_vjp
+    if isinstance(op, DenseOperands):
+        return ladder_dense, ladder_dense_vjp
+    if isinstance(op, DoublingOperands):
+        return ladder_doubling, ladder_doubling_vjp
+    raise TypeError(f"no ladder form takes {type(op).__name__}")
 
 
 class LadderFixed(torch.autograd.Function):
     """The fixed-iteration ladder solve as a differentiable function of
-    the loads: forward L1 in fixed mode, saving its iterates; backward
-    L2.  ``apply(s_re, s_im, v0_re, v0_im, op, eps, max_iter)`` with the
-    loads ``[B, nb, 3]`` (pu, preorder) returns ``(v_re, v_im, ib_re,
-    ib_im, il_re, il_im, iterations, converged, residual)``; the source
-    phasors get no gradient."""
+    the loads and the source phasors: forward a form's fixed solve,
+    saving its iterates; backward that form's reverse mode — L1 and L2 on
+    :class:`LadderOperands` (preorder), L3 on :class:`DenseOperands`, L4
+    on :class:`DoublingOperands`.  ``apply(s_re, s_im, v0_re, v0_im, op,
+    eps, max_iter)`` with the loads ``[B, nb, 3]`` (pu, in the operands'
+    order) and ``v0 [B, 3]`` returns ``(v_re, v_im, ib_re, ib_im, il_re,
+    il_im, iterations, converged, residual)``."""
 
     @staticmethod
     def forward(ctx, s_re, s_im, v0_re, v0_im, op, eps, max_iter):
+        solve, _ = _form(op)
         s = C(s_re.contiguous(), s_im.contiguous())
-        out = ladder_solve(s, C(v0_re, v0_im), op, eps, max_iter,
-                           fixed=True, save=True)
+        out = solve(s, C(v0_re.contiguous(), v0_im.contiguous()), op, eps,
+                    max_iter, fixed=True, save=True)
         saved = out.saved
         if saved is None:  # max_iter == 0: no iteration to walk back
             saved = s.re.new_zeros((0,) + tuple(s.re.shape[:-1]) + (6,))
@@ -663,10 +1099,11 @@ class LadderFixed(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gv_re, gv_im, gb_re, gb_im, gl_re, gl_im, *_):
         saved, s_re, s_im = ctx.saved_tensors
+        _, vjp = _form(ctx.op)
 
         def c(re, im):
             return C(re.contiguous(), im.contiguous())
 
-        sbar = ladder_vjp(saved, C(s_re, s_im), ctx.op, c(gv_re, gv_im),
+        sbar, v0bar = vjp(saved, C(s_re, s_im), ctx.op, c(gv_re, gv_im),
                           c(gb_re, gb_im), c(gl_re, gl_im))
-        return sbar.re, sbar.im, None, None, None, None, None
+        return (sbar.re, sbar.im, v0bar.re, v0bar.im, None, None, None)

@@ -14,7 +14,9 @@ in-flight ledger feeds :mod:`freedm_tpu_torch.modules.sc`.
 
 On the card a round is B1 ``lb_rounds``
 (:mod:`freedm_tpu_torch.kernels.dgi_kernels`), and :func:`run_rounds`
-runs every round in that one launch, the gateway kept on chip.  The
+runs every round in that one launch, the gateway kept on chip; from 2¹⁵
+nodes (the reference's unpacked branch) B1 takes its WIDE form, so any
+``N`` up to ``dk.LB_MAX_NODES`` that fits the card runs.  The
 ``[N, N]`` ``matched`` matrix of :func:`lb_round` is one broadcast
 compare of the ranks and group ids B1 writes.  :func:`group_ids` is
 hoisted out of the rounds, as the reference does; :func:`_group_rank`
@@ -97,11 +99,6 @@ def _inputs(dev, net_generation, gateway, group_mask, malicious):
         ng = ng.to(torch.float32)
     if not gw.is_floating_point():
         gw = gw.to(torch.float32)
-    if gw.shape[-1] > dk.LB_MAX_NODES:
-        raise ValueError(
-            f"the LB round packs node indices in 15 bits: N = "
-            f"{gw.shape[-1]} > {dk.LB_MAX_NODES} needs the reference's "
-            f"unpacked branch (ROADMAP.md, module queue item 13's remainder)")
     batched = gw.dim() == 2
     ng, gw = (ng, gw) if batched else (ng[None], gw[None])
     ng = ng.expand_as(gw).contiguous()

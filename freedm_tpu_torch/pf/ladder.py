@@ -13,15 +13,29 @@ reference's ``while_loop``), ``solve_fixed`` exactly ``max_iter``
 iterations, differentiable in the loads (the VVC gradient).  The lane
 axis is written out: loads may carry a leading ``[B]`` axis.
 
-On the card a whole solve is one launch of the hand-written kernel L1
-(:func:`~freedm_tpu_torch.kernels.ladder_kernels.ladder_solve`) in DFS
-preorder space — the permutation in and its inverse out are applied once
-a call, as the reference applies them — and ``solve_fixed``'s backward is
-L2 (:class:`~freedm_tpu_torch.kernels.ladder_kernels.LadderFixed`).  On
-the CPU ``sweep_method=None`` selects as the reference does — the dense
-subtree matmul when the feeder compiled one, else the Euler-tour sweeps
-(L1's plain version in preorder space) — so parity tests compare like
-with like; ``"dense"`` and ``"doubling"`` run only there.
+On the card the sweep method picks a hand-written kernel
+(:mod:`~freedm_tpu_torch.kernels.ladder_kernels`): ``None`` and
+``"euler"`` run L1 ``ladder_solve`` in DFS preorder space — a whole solve
+is one launch, the permutation in and its inverse out applied once a
+call, as the reference applies them — with ``solve_fixed``'s backward on
+L2; ``"dense"`` runs L3 ``ladder_dense`` (products with the subtree
+matrix) and ``"doubling"`` L4 ``ladder_doubling`` (pointer jumping), both
+in the caller's branch order as the reference's dense and doubling sweeps
+are, each with its own reverse mode.  ``solve_fixed`` takes the
+differentiable :class:`~freedm_tpu_torch.kernels.ladder_kernels.
+LadderFixed` whenever the loads or ``v_source_pu`` require a gradient.
+One deviation: where the reference's ``sweep_method=None`` auto-selects
+the dense sweeps (a feeder that compiled its subtree matrix, ≤ 2048
+branches), the card runs L1 — the same function, summed in another
+order.  On the CPU each route runs its kernel's plain version (a wrapper
+takes it for CPU tensors; the dense and doubling forms' sweeps are those
+of :mod:`~freedm_tpu_torch.pf.sweeps`) — ``solve_fixed``'s gradient
+through L2's plain version on the Euler form, by ``torch.autograd`` of
+the plain solve on the dense and doubling ones, as the reference
+differentiates them — and ``sweep_method=None`` selects as
+the reference does — L3's plain version when the feeder compiled its
+subtree matrix, else L1's in preorder space — so parity tests compare
+like with like.
 """
 
 from __future__ import annotations
@@ -36,7 +50,6 @@ from freedm_tpu_torch.cplx import C
 from freedm_tpu_torch.device import DeviceLike, resolve_device
 from freedm_tpu_torch.grid.feeder import Feeder
 from freedm_tpu_torch.kernels import ladder_kernels as lk
-from freedm_tpu_torch.pf.sweeps import make_sweeps
 
 Tensor = torch.Tensor
 
@@ -74,14 +87,15 @@ def make_ladder_solver(
     -> LadderResult`` with the loads in kW + j·kvar as a complex array or
     tensor, or a ``(re, im)`` pair, ``[nb, 3]`` or ``[B, nb, 3]``;
     ``v_source_pu`` a scalar or a ``[B]`` tensor (default the feeder's).
-    ``solve_fixed`` is differentiable in the loads: on the card through
-    :class:`~freedm_tpu_torch.kernels.ladder_kernels.LadderFixed` (L1
-    forward, L2 backward), on the CPU through the plain versions; a
-    ``v_source_pu`` that requires a gradient raises on the card.
+    ``solve_fixed`` is differentiable in the loads and in
+    ``v_source_pu``: on the card, and for the Euler form on the CPU,
+    through :class:`~freedm_tpu_torch.kernels.ladder_kernels.LadderFixed`
+    (the form's fixed solve forward, its reverse mode backward), else by
+    ``torch.autograd`` of the plain solve.
 
     ``sweep_method`` is ``None``, ``"euler"``, ``"dense"`` or
-    ``"doubling"`` (module docstring); ``plain=True`` runs L1's plain
-    version on any device — the on-card reference ``chip_smoke.py``
+    ``"doubling"`` (module docstring); ``plain=True`` runs the kernel's
+    plain version on any device — the on-card reference ``chip_smoke.py``
     holds the kernel to.  ``mesh`` (the reference's sharded form) is not
     ported and raises.
     """
@@ -96,19 +110,18 @@ def make_ladder_solver(
     if sweep_method not in (None, "dense", "doubling", "euler"):
         raise ValueError(f"unknown sweep method: {sweep_method!r}")
     on_card = dev.type == "cuda"
-    if on_card and sweep_method in ("dense", "doubling"):
-        raise NotImplementedError(
-            f"sweep_method={sweep_method!r} runs on the CPU only: the card "
-            f"runs the ladder on L1 in preorder space (sweep_method=None or "
-            f"'euler'); the dense and doubling sweeps on the card are module "
-            f"queue item 9's remainder (ROADMAP.md)"
-        )
     eps = float(eps)
     max_iter = int(max_iter)
     nb = feeder.n_branches
     use_l1 = sweep_method == "euler" or (
         sweep_method is None and (on_card or feeder.subtree is None))
 
+    # The route's operands, kernel and plain version; whether solve_fixed
+    # differentiates through LadderFixed.  The CPU's dense and doubling
+    # forms take torch.autograd of the plain solve instead: it adds in the
+    # reference's order, and a reverse mode's rounding moves the CPU's VVC
+    # trajectory (vvc_9bus, dense) past its 1e-9 parity within 12 rounds.
+    reverse_mode = on_card or use_l1
     perm = inv = None
     if use_l1:
         work, order = feeder.reorder_preorder()
@@ -117,19 +130,13 @@ def make_ladder_solver(
             inv = torch.as_tensor(np.argsort(order), dtype=torch.int64,
                                   device=dev)
         op = lk.ladder_operands(work, dtype, dev)
-        mask, z_re, z_im, root = op.mask, op.z_re, op.z_im, op.root
-        backward, forward = lk.preorder_sweeps(op)
+        kernel, plain_fn = lk.ladder_solve, lk.ladder_solve_plain
+    elif sweep_method != "doubling":
+        op = lk.dense_operands(feeder, dtype, dev)
+        kernel, plain_fn = lk.ladder_dense, lk.ladder_dense_plain
     else:
-        op = None
-        backward, forward = make_sweeps(feeder, dtype, sweep_method, dev)
-
-        def real(a):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                   device=dev)
-
-        mask = real(feeder.phase_mask)
-        z_re, z_im = real(feeder.z_pu.real), real(feeder.z_pu.imag)
-        root = real((feeder.parent < 0).astype(np.float64))
+        op = lk.doubling_operands(feeder, dtype, dev)
+        kernel, plain_fn = lk.ladder_doubling, lk.ladder_doubling_plain
     s_base = feeder.s_base_per_phase_kva
     unit = cplx.as_c(SOURCE_UNIT, dtype, dev)
 
@@ -167,42 +174,26 @@ def make_ladder_solver(
         return LadderResult(*(C(x.re[0], x.im[0]) if isinstance(x, C)
                               else x[0] for x in res))
 
-    def iterate_plain(s_pu, v0, fixed):
-        return lk.ladder_iterate_plain(s_pu, v0, mask, z_re, z_im, root,
-                                       backward, forward, eps, max_iter,
-                                       fixed)
-
     def solve(s_load_kva, v_source_pu=None) -> LadderResult:
         s_pu, v0, batched = prep(s_load_kva, v_source_pu)
-        if not use_l1:
-            out = iterate_plain(s_pu, v0, fixed=False)
-        elif plain:
-            out = lk.ladder_solve_plain(s_pu, v0, op, eps, max_iter, False)
-        else:
-            out = lk.ladder_solve(s_pu, v0, op, eps, max_iter, False)
+        out = (plain_fn if plain else kernel)(s_pu, v0, op, eps, max_iter,
+                                              False)
         return finish(v0, out.v, out.i_branch, out.i_load, out.iterations,
                       out.converged, out.residual, batched)
 
     def solve_fixed(s_load_kva, v_source_pu=None) -> LadderResult:
-        if isinstance(v_source_pu, Tensor) and v_source_pu.requires_grad \
-                and on_card and not plain:
-            raise NotImplementedError(
-                "solve_fixed differentiates the loads only on the card: L2 "
-                "gives no v_source_pu gradient (pass a plain value)"
-            )
         s_pu, v0, batched = prep(s_load_kva, v_source_pu)
-        grad = torch.is_grad_enabled() and (
-            s_pu.re.requires_grad or s_pu.im.requires_grad)
-        if use_l1 and grad and not plain and not v0.re.requires_grad:
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (s_pu.re, s_pu.im, v0.re, v0.im))
+        if grad and reverse_mode and not plain:
             (v_re, v_im, ib_re, ib_im, il_re, il_im, it, conv,
              err) = lk.LadderFixed.apply(s_pu.re, s_pu.im, v0.re, v0.im, op,
                                          eps, max_iter)
             return finish(v0, C(v_re, v_im), C(ib_re, ib_im),
                           C(il_re, il_im), it, conv, err, batched)
-        if use_l1 and not grad and not plain:
-            out = lk.ladder_solve(s_pu, v0, op, eps, max_iter, True)
-        else:  # the plain loop, differentiable by torch.autograd
-            out = iterate_plain(s_pu, v0, fixed=True)
+        # plain: differentiable by torch.autograd
+        out = (plain_fn if plain else kernel)(s_pu, v0, op, eps, max_iter,
+                                              True)
         return finish(v0, out.v, out.i_branch, out.i_load, out.iterations,
                       out.converged, out.residual, batched)
 

@@ -18,9 +18,12 @@ Three realizations, each in the reference's operations and order:
   shorter form when the feeder is already in DFS preorder.
 
 These are the plain versions.  On the card the ladder does not call
-them: its whole iteration, sweeps included, is the hand-written kernel
-L1 (:mod:`freedm_tpu_torch.kernels.ladder_kernels`) in preorder space;
-the dense and doubling forms run on the CPU only.
+them: its whole iteration, sweeps included, is a hand-written kernel of
+:mod:`freedm_tpu_torch.kernels.ladder_kernels` — L1 on the Euler-tour
+sweeps in preorder space, L3 on the dense ones, L4 on the doubling ones.
+L3's and L4's plain versions run the dense and doubling sweeps of this
+module (:func:`subtree_sweeps`, :func:`jump_sweeps`) on their operands,
+so each form has one plain implementation on every device.
 
 Operands are :class:`~freedm_tpu_torch.cplx.C` pairs whose tree axis is
 the second to last (``[..., nb, p]``), so a leading lane axis passes
@@ -65,8 +68,14 @@ def dense_sweeps(feeder: Feeder, dtype, device: DeviceLike = None
     """Sweeps as matmuls against the subtree incidence matrix."""
     if feeder.subtree is None:
         raise ValueError("feeder compiled without a dense subtree matrix")
-    dev = resolve_device(device)
-    sub = torch.as_tensor(feeder.subtree, dtype=dtype, device=dev)
+    return subtree_sweeps(torch.as_tensor(feeder.subtree, dtype=dtype,
+                                          device=resolve_device(device)))
+
+
+def subtree_sweeps(sub: torch.Tensor) -> Tuple[SweepFn, SweepFn]:
+    """The dense sweeps on a subtree matrix ``sub [nb, nb]`` in the
+    working dtype (``sub[i, j] = 1`` iff branch ``j`` lies in branch
+    ``i``'s subtree): ``sub @ x`` backward, ``subᵀ @ x`` forward."""
     sub_t = sub.T
 
     def backward(i_load: C) -> C:
@@ -78,46 +87,97 @@ def dense_sweeps(feeder: Feeder, dtype, device: DeviceLike = None
     return backward, forward
 
 
+def doubling_jumps(parent: np.ndarray, levels: int) -> np.ndarray:
+    """The doubling sweeps' jump tables ``[rounds, nb + 1]``: round 0 the
+    parent pointer with the roots sent to the sentinel slot ``nb`` (which
+    points to itself), each next round the last composed with itself;
+    ``ceil(log2(levels))`` rounds, at least one."""
+    nb = int(parent.shape[0])
+    rounds = max(1, math.ceil(math.log2(max(int(levels), 2))))
+    j = np.concatenate([np.where(parent < 0, nb, parent), [nb]]).astype(
+        np.int64)
+    out = np.empty((rounds, nb + 1), np.int64)
+    for m in range(rounds):
+        out[m] = j
+        j = j[j]
+    return out
+
+
+def preimage_lists(jumps: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Each round's preimage lists ``{i < nb : jump_m[i] = a}`` for ``a <
+    nb``, in increasing ``i``: ``(ptr [rounds, nb + 1], idx)`` with
+    absolute offsets.  The doubling backward sweep's scatter-add
+    ``out[a] = x[a] + Σ x[i]`` is then a gather-sum in a fixed order —
+    the order in which ``index_add`` adds on the CPU."""
+    rounds, nb = jumps.shape[0], jumps.shape[1] - 1
+    ptr = np.zeros((rounds, nb + 1), np.int64)
+    idx = []
+    base = 0
+    for m in range(rounds):
+        tgt = jumps[m, :nb]
+        keep = np.nonzero(tgt < nb)[0]
+        order = keep[np.argsort(tgt[keep], kind="stable")]
+        cnt = np.bincount(tgt[keep], minlength=nb)
+        ptr[m] = base + np.concatenate([[0], np.cumsum(cnt)])
+        idx.append(order)
+        base += order.shape[0]
+    return ptr, (np.concatenate(idx) if idx else np.zeros(0, np.int64))
+
+
 def doubling_sweeps(feeder: Feeder, dtype, device: DeviceLike = None
                     ) -> Tuple[SweepFn, SweepFn]:
-    """Sweeps by pointer jumping — O(log depth) gather/scatter rounds.
+    """Sweeps by pointer jumping — O(log depth) gather rounds
+    (:func:`jump_sweeps` on the feeder's :func:`doubling_jumps` and
+    :func:`preimage_lists`, made once on the host)."""
+    jumps = doubling_jumps(np.asarray(feeder.parent), feeder.levels)
+    return jump_sweeps(jumps, *preimage_lists(jumps),
+                       device=resolve_device(device))
 
-    With ``jump`` initially the parent pointer, each round does
-    ``val ← val + P^(2^m)·val`` (a scatter-add into the 2^m-th ancestor
-    for the subtree sums, a gather from it for the path sums) and then
-    ``jump ← jump∘jump``.  A sentinel slot ``nb`` takes the roots'
-    pointers; it points to itself and its value is dropped (scatter) or
-    zero (gather).  The jump tables are made once on the host.
+
+def jump_sweeps(jumps: np.ndarray, ptr: np.ndarray, idx: np.ndarray,
+                device: DeviceLike = None) -> Tuple[SweepFn, SweepFn]:
+    """The doubling sweeps on host tables: ``jumps [rounds, nb + 1]``
+    and their :func:`preimage_lists` ``(ptr, idx)``.
+
+    Each round does ``val ← val + P^(2^m)·val``: for the subtree sums a
+    scatter-add into the ``2^m``-th ancestor, written as a gather-sum —
+    each ``a`` adds its preimages in increasing index (a gather a column
+    of the lists padded to the longest, the padding reading the zero
+    sentinel row), which is ``index_add``'s order on the CPU and takes no
+    atomics on the card; for the path sums a gather from it (``x +
+    x[jump]``).  The sentinel slot ``nb`` takes the roots' pointers; its
+    row stays zero.
     """
     dev = resolve_device(device)
-    nb = feeder.n_branches
-    parent = np.where(feeder.parent < 0, nb, feeder.parent).astype(np.int64)
-    rounds = max(1, math.ceil(math.log2(max(feeder.levels, 2))))
-    jumps = []
-    j = np.concatenate([parent, [nb]]).astype(np.int64)
-    for _ in range(rounds):
-        jumps.append(torch.as_tensor(j, device=dev))
-        j = j[j]
+    nb = int(jumps.shape[1]) - 1
+    columns = []
+    for m in range(jumps.shape[0]):
+        cnt = np.diff(ptr[m])
+        table = np.full((nb, int(cnt.max())), nb, np.int64)
+        pos = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        table[np.repeat(np.arange(nb), cnt), pos] = idx[ptr[m, 0]:ptr[m, -1]]
+        columns.append([torch.as_tensor(table[:, j], device=dev)
+                        for j in range(table.shape[1])])
+    steps = [torch.as_tensor(j, device=dev) for j in jumps]
 
-    def _rounds(val: C, combine) -> C:
+    def _rounds(val: C, step) -> C:
         x = _pack(val)
         x = torch.cat([x, _zero_row(x)], dim=-2)
-        for jump in jumps:
-            x = combine(x, jump)
+        for m in range(len(steps)):
+            x = step(x, m)
         return _unpack(x[..., :nb, :], val.re.shape[-1])
 
-    def _scatter(x, jump):
-        out = x.index_add(x.dim() - 2, jump, x)
-        # The sentinel row took the roots' contributions: zero it, so
-        # later rounds don't carry it back.
-        out[..., nb, :] = 0.0
-        return out
+    def _gather_sum(x, m):
+        out = x[..., :nb, :]
+        for col in columns[m]:  # index_select: its backward is an index_add
+            out = out + x.index_select(x.dim() - 2, col)
+        return torch.cat([out, _zero_row(x)], dim=-2)
 
-    def _gather(x, jump):
-        return x + x[..., jump, :]
+    def _gather(x, m):
+        return x + x[..., steps[m], :]
 
     def backward(i_load: C) -> C:
-        return _rounds(i_load, _scatter)
+        return _rounds(i_load, _gather_sum)
 
     def forward(drop: C) -> C:
         return _rounds(drop, _gather)

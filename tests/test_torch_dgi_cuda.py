@@ -96,3 +96,83 @@ def test_b1_matches_plain_on_card(cuda_device, n, fleets, dtypes):
         got = dk.lb_rounds(ng, gw, gid, 0.5, rounds, **kw)
         assert same(got, dk.lb_rounds_plain(ng, gw, gid, 0.5, rounds, **kw))
         assert same(got, dk.lb_rounds(ng, gw, gid, 0.5, rounds, **kw))
+
+
+def wide_fleets(n, fleets, dtypes, device, seed=0):
+    """``fleets`` fleets of ``n`` nodes: readings ``normal(0, 10)`` and a
+    gateway ``normal(0, 2)``, random groups (their smallest members as
+    ids) in the first fleet and 512-node blocks in the others."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for k in range(fleets):
+        g = (rng.integers(0, n // 64 + 1, n) if k == 0
+             else np.arange(n) // 512)
+        first = np.unique(g, return_index=True)
+        rows.append(first[1][np.searchsorted(first[0], g)])
+    gid = torch.as_tensor(np.stack(rows), dtype=torch.int32, device=device)
+    ng = torch.as_tensor(rng.normal(0, 10, (fleets, n)), dtype=dtypes[0],
+                         device=device)
+    gw = torch.as_tensor(rng.normal(0, 2, (fleets, n)), dtype=dtypes[1],
+                         device=device)
+    return ng, gw, gid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,fleets", [(1 << 15, 2), (40961, 1)])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float64, torch.float64)])
+def test_b1_wide_matches_plain_on_card(cuda_device, n, fleets, dtypes):
+    assert dk.lb_form(n, dtypes[1].itemsize) == dk.WIDE
+    ng, gw, gid = wide_fleets(n, fleets, dtypes, cuda_device)
+    rng = np.random.default_rng(n)
+    mal = torch.as_tensor(rng.uniform(size=(fleets, n)) < 0.1,
+                          dtype=torch.float32, device=cuda_device)
+    gate = torch.as_tensor(rng.uniform(size=(fleets, n)) < 0.9,
+                           device=cuda_device)
+    for rounds, kw in ((1, dict(malicious=mal, gate=gate,
+                                round_outputs=True)),
+                       (8, dict(malicious=mal))):
+        got = dk.lb_rounds(ng, gw, gid, 1.0, rounds, **kw)
+        assert same(got, dk.lb_rounds_plain(ng, gw, gid, 1.0, rounds, **kw))
+        assert same(got, dk.lb_rounds(ng, gw, gid, 1.0, rounds, **kw))
+
+
+@pytest.mark.cuda
+def test_b1_packed_form_below_2_15_is_unchanged(cuda_device):
+    n = (1 << 15) - 1
+    assert dk.lb_form(n, 8) == dk.GLOBAL
+    ng, gw, gid = wide_fleets(n, 1, (torch.float64, torch.float64),
+                              cuda_device, seed=1)
+    got = dk.lb_rounds(ng, gw, gid, 1.0, 8)
+    assert same(got, dk.lb_rounds_plain(ng, gw, gid, 1.0, 8))
+
+
+@pytest.mark.cuda
+def test_lb_entry_points_at_2_15_nodes_on_card(cuda_device):
+    """``lb.lb_round(..., gid=...)`` and ``lb.run_rounds`` at 2^15 nodes
+    (B1's WIDE form) against B1's plain version, from a block-diagonal
+    group mask of 512-node groups built on the card."""
+    from freedm_tpu_torch.modules import lb
+
+    n = 1 << 15
+    ng, gw, _ = wide_fleets(n, 2, (torch.float64, torch.float64),
+                            cuda_device, seed=2)
+    ng, gw = ng[1], torch.zeros_like(gw[1])
+    blk = torch.arange(n, device=cuda_device) // 512
+    mask = (blk[:, None] == blk[None, :]).to(torch.float32)
+    gid = lb.group_ids(mask)
+    assert torch.equal(gid, (blk * 512).to(torch.int32))
+    dk.reset_launches()
+    got = lb.run_rounds(ng, gw, mask, 1.0, 16, device=cuda_device)
+    assert dk.launches()["lb_rounds"] == 1
+    want = dk.lb_rounds_plain(ng[None], gw[None], gid[None], 1.0, 16)
+    for a, b in zip(got, (want.gateway[0], want.migrations[0],
+                          want.states[0])):
+        assert torch.equal(a, b)
+    rnd = lb.lb_round(ng, got[0], mask, 1.0, gid=gid, device=cuda_device)
+    one = dk.lb_rounds_plain(ng[None], got[0][None], gid[None], 1.0, 1,
+                             round_outputs=True)
+    assert torch.equal(rnd.gateway, one.gateway[0])
+    assert torch.equal(rnd.state, one.states[0, 0])
+    assert int(rnd.n_migrations) == int(one.migrations[0, 0])
+    assert torch.equal(rnd.intransit, one.intransit[0])

@@ -241,7 +241,20 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
     assert set(sck.launches()) == {"smw_sweep", "dc_screen"}
     from freedm_tpu_torch.kernels import ladder_kernels as lk
 
-    assert set(lk.launches()) == {"ladder_solve", "ladder_vjp"}
+    assert set(lk.launches()) == {"ladder_solve", "ladder_vjp",
+                                  "ladder_dense", "ladder_doubling"}
+    assert {k: set(v) for k, v in lk.mode_launches().items()} == {
+        k: {"forward", "reverse"} for k in ("ladder_dense",
+                                            "ladder_doubling")}
+    from freedm_tpu_torch.cplx import C
+
+    meta64 = torch.zeros(2, 4, 3, dtype=torch.float64, device="meta")
+    for fn in (lk.ladder_dense, lk.ladder_doubling):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            fn(C(meta64, meta64), None, None, 1e-4, 20, True)
+    for fn in (lk.ladder_dense_vjp, lk.ladder_doubling_vjp):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            fn(meta64, C(meta64, meta64), None, None, None, None)
     from freedm_tpu_torch.kernels import qsts_kernels as qk
 
     assert set(qk.launches()) == {"agent_step", "qsts_bus_reduce",
@@ -278,7 +291,11 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
     assert dk.g1_form(1024, 64) == dk.SHARED == dk.g1_form(256, 256)
     assert dk.g1_form(256, 128) == dk.GLOBAL
     assert dk.lb_form(4096, 8) == dk.SHARED
-    assert dk.lb_form(dk.LB_MAX_NODES, 8) == dk.GLOBAL
+    assert dk.lb_form(dk.LB_WIDE_NODES - 1, 8) == dk.GLOBAL
+    assert dk.lb_form(dk.LB_WIDE_NODES, 4) == dk.WIDE
+    assert dk.lb_form(dk.LB_MAX_NODES, 8) == dk.WIDE
+    assert dk.LB_WIDE_NODES == 1 << 15 and dk.LB_MAX_NODES >= 1 << 30
+    assert dk.lb_state_bytes(1 << 16, 8) == 20 * (1 << 16) + 8 * (1 << 16)
     for x in (torch.zeros(2, 8, dtype=torch.float64, device="meta"),):
         with pytest.raises(ValueError, match="CPU or CUDA"):
             sol.residual_jvp(x, x, None)

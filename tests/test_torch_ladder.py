@@ -417,8 +417,8 @@ def test_l2_plain_matches_autograd_of_l1_plain(name):
         saved = lk.ladder_solve_plain(C(s.re.detach(), s.im.detach()), v0,
                                       op, 1e-4, 15, fixed=True,
                                       save=True).saved
-        got = lk.ladder_vjp(saved, C(s.re.detach(), s.im.detach()), op,
-                            *cots)
+        got, _ = lk.ladder_vjp(saved, C(s.re.detach(), s.im.detach()), op,
+                               *cots)
     assert saved.shape == (15, lanes, nb, 6)
     for a, b in ((got.re, want[0]), (got.im, want[1])):
         assert torch.all(torch.isfinite(a))

@@ -1,0 +1,195 @@
+"""L3 ``ladder_dense`` and L4 ``ladder_doubling`` on the card, and the
+source phasors' cotangent of every ladder reverse mode, against the plain
+PyTorch versions on the same card: ``make_ladder_solver(sweep_method=
+"dense" | "doubling")`` against its ``plain=True`` twin in solve and fixed
+modes, float64 (``ATOL`` pu with equal iterations; L4 bit for bit) and
+float32 (``ATOL_F32`` on lanes whose flags both versions agree on; a
+lane's flag is held only where its residual lies more than
+``F32_FLAG_ULPS`` float32 ulps of the root current from eps); a lane's
+bits the same in launches of 1 and 64 lanes and on repeat; each form's
+gradient in the loads and in ``v_source_pu`` against ``torch.autograd``
+of its plain fixed solve (rtol ``GRAD_RTOL``).  Every test needs a CUDA
+card and skips without one (``chip_smoke.py`` runs these checks at the
+full widths).  No JAX: the plain versions are held to the reference on
+the CPU by ``tests/test_torch_ladder_forms.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+from freedm_tpu_torch.grid import cases, feeder
+from freedm_tpu_torch.kernels import ladder_kernels as lk
+from freedm_tpu_torch.pf.ladder import make_ladder_solver, total_loss_kw
+
+F64, F32 = torch.float64, torch.float32
+ATOL = 1e-10
+ATOL_F32 = 1e-4
+EPS = 1e-4
+F32_FLAG_ULPS = 64
+GRAD_RTOL = 1e-8
+MAX_ITER = 20  # make_ladder_solver's default
+#: Kernel launches a solve and a reverse mode of each form: L3 issues its
+#: initial state and two products an iteration (a reverse mode: its
+#: initial state, three launches an iteration and the last sum), L4 one.
+FORWARD_LAUNCHES = {"dense": 1 + 2 * MAX_ITER, "doubling": 1}
+REVERSE_LAUNCHES = {"dense": 2 + 3 * MAX_ITER, "doubling": 1}
+FIELDS = ("v_node", "i_branch", "i_load")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs these checks there")
+    return torch.device("cuda")
+
+
+def dead_phase_feeder():
+    """Branch 2 carries phase a only: phases b and c are dead below it."""
+    z3 = np.full((3, 3), 0.3 + 0.9j) + np.eye(3) * (0.6 + 1.4j)
+    z1 = np.zeros((3, 3), dtype=complex)
+    z1[0, 0] = 0.9 + 2.3j
+    dl = np.array([
+        [1, 0, 1, 1, 1.0, 1, 10, 2, 10, 2, 10, 2, 0],
+        [2, 1, 2, 2, 1.0, 1, 5, 1, 5, 1, 5, 1, 0],
+        [3, 2, 3, 1, 0.5, 1, 4, 1, 4, 1, 4, 1, 0],
+        [4, 1, 4, 1, 0.7, 1, 6, 2, 6, 2, 6, 2, 0],
+    ])
+    return feeder.from_branch_table(dl, np.stack([z3, z1]))
+
+
+FEEDERS = {
+    "9bus": cases.vvc_9bus,
+    "radial300": lambda: cases.synthetic_radial(300, seed=5),
+    # At its default load every lane of synthetic_radial(2048, seed=0) is
+    # in voltage collapse (no version converges); 1 kW a load, as the 10k
+    # feeder of chip_smoke.py's ladder phases.
+    "radial2048": lambda: cases.synthetic_radial(2048, seed=0, load_kw=1.0),
+    "dead": dead_phase_feeder,
+}
+
+
+def loads_of(f, lanes, seed=0):
+    return np.random.default_rng(seed).uniform(0.7, 1.3, (lanes, 1, 1)) \
+        * f.s_load[None]
+
+
+def same_bits(a, b):
+    return all(torch.equal(getattr(getattr(a, k), p), getattr(getattr(b, k), p))
+               for k in FIELDS for p in ("re", "im"))
+
+
+def gap(a, b, pick):
+    return max(float((getattr(getattr(a, k), p)
+                      - getattr(getattr(b, k), p))[pick].abs().max())
+               for k in FIELDS for p in ("re", "im"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FEEDERS))
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("form", ["dense", "doubling"])
+def test_form_matches_plain_on_card(cuda_device, form, dtype, name):
+    f = FEEDERS[name]()
+    loads = loads_of(f, 8)
+    vs = torch.linspace(0.98, 1.04, 8, dtype=dtype, device=cuda_device)
+    kernel = make_ladder_solver(f, dtype=dtype, sweep_method=form,
+                                device=cuda_device)
+    plain = make_ladder_solver(f, dtype=dtype, sweep_method=form,
+                               device=cuda_device, plain=True)
+    key = "ladder_" + form
+    for mode in (0, 1):
+        lk.reset_launches()
+        got, again = kernel[mode](loads, vs), kernel[mode](loads, vs)
+        assert lk.launches()[key] == 2 * FORWARD_LAUNCHES[form]
+        assert lk.mode_launches()[key] == {
+            "forward": 2 * FORWARD_LAUNCHES[form], "reverse": 0}
+        want = plain[mode](loads, vs)
+        # the plain version launches nothing
+        assert lk.launches()[key] == 2 * FORWARD_LAUNCHES[form]
+        torch.cuda.synchronize()
+        assert same_bits(got, again)
+        clear = torch.ones_like(want.converged)
+        if dtype == F32:
+            root = torch.as_tensor(f.parent < 0, device=cuda_device)
+            i_root = want.i_branch.abs()[:, root].flatten(1).amax(1)
+            band = F32_FLAG_ULPS * torch.finfo(F32).eps * i_root
+            clear = (want.residual - EPS).abs() > band
+        assert torch.equal(got.converged[clear], want.converged[clear])
+        pick = got.converged & want.converged
+        assert bool(pick.any())
+        assert gap(got, want, pick) <= (ATOL if dtype == F64 else ATOL_F32)
+        if dtype == F64:
+            assert torch.equal(got.iterations, want.iterations)
+            if form == "doubling":  # L4 rounds as its plain version does
+                assert same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dense", "doubling"])
+@pytest.mark.parametrize("fixed", [True, False])
+def test_a_lane_is_the_same_bits_in_launches_of_1_and_64(cuda_device, form,
+                                                         fixed):
+    f = FEEDERS["radial2048"]()
+    loads = loads_of(f, 64, seed=3)
+    solve = make_ladder_solver(f, sweep_method=form,
+                               device=cuda_device)[int(fixed)]
+    wide = solve(loads)
+    for k in (0, 17, 63):
+        one = solve(loads[k:k + 1])
+        torch.cuda.synchronize()
+        for name in FIELDS:
+            for p in ("re", "im"):
+                assert torch.equal(getattr(getattr(one, name), p)[0],
+                                   getattr(getattr(wide, name), p)[k])
+        assert int(one.iterations[0]) == int(wide.iterations[k])
+
+
+def grads(f, form, loads, vs, device, plain):
+    _, fixed = make_ladder_solver(f, sweep_method=form, device=device,
+                                  plain=plain)
+    p = torch.tensor(loads.real, dtype=F64, device=device)
+    q = torch.tensor(loads.imag, dtype=F64, device=device,
+                     requires_grad=True)
+    v = torch.tensor(vs, dtype=F64, device=device, requires_grad=True)
+    loss = total_loss_kw(f, fixed((p, q), v)).sum()
+    return torch.autograd.grad(loss, (q, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["9bus", "radial300", "dead"])
+@pytest.mark.parametrize("form", ["dense", "doubling", "euler"])
+def test_reverse_modes_match_plain_on_card(cuda_device, form, name):
+    f = FEEDERS[name]()
+    loads = loads_of(f, 4, seed=1)
+    vs = np.linspace(0.98, 1.04, 4)
+    key = {"dense": "ladder_dense", "doubling": "ladder_doubling",
+           "euler": "ladder_vjp"}[form]
+    lk.reset_launches()
+    got = grads(f, form, loads, vs, cuda_device, plain=False)
+    if form == "euler":
+        assert lk.launches()[key] == 1
+    else:
+        assert lk.mode_launches()[key] == {
+            "forward": FORWARD_LAUNCHES[form],
+            "reverse": REVERSE_LAUNCHES[form]}
+    want = grads(f, form, loads, vs, cuda_device, plain=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.all(torch.isfinite(g))
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dense", "doubling", "euler"])
+def test_source_only_gradient_on_card(cuda_device, form):
+    f = FEEDERS["9bus"]()
+    _, fixed = make_ladder_solver(f, sweep_method=form, device=cuda_device)
+    vs = torch.tensor(1.01, dtype=F64, device=cuda_device, requires_grad=True)
+    (g,) = torch.autograd.grad(total_loss_kw(f, fixed(f.s_load, vs)), vs)
+    _, plain = make_ladder_solver(f, sweep_method=form, device=cuda_device,
+                                  plain=True)
+    vp = vs.detach().clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(total_loss_kw(f, plain(f.s_load, vp)), vp)
+    np.testing.assert_allclose(float(g), float(want), rtol=GRAD_RTOL)

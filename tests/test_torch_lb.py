@@ -223,10 +223,30 @@ def test_invariant_gate_blocks_migrations():
     assert int(out.state[0]) == lb.SUPPLY
 
 
-def test_round_refuses_2_15_nodes():
+def test_b1_plain_round_at_2_15_nodes_equals_reference():
+    """At 2^15 nodes, where the reference takes its unpacked branch and B1
+    its WIDE form, B1's plain route (``dk.lb_rounds`` on CPU tensors) equals
+    the reference's jitted ``lb_round(..., gid=gid)``; neither builds the
+    ``[N, N]`` mask or ``matched`` matrix (4 GB at this size), so the entry
+    points that do are held at 2^15 on the card."""
+    import jax
+
+    from freedm_tpu_torch.kernels import dgi_kernels as dk
+
     n = 1 << 15
-    mask = torch.ones(1, 1).expand(n, n)  # a view: no N x N allocation
-    with pytest.raises(ValueError, match="item 13's remainder"):
-        lb.lb_round(np.zeros(n), np.zeros(n), mask, 1.0, device="cpu")
-    with pytest.raises(ValueError, match="item 13's remainder"):
-        lb.run_rounds(np.zeros(n), np.zeros(n), mask, 1.0, 2, device="cpu")
+    rng = np.random.default_rng(15)
+    netgen = rng.normal(0, 10, n)
+    gw = rng.normal(0, 2, n)
+    gid = (np.arange(n) // 512 * 512).astype(np.int32)
+    want = jax.jit(lambda a, b, c: (lambda r: (r.gateway, r.state,
+                                               r.n_migrations))(
+        ref.lb_round(a, b, None, 1.0, gid=c)))(
+        jnp.asarray(netgen), jnp.asarray(gw), jnp.asarray(gid))
+    got = dk.lb_rounds(torch.from_numpy(netgen)[None],
+                       torch.from_numpy(gw)[None],
+                       torch.from_numpy(gid)[None], 1.0, 1,
+                       round_outputs=True)
+    np.testing.assert_array_equal(got.gateway[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got.states[0, 0].numpy(),
+                                  np.asarray(want[1]))
+    assert int(got.migrations[0, 0]) == int(want[2]) > 0
