@@ -32,10 +32,10 @@ voltage's gradient through every ladder reverse mode; and the LB round
 past 2¹⁵ nodes on B1's WIDE form.
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build: nine ``nvcc`` runs started together compile
+1. build: ten ``nvcc`` runs started together compile
    ``freedm_tpu_torch/kernels/csrc/newton.cu``, ``sparse.cu``,
-   ``cache.cu``, ``screen.cu``, ``ladder.cu``, ``qsts.cu``, ``topo.cu``,
-   ``solvers.cu`` and ``dgi.cu`` for
+   ``cache.cu``, ``screen.cu``, ``ladder.cu``, ``ladder_dense.cu``,
+   ``qsts.cu``, ``topo.cu``, ``solvers.cu`` and ``dgi.cu`` for
    ``sm_90a``; prints the build seconds and the ``-Xptxas -v`` reports;
 2. kernels: each kernel against its plain PyTorch version on the card at
    n ∈ {14, 30, 118, 2000} buses and B ∈ {1, 3, 64} lanes (float64,
@@ -344,7 +344,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 28. ladder forms and B1 WIDE (``forms_phase``): (a) L3 ``ladder_dense``
    and L4 ``ladder_doubling`` through ``make_ladder_solver(sweep_method=
    "dense" | "doubling")`` against their ``plain=True`` twins at vvc_9bus
-   and ``synthetic_radial(2048, seed=0, load_kw=1.0)`` (L3) and also
+   (L3's CTA route) and ``synthetic_radial(2048, seed=0, load_kw=1.0)``
+   (L3's tiled route) and also
    ``synthetic_radial(10000, seed=0, load_kw=1.0)`` (L4) × 64 lanes ×
    {solve, solve_fixed} × {float64, float32} (``LADDER_ATOL``, flags and
    float64 iterations equal, L4 float64 bit for bit), bit-identical on
@@ -357,16 +358,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    loads on the 10k feeder × 1 (L4, L2) and the 2048 feeder × 1 (L3);
    (c) their times beside L1 on the same lanes, the plain versions, the
    bounds (the function's own work, as L1's: the forms' redundant products
-   and rounds are not counted), L3's library row (``torch.matmul`` of the
-   subtree matrix, 2 × 20 products), and each reverse mode's cotangents
+   and rounds are not counted), L3's library rows (``torch.matmul`` of the
+   subtree matrix and ``torch.sparse.mm`` of its CSR, 2 × 20 products
+   each, with L3's ratio to each and to L1), and each reverse mode's
+   cotangents
    at the timed shapes (× 64 too) against its plain version's (within
    1e-8 of the largest); (d) B1 WIDE over 64 rounds of ``bench_lb_256``'s draw
    at 2¹⁵ × 4 fleets, 40,961 × 1 and 2¹⁶ × 1 bit for bit, ``lb.run_rounds``
    and ``lb.lb_round(..., gid=...)`` at 2¹⁵ from a block-diagonal mask of
    512-node groups, and B1's packed form at 2¹⁵ − 1; (e) L3's and L4's main
    paths (a solve, ``solve_fixed`` and its backward: the kernel table's
-   launches, every kernel launch counted — L3 1 + 2 · 20 a solve and
-   2 + 3 · 20 a reverse mode — and split by mode).
+   launches, every kernel launch counted — L3's tiled route 2 + 2 · 20 a
+   solve and a reverse mode — and split by mode).
 
 The line before the last is the kernel table as one JSON object (K3,
 S1-S4 also carry ``device_ms``, S1-S4 float32 ``*_f32`` times, S1 its
@@ -447,8 +450,8 @@ def build_kernels(torch, nk, sk, ck, sck, lk, qk, tk, sol, dk, build):
         except Exception as e:  # noqa: BLE001 — re-raised on the main thread
             box["error"] = e
 
-    names = ("newton", "sparse", "cache", "screen", "ladder", "qsts", "topo",
-             "solvers", "dgi")
+    names = ("newton", "sparse", "cache", "screen", "ladder", "ladder_dense",
+             "qsts", "topo", "solvers", "dgi")
     threads = [threading.Thread(target=run_nvcc, args=(name,))
                for name in names]
     for th in threads:
@@ -7496,11 +7499,30 @@ def time_forms(torch, lk, rows, extra):
                "solve_iterations": n_it, "l1_device_ms": l1}
         lib = None
         if form == "dense":
+            # The library rows: the 2 x iters products of a solve with the
+            # packed [nb, 6 B] currents, dense and by S's CSR.
             sub = op.sub.to(dtype)
+            csr = sub.to_sparse_csr()
             x = torch.randn(nb, 6 * lanes, dtype=dtype, device="cuda")
+            dense_y = sub @ x
+            # nb-term sums in two orders: within a few ulps of the largest
+            # entry times nb.
+            gap = float((torch.sparse.mm(csr, x) - dense_y).abs().max())
+            top = float(dense_y.abs().max())
+            check(gap <= 4 * nb * torch.finfo(dtype).eps * top,
+                  f"forms (c) {name} {dn}: the CSR product is {gap:.3e} from "
+                  f"the dense one (largest {top:.3e})")
             one = queued_events_ms(torch, lambda: torch.matmul(sub, x), 5)
+            one_sp = queued_events_ms(torch, lambda: torch.sparse.mm(csr, x),
+                                      5)
             lib = one * 2 * iters
-            row.update(library_ms=lib, library_one_product_ms=one)
+            row.update(library_ms=lib, library_one_product_ms=one,
+                       library_sparse_ms=one_sp * 2 * iters,
+                       library_sparse_one_product_ms=one_sp,
+                       route=lk.dense_plan(nb, dtype).route,
+                       over_library=kd / lib,
+                       over_library_sparse=kd / (one_sp * 2 * iters),
+                       over_l1=kd / l1)
         extra_vjp = ""
         if fp64:
             sv = kernel(s, v0, op, eps, iters, True, save=True)
@@ -7546,7 +7568,11 @@ def time_forms(torch, lk, rows, extra):
             f"lane-iterations; L1 fixed x{iters} on the same lanes "
             f"{l1:.4f} ms; plain {pl:.4f} ms; bound {b:.5f} ms ({by})"
             + ("" if lib is None else
-               f"; library: torch.matmul x{2 * iters} {lib:.4f} ms")
+               f"; library: torch.matmul x{2 * iters} {lib:.4f} ms, "
+               f"torch.sparse.mm x{2 * iters} {row['library_sparse_ms']:.4f}"
+               f" ms; L3 ({row['route']} route) / matmul "
+               f"{row['over_library']:.3f}, / sparse.mm "
+               f"{row['over_library_sparse']:.3f}, / L1 {row['over_l1']:.3f}")
             + extra_vjp)
         del op
     main_dense = heads[f"dense_radial2048_x{FORM_LANES}_float64"]
@@ -7559,6 +7585,23 @@ def time_forms(torch, lk, rows, extra):
         f"{doub_2048['device_ms']:.4f} ms; L3 "
         f"{main_dense['device_ms'] / main_dense['bound_ms']:.0f}x its bound, "
         f"L1 {main_dense['l1_device_ms'] / main_dense['bound_ms']:.0f}x")
+    f32_dense = heads[f"dense_radial2048_x{FORM_LANES}_float32"]
+    vvc_dense = heads[f"dense_vvc_9bus_x{FORM_LANES}_float64"]
+    vvc_doub = heads[f"doubling_vvc_9bus_x{FORM_LANES}_float64"]
+    aims = {
+        "fixed f64 vs torch.matmul x40": (main_dense["device_ms"],
+                                          main_dense["library_ms"]),
+        "reverse f64 vs torch.matmul x40": (main_dense["vjp_device_ms"],
+                                            main_dense["library_ms"]),
+        "fixed f32 vs torch.matmul x40": (f32_dense["device_ms"],
+                                          f32_dense["library_ms"]),
+        "vvc_9bus fixed vs L4": (vvc_dense["device_ms"],
+                                 vvc_doub["device_ms"])}
+    extra_aims = {k: {"ms": a, "against_ms": b, "met": a <= b}
+                  for k, (a, b) in aims.items()}
+    log("forms (c): L3 against its aims: " + "; ".join(
+        f"{k} {v['ms']:.4f} vs {v['against_ms']:.4f} ms ("
+        f"{'met' if v['met'] else 'missed'})" for k, v in extra_aims.items()))
     rows["ladder_dense"] = (main_dense["ms"], main_dense["plain_ms"],
                             main_dense["library_ms"], main_dense["bound_ms"],
                             main_dense["bound_by"])
@@ -7571,6 +7614,8 @@ def time_forms(torch, lk, rows, extra):
         "shape": f"synthetic_radial(2048, seed=0, load_kw=1.0) x{FORM_LANES} "
                  f"f64, solve_fixed, {iters} iterations",
         "device_ms": main_dense["device_ms"],
+        "library_sparse_ms": main_dense["library_sparse_ms"],
+        "aims": extra_aims,
         "reverse_mode": reverse(main_dense), "shapes": heads}
     extra["ladder_doubling"] = {
         "shape": f"synthetic_radial(10000, seed=0, load_kw=1.0) x{FORM_LANES}"
@@ -7587,19 +7632,28 @@ def form_main_paths(torch, lk, dev="cuda"):
     read just after: ``make_ladder_solver(sweep_method=...)`` — a solve and
     a ``solve_fixed`` with the gradient of the total loss in the loads and
     in ``v_source_pu`` — on the 2048-branch feeder × 64 (L3) and the 10k
-    feeder × 64 (L4).  Every kernel launch counts: L3 issues ``1 + 2 ·
-    max_iter`` a solve (either mode) and ``2 + 3 · max_iter`` a reverse
-    mode, L4 one each.  Returns the counts and their split by mode."""
+    feeder × 64 (L4), and L3's CTA route the same way on vvc_9bus × 64
+    (``ladder_dense_cta``).  Every kernel launch counts: L3's tiled route
+    issues ``2 + 2 · max_iter`` a solve (either mode) and a reverse mode,
+    its CTA route and L4 one each.  Returns the counts and their split by
+    mode."""
     from freedm_tpu_torch.pf.ladder import make_ladder_solver, total_loss_kw
 
     feeders = form_feeders()
     counts, modes = {}, {}
     n = FORM_ITERS
-    expect = {"ladder_dense": {"forward": 2 * (1 + 2 * n),
-                               "reverse": 2 + 3 * n},
-              "ladder_doubling": {"forward": 2, "reverse": 1}}
+    expect = {"ladder_dense": {"forward": 2 * (2 + 2 * n),
+                               "reverse": 2 + 2 * n},
+              "ladder_doubling": {"forward": 2, "reverse": 1},
+              "ladder_dense_cta": {"forward": 2, "reverse": 1}}
+    check(lk.dense_plan(feeders["radial2048"].n_branches,
+                        torch.float64).route == "tiled"
+          and lk.dense_plan(feeders["vvc_9bus"].n_branches,
+                            torch.float64).route == "cta",
+          "forms (e): the feeders do not take L3's two routes")
     for form, name, key in (("dense", "radial2048", "ladder_dense"),
-                            ("doubling", "radial10k", "ladder_doubling")):
+                            ("doubling", "radial10k", "ladder_doubling"),
+                            ("dense", "vvc_9bus", "ladder_dense_cta")):
         f = feeders[name]
         loads = lane_loads(f, FORM_LANES)
         solve, fixed = make_ladder_solver(f, max_iter=n, sweep_method=form,
@@ -7613,8 +7667,9 @@ def form_main_paths(torch, lk, dev="cuda"):
         loss = total_loss_kw(f, fixed((p, q), v)).sum()
         gq, gv = torch.autograd.grad(loss, (q, v))
         sync(torch, dev)
-        counts[key] = lk.launches()[key]
-        modes[key] = lk.mode_launches()[key]
+        kernel = key.replace("_cta", "")
+        counts[key] = lk.launches()[kernel]
+        modes[key] = lk.mode_launches()[kernel]
         check(modes[key] == expect[key]
               and counts[key] == sum(expect[key].values())
               and bool(res.converged.all())
@@ -7746,6 +7801,11 @@ def forms_phase(torch, lk, dk, errs, rows, extra):
     time_forms(torch, lk, rows, extra)
     wide_phase(torch, dk, extra)
     counts, modes = form_main_paths(torch, lk)
+    extra["ladder_dense"]["launches_cta_route"] = {
+        "path": "forms phase (e): make_ladder_solver(sweep_method='dense') on "
+                "vvc_9bus x64, solve + solve_fixed + backward",
+        "launches": counts.pop("ladder_dense_cta"),
+        "launches_by_mode": modes.pop("ladder_dense_cta")}
     for key, path in (("ladder_dense", "forms phase (e): make_ladder_solver("
                        "sweep_method='dense') on synthetic_radial(2048) x64, "
                        "solve + solve_fixed + backward"),
@@ -7934,7 +7994,7 @@ def main() -> int:
                          "freedm_tpu/pf/ladder.py:184"),
         "ladder_vjp": ("cuda", source + "csrc/ladder.cu",
                        "freedm_tpu/pf/ladder.py:209"),
-        "ladder_dense": ("cuda", source + "csrc/ladder.cu",
+        "ladder_dense": ("cuda", source + "csrc/ladder_dense.cu",
                          "freedm_tpu/pf/sweeps.py:45"),
         "ladder_doubling": ("cuda", source + "csrc/ladder.cu",
                             "freedm_tpu/pf/sweeps.py:60"),

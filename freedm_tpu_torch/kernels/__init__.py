@@ -10,7 +10,9 @@ topology-sweep and DGI paths and the serving cache.
 - N1 ``smw_sweep`` and D1 ``dc_screen``, the N-1 and DC screens' kernels
   — CUDA C++ (``csrc/screen.cu``);
 - L1 ``ladder_solve`` and L2 ``ladder_vjp``, the radial ladder solve and
-  its adjoint — CUDA C++ (``csrc/ladder.cu``);
+  its adjoint, and L4 ``ladder_doubling``, its pointer-jumping form —
+  CUDA C++ (``csrc/ladder.cu``); L3 ``ladder_dense``, its form on the
+  subtree matrix's nonzero blocks — CUDA C++ (``csrc/ladder_dense.cu``);
 - A1 ``agent_step``, Q1 ``qsts_bus_reduce`` and Q2 ``qsts_feeder_reduce``,
   the QSTS agent step and streaming reductions — CUDA C++
   (``csrc/qsts.cu``);

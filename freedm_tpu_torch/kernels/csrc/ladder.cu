@@ -41,30 +41,8 @@
 //   iteration and for the initial iterate: the total of the subtree sums'
 //   prefix, added in a fixed order.
 //
-// L3 ladder_dense — the same iteration (and its reverse mode) on
-//   freedm_tpu/pf/sweeps.py:45 `dense_sweeps`: i_br = S i_load and path =
-//   S^T drop with S [nb, nb] the 0/1 subtree matrix (nb <= 2048), in the
-//   caller's branch order.  A call is one launch of the initial state and
-//   two product launches an iteration, issued without a host read: the
-//   product S X [nb, 6 B] over tiles of 64 rows x 16 lanes (six columns a
-//   lane, four rows a thread), K walked in stages of 32 in increasing order
-//   (a lane's bits do not depend on the lanes beside it), S kept as bytes
-//   and widened in shared memory.  The product with S forms the loads'
-//   currents as it stages them (the first row tile also writes them out and
-//   saves the iterate) and takes i_br, the drops and the lane's root error
-//   in its epilogue; the product with S^T writes v' = (v0 - path) mask.  A
-//   lane's iterations and error live in three slots used in turn (slot
-//   it mod 3 read, slot it + 1 mod 3 written, slot it + 2 mod 3 cleared by
-//   the S^T product), so every tile of an iteration reads the same
-//   activity: a lane that has stopped is frozen, as the reference's vmapped
-//   while_loop leaves it, and a tile without an active lane returns at
-//   once.  The tiles' errors meet in an integer atomicMax on the bits (a
-//   non-negative float orders as its bits, a NaN above +inf).  The reverse
-//   mode runs the same two products swapped: mask vbar's sum for v0bar (a
-//   CTA a lane, fixed order), -S(mask vbar) with conj(z)^T in its epilogue,
-//   S^T ibbar with sbar and the new vbar in its epilogue: 2 + 3 iters
-//   launches.  Both entries report the launches they issued (`launched`),
-//   which the wrapper adds to its count.
+// L3 ladder_dense, the same iteration on the dense sweeps, lives in
+//   csrc/ladder_dense.cu.
 //
 // L4 ladder_doubling — the same on :60 `doubling_sweeps`: ceil(log2 levels)
 //   rounds, the subtree sums a scatter-add into each branch's 2^m-th
@@ -129,13 +107,10 @@
 //   barriers.  Its state is 2.4 MB a lane at 10k buses in float64, so 64
 //   lanes (154 MB) do not stay in the 50 MB L2.
 //
-// Bounds of L3 and L4 (chip_smoke.py phase 28 (c)): L3 by its products'
-//   operations, 24 nb^2 B an iteration (6.4 GFLOP at 2048 x 64: 96 us at
-//   the FP64 tensor cores' 67 TFLOP/s; this kernel multiplies on the CUDA
-//   cores, whose fp64 peak is half that);
-//   L4 by its operations, ~132 a branch and iteration beside 6 an edge a
-//   round.  What holds L4 back is latency: one SM a lane walks 2 R + 4
-//   dependent passes an iteration through L2.
+// Bound of L4 (chip_smoke.py phase 28 (c)): the function's own
+//   operations, L1's a branch and iteration.  What holds L4 back is
+//   latency: one SM a lane walks 2 R + 4 dependent passes an iteration
+//   through L2.
 //
 // Bounds on an H100 SXM (3.35 TB/s; 34 / 67 TFLOP/s fp64 / fp32 outside the
 //   tensor cores).  At synthetic_radial(10000) x 64 lanes, 20 iterations,
@@ -1121,368 +1096,6 @@ __device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, 
 __device__ __forceinline__ double sqrt_rn(double x) { return __dsqrt_rn(x); }
 __device__ __forceinline__ float sqrt_rn(float x) { return __fsqrt_rn(x); }
 
-// The largest of non-negative values (or NaN) by an integer atomicMax on
-// their bits: non-negative floats order as their bits, and a NaN's bits
-// (either sign) lie above +inf's, so a NaN is kept as nan_max keeps it.
-__device__ __forceinline__ void atomic_max_bits(double* p, double x) {
-  atomicMax(reinterpret_cast<unsigned long long*>(p),
-            static_cast<unsigned long long>(__double_as_longlong(x)));
-}
-__device__ __forceinline__ void atomic_max_bits(float* p, float x) {
-  atomicMax(reinterpret_cast<unsigned int*>(p), __float_as_uint(x));
-}
-
-// ---------------------------------------------------------------------------
-// L3 ladder_dense
-// ---------------------------------------------------------------------------
-
-constexpr int kDenseThreads = 256;
-constexpr int kDenseRows = 64;   // rows of a product tile, four a thread
-constexpr int kDenseLanes = 16;  // lanes of a product tile, one a thread
-constexpr int kDenseK = 32;      // columns of the subtree matrix a stage
-constexpr int kDenseGroups = kDenseThreads / kDenseLanes;  // row groups
-static_assert(kDenseGroups * 4 == kDenseRows, "four rows a thread");
-
-// The four products of an iteration and of its reverse mode.
-enum DenseMode { kSolveSub = 0, kSolveSubT = 1, kVjpSub = 2, kVjpSubT = 3 };
-
-template <typename T>
-struct DenseArgs {
-  const unsigned char* sub;    // [nb, nb] 0/1: sub[i][j] = 1 iff j lies in i's subtree
-  const unsigned char* sub_t;  // its transpose
-  const T* mask;               // [nb, 3]
-  const T* z_re;               // [nb, 3, 3]
-  const T* z_im;
-  const T* root;  // [nb]
-  const T* s_re;  // [B, nb, 3] loads, pu
-  const T* s_im;
-  const T* v0_re;  // [B, 3] source phasors
-  const T* v0_im;
-  T* v_re;  // [B, nb, 3] the state and the outputs: v, i_br, i_load
-  T* v_im;
-  T* ib_re;
-  T* ib_im;
-  T* il_re;
-  T* il_im;
-  T* drop;   // [B, nb, 6] scratch: the drops
-  T* saved;  // [max_iter, B, nb, 6] each iteration's input v, or null
-  int* it;   // [3, B] a lane's iterations, one slot an iteration mod 3
-  T* err;    // [3, B] its root error, the same slots (atomicMax on the bits)
-  // The reverse mode.
-  const T* gv_re;  // [B, nb, 3] cotangents of the final v, i_br, i_load
-  const T* gv_im;
-  const T* gb_re;
-  const T* gb_im;
-  const T* gl_re;
-  const T* gl_im;
-  T* sbar_re;  // [B, nb, 3] out
-  T* sbar_im;
-  T* v0bar;  // [B, 6] out
-  T* w;      // [B, nb, 6] scratch: vbar
-  T* g;      // [B, nb, 6] scratch: ibbar
-  int nb, lanes, max_iter, fixed, k, last;
-  T eps;
-};
-
-// The initial state: v = v0 mask, i_br = i_load = 0; slot 0 holds no
-// iterations and an infinite error, slot 1 (iteration 0's) a zero error.
-template <typename T>
-__global__ void __launch_bounds__(kDenseThreads) dense_init_kernel(const DenseArgs<T> a) {
-  const int b = blockIdx.x, n3 = a.nb * 3;
-  const size_t o3 = (size_t)b * n3;
-  for (int i = threadIdx.x; i < n3; i += blockDim.x) {
-    const int p = i % 3;
-    const T m = a.mask[i];
-    a.v_re[o3 + i] = a.v0_re[b * 3 + p] * m;
-    a.v_im[o3 + i] = a.v0_im[b * 3 + p] * m;
-    a.ib_re[o3 + i] = a.ib_im[o3 + i] = T(0);
-    a.il_re[o3 + i] = a.il_im[o3 + i] = T(0);
-  }
-  if (threadIdx.x == 0) {
-    a.it[b] = 0;
-    a.err[b] = T(INFINITY);
-    a.err[a.lanes + b] = T(0);
-  }
-}
-
-// The reverse mode's initial state: vbar = the final v's cotangent,
-// sbar = 0, v0bar = 0.
-template <typename T>
-__global__ void __launch_bounds__(kDenseThreads) dense_vjp_init_kernel(const DenseArgs<T> a) {
-  const int b = blockIdx.x, n3 = a.nb * 3;
-  const size_t o3 = (size_t)b * n3;
-  for (int i = threadIdx.x; i < n3; i += blockDim.x) {
-    const int row = i / 3, p = i % 3;
-    a.w[(o3 + row * 3) * 2 + p] = a.gv_re[o3 + i];
-    a.w[(o3 + row * 3) * 2 + 3 + p] = a.gv_im[o3 + i];
-    a.sbar_re[o3 + i] = a.sbar_im[o3 + i] = T(0);
-  }
-  if (threadIdx.x < 6) a.v0bar[b * 6 + threadIdx.x] = T(0);
-}
-
-// v0bar += sum over the branches of mask vbar, one CTA a lane: each
-// thread's rows in increasing order, a fixed butterfly a warp, the warps
-// in order.
-template <typename T>
-__global__ void __launch_bounds__(kDenseThreads) dense_vsum_kernel(const DenseArgs<T> a) {
-  __shared__ T red[(kDenseThreads / 32) * 6];
-  const int b = blockIdx.x;
-  const T* w = a.w + (size_t)b * a.nb * 6;
-  T part[6] = {0, 0, 0, 0, 0, 0};
-  for (int row = threadIdx.x; row < a.nb; row += blockDim.x) {
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      const T m = a.mask[row * 3 + p];
-      part[p] += w[row * 6 + p] * m;
-      part[3 + p] += w[row * 6 + 3 + p] * m;
-    }
-  }
-  warp_sum6(part);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int c = 0; c < 6; ++c) red[(threadIdx.x >> 5) * 6 + c] = part[c];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T tot[6] = {0, 0, 0, 0, 0, 0};
-    for (int wp = 0; wp < kDenseThreads / 32; ++wp) {
-#pragma unroll
-      for (int c = 0; c < 6; ++c) tot[c] += red[wp * 6 + c];
-    }
-#pragma unroll
-    for (int c = 0; c < 6; ++c) a.v0bar[b * 6 + c] += tot[c];
-  }
-}
-
-// One (row k, lane b) of the product's right-hand side, six words: the
-// loads' currents from v and s (kSolveSub; the first row tile also writes
-// them out, and the saved iterate), the drops (kSolveSubT), mask vbar
-// (kVjpSub), ibbar (kVjpSubT).
-template <typename T, int MODE>
-__device__ __forceinline__ void dense_stage(const DenseArgs<T>& a, int b, int k,
-                                            bool first, T (&x)[6]) {
-  const int nb = a.nb;
-  const size_t o3 = ((size_t)b * nb + k) * 3, o6 = o3 * 2;
-  if constexpr (MODE == kSolveSub) {
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      const T vr = a.v_re[o3 + p], vi = a.v_im[o3 + p];
-      const T sr = a.s_re[o3 + p], si = a.s_im[o3 + p];
-      const T d = vr * vr + vi * vi;
-      T lr = T(0), li = T(0);
-      if (d > T(0)) {
-        lr = (sr * vr + si * vi) / d;
-        li = -((si * vr - sr * vi) / d);
-      }
-      x[p] = lr;
-      x[3 + p] = li;
-      if (first) {
-        a.il_re[o3 + p] = lr;
-        a.il_im[o3 + p] = li;
-        if (a.saved != nullptr) {
-          T* sv = a.saved + (((size_t)a.k * a.lanes + b) * nb + k) * 6;
-          sv[p] = vr;
-          sv[3 + p] = vi;
-        }
-      }
-    }
-  } else if constexpr (MODE == kSolveSubT) {
-#pragma unroll
-    for (int c = 0; c < 6; ++c) x[c] = a.drop[o6 + c];
-  } else if constexpr (MODE == kVjpSub) {
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      const T m = a.mask[k * 3 + p];
-      x[p] = a.w[o6 + p] * m;
-      x[3 + p] = a.w[o6 + 3 + p] * m;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 6; ++c) x[c] = a.g[o6 + c];
-  }
-}
-
-// One (row, lane b) of the product's result y, six words: i_br (kSolveSub:
-// the root error, i_br and the drops out), the path sums (kSolveSubT: the
-// new v), B(mask vbar) (kVjpSub: ibbar = conj(z)^T (-y) out), F(ibbar)
-// (kVjpSubT: sbar and the new vbar).
-template <typename T, int MODE>
-__device__ __forceinline__ void dense_epilogue(const DenseArgs<T>& a, int b, int row,
-                                               const T (&y)[6], T& emax) {
-  const int nb = a.nb;
-  const size_t o3 = ((size_t)b * nb + row) * 3, o6 = o3 * 2;
-  const T* zr = a.z_re + row * 9;
-  const T* zi = a.z_im + row * 9;
-  if constexpr (MODE == kSolveSub) {
-    const T rt = a.root[row];
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      const T dr = y[p] - a.ib_re[o3 + p], di = y[3 + p] - a.ib_im[o3 + p];
-      emax = nan_max(emax, sqrt(dr * dr + di * di) * rt);
-      a.ib_re[o3 + p] = y[p];
-      a.ib_im[o3 + p] = y[3 + p];
-    }
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      T dr = T(0), di = T(0);
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        dr += y[q] * zr[q * 3 + p] - y[3 + q] * zi[q * 3 + p];
-        di += y[q] * zi[q * 3 + p] + y[3 + q] * zr[q * 3 + p];
-      }
-      a.drop[o6 + p] = dr;
-      a.drop[o6 + 3 + p] = di;
-    }
-  } else if constexpr (MODE == kSolveSubT) {
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      const T m = a.mask[row * 3 + p];
-      a.v_re[o3 + p] = (a.v0_re[b * 3 + p] - y[p]) * m;
-      a.v_im[o3 + p] = (a.v0_im[b * 3 + p] - y[3 + p]) * m;
-    }
-  } else if constexpr (MODE == kVjpSub) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      T gr = T(0), gi = T(0);
-#pragma unroll
-      for (int p = 0; p < 3; ++p) {
-        gr += zr[q * 3 + p] * -y[p] + zi[q * 3 + p] * -y[3 + p];
-        gi += zr[q * 3 + p] * -y[3 + p] - zi[q * 3 + p] * -y[p];
-      }
-      if (a.last) {
-        gr += a.gb_re[o3 + q];
-        gi += a.gb_im[o3 + q];
-      }
-      a.g[o6 + q] = gr;
-      a.g[o6 + 3 + q] = gi;
-    }
-  } else {
-    const T* vk = a.saved + (((size_t)a.k * a.lanes + b) * nb + row) * 6;
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      T lr = y[p], li = y[3 + p];
-      if (a.last) {
-        lr += a.gl_re[o3 + p];
-        li += a.gl_im[o3 + p];
-      }
-      const T vr = vk[p], vi = vk[3 + p];
-      const T d = vr * vr + vi * vi;
-      T wr = T(0), wi = T(0);
-      if (d > T(0)) {
-        a.sbar_re[o3 + p] += (lr * vr + li * vi) / d;
-        a.sbar_im[o3 + p] += -((li * vr - lr * vi) / d);
-        const T sr = a.s_re[o3 + p], si = a.s_im[o3 + p];
-        const T pr = -(sr * lr - si * li), pi = -(sr * li + si * lr);
-        const T v2r = vr * vr - vi * vi, v2i = vr * vi + vi * vr;
-        const T d2 = v2r * v2r + v2i * v2i;
-        wr = (pr * v2r + pi * v2i) / d2;
-        wi = -((pi * v2r - pr * v2i) / d2);
-      }
-      a.w[o6 + p] = wr;
-      a.w[o6 + 3 + p] = wi;
-    }
-  }
-}
-
-// One product of an iteration, S X or S^T X, over a tile of 64 rows x 16
-// lanes (six columns a lane), the K range walked in stages of 32 in
-// increasing order (a lane's bits do not depend on the lanes beside it).
-// The solve's products read the lane's slot (the iteration mod 3) to
-// decide whether the lane is still active; a lane that has stopped is
-// frozen, and a tile none of whose lanes is active returns at once.  The
-// first row tile keeps the books: kSolveSub writes the next slot's
-// iteration count (and copies a stopped lane's error), kSolveSubT clears
-// the error slot that the next iteration's kSolveSub takes the max into.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kDenseThreads) ladder_dense_kernel(const DenseArgs<T> a) {
-  constexpr bool kSolve = MODE == kSolveSub || MODE == kSolveSubT;
-  constexpr bool kSub = MODE == kSolveSub || MODE == kVjpSub;
-  __shared__ T as[kDenseRows][kDenseK];
-  __shared__ T xs[kDenseK][6][kDenseLanes];
-  __shared__ T red[kDenseGroups][kDenseLanes];
-  __shared__ int act[kDenseLanes];
-  const int nb = a.nb, t = threadIdx.x;
-  const int l = t % kDenseLanes, rg = t / kDenseLanes;
-  const int r0 = blockIdx.x * kDenseRows, b0 = blockIdx.y * kDenseLanes;
-  const bool first = blockIdx.x == 0;
-  if (t < kDenseLanes) {
-    const int b = b0 + t;
-    int on = 0;
-    if (b < a.lanes) {
-      if constexpr (kSolve) {
-        const int cur = a.k % 3, nxt = (a.k + 1) % 3;
-        const int itb = a.it[cur * a.lanes + b];
-        const T e = a.err[cur * a.lanes + b];
-        on = itb < a.max_iter && (a.fixed || e >= a.eps);
-        if (first && MODE == kSolveSub) {
-          a.it[nxt * a.lanes + b] = itb + on;
-          if (!on) a.err[nxt * a.lanes + b] = e;
-        }
-        if (first && MODE == kSolveSubT) a.err[((a.k + 2) % 3) * a.lanes + b] = T(0);
-      } else {
-        on = 1;
-      }
-    }
-    act[t] = on;
-  }
-  __syncthreads();
-  int any = 0;
-#pragma unroll
-  for (int j = 0; j < kDenseLanes; ++j) any |= act[j];
-  if (!any) return;
-  const unsigned char* A = kSub ? a.sub : a.sub_t;
-  T acc[4][6];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < 6; ++c) acc[i][c] = T(0);
-  }
-  for (int k0 = 0; k0 < nb; k0 += kDenseK) {
-    for (int e = t; e < kDenseRows * kDenseK; e += kDenseThreads) {
-      const int r = e / kDenseK, kk = e % kDenseK, gr = r0 + r, gk = k0 + kk;
-      as[r][kk] = (gr < nb && gk < nb) ? T(A[(size_t)gr * nb + gk]) : T(0);
-    }
-    for (int e = t; e < kDenseK * kDenseLanes; e += kDenseThreads) {
-      const int ll = e % kDenseLanes, kk = e / kDenseLanes, gk = k0 + kk;
-      T x[6] = {0, 0, 0, 0, 0, 0};
-      if (gk < nb && act[ll]) dense_stage<T, MODE>(a, b0 + ll, gk, first, x);
-#pragma unroll
-      for (int c = 0; c < 6; ++c) xs[kk][c][ll] = x[c];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kDenseK; ++kk) {
-      T x[6];
-#pragma unroll
-      for (int c = 0; c < 6; ++c) x[c] = xs[kk][c][l];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const T s = as[rg + kDenseGroups * i][kk];
-#pragma unroll
-        for (int c = 0; c < 6; ++c) acc[i][c] += s * x[c];
-      }
-    }
-    __syncthreads();
-  }
-  T emax = T(0);
-  if (act[l]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + rg + kDenseGroups * i;
-      if (row < nb) dense_epilogue<T, MODE>(a, b0 + l, row, acc[i], emax);
-    }
-  }
-  if constexpr (MODE == kSolveSub) {
-    red[rg][l] = emax;
-    __syncthreads();
-    if (t < kDenseLanes && act[t]) {
-      T m = red[0][t];
-      for (int j = 1; j < kDenseGroups; ++j) m = nan_max(m, red[j][t]);
-      atomic_max_bits(a.err + ((a.k + 1) % 3) * a.lanes + b0 + t, m);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // L4 ladder_doubling
 // ---------------------------------------------------------------------------
@@ -2006,126 +1619,6 @@ static int ladder_vjp(const T* saved, const T* s_re, const T* s_im, const T* mas
 }
 
 template <typename T>
-static int ladder_dense(const unsigned char* sub, const unsigned char* sub_t,
-                        const T* mask, const T* z_re, const T* z_im, const T* root,
-                        const T* s_re, const T* s_im, const T* v0_re, const T* v0_im,
-                        T* v_re, T* v_im, T* ib_re, T* ib_im, T* il_re, T* il_im,
-                        T* drop, T* saved, int* it, T* err, int nb, int lanes,
-                        int max_iter, int fixed, double eps, int* launched,
-                        void* stream) {
-  *launched = 0;
-  if (nb <= 0 || lanes <= 0 || max_iter < 0 ||
-      (lanes + kDenseLanes - 1) / kDenseLanes > 65535)
-    return (int)cudaErrorInvalidValue;
-  DenseArgs<T> a = {};
-  a.sub = sub;
-  a.sub_t = sub_t;
-  a.mask = mask;
-  a.z_re = z_re;
-  a.z_im = z_im;
-  a.root = root;
-  a.s_re = s_re;
-  a.s_im = s_im;
-  a.v0_re = v0_re;
-  a.v0_im = v0_im;
-  a.v_re = v_re;
-  a.v_im = v_im;
-  a.ib_re = ib_re;
-  a.ib_im = ib_im;
-  a.il_re = il_re;
-  a.il_im = il_im;
-  a.drop = drop;
-  a.saved = saved;
-  a.it = it;
-  a.err = err;
-  a.nb = nb;
-  a.lanes = lanes;
-  a.max_iter = max_iter;
-  a.fixed = fixed;
-  a.eps = (T)eps;
-  const cudaStream_t st = (cudaStream_t)stream;
-  dense_init_kernel<T><<<(unsigned)lanes, kDenseThreads, 0, st>>>(a);
-  cudaError_t e = cudaGetLastError();
-  *launched += e == cudaSuccess;
-  const dim3 grid((unsigned)((nb + kDenseRows - 1) / kDenseRows),
-                  (unsigned)((lanes + kDenseLanes - 1) / kDenseLanes));
-  for (int k = 0; k < max_iter && e == cudaSuccess; ++k) {
-    a.k = k;
-    ladder_dense_kernel<T, kSolveSub><<<grid, kDenseThreads, 0, st>>>(a);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) break;
-    ++*launched;
-    ladder_dense_kernel<T, kSolveSubT><<<grid, kDenseThreads, 0, st>>>(a);
-    e = cudaGetLastError();
-    *launched += e == cudaSuccess;
-  }
-  return (int)e;
-}
-
-template <typename T>
-static int ladder_dense_vjp(const unsigned char* sub, const unsigned char* sub_t,
-                            const T* mask, const T* z_re, const T* z_im, const T* saved,
-                            const T* s_re, const T* s_im, const T* gv_re,
-                            const T* gv_im, const T* gb_re, const T* gb_im,
-                            const T* gl_re, const T* gl_im, T* sbar_re, T* sbar_im,
-                            T* v0bar, T* w, T* g, int nb, int lanes, int iters,
-                            int* launched, void* stream) {
-  *launched = 0;
-  if (nb <= 0 || lanes <= 0 || iters < 0 ||
-      (lanes + kDenseLanes - 1) / kDenseLanes > 65535)
-    return (int)cudaErrorInvalidValue;
-  DenseArgs<T> a = {};
-  a.sub = sub;
-  a.sub_t = sub_t;
-  a.mask = mask;
-  a.z_re = z_re;
-  a.z_im = z_im;
-  a.saved = const_cast<T*>(saved);
-  a.s_re = s_re;
-  a.s_im = s_im;
-  a.gv_re = gv_re;
-  a.gv_im = gv_im;
-  a.gb_re = gb_re;
-  a.gb_im = gb_im;
-  a.gl_re = gl_re;
-  a.gl_im = gl_im;
-  a.sbar_re = sbar_re;
-  a.sbar_im = sbar_im;
-  a.v0bar = v0bar;
-  a.w = w;
-  a.g = g;
-  a.nb = nb;
-  a.lanes = lanes;
-  a.max_iter = iters;
-  const cudaStream_t st = (cudaStream_t)stream;
-  dense_vjp_init_kernel<T><<<(unsigned)lanes, kDenseThreads, 0, st>>>(a);
-  cudaError_t e = cudaGetLastError();
-  *launched += e == cudaSuccess;
-  const dim3 grid((unsigned)((nb + kDenseRows - 1) / kDenseRows),
-                  (unsigned)((lanes + kDenseLanes - 1) / kDenseLanes));
-  for (int k = iters - 1; k >= 0 && e == cudaSuccess; --k) {
-    a.k = k;
-    a.last = k == iters - 1;
-    dense_vsum_kernel<T><<<(unsigned)lanes, kDenseThreads, 0, st>>>(a);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) break;
-    ++*launched;
-    ladder_dense_kernel<T, kVjpSub><<<grid, kDenseThreads, 0, st>>>(a);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) break;
-    ++*launched;
-    ladder_dense_kernel<T, kVjpSubT><<<grid, kDenseThreads, 0, st>>>(a);
-    e = cudaGetLastError();
-    *launched += e == cudaSuccess;
-  }
-  if (e != cudaSuccess) return (int)e;
-  dense_vsum_kernel<T><<<(unsigned)lanes, kDenseThreads, 0, st>>>(a);
-  e = cudaGetLastError();
-  *launched += e == cudaSuccess;
-  return (int)e;
-}
-
-template <typename T>
 static int ladder_doubling(const T* mask, const T* z_re, const T* z_im, const T* root,
                            const int* jump, const int* pre_ptr, const int* pre_idx,
                            const T* s_re, const T* s_im, const T* v0_re,
@@ -2244,28 +1737,6 @@ LADDER_ENTRY(f64, double)
 LADDER_ENTRY(f32, float)
 
 #define LADDER_FORMS_ENTRY(SUFFIX, T)                                                \
-  extern "C" int ladder_dense_##SUFFIX(                                              \
-      const unsigned char* sub, const unsigned char* sub_t, const T* mask,          \
-      const T* z_re, const T* z_im, const T* root, const T* s_re, const T* s_im,    \
-      const T* v0_re, const T* v0_im, T* v_re, T* v_im, T* ib_re, T* ib_im,         \
-      T* il_re, T* il_im, T* drop, T* saved, int* it, T* err, int nb, int lanes,    \
-      int max_iter, int fixed, double eps, int* launched, void* stream) {           \
-    return ladder_dense<T>(sub, sub_t, mask, z_re, z_im, root, s_re, s_im, v0_re,   \
-                           v0_im, v_re, v_im, ib_re, ib_im, il_re, il_im, drop,     \
-                           saved, it, err, nb, lanes, max_iter, fixed, eps,         \
-                           launched, stream);                                       \
-  }                                                                                 \
-  extern "C" int ladder_dense_vjp_##SUFFIX(                                          \
-      const unsigned char* sub, const unsigned char* sub_t, const T* mask,          \
-      const T* z_re, const T* z_im, const T* saved, const T* s_re, const T* s_im,   \
-      const T* gv_re, const T* gv_im, const T* gb_re, const T* gb_im,               \
-      const T* gl_re, const T* gl_im, T* sbar_re, T* sbar_im, T* v0bar, T* w,       \
-      T* g, int nb, int lanes, int iters, int* launched, void* stream) {            \
-    return ladder_dense_vjp<T>(sub, sub_t, mask, z_re, z_im, saved, s_re, s_im,     \
-                               gv_re, gv_im, gb_re, gb_im, gl_re, gl_im, sbar_re,   \
-                               sbar_im, v0bar, w, g, nb, lanes, iters, launched,    \
-                               stream);                                             \
-  }                                                                                 \
   extern "C" int ladder_doubling_##SUFFIX(                                           \
       const T* mask, const T* z_re, const T* z_im, const T* root, const int* jump,  \
       const int* pre_ptr, const int* pre_idx, const T* s_re, const T* s_im,         \

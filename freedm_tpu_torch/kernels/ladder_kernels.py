@@ -22,23 +22,30 @@ wrapper                           replaces                                  rout
                                   mode (:func:`ladder_doubling_vjp`)
 ================================  ========================================  =====
 
-All live in ``csrc/ladder.cu`` (float64 and float32).  A wrapper given
-CPU tensors runs its plain PyTorch version; given CUDA tensors it
-launches its kernel or raises.  Each call that launches adds the kernel
-launches it issued to :data:`LAUNCHES` — one, but for L3, whose C entry
-reports its ``1 + 2 · max_iter`` (solve) and ``2 + 3 · iters`` (reverse
-mode) launches — and :data:`MODE_LAUNCHES` splits L3's and L4's between
-their forward and reverse modes.  L1 takes one of two routes, chosen by :func:`ladder_plan` from the
-branch count and dtype alone (so a lane's result is the same bits
-whatever the lanes beside it): up to :func:`cluster_capacity` branches a
-lane is one thread-block cluster whose
-shared memory holds its state, above that one CTA a lane with its state
-in device memory.
+L1, L2 and L4 live in ``csrc/ladder.cu``, L3 in ``csrc/ladder_dense.cu``
+(float64 and float32).  A wrapper given CPU tensors runs its plain
+PyTorch version; given CUDA tensors it launches its kernel or raises.
+Each call that launches adds the kernel launches it issued to
+:data:`LAUNCHES` — one, but for L3's tiled route, whose C entry reports
+its ``2 + 2 · max_iter`` (solve) and ``2 + 2 · iters`` (reverse mode)
+launches — and :data:`MODE_LAUNCHES` splits L3's and L4's between their
+forward and reverse modes.  L1 and L3 each take one of two routes,
+chosen from the branch count and dtype alone (so a lane's result is the
+same bits whatever the lanes beside it).  L1 (:func:`ladder_plan`): up
+to :func:`cluster_capacity` branches a lane is one thread-block cluster
+whose shared memory holds its state, above that one CTA a lane with its
+state in device memory.  L3 (:func:`dense_plan`): up to
+:func:`dense_cta_capacity` branches one CTA a lane runs a whole solve
+with the subtree matrix as bits and the lane's state in shared memory,
+in one launch; above that the products run over the subtree matrix's
+nonzero 64 × 16 blocks in DFS preorder (:func:`nonzero_blocks`,
+:func:`slice_plan`), on the FP64 tensor cores in float64.
 
 L1 and L2 work in DFS preorder (:meth:`Feeder.reorder_preorder`), on
-:class:`LadderOperands` made once per feeder; L3 and L4 in the caller's
-branch order, as the reference's dense and doubling sweeps do, on
-:class:`DenseOperands` and :class:`DoublingOperands`.  Lanes are ``[B,
+:class:`LadderOperands` made once per feeder; L3 and L4 take and return
+the caller's branch order, as the reference's dense and doubling sweeps
+do, on :class:`DenseOperands` and :class:`DoublingOperands` (L3's tiled
+route permutes inside its kernels).  Lanes are ``[B,
 nb, 3]`` :class:`~freedm_tpu_torch.cplx.C` pairs: the loads ``s`` in pu
 and the per-lane source phasors ``v0 [B, 3]``.  A solve runs every
 iteration of every lane in one call — in ``solve`` mode each lane stops
@@ -484,42 +491,52 @@ def ladder_vjp_plain(saved: Tensor, s: C, op: LadderOperands, gv: C, gb: C,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
+#: The C entry points of each library, ``<base>_f64`` and ``<base>_f32``.
 _SIGS = {
-    "ladder_solve": [_P] * 25 + [_I] * 4 + [ctypes.c_double] + [_I] * 4
-    + [_P],
-    "ladder_vjp": [_P] * 21 + [_I] * 3 + [_P],
-    "ladder_cluster_check": [_I] * 3 + [_P],
-    "ladder_dense": [_P] * 20 + [_I] * 4 + [ctypes.c_double] + [_P] * 2,
-    "ladder_dense_vjp": [_P] * 19 + [_I] * 3 + [_P] * 2,
-    "ladder_doubling": [_P] * 22 + [_I] * 5 + [ctypes.c_double] + [_P],
-    "ladder_doubling_vjp": [_P] * 20 + [_I] * 4 + [_P],
+    "ladder": {
+        "ladder_solve": [_P] * 25 + [_I] * 4 + [_D] + [_I] * 4 + [_P],
+        "ladder_vjp": [_P] * 21 + [_I] * 3 + [_P],
+        "ladder_cluster_check": [_I] * 3 + [_P],
+        "ladder_doubling": [_P] * 22 + [_I] * 5 + [_D] + [_P],
+        "ladder_doubling_vjp": [_P] * 20 + [_I] * 4 + [_P],
+    },
+    "ladder_dense": {
+        "ladder_dense_tiled": [_P] * 27 + [_I] * 6 + [_D] + [_P] * 2,
+        "ladder_dense_tiled_vjp": [_P] * 25 + [_I] * 5 + [_P] * 2,
+        "ladder_dense_cta": [_P] * 19 + [_I] * 4 + [_D] + [_P] * 2,
+        "ladder_dense_cta_vjp": [_P] * 17 + [_I] * 3 + [_P] * 2,
+    },
 }
 _lib_lock = threading.Lock()
 _fns: Dict[str, object] = {}
 
 
 def _fn(name: str):
-    """The C entry point ``name`` (``ladder_solve_f64``, ...); the
-    library is built and loaded at the first call."""
+    """The C entry point ``name`` (``ladder_solve_f64``, ...); its library
+    is built and loaded at the first call of any of its entries."""
     fn = _fns.get(name)
     if fn is None:
+        base = name.rsplit("_", 1)[0]
+        (lib_name,) = [k for k, sigs in _SIGS.items() if base in sigs]
         with _lib_lock:
-            if not _fns:
-                lib = build.load("ladder")
-                for base, args in _SIGS.items():
+            if name not in _fns:
+                lib = build.load(lib_name)
+                for entry, args in _SIGS[lib_name].items():
                     for sfx in ("f64", "f32"):
-                        f = getattr(lib, f"{base}_{sfx}")
+                        f = getattr(lib, f"{entry}_{sfx}")
                         f.argtypes = args
                         f.restype = _I
-                        _fns[f"{base}_{sfx}"] = f
+                        _fns[f"{entry}_{sfx}"] = f
         fn = _fns[name]
     return fn
 
 
 def _ladder_lib() -> None:
-    """Build and load the kernels' library now (it happens at the first
+    """Build and load the kernels' libraries now (it happens at the first
     launch otherwise)."""
     _fn("ladder_solve_f64")
+    _fn("ladder_dense_cta_f64")
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -725,12 +742,125 @@ def _vjp_outputs(s: C) -> Tuple[C, Tensor]:
 # ---------------------------------------------------------------------------
 
 
+#: L3's shapes, read from ``csrc/ladder_dense.cu``: a tiled product's
+#: threads, lanes and rows, a block's columns, a slice's blocks at most,
+#: the CTA route's shared memory at most, a plan row's columns.
+(DENSE_TILE_THREADS, DENSE_TILE_LANES, DENSE_BLOCK_ROWS, DENSE_BLOCK_K,
+ DENSE_SLICE_BLOCKS, DENSE_CTA_SMEM_CAP, DENSE_PLAN_COLS) = build.constants(
+    "ladder_dense.cu", "kTileThreads", "kTileLanes", "kBlockRows", "kBlockK",
+    "kSliceBlocks", "kCtaSmemCap", "kPlanCols")
+#: The tiled route's sums a thread (2 rows × 2 lanes × 6 columns).
+(_TILE_OUT,) = build.constants("ladder_dense.cu", "kOut")
+
+
+class DensePlan(NamedTuple):
+    """L3's route for ``(nb, dtype)``: ``"cta"`` (one CTA a lane, the
+    subtree matrix as bits and the lane's state in ``smem`` bytes of
+    shared memory) or ``"tiled"`` (products over the nonzero blocks)."""
+
+    route: str
+    smem: int
+
+
+def _dense_cta_smem(nb: int, itemsize: int) -> int:
+    """The CTA route's shared memory: S and Sᵀ as rows of 32-bit words,
+    four ``[nb, 6]`` buffers (``cta_smem`` in the source)."""
+    return 2 * nb * (-(-nb // 32)) * 4 + 24 * nb * itemsize
+
+
+def dense_plan(nb: int, dtype: torch.dtype) -> DensePlan:
+    """L3's route, a function of the branch count and dtype alone: the
+    CTA route while its shared memory fits ``DENSE_CTA_SMEM_CAP``, else
+    the tiled route."""
+    if nb < 1:
+        raise ValueError(f"a feeder has at least one branch, got {nb}")
+    smem = _dense_cta_smem(nb, _itemsize(dtype))
+    return DensePlan("cta" if smem <= DENSE_CTA_SMEM_CAP else "tiled", smem)
+
+
+def dense_cta_capacity(dtype: torch.dtype) -> int:
+    """The most branches L3's CTA route takes (642 in float64, 781 in
+    float32)."""
+    nb = 1
+    while _dense_cta_smem(nb + 1, _itemsize(dtype)) <= DENSE_CTA_SMEM_CAP:
+        nb += 1
+    return nb
+
+
+def bit_rows(m: np.ndarray) -> np.ndarray:
+    """The rows of a 0/1 matrix ``[nb, nb]`` as bits, ``[nb, ⌈nb / 32⌉]``
+    int32: column ``j`` of a row is bit ``j % 32`` of word ``j // 32``."""
+    nb = m.shape[0]
+    words = -(-nb // 32)
+    pad = np.zeros((nb, words * 32), bool)
+    pad[:, :nb] = m != 0
+    packed = np.packbits(pad, axis=1, bitorder="little")
+    return np.ascontiguousarray(packed).view("<u4").view(np.int32)
+
+
+def nonzero_blocks(m: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A 0/1 matrix ``[nb, nb]`` cut into blocks of ``DENSE_BLOCK_ROWS`` ×
+    ``DENSE_BLOCK_K`` (zero-padded at the ragged edges), the nonzero ones
+    alone: ``(ptr [tiles + 1], kb [n], data [n, rows, k])`` — row tile
+    ``r``'s blocks are ``ptr[r]:ptr[r + 1]``, their K blocks ``kb`` in
+    increasing order, their bytes ``data`` (uint8 0/1)."""
+    nb = m.shape[0]
+    rows, cols = DENSE_BLOCK_ROWS, DENSE_BLOCK_K
+    tiles, kbs = -(-nb // rows), -(-nb // cols)
+    pad = np.zeros((tiles * rows, kbs * cols), np.uint8)
+    pad[:nb, :nb] = m != 0
+    blocks = pad.reshape(tiles, rows, kbs, cols).transpose(0, 2, 1, 3)
+    nz = blocks.any(axis=(2, 3))
+    t_idx, k_idx = np.nonzero(nz)
+    ptr = np.concatenate([[0], np.cumsum(nz.sum(axis=1))]).astype(np.int64)
+    return ptr, k_idx.astype(np.int32), np.ascontiguousarray(
+        blocks[t_idx, k_idx])
+
+
+def slice_plan(ptr: np.ndarray) -> Tuple[np.ndarray, int]:
+    """The tiled product's work items from the row tiles' block lists
+    (``nonzero_blocks``'s ``ptr``): each tile's list cut into ⌈n /
+    ``DENSE_SLICE_BLOCKS``⌉ near-equal slices of whole blocks (one, possibly
+    empty, at least).  A row ``[tile, first block, blocks, slice, slices,
+    slot]``; the slices of a tile of several take consecutive scratch
+    slots (``-1`` for a tile of one).  A function of the matrix alone,
+    never of the lane count.  Returns the rows and the slots used."""
+    rows, slot = [], 0
+    for r in range(len(ptr) - 1):
+        lo, n = int(ptr[r]), int(ptr[r + 1] - ptr[r])
+        ns = max(1, -(-n // DENSE_SLICE_BLOCKS))
+        for q in range(ns):
+            a, b = q * n // ns, (q + 1) * n // ns
+            rows.append((r, lo + a, b - a, q, ns, slot + q if ns > 1 else -1))
+        slot += ns if ns > 1 else 0
+    return np.asarray(rows, np.int32).reshape(-1, DENSE_PLAN_COLS), slot
+
+
+class DenseBlocks(NamedTuple):
+    """One matrix of L3's tiled route, in preorder: its nonzero blocks
+    ``data [n, 64, 16]`` (uint8), their K blocks ``kb [n]`` and the slice
+    plan ``plan [items, 6]`` (int32), and the scratch slots the plan
+    uses."""
+
+    data: Tensor
+    kb: Tensor
+    plan: Tensor
+    slots: int
+
+
 class DenseOperands(NamedTuple):
     """A feeder's tree for L3, in the caller's branch order: the phase
     ``mask [nb, 3]``, the impedances ``z_re``, ``z_im [nb, 3, 3]`` and
     ``root [nb]`` in the working dtype; the subtree matrix ``sub [nb,
     nb]`` (uint8 0/1: ``sub[i, j] = 1`` iff branch ``j`` lies in branch
-    ``i``'s subtree, ``Feeder.subtree``) and its transpose ``sub_t``."""
+    ``i``'s subtree, ``Feeder.subtree``) and its transpose ``sub_t`` (the
+    plain version's); the tables of the route :func:`dense_plan` picks —
+    the CTA route's ``bits`` and ``bits_t`` (:func:`bit_rows` of ``sub``
+    and ``sub_t``), the tiled route's DFS preorder ``order [nb]`` (int32,
+    preorder row → caller's branch), ``pmask``, ``pz_re``, ``pz_im`` and
+    ``proot`` in preorder, and the nonzero blocks and slice plans of
+    ``sub`` and ``sub_t`` in preorder (``s_blocks``, ``t_blocks``); the
+    other route's are ``None``."""
 
     mask: Tensor
     z_re: Tensor
@@ -738,6 +868,15 @@ class DenseOperands(NamedTuple):
     root: Tensor
     sub: Tensor
     sub_t: Tensor
+    bits: Optional[Tensor]
+    bits_t: Optional[Tensor]
+    order: Optional[Tensor]
+    pmask: Optional[Tensor]
+    pz_re: Optional[Tensor]
+    pz_im: Optional[Tensor]
+    proot: Optional[Tensor]
+    s_blocks: Optional[DenseBlocks]
+    t_blocks: Optional[DenseBlocks]
 
     @property
     def nb(self) -> int:
@@ -782,17 +921,40 @@ def _tree_tensors(feeder: Feeder, dtype, device):
 
 def dense_operands(feeder: Feeder, dtype: torch.dtype,
                    device: torch.device) -> DenseOperands:
-    """L3's operands of a feeder that compiled its subtree matrix."""
+    """L3's operands of a feeder that compiled its subtree matrix, with
+    the tables of its route (:func:`dense_plan`), made once on the
+    host."""
     if feeder.subtree is None:
         raise ValueError("feeder compiled without a dense subtree matrix")
     sub = np.asarray(feeder.subtree) != 0
 
-    def u8(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.uint8),
-                               device=device)
+    def tensor(a, dt=None):
+        return torch.as_tensor(np.ascontiguousarray(a, dt), device=device)
 
-    return DenseOperands(*_tree_tensors(feeder, dtype, device), sub=u8(sub),
-                         sub_t=u8(sub.T))
+    tree = _tree_tensors(feeder, dtype, device)
+    bits = bits_t = order = s_blocks = t_blocks = None
+    pre = (None,) * 4
+    if dense_plan(feeder.n_branches, dtype).route == "cta":
+        bits, bits_t = tensor(bit_rows(sub)), tensor(bit_rows(sub.T))
+    else:
+        _, perm = feeder.reorder_preorder()
+        sub_pre = sub[np.ix_(perm, perm)]
+
+        def blocks(m):
+            ptr, kb, data = nonzero_blocks(m)
+            plan, slots = slice_plan(ptr)
+            return DenseBlocks(tensor(data), tensor(kb, np.int32),
+                               tensor(plan, np.int32), slots)
+
+        order = tensor(perm, np.int32)
+        s_blocks, t_blocks = blocks(sub_pre), blocks(sub_pre.T)
+        index = torch.as_tensor(perm, dtype=torch.int64, device=device)
+        pre = tuple(t[index].contiguous() for t in tree)
+    return DenseOperands(*tree, sub=tensor(sub, np.uint8),
+                         sub_t=tensor(sub.T, np.uint8), bits=bits,
+                         bits_t=bits_t, order=order, pmask=pre[0],
+                         pz_re=pre[1], pz_im=pre[2], proot=pre[3],
+                         s_blocks=s_blocks, t_blocks=t_blocks)
 
 
 def doubling_operands(feeder: Feeder, dtype: torch.dtype,
@@ -878,11 +1040,7 @@ def _check_form_op(op, dev, dtype) -> None:
           z_re=(op.z_re, (nb, 3, 3), False), z_im=(op.z_im, (nb, 3, 3), False),
           root=(op.root, (nb,), False))
     if isinstance(op, DenseOperands):
-        for name, t in (("sub", op.sub), ("sub_t", op.sub_t)):
-            if t.device != dev or t.dtype is not torch.uint8 or tuple(
-                    t.shape) != (nb, nb) or not t.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous uint8 "
-                                 f"({nb}, {nb}) tensor on {dev}")
+        _check_dense_tables(op, dev, dtype)
     else:
         r = op.rounds
         _want(dev, None, jump=(op.jump, (r, nb + 1), True),
@@ -892,6 +1050,40 @@ def _check_form_op(op, dev, dtype) -> None:
         if len(_checked) >= 64:
             _checked.clear()
         _checked[id(op)] = op
+
+
+def _want_bytes(dev, name: str, t: Tensor, shape) -> None:
+    if t.device != dev or t.dtype is not torch.uint8 or tuple(
+            t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous uint8 {tuple(shape)} "
+                         f"tensor on {dev}")
+
+
+def _check_dense_tables(op: DenseOperands, dev, dtype) -> None:
+    """L3's subtree matrices and the tables of its route."""
+    nb = op.nb
+    for name, t in (("sub", op.sub), ("sub_t", op.sub_t)):
+        _want_bytes(dev, name, t, (nb, nb))
+    if dense_plan(nb, dtype).route == "cta":
+        words = -(-nb // 32)
+        _want(dev, None, bits=(op.bits, (nb, words), True),
+              bits_t=(op.bits_t, (nb, words), True))
+        return
+    _want(dev, None, order=(op.order, (nb,), True))
+    _want(dev, dtype, pmask=(op.pmask, (nb, 3), False),
+          pz_re=(op.pz_re, (nb, 3, 3), False),
+          pz_im=(op.pz_im, (nb, 3, 3), False), proot=(op.proot, (nb,), False))
+    tiles = -(-nb // DENSE_BLOCK_ROWS)
+    for name, m in (("s_blocks", op.s_blocks), ("t_blocks", op.t_blocks)):
+        n, items = int(m.kb.shape[0]), int(m.plan.shape[0])
+        _want_bytes(dev, f"{name}.data", m.data,
+                    (n, DENSE_BLOCK_ROWS, DENSE_BLOCK_K))
+        _want(dev, None, **{f"{name}.kb": (m.kb, (n,), True),
+                            f"{name}.plan": (m.plan, (items,
+                                                      DENSE_PLAN_COLS), True)})
+        if items < tiles:
+            raise ValueError(f"{name}.plan covers {items} items for {tiles} "
+                             f"row tiles")
 
 
 def _want_solve(s: C, v0: C, op, max_iter: int, name: str):
@@ -908,48 +1100,84 @@ def _want_solve(s: C, v0: C, op, max_iter: int, name: str):
     return dev, dtype, lanes
 
 
-#: L3's lanes a product tile: the wrapper refuses more lanes than the
-#: grid's second dimension (65,535 tiles) takes.
-(DENSE_TILE_LANES,) = build.constants("ladder.cu", "kDenseLanes")
+def _dense_scratch(op: DenseOperands, lanes: int, dtype, dev):
+    """The tiled route's scratch: its preorder state ``[6, B, nb, 6]`` (the
+    loads, the two products' right-hand sides and three more lane
+    states), the slices' sums (the larger plan's slots) and the tiles'
+    tickets (cleared by the route's first launch)."""
+    lane_tiles = -(-lanes // DENSE_TILE_LANES)
+    if lane_tiles > 65535:
+        raise ValueError(f"ladder_dense takes at most "
+                         f"{DENSE_TILE_LANES * 65535} lanes, got {lanes}")
+    nb = op.nb
+    slots = max(op.s_blocks.slots, op.t_blocks.slots, 1)
+    kw = dict(dtype=dtype, device=dev)
+    return (torch.empty(6, lanes, nb, 6, **kw),
+            torch.empty(slots * lane_tiles * _TILE_OUT * DENSE_TILE_THREADS,
+                        **kw),
+            torch.empty(-(-nb // DENSE_BLOCK_ROWS) * lane_tiles,
+                        dtype=torch.int32, device=dev))
+
+
+def _blocks_args(op: DenseOperands):
+    s, t = op.s_blocks, op.t_blocks
+    return (s.data.data_ptr(), s.kb.data_ptr(), s.plan.data_ptr(),
+            t.data.data_ptr(), t.kb.data_ptr(), t.plan.data_ptr(),
+            op.order.data_ptr(), op.pmask.data_ptr(), op.pz_re.data_ptr(),
+            op.pz_im.data_ptr())
+
+
+def _items(op: DenseOperands):
+    return int(op.s_blocks.plan.shape[0]), int(op.t_blocks.plan.shape[0])
 
 
 def ladder_dense(s: C, v0: C, op: DenseOperands, eps: float, max_iter: int,
                  fixed: bool, save: bool = False) -> LadderOut:
     """L3: a whole ladder solve of every lane on the dense sweeps — ``s [B,
     nb, 3]`` pu and ``v0 [B, 3]`` contiguous pairs in the caller's branch
-    order — as one call of ``1 + 2 · max_iter`` launches issued without
-    a host read: an initial state, then per iteration the product with the
-    subtree matrix (the loads' currents formed as it stages them, the
-    drops and the root error in its epilogue) and the product with its
-    transpose (the new voltages in its epilogue).  A lane that has
-    stopped is frozen, as the reference's vmapped ``while_loop`` leaves
-    it."""
+    order — issued without a host read, on the route of
+    :func:`dense_plan`: one launch, a CTA a lane (``"cta"``), or ``2 + 2 ·
+    max_iter`` launches (``"tiled"``): an initial state, then per
+    iteration the product with the subtree matrix over its nonzero blocks
+    in preorder (the drops, the root error, ``i_load`` and the saved
+    iterate in its epilogue) and the product with its transpose (the new
+    voltages and the next iteration's loads' currents in its epilogue),
+    and the outputs out of preorder.
+    A lane that has stopped is frozen, as the reference's vmapped
+    ``while_loop`` leaves it."""
     if not _on_card(s.re, "ladder_dense"):
         return ladder_dense_plain(s, v0, op, eps, max_iter, fixed, save)
     dev, dtype, lanes = _want_solve(s, v0, op, max_iter, "ladder_dense")
-    if lanes > DENSE_TILE_LANES * 65535:
-        raise ValueError(f"ladder_dense takes at most "
-                         f"{DENSE_TILE_LANES * 65535} lanes, got {lanes}")
     nb = op.nb
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=dev)
 
     out = [empty(lanes, nb, 3) for _ in range(6)]
-    drop = empty(lanes, nb, 6)
     saved = empty(max_iter, lanes, nb, 6) if (save and fixed) else None
     it = empty(3, lanes, dt=torch.int32)
     err = empty(3, lanes)
     launched = ctypes.c_int(0)
+    sv = None if saved is None else saved.data_ptr()
+    tail = (it.data_ptr(), err.data_ptr())
     with torch.cuda.device(dev):
-        rc = _fn(f"ladder_dense_{_suffix(dtype)}")(
-            op.sub.data_ptr(), op.sub_t.data_ptr(), op.mask.data_ptr(),
-            op.z_re.data_ptr(), op.z_im.data_ptr(), op.root.data_ptr(),
-            s.re.data_ptr(), s.im.data_ptr(), v0.re.data_ptr(),
-            v0.im.data_ptr(), *(t.data_ptr() for t in out), drop.data_ptr(),
-            None if saved is None else saved.data_ptr(), it.data_ptr(),
-            err.data_ptr(), nb, lanes, int(max_iter), int(bool(fixed)),
-            float(eps), ctypes.byref(launched), _stream(s.re))
+        lane_args = (s.re.data_ptr(), s.im.data_ptr(), v0.re.data_ptr(),
+                     v0.im.data_ptr(), *(t.data_ptr() for t in out))
+        if dense_plan(nb, dtype).route == "cta":
+            rc = _fn(f"ladder_dense_cta_{_suffix(dtype)}")(
+                op.bits.data_ptr(), op.bits_t.data_ptr(), op.mask.data_ptr(),
+                op.z_re.data_ptr(), op.z_im.data_ptr(), op.root.data_ptr(),
+                *lane_args, sv, *tail, nb, lanes, int(max_iter),
+                int(bool(fixed)), float(eps), ctypes.byref(launched),
+                _stream(s.re))
+        else:
+            work, part, ticket = _dense_scratch(op, lanes, dtype, dev)
+            rc = _fn(f"ladder_dense_tiled_{_suffix(dtype)}")(
+                *_blocks_args(op), op.proot.data_ptr(), *lane_args,
+                work.data_ptr(), sv, *tail, part.data_ptr(),
+                ticket.data_ptr(), *_items(op), nb, lanes, int(max_iter),
+                int(bool(fixed)), float(eps), ctypes.byref(launched),
+                _stream(s.re))
     _count("ladder_dense", launched.value, "forward")
     _raise_on(rc, "ladder_dense")
     slot = int(max_iter) % 3
@@ -961,33 +1189,37 @@ def ladder_dense(s: C, v0: C, op: DenseOperands, eps: float, max_iter: int,
 def ladder_dense_vjp(saved: Tensor, s: C, op: DenseOperands, gv: C, gb: C,
                      gl: C) -> Tuple[C, C]:
     """L3's reverse mode: the cotangents of ``s`` and ``v0`` (as
-    :func:`ladder_vjp`) on the dense sweeps, in one call of ``2 + 3 ·
-    iters`` launches: per iteration the ``mask · vbar`` sum for ``v0``'s
-    cotangent, the product with the subtree matrix (``−S(mask vbar)``,
-    ``conj(z)ᵀ`` in its epilogue) and with its transpose (the loads' and
-    the voltages' cotangents in its epilogue)."""
+    :func:`ladder_vjp`) on the dense sweeps, on the route of
+    :func:`dense_plan`: one launch, a CTA a lane, or ``2 + 2 · iters``
+    launches: the initial state, per iteration the product with the
+    subtree matrix (``−S(mask vbar)``, ``conj(z)ᵀ`` in its epilogue) and
+    with its transpose (the loads' and the voltages' cotangents in its
+    epilogue), and the loads' cotangent out of preorder with the source
+    phasors' summed a lane."""
     if not _on_card(s.re, "ladder_dense_vjp"):
         return ladder_dense_vjp_plain(saved, s, op, gv, gb, gl)
     dev, dtype = s.re.device, s.re.dtype
     _want_vjp(dev, dtype, saved, s, gv, gb, gl)
     _check_form_op(op, dev, dtype)
     lanes, nb, iters = int(s.re.shape[0]), op.nb, int(saved.shape[0])
-    if lanes > DENSE_TILE_LANES * 65535:
-        raise ValueError(f"ladder_dense takes at most "
-                         f"{DENSE_TILE_LANES * 65535} lanes, got {lanes}")
     sbar, v0bar = _vjp_outputs(s)
-    w = torch.empty(lanes, nb, 6, dtype=dtype, device=dev)
-    g = torch.empty(lanes, nb, 6, dtype=dtype, device=dev)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        rc = _fn(f"ladder_dense_vjp_{_suffix(dtype)}")(
-            op.sub.data_ptr(), op.sub_t.data_ptr(), op.mask.data_ptr(),
-            op.z_re.data_ptr(), op.z_im.data_ptr(), saved.data_ptr(),
-            s.re.data_ptr(), s.im.data_ptr(), gv.re.data_ptr(),
-            gv.im.data_ptr(), gb.re.data_ptr(), gb.im.data_ptr(),
-            gl.re.data_ptr(), gl.im.data_ptr(), sbar.re.data_ptr(),
-            sbar.im.data_ptr(), v0bar.data_ptr(), w.data_ptr(), g.data_ptr(),
-            nb, lanes, iters, ctypes.byref(launched), _stream(s.re))
+        lane_args = (saved.data_ptr(), s.re.data_ptr(), s.im.data_ptr(),
+                     gv.re.data_ptr(), gv.im.data_ptr(), gb.re.data_ptr(),
+                     gb.im.data_ptr(), gl.re.data_ptr(), gl.im.data_ptr(),
+                     sbar.re.data_ptr(), sbar.im.data_ptr(), v0bar.data_ptr())
+        if dense_plan(nb, dtype).route == "cta":
+            rc = _fn(f"ladder_dense_cta_vjp_{_suffix(dtype)}")(
+                op.bits.data_ptr(), op.bits_t.data_ptr(), op.mask.data_ptr(),
+                op.z_re.data_ptr(), op.z_im.data_ptr(), *lane_args, nb, lanes,
+                iters, ctypes.byref(launched), _stream(s.re))
+        else:
+            work, part, ticket = _dense_scratch(op, lanes, dtype, dev)
+            rc = _fn(f"ladder_dense_tiled_vjp_{_suffix(dtype)}")(
+                *_blocks_args(op), *lane_args, work.data_ptr(),
+                part.data_ptr(), ticket.data_ptr(), *_items(op), nb, lanes,
+                iters, ctypes.byref(launched), _stream(s.re))
     _count("ladder_dense", launched.value, "reverse")
     _raise_on(rc, "ladder_dense_vjp")
     return sbar, _unpack(v0bar)

@@ -2,12 +2,12 @@
 """Time S1 ``sparse_assemble`` (each mode), S2 ``sparse_matvec``, S3
 ``gmres_block_orth``, S4 ``gmres_lstsq``, K3 ``newton_update``, K1
 ``newton_assemble``, K2 ``power_injections``, I1 ``cim_iterate``, F1
-``fdlf_half_step`` in its tile mode and the serving cache's delta program
-(C1) of this checkout against those of other checkouts of the repo, in
-turns on one card.
+``fdlf_half_step`` in its tile mode, the serving cache's delta program
+(C1), L1 ``ladder_solve`` and L3 ``ladder_dense`` of this checkout
+against those of other checkouts of the repo, in turns on one card.
 
     python3 kernel_ab.py OTHER [OTHER ...]
-                         [--sections sparse,delta,newton,solvers]
+                         [--sections sparse,delta,newton,solvers,ladder,dense]
                          [--out FILE]
 
 Each ``OTHER`` is the root of another checkout, for example one written
@@ -84,6 +84,17 @@ events, each checkout on its own operands built from the same feeder and
 loads; their outputs agree within ``chip_smoke.LADDER_ATOL`` on lanes both
 converge (float64: equal iterations).
 
+The ``dense`` section times L3 ``ladder_dense`` at ``DENSE_SHAPES``
+(``synthetic_radial(2048, load_kw=1.0)`` × 64 in float64 and float32,
+``vvc_9bus`` × 64), 20 iterations, fixed and solve mode and the reverse
+mode (``ladder_dense_vjp`` on the checkout's own saved iterates and
+seeded random cotangents), by queued events, each checkout on its own
+operands (``dense_operands``) from the same feeder and loads (phase 28's
+``form_inputs``).  The forward outputs agree within
+``chip_smoke.LADDER_ATOL`` on lanes both converge (float64: equal
+iterations), the reverse mode's cotangents within ``GRAD_RTOL`` of the
+largest in float64 (``DENSE_F32_RTOL`` in float32).
+
 Prints the card's name and power limit, one line per turn and a JSON
 summary as the last line (also written to ``--out``).  Needs a CUDA card.
 """
@@ -105,13 +116,19 @@ DTYPES = ("float64", "float32")
 KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "sparse_assemble_residual", "sparse_matvec", "gmres_block_orth",
            "gmres_lstsq", "newton_update")
-SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder")
+SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder", "dense")
 SOLVER_KERNELS = ("cim_iterate", "fdlf_half_step", "fdlf_half_step_warp",
                   "power_injections_lanes")
 #: The ``ladder`` section's L1 shapes: (feeder, lanes, dtype).
 LADDER_SHAPES = (("radial10k", 1, "float64"), ("radial10k", 64, "float64"),
                  ("radial10k", 1, "float32"), ("radial10k", 64, "float32"),
                  ("vvc_9bus", 64, "float64"))
+#: The ``dense`` section's L3 shapes: (feeder, lanes, dtype).
+DENSE_SHAPES = (("radial2048", 64, "float64"), ("radial2048", 64, "float32"),
+                ("vvc_9bus", 64, "float64"))
+#: Float32 reverse modes of two checkouts agree within this share of the
+#: largest cotangent (20 walked iterations summed in other orders).
+DENSE_F32_RTOL = 1e-3
 #: F1's tile-mode lanes in the ``solvers`` section (``bench_mc_1024``).
 F1_LANES = 1024
 NEWTON_KERNELS = ("newton_assemble", "power_injections")
@@ -360,6 +377,46 @@ def measure_ladder(torch, cs, dev):
     return times, outs
 
 
+def measure_dense(torch, cs, dev):
+    """L3 at ``DENSE_SHAPES`` through this checkout's own operands, 20
+    iterations: fixed and solve mode and the reverse mode, device times by
+    queued events, and their outputs."""
+    from freedm_tpu_torch.cplx import C
+    from freedm_tpu_torch.kernels import ladder_kernels as lk
+
+    feeders = cs.form_feeders()
+    times, outs = {}, {}
+    for name, lanes, dn in DENSE_SHAPES:
+        dtype = getattr(torch, dn)
+        f = feeders[name]
+        s, v0 = cs.form_inputs(torch, f, lanes, dtype, dev)
+        op = lk.dense_operands(f, dtype, dev)
+        key = f"{name}_x{lanes}_{dn}"
+        for mode, fixed in (("fixed", True), ("solve", False)):
+            def fn(fixed=fixed):
+                return lk.ladder_dense(s, v0, op, cs.LADDER_EPS, 20, fixed)
+            o = fn()
+            outs[f"{key}_{mode}"] = [x.cpu() for x in (
+                o.v.re, o.v.im, o.i_branch.re, o.i_branch.im, o.i_load.re,
+                o.i_load.im, o.iterations, o.converged)]
+            times[f"{key}_{mode}"] = cs.queued_events_ms(torch, fn, 7)
+        saved = lk.ladder_dense(s, v0, op, cs.LADDER_EPS, 20, True,
+                                save=True).saved
+        rng = np.random.default_rng(5)
+        gs = [C(torch.tensor(rng.normal(size=(lanes, f.n_branches, 3)),
+                             dtype=dtype, device=dev),
+                torch.tensor(rng.normal(size=(lanes, f.n_branches, 3)),
+                             dtype=dtype, device=dev)) for _ in range(3)]
+
+        def back():
+            return lk.ladder_dense_vjp(saved, s, op, *gs)
+        sbar, v0bar = back()
+        outs[f"{key}_reverse"] = [x.cpu() for x in (sbar.re, sbar.im,
+                                                    v0bar.re, v0bar.im)]
+        times[f"{key}_reverse"] = cs.queued_events_ms(torch, back, 7)
+    return times, outs
+
+
 def assemble_fns(torch, sk, x, ps, qs, op) -> dict:
     """S1's modes as ``KERNELS`` names them, each a call returning its
     outputs (``values_f32`` only for float64); the stand-ins of a checkout
@@ -419,6 +476,8 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
             torch, cs, data["solvers"], dev)
     if "ladder" in sections:
         times["ladder"], outs["ladder"] = measure_ladder(torch, cs, dev)
+    if "dense" in sections:
+        times["dense"], outs["dense"] = measure_dense(torch, cs, dev)
     if "delta" in sections:
         times["delta"], outs["delta"] = measure_delta(torch, cs, sys_,
                                                       data["delta"], dev)
@@ -603,6 +662,26 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
                  f"checkout's (iterations {outs[6].tolist()[:4]} vs "
                  f"{other[6].tolist()[:4]})")
         errs[f"ladder_{key}_max_abs"] = d
+    for key, outs in a.get("dense", {}).items():
+        other = b["dense"][key]
+        f32 = "float32" in key
+        if key.endswith("_reverse"):
+            top = max(float(y.abs().max()) for y in other)
+            d = max(float((x - y).abs().max()) for x, y in zip(outs, other))
+            rtol = DENSE_F32_RTOL if f32 else cs.GRAD_RTOL
+            cs.check(d <= rtol * top, f"{label}: L3 {key} cotangents {d:.3e} "
+                     f"from this checkout's (largest {top:.3e})")
+            errs[f"ladder_dense_{key}_max_rel"] = d / max(top, 1e-300)
+            continue
+        tol = cs.LADDER_ATOL["float32" if f32 else "float64"]
+        conv = outs[7] & other[7]
+        d = max(float((x - y)[conv].abs().max()) if bool(conv.any()) else 0.0
+                for x, y in zip(outs[:6], other[:6]))
+        cs.check(d <= tol and (f32 or torch.equal(outs[6], other[6])),
+                 f"{label}: L3 {key} outputs {d:.3e} from this checkout's "
+                 f"(iterations {outs[6].tolist()[:4]} vs "
+                 f"{other[6].tolist()[:4]})")
+        errs[f"ladder_dense_{key}_max_abs"] = d
     for key, (ta, va, sa) in a.get("delta", {}).items():
         tb, vb, sb = b["delta"][key]
         d = max(float((ta - tb).abs().max()), float((va - vb).abs().max()))
@@ -647,7 +726,8 @@ def main() -> int:
                     help="comma-separated: sparse (S1-S4, K3 and the "
                          "solves), delta (the delta program), newton (K1 "
                          "and K2), solvers (I1, F1's tile mode and warp "
-                         "form, K2's per-lane form), ladder (L1)")
+                         "form, K2's per-lane form), ladder (L1), dense "
+                         "(L3)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
@@ -681,7 +761,9 @@ def main() -> int:
                         "mesh2000 x {1, 8} lanes; I1 the CIM feeder x 64; "
                         "F1 tile mode mesh118 x 1024, warp form mesh2000 x "
                         "1; K2 per-lane mesh118 x 118; L1 radial10k x "
-                        "{1, 64} f64/f32, vvc_9bus x 64, 20 iterations",
+                        "{1, 64} f64/f32, vvc_9bus x 64, 20 iterations; "
+                        "L3 radial2048 x 64 f64/f32, vvc_9bus x 64, 20 "
+                        "iterations, fixed, solve and reverse",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
@@ -720,6 +802,9 @@ def main() -> int:
                           f"ms", flush=True)
                 for key, dev in times.get("ladder", {}).items():
                     print(f"ab {other.name} ladder_solve {key:<28} {which:<5}"
+                          f" device (queued events) {dev:.4f} ms", flush=True)
+                for key, dev in times.get("dense", {}).items():
+                    print(f"ab {other.name} ladder_dense {key:<34} {which:<5}"
                           f" device (queued events) {dev:.4f} ms", flush=True)
                 for name in DTYPES:
                     for kern in KERNELS:

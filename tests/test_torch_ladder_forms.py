@@ -19,7 +19,14 @@ cotangent of every ladder reverse mode, against the JAX package.
 - ``solve_fixed`` takes ``LadderFixed`` when only ``v_source_pu`` requires
   a gradient;
 - the doubling tables: the jump chain equal to the reference's, and the
-  preimage lists a gather-sum with ``index_add``'s bits on random trees.
+  preimage lists a gather-sum with ``index_add``'s bits on random trees;
+- L3's tables (numpy only): the nonzero blocks of the subtree matrix and
+  its transpose cover every nonzero and list no zero block (vvc_9bus,
+  synthetic_radial(2048), a random forest), the preorder permutation
+  goes in and back out unchanged, the route is a function of ``(nb,
+  dtype)`` with its cap, the slice plan a function of the matrix alone,
+  and the block products over the plan, added in slice order, give the
+  dense product.
 
 The ``cuda``-marked checks of the kernels are in
 ``tests/test_torch_ladder_forms_cuda.py``.
@@ -361,3 +368,171 @@ def test_forms_refuse_other_operands():
         cases.default_z_codes(1))
     assert lk._form(lk.doubling_operands(f, F64, CPU))[0] is lk.ladder_doubling
     assert lk._form(lk.dense_operands(f, F64, CPU))[0] is lk.ladder_dense
+
+
+def _subtree_of(parent):
+    """The 0/1 subtree matrix of a forest in the caller's order: ``S[i,
+    j] = 1`` iff branch ``j`` lies in branch ``i``'s subtree."""
+    nb = parent.shape[0]
+    sub = np.eye(nb, dtype=bool)
+    for j in range(nb):
+        i = parent[j]
+        while i >= 0:
+            sub[i, j] = True
+            i = parent[i]
+    return sub
+
+
+def _dense_from_blocks(ptr, kb, data, nb):
+    rows, cols = lk.DENSE_BLOCK_ROWS, lk.DENSE_BLOCK_K
+    tiles, kbs = len(ptr) - 1, -(-nb // cols)
+    out = np.zeros((tiles * rows, kbs * cols), np.uint8)
+    for r in range(tiles):
+        for n in range(ptr[r], ptr[r + 1]):
+            out[r * rows:(r + 1) * rows, kb[n] * cols:(kb[n] + 1) * cols] = \
+                data[n]
+    return out[:nb, :nb]
+
+
+def _dense_matrices():
+    rng = np.random.default_rng(7)
+    parent, _ = _random_tree(rng, 300)
+    return {"9bus": cases.vvc_9bus().subtree != 0,
+            "radial2048": cases.synthetic_radial(2048, seed=0).subtree != 0,
+            "forest300": _subtree_of(parent)}
+
+
+@pytest.mark.parametrize("name", ["9bus", "radial2048", "forest300"])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_dense_blocks_cover_every_nonzero(name, transpose):
+    m = _dense_matrices()[name]
+    m = m.T if transpose else m
+    ptr, kb, data = lk.nonzero_blocks(m)
+    nb = m.shape[0]
+    assert ptr[0] == 0 and ptr[-1] == kb.shape[0] == data.shape[0]
+    assert len(ptr) - 1 == -(-nb // lk.DENSE_BLOCK_ROWS)
+    # every nonzero once, nothing else; no block all zero
+    np.testing.assert_array_equal(_dense_from_blocks(ptr, kb, data, nb),
+                                  m.astype(np.uint8))
+    assert bool(data.reshape(data.shape[0], -1).any(axis=1).all())
+    assert set(np.unique(data)) <= {0, 1}
+    for r in range(len(ptr) - 1):
+        assert np.all(np.diff(kb[ptr[r]:ptr[r + 1]]) > 0)
+
+
+def test_dense_blocks_in_preorder_count_as_measured():
+    """At synthetic_radial(2048) the preorder keeps 452 of S's 4096
+    blocks of 64 × 16 and 264 of Sᵀ's (the caller's order: 1111)."""
+    f = cases.synthetic_radial(2048, seed=0, load_kw=1.0)
+    op = lk.dense_operands(f, F64, CPU)
+    assert lk.dense_plan(f.n_branches, F64).route == "tiled"
+    assert (op.s_blocks.kb.shape[0], op.t_blocks.kb.shape[0]) == (452, 264)
+    assert lk.nonzero_blocks(f.subtree != 0)[1].shape[0] == 1111
+
+
+@pytest.mark.parametrize("name", ["rand200", "radial2048"])
+def test_dense_preorder_round_trip(name):
+    f = (cases.synthetic_radial(2048, seed=0, load_kw=1.0)
+         if name == "radial2048" else FEEDERS[name](cases))
+    _, perm = f.reorder_preorder()
+    order = np.asarray(perm)
+    assert sorted(order.tolist()) == list(range(f.n_branches))
+    x = np.random.default_rng(1).normal(size=(2, f.n_branches, 6))
+    pre = x[:, order]
+    back = np.empty_like(pre)
+    back[:, order] = pre
+    np.testing.assert_array_equal(back, x)
+    # in preorder every row of S is one interval [i, tout_i)
+    sub = (f.subtree != 0)[np.ix_(order, order)]
+    for i in range(f.n_branches):
+        cols = np.flatnonzero(sub[i])
+        assert cols[0] == i and np.all(np.diff(cols) == 1)
+    if name == "radial2048":
+        op = lk.dense_operands(f, F64, CPU)
+        np.testing.assert_array_equal(op.order.numpy(), order)
+        np.testing.assert_array_equal(op.pmask.numpy(),
+                                      np.asarray(f.phase_mask)[order])
+        np.testing.assert_array_equal(op.pz_re.numpy(),
+                                      np.asarray(f.z_pu).real[order])
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_dense_route_plan_depends_on_nb_and_dtype(dtype):
+    cap = lk.dense_cta_capacity(dtype)
+    assert cap == {F64: 642, torch.float32: 781}[dtype]
+    for nb in (1, 8, cap):
+        assert lk.dense_plan(nb, dtype).route == "cta"
+        assert lk.dense_plan(nb, dtype).smem <= lk.DENSE_CTA_SMEM_CAP
+    for nb in (cap + 1, 2048):
+        assert lk.dense_plan(nb, dtype).route == "tiled"
+    assert lk.dense_plan(cap, dtype) == lk.dense_plan(cap, dtype)
+    assert lk.dense_plan(cap + 1, dtype) == lk.dense_plan(cap + 1, dtype)
+    for above in (0, 1):
+        f = cases.synthetic_radial(cap + above, seed=4, load_kw=1.0)
+        op = lk.dense_operands(f, dtype, CPU)
+        if above:
+            assert op.bits is None and op.s_blocks is not None
+        else:
+            assert op.order is None
+            np.testing.assert_array_equal(
+                np.unpackbits(op.bits.numpy().view(np.uint8), axis=1,
+                              bitorder="little")[:, :f.n_branches],
+                (f.subtree != 0).astype(np.uint8))
+    with pytest.raises(ValueError, match="at least one branch"):
+        lk.dense_plan(0, dtype)
+
+
+def test_dense_slice_plan_is_a_function_of_s_alone():
+    f = cases.synthetic_radial(2048, seed=0, load_kw=1.0)
+    op64, op32 = (lk.dense_operands(f, dt, CPU)
+                  for dt in (F64, torch.float32))
+    for a, b in ((op64.s_blocks, op32.s_blocks), (op64.t_blocks,
+                                                  op32.t_blocks)):
+        assert torch.equal(a.plan, b.plan) and a.slots == b.slots
+    ptr, _, _ = lk.nonzero_blocks((f.subtree != 0))
+    plan, slots = lk.slice_plan(ptr)
+    again, slots2 = lk.slice_plan(ptr.copy())
+    np.testing.assert_array_equal(plan, again)
+    assert slots == slots2
+    for r in range(len(ptr) - 1):
+        rows = plan[plan[:, 0] == r]
+        n = int(ptr[r + 1] - ptr[r])
+        assert rows[:, 2].sum() == n and rows[0, 1] == ptr[r]
+        assert np.all(rows[:, 2] <= lk.DENSE_SLICE_BLOCKS)
+        assert rows[:, 2].max() - rows[:, 2].min() <= 1
+        np.testing.assert_array_equal(rows[:, 3], np.arange(len(rows)))
+        assert np.all(rows[:, 4] == len(rows))
+        np.testing.assert_array_equal(rows[1:, 1], rows[:-1, 1] + rows[:-1, 2])
+        if len(rows) > 1:
+            np.testing.assert_array_equal(np.diff(rows[:, 5]), 1)
+        else:
+            assert rows[0, 5] == -1
+    used = plan[plan[:, 5] >= 0, 5]
+    assert sorted(used.tolist()) == list(range(slots))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_dense_block_products_give_the_dense_product(transpose):
+    """The tiled route's arithmetic on the CPU: each slice's blocks times
+    the right-hand side's K rows, the slices of a tile added in slice
+    order, equal the preorder matrix's dense product."""
+    f = cases.synthetic_radial(2048, seed=0, load_kw=1.0)
+    op = lk.dense_operands(f, F64, CPU)
+    m = op.t_blocks if transpose else op.s_blocks
+    order = op.order.numpy()
+    pre = (f.subtree != 0)[np.ix_(order, order)]
+    pre = pre.T if transpose else pre
+    x = np.random.default_rng(2).normal(size=(f.n_branches, 6 * 3))
+    rows, cols = lk.DENSE_BLOCK_ROWS, lk.DENSE_BLOCK_K
+    tiles = -(-f.n_branches // rows)
+    xp = np.zeros((-(-f.n_branches // cols) * cols, x.shape[1]))
+    xp[:f.n_branches] = x
+    data, kb = m.data.numpy().astype(np.float64), m.kb.numpy()
+    out = np.zeros((tiles * rows, x.shape[1]))
+    for tile, first, count, _, _, _ in m.plan.numpy():
+        part = np.zeros((rows, x.shape[1]))
+        for n in range(first, first + count):
+            part += data[n] @ xp[kb[n] * cols:(kb[n] + 1) * cols]
+        out[tile * rows:(tile + 1) * rows] += part
+    np.testing.assert_allclose(out[:f.n_branches], pre.astype(np.float64) @ x,
+                               rtol=0, atol=1e-11)

@@ -8,10 +8,13 @@ lane's flag is held only where its residual lies more than
 ``F32_FLAG_ULPS`` float32 ulps of the root current from eps); a lane's
 bits the same in launches of 1 and 64 lanes and on repeat; each form's
 gradient in the loads and in ``v_source_pu`` against ``torch.autograd``
-of its plain fixed solve (rtol ``GRAD_RTOL``).  Every test needs a CUDA
-card and skips without one (``chip_smoke.py`` runs these checks at the
-full widths).  No JAX: the plain versions are held to the reference on
-the CPU by ``tests/test_torch_ladder_forms.py``."""
+of its plain fixed solve (rtol ``GRAD_RTOL``).  L3 runs both of its
+routes here (``lk.dense_plan``): the CTA route on vvc_9bus, radial300 and
+the dead-phase feeder, the tiled route on radial2048, and a feeder at
+the CTA route's capacity and one branch above it in each dtype.  Every
+test needs a CUDA card and skips without one (``chip_smoke.py`` runs
+these checks at the full widths).  No JAX: the plain versions are held
+to the reference on the CPU by ``tests/test_torch_ladder_forms.py``."""
 
 import numpy as np
 import pytest
@@ -28,12 +31,18 @@ EPS = 1e-4
 F32_FLAG_ULPS = 64
 GRAD_RTOL = 1e-8
 MAX_ITER = 20  # make_ladder_solver's default
-#: Kernel launches a solve and a reverse mode of each form: L3 issues its
-#: initial state and two products an iteration (a reverse mode: its
-#: initial state, three launches an iteration and the last sum), L4 one.
-FORWARD_LAUNCHES = {"dense": 1 + 2 * MAX_ITER, "doubling": 1}
-REVERSE_LAUNCHES = {"dense": 2 + 3 * MAX_ITER, "doubling": 1}
 FIELDS = ("v_node", "i_branch", "i_load")
+
+
+def launches_of(form, f, dtype=F64):
+    """Kernel launches of a solve and of a reverse mode: L3's tiled route
+    issues its initial state, two products an iteration and its outputs
+    out of preorder (a reverse mode likewise, the source phasors' sum in
+    its last launch), its CTA route and L4 one each."""
+    tiled = lk.dense_plan(f.n_branches, dtype).route == "tiled"
+    if form == "dense" and tiled:
+        return 2 + 2 * MAX_ITER, 2 + 2 * MAX_ITER
+    return 1, 1
 
 
 @pytest.fixture
@@ -97,15 +106,16 @@ def test_form_matches_plain_on_card(cuda_device, form, dtype, name):
     plain = make_ladder_solver(f, dtype=dtype, sweep_method=form,
                                device=cuda_device, plain=True)
     key = "ladder_" + form
+    forward, _ = launches_of(form, f, dtype)
     for mode in (0, 1):
         lk.reset_launches()
         got, again = kernel[mode](loads, vs), kernel[mode](loads, vs)
-        assert lk.launches()[key] == 2 * FORWARD_LAUNCHES[form]
-        assert lk.mode_launches()[key] == {
-            "forward": 2 * FORWARD_LAUNCHES[form], "reverse": 0}
+        assert lk.launches()[key] == 2 * forward
+        assert lk.mode_launches()[key] == {"forward": 2 * forward,
+                                           "reverse": 0}
         want = plain[mode](loads, vs)
         # the plain version launches nothing
-        assert lk.launches()[key] == 2 * FORWARD_LAUNCHES[form]
+        assert lk.launches()[key] == 2 * forward
         torch.cuda.synchronize()
         assert same_bits(got, again)
         clear = torch.ones_like(want.converged)
@@ -133,6 +143,21 @@ def test_a_lane_is_the_same_bits_in_launches_of_1_and_64(cuda_device, form,
     loads = loads_of(f, 64, seed=3)
     solve = make_ladder_solver(f, sweep_method=form,
                                device=cuda_device)[int(fixed)]
+    _same_bits_at_1_and_64(solve, loads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("fixed", [True, False])
+def test_dense_cta_route_lane_bits_at_1_and_64(cuda_device, dtype, fixed):
+    f = FEEDERS["radial300"]()
+    assert lk.dense_plan(f.n_branches, dtype).route == "cta"
+    solve = make_ladder_solver(f, dtype=dtype, sweep_method="dense",
+                               device=cuda_device)[int(fixed)]
+    _same_bits_at_1_and_64(solve, loads_of(f, 64, seed=3))
+
+
+def _same_bits_at_1_and_64(solve, loads):
     wide = solve(loads)
     for k in (0, 17, 63):
         one = solve(loads[k:k + 1])
@@ -159,7 +184,19 @@ def grads(f, form, loads, vs, device, plain):
 @pytest.mark.parametrize("name", ["9bus", "radial300", "dead"])
 @pytest.mark.parametrize("form", ["dense", "doubling", "euler"])
 def test_reverse_modes_match_plain_on_card(cuda_device, form, name):
-    f = FEEDERS[name]()
+    _reverse_mode_matches_plain(FEEDERS[name](), form, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["radial2048", "above_cap"])
+def test_dense_tiled_reverse_mode_matches_plain_on_card(cuda_device, name):
+    f = (FEEDERS["radial2048"]() if name == "radial2048"
+         else cap_feeder(F64, 1))
+    assert lk.dense_plan(f.n_branches, F64).route == "tiled"
+    _reverse_mode_matches_plain(f, "dense", cuda_device)
+
+
+def _reverse_mode_matches_plain(f, form, cuda_device):
     loads = loads_of(f, 4, seed=1)
     vs = np.linspace(0.98, 1.04, 4)
     key = {"dense": "ladder_dense", "doubling": "ladder_doubling",
@@ -169,9 +206,9 @@ def test_reverse_modes_match_plain_on_card(cuda_device, form, name):
     if form == "euler":
         assert lk.launches()[key] == 1
     else:
-        assert lk.mode_launches()[key] == {
-            "forward": FORWARD_LAUNCHES[form],
-            "reverse": REVERSE_LAUNCHES[form]}
+        forward, reverse = launches_of(form, f)
+        assert lk.mode_launches()[key] == {"forward": forward,
+                                           "reverse": reverse}
     want = grads(f, form, loads, vs, cuda_device, plain=True)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -193,3 +230,38 @@ def test_source_only_gradient_on_card(cuda_device, form):
     vp = vs.detach().clone().requires_grad_(True)
     (want,) = torch.autograd.grad(total_loss_kw(f, plain(f.s_load, vp)), vp)
     np.testing.assert_allclose(float(g), float(want), rtol=GRAD_RTOL)
+
+
+def cap_feeder(dtype, above):
+    """A feeder of exactly L3's CTA-route capacity in ``dtype`` branches,
+    or one branch more (``above=1``), at 1 kW a load."""
+    return cases.synthetic_radial(lk.dense_cta_capacity(dtype) + above,
+                                  seed=4, load_kw=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("above", [0, 1])
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_dense_routes_at_the_cta_cap(cuda_device, dtype, above):
+    f = cap_feeder(dtype, above)
+    want_route = "tiled" if above else "cta"
+    assert lk.dense_plan(f.n_branches, dtype).route == want_route
+    loads = loads_of(f, 64, seed=2)
+    kernel = make_ladder_solver(f, dtype=dtype, sweep_method="dense",
+                                device=cuda_device)
+    plain = make_ladder_solver(f, dtype=dtype, sweep_method="dense",
+                               device=cuda_device, plain=True)
+    forward, _ = launches_of("dense", f, dtype)
+    for mode in (0, 1):
+        lk.reset_launches()
+        got = kernel[mode](loads)
+        assert lk.mode_launches()["ladder_dense"] == {"forward": forward,
+                                                      "reverse": 0}
+        want = plain[mode](loads)
+        torch.cuda.synchronize()
+        pick = got.converged & want.converged
+        assert bool(pick.all())
+        assert gap(got, want, pick) <= (ATOL if dtype == F64 else ATOL_F32)
+        if dtype == F64:
+            assert torch.equal(got.iterations, want.iterations)
+        assert same_bits(got, kernel[mode](loads))
