@@ -26,10 +26,12 @@ the VVC step (L1/L2) — through ``make_superstep``, ``lb.run_rounds``,
 ``gm.form_groups`` and ``topology.node_reachability``; and the reverse
 modes of the fixed solves — ``torch.autograd`` through ``solve_fixed`` of
 the Newton family (the residual VJP J2 and an adjoint solve at the last
-iterate), FDLF (J2 over the saved half-steps) and the CIM (I2); the
-ladder's dense and doubling sweep forms (L3, L4) with the source
-voltage's gradient through every ladder reverse mode; and the LB round
-past 2¹⁵ nodes on B1's WIDE form.
+iterate), FDLF (J2 over the saved half-steps) and the CIM (I2, every
+iteration of a backward in one launch); the ladder's dense and doubling
+sweep forms (L3, L4) with the source voltage's gradient through every
+ladder reverse mode; and the LB round past 2¹⁵ nodes on B1's WIDE key
+pairs, sorted on a thread-block cluster (form CLUSTER) up to its
+capacity and by one CTA above.
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. build: ten ``nvcc`` runs started together compile
@@ -323,14 +325,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    share;
 27. reverse modes (``reverse_phase``): (a) J2 ``residual_vjp`` in both
    modes, with and without status, at case14, case_ieee30, mesh118 and
-   mesh2000 × B ∈ {1, 3, 64}, and I2 ``cim_vjp`` on vvc_9bus with the
-   reference's ``TIE_5_8`` and the CIM feeder × 64, against their plain
-   versions (``KERNEL_ATOL`` of the largest entry above 1), each
-   bit-identical on repeat, J2 against J1 by ⟨w, J u⟩ = ⟨Jᵀ w, u⟩; their
-   times beside the plain versions, the bounds and the library rows (J2 at
-   mesh2000 × 256: ``torch.sparse.mm`` of the transposed S1-assembled
-   Jacobian; I2 at the CIM feeder × 64: the complex ``torch.matmul`` of
-   Aᴴ with the cotangents); (b) the reference's gradient gates on the card
+   mesh2000 × B ∈ {1, 3, 64}, and I2 ``cim_vjp`` (a call) on vvc_9bus
+   with the reference's ``TIE_5_8`` × 64 and the CIM feeder × {1, 3, 64,
+   65}, against their plain versions (``KERNEL_ATOL`` of the largest
+   entry above 1), each bit-identical on repeat, and I2's walk
+   (``cim_vjp_walk``) over 60 saved iterates at the CIM feeder × 64 and
+   vvc_9bus × 65 against the 60 chained plain calls, on repeat and bit
+   for bit against the 60 chained single calls; J2 against J1 by ⟨w, J u⟩
+   = ⟨Jᵀ w, u⟩; their times beside the plain versions, the bounds and the
+   library rows (J2 at mesh2000 × 256: ``torch.sparse.mm`` of the
+   transposed S1-assembled Jacobian; I2 at the CIM feeder × 64: the
+   complex ``torch.matmul`` of Aᴴ with the cotangents, and the walk's
+   time an iteration beside the 60 single calls in a row); (b) the
+   reference's gradient gates on the card
    against central differences (rtol 1e-4, atol 1e-8): dense Newton,
    krylov, the CIM, and FDLF at case_ieee30; (c) each ``solve_fixed``
    gradient at full width — dense ``bench_n1_118``, sparse mesh2000 × 64
@@ -340,12 +347,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    lanes (``UNROLLED_LANES`` of the sparse and krylov batches), route A
    within 1e-9, every entry finite; forward and backward ms, their ratio,
    the adjoint GMRES cycles, J2/I2 launches a backward and the saving
-   forward's peak memory;
-28. ladder forms and B1 WIDE (``forms_phase``): (a) L3 ``ladder_dense``
-   and L4 ``ladder_doubling`` through ``make_ladder_solver(sweep_method=
-   "dense" | "doubling")`` against their ``plain=True`` twins at vvc_9bus
-   (L3's CTA route) and ``synthetic_radial(2048, seed=0, load_kw=1.0)``
-   (L3's tiled route) and also
+   forward's peak memory (the CIM backward launches I2 once), and I2 a
+   call, an iteration in the walk and the library row on one line;
+28. ladder forms and B1 from 2¹⁵ nodes (``forms_phase``): (a) L3
+   ``ladder_dense`` and L4 ``ladder_doubling`` through
+   ``make_ladder_solver(sweep_method="dense" | "doubling")`` against
+   their ``plain=True`` twins at vvc_9bus (L3's CTA route) and
+   ``synthetic_radial(2048, seed=0, load_kw=1.0)`` (L3's tiled route) and
+   also
    ``synthetic_radial(10000, seed=0, load_kw=1.0)`` (L4) × 64 lanes ×
    {solve, solve_fixed} × {float64, float32} (``LADDER_ATOL``, flags and
    float64 iterations equal, L4 float64 bit for bit), bit-identical on
@@ -363,8 +372,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    each, with L3's ratio to each and to L1), and each reverse mode's
    cotangents
    at the timed shapes (× 64 too) against its plain version's (within
-   1e-8 of the largest); (d) B1 WIDE over 64 rounds of ``bench_lb_256``'s draw
-   at 2¹⁵ × 4 fleets, 40,961 × 1 and 2¹⁶ × 1 bit for bit, ``lb.run_rounds``
+   1e-8 of the largest); (d) B1 over 64 rounds of ``bench_lb_256``'s draw
+   at 2¹⁵ × 4 fleets, 40,961 × 1 and 2¹⁶ × 1 (form CLUSTER) and over 2
+   rounds on one fleet of 2¹⁸ nodes (the first power of two above the
+   cluster capacity: the one-CTA WIDE form) bit for bit, each shape's form
+   and times beside its plain version's, the sort alone (64 stable
+   ``torch.sort`` of a round's high key words at 2¹⁶), ``lb.run_rounds``
    and ``lb.lb_round(..., gid=...)`` at 2¹⁵ from a block-diagonal mask of
    512-node groups, and B1's packed form at 2¹⁵ − 1; (e) L3's and L4's main
    paths (a solve, ``solve_fixed`` and its backward: the kernel table's
@@ -386,8 +399,9 @@ on the served paths; Y1-I1 their other shapes and modes, the float32
 gaps and the path of their launches, F1 the numbers of phase 22; G1, R1
 and B1 their other shapes, device times, G1's and R1's float32 squarings
 as a library composite, their launches in phase 25 (d) and the
-superstep's split, B1 its WIDE rows of phase 28 (d); J2 and I2 their
-backward rows of phase 27 (c); L3 and L4 their other shapes beside L1);
+superstep's split, B1 its rows from 2¹⁵ nodes of phase 28 (d) and the
+sort alone; J2 and I2 their backward rows of phase 27 (c), I2 its walk's
+times; L3 and L4 their other shapes beside L1);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -6659,12 +6673,43 @@ def tie_5_8():
     return (5, 8, Z_CODES_9BUS[0] / (1000.0 * 12.47**2 / 1000.0))
 
 
+#: I2's lane counts at the CIM feeder in phase 27 (a): 3 and 65 give
+#: ragged lane tiles.
+I2_LANES = (1, 3, CIM_LANES, CIM_LANES + 1)
+#: The iterations a CIM backward walks in phase 27 (the (c) solver's).
+CIM_WALK_STEPS = 60
+
+
+def cim_walk_inputs(torch, sol, f, ties, lanes, steps, dev, seed=27):
+    """I2's walk operands at ``lanes`` lanes of feeder ``f``: ``(h, g, vs,
+    s, mask)`` — the staged Aᴴ, a seeded masked cotangent, the iterates
+    ``vs [steps + 1, 2, B, N]`` of ``steps`` fixed CIM iterations from the
+    no-load profile at :func:`cim_loads`' loads (I1's plain version, saved
+    as ``CimFixed`` saves them), the loads and the phase mask."""
+    ops = _cim_operands(torch, f, ties, cim_loads(f, lanes), dev)
+    a_re, a_im, _, _, s_re, s_im, vb_re, vb_im, mask = ops[:9]
+    big_n = int(mask.shape[0])
+    vs = torch.empty(steps + 1, 2, lanes, big_n, dtype=torch.float64,
+                     device=dev)
+    vs[0, 0], vs[0, 1] = vb_re, vb_im
+    for k in range(steps):
+        vs[k + 1, 0], vs[k + 1, 1] = sol.cim_iterate_plain(
+            a_re, a_im, vs[k, 0], vs[k, 1], *ops[4:])
+    rng = np.random.default_rng(seed)
+    g = tuple(torch.as_tensor(rng.normal(size=(lanes, big_n)), device=dev)
+              * mask for _ in range(2))
+    return sol.cim_adjoint_matrix(a_re, a_im), g, vs, (s_re, s_im), mask
+
+
 def compare_reverse_kernels(torch, sol, errs):
     """J2 in both modes, with and without status, at ``REVERSE_CASES`` ×
-    ``REVERSE_LANES`` and I2 on vvc_9bus (:func:`tie_5_8`) and the CIM feeder ×
-    64 against their plain versions (``KERNEL_ATOL`` of the largest entry
-    above 1), each bit-identical on repeat; J2's MASKED mode also against
-    J1 by ``⟨w, J u⟩ = ⟨Jᵀ w, u⟩``."""
+    ``REVERSE_LANES`` and I2 on vvc_9bus (:func:`tie_5_8`) × 64 and the CIM
+    feeder × ``I2_LANES`` against their plain versions (``KERNEL_ATOL`` of
+    the largest entry above 1), each bit-identical on repeat; I2's walk
+    over ``CIM_WALK_STEPS`` saved iterates (:func:`cim_walk_inputs`) at the
+    CIM feeder × 64 and vvc_9bus × 65 against the chained plain calls and
+    bit for bit against the chained single calls of its kernel; J2's
+    MASKED mode also against J1 by ``⟨w, J u⟩ = ⟨Jᵀ w, u⟩``."""
     from freedm_tpu_torch.grid.cases import vvc_9bus
     from freedm_tpu_torch.pf.cim import assemble_yabc
     from freedm_tpu_torch.pf.sparse import sparse_operands
@@ -6712,40 +6757,73 @@ def compare_reverse_kernels(torch, sol, errs):
                               f"{gap:.3e} relative")
                         dot_gap = max(dot_gap, gap)
     f9 = vvc_9bus()
-    for f, ties, label in ((f9, [tie_5_8()], "vvc_9bus+tie"),
-                           (*cim_feeder(), "radial1000+ties")):
+    for f, ties, label, lane_counts in (
+            (f9, [tie_5_8()], "vvc_9bus+tie", (CIM_LANES,)),
+            (*cim_feeder(), "radial1000+ties", I2_LANES)):
         y, mask_np = assemble_yabc(f, ties)
         a_inv = np.linalg.inv(y[3:, 3:])
         mask = mask_np[1:].reshape(-1)
         big_n = 3 * f.n_branches
         h = sol.cim_adjoint_matrix(torch.as_tensor(a_inv.real, device=dev),
                                    torch.as_tensor(a_inv.imag, device=dev))
-        rng = np.random.default_rng(27)
-
-        def lane_c(loc, scale):
-            z = (rng.normal(loc, scale, (CIM_LANES, big_n))
-                 + 1j * rng.normal(0.0, scale, (CIM_LANES, big_n))) * mask
-            return (torch.as_tensor(z.real.copy(), device=dev),
-                    torch.as_tensor(z.imag.copy(), device=dev))
-
-        g, v, s = lane_c(0.0, 1.0), lane_c(1.0, 0.05), lane_c(0.0, 0.3)
         mk = torch.as_tensor(mask, device=dev)
-        outs = []
-        for fn in (sol.cim_vjp, sol.cim_vjp_plain, sol.cim_vjp):
-            acc = [torch.full_like(v[0], 0.5) for _ in range(4)]
-            outs.append((*fn(*h, *g, *v, *s, mk, *acc), *acc))
-        for k, p, again in zip(*outs):
+        for lanes in lane_counts:
+            rng = np.random.default_rng(27)
+
+            def lane_c(loc, scale):
+                z = (rng.normal(loc, scale, (lanes, big_n))
+                     + 1j * rng.normal(0.0, scale, (lanes, big_n))) * mask
+                return (torch.as_tensor(z.real.copy(), device=dev),
+                        torch.as_tensor(z.imag.copy(), device=dev))
+
+            g, v, s = lane_c(0.0, 1.0), lane_c(1.0, 0.05), lane_c(0.0, 0.3)
+            outs = []
+            for fn in (sol.cim_vjp, sol.cim_vjp_plain, sol.cim_vjp):
+                acc = [torch.full_like(v[0], 0.5) for _ in range(4)]
+                outs.append((*fn(*h, *g, *v, *s, mk, *acc), *acc))
+            for k, p, again in zip(*outs):
+                e = max_err(k, p) / max(1.0, float(p.abs().max()))
+                check(e <= KERNEL_ATOL, f"I2 {label} x{lanes}: {e:.3e} "
+                      f"from its plain version")
+                check(same_bits(torch, k, again),
+                      f"I2 {label} x{lanes}: not bit-identical on repeat")
+                worst["cim_vjp"] = max(worst["cim_vjp"], e)
+    walk = {}
+    for f, ties, label, lanes in (
+            (f9, [tie_5_8()], "vvc_9bus+tie", CIM_LANES + 1),
+            (*cim_feeder(), "radial1000+ties", CIM_LANES)):
+        h, g, vs, s, mask = cim_walk_inputs(torch, sol, f, ties, lanes,
+                                            CIM_WALK_STEPS, dev)
+        args = (*h, *g, vs, *s, mask, CIM_WALK_STEPS)
+        got, again = sol.cim_vjp_walk(*args), sol.cim_vjp_walk(*args)
+        want = sol.cim_vjp_walk_plain(*args)
+        # The same steps as single calls of the kernel: the same bits.
+        chain = [torch.zeros_like(s[0]), torch.zeros_like(s[0]),
+                 g[0].clone(), g[1].clone()]
+        gk = g
+        for k in reversed(range(CIM_WALK_STEPS)):
+            gk = sol.cim_vjp(*h, *gk, vs[k, 0], vs[k, 1], *s, mask, *chain)
+        tag = f"I2 walk {label} x{lanes} x{CIM_WALK_STEPS} steps"
+        for k, p, a2, c in zip(got, want, again, chain):
             e = max_err(k, p) / max(1.0, float(p.abs().max()))
-            check(e <= KERNEL_ATOL, f"I2 {label} x{CIM_LANES}: {e:.3e} from "
-                  f"its plain version")
-            check(same_bits(torch, k, again),
-                  f"I2 {label}: not bit-identical on repeat")
+            check(e <= KERNEL_ATOL, f"{tag}: {e:.3e} from the chained plain "
+                  f"calls")
+            check(same_bits(torch, k, a2), f"{tag}: not bit-identical on "
+                  f"repeat")
+            check(same_bits(torch, k, c), f"{tag}: not the bits of "
+                  f"{CIM_WALK_STEPS} chained single calls")
             worst["cim_vjp"] = max(worst["cim_vjp"], e)
+            walk[label] = max(walk.get(label, 0.0), e)
     for name, e in worst.items():
         errs[name] = max(errs[name], e)
     log(f"reverse kernels: residual_vjp {worst['residual_vjp']:.2e}, cim_vjp "
         f"{worst['cim_vjp']:.2e} (max abs from the plain versions relative "
-        f"to the largest entry above 1); <w, J1 u> = <J2 w, u> within "
+        f"to the largest entry above 1; I2 a call at the CIM feeder x "
+        f"{list(I2_LANES)} and vvc_9bus+tie x{CIM_LANES}; the walk over "
+        f"{CIM_WALK_STEPS} steps "
+        + ", ".join(f"{k} {v:.2e}" for k, v in walk.items())
+        + f" from the chained plain calls and the bits of the chained "
+        f"kernel calls); <w, J1 u> = <J2 w, u> within "
         f"{dot_gap:.2e}; each bit-identical on repeat "
         f"({time.monotonic() - t0:.1f} s)")
 
@@ -6838,19 +6916,44 @@ def time_reverse_kernels(torch, sol, rows, extra):
     hc = torch.complex(h[0], h[1])
     gc = torch.complex(args[2], args[3]).T.contiguous()
     lib2 = time_ms(torch, lambda: torch.matmul(hc, gc), reps=20)
+    lib2_dev = queued_events_ms(torch, lambda: torch.matmul(hc, gc), 20)
     b_i2 = 8 * (2 * big_n * big_n + CIM_LANES * big_n * 16 + big_n)
     o_i2 = 8 * CIM_LANES * big_n * big_n
     b2, by2 = bound(b_i2, o_i2, tensor=True)
+    del hc, gc
+    # The walk over a backward's saved iterates, beside the same steps as
+    # single calls in a row (one launch each, as before the walk).
+    hw, gw, vs, sw, mw = cim_walk_inputs(torch, sol, f, ties, CIM_LANES,
+                                         CIM_WALK_STEPS, dev)
+    walk = queued_events_ms(torch, lambda: sol.cim_vjp_walk(
+        *hw, *gw, vs, *sw, mw, CIM_WALK_STEPS), 10)
+    acc = [torch.zeros_like(sw[0]) for _ in range(4)]
+
+    def chained():
+        gk = gw
+        for k in reversed(range(CIM_WALK_STEPS)):
+            gk = sol.cim_vjp(*hw, *gk, vs[k, 0], vs[k, 1], *sw, mw, *acc)
+
+    chain = queued_events_ms(torch, chained, 5)
+    del hw, gw, vs, sw, mw, acc
     rows["cim_vjp"] = (k2, p2, lib2, b2, by2)
     extra["cim_vjp"] = {
         "device_ms": k2_dev, "device_ms_source": "queued events",
         "shape": f"synthetic_radial(1000) + {CIM_TIES} ties x {CIM_LANES}",
         "library": "complex128 torch.matmul of A^H with the lanes' "
                    "cotangents alone",
-        "bound_ms_bytes": b_i2 / PEAK_BYTES * 1e3}
+        "library_device_ms": lib2_dev,
+        "bound_ms_bytes": b_i2 / PEAK_BYTES * 1e3,
+        "walk_steps": CIM_WALK_STEPS, "walk_device_ms": walk,
+        "walk_device_ms_an_iteration": walk / CIM_WALK_STEPS,
+        "chained_calls_device_ms": chain,
+        "walk_plan": sol.cim_walk_plan(big_n, CIM_LANES)._asdict()}
     log(f"timing: cim_vjp radial1000+ties x{CIM_LANES} kernel {k2:.4f} ms "
         f"(device {k2_dev:.4f}, queued events)  plain {p2:.4f} ms  bound "
-        f"{b2:.4f} ms ({by2})  library complex matmul {lib2:.4f} ms "
+        f"{b2:.4f} ms ({by2})  library complex matmul {lib2:.4f} ms (device "
+        f"{lib2_dev:.4f}); the walk over {CIM_WALK_STEPS} iterations device "
+        f"{walk:.4f} ms = {walk / CIM_WALK_STEPS:.4f} ms an iteration, "
+        f"{CIM_WALK_STEPS} single calls in a row {chain:.4f} ms "
         f"({time.monotonic() - t0:.1f} s timings)")
 
 
@@ -7173,6 +7276,14 @@ def reverse_phase(torch, sol, errs, rows, extra):
         backward=full)
     extra["cim_vjp"].update(launches_path=f"reverse phase (c): the {cim} "
                             "backward", backward=full[cim])
+    check(counts[cim] == 1, f"{cim}: I2 launched {counts[cim]} times a "
+          f"backward, not once")
+    i2 = extra["cim_vjp"]
+    log(f"reverse (c) I2: a call {i2['device_ms']:.4f} ms, an iteration in "
+        f"the walk {i2['walk_device_ms_an_iteration']:.4f} ms (queued "
+        f"events), {counts[cim]} launch a backward, the library row "
+        f"{i2['library_device_ms']:.4f} ms; the {cim} backward/forward "
+        f"{full[cim]['ratio']:.2f}")
     log(f"reverse: phase 27 {time.monotonic() - t27:.1f} s")
     return {"residual_vjp": counts[krylov], "cim_vjp": counts[cim]}
 
@@ -7191,6 +7302,9 @@ FORM_CASES = {"dense": ("vvc_9bus", "radial2048"),
               "doubling": ("vvc_9bus", "radial2048", "radial10k")}
 WIDE_ROUNDS = 64
 WIDE_SHAPES = ((1 << 15, 4), (40961, 1), (1 << 16, 1))
+#: One fleet of the first power of two above B1's cluster capacity, over
+#: two rounds: the one-CTA device-memory form (WIDE).
+WIDE_ABOVE_ROUNDS = 2
 WIDE_GROUP = 512
 
 
@@ -7695,10 +7809,25 @@ def wide_inputs(torch, n, fleets, dev):
     return ng, gw, gid
 
 
+def round_high_words(torch, ng):
+    """The 64-bit high words of a WIDE round's sort keys (group id 0 |
+    class | ~bits(float32 |imbalance|)) at a zero gateway, step 1, as
+    int64: a stable sort of them gives the key pairs' order, the low word
+    being the node index."""
+    imb = ng.to(torch.float32)
+    cls = torch.where(imb >= 1.0, 0, torch.where(imb <= -1.0, 1, 2))
+    bits = imb.abs().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    kb = torch.where(cls < 2, 0xFFFFFFFF - bits, torch.zeros_like(bits))
+    return (cls.to(torch.int64) << 32) | kb
+
+
 def wide_phase(torch, dk, extra, dev="cuda", shapes=WIDE_SHAPES,
                entry_nodes=1 << 15):
-    """(d) B1's WIDE form against its plain version bit for bit (and on
-    repeat) over ``WIDE_ROUNDS`` rounds at ``WIDE_SHAPES``, and its times;
+    """(d) B1 from 2¹⁵ nodes against its plain version bit for bit (and on
+    repeat): its CLUSTER form over ``WIDE_ROUNDS`` rounds at
+    ``WIDE_SHAPES``, its one-CTA WIDE form on one fleet of the first power
+    of two above the cluster capacity over ``WIDE_ABOVE_ROUNDS``; their
+    times, and the sort alone (:func:`round_high_words`) as a yardstick;
     then ``lb.run_rounds`` and ``lb.lb_round(..., gid=...)`` at 2¹⁵ nodes
     from a block-diagonal mask of ``WIDE_GROUP``-node groups built on the
     card (the GM → LB hand-off: ``lb.group_ids``), counts set to 0 before
@@ -7709,31 +7838,46 @@ def wide_phase(torch, dk, extra, dev="cuda", shapes=WIDE_SHAPES,
     t0 = time.monotonic()
     timed = {}
     on_card = dev == "cuda"
-    for n, fleets in shapes:
+    above = 2 * dk.lb_cluster_capacity(4)
+    for n, fleets, rounds in ([(n, f, WIDE_ROUNDS) for n, f in shapes]
+                              + [(above, 1, WIDE_ABOVE_ROUNDS)]):
         ng, gw, gid = wide_inputs(torch, n, fleets, dev)
-        check(dk.lb_form(n, 4) == dk.WIDE, f"B1 at n={n}: form "
-              f"{dk.lb_form(n, 4)}")
-        call = lambda: dk.lb_rounds(ng, gw, gid, 1.0, WIDE_ROUNDS)  # noqa: E731
+        form = dk.lb_form(n, 4)
+        check(form == (dk.WIDE if n > dk.lb_cluster_capacity(4)
+                       else dk.CLUSTER), f"B1 at n={n}: form {form}")
+        call = lambda: dk.lb_rounds(ng, gw, gid, 1.0, rounds)  # noqa: E731
         got, again = call(), call()
-        want = dk.lb_rounds_plain(ng, gw, gid, 1.0, WIDE_ROUNDS)
+        want = dk.lb_rounds_plain(ng, gw, gid, 1.0, rounds)
         sync(torch, dev)
         check(same_fields(torch, got, want) and same_fields(torch, got, again),
-              f"B1 WIDE n={n} x{fleets}: not its plain version's bits")
-        row = {"migrations_first_last": [int(got.migrations[0, 0]),
+              f"B1 {form} n={n} x{fleets}: not its plain version's bits")
+        row = {"form": form, "cluster": dk.lb_cluster_plan(n, 4),
+               "migrations_first_last": [int(got.migrations[0, 0]),
                                          int(got.migrations[0, -1])]}
         if on_card:
             k = events_ms(torch, call, 3)
             p = time_ms(torch, lambda: dk.lb_rounds_plain(
-                ng, gw, gid, 1.0, WIDE_ROUNDS), 1)
+                ng, gw, gid, 1.0, rounds), 1)
             b, by = bound(fleets * n * 8 + 4 * n + fleets * n * 4
-                          + fleets * WIDE_ROUNDS * (4 + 4 * n), 0, fp64=False)
+                          + fleets * rounds * (4 + 4 * n), 0, fp64=False)
             row.update(ms=k, plain_ms=p, bound_ms=b, bound_by=by)
-        timed[f"{n}x{fleets}x{WIDE_ROUNDS}"] = row
-        log(f"dgi (wide): B1 WIDE n={n} x{fleets} fleets x{WIDE_ROUNDS} "
-            f"rounds: the plain version's bits, bit-identical on repeat; "
-            f"migrations {row['migrations_first_last']} (first, last round)"
+        timed[f"{n}x{fleets}x{rounds}"] = row
+        log(f"dgi (wide): B1 {form} n={n} x{fleets} fleets x{rounds} "
+            f"rounds (cluster {row['cluster']}): the plain version's bits, "
+            f"bit-identical on repeat; migrations "
+            f"{row['migrations_first_last']} (first, last round)"
             + (f"; {row['ms']:.3f} ms (plain {row['plain_ms']:.3f} ms, bound "
                f"{row['bound_ms']:.5f} ms)" if on_card else ""))
+    sort_alone = None
+    if on_card:  # the yardstick: the round's sort alone, at 2^16 x 1
+        n = 1 << 16
+        ng, _, _ = wide_inputs(torch, n, 1, dev)
+        hi = round_high_words(torch, ng[0])
+        sort_alone = events_ms(torch, lambda: [
+            torch.sort(hi, stable=True) for _ in range(WIDE_ROUNDS)], 3)
+        log(f"dgi (wide): the sort alone, {WIDE_ROUNDS} torch.sort(stable="
+            f"True) of the first round's 64-bit high words at n={n}: "
+            f"{sort_alone:.3f} ms")
     n = entry_nodes
     blk = torch.arange(n, device=dev) // WIDE_GROUP
     mask = (blk[:, None] == blk[None, :]).to(torch.float32)
@@ -7787,7 +7931,10 @@ def wide_phase(torch, dk, extra, dev="cuda", shapes=WIDE_SHAPES,
         + f" ({time.monotonic() - t0:.1f} s)")
     extra.setdefault("lb_rounds", {}).update(
         wide=timed, packed_at_2_15_minus_1=packed,
-        launches_run_rounds_2_15=launched)
+        launches_run_rounds_2_15=launched,
+        wide_sort_alone_ms_2_16=sort_alone,
+        wide_sort_alone=f"{WIDE_ROUNDS} torch.sort(stable=True) of the first "
+                        f"round's 64-bit high words at 2^16 x 1")
     return launched
 
 

@@ -77,9 +77,20 @@
 //   two segment sums give).  The working set stays in shared memory across
 //   rounds (form SHARED; N <= 8192 in float64) or in a device-memory scratch
 //   (form GLOBAL up to N = 2^15 - 1; form WIDE, 20 bytes a padded node and
-//   the gateway: 1.8 MB a fleet at N = 2^16 in float64, L2-resident; its
-//   sort is 136 passes over the scratch at 2^16, latency-bound in one CTA —
-//   a multi-CTA or cluster sort is later work).  Float arithmetic is written
+//   the gateway: 1.8 MB a fleet at N = 2^16 in float64, L2-resident, its
+//   sort 136 passes over the scratch at 2^16 in one CTA: 2.6 ms a round on
+//   an H100).  Form CLUSTER (the WIDE key pairs up to 2^17 nodes,
+//   dgi_kernels.lb_cluster_plan) spreads a fleet over a thread-block
+//   cluster of 16 CTAs: each holds 1/16 of the padded positions' key
+//   pairs, segment starts and lengths, and of the nodes' gateway, in
+//   shared memory (28 bytes a padded node in float64: 224 KB a CTA at
+//   2^17); bitonic steps whose partner lies in the CTA run in shared
+//   memory under __syncthreads, the few across CTAs (10 of 136 at 2^16)
+//   read the partner's pairs through distributed shared memory between
+//   two cluster barriers; the segment starts' max-scan takes the earlier
+//   CTAs' carries, lengths and gateway updates land in whichever CTA holds
+//   them (DSMEM), the migrations are summed by rank 0 in rank order.
+//   Above 2^17 nodes, form WIDE.  Float arithmetic is written
 //   with __f*_rn / __d*_rn intrinsics (no contraction), each operation
 //   rounding as the plain version's does.
 //
@@ -89,8 +100,11 @@
 //   and writes a few vectors a fleet (bytes: microseconds); its work is the
 //   sort, N log^2 N compare-exchanges a round, latency-bound in one CTA.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -807,6 +821,298 @@ __global__ void __launch_bounds__(1024) lb_rounds_kernel(const LBArgs<T, G> a) {
   for (int i = tid; i < n; i += bd) a.gw_out[(size_t)b * n + i] = gw[i];
 }
 
+// ---------------------------------------------------------------------------
+// B1 form CLUSTER: a fleet's WIDE key pairs on a thread-block cluster
+// ---------------------------------------------------------------------------
+
+// dgi_kernels.py reads these for lb_cluster_plan: keep each a
+// `constexpr int name = value;`.  A fleet of npad padded nodes takes
+// kLBClusterMax CTAs of 1024 threads (a non-portable cluster size), each
+// holding npad / kLBClusterMax padded nodes — at most kLBClusterShare —
+// with their key pairs, gateway, segment starts and lengths in shared
+// memory.  (The launch takes any power-of-two cluster whose share is a
+// multiple of 1024 nodes; on an H100 at 2^16 nodes x 64 rounds 16 CTAs
+// took 9.1 ms, 8 CTAs 14.0 ms; at 2^15 x 4 fleets 16 / 8 / 4 CTAs 5.35 /
+// 7.48 / 11.9 ms.)
+constexpr int kLBClusterMax = 16;
+constexpr int kLBClusterShare = 8192;
+constexpr int kLBClusterThreads = 1024;
+constexpr int kLBClusterPer = kLBClusterShare / kLBClusterThreads;  // a thread's pairs at most
+
+struct LBClusterLayout {
+  size_t slot, hi, lo, gw, start, seglen, total;
+};
+
+// A CTA's shared memory (dgi_kernels.lb_cluster_smem): the 128-byte
+// reduction buffer, four int slots (the scan carry, the migrations, the
+// carry before this CTA), then `share` key words, indices, gateway
+// values, segment starts and lengths.
+__host__ __device__ inline LBClusterLayout lb_cluster_layout(int share, int gsize) {
+  LBClusterLayout L;
+  L.slot = 128;
+  L.hi = L.slot + 16;
+  L.lo = L.hi + 8 * (size_t)share;
+  L.gw = L.lo + 4 * (size_t)share;
+  L.start = align16(L.gw + (size_t)gsize * share);
+  L.seglen = L.start + 4 * (size_t)share;
+  L.total = L.seglen + 4 * (size_t)share;
+  return L;
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A fleet's arrays spread over its cluster by position (keys, starts,
+// lengths) or node (gateway): CTA `rank` holds [rank share, (rank + 1)
+// share); `at` gives element q's address, in this CTA's shared memory or
+// through distributed shared memory.
+struct LBSpread {
+  int rank, lg, mask;
+  template <typename P>
+  __device__ __forceinline__ P* at(P* local, int q) const {
+    const int o = q >> lg;
+    return (o == rank ? local : cg::cluster_group::map_shared_rank(local, o)) +
+           (q & mask);
+  }
+};
+
+// Ascending bitonic sort of the cluster's npad key pairs (hi, lo),
+// compared lexicographically.  A step whose partner lies in this CTA's
+// share (j < share) compares in shared memory under __syncthreads; one
+// whose partner lies in CTA rank ^ (j / share) reads the partner's pairs
+// through distributed shared memory between two cluster barriers and
+// keeps this CTA's side (the min or the max) in place.
+__device__ void cluster_bitonic(const LBSpread& sp, uint64_t* hi, uint32_t* lo,
+                                int npad) {
+  const int share = sp.mask + 1, base = sp.rank * share;
+  const int tid = threadIdx.x, bd = blockDim.x, per = share / bd;
+  for (int k = 2; k <= npad; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j >= share) {
+        const int o = sp.rank ^ (j >> sp.lg);
+        const uint64_t* rhi = cg::cluster_group::map_shared_rank(hi, o);
+        const uint32_t* rlo = cg::cluster_group::map_shared_rank(lo, o);
+        uint64_t ph[kLBClusterPer];
+        uint32_t pl[kLBClusterPer];
+        cluster_sync_all();  // the partner's previous step is done
+#pragma unroll
+        for (int e = 0; e < kLBClusterPer; ++e)
+          if (e < per) {
+            ph[e] = rhi[tid + e * bd];
+            pl[e] = rlo[tid + e * bd];
+          }
+        cluster_sync_all();  // every read of this step is done
+#pragma unroll
+        for (int e = 0; e < kLBClusterPer; ++e)
+          if (e < per) {
+            const int l = tid + e * bd, q = base + l;
+            const uint64_t x = hi[l];
+            const uint32_t xl = lo[l];
+            const bool gt = x > ph[e] || (x == ph[e] && xl > pl[e]);
+            // The lower position of an ascending run (or the upper of a
+            // descending one) keeps the min.
+            if (((q & j) == 0) == ((q & k) == 0) ? gt : !gt) {
+              hi[l] = ph[e];
+              lo[l] = pl[e];
+            }
+          }
+        __syncthreads();
+      } else {
+        for (int p = tid; p < (share >> 1); p += bd) {
+          const int l = ((p & ~(j - 1)) << 1) | (p & (j - 1)), m = l + j;
+          const uint64_t x = hi[l], y = hi[m];
+          const uint32_t xl = lo[l], yl = lo[m];
+          const bool gt = x > y || (x == y && xl > yl);
+          if (gt == (((base + l) & k) == 0)) {
+            hi[l] = y;
+            hi[m] = x;
+            lo[l] = yl;
+            lo[m] = xl;
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+}
+
+// B1's rounds of one fleet on one cluster (fleet blockIdx.x / cluster
+// size): the WIDE form's arithmetic (lb_rounds_kernel) over arrays spread
+// by sp.  Each round: classification and keys of this CTA's nodes; the
+// cluster sort; segment starts by a max-scan in each CTA and the earlier
+// CTAs' carries; segment lengths written at segment starts (in whichever
+// CTA); the gateway update of each sorted position's node (in whichever
+// CTA holds it) and the migrations summed by rank 0 in rank order.
+template <typename T, typename G>
+__global__ void __launch_bounds__(kLBClusterThreads)
+    lb_cluster_kernel(const LBArgs<T, G> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int csize = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int b = blockIdx.x / csize, n = a.n, npad = a.npad;
+  const int share = npad / csize, base = rank * share;
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const LBSpread sp{rank, 31 - __clz(share), share - 1};
+  const LBClusterLayout L = lb_cluster_layout(share, (int)sizeof(G));
+  int* red = (int*)smem;
+  int* slot = (int*)(smem + L.slot);
+  uint64_t* hi = (uint64_t*)(smem + L.hi);
+  uint32_t* lo = (uint32_t*)(smem + L.lo);
+  G* gw = (G*)(smem + L.gw);
+  int* start = (int*)(smem + L.start);
+  int* seglen = (int*)(smem + L.seglen);
+  const T* ng = a.ng + (size_t)b * n;
+  const int* gid = a.gid + (size_t)b * a.gid_stride;
+  const float* mal = a.mal ? a.mal + (size_t)b * a.mal_stride : nullptr;
+  const unsigned char* gate =
+      a.gate ? a.gate + (size_t)b * a.gate_stride : nullptr;
+  const T step = (T)a.step;
+  const float step_f = (float)a.step;
+  auto prefix = [&](int q) { return (uint32_t)(*sp.at(hi, q) >> 32); };
+  for (int l = tid; l < share; l += bd)
+    if (base + l < n) gw[l] = a.gw0[(size_t)b * n + base + l];
+  for (int r = 0; r < a.rounds; ++r) {
+    for (int l = tid; l < share; l += bd) {
+      const int i = base + l;
+      if (i < n) {
+        const T imb = sub_rn(ng[i], (T)gw[l]);
+        const int st = imb >= step ? 1 : (imb <= -step ? -1 : 0);
+        if (a.states) a.states[((size_t)b * a.rounds + r) * n + i] = st;
+        const bool ok = gate == nullptr || gate[i] != 0;
+        const int cls = (st == 1 && ok) ? 0 : ((st == -1 && ok) ? 1 : 2);
+        const uint32_t kb = cls < 2 ? ~__float_as_uint(key_of(imb)) : 0u;
+        hi[l] = ((uint64_t)(uint32_t)gid[i] << 34) | ((uint64_t)cls << 32) |
+                (uint64_t)kb;
+        lo[l] = (uint32_t)i;
+      } else {  // padding sorts last
+        hi[l] = ~0ull;
+        lo[l] = ~0u;
+      }
+    }
+    __syncthreads();
+    cluster_bitonic(sp, hi, lo, npad);
+    cluster_sync_all();  // every CTA's sorted share is readable
+    for (int l = tid; l < share; l += bd) {
+      const int q = base + l;
+      start[l] = (q == 0 || (uint32_t)(hi[l] >> 32) != prefix(q - 1)) ? q : 0;
+    }
+    __syncthreads();
+    block_max_scan(start, share, red);
+    if (tid == 0) slot[0] = start[share - 1];
+    cluster_sync_all();  // every CTA's carry is out
+    if (tid < 32) {  // the carry of the CTAs before this one
+      int c = tid < rank ? *cl.map_shared_rank(slot, tid) : 0;
+      c = warp_max(c);
+      if (tid == 0) slot[2] = c;
+    }
+    __syncthreads();
+    const int before = slot[2];
+    for (int l = tid; l < share; l += bd) start[l] = max(start[l], before);
+    __syncthreads();
+    for (int l = tid; l < share; l += bd) {
+      const int q = base + l;
+      if (q < n && (q == n - 1 || prefix(q + 1) != (uint32_t)(hi[l] >> 32)))
+        *sp.at(seglen, start[l]) = q - start[l] + 1;
+    }
+    cluster_sync_all();  // every segment's length is out
+    int mig = 0;
+    for (int l = tid; l < share; l += bd) {
+      const int q = base + l;
+      if (q >= n) break;
+      const int p = (int)lo[l];
+      const uint32_t pre = (uint32_t)(hi[l] >> 32);
+      const int cls = (int)(pre & 3);
+      const int s = start[l], rin = q - s;
+      int scnt = 0, dcnt = 0;
+      if (cls == 0) {  // the group's demand segment follows its supply one
+        scnt = *sp.at(seglen, s);
+        const int e = s + scnt;
+        if (e < n && prefix(e) == pre + 1) dcnt = *sp.at(seglen, e);
+      } else if (cls == 1) {
+        dcnt = *sp.at(seglen, s);
+        if (s > 0 && prefix(s - 1) == pre - 1)
+          scnt = *sp.at(seglen, *sp.at(start, s - 1));
+      }
+      const bool sm = cls == 0 && rin < dcnt;
+      const bool dm = cls == 1 && rin < scnt;
+      const float one_m = __fsub_rn(1.f, mal ? mal[p] : 0.f);
+      const float delta = __fsub_rn(sm ? step_f : 0.f,
+                                    dm ? __fmul_rn(step_f, one_m) : 0.f);
+      G* g = sp.at(gw, p);
+      *g = add_rn(*g, (G)delta);
+      mig += sm;
+      if (a.rank) {  // one round: lb_round's per-node outputs
+        const size_t o = (size_t)b * n + p;
+        const float acc = __fmul_rn(dm ? 1.f : 0.f, step_f);
+        const float app = mal ? __fmul_rn(acc, one_m) : acc;
+        a.rank[o] = cls < 2 ? rin : n;
+        a.sup[o] = __fmul_rn(sm ? 1.f : 0.f, step_f);
+        a.dem[o] = -app;
+        a.intr[o] = __fsub_rn(app, acc);
+      }
+    }
+    mig = block_sum(mig, red);
+    if (tid == 0) slot[1] = mig;
+    cluster_sync_all();  // every gateway update and count is out
+    if (rank == 0 && tid == 0) {
+      int total = 0;
+      for (int o = 0; o < csize; ++o) total += *cl.map_shared_rank(slot + 1, o);
+      a.migs[(size_t)b * a.rounds + r] = total;
+    }
+  }
+  for (int l = tid; l < share; l += bd)
+    if (base + l < n) a.gw_out[(size_t)b * n + base + l] = gw[l];
+  cluster_sync_all();  // no CTA leaves while rank 0 may read its slot
+}
+
+// Opt the cluster kernel in to a non-portable cluster size and to all the
+// shared memory a block may take, once a device.
+template <typename T, typename G>
+cudaError_t lb_cluster_attributes() {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && opted[dev])) return e;
+  e = cudaFuncSetAttribute(lb_cluster_kernel<T, G>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(lb_cluster_kernel<T, G>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e == cudaSuccess && dev < 64) opted[dev] = true;
+  return e;
+}
+
+template <typename T, typename G>
+int lb_cluster_launch(const LBArgs<T, G>& a, int fleets, int cluster,
+                      cudaStream_t stream) {
+  const int share = a.npad / cluster;
+  if (cluster < 1 || cluster > kLBClusterMax || share * cluster != a.npad ||
+      share % kLBClusterThreads != 0 || share > kLBClusterShare ||
+      (int64_t)fleets * cluster > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = lb_cluster_layout(share, (int)sizeof(G)).total;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = lb_cluster_attributes<T, G>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)fleets * (unsigned)cluster);
+  cfg.blockDim = dim3(kLBClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, lb_cluster_kernel<T, G>, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <typename Args>
 int launch(void (*kernel)(const Args), dim3 grid, int threads, size_t smem,
            cudaStream_t stream, const Args& a) {
@@ -829,10 +1135,11 @@ int lb_launch(const T* ng, const G* gw0, const int* gid, long long gid_stride,
               const unsigned char* gate, long long gate_stride, double step,
               G* gw_out, int* migs, int* states, int* rank, float* sup,
               float* dem, float* intr, void* scratch, int n, int rounds,
-              int fleets, void* stream) {
+              int fleets, int cluster, void* stream) {
   const bool wide = n >= kLBWideNodes;
   if (n <= 0 || n > kLBMaxNodes || rounds <= 0 || fleets <= 0 ||
-      (wide && !scratch) || (rank && (rounds != 1 || !sup || !dem || !intr)))
+      (wide && !scratch && cluster == 0) || (cluster && (!wide || scratch)) ||
+      (rank && (rounds != 1 || !sup || !dem || !intr)))
     return (int)cudaErrorInvalidValue;
   int npad = 32;
   while (npad < n) npad <<= 1;
@@ -841,6 +1148,8 @@ int lb_launch(const T* ng, const G* gw0, const int* gid, long long gid_stride,
                  gate,   gate_stride, step, gw_out,  migs,  states,
                  rank,   sup,     dem,  intr,       (unsigned char*)scratch,
                  L.total, n,      npad, rounds};
+  if (cluster)
+    return lb_cluster_launch(a, fleets, cluster, (cudaStream_t)stream);
   const size_t smem = 128 + (scratch ? 0 : L.total);
   if (wide)
     return launch(lb_rounds_kernel<T, G, true>, dim3(fleets), 1024, smem,
@@ -910,11 +1219,12 @@ extern "C" int lb_rounds_ff(const float* ng, const float* gw0, const int* gid,
                             long long gate_stride, double step, float* gw_out,
                             int* migs, int* states, int* rank, float* sup,
                             float* dem, float* intr, void* scratch, int n,
-                            int rounds, int fleets, void* stream) {
+                            int rounds, int fleets, int cluster,
+                            void* stream) {
   return lb_launch<float, float>(ng, gw0, gid, gid_stride, mal, mal_stride,
                                  gate, gate_stride, step, gw_out, migs,
                                  states, rank, sup, dem, intr, scratch, n,
-                                 rounds, fleets, stream);
+                                 rounds, fleets, cluster, stream);
 }
 
 extern "C" int lb_rounds_dd(const double* ng, const double* gw0,
@@ -924,11 +1234,11 @@ extern "C" int lb_rounds_dd(const double* ng, const double* gw0,
                             double step, double* gw_out, int* migs,
                             int* states, int* rank, float* sup, float* dem,
                             float* intr, void* scratch, int n, int rounds,
-                            int fleets, void* stream) {
+                            int fleets, int cluster, void* stream) {
   return lb_launch<double, double>(ng, gw0, gid, gid_stride, mal, mal_stride,
                                    gate, gate_stride, step, gw_out, migs,
                                    states, rank, sup, dem, intr, scratch, n,
-                                   rounds, fleets, stream);
+                                   rounds, fleets, cluster, stream);
 }
 
 extern "C" int lb_rounds_df(const double* ng, const float* gw0,
@@ -938,9 +1248,9 @@ extern "C" int lb_rounds_df(const double* ng, const float* gw0,
                             double step, float* gw_out, int* migs,
                             int* states, int* rank, float* sup, float* dem,
                             float* intr, void* scratch, int n, int rounds,
-                            int fleets, void* stream) {
+                            int fleets, int cluster, void* stream) {
   return lb_launch<double, float>(ng, gw0, gid, gid_stride, mal, mal_stride,
                                   gate, gate_stride, step, gw_out, migs,
                                   states, rank, sup, dem, intr, scratch, n,
-                                  rounds, fleets, stream);
+                                  rounds, fleets, cluster, stream);
 }

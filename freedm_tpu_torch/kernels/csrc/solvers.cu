@@ -100,19 +100,51 @@
 //   the bytes of x, w, status and the output (~24.6 MB at mesh2000 x 256
 //   without status).
 //
-// I2 cim_vjp — replaces the reverse mode of one freedm_tpu/pf/cim.py:163
-//   `_iterate` (with `_matvec` :157) under jax.grad of `_solve_fixed`
-//   (:215): for the masked cotangent g of v' = mask (v_base + A conj(s/v)),
-//   the product p = A^H g on row_product.cuh's tiled form (A^H staged once
-//   a solver, solver_kernels.cim_adjoint_matrix: the real pair's transpose of
-//   A's product), and an epilogue (`CimVjpEpilogue`) that applies each
-//   entry's 2 x 2 real derivative of conj(s/v): with q = conj(p) on live
-//   node-phases, sbar += conj(1/v) q (the load cotangent, accumulated over
-//   the iterations), g_v = mask conj(-s/v^2) q (0 on dead phases), written
-//   beside g and added to vbbar (v_base's cotangent).  Each (lane, row) is
-//   one thread's: the split-K order of the shared product, no atomics.
-//   Bound: I1's, 8 N^2 B operations at the tensor-core rate above one read of
-//   A^H (16 N^2 bytes).
+// I2 cim_vjp — replaces the reverse mode of the iterations of
+//   freedm_tpu/pf/cim.py:163 `_iterate` (with `_matvec` :157) under
+//   jax.grad of `_solve_fixed` (:215): for the masked cotangent g of v' =
+//   mask (v_base + A conj(s/v)), the product p = A^H g (A^H staged once a
+//   solver, solver_kernels.cim_adjoint_matrix: the real pair's transpose of
+//   A's product) and each entry's 2 x 2 real derivative of conj(s/v)
+//   (`CimVjpEpilogue`): with q = conj(p) on live node-phases, sbar +=
+//   conj(1/v) q (the load cotangent), g_v = mask conj(-s/v^2) q (0 on dead
+//   phases), the next step's cotangent, added to vbbar (v_base's).
+//   Design (`cim_vjp_walk`): one persistent cooperative launch walks every
+//   iteration of a backward (one step for a single call), each step two
+//   phases between integer grid barriers (counters, no float atomics):
+//     product  the (tile, K stage) units of A^H g — 64 rows x 64 lanes x
+//              16 columns, row_product.cuh's staging (its header untouched:
+//              K2, F1 and I1 keep their bits) — cut into kWalkItems even
+//              runs (Stream-K: no wave tail; 47 row tiles x 188 stages at
+//              N = 3000, B = 64 give items of 66 or 67 stages, one a
+//              resident CTA of 16 warps an SM), six stages in flight,
+//              waited for two at a time; float64 by Gauss's three real
+//              products on the FP64 tensor cores (WalkMac); each run's
+//              sums over a tile into its own slot of an L2-resident
+//              scratch through shared memory;
+//     reduce   each CTA an even share of the (lane, row) entries, each
+//              entry its tile's slots added in item order, then the
+//              epilogue above.
+//   The items and slots are a function of the shape alone, so the bits do
+//   not depend on the launch width and a walk of k steps gives the bits of
+//   k single calls.  The cotangent crosses CTAs through L2 only (cp.async
+//   .cg, ld.cg).  Bound: I1's, 8 N^2 B operations a step at the
+//   tensor-core rate above one read of A^H (16 N^2 bytes).
+//   Measured on an H100 80GB HBM3 at 700 W (lab runs, the CIM feeder x 64,
+//   queued events; a call / an iteration of a 60-step walk, ms; complex128
+//   torch.matmul of A^H with the cotangents 0.104-0.106): 264 items on two
+//   CTAs of 8 warps an SM, four products, three stages (ptxas spilled ~200
+//   bytes) 0.149 / 0.141 — its product alone 0.117, its reduce ~0.017, two
+//   barriers 0.005; 132 items on that grid 0.154 / 0.146; the segment not
+//   inlined 0.155 / 0.148; one CTA of 8 warps an SM (240 registers, no
+//   spill) 0.138 / 0.131, with Gauss 0.132 / 0.125 (three or six stages
+//   0.132 / 0.125, 0.134 / 0.127); 16 warps of 16 x 16 tiles, Gauss, six
+//   stages in pairs, two entries a reduce thread 0.125-0.127 / 0.116-0.118
+//   (its product alone 0.098: its products without loads 0.084, its loads
+//   without products 0.062), four products there 0.133 / 0.124, one entry
+//   a reduce thread 0.118 / 0.108 (this form).  The split-K form it
+//   replaces (the tiled product into an [8, 2, B, N] scratch, then an
+//   epilogue launch: a launch a step) took 0.130 ms a call.
 //
 // Every sum runs in a fixed order and no kernel uses a float atomic, so
 // each is bit-identical on repeat.  Simple and right first.
@@ -681,24 +713,24 @@ __global__ void __launch_bounds__(kThreads) vjp_kernel(
 // I2
 // ---------------------------------------------------------------------------
 
-// I2's epilogue, handed each (lane, row)'s p = (A^H g) by the tiled
-// product: the load cotangent sbar += conj(1/v) conj(p), and v's masked
-// cotangent mask conj(-s/v^2) conj(p) into o (and onto vbbar); dead
+// I2's epilogue, handed each (lane, row)'s p = (A^H g) by the walk's
+// reduce phase: the load cotangent sbar += conj(1/v) conj(p), and v's
+// masked cotangent mask conj(-s/v^2) conj(p) into o (and onto vbbar); dead
 // node-phases (v = 0) get 0.
 template <typename T>
 struct CimVjpEpilogue {
   const T *v_re, *v_im, *s_re, *s_im, *mask;
   T *sbar_re, *sbar_im, *vbbar_re, *vbbar_im, *o_re, *o_im;
   int N;
-  __device__ __forceinline__ T operator()(int64_t b, int i, T pre,
-                                          T pim) const {
+  __device__ __forceinline__ void operator()(int64_t b, int i, T pre,
+                                             T pim) const {
     const int64_t k = b * N + i;
     const T vr = __ldg(v_re + k), vi = __ldg(v_im + k);
     const T d = vr * vr + vi * vi;
     if (!(d > T(0))) {  // a dead node-phase: no load current, no term
-      o_re[k] = T(0);
-      o_im[k] = T(0);
-      return T(0);
+      __stcg(o_re + k, T(0));
+      __stcg(o_im + k, T(0));
+      return;
     }
     const T qr = pre, qi = -pim;
     const T dsr = (vr * qr - vi * qi) / d, dsi = (vr * qi + vi * qr) / d;
@@ -707,16 +739,382 @@ struct CimVjpEpilogue {
     const T cr = -(ur * vr + ui * vi) / d, ci = -(ur * vi - ui * vr) / d;
     const T mk = __ldg(mask + i);
     const T gr = (cr * qr - ci * qi) * mk, gi = (cr * qi + ci * qr) * mk;
-    sbar_re[k] = sbar_re[k] + dsr;
-    sbar_im[k] = sbar_im[k] + dsi;
-    vbbar_re[k] = vbbar_re[k] + gr;
-    vbbar_im[k] = vbbar_im[k] + gi;
-    o_re[k] = gr;
-    o_im[k] = gi;
-    return T(0);
+    // sbar and vbbar are one thread's alone in every step of a walk; they,
+    // and the cotangent other CTAs read next, go through L2.
+    __stcg(sbar_re + k, __ldcg(sbar_re + k) + dsr);
+    __stcg(sbar_im + k, __ldcg(sbar_im + k) + dsi);
+    __stcg(vbbar_re + k, __ldcg(vbbar_re + k) + gr);
+    __stcg(vbbar_im + k, __ldcg(vbbar_im + k) + gi);
+    __stcg(o_re + k, gr);
+    __stcg(o_im + k, gi);
   }
-  __device__ __forceinline__ void lane_tile(int64_t, int, T, bool) const {}
 };
+
+// ---------------------------------------------------------------------------
+// I2's walk: every step of a backward in one persistent launch
+// ---------------------------------------------------------------------------
+
+// solver_kernels.py reads kWalkItems for cim_walk_plan: keep it a
+// `constexpr int name = value;`.  The product phase's work items, one
+// resident CTA on each of an H100's 132 SMs; the item plan is a function
+// of this constant and the shape alone (never of the launch width), so
+// is every sum's order.
+constexpr int kWalkItems = 132;
+// A CTA's threads (16 warps; the staging copies are issued by the first
+// 256, row_product.cuh's block), the staging ring's depth in stages of 16
+// columns, and the stages a wait and a barrier take.
+constexpr int kWalkThreads = 512;
+constexpr int kWalkStages = 6;
+constexpr int kWalkGroup = 2;
+static_assert(kWalkStages % kWalkGroup == 0, "whole groups in the ring");
+static_assert(kWalkThreads % kThreads == 0, "whole copy blocks");
+
+// The product's (tile, K stage) units cut into `items` even runs: item w
+// takes units [units w / items, units (w + 1) / items), tile t = row tile
+// x lane_tiles + lane tile, its stages consecutive.
+struct WalkShape {
+  int n, lanes, row_tiles, lane_tiles, stages, items;
+  long long units;
+};
+
+__host__ __device__ inline WalkShape walk_shape(int n, int lanes) {
+  WalkShape s;
+  s.n = n;
+  s.lanes = lanes;
+  s.row_tiles = (n + row_product::kTileRows - 1) / row_product::kTileRows;
+  s.lane_tiles = (lanes + row_product::kTileLanes - 1) / row_product::kTileLanes;
+  s.stages = (n + row_product::kTileK - 1) / row_product::kTileK;
+  s.units = (long long)s.row_tiles * s.lane_tiles * s.stages;
+  s.items = (int)(s.units < kWalkItems ? s.units : kWalkItems);
+  return s;
+}
+
+__host__ __device__ inline long long walk_unit_start(const WalkShape& s, int w) {
+  return s.units * w / s.items;
+}
+
+// The item whose run holds unit u.
+__host__ __device__ inline int walk_item_of(const WalkShape& s, long long u) {
+  return (int)(((u + 1) * s.items - 1) / s.units);
+}
+
+// Partial-sum slots: item w's sums over tile t go to slot w + t (one
+// slot a (item, tile) pair that overlaps: w + t is distinct for each),
+// [2 (re, im)][64 lanes][64 rows].
+__host__ __device__ inline int walk_slots(const WalkShape& s) {
+  return s.items + s.row_tiles * s.lane_tiles - 1;
+}
+constexpr int kSlotElems = 2 * row_product::kTileLanes * row_product::kTileRows;
+
+template <typename T>
+struct WalkArgs {
+  const T *h_re, *h_im;  // A^H [N, N]
+  const T *g_re, *g_im;  // the first step's masked cotangent [B, N]
+  const T *v_re, *v_im;  // the iterate of step k at v + k * v_step
+  long long v_step;
+  const T *s_re, *s_im, *mask;
+  T *sbar_re, *sbar_im, *vbbar_re, *vbbar_im;  // added to in place
+  T *o_re, *o_im;   // each step's cotangent of its v, [B, N]
+  T* part;          // walk_slots(shape) slots
+  unsigned* bar;    // the grid barrier's [arrivals, generation]
+  int steps;
+  WalkShape sh;
+};
+
+// A grid-wide barrier of a cooperative launch on integer counters: the
+// last CTA to arrive resets the count and advances the generation the
+// others wait on.  Every barrier leaves the count at 0, so the buffer
+// serves launch after launch on one stream (zeros once).
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned blocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();  // this CTA's writes, and the read of g, before arriving
+    if (atomicAdd(bar, 1u) == blocks - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Stage the columns [k0, k0 + kTileK) of the lanes b0.. of the running
+// cotangent: through L2 only (cp.async.cg; the scalar form by ld.cg), as
+// other CTAs wrote it in the step before and an SM's L1 may hold the
+// step before's lines.  By the CTA's first kThreads threads.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_lanes(T* t_re, T* t_im,
+                                           const T* __restrict__ g_re,
+                                           const T* __restrict__ g_im,
+                                           int lanes, int n, int b0, int k0,
+                                           int kend) {
+  using namespace row_product;
+  if constexpr (VEC > 1) {
+    load_pair<T, VEC>(t_re, t_im, g_re, g_im, lanes, n, b0, k0, kend);
+  } else {
+    constexpr int kRounds = kTileLanes * kTileK / kThreads;
+#pragma unroll
+    for (int it = 0; it < 2 * kRounds; ++it) {
+      const int mat = it / kRounds;
+      const int e = (it % kRounds) * kThreads + threadIdx.x;
+      const int r = e / kTileK, c = e % kTileK;
+      const int gr = b0 + r, k = k0 + c;
+      const T* base = mat ? g_im : g_re;
+      const T v = (gr < lanes && k < kend) ? __ldcg(base + (int64_t)gr * n + k)
+                                           : T(0);
+      (mat ? t_im : t_re)[swz(r, c)] = v;
+    }
+  }
+}
+
+// A warp's share of the 64 x 64 tile, by dtype.  float64 by Gauss's
+// three real products a complex one on the FP64 tensor cores
+// (row_product.cuh's m16n8k4 fragments): t1 = sum Yr Vr, t2 = sum Yi Vi,
+// t3 = sum (Yr + Yi)(Vr + Vi), then re = t1 - t2, im = t3 - t1 - t2;
+// each of the 16 warps 16 rows x 16 lanes (two 16 x 8 tiles, 48
+// accumulator registers).  float32 keeps the tiled product's FFMA
+// micro-tiles, on the first 256 threads.
+template <typename T>
+struct WalkMac;
+
+template <>
+struct WalkMac<double> {
+  double t1[2][4], t2[2][4], t3[2][4];
+  bool on;
+  int g, t, rb, lb;
+
+  __device__ __forceinline__ void init(int n, int lanes, int i0, int b0) {
+    const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+    g = ln >> 2;
+    t = ln & 3;
+    rb = (warp & 3) * 16;
+    lb = (warp >> 2) * 16;
+    on = i0 + rb < n && b0 + lb < lanes;
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) t1[b][c] = t2[b][c] = t3[b][c] = 0.0;
+  }
+
+  __device__ __forceinline__ void step(const row_product::Stage<double>& st) {
+    using namespace row_product;
+    if (!on) return;
+#pragma unroll
+    for (int ks = 0; ks < kTileK / 4; ++ks) {
+      // Column 4 ks + t of a row r = g (mod 4), swizzled (swz).
+      const int kk = ((ks ^ (g & 3)) << 2) + t;
+      const int r = rb + g;
+      const double ar0 = st.y_re[r * kTileK + kk];
+      const double ar1 = st.y_re[(r + 8) * kTileK + kk];
+      const double ai0 = st.y_im[r * kTileK + kk];
+      const double ai1 = st.y_im[(r + 8) * kTileK + kk];
+      const double as0 = ar0 + ai0, as1 = ar1 + ai1;
+      double br[2], bi[2], bs[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int l = lb + 8 * b + g;
+        br[b] = st.v_re[l * kTileK + kk];
+        bi[b] = st.v_im[l * kTileK + kk];
+        bs[b] = br[b] + bi[b];
+      }
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        row_product::mma_f64(t1[b], ar0, ar1, br[b]);
+        row_product::mma_f64(t2[b], ai0, ai1, bi[b]);
+        row_product::mma_f64(t3[b], as0, as1, bs[b]);
+      }
+    }
+  }
+
+  template <typename F>
+  __device__ __forceinline__ void each(int n, int lanes, int i0, int b0,
+                                       F f) const {
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = i0 + rb + g + 8 * (c >> 1);
+        const int lane = b0 + lb + 8 * b + 2 * t + (c & 1);
+        if (on && row < n && lane < lanes)
+          f(row, lane, t1[b][c] - t2[b][c], t3[b][c] - t1[b][c] - t2[b][c]);
+      }
+  }
+};
+
+template <>
+struct WalkMac<float> {
+  row_product::Mac<float> mac;
+  bool on;
+  __device__ __forceinline__ void init(int n, int lanes, int i0, int b0) {
+    on = threadIdx.x < kThreads;
+    mac.init(n, lanes, i0, b0);
+  }
+  __device__ __forceinline__ void step(const row_product::Stage<float>& st) {
+    if (on) mac.step(st);
+  }
+  template <typename F>
+  __device__ __forceinline__ void each(int n, int lanes, int i0, int b0,
+                                       F f) const {
+    if (on) mac.each(n, lanes, i0, b0, f);
+  }
+};
+
+// Stages [s0, s1) of tile (i0, b0) of p = A^H g, kWalkGroup stages a
+// wait and a barrier in a ring of kWalkStages, then the sums through
+// shared memory (the ring's space, a row stride of 64 + 16 bytes) into
+// `slot` with 16-byte stores.
+template <typename T, int VEC>
+__device__ __forceinline__ void walk_segment(row_product::Stage<T>* st,
+                                             const T* __restrict__ h_re,
+                                             const T* __restrict__ h_im,
+                                             int n, int lanes, const T* gr,
+                                             const T* gi, int i0, int b0,
+                                             int s0, int s1, T* slot,
+                                             uint64_t y_pol) {
+  using namespace row_product;
+  constexpr int kSlotsOf = kWalkStages / kWalkGroup;  // groups in the ring
+  const int kb = s0 * kTileK, ke = min(n, s1 * kTileK);
+  const int tiles = s1 - s0, groups = (tiles + kWalkGroup - 1) / kWalkGroup;
+  const bool copies = threadIdx.x < kThreads;
+  WalkMac<T> mac;
+  mac.init(n, lanes, i0, b0);
+  auto load_group = [&](int q) {
+    if (!copies) return;
+#pragma unroll
+    for (int h = 0; h < kWalkGroup; ++h) {
+      const int si = q * kWalkGroup + h;
+      if (si < tiles) {
+        Stage<T>& d = st[si % kWalkStages];
+        load_pair<T, VEC>(d.y_re, d.y_im, h_re, h_im, n, n, i0,
+                          kb + si * kTileK, ke, true, y_pol);
+        load_lanes<T, VEC>(d.v_re, d.v_im, gr, gi, lanes, n, b0,
+                           kb + si * kTileK, ke);
+      }
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < kSlotsOf - 1; ++q) {
+    if (q < groups) load_group(q);
+    cp_async_commit();
+  }
+  for (int q = 0; q < groups; ++q) {
+    cp_async_wait<kSlotsOf - 2>();  // group q has landed (this thread's)
+    __syncthreads();                // ... every thread's; q - 1 is consumed
+    if (q + kSlotsOf - 1 < groups) load_group(q + kSlotsOf - 1);
+    cp_async_commit();
+#pragma unroll
+    for (int h = 0; h < kWalkGroup; ++h) {
+      const int si = q * kWalkGroup + h;
+      if (si < tiles) mac.step(st[si % kWalkStages]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the flush buffer
+  constexpr int ld = kTileRows + 16 / (int)sizeof(T);
+  T* buf = reinterpret_cast<T*>(st);
+  mac.each(n, lanes, i0, b0, [&](int row, int lane, T re, T im) {
+    buf[(lane - b0) * ld + row - i0] = re;
+    buf[(kTileLanes + lane - b0) * ld + row - i0] = im;
+  });
+  __syncthreads();
+  constexpr int kV = 16 / (int)sizeof(T), kRowV = kTileRows / kV;
+  for (int q = threadIdx.x; q < 2 * kTileLanes * kRowV; q += kWalkThreads) {
+    const int lr = q / kRowV, c = (q - lr * kRowV) * kV;
+    __stcg(reinterpret_cast<int4*>(slot + lr * kTileRows + c),
+           *reinterpret_cast<const int4*>(buf + lr * ld + c));
+  }
+  __syncthreads();  // the buffer is the next segment's ring
+}
+
+// The reduce phase's sum of entry e = (lane b, row i): its tile's slots
+// added in item order, their loads issued four at a time.
+template <typename T>
+__device__ __forceinline__ void walk_sum(const WalkArgs<T>& a, int64_t b,
+                                         int i, T& sr, T& si) {
+  using namespace row_product;
+  const WalkShape& s = a.sh;
+  const int t = (i / kTileRows) * s.lane_tiles + (int)(b / kTileLanes);
+  const long long ut = (long long)t * s.stages;
+  const int wl = walk_item_of(s, ut + s.stages - 1);
+  int w = walk_item_of(s, ut);
+  constexpr int kIm = kTileLanes * kTileRows;
+  const T* p = a.part + (int64_t)(w + t) * kSlotElems +
+               (b % kTileLanes) * kTileRows + i % kTileRows;
+  sr = __ldcg(p);
+  si = __ldcg(p + kIm);
+  for (++w; w <= wl; w += 4) {
+    T xr[4], xi[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (w + u <= wl) {
+        xr[u] = __ldcg(p + (u + 1) * kSlotElems);
+        xi[u] = __ldcg(p + (u + 1) * kSlotElems + kIm);
+      }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (w + u <= wl) {
+        sr += xr[u];
+        si += xi[u];
+      }
+    p += 4 * kSlotElems;
+  }
+}
+
+// A whole backward: for step j = 0 .. steps - 1 (the iterate k = steps -
+// 1 - j), the product phase (every item's stages into its slots), a grid
+// barrier, the reduce phase (each CTA an even share of the (lane, row)
+// entries, a thread an entry at a time adding its tile's slots in item
+// order and applying CimVjpEpilogue), and a grid barrier
+// before the next step's product reads the cotangent the reduce wrote.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWalkThreads, 1) cim_walk_kernel(const WalkArgs<T> a) {
+  using namespace row_product;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Stage<T>* st = reinterpret_cast<Stage<T>*>(smem_raw);
+  const WalkShape& s = a.sh;
+  const int n = s.n, blocks = gridDim.x;
+  const int64_t entries = (int64_t)s.lanes * n;
+  const uint64_t y_pol = evict_first_policy();
+  for (int step = 0; step < a.steps; ++step) {
+    const T* gr = step == 0 ? a.g_re : a.o_re;
+    const T* gi = step == 0 ? a.g_im : a.o_im;
+    for (int w = blockIdx.x; w < s.items; w += blocks) {
+      const long long u1 = walk_unit_start(s, w + 1);
+      for (long long u = walk_unit_start(s, w); u < u1;) {
+        const int t = (int)(u / s.stages);
+        const int s0 = (int)(u - (long long)t * s.stages);
+        const int s1 = (int)min((long long)s.stages, s0 + (u1 - u));
+        walk_segment<T, VEC>(st, a.h_re, a.h_im, n, s.lanes, gr, gi,
+                             (t / s.lane_tiles) * kTileRows,
+                             (t % s.lane_tiles) * kTileLanes, s0, s1,
+                             a.part + (int64_t)(w + t) * kSlotElems, y_pol);
+        u += s1 - s0;
+      }
+    }
+    grid_sync(a.bar, blocks);
+    const int64_t k = a.steps - 1 - step;
+    const CimVjpEpilogue<T> epi{a.v_re + k * a.v_step, a.v_im + k * a.v_step,
+                                a.s_re,    a.s_im,    a.mask,
+                                a.sbar_re, a.sbar_im, a.vbbar_re,
+                                a.vbbar_im, a.o_re,   a.o_im,
+                                n};
+    const int64_t e1 = entries * (blockIdx.x + 1) / blocks;
+    for (int64_t e = entries * blockIdx.x / blocks + threadIdx.x; e < e1;
+         e += kWalkThreads) {
+      const int64_t b = e / n;
+      const int i = (int)(e - b * n);
+      T pr, pi;
+      walk_sum(a, b, i, pr, pi);
+      epi(b, i, pr, pi);
+    }
+    if (step + 1 < a.steps) grid_sync(a.bar, blocks);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Launches
@@ -855,19 +1253,63 @@ int launch_vjp(int mode, const T* x, const T* w, const int* inc_ptr,
   return (int)cudaGetLastError();
 }
 
+// I2's walk over `steps` iterates: a cooperative launch of
+// min(items, resident CTAs) CTAs (every CTA resident: the grid barriers
+// need it); a narrower card runs the same items in turns, so the bits do
+// not depend on the width.
 template <typename T>
-int launch_cim_vjp(const T* h_re, const T* h_im, const T* g_re,
-                   const T* g_im, const T* v_re, const T* v_im,
-                   const T* s_re, const T* s_im, const T* mask, T* sbar_re,
-                   T* sbar_im, T* vbbar_re, T* vbbar_im, T* part, T* o_re,
-                   T* o_im, int lanes, int N, int splits,
-                   cudaStream_t stream) {
-  if (lanes <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const CimVjpEpilogue<T> epi{v_re,     v_im,    s_re,     s_im,
-                              mask,     sbar_re, sbar_im,  vbbar_re,
-                              vbbar_im, o_re,    o_im,     N};
-  return row_product::launch_tiled<T>(h_re, h_im, g_re, g_im, part, lanes, N,
-                                      splits, epi, stream);
+int launch_cim_walk(const T* h_re, const T* h_im, const T* g_re,
+                    const T* g_im, const T* v_re, const T* v_im,
+                    long long v_step, const T* s_re, const T* s_im,
+                    const T* mask, T* sbar_re, T* sbar_im, T* vbbar_re,
+                    T* vbbar_im, T* o_re, T* o_im, T* part, unsigned* bar,
+                    int lanes, int N, int steps, int slots,
+                    cudaStream_t stream) {
+  if (lanes <= 0 || N <= 0 || steps < 1 || part == nullptr ||
+      bar == nullptr || (steps > 1 && v_step < (long long)lanes * N))
+    return (int)cudaErrorInvalidValue;
+  const WalkShape sh = walk_shape(N, lanes);
+  if (slots != walk_slots(sh)) return (int)cudaErrorInvalidValue;
+  constexpr int kVec = 16 / sizeof(T);
+  const bool wide = N % kVec == 0 &&
+                    ((uintptr_t)h_re | (uintptr_t)h_im | (uintptr_t)g_re |
+                     (uintptr_t)g_im | (uintptr_t)o_re | (uintptr_t)o_im) %
+                            16 == 0;
+  void (*kernel)(const WalkArgs<T>) =
+      wide ? cim_walk_kernel<T, kVec> : cim_walk_kernel<T, 1>;
+  constexpr int smem = kWalkStages * (int)sizeof(row_product::Stage<T>);
+  // Per device and form: the opt-in to the ring's shared memory and
+  // the CTAs the card holds at once.
+  static int resident[2][64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int held = dev < 64 ? resident[wide][dev] : 0;
+  if (held == 0) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kWalkThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    held = per_sm * sms;
+    if (held < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    if (dev < 64) resident[wide][dev] = held;
+  }
+  const int grid = sh.items < held ? sh.items : held;
+  WalkArgs<T> a{h_re,     h_im,    g_re,     g_im,     v_re, v_im,
+                v_step,   s_re,    s_im,     mask,     sbar_re, sbar_im,
+                vbbar_re, vbbar_im, o_re,    o_im,     part, bar,
+                steps,    sh};
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
+                                  dim3(kWalkThreads), args, (size_t)smem,
+                                  stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -883,10 +1325,15 @@ int launch_cim_vjp(const T* h_re, const T* h_im, const T* g_re,
 // fdlf_warp_plan), `part` is the product's [splits, 2, lanes, n] scratch; I1's
 // `j_re`/`j_im` are its [lanes, N] injection scratch.  J2 takes J1's
 // operands plus `inc_gt`/`inc_bt`, the other end's mutual admittance of each
-// incidence entry; I2 the staged A^H (`h_re`/`h_im` [N, N]), its product
-// scratch `part` like I1's, `sbar`/`vbbar` [lanes, N] added to in place and
-// `o_re`/`o_im` [lanes, N] written.  Returns the cudaError_t of the
-// launches.
+// incidence entry; I2 (`cim_vjp_walk`: `steps` iterations walked back
+// in one launch, one for a single call) the staged A^H (`h_re`/`h_im` [N,
+// N]), the first step's cotangent `g` [lanes, N], the iterate of step j at
+// `v + (steps - 1 - j) v_step`, `sbar`/`vbbar` [lanes, N] added to in
+// place, `o_re`/`o_im` [lanes, N] (each step's cotangent of its iterate;
+// the last step's is left there), `part` the walk's `slots` partial-sum
+// slots (solver_kernels.cim_walk_plan) and `bar` two uint32 (zeros before
+// the first launch on a stream; each launch leaves them so).  Returns the
+// cudaError_t of the launches.
 #define SOLVER_ENTRY_POINTS(T, SUFFIX)                                         \
   extern "C" int ybus_stamp_##SUFFIX(                                         \
       int mode, const int* inc_ptr, const int* inc_code, const int* inc_nbr,  \
@@ -942,16 +1389,16 @@ int launch_cim_vjp(const T* h_re, const T* h_im, const T* g_re,
                          th_free, v_free, status, out, lanes, n, m,          \
                          (cudaStream_t)stream);                              \
   }                                                                          \
-  extern "C" int cim_vjp_##SUFFIX(                                            \
+  extern "C" int cim_vjp_walk_##SUFFIX(                                       \
       const T* h_re, const T* h_im, const T* g_re, const T* g_im,             \
-      const T* v_re, const T* v_im, const T* s_re, const T* s_im,             \
-      const T* mask, T* sbar_re, T* sbar_im, T* vbbar_re, T* vbbar_im,        \
-      T* part, T* o_re, T* o_im, int lanes, int N, int splits,                \
-      void* stream) {                                                        \
-    return launch_cim_vjp<T>(h_re, h_im, g_re, g_im, v_re, v_im, s_re, s_im, \
-                             mask, sbar_re, sbar_im, vbbar_re, vbbar_im,     \
-                             part, o_re, o_im, lanes, N, splits,             \
-                             (cudaStream_t)stream);                          \
+      const T* v_re, const T* v_im, long long v_step, const T* s_re,          \
+      const T* s_im, const T* mask, T* sbar_re, T* sbar_im, T* vbbar_re,      \
+      T* vbbar_im, T* o_re, T* o_im, T* part, unsigned* bar, int lanes,       \
+      int N, int steps, int slots, void* stream) {                            \
+    return launch_cim_walk<T>(h_re, h_im, g_re, g_im, v_re, v_im, v_step,    \
+                              s_re, s_im, mask, sbar_re, sbar_im, vbbar_re,  \
+                              vbbar_im, o_re, o_im, part, bar, lanes, N,     \
+                              steps, slots, (cudaStream_t)stream);           \
   }
 
 SOLVER_ENTRY_POINTS(double, f64)

@@ -41,7 +41,9 @@ kernel gives the same bits on every run (no float atomics).
   in-transit vectors ``lb_round`` returns.  Its form (:func:`lb_form`)
   follows ``N``: the packed sort key below 2¹⁵ nodes, the WIDE key pair
   from there (the reference's unpacked branch) up to
-  :data:`LB_MAX_NODES`.
+  :data:`LB_MAX_NODES` — sorted on a thread-block cluster (form
+  :data:`CLUSTER`, a fleet's working set in the cluster's shared memory)
+  up to :func:`lb_cluster_capacity`, by one CTA in device memory above.
 """
 
 from __future__ import annotations
@@ -65,8 +67,9 @@ LAUNCHES: Dict[str, int] = {"form_groups": 0, "reach_closure": 0,
 _launch_lock = threading.Lock()
 
 #: The forms of G1 and B1: the working set in a CTA's shared memory, or in
-#: device memory; B1's WIDE form sorts a key pair (device memory).
-SHARED, GLOBAL, WIDE = "SHARED", "GLOBAL", "WIDE"
+#: device memory; B1's WIDE form sorts a key pair (one CTA, device
+#: memory), its CLUSTER form the same key pairs on a thread-block cluster.
+SHARED, GLOBAL, WIDE, CLUSTER = "SHARED", "GLOBAL", "WIDE", "CLUSTER"
 
 #: B1 packs a node's group id and index in 15 bits each of its sort key
 #: below this many nodes; from it on (where the reference takes its
@@ -76,6 +79,10 @@ LB_WIDE_NODES, _LB_MAX = build.constants("dgi.cu", "kLBWideNodes",
                                          "kLBMaxNodes")
 #: The most nodes B1 takes: the WIDE key's 30-bit group id.
 LB_MAX_NODES = _LB_MAX
+#: B1's CLUSTER form: CTAs a fleet, padded nodes a CTA holds at most,
+#: threads a CTA (``csrc/dgi.cu``).
+LB_CLUSTER_MAX, LB_CLUSTER_SHARE, LB_CLUSTER_THREADS = build.constants(
+    "dgi.cu", "kLBClusterMax", "kLBClusterShare", "kLBClusterThreads")
 
 
 def _count(name: str) -> None:
@@ -198,12 +205,53 @@ def lb_state_bytes(n: int, gw_size: int) -> int:
     return _align16(off + 4 * npad)
 
 
+def lb_cluster_smem(share: int, gw_size: int) -> int:
+    """B1's CLUSTER form's shared memory a CTA (``csrc/dgi.cu``
+    ``lb_cluster_layout``): the reduction buffer and four slots, then
+    ``share`` key words, indices, gateway values, segment starts and
+    lengths."""
+    start = _align16(128 + 16 + 12 * share + gw_size * share)
+    return start + 8 * share
+
+
+def lb_cluster_plan(n: int, gw_size: int) -> int:
+    """The CTAs of the cluster that holds a fleet of ``n`` nodes in B1's
+    CLUSTER form, or 0 where that form does not take it: below
+    :data:`LB_WIDE_NODES` (the packed forms) or above
+    :func:`lb_cluster_capacity`.  Always :data:`LB_CLUSTER_MAX` (16) CTAs,
+    ``lb_pad(n) / 16`` padded nodes each: on an H100 at 2¹⁶ nodes × 1 fleet
+    × 64 rounds 9.1 ms on 16 CTAs against 14.0 on 8; at 2¹⁵ × 4 fleets 5.35
+    / 7.48 / 11.9 ms on 16 / 8 / 4.  A function of ``(n, gw_size)``
+    alone."""
+    if n < LB_WIDE_NODES:
+        return 0
+    share = lb_pad(n) // LB_CLUSTER_MAX
+    if share > LB_CLUSTER_SHARE or \
+            lb_cluster_smem(share, gw_size) > SMEM_LIMIT:
+        return 0
+    return LB_CLUSTER_MAX
+
+
+def lb_cluster_capacity(gw_size: int) -> int:
+    """The most nodes B1's CLUSTER form takes with a ``gw_size``-byte
+    gateway: :data:`LB_CLUSTER_MAX` CTAs of :data:`LB_CLUSTER_SHARE`
+    padded nodes (2¹⁷ in float32 and float64), 0 where a share does not
+    fit a CTA's shared memory."""
+    if lb_cluster_smem(LB_CLUSTER_SHARE, gw_size) > SMEM_LIMIT:
+        return 0
+    return LB_CLUSTER_MAX * LB_CLUSTER_SHARE
+
+
 def lb_form(n: int, gw_size: int) -> str:
-    """The form B1 takes: WIDE from :data:`LB_WIDE_NODES` nodes; below,
-    SHARED while a fleet's working set fits a CTA's shared memory (n ≤
-    8192 in float64), else GLOBAL."""
+    """The form B1 takes, by shape alone (a route, not a fallback: a
+    launch that fails raises).  From :data:`LB_WIDE_NODES` nodes the WIDE
+    key pair: on a thread-block cluster (:data:`CLUSTER`) up to
+    :func:`lb_cluster_capacity` nodes, above it by one CTA in device
+    memory (:data:`WIDE`).  Below, the packed key: SHARED while a fleet's
+    working set fits a CTA's shared memory (n ≤ 8192 in float64), else
+    GLOBAL."""
     if n >= LB_WIDE_NODES:
-        return WIDE
+        return CLUSTER if lb_cluster_plan(n, gw_size) else WIDE
     return SHARED if 128 + lb_state_bytes(n, gw_size) <= SMEM_LIMIT else GLOBAL
 
 
@@ -413,7 +461,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
-_LB_SIG = [_P, _P, _P, _L, _P, _L, _P, _L, _D] + [_P] * 8 + [_I] * 3 + [_P]
+_LB_SIG = [_P, _P, _P, _L, _P, _L, _P, _L, _D] + [_P] * 8 + [_I] * 4 + [_P]
 _SIGS = {
     "form_groups_shared": [_P, _L, _P, _P] + [_P] * 6 + [_I, _I, _P],
     "form_groups_global": [_P, _L, _P, _P] + [_P] * 9 + [_I, _I, _P],
@@ -606,11 +654,12 @@ def lb_rounds(net_generation: Tensor, gateway: Tensor, gid: Tensor,
               malicious: Optional[Tensor] = None,
               gate: Optional[Tensor] = None,
               round_outputs: bool = False) -> LBLanes:
-    """B1: ``n_rounds`` LB rounds of ``B`` fleets in one launch, one CTA a
-    fleet.  ``net_generation``, ``gateway [B, N]`` (float32 or float64
-    each), ``gid`` the fleets' group ids (:func:`~freedm_tpu_torch.modules.
-    lb.group_ids`; int32 ``[N]`` shared or ``[B, N]``), ``malicious``
-    (float32) and ``gate`` (bool) likewise, or None."""
+    """B1: ``n_rounds`` LB rounds of ``B`` fleets in one launch, one CTA
+    (a cluster in form :data:`CLUSTER`) a fleet.  ``net_generation``,
+    ``gateway [B, N]`` (float32 or float64 each), ``gid`` the fleets'
+    group ids (:func:`~freedm_tpu_torch.modules.lb.group_ids`; int32
+    ``[N]`` shared or ``[B, N]``), ``malicious`` (float32) and ``gate``
+    (bool) likewise, or None."""
     if not _on_card(gateway, "lb_rounds"):
         return lb_rounds_plain(net_generation, gateway, gid, migration_step,
                                n_rounds, malicious, gate, round_outputs)
@@ -645,8 +694,9 @@ def lb_rounds(net_generation: Tensor, gateway: Tensor, gid: Tensor,
         out_gw.copy_(gw)
         return LBLanes(out_gw, migs, states)
     form = lb_form(n, gw.element_size())
+    cluster = lb_cluster_plan(n, gw.element_size()) if form == CLUSTER else 0
     scratch = None
-    if form != SHARED:
+    if form in (GLOBAL, WIDE):
         scratch = torch.empty(lanes, lb_state_bytes(n, gw.element_size()),
                               dtype=torch.uint8, device=dev)
     suffix = _LB_SUFFIX[(ng.dtype, gw.dtype)]
@@ -656,7 +706,7 @@ def lb_rounds(net_generation: Tensor, gateway: Tensor, gid: Tensor,
             _ptr(mal), mal_stride, _ptr(gate), gate_stride,
             float(migration_step), out_gw.data_ptr(), migs.data_ptr(),
             states.data_ptr(), *(_ptr(t) for t in extra), _ptr(scratch),
-            n, rounds, lanes, _stream(gw))
+            n, rounds, lanes, cluster, _stream(gw))
     _raise_on(rc, "lb_rounds")
     _count("lb_rounds")
     return LBLanes(out_gw, migs, states, *extra)

@@ -21,9 +21,11 @@ wrapper                     replaces                                       route
                             injections under ``jax.grad`` of the fixed
                             solves (``pf/newton.py:341-352``,
                             ``pf/krylov.py:594``, ``pf/fdlf.py:207``)
-:func:`cim_vjp`             the reverse mode of one ``_iterate``           CUDA
-                            (``freedm_tpu/pf/cim.py:163``) under
-                            ``jax.grad`` of ``_solve_fixed`` (:215)
+:func:`cim_vjp`,            the reverse mode of ``_iterate``               CUDA
+:func:`cim_vjp_walk`        (``freedm_tpu/pf/cim.py:163``) under
+                            ``jax.grad`` of ``_solve_fixed`` (:215): one
+                            iteration, or every iteration of a backward in
+                            one launch
 ==========================  =============================================  =====
 
 All six live in ``csrc/solvers.cu`` (float64 and float32).  As in the
@@ -40,8 +42,11 @@ n]``.  J1 takes the sparse backend's
 incidence list with each entry's mutual and self admittance) and returns
 ``[B, 2n]``.  I1 works on the three-phase load-node voltages as (re, im)
 pairs of ``[B, N]`` tensors, ``N = 3 nb``.  J2 is J1's transpose on the
-same operands plus :class:`VjpOperands`; I2 walks one I1 iteration back
-on the staged ``Aᴴ`` (:func:`cim_adjoint_matrix`).
+same operands plus :class:`VjpOperands`; I2 walks I1's iterations back
+on the staged ``Aᴴ`` (:func:`cim_adjoint_matrix`): one a call
+(:func:`cim_vjp`), or the saved iterates ``vs [k + 1, 2, B, N]`` of a
+whole fixed solve in one launch (:func:`cim_vjp_walk`, a function of the
+shape alone: :func:`cim_walk_plan`).
 """
 
 from __future__ import annotations
@@ -54,7 +59,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from freedm_tpu_torch.kernels import build
-from freedm_tpu_torch.kernels.newton_kernels import (injections_plain,
+from freedm_tpu_torch.kernels.newton_kernels import (TILE_K, TILE_LANES,
+                                                     TILE_ROWS,
+                                                     injections_plain,
                                                      product_scratch)
 from freedm_tpu_torch.kernels.sparse_kernels import (SparseOperands,
                                                      _launch_on, _need_cuda,
@@ -97,6 +104,9 @@ FDLF_MAX_ROWS, FDLF_WARP_SMEM = build.constants("solvers.cu", "kF1MaxRows",
                                                 "kF1SmemMax")
 FDLF_WARP_MAX_N = {torch.float64: FDLF_WARP_SMEM // 16,
                    torch.float32: FDLF_WARP_SMEM // 8}
+#: I2's work items a product phase (``csrc/solvers.cu``): one resident CTA
+#: on each of an H100's 132 SMs.
+(WALK_ITEMS,) = build.constants("solvers.cu", "kWalkItems")
 _MODES = {"ybus_stamp": ("YBUS", "BPRIME", "BDBL"),
           "fdlf_half_step": ("INIT", "THETA", "V"),
           "residual_vjp": ("MASKED", "FULL")}
@@ -462,6 +472,67 @@ def cim_vjp_plain(h_re, h_im, g_re, g_im, v_re, v_im, s_re, s_im, mask,
     return o_re, o_im
 
 
+def cim_vjp_walk_plain(h_re, h_im, g_re, g_im, vs, s_re, s_im, mask,
+                       steps: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """I2's walk in plain PyTorch: ``steps`` calls of :func:`cim_vjp_plain`
+    from the iterate ``vs[steps − 1]`` down to ``vs[0]`` (``vs [≥ steps,
+    2, B, N]``, as :class:`~freedm_tpu_torch.pf.adjoint.CimFixed` saves
+    them), the first on the masked cotangent ``g``; returns ``(sbar_re,
+    sbar_im, vbbar_re, vbbar_im)``, ``vbbar`` starting at ``g``."""
+    sbar_re, sbar_im = torch.zeros_like(s_re), torch.zeros_like(s_re)
+    vbbar_re, vbbar_im = g_re.clone(), g_im.clone()
+    for k in reversed(range(steps)):
+        g_re, g_im = cim_vjp_plain(h_re, h_im, g_re, g_im, vs[k, 0], vs[k, 1],
+                                   s_re, s_im, mask, sbar_re, sbar_im,
+                                   vbbar_re, vbbar_im)
+    return sbar_re, sbar_im, vbbar_re, vbbar_im
+
+
+class CimWalkPlan(NamedTuple):
+    """I2's product split (``csrc/solvers.cu`` ``walk_shape``): the
+    ``units`` (tile, K stage) pairs — tile ``t = row tile × lane_tiles +
+    lane tile`` of 64 rows × 64 lanes, ``stages`` of 16 columns each —
+    cut into ``items`` even runs, item ``w`` the units ``[units·w //
+    items, units·(w+1) // items)``; its sums over tile ``t`` go to slot
+    ``w + t`` of ``slots``.  A function of ``(n, lanes)`` alone."""
+
+    row_tiles: int
+    lane_tiles: int
+    stages: int
+    units: int
+    items: int
+    slots: int
+
+    def item_units(self, w: int) -> Tuple[int, int]:
+        """Item ``w``'s run ``[u0, u1)`` of units."""
+        return (self.units * w // self.items,
+                self.units * (w + 1) // self.items)
+
+    def item_of(self, u: int) -> int:
+        """The item whose run holds unit ``u``."""
+        return ((u + 1) * self.items - 1) // self.units
+
+    def tile_items(self, t: int) -> Tuple[int, int]:
+        """The first and last item over tile ``t``'s stages: the reduce
+        adds their slots in this order."""
+        u = t * self.stages
+        return self.item_of(u), self.item_of(u + self.stages - 1)
+
+
+def cim_walk_plan(n: int, lanes: int) -> CimWalkPlan:
+    """I2's :class:`CimWalkPlan` at ``[n, n] × lanes``."""
+    if n <= 0 or lanes <= 0:
+        raise ValueError(f"cim_walk_plan needs n, lanes > 0, got {n}, "
+                         f"{lanes}")
+    row_tiles = -(-n // TILE_ROWS)
+    lane_tiles = -(-lanes // TILE_LANES)
+    stages = -(-n // TILE_K)
+    units = row_tiles * lane_tiles * stages
+    items = min(WALK_ITEMS, units)
+    return CimWalkPlan(row_tiles, lane_tiles, stages, units, items,
+                       items + row_tiles * lane_tiles - 1)
+
+
 def cim_iterate_plain(a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im, mask,
                       err, it, active, tol: Tensor, max_iter: int,
                       fixed: bool) -> Tuple[Tensor, Tensor]:
@@ -508,7 +579,7 @@ _SIGS = {
     "residual_jvp": [_P] * 15 + [_I] * 3 + [_P],
     "cim_iterate": [_P] * 19 + [_I] * 5 + [_P],
     "residual_vjp": [_I] + [_P] * 17 + [_I] * 3 + [_P],
-    "cim_vjp": [_P] * 16 + [_I] * 3 + [_P],
+    "cim_vjp_walk": [_P] * 6 + [_L] + [_P] * 11 + [_I] * 4 + [_P],
 }
 
 
@@ -570,6 +641,23 @@ def _lane_tickets(device: torch.device, stream: int, lanes: int) -> Tensor:
                 _tickets.clear()
             t = _tickets[key] = torch.zeros(max(lanes, 64), 2,
                                             dtype=torch.int32, device=device)
+    return t
+
+
+#: I2's grid barrier (two uint32: arrivals, generation) by (device,
+#: stream): zeros that every launch leaves as it found them.
+_barriers: Dict[Tuple[int, int], Tensor] = {}
+
+
+def _walk_barrier(device: torch.device, stream: int) -> Tensor:
+    key = (device.index, stream)
+    with _launch_lock:
+        t = _barriers.get(key)
+        if t is None:
+            if len(_barriers) >= 64:
+                _barriers.clear()
+            t = _barriers[key] = torch.zeros(2, dtype=torch.int32,
+                                             device=device)
     return t
 
 
@@ -796,33 +884,80 @@ def cim_vjp(h_re, h_im, g_re, g_im, v_re, v_im, s_re, s_im, mask, sbar_re,
     the masked cotangent of ``v`` as ``(re, im)`` ``[B, N]`` and adds to
     ``sbar`` and ``vbbar`` in place.  ``h = Aᴴ`` is ``[N, N]``
     (:func:`cim_adjoint_matrix`), every other tensor ``[B, N]`` but the
-    phase mask ``[N]``."""
+    phase mask ``[N]``.  On the card: the walk's kernel with one step."""
     if v_re.device.type == "cpu":
         return cim_vjp_plain(h_re, h_im, g_re, g_im, v_re, v_im, s_re, s_im,
                              mask, sbar_re, sbar_im, vbbar_re, vbbar_im)
     _need_cuda(v_re, "cim_vjp")
-    dt = v_re.dtype
     lanes, big_n = v_re.shape
     lane = (lanes, big_n)
+    tensors = {"v_re": (v_re, lane), "v_im": (v_im, lane)}
+    o_re, o_im = torch.empty_like(v_re), torch.empty_like(v_re)
+    _walk_launch(h_re, h_im, g_re, g_im, v_re, v_im, 0, s_re, s_im, mask,
+                 sbar_re, sbar_im, vbbar_re, vbbar_im, o_re, o_im, 1,
+                 tensors, lane)
+    return o_re, o_im
+
+
+def cim_vjp_walk(h_re, h_im, g_re, g_im, vs, s_re, s_im, mask, steps: int
+                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """I2 over a whole backward (:func:`cim_vjp_walk_plain`): ``steps``
+    iterations walked back from ``vs[steps − 1]`` to ``vs[0]`` in one
+    launch; returns ``(sbar_re, sbar_im, vbbar_re, vbbar_im)``.  ``vs``
+    is ``[≥ steps, 2, B, N]`` contiguous (the iterates
+    :class:`~freedm_tpu_torch.pf.adjoint.CimFixed` saves), ``g`` the masked
+    cotangent of the last iterate ``[B, N]``.  On CPU tensors the plain
+    per-iteration loop."""
+    if vs.device.type == "cpu":
+        return cim_vjp_walk_plain(h_re, h_im, g_re, g_im, vs, s_re, s_im,
+                                  mask, steps)
+    _need_cuda(vs, "cim_vjp_walk")
+    steps = int(steps)
+    if vs.dim() != 4 or vs.shape[1] != 2 or not vs.is_contiguous() \
+            or not 1 <= steps <= vs.shape[0]:
+        raise ValueError(f"cim_vjp_walk needs vs [>= steps, 2, B, N] "
+                         f"contiguous and steps >= 1, got "
+                         f"{tuple(vs.shape)} and {steps}")
+    lanes, big_n = int(vs.shape[2]), int(vs.shape[3])
+    lane = (lanes, big_n)
+    sbar_re, sbar_im = torch.zeros_like(s_re), torch.zeros_like(s_re)
+    vbbar_re, vbbar_im = g_re.clone(), g_im.clone()
+    o_re, o_im = torch.empty_like(s_re), torch.empty_like(s_re)
+    _walk_launch(h_re, h_im, g_re, g_im, vs[0, 0], vs[0, 1], 2 * lanes * big_n,
+                 s_re, s_im, mask, sbar_re, sbar_im, vbbar_re, vbbar_im,
+                 o_re, o_im, steps, {"vs": (vs, tuple(vs.shape))}, lane)
+    return sbar_re, sbar_im, vbbar_re, vbbar_im
+
+
+def _walk_launch(h_re, h_im, g_re, g_im, v_re, v_im, v_step, s_re, s_im,
+                 mask, sbar_re, sbar_im, vbbar_re, vbbar_im, o_re, o_im,
+                 steps, tensors, lane) -> None:
+    """Check I2's operands and launch its walk (one count)."""
+    dt = s_re.dtype
+    lanes, big_n = lane
     spec = {"h_re": (h_re, dt, (big_n, big_n)),
             "h_im": (h_im, dt, (big_n, big_n)), "mask": (mask, dt, (big_n,))}
-    for name, t in (("g_re", g_re), ("g_im", g_im), ("v_re", v_re),
-                    ("v_im", v_im), ("s_re", s_re), ("s_im", s_im),
-                    ("sbar_re", sbar_re), ("sbar_im", sbar_im),
-                    ("vbbar_re", vbbar_re), ("vbbar_im", vbbar_im)):
+    for name, t in (("g_re", g_re), ("g_im", g_im), ("s_re", s_re),
+                    ("s_im", s_im), ("sbar_re", sbar_re),
+                    ("sbar_im", sbar_im), ("vbbar_re", vbbar_re),
+                    ("vbbar_im", vbbar_im)):
         spec[name] = (t, dt, lane)
-    _want(v_re, spec)
-    fn = _fn("cim_vjp", dt)
-    ctx, stream = _launch_on(v_re)
+    for name, (t, shape) in tensors.items():
+        spec[name] = (t, dt, shape)
+    _want(s_re, spec)
+    plan = cim_walk_plan(big_n, lanes)
+    fn = _fn("cim_vjp_walk", dt)
+    ctx, stream = _launch_on(s_re)
     with ctx:
-        o_re, o_im = torch.empty_like(v_re), torch.empty_like(v_re)
-        splits, part = product_scratch(big_n, lanes, dt, v_re.device)
+        part = torch.empty(plan.slots, 2, TILE_LANES, TILE_ROWS, dtype=dt,
+                           device=s_re.device)
+        bar = _walk_barrier(s_re.device, stream)
         rc = fn(h_re.data_ptr(), h_im.data_ptr(), g_re.data_ptr(),
                 g_im.data_ptr(), v_re.data_ptr(), v_im.data_ptr(),
-                s_re.data_ptr(), s_im.data_ptr(), mask.data_ptr(),
-                sbar_re.data_ptr(), sbar_im.data_ptr(), vbbar_re.data_ptr(),
-                vbbar_im.data_ptr(), part.data_ptr(), o_re.data_ptr(),
-                o_im.data_ptr(), lanes, big_n, splits, stream)
+                int(v_step), s_re.data_ptr(), s_im.data_ptr(),
+                mask.data_ptr(), sbar_re.data_ptr(), sbar_im.data_ptr(),
+                vbbar_re.data_ptr(), vbbar_im.data_ptr(), o_re.data_ptr(),
+                o_im.data_ptr(), part.data_ptr(), bar.data_ptr(), lanes,
+                big_n, steps, plan.slots, stream)
     _raise_on(rc, "cim_vjp")
     _count("cim_vjp")
-    return o_re, o_im

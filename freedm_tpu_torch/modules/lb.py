@@ -15,8 +15,10 @@ in-flight ledger feeds :mod:`freedm_tpu_torch.modules.sc`.
 On the card a round is B1 ``lb_rounds``
 (:mod:`freedm_tpu_torch.kernels.dgi_kernels`), and :func:`run_rounds`
 runs every round in that one launch, the gateway kept on chip; from 2¹⁵
-nodes (the reference's unpacked branch) B1 takes its WIDE form, so any
-``N`` up to ``dk.LB_MAX_NODES`` that fits the card runs.  The
+nodes (the reference's unpacked branch) B1 sorts its WIDE key pairs — on
+a thread-block cluster up to ``dk.lb_cluster_capacity`` nodes, by one
+CTA above — so any ``N`` up to ``dk.LB_MAX_NODES`` that fits the card
+runs.  The
 ``[N, N]`` ``matched`` matrix of :func:`lb_round` is one broadcast
 compare of the ranks and group ids B1 writes.  :func:`group_ids` is
 hoisted out of the rounds, as the reference does; :func:`_group_rank`
@@ -86,8 +88,12 @@ def group_ids(group_mask: Tensor) -> Tensor:
     index of its group.  ``group_mask`` is gm's membership matrix — an
     equivalence relation, so equal ids ⟺ same group."""
     n = group_mask.shape[-1]
-    idx = torch.arange(n, dtype=torch.int32, device=group_mask.device)
-    gid = torch.amin(torch.where(group_mask > 0, idx, n), dim=-1)
+    idx = torch.arange(n, device=group_mask.device)
+    # The first member of each row (torch.max returns the first index of
+    # a row's largest value) — one byte an entry, where the reference's
+    # min over where(mask > 0, idx, n) forms N² indices.
+    hit, first = torch.max((group_mask > 0).view(torch.uint8), dim=-1)
+    gid = torch.where(hit > 0, first, n)
     # A node is always in its own group even if the mask's diagonal is 0.
     return torch.minimum(gid, idx).to(torch.int32)
 

@@ -360,12 +360,13 @@ class FdlfFixed(torch.autograd.Function):
 class CimRoute(NamedTuple):
     """What :class:`CimFixed` needs of a CIM solver: ``iterate(v_re, v_im,
     s_re, s_im, vb_re, vb_im, err, it, active, out)`` (I1 in fixed mode,
-    writing ``v_new`` into ``out``), ``vjp`` (I2 or its plain version),
-    the staged ``Aᴴ`` (``h_re``, ``h_im``), the phase mask and the
-    iteration count."""
+    writing ``v_new`` into ``out``), ``walk`` (I2's walk over the saved
+    iterates, ``cim_vjp_walk``, or its plain per-iteration loop), the
+    staged ``Aᴴ`` (``h_re``, ``h_im``), the phase mask and the iteration
+    count."""
 
     iterate: Callable
-    vjp: Callable
+    walk: Callable
     h_re: Tensor
     h_im: Tensor
     mask: Tensor
@@ -375,7 +376,8 @@ class CimRoute(NamedTuple):
 class CimFixed(torch.autograd.Function):
     """``apply(s_re, s_im, vb_re, vb_im, route) -> (v_re, v_im, err)``:
     ``max_iter`` current-injection iterations on every lane from ``v_base``
-    (I1), saving every iterate; backward walks them back on I2 (route A).
+    (I1), saving every iterate; backward walks them back on I2 (route A),
+    every iteration in one launch on the card.
     ``err`` gets no gradient."""
 
     @staticmethod
@@ -410,10 +412,6 @@ class CimFixed(torch.autograd.Function):
             return zero, zero.clone(), g_re, g_im, None
         gm_re = (g_re * r.mask).contiguous()
         gm_im = (g_im * r.mask).contiguous()
-        sbar_re, sbar_im = torch.zeros_like(s_re), torch.zeros_like(s_re)
-        vbbar_re, vbbar_im = gm_re.clone(), gm_im.clone()
-        for k in reversed(range(k_max)):
-            gm_re, gm_im = r.vjp(r.h_re, r.h_im, gm_re, gm_im, vs[k, 0],
-                                 vs[k, 1], s_re, s_im, r.mask, sbar_re,
-                                 sbar_im, vbbar_re, vbbar_im)
+        sbar_re, sbar_im, vbbar_re, vbbar_im = r.walk(
+            r.h_re, r.h_im, gm_re, gm_im, vs, s_re, s_im, r.mask, k_max)
         return sbar_re, sbar_im, vbbar_re, vbbar_im, None

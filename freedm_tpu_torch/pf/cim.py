@@ -214,7 +214,8 @@ def make_cim_solver(
             adjoint_a.append(sol.cim_adjoint_matrix(a_re, a_im))
         h_re, h_im = adjoint_a[0]
         route = adj.CimRoute(iterate,
-                             sol.cim_vjp_plain if plain else sol.cim_vjp,
+                             sol.cim_vjp_walk_plain if plain
+                             else sol.cim_vjp_walk,
                              h_re, h_im, mask, max_iter)
         v_re, v_im, err = adj.CimFixed.apply(s.re, s.im, vb.re, vb.im,
                                              route)

@@ -3,11 +3,13 @@
 ``gmres_block_orth``, S4 ``gmres_lstsq``, K3 ``newton_update``, K1
 ``newton_assemble``, K2 ``power_injections``, I1 ``cim_iterate``, F1
 ``fdlf_half_step`` in its tile mode, the serving cache's delta program
-(C1), L1 ``ladder_solve`` and L3 ``ladder_dense`` of this checkout
-against those of other checkouts of the repo, in turns on one card.
+(C1), L1 ``ladder_solve``, L3 ``ladder_dense``, I2 ``cim_vjp`` and B1
+``lb_rounds`` from 2¹⁵ nodes of this checkout against those of other
+checkouts of the repo, in turns on one card.
 
     python3 kernel_ab.py OTHER [OTHER ...]
-                         [--sections sparse,delta,newton,solvers,ladder,dense]
+                         [--sections sparse,delta,newton,solvers,ladder,
+                                     dense,i2,wide]
                          [--out FILE]
 
 Each ``OTHER`` is the root of another checkout, for example one written
@@ -95,6 +97,22 @@ operands (``dense_operands``) from the same feeder and loads (phase 28's
 iterations), the reverse mode's cotangents within ``GRAD_RTOL`` of the
 largest in float64 (``DENSE_F32_RTOL`` in float32).
 
+The ``i2`` section times I2 on the CIM feeder × 64 lanes
+(``chip_smoke.cim_walk_inputs``: the iterates of 60 fixed iterations from
+the no-load profile, a seeded masked cotangent), float64, by queued
+events: one call at the last iterate (``cim_vjp``), and a whole backward
+over the 60 iterates — ``cim_vjp_walk`` where the checkout has it (one
+launch), else the 60 calls in a row its ``CimFixed`` made.  The call's
+outputs and the backward's load and ``v_base`` cotangents agree within
+``chip_smoke.KERNEL_ATOL`` of the largest entry (``i2_*_max_abs``,
+``i2_*_same_bits`` printed).
+
+The ``wide`` section times B1 at ``WIDE_SHAPES`` (``chip_smoke.WIDE_SHAPES``:
+2¹⁵ × 4 fleets, 40,961 × 1 and 2¹⁶ × 1, 64 rounds of ``bench_lb_256``'s
+draw, float32) by CUDA events around each call, each checkout on its own
+route (this checkout's ``lb_form``: CLUSTER); the gateways, migrations
+and states of the checkouts are the same bits.
+
 Prints the card's name and power limit, one line per turn and a JSON
 summary as the last line (also written to ``--out``).  Needs a CUDA card.
 """
@@ -116,7 +134,8 @@ DTYPES = ("float64", "float32")
 KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "sparse_assemble_residual", "sparse_matvec", "gmres_block_orth",
            "gmres_lstsq", "newton_update")
-SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder", "dense")
+SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder", "dense", "i2",
+            "wide")
 SOLVER_KERNELS = ("cim_iterate", "fdlf_half_step", "fdlf_half_step_warp",
                   "power_injections_lanes")
 #: The ``ladder`` section's L1 shapes: (feeder, lanes, dtype).
@@ -417,6 +436,61 @@ def measure_dense(torch, cs, dev):
     return times, outs
 
 
+def measure_i2(torch, cs, dev):
+    """I2 on the CIM feeder × 64: a call at the last iterate and a whole
+    backward over ``CIM_WALK_STEPS`` iterates (the walk, or the calls in a
+    row of a checkout without it), by queued events, and their
+    outputs."""
+    from freedm_tpu_torch.kernels import solver_kernels as sol
+
+    f, ties = cs.cim_feeder()
+    steps = cs.CIM_WALK_STEPS
+    h, g, vs, s, mask = cs.cim_walk_inputs(torch, sol, f, ties, cs.CIM_LANES,
+                                           steps, dev)
+    acc = [torch.zeros_like(s[0]) for _ in range(4)]
+
+    def call():
+        return sol.cim_vjp(*h, *g, vs[steps - 1, 0], vs[steps - 1, 1], *s,
+                           mask, *acc)
+
+    def backward():
+        if hasattr(sol, "cim_vjp_walk"):
+            return sol.cim_vjp_walk(*h, *g, vs, *s, mask, steps)
+        out = [torch.zeros_like(s[0]), torch.zeros_like(s[0]), g[0].clone(),
+               g[1].clone()]
+        gk = g
+        for k in reversed(range(steps)):
+            gk = sol.cim_vjp(*h, *gk, vs[k, 0], vs[k, 1], *s, mask, *out)
+        return out
+
+    outs = {"call": [x.cpu() for x in call()] + [x.cpu() for x in acc],
+            "backward": [x.cpu() for x in backward()]}
+    times = {"call": cs.queued_events_ms(torch, call, 20),
+             f"backward_{steps}": cs.queued_events_ms(torch, backward, 5),
+             "form": "walk" if hasattr(sol, "cim_vjp_walk") else "calls"}
+    return times, outs
+
+
+def measure_wide(torch, cs, dev):
+    """B1 at ``chip_smoke.WIDE_SHAPES`` over ``WIDE_ROUNDS`` rounds by
+    CUDA events, and its outputs."""
+    from freedm_tpu_torch.kernels import dgi_kernels as dk
+
+    times, outs = {}, {}
+    for n, fleets in cs.WIDE_SHAPES:
+        ng, gw, gid = cs.wide_inputs(torch, n, fleets, dev)
+
+        def call():
+            return dk.lb_rounds(ng, gw, gid, 1.0, cs.WIDE_ROUNDS)
+        key = f"{n}x{fleets}"
+        out = call()
+        outs[key] = [out.gateway.cpu(), out.migrations.cpu(),
+                     out.states.cpu()]
+        times[key] = cs.events_ms(torch, call, 5)
+        times[key + "_form"] = dk.lb_form(n, 4)
+    return times, outs
+
+
 def assemble_fns(torch, sk, x, ps, qs, op) -> dict:
     """S1's modes as ``KERNELS`` names them, each a call returning its
     outputs (``values_f32`` only for float64); the stand-ins of a checkout
@@ -478,6 +552,10 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
         times["ladder"], outs["ladder"] = measure_ladder(torch, cs, dev)
     if "dense" in sections:
         times["dense"], outs["dense"] = measure_dense(torch, cs, dev)
+    if "i2" in sections:
+        times["i2"], outs["i2"] = measure_i2(torch, cs, dev)
+    if "wide" in sections:
+        times["wide"], outs["wide"] = measure_wide(torch, cs, dev)
     if "delta" in sections:
         times["delta"], outs["delta"] = measure_delta(torch, cs, sys_,
                                                       data["delta"], dev)
@@ -682,6 +760,20 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
                  f"(iterations {outs[6].tolist()[:4]} vs "
                  f"{other[6].tolist()[:4]})")
         errs[f"ladder_dense_{key}_max_abs"] = d
+    for key, outs in a.get("i2", {}).items():
+        other = b["i2"][key]
+        d = max(cs.max_err(x, y) / max(1.0, float(y.abs().max()))
+                for x, y in zip(outs, other))
+        cs.check(d <= cs.KERNEL_ATOL,
+                 f"{label}: I2 {key} outputs {d:.3e} from this checkout's")
+        errs[f"i2_{key}_max_abs"] = d
+        errs[f"i2_{key}_same_bits"] = all(
+            cs.same_bits(torch, x, y) for x, y in zip(outs, other))
+    for key, outs in a.get("wide", {}).items():
+        same = all(torch.equal(x, y) for x, y in zip(outs, b["wide"][key]))
+        cs.check(same, f"{label}: B1 {key} outputs differ from this "
+                 f"checkout's")
+        errs[f"wide_{key}_same_bits"] = same
     for key, (ta, va, sa) in a.get("delta", {}).items():
         tb, vb, sb = b["delta"][key]
         d = max(float((ta - tb).abs().max()), float((va - vb).abs().max()))
@@ -727,7 +819,8 @@ def main() -> int:
                          "solves), delta (the delta program), newton (K1 "
                          "and K2), solvers (I1, F1's tile mode and warp "
                          "form, K2's per-lane form), ladder (L1), dense "
-                         "(L3)")
+                         "(L3), i2 (I2 a call and a backward), wide (B1 "
+                         "from 2^15 nodes)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
@@ -763,7 +856,9 @@ def main() -> int:
                         "1; K2 per-lane mesh118 x 118; L1 radial10k x "
                         "{1, 64} f64/f32, vvc_9bus x 64, 20 iterations; "
                         "L3 radial2048 x 64 f64/f32, vvc_9bus x 64, 20 "
-                        "iterations, fixed, solve and reverse",
+                        "iterations, fixed, solve and reverse; I2 the CIM "
+                        "feeder x 64, a call and a 60-iteration backward; "
+                        "B1 2^15 x 4, 40961 x 1, 2^16 x 1, 64 rounds",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
@@ -806,6 +901,17 @@ def main() -> int:
                 for key, dev in times.get("dense", {}).items():
                     print(f"ab {other.name} ladder_dense {key:<34} {which:<5}"
                           f" device (queued events) {dev:.4f} ms", flush=True)
+                for key, dev in times.get("i2", {}).items():
+                    if key != "form":
+                        print(f"ab {other.name} cim_vjp {key:<14} {which:<5} "
+                              f"({times['i2']['form']}) device (queued "
+                              f"events) {dev:.4f} ms", flush=True)
+                for key, ms in times.get("wide", {}).items():
+                    if not key.endswith("_form"):
+                        print(f"ab {other.name} lb_rounds {key:<12} {which:<5}"
+                              f" ({times['wide'][key + '_form']}) "
+                              f"{cs.WIDE_ROUNDS} rounds {ms:.3f} ms",
+                              flush=True)
                 for name in DTYPES:
                     for kern in KERNELS:
                         if kern not in times.get(name, {}):

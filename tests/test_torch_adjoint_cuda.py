@@ -1,6 +1,7 @@
 """The reverse modes of the fixed solves on the card: J2
 ``residual_vjp`` in both modes, with and without status, and I2
-``cim_vjp`` against their plain PyTorch versions (float64, 1e-10 of the
+``cim_vjp`` (a call, and its walk over a backward's saved iterates in
+one launch) against their plain PyTorch versions (float64, 1e-10 of the
 largest entry), bit-identical on repeat; J2 against J1 by ``⟨w, J u⟩ =
 ⟨Jᵀ w, u⟩``; and each autograd Function of ``freedm_tpu_torch.pf.adjoint``
 — dense, sparse (f64 and mixed) and matrix-free Newton, FDLF and the CIM
@@ -120,6 +121,69 @@ def test_i2_matches_plain_version(cuda_device, feeder, lanes):
         scale = max(1.0, float(p.abs().max()))
         assert float((k - p).abs().max()) <= ATOL * scale
         assert _same_bits(k, again)
+
+
+def _walk_inputs(f, ties, lanes, steps, device, seed=0):
+    """I2's walk operands: random iterates near 1 pu (0 where the phase
+    mask is), loads, a masked cotangent and the staged Aᴴ."""
+    h, g, _, s, mask = _cim_inputs(f, ties, lanes, device, seed)
+    big_n = mask.shape[0]
+    rng = np.random.default_rng(seed + 1)
+    vs = torch.as_tensor(rng.normal(1.0, 0.05, (steps + 1, 2, lanes, big_n)),
+                         device=device) * mask
+    return h, g, vs, s, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feeder", ["vvc_9bus", "radial300"])
+@pytest.mark.parametrize("lanes", [1, 3, 64, 65])
+def test_i2_walk_matches_chained_calls(cuda_device, feeder, lanes):
+    """I2's walk over 12 saved iterates in one launch: within ``ATOL`` of
+    the chained plain calls, the bits of the chained single calls of its
+    kernel, and bit-identical on repeat (3 and 65 lanes: ragged lane
+    tiles)."""
+    f = cases.vvc_9bus() if feeder == "vvc_9bus" else synthetic_radial(
+        300, seed=0, load_kw=1.0)
+    ties = [TIE_5_8] if feeder == "vvc_9bus" else []
+    steps = 12
+    h, g, vs, s, mask = _walk_inputs(f, ties, lanes, steps, cuda_device)
+    args = (*h, *g, vs, *s, mask, steps)
+    sol.reset_launches()
+    got = sol.cim_vjp_walk(*args)
+    torch.cuda.synchronize()
+    assert sol.launches()["cim_vjp"] == 1
+    again = sol.cim_vjp_walk(*args)
+    want = sol.cim_vjp_walk_plain(*args)
+    chain = [torch.zeros_like(s[0]), torch.zeros_like(s[0]), g[0].clone(),
+             g[1].clone()]
+    gk = g
+    for k in reversed(range(steps)):
+        gk = sol.cim_vjp(*h, *gk, vs[k, 0], vs[k, 1], *s, mask, *chain)
+    torch.cuda.synchronize()
+    for k, p, a2, c in zip(got, want, again, chain):
+        scale = max(1.0, float(p.abs().max()))
+        assert float((k - p).abs().max()) <= ATOL * scale
+        assert _same_bits(k, a2)
+        assert _same_bits(k, c)
+
+
+@pytest.mark.cuda
+def test_cim_backward_launches_i2_once(cuda_device):
+    """A CIM ``solve_fixed`` backward on the card walks every iteration in
+    one I2 launch."""
+    f = cases.vvc_9bus()
+    s = np.linspace(0.7, 1.3, 5)[:, None, None] * f.s_load[None]
+    fixed = make_cim_solver(f, ties=[TIE_5_8], max_iter=40,
+                            device=cuda_device)[1]
+    p = torch.as_tensor(s.real, device=cuda_device).requires_grad_(True)
+    q = torch.as_tensor(s.imag, device=cuda_device)
+    v = fixed(C(p, q)).v_node
+    loss = ((v.re ** 2 + v.im ** 2) ** 2).sum()
+    sol.reset_launches()
+    (g,) = torch.autograd.grad(loss, p)
+    torch.cuda.synchronize()
+    assert sol.launches()["cim_vjp"] == 1
+    assert bool(torch.isfinite(g).all())
 
 
 def _grads(fixed, loss, args):

@@ -122,7 +122,7 @@ def wide_fleets(n, fleets, dtypes, device, seed=0):
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.float64, torch.float64)])
 def test_b1_wide_matches_plain_on_card(cuda_device, n, fleets, dtypes):
-    assert dk.lb_form(n, dtypes[1].itemsize) == dk.WIDE
+    assert dk.lb_form(n, dtypes[1].itemsize) == dk.CLUSTER
     ng, gw, gid = wide_fleets(n, fleets, dtypes, cuda_device)
     rng = np.random.default_rng(n)
     mal = torch.as_tensor(rng.uniform(size=(fleets, n)) < 0.1,
@@ -133,6 +133,29 @@ def test_b1_wide_matches_plain_on_card(cuda_device, n, fleets, dtypes):
                                 round_outputs=True)),
                        (8, dict(malicious=mal))):
         got = dk.lb_rounds(ng, gw, gid, 1.0, rounds, **kw)
+        assert same(got, dk.lb_rounds_plain(ng, gw, gid, 1.0, rounds, **kw))
+        assert same(got, dk.lb_rounds(ng, gw, gid, 1.0, rounds, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("above", [0, 1])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float64, torch.float64)])
+def test_b1_at_the_cluster_capacity_on_card(cuda_device, above, dtypes):
+    """B1 at its CLUSTER form's capacity (16 CTAs a fleet) and one node
+    above it (the one-CTA WIDE form), float32 and float64 gateways: its
+    plain version's bits, and on repeat."""
+    size = dtypes[1].itemsize
+    n = dk.lb_cluster_capacity(size) + above
+    assert dk.lb_form(n, size) == (dk.WIDE if above else dk.CLUSTER)
+    ng, gw, gid = wide_fleets(n, 1, dtypes, cuda_device, seed=3)
+    mal = torch.as_tensor(np.random.default_rng(n).uniform(size=(1, n)) < 0.1,
+                          dtype=torch.float32, device=cuda_device)
+    for rounds, kw in ((1, dict(malicious=mal, round_outputs=True)),
+                       (3, dict(malicious=mal))):
+        dk.reset_launches()
+        got = dk.lb_rounds(ng, gw, gid, 1.0, rounds, **kw)
+        assert dk.launches()["lb_rounds"] == 1
         assert same(got, dk.lb_rounds_plain(ng, gw, gid, 1.0, rounds, **kw))
         assert same(got, dk.lb_rounds(ng, gw, gid, 1.0, rounds, **kw))
 
@@ -150,7 +173,7 @@ def test_b1_packed_form_below_2_15_is_unchanged(cuda_device):
 @pytest.mark.cuda
 def test_lb_entry_points_at_2_15_nodes_on_card(cuda_device):
     """``lb.lb_round(..., gid=...)`` and ``lb.run_rounds`` at 2^15 nodes
-    (B1's WIDE form) against B1's plain version, from a block-diagonal
+    (B1's CLUSTER form) against B1's plain version, from a block-diagonal
     group mask of 512-node groups built on the card."""
     from freedm_tpu_torch.modules import lb
 

@@ -292,7 +292,7 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
     assert dk.g1_form(256, 128) == dk.GLOBAL
     assert dk.lb_form(4096, 8) == dk.SHARED
     assert dk.lb_form(dk.LB_WIDE_NODES - 1, 8) == dk.GLOBAL
-    assert dk.lb_form(dk.LB_WIDE_NODES, 4) == dk.WIDE
+    assert dk.lb_form(dk.LB_WIDE_NODES, 4) == dk.CLUSTER
     assert dk.lb_form(dk.LB_MAX_NODES, 8) == dk.WIDE
     assert dk.LB_WIDE_NODES == 1 << 15 and dk.LB_MAX_NODES >= 1 << 30
     assert dk.lb_state_bytes(1 << 16, 8) == 20 * (1 << 16) + 8 * (1 << 16)

@@ -58,7 +58,7 @@ def _ref_round_honest(ng, gw, gid):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("n", [1 << 15, 40961])
 def test_b1_plain_rounds_match_reference_past_2_15(n, dtype):
-    assert dk.lb_form(n, np.dtype(dtype).itemsize) == dk.WIDE
+    assert dk.lb_form(n, np.dtype(dtype).itemsize) == dk.CLUSTER
     ng, gw, gid, _ = fleets(n, 2, dtype, seed=n % 7)
     got = dk.lb_rounds(torch.from_numpy(ng), torch.from_numpy(gw),
                        torch.from_numpy(gid), STEP, ROUNDS)
@@ -89,3 +89,64 @@ def test_b1_plain_single_round_outputs_past_2_15(n):
         assert int(got.migrations[k, 0]) == int(migs)
         assert int(migs) > 0
         assert got.rank[k].max() == n  # non-members rank N
+
+
+# ---------------------------------------------------------------------------
+# B1's route from 2¹⁵ nodes: the CLUSTER form up to its capacity, the
+# one-CTA WIDE form above it, decided by (n, gateway dtype) alone
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gw_size", [4, 8])
+def test_b1_cluster_capacity_and_plan(gw_size):
+    cap = dk.lb_cluster_capacity(gw_size)
+    assert cap == dk.LB_CLUSTER_MAX * dk.LB_CLUSTER_SHARE == 1 << 17
+    want = {1 << 15: 16, 40961: 16, 1 << 16: 16, (1 << 16) + 1: 16,
+            cap: 16, cap + 1: 0, 1 << 18: 0, dk.LB_MAX_NODES: 0,
+            (1 << 15) - 1: 0, 256: 0}
+    for n, cluster in want.items():
+        assert dk.lb_cluster_plan(n, gw_size) == cluster, n
+        if cluster:
+            share = dk.lb_pad(n) // cluster
+            assert share * cluster == dk.lb_pad(n)
+            assert share % dk.LB_CLUSTER_THREADS == 0
+            assert cluster == dk.LB_CLUSTER_MAX
+            assert share <= dk.LB_CLUSTER_SHARE
+            assert dk.lb_cluster_smem(share, gw_size) <= dk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("gw_size", [4, 8])
+@pytest.mark.parametrize("n", [1 << 15, 40961, 1 << 16, 1 << 17])
+def test_b1_cluster_form_below_the_capacity(n, gw_size):
+    assert dk.lb_form(n, gw_size) == dk.CLUSTER
+    assert dk.lb_form(n, gw_size) == dk.lb_form(int(n), int(gw_size))
+
+
+@pytest.mark.parametrize("gw_size", [4, 8])
+@pytest.mark.parametrize("n", [(1 << 17) + 1, 1 << 18, 1 << 30])
+def test_b1_wide_form_above_the_capacity(n, gw_size):
+    assert n > dk.lb_cluster_capacity(gw_size)
+    assert dk.lb_form(n, gw_size) == dk.WIDE
+    assert dk.lb_cluster_plan(n, gw_size) == 0
+
+
+@pytest.mark.parametrize("gw_size", [4, 8])
+def test_b1_packed_forms_below_2_15_are_unchanged(gw_size):
+    assert dk.lb_form(256, gw_size) == dk.SHARED
+    assert dk.lb_form(8192, gw_size) == dk.SHARED
+    assert dk.lb_form(16384, gw_size) == dk.GLOBAL
+    assert dk.lb_form((1 << 15) - 1, gw_size) == dk.GLOBAL
+    assert dk.lb_cluster_plan((1 << 15) - 1, gw_size) == 0
+
+
+def test_b1_cluster_smem_layout():
+    """``lb_cluster_smem`` as ``csrc/dgi.cu``'s ``lb_cluster_layout``
+    lays a CTA out: 144 bytes of buffer and slots, then 12 bytes a key
+    pair, the gateway (16-byte aligned after it) and 8 bytes of segment
+    start and length a padded node."""
+    for share in (1024, 4096, 8192):
+        for gw_size in (4, 8):
+            gw_end = 144 + 12 * share + gw_size * share
+            assert dk.lb_cluster_smem(share, gw_size) == \
+                (gw_end + 15) // 16 * 16 + 8 * share
+    assert dk.lb_cluster_smem(8192, 8) == 229_520 <= dk.SMEM_LIMIT
