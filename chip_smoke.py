@@ -176,7 +176,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    coordinates at 10k × 1 (1e-4); then their times (events back to back,
    and device time by events queued behind a sleep kernel,
    ``queued_events_ms``) at the 10k feeder × 64 and × 1 and vvc_9bus × 64
-   beside the plain versions and the bounds;
+   beside the plain versions and the bounds; both routes of L1, L2 and
+   L4 (``time_crossover``: each launched through its plan and held to
+   the plain versions) at 8-2048 branches × 64 and 1536 lanes, f64 and
+   f32, and the crossover they imply;
 13. vvc: one controller step on vvc_9bus from zero q at loads P·(1 +
    0.6j) — it improves and is within 1e-9 of the plain step, one L2
    launch —, 120 rounds (non-increasing, below 0.92 of the base, L2
@@ -673,7 +676,9 @@ def device_ms_by_kernel(torch, fn, reps):
     torch.cuda.synchronize()
     rows = {}
     # A trace now and then comes back without its device events (seen once
-    # in a hundred-odd windows on the H100): take another window then.
+    # in a hundred-odd windows on the H100; on one machine three windows
+    # in a row): take another window then, and after three the call's
+    # device time by CUDA events queued behind a sleep, under one row.
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -685,9 +690,12 @@ def device_ms_by_kernel(torch, fn, reps):
                 if str(getattr(e, "device_type", "")).endswith("CUDA")
                 and getattr(e, "self_device_time_total", 0) > 0}
         if rows:
-            break
-    check(bool(rows), "the profiler recorded no device time")
-    return rows
+            return rows
+    # A time only: no caller checks kernel names in these rows.
+    log("timing: three profiler windows held no device time; the call's "
+        "device time by queued CUDA events instead (no per-kernel split)")
+    return {"(queued CUDA events, all kernels)": queued_events_ms(torch, fn,
+                                                                   reps)}
 
 
 def device_ms(torch, fn, reps):
@@ -2028,11 +2036,21 @@ def time_delta(torch, ck, cases):
                 return prog(*args)
 
             k = time_ms(torch, call, reps=20)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    ck.results_to_host(call())
-            kern = device_kernels(prof)
+            # A window without device events checks nothing: take another,
+            # and fail after five, the library-kernel check not made.
+            for _ in range(5):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        ck.results_to_host(call())
+                kern = device_kernels(prof)
+                if kern:
+                    break
+                log(f"timing: delta program {precision} x{lanes}: a "
+                    f"profiler window held no device events; again")
+            check(bool(kern), f"delta program {precision} x{lanes}: five "
+                  f"profiler windows held no device events, so whether it "
+                  f"ran a library solve kernel was not checked")
             names = [e.key for e in kern]
             check(not any(lib in key for key in names
                           for lib in LIBRARY_SOLVE_KERNELS),
@@ -3166,6 +3184,15 @@ def ladder_same_bits(torch, a, b):
                for k in ("v_node", "i_branch", "i_load"))
 
 
+def ladder_out_same_bits(torch, a, b):
+    """Two kernel-level ``LadderOut``s: v, i_branch and i_load the same
+    bits, the same iterations."""
+    return (all(torch.equal(getattr(a, k).re, getattr(b, k).re)
+                and torch.equal(getattr(a, k).im, getattr(b, k).im)
+                for k in ("v", "i_branch", "i_load"))
+            and torch.equal(a.iterations, b.iterations))
+
+
 def lane_gaps(torch, a, b):
     """Per lane, the largest |a - b| over v_node, i_branch and i_load."""
     out = None
@@ -3316,6 +3343,229 @@ def compare_ladder_vjp(torch, errs):
         log(f"ladder vjp: radial10k x1 dloss/dq{idx} = {float(g[idx]):.9e}, "
             f"central difference {fd:.9e} (rel {rel:.2e})")
     errs["ladder_vjp"] = worst
+
+
+#: L2 in float32 against its plain version on the same saved iterates:
+#: twenty walked iterations summed in other orders, within this share of
+#: the largest cotangent.
+L2_F32_RTOL = 1e-4
+
+
+def _cotangents(torch, rng, lanes, nb, dtype, dev="cuda"):
+    from freedm_tpu_torch.cplx import C
+
+    return [C(torch.tensor(rng.normal(size=(lanes, nb, 3)), dtype=dtype,
+                           device=dev),
+              torch.tensor(rng.normal(size=(lanes, nb, 3)), dtype=dtype,
+                           device=dev)) for _ in range(3)]
+
+
+def _flat_vjp(out):
+    sbar, v0bar = out
+    return [sbar.re, sbar.im, v0bar.re, v0bar.im]
+
+
+def compare_vjp_routes(torch, lk, errs):
+    """L2's two routes (``lk.ladder_plan``) against its plain version on the
+    same saved iterates and seeded cotangents, within ``GRAD_RTOL``
+    (float64) or ``L2_F32_RTOL`` (float32) of the largest cotangent, and
+    bit-identical on repeat: the cluster route at
+    ``synthetic_radial(10000)`` x {1, 8, 64, 65} lanes, a lane's
+    cotangents the same bits in launches of 1, 8 and 64 lanes; the
+    cluster route at its capacity in each dtype and the global route one
+    branch above, x 2 lanes."""
+    from freedm_tpu_torch.cplx import C
+    from freedm_tpu_torch.grid import cases
+
+    rng = np.random.default_rng(12)
+    feeders = {n: f for n, f, _, _ in ladder_feeders()}
+    worst = {"float64": 0.0, "float32": 0.0}
+
+    def head(x, k0, k1):
+        return C(x.re[k0:k1].contiguous(), x.im[k0:k1].contiguous())
+
+    def run(f, lanes, dtype, where):
+        dn = str(dtype).split(".")[-1]
+        s, v0, op = preorder_inputs(torch, lk, f, lanes, dtype)
+        saved = lk.ladder_solve(s, v0, op, LADDER_EPS, 20, True,
+                                save=True).saved
+        gs = _cotangents(torch, rng, lanes, op.nb, dtype)
+        got = _flat_vjp(lk.ladder_vjp(saved, s, op, *gs))
+        again = _flat_vjp(lk.ladder_vjp(saved, s, op, *gs))
+        want = _flat_vjp(lk.ladder_vjp_plain(saved, s, op, *gs))
+        torch.cuda.synchronize()
+        top = max(float(w.abs().max()) for w in want)
+        rel = max(max_err(g, w) for g, w in zip(got, want)) / top
+        tol = GRAD_RTOL if dn == "float64" else L2_F32_RTOL
+        plan = lk.ladder_plan(op.nb, dtype)
+        check(all(bool(torch.isfinite(g).all()) for g in got)
+              and rel <= tol, f"L2 {where} {dn} x{lanes} ({plan.route}): "
+              f"{rel:.3e} of the largest cotangent from the plain version")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"L2 {where} {dn} x{lanes}: not bit-identical on repeat")
+        worst[dn] = max(worst[dn], rel)
+        return s, saved, gs, op, got, plan
+
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        f = feeders["radial10k"]
+        for lanes in (1, 8, 65):
+            run(f, lanes, dtype, "radial10k")
+        s, saved, gs, op, wide, plan = run(f, MAIN_LANES, dtype, "radial10k")
+        check(plan.route == "cluster", f"L2 radial10k {dn}: {plan}")
+        for k0, k1 in ((0, 1), (5, 6), (0, 8), (MAIN_LANES - 1, MAIN_LANES)):
+            part = _flat_vjp(lk.ladder_vjp(
+                saved[:, k0:k1].contiguous(), head(s, k0, k1), op,
+                *[head(g, k0, k1) for g in gs]))
+            torch.cuda.synchronize()
+            check(all(torch.equal(p_, w[k0:k1]) for p_, w in zip(part, wide)),
+                  f"L2 radial10k {dn}: lanes {k0}-{k1 - 1} differ in a "
+                  f"launch of {k1 - k0} lane(s)")
+        cap = lk.cluster_capacity(dtype)
+        routes = []
+        for nb in (cap, cap + 1):
+            fc = cases.synthetic_radial(nb, seed=3, load_kw=1.0)
+            routes.append(run(fc, 2, dtype, f"nb={nb}")[-1].route)
+        check(routes == ["cluster", "global"],
+              f"L2 {dn} at its capacity {cap} and one above: {routes}")
+        log(f"ladder vjp routes: {dn} radial10k plan {plan._asdict()}, x"
+            f"{{1, 8, 64, 65}} within {worst[dn]:.2e} of the plain version's "
+            f"largest cotangent (limit "
+            f"{GRAD_RTOL if dn == 'float64' else L2_F32_RTOL:g}), a lane the "
+            f"same bits in launches of 1, 8 and {MAIN_LANES}; nb {cap} "
+            f"{routes[0]}, {cap + 1} {routes[1]}, both within the limit")
+    return worst
+
+
+#: The route crossover's feeders: vvc_9bus (8 branches), then
+#: ``synthetic_radial(nb, seed=0, load_kw=1.0)``; its widths: the served
+#: bursts' widest (``MAIN_LANES``) and QSTS (d)'s L1 launch (a chunk of 24
+#: steps x ``MAIN_LANES`` scenarios on vvc_9bus).
+CROSSOVER_NBS = (8, 32, 128, 256, 512, 1024, 2048)
+CROSSOVER_LANES = (MAIN_LANES, 24 * MAIN_LANES)
+CROSSOVER_KERNELS = ("ladder_solve", "ladder_vjp", "ladder_doubling",
+                     "ladder_doubling_vjp")
+
+
+def _out_gap(torch, got, want):
+    """The largest |got - want| over v, i_branch and i_load of the lanes
+    both find converged, and how many lanes those are."""
+    conv = got.converged & want.converged
+    gap = 0.0
+    for k in ("v", "i_branch", "i_load"):
+        for part in ("re", "im"):
+            d = (getattr(getattr(got, k), part)
+                 - getattr(getattr(want, k), part)).abs().flatten(1)
+            if bool(conv.any()):
+                gap = max(gap, float(d[conv].max()))
+    return gap, int(conv.sum())
+
+
+def time_crossover(torch, lk, extra):
+    """Both routes of L1 (a fixed solve), L2, L4 (a fixed solve) and L4's
+    reverse mode, 20 iterations, on each feeder of ``CROSSOVER_NBS`` x
+    ``CROSSOVER_LANES`` lanes in float64 and float32, by queued events —
+    each route launched through its own plan (``lk.route_plan``), and
+    each route's outputs held to the plain version on the same inputs
+    (L1 within ``LADDER_ATOL`` on the lanes both find converged, L2 within
+    ``GRAD_RTOL`` / ``L2_F32_RTOL`` of the largest cotangent, L4 and its
+    reverse mode bit for bit) — and the crossover the times imply at each
+    width: the least nb of the list from which the cluster route is the
+    faster at every larger nb, beside the plans' ``CLUSTER_FROM``."""
+    from freedm_tpu_torch.grid import cases
+
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda")
+    table = {}
+    for dt in (torch.float64, torch.float32):
+        dn = str(dt).split(".")[-1]
+        for lanes in CROSSOVER_LANES:
+            for nb in CROSSOVER_NBS:
+                f = (cases.vvc_9bus() if nb == 8
+                     else cases.synthetic_radial(nb, seed=0, load_kw=1.0))
+                nb = f.n_branches
+                s, v0, op = preorder_inputs(torch, lk, f, lanes, dt)
+                sd, v0d = form_inputs(torch, f, lanes, dt)
+                opd = lk.doubling_operands(f, dt, dev)
+                gs = _cotangents(torch, rng, lanes, nb, dt)
+                want = lk.ladder_solve_plain(s, v0, op, LADDER_EPS, 20, True,
+                                             save=True)
+                want_g = _flat_vjp(lk.ladder_vjp_plain(want.saved, s, op,
+                                                       *gs))
+                want_d = lk.ladder_doubling_plain(sd, v0d, opd, LADDER_EPS,
+                                                  20, True, save=True)
+                want_dg = _flat_vjp(lk.ladder_doubling_vjp_plain(
+                    want_d.saved, sd, opd, *gs))
+                top = max(float(w.abs().max()) for w in want_g)
+                where = f"crossover nb {nb} x{lanes} {dn}"
+                row = {}
+                for route in ("cluster", "one_cta"):
+                    plan = lk.route_plan(nb, dt, "cluster" if route ==
+                                         "cluster" else "global")
+                    dplan = lk.route_plan(nb, dt, "cluster" if route ==
+                                          "cluster" else "cta", doubling=True)
+                    fns = {
+                        "ladder_solve": lambda: lk.ladder_solve(
+                            s, v0, op, LADDER_EPS, 20, True, plan=plan),
+                        "ladder_vjp": lambda: lk.ladder_vjp(
+                            want.saved, s, op, *gs, plan=plan),
+                        "ladder_doubling": lambda: lk.ladder_doubling(
+                            sd, v0d, opd, LADDER_EPS, 20, True, plan=dplan),
+                        "ladder_doubling_vjp": lambda: lk.ladder_doubling_vjp(
+                            want_d.saved, sd, opd, *gs, plan=dplan)}
+                    gap, n_conv = _out_gap(torch, fns["ladder_solve"](), want)
+                    check(n_conv > 0 and gap <= LADDER_ATOL[dn],
+                          f"{where}: L1 {route} {gap:.3e} from the plain "
+                          f"version on {n_conv} converged lanes")
+                    rel = max(max_err(g, w) for g, w in zip(
+                        _flat_vjp(fns["ladder_vjp"]()), want_g)) / top
+                    check(rel <= (GRAD_RTOL if dn == "float64"
+                                  else L2_F32_RTOL),
+                          f"{where}: L2 {route} {rel:.3e} of the largest "
+                          f"cotangent from the plain version")
+                    check(ladder_out_same_bits(torch, fns["ladder_doubling"](),
+                                               want_d),
+                          f"{where}: L4 {route} is not the plain version's "
+                          f"bits")
+                    check(all(torch.equal(g, w) for g, w in zip(
+                        _flat_vjp(fns["ladder_doubling_vjp"]()), want_dg)),
+                          f"{where}: L4's reverse mode {route} is not the "
+                          f"plain version's bits")
+                    row[route] = {k: queued_events_ms(torch, fn, 5)
+                                  for k, fn in fns.items()}
+                table[(dn, lanes, nb)] = row
+                del want, want_d, want_g, want_dg
+            torch.cuda.empty_cache()
+    implied = {}
+    for dn in ("float64", "float32"):
+        for lanes in CROSSOVER_LANES:
+            nbs = sorted(nb for d, w, nb in table if (d, w) == (dn, lanes))
+            for k in CROSSOVER_KERNELS:
+                t = {nb: table[(dn, lanes, nb)] for nb in nbs}
+                implied[f"{k}_{dn}_x{lanes}"] = next(
+                    (nb for i, nb in enumerate(nbs) if all(
+                        t[m]["cluster"][k] <= t[m]["one_cta"][k]
+                        for m in nbs[i:])), None)
+            for nb in nbs:
+                r = table[(dn, lanes, nb)]
+                log(f"crossover: nb {nb:>5} x{lanes} {dn} ms (cluster / one "
+                    f"CTA a lane): " + ", ".join(
+                        f"{k} {r['cluster'][k]:.4f} / {r['one_cta'][k]:.4f}"
+                        for k in CROSSOVER_KERNELS))
+    log(f"crossover: each route within its limit of the plain version; the "
+        f"cluster route is the faster from nb = {implied} (the plans' "
+        f"CLUSTER_FROM {lk.CLUSTER_FROM})")
+    for k in ("ladder_solve", "ladder_vjp", "ladder_doubling"):
+        extra.setdefault(k, {})["crossover"] = {
+            "cluster_from": lk.CLUSTER_FROM,
+            "implied": {key: v for key, v in implied.items()
+                        if key.startswith(k + "_f")},
+            "implied_reverse": {key: v for key, v in implied.items()
+                                if key.startswith(k + "_vjp_")},
+            "ms": {f"{dn}_x{w}_nb{nb}": {r: table[(dn, w, nb)][r][k]
+                                         for r in table[(dn, w, nb)]}
+                   for dn, w, nb in table}}
+    return table, implied
 
 
 def broom_feeder(nb=10000, chain=3000, load_kw=0.2):
@@ -3501,16 +3751,17 @@ def ladder_bytes(op, lanes, w, iters, save):
 
 def time_ladder(torch, lk, rows, extra):
     """L1 and L2 at the VVC shapes, CUDA events and device time, beside
-    the plain versions and the bounds: the 10k feeder × 64 (the table's
-    row) and × 1 lanes, 20 fixed iterations, float64 (and float32 for
-    L1), and L1 on the served vvc_9bus × 64.  Device time by
-    :func:`queued_events_ms` (the profiler records no device events for
-    L1/L2 in the whole script)."""
+    the plain versions and the bounds, with the route each plan takes:
+    the 10k feeder × 64 (the table's row) and × 1 lanes, float64 and
+    float32 (the superstep's), 20 fixed iterations, and the served
+    vvc_9bus × 64.  Device time by :func:`queued_events_ms` (the profiler
+    records no device events for L1/L2 in the whole script)."""
     feeders = {n: f for n, f, _, _ in ladder_feeders()}
     eps, iters = LADDER_EPS, 20
     for name, lanes, dtype in (("radial10k", MAIN_LANES, torch.float64),
                                ("radial10k", 1, torch.float64),
                                ("radial10k", MAIN_LANES, torch.float32),
+                               ("radial10k", 1, torch.float32),
                                ("vvc_9bus", MAIN_LANES, torch.float64)):
         f = feeders[name]
         s, v0, op = preorder_inputs(torch, lk, f, lanes, dtype)
@@ -3561,15 +3812,7 @@ def time_ladder(torch, lk, rows, extra):
                                                          "bound_by")}}
         else:
             extra["ladder_solve"].setdefault("shapes", {})[key] = row
-        if not fp64:
-            continue
-        rng = np.random.default_rng(5)
-        from freedm_tpu_torch.cplx import C
-
-        gs = [C(torch.tensor(rng.normal(size=(lanes, nb, 3)), dtype=dtype,
-                             device="cuda"),
-                torch.tensor(rng.normal(size=(lanes, nb, 3)), dtype=dtype,
-                             device="cuda")) for _ in range(3)]
+        gs = _cotangents(torch, np.random.default_rng(5), lanes, nb, dtype)
         vjp = lambda: lk.ladder_vjp(sv.saved, s, op, *gs)  # noqa: E731
         k2 = time_ms(torch, vjp, reps=10)
         kd2, src2 = queued_events_ms(torch, vjp, 7), "queued events"
@@ -3578,19 +3821,23 @@ def time_ladder(torch, lk, rows, extra):
         tree = w * (3 * nb + 18 * nb) + 4 * (2 * nb + 1
                                              + int(op.grp_idx.shape[0]))
         b2, by2 = bound(w * 6 * lanes * nb * iters + w * 6 * lanes * nb * 4
-                        + tree, L2_OPS * nb * lanes * iters)
-        log(f"timing: ladder_vjp   {tag} {iters} iterates: kernel {k2:.4f} ms "
+                        + tree, L2_OPS * nb * lanes * iters, fp64)
+        plan2 = lk.ladder_plan(nb, dtype)
+        log(f"timing: ladder_vjp   {tag} {iters} iterates ({plan2.route} "
+            f"route, {plan2.cluster} CTAs a lane): kernel {k2:.4f} ms "
             f"(device {kd2:.4f} [{src2}], {kd2 / iters:.5f} an iteration)  "
             f"plain {pl2:.4f} ms  bound {b2:.5f} ms ({by2})")
-        if name == "radial10k" and lanes == MAIN_LANES:
+        if name == "radial10k" and lanes == MAIN_LANES and fp64:
             rows["ladder_vjp"] = (k2, pl2, None, b2, by2)
             extra["ladder_vjp"] = {
                 "device_ms": kd2, "device_ms_per_iteration": kd2 / iters,
-                "device_ms_source": src2,
+                "device_ms_source": src2, "route": plan2.route,
+                "cluster": plan2.cluster,
                 "shape": f"synthetic_radial(10000) x{lanes} f64, {iters} "
                          f"saved iterates"}
         else:
             extra["ladder_vjp"].update({f"ms_{key}": k2,
+                                        f"route_{key}": plan2.route,
                                         f"device_ms_{key}": kd2,
                                         f"device_ms_source_{key}": src2,
                                         f"plain_ms_{key}": pl2,
@@ -6635,8 +6882,48 @@ def superstep_phase(torch, dk, lk, dev="cuda"):
         f"{counts['ladder_solve'] / SUPERSTEP_ROUNDS:g}, L2 "
         f"{counts['ladder_vjp'] / SUPERSTEP_ROUNDS:g} (R1 once: the "
         f"reachability); {busy}")
+    if on_card:
+        per["vvc_split"] = vvc_leg_split(torch, lk, feeder, per["vvc"],
+                                         counts)
     log(f"superstep: phase 26 {time.monotonic() - t0:.1f} s")
     return counts, per
+
+
+def vvc_leg_split(torch, lk, feeder, vvc_ms, counts):
+    """Phase 26 (b)'s VVC leg (float32, ``SUPERSTEP_LANES`` lanes of the
+    10k feeder, ``VVCConfig().pf_iters`` iterations a solve) split by its
+    kernels, each timed alone by queued events on the round's shapes: L1's
+    saving solve, L2, and L1's trial solves (the round's L1 launches less
+    the saving one, each a fixed solve's time); the rest of the leg (its
+    host reads and the step's tensor operations) is the leg less their
+    sum."""
+    from freedm_tpu_torch.modules.vvc import VVCConfig
+
+    iters, dt = VVCConfig().pf_iters, torch.float32
+    s, v0, op = preorder_inputs(torch, lk, feeder, SUPERSTEP_LANES, dt)
+    saved = lk.ladder_solve(s, v0, op, LADDER_EPS, iters, True,
+                            save=True).saved
+    gs = _cotangents(torch, np.random.default_rng(26), SUPERSTEP_LANES,
+                     op.nb, dt)
+    split = {
+        "l1_saving": queued_events_ms(torch, lambda: lk.ladder_solve(
+            s, v0, op, LADDER_EPS, iters, True, save=True), 5),
+        "l2": queued_events_ms(torch, lambda: lk.ladder_vjp(
+            saved, s, op, *gs), 5),
+        "trials_a_round": counts["ladder_solve"] / SUPERSTEP_ROUNDS - 1}
+    trial = queued_events_ms(torch, lambda: lk.ladder_solve(
+        s, v0, op, LADDER_EPS, iters, True), 5)
+    split["l1_trials"] = split["trials_a_round"] * trial
+    split["rest"] = vvc_ms - (split["l1_saving"] + split["l2"]
+                              + split["l1_trials"])
+    plan = lk.ladder_plan(op.nb, dt)
+    log(f"superstep (b): the VVC leg {vvc_ms:.3f} ms a round = L1 saving "
+        f"{split['l1_saving']:.3f} + L2 {split['l2']:.3f} ({plan.route} "
+        f"route, {plan.cluster} CTAs a lane) + L1 trials "
+        f"{split['trials_a_round']:g} x {trial:.3f} + the rest (host reads, "
+        f"the step's tensor operations) {split['rest']:.3f} (each kernel "
+        f"alone, queued events, float32 x{SUPERSTEP_LANES})")
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -7327,7 +7614,7 @@ def compare_forms(torch, errs, dev="cuda"):
     {solve, solve_fixed} × {float64, float32}: ``LADDER_ATOL`` on converged
     lanes, equal flags (float32: outside ``F32_FLAG_ULPS`` of eps) and, in
     float64, equal iterations; L4's bits against its plain version's
-    (required in float64); bit-identical on repeat; a lane's bits the same
+    (required in both dtypes); bit-identical on repeat; a lane's bits the same
     in launches of 1 and 64 lanes; the default-load 2048 feeder (every lane
     in collapse) with equal flags and iterations."""
     from freedm_tpu_torch.pf.ladder import make_ladder_solver
@@ -7371,7 +7658,7 @@ def compare_forms(torch, errs, dev="cuda"):
                     check(ladder_same_bits(torch, a, a2),
                           f"{where}: not bit-identical on repeat")
                     same = ladder_same_bits(torch, a, p)
-                    check(form == "dense" or dn == "float32" or same,
+                    check(form == "dense" or same,
                           f"{where}: L4 is not its plain version's bits")
                     bits.append(same)
                     its.update(a.iterations.tolist())
@@ -7423,6 +7710,56 @@ def compare_forms(torch, errs, dev="cuda"):
         f"{worst['doubling_float64']:.3e} f32 {worst['doubling_float32']:.3e}"
         f" ({time.monotonic() - t0:.1f} s)")
     return worst
+
+
+def compare_doubling_routes(torch, lk, dev="cuda"):
+    """L4's two routes (``lk.doubling_plan``) against its plain version
+    bit for bit at its cluster capacity in each dtype (the cluster route)
+    and one branch above (one CTA a lane), x 2 lanes: a fixed solve saving
+    its iterates, a solve and the reverse mode on seeded cotangents."""
+    from freedm_tpu_torch.grid import cases
+
+    t0 = time.monotonic()
+    rng = np.random.default_rng(21)
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        cap = lk.doubling_capacity(dtype)
+        routes = []
+        for nb in (cap, cap + 1):
+            f = cases.synthetic_radial(nb, seed=4, load_kw=1.0)
+            s, v0 = form_inputs(torch, f, 2, dtype, dev)
+            op = lk.doubling_operands(f, dtype, torch.device(dev))
+            routes.append(lk.doubling_plan(nb, dtype).route)
+            where = f"L4 nb={nb} {dn} ({routes[-1]})"
+            for fixed in (True, False):
+                a = lk.ladder_doubling(s, v0, op, LADDER_EPS, FORM_ITERS,
+                                       fixed, save=fixed)
+                p = lk.ladder_doubling_plain(s, v0, op, LADDER_EPS,
+                                             FORM_ITERS, fixed, save=fixed)
+                sync(torch, dev)
+                check(all(torch.equal(getattr(getattr(a, k), q),
+                                      getattr(getattr(p, k), q))
+                          for k in ("v", "i_branch", "i_load")
+                          for q in ("re", "im"))
+                      and torch.equal(a.iterations, p.iterations)
+                      and (not fixed or torch.equal(a.saved, p.saved)),
+                      f"{where} fixed={fixed}: not the plain version's bits")
+                if fixed:
+                    gs = _cotangents(torch, rng, 2, nb, dtype, dev)
+                    got = _flat_vjp(lk.ladder_doubling_vjp(a.saved, s, op,
+                                                           *gs))
+                    want = _flat_vjp(lk.ladder_doubling_vjp_plain(
+                        a.saved, s, op, *gs))
+                    sync(torch, dev)
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                          f"{where}: the reverse mode is not the plain "
+                          f"version's bits")
+        check(routes == ["cluster", "cta"],
+              f"L4 {dn} at its capacity {cap} and one above: {routes}")
+        log(f"forms (a): L4 {dn} at its cluster capacity {cap} ({routes[0]})"
+            f" and {cap + 1} ({routes[1]}) x2: fixed, solve and reverse "
+            f"mode the plain version's bits")
+    log(f"forms (a): L4's routes {time.monotonic() - t0:.1f} s")
 
 
 def form_grads(torch, f, form, loads, vs, dev, plain):
@@ -7611,6 +7948,9 @@ def time_forms(torch, lk, rows, extra):
         row = {"ms": k, "device_ms": kd, "plain_ms": pl, "bound_ms": b,
                "bound_by": by, "device_ms_solve": kd_solve,
                "solve_iterations": n_it, "l1_device_ms": l1}
+        if form == "doubling":
+            plan = lk.doubling_plan(nb, dtype)
+            row.update(route=plan.route, cluster=plan.cluster)
         lib = None
         if form == "dense":
             # The library rows: the 2 x iters products of a solve with the
@@ -7663,6 +8003,8 @@ def time_forms(torch, lk, rows, extra):
                       f"plain version (largest {top:.3e})")
                 rel = max(rel, gap / max(top, 1e-300))
                 same = same and torch.equal(g, wt)
+            check(form == "dense" or same, f"{where}: L4's reverse mode is "
+                  f"not its plain version's bits")
             # The saved iterates, the loads and three cotangents read, the
             # two cotangents written; L2's operations a branch and iteration.
             bb, bby = bound(w * 6 * lanes * nb * (iters + 5) + w * 22 * nb
@@ -7677,7 +8019,10 @@ def time_forms(torch, lk, rows, extra):
             del sv, gs, kept, got, want
         key = f"{name}_x{lanes}_{dn}"
         heads[f"{form}_{key}"] = row
-        log(f"timing: ladder_{form:<8} {key}: fixed x{iters} {k:.4f} ms "
+        log(f"timing: ladder_{form:<8} {key}"
+            + (f" ({row['route']} route, {row['cluster']} CTAs a lane)"
+               if "cluster" in row else "")
+            + f": fixed x{iters} {k:.4f} ms "
             f"(queued {kd:.4f}), solve mode {kd_solve:.4f} ms for {n_it} "
             f"lane-iterations; L1 fixed x{iters} on the same lanes "
             f"{l1:.4f} ms; plain {pl:.4f} ms; bound {b:.5f} ms ({by})"
@@ -7944,6 +8289,7 @@ def forms_phase(torch, lk, dk, errs, rows, extra):
     forms' main paths; returns L3's and L4's main-path launches."""
     t28 = time.monotonic()
     compare_forms(torch, errs)
+    compare_doubling_routes(torch, lk)
     compare_form_vjps(torch, extra.setdefault("ladder_vjp", {}))
     time_forms(torch, lk, rows, extra)
     wide_phase(torch, dk, extra)
@@ -8033,7 +8379,10 @@ def main() -> int:
         worst = compare_ladder(torch, errs)
         compare_ladder_routes(torch, lk, errs)
         compare_ladder_vjp(torch, errs)
+        vjp_worst = compare_vjp_routes(torch, lk, errs)
         time_ladder(torch, lk, rows, extra)
+        time_crossover(torch, lk, extra)
+        extra["ladder_vjp"]["max_rel_err_routes"] = vjp_worst
         extra["ladder_solve"]["max_abs_err_f32"] = worst["float32"]
         vvc_counts = vvc_phase(torch, lk)
         serve_counts = serve_vvc(torch, lk)

@@ -29,17 +29,24 @@ Each call that launches adds the kernel launches it issued to
 :data:`LAUNCHES` — one, but for L3's tiled route, whose C entry reports
 its ``2 + 2 · max_iter`` (solve) and ``2 + 2 · iters`` (reverse mode)
 launches — and :data:`MODE_LAUNCHES` splits L3's and L4's between their
-forward and reverse modes.  L1 and L3 each take one of two routes,
+forward and reverse modes.  Each kernel takes one of two routes,
 chosen from the branch count and dtype alone (so a lane's result is the
-same bits whatever the lanes beside it).  L1 (:func:`ladder_plan`): up
-to :func:`cluster_capacity` branches a lane is one thread-block cluster
-whose shared memory holds its state, above that one CTA a lane with its
-state in device memory.  L3 (:func:`dense_plan`): up to
+same bits whatever the lanes beside it).  L1 and L2 (:func:`ladder_plan`):
+from the measured crossover (:data:`CLUSTER_FROM`) up to
+:func:`cluster_capacity` branches a lane is
+one thread-block cluster whose shared memory holds its state, below and
+above that one CTA a lane with its state in device memory (as few warps
+as hold the lane's runs of 32 branches, :func:`global_threads`).  L4
+(:func:`doubling_plan`): likewise up to :func:`doubling_capacity`, its
+rows dealt to the cluster's CTAs in blocks of 32 and its long preimage
+lists a warp's (:func:`heavy_rows`).  L3 (:func:`dense_plan`): up to
 :func:`dense_cta_capacity` branches one CTA a lane runs a whole solve
 with the subtree matrix as bits and the lane's state in shared memory,
 in one launch; above that the products run over the subtree matrix's
 nonzero 64 × 16 blocks in DFS preorder (:func:`nonzero_blocks`,
-:func:`slice_plan`), on the FP64 tensor cores in float64.
+:func:`slice_plan`), on the FP64 tensor cores in float64.  A
+measurement launches either route of L1, L2 or L4 through the wrappers'
+``plan=`` (:func:`route_plan`); no other plan is taken.
 
 L1 and L2 work in DFS preorder (:meth:`Feeder.reorder_preorder`), on
 :class:`LadderOperands` made once per feeder; L3 and L4 take and return
@@ -178,7 +185,7 @@ def ladder_operands(feeder: Feeder, dtype: torch.dtype,
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
     z = np.asarray(feeder.z_pu)
-    zt = _cluster_z(z, ladder_plan(nb, dtype))
+    zt = _cluster_z(z, _ladder_shape(nb, dtype))
     return LadderOperands(
         mask=real(feeder.phase_mask), z_re=real(z.real), z_im=real(z.imag),
         root=real((parent < 0).astype(np.float64)), tout=i32(tout),
@@ -199,7 +206,12 @@ def ladder_operands(feeder: Feeder, dtype: torch.dtype,
  SMEM_LIMIT) = build.constants("ladder.cu", "kCtaThreadsF64", "kCtaThreadsF32",
                                "kMaxCluster", "kScratchWords", "kSmemLimit")
 CTA_THREADS = {torch.float64: _THREADS_F64, torch.float32: _THREADS_F32}
-#: Threads a CTA of the global route (one CTA a lane).
+#: L4's cluster route: a preimage list longer than ``HEAVY_ROW`` takes a
+#: warp (a thread a row at most that), a warp's stage is ``[6,
+#: STAGE_LD]`` words, and its scratch words beside the buffers and stages.
+HEAVY_ROW, STAGE_LD, DOUBLING_SCRATCH_WORDS = build.constants(
+    "ladder.cu", "kHeavyRow", "kStageLd", "kDoublingScratchWords")
+#: Threads a CTA of the global route (one CTA a lane) at most.
 GLOBAL_THREADS = 512
 _ITEMSIZE = {torch.float64: 8, torch.float32: 4}
 
@@ -228,10 +240,25 @@ def _itemsize(dtype: torch.dtype) -> int:
     return _ITEMSIZE[dtype]
 
 
+#: The least branch count at which L1, L2 and L4 take their cluster
+#: routes (below it one CTA of :func:`global_threads` a lane), measured by
+#: ``chip_smoke.time_crossover`` (both routes at nb = 8, 32, …, 2048, f64
+#: and f32, × 64 lanes — the served bursts' widest — and × 1536, QSTS's
+#: chunk of 24 steps × 64 scenarios; ``PERF.md`` gives the times).  The
+#: plan may not depend on the lane count, so it takes the widest width's:
+#: on an NVIDIA H100 80GB HBM3 at 700 W the cluster route was the faster
+#: from 256 branches at × 1536 for all four kernels in both dtypes (from
+#: 32-256 by kernel), while at × 64 one CTA a lane stayed the faster to
+#: 511 (f64) and 1023 (f32) branches, up to 1.9× (vvc_9bus, 8 branches:
+#: one CTA a lane the faster at both widths, 2.0-6.5×).
+CLUSTER_FROM = 256
+
+
 class LadderPlan(NamedTuple):
-    """L1's launch shape at ``nb`` branches: the ``route`` (``"cluster"``
-    or ``"global"``), the CTAs a lane (``cluster``; 1 on the global
-    route), the branches a CTA owns (``per``: CTA ``r`` the preorder
+    """L1's and L2's launch shape at ``nb`` branches (L4's has the same
+    fields): the ``route``
+    (``"cluster"`` or ``"global"``), the CTAs a lane (``cluster``; 1 on the
+    global route), the branches a CTA owns (``per``: CTA ``r`` the preorder
     interval ``[r·per, min(nb, (r+1)·per))``, two a thread), its
     ``threads`` and its dynamic shared memory in bytes (``smem``; 0 on the
     global route)."""
@@ -248,42 +275,112 @@ class LadderPlan(NamedTuple):
                      for r in range(self.cluster))
 
 
-def ladder_plan(nb: int, dtype: torch.dtype) -> LadderPlan:
-    """L1's launch plan: a function of the branch count and the dtype
-    alone — never of the lane count or the card's free SMs — so that a
-    lane gives the same bits in a launch of any width (QSTS rechunking
-    and resumes rely on it).  Up to :func:`cluster_capacity` branches a
-    lane is the smallest cluster whose CTAs' buffers fit in shared memory
-    with the branches split evenly (fewer SMs a lane: more lanes at once;
-    at 10k branches 8 CTAs in float64, 5 in float32); above it the global
-    route, one CTA a lane."""
+def _cluster_shape(nb: int, dtype: torch.dtype, smem_of) -> Optional[LadderPlan]:
+    """The smallest cluster whose CTAs (two branches or rows a thread, at
+    most ``CTA_THREADS[dtype]``) fit ``smem_of(threads, itemsize)`` bytes
+    of shared memory with the ``nb`` split evenly, or ``None`` above
+    :data:`MAX_CLUSTER` CTAs."""
     nb = int(nb)
     if nb <= 0:
-        raise ValueError(f"ladder_plan needs nb >= 1, got {nb}")
+        raise ValueError(f"a ladder plan needs nb >= 1, got {nb}")
     item = _itemsize(dtype)
     most = CTA_THREADS[dtype]
     for cluster in range(math.ceil(nb / (2 * most)), MAX_CLUSTER + 1):
         per = math.ceil(nb / cluster)
         threads = 32 * math.ceil(per / 64)
-        smem = _cta_smem(threads, item)
+        smem = smem_of(threads, item)
         if threads <= most and smem <= SMEM_LIMIT and (cluster - 1) * per < nb:
             return LadderPlan("cluster", cluster, per, threads, smem)
-    return LadderPlan("global", 1, nb, GLOBAL_THREADS, 0)
+    return None
 
 
-def _row_width(plan: LadderPlan) -> int:
-    return plan.cluster * 2 * plan.threads if plan.route == "cluster" else 0
+def _ladder_shape(nb: int, dtype: torch.dtype) -> Optional[LadderPlan]:
+    """L1's and L2's cluster shape, whatever the crossover."""
+    return _cluster_shape(nb, dtype, _cta_smem)
 
 
-def _cluster_z(z: np.ndarray, plan: LadderPlan) -> np.ndarray:
+def global_threads(rows: int) -> int:
+    """The one-CTA routes' width for ``rows`` rows: a warp a run of 32,
+    at most :data:`GLOBAL_THREADS`.  L1's and L2's global kernel cuts a
+    lane into the runs of 32 branches its 16 warps would take, so fewer
+    warps leave out only empty runs (the same bits, as do L4's, whose rows
+    are their threads'); narrow CTAs put more lanes on an SM at once (at
+    vvc_9bus one warp, not 16)."""
+    return 32 * min(GLOBAL_THREADS // 32, max(1, math.ceil(rows / 32)))
+
+
+def ladder_plan(nb: int, dtype: torch.dtype) -> LadderPlan:
+    """L1's and L2's launch plan: a function of the branch count and the
+    dtype alone — never of the lane count or the card's free SMs — so that
+    a lane gives the same bits in a launch of any width (QSTS rechunking
+    and resumes rely on it).  From :data:`CLUSTER_FROM` up to
+    :func:`cluster_capacity` branches a lane is the smallest cluster whose
+    CTAs' buffers fit in shared memory with the branches split evenly
+    (fewer SMs a lane: more lanes at once; at 10k branches 8 CTAs in
+    float64, 5 in float32; L2's three buffers hold its vbar and ibbar, the
+    loads' cotangent and the prefixes, z in the same layout); below and
+    above, the global route, one CTA of :func:`global_threads` a lane."""
+    nb = int(nb)
+    if nb <= 0:
+        raise ValueError(f"ladder_plan needs nb >= 1, got {nb}")
+    shape = _ladder_shape(nb, dtype)
+    if shape is None or nb < CLUSTER_FROM:
+        return route_plan(nb, dtype, "global")
+    return shape
+
+
+def route_plan(nb: int, dtype: torch.dtype, route: str,
+               doubling: bool = False) -> LadderPlan:
+    """L1's and L2's plan (L4's with ``doubling``) on the named route at
+    ``(nb, dtype)``, whatever :data:`CLUSTER_FROM`: ``"cluster"``, or one
+    CTA a lane (``"global"``; L4's ``"cta"``).  A wrapper given it
+    (``plan=``) launches that route: how ``chip_smoke.time_crossover``
+    times and checks both routes of one shape.  Raises above the cluster
+    route's capacity."""
+    nb = int(nb)
+    if nb <= 0:
+        raise ValueError(f"route_plan needs nb >= 1, got {nb}")
+    one = "cta" if doubling else "global"
+    if route == one:
+        return LadderPlan(one, 1, nb, global_threads(nb + doubling), 0)
+    if route != "cluster":
+        raise ValueError(f"no route {route!r}: 'cluster' or {one!r}")
+    shape = (_doubling_shape if doubling else _ladder_shape)(nb, dtype)
+    if shape is None:
+        raise ValueError(f"{nb} branches exceed the cluster route's capacity "
+                         f"in {dtype}")
+    return shape
+
+
+def _plan_for(plan: Optional[LadderPlan], nb: int, dtype: torch.dtype,
+              doubling: bool) -> LadderPlan:
+    """The plan a wrapper launches: its kernel's own (``plan`` None), or
+    the caller's, which must be one of the two routes' at ``(nb, dtype)``
+    (:func:`route_plan`)."""
+    if plan is None:
+        return doubling_plan(nb, dtype) if doubling else ladder_plan(nb, dtype)
+    if plan.route in ("cluster", "cta" if doubling else "global"):
+        try:
+            if route_plan(nb, dtype, plan.route, doubling) == plan:
+                return plan
+        except ValueError:
+            pass
+    raise ValueError(f"{plan} is no route's plan at {nb} branches in {dtype}")
+
+
+def _row_width(plan: Optional[LadderPlan]) -> int:
+    return plan.cluster * 2 * plan.threads if plan is not None else 0
+
+
+def _cluster_z(z: np.ndarray, plan: Optional[LadderPlan]) -> np.ndarray:
     """z ``[nb, 3, 3]`` complex in the cluster route's row layout ``[2
     (re, im), 9 (entry 3 q + p), cluster · 2 · threads]``: each row holds
     CTA ``r``'s branches at ``r · 2 · threads + (i − r · per)`` (zeros
-    elsewhere), so a warp reads a row contiguously; ``[2, 9, 0]`` on the
-    global route."""
+    elsewhere), so a warp reads a row contiguously; ``[2, 9, 0]`` above the
+    cluster route's capacity."""
     nb = z.shape[0]
     out = np.zeros((2, 9, _row_width(plan)))
-    if plan.route == "cluster":
+    if plan is not None:
         i = np.arange(nb)
         r = i // plan.per
         col = r * 2 * plan.threads + i - r * plan.per
@@ -441,9 +538,15 @@ def ladder_solve_plain(s: C, v0: C, op: LadderOperands, eps: float,
                                 backward, forward, eps, max_iter, fixed, save)
 
 
+def conj_zt(d: C, z_re: Tensor, z_im: Tensor) -> C:
+    """``conj(z)ᵀ d``, ``Σ_p conj(z[q, p]) d[p]``, as one complex
+    contraction."""
+    return einsum("...bp,bqp->...bq", d, C(z_re, -z_im))
+
+
 def vjp_iterate_plain(saved: Tensor, s: C, mask: Tensor, z_re: Tensor,
-                      z_im: Tensor, backward, forward, gv: C, gb: C,
-                      gl: C) -> Tuple[C, C]:
+                      z_im: Tensor, backward, forward, gv: C, gb: C, gl: C,
+                      zt=conj_zt, roots=None) -> Tuple[C, C]:
     """The reverse mode of the fixed ladder solve on any pair of sweeps
     (``forward`` the adjoint of ``backward``): the cotangents of ``s`` and
     of the source phasors ``v0 [B, 3]`` from those of the final ``v``
@@ -451,18 +554,20 @@ def vjp_iterate_plain(saved: Tensor, s: C, mask: Tensor, z_re: Tensor,
     saved iterates backwards (the module docstring of ``csrc/ladder.cu``
     gives the recurrence).  ``v0``'s cotangent sums ``mask · vbar`` over
     the branches for every iteration's ``v0 − path`` and for the initial
-    iterate ``v0 · mask``."""
+    iterate ``v0 · mask``: as one sum (``roots`` None), or as the subtree
+    sums at the ``roots`` (:func:`root_sum`).  ``zt`` computes ``conj(z)ᵀ
+    dropbar`` (:func:`conj_zt`, or L4's :func:`conj_zt_ordered`)."""
     vbar = gv
     sbar = C(torch.zeros_like(s.re), torch.zeros_like(s.im))
     v0bar = C(torch.zeros_like(s.re[:, 0]), torch.zeros_like(s.im[:, 0]))
-    spec = "...bp,bqp->...bq"
     last = saved.shape[0] - 1
     for k in range(last, -1, -1):
         vk = _unpack(saved[k])
         a = C(vbar.re * mask, vbar.im * mask)
-        v0bar = v0bar + a.sum(dim=-2)
-        db = -backward(a)
-        ibb = einsum(spec, db, C(z_re, -z_im))  # conj(z)^T dropbar
+        sub = backward(a)
+        v0bar = v0bar + (a.sum(dim=-2) if roots is None
+                         else root_sum(sub, roots))
+        ibb = zt(-sub, z_re, z_im)  # conj(z)^T dropbar
         if k == last:
             ibb = ibb + gb
         ilb = forward(ibb)
@@ -472,7 +577,9 @@ def vjp_iterate_plain(saved: Tensor, s: C, mask: Tensor, z_re: Tensor,
         safe = vk.where(live, 1.0)
         sbar = sbar + (ilb / safe).conj().where(live)
         vbar = ((-(s * ilb)) / (safe * safe)).conj().where(live)
-    v0bar = v0bar + C(vbar.re * mask, vbar.im * mask).sum(dim=-2)
+    a = C(vbar.re * mask, vbar.im * mask)
+    v0bar = v0bar + (a.sum(dim=-2) if roots is None
+                     else root_sum(backward(a), roots))
     return sbar, v0bar
 
 
@@ -496,10 +603,10 @@ _D = ctypes.c_double
 _SIGS = {
     "ladder": {
         "ladder_solve": [_P] * 25 + [_I] * 4 + [_D] + [_I] * 4 + [_P],
-        "ladder_vjp": [_P] * 21 + [_I] * 3 + [_P],
-        "ladder_cluster_check": [_I] * 3 + [_P],
-        "ladder_doubling": [_P] * 22 + [_I] * 5 + [_D] + [_P],
-        "ladder_doubling_vjp": [_P] * 20 + [_I] * 4 + [_P],
+        "ladder_vjp": [_P] * 22 + [_I] * 7 + [_P],
+        "ladder_cluster_check": [_I] * 4 + [_P],
+        "ladder_doubling": [_P] * 24 + [_I] * 5 + [_D] + [_I] * 4 + [_P],
+        "ladder_doubling_vjp": [_P] * 23 + [_I] * 9 + [_P],
     },
     "ladder_dense": {
         "ladder_dense_tiled": [_P] * 27 + [_I] * 6 + [_D] + [_P] * 2,
@@ -574,7 +681,7 @@ def _check_op(op: LadderOperands, dev, dtype) -> None:
           root=(op.root, (nb,), False), tout=(op.tout, (nb,), True),
           grp_ptr=(op.grp_ptr, (nb + 1,), True),
           grp_idx=(op.grp_idx, (int(op.grp_idx.shape[0]),), True),
-          zt=(op.zt, (2, 9, _row_width(ladder_plan(nb, dtype))), False))
+          zt=(op.zt, (2, 9, _row_width(_ladder_shape(nb, dtype))), False))
     with _launch_lock:
         if len(_checked) >= 64:
             _checked.clear()
@@ -582,27 +689,32 @@ def _check_op(op: LadderOperands, dev, dtype) -> None:
 
 
 #: Clusters of a plan's shape the card holds at once, by (device, dtype,
-#: plan), from the first launch of that shape on that device.
+#: plan, kernel), from the first launch of that shape on that device.
 _resident: Dict[tuple, int] = {}
+#: The cluster kernels' numbers in ``ladder_cluster_check``.
+_CLUSTER_KINDS = {"ladder_solve": 0, "ladder_vjp": 1, "ladder_doubling": 2,
+                  "ladder_doubling_vjp": 3}
 
 
 def resident_clusters(plan: LadderPlan, dtype: torch.dtype,
-                      device: torch.device) -> int:
-    """How many clusters of ``plan``'s shape the card places at once
-    (``cudaOccupancyMaxActiveClusters``); raises, naming the shape, where
-    it cannot place one."""
-    key = (device.index, dtype, plan)
+                      device: torch.device,
+                      kernel: str = "ladder_solve") -> int:
+    """How many clusters of ``plan``'s shape of ``kernel``'s cluster route
+    the card places at once (``cudaOccupancyMaxActiveClusters``); raises,
+    naming the shape, where it cannot place one."""
+    key = (device.index, dtype, plan, kernel)
     got = _resident.get(key)
     if got is None:
         active = ctypes.c_int(0)
         with torch.cuda.device(device):
             rc = _fn(f"ladder_cluster_check_{_suffix(dtype)}")(
-                plan.cluster, plan.threads, plan.smem, ctypes.byref(active))
+                plan.cluster, plan.threads, plan.smem, _CLUSTER_KINDS[kernel],
+                ctypes.byref(active))
         _raise_on(rc, "ladder_cluster_check")
         got = int(active.value)
         if got < 1:
             raise RuntimeError(
-                f"ladder_solve: the card cannot place a cluster of "
+                f"{kernel}: the card cannot place a cluster of "
                 f"{plan.cluster} CTAs x {plan.threads} threads with "
                 f"{plan.smem} bytes of shared memory each")
         with _launch_lock:
@@ -629,10 +741,11 @@ def _on_card(t: Tensor, name: str) -> bool:
 
 
 def ladder_solve(s: C, v0: C, op: LadderOperands, eps: float, max_iter: int,
-                 fixed: bool, save: bool = False) -> LadderOut:
+                 fixed: bool, save: bool = False,
+                 plan: Optional[LadderPlan] = None) -> LadderOut:
     """L1: a whole ladder solve of every lane in one launch — ``s [B,
     nb, 3]`` pu and ``v0 [B, 3]`` contiguous pairs, preorder space — on
-    :func:`ladder_plan`'s route."""
+    :func:`ladder_plan`'s route (or ``plan``'s, :func:`route_plan`)."""
     if not _on_card(s.re, "ladder_solve"):
         return ladder_solve_plain(s, v0, op, eps, max_iter, fixed, save)
     dev, dtype = s.re.device, s.re.dtype
@@ -646,10 +759,10 @@ def ladder_solve(s: C, v0: C, op: LadderOperands, eps: float, max_iter: int,
           s_im=(s.im, (lanes, nb, 3), False),
           v0_re=(v0.re, (lanes, 3), False), v0_im=(v0.im, (lanes, 3), False))
     _check_op(op, dev, dtype)
-    plan = ladder_plan(nb, dtype)
+    plan = _plan_for(plan, nb, dtype, False)
     cluster = plan.route == "cluster"
     if cluster:
-        resident_clusters(plan, dtype, dev)
+        resident_clusters(plan, dtype, dev, "ladder_solve")
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=dev)
@@ -685,11 +798,11 @@ def ladder_solve(s: C, v0: C, op: LadderOperands, eps: float, max_iter: int,
 
 
 def ladder_vjp(saved: Tensor, s: C, op: LadderOperands, gv: C, gb: C,
-               gl: C) -> Tuple[C, C]:
+               gl: C, plan: Optional[LadderPlan] = None) -> Tuple[C, C]:
     """L2: the cotangents of ``s [B, nb, 3]`` and of the source phasors
     ``v0 [B, 3]`` from the cotangents ``gv``, ``gb``, ``gl`` of L1's final
     ``v``, ``i_branch``, ``i_load`` and its saved iterates ``[iters, B, nb,
-    6]``, in one launch."""
+    6]``, in one launch on :func:`ladder_plan`'s route (or ``plan``'s)."""
     if not _on_card(s.re, "ladder_vjp"):
         return ladder_vjp_plain(saved, s, op, gv, gb, gl)
     dev, dtype = s.re.device, s.re.dtype
@@ -699,10 +812,15 @@ def ladder_vjp(saved: Tensor, s: C, op: LadderOperands, gv: C, gb: C,
     iters = int(saved.shape[0])
     _want_vjp(dev, dtype, saved, s, gv, gb, gl)
     _check_op(op, dev, dtype)
+    plan = _plan_for(plan, nb, dtype, False)
+    cluster = plan.route == "cluster"
+    if cluster:
+        resident_clusters(plan, dtype, dev, "ladder_vjp")
     sbar, v0bar = _vjp_outputs(s)
-    ps = torch.empty(lanes, nb + 1, 6, dtype=dtype, device=dev)
-    w = torch.empty(lanes, nb, 6, dtype=dtype, device=dev)
-    g = torch.empty(lanes, nb, 6, dtype=dtype, device=dev)
+    # The global route's scratch; the cluster route keeps its state on chip.
+    scratch = [None] * 3 if cluster else [
+        torch.empty(lanes, nb + k, 6, dtype=dtype, device=dev)
+        for k in (1, 0, 0)]
     with torch.cuda.device(dev):
         rc = _fn(f"ladder_vjp_{sfx}")(
             saved.data_ptr(), s.re.data_ptr(), s.im.data_ptr(),
@@ -711,8 +829,10 @@ def ladder_vjp(saved: Tensor, s: C, op: LadderOperands, gv: C, gb: C,
             gv.re.data_ptr(), gv.im.data_ptr(), gb.re.data_ptr(),
             gb.im.data_ptr(), gl.re.data_ptr(), gl.im.data_ptr(),
             sbar.re.data_ptr(), sbar.im.data_ptr(), v0bar.data_ptr(),
-            ps.data_ptr(), w.data_ptr(), g.data_ptr(), nb, lanes, iters,
-            _stream(s.re))
+            *(None if t is None else t.data_ptr() for t in scratch),
+            op.zt.data_ptr(), nb, lanes, iters,
+            plan.cluster if cluster else 0, plan.per, plan.threads,
+            plan.smem, _stream(s.re))
     _raise_on(rc, "ladder_vjp")
     _count("ladder_vjp")
     return sbar, _unpack(v0bar)
@@ -890,7 +1010,11 @@ class DoublingOperands(NamedTuple):
     ``2^m``-th ancestor, the roots' and the sentinel's the sentinel slot
     ``nb``) and its preimage lists, the CSR ``pre_ptr [rounds, nb + 1]``
     (absolute offsets) into ``pre_idx`` of ``{i < nb : jump_m[i] = a}``
-    for each ``a < nb`` in increasing ``i``."""
+    for each ``a < nb`` in increasing ``i``; the cluster route's heavy
+    rows (:func:`heavy_rows`: ``heavy_ptr [rounds, cluster, warps + 1]``
+    into ``heavy_idx``; ``[rounds, 1, 1]`` and empty above its capacity);
+    the ``roots`` (int32, increasing), whose subtree sums add to the
+    source phasors' cotangent."""
 
     mask: Tensor
     z_re: Tensor
@@ -899,6 +1023,9 @@ class DoublingOperands(NamedTuple):
     jump: Tensor
     pre_ptr: Tensor
     pre_idx: Tensor
+    heavy_ptr: Tensor
+    heavy_idx: Tensor
+    roots: Tensor
 
     @property
     def nb(self) -> int:
@@ -907,6 +1034,95 @@ class DoublingOperands(NamedTuple):
     @property
     def rounds(self) -> int:
         return int(self.jump.shape[0])
+
+
+def _doubling_smem(threads: int, itemsize: int) -> int:
+    """L4's cluster CTA: three ``[6, 2 · threads]`` buffers (two round
+    buffers, the thread-private rows), a ``[6, STAGE_LD]`` stage a warp
+    and the scratch (``doubling_words`` in the source)."""
+    return (36 * threads + (threads // 32) * 6 * STAGE_LD
+            + DOUBLING_SCRATCH_WORDS) * itemsize
+
+
+def _doubling_shape(nb: int, dtype: torch.dtype) -> Optional[LadderPlan]:
+    """L4's cluster shape, whatever the crossover (``None`` above its
+    capacity)."""
+    return _cluster_shape(nb, dtype, _doubling_smem)
+
+
+def doubling_plan(nb: int, dtype: torch.dtype) -> LadderPlan:
+    """L4's launch plan (its solve and its reverse mode), a function of
+    the branch count and the dtype alone: the rows ``0..nb − 1`` dealt
+    over the smallest cluster whose CTAs hold their ``per = ⌈nb /
+    cluster⌉`` rows' two round buffers and third buffer in shared memory,
+    two rows a thread — the rows dealt to the CTAs in blocks of 32
+    (:func:`doubling_rows`) — (at 10k branches 8 CTAs of 640 threads in
+    float64, 5 of 1024 in float32), from :data:`CLUSTER_FROM` up to
+    :func:`doubling_capacity` branches; below and above, the one-CTA route
+    (``"cta"``, :func:`global_threads` of the ``nb + 1`` rows)."""
+    nb = int(nb)
+    if nb <= 0:
+        raise ValueError(f"doubling_plan needs nb >= 1, got {nb}")
+    shape = _doubling_shape(nb, dtype)
+    if shape is None or nb < CLUSTER_FROM:
+        return route_plan(nb, dtype, "cta", doubling=True)
+    return shape
+
+
+def doubling_capacity(dtype: torch.dtype) -> int:
+    """The most branches L4's cluster route takes (float64 20,480, float32
+    32,768)."""
+    item = _itemsize(dtype)
+    threads = CTA_THREADS[dtype]
+    while _doubling_smem(threads, item) > SMEM_LIMIT:
+        threads -= 32
+    return MAX_CLUSTER * 2 * threads
+
+
+def doubling_rows(nb: int, plan: LadderPlan, rank: int) -> np.ndarray:
+    """The rows CTA ``rank`` of L4's cluster route owns: the rows are dealt
+    in blocks of 32, block ``k`` to CTA ``k % cluster`` — a warp's lanes
+    hold 32 consecutive rows, and a feeder's top rows (the longest
+    preimage lists, the ancestors the late path rounds read) spread over
+    every CTA — at most ``32 ⌈nb / 32 cluster⌉ ≤ 2 · threads`` a CTA."""
+    a = np.arange(nb)
+    return a[(a // 32) % plan.cluster == rank]
+
+
+def heavy_rows(pre_ptr: np.ndarray, plan: LadderPlan
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """L4's cluster route's work plan of the long preimage lists: for each
+    round and CTA, its rows (:func:`doubling_rows`) whose list holds more
+    than ``HEAVY_ROW``
+    preimages (the rest are their threads'), each given to one warp of
+    the CTA — longest first, to the warp with the least work so far (a
+    batch of 32 loads counted as 64 adds) — as ``(ptr [rounds, cluster,
+    warps + 1], idx)``: CTA ``r``'s warp ``w`` takes the rows
+    ``idx[ptr[m, r, w]:ptr[m, r, w + 1]]`` in round ``m``.  A function of
+    the tree and of the plan (so of ``(nb, dtype)``), never of the lane
+    count."""
+    pre_ptr = np.asarray(pre_ptr, np.int64)
+    rounds, nb = pre_ptr.shape[0], pre_ptr.shape[1] - 1
+    lens = np.diff(pre_ptr, axis=1)
+    warps = plan.threads // 32
+    ptr = np.zeros((rounds, plan.cluster, warps + 1), np.int64)
+    idx = []
+    for m in range(rounds):
+        for r in range(plan.cluster):
+            own = doubling_rows(nb, plan, r)
+            rows = own[lens[m, own] > HEAVY_ROW]
+            order = rows[np.argsort(-lens[m, rows], kind="stable")]
+            load = np.zeros(warps)
+            lists = [[] for _ in range(warps)]
+            for a in order:
+                w = int(np.argmin(load))
+                lists[w].append(int(a))
+                load[w] += lens[m, a] + 64 * -(-lens[m, a] // 32)
+            for w in range(warps):
+                ptr[m, r, w] = len(idx)
+                idx.extend(lists[w])
+            ptr[m, r, warps] = len(idx)
+    return ptr, np.asarray(idx, np.int64)
 
 
 def _tree_tensors(feeder: Feeder, dtype, device):
@@ -959,10 +1175,17 @@ def dense_operands(feeder: Feeder, dtype: torch.dtype,
 
 def doubling_operands(feeder: Feeder, dtype: torch.dtype,
                       device: torch.device) -> DoublingOperands:
-    """L4's operands of a feeder: the jump tables and preimage lists,
-    made once on the host."""
-    jumps = sweeps.doubling_jumps(np.asarray(feeder.parent), feeder.levels)
+    """L4's operands of a feeder: the jump tables, preimage lists, heavy
+    rows' plan (of the cluster shape in ``dtype``) and roots, made once on
+    the host."""
+    parent = np.asarray(feeder.parent)
+    jumps = sweeps.doubling_jumps(parent, feeder.levels)
     ptr, idx = sweeps.preimage_lists(jumps)
+    shape = _doubling_shape(feeder.n_branches, dtype)
+    if shape is None:
+        hptr, hidx = np.zeros((jumps.shape[0], 1, 1)), np.zeros(0)
+    else:
+        hptr, hidx = heavy_rows(ptr, shape)
 
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32),
@@ -970,7 +1193,9 @@ def doubling_operands(feeder: Feeder, dtype: torch.dtype,
 
     return DoublingOperands(*_tree_tensors(feeder, dtype, device),
                             jump=i32(jumps), pre_ptr=i32(ptr),
-                            pre_idx=i32(idx))
+                            pre_idx=i32(idx), heavy_ptr=i32(hptr),
+                            heavy_idx=i32(hidx),
+                            roots=i32(np.nonzero(parent < 0)[0]))
 
 
 def form_sweeps(op) -> Tuple[Callable, Callable]:
@@ -1021,13 +1246,41 @@ def ladder_dense_vjp_plain(saved: Tensor, s: C, op: DenseOperands, gv: C,
                              forward, gv, gb, gl)
 
 
+def conj_zt_ordered(d: C, z_re: Tensor, z_im: Tensor) -> C:
+    """``conj(z)ᵀ d``, ``Σ_p conj(z[q, p]) d[p]``, as four real products,
+    each summed over ``p`` in increasing order with every product and sum
+    rounded on its own (L4's reverse mode's arithmetic)."""
+
+    def dot(a, z):
+        return ((a[..., 0:1] * z[:, :, 0] + a[..., 1:2] * z[:, :, 1])
+                + a[..., 2:3] * z[:, :, 2])
+
+    return C(dot(d.re, z_re) + dot(d.im, z_im),
+             dot(d.im, z_re) - dot(d.re, z_im))
+
+
+def root_sum(x: C, roots) -> C:
+    """``x``'s rows at the ``roots`` ``[B, nb, 3] → [B, 3]``, added from 0
+    in the roots' order: the total of every branch when ``x`` holds
+    subtree sums."""
+    re = torch.zeros_like(x.re[..., 0, :])
+    im = torch.zeros_like(x.im[..., 0, :])
+    for r in roots:
+        re = re + x.re[..., r, :]
+        im = im + x.im[..., r, :]
+    return C(re, im)
+
+
 def ladder_doubling_vjp_plain(saved: Tensor, s: C, op: DoublingOperands,
                               gv: C, gb: C, gl: C) -> Tuple[C, C]:
     """L4's reverse mode in PyTorch: :func:`vjp_iterate_plain` on
-    :func:`form_sweeps`."""
+    :func:`form_sweeps` in the kernels' order — ``conj(z)ᵀ`` by
+    :func:`conj_zt_ordered`, and ``v0``'s cotangent as the subtree sums at
+    the roots — so that L4 gives this version's bits."""
     backward, forward = form_sweeps(op)
     return vjp_iterate_plain(saved, s, op.mask, op.z_re, op.z_im, backward,
-                             forward, gv, gb, gl)
+                             forward, gv, gb, gl, zt=conj_zt_ordered,
+                             roots=op.roots.cpu().tolist())
 
 
 def _check_form_op(op, dev, dtype) -> None:
@@ -1043,9 +1296,17 @@ def _check_form_op(op, dev, dtype) -> None:
         _check_dense_tables(op, dev, dtype)
     else:
         r = op.rounds
+        shape = _doubling_shape(nb, dtype)
+        hshape = ((r, 1, 1) if shape is None
+                  else (r, shape.cluster, shape.threads // 32 + 1))
         _want(dev, None, jump=(op.jump, (r, nb + 1), True),
               pre_ptr=(op.pre_ptr, (r, nb + 1), True),
-              pre_idx=(op.pre_idx, (int(op.pre_idx.shape[0]),), True))
+              pre_idx=(op.pre_idx, (int(op.pre_idx.shape[0]),), True),
+              heavy_ptr=(op.heavy_ptr, hshape, True),
+              heavy_idx=(op.heavy_idx, (int(op.heavy_idx.shape[0]),), True),
+              roots=(op.roots, (int(op.roots.shape[0]),), True))
+        if int(op.roots.shape[0]) < 1:
+            raise ValueError("a feeder has at least one root")
     with _launch_lock:
         if len(_checked) >= 64:
             _checked.clear()
@@ -1225,16 +1486,31 @@ def ladder_dense_vjp(saved: Tensor, s: C, op: DenseOperands, gv: C, gb: C,
     return sbar, _unpack(v0bar)
 
 
+def _doubling_route(op: DoublingOperands, dtype, dev, kernel: str,
+                    plan: Optional[LadderPlan]):
+    """L4's plan (its own, or the caller's) and its launch arguments
+    (cluster, per, threads, smem; cluster 0 for the one-CTA route)."""
+    plan = _plan_for(plan, op.nb, dtype, True)
+    if plan.route != "cluster":
+        return plan, (0, plan.per, plan.threads, 0)
+    resident_clusters(plan, dtype, dev, kernel)
+    return plan, (plan.cluster, plan.per, plan.threads, plan.smem)
+
+
 def ladder_doubling(s: C, v0: C, op: DoublingOperands, eps: float,
-                    max_iter: int, fixed: bool,
-                    save: bool = False) -> LadderOut:
+                    max_iter: int, fixed: bool, save: bool = False,
+                    plan: Optional[LadderPlan] = None) -> LadderOut:
     """L4: a whole ladder solve of every lane on the doubling sweeps in
-    one launch, one CTA a lane — ``s [B, nb, 3]`` pu and ``v0 [B, 3]``
-    contiguous pairs in the caller's branch order."""
+    one launch — ``s [B, nb, 3]`` pu and ``v0 [B, 3]`` contiguous pairs in
+    the caller's branch order — on :func:`doubling_plan`'s route (or
+    ``plan``'s, :func:`route_plan`): a lane a thread-block cluster whose
+    shared memory holds its rows, or one CTA a lane with its state in
+    device memory."""
     if not _on_card(s.re, "ladder_doubling"):
         return ladder_doubling_plain(s, v0, op, eps, max_iter, fixed, save)
     dev, dtype, lanes = _want_solve(s, v0, op, max_iter, "ladder_doubling")
     nb = op.nb
+    plan, shape = _doubling_route(op, dtype, dev, "ladder_doubling", plan)
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=dev)
@@ -1244,17 +1520,19 @@ def ladder_doubling(s: C, v0: C, op: DoublingOperands, eps: float,
     resid = empty(lanes)
     conv = empty(lanes, dt=torch.bool)
     saved = empty(max_iter, lanes, nb, 6) if (save and fixed) else None
-    buf = empty(lanes, 2, nb + 1, 6)
+    buf = None if plan.route == "cluster" else empty(lanes, 2, nb + 1, 6)
     with torch.cuda.device(dev):
         rc = _fn(f"ladder_doubling_{_suffix(dtype)}")(
             op.mask.data_ptr(), op.z_re.data_ptr(), op.z_im.data_ptr(),
             op.root.data_ptr(), op.jump.data_ptr(), op.pre_ptr.data_ptr(),
-            op.pre_idx.data_ptr(), s.re.data_ptr(), s.im.data_ptr(),
+            op.pre_idx.data_ptr(), op.heavy_ptr.data_ptr(),
+            op.heavy_idx.data_ptr(), s.re.data_ptr(), s.im.data_ptr(),
             v0.re.data_ptr(), v0.im.data_ptr(),
             *(t.data_ptr() for t in out), iters.data_ptr(), resid.data_ptr(),
             conv.data_ptr(), None if saved is None else saved.data_ptr(),
-            buf.data_ptr(), nb, op.rounds, lanes, int(max_iter),
-            int(bool(fixed)), float(eps), _stream(s.re))
+            None if buf is None else buf.data_ptr(), nb, op.rounds, lanes,
+            int(max_iter), int(bool(fixed)), float(eps), *shape,
+            _stream(s.re))
     _raise_on(rc, "ladder_doubling")
     _count("ladder_doubling", mode="forward")
     return LadderOut(C(out[0], out[1]), C(out[2], out[3]), C(out[4], out[5]),
@@ -1262,28 +1540,36 @@ def ladder_doubling(s: C, v0: C, op: DoublingOperands, eps: float,
 
 
 def ladder_doubling_vjp(saved: Tensor, s: C, op: DoublingOperands, gv: C,
-                        gb: C, gl: C) -> Tuple[C, C]:
+                        gb: C, gl: C,
+                        plan: Optional[LadderPlan] = None) -> Tuple[C, C]:
     """L4's reverse mode: the cotangents of ``s`` and ``v0`` (as
-    :func:`ladder_vjp`) on the doubling sweeps, one CTA a lane in one
-    launch."""
+    :func:`ladder_vjp`) on the doubling sweeps in one launch, on
+    :func:`doubling_plan`'s route (or ``plan``'s); its plain version's
+    bits."""
     if not _on_card(s.re, "ladder_doubling_vjp"):
         return ladder_doubling_vjp_plain(saved, s, op, gv, gb, gl)
     dev, dtype = s.re.device, s.re.dtype
     _want_vjp(dev, dtype, saved, s, gv, gb, gl)
     _check_form_op(op, dev, dtype)
     lanes, nb, iters = int(s.re.shape[0]), op.nb, int(saved.shape[0])
+    plan, shape = _doubling_route(op, dtype, dev, "ladder_doubling_vjp",
+                                  plan)
     sbar, v0bar = _vjp_outputs(s)
-    buf = torch.empty(lanes, 2, nb + 1, 6, dtype=dtype, device=dev)
-    w = torch.empty(lanes, nb, 6, dtype=dtype, device=dev)
+    scratch = [None, None] if plan.route == "cluster" else [
+        torch.empty(lanes, 2, nb + 1, 6, dtype=dtype, device=dev),
+        torch.empty(lanes, nb, 6, dtype=dtype, device=dev)]
     with torch.cuda.device(dev):
         rc = _fn(f"ladder_doubling_vjp_{_suffix(dtype)}")(
             op.mask.data_ptr(), op.z_re.data_ptr(), op.z_im.data_ptr(),
             op.jump.data_ptr(), op.pre_ptr.data_ptr(), op.pre_idx.data_ptr(),
-            saved.data_ptr(), s.re.data_ptr(), s.im.data_ptr(),
-            gv.re.data_ptr(), gv.im.data_ptr(), gb.re.data_ptr(),
-            gb.im.data_ptr(), gl.re.data_ptr(), gl.im.data_ptr(),
-            sbar.re.data_ptr(), sbar.im.data_ptr(), v0bar.data_ptr(),
-            buf.data_ptr(), w.data_ptr(), nb, op.rounds, lanes, iters,
+            op.heavy_ptr.data_ptr(), op.heavy_idx.data_ptr(),
+            op.roots.data_ptr(), saved.data_ptr(), s.re.data_ptr(),
+            s.im.data_ptr(), gv.re.data_ptr(), gv.im.data_ptr(),
+            gb.re.data_ptr(), gb.im.data_ptr(), gl.re.data_ptr(),
+            gl.im.data_ptr(), sbar.re.data_ptr(), sbar.im.data_ptr(),
+            v0bar.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in scratch), nb,
+            op.rounds, int(op.roots.shape[0]), lanes, iters, *shape,
             _stream(s.re))
     _raise_on(rc, "ladder_doubling_vjp")
     _count("ladder_doubling", mode="reverse")

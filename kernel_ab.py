@@ -3,13 +3,15 @@
 ``gmres_block_orth``, S4 ``gmres_lstsq``, K3 ``newton_update``, K1
 ``newton_assemble``, K2 ``power_injections``, I1 ``cim_iterate``, F1
 ``fdlf_half_step`` in its tile mode, the serving cache's delta program
-(C1), L1 ``ladder_solve``, L3 ``ladder_dense``, I2 ``cim_vjp`` and B1
-``lb_rounds`` from 2¹⁵ nodes of this checkout against those of other
-checkouts of the repo, in turns on one card.
+(C1), L1 ``ladder_solve``, L2 ``ladder_vjp``, L3 ``ladder_dense``, L4
+``ladder_doubling``, I2 ``cim_vjp`` and B1 ``lb_rounds`` from 2¹⁵ nodes of
+this checkout against those of other checkouts of the repo, in turns on
+one card.
 
     python3 kernel_ab.py OTHER [OTHER ...]
                          [--sections sparse,delta,newton,solvers,ladder,
-                                     dense,i2,wide]
+                                     vjp,dense,doubling,superstep,qsts,
+                                     i2,wide]
                          [--out FILE]
 
 Each ``OTHER`` is the root of another checkout, for example one written
@@ -86,6 +88,40 @@ events, each checkout on its own operands built from the same feeder and
 loads; their outputs agree within ``chip_smoke.LADDER_ATOL`` on lanes both
 converge (float64: equal iterations).
 
+The ``vjp`` section times L2 ``ladder_vjp`` at ``VJP_SHAPES``
+(``synthetic_radial(10000)`` × 64 and × 1 in float64 and float32, ``vvc_9bus``
+× 64), 20 saved iterates, by queued events, each checkout on its own
+operands and its own L1's saved iterates from the same feeder and loads,
+and seeded random cotangents; the checkouts' cotangents of the loads and
+the source phasors agree within ``chip_smoke.GRAD_RTOL`` (float64) or
+``chip_smoke.L2_F32_RTOL`` (float32) of the largest.
+
+The ``doubling`` section times L4 ``ladder_doubling`` at
+``DOUBLING_SHAPES`` (``synthetic_radial(10000)`` × 64 and × 1 in float64,
+× 64 in float32, ``synthetic_radial(2048, load_kw=1.0)`` × 64 and
+``vvc_9bus`` × 64 in float64), 20 iterations: a fixed solve, a solve and
+the reverse mode (on the checkout's own saved iterates and seeded random
+cotangents), by queued events, each checkout on its own operands
+(``doubling_operands``).  The checkouts' forward outputs are the same bits
+(both are their plain version's); their reverse modes' cotangents agree
+within ``chip_smoke.GRAD_RTOL`` of the largest (float64;
+``chip_smoke.L2_F32_RTOL`` in float32).
+
+The ``superstep`` section runs ``chip_smoke``'s phase 26 (b) without its
+plain twin: the DGI superstep of ``chip_smoke.SUPERSTEP_NODES`` nodes over
+``synthetic_radial(10000)`` × ``chip_smoke.SUPERSTEP_LANES`` scenario
+lanes (its VVC leg in float32), ``chip_smoke.SUPERSTEP_ROUNDS`` rounds,
+each checkout's own ``make_superstep``; the median of rounds 2 on of a
+round and of its VVC leg by CUDA events (the ``record`` hook); the last
+round's losses finite in every checkout (their trajectories may part:
+each checkout's float32 sums decide the VVC steps' acceptance).
+
+The ``qsts`` section runs ``chip_smoke``'s QSTS phase (d) — vvc_9bus × 64
+scenarios × 96 steps in chunks of 24, one L1 launch of 1536 lanes a chunk
+— through each checkout's own ``run_study``: after one warm run, the
+median wall scenario-steps/s of ``QSTS_RUNS`` runs; the checkouts' final
+per-scenario losses agree within ``chip_smoke.QSTS_ATOL`` (relative).
+
 The ``dense`` section times L3 ``ladder_dense`` at ``DENSE_SHAPES``
 (``synthetic_radial(2048, load_kw=1.0)`` × 64 in float64 and float32,
 ``vvc_9bus`` × 64), 20 iterations, fixed and solve mode and the reverse
@@ -134,14 +170,26 @@ DTYPES = ("float64", "float32")
 KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "sparse_assemble_residual", "sparse_matvec", "gmres_block_orth",
            "gmres_lstsq", "newton_update")
-SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder", "dense", "i2",
-            "wide")
+SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder", "vjp", "dense",
+            "doubling", "superstep", "qsts", "i2", "wide")
 SOLVER_KERNELS = ("cim_iterate", "fdlf_half_step", "fdlf_half_step_warp",
                   "power_injections_lanes")
 #: The ``ladder`` section's L1 shapes: (feeder, lanes, dtype).
 LADDER_SHAPES = (("radial10k", 1, "float64"), ("radial10k", 64, "float64"),
                  ("radial10k", 1, "float32"), ("radial10k", 64, "float32"),
-                 ("vvc_9bus", 64, "float64"))
+                 ("vvc_9bus", 64, "float64"), ("vvc_9bus", 1536, "float64"),
+                 ("vvc_9bus", 1536, "float32"))
+#: The ``qsts`` section's study: ``chip_smoke.py``'s QSTS phase (d), one
+#: L1 launch of 24 steps x 64 scenarios a chunk, run this many times.
+QSTS_RUNS = 3
+#: The ``vjp`` section's L2 shapes: (feeder, lanes, dtype).
+VJP_SHAPES = (("radial10k", 64, "float64"), ("radial10k", 1, "float64"),
+              ("radial10k", 64, "float32"), ("radial10k", 1, "float32"),
+              ("vvc_9bus", 64, "float64"))
+#: The ``doubling`` section's L4 shapes: (feeder, lanes, dtype).
+DOUBLING_SHAPES = (("radial10k", 64, "float64"), ("radial10k", 1, "float64"),
+                   ("radial10k", 64, "float32"),
+                   ("radial2048", 64, "float64"), ("vvc_9bus", 64, "float64"))
 #: The ``dense`` section's L3 shapes: (feeder, lanes, dtype).
 DENSE_SHAPES = (("radial2048", 64, "float64"), ("radial2048", 64, "float32"),
                 ("vvc_9bus", 64, "float64"))
@@ -396,6 +444,133 @@ def measure_ladder(torch, cs, dev):
     return times, outs
 
 
+def measure_vjp(torch, cs, dev):
+    """L2 at ``VJP_SHAPES`` on this checkout's own operands and saved
+    iterates, 20 iterates: device times by queued events, and the
+    cotangents."""
+    from freedm_tpu_torch.kernels import ladder_kernels as lk
+
+    feeders = {n: f for n, f, _, _ in cs.ladder_feeders()}
+    times, outs = {}, {}
+    for name, lanes, dn in VJP_SHAPES:
+        dtype = getattr(torch, dn)
+        s, v0, op = cs.preorder_inputs(torch, lk, feeders[name], lanes,
+                                       dtype)
+        saved = lk.ladder_solve(s, v0, op, cs.LADDER_EPS, 20, True,
+                                save=True).saved
+        gs = cs._cotangents(torch, np.random.default_rng(5), lanes, op.nb,
+                            dtype, dev)
+
+        def back():
+            return lk.ladder_vjp(saved, s, op, *gs)
+        key = f"{name}_x{lanes}_{dn}"
+        outs[key] = [x.cpu() for x in cs._flat_vjp(back())]
+        times[key] = cs.queued_events_ms(torch, back, 7)
+    return times, outs
+
+
+def measure_doubling(torch, cs, dev):
+    """L4 at ``DOUBLING_SHAPES`` on this checkout's own operands, 20
+    iterations: fixed and solve mode and the reverse mode, device times by
+    queued events, and their outputs."""
+    from freedm_tpu_torch.kernels import ladder_kernels as lk
+
+    feeders = cs.form_feeders()
+    times, outs = {}, {}
+    for name, lanes, dn in DOUBLING_SHAPES:
+        dtype = getattr(torch, dn)
+        f = feeders[name]
+        s, v0 = cs.form_inputs(torch, f, lanes, dtype, dev)
+        op = lk.doubling_operands(f, dtype, dev)
+        key = f"{name}_x{lanes}_{dn}"
+        for mode, fixed in (("fixed", True), ("solve", False)):
+            def fn(fixed=fixed):
+                return lk.ladder_doubling(s, v0, op, cs.LADDER_EPS, 20, fixed)
+            o = fn()
+            outs[f"{key}_{mode}"] = [x.cpu() for x in (
+                o.v.re, o.v.im, o.i_branch.re, o.i_branch.im, o.i_load.re,
+                o.i_load.im, o.iterations, o.converged)]
+            times[f"{key}_{mode}"] = cs.queued_events_ms(torch, fn, 5)
+        saved = lk.ladder_doubling(s, v0, op, cs.LADDER_EPS, 20, True,
+                                   save=True).saved
+        gs = cs._cotangents(torch, np.random.default_rng(5), lanes,
+                            f.n_branches, dtype, dev)
+
+        def back():
+            return lk.ladder_doubling_vjp(saved, s, op, *gs)
+        outs[f"{key}_reverse"] = [x.cpu() for x in cs._flat_vjp(back())]
+        times[f"{key}_reverse"] = cs.queued_events_ms(torch, back, 5)
+    return times, outs
+
+
+def measure_superstep(torch, cs, dev):
+    """Phase 26 (b)'s superstep on this checkout's ``make_superstep``:
+    the median round and VVC leg (ms, CUDA events) over rounds 2 on, and
+    the last round's losses."""
+    from freedm_tpu_torch.grid import topology as top
+    from freedm_tpu_torch.grid.cases import synthetic_radial
+    from freedm_tpu_torch.parallel import make_superstep
+
+    n = cs.SUPERSTEP_NODES
+    feeder = synthetic_radial(cs.SUPERSTEP_FEEDER, seed=0, load_kw=1.0)
+    rng = np.random.default_rng(26)
+    reach = top.node_reachability(
+        top.parse_topology(cs.dgi_topology_text()),
+        tuple(f"n{i}" for i in range(n)), device=dev)(
+        rng.uniform(size=cs.DGI_FIDS) > 0.1)
+    step, shard = make_superstep(feeder=feeder, device=dev)
+    netgen, gateway = cs.superstep_fleet(torch, n, 1, dev)
+    alive = (rng.uniform(size=n) >= 0.02).astype(np.float32)
+    st = shard(netgen.cpu().numpy(), gateway.cpu().numpy(),
+               rng.uniform(0.7, 1.3, cs.SUPERSTEP_LANES), alive=alive,
+               reachable=reach.cpu().numpy())
+    rounds, vvc = [], []
+    for r in range(cs.SUPERSTEP_ROUNDS):
+        marks, names = [], []
+
+        def record(name=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            names.append(name)
+
+        torch.cuda.synchronize()
+        record()
+        out = step(st, record=record)
+        torch.cuda.synchronize()
+        if r > 0:
+            rounds.append(marks[0].elapsed_time(marks[-1]))
+            i = names.index("vvc")
+            vvc.append(marks[i - 1].elapsed_time(marks[i]))
+        st = out.state
+    return ({"round_ms": float(np.median(rounds)),
+             "vvc_ms": float(np.median(vvc))},
+            [out.vvc_loss.cpu()])
+
+
+def measure_qsts(torch, cs, dev):
+    """QSTS phase (d) (vvc_9bus x 64 scenarios x 96 steps, chunks of 24)
+    through this checkout's ``run_study``, after one warm run: the median
+    wall scenario-steps/s over ``QSTS_RUNS`` runs, and the last run's
+    per-scenario losses."""
+    from freedm_tpu_torch.scenarios.engine import (QstsEngine, StudySpec,
+                                                   run_study)
+
+    spec = StudySpec(case="vvc_9bus", scenarios=cs.MAIN_LANES, steps=96,
+                     dt_minutes=15.0, chunk_steps=24, seed=5)
+    eng = QstsEngine(spec)
+    run_study(spec, engine=eng)
+    rates = []
+    for _ in range(QSTS_RUNS):
+        torch.cuda.synchronize()
+        out = run_study(spec, engine=eng)
+        rates.append(out["scenario_steps_per_sec"])
+    state = cs.study_states(eng)
+    return ({"scenario_steps_per_sec": float(np.median(rates)),
+             "runs": rates},
+            [torch.as_tensor(np.asarray(state.loss_kwh, np.float64))])
+
+
 def measure_dense(torch, cs, dev):
     """L3 at ``DENSE_SHAPES`` through this checkout's own operands, 20
     iterations: fixed and solve mode and the reverse mode, device times by
@@ -550,8 +725,17 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
             torch, cs, data["solvers"], dev)
     if "ladder" in sections:
         times["ladder"], outs["ladder"] = measure_ladder(torch, cs, dev)
+    if "vjp" in sections:
+        times["vjp"], outs["vjp"] = measure_vjp(torch, cs, dev)
     if "dense" in sections:
         times["dense"], outs["dense"] = measure_dense(torch, cs, dev)
+    if "doubling" in sections:
+        times["doubling"], outs["doubling"] = measure_doubling(torch, cs, dev)
+    if "superstep" in sections:
+        times["superstep"], outs["superstep"] = measure_superstep(torch, cs,
+                                                                  dev)
+    if "qsts" in sections:
+        times["qsts"], outs["qsts"] = measure_qsts(torch, cs, dev)
     if "i2" in sections:
         times["i2"], outs["i2"] = measure_i2(torch, cs, dev)
     if "wide" in sections:
@@ -740,6 +924,44 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
                  f"checkout's (iterations {outs[6].tolist()[:4]} vs "
                  f"{other[6].tolist()[:4]})")
         errs[f"ladder_{key}_max_abs"] = d
+    if "superstep" in a:
+        ok = all(bool(torch.isfinite(x).all()) for x in a["superstep"]
+                 + b["superstep"])
+        cs.check(ok, f"{label}: the superstep's losses are not finite")
+        errs["superstep_loss_max_rel"] = max(
+            float(((x - y).abs() / y.abs().clamp(min=1e-30)).max())
+            for x, y in zip(a["superstep"], b["superstep"]))
+    if "qsts" in a:
+        x, y = a["qsts"][0], b["qsts"][0]
+        d = float(((x - y).abs() / y.abs().clamp(min=1e-30)).max())
+        cs.check(bool(torch.isfinite(x).all()) and d <= cs.QSTS_ATOL,
+                 f"{label}: QSTS (d) losses {d:.3e} (relative) from this "
+                 f"checkout's")
+        errs["qsts_loss_max_rel"] = d
+    for key, outs in a.get("vjp", {}).items():
+        other = b["vjp"][key]
+        top = max(float(y.abs().max()) for y in other)
+        d = max(float((x - y).abs().max()) for x, y in zip(outs, other))
+        rtol = cs.L2_F32_RTOL if "float32" in key else cs.GRAD_RTOL
+        cs.check(d <= rtol * top, f"{label}: L2 {key} cotangents {d:.3e} "
+                 f"from this checkout's (largest {top:.3e})")
+        errs[f"ladder_vjp_{key}_max_rel"] = d / max(top, 1e-300)
+    for key, outs in a.get("doubling", {}).items():
+        other = b["doubling"][key]
+        if key.endswith("_reverse"):
+            top = max(float(y.abs().max()) for y in other)
+            d = max(float((x - y).abs().max()) for x, y in zip(outs, other))
+            rtol = cs.L2_F32_RTOL if "float32" in key else cs.GRAD_RTOL
+            cs.check(d <= rtol * top, f"{label}: L4 {key} cotangents "
+                     f"{d:.3e} from this checkout's (largest {top:.3e})")
+            errs[f"ladder_doubling_{key}_max_rel"] = d / max(top, 1e-300)
+            errs[f"ladder_doubling_{key}_same_bits"] = all(
+                torch.equal(x, y) for x, y in zip(outs, other))
+            continue
+        same = all(torch.equal(x, y) for x, y in zip(outs, other))
+        cs.check(same, f"{label}: L4 {key} outputs differ from this "
+                 f"checkout's")
+        errs[f"ladder_doubling_{key}_same_bits"] = same
     for key, outs in a.get("dense", {}).items():
         other = b["dense"][key]
         f32 = "float32" in key
@@ -818,9 +1040,12 @@ def main() -> int:
                     help="comma-separated: sparse (S1-S4, K3 and the "
                          "solves), delta (the delta program), newton (K1 "
                          "and K2), solvers (I1, F1's tile mode and warp "
-                         "form, K2's per-lane form), ladder (L1), dense "
-                         "(L3), i2 (I2 a call and a backward), wide (B1 "
-                         "from 2^15 nodes)")
+                         "form, K2's per-lane form), ladder (L1), vjp (L2), "
+                         "dense (L3), doubling (L4 and its reverse mode), "
+                         "superstep (phase 26 (b)'s rounds), qsts (QSTS "
+                         "phase (d)'s scenario-steps/s), "
+                         "i2 (I2 a call and a backward), wide (B1 from "
+                         "2^15 nodes)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
@@ -855,8 +1080,12 @@ def main() -> int:
                         "F1 tile mode mesh118 x 1024, warp form mesh2000 x "
                         "1; K2 per-lane mesh118 x 118; L1 radial10k x "
                         "{1, 64} f64/f32, vvc_9bus x 64, 20 iterations; "
-                        "L3 radial2048 x 64 f64/f32, vvc_9bus x 64, 20 "
-                        "iterations, fixed, solve and reverse; I2 the CIM "
+                        "L2 radial10k x {1, 64} f64/f32, vvc_9bus x 64, 20 "
+                        "iterates; L3 radial2048 x 64 f64/f32, vvc_9bus x "
+                        "64, 20 iterations, fixed, solve and reverse; L4 "
+                        "radial10k x {1, 64} f64, x 64 f32, radial2048 x "
+                        "64, vvc_9bus x 64, fixed, solve and reverse; I2 "
+                        "the CIM "
                         "feeder x 64, a call and a 60-iteration backward; "
                         "B1 2^15 x 4, 40961 x 1, 2^16 x 1, 64 rounds",
                "turns": "other, this, this, other", "others": {}}
@@ -898,6 +1127,23 @@ def main() -> int:
                 for key, dev in times.get("ladder", {}).items():
                     print(f"ab {other.name} ladder_solve {key:<28} {which:<5}"
                           f" device (queued events) {dev:.4f} ms", flush=True)
+                for key, ms in times.get("superstep", {}).items():
+                    print(f"ab {other.name} superstep {key:<10} {which:<5} "
+                          f"(CUDA events, median of rounds 2-"
+                          f"{cs.SUPERSTEP_ROUNDS}) {ms:.4f} ms", flush=True)
+                qv = times.get("qsts")
+                if qv:
+                    print(f"ab {other.name} qsts (d) vvc_9bus x64 x96 "
+                          f"{which:<5} {qv['scenario_steps_per_sec']:.1f} "
+                          f"scenario-steps/s (median of {qv['runs']})",
+                          flush=True)
+                for key, dev in times.get("vjp", {}).items():
+                    print(f"ab {other.name} ladder_vjp {key:<28} {which:<5}"
+                          f" device (queued events) {dev:.4f} ms", flush=True)
+                for key, dev in times.get("doubling", {}).items():
+                    print(f"ab {other.name} ladder_doubling {key:<34} "
+                          f"{which:<5} device (queued events) {dev:.4f} ms",
+                          flush=True)
                 for key, dev in times.get("dense", {}).items():
                     print(f"ab {other.name} ladder_dense {key:<34} {which:<5}"
                           f" device (queued events) {dev:.4f} ms", flush=True)

@@ -472,7 +472,7 @@ PLAN_NBS = [1, 8, 31, 32, 33, 64, 65, 512, 1023, 1024, 2048, 2049, 5000,
 @pytest.mark.parametrize("nb", PLAN_NBS)
 def test_ladder_plan_cuts_whole_contiguous_intervals(nb, dtype):
     plan = lk.ladder_plan(nb, dtype)
-    if nb > lk.cluster_capacity(dtype):
+    if nb > lk.cluster_capacity(dtype) or nb < lk.CLUSTER_FROM:
         assert plan.route == "global"
         return
     assert plan.route == "cluster"
@@ -505,7 +505,10 @@ def test_ladder_plan_is_a_function_of_nb_and_dtype_alone(nb):
 def test_ladder_plan_route_changes_only_at_capacity(dtype):
     cap = lk.cluster_capacity(dtype)
     assert cap == {F64: 20480, torch.float32: 32768}[dtype]
-    for nb in (1, 2, 3, 17, 1000, cap // 2, cap - 1, cap):
+    start = lk.CLUSTER_FROM  # the small-feeder crossover
+    for nb in (1, 2, 3, 17, start - 1):
+        assert lk.ladder_plan(nb, dtype).route == "global", nb
+    for nb in (start, start + 1, 1000, cap // 2, cap - 1, cap):
         assert lk.ladder_plan(nb, dtype).route == "cluster", nb
     for nb in (cap + 1, cap + 2, 2 * cap, 100000):
         plan = lk.ladder_plan(nb, dtype)
@@ -516,7 +519,7 @@ def test_ladder_plan_route_changes_only_at_capacity(dtype):
 
 
 def test_ladder_plan_at_the_served_feeders():
-    assert lk.ladder_plan(8, F64).cluster == 1  # vvc_9bus: a cluster of 1
+    assert lk.ladder_plan(8, F64).cluster == 1  # vvc_9bus: one CTA a lane
     assert lk.ladder_plan(10000, F64)[:3] == ("cluster", 8, 1250)
     assert lk.ladder_plan(10000, torch.float32)[:3] == ("cluster", 5, 2000)
 

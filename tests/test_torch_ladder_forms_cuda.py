@@ -11,8 +11,13 @@ gradient in the loads and in ``v_source_pu`` against ``torch.autograd``
 of its plain fixed solve (rtol ``GRAD_RTOL``).  L3 runs both of its
 routes here (``lk.dense_plan``): the CTA route on vvc_9bus, radial300 and
 the dead-phase feeder, the tiled route on radial2048, and a feeder at
-the CTA route's capacity and one branch above it in each dtype.  Every
-test needs a CUDA card and skips without one (``chip_smoke.py`` runs
+the CTA route's capacity and one branch above it in each dtype.  L4's
+two routes (``lk.doubling_plan``): its cluster route (a lane a
+thread-block cluster, the rows in distributed shared memory, the long
+preimage lists a warp's) and its one-CTA route, forward and reverse, bit
+for bit their plain versions in float64 and float32 — on radial2048 and
+radial10k, at its cluster capacity and one branch above, and vvc_9bus
+below the crossover.  Every test needs a CUDA card and skips without one (``chip_smoke.py`` runs
 these checks at the full widths).  No JAX: the plain versions are held
 to the reference on the CPU by ``tests/test_torch_ladder_forms.py``."""
 
@@ -20,9 +25,11 @@ import numpy as np
 import pytest
 import torch
 
+from freedm_tpu_torch.cplx import C
 from freedm_tpu_torch.grid import cases, feeder
 from freedm_tpu_torch.kernels import ladder_kernels as lk
-from freedm_tpu_torch.pf.ladder import make_ladder_solver, total_loss_kw
+from freedm_tpu_torch.pf.ladder import (SOURCE_UNIT, make_ladder_solver,
+                                        total_loss_kw)
 
 F64, F32 = torch.float64, torch.float32
 ATOL = 1e-10
@@ -130,8 +137,9 @@ def test_form_matches_plain_on_card(cuda_device, form, dtype, name):
         assert gap(got, want, pick) <= (ATOL if dtype == F64 else ATOL_F32)
         if dtype == F64:
             assert torch.equal(got.iterations, want.iterations)
-            if form == "doubling":  # L4 rounds as its plain version does
-                assert same_bits(got, want)
+        if form == "doubling":  # L4 rounds as its plain version does
+            assert same_bits(got, want)
+            assert torch.equal(got.iterations, want.iterations)
 
 
 @pytest.mark.cuda
@@ -265,3 +273,89 @@ def test_dense_routes_at_the_cta_cap(cuda_device, dtype, above):
         if dtype == F64:
             assert torch.equal(got.iterations, want.iterations)
         assert same_bits(got, kernel[mode](loads))
+
+
+def doubling_bits(f, dtype, device, lanes=2, seed=8, plan=None):
+    """L4's fixed (saving), solve and reverse modes (on ``plan``'s route,
+    or the kernel's own) against their plain versions on the same card:
+    every output the same bits."""
+    loads = loads_of(f, lanes, seed=seed)
+    s = C(torch.tensor(loads.real / f.s_base_per_phase_kva, dtype=dtype,
+                       device=device),
+          torch.tensor(loads.imag / f.s_base_per_phase_kva, dtype=dtype,
+                       device=device))
+    u = SOURCE_UNIT * f.v_source_pu
+    v0 = C(torch.tensor(np.tile(u.real, (lanes, 1)), dtype=dtype,
+                        device=device),
+           torch.tensor(np.tile(u.imag, (lanes, 1)), dtype=dtype,
+                        device=device))
+    op = lk.doubling_operands(f, dtype, device)
+    for fixed in (True, False):
+        got = lk.ladder_doubling(s, v0, op, EPS, MAX_ITER, fixed, save=fixed,
+                                 plan=plan)
+        want = lk.ladder_doubling_plain(s, v0, op, EPS, MAX_ITER, fixed,
+                                        save=fixed)
+        torch.cuda.synchronize()
+        for k in ("v", "i_branch", "i_load"):
+            for p in ("re", "im"):
+                assert torch.equal(getattr(getattr(got, k), p),
+                                   getattr(getattr(want, k), p)), (k, fixed)
+        assert torch.equal(got.iterations, want.iterations)
+        if fixed:
+            assert torch.equal(got.saved, want.saved)
+            rng = np.random.default_rng(seed)
+            gs = [C(torch.tensor(rng.normal(size=loads.shape), dtype=dtype,
+                                 device=device),
+                    torch.tensor(rng.normal(size=loads.shape), dtype=dtype,
+                                 device=device)) for _ in range(3)]
+            sb, v0b = lk.ladder_doubling_vjp(got.saved, s, op, *gs, plan=plan)
+            wsb, wv0b = lk.ladder_doubling_vjp_plain(got.saved, s, op, *gs)
+            torch.cuda.synchronize()
+            for a, b in ((sb.re, wsb.re), (sb.im, wsb.im), (v0b.re, wv0b.re),
+                         (v0b.im, wv0b.im)):
+                assert torch.all(torch.isfinite(a)) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["9bus", "radial2048"])
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_doubling_routes_give_the_plain_bits(cuda_device, name, dtype):
+    f = FEEDERS[name]()
+    route = lk.doubling_plan(f.n_branches, dtype).route
+    assert route == ("cta" if f.n_branches < lk.CLUSTER_FROM else "cluster")
+    doubling_bits(f, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [64, 1536])
+@pytest.mark.parametrize("route", ["cluster", "cta"])
+@pytest.mark.parametrize("nb", [9, 511])
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_both_doubling_routes_below_the_crossover_give_the_plain_bits(
+        cuda_device, dtype, nb, route, lanes):
+    """Either L4 route, launched through its plan, forward and reverse,
+    at the widths the small feeders run (64 lanes, QSTS's 24 x 64)."""
+    f = (FEEDERS["9bus"]() if nb == 9
+         else cases.synthetic_radial(nb, seed=0, load_kw=1.0))
+    plan = lk.route_plan(f.n_branches, dtype, route, doubling=True)
+    doubling_bits(f, dtype, cuda_device, lanes=lanes, plan=plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_doubling_cluster_route_at_10k_gives_the_plain_bits(cuda_device,
+                                                            dtype):
+    f = cases.synthetic_radial(10000, seed=0, load_kw=1.0)
+    assert lk.doubling_plan(f.n_branches, dtype).route == "cluster"
+    doubling_bits(f, dtype, cuda_device, lanes=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("above", [0, 1])
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_doubling_routes_at_the_cluster_capacity(cuda_device, dtype, above):
+    nb = lk.doubling_capacity(dtype) + above
+    f = cases.synthetic_radial(nb, seed=4, load_kw=1.0)
+    assert lk.doubling_plan(nb, dtype).route == ("cta" if above
+                                                 else "cluster")
+    doubling_bits(f, dtype, cuda_device, lanes=1)
