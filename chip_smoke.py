@@ -222,18 +222,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    equal); an agents job (A1 launched); an unknown id 404; ``/healthz``
    ``qsts``;
 18. topo kernels: T1 and T2 (both modes) against their plain versions at
-   case14, case_ieee30, mesh118 and mesh2000 × V ∈ {1, 4096} (capped at a
-   rank's distinct open-sets) × r ∈ {1, 2, 6}, random distinct open-sets
-   (seeded), and every rank-<=2 variant of case14, case_ieee30 and mesh118
-   (``TOPO_ATOL``; T1's booleans, T2's islanding flags and violation
-   counts equal; both bit-identical on repeat, SCREEN equal to DETAIL);
-   the bridges of case14 and case_ieee30 flagged by both; the least |det
-   C| of a connected lane and the largest of an islanded one; then their
-   times (events and device time) beside the plain versions and the
-   bounds: T1 and T2 SCREEN at mesh118 × 4096, r = 2 (a chunk of the gate
-   sweep) and mesh2000 × 16384, r ≤ 3, T2 DETAIL at mesh118 × 4096; the
-   library row: ``torch.linalg.solve_ex`` of the chunk's re-formed B′,
-   and per variant on the reference bench's 32 mixed-rank lanes;
+   case14, case_ieee30, mesh118 and mesh2000 × V ∈ {1, 64, 4096} (capped
+   at a rank's distinct open-sets) × r ∈ {1, 2, 6}, random distinct
+   open-sets (seeded), and every rank-<=2 variant of case14, case_ieee30
+   and mesh118 (``TOPO_ATOL``; T1's booleans, T2's islanding flags and
+   violation counts equal; both bit-identical on repeat, SCREEN equal to
+   DETAIL); the bridges of case14 and case_ieee30 flagged by both; the
+   least |det C| of a connected lane and the largest of an islanded one;
+   T1 on graphs with parallel branches, self-loops and a disconnected
+   base; a lane's bits at launch widths 1, 64 and 4096 and in a permuted
+   chunk (mesh118 r = 2, mesh2000 r = 3); the card's refusal of T1's
+   sweep count; then their times (events back to back, and device time by
+   queued events) beside the plain versions and the bounds: T1 and T2
+   SCREEN and DETAIL at mesh118 × 4096, r = 2 (a chunk of the gate
+   sweep), × 64 (a chunk of the served sweep job) and mesh2000 × 16384,
+   r ≤ 3 (SCREEN), T1 at 4-32 warps a CTA and T2's other launch plans
+   (``screen_plan``'s choice recorded); the library row:
+   ``torch.linalg.solve_ex`` of the chunk's re-formed B′, and per variant
+   on the reference bench's 32 mixed-rank lanes;
 19. topo sweeps through ``run_topo_sweep``: (a) every rank-<=2 variant of
    mesh118 in chunks of 4096, top 8 by loss — variants/s beside the
    reference bench's floor (10⁴), the AC verify of the top 8 apart, every
@@ -242,7 +248,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    plain versions' sweep equal; T1 and T2 once a chunk; (b) full width:
    mesh2000, ``TOPO_FULL_SAMPLES`` neighborhood samples of rank <= 3 (seed
    7) in chunks of ``TOPO_FULL_CHUNK`` — variants/s, the host draw, the
-   chunk walls and T1 + T2's share, T1's sweeps, the excluded counts;
+   chunk walls and T1 + T2's share, the plain T1's sweeps, the excluded
+   counts;
 20. serve topo: the default server (cache on) with a ``JobManager``:
    ``POST /v1/topo`` case14 at rank 2 (210 variants, counts partition,
    verified, the shortlist of ``run_topo_sweep``), mesh118 after a
@@ -4699,7 +4706,7 @@ def serve_qsts(torch, qk):
 #: equal; both bit-identical on repeat.
 TOPO_ATOL = 1e-10
 TOPO_CASES = ("case14", "case_ieee30", "mesh118", "mesh2000")
-TOPO_LANES = (1, 4096)  # capped by a case's distinct open-sets of a rank
+TOPO_LANES = (1, 64, 4096)  # capped by a case's distinct open-sets of a rank
 TOPO_RANKS = (1, 2, 6)
 #: The flow bar of the compared and timed screens, pu.
 TOPO_LIMIT = 0.5
@@ -4771,8 +4778,6 @@ def compare_topo_block(torch, tk, op, zt, theta0, sl, tag):
     check(torch.equal(k1[0], p1[0]) and torch.equal(k1[1], p1[1]),
           f"topo_radiality {tag}: connected/radial differ from the plain "
           f"version")
-    # The verdict is the fixed point's; the sweep count of the asynchronous
-    # sweeps depends on the threads' timing and is not compared.
     check(torch.equal(k1[0], again1[0]) and torch.equal(k1[1], again1[1]),
           f"topo_radiality {tag}: not bit-identical on repeat")
     k2 = tk.topo_screen(zt, theta0, sl, TOPO_LIMIT, op, tk.DETAIL)
@@ -4805,9 +4810,11 @@ def compare_topo_block(torch, tk, op, zt, theta0, sl, tag):
 
 def compare_topo(torch, tk, tp, errs, dev="cuda", cases=TOPO_CASES):
     """T1 and T2 against their plain versions at case14, case_ieee30,
-    mesh118 and mesh2000 × V ∈ {1, 4096} × r ∈ {1, 2, 6} (random distinct
-    open-sets, seeded), every rank-<=2 variant of case14, case_ieee30 and
-    mesh118, and the bridges of case14 and case_ieee30."""
+    mesh118 and mesh2000 × V ∈ {1, 64, 4096} × r ∈ {1, 2, 6} (random
+    distinct open-sets, seeded), every rank-<=2 variant of case14,
+    case_ieee30 and mesh118, and the bridges of case14 and case_ieee30;
+    then T1 on bare graphs (:func:`topo_graphs`) and a lane's bits across
+    launch widths (:func:`topo_widths`)."""
     from freedm_tpu_torch.pf.n1 import secure_outages
 
     t0 = time.monotonic()
@@ -4817,7 +4824,7 @@ def compare_topo(torch, tk, tp, errs, dev="cuda", cases=TOPO_CASES):
         m = sys_.n_branch
         cases = [(f"r{rank} x{lanes}", random_open_sets(
             m, min(lanes, tp.count_exhaustive(m, rank)), rank,
-            seed=100 * ci + 10 * rank + (lanes > 1)))
+            seed=100 * ci + 10 * rank + (lanes > 1) + 5 * (lanes == 64)))
             for rank in TOPO_RANKS for lanes in TOPO_LANES]
         if name != "mesh2000":
             cases.append(("every rank<=2",
@@ -4846,6 +4853,8 @@ def compare_topo(torch, tk, tp, errs, dev="cuda", cases=TOPO_CASES):
                   f"{isl.tolist()})")
             log(f"topo kernels: {name}'s {len(bridges)} bridges flagged by T1 "
                 f"and T2")
+    topo_graphs(torch, tk, dev)
+    topo_widths(torch, tk, tp, dev)
     sync(torch, torch.device(dev))
     errs["topo_radiality"] = 0.0  # booleans: equal
     errs["topo_screen"] = worst
@@ -4856,6 +4865,97 @@ def compare_topo(torch, tk, tp, errs, dev="cuda", cases=TOPO_CASES):
         f"(threshold {tk.ISLAND_EPS:g}) "
         f"({time.monotonic() - t0:.1f} s)")
     return {"det_max_islanded": det_hi, "det_min_connected": det_lo}
+
+
+def graph_operands(torch, tk, n, f, t, dev):
+    """T1's operands of a bare graph (T2's floats zero)."""
+    plan = tk.tree_plan(n, f, t)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    zero = torch.zeros(len(f), dtype=torch.float64, device=dev)
+    return tk.TopoOperands(n, idx(f), idx(t), zero, zero, zero, zero, plan,
+                           idx(plan.cut), idx(tk.tree_buffer(plan)))
+
+
+def topo_graphs(torch, tk, dev="cuda"):
+    """T1 against its plain version on graphs the cases lack: a ring with
+    parallel branches, a chord and self-loops; case14 with its bridges
+    removed (a disconnected base); a 2-bus graph of 300 parallel branches;
+    each over seeded rows of up to 6 slots with repeats, pads and slots >=
+    m."""
+    from freedm_tpu_torch.pf.n1 import secure_outages
+
+    ring_f = list(range(12)) + [3, 7, 2, 5, 9]
+    ring_t = [(i + 1) % 12 for i in range(12)] + [4, 8, 9, 5, 9]
+    c14 = case_system("case14")
+    keep = np.asarray(secure_outages(c14))
+    graphs = {"ring+parallel+self-loops": (12, ring_f, ring_t),
+              "case14 without bridges": (
+                  c14.n_bus, np.asarray(c14.from_bus)[keep],
+                  np.asarray(c14.to_bus)[keep]),
+              "2 buses x 300 branches": (2, [0] * 300, [1] * 300)}
+    rng = np.random.default_rng(18)
+    for name, (n, f, t) in graphs.items():
+        op = graph_operands(torch, tk, n, f, t, dev)
+        m = op.m
+        sl = rng.integers(-1, m + 2, size=(512, 6)).astype(np.int32)
+        sl[::3, 3:] = sl[::3, :3]  # repeats
+        sl = torch.as_tensor(sl, device=dev)
+        got = tk.topo_radiality(sl, op, n + 1)
+        want = tk.topo_radiality_plain(sl, op, n + 1)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"topo_radiality {name}: connected/radial differ from the "
+              f"plain version")
+        log(f"topo graphs: {name} (n {n}, m {m}, base connected "
+            f"{op.tree.connected}): T1 equal to its plain version on 512 "
+            f"rows ({int(got[0].sum())} connected)")
+
+
+def topo_widths(torch, tk, tp, dev="cuda"):
+    """A lane's T1 booleans and T2 DETAIL outputs are the same bits at
+    launch widths 1, 64 and 4096 and in a permuted chunk (mesh118, 4096
+    rank-2 variants; mesh2000, 4096 neighborhood samples of rank <= 3);
+    on the card T1 refuses ``with_sweeps``."""
+    for name, rank in (("mesh118", 2), ("mesh2000", 3)):
+        sys_, op, zt, theta0 = topo_inputs(torch, tp, name, dev)
+        m = sys_.n_branch
+        slots = (tp.enumerate_variants(np.arange(m), 2)[4096:8192]
+                 if rank == 2 else
+                 tp.neighborhood_variants(np.arange(m), rank, 4096, 11))
+        sl = torch.as_tensor(slots, device=dev)
+
+        def lanes(s):
+            c, r = tk.topo_radiality(s, op, op.n + 1)
+            d = tk.topo_screen(zt, theta0, s, TOPO_LIMIT, op, tk.DETAIL)
+            return [c, r, d.loss, d.worst_flow, d.violations, d.islanded,
+                    d.theta, d.flows]
+
+        full = lanes(sl)
+        perm = torch.as_tensor(np.random.default_rng(21).permutation(
+            sl.shape[0]), device=sl.device)
+        picks = [("x1 lane 0", slice(0, 1)), ("x1 lane 4095",
+                                               slice(4095, 4096)),
+                 ("x64 rows 64-127", slice(64, 128))]
+        for tag, rows in picks:
+            got = lanes(sl[rows].contiguous())
+            check(all(torch.equal(a, b[rows]) for a, b in zip(got, full)),
+                  f"topo widths {name}: {tag} differs from the 4096-lane "
+                  f"launch")
+        got = lanes(sl[perm].contiguous())
+        check(all(torch.equal(a, b[perm]) for a, b in zip(got, full)),
+              f"topo widths {name}: a permuted chunk differs")
+        log(f"topo widths: {name} r{rank}: T1 and T2 DETAIL the same bits at "
+            f"widths 1, 64 and 4096 and in a permuted chunk")
+    if torch.device(dev).type == "cuda":
+        try:
+            tk.topo_radiality(sl, op, op.n + 1, with_sweeps=True)
+        except ValueError as err:
+            check("topo_radiality_plain" in str(err),
+                  f"topo widths: T1's refusal names no plain version: {err}")
+        else:
+            check(False, "topo widths: T1 counted sweeps on the card")
 
 
 def t1_bound(op, sl):
@@ -4889,25 +4989,27 @@ def t2_bound(op, sl, detail=False):
 
 
 def time_t1_t2(torch, tk, op, zt, theta0, sl, tag, detail_too=False):
-    """Events, device time and the plain versions' times of T1 and T2
-    SCREEN (and DETAIL) on one block, with their bounds."""
+    """Events back to back, device time by queued events and the plain
+    versions' times of T1 and T2 SCREEN (and DETAIL) on one block, with
+    their bounds; T1's sweep count from its plain version (the kernel runs
+    none)."""
     cap = op.n + 1
     out = {}
     t1 = lambda: tk.topo_radiality(sl, op, cap)  # noqa: E731
-    # The sweep count is a diagnostic (it follows the threads' timing).
-    sweeps = tk.topo_radiality(sl, op, cap, with_sweeps=True)[2]
+    sweeps = tk.topo_radiality_plain(sl, op, cap, with_sweeps=True)[2]
     (b1, by1), bytes1 = t1_bound(op, sl)
     k = time_ms(torch, t1, reps=20)
-    kd, src = ladder_device_ms(torch, t1, 10, f"T1 {tag}")
+    kd = queued_events_ms(torch, t1, 20)
     pl = time_ms(torch, lambda: tk.topo_radiality_plain(sl, op, cap), reps=2)
     out["topo_radiality"] = dict(
-        ms=k, device_ms=kd, device_ms_source=src, plain_ms=pl, bound_ms=b1,
-        bound_by=by1, bytes=bytes1, sweeps_max=int(sweeps.max()),
-        sweeps_mean=float(sweeps.double().mean()))
+        ms=k, device_ms=kd, device_ms_source="queued events", plain_ms=pl,
+        bound_ms=b1, bound_by=by1, bytes=bytes1,
+        plain_sweeps_max=int(sweeps.max()),
+        plain_sweeps_mean=float(sweeps.double().mean()))
     log(f"timing: topo_radiality {tag}: kernel {k:.4f} ms (device {kd:.4f} "
-        f"[{src}])  plain {pl:.3f} ms  bound {b1:.5f} ms ({by1}); sweeps "
-        f"{int(sweeps.min())}-{int(sweeps.max())}, mean "
-        f"{float(sweeps.double().mean()):.2f}")
+        f"[queued events])  plain {pl:.3f} ms  bound {b1:.5f} ms ({by1}); "
+        f"the plain version's sweeps {int(sweeps.min())}-"
+        f"{int(sweeps.max())}, mean {float(sweeps.double().mean()):.2f}")
     modes = (("SCREEN", tk.SCREEN),) + ((("DETAIL", tk.DETAIL),)
                                         if detail_too else ())
     for label, mode in modes:
@@ -4916,14 +5018,72 @@ def time_t1_t2(torch, tk, op, zt, theta0, sl, tag, detail_too=False):
 
         (b2, by2), bytes2 = t2_bound(op, sl, detail=mode == tk.DETAIL)
         k = time_ms(torch, t2, reps=20)
-        kd, src = ladder_device_ms(torch, t2, 10, f"T2 {label} {tag}")
+        kd = queued_events_ms(torch, t2, 20)
         pl = time_ms(torch, lambda: t2(tk.topo_screen_plain), reps=2)
         out[f"topo_screen_{label}"] = dict(
-            ms=k, device_ms=kd, device_ms_source=src, plain_ms=pl,
-            bound_ms=b2, bound_by=by2, bytes=bytes2)
+            ms=k, device_ms=kd, device_ms_source="queued events",
+            plain_ms=pl, bound_ms=b2, bound_by=by2, bytes=bytes2,
+            plan=tk.screen_plan(op.n, op.m, int(sl.shape[1]))._asdict())
         log(f"timing: topo_screen {label} {tag}: kernel {k:.4f} ms (device "
-            f"{kd:.4f} [{src}])  plain {pl:.3f} ms  bound {b2:.5f} ms "
-            f"({by2}, {bytes2 / 1e6:.2f} MB)")
+            f"{kd:.4f} [queued events])  plain {pl:.3f} ms  bound {b2:.5f} "
+            f"ms ({by2}, {bytes2 / 1e6:.2f} MB)")
+    return out
+
+
+def time_radiality_ctas(torch, tk, op, sl, tag):
+    """T1 at 4, 8, 16 and 32 warps a CTA on one block: device time by
+    queued events, the booleans equal to the chosen CTA's."""
+    base = tk.topo_radiality(sl, op, op.n + 1)
+    out = {}
+    for warps in (4, 8, 16, 32):
+        got = tk.radiality_launch(sl, op, warps)
+        check(all(torch.equal(a, b) for a, b in zip(got, base)),
+              f"topo_radiality {tag}: {warps} warps a CTA disagree")
+        out[warps] = queued_events_ms(
+            torch, lambda warps=warps: tk.radiality_launch(sl, op, warps), 20)
+    log(f"timing: topo_radiality CTAs {tag} (queued events): "
+        + "; ".join(f"{w} warps {ms:.4f} ms" for w, ms in out.items())
+        + f"; T1_WARPS = {tk.T1_WARPS}")
+    return out
+
+
+def time_screen_plans(torch, tk, op, zt, theta0, sl, tag):
+    """T2 SCREEN at other launch plans than ``screen_plan``'s on one block:
+    device time by queued events of each, its outputs within
+    ``TOPO_ATOL`` of the chosen plan's (flags and violations equal)."""
+    r = int(sl.shape[1])
+    chosen = tk.screen_plan(op.n, op.m, r)
+    base = tk.screen_launch(zt, theta0, sl, TOPO_LIMIT, op, tk.SCREEN,
+                            chosen)
+    plans = {"chosen": chosen}
+    if chosen.warps <= 8:  # the other stream width at the same shape
+        plans["narrow" if chosen.wide else "wide"] = chosen._replace(
+            wide=not chosen.wide)
+    for warps, group, masks in ((8, 1, False), (8, 1, True), (4, 1, True),
+                                (8, 8, True), (8, 2, False), (16, 2, False),
+                                (16, 1, False), (16, 4, True)):
+        smem = tk.screen_smem(op.n, op.m, warps, group, True, masks)
+        if smem <= tk.SMEM_LIMIT and (warps <= 8 or chosen.wide):
+            plans[f"w{warps}g{group}{'m' if masks else ''}"] = tk.ScreenPlan(
+                warps, group, True, masks, smem, chosen.wide)
+    plans["unstaged w1"] = tk.ScreenPlan(
+        1, 1, False, False, tk.screen_smem(op.n, op.m, 1, 1, False, False),
+        chosen.wide)
+    out = {}
+    for key, plan in plans.items():
+        got = tk.screen_launch(zt, theta0, sl, TOPO_LIMIT, op, tk.SCREEN,
+                               plan)
+        check(torch.equal(got.islanded, base.islanded)
+              and torch.equal(got.violations, base.violations)
+              and max(max_err(got.loss, base.loss),
+                      max_err(got.worst_flow, base.worst_flow)) <= TOPO_ATOL,
+              f"topo_screen {tag}: plan {plan} disagrees with {chosen}")
+        ms = queued_events_ms(torch, lambda plan=plan: tk.screen_launch(
+            zt, theta0, sl, TOPO_LIMIT, op, tk.SCREEN, plan), 10)
+        out[key] = dict(plan._asdict(), device_ms=ms)
+    log(f"timing: topo_screen plans {tag} (queued events): "
+        + "; ".join(f"{k} {v['device_ms']:.4f} ms" for k, v in out.items())
+        + f"; screen_plan picks {tuple(chosen)}")
     return out
 
 
@@ -4957,8 +5117,10 @@ def refactor_solve(torch, sys_, op, sl):
 
 def time_topo(torch, tk, tp, rows, extra):
     """T1 and T2 SCREEN at mesh118 × 4096, r = 2 (a chunk of the gate
-    sweep) and mesh2000 × 16384, r = 3 (the first chunk of the full-width
-    neighborhood sweep), T2 DETAIL at mesh118 × 4096; the library row: the
+    sweep), × 64 (a chunk of the served sweep job) and mesh2000 × 16384,
+    r = 3 (the first chunk of the full-width neighborhood sweep), T2 DETAIL
+    at mesh118 × 4096 and × 64, T2's other launch plans at mesh2000 ×
+    16384 and mesh118 × 4096; the library row: the
     re-formed B′ stack of the mesh118 chunk through
     ``torch.linalg.solve_ex``, and per variant on the reference bench's 32
     mixed-rank lanes."""
@@ -4968,6 +5130,9 @@ def time_topo(torch, tk, tp, rows, extra):
     sl = torch.as_tensor(chunk, device=dev)
     small = time_t1_t2(torch, tk, op, zt, theta0, sl, "mesh118 x4096 r2",
                        detail_too=True)
+    # A chunk of the served sweep job: 64 lanes.
+    served = time_t1_t2(torch, tk, op, zt, theta0, sl[:64].contiguous(),
+                        "mesh118 x64 r2", detail_too=True)
     b, rhs = refactor_solve(torch, sys_, op, sl)
     lib = time_ms(torch, lambda: torch.linalg.solve_ex(b, rhs), reps=5)
     # The reference bench's head-to-head: 32 mixed-rank lanes (8 rank 1,
@@ -4996,6 +5161,16 @@ def time_topo(torch, tk, tp, rows, extra):
     big = tp.neighborhood_variants(np.arange(sys2.n_branch), 3, 16384, 7)
     sl2 = torch.as_tensor(big, device=dev)
     large = time_t1_t2(torch, tk, op2, zt2, th2, sl2, "mesh2000 x16384 r<=3")
+    plans = time_screen_plans(torch, tk, op2, zt2, th2, sl2,
+                              "mesh2000 x16384 r<=3")
+    plans118 = time_screen_plans(torch, tk, op, zt, theta0, sl,
+                                 "mesh118 x4096 r2")
+    ctas = {"mesh118_x4096": time_radiality_ctas(torch, tk, op, sl,
+                                                 "mesh118 x4096 r2"),
+            "mesh118_x64": time_radiality_ctas(
+                torch, tk, op, sl[:64].contiguous(), "mesh118 x64 r2"),
+            "mesh2000_x16384": time_radiality_ctas(
+                torch, tk, op2, sl2, "mesh2000 x16384 r<=3")}
     del zt2
     torch.cuda.empty_cache()
     r1, r2 = small["topo_radiality"], small["topo_screen_SCREEN"]
@@ -5008,7 +5183,8 @@ def time_topo(torch, tk, tp, rows, extra):
         "shape": shape, **{k: v for k, v in r1.items()
                            if k not in ("ms", "plain_ms", "bound_ms",
                                         "bound_by")},
-        "mesh2000_x16384": large["topo_radiality"]}
+        "mesh118_x64": served["topo_radiality"],
+        "mesh2000_x16384": large["topo_radiality"], "ctas": ctas}
     extra["topo_screen"] = {
         "shape": shape, **{k: v for k, v in r2.items()
                            if k not in ("ms", "plain_ms", "bound_ms",
@@ -5016,7 +5192,10 @@ def time_topo(torch, tk, tp, rows, extra):
         "library": "torch.linalg.solve_ex of the 4096 re-formed B' "
                    "[4096, 118, 118] (forming excluded)",
         "detail_mesh118_x4096": small["topo_screen_DETAIL"],
+        "mesh118_x64": served["topo_screen_SCREEN"],
+        "detail_mesh118_x64": served["topo_screen_DETAIL"],
         "mesh2000_x16384": large["topo_screen_SCREEN"],
+        "plans_mesh2000_x16384": plans, "plans_mesh118_x4096": plans118,
         "refactor_us_per_variant_32": lib32,
         "smw_us_per_variant_32": smw32}
     return {"mesh2000": large, "mesh118": small}
@@ -5151,7 +5330,8 @@ def topo_sweeps(torch, tk, tp, timed, dev="cuda"):
           f"topo sweep (b): {tp.strip_topo_timing(big)}")
     worst_b = check_shortlist("topo sweep (b)", big)
     k = timed["mesh2000"]
-    t12 = (k["topo_radiality"]["ms"] + k["topo_screen_SCREEN"]["ms"])
+    t12 = (k["topo_radiality"]["device_ms"]
+           + k["topo_screen_SCREEN"]["device_ms"])
     log(f"topo sweep (b): mesh2000 (4000 branches, Z^T 64 MB), "
         f"{TOPO_FULL_SAMPLES} neighborhood samples of rank <= 3 in "
         f"{big['chunks_total']} chunks of {TOPO_FULL_CHUNK}: "
@@ -5159,10 +5339,11 @@ def topo_sweeps(torch, tk, tp, timed, dev="cuda"):
         f"{total_s:.2f} s with the builds, the draw and the AC verify); the "
         f"host draw {draw_s:.2f} s; chunk walls "
         + ", ".join(f"{s * 1e3:.1f}" for s in chunk_s)
-        + f" ms, T1 + T2 on a chunk {t12:.2f} ms by events "
+        + f" ms, T1 + T2 on a chunk {t12:.3f} ms by queued events "
         f"({100 * t12 / (np.mean(chunk_s[1:] or chunk_s) * 1e3):.0f}% of a "
-        f"later chunk's wall); T1 sweeps {k['topo_radiality']['sweeps_max']} "
-        f"at most, mean {k['topo_radiality']['sweeps_mean']:.2f}; "
+        f"later chunk's wall); the plain T1's sweeps "
+        f"{k['topo_radiality']['plain_sweeps_max']} at most, mean "
+        f"{k['topo_radiality']['plain_sweeps_mean']:.2f}; "
         f"disconnected {big['disconnected']}, islanded {big['islanded']}; "
         f"top {len(big['shortlist'])} verified, true mismatch <= "
         f"{worst_b:.2e} ({time.monotonic() - t_phase:.1f} s phase)")

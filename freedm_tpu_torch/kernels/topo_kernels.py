@@ -17,19 +17,23 @@ other device is refused before a library loads.  Each launch counts in
 :data:`LAUNCHES` (T2's also by mode in :data:`MODE_LAUNCHES`).
 
 A variant lane is a row of ``slots [V, r]`` (int32, ``r ≤`` :data:`MAX_RANK`):
-the branches it opens, ``-1`` pads.  T1 returns ``(connected, radial)``:
-the min-label connected-components verdict over the closed branches, and
-with ``with_sweeps=True`` also the sweeps each lane ran (the last changed
-nothing), a diagnostic.  The kernel's asynchronous sweeps and the plain
-version's Jacobi sweeps reach the same fixed point within ``n − 1``
-sweeps, so the booleans are equal and the same on every run; below the
-fixed point the two orders can stop at different labels, so the kernel
-refuses a ``cap`` under ``n − 1``.  The kernel's sweep count depends on
-its threads' timing and may differ from run to run.  T2 returns
+the branches it opens, ``-1`` pads.  T1 returns ``(connected, radial)``.
+Its plain version runs the reference's min-label sweeps (Jacobi, to the
+fixed point or ``cap``; ``with_sweeps=True`` also returns the sweeps each
+lane ran).  The kernel runs no sweeps: it is a cut test on a spanning
+tree of the base graph (:func:`tree_plan`, built once per case).  A
+lane's ``k ≤ r`` opened tree branches cut the tree into ``k + 1``
+components, and the lane is connected iff its closed non-tree branches
+join them; :func:`radiality_mirror` is that per-lane logic on the host,
+for the tests.  Both give the fixed point's verdict, so the kernel
+refuses a ``cap`` under ``n − 1`` (below it the reference's labels are
+another function) and ``with_sweeps=True``.  T2 returns
 :class:`ScreenLanes`: the rank-r Sherman–Morrison–Woodbury lane's three
 objectives and islanding flag from ``zt = (B′⁻¹A)ᵀ [m, n]`` and the base
 angles ``theta0 [n]`` (float64), and in mode :data:`DETAIL` the lanes'
-angles ``[V, n]`` and flows ``[V, m]``.
+angles ``[V, n]`` and flows ``[V, m]``.  Its launch follows
+:func:`screen_plan`, a function of ``(n, m, r)`` alone, so a lane gives
+the same bits at any launch width.
 """
 
 from __future__ import annotations
@@ -38,10 +42,10 @@ import ctypes
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from freedm_tpu_torch.kernels import build
-# T1 keeps (n + 2m) int32 words of a lane in shared memory, T2 n float64.
 from freedm_tpu_torch.kernels.sparse_kernels import SMEM_LIMIT
 
 Tensor = torch.Tensor
@@ -91,11 +95,36 @@ def mode_launches() -> Dict[str, Dict[str, int]]:
         return {k: dict(v) for k, v in MODE_LAUNCHES.items()}
 
 
+class TreePlan(NamedTuple):
+    """T1's plan of one bus system (:func:`tree_plan`), host numpy arrays.
+
+    A spanning forest of the base graph (every branch closed), found
+    breadth first from bus 0 and numbered in preorder.  ``cut`` is the
+    per-branch table the kernel reads for each opened slot: a tree
+    branch's child subtree ``(tin, tout)`` (``tin ≥ 1``), else the
+    non-tree branch's two positions in ``ends`` as ``(−1 − pos_a,
+    pos_b)``.  ``ends`` lists every non-tree branch once from each end, as
+    ``own | other << 16`` (preorder indices), in CSR order of ``own``:
+    the ends whose own bus lies in a subtree ``[a, b]`` are
+    ``ends[start[a]:start[b + 1]]``."""
+
+    connected: bool  # the base graph is one island
+    tin: np.ndarray  # [n] preorder index of each bus
+    tout: np.ndarray  # [n] last preorder index of the bus's subtree
+    tree: np.ndarray  # [m] bool: the branch is a forest edge
+    cut: np.ndarray  # [m, 2] int32
+    start: np.ndarray  # [n + 1] int32 CSR offsets into ends
+    ends: np.ndarray  # [2 (m - forest edges)] uint32
+
+
 class TopoOperands(NamedTuple):
     """What T1 and T2 need of one bus system, on one device: the bus count,
     the branch ends ``f``, ``t [m]`` (int32), ``w = 1/x``, the series
     resistance ``r_series`` and the endpoint masks ``mask_f = th_free[f]``,
-    ``mask_t = th_free[t]`` (``[m]`` float64)."""
+    ``mask_t = th_free[t]`` (``[m]`` float64); T1's :class:`TreePlan` on
+    the host, its ``cut`` table ``[m, 2]`` and its staged words
+    ``tree_words`` (``start`` then ``ends``, each padded to 16 bytes;
+    int32) on the device."""
 
     n: int
     f: Tensor
@@ -104,10 +133,231 @@ class TopoOperands(NamedTuple):
     r_series: Tensor
     mask_f: Tensor
     mask_t: Tensor
+    tree: TreePlan
+    cut: Tensor
+    tree_words: Tensor
 
     @property
     def m(self) -> int:
         return int(self.f.shape[0])
+
+
+def _pad4(k: int) -> int:
+    return (int(k) + 3) // 4 * 4
+
+
+def tree_plan(n: int, f, t) -> TreePlan:
+    """The spanning-forest plan of the graph of ``n`` buses and branches
+    ``f[e]``–``t[e]``: breadth first from bus 0 (then from each bus not yet
+    reached, in index order), each bus's tree branch the first that
+    reached it, children in the order they were reached.  Self-loops and
+    parallel branches fall out as non-tree branches."""
+    n = int(n)
+    f = np.asarray(f, np.int64)
+    t = np.asarray(t, np.int64)
+    m = int(f.shape[0])
+    if n >= 1 << 16:
+        raise ValueError(f"tree_plan packs preorder indices in 16 bits: "
+                         f"n = {n} is too large")
+    adj = [[] for _ in range(n)]
+    for e in range(m):
+        adj[f[e]].append((e, t[e]))
+        adj[t[e]].append((e, f[e]))
+    seen = np.zeros(n, bool)
+    tree = np.zeros(m, bool)
+    children = [[] for _ in range(n)]
+    roots = []
+    for s in range(n):
+        if seen[s]:
+            continue
+        roots.append(s)
+        seen[s] = True
+        queue, head = [s], 0
+        while head < len(queue):
+            u = queue[head]
+            head += 1
+            for e, v in adj[u]:
+                if not seen[v]:
+                    seen[v] = True
+                    tree[e] = True
+                    children[u].append((e, v))
+                    queue.append(v)
+    tin = np.zeros(n, np.int64)
+    tout = np.zeros(n, np.int64)
+    child_edge = np.full(n, -1, np.int64)
+    k = 0
+    for s in roots:
+        stack = [(s, 0)]
+        tin[s] = k
+        k += 1
+        while stack:
+            u, i = stack[-1]
+            if i < len(children[u]):
+                stack[-1] = (u, i + 1)
+                e, v = children[u][i]
+                child_edge[v] = e
+                tin[v] = k
+                k += 1
+                stack.append((v, 0))
+            else:
+                tout[u] = k - 1
+                stack.pop()
+    cut = np.zeros((m, 2), np.int64)
+    kids = np.nonzero(child_edge >= 0)[0]
+    cut[child_edge[kids], 0] = tin[kids]
+    cut[child_edge[kids], 1] = tout[kids]
+    nt = np.nonzero(~tree)[0]
+    own = np.stack([tin[f[nt]], tin[t[nt]]], axis=1).reshape(-1)
+    other = np.stack([tin[t[nt]], tin[f[nt]]], axis=1).reshape(-1)
+    order = np.argsort(own, kind="stable")
+    pos = np.empty_like(order)
+    pos[order] = np.arange(order.shape[0])
+    cut[nt, 0] = -1 - pos[0::2]
+    cut[nt, 1] = pos[1::2]
+    start = np.zeros(n + 1, np.int64)
+    np.add.at(start, own + 1, 1)
+    return TreePlan(
+        connected=len(roots) == 1, tin=tin.astype(np.int32),
+        tout=tout.astype(np.int32), tree=tree, cut=cut.astype(np.int32),
+        start=np.cumsum(start).astype(np.int32),
+        ends=(own[order] | other[order] << 16).astype(np.uint32))
+
+
+def tree_words(n: int, m: int) -> int:
+    """The int32 words of T1's staged plan on a connected case of ``n``
+    buses and ``m`` branches: ``start`` and the ``2 (m − n + 1)`` ends,
+    each padded to 16 bytes (a function of ``(n, m)`` alone)."""
+    return _pad4(n + 1) + _pad4(2 * max(m - n + 1, 0))
+
+
+def tree_buffer(plan: TreePlan) -> np.ndarray:
+    """The words T1 stages: ``start`` and ``ends``, each padded to 16
+    bytes (int32)."""
+    n = int(plan.tin.shape[0])
+    words = np.zeros(_pad4(n + 1) + _pad4(plan.ends.shape[0]), np.int32)
+    words[:n + 1] = plan.start
+    words[_pad4(n + 1):_pad4(n + 1) + plan.ends.shape[0]] = \
+        plan.ends.view(np.int32)
+    return words
+
+
+def radiality_mirror(slots, plan: TreePlan, n: int, m: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """T1's per-lane cut-and-reconnect logic on the host, lane by lane, as
+    the kernel runs it (a plain function for the tests): ``(connected,
+    radial)`` bool arrays of the ``[V, r]`` slots."""
+    slots = np.asarray(slots, np.int64)
+    lanes, r = slots.shape
+    conn = np.zeros(lanes, bool)
+    for v in range(lanes):
+        row = slots[v]
+        a, b, pa, pb = [], [], [], []
+        for j in range(r):
+            s = int(row[j])
+            if not 0 <= s < m or s in row[:j]:
+                continue  # pads, out-of-range slots and repeats cut nothing
+            x, y = (int(c) for c in plan.cut[s])
+            if x >= 0:
+                a.append(x)
+                b.append(y)
+            else:
+                pa.append(-1 - x)
+                pb.append(y)
+        if not plan.connected or not a:
+            conn[v] = plan.connected
+            continue
+        k = len(a)
+
+        def comp(x):  # the innermost cut subtree holding preorder index x
+            c, best = 0, -1
+            for j in range(k):
+                if a[j] <= x <= b[j] and a[j] > best:
+                    c, best = j + 1, a[j]
+            return c
+
+        joined = set()
+        for j in range(k):
+            if any(a[i] < a[j] <= b[i] for i in range(k)):
+                continue  # inside another cut subtree: scanned with it
+            for p in range(int(plan.start[a[j]]), int(plan.start[b[j] + 1])):
+                if p in pa or p in pb:
+                    continue  # an opened non-tree branch
+                word = int(plan.ends[p])
+                cu, cv = comp(word & 0xFFFF), comp(word >> 16)
+                if cu != cv:
+                    joined.add((min(cu, cv), max(cu, cv)))
+        reach = {0}
+        for _ in range(k):
+            for lo, hi in joined:
+                if lo in reach or hi in reach:
+                    reach |= {lo, hi}
+        conn[v] = len(reach) == k + 1
+    n_open = (slots >= 0).sum(axis=1)
+    return conn, conn & (m - n_open == n - 1)
+
+
+#: Warps in a CTA of T1 (a warp a lane).
+T1_WARPS = 16
+
+#: Above this many buses T2's plan streams Zᵀ wide (``ScreenPlan.wide``).
+WIDE_FROM = 512
+
+
+class ScreenPlan(NamedTuple):
+    """T2's launch of one shape (:func:`screen_plan`): ``warps`` a CTA,
+    ``group`` warps a lane, whether the CTA stages the branch operands
+    (``staged``; f and t packed in one word) and the endpoint masks
+    (``masks``) in shared memory, the dynamic shared memory a CTA takes,
+    and ``wide``: up to 16 warps a CTA (8 otherwise), and a thread streams
+    8 buses' rows of Zᵀ at once up to rank 3 (4 otherwise)."""
+
+    warps: int
+    group: int
+    staged: bool
+    masks: bool
+    smem: int
+    wide: bool = False
+
+
+def screen_smem(n: int, m: int, warps: int, group: int, staged: bool,
+                masks: bool) -> int:
+    """Bytes of T2's shared memory: the staged operands (w, rs, [mask_f,
+    mask_t], θ0 as float64, f | t << 16 as one word), each lane group's
+    θ_v ``[n]`` and, for groups of more than one warp, a triple a warp."""
+    b = 8 * n * (warps // group)
+    if staged:
+        b += 8 * (2 * m + n + (2 * m if masks else 0)) + 4 * _pad4(m)
+    if group > 1:
+        b += 8 * 3 * warps
+    return b
+
+
+def screen_plan(n: int, m: int, r: int) -> ScreenPlan:
+    """T2's launch for ``n`` buses, ``m`` branches and slot width ``r``,
+    from the shapes alone.  Up to :data:`WIDE_FROM` buses: a warp a lane,
+    8 warps a CTA, every operand staged where it fits (mesh118: 17.0 KB).
+    Above it (``wide``): 16 warps a CTA, two a lane, every operand staged
+    where it fits, else without the masks (read from global memory for
+    the r² entries of C only; mesh2000: 224.4 KB).  Else fewer lanes a
+    CTA; else the same shapes reading the operands from global memory;
+    else one warp a CTA that keeps only θ_v (8 n bytes, as much as any
+    shape T2 takes)."""
+    if not 1 <= int(r) <= MAX_RANK:
+        raise ValueError(f"slot width must be in [1, {MAX_RANK}], got {r}")
+    wide = n > WIDE_FROM
+    shapes = (((16, 2), (8, 2), (8, 1), (4, 1)) if wide else
+              ((8, 1), (7, 1), (6, 1), (5, 1), (4, 1)))
+    for staged in (True, False):
+        for warps, group in shapes:
+            for masks in (True, False) if staged else (False,):
+                b = screen_smem(n, m, warps, group, staged, masks)
+                if b <= SMEM_LIMIT:
+                    return ScreenPlan(warps, group, staged, masks, b, wide)
+    b = screen_smem(n, m, 1, 1, False, False)
+    if b > SMEM_LIMIT:
+        raise ValueError(f"topo_screen keeps a lane's n angles in shared "
+                         f"memory: n = {n} is too large")
+    return ScreenPlan(1, 1, False, False, b, wide)
 
 
 class ScreenLanes(NamedTuple):
@@ -235,8 +485,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGS = {
-    "topo_radiality": [_P] * 6 + [_I] * 5 + [_P],
-    "topo_screen_f64": [_P] * 9 + [_D] + [_P] * 6 + [_I] * 5 + [_P],
+    "topo_radiality": [_P] * 5 + [_I] * 9 + [_P],
+    "topo_screen_f64": [_P] * 9 + [_D] + [_P] * 6 + [_I] * 11 + [_P],
 }
 _lib_lock = threading.Lock()
 _fns: Dict[str, object] = {}
@@ -322,53 +572,81 @@ def _checked_ends(op: TopoOperands, dev, floats: bool) -> None:
 def topo_radiality(slots: Tensor, op: TopoOperands, cap: int,
                    with_sweeps: bool = False) -> Tuple[Tensor, ...]:
     """T1: ``(connected [V] bool, radial [V] bool)`` of the variant lanes
-    ``slots [V, r]`` (int32), at most ``cap`` sweeps a lane; with
-    ``with_sweeps`` also ``sweeps [V] int32``.  On the card ``cap`` must
-    be at least ``n − 1``, where every lane has reached the fixed point."""
+    ``slots [V, r]`` (int32).  On the CPU the plain version's sweeps, at
+    most ``cap`` a lane (``with_sweeps``: also ``sweeps [V] int32``).  On
+    the card the tree cut test, which gives the fixed point's verdict: it
+    refuses a ``cap`` under ``n − 1`` and ``with_sweeps``."""
     if not _on_card(slots, "topo_radiality"):
         return topo_radiality_plain(slots, op, cap, with_sweeps)
+    if with_sweeps:
+        raise ValueError("topo_radiality runs no sweeps on the card (a "
+                         "spanning-tree cut test); topo_radiality_plain "
+                         "counts the reference's sweeps")
+    if int(cap) < op.n - 1:
+        raise ValueError(f"topo_radiality takes at least n - 1 = "
+                         f"{op.n - 1} sweeps on the card, got cap = {cap}: "
+                         f"its verdict is the fixed point's, and below it "
+                         f"the reference's sweeps may stop at other labels")
+    return radiality_launch(slots, op, T1_WARPS)
+
+
+def radiality_launch(slots: Tensor, op: TopoOperands, warps: int
+                     ) -> Tuple[Tensor, Tensor]:
+    """T1's kernel with ``warps`` a CTA (CUDA tensors):
+    :func:`topo_radiality` passes :data:`T1_WARPS`; a lab run may time
+    others."""
     dev = slots.device
     lanes, r = _slots_shape(slots)
     n, m = op.n, op.m
-    if int(cap) < n - 1:
-        raise ValueError(f"topo_radiality takes at least n - 1 = {n - 1} "
-                         f"sweeps on the card, got cap = {cap}: below the "
-                         f"fixed point its asynchronous sweeps may stop at "
-                         f"other labels than the reference's Jacobi sweeps")
     if (n + 2 * m) * 4 > SMEM_LIMIT:
-        raise ValueError(f"topo_radiality keeps n + 2m int32 words of a "
-                         f"lane in shared memory: n = {n}, m = {m} is too "
-                         f"large")
-    _want(dev, slots=(slots, torch.int32, (lanes, r)))
+        raise ValueError(f"topo_radiality takes n + 2m <= "
+                         f"{SMEM_LIMIT // 4}: n = {n}, m = {m} is too large")
+    _want(dev, slots=(slots, torch.int32, (lanes, r)),
+          cut=(op.cut, torch.int32, (m, 2)))
     _checked_ends(op, dev, floats=False)
+    # A disconnected base graph needs no words: every lane is disconnected.
+    words = tree_words(n, m) if op.tree.connected else 0
+    if words:
+        _want(dev, tree_words=(op.tree_words, torch.int32, (words,)))
     connected = torch.empty(lanes, dtype=torch.bool, device=dev)
     radial = torch.empty(lanes, dtype=torch.bool, device=dev)
-    sweeps = (torch.empty(lanes, dtype=torch.int32, device=dev)
-              if with_sweeps else None)
+    # Staged where the words fit beside the CTA's 16-byte barrier.
+    staged = words > 0 and words * 4 + 16 <= SMEM_LIMIT
     with torch.cuda.device(dev):
         rc = _fn("topo_radiality")(
-            op.f.data_ptr(), op.t.data_ptr(), slots.data_ptr(),
-            connected.data_ptr(), radial.data_ptr(),
-            None if sweeps is None else sweeps.data_ptr(), n, m, r, lanes,
-            int(cap), _stream(slots))
+            op.cut.data_ptr(), op.tree_words.data_ptr(), slots.data_ptr(),
+            connected.data_ptr(), radial.data_ptr(), n, m, r, lanes,
+            _pad4(n + 1), words, int(op.tree.connected), int(staged),
+            int(warps), _stream(slots))
     _raise_on(rc, "topo_radiality")
     _count("topo_radiality")
-    return (connected, radial, sweeps) if with_sweeps else (connected, radial)
+    return connected, radial
 
 
 def topo_screen(zt: Tensor, theta0: Tensor, slots: Tensor, limit: float,
                 op: TopoOperands, mode: int = SCREEN) -> ScreenLanes:
     """T2: the SMW lanes of ``slots [V, r]`` (int32) from ``zt [m, n]`` and
-    ``theta0 [n]`` (float64, contiguous), in mode SCREEN or DETAIL."""
+    ``theta0 [n]`` (float64, contiguous), in mode SCREEN or DETAIL, at the
+    launch :func:`screen_plan` picks for ``(n, m, r)``."""
     if not _on_card(zt, "topo_screen"):
         return topo_screen_plain(zt, theta0, slots, limit, op, mode)
+    _check_mode(mode)
+    r = _slots_shape(slots)[1]
+    return screen_launch(zt, theta0, slots, limit, op, mode,
+                         screen_plan(op.n, op.m, r))
+
+
+def screen_launch(zt: Tensor, theta0: Tensor, slots: Tensor, limit: float,
+                  op: TopoOperands, mode: int, plan: ScreenPlan
+                  ) -> ScreenLanes:
+    """T2's kernel at a given plan (CUDA tensors): :func:`topo_screen`
+    passes :func:`screen_plan`'s; a lab run may time others."""
     _check_mode(mode)
     dev = zt.device
     lanes, r = _slots_shape(slots)
     n, m = op.n, op.m
-    if n * 8 > SMEM_LIMIT:
-        raise ValueError(f"topo_screen keeps a lane's n angles in shared "
-                         f"memory: n = {n} is too large")
+    if plan.smem > SMEM_LIMIT or plan.warps % plan.group:
+        raise ValueError(f"topo_screen cannot launch {plan}")
     f64 = torch.float64
     _want(dev, zt=(zt, f64, (m, n)), theta0=(theta0, f64, (n,)),
           slots=(slots, torch.int32, (lanes, r)))
@@ -387,7 +665,8 @@ def topo_screen(zt: Tensor, theta0: Tensor, slots: Tensor, limit: float,
             float(limit), *(o.data_ptr() for o in out), isl.data_ptr(),
             None if theta is None else theta.data_ptr(),
             None if flows is None else flows.data_ptr(), n, m, r, lanes,
-            mode, _stream(zt))
+            mode, plan.warps, plan.group, int(plan.staged), int(plan.masks),
+            int(plan.wide), plan.smem, _stream(zt))
     _raise_on(rc, "topo_screen")
     _count("topo_screen", _MODES[mode])
     return ScreenLanes(*out, isl, theta, flows)

@@ -7,10 +7,10 @@ cheapest first:
 
 1. **Radiality/connectivity check** — kernel T1
    (:func:`~freedm_tpu_torch.kernels.topo_kernels.topo_radiality`):
-   min-label connected components over each lane's closed branches, one
-   launch a chunk; variants that disconnect the network (or, in
-   ``mode="radial"``, fail the spanning-tree count) are excluded before
-   any solve.
+   whether each lane's closed branches connect the network — a cut test
+   on one spanning tree of the base graph, one launch a chunk; variants
+   that disconnect the network (or, in ``mode="radial"``, fail the
+   spanning-tree count) are excluded before any solve.
 2. **Rank-r Sherman–Morrison–Woodbury screen** — opening the branch set
    S changes B′ by ``−Σ_{k∈S} w_k a_k a_kᵀ``, so every variant lane is a
    capacitance-matrix solve off the same base factorization:
@@ -181,11 +181,14 @@ def topo_operands(sys: BusSystem, device: DeviceLike = None
                   ) -> tk.TopoOperands:
     """T1's and T2's operands for ``sys`` on ``device``: the branch ends
     (int32), ``w = 1/x``, the series resistance and the free-θ masks of
-    the branch ends (float64)."""
+    the branch ends (float64), and T1's spanning-tree plan
+    (:func:`~freedm_tpu_torch.kernels.topo_kernels.tree_plan`, built on
+    the host in numpy)."""
     dev = resolve_device(device)
     f = np.asarray(sys.from_bus, np.int64)
     t = np.asarray(sys.to_bus, np.int64)
     th_free = decoupled_parts(sys, device=dev).th_free
+    plan = tk.tree_plan(sys.n_bus, f, t)
 
     def idx(a):
         return torch.as_tensor(a.astype(np.int32), device=dev)
@@ -196,7 +199,8 @@ def topo_operands(sys: BusSystem, device: DeviceLike = None
     return tk.TopoOperands(
         n=int(sys.n_bus), f=idx(f), t=idx(t), w=vec(1.0 / np.asarray(sys.x)),
         r_series=vec(sys.r), mask_f=th_free[torch.as_tensor(f, device=dev)],
-        mask_t=th_free[torch.as_tensor(t, device=dev)],
+        mask_t=th_free[torch.as_tensor(t, device=dev)], tree=plan,
+        cut=idx(plan.cut), tree_words=idx(tk.tree_buffer(plan)),
     )
 
 
@@ -207,18 +211,17 @@ def make_radiality_check(sys: BusSystem, r_max: int, max_sweeps: int = 0,
     (``cuda`` unless the CPU is asked for).
 
     Returns ``check(slots)`` with ``slots`` a ``[V, r_max]`` int array of
-    opened branch indices (``-1`` = unused slot): per lane, min-label
-    connected components over the CLOSED branches, one launch of T1 for
-    every lane, no host loop.  ``radial`` additionally requires the
-    spanning-tree branch count ``m − r == n − 1``.  ``max_sweeps`` caps
-    the sweeps a lane (default ``n + 1``, enough to reach the fixed
-    point).  The verdict equals the reference's at the fixed point only:
-    T1's in-place sweeps and the reference's Jacobi sweeps may stop at
-    other labels below it, so on the card a cap under ``n − 1`` raises
-    ``ValueError``; the plain version runs the reference's sweeps at any
-    cap.  ``plain=True`` runs T1's plain version on any device.  Any
-    slot width up to ``MAX_TOPO_RANK`` runs the same kernel; ``r_max`` is
-    kept for the reference's signature.
+    opened branch indices (``-1`` = unused slot): per lane, whether the
+    CLOSED branches connect every bus, one launch of T1 for every lane,
+    no host loop.  ``radial`` additionally requires the spanning-tree
+    branch count ``m − r == n − 1``.  The plain version runs the
+    reference's min-label sweeps, at most ``max_sweeps`` a lane (default
+    ``n + 1``, enough to reach the fixed point); T1 cuts a spanning tree
+    of the base graph instead and gives the fixed point's verdict, so on
+    the card a cap under ``n − 1`` raises ``ValueError``.
+    ``plain=True`` runs T1's plain version on any device.  Any slot width
+    up to ``MAX_TOPO_RANK`` runs the same kernel; ``r_max`` is kept for
+    the reference's signature.
     """
     dev = resolve_device(device)
     op = topo_operands(sys, device=dev)

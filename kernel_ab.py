@@ -4,14 +4,14 @@
 ``newton_assemble``, K2 ``power_injections``, I1 ``cim_iterate``, F1
 ``fdlf_half_step`` in its tile mode, the serving cache's delta program
 (C1), L1 ``ladder_solve``, L2 ``ladder_vjp``, L3 ``ladder_dense``, L4
-``ladder_doubling``, I2 ``cim_vjp`` and B1 ``lb_rounds`` from 2¹⁵ nodes of
-this checkout against those of other checkouts of the repo, in turns on
-one card.
+``ladder_doubling``, I2 ``cim_vjp``, B1 ``lb_rounds`` from 2¹⁵ nodes, T1
+``topo_radiality`` and T2 ``topo_screen`` of this checkout against those
+of other checkouts of the repo, in turns on one card.
 
     python3 kernel_ab.py OTHER [OTHER ...]
                          [--sections sparse,delta,newton,solvers,ladder,
                                      vjp,dense,doubling,superstep,qsts,
-                                     i2,wide]
+                                     i2,wide,topo]
                          [--out FILE]
 
 Each ``OTHER`` is the root of another checkout, for example one written
@@ -149,6 +149,16 @@ draw, float32) by CUDA events around each call, each checkout on its own
 route (this checkout's ``lb_form``: CLUSTER); the gateways, migrations
 and states of the checkouts are the same bits.
 
+The ``topo`` section times T1 and T2 (SCREEN and DETAIL) at
+``TOPO_SHAPES``: mesh118 × 4096 lanes of rank 2 (rows 4096-8191 of the
+gate sweep's variant list), × 64 (its first 64: a chunk of the served
+sweep job) and mesh2000 × 16,384 neighborhood samples of rank ≤ 3 (seed
+7: the full-width sweep's first chunk), each checkout on its own operands
+(``topo_operands``, Zᵀ and θ0 as ``chip_smoke.topo_inputs`` makes them),
+device time by queued events.  T1's booleans are equal; T2's islanding
+flags and violation counts equal, loss, worst flow and DETAIL's θ and
+flows (its first 256 lanes) within ``chip_smoke.TOPO_ATOL``.
+
 Prints the card's name and power limit, one line per turn and a JSON
 summary as the last line (also written to ``--out``).  Needs a CUDA card.
 """
@@ -171,7 +181,12 @@ KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "sparse_assemble_residual", "sparse_matvec", "gmres_block_orth",
            "gmres_lstsq", "newton_update")
 SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder", "vjp", "dense",
-            "doubling", "superstep", "qsts", "i2", "wide")
+            "doubling", "superstep", "qsts", "i2", "wide", "topo")
+#: The ``topo`` section's shapes: (case, lanes, rank).
+TOPO_SHAPES = (("mesh118", 4096, 2), ("mesh118", 64, 2),
+               ("mesh2000", 16384, 3))
+#: DETAIL's θ and flows are compared on this many lanes of a shape.
+TOPO_DETAIL_LANES = 256
 SOLVER_KERNELS = ("cim_iterate", "fdlf_half_step", "fdlf_half_step_warp",
                   "power_injections_lanes")
 #: The ``ladder`` section's L1 shapes: (feeder, lanes, dtype).
@@ -666,6 +681,45 @@ def measure_wide(torch, cs, dev):
     return times, outs
 
 
+def measure_topo(torch, cs, dev):
+    """T1 and T2 at ``TOPO_SHAPES`` on this checkout's own operands:
+    device times by queued events, and their outputs."""
+    from freedm_tpu_torch.kernels import topo_kernels as tk
+    from freedm_tpu_torch.pf import topo as tp
+
+    times, outs = {}, {}
+    for name, lanes, rank in TOPO_SHAPES:
+        sys_, op, zt, theta0 = cs.topo_inputs(torch, tp, name, dev)
+        m = sys_.n_branch
+        slots = (tp.enumerate_variants(np.arange(m), 2)[4096:4096 + lanes]
+                 if name == "mesh118" else
+                 tp.neighborhood_variants(np.arange(m), rank, lanes, 7))
+        sl = torch.as_tensor(slots, device=dev)
+        key = f"{name}_x{lanes}"
+
+        def t1():
+            return tk.topo_radiality(sl, op, op.n + 1)
+
+        def t2(mode):
+            return tk.topo_screen(zt, theta0, sl, cs.TOPO_LIMIT, op, mode)
+        c, r = t1()
+        s = t2(tk.SCREEN)
+        d = t2(tk.DETAIL)
+        k = TOPO_DETAIL_LANES
+        outs[key] = {"t1": [c.cpu(), r.cpu()],
+                     "screen": [x.cpu() for x in s[:4]],
+                     "detail": [d.theta[:k].cpu(), d.flows[:k].cpu()]}
+        del d
+        times[f"{key}_T1"] = cs.queued_events_ms(torch, t1, 20)
+        times[f"{key}_T2_SCREEN"] = cs.queued_events_ms(
+            torch, lambda: t2(tk.SCREEN), 20)
+        times[f"{key}_T2_DETAIL"] = cs.queued_events_ms(
+            torch, lambda: t2(tk.DETAIL), 10)
+        del zt
+        torch.cuda.empty_cache()
+    return times, outs
+
+
 def assemble_fns(torch, sk, x, ps, qs, op) -> dict:
     """S1's modes as ``KERNELS`` names them, each a call returning its
     outputs (``values_f32`` only for float64); the stand-ins of a checkout
@@ -740,6 +794,8 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
         times["i2"], outs["i2"] = measure_i2(torch, cs, dev)
     if "wide" in sections:
         times["wide"], outs["wide"] = measure_wide(torch, cs, dev)
+    if "topo" in sections:
+        times["topo"], outs["topo"] = measure_topo(torch, cs, dev)
     if "delta" in sections:
         times["delta"], outs["delta"] = measure_delta(torch, cs, sys_,
                                                       data["delta"], dev)
@@ -996,6 +1052,26 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
         cs.check(same, f"{label}: B1 {key} outputs differ from this "
                  f"checkout's")
         errs[f"wide_{key}_same_bits"] = same
+    for key, outs in a.get("topo", {}).items():
+        other = b["topo"][key]
+        same1 = all(torch.equal(x, y) for x, y in zip(outs["t1"],
+                                                        other["t1"]))
+        cs.check(same1, f"{label}: T1 {key} booleans differ from this "
+                 f"checkout's")
+        (la, wa, va, ia), (lb, wb, vb, ib) = outs["screen"], other["screen"]
+        d = max(cs.max_err(la, lb), cs.max_err(wa, wb),
+                *(cs.max_err(x, y) for x, y in zip(outs["detail"],
+                                                   other["detail"])))
+        cs.check(torch.equal(ia, ib) and torch.equal(va, vb)
+                 and d <= cs.TOPO_ATOL,
+                 f"{label}: T2 {key} outputs {d:.3e} from this checkout's "
+                 f"(flags equal {torch.equal(ia, ib)}, violations equal "
+                 f"{torch.equal(va, vb)})")
+        errs[f"topo_{key}_t2_max_abs"] = d
+        errs[f"topo_{key}_t2_same_bits"] = all(
+            torch.equal(x, y) for x, y in zip(outs["screen"] + outs["detail"],
+                                              other["screen"]
+                                              + other["detail"]))
     for key, (ta, va, sa) in a.get("delta", {}).items():
         tb, vb, sb = b["delta"][key]
         d = max(float((ta - tb).abs().max()), float((va - vb).abs().max()))
@@ -1045,7 +1121,8 @@ def main() -> int:
                          "superstep (phase 26 (b)'s rounds), qsts (QSTS "
                          "phase (d)'s scenario-steps/s), "
                          "i2 (I2 a call and a backward), wide (B1 from "
-                         "2^15 nodes)")
+                         "2^15 nodes), topo (T1 and T2 at mesh118 x 4096 "
+                         "and x 64, mesh2000 x 16384)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
@@ -1087,7 +1164,9 @@ def main() -> int:
                         "64, vvc_9bus x 64, fixed, solve and reverse; I2 "
                         "the CIM "
                         "feeder x 64, a call and a 60-iteration backward; "
-                        "B1 2^15 x 4, 40961 x 1, 2^16 x 1, 64 rounds",
+                        "B1 2^15 x 4, 40961 x 1, 2^16 x 1, 64 rounds; T1 "
+                        "and T2 mesh118 x 4096 and x 64 (rank 2), mesh2000 "
+                        "x 16384 (rank <= 3)",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
@@ -1152,6 +1231,9 @@ def main() -> int:
                         print(f"ab {other.name} cim_vjp {key:<14} {which:<5} "
                               f"({times['i2']['form']}) device (queued "
                               f"events) {dev:.4f} ms", flush=True)
+                for key, dev in times.get("topo", {}).items():
+                    print(f"ab {other.name} topo {key:<28} {which:<5} "
+                          f"device (queued events) {dev:.4f} ms", flush=True)
                 for key, ms in times.get("wide", {}).items():
                     if not key.endswith("_form"):
                         print(f"ab {other.name} lb_rounds {key:<12} {which:<5}"

@@ -653,11 +653,16 @@ def test_t1_t2_match_plain_on_card(cuda_device, name, lanes, rank):
     got = tk.topo_radiality(slots, op, cap)
     want = tk.topo_radiality_plain(slots, op, cap)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    *same, sweeps = tk.topo_radiality(slots, op, cap, with_sweeps=True)
+    same = tk.topo_radiality(slots, op, cap)
     assert torch.equal(same[0], got[0]) and torch.equal(same[1], got[1])
+    # The card's cut test runs no sweeps: it refuses to count them, and
+    # the plain version counts the reference's.
+    with pytest.raises(ValueError, match="topo_radiality_plain"):
+        tk.topo_radiality(slots, op, cap, with_sweeps=True)
+    sweeps = tk.topo_radiality_plain(slots, op, cap, with_sweeps=True)[2]
     assert 1 <= int(sweeps.min()) and int(sweeps.max()) <= cap
-    # Below the fixed point the kernel's sweeps and the reference's may
-    # stop at other labels: the card refuses such a cap.
+    # The kernel gives the fixed point's verdict; below it the reference's
+    # sweeps may stop at other labels: the card refuses such a cap.
     with pytest.raises(ValueError, match="n - 1"):
         tk.topo_radiality(slots, op, sys_.n_bus - 2)
     ts = tp.make_topo_screen(sys_, rank, device=cuda_device)
