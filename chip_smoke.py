@@ -263,7 +263,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    per-lane Ybus against their plain versions at case14, case_ieee30,
    mesh118 and mesh2000 × B ∈ {1, 3} (mesh118 also × 118, the reference
    bench's N-1 batch), float64 (``KERNEL_ATOL``) and float32
-   (``KERNEL_ATOL_F32``; J1 relative to max |J u| above 1), then I1
+   (``KERNEL_ATOL_F32``; J1 relative to max |J u| above 1); J1 at the
+   krylov lane batch's case under every plan of ``residual_plans`` (its
+   staged route's lanes a CTA and CTAs a lane, and the wide route) in
+   float64 and float32, with and without status: lane 0 the same bits at
+   widths 1, 64 and 256, every plan the default's bits, and mesh5000 × 2
+   (past the float64 staging capacity) on the wide route by default
+   (``compare_residual_routes``); then I1
    through ``make_cim_solver`` and its ``plain=True`` twin on vvc_9bus and
    the CIM feeder (``cim_feeder``) × B ∈ ``CIM_CHECK_LANES``; F1's tile
    mode (one Ybus, K2's tiled product) at ``F1_TILE_SHAPES`` in its three
@@ -276,7 +282,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    the library row — the complex ``torch.matmul`` of Ybus with V — both by
    queued events), mesh118 × 1024 (the tile mode; library the same
    product, float32 too) and mesh2000 × 16 per lane (queued events), J1
-   at mesh2000 × 256 (library:
+   at mesh2000 × 256 and × 64 (queued events; float32 and with status
+   too, the plan of each, and the wide route beside; library:
    ``torch.sparse.mm`` of the S1-assembled Jacobian), I1 at the CIM feeder
    × 64 (device time by events a call; library: the complex
    ``torch.matmul`` of A with the injections; float32 too);
@@ -286,7 +293,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``bench_mc_1024`` (lane solves/s), (d) FDLF N-1 at mesh2000 × 16 chord
    outages, (e) ``bench_nr_2k_krylov_lanes`` mixed and f64 (mesh2000 ×
    256: lane solves/s, all converged, equal flags, within
-   ``MIXED_DV_BOUND``, fallbacks, a profile), (f)
+   ``MIXED_DV_BOUND``, fallbacks, a profile with J1's device time and
+   share of the busy time, every J1 launch on the staged route), (f)
    ``bench_n1_2000bus_krylov`` (256 warm-started chord outages) and (g)
    ``bench_nr_10k_mesh`` (ms a solve and an iteration beside the north
    star's ``NORTH_STAR_MS``, the host f64 true mismatch, a profile); each
@@ -342,8 +350,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    (``cim_vjp_walk``) over 60 saved iterates at the CIM feeder × 64 and
    vvc_9bus × 65 against the 60 chained plain calls, on repeat and bit
    for bit against the 60 chained single calls; J2 against J1 by ⟨w, J u⟩
-   = ⟨Jᵀ w, u⟩; their times beside the plain versions, the bounds and the
-   library rows (J2 at mesh2000 × 256: ``torch.sparse.mm`` of the
+   = ⟨Jᵀ w, u⟩; J2 in both modes under every plan as J1 in phase 21; their
+   times beside the plain versions, the bounds and the library rows (J2
+   at mesh2000 × 256 and × 64, queued events, the wide route beside:
+   ``torch.sparse.mm`` of the
    transposed S1-assembled Jacobian; I2 at the CIM feeder × 64: the
    complex ``torch.matmul`` of Aᴴ with the cotangents, and the walk's
    time an iteration beside the 60 single calls in a row); (b) the
@@ -357,7 +367,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    lanes (``UNROLLED_LANES`` of the sparse and krylov batches), route A
    within 1e-9, every entry finite; forward and backward ms, their ratio,
    the adjoint GMRES cycles, J2/I2 launches a backward and the saving
-   forward's peak memory (the CIM backward launches I2 once), and I2 a
+   forward's peak memory (the CIM backward launches I2 once), J2's device
+   time and share in one profiled backward of the sparse f64 and krylov
+   batches (every krylov J2 launch on the staged route), and I2 a
    call, an iteration in the walk and the library row on one line;
 28. ladder forms and B1 from 2¹⁵ nodes (``forms_phase``): (a) L3
    ``ladder_dense`` and L4 ``ladder_doubling`` through
@@ -410,8 +422,10 @@ gaps and the path of their launches, F1 the numbers of phase 22; G1, R1
 and B1 their other shapes, device times, G1's and R1's float32 squarings
 as a library composite, their launches in phase 25 (d) and the
 superstep's split, B1 its rows from 2¹⁵ nodes of phase 28 (d) and the
-sort alone; J2 and I2 their backward rows of phase 27 (c), I2 its walk's
-times; L3 and L4 their other shapes beside L1);
+sort alone; J1 and J2 their plans, × 64 times, the wide route's time and
+their launches by route, J1 its device time on the krylov lane batch; J2
+and I2 their backward rows of phase 27 (c), I2 its walk's times; L3 and
+L4 their other shapes beside L1);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -422,6 +436,7 @@ import contextlib
 import http.client
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1558,6 +1573,24 @@ def time_sparse_kernels(torch, sk):
     return rows, extra
 
 
+#: The last :func:`profile_solve` window: device ms by kernel name, and
+#: the busy total.
+LAST_PROFILE = {"rows": {}, "busy_ms": 0.0}
+#: J1's and J2's kernels by name in a profile: the staged route (the KIND
+#: template argument 0 or 1) and the wide route.
+RESIDUAL_KERNEL_RE = {
+    False: re.compile(r"residual_staged_kernel<\w+, 0,|(?<![a-z_])jvp_kernel<"),
+    True: re.compile(r"residual_staged_kernel<\w+, 1,|(?<![a-z_])vjp_kernel<")}
+
+
+def residual_share(vjp):
+    """J1's (or J2's) device ms in the last profile, and its share of the
+    device's busy time there."""
+    ms = sum(v for k, v in LAST_PROFILE["rows"].items()
+             if RESIDUAL_KERNEL_RE[vjp].search(k))
+    return ms, ms / max(LAST_PROFILE["busy_ms"], 1e-12)
+
+
 def profile_solve(torch, fn, label, top=8):
     """One more run of ``fn`` under ``torch.profiler``: device time by
     kernel and the device's busy share of the wall.  Only the kernel
@@ -1581,6 +1614,9 @@ def profile_solve(torch, fn, label, top=8):
               if str(getattr(e, "device_type", "")).endswith("CUDA")
               and getattr(e, "self_device_time_total", 0) > 0]
     busy = sum(e.self_device_time_total for e in events)
+    LAST_PROFILE["rows"] = {e.key: e.self_device_time_total / 1e3
+                            for e in events}
+    LAST_PROFILE["busy_ms"] = busy / 1e3
     if not events:
         log(f"profile: {label}: the profiler recorded no device time")
         return 0, 0.0, wall_us / 1e3
@@ -5521,6 +5557,126 @@ CIM_CHECK_LANES = (1, 8, CIM_LANES, 67)
 F1_TILE_SHAPES = (("mesh118", 1024), ("mesh2000", 16))
 
 
+#: J1's and J2's lane widths whose bits are held equal, at the krylov lane
+#: batch's case (phases 21 and 27).
+RESIDUAL_WIDTHS = (1, 64, 256)
+#: Past the staged route's float64 capacity (48 n bytes a lane of 232,448:
+#: n <= 4842): J1 and J2 take the wide route there by default.
+RESIDUAL_WIDE_CASE = "mesh5000"
+
+
+def residual_plans(sol, n, m, lanes, dtype, status):
+    """J1's and J2's plans at a shape: the default, the wide route, and the
+    staged route at every lanes-a-CTA that fits with one, two and every
+    slice's CTA a lane group."""
+    plans = [sol.residual_plan(n, m, lanes, dtype, status),
+             sol.residual_plan(n, m, lanes, dtype, status, route=sol.WIDE)]
+    per = sol.residual_stage_bytes(n, m, dtype, status)
+    slices = -(-n // sol.RES_SLICE)
+    for lpc in range(1, min(sol.RES_MAX_LANES, sol.RES_SMEM // per) + 1):
+        for cpl in sorted({1, min(2, slices), slices}):
+            plan = sol.residual_plan(n, m, lanes, dtype, status, lpc, cpl)
+            if plan not in plans:
+                plans.append(plan)
+    return plans
+
+
+def compare_residual_routes(torch, sol, vjp):
+    """J1 (or J2 in both modes, ``vjp``) at the krylov lane batch's case
+    (``synthetic_mesh_bench(2000, 1.0)``), float64 and float32, with and
+    without a per-lane status: lane 0 gives the same bits at widths
+    ``RESIDUAL_WIDTHS`` under every plan of :func:`residual_plans` (the
+    wide route included), each call within ``KERNEL_ATOL``
+    (``KERNEL_ATOL_F32``) of the plain version's largest entry above 1;
+    then ``RESIDUAL_WIDE_CASE`` × 2 in both dtypes and under every plan
+    the same way, where float64's default plan is the wide route (past the
+    staging capacity); each default plan's route is launched.  Returns
+    the largest float64 and float32 gaps by dtype."""
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    name = "residual_vjp" if vjp else "residual_jvp"
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    calls = 0
+    for case, widths in ((None, RESIDUAL_WIDTHS),
+                         (RESIDUAL_WIDE_CASE, (2,))):
+        sys_ = (synthetic_mesh_bench(2000, 1.0) if case is None
+                else case_system(case))
+        n, m = sys_.n_bus, sys_.n_branch
+        rng = np.random.default_rng(22 + vjp)
+        full = max(widths)
+        x64 = torch.cat([torch.as_tensor(rng.normal(0, 0.1, (full, n))),
+                         torch.as_tensor(rng.uniform(0.95, 1.05, (full, n)))],
+                        1).to(dev)
+        u64 = torch.as_tensor(rng.normal(size=(full, 2 * n)), device=dev)
+        st64 = torch.as_tensor(
+            (rng.random((full, m)) > 0.05).astype(np.float64), device=dev)
+        for dtype in (torch.float64, torch.float32):
+            atol = KERNEL_ATOL if dtype == torch.float64 else KERNEL_ATOL_F32
+            op = sparse_operands(sys_, dtype=dtype, device=dev)
+            vop = sol.vjp_operands(op)
+            modes = (sol.MASKED, sol.FULL) if vjp else (None,)
+            for mode, status in [(md, s_) for md in modes
+                                 for s_ in (False, True)]:
+                def call(width, plan=None, fn=None):
+                    x = x64[:width].to(dtype)
+                    u = u64[:width].to(dtype)
+                    st = st64[:width].to(dtype) if status else None
+                    if vjp:
+                        return (fn or sol.residual_vjp)(
+                            x, u, op, vop, mode, st,
+                            **({} if plan is None else {"plan": plan}))
+                    return (fn or sol.residual_jvp)(
+                        x, u, op, st, **({} if plan is None else
+                                         {"plan": plan}))
+                tag = (f"{name} {case or 'mesh2000 (bench)'} "
+                       f"{str(dtype)[6:]} mode {mode} status {status}")
+                want = call(full, fn=(sol.residual_vjp_plain if vjp
+                                      else sol.residual_jvp_plain))
+                scale = max(1.0, float(want.abs().max()))
+                ref = None
+                for width in widths:
+                    default = sol.residual_plan(n, m, width, dtype, status)
+                    if case is not None and dtype == torch.float64:
+                        check(default.route == sol.WIDE,
+                              f"{tag}: the default plan is {default}, not "
+                              f"the wide route past the capacity")
+                    sol.reset_launches()
+                    got = call(width)
+                    torch.cuda.synchronize()
+                    check(sol.route_launches()[name][default.route] == 1,
+                          f"{tag} x{width}: the default plan's route "
+                          f"{default.route} was not launched")
+                    for plan in residual_plans(sol, n, m, width, dtype,
+                                               status):
+                        k = call(width, plan)
+                        again = call(width, plan)
+                        e = max_err(k, want[:width]) / scale
+                        check(e <= atol, f"{tag} x{width} {plan}: {e:.3e} "
+                              f"from the plain version")
+                        check(same_bits(torch, k, again),
+                              f"{tag} x{width} {plan}: not bit-identical "
+                              f"on repeat")
+                        check(same_bits(torch, k, got),
+                              f"{tag} x{width} {plan}: not the default "
+                              f"plan's bits")
+                        worst[dtype] = max(worst[dtype], e)
+                        calls += 2
+                    if ref is None:
+                        ref = got[:1]
+                    check(same_bits(torch, got[:1], ref),
+                          f"{tag}: lane 0's bits differ at width {width}")
+        del x64, u64, st64
+    log(f"residual routes: {name} lane 0 the same bits at widths "
+        f"{list(RESIDUAL_WIDTHS)} under every plan (wide route included; "
+        f"{calls} launches), and {RESIDUAL_WIDE_CASE} x2 on the wide route "
+        f"by default in float64; f64 {worst[torch.float64]:.2e}, f32 "
+        f"{worst[torch.float32]:.2e} of the plain version's largest entry "
+        f"({time.monotonic() - t0:.1f} s)")
+    return worst
+
+
 def exact_or_close(torch, a, b):
     """Largest |a − b| counting equal entries (infinities too) as 0."""
     if a.dtype == torch.bool or not a.is_floating_point():
@@ -6007,6 +6163,8 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
     del y16, a3
 
     # J1 at bench_nr_2k_krylov_lanes (mesh2000 x 256): x, u in, J u out.
+    # Its device time is queued CUDA events around each call, as J2's: the
+    # profiler's came back at 0.0593 and 0.0402 ms for one kernel.
     from freedm_tpu_torch.kernels import sparse_kernels as sk
 
     lanes = 256
@@ -6016,13 +6174,23 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
                                     device=dev)], 1)
     u = torch.randn_like(xk)
     ps2 = torch.as_tensor(np.tile(sys2k.p_inj, (lanes, 1)), device=dev)
-    k, k_dev, src, p = timed("residual_jvp",
-                             lambda: sol.residual_jvp(xk, u, sop2),
-                             lambda: sol.residual_jvp_plain(xk, u, sop2), 100)
     m2 = sys2k.n_branch
-    b_j1 = 8 * 3 * lanes * 2 * n2 + 8 * (4 * 2 * m2 + 4 * n2) \
-        + 4 * (n2 + 1 + 4 * m2)
+
+    def j1_bytes(b_lanes, itemsize=8, status=False):
+        # x, u and J u, the incidence operands and bus arrays once
+        return (itemsize * (3 * b_lanes * 2 * n2 + 4 * 2 * m2 + 4 * n2
+                            + (b_lanes * m2 if status else 0))
+                + 4 * (n2 + 1 + 4 * m2))
+
+    def j1(x, uu, op, st=None):
+        fn = (lambda: sol.residual_jvp(x, uu, op, st))
+        return (time_ms(torch, fn, reps=100), queued_events_ms(torch, fn, 50),
+                sol.residual_plan(n2, m2, x.shape[0], x.dtype,
+                                  st is not None))
+
     o_j1 = lanes * (2 * m2 * 60 + n2 * 20)
+    k, k_dev, plan = j1(xk, u, sop2)
+    p = time_ms(torch, lambda: sol.residual_jvp_plain(xk, u, sop2), reps=3)
     ev, bv, _ = sk.sparse_assemble(xk, ps2, ps2, sop2)
     csr = sparse_library_matvec(torch, sop2, ev, bv)
     ucol = u.reshape(-1, 1)
@@ -6030,36 +6198,53 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
                         sol.residual_jvp(xk, u, sop2))[0]
     check(e_lib <= 1e-10, f"J1's library row computes another J u: {e_lib}")
     lib = time_ms(torch, lambda: csr @ ucol, reps=100)
-    b, by = bound(b_j1, o_j1)
+    lib_dev = queued_events_ms(torch, lambda: csr @ ucol, 50)
+    b, by = bound(j1_bytes(lanes), o_j1)
     rows["residual_jvp"] = (k, p, lib, b, by)
     extra["residual_jvp"] = {
-        "device_ms": k_dev, "device_ms_source": src,
+        "device_ms": k_dev, "device_ms_source": "queued events",
+        "plan": plan._asdict(), "library_device_ms": lib_dev,
         "shape": "mesh2000 x 256 (bench_nr_2k_krylov_lanes), float64",
         "library": "torch.sparse.mm of the S1-assembled Jacobian (CSR, "
                    "assembly excluded)"}
     log(f"timing: residual_jvp mesh2000 x256 kernel {k:.4f} ms (device "
-        f"{k_dev:.4f}, {src})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
-        f"library torch.sparse.mm {lib:.4f} ms")
+        f"{k_dev:.4f}, queued events; {plan.route}, {plan.lanes_per_cta} "
+        f"lanes and {plan.ctas_per_lane} CTAs a lane, {plan.smem} B shared) "
+        f" plain {p:.4f} ms  bound {b:.4f} ms ({by})  library "
+        f"torch.sparse.mm {lib:.4f} ms (device {lib_dev:.4f})")
     del csr, ev, bv
     sop2lo = sop2.to_dtype(torch.float32)
     x32, u32 = xk.float(), u.float()
-    kf, kf_dev, _, pf = timed("residual_jvp",
-                              lambda: sol.residual_jvp(x32, u32, sop2lo),
-                              lambda: sol.residual_jvp_plain(x32, u32,
-                                                             sop2lo), 100)
+    kf, kf_dev, plan_f = j1(x32, u32, sop2lo)
+    pf = time_ms(torch, lambda: sol.residual_jvp_plain(x32, u32, sop2lo),
+                 reps=3)
     st256 = torch.ones(lanes, m2, dtype=f64, device=dev)
     st256[torch.arange(lanes), n2 + torch.arange(lanes)] = 0.0
-    ks, ks_dev, _, ps_ = timed(
-        "residual_jvp", lambda: sol.residual_jvp(xk, u, sop2, st256),
-        lambda: sol.residual_jvp_plain(xk, u, sop2, st256), 100)
+    ks, ks_dev, plan_s = j1(xk, u, sop2, st256)
+    ps_ = time_ms(torch, lambda: sol.residual_jvp_plain(xk, u, sop2, st256),
+                  reps=3)
+    x64_, u64_ = xk[:MAIN_LANES].contiguous(), u[:MAIN_LANES].contiguous()
+    k64, k64_dev, plan_64 = j1(x64_, u64_, sop2)
+    wide = sol.residual_plan(n2, m2, lanes, f64, False, route=sol.WIDE)
+    w_dev = queued_events_ms(
+        torch, lambda: sol.residual_jvp(xk, u, sop2, plan=wide), 50)
     extra["residual_jvp"].update({
         "ms_f32": kf, "device_ms_f32": kf_dev, "plain_ms_f32": pf,
-        "bound_ms_f32": bound(b_j1 / 2, o_j1, fp64=False)[0],
+        "bound_ms_f32": bound(j1_bytes(lanes, 4), o_j1, fp64=False)[0],
+        "plan_f32": plan_f._asdict(),
         "ms_status": ks, "device_ms_status": ks_dev, "plain_ms_status": ps_,
-        "bound_ms_status": bound(b_j1 + 8 * lanes * m2, o_j1)[0]})
-    log(f"timing: residual_jvp f32 {kf:.4f} ms (device {kf_dev:.4f})  plain "
-        f"{pf:.4f}; with status {ks:.4f} ms (device {ks_dev:.4f})  plain "
-        f"{ps_:.4f}")
+        "bound_ms_status": bound(j1_bytes(lanes, status=True), o_j1)[0],
+        "plan_status": plan_s._asdict(),
+        "ms_x64": k64, "device_ms_x64": k64_dev,
+        "bound_ms_x64": bound(j1_bytes(MAIN_LANES),
+                              o_j1 * MAIN_LANES // lanes)[0],
+        "plan_x64": plan_64._asdict(), "wide_route_device_ms": w_dev})
+    log(f"timing: residual_jvp f32 {kf:.4f} ms (device {kf_dev:.4f}; "
+        f"{plan_f.lanes_per_cta} lanes a CTA)  plain {pf:.4f}; with status "
+        f"{ks:.4f} ms (device {ks_dev:.4f}; {plan_s.lanes_per_cta} lanes a "
+        f"CTA)  plain {ps_:.4f}; x{MAIN_LANES} {k64:.4f} ms (device "
+        f"{k64_dev:.4f}; {plan_64.ctas_per_lane} CTAs a lane); the wide "
+        f"route at x256 device {w_dev:.4f} ms")
 
     # I1 on the CIM feeder x 64 (phase 23's batch).  Its device time is
     # queued CUDA events around each call: the profiler's come back short
@@ -6280,6 +6465,7 @@ def solver_benches(torch, sol):
         _, fixed = make_krylov_solver(sys2k, max_iter=8, inner_iters=16,
                                       precision=prec, precond=pc, device=dev)
         r, counts = launches_of(sol, lambda: fixed(p_inj=p, q_inj=q))
+        routes = sol.route_launches()["residual_jvp"]
         check(bool(r.converged.all()),
               f"(e) krylov {prec}: {int(r.converged.sum())} converged")
         ms = median_ms(torch, lambda: fixed(p_inj=p, q_inj=q), 3)
@@ -6288,13 +6474,20 @@ def solver_benches(torch, sol):
             paths["residual_jvp"] = (
                 counts.get("residual_jvp", 0), "solvers phase (e): krylov "
                 "mixed, mesh2000 x 256 solve_fixed max_iter=8 inner 16")
+        busy = busy_share(torch, lambda: fixed(p_inj=p, q_inj=q),
+                          f"(e) krylov {prec}, 8 Newton steps", top=10)
+        j1_ms, j1_share = residual_share(False)
+        out[f"krylov_lanes_{prec}_j1_device_ms"] = j1_ms
+        out[f"krylov_lanes_{prec}_j1_routes"] = routes
+        check(routes[sol.STAGED] == counts.get("residual_jvp", -1),
+              f"(e) krylov {prec}: J1 launched {routes} by route, not all "
+              f"staged")
         log(f"solvers (e) krylov {prec} bench_nr_2k_krylov_lanes: mesh2000 "
             f"x{KRYLOV_LANES}, solve_fixed max_iter=8 inner 16: {ms:.1f} ms, "
             f"{KRYLOV_LANES * 1e3 / ms:.0f} lane solves/s, all converged, "
-            f"fallbacks {int(r.fallbacks.sum())}; launches {counts}; "
-            + busy_share(torch, lambda: fixed(p_inj=p, q_inj=q),
-                         f"(e) krylov {prec}, 8 Newton steps", top=10)
-            + took())
+            f"fallbacks {int(r.fallbacks.sum())}; launches {counts} (J1 "
+            f"{routes}); {busy}; J1 {j1_ms:.2f} ms of the device's busy time "
+            f"({100 * j1_share:.1f}%)" + took())
         out[f"krylov_lanes_{prec}_lane_solves_per_sec"] = (
             KRYLOV_LANES * 1e3 / ms)
     dv = max_err(res["mixed"].v, res["f64"].v)
@@ -7322,15 +7515,31 @@ def time_reverse_kernels(torch, sol, rows, extra):
     w = torch.randn_like(x)
     # Device time by queued CUDA events, as K2's, F1's and I1's: the
     # profiler's came back at 0.0337 and 0.0764 ms in two runs of one tree.
+    # Also at the sparse backward's 64 lanes, and on the wide route.
     k, k_dev = {}, {}
+    x64_, w64_ = x[:MAIN_LANES].contiguous(), w[:MAIN_LANES].contiguous()
+    wide = sol.residual_plan(n, m, lanes, torch.float64, False,
+                             route=sol.WIDE)
     for mode in (sol.MASKED, sol.FULL):
         fn = (lambda md=mode: sol.residual_vjp(x, w, op, vop, md))
         k[mode] = time_ms(torch, fn, reps=100)
         k_dev[mode] = queued_events_ms(torch, fn, 50)
+        fn = (lambda md=mode: sol.residual_vjp(x64_, w64_, op, vop, md))
+        k[mode, MAIN_LANES] = time_ms(torch, fn, reps=100)
+        k_dev[mode, MAIN_LANES] = queued_events_ms(torch, fn, 50)
+        k_dev[mode, sol.WIDE] = queued_events_ms(
+            torch, lambda md=mode: sol.residual_vjp(x, w, op, vop, md,
+                                                    plan=wide), 50)
+    plan = sol.residual_plan(n, m, lanes, torch.float64, False)
+    plan_64 = sol.residual_plan(n, m, MAIN_LANES, torch.float64, False)
     p = time_ms(torch, lambda: sol.residual_vjp_plain(x, w, op, vop,
                                                       sol.MASKED), reps=3)
-    b_j2 = 8 * 3 * lanes * 2 * n + 8 * (6 * 2 * m + 4 * n) \
-        + 4 * (n + 1 + 4 * m)
+
+    def j2_bytes(b_lanes):
+        return (8 * (3 * b_lanes * 2 * n + 6 * 2 * m + 4 * n)
+                + 4 * (n + 1 + 4 * m))
+
+    b_j2 = j2_bytes(lanes)
     o_j2 = lanes * (2 * m * 80 + n * 30)
     ps = torch.as_tensor(np.tile(sys2k.p_inj, (lanes, 1)), device=dev)
     ev, bv, _ = sk.sparse_assemble(x, ps, ps, op)
@@ -7341,20 +7550,36 @@ def time_reverse_kernels(torch, sol, rows, extra):
                         sol.residual_vjp(x, w, op, vop, sol.MASKED))[0]
     check(e_lib <= 1e-10, f"J2's library row computes another J^T w: {e_lib}")
     lib = time_ms(torch, lambda: csr_t @ wcol, reps=100)
+    lib_dev = queued_events_ms(torch, lambda: csr_t @ wcol, 50)
     b, by = bound(b_j2, o_j2)
     rows["residual_vjp"] = (k[sol.MASKED], p, lib, b, by)
     extra["residual_vjp"] = {
         "device_ms": k_dev[sol.MASKED], "device_ms_source": "queued events",
+        "plan": plan._asdict(), "library_device_ms": lib_dev,
         "shape": "mesh2000 x 256 (bench_nr_2k_krylov_lanes' adjoint), "
                  "float64, MASKED",
         "ms_full": k[sol.FULL], "device_ms_full": k_dev[sol.FULL],
+        "ms_x64": k[sol.MASKED, MAIN_LANES],
+        "device_ms_x64": k_dev[sol.MASKED, MAIN_LANES],
+        "device_ms_full_x64": k_dev[sol.FULL, MAIN_LANES],
+        "bound_ms_x64": bound(j2_bytes(MAIN_LANES),
+                              o_j2 * MAIN_LANES // lanes)[0],
+        "plan_x64": plan_64._asdict(),
+        "wide_route_device_ms": k_dev[sol.MASKED, sol.WIDE],
+        "wide_route_device_ms_full": k_dev[sol.FULL, sol.WIDE],
         "library": "torch.sparse.mm of the transposed S1-assembled "
                    "Jacobian (CSR, assembly and transpose excluded)"}
     log(f"timing: residual_vjp mesh2000 x{lanes} MASKED kernel "
         f"{k[sol.MASKED]:.4f} ms (device {k_dev[sol.MASKED]:.4f}, queued "
-        f"events), FULL {k[sol.FULL]:.4f} ms (device "
-        f"{k_dev[sol.FULL]:.4f})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
-        f"library torch.sparse.mm of J^T {lib:.4f} ms")
+        f"events; {plan.lanes_per_cta} lanes a CTA), FULL {k[sol.FULL]:.4f} "
+        f"ms (device {k_dev[sol.FULL]:.4f})  plain {p:.4f} ms  bound "
+        f"{b:.4f} ms ({by})  library torch.sparse.mm of J^T {lib:.4f} ms "
+        f"(device {lib_dev:.4f}); x{MAIN_LANES} MASKED {k[sol.MASKED, MAIN_LANES]:.4f} "
+        f"ms (device {k_dev[sol.MASKED, MAIN_LANES]:.4f}; "
+        f"{plan_64.ctas_per_lane} CTAs a lane), FULL device "
+        f"{k_dev[sol.FULL, MAIN_LANES]:.4f}; the wide route at x{lanes} "
+        f"device {k_dev[sol.MASKED, sol.WIDE]:.4f} / "
+        f"{k_dev[sol.FULL, sol.WIDE]:.4f}")
     del csr_t, ev, bv
 
     f, ties = cim_feeder()
@@ -7577,7 +7802,7 @@ def reverse_full_width(torch, sol):
         return out, a.elapsed_time(b)
 
     def run(label, make, loss, args, kernel, route_rtol, lane_rows=None,
-            converged=None, gmres=False):
+            converged=None, gmres=False, share=False):
         t0 = time.monotonic()
         # The Function's kernel route (the default on the card; named here
         # so that a CPU rehearsal takes it too).
@@ -7597,6 +7822,7 @@ def reverse_full_width(torch, sol):
             sol.reset_launches()
             got, ms = events_ms(lambda: torch.autograd.grad(val, ts))
             launched = sol.launches()
+            routes = sol.route_launches().get(kernel)
             bwd.append(ms)
         fwd_ms, fwd_g_ms, bwd_ms = (float(np.median(t))
                                     for t in (fwd, fwd_g, bwd))
@@ -7622,12 +7848,25 @@ def reverse_full_width(torch, sol):
         rows[label] = dict(fwd_ms=fwd_ms, fwd_save_ms=fwd_g_ms,
                            bwd_ms=bwd_ms, ratio=bwd_ms / fwd_ms,
                            launches=launched[kernel], peak_bytes=peak)
+        if routes is not None:
+            rows[label]["launches_by_route"] = routes
         extra = ""
         if gmres:
             rows[label].update(adjoint_cycles=cycles["cycles"],
                                adjoint_residual=cycles["residual"])
             extra = (f", adjoint GMRES {cycles['cycles']} cycles (residual "
                      f"{cycles['residual']:.1e})")
+        if share:  # J2's device time in one profiled backward
+            ts = [a.clone().requires_grad_(True) for a in args]
+            val = loss(fixed, *ts)
+            profile_solve(torch, lambda: torch.autograd.grad(val, ts),
+                          f"reverse (c) {label} backward", top=6)
+            j2_ms, j2_share = residual_share(True)
+            rows[label].update(j2_device_ms=j2_ms,
+                               busy_ms=LAST_PROFILE["busy_ms"])
+            extra += (f", J2 {j2_ms:.2f} ms of the backward's "
+                      f"{LAST_PROFILE['busy_ms']:.2f} ms device busy "
+                      f"({100 * j2_share:.1f}%)")
         log(f"reverse (c) {label}: forward {fwd_ms:.2f} ms (saving "
             f"{fwd_g_ms:.2f} ms, peak {peak / 2**20:.1f} MiB above the "
             f"inputs), backward {bwd_ms:.2f} ms, backward/forward "
@@ -7678,7 +7917,7 @@ def reverse_full_width(torch, sol):
         check(bool(conv.all()), f"sparse {prec}: a lane did not converge")
         run(f"sparse mesh2000 x{MAIN_LANES} {prec}", make_sparse,
             newton_loss, (p, q), "residual_vjp", ROUTE_B_RTOL,
-            lane_rows=sub, gmres=True)
+            lane_rows=sub, gmres=True, share=prec == "f64")
 
     # Krylov: bench_nr_2k_krylov_lanes, mesh2000 x 256, f64.
     p, q = pq(sys2k, KRYLOV_LANES, 0)
@@ -7694,7 +7933,7 @@ def reverse_full_width(torch, sol):
     check(bool(conv.all()), "krylov: a lane did not converge")
     run(f"krylov bench_nr_2k_krylov_lanes x{KRYLOV_LANES} f64", make_krylov,
         newton_loss, (p, q), "residual_vjp", ROUTE_B_RTOL, lane_rows=sub,
-        gmres=True)
+        gmres=True, share=True)
 
     # FDLF: mesh2000 x 16, one Ybus (F1's tile mode), 30 iterations.
     p, q = pq(sys2k, 16, 3)
@@ -7734,7 +7973,11 @@ def reverse_phase(torch, sol, errs, rows, extra):
     over their main paths' backward."""
     t27 = time.monotonic()
     compare_reverse_kernels(torch, sol, errs)
+    j2_routes = compare_residual_routes(torch, sol, True)
+    errs["residual_vjp"] = max(errs["residual_vjp"],
+                               j2_routes[torch.float64])
     time_reverse_kernels(torch, sol, rows, extra)
+    extra["residual_vjp"]["max_abs_err_f32"] = j2_routes[torch.float32]
     reverse_gates(torch, sol)
     counts, full = reverse_full_width(torch, sol)
     krylov = f"krylov bench_nr_2k_krylov_lanes x{KRYLOV_LANES} f64"
@@ -7746,6 +7989,9 @@ def reverse_phase(torch, sol, errs, rows, extra):
                             "backward", backward=full[cim])
     check(counts[cim] == 1, f"{cim}: I2 launched {counts[cim]} times a "
           f"backward, not once")
+    routes = full[krylov]["launches_by_route"]
+    check(routes[sol.STAGED] == counts[krylov],
+          f"{krylov}: J2 launched {routes} by route, not all staged")
     i2 = extra["cim_vjp"]
     log(f"reverse (c) I2: a call {i2['device_ms']:.4f} ms, an iteration in "
         f"the walk {i2['walk_device_ms_an_iteration']:.4f} ms (queued "
@@ -8607,6 +8853,11 @@ def main() -> int:
             extra[name]["launches_serve_job"] = job_counts[name]
         t21 = time.monotonic()
         f32_errs = compare_solver_kernels(torch, sol, nk, errs)
+        j1_routes = compare_residual_routes(torch, sol, False)
+        errs["residual_jvp"] = max(errs["residual_jvp"],
+                                   j1_routes[torch.float64])
+        f32_errs["residual_jvp_f32"] = max(
+            f32_errs.get("residual_jvp_f32", 0.0), j1_routes[torch.float32])
         tile_gaps = compare_fdlf_tiles(torch, sol, nk)
         errs["fdlf_half_step"] = max(errs["fdlf_half_step"],
                                      tile_gaps[torch.float64])
@@ -8626,6 +8877,10 @@ def main() -> int:
             if name + "_f32" in f32_errs:
                 extra[name]["max_abs_err_f32"] = f32_errs[name + "_f32"]
         extra["fdlf_half_step"]["bench"] = bench
+        extra["residual_jvp"]["launches_by_route"] = bench[
+            "krylov_lanes_mixed_j1_routes"]
+        extra["residual_jvp"]["device_ms_on_path"] = bench[
+            "krylov_lanes_mixed_j1_device_ms"]
         log(f"solvers: phases 21-23 {time.monotonic() - t21:.1f} s")
         t24 = time.monotonic()
         compare_dgi(torch, dk, errs)

@@ -59,11 +59,34 @@
 //     I = y_self Vc_i + y_mut Vc_j, dI = y_self dVc_i + y_mut dVc_j,
 //     dS = dVc_i conj(I) + Vc_i conj(dI);
 //   the shunts add 2 g V dV and -2 b V dV; pinned rows pass u through.
-//   Design: one thread per (lane, bus) walks its incidence list in CSR
-//   order and recomputes each branch's I and dI at its own end: no scratch,
-//   no atomics; from-end and to-end sums are kept apart and added last, as
-//   the reference's two segment sums are.  Bound: the bytes of x, u,
-//   status and the output (~24.6 MB at mesh2000 x 256 without status).
+//   Bound: the bytes of x, u, status and the output (~24.6 MB at mesh2000
+//   x 256 without status, ~7.5 us).  A thread per (lane, bus) walking its
+//   CSR list (the wide route below; 0.064 ms there on an H100) is held by
+//   per-entry work: each entry gathers its neighbour's theta, V, dtheta,
+//   dV from device memory (four 32-byte sectors for 32 bytes) and runs a
+//   sincos (2m + n a lane where n would do), and every lane re-reads the
+//   incidence operands uncoalesced.  Design (two routes, the same bits,
+//   solver_kernels.residual_plan):
+//     staged (residual_staged_kernel, below): a CTA stages each of its
+//       lanes once — one sincos a bus — in shared memory and walks the
+//       sliced ELL of solver_kernels.residual_layout (buses by degree, a
+//       warp's step reading consecutive entries), each entry's operands
+//       applied to every lane it holds; a bus's sums run in CSR order, the
+//       from-end and to-end sums apart and added last, as the reference's
+//       two segment sums.  No atomics, no scratch.
+//     wide (jvp_kernel): a thread a (lane, bus), for a lane past the
+//       staging capacity (48 n bytes in float64, 24 n in float32, plus m
+//       values with a per-lane status, of 232,448).
+//   Both write every rounding out (Rn, dotp, dotm: jvp_stage, jvp_term,
+//   jvp_finish), so a lane's bits do not depend on the route, the plan or
+//   the launch width.  Measured on an H100 80GB HBM3 at 700 W (lab runs,
+//   mesh2000 x 256, queued events): 0.0256-0.0259 ms f64, 0.0180-0.0187
+//   f32 (the wide route 0.064 / 0.044), of which ~5.3 us the launch as
+//   this clock sees it, ~4.4 the stage (at the card's memory rate), ~4.1
+//   the finish and ~11.4 the walk (its operand loads ~5.7 of it; the
+//   shared-memory gathers' bank conflicts ~0.2, its arithmetic ~0.5-1);
+//   deeper unrolls, a prefetch of the next slice, 768 or 1024 threads and
+//   two CTAs an SM each moved it by under 5%.
 //
 // I1 cim_iterate — replaces freedm_tpu/pf/cim.py:157-170 `_matvec` and
 //   `_iterate` with the loop's max |v_new - v| (:195-240): the injection
@@ -94,11 +117,13 @@
 //   I = y_self Vc_k + y_mut Vc_j the branch current at k's end and y_mut'
 //   the other end's mutual admittance (solver_kernels.VjpOperands); then
 //   theta_bar = V (G_im cos - G_re sin), V_bar = G_re cos + G_im sin +
-//   2 V (omega_P g_sh - omega_Q b_sh).  Design: J1's, one thread per (lane,
-//   bus) walking its incidence list in CSR order, recomputing each branch's
-//   current at its own end; one accumulator, no scratch, no atomics.  Bound:
-//   the bytes of x, w, status and the output (~24.6 MB at mesh2000 x 256
-//   without status).
+//   2 V (omega_P g_sh - omega_Q b_sh).  Design: J1's two routes
+//   (residual_staged_kernel with the masked omega staged beside Vc; wide,
+//   vjp_kernel), one accumulator, no scratch, no atomics, every rounding
+//   written out (vjp_term, vjp_finish).  Bound: the bytes of x, w, status
+//   and the output (~24.6 MB at mesh2000 x 256 without status).  Measured
+//   as J1 (lab runs): MASKED 0.0283-0.0285 ms, FULL 0.0269-0.0270 (the
+//   wide route 0.077-0.081 / 0.063-0.068).
 //
 // I2 cim_vjp — replaces the reverse mode of the iterations of
 //   freedm_tpu/pf/cim.py:163 `_iterate` (with `_matvec` :157) under
@@ -531,9 +556,135 @@ __global__ void __launch_bounds__(kThreads) fdlf_warp_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// J1
+// J1 and J2: arithmetic shared by both routes
 // ---------------------------------------------------------------------------
 
+// Every rounding of J1 and J2 is written out: a product and a sum round
+// once each, a b + c d is fma(a, b, c d) and a b - c d is fma(a, b, -(c d)).
+// nvcc contracts a b + c d into either of two FMAs, choosing by the code
+// around the expression, so one source expression in two kernels can differ
+// in its last bit; written out, the staged and the wide route give a lane
+// the same bits.
+template <typename T> struct Rn;
+template <> struct Rn<double> {
+  static __device__ __forceinline__ double mul(double a, double b) {
+    return __dmul_rn(a, b);
+  }
+  static __device__ __forceinline__ double add(double a, double b) {
+    return __dadd_rn(a, b);
+  }
+  static __device__ __forceinline__ double fma(double a, double b, double c) {
+    return __fma_rn(a, b, c);
+  }
+};
+template <> struct Rn<float> {
+  static __device__ __forceinline__ float mul(float a, float b) {
+    return __fmul_rn(a, b);
+  }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+  static __device__ __forceinline__ float fma(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T mul_(T a, T b) { return Rn<T>::mul(a, b); }
+template <typename T>
+__device__ __forceinline__ T add_(T a, T b) { return Rn<T>::add(a, b); }
+template <typename T>  // a b + c d
+__device__ __forceinline__ T dotp(T a, T b, T c, T d) {
+  return Rn<T>::fma(a, b, Rn<T>::mul(c, d));
+}
+template <typename T>  // a b - c d
+__device__ __forceinline__ T dotm(T a, T b, T c, T d) {
+  return Rn<T>::fma(a, b, -Rn<T>::mul(c, d));
+}
+
+// J1's value of a bus: Vc = V e^{j theta} and dVc = (dV cos - V sin
+// dtheta, dV sin + V cos dtheta).
+template <typename T>
+__device__ __forceinline__ void jvp_stage(T th, T v, T dth, T dv, T& vr,
+                                          T& vi, T& dr, T& di) {
+  T s, c;
+  sincos_(th, &s, &c);
+  vr = mul_(v, c);
+  vi = mul_(v, s);
+  dr = dotm(dv, c, vi, dth);
+  di = dotp(dv, s, vr, dth);
+}
+
+// J1's term of an incidence entry (admittances y_self, y_mut; the bus's
+// Vc, dVc; the neighbour's w, dw): dS = dVc conj(I) + Vc conj(dI) with
+// I = y_self Vc + y_mut w and dI = y_self dVc + y_mut dw.
+template <typename T>
+__device__ __forceinline__ void jvp_term(T ysr, T ysi, T ymr, T ymi, T vr,
+                                         T vi, T dr, T di, T wr, T wi, T er,
+                                         T ei, T& re, T& im) {
+  const T ir = add_(dotm(ysr, vr, ysi, vi), dotm(ymr, wr, ymi, wi));
+  const T ii = add_(dotp(ysr, vi, ysi, vr), dotp(ymr, wi, ymi, wr));
+  const T jr = add_(dotm(ysr, dr, ysi, di), dotm(ymr, er, ymi, ei));
+  const T ji = add_(dotp(ysr, di, ysi, dr), dotp(ymr, ei, ymi, er));
+  re = add_(dotp(dr, ir, di, ii), dotp(vr, jr, vi, ji));
+  im = add_(dotm(di, ir, dr, ii), dotm(vi, jr, vr, ji));
+}
+
+// J1's output of a bus from its branch sums p, q (each its from-end sum
+// plus its to-end sum): the shunt adds 2 g V dV to dP and -2 b V dV to dQ;
+// pinned rows pass u.
+template <typename T>
+__device__ __forceinline__ void jvp_finish(T p, T q, T v, T dth, T dv,
+                                           T gsh, T bsh, bool tf, bool vf,
+                                           T* o_th, T* o_v) {
+  const T vdv = mul_(mul_(T(2), v), dv);
+  *o_th = tf ? Rn<T>::fma(gsh, vdv, p) : dth;
+  *o_v = vf ? Rn<T>::fma(-bsh, vdv, q) : dv;
+}
+
+// J2's term of an incidence entry (y_self, y_mut, the other end's mutual
+// y_mut'; the bus's Vc = k and masked omega_k; the neighbour's Vc = j and
+// omega_j), added to the gradient g in Vc_k:
+//   conj(omega_k y_self) k + omega_k I + conj(omega_j y_mut') j,
+// I = y_self k + y_mut j.
+template <typename T>
+__device__ __forceinline__ void vjp_term(T ysr, T ysi, T ymr, T ymi, T ytr,
+                                         T yti, T kr, T ki, T okr, T oki,
+                                         T jr, T ji, T ojr, T oji, T& gr,
+                                         T& gi) {
+  const T ir = add_(dotm(ysr, kr, ysi, ki), dotm(ymr, jr, ymi, ji));
+  const T ii = add_(dotp(ysr, ki, ysi, kr), dotp(ymr, ji, ymi, jr));
+  const T ar = dotm(okr, ysr, oki, ysi), ai = dotp(okr, ysi, oki, ysr);
+  const T br = dotm(ojr, ytr, oji, yti), bi = dotp(ojr, yti, oji, ytr);
+  gr = add_(gr, add_(add_(dotp(ar, kr, ai, ki), dotm(okr, ir, oki, ii)),
+                     dotp(br, jr, bi, ji)));
+  gi = add_(gi, add_(add_(dotm(ar, ki, ai, kr), dotp(okr, ii, oki, ir)),
+                     dotm(br, ji, bi, jr)));
+}
+
+// J2's output of a bus from its gradient g in Vc: theta_bar = V (g_im cos -
+// g_re sin), V_bar = g_re cos + g_im sin + 2 V (omega_P g_sh - omega_Q
+// b_sh); pinned rows of MASKED mode add w (theta_ref and V - V_set).
+template <typename T>
+__device__ __forceinline__ void vjp_finish(T gr, T gi, T th, T v, T okr,
+                                           T oki, T gsh, T bsh, bool pass_th,
+                                           bool pass_v, T wp, T wq, T* o_th,
+                                           T* o_v) {
+  T s, c;
+  sincos_(th, &s, &c);
+  T dth = mul_(v, dotm(gi, c, gr, s));
+  T dv = Rn<T>::fma(mul_(T(2), v), dotm(okr, gsh, oki, bsh),
+                    dotp(gr, c, gi, s));
+  *o_th = pass_th ? add_(dth, wp) : dth;
+  *o_v = pass_v ? add_(dv, wq) : dv;
+}
+
+// ---------------------------------------------------------------------------
+// J1, wide route
+// ---------------------------------------------------------------------------
+
+// A thread a (lane, bus) walks the bus's incidence list in CSR order,
+// forming each neighbour's Vc and dVc from x and u.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) jvp_kernel(
     const T* __restrict__ x, const T* __restrict__ u,
@@ -551,37 +702,30 @@ __global__ void __launch_bounds__(kThreads) jvp_kernel(
   const T* xb = x + b * 2 * n;
   const T* ub = u + b * 2 * n;
   const T* st = status != nullptr ? status + b * m : nullptr;
-  const T th = xb[i], v = xb[n + i], dth = ub[i], dv = ub[n + i];
-  T s, c;
-  sincos_(th, &s, &c);
-  const T vcr = v * c, vci = v * s;
-  const T dvr = dv * c - vci * dth, dvi = dv * s + vcr * dth;
-  T acc_re[2] = {T(0), T(0)}, acc_im[2] = {T(0), T(0)};
+  const T v = xb[n + i], dth = ub[i], dv = ub[n + i];
+  T vr, vi, dr, di;
+  jvp_stage(xb[i], v, dth, dv, vr, vi, dr, di);
+  T acc[4] = {T(0), T(0), T(0), T(0)};  // dP from, to; dQ from, to
   const int r1 = inc_ptr[i + 1];
   for (int r = inc_ptr[i]; r < r1; ++r) {
-    const int code = inc_code[r];
-    const int side = code & 1, j = inc_nbr[r];
-    const T on = st != nullptr ? st[code >> 1] : T(1);
-    const T ysr = inc_gs[r] * on, ysi = inc_bs[r] * on;
-    const T ymr = inc_g[r] * on, ymi = inc_b[r] * on;
-    const T thj = xb[j], vj = xb[n + j], dthj = ub[j], dvj = ub[n + j];
-    T sj, cj;
-    sincos_(thj, &sj, &cj);
-    const T wr = vj * cj, wi = vj * sj;
-    const T dwr = dvj * cj - wi * dthj, dwi = dvj * sj + wr * dthj;
-    const T ir = (ysr * vcr - ysi * vci) + (ymr * wr - ymi * wi);
-    const T ii = (ysr * vci + ysi * vcr) + (ymr * wi + ymi * wr);
-    const T dir = (ysr * dvr - ysi * dvi) + (ymr * dwr - ymi * dwi);
-    const T dii = (ysr * dvi + ysi * dvr) + (ymr * dwi + ymi * dwr);
-    acc_re[side] += (dvr * ir + dvi * ii) + (vcr * dir + vci * dii);
-    acc_im[side] += (dvi * ir - dvr * ii) + (vci * dir - vcr * dii);
+    const int code = inc_code[r], j = inc_nbr[r];
+    T ysr = inc_gs[r], ysi = inc_bs[r], ymr = inc_g[r], ymi = inc_b[r];
+    if (st != nullptr) {
+      const T on = st[code >> 1];
+      ysr = mul_(ysr, on), ysi = mul_(ysi, on);
+      ymr = mul_(ymr, on), ymi = mul_(ymi, on);
+    }
+    T wr, wi, er, ei, re, im;
+    jvp_stage(xb[j], xb[n + j], ub[j], ub[n + j], wr, wi, er, ei);
+    jvp_term(ysr, ysi, ymr, ymi, vr, vi, dr, di, wr, wi, er, ei, re, im);
+    const int side = code & 1;
+    acc[side] = add_(acc[side], re);
+    acc[2 + side] = add_(acc[2 + side], im);
   }
-  const T vdv = T(2) * v * dv;
-  const T dP = (acc_re[0] + acc_re[1]) + g_sh[i] * vdv;
-  const T dQ = (acc_im[0] + acc_im[1]) - b_sh[i] * vdv;
   T* ob = out + b * 2 * n;
-  ob[i] = th_free[i] > T(0) ? dP : dth;
-  ob[n + i] = v_free[i] > T(0) ? dQ : dv;
+  jvp_finish(add_(acc[0], acc[1]), add_(acc[2], acc[3]), v, dth, dv, g_sh[i],
+             b_sh[i], th_free[i] > T(0), v_free[i] > T(0), ob + i,
+             ob + n + i);
 }
 
 // ---------------------------------------------------------------------------
@@ -676,37 +820,259 @@ __global__ void __launch_bounds__(kThreads) vjp_kernel(
   const T okr = (full || tf) ? wp : T(0), oki = (full || vf) ? wq : T(0);
   T s, c;
   sincos_(th, &s, &c);
-  const T kr = v * c, ki = v * s;
+  const T kr = mul_(v, c), ki = mul_(v, s);
   T gr = T(0), gi = T(0);
   const int r1 = inc_ptr[i + 1];
   for (int r = inc_ptr[i]; r < r1; ++r) {
     const int code = inc_code[r], j = inc_nbr[r];
-    const T on = st != nullptr ? st[code >> 1] : T(1);
-    const T ysr = inc_gs[r] * on, ysi = inc_bs[r] * on;
-    const T ymr = inc_g[r] * on, ymi = inc_b[r] * on;
-    const T ytr = inc_gt[r] * on, yti = inc_bt[r] * on;
-    const T thj = xb[j], vj = xb[n + j];
+    T ysr = inc_gs[r], ysi = inc_bs[r], ymr = inc_g[r], ymi = inc_b[r];
+    T ytr = inc_gt[r], yti = inc_bt[r];
+    if (st != nullptr) {
+      const T on = st[code >> 1];
+      ysr = mul_(ysr, on), ysi = mul_(ysi, on);
+      ymr = mul_(ymr, on), ymi = mul_(ymi, on);
+      ytr = mul_(ytr, on), yti = mul_(yti, on);
+    }
     const T ojr = (full || th_free[j] > T(0)) ? wb[j] : T(0);
     const T oji = (full || v_free[j] > T(0)) ? wb[n + j] : T(0);
     T sj, cj;
-    sincos_(thj, &sj, &cj);
-    const T jr = vj * cj, ji = vj * sj;
-    const T ir = (ysr * kr - ysi * ki) + (ymr * jr - ymi * ji);
-    const T ii = (ysr * ki + ysi * kr) + (ymr * ji + ymi * jr);
-    const T ar = okr * ysr - oki * ysi, ai = okr * ysi + oki * ysr;
-    const T br = ojr * ytr - oji * yti, bi = ojr * yti + oji * ytr;
-    gr += ((ar * kr + ai * ki) + (okr * ir - oki * ii)) + (br * jr + bi * ji);
-    gi += ((ar * ki - ai * kr) + (okr * ii + oki * ir)) + (br * ji - bi * jr);
-  }
-  T dth = v * (gi * c - gr * s);
-  T dv = (gr * c + gi * s) + T(2) * v * (okr * g_sh[i] - oki * b_sh[i]);
-  if (!full) {  // pinned rows: theta_ref and V - V_set
-    if (!tf) dth = dth + wp;
-    if (!vf) dv = dv + wq;
+    sincos_(xb[j], &sj, &cj);
+    const T vj = xb[n + j];
+    vjp_term(ysr, ysi, ymr, ymi, ytr, yti, kr, ki, okr, oki, mul_(vj, cj),
+             mul_(vj, sj), ojr, oji, gr, gi);
   }
   T* ob = out + b * 2 * n;
-  ob[i] = dth;
-  ob[n + i] = dv;
+  vjp_finish(gr, gi, th, v, okr, oki, g_sh[i], b_sh[i], !full && !tf,
+             !full && !vf, wp, wq, ob + i, ob + n + i);
+}
+
+// ---------------------------------------------------------------------------
+// J1 and J2, staged route
+// ---------------------------------------------------------------------------
+
+// A CTA's threads; solver_kernels.py reads the next three (keep each a
+// `constexpr int name = value;`): the most lanes a CTA takes, the slots of
+// a slice of the layout (a warp's), and the dynamic shared memory it may
+// use.
+constexpr int kResThreads = 512;
+constexpr int kResMaxLanes = 4;
+constexpr int kResSlice = 32;
+constexpr int kResSmemMax = 232448;
+constexpr int kResStageDepth = 4;  // buses a thread loads before it forms
+constexpr int kResUnroll = 2;      // entries a walk step loads at once
+constexpr int kJvp = 0, kVjp = 1;
+
+template <typename T> struct Pair;
+template <> struct Pair<double> { using type = double2; };
+template <> struct Pair<float> { using type = float2; };
+
+// What both kernels read.  The layout (solver_kernels.residual_layout): the
+// buses sorted by degree (largest first, stable) fill slots of 32; slot k
+// holds `slot[k]` = (bus, degree), (-1, 0) past the last bus, and bus i
+// sits in slot `where[i]`; entry t of
+// slot k (the bus's t-th CSR entry) sits at base[k / 32] + 32 t + k % 32:
+// `idx` (code, neighbour) int32 pairs and `val` [E, K] (g, b, gs, bs; J2
+// also gt, bt).  A slot walks its own degree, never the slice's padding.
+template <typename T>
+struct ResArgs {
+  const T *x, *u;  // u: J1's tangent, J2's cotangent w
+  const int2 *slot, *idx;
+  const int *base, *where;
+  const T* val;
+  const T *g_sh, *b_sh, *th_free, *v_free, *status;
+  T* out;
+  int lanes, n, m, ctas_per_lane, full;
+};
+
+// CTA (group g, part p), g = blockIdx.x / ctas_per_lane, takes lanes
+// [g L, g L + L) and the slices p, p + c, p + 2c, ... of the S = ceil(n /
+// 32) slices, in three phases between two barriers.
+//   stage   each of its lanes in shared memory, a bus a thread at a time
+//           (coalesced): `sa` [L][n] and `sb` [L][n] pairs — J1: Vc and
+//           dVc; J2: Vc and the masked omega — and with STATUS the lanes'
+//           [L][m] status rows;
+//   walk    a warp a slice: each thread owns a slot's bus for all L lanes
+//           and walks its entries in CSR order, each entry's operands read
+//           once (a warp's step reads consecutive entries) and applied to
+//           every lane from registers, each neighbour read from shared
+//           memory; the bus's sums go to `sr` [L][n] (a slot's bus is
+//           anywhere in the lane: written from here, x, u and the output
+//           would be read and written a sector a thread);
+//   finish  consecutive threads take consecutive buses again: the sums
+//           from `sr`, x, u and the output coalesced.
+// The arithmetic is jvp_kernel's and vjp_kernel's (jvp_stage, jvp_term,
+// ...), in the same order: a lane gets the wide route's bits.
+template <typename T, int KIND, int L, bool STATUS>
+__global__ void __launch_bounds__(kResThreads, 1)
+    residual_staged_kernel(const ResArgs<T> a) {
+  using T2 = typename Pair<T>::type;
+  constexpr int kPairs = KIND == kJvp ? 2 : 3;  // value pairs an entry
+  constexpr int kAcc = KIND == kJvp ? 4 : 2;
+  extern __shared__ __align__(16) unsigned char res_smem[];
+  const int n = a.n, m = a.m;
+  T2* sa = reinterpret_cast<T2*>(res_smem);
+  T2* sb = sa + L * n;
+  T2* sr = sb + L * n;
+  T* sst = reinterpret_cast<T*>(sr + L * n);
+  const int group = blockIdx.x / a.ctas_per_lane;
+  const int part = blockIdx.x - group * a.ctas_per_lane;
+  const int64_t lane0 = (int64_t)group * L;
+  const int nl = a.lanes - lane0 < L ? (int)(a.lanes - lane0) : L;
+  const bool full = a.full != 0;
+
+  // Stage: consecutive threads take consecutive buses of a lane, each
+  // thread kResStageDepth buses' loads in flight before it forms them.
+  const int items = nl * n;
+  for (int q0 = threadIdx.x; q0 < items;
+       q0 += kResThreads * kResStageDepth) {
+    T th[kResStageDepth], v[kResStageDepth], p[kResStageDepth],
+        q[kResStageDepth];
+#pragma unroll
+    for (int k = 0; k < kResStageDepth; ++k) {
+      const int it = q0 + k * kResThreads;
+      if (it < items) {
+        const int l = it / n, i = it - l * n;
+        const T* xb = a.x + (lane0 + l) * 2 * n;
+        const T* ub = a.u + (lane0 + l) * 2 * n;
+        th[k] = xb[i], v[k] = xb[n + i], p[k] = ub[i], q[k] = ub[n + i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kResStageDepth; ++k) {
+      const int it = q0 + k * kResThreads;
+      if (it < items) {
+        if constexpr (KIND == kJvp) {
+          T vr, vi, dr, di;
+          jvp_stage(th[k], v[k], p[k], q[k], vr, vi, dr, di);
+          sa[it] = T2{vr, vi};
+          sb[it] = T2{dr, di};
+        } else {
+          const int i = it % n;
+          T s, c;
+          sincos_(th[k], &s, &c);
+          sa[it] = T2{mul_(v[k], c), mul_(v[k], s)};
+          sb[it] = T2{(full || a.th_free[i] > T(0)) ? p[k] : T(0),
+                      (full || a.v_free[i] > T(0)) ? q[k] : T(0)};
+        }
+      }
+    }
+  }
+  if constexpr (STATUS) {
+    for (int it = threadIdx.x; it < nl * m; it += kResThreads)
+      sst[it] = a.status[lane0 * m + it];
+  }
+  __syncthreads();
+
+  // Walk: a warp a slice, a thread a slot.
+  const int slices = (n + kResSlice - 1) / kResSlice;
+  const int warp = threadIdx.x / 32, ln = threadIdx.x % 32;
+  const int step = a.ctas_per_lane * (kResThreads / 32);
+  const T2* val = reinterpret_cast<const T2*>(a.val);
+  // Each slice's slot and base are loaded while the warp walks the slice
+  // before it.
+  int sl = part + a.ctas_per_lane * warp;
+  int2 slot = int2{-1, 0};
+  int base = 0;
+  if (sl < slices) slot = a.slot[sl * kResSlice + ln], base = a.base[sl];
+  for (; sl < slices; sl += step) {
+    const int i = slot.x, deg = slot.y;
+    int64_t e = base + ln;
+    if (sl + step < slices)
+      slot = a.slot[(sl + step) * kResSlice + ln], base = a.base[sl + step];
+    if (i < 0) continue;
+    T own[L][4], acc[L][kAcc];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const T2 x0 = sa[l * n + i], x1 = sb[l * n + i];
+      own[l][0] = x0.x, own[l][1] = x0.y, own[l][2] = x1.x, own[l][3] = x1.y;
+#pragma unroll
+      for (int k = 0; k < kAcc; ++k) acc[l][k] = T(0);
+    }
+    // kResUnroll entries' loads in flight a step, their terms formed side
+    // by side and added to each lane's sums in CSR order.
+    for (int t = 0; t < deg; t += kResUnroll, e += kResUnroll * kResSlice) {
+      int2 cn[kResUnroll];
+      T2 mut[kResUnroll], self[kResUnroll], oth[kResUnroll];
+#pragma unroll
+      for (int k = 0; k < kResUnroll; ++k) {
+        if (t + k < deg) {
+          const int64_t ek = e + k * kResSlice;
+          cn[k] = a.idx[ek];
+          mut[k] = val[ek * kPairs];
+          self[k] = val[ek * kPairs + 1];
+          if constexpr (KIND == kVjp) oth[k] = val[ek * kPairs + 2];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kResUnroll; ++k) {
+        if (t + k >= deg) break;
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          if (l >= nl) break;
+          T ymr = mut[k].x, ymi = mut[k].y, ysr = self[k].x, ysi = self[k].y;
+          T ytr = T(0), yti = T(0);
+          if constexpr (KIND == kVjp) ytr = oth[k].x, yti = oth[k].y;
+          if constexpr (STATUS) {
+            const T on = sst[l * m + (cn[k].x >> 1)];
+            ysr = mul_(ysr, on), ysi = mul_(ysi, on);
+            ymr = mul_(ymr, on), ymi = mul_(ymi, on);
+            if constexpr (KIND == kVjp)
+              ytr = mul_(ytr, on), yti = mul_(yti, on);
+          }
+          const T2 nj = sa[l * n + cn[k].y], dj = sb[l * n + cn[k].y];
+          if constexpr (KIND == kJvp) {
+            T re, im;
+            jvp_term(ysr, ysi, ymr, ymi, own[l][0], own[l][1], own[l][2],
+                     own[l][3], nj.x, nj.y, dj.x, dj.y, re, im);
+            if (cn[k].x & 1) {
+              acc[l][1] = add_(acc[l][1], re);
+              acc[l][3] = add_(acc[l][3], im);
+            } else {
+              acc[l][0] = add_(acc[l][0], re);
+              acc[l][2] = add_(acc[l][2], im);
+            }
+          } else {
+            vjp_term(ysr, ysi, ymr, ymi, ytr, yti, own[l][0], own[l][1],
+                     own[l][2], own[l][3], nj.x, nj.y, dj.x, dj.y,
+                     acc[l][0], acc[l][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      if (l >= nl) break;
+      if constexpr (KIND == kJvp)
+        sr[l * n + i] = T2{add_(acc[l][0], acc[l][1]),
+                           add_(acc[l][2], acc[l][3])};
+      else
+        sr[l * n + i] = T2{acc[l][0], acc[l][1]};
+    }
+  }
+  __syncthreads();
+
+  // Finish: consecutive threads take consecutive buses of a lane (those of
+  // this CTA's slices), the sums from shared memory.
+  for (int it = threadIdx.x; it < items; it += kResThreads) {
+    const int l = it / n, i = it - l * n;
+    if (a.ctas_per_lane > 1 &&
+        a.where[i] / kResSlice % a.ctas_per_lane != part)
+      continue;
+    const T* xb = a.x + (lane0 + l) * 2 * n;
+    const T* ub = a.u + (lane0 + l) * 2 * n;
+    T* ob = a.out + (lane0 + l) * 2 * n;
+    const T2 r = sr[it];
+    const bool tf = a.th_free[i] > T(0), vf = a.v_free[i] > T(0);
+    if constexpr (KIND == kJvp) {
+      jvp_finish(r.x, r.y, xb[n + i], ub[i], ub[n + i], a.g_sh[i], a.b_sh[i],
+                 tf, vf, ob + i, ob + n + i);
+    } else {
+      const T2 w = sb[it];
+      vjp_finish(r.x, r.y, xb[i], xb[n + i], w.x, w.y, a.g_sh[i], a.b_sh[i],
+                 !full && !tf, !full && !vf, ub[i], ub[n + i], ob + i,
+                 ob + n + i);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1253,6 +1619,57 @@ int launch_vjp(int mode, const T* x, const T* w, const int* inc_ptr,
   return (int)cudaGetLastError();
 }
 
+// J1's and J2's staged route: ceil(lanes / L) groups of ctas_per_lane CTAs,
+// L = lanes_per_cta; the shared memory L (3 n pairs + STATUS m values).
+template <typename T, int KIND, int L, bool STATUS>
+int launch_staged_as(const ResArgs<T>& a, int groups, size_t smem,
+                     cudaStream_t stream) {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > 48 * 1024 && (dev >= 64 || !opted[dev])) {
+    e = cudaFuncSetAttribute(residual_staged_kernel<T, KIND, L, STATUS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kResSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) opted[dev] = true;
+  }
+  residual_staged_kernel<T, KIND, L, STATUS>
+      <<<(unsigned)((int64_t)groups * a.ctas_per_lane), kResThreads, smem,
+         stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int KIND>
+int launch_staged(const ResArgs<T>& a, int lanes_per_cta,
+                  cudaStream_t stream) {
+  const int slices = (a.n + kResSlice - 1) / kResSlice;
+  if (a.lanes <= 0 || a.n <= 0 || a.m < 0 || lanes_per_cta < 1 ||
+      lanes_per_cta > kResMaxLanes || a.ctas_per_lane < 1 ||
+      a.ctas_per_lane > slices)
+    return (int)cudaErrorInvalidValue;
+  const bool st = a.status != nullptr;
+  const int64_t smem =
+      (int64_t)lanes_per_cta *
+      (6 * (int64_t)a.n + (st ? (int64_t)a.m : 0)) * (int64_t)sizeof(T);
+  const int64_t groups = (a.lanes + lanes_per_cta - 1) / lanes_per_cta;
+  if (smem > kResSmemMax || groups * a.ctas_per_lane > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const int g = (int)groups;
+  switch (lanes_per_cta * 2 + (st ? 1 : 0)) {
+    case 2: return launch_staged_as<T, KIND, 1, false>(a, g, smem, stream);
+    case 3: return launch_staged_as<T, KIND, 1, true>(a, g, smem, stream);
+    case 4: return launch_staged_as<T, KIND, 2, false>(a, g, smem, stream);
+    case 5: return launch_staged_as<T, KIND, 2, true>(a, g, smem, stream);
+    case 6: return launch_staged_as<T, KIND, 3, false>(a, g, smem, stream);
+    case 7: return launch_staged_as<T, KIND, 3, true>(a, g, smem, stream);
+    case 8: return launch_staged_as<T, KIND, 4, false>(a, g, smem, stream);
+    default: return launch_staged_as<T, KIND, 4, true>(a, g, smem, stream);
+  }
+}
+static_assert(kResMaxLanes == 4, "launch_staged instantiates L = 1..4");
+
 // I2's walk over `steps` iterates: a cooperative launch of
 // min(items, resident CTAs) CTAs (every CTA resident: the grid barriers
 // need it); a narrower card runs the same items in turns, so the bits do
@@ -1366,6 +1783,18 @@ int launch_cim_walk(const T* h_re, const T* h_im, const T* g_re,
                          inc_gs, inc_bs, g_sh, b_sh, th_free, v_free, status, \
                          out, lanes, n, m, (cudaStream_t)stream);            \
   }                                                                          \
+  extern "C" int residual_jvp_staged_##SUFFIX(                                \
+      const T* x, const T* u, const int* slot, const int* base,               \
+      const int* where, const int* idx, const T* val, const T* g_sh,          \
+      const T* b_sh,                                                          \
+      const T* th_free, const T* v_free, const T* status, T* out, int lanes,  \
+      int n, int m, int lanes_per_cta, int ctas_per_lane, void* stream) {     \
+    const ResArgs<T> a{x,       u,       (const int2*)slot, (const int2*)idx, \
+                       base,    where,   val,     g_sh,     b_sh,    th_free, \
+                       v_free,  status,  out,     lanes,    n,                \
+                       m,       ctas_per_lane,    0};                         \
+    return launch_staged<T, kJvp>(a, lanes_per_cta, (cudaStream_t)stream);   \
+  }                                                                          \
   extern "C" int cim_iterate_##SUFFIX(                                        \
       const T* a_re, const T* a_im, const T* v_re, const T* v_im,             \
       const T* s_re, const T* s_im, const T* vb_re, const T* vb_im,           \
@@ -1388,6 +1817,19 @@ int launch_cim_walk(const T* h_re, const T* h_im, const T* g_re,
                          inc_b, inc_gs, inc_bs, inc_gt, inc_bt, g_sh, b_sh,  \
                          th_free, v_free, status, out, lanes, n, m,          \
                          (cudaStream_t)stream);                              \
+  }                                                                          \
+  extern "C" int residual_vjp_staged_##SUFFIX(                                \
+      int mode, const T* x, const T* w, const int* slot, const int* base,     \
+      const int* where, const int* idx, const T* val, const T* g_sh,          \
+      const T* b_sh,                                                          \
+      const T* th_free, const T* v_free, const T* status, T* out, int lanes,  \
+      int n, int m, int lanes_per_cta, int ctas_per_lane, void* stream) {     \
+    if (mode != MASKED && mode != FULL) return (int)cudaErrorInvalidValue;   \
+    const ResArgs<T> a{x,       w,       (const int2*)slot, (const int2*)idx, \
+                       base,    where,   val,     g_sh,     b_sh,    th_free, \
+                       v_free,  status,  out,     lanes,    n,                \
+                       m,       ctas_per_lane,    mode == FULL};              \
+    return launch_staged<T, kVjp>(a, lanes_per_cta, (cudaStream_t)stream);   \
   }                                                                          \
   extern "C" int cim_vjp_walk_##SUFFIX(                                       \
       const T* h_re, const T* h_im, const T* g_re, const T* g_im,             \

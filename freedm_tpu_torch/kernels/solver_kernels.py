@@ -42,7 +42,14 @@ n]``.  J1 takes the sparse backend's
 incidence list with each entry's mutual and self admittance) and returns
 ``[B, 2n]``.  I1 works on the three-phase load-node voltages as (re, im)
 pairs of ``[B, N]`` tensors, ``N = 3 nb``.  J2 is J1's transpose on the
-same operands plus :class:`VjpOperands`; I2 walks I1's iterations back
+same operands plus :class:`VjpOperands`.  On the card J1 and J2 take the
+route of :func:`residual_plan` (a function of the shape alone; ``plan=``
+forces one): the staged route walks the operands' :class:`ResidualLayout`
+(built at the first staged launch on an operand set and kept with it),
+the wide route reads the CSR list; both give a lane the same bits
+(:func:`residual_mirror` is the staged walk on the host, for the tests),
+and :data:`ROUTE_LAUNCHES` counts their launches by route.  I2 walks I1's
+iterations back
 on the staged ``Aᴴ`` (:func:`cim_adjoint_matrix`): one a call
 (:func:`cim_vjp`), or the saved iterates ``vs [k + 1, 2, B, N]`` of a
 whole fixed solve in one launch (:func:`cim_vjp_walk`, a function of the
@@ -52,6 +59,7 @@ shape alone: :func:`cim_walk_plan`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -107,6 +115,17 @@ FDLF_WARP_MAX_N = {torch.float64: FDLF_WARP_SMEM // 16,
 #: I2's work items a product phase (``csrc/solvers.cu``): one resident CTA
 #: on each of an H100's 132 SMs.
 (WALK_ITEMS,) = build.constants("solvers.cu", "kWalkItems")
+#: J1's and J2's staged route (``csrc/solvers.cu``): the most lanes a CTA
+#: stages, the slots of a slice of :class:`ResidualLayout` (a warp's), and
+#: the shared memory a CTA may use.
+RES_MAX_LANES, RES_SLICE, RES_SMEM = build.constants(
+    "solvers.cu", "kResMaxLanes", "kResSlice", "kResSmemMax")
+#: The CTAs a staged launch aims at: one on each of an H100's 132 SMs.
+RES_TARGET_CTAS = 132
+#: J1's and J2's routes: a CTA stages whole lanes in shared memory and
+#: walks :class:`ResidualLayout`; or a thread a (lane, bus) reads its
+#: neighbours from global memory (the route for a lane that does not fit).
+STAGED, WIDE = "staged", "wide"
 _MODES = {"ybus_stamp": ("YBUS", "BPRIME", "BDBL"),
           "fdlf_half_step": ("INIT", "THETA", "V"),
           "residual_vjp": ("MASKED", "FULL")}
@@ -114,21 +133,27 @@ _MODES = {"ybus_stamp": ("YBUS", "BPRIME", "BDBL"),
 #: :data:`LAUNCHES`).
 MODE_LAUNCHES: Dict[str, Dict[str, int]] = {
     k: dict.fromkeys(v, 0) for k, v in _MODES.items()}
+#: J1's and J2's launches by route (:data:`STAGED`, :data:`WIDE`).
+ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {
+    k: {STAGED: 0, WIDE: 0} for k in ("residual_jvp", "residual_vjp")}
 _launch_lock = threading.Lock()
 
 
-def _count(name: str, mode: Optional[int] = None) -> None:
+def _count(name: str, mode: Optional[int] = None,
+           route: Optional[str] = None) -> None:
     with _launch_lock:
         LAUNCHES[name] += 1
         if mode is not None:
             MODE_LAUNCHES[name][_MODES[name][mode]] += 1
+        if route is not None:
+            ROUTE_LAUNCHES[name][route] += 1
 
 
 def reset_launches() -> None:
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
-        for counts in MODE_LAUNCHES.values():
+        for counts in (*MODE_LAUNCHES.values(), *ROUTE_LAUNCHES.values()):
             for k in counts:
                 counts[k] = 0
 
@@ -141,6 +166,11 @@ def launches() -> Dict[str, int]:
 def mode_launches() -> Dict[str, Dict[str, int]]:
     with _launch_lock:
         return {k: dict(v) for k, v in MODE_LAUNCHES.items()}
+
+
+def route_launches() -> Dict[str, Dict[str, int]]:
+    with _launch_lock:
+        return {k: dict(v) for k, v in ROUTE_LAUNCHES.items()}
 
 
 class StampOperands(NamedTuple):
@@ -195,6 +225,154 @@ def vjp_operands(op: SparseOperands) -> VjpOperands:
     pair = pos[code ^ 1]
     return VjpOperands(op.inc_g[pair].contiguous(),
                        op.inc_b[pair].contiguous(), pair)
+
+
+class ResidualLayout(NamedTuple):
+    """J1's and J2's incidence operands as a sliced ELL, a function of the
+    incidence list alone (:func:`residual_layout`).  The buses, sorted by
+    degree (largest first, stable), fill slots of which each
+    :data:`RES_SLICE` make a slice (a warp's): ``slot [K, 2]`` int32 holds
+    slot ``k``'s (bus, degree), (−1, 0) past the last bus, and ``where
+    [n]`` int32 each bus's slot.  Entry ``t`` of
+    slot ``k`` (its bus's ``t``-th CSR entry) sits at ``slice_base[k //
+    32] + 32 t + k % 32``, so a warp's ``t``-th step reads consecutive
+    entries: ``idx [E, 2]`` int32 (code, neighbour) and ``val [E, V]``
+    (``g, b, gs, bs`` for J1; J2 also ``gt, bt``).  A slice is padded to
+    its first slot's degree: padding has ``idx`` −1 and values 0, and a
+    slot walks its own degree, never the padding."""
+
+    slot: Tensor
+    slice_base: Tensor
+    where: Tensor
+    idx: Tensor
+    val: Tensor
+
+    @property
+    def entries(self) -> int:
+        return int(self.idx.shape[0])
+
+
+def residual_layout(op: SparseOperands,
+                    vop: Optional[VjpOperands] = None) -> ResidualLayout:
+    """``op``'s :class:`ResidualLayout` on its device and in its dtype:
+    J1's four values an entry, or J2's six with ``vop``."""
+    n, dev = op.n, op.inc_ptr.device
+    ptr = op.inc_ptr.long().cpu()
+    deg = torch.diff(ptr)
+    slices = -(-n // RES_SLICE)
+    order = torch.sort(deg, descending=True, stable=True).indices
+    slot = torch.full((slices * RES_SLICE, 2), -1, dtype=torch.int64)
+    slot[:n, 0] = order
+    slot[:n, 1] = deg[order]
+    slot[n:, 1] = 0
+    width = slot[::RES_SLICE, 1]  # a slice's first slot is its widest
+    base = torch.zeros(slices + 1, dtype=torch.int64)
+    base[1:] = torch.cumsum(RES_SLICE * width, 0)
+    entries = int(base[-1])
+    if entries >= 2**31:
+        raise ValueError(f"the residual layout holds {entries} entries; "
+                         f"int32 offsets take < 2^31")
+    where = torch.empty(n, dtype=torch.int64)  # each bus's slot
+    where[order] = torch.arange(n)
+    rows = torch.repeat_interleave(torch.arange(n), deg)
+    t = torch.arange(rows.numel()) - ptr[rows]
+    k = where[rows]
+    pos = (base[k // RES_SLICE] + RES_SLICE * t + k % RES_SLICE).to(dev)
+    idx = torch.full((entries, 2), -1, dtype=torch.int32, device=dev)
+    idx[pos, 0] = op.inc_code
+    idx[pos, 1] = op.inc_nbr
+    cols = [op.inc_g, op.inc_b, op.inc_gs, op.inc_bs]
+    if vop is not None:
+        cols += [vop.inc_gt, vop.inc_bt]
+    val = torch.zeros(entries, len(cols), dtype=op.inc_g.dtype, device=dev)
+    val[pos] = torch.stack(cols, dim=1)
+    i32 = torch.int32
+    return ResidualLayout(slot.to(device=dev, dtype=i32),
+                          base.to(device=dev, dtype=i32),
+                          where.to(device=dev, dtype=i32), idx, val)
+
+
+class ResidualPlan(NamedTuple):
+    """J1's or J2's launch: the route (:data:`STAGED` or :data:`WIDE`);
+    on the staged route ``lanes_per_cta`` lanes staged a CTA,
+    ``ctas_per_lane`` CTAs a lane group (each stages the group's whole
+    lanes and walks its share of the slices) and ``smem`` bytes of shared
+    memory a CTA."""
+
+    route: str
+    lanes_per_cta: int
+    ctas_per_lane: int
+    smem: int
+
+
+def residual_stage_bytes(n: int, m: int, dtype: torch.dtype,
+                         status: bool) -> int:
+    """Shared memory one lane takes on the staged route: six values a bus
+    (J1: Vc, dVc and the bus's two sums; J2: Vc, the masked ω and the
+    gradient in Vc) and, with a per-lane ``status``, its ``[m]`` row."""
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"kernels take float64 or float32, got {dtype}")
+    itemsize = 8 if dtype == torch.float64 else 4
+    return itemsize * (6 * int(n) + (int(m) if status else 0))
+
+
+@functools.lru_cache(maxsize=256)
+def residual_plan(n: int, m: int, lanes: int, dtype: torch.dtype,
+                  status: bool, lanes_per_cta: Optional[int] = None,
+                  ctas_per_lane: Optional[int] = None,
+                  route: Optional[str] = None) -> ResidualPlan:
+    """J1's and J2's launch at ``lanes`` lanes of ``n`` buses and ``m``
+    branches, a function of these arguments alone.  By default: the
+    staged route where one lane's stage fits :data:`RES_SMEM`, else
+    :data:`WIDE`; the fewest lanes a CTA (at most :data:`RES_MAX_LANES`,
+    and as fit) that let every CTA be resident at once —
+    :data:`RES_TARGET_CTAS` of them, twice that in float32 where two fit
+    an SM's shared memory (a float32 CTA takes 47-64 registers a thread,
+    a float64 one more than 64: one CTA of 512 threads an SM); and, where
+    the lane groups are fewer than that, each group's slices dealt to that
+    many CTAs (at most one slice each).  On the H100 at mesh2000 this is
+    2 lanes a CTA in float64 at 256 lanes, 1 in float32 and with status,
+    and 2 CTAs a lane at 64 lanes: the fastest of the plans timed there.
+    ``lanes_per_cta``, ``ctas_per_lane`` and ``route`` force a plan
+    (raising where it does not fit).  No choice changes a bit: every
+    route walks each bus's entries in CSR order with the same roundings."""
+    n, m, lanes = int(n), int(m), int(lanes)
+    if n < 1 or m < 0 or lanes < 1:
+        raise ValueError(f"residual_plan needs n, lanes >= 1 and m >= 0, "
+                         f"got {n}, {lanes}, {m}")
+    per = residual_stage_bytes(n, m, dtype, status)
+    fit = min(RES_MAX_LANES, RES_SMEM // per)
+    if route is None:
+        route = STAGED if fit >= 1 else WIDE
+    if route == WIDE:
+        if lanes_per_cta not in (None, 1) or ctas_per_lane not in (None, 1):
+            raise ValueError("the wide route takes a thread a (lane, bus)")
+        return ResidualPlan(WIDE, 1, 1, 0)
+    if route != STAGED:
+        raise ValueError(f"unknown residual route {route!r}")
+    slices = -(-n // RES_SLICE)
+
+    def resident(lpc):  # CTAs an SM holds at once
+        f32 = dtype == torch.float32 and 2 * lpc * per <= RES_SMEM
+        return RES_TARGET_CTAS * (2 if f32 else 1)
+
+    lpc = lanes_per_cta
+    if lpc is None:
+        lpc = next((k for k in range(1, fit + 1)
+                    if -(-lanes // k) <= resident(k)), max(fit, 1))
+    lpc = int(lpc)
+    if not 1 <= lpc <= fit:
+        raise ValueError(
+            f"the staged route takes 1 to {fit} lanes a CTA at n = {n}, "
+            f"m = {m}, {dtype}, status {status} ({per} bytes a lane of "
+            f"{RES_SMEM}), got {lpc}")
+    groups = -(-lanes // lpc)
+    cpl = (max(1, min(slices, resident(lpc) // groups))
+           if ctas_per_lane is None else int(ctas_per_lane))
+    if not 1 <= cpl <= slices:
+        raise ValueError(f"the staged route deals {slices} slices to 1 to "
+                         f"{slices} CTAs a lane, got {cpl}")
+    return ResidualPlan(STAGED, lpc, cpl, lpc * per)
 
 
 class FdlfWarpPlan(NamedTuple):
@@ -430,6 +608,110 @@ def residual_vjp_plain(x: Tensor, w: Tensor, op: SparseOperands,
     return torch.cat([d_th, d_v], dim=1)
 
 
+def residual_mirror(x: Tensor, u: Tensor, op: SparseOperands,
+                    layout: ResidualLayout, plan: ResidualPlan, vjp: bool,
+                    mode: int = MASKED,
+                    status: Optional[Tensor] = None) -> Tensor:
+    """The staged route's walk on the host, for the tests: J1 (``u`` the
+    tangent) or J2 (``vjp``, ``u`` the cotangent ``w``, in ``mode``) CTA
+    by CTA of ``plan`` over ``layout`` — each lane's staged pairs, then
+    each slot's entries step by step in CSR order, read through the
+    layout, with the plain version's expressions and roundings (the
+    kernels fuse the multiply-adds that ``csrc/solvers.cu``'s ``dotp`` and
+    ``dotm`` write out, so they agree with it within rounding).  Entries
+    no CTA writes stay NaN."""
+    n = op.n
+    lanes = x.shape[0]
+    lpc, cpl = plan.lanes_per_cta, plan.ctas_per_lane
+    slices = -(-n // RES_SLICE)
+    slot = layout.slot.long()
+    base = layout.slice_base.long()
+    theta, v = x[:, :n], x[:, n:]
+    c, s = torch.cos(theta), torch.sin(theta)
+    sa = (v * c, v * s)
+    if vjp:
+        w_p, w_q = u[:, :n], u[:, n:]
+        if mode == MASKED:
+            sb = (torch.where(op.th_free > 0, w_p, torch.zeros_like(w_p)),
+                  torch.where(op.v_free > 0, w_q, torch.zeros_like(w_q)))
+        else:
+            sb = (w_p, w_q)
+    else:
+        dth, dv = u[:, :n], u[:, n:]
+        sb = (dv * c - sa[1] * dth, dv * s + sa[0] * dth)
+    out = torch.full_like(x, float("nan"))
+    for g in range(-(-lanes // lpc)):
+        ls = slice(g * lpc, min(lanes, (g + 1) * lpc))
+        for part in range(cpl):
+            k = torch.cat([torch.arange(sl * RES_SLICE, (sl + 1) * RES_SLICE)
+                           for sl in range(part, slices, cpl)])
+            k = k[slot[k, 0] >= 0]
+            bus, deg = slot[k, 0], slot[k, 1]
+            first = base[k // RES_SLICE] + k % RES_SLICE
+            own = [a[ls][:, bus] for a in sa + sb]
+            acc = [torch.zeros_like(own[0]) for _ in range(2 if vjp else 4)]
+            for t in range(int(deg.max())):
+                live = deg > t
+                e = first[live] + RES_SLICE * t
+                code = layout.idx[e, 0].long()
+                j = layout.idx[e, 1].long()
+                yv = [layout.val[e, q] for q in range(6 if vjp else 4)]
+                if status is not None:
+                    on = status[ls][:, code >> 1]
+                    yv = [y * on for y in yv]
+                ymr, ymi, ysr, ysi = yv[:4]
+                kr, ki, okr, oki = (o[:, live] for o in own)
+                jr, ji = sa[0][ls][:, j], sa[1][ls][:, j]
+                ojr, oji = sb[0][ls][:, j], sb[1][ls][:, j]
+                ir = (ysr * kr - ysi * ki) + (ymr * jr - ymi * ji)
+                ii = (ysr * ki + ysi * kr) + (ymr * ji + ymi * jr)
+                if vjp:
+                    ytr, yti = yv[4:]
+                    ar, ai = okr * ysr - oki * ysi, okr * ysi + oki * ysr
+                    br, bi = ojr * ytr - oji * yti, ojr * yti + oji * ytr
+                    terms = (((ar * kr + ai * ki) + (okr * ir - oki * ii))
+                             + (br * jr + bi * ji),
+                             ((ar * ki - ai * kr) + (okr * ii + oki * ir))
+                             + (br * ji - bi * jr))
+                    for q, term in enumerate(terms):
+                        acc[q][:, live] = acc[q][:, live] + term
+                    continue
+                # J1: kr, ki = Vc and okr, oki = dVc of the slot's bus
+                dir_ = (ysr * okr - ysi * oki) + (ymr * ojr - ymi * oji)
+                dii = (ysr * oki + ysi * okr) + (ymr * oji + ymi * ojr)
+                terms = ((okr * ir + oki * ii) + (kr * dir_ + ki * dii),
+                         (oki * ir - okr * ii) + (ki * dir_ - kr * dii))
+                side = (code & 1).bool()
+                for q, term in enumerate(terms):
+                    for sd, pick in ((0, ~side), (1, side)):
+                        cols = live.nonzero()[:, 0][pick]
+                        acc[2 * q + sd][:, cols] = (acc[2 * q + sd][:, cols]
+                                                    + term[:, pick])
+            xv, uv = x[ls][:, n + bus], u[ls]
+            if vjp:
+                gr, gi = acc
+                cb, sbus = c[ls][:, bus], s[ls][:, bus]
+                d_th = xv * (gi * cb - gr * sbus)
+                d_v = (gr * cb + gi * sbus) + 2.0 * xv * (
+                    own[2] * op.g_sh[bus] - own[3] * op.b_sh[bus])
+                if mode == MASKED:
+                    d_th = torch.where(op.th_free[bus] > 0, d_th,
+                                       d_th + uv[:, bus])
+                    d_v = torch.where(op.v_free[bus] > 0, d_v,
+                                      d_v + uv[:, n + bus])
+            else:
+                vdv = 2.0 * xv * uv[:, n + bus]
+                d_th = torch.where(op.th_free[bus] > 0,
+                                   (acc[0] + acc[1]) + op.g_sh[bus] * vdv,
+                                   uv[:, bus])
+                d_v = torch.where(op.v_free[bus] > 0,
+                                  (acc[2] + acc[3]) - op.b_sh[bus] * vdv,
+                                  uv[:, n + bus])
+            out[ls, bus] = d_th
+            out[ls, n + bus] = d_v
+    return out
+
+
 def cim_adjoint_matrix(a_re: Tensor, a_im: Tensor) -> Tuple[Tensor, Tensor]:
     """I2's staged ``Aᴴ = conj(A)ᵀ`` as ``(re, im)`` ``[N, N]``: the real
     pair's transpose of the product ``A j`` is the product with ``Aᴴ``."""
@@ -579,6 +861,8 @@ _SIGS = {
     "residual_jvp": [_P] * 15 + [_I] * 3 + [_P],
     "cim_iterate": [_P] * 19 + [_I] * 5 + [_P],
     "residual_vjp": [_I] + [_P] * 17 + [_I] * 3 + [_P],
+    "residual_jvp_staged": [_P] * 13 + [_I] * 5 + [_P],
+    "residual_vjp_staged": [_I] + [_P] * 13 + [_I] * 5 + [_P],
     "cim_vjp_walk": [_P] * 6 + [_L] + [_P] * 11 + [_I] * 4 + [_P],
 }
 
@@ -659,6 +943,65 @@ def _walk_barrier(device: torch.device, stream: int) -> Tensor:
             t = _barriers[key] = torch.zeros(2, dtype=torch.int32,
                                              device=device)
     return t
+
+
+#: Each operand set's :class:`ResidualLayout` by (operands, VJP operands),
+#: built at its first staged launch and kept while the operands live here.
+_layouts: Dict[Tuple[int, int], tuple] = {}
+
+
+def _layout_of(op: SparseOperands,
+               vop: Optional[VjpOperands]) -> ResidualLayout:
+    key = (id(op), id(vop))
+    hit = _layouts.get(key)
+    if hit is not None and hit[0] is op and hit[1] is vop:
+        return hit[2]
+    layout = residual_layout(op, vop)
+    with _launch_lock:
+        if len(_layouts) >= 64:
+            _layouts.clear()
+        _layouts[key] = (op, vop, layout)
+    return layout
+
+
+def _residual_launch(name: str, x: Tensor, u: Tensor, op: SparseOperands,
+                     vop: Optional[VjpOperands], mode: Optional[int],
+                     status: Optional[Tensor],
+                     plan: Optional[ResidualPlan]) -> Tensor:
+    """J1 (``vop`` None) or J2 on the card, on ``plan``'s route (default
+    :func:`residual_plan`)."""
+    lanes, n, m, dt = x.shape[0], op.n, op.m, x.dtype
+    if plan is None:
+        plan = residual_plan(n, m, lanes, dt, status is not None)
+    elif plan != residual_plan(n, m, lanes, dt, status is not None,
+                               plan.lanes_per_cta, plan.ctas_per_lane,
+                               plan.route):
+        raise ValueError(f"{name}: {plan} is not a plan of this shape")
+    o = _op_ptrs(op, x)
+    head = () if mode is None else (mode,)
+    tail = (o["g_sh"], o["b_sh"], o["th_free"], o["v_free"], _ptr(status))
+    ctx, stream = _launch_on(x)
+    with ctx:
+        out = torch.empty_like(x)
+        if plan.route == WIDE:
+            mid = () if vop is None else (vop.inc_gt.data_ptr(),
+                                          vop.inc_bt.data_ptr())
+            rc = _fn(name, dt)(*head, x.data_ptr(), u.data_ptr(),
+                               o["inc_ptr"], o["inc_code"], o["inc_nbr"],
+                               o["inc_g"], o["inc_b"], o["inc_gs"],
+                               o["inc_bs"], *mid, *tail, out.data_ptr(),
+                               lanes, n, m, stream)
+        else:
+            lay = _layout_of(op, vop)
+            rc = _fn(name + "_staged", dt)(
+                *head, x.data_ptr(), u.data_ptr(), lay.slot.data_ptr(),
+                lay.slice_base.data_ptr(), lay.where.data_ptr(),
+                lay.idx.data_ptr(),
+                lay.val.data_ptr(), *tail, out.data_ptr(), lanes, n, m,
+                plan.lanes_per_cta, plan.ctas_per_lane, stream)
+    _raise_on(rc, name)
+    _count(name, mode, plan.route)
+    return out
 
 
 def ybus_stamp(mode: int, op: StampOperands, status: Tensor):
@@ -762,11 +1105,14 @@ def fdlf_half_step(mode: int, x, d, y_re, y_im, ps, qs, th_free, v_free, dp,
 
 
 def residual_jvp(x: Tensor, u: Tensor, op: SparseOperands,
-                 status: Optional[Tensor] = None) -> Tensor:
+                 status: Optional[Tensor] = None,
+                 plan: Optional[ResidualPlan] = None) -> Tensor:
     """J1: ``J u [B, 2n]``, the masked residual's derivative at ``x [B,
     2n]`` along ``u [B, 2n]``; ``status [B, m]`` (``x``'s dtype) scales
     each lane's branch admittances.  The operands are in ``x``'s dtype
-    (float32 for the mixed inner solve: ``op.to_dtype(torch.float32)``)."""
+    (float32 for the mixed inner solve: ``op.to_dtype(torch.float32)``).
+    ``plan`` forces a :func:`residual_plan` of this shape (the bits do not
+    depend on it)."""
     if x.device.type == "cpu":
         return residual_jvp_plain(x, u, op, status)
     _need_cuda(x, "residual_jvp")
@@ -775,19 +1121,8 @@ def residual_jvp(x: Tensor, u: Tensor, op: SparseOperands,
     if status is not None:
         spec["status"] = (status, dt, (lanes, m))
     _want(x, spec)
-    o = _op_ptrs(op, x)
-    fn = _fn("residual_jvp", dt)
-    ctx, stream = _launch_on(x)
-    with ctx:
-        out = torch.empty_like(x)
-        rc = fn(x.data_ptr(), u.data_ptr(), o["inc_ptr"], o["inc_code"],
-                o["inc_nbr"], o["inc_g"], o["inc_b"], o["inc_gs"],
-                o["inc_bs"], o["g_sh"], o["b_sh"], o["th_free"],
-                o["v_free"], _ptr(status), out.data_ptr(), lanes, n, m,
-                stream)
-    _raise_on(rc, "residual_jvp")
-    _count("residual_jvp")
-    return out
+    return _residual_launch("residual_jvp", x, u, op, None, None, status,
+                            plan)
 
 
 def cim_iterate(a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im, mask, err,
@@ -846,11 +1181,13 @@ def cim_iterate(a_re, a_im, v_re, v_im, s_re, s_im, vb_re, vb_im, mask, err,
 
 
 def residual_vjp(x: Tensor, w: Tensor, op: SparseOperands, vop: VjpOperands,
-                 mode: int, status: Optional[Tensor] = None) -> Tensor:
+                 mode: int, status: Optional[Tensor] = None,
+                 plan: Optional[ResidualPlan] = None) -> Tensor:
     """J2: ``wᵀ ∂F/∂x [B, 2n]`` at ``x [B, 2n]`` for ``w [B, 2n]``
     (:func:`residual_vjp_plain`'s modes); ``status [B, m]`` (``x``'s
     dtype) scales each lane's branch admittances.  The operands are in
-    ``x``'s dtype."""
+    ``x``'s dtype.  ``plan`` forces a :func:`residual_plan` of this shape
+    (the bits do not depend on it)."""
     if x.device.type == "cpu":
         return residual_vjp_plain(x, w, op, vop, mode, status)
     _need_cuda(x, "residual_vjp")
@@ -862,20 +1199,8 @@ def residual_vjp(x: Tensor, w: Tensor, op: SparseOperands, vop: VjpOperands,
     if status is not None:
         spec["status"] = (status, dt, (lanes, m))
     _want(x, spec)
-    o = _op_ptrs(op, x)
-    fn = _fn("residual_vjp", dt)
-    ctx, stream = _launch_on(x)
-    with ctx:
-        out = torch.empty_like(x)
-        rc = fn(mode, x.data_ptr(), w.data_ptr(), o["inc_ptr"],
-                o["inc_code"], o["inc_nbr"], o["inc_g"], o["inc_b"],
-                o["inc_gs"], o["inc_bs"], vop.inc_gt.data_ptr(),
-                vop.inc_bt.data_ptr(), o["g_sh"], o["b_sh"], o["th_free"],
-                o["v_free"], _ptr(status), out.data_ptr(), lanes, n, m,
-                stream)
-    _raise_on(rc, "residual_vjp")
-    _count("residual_vjp", mode)
-    return out
+    return _residual_launch("residual_vjp", x, w, op, vop, mode, status,
+                            plan)
 
 
 def cim_vjp(h_re, h_im, g_re, g_im, v_re, v_im, s_re, s_im, mask, sbar_re,

@@ -5,13 +5,14 @@
 ``fdlf_half_step`` in its tile mode, the serving cache's delta program
 (C1), L1 ``ladder_solve``, L2 ``ladder_vjp``, L3 ``ladder_dense``, L4
 ``ladder_doubling``, I2 ``cim_vjp``, B1 ``lb_rounds`` from 2¹⁵ nodes, T1
-``topo_radiality`` and T2 ``topo_screen`` of this checkout against those
-of other checkouts of the repo, in turns on one card.
+``topo_radiality``, T2 ``topo_screen``, J1 ``residual_jvp`` and J2
+``residual_vjp`` of this checkout against those of other checkouts of the
+repo, in turns on one card.
 
     python3 kernel_ab.py OTHER [OTHER ...]
                          [--sections sparse,delta,newton,solvers,ladder,
                                      vjp,dense,doubling,superstep,qsts,
-                                     i2,wide,topo]
+                                     i2,wide,topo,residual]
                          [--out FILE]
 
 Each ``OTHER`` is the root of another checkout, for example one written
@@ -159,6 +160,16 @@ device time by queued events.  T1's booleans are equal; T2's islanding
 flags and violation counts equal, loss, worst flow and DETAIL's θ and
 flows (its first 256 lanes) within ``chip_smoke.TOPO_ATOL``.
 
+The ``residual`` section times J1 (float64, float32 on float32
+operands — the mixed inner solve's —, float64 with a per-lane status)
+and J2 (MASKED and FULL, float64) at the krylov lane batch's case
+(``chip_smoke.synthetic_mesh_bench(2000, 1.0)``) × 256 and × 64 lanes on
+one seeded state, tangent and cotangent made here, each checkout through
+its own wrappers' default route and operands, device time by queued
+events.  The checkouts' outputs agree within ``chip_smoke.KERNEL_ATOL``
+(float32 ``KERNEL_ATOL_F32``) of the largest entry above 1, and whether
+they are the same bits is printed (``residual_*_same_bits``).
+
 Prints the card's name and power limit, one line per turn and a JSON
 summary as the last line (also written to ``--out``).  Needs a CUDA card.
 """
@@ -181,7 +192,11 @@ KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "sparse_assemble_residual", "sparse_matvec", "gmres_block_orth",
            "gmres_lstsq", "newton_update")
 SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder", "vjp", "dense",
-            "doubling", "superstep", "qsts", "i2", "wide", "topo")
+            "doubling", "superstep", "qsts", "i2", "wide", "topo",
+            "residual")
+#: The ``residual`` section's lane counts: the krylov lane batch and the
+#: sparse backward.
+RESIDUAL_LANES = (256, 64)
 #: The ``topo`` section's shapes: (case, lanes, rank).
 TOPO_SHAPES = (("mesh118", 4096, 2), ("mesh118", 64, 2),
                ("mesh2000", 16384, 3))
@@ -242,6 +257,18 @@ def prepare(path: Path, sections) -> None:
             torch, sys_, cs.MAIN_LANES, seed=7)]
     if "solvers" in sections:
         data["solvers"] = solver_inputs(torch, cs)
+    if "residual" in sections:
+        sys2k = cs.synthetic_mesh_bench(2000, 1.0)
+        n, m, lanes = sys2k.n_bus, sys2k.n_branch, max(RESIDUAL_LANES)
+        rng = np.random.default_rng(22)
+        st = np.ones((lanes, m))
+        st[np.arange(lanes), n + np.arange(lanes)] = 0.0
+        data["residual"] = {
+            "x": torch.as_tensor(np.concatenate(
+                [rng.normal(0, 0.1, (lanes, n)),
+                 rng.uniform(0.95, 1.05, (lanes, n))], 1)),
+            "u": torch.as_tensor(rng.normal(size=(lanes, 2 * n))),
+            "status": torch.as_tensor(st)}
     if "delta" in sections:
         case = cs.DeltaCase(torch, ck, "mesh2000")
         data["delta"] = [np.asarray(a) for a in case.inputs(
@@ -681,6 +708,35 @@ def measure_wide(torch, cs, dev):
     return times, outs
 
 
+def measure_residual(torch, cs, data, dev):
+    """J1 and J2 at ``RESIDUAL_LANES`` on this checkout's own operands, by
+    queued events, and their outputs."""
+    from freedm_tpu_torch.kernels import solver_kernels as sol
+    from freedm_tpu_torch.pf.sparse import sparse_operands
+
+    sys2k = cs.synthetic_mesh_bench(2000, 1.0)
+    op = sparse_operands(sys2k, device=dev)
+    op32 = op.to_dtype(torch.float32)
+    vop = sol.vjp_operands(op)
+    times, outs = {}, {}
+    for lanes in RESIDUAL_LANES:
+        x = data["x"][:lanes].to(dev)
+        u = data["u"][:lanes].to(dev)
+        st = data["status"][:lanes].to(dev)
+        x32, u32 = x.float(), u.float()
+        calls = {
+            "j1_f64": lambda: sol.residual_jvp(x, u, op),
+            "j1_f32": lambda: sol.residual_jvp(x32, u32, op32),
+            "j1_status": lambda: sol.residual_jvp(x, u, op, st),
+            "j2_masked": lambda: sol.residual_vjp(x, u, op, vop, sol.MASKED),
+            "j2_full": lambda: sol.residual_vjp(x, u, op, vop, sol.FULL)}
+        for name, fn in calls.items():
+            key = f"{name}_x{lanes}"
+            outs[key] = fn().cpu()
+            times[key] = cs.queued_events_ms(torch, fn, 50)
+    return times, outs
+
+
 def measure_topo(torch, cs, dev):
     """T1 and T2 at ``TOPO_SHAPES`` on this checkout's own operands:
     device times by queued events, and their outputs."""
@@ -796,6 +852,9 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
         times["wide"], outs["wide"] = measure_wide(torch, cs, dev)
     if "topo" in sections:
         times["topo"], outs["topo"] = measure_topo(torch, cs, dev)
+    if "residual" in sections:
+        times["residual"], outs["residual"] = measure_residual(
+            torch, cs, data["residual"], dev)
     if "delta" in sections:
         times["delta"], outs["delta"] = measure_delta(torch, cs, sys_,
                                                       data["delta"], dev)
@@ -1072,6 +1131,20 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
             torch.equal(x, y) for x, y in zip(outs["screen"] + outs["detail"],
                                               other["screen"]
                                               + other["detail"]))
+    for key, x in a.get("residual", {}).items():
+        y = b["residual"][key]
+        d = cs.max_err(x, y) / max(1.0, float(y.abs().max()))
+        tol = cs.KERNEL_ATOL_F32 if "f32" in key else cs.KERNEL_ATOL
+        cs.check(d <= tol, f"{label}: residual {key} outputs {d:.3e} from "
+                 f"this checkout's")
+        errs[f"residual_{key}_max_abs"] = d
+        errs[f"residual_{key}_same_bits"] = cs.same_bits(torch, x, y)
+        # entries whose bits differ, in the theta rows and in the V rows
+        n = x.shape[1] // 2
+        ints = torch.int64 if x.dtype == torch.float64 else torch.int32
+        moved = x.view(ints) != y.view(ints)
+        errs[f"residual_{key}_moved_theta_v"] = [int(moved[:, :n].sum()),
+                                                 int(moved[:, n:].sum())]
     for key, (ta, va, sa) in a.get("delta", {}).items():
         tb, vb, sb = b["delta"][key]
         d = max(float((ta - tb).abs().max()), float((va - vb).abs().max()))
@@ -1122,7 +1195,8 @@ def main() -> int:
                          "phase (d)'s scenario-steps/s), "
                          "i2 (I2 a call and a backward), wide (B1 from "
                          "2^15 nodes), topo (T1 and T2 at mesh118 x 4096 "
-                         "and x 64, mesh2000 x 16384)")
+                         "and x 64, mesh2000 x 16384), residual (J1 and J2 "
+                         "at mesh2000 x 256 and x 64)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
@@ -1166,7 +1240,9 @@ def main() -> int:
                         "feeder x 64, a call and a 60-iteration backward; "
                         "B1 2^15 x 4, 40961 x 1, 2^16 x 1, 64 rounds; T1 "
                         "and T2 mesh118 x 4096 and x 64 (rank 2), mesh2000 "
-                        "x 16384 (rank <= 3)",
+                        "x 16384 (rank <= 3); J1 (f64, f32, status) and J2 "
+                        "(MASKED, FULL) at the bench's mesh2000 x 256 and "
+                        "x 64",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
@@ -1233,6 +1309,9 @@ def main() -> int:
                               f"events) {dev:.4f} ms", flush=True)
                 for key, dev in times.get("topo", {}).items():
                     print(f"ab {other.name} topo {key:<28} {which:<5} "
+                          f"device (queued events) {dev:.4f} ms", flush=True)
+                for key, dev in times.get("residual", {}).items():
+                    print(f"ab {other.name} residual {key:<16} {which:<5} "
                           f"device (queued events) {dev:.4f} ms", flush=True)
                 for key, ms in times.get("wide", {}).items():
                     if not key.endswith("_form"):

@@ -3,7 +3,11 @@
 ``cim_vjp`` (a call, and its walk over a backward's saved iterates in
 one launch) against their plain PyTorch versions (float64, 1e-10 of the
 largest entry), bit-identical on repeat; J2 against J1 by ``⟨w, J u⟩ =
-⟨Jᵀ w, u⟩``; and each autograd Function of ``freedm_tpu_torch.pf.adjoint``
+⟨Jᵀ w, u⟩``; J1 and J2 under every plan forced through ``plan=`` (the
+staged route's lanes a CTA and CTAs a lane, and the wide route, which
+also takes a shape past the staging capacity by default), each plan the
+wide route's bits, and a lane's bits equal at widths 1, 64 and 256; and
+each autograd Function of ``freedm_tpu_torch.pf.adjoint``
 — dense, sparse (f64 and mixed) and matrix-free Newton, FDLF and the CIM
 — on its kernel route against its plain route on the card (rtol 1e-9),
 with J2 or I2 launched.  Every test needs a CUDA card and skips without
@@ -48,7 +52,23 @@ def system(name):
 
 
 def _same_bits(a, b):
-    return torch.equal(a.view(torch.int64), b.view(torch.int64))
+    ints = torch.int64 if a.dtype == F64 else torch.int32
+    return a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
+def _residual_plans(n, m, lanes, dtype, status):
+    """J1's and J2's plans at this shape: the default, the wide route, and
+    the staged route at every lanes-a-CTA that fits with one, two and
+    every slice's CTA a lane group."""
+    plans = {sol.residual_plan(n, m, lanes, dtype, status),
+             sol.residual_plan(n, m, lanes, dtype, status, route=sol.WIDE)}
+    per = sol.residual_stage_bytes(n, m, dtype, status)
+    slices = -(-n // sol.RES_SLICE)
+    for lpc in range(1, min(sol.RES_MAX_LANES, sol.RES_SMEM // per) + 1):
+        for cpl in {1, min(2, slices), slices}:
+            plans.add(sol.residual_plan(n, m, lanes, dtype, status, lpc,
+                                        cpl))
+    return sorted(plans)
 
 
 @pytest.mark.cuda
@@ -74,14 +94,110 @@ def test_j2_matches_plain_version(cuda_device, name, lanes):
             again = sol.residual_vjp(x, w, op, vop, mode, s_)
             torch.cuda.synchronize()
             assert sol.launches()["residual_vjp"] == 2
+            assert sol.route_launches()["residual_vjp"][sol.STAGED] == 2
             want = sol.residual_vjp_plain(x, w, op, vop, mode, s_)
             scale = max(1.0, float(want.abs().max()))
             assert float((got - want).abs().max()) <= ATOL * scale
             assert _same_bits(got, again)
+            wide = sol.residual_plan(n, m, lanes, F64, s_ is not None,
+                                     route=sol.WIDE)
+            ref = sol.residual_vjp(x, w, op, vop, mode, s_, plan=wide)
+            for plan in _residual_plans(n, m, lanes, F64, s_ is not None):
+                k = sol.residual_vjp(x, w, op, vop, mode, s_, plan=plan)
+                k2 = sol.residual_vjp(x, w, op, vop, mode, s_, plan=plan)
+                assert float((k - want).abs().max()) <= ATOL * scale, plan
+                assert _same_bits(k, k2), plan
+                assert _same_bits(k, ref), plan
             if mode == sol.MASKED:
                 lhs = (w * sol.residual_jvp(x, u, op, s_)).sum(dim=1)
                 rhs = (got * u).sum(dim=1)
                 torch.testing.assert_close(rhs, lhs, rtol=1e-11, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,lanes", [
+    (name, lanes) for name in ("case14", "case_ieee30", "mesh118")
+    for lanes in (1, 3, 64)] + [("mesh7300", 1)])
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_j1_matches_plain_version(cuda_device, name, lanes, dtype):
+    """J1 under every plan against its plain version (float64 1e-10,
+    float32 1e-3 of the largest entry above 1), bit-identical on repeat
+    and the wide route's bits; mesh7300's lane (n > 7264) does not fit a
+    CTA in float64 and takes the wide route by default."""
+    sys_ = system(name)
+    n, m = sys_.n_bus, sys_.n_branch
+    rng = np.random.default_rng(lanes + 11)
+    x = torch.cat([torch.as_tensor(rng.normal(0, 0.2, (lanes, n))),
+                   torch.as_tensor(rng.uniform(0.9, 1.1, (lanes, n)))],
+                  1).to(cuda_device, dtype)
+    u = torch.as_tensor(rng.normal(size=(lanes, 2 * n)), device=cuda_device,
+                        dtype=dtype)
+    st = torch.as_tensor((rng.random((lanes, m)) > 0.1).astype(np.float64),
+                         device=cuda_device, dtype=dtype)
+    op = sparse_operands(sys_, dtype=dtype, device=cuda_device)
+    atol = ATOL if dtype == F64 else 1e-3
+    for s_ in (None, st):
+        status = s_ is not None
+        default = sol.residual_plan(n, m, lanes, dtype, status)
+        sol.reset_launches()
+        got = sol.residual_jvp(x, u, op, s_)
+        torch.cuda.synchronize()
+        assert sol.launches()["residual_jvp"] == 1
+        assert sol.route_launches()["residual_jvp"][default.route] == 1
+        if name == "mesh7300" and dtype == F64:
+            assert default.route == sol.WIDE
+        want = sol.residual_jvp_plain(x, u, op, s_)
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= atol * scale
+        ref = sol.residual_jvp(x, u, op, s_, plan=sol.residual_plan(
+            n, m, lanes, dtype, status, route=sol.WIDE))
+        assert _same_bits(got, ref)
+        for plan in _residual_plans(n, m, lanes, dtype, status):
+            k = sol.residual_jvp(x, u, op, s_, plan=plan)
+            k2 = sol.residual_jvp(x, u, op, s_, plan=plan)
+            assert float((k - want).abs().max()) <= atol * scale, plan
+            assert _same_bits(k, k2), plan
+            assert _same_bits(k, ref), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["jvp", "vjp_masked", "vjp_full"])
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_residual_lane_bits_at_every_width_and_plan(cuda_device, kernel,
+                                                    dtype):
+    """mesh2000 (the krylov lane batch's case): lanes 0 and 1 give the
+    same bits in launches of 2, 64 and 256 lanes under every plan, with
+    and without status."""
+    sys_ = synthetic_mesh(2000, seed=4, load_mw=2.0, chord_frac=1.0)
+    n, m = sys_.n_bus, sys_.n_branch
+    rng = np.random.default_rng(22)
+    full = 256
+    x = torch.cat([torch.as_tensor(rng.normal(0, 0.1, (full, n))),
+                   torch.as_tensor(rng.uniform(0.95, 1.05, (full, n)))],
+                  1).to(cuda_device, dtype)
+    u = torch.as_tensor(rng.normal(size=(full, 2 * n)), device=cuda_device,
+                        dtype=dtype)
+    st = torch.as_tensor((rng.random((full, m)) > 0.05).astype(np.float64),
+                         device=cuda_device, dtype=dtype)
+    op = sparse_operands(sys_, dtype=dtype, device=cuda_device)
+    vop = sol.vjp_operands(op)
+
+    def call(width, s_, plan):
+        xs, us = x[:width].contiguous(), u[:width].contiguous()
+        ss = None if s_ is None else s_[:width].contiguous()
+        if kernel == "jvp":
+            return sol.residual_jvp(xs, us, op, ss, plan=plan)
+        mode = sol.MASKED if kernel == "vjp_masked" else sol.FULL
+        return sol.residual_vjp(xs, us, op, vop, mode, ss, plan=plan)
+
+    for s_ in (None, st):
+        rows = []
+        for width in (2, 64, full):
+            for plan in _residual_plans(n, m, width, dtype, s_ is not None):
+                rows.append((width, plan, call(width, s_, plan)[:2]))
+        torch.cuda.synchronize()
+        for width, plan, r in rows:
+            assert _same_bits(r, rows[0][2]), (width, plan)
 
 
 def _cim_inputs(f, ties, lanes, device, seed=0):
