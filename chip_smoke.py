@@ -305,8 +305,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    path with equal iterations, ms a solve.
 24. dgi kernels: G1 against its plain version at N ∈ {3, 16, 256, 1024,
    4096} (lanes of alive masks, ~10% dead; sparse random groups and, from
-   256, a chain of diameter N; one [B, N, N] case; 4096 takes G1's GLOBAL
-   form, the rest SHARED), R1 on the synthetic topology
+   256, a chain of diameter N; one [B, N, N] case; one cooperative launch
+   at every N), R1 on the synthetic topology
    (``dgi_topology_text``) at V = 48, 1024 × 64 FID scenarios and 2048
    (R1's device-memory form), B1 at N ∈ {3, 256, 4096} in float32,
    float64 and float64/float32 (imbalance/gateway), at 1024 fleets × 256
@@ -4343,17 +4343,42 @@ def time_qsts(torch, qk, rows, extra):
            1.05)
 
     k = time_ms(torch, q1, reps=50)
+    kq = queued_events_ms(torch, q1, 50)
     kd, src = ladder_device_ms(torch, q1, 20, "Q1 mesh2000 x64")
     pl = time_ms(torch, lambda: q1(qk.qsts_bus_reduce_plain), reps=5)
+    m = int(op.f_idx.shape[0])
     nbytes = (tensor_bytes(v, th, p, r.iterations, r.converged, *op)
               + 2 * tensor_bytes(*acc))
-    b, by = bound(nbytes, Q1_OPS * 2 * int(op.f_idx.shape[0]) * MAIN_LANES)
-    log(f"timing: qsts_bus_reduce mesh2000 x{MAIN_LANES}: kernel {k:.4f} ms "
-        f"(device {kd:.4f} [{src}])  plain {pl:.4f} ms  bound {b:.5f} ms "
-        f"({by})")
-    rows["qsts_bus_reduce"] = (k, pl, None, b, by)
-    extra["qsts_bus_reduce"] = {"device_ms": kd, "device_ms_source": src,
+    b, by = bound(nbytes, Q1_OPS * 2 * m * MAIN_LANES)
+    plan = qk.bus_reduce_plan(sys_.n_bus)
+    log(f"timing: qsts_bus_reduce mesh2000 x{MAIN_LANES} (plan {plan}): "
+        f"queued events {kq:.4f} ms, events back to back {k:.4f} ms (device "
+        f"{kd:.4f} [{src}])  plain {pl:.4f} ms  bound {b:.5f} ms ({by})")
+    rows["qsts_bus_reduce"] = (kq, pl, None, b, by)
+    extra["qsts_bus_reduce"] = {"ms_source": "queued CUDA events",
+                                "events_back_to_back_ms": k,
+                                "device_ms": kd, "device_ms_source": src,
+                                "plan": list(plan),
                                 "shape": "mesh2000 x64, a solved mixed step"}
+    for lanes in (1, 256):  # the other widths: the x64 step's lanes cut or
+        reps = -(-lanes // MAIN_LANES)  # repeated, each lane's bits its own
+        vw, tw, pw = (x.repeat(reps, 1)[:lanes].contiguous()
+                      for x in (v, th, p))
+        itw = r.iterations.repeat(reps)[:lanes].contiguous()
+        cw = r.converged.repeat(reps)[:lanes].contiguous()
+        accw = random_acc(torch, qk, lanes, 5)
+
+        def qw(fn=qk.qsts_bus_reduce):
+            fn(vw, tw, pw, itw, cw, op, accw, 15.0, 0.25, 0.95, 1.05)
+
+        kw = queued_events_ms(torch, qw, 50)
+        plw = time_ms(torch, lambda: qw(qk.qsts_bus_reduce_plain), reps=3)
+        bw, byw = bound(tensor_bytes(vw, tw, pw, itw, cw, *op)
+                        + 2 * tensor_bytes(*accw), Q1_OPS * 2 * m * lanes)
+        extra["qsts_bus_reduce"][f"x{lanes}"] = {
+            "ms": kw, "plain_ms": plw, "bound_ms": bw, "bound_by": byw}
+        log(f"timing: qsts_bus_reduce mesh2000 x{lanes}: queued events "
+            f"{kw:.4f} ms  plain {plw:.4f} ms  bound {bw:.5f} ms ({byw})")
     steps, lanes = 24, MAIN_LANES
     f, res = q2_inputs(torch, steps, lanes)
     op2 = qk.feeder_reduce_operands(f, dev)
@@ -6745,12 +6770,6 @@ def compare_dgi(torch, dk, errs, dev="cuda"):
             got = dk.form_groups(al, rs, rank, sweeps=sw)
             again = dk.form_groups(al, rs, rank)
             want = dk.form_groups_plain(al, rs, rank)
-            if dev != "cpu" and n <= 1024:  # the other form, the same bits
-                other = (dk.SHARED if dk.g1_form(n, lanes) == dk.GLOBAL
-                         else dk.GLOBAL)
-                check(same_fields(torch, got, dk.form_groups(
-                    al, rs, rank, form=other)),
-                      f"dgi kernels: G1 n={n} {other} form differs")
             sync(torch, dev)
             tag = f"G1 n={n} x{lanes}{' ' + str(chain) if chain else ''}"
             check(same_fields(torch, got, want),
@@ -6759,10 +6778,10 @@ def compare_dgi(torch, dk, errs, dev="cuda"):
             check(same_fields(torch, got, again),
                   f"dgi kernels: {tag} not bit-identical on repeat")
             sweeps_seen[tag] = (sw.tolist() if dev != "cpu" else [],
-                                got.n_groups.tolist(), dk.g1_form(n, lanes))
+                                got.n_groups.tolist())
     log(f"dgi kernels: G1 equal to its plain version and on repeat "
-        f"(hooking rounds, or minus the directed label sweeps; groups; "
-        f"form): {sweeps_seen}")
+        f"(hooking rounds, or minus the directed label sweeps; groups): "
+        f"{sweeps_seen}")
     for v, s in ((48, 4), (DGI_VERTICES, DGI_SCENARIOS), (2048, 4)):
         topo = top.parse_topology(dgi_topology_text(v, min(DGI_FIDS, v // 2)))
         op = dk.reach_operands(topo.adj, topo.fid_edges, torch.device(dev))
@@ -6864,6 +6883,24 @@ def dgi_device_ms(torch, fn, reps, label):
         return events_ms(torch, fn, reps)
 
 
+def superstep_reach(torch, dev, rng=None):
+    """Phase 26 (b)'s reachability over SUPERSTEP_NODES nodes (the
+    synthetic topology with ~10% of its FIDs open: ~98% dense, several
+    islands) as ``[1, N, N]`` float32, and its alive mask (2% dead) as
+    ``[1, N]`` bool, drawn from ``rng`` (phase 26 (b)'s; by default a new
+    one of its seed, 26)."""
+    from freedm_tpu_torch.grid import topology as top
+
+    n = SUPERSTEP_NODES
+    rng = np.random.default_rng(26) if rng is None else rng
+    reach = top.node_reachability(
+        top.parse_topology(dgi_topology_text()),
+        tuple(f"n{i}" for i in range(n)), device=dev)(
+        rng.uniform(size=DGI_FIDS) > 0.1)
+    alive = torch.as_tensor(rng.uniform(size=n) >= 0.02, device=dev)[None]
+    return reach[None].contiguous(), alive
+
+
 def g1_bound(n, lanes, reach_lanes):
     """G1's bytes: reach, alive and rank read once; coordinator,
     group_mask, is_coordinator, group_size and n_groups written once."""
@@ -6881,13 +6918,22 @@ def time_dgi(torch, dk, rows, extra):
     dev = torch.device("cuda")
     t0 = time.monotonic()
     g1_rows = {}
-    for n, lanes in ((SUPERSTEP_NODES, 1), (DGI_SST_NODES, DGI_SCENARIOS),
-                     (4096, 1)):
-        reach, alive, prio = g1_graph(n, lanes, seed=7 * n)
-        rank = g1_rank(torch, prio, dev)
-        al = torch.as_tensor(alive, device=dev)
-        rs = torch.as_tensor(reach, device=dev)[None].contiguous()
-        k = time_ms(torch, lambda: dk.form_groups(al, rs, rank), 20)
+    for n, lanes, kind in ((SUPERSTEP_NODES, 1, "superstep"),
+                           (SUPERSTEP_NODES, 1, "sparse"),
+                           (SUPERSTEP_NODES, 16, "sparse"),
+                           (SUPERSTEP_NODES, 64, "sparse"),
+                           (DGI_SST_NODES, DGI_SCENARIOS, "sparse"),
+                           (4096, 1, "sparse")):
+        if kind == "superstep":  # phase 26 (b)'s reach and alive mask
+            rs, al = superstep_reach(torch, dev)
+            rank = g1_rank(torch, gm_priority(n), dev)
+        else:
+            reach, alive, prio = g1_graph(n, lanes, seed=7 * n)
+            rank = g1_rank(torch, prio, dev)
+            al = torch.as_tensor(alive, device=dev)
+            rs = torch.as_tensor(reach, device=dev)[None].contiguous()
+        k = events_ms(torch, lambda: dk.form_groups(al, rs, rank), 20)
+        kq = queued_events_ms(torch, lambda: dk.form_groups(al, rs, rank), 20)
         d = dgi_device_ms(torch, lambda: dk.form_groups(al, rs, rank), 20,
                           f"form_groups n={n} x{lanes}")
         p = time_ms(torch, lambda: dk.form_groups_plain(al, rs, rank), 3)
@@ -6896,41 +6942,28 @@ def time_dgi(torch, dk, rows, extra):
         lib = time_ms(torch, lambda: [torch.bmm(adj, adj) for _ in range(sq)],
                       3)
         b, by = g1_bound(n, lanes, 1)
-        g1_rows[f"{n}x{lanes}"] = dict(ms=k, device_ms=d, plain_ms=p,
-                                       bound_ms=b, form=dk.g1_form(n, lanes),
-                                       matmul_squarings_ms=lib,
-                                       matmul_squarings=sq)
-        log(f"timing: form_groups n={n} x{lanes} ({dk.g1_form(n, lanes)}) event "
-            f"{k:.4f} ms, device {d:.4f} ms; plain {p:.4f} ms; bound "
-            f"{b:.5f} ms ({by}); library composite: {sq} float32 "
-            f"torch.bmm squarings {lib:.4f} ms")
-    forms = {}
-    for n in (256, SUPERSTEP_NODES):  # the forms against lanes (g1_form)
-        for lanes in (1, 16, 64, 128):
-            reach, alive, prio = g1_graph(n, lanes, seed=3)
-            rank = g1_rank(torch, prio, dev)
-            al = torch.as_tensor(alive, device=dev)
-            for name, rs in (("sparse", torch.as_tensor(reach, device=dev)[
-                    None].contiguous()), ("all-ones", torch.ones(
-                        1, n, n, device=dev))):
-                ms = [events_ms(torch, lambda: dk.form_groups(
-                    al, rs, rank, form=f), 10) for f in (dk.SHARED, dk.GLOBAL)]
-                forms[f"{n}x{lanes} {name}"] = ms
-    log("timing: form_groups ms (CUDA events per call) SHARED / GLOBAL by "
-        "N x lanes: "
-        + "; ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in forms.items()))
-    main = g1_rows[f"{SUPERSTEP_NODES}x1"]
+        g1_rows[f"{n}x{lanes} {kind}"] = dict(
+            ms=kq, events_a_call_ms=k, device_ms=d, plain_ms=p, bound_ms=b,
+            matmul_squarings_ms=lib, matmul_squarings=sq)
+        log(f"timing: form_groups n={n} x{lanes} {kind}"
+            f" queued events {kq:.4f} ms, events a call {k:.4f} ms, device "
+            f"{d:.4f} ms; plain {p:.4f} ms; bound {b:.5f} ms ({by}); library "
+            f"composite: {sq} float32 torch.bmm squarings {lib:.4f} ms")
+        del adj
+    main = g1_rows[f"{SUPERSTEP_NODES}x1 superstep"]
     rows["form_groups"] = (main["ms"], main["plain_ms"], None,
                            main["bound_ms"], "bytes")
-    extra["form_groups"] = {"shape": f"N={SUPERSTEP_NODES} x 1 lane",
+    extra["form_groups"] = {"shape": f"N={SUPERSTEP_NODES} x 1 lane, the "
+                                     f"superstep's reach",
+                            "ms_source": "queued CUDA events",
+                            "events_a_call_ms": main["events_a_call_ms"],
                             "device_ms": main["device_ms"],
                             "library_composite_ms": main[
                                 "matmul_squarings_ms"],
                             "library_composite": (
                                 f"{main['matmul_squarings']} float32 "
                                 "torch.bmm squarings (TF32 off), not one call"),
-                            "other_shapes": g1_rows,
-                            "forms_device_ms": forms}
+                            "other_shapes": g1_rows}
     topo = top.parse_topology(dgi_topology_text())
     op = dk.reach_operands(topo.adj, topo.fid_edges, dev)
     rng = np.random.default_rng(1)
@@ -7139,7 +7172,6 @@ def superstep_phase(torch, dk, lk, dev="cuda"):
     R1's launches over (b)'s kernel rounds (R1: the reachability) and the
     ms a round by phase.  ``dev="cpu"`` rehearses it on the plain
     versions (no times)."""
-    from freedm_tpu_torch.grid import topology as top
     from freedm_tpu_torch.grid.cases import synthetic_radial
     from freedm_tpu_torch.parallel import make_superstep
 
@@ -7170,18 +7202,15 @@ def superstep_phase(torch, dk, lk, dev="cuda"):
     feeder = synthetic_radial(SUPERSTEP_FEEDER, seed=0, load_kw=1.0)
     dk.reset_launches()
     lk.reset_launches()
-    topo = top.parse_topology(dgi_topology_text())
     rng = np.random.default_rng(26)
-    reach = top.node_reachability(
-        topo, tuple(f"n{i}" for i in range(n)), device=dev)(
-        rng.uniform(size=DGI_FIDS) > 0.1)
+    reach, alive = superstep_reach(torch, dev, rng)  # G1's timed input too
     step, shard = make_superstep(feeder=feeder, device=dev)
     step_p, _ = make_superstep(feeder=feeder, device=dev, plain=True)
     netgen, gateway = superstep_fleet(torch, n, 1, dev)
-    alive = (rng.uniform(size=n) >= 0.02).astype(np.float32)
     st = shard(netgen.cpu().numpy(), gateway.cpu().numpy(),
-               rng.uniform(0.7, 1.3, SUPERSTEP_LANES), alive=alive,
-               reachable=reach.cpu().numpy())
+               rng.uniform(0.7, 1.3, SUPERSTEP_LANES),
+               alive=alive[0].cpu().numpy().astype(np.float32),
+               reachable=reach[0].cpu().numpy())
     split = {k: [] for k in ("gm", "lb", "sc", "vvc")}
     host = {k: [] for k in split}
     worst = (0.0, 0.0, 0.0, 0.0)
@@ -7223,15 +7252,14 @@ def superstep_phase(torch, dk, lk, dev="cuda"):
           and counts["ladder_vjp"] == SUPERSTEP_ROUNDS,
           f"superstep (b): launches {counts}")
     per = {k: float(np.mean(v)) if v else 0.0 for k, v in split.items()}
-    if on_card:  # G1 alone on this reachability, in each form
+    if on_card:  # G1 alone on this reachability
         al = st.alive[None] >= 0.5
         rs = st.reachable[None].contiguous()
         rank = g1_rank(torch, gm_priority(n), dev)
-        g1 = {f: events_ms(torch, lambda: dk.form_groups(al, rs, rank, form=f),
-                           20) for f in (dk.SHARED, dk.GLOBAL)}
+        g1 = events_ms(torch, lambda: dk.form_groups(al, rs, rank), 20)
         log(f"superstep (b): G1 alone on the round's reachability (density "
-            f"{float(st.reachable.mean()):.3f}), CUDA events per call: SHARED "
-            f"{g1[dk.SHARED]:.4f} ms, GLOBAL {g1[dk.GLOBAL]:.4f} ms")
+            f"{float(st.reachable.mean()):.3f}), CUDA events per call: "
+            f"{g1:.4f} ms")
     busy = (busy_share(torch, lambda: step(st), "superstep 1024 nodes")
             if on_card else "")
     log(f"superstep (b): {n} nodes (readings through devices.tensor."

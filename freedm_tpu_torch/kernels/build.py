@@ -29,6 +29,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
+import torch
+
 CSRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 
@@ -130,3 +132,26 @@ def build_log(name: str) -> str:
     """The compiler's report of the last build of ``csrc/<name>.cu``."""
     return library_path(name).with_suffix(".log").read_text()
 
+
+#: The grid barriers of the persistent cooperative launches by (device,
+#: stream): see :func:`grid_barrier`.
+_barriers: Dict[Tuple[int, int], torch.Tensor] = {}
+_barrier_lock = threading.Lock()
+
+
+def grid_barrier(device: torch.device, stream: int) -> torch.Tensor:
+    """The grid barrier (two int32: arrivals, generation) of the
+    persistent cooperative launches on ``stream`` of ``device`` — I2
+    ``cim_vjp_walk`` and G1 ``form_groups``, both through
+    ``csrc/grid_sync.cuh``.  Zeros, made once a (device, stream), that
+    every launch leaves as it found them; launches on one stream run in
+    turn, so they share it."""
+    key = (device.index, stream)
+    with _barrier_lock:
+        t = _barriers.get(key)
+        if t is None:
+            if len(_barriers) >= 64:
+                _barriers.clear()
+            t = _barriers[key] = torch.zeros(2, dtype=torch.int32,
+                                             device=device)
+    return t

@@ -47,17 +47,21 @@
 //   racing in-place updates take: the same bits on every run.  The squaring
 //   the reference does costs N^3 multiply-adds a round.
 //
-//   G1 form SHARED (the packed rows fit a CTA, N <= 1312, and N x lanes >=
-//   65536): one CTA a lane packs its rows from reach (a warp a row,
-//   __ballot_sync over 32 floats, sixteen words' loads in flight), checks
-//   symmetry (32 x 32 bit blocks transposed by ballots), closes, counts the
-//   groups (integer atomicAdd on shared counters: the same counts in any
-//   order) and writes every output.  Form GLOBAL (fewer lanes, or N > 1312;
-//   2 MB of bits at N = 4096, L2-resident): four launches — pack and the
-//   symmetry check over grids of row and bit blocks, the labels (one CTA a
-//   lane, the rows read from L2), the mask (a grid of row blocks writing
-//   group_mask from the labels).  A lane's pack and mask move its N^2 floats
-//   in and out, so one SM a lane is too few for few lanes.  R1 is one
+//   G1 is one persistent cooperative launch (dgi_kernels.g1_global_plan:
+//   every CTA resident, 1024 threads) in four phases between integer grid
+//   barriers (grid_sync.cuh).  Pack: the lanes' rows dealt in contiguous
+//   runs to the CTAs, a warp a row, 16-byte loads of reach (a nibble a
+//   lane, the words ORed by shuffles), the bits to a device scratch.
+//   Symmetry: the lanes' 32 x 32 bit blocks on and above the diagonal,
+//   each against its mirror, dealt to the grid's warps (a flag a lane,
+//   zeroed by the kernel; one CTA checking a lane's 1024 blocks alone took
+//   ~20 us); meanwhile each CTA copies its first lane's packed rows into
+//   shared memory where they fit (N <= 1312: 132 KB at N = 1024, rows 33
+//   words apart; above, the closure reads them from L2).  Label: one CTA a
+//   lane closes and writes labels, coordinator, is_coordinator, group_size
+//   and n_groups.  Mask: the CTAs write their rows of group_mask from the
+//   labels (staged a lane at a time in shared memory), 16-byte stores.  A
+//   lane's pack and mask move its N^2 floats in and out, so they take the whole grid even for one lane.  R1 is one
 //   CTA a scenario: it copies the packed ungated rows (shared memory, or a
 //   device-memory scratch above V = 1344), sets the closed FID edges with
 //   atomicOr, closes and writes its [V, V] rows.
@@ -104,14 +108,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_sync.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxSmem = 232448;  // shared memory a block may use on Hopper
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRowsPerBlock = 32;  // G1 form GLOBAL: rows a pack/mask block
-constexpr int kGridThreads = 256;
+// G1's CTA (dgi_kernels.G1_THREADS reads it: keep it a
+// `constexpr int name = value;`).
+constexpr int kG1Threads = 1024;
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) / 16 * 16;
@@ -144,27 +151,26 @@ __device__ int block_sum(int v, int* red) {
 // ---------------------------------------------------------------------------
 
 // Drives lab[0..n) to the largest label reachable from each node along the
-// (directed) set bits.  `bits`: n rows of w words (shared or device
-// memory); lab (shared): > 0 live, 0 dead (a dead node has no set bit in
-// any row); inv[l] the node whose own label is l; wmax: w shared ints.
-// Returns the sweeps run.
-__device__ int close_labels(const uint32_t* bits, int n, int w, int* lab,
+// (directed) set bits.  `bits`: n rows of w words, ws words apart (shared
+// or device memory); lab (shared): > 0 live, 0 dead (a dead node has no
+// set bit in any row); inv[l] the node whose own label is l; wmax: w
+// shared ints.  Returns the sweeps run.
+__device__ int close_labels(const uint32_t* bits, int n, int w, int ws, int* lab,
                             const int* inv, int* wmax) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   volatile int* vlab = lab;
   int sweeps = 0;
   for (;;) {
-    for (int k = threadIdx.x; k < w; k += blockDim.x) {
-      const int hi = min(32, n - 32 * k);
-      int m = 0;
-      for (int b = 0; b < hi; ++b) m = max(m, vlab[32 * k + b]);
-      wmax[k] = m;
+    for (int k = warp; k < w; k += nwarps) {  // a warp a word
+      const int j = 32 * k + lane;
+      const int m = warp_max(j < n ? vlab[j] : 0);
+      if (lane == 0) wmax[k] = m;
     }
     __syncthreads();
     int changed = 0;
     for (int i = warp; i < n; i += nwarps) {
-      const uint32_t* row = bits + (size_t)i * w;
+      const uint32_t* row = bits + (size_t)i * ws;
       int m = 0;
       for (int k = lane; k < w; k += 32) {
         uint32_t x = row[k];
@@ -241,16 +247,40 @@ __device__ int asym_blocks(const uint32_t* bits, int n, int w, int first,
 // loop (every edge then joins equal roots).  Each round at least halves
 // the trees that can still hook, so rounds grow as log N, not as the
 // graph's diameter.  A word holding a neighbour whose pointer is the
-// word's least (wmin, at the positions wmask) takes that least at once; so
-// does every word of a dense component after its first round.  wbuf: 2w
-// shared ints.  Returns the hooking rounds.
-__device__ int components(const uint32_t* bits, int n, int w, int* p,
-                          int* wbuf) {
+// word's least (wmin, at the positions wmask) takes that least at once,
+// one holding none of those but one of the next least (wmin2, wmask2) that
+// one; so does every word of a dense component after its first round.
+// Rows are ws words apart.  kThreadRows: a thread a row, walking its words
+// (the rows in shared memory at an odd stride, so a warp's 32 rows' word k
+// lie in 32 banks; a warp a row issued ~100 instructions a row, and the
+// hooking held 19-37 thousand cycles a round of a 1024-node lane on an
+// H100), kRowWords words' loads at once (leaving a row at its first
+// neighbour pointing at node 0 made sparse lanes 2x slower); else a warp
+// a row (rows in device memory: coalesced).  Not inlined: G1's
+// cooperative kernel spills around it otherwise (0.76 against 0.92 ms at
+// N = 4096).  wbuf: 4w shared ints.  Returns the hooking rounds.
+constexpr int kRowWords = 8;
+template <bool kThreadRows>
+__device__ __noinline__ int components(const uint32_t* bits, int n, int w, int ws,
+                                       int* p, int* wbuf) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   volatile int* vp = p;
   int* wmin = wbuf;
   unsigned* wmask = (unsigned*)(wbuf + w);
+  int* wmin2 = wbuf + 2 * w;
+  unsigned* wmask2 = (unsigned*)(wbuf + 3 * w);
+  // The least pointer among word k's set bits in x (none of them at a
+  // position of the word's least pointer).
+  auto rest_min = [&](int k, uint32_t x, int m) {
+    if (x & wmask2[k]) return min(m, wmin2[k]);
+    while (x) {
+      const int b = __ffs(x) - 1;
+      x &= x - 1;
+      m = min(m, vp[32 * k + b]);
+    }
+    return m;
+  };
   int rounds = 0;
   for (;;) {
     for (;;) {
@@ -264,40 +294,53 @@ __device__ int components(const uint32_t* bits, int n, int w, int* p,
       }
       if (!__syncthreads_or(moved)) break;
     }
-    for (int k = threadIdx.x; k < w; k += blockDim.x) {
-      const int hi = min(32, n - 32 * k);
-      int m = 32 * k;
-      unsigned at = 0;
-      for (int b = 0; b < hi; ++b) {
-        const int v = vp[32 * k + b];
-        if (v < m) {
-          m = v;
-          at = 0;
-        }
-        if (v == m) at |= 1u << b;
+    for (int k = warp; k < w; k += nwarps) {  // a warp a word
+      const int j = 32 * k + lane;
+      const int v = j < n ? vp[j] : n;
+      const int m = warp_min(v);
+      const unsigned at = __ballot_sync(kFull, j < n && v == m);
+      const int m2 = warp_min(v == m ? n : v);  // the next least pointer
+      const unsigned at2 = __ballot_sync(kFull, j < n && v == m2);
+      if (lane == 0) {
+        wmin[k] = m;
+        wmask[k] = at;
+        wmin2[k] = m2;
+        wmask2[k] = at2;
       }
-      wmin[k] = m;
-      wmask[k] = at;
     }
     __syncthreads();
     int hooked = 0;
-    for (int i = warp; i < n; i += nwarps) {
-      const uint32_t* row = bits + (size_t)i * w;
+    for (int i = kThreadRows ? threadIdx.x : warp; i < n;
+         i += kThreadRows ? blockDim.x : nwarps) {
+      const uint32_t* row = bits + (size_t)i * ws;
       int m = n;
-      for (int k = lane; k < w; k += 32) {
-        uint32_t x = row[k];
-        if (x & wmask[k]) {
-          m = min(m, wmin[k]);
-        } else {
-          while (x) {
-            const int b = __ffs(x) - 1;
-            x &= x - 1;
-            m = min(m, vp[32 * k + b]);
+      if (kThreadRows) {  // kRowWords words' loads in flight at once
+        for (int k0 = 0; k0 < w; k0 += kRowWords) {
+          uint32_t x[kRowWords], at[kRowWords];
+          int lo[kRowWords];
+#pragma unroll
+          for (int u = 0; u < kRowWords; ++u) {
+            const bool in = k0 + u < w;
+            x[u] = in ? row[k0 + u] : 0u;
+            at[u] = in ? wmask[k0 + u] : 0u;
+            lo[u] = in ? wmin[k0 + u] : n;
+          }
+#pragma unroll
+          for (int u = 0; u < kRowWords; ++u) {
+            if (x[u] & at[u])
+              m = min(m, lo[u]);
+            else if (x[u])
+              m = rest_min(k0 + u, x[u], m);
           }
         }
+      } else {
+        for (int k = lane; k < w; k += 32) {
+          const uint32_t x = row[k];
+          m = x & wmask[k] ? min(m, wmin[k]) : rest_min(k, x, m);
+        }
+        m = warp_min(m);
       }
-      m = warp_min(m);
-      if (lane == 0) {
+      if (kThreadRows || lane == 0) {
         const int root = vp[i];
         if (m < root) {
           atomicMin(&p[root], m);
@@ -342,22 +385,73 @@ __device__ void label_row(const int* lab, int li, int n, float* out_row) {
     out_row[j] = (li > 0 && lab[j] == li) ? 1.f : 0.f;
 }
 
+// pack_row with 16-byte loads (n % 4 == 0, the row and alive 16- and
+// 4-byte aligned): a step of the warp covers 128 columns, lane l holding
+// columns 4l..4l+3, whose bits are nibble l % 8 of word l / 8; each
+// word's eight nibbles are ORed by shuffles.  Eight steps' loads (a 1024
+// column row) are in flight before their bits.
+constexpr int kPack4Unroll = 8;
+__device__ void pack_row4(const float* reach_row, const unsigned char* alive,
+                          bool alive_i, int n, int w, uint32_t* out_row) {
+  const int lane = threadIdx.x & 31, n4 = n / 4;
+  const float4* row4 = (const float4*)reach_row;
+  const uint32_t* alive4 = (const uint32_t*)alive;
+  for (int s0 = 0; 32 * s0 < n4; s0 += kPack4Unroll) {
+    float4 r[kPack4Unroll];
+    uint32_t al[kPack4Unroll];
+#pragma unroll
+    for (int u = 0; u < kPack4Unroll; ++u) {
+      const int q = 32 * (s0 + u) + lane;
+      const bool in = alive_i && q < n4;
+      r[u] = in ? row4[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+      al[u] = in ? alive4[q] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kPack4Unroll; ++u) {
+      const uint32_t nib = ((r[u].x > 0.f && (al[u] & 0xffu)) ? 1u : 0u) |
+                           ((r[u].y > 0.f && (al[u] & 0xff00u)) ? 2u : 0u) |
+                           ((r[u].z > 0.f && (al[u] & 0xff0000u)) ? 4u : 0u) |
+                           ((r[u].w > 0.f && (al[u] & 0xff000000u)) ? 8u : 0u);
+      uint32_t word = nib << (4 * (lane & 7));
+      word |= __shfl_xor_sync(kFull, word, 1);
+      word |= __shfl_xor_sync(kFull, word, 2);
+      word |= __shfl_xor_sync(kFull, word, 4);
+      const int k = 4 * (s0 + u) + (lane >> 3);
+      if ((lane & 7) == 0 && k < w) out_row[k] = word;
+    }
+  }
+}
+
+// label_row with 16-byte stores (n % 4 == 0, the row 16-byte aligned; lab
+// in shared memory, 16-byte aligned).
+__device__ void label_row4(const int* lab, int li, int n, float* out_row) {
+  const int4* l4 = (const int4*)lab;
+  float4* o4 = (float4*)out_row;
+  for (int q = threadIdx.x & 31; q < n / 4; q += 32) {
+    const int4 l = l4[q];
+    o4[q] = make_float4((li > 0 && l.x == li) ? 1.f : 0.f,
+                        (li > 0 && l.y == li) ? 1.f : 0.f,
+                        (li > 0 && l.z == li) ? 1.f : 0.f,
+                        (li > 0 && l.w == li) ? 1.f : 0.f);
+  }
+}
+
 struct G1Layout {
   size_t lab, inv, wmax, cnt, red, total;
 };
 
 // Shared memory of G1's CTA a lane (dgi_kernels.g1_smem_bytes): the packed
-// rows when with_bits, then labels, rank -> node, word maxima, group
-// counts and a reduction buffer.
-__host__ __device__ inline G1Layout g1_layout(int n, int w, bool with_bits) {
+// rows, ws words apart, when ws > 0, then labels, rank -> node, word
+// maxima, group counts and a reduction buffer.
+__host__ __device__ inline G1Layout g1_layout(int n, int w, int ws) {
   G1Layout s;
-  size_t off = with_bits ? align16((size_t)n * w * 4) : 0;
+  size_t off = align16((size_t)n * ws * 4);
   s.lab = off;
   off = align16(off + 4 * (size_t)n);
   s.inv = off;
   off = align16(off + 4 * ((size_t)n + 1));
-  s.wmax = off;  // word maxima, or word minima and their masks: 2w ints
-  off = align16(off + 8 * (size_t)w);
+  s.wmax = off;  // word maxima, or two levels of word minima and masks: 4w ints
+  off = align16(off + 16 * (size_t)w);
   s.cnt = off;
   off = align16(off + 4 * ((size_t)n + 1));
   s.red = off;
@@ -376,22 +470,26 @@ struct G1Args {
   int* size;
   int* ngroups;
   int* sweeps;      // [lanes] or null
-  uint32_t* bits;   // form GLOBAL: [lanes, n, w]
-  int* labels;      // form GLOBAL: [lanes, n]
-  int* asym;        // form GLOBAL: [lanes], zeroed; nonzero: not symmetric
+  uint32_t* bits;   // [lanes, n, w]
+  int* labels;      // [lanes, n]
+  int* asym;        // [lanes]; nonzero: not symmetric
+  unsigned* bar;    // the grid barrier's [arrivals, generation]
   int n, w;
+  int lanes;
+  bool staged;      // the label CTA copies the bits in
+  bool vec;         // 16-byte rows (pack_row4, label_row4)
 };
 
-// Labels of lane b (bits ready), then coordinator, is_coordinator,
-// group_size and n_groups.  A symmetric adjacency (the reference's
+// Labels of lane b (bits ready: rows ws words apart; in shared memory
+// when ws_smem = ws, the layout's, else 0), then coordinator,
+// is_coordinator, group_size and n_groups.  A symmetric adjacency (the reference's
 // contract) takes `components`, then each component's largest live rank
 // (integer atomicMax); any other runs the label sweeps of `close_labels`,
 // the reference's directed closure.  Leaves lab in shared memory.
-__device__ void g1_groups(const G1Args& a, int b, const uint32_t* bits,
-                          unsigned char* smem, bool with_bits,
-                          bool symmetric) {
+__device__ void g1_groups(const G1Args& a, int b, const uint32_t* bits, int ws,
+                          unsigned char* smem, int ws_smem, bool symmetric) {
   const int n = a.n, w = a.w, tid = threadIdx.x, bd = blockDim.x;
-  const G1Layout L = g1_layout(n, w, with_bits);
+  const G1Layout L = g1_layout(n, w, ws_smem);
   int* lab = (int*)(smem + L.lab);
   int* inv = (int*)(smem + L.inv);
   int* wbuf = (int*)(smem + L.wmax);
@@ -405,7 +503,8 @@ __device__ void g1_groups(const G1Args& a, int b, const uint32_t* bits,
   if (symmetric) {
     for (int i = tid; i < n; i += bd) lab[i] = i;
     __syncthreads();
-    sweeps = components(bits, n, w, lab, wbuf);
+    sweeps = ws_smem && (ws & 1) ? components<true>(bits, n, w, ws, lab, wbuf)
+                                 : components<false>(bits, n, w, ws, lab, wbuf);
     for (int i = tid; i < n; i += bd)  // cnt: a component's largest rank
       if (alive[i]) atomicMax(&cnt[lab[i]], a.rank[i]);
     __syncthreads();
@@ -415,7 +514,7 @@ __device__ void g1_groups(const G1Args& a, int b, const uint32_t* bits,
   } else {
     for (int i = tid; i < n; i += bd) lab[i] = alive[i] ? a.rank[i] : 0;
     __syncthreads();
-    sweeps = -close_labels(bits, n, w, lab, inv, wbuf);
+    sweeps = -close_labels(bits, n, w, ws, lab, inv, wbuf);
   }
   __syncthreads();
   for (int i = tid; i < n; i += bd)
@@ -438,72 +537,109 @@ __device__ void g1_groups(const G1Args& a, int b, const uint32_t* bits,
   }
 }
 
-__global__ void __launch_bounds__(1024) g1_shared_kernel(const G1Args a) {
+// A lane's packed rows (n rows of w words) into shared memory, ws words
+// apart, by the whole CTA (no barrier).  16-byte loads where w % 4 == 0: a
+// row's quads on a group of lanes, 32 / group rows a warp step (their
+// stores hit 32 banks); else a warp a row.  Through L2: other CTAs wrote
+// the rows in this launch.
+__device__ void stage_rows(const uint32_t* bits, int n, int w, int ws, uint32_t* sb) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  if (w % 4 == 0) {
+    const int wq = w / 4, group = wq <= 8 ? 8 : 16;
+    const int sub = lane / group, q = lane % group, step = 32 / group;
+    const uint4* src = (const uint4*)bits;
+#pragma unroll 4
+    for (int r = warp * step + sub; r < n; r += nwarps * step) {
+      if (q < wq) {
+        const uint4 x = __ldcg(src + (size_t)r * wq + q);
+        uint32_t* d = sb + r * ws + 4 * q;
+        d[0] = x.x;
+        d[1] = x.y;
+        d[2] = x.z;
+        d[3] = x.w;
+      }
+    }
+  } else {
+    for (int k = lane; k < w; k += 32)
+      for (int r = warp; r < n; r += nwarps)
+        sb[r * ws + k] = __ldcg(bits + (size_t)r * w + k);
+  }
+}
+
+// G1: pack, symmetry check, label, mask, one launch; CTA c's
+// rows are [rows c / G, rows (c + 1) / G) of the lanes' rows in order
+// (dgi_kernels.g1_rows).
+__global__ void __launch_bounds__(kG1Threads) g1_global_kernel(const G1Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x, n = a.n, w = a.w;
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  uint32_t* bits = (uint32_t*)smem;
-  const unsigned char* alive = a.alive + (size_t)b * n;
-  const float* reach = a.reach + (size_t)b * a.reach_stride;
-  for (int i = warp; i < n; i += nwarps)
-    pack_row(reach + (size_t)i * n, alive, alive[i] != 0, n, w,
-             bits + (size_t)i * w);
-  __syncthreads();
-  const bool symmetric =
-      !__syncthreads_or(asym_blocks(bits, n, w, warp, nwarps));
-  g1_groups(a, b, bits, smem, true, symmetric);
-  const int* lab = (const int*)(smem + g1_layout(n, w, true).lab);
-  for (int i = warp; i < n; i += nwarps)
-    label_row(lab, lab[i], n, a.mask + ((size_t)b * n + i) * n);
-}
-
-__global__ void __launch_bounds__(kGridThreads) g1_pack_kernel(const G1Args a) {
-  const int b = blockIdx.y, n = a.n, w = a.w;
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const unsigned char* alive = a.alive + (size_t)b * n;
-  const float* reach = a.reach + (size_t)b * a.reach_stride;
-  const int r0 = blockIdx.x * kRowsPerBlock;
-  const int r1 = min(n, r0 + kRowsPerBlock);
-  for (int i = r0 + warp; i < r1; i += nwarps)
-    pack_row(reach + (size_t)i * n, alive, alive[i] != 0, n, w,
-             a.bits + ((size_t)b * n + i) * w);
-}
-
-// Form GLOBAL's symmetry check: kSymBlocks bit blocks a CTA, a grid over
-// the blocks and lanes; a block that breaks symmetry flags its lane.
-constexpr int kSymBlocks = 64;
-__global__ void __launch_bounds__(kGridThreads) g1_sym_kernel(const G1Args a) {
-  const int b = blockIdx.y, warp = threadIdx.x >> 5;
-  const int first = blockIdx.x * kSymBlocks;
-  const uint32_t* bits = a.bits + (size_t)b * a.n * a.w;
-  int bad = 0;
-  for (int blk = first + warp; blk < min(first + kSymBlocks, a.w * a.w);
-       blk += kGridThreads / 32)
-    bad |= asym_blocks(bits, a.n, a.w, blk, a.w * a.w);  // one block each
-  if ((threadIdx.x & 31) == 0 && bad) atomicOr(&a.asym[b], 1);
-}
-
-__global__ void __launch_bounds__(1024) g1_label_kernel(const G1Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x, n = a.n;
-  g1_groups(a, b, a.bits + (size_t)b * n * a.w, smem, false, a.asym[b] == 0);
-  const int* lab = (const int*)(smem + g1_layout(n, a.w, false).lab);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    a.labels[(size_t)b * n + i] = lab[i];
-}
-
-__global__ void __launch_bounds__(kGridThreads) g1_mask_kernel(const G1Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.y, n = a.n;
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int n = a.n, w = a.w, lanes = a.lanes, tid = threadIdx.x;
+  const int warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int G = (int)gridDim.x;
+  const long long rows = (long long)lanes * n;
+  const long long r0 = rows * blockIdx.x / G, r1 = rows * (blockIdx.x + 1) / G;
+  for (long long r = r0 + warp; r < r1; r += nwarps) {
+    const int b = (int)(r / n), i = (int)(r - (long long)b * n);
+    const unsigned char* alive = a.alive + (size_t)b * n;
+    const float* row = a.reach + (size_t)b * a.reach_stride + (size_t)i * n;
+    uint32_t* out = a.bits + (size_t)r * w;
+    if (a.vec)
+      pack_row4(row, alive, alive[i] != 0, n, w, out);
+    else
+      pack_row(row, alive, alive[i] != 0, n, w, out);
+  }
+  if (blockIdx.x == 0)
+    for (int b = tid; b < lanes; b += blockDim.x) a.asym[b] = 0;
+  grid_sync(a.bar, (unsigned)G);
+  const int ws = a.staged ? (w | 1) : 0;  // an odd stride: no bank conflicts
+  if (a.staged && (int)blockIdx.x < lanes)  // the CTA's first lane's rows
+    stage_rows(a.bits + (size_t)blockIdx.x * n * w, n, w, ws, (uint32_t*)smem);
+  {  // every lane's bit blocks (I, J >= I) against their mirrors, dealt
+     // to the grid's warps
+    const int blocks = w * (w + 1) / 2;
+    const long long total = (long long)lanes * blocks;
+    for (long long q = (long long)blockIdx.x * nwarps + warp; q < total;
+         q += (long long)G * nwarps) {
+      const int b = (int)(q / blocks);
+      int t = (int)(q - (long long)b * blocks), bi = 0;  // t -> (bi, bj >= bi)
+      while (t >= w - bi) t -= w - bi++;
+      const uint32_t* bits = a.bits + (size_t)b * n * w;
+      if (asym_blocks(bits, n, w, bi * w + bi + t, w * w) && (tid & 31) == 0)
+        atomicOr(&a.asym[b], 1);
+    }
+  }
+  grid_sync(a.bar, (unsigned)G);
+  for (int b = blockIdx.x; b < lanes; b += G) {
+    const uint32_t* bits = a.bits + (size_t)b * n * w;
+    if (a.staged) {
+      if (b != (int)blockIdx.x) {  // the first lane's rows came in above
+        stage_rows(bits, n, w, ws, (uint32_t*)smem);
+        __syncthreads();
+      }
+      bits = (const uint32_t*)smem;
+    }
+    g1_groups(a, b, bits, a.staged ? ws : w, smem, ws, __ldcg(a.asym + b) == 0);
+    const int* lab = (const int*)(smem + g1_layout(n, w, ws).lab);
+    for (int i = tid; i < n; i += blockDim.x) a.labels[(size_t)b * n + i] = lab[i];
+    __syncthreads();  // the next lane reuses shared memory
+  }
+  grid_sync(a.bar, (unsigned)G);
   int* lab = (int*)smem;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    lab[i] = a.labels[(size_t)b * n + i];
-  __syncthreads();
-  const int r0 = blockIdx.x * kRowsPerBlock;
-  const int r1 = min(n, r0 + kRowsPerBlock);
-  for (int i = r0 + warp; i < r1; i += nwarps)
-    label_row(lab, lab[i], n, a.mask + ((size_t)b * n + i) * n);
+  for (long long r = r0; r < r1;) {  // the lanes this CTA's rows belong to
+    const int b = (int)(r / n);
+    const long long end = min(r1, (long long)(b + 1) * n);
+    __syncthreads();  // the previous lane's rows are written
+    for (int i = tid; i < n; i += blockDim.x)
+      lab[i] = __ldcg(a.labels + (size_t)b * n + i);
+    __syncthreads();
+    for (long long q = r + warp; q < end; q += nwarps) {
+      const int i = (int)(q - (long long)b * n);
+      float* out = a.mask + (size_t)q * n;
+      if (a.vec)
+        label_row4(lab, lab[i], n, out);
+      else
+        label_row(lab, lab[i], n, out);
+    }
+    r = end;
+  }
 }
 
 struct R1Args {
@@ -524,7 +660,7 @@ __host__ __device__ inline size_t r1_lab_offset(int v, int w, bool bits) {
 __host__ __device__ inline size_t r1_bytes(int v, int w, bool bits) {
   const size_t lab = r1_lab_offset(v, w, bits);
   const size_t wbuf = align16(lab + 4 * (size_t)v);
-  return align16(wbuf + 8 * (size_t)w);
+  return align16(wbuf + 16 * (size_t)w);
 }
 
 __global__ void __launch_bounds__(1024) r1_kernel(const R1Args a) {
@@ -549,7 +685,7 @@ __global__ void __launch_bounds__(1024) r1_kernel(const R1Args a) {
     }
   }
   __syncthreads();
-  const int rounds = components(bits, v, w, lab, wmax);
+  const int rounds = components<false>(bits, v, w, w, lab, wmax);
   for (int i = tid; i < v; i += bd) lab[i] += 1;  // label_row's live mark
   __syncthreads();
   for (int i = warp; i < v; i += nwarps)
@@ -1163,43 +1299,63 @@ int lb_launch(const T* ng, const G* gw0, const int* gid, long long gid_stride,
 // Plain C interface for ctypes.  Every pointer is a device pointer (indices
 // int32, masks one byte); `stream` is the caller's CUDA stream.  Each
 // returns the cudaError_t of its launches.
-extern "C" int form_groups_shared(const float* reach, long long reach_stride,
-                                  const unsigned char* alive, const int* rank,
-                                  int* coord, float* mask,
-                                  unsigned char* is_coord, int* size,
-                                  int* ngroups, int* sweeps, int n, int lanes,
-                                  void* stream) {
-  if (n <= 0 || lanes <= 0) return (int)cudaErrorInvalidValue;
+// G1's shared memory a CTA (dgi_kernels.g1_smem_bytes): the label CTA's
+// layout, with the packed rows at an odd stride when staged.
+size_t g1_global_smem(int n, bool staged) {
   const int w = (n + 31) / 32;
-  G1Args a{reach, reach_stride, alive,   rank,    coord,   mask,    is_coord,
-           size,  ngroups,      sweeps,  nullptr, nullptr, nullptr, n, w};
-  return launch(g1_shared_kernel, dim3(lanes), cta_threads(n),
-                g1_layout(n, w, true).total, (cudaStream_t)stream, a);
+  return g1_layout(n, w, staged ? (w | 1) : 0).total;
 }
 
-// `asym` must hold `lanes` zeros.
+// The CTAs of G1 an SM holds with `smem` bytes each, times the
+// SMs: the most a cooperative launch may take.
+extern "C" int g1_resident(long long smem, int* out) {
+  if (smem < 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(g1_global_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, g1_global_kernel,
+                                                    kG1Threads, (size_t)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  *out = per_sm * sms;
+  return 0;
+}
+
+// `grid` CTAs, every one resident (dgi_kernels.g1_global_plan); `bar` two
+// uint32 zeros that every launch leaves as it found them; `scratch` the
+// packed rows [lanes, n, w], then labels [lanes, n] and flags [lanes].
 extern "C" int form_groups_global(const float* reach, long long reach_stride,
                                   const unsigned char* alive, const int* rank,
                                   int* coord, float* mask,
                                   unsigned char* is_coord, int* size,
-                                  int* ngroups, int* sweeps, uint32_t* bits,
-                                  int* labels, int* asym, int n, int lanes,
-                                  void* stream) {
-  if (n <= 0 || lanes <= 0 || lanes > 65535) return (int)cudaErrorInvalidValue;
+                                  int* ngroups, int* sweeps, int* scratch,
+                                  unsigned* bar, int n, int lanes, int grid,
+                                  int staged, void* stream) {
+  if (n <= 0 || lanes <= 0 || grid <= 0 || !bar || !scratch)
+    return (int)cudaErrorInvalidValue;
   const int w = (n + 31) / 32;
-  G1Args a{reach, reach_stride, alive,  rank, coord,  mask, is_coord,
-           size,  ngroups,      sweeps, bits, labels, asym, n,    w};
-  const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 rows((n + kRowsPerBlock - 1) / kRowsPerBlock, lanes);
-  int rc = launch(g1_pack_kernel, rows, kGridThreads, 0, st, a);
-  if (rc) return rc;
-  rc = launch(g1_sym_kernel, dim3((w * w + kSymBlocks - 1) / kSymBlocks, lanes),
-              kGridThreads, 0, st, a);
-  if (rc) return rc;
-  rc = launch(g1_label_kernel, dim3(lanes), 1024,
-              g1_layout(n, w, false).total, st, a);
-  if (rc) return rc;
-  return launch(g1_mask_kernel, rows, kGridThreads, 4 * (size_t)n, st, a);
+  const size_t smem = g1_global_smem(n, staged != 0);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const bool vec = n % 4 == 0 && ((uintptr_t)reach | (uintptr_t)mask) % 16 == 0 &&
+                   (uintptr_t)alive % 4 == 0;
+  uint32_t* bits = (uint32_t*)scratch;
+  int* labels = scratch + (size_t)lanes * n * w;
+  G1Args a{reach, reach_stride, alive, rank,   coord,  mask,  is_coord,
+           size,  ngroups,      sweeps, bits,  labels, labels + (size_t)lanes * n,
+           bar,   n,            w,      lanes, staged != 0, vec};
+  cudaError_t e = cudaFuncSetAttribute(
+      g1_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel((const void*)g1_global_kernel, dim3(grid),
+                                  dim3(kG1Threads), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 extern "C" int reach_closure(const uint32_t* base, const int* fr,

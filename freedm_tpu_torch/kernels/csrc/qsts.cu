@@ -27,14 +27,35 @@
 //
 // Q1 qsts_bus_reduce — replaces the streaming reductions of
 //   scenarios/engine.py:401 `_build_bus_chunk` (:430-457, with `flow_peak`
-//   :423).  One CTA a lane: from a solved step's |V|, theta, realized P,
-//   iterations and flag, the lane's violation minutes, losses (sum P dt)
-//   and iteration sum, and the lane's partials of the study's worst
-//   iteration count, non-converged count, |V| envelope and peak branch |S|
-//   over both ends (v angle theta gathered at from_bus / to_bus).  The
-//   accumulators update in place (the reference donates its carry); the
-//   engine folds the partials into the study's scalars at the chunk's end
-//   with min / max / integer sums, which do not depend on order.
+//   :423).  From a solved step's |V|, theta, realized P, iterations and
+//   flag: the lane's violation minutes, losses (sum P dt) and iteration
+//   sum, and the lane's partials of the study's worst iteration count,
+//   non-converged count, |V| envelope and peak branch |S| over both ends.
+//   The accumulators update in place (the reference donates its carry);
+//   the engine folds the partials into the study's scalars at the chunk's
+//   end with min / max / integer sums, which do not depend on order.
+//
+//   Design (qsts_kernels.bus_reduce_plan, a function of n alone: the lane
+//   count never changes a lane's launch, nor its bits).  One CTA of 512
+//   threads a lane rotates every bus's voltage once, v cos theta and v sin
+//   theta by one sincos (the bits of cos() and sin()), into shared memory
+//   (16 n bytes: 32 KB at mesh2000), the loads of a round issued before
+//   their use; then walks the branches, f_idx, t_idx and y read coalesced,
+//   four branches' loads in flight a thread, the ends' voltages from
+//   shared memory.  Its first 256 threads also take the bus pass
+//   (violations, P, the envelope) in the order every earlier form took
+//   it: thread t adds buses t, t + 256, ... in turn, the warp by
+//   __shfl_down_sync, the warps' sums in warp order; so the losses keep
+//   their bits.  The CTA's five values go through one fused reduction
+//   (one __syncthreads), and thread 0 updates the accumulators (no float
+//   atomics).  Counts, the envelope and the peak (a max of values computed
+//   by the same operations) do not depend on the walk's order.  Past the
+//   shared memory (n > 14,500) the ends are rotated where they are read,
+//   as before.  One CTA of 256 threads a lane computing 16,000 trig calls
+//   (the first form) took 0.030 ms at mesh2000 x 64 by queued events on an
+//   H100, 0.0136 now; 256 threads a CTA, a lane on several CTAs meeting
+//   under an integer ticket, or a cluster sharing one stage through DSMEM,
+//   were no faster at mesh2000 from 64 lanes (measured variants).
 //
 // Q2 qsts_feeder_reduce — replaces the step of scenarios/engine.py:647
 //   `_build_feeder_chunk` after its solve (:662-684).  The ladder restarts
@@ -55,9 +76,9 @@
 // indices, 20.8 MB of state read and written a lane and step: 66 MB,
 // 19.7 us at S = 1, 128 MB, 38 us at S = 4 (bytes: ~60 operations an
 // agent).  Q1 at mesh2000 x 64: |V|, theta, P read (3 MB) and the branch
-// tables (0.3 MB), ~1 us; ~60 operations a branch end (sin, cos, two
-// complex products), 15 MFLOP: bytes.  Q2 at vvc_9bus x 24 * 64 lanes:
-// the ladder's outputs read once, 1.6 MB, ~0.5 us.
+// tables (0.3 MB), ~1 us; ~60 operations a branch end (two complex
+// products, a square root) and a sincos a bus, 15 MFLOP: bytes.  Q2 at
+// vvc_9bus x 24 * 64 lanes: the ladder's outputs read once, 1.6 MB, ~0.5 us.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -346,42 +367,166 @@ __device__ __forceinline__ double flow_abs(double ar, double ai, double y1r, dou
   return sqrt(sr * sr + si * si);
 }
 
-__global__ void __launch_bounds__(kThreads) bus_reduce_kernel(BusArgs a) {
-  __shared__ double sh[kWarps];
-  __shared__ int shi[kWarps];
-  const int s = blockIdx.x, tid = threadIdx.x;
-  const double* v = a.v + (size_t)s * a.n;
-  const double* th = a.th + (size_t)s * a.n;
-  const double* p = a.p + (size_t)s * a.n;
+// Q1's CTA (qsts_kernels.BUS_CTA_THREADS reads it: keep it a
+// `constexpr int name = value;`): a lane a CTA.
+constexpr int kBusThreads = 512;
+constexpr int kBusWarps = kBusThreads / 32;
+
+// Shared memory (qsts_kernels.bus_reduce_smem): the staged voltages (16 n
+// bytes when staged: a bus's re, im together), then each warp's psum,
+// vmin, vmax and peak and each warp's count.
+__host__ __device__ inline size_t bus_reduce_smem(int n, bool staged) {
+  return (staged ? 16 * (size_t)n : 0) + (8 * 4 + 4) * (size_t)kBusWarps;
+}
+
+// Loads a thread keeps in flight in Q1's passes (unrolled; the order of
+// each thread's additions is kept).  Loading the walk's first batch
+// before the stage, to overlap the two, spilled registers and was slower.
+constexpr int kBusUnroll = 8;
+constexpr int kWalkUnroll = 4;
+
+// A lane a CTA.  kStaged: every bus's rotated voltage in shared memory,
+// else rotated where it is read.
+template <bool kStaged>
+__global__ void __launch_bounds__(kBusThreads) bus_reduce_kernel(BusArgs a) {
+  constexpr int kT = kBusThreads, kW = kBusWarps;
+  extern __shared__ __align__(16) double2 stage[];
+  const int n = a.n, m = a.m, tid = threadIdx.x, s = blockIdx.x;
+  double* rd = (double*)(stage + (kStaged ? n : 0));  // [4][kW]
+  int* ri = (int*)(rd + 4 * kW);
+  const double* v = a.v + (size_t)s * n;
+  const double* th = a.th + (size_t)s * n;
+  const double* p = a.p + (size_t)s * n;
+  // Thread 0 reads the lane's accumulators now (used at the end).
+  double o_viol = 0.0, o_loss = 0.0, o_lo = 0.0, o_hi = 0.0, o_peak = 0.0;
+  int o_sum = 0, o_max = 0, o_nc = 0, it = 0;
+  bool conv = true;
+  if (tid == 0) {
+    o_viol = a.acc.viol[s];
+    o_loss = a.acc.loss[s];
+    o_sum = a.acc.it_sum[s];
+    o_max = a.acc.it_max[s];
+    o_nc = a.acc.nonconv[s];
+    o_lo = a.acc.v_lo[s];
+    o_hi = a.acc.v_hi[s];
+    o_peak = a.acc.peak[s];
+    it = a.it[s];
+    conv = a.conv[s] != 0;
+  }
+  // Staging (every thread: buses tid + j kT) and the bus pass (threads
+  // t < 256: buses t + j 256, in turn): each round's loads of both issued
+  // before either is used.
+  const bool bus_pass = tid < kThreads;
   int cnt = 0;
   double psum = 0.0, vmin = INFINITY, vmax = -INFINITY, peak = -INFINITY;
-  for (int b = tid; b < a.n; b += kThreads) {
-    const double vb = v[b];
-    cnt += (vb < a.lo || vb > a.hi) ? 1 : 0;
-    psum += p[b];
-    vmin = nan_min(vmin, vb);
-    vmax = nan_max(vmax, vb);
+  for (int j0 = 0; (kStaged && j0 * kT < n) || (bus_pass && j0 * kThreads < n);
+       j0 += kBusUnroll) {
+    double vs[kBusUnroll], ts[kBusUnroll], vb[kBusUnroll], pb[kBusUnroll];
+#pragma unroll
+    for (int u = 0; u < kBusUnroll; ++u) {
+      const int b = tid + (j0 + u) * kT, e = tid + (j0 + u) * kThreads;
+      const bool sin_ = kStaged && b < n, bin = bus_pass && e < n;
+      vs[u] = sin_ ? v[b] : 0.0;
+      ts[u] = sin_ ? th[b] : 0.0;
+      vb[u] = bin ? v[e] : 0.0;
+      pb[u] = bin ? p[e] : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < kBusUnroll; ++u) {
+      const int b = tid + (j0 + u) * kT;
+      if (kStaged && b < n) {
+        double sn, cs;
+        sincos(ts[u], &sn, &cs);  // the bits of sin() and cos()
+        stage[b] = make_double2(vs[u] * cs, vs[u] * sn);
+      }
+      if (bus_pass && tid + (j0 + u) * kThreads < n) {
+        cnt += (vb[u] < a.lo || vb[u] > a.hi) ? 1 : 0;
+        psum += pb[u];
+        vmin = nan_min(vmin, vb[u]);
+        vmax = nan_max(vmax, vb[u]);
+      }
+    }
   }
+  if (kStaged) __syncthreads();
   const double* y = a.y;
-  const int m = a.m;
-  for (int k = tid; k < m; k += kThreads) {
-    const int f = a.f_idx[k], t = a.t_idx[k];
-    const double fr = v[f] * cos(th[f]), fi = v[f] * sin(th[f]);
-    const double tr = v[t] * cos(th[t]), ti = v[t] * sin(th[t]);
-    const double sf = flow_abs(fr, fi, y[k], y[m + k], y[2 * m + k], y[3 * m + k],
-                               fr, fi, tr, ti);
-    const double st = flow_abs(tr, ti, y[4 * m + k], y[5 * m + k], y[6 * m + k],
-                               y[7 * m + k], fr, fi, tr, ti);
-    peak = nan_max(peak, nan_max(sf, st));
+  for (int k0 = tid; k0 < m; k0 += kT * kWalkUnroll) {
+    int f[kWalkUnroll], t[kWalkUnroll];
+    double yy[kWalkUnroll][8];
+#pragma unroll
+    for (int u = 0; u < kWalkUnroll; ++u) {
+      const int k = k0 + u * kT;
+      const bool in = k < m;
+      f[u] = in ? a.f_idx[k] : 0;
+      t[u] = in ? a.t_idx[k] : 0;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) yy[u][r] = in ? y[(size_t)r * m + k] : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < kWalkUnroll; ++u) {
+      if (k0 + u * kT >= m) continue;
+      double fr, fi, tr, ti;
+      if (kStaged) {
+        const double2 vf = stage[f[u]], vt = stage[t[u]];
+        fr = vf.x;
+        fi = vf.y;
+        tr = vt.x;
+        ti = vt.y;
+      } else {
+        fr = v[f[u]] * cos(th[f[u]]);
+        fi = v[f[u]] * sin(th[f[u]]);
+        tr = v[t[u]] * cos(th[t[u]]);
+        ti = v[t[u]] * sin(th[t[u]]);
+      }
+      const double sf = flow_abs(fr, fi, yy[u][0], yy[u][1], yy[u][2], yy[u][3],
+                                 fr, fi, tr, ti);
+      const double st = flow_abs(tr, ti, yy[u][4], yy[u][5], yy[u][6], yy[u][7],
+                                 fr, fi, tr, ti);
+      peak = nan_max(peak, nan_max(sf, st));
+    }
   }
-  cnt = block_isum(cnt, shi);
-  psum = block_sum(psum, sh);
-  vmin = block_ext<false>(vmin, sh);
-  vmax = block_ext<true>(vmax, sh);
-  peak = block_ext<true>(peak, sh);
-  if (tid == 0)
-    acc_update(a.acc, s, cnt, psum, a.it[s], a.conv[s] != 0, vmin, vmax, peak,
-               a.dt_min, a.dt_h);
+  // One fused block reduction: the warps by shuffles, their values in
+  // shared memory, thread 0 in warp order (the losses' order of old: the
+  // bus pass's eight warps).
+  for (int o = 16; o > 0; o >>= 1) {
+    psum += __shfl_down_sync(kFull, psum, o);
+    cnt += __shfl_down_sync(kFull, cnt, o);
+    vmin = nan_min(vmin, __shfl_down_sync(kFull, vmin, o));
+    vmax = nan_max(vmax, __shfl_down_sync(kFull, vmax, o));
+    peak = nan_max(peak, __shfl_down_sync(kFull, peak, o));
+  }
+  if ((tid & 31) == 0) {
+    const int w = tid >> 5;
+    rd[w] = psum;
+    rd[kW + w] = vmin;
+    rd[2 * kW + w] = vmax;
+    rd[3 * kW + w] = peak;
+    ri[w] = cnt;
+  }
+  __syncthreads();
+  if (tid != 0) return;
+  psum = 0.0;
+  cnt = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    psum += rd[w];
+    cnt += ri[w];
+  }
+  vmin = rd[kW];
+  vmax = rd[2 * kW];
+  peak = rd[3 * kW];
+  for (int w = 1; w < kW; ++w) {
+    vmin = nan_min(vmin, rd[kW + w]);
+    vmax = nan_max(vmax, rd[2 * kW + w]);
+    peak = nan_max(peak, rd[3 * kW + w]);
+  }
+  // acc_update's expressions, on the values read at the start.
+  a.acc.viol[s] = o_viol + a.dt_min * (double)cnt;
+  a.acc.loss[s] = o_loss + psum * a.dt_h;
+  a.acc.it_sum[s] = o_sum + it;
+  a.acc.it_max[s] = max(o_max, it);
+  a.acc.nonconv[s] = o_nc + (conv ? 0 : 1);
+  a.acc.v_lo[s] = nan_min(o_lo, vmin);
+  a.acc.v_hi[s] = nan_max(o_hi, vmax);
+  a.acc.peak[s] = nan_max(o_peak, peak);
 }
 
 struct FeederArgs {
@@ -478,19 +623,38 @@ extern "C" int agent_step(
   return (int)cudaGetLastError();
 }
 
+// Q1's launch: a CTA a lane, `staged` when 16 n bytes of rotated
+// voltages fit its shared memory (qsts_kernels.bus_reduce_plan).
+constexpr int kBusMaxSmem = 232448;
+
+template <bool kStaged>
+int bus_reduce_launch(const BusArgs& a, int lanes, cudaStream_t stream) {
+  const size_t smem = bus_reduce_smem(a.n, kStaged);
+  if (smem > (size_t)kBusMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // above 48 KB a kernel has to opt in
+    const cudaError_t e = cudaFuncSetAttribute(
+        bus_reduce_kernel<kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  bus_reduce_kernel<kStaged><<<(unsigned)lanes, kBusThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int qsts_bus_reduce(const double* v, const double* th, const double* p,
                                const int* it, const unsigned char* conv,
                                const int* f_idx, const int* t_idx, const double* y,
                                double* viol, double* loss, int* it_sum, int* it_max,
                                int* nonconv, double* v_lo, double* v_hi, double* peak,
-                               int lanes, int n, int m, double dt_min, double dt_h,
-                               double lo, double hi, void* stream) {
+                               int lanes, int n, int m, int staged, double dt_min,
+                               double dt_h, double lo, double hi, void* stream) {
   if (lanes <= 0 || n <= 0 || m < 0) return (int)cudaErrorInvalidValue;
   BusArgs a{v, th, p, it, conv, f_idx, t_idx, y,
             Acc{viol, loss, it_sum, it_max, nonconv, v_lo, v_hi, peak},
             n, m, dt_min, dt_h, lo, hi};
-  bus_reduce_kernel<<<(unsigned)lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return staged ? bus_reduce_launch<true>(a, lanes, st)
+                : bus_reduce_launch<false>(a, lanes, st);
 }
 
 extern "C" int qsts_feeder_reduce(const double* v_re, const double* v_im,

@@ -178,6 +178,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "grid_sync.cuh"
 #include "row_product.cuh"
 
 namespace {
@@ -1186,28 +1187,6 @@ struct WalkArgs {
   int steps;
   WalkShape sh;
 };
-
-// A grid-wide barrier of a cooperative launch on integer counters: the
-// last CTA to arrive resets the count and advances the generation the
-// others wait on.  Every barrier leaves the count at 0, so the buffer
-// serves launch after launch on one stream (zeros once).
-__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned blocks) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();  // this CTA's writes, and the read of g, before arriving
-    if (atomicAdd(bar, 1u) == blocks - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 // Stage the columns [k0, k0 + kTileK) of the lanes b0.. of the running
 // cotangent: through L2 only (cp.async.cg; the scalar form by ld.cg), as

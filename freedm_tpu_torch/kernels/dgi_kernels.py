@@ -27,11 +27,10 @@ kernel gives the same bits on every run (no float atomics).
   live node's label is the largest rank it reaches (the fixed point of
   the reference's label propagation: on a symmetric ``reach``, the
   contract, its component's), the coordinator the node of that rank.
-  Form :data:`SHARED` (one CTA a lane, the packed adjacency in shared
-  memory) where the bits fit a CTA and the lanes fill the card; form
-  :data:`GLOBAL` (four launches: pack, symmetry check, labels, mask over
-  grids of row blocks; the bits in device memory) otherwise
-  (:func:`g1_form`).
+  One cooperative launch on :func:`g1_global_plan`: the grid packs every
+  lane's rows into a device scratch, one CTA a lane closes them (copied
+  into its shared memory where they fit), the grid writes the mask —
+  between integer grid barriers (:func:`build.grid_barrier`).
 - **R1** takes :class:`ReachOperands` (the topology's packed adjacency
   and FID ends, built once by :func:`reach_operands`) and ``closed [S,
   n_fids]`` (float32, > 0 closed) and returns ``[S, V, V]`` float32 0/1.
@@ -49,6 +48,7 @@ kernel gives the same bits on every run (no float atomics).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
@@ -66,9 +66,9 @@ LAUNCHES: Dict[str, int] = {"form_groups": 0, "reach_closure": 0,
                             "lb_rounds": 0}
 _launch_lock = threading.Lock()
 
-#: The forms of G1 and B1: the working set in a CTA's shared memory, or in
-#: device memory; B1's WIDE form sorts a key pair (one CTA, device
-#: memory), its CLUSTER form the same key pairs on a thread-block cluster.
+#: The forms of B1: the working set in a CTA's shared memory, or in
+#: device memory; its WIDE form sorts a key pair (one CTA, device memory),
+#: its CLUSTER form the same key pairs on a thread-block cluster.
 SHARED, GLOBAL, WIDE, CLUSTER = "SHARED", "GLOBAL", "WIDE", "CLUSTER"
 
 #: B1 packs a node's group id and index in 15 bits each of its sort key
@@ -149,34 +149,71 @@ def _align16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def g1_smem_bytes(n: int, with_bits: bool) -> int:
+def g1_smem_bytes(n: int, stride: int = 0) -> int:
     """G1's shared memory a CTA (``csrc/dgi.cu`` ``g1_layout``): the packed
-    rows when ``with_bits`` (form SHARED), labels, the rank-to-node map,
-    two ints a word, the group counts and a reduction buffer."""
+    rows, ``stride`` words apart (0: none), labels, the rank-to-node map,
+    four ints a word, the group counts and a reduction buffer."""
     w = _words(n)
-    off = _align16(n * w * 4) if with_bits else 0
+    off = _align16(n * stride * 4)
     off = _align16(off + 4 * n)
     off = _align16(off + 4 * (n + 1))
-    off = _align16(off + 8 * w)
+    off = _align16(off + 16 * w)
     off = _align16(off + 4 * (n + 1))
     return off + 128
 
 
-#: G1 takes its SHARED form (one CTA a lane) from this many node-lanes
-#: (N × lanes): below, GLOBAL's grids of row blocks use more of the card.
-#: On the H100 (chip_smoke.py phase 24's forms row, ms SHARED / GLOBAL by
-#: CUDA events a call, sparse reach): N = 256 × 128 lanes 0.132 / 0.138,
-#: N = 1024 × 16 0.354 / 0.229, × 64 0.389 / 0.357, × 128 0.437 / 0.537.
-G1_SHARED_MIN_NODE_LANES = 1 << 16
+#: G1's threads a CTA (``csrc/dgi.cu`` ``kG1Threads``).
+(G1_THREADS,) = build.constants("dgi.cu", "kG1Threads")
+#: G1's grid: a CTA for this many of the lanes' rows, at least one a lane,
+#: at most as many as the card holds at once.
+G1_ROWS_PER_CTA = 8
 
 
-def g1_form(n: int, lanes: int = 1) -> str:
-    """The form G1 takes for ``lanes`` lanes of ``n`` nodes: SHARED from
-    :data:`G1_SHARED_MIN_NODE_LANES` node-lanes while the packed rows fit
-    a CTA's shared memory (n ≤ 1312), else GLOBAL."""
-    fits = g1_smem_bytes(n, True) <= SMEM_LIMIT
-    return (SHARED if fits and n * lanes >= G1_SHARED_MIN_NODE_LANES
-            else GLOBAL)
+class G1Plan(NamedTuple):
+    """G1's cooperative launch: ``grid`` CTAs of
+    :data:`G1_THREADS`, ``staged`` when a lane's packed rows fit a CTA's
+    shared memory (copied in for its closure), ``smem`` bytes a CTA."""
+
+    grid: int
+    staged: bool
+    smem: int
+
+
+def g1_stride(n: int) -> int:
+    """Words between the packed rows G1 copies into a CTA's shared memory:
+    odd, so a warp's rows' word k lie in 32 banks."""
+    return _words(n) | 1
+
+
+def g1_staged(n: int) -> bool:
+    """Whether G1 copies a lane's packed rows into shared memory for its
+    closure: while they fit (n ≤ 1312)."""
+    return g1_smem_bytes(n, g1_stride(n)) <= SMEM_LIMIT
+
+
+@functools.lru_cache(maxsize=256)
+def g1_global_plan(n: int, lanes: int, resident: int) -> G1Plan:
+    """G1's launch for ``lanes`` lanes of ``n`` nodes on a card
+    that holds ``resident`` of its CTAs at once: a CTA for every
+    :data:`G1_ROWS_PER_CTA` rows, at least one a lane, at most
+    ``resident`` (every CTA resident: the grid barriers need it; a lane
+    beyond takes a CTA's next turn)."""
+    if n < 1 or lanes < 1 or resident < 1:
+        raise ValueError(f"g1_global_plan needs n, lanes, resident >= 1, "
+                         f"got {n}, {lanes}, {resident}")
+    staged = g1_staged(n)
+    want = max(lanes, -(-(lanes * n) // G1_ROWS_PER_CTA))
+    return G1Plan(min(resident, want), staged,
+                  g1_smem_bytes(n, g1_stride(n) if staged else 0))
+
+
+def g1_rows(n: int, lanes: int, grid: int) -> list:
+    """The rows (lane-major, ``lane · n + node``) each CTA of G1 packs and
+    masks: contiguous, ``[R c / grid, R (c + 1) / grid)`` of the
+    ``R = lanes · n``."""
+    rows = lanes * n
+    return [range(rows * c // grid, rows * (c + 1) // grid)
+            for c in range(grid)]
 
 
 def r1_smem_bytes(n: int, with_bits: bool) -> int:
@@ -184,7 +221,7 @@ def r1_smem_bytes(n: int, with_bits: bool) -> int:
     w = _words(n)
     off = _align16(n * w * 4) if with_bits else 0
     off = _align16(off + 4 * n)
-    return _align16(off + 8 * w)
+    return _align16(off + 16 * w)
 
 
 def lb_pad(n: int) -> int:
@@ -463,8 +500,8 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 _LB_SIG = [_P, _P, _P, _L, _P, _L, _P, _L, _D] + [_P] * 8 + [_I] * 4 + [_P]
 _SIGS = {
-    "form_groups_shared": [_P, _L, _P, _P] + [_P] * 6 + [_I, _I, _P],
-    "form_groups_global": [_P, _L, _P, _P] + [_P] * 9 + [_I, _I, _P],
+    "form_groups_global": [_P, _L, _P, _P] + [_P] * 8 + [_I] * 4 + [_P],
+    "g1_resident": [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)],
     "reach_closure": [_P] * 7 + [_I] * 3 + [_P],
     "lb_rounds_ff": _LB_SIG,
     "lb_rounds_dd": _LB_SIG,
@@ -532,17 +569,32 @@ def _ptr(t: Optional[Tensor]):
     return None if t is None else t.data_ptr()
 
 
+#: G1's resident CTAs by (device, shared memory a CTA).
+_resident: Dict[Tuple[int, int], int] = {}
+
+
+def g1_resident(device: torch.device, smem: int) -> int:
+    """The CTAs of G1 ``device`` holds at once with ``smem`` bytes
+    of shared memory each (the occupancy API, asked once)."""
+    key = (device.index, smem)
+    held = _resident.get(key)
+    if held is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _raise_on(_fn("g1_resident")(smem, ctypes.byref(out)),
+                      "form_groups")
+        held = _resident[key] = int(out.value)
+    return held
+
+
 def form_groups(alive: Tensor, reach: Tensor, rank: Tensor,
-                sweeps: Optional[Tensor] = None,
-                form: Optional[str] = None) -> GroupLanes:
+                sweeps: Optional[Tensor] = None) -> GroupLanes:
     """G1: groups and coordinators of ``B`` lanes, ``alive [B, N]``
     (bool), ``reach [1 or B, N, N]`` (float32), ``rank [N]`` (int32, a
     permutation of 1..N).  On the card an int32 ``sweeps [B]`` receives
     a diagnostic a lane: the hooking rounds of its components (a symmetric
     reach, the contract), or minus the label sweeps of the directed
-    closure (any other; the last round or sweep changed nothing).
-    ``form`` forces :data:`SHARED` or :data:`GLOBAL` (default
-    :func:`g1_form`): ``chip_smoke.py`` holds the two to the same bits."""
+    closure (any other; the last round or sweep changed nothing)."""
     if not _on_card(alive, "form_groups"):
         return form_groups_plain(alive, reach, rank)
     dev = alive.device
@@ -556,11 +608,7 @@ def form_groups(alive: Tensor, reach: Tensor, rank: Tensor,
     if int(reach.shape[0]) not in (1, lanes):
         raise ValueError(f"reach must hold 1 or {lanes} lanes, got "
                          f"{int(reach.shape[0])}")
-    form = g1_form(n, lanes) if form is None else form
-    if form not in (SHARED, GLOBAL) or (
-            form == SHARED and g1_smem_bytes(n, True) > SMEM_LIMIT):
-        raise ValueError(f"form_groups has no form {form!r} at n = {n}")
-    if form == GLOBAL and g1_smem_bytes(n, False) > SMEM_LIMIT:
+    if g1_smem_bytes(n) > SMEM_LIMIT:
         raise ValueError(f"form_groups keeps a lane's labels in shared "
                          f"memory: n = {n} is too large")
     _want(dev, alive=(alive, torch.bool, (lanes, n)),
@@ -574,20 +622,18 @@ def form_groups(alive: Tensor, reach: Tensor, rank: Tensor,
     is_coord = torch.empty(lanes, n, dtype=torch.bool, device=dev)
     size = torch.empty(lanes, n, dtype=torch.int32, device=dev)
     n_groups = torch.empty(lanes, dtype=torch.int32, device=dev)
-    head = (reach.data_ptr(), stride, alive.data_ptr(), rank.data_ptr(),
-            coord.data_ptr(), mask.data_ptr(), is_coord.data_ptr(),
-            size.data_ptr(), n_groups.data_ptr(), _ptr(sweeps))
+    stream = _stream(alive)
     with torch.cuda.device(dev):
-        if form == SHARED:
-            rc = _fn("form_groups_shared")(*head, n, lanes, _stream(alive))
-        else:
-            bits = torch.empty(lanes, n, _words(n), dtype=torch.int32,
-                               device=dev)
-            labels = torch.empty(lanes, n, dtype=torch.int32, device=dev)
-            asym = torch.zeros(lanes, dtype=torch.int32, device=dev)
-            rc = _fn("form_groups_global")(*head, bits.data_ptr(),
-                                           labels.data_ptr(), asym.data_ptr(),
-                                           n, lanes, _stream(alive))
+        plan = g1_global_plan(n, lanes, g1_resident(
+            dev, g1_global_plan(n, lanes, 1).smem))
+        scratch = torch.empty(lanes * (n * _words(n) + n + 1),
+                              dtype=torch.int32, device=dev)
+        rc = _fn("form_groups_global")(
+            reach.data_ptr(), stride, alive.data_ptr(), rank.data_ptr(),
+            coord.data_ptr(), mask.data_ptr(), is_coord.data_ptr(),
+            size.data_ptr(), n_groups.data_ptr(), _ptr(sweeps),
+            scratch.data_ptr(), build.grid_barrier(dev, stream).data_ptr(),
+            n, lanes, plan.grid, int(plan.staged), stream)
     _raise_on(rc, "form_groups")
     _count("form_groups")
     return GroupLanes(coord, mask, is_coord, size, n_groups)

@@ -43,6 +43,12 @@ study's scalars (worst iteration count, non-converged count, voltage
 envelope, peak branch power).  The engine folds those partials into the
 scalars at the chunk's end with ``amin``/``amax``/integer sums, which do
 not depend on order.
+
+**Q1's launch** follows :func:`bus_reduce_plan`, a function of the bus
+count alone: a CTA a lane stages every bus's rotated voltage once and
+walks the branches.  The bus pass keeps one order on every plan and lane
+count (:func:`bus_reduce_mirror` is that order on the host), so the
+accumulators are the same bits whatever the plan and the lane count.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ import numpy as np
 import torch
 
 from freedm_tpu_torch.kernels import build
+from freedm_tpu_torch.kernels.sparse_kernels import SMEM_LIMIT
 
 Tensor = torch.Tensor
 
@@ -433,6 +440,83 @@ def qsts_bus_reduce_plain(v: Tensor, theta: Tensor, p: Tensor, it: Tensor,
                 dt_min, dt_h)
 
 
+#: Q1's bus pass (``csrc/qsts.cu`` ``kThreads``): thread t of 256 adds
+#: buses t, t + 256, ... in turn, whatever the CTA's width.
+BUS_THREADS = 256
+_BUS_WARPS = BUS_THREADS // 32
+#: Threads of Q1's CTA, a lane a CTA (``kBusThreads``).
+(BUS_CTA_THREADS,) = build.constants("qsts.cu", "kBusThreads")
+
+
+class BusReducePlan(NamedTuple):
+    """Q1's launch: ``staged`` when every bus's rotated voltage fits a
+    CTA's shared memory, ``smem`` bytes a CTA."""
+
+    staged: bool
+    smem: int
+
+
+def bus_reduce_smem(n: int, staged: bool) -> int:
+    """Q1's shared memory a CTA (``csrc/qsts.cu`` ``bus_reduce_smem``):
+    16 bytes a bus when staged, then the fused reduction's buffer."""
+    return (16 * n if staged else 0) + 36 * (BUS_CTA_THREADS // 32)
+
+
+def bus_reduce_plan(n: int) -> BusReducePlan:
+    """Q1's launch for ``n`` buses, never the lane count: staged while
+    ``16 n`` bytes fit a CTA's shared memory (n ≤ 14,500)."""
+    if n < 1:
+        raise ValueError(f"bus_reduce_plan needs n >= 1, got {n}")
+    staged = bus_reduce_smem(n, True) <= SMEM_LIMIT
+    return BusReducePlan(staged, bus_reduce_smem(n, staged))
+
+
+def bus_reduce_mirror(v: Tensor, theta: Tensor, p: Tensor, it: Tensor,
+                      conv: Tensor, op: BusReduceOperands, acc: StepAcc,
+                      dt_min: float, dt_h: float, lo: float,
+                      hi: float) -> None:
+    """Q1's kernel on the host, for tests: the arguments of
+    :func:`qsts_bus_reduce_plain`, in its order.  The losses' sum is the
+    bus pass's — thread t of :data:`BUS_THREADS` adds buses t, t + 256,
+    ... in turn from 0.0, each warp by ``__shfl_down_sync`` (offsets 16 to
+    1), the warps' sums added in warp order from 0.0."""
+    lanes, n = (int(d) for d in v.shape)
+    f64 = torch.float64
+    part = torch.zeros(lanes, BUS_THREADS, dtype=f64, device=v.device)
+    for b0 in range(0, n, BUS_THREADS):
+        w = min(BUS_THREADS, n - b0)
+        part[:, :w] = part[:, :w] + p[:, b0:b0 + w]
+    x = part.view(lanes, _BUS_WARPS, 32)
+    for o in (16, 8, 4, 2, 1):
+        x = x[..., :o] + x[..., o:2 * o]
+    psum = torch.zeros(lanes, dtype=f64, device=v.device)
+    for w in range(_BUS_WARPS):
+        psum = psum + x[:, w, 0]
+    vr, vi = v * torch.cos(theta), v * torch.sin(theta)
+    y = op.y
+    f, t = op.f_idx.long(), op.t_idx.long()
+    fr, fi, tr, ti = vr[:, f], vi[:, f], vr[:, t], vi[:, t]
+
+    def flow(ar, ai, k1, k2):
+        y1r, y1i, y2r, y2i = (y[r] for r in (2 * k1, 2 * k1 + 1, 2 * k2,
+                                             2 * k2 + 1))
+        x1r, x1i = y1r * fr - y1i * fi, y1r * fi + y1i * fr
+        x2r, x2i = y2r * tr - y2i * ti, y2r * ti + y2i * tr
+        br, bi = x1r + x2r, -(x1i + x2i)
+        sr, si = ar * br - ai * bi, ar * bi + ai * br
+        return torch.sqrt(sr * sr + si * si)
+
+    if int(f.shape[0]):
+        peak = torch.maximum(torch.amax(flow(fr, fi, 0, 1), dim=1),
+                             torch.amax(flow(tr, ti, 2, 3), dim=1))
+    else:
+        peak = torch.full((lanes,), -float("inf"), dtype=f64, device=v.device)
+    outside = (v < lo) | (v > hi)
+    _update_acc(acc, torch.sum(outside, dim=1), psum, it, conv,
+                torch.amin(v, dim=1), torch.amax(v, dim=1), peak, dt_min,
+                dt_h)
+
+
 class FeederReduceOperands(NamedTuple):
     """Q2's feeder data: ``root [nb]`` (1.0 on substation-fed branches),
     ``live [nn, 3]`` (1.0 where a node has the phase; the substation's
@@ -501,7 +585,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGS = {
     "agent_step": [_P] * 30 + [_I] * 11 + [_D] * 2 + [_P],
-    "qsts_bus_reduce": [_P] * 16 + [_I] * 3 + [_D] * 4 + [_P],
+    "qsts_bus_reduce": [_P] * 16 + [_I] * 4 + [_D] * 4 + [_P],
     "qsts_feeder_reduce": [_P] * 18 + [_I] * 3 + [_D] * 5 + [_P],
 }
 _lib_lock = threading.Lock()
@@ -618,16 +702,20 @@ def agent_step(op: AgentOperands, state: List[Tensor], obs: Optional[Tensor],
 
 def qsts_bus_reduce(v: Tensor, theta: Tensor, p: Tensor, it: Tensor,
                     conv: Tensor, op: BusReduceOperands, acc: StepAcc,
-                    dt_min: float, dt_h: float, lo: float,
-                    hi: float) -> None:
+                    dt_min: float, dt_h: float, lo: float, hi: float,
+                    plan: Optional[BusReducePlan] = None) -> None:
     """Q1: one solved step into the lanes' accumulators, in one launch
-    (the arguments of :func:`qsts_bus_reduce_plain`)."""
+    (the arguments of :func:`qsts_bus_reduce_plain`).  ``plan`` forces a
+    launch (default :func:`bus_reduce_plan`); both give the same bits."""
     if not _on_card(v, "qsts_bus_reduce"):
         return qsts_bus_reduce_plain(v, theta, p, it, conv, op, acc, dt_min,
                                      dt_h, lo, hi)
     dev, f64 = v.device, torch.float64
     lanes, n = (int(d) for d in v.shape)
     m = int(op.f_idx.shape[0])
+    plan = bus_reduce_plan(n) if plan is None else plan
+    if bus_reduce_smem(n, plan.staged) > SMEM_LIMIT:
+        raise ValueError(f"qsts_bus_reduce has no plan {plan} at n = {n}")
     _want(dev, v=(v, (lanes, n), f64), theta=(theta, (lanes, n), f64),
           p=(p, (lanes, n), f64), it=(it, (lanes,), torch.int32),
           conv=(conv, (lanes,), torch.bool),
@@ -638,8 +726,8 @@ def qsts_bus_reduce(v: Tensor, theta: Tensor, p: Tensor, it: Tensor,
         rc = _fn("qsts_bus_reduce")(
             v.data_ptr(), theta.data_ptr(), p.data_ptr(), it.data_ptr(),
             conv.data_ptr(), op.f_idx.data_ptr(), op.t_idx.data_ptr(),
-            op.y.data_ptr(), *args, lanes, n, m, float(dt_min), float(dt_h),
-            float(lo), float(hi), _stream(v))
+            op.y.data_ptr(), *args, lanes, n, m, int(plan.staged),
+            float(dt_min), float(dt_h), float(lo), float(hi), _stream(v))
     _raise_on(rc, "qsts_bus_reduce")
     _count("qsts_bus_reduce")
 

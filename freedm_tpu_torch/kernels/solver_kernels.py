@@ -928,23 +928,6 @@ def _lane_tickets(device: torch.device, stream: int, lanes: int) -> Tensor:
     return t
 
 
-#: I2's grid barrier (two uint32: arrivals, generation) by (device,
-#: stream): zeros that every launch leaves as it found them.
-_barriers: Dict[Tuple[int, int], Tensor] = {}
-
-
-def _walk_barrier(device: torch.device, stream: int) -> Tensor:
-    key = (device.index, stream)
-    with _launch_lock:
-        t = _barriers.get(key)
-        if t is None:
-            if len(_barriers) >= 64:
-                _barriers.clear()
-            t = _barriers[key] = torch.zeros(2, dtype=torch.int32,
-                                             device=device)
-    return t
-
-
 #: Each operand set's :class:`ResidualLayout` by (operands, VJP operands),
 #: built at its first staged launch and kept while the operands live here.
 _layouts: Dict[Tuple[int, int], tuple] = {}
@@ -1276,7 +1259,7 @@ def _walk_launch(h_re, h_im, g_re, g_im, v_re, v_im, v_step, s_re, s_im,
     with ctx:
         part = torch.empty(plan.slots, 2, TILE_LANES, TILE_ROWS, dtype=dt,
                            device=s_re.device)
-        bar = _walk_barrier(s_re.device, stream)
+        bar = build.grid_barrier(s_re.device, stream)
         rc = fn(h_re.data_ptr(), h_im.data_ptr(), g_re.data_ptr(),
                 g_im.data_ptr(), v_re.data_ptr(), v_im.data_ptr(),
                 int(v_step), s_re.data_ptr(), s_im.data_ptr(),

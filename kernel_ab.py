@@ -6,13 +6,15 @@
 (C1), L1 ``ladder_solve``, L2 ``ladder_vjp``, L3 ``ladder_dense``, L4
 ``ladder_doubling``, I2 ``cim_vjp``, B1 ``lb_rounds`` from 2¹⁵ nodes, T1
 ``topo_radiality``, T2 ``topo_screen``, J1 ``residual_jvp`` and J2
-``residual_vjp`` of this checkout against those of other checkouts of the
-repo, in turns on one card.
+``residual_vjp``, Q1 ``qsts_bus_reduce`` and G1 ``form_groups`` of this
+checkout against those of other checkouts of the repo, in turns on one
+card.
 
     python3 kernel_ab.py OTHER [OTHER ...]
                          [--sections sparse,delta,newton,solvers,ladder,
                                      vjp,dense,doubling,superstep,qsts,
-                                     i2,wide,topo,residual]
+                                     i2,wide,topo,residual,bus_reduce,
+                                     groups]
                          [--out FILE]
 
 Each ``OTHER`` is the root of another checkout, for example one written
@@ -170,6 +172,20 @@ events.  The checkouts' outputs agree within ``chip_smoke.KERNEL_ATOL``
 (float32 ``KERNEL_ATOL_F32``) of the largest entry above 1, and whether
 they are the same bits is printed (``residual_*_same_bits``).
 
+The ``bus_reduce`` section times Q1 ``qsts_bus_reduce`` at
+``BUS_REDUCE_SHAPES`` (mesh2000 x 1, x 64 and x 256, mesh5000 x 64) on
+seeded |V|, theta, P, iterations and flags made here, each checkout on
+its own operands and default launch, device time by queued events; one
+call's eight accumulators from the same seeded start must be the same
+bits in every checkout.
+
+The ``groups`` section times G1 ``form_groups`` at ``GROUPS_SHAPES``
+(the superstep's reach, ``chip_smoke.superstep_reach``, at N = 1024 x 1;
+``chip_smoke.g1_graph``'s sparse reach at 1024 x 1, x 16, x 64 and 4096 x
+1) through each checkout's default route, by queued events and by CUDA
+events a call (the wrapper's host time counted in); every field of the
+outputs must be equal across the checkouts.
+
 Prints the card's name and power limit, one line per turn and a JSON
 summary as the last line (also written to ``--out``).  Needs a CUDA card.
 """
@@ -193,7 +209,14 @@ KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "gmres_lstsq", "newton_update")
 SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder", "vjp", "dense",
             "doubling", "superstep", "qsts", "i2", "wide", "topo",
-            "residual")
+            "residual", "bus_reduce", "groups")
+#: The ``bus_reduce`` section's shapes: (case, lanes).
+BUS_REDUCE_SHAPES = (("mesh2000", 1), ("mesh2000", 64), ("mesh2000", 256),
+                     ("mesh5000", 64))
+#: The ``groups`` section's shapes: (reach, N, lanes).
+GROUPS_SHAPES = (("superstep", 1024, 1), ("sparse", 1024, 1),
+                 ("sparse", 1024, 16), ("sparse", 1024, 64),
+                 ("sparse", 4096, 1))
 #: The ``residual`` section's lane counts: the krylov lane batch and the
 #: sparse backward.
 RESIDUAL_LANES = (256, 64)
@@ -269,6 +292,8 @@ def prepare(path: Path, sections) -> None:
                  rng.uniform(0.95, 1.05, (lanes, n))], 1)),
             "u": torch.as_tensor(rng.normal(size=(lanes, 2 * n))),
             "status": torch.as_tensor(st)}
+    if "bus_reduce" in sections:
+        data["bus_reduce"] = bus_reduce_inputs(cs)
     if "delta" in sections:
         case = cs.DeltaCase(torch, ck, "mesh2000")
         data["delta"] = [np.asarray(a) for a in case.inputs(
@@ -291,6 +316,71 @@ def prepare(path: Path, sections) -> None:
         data[name] = {k: v.cpu() if torch.is_tensor(v) else v
                       for k, v in data[name].items()}
     torch.save(data, path)
+
+
+def bus_reduce_inputs(cs) -> dict:
+    """Q1's seeded inputs by case, at the widest lane count of
+    ``BUS_REDUCE_SHAPES`` (a narrower shape takes the first lanes)."""
+    out = {}
+    for case in sorted({c for c, _ in BUS_REDUCE_SHAPES}):
+        n = cs.case_system(case).n_bus
+        lanes = max(w for c, w in BUS_REDUCE_SHAPES if c == case)
+        rng = np.random.default_rng(23)
+        out[case] = (rng.uniform(0.93, 1.07, (lanes, n)),
+                     rng.normal(0.0, 0.3, (lanes, n)),
+                     rng.normal(0.0, 1.0, (lanes, n)),
+                     rng.integers(1, 9, lanes).astype(np.int32),
+                     rng.uniform(size=lanes) > 0.1)
+    return out
+
+
+def measure_bus_reduce(torch, cs, data, dev):
+    """Q1 at ``BUS_REDUCE_SHAPES`` through this checkout's wrapper and
+    operands: queued-event times, and one call's accumulators."""
+    from freedm_tpu_torch.kernels import qsts_kernels as qk
+
+    times, outs = {}, {}
+    for case, lanes in BUS_REDUCE_SHAPES:
+        op = qk.bus_reduce_operands(cs.case_system(case), dev)
+        v, th, p, it, conv = (torch.as_tensor(x[:lanes], device=dev)
+                              for x in data[case])
+        acc = cs.random_acc(torch, qk, lanes, 5)
+
+        def call(acc=acc):
+            qk.qsts_bus_reduce(v, th, p, it, conv, op, acc, 15.0, 0.25, 0.95,
+                               1.05)
+        call()
+        key = f"{case}_x{lanes}"
+        outs[key] = [x.cpu() for x in acc]
+        times[key] = cs.queued_events_ms(torch, call, 50)
+    return times, outs
+
+
+def measure_groups(torch, cs, dev):
+    """G1 at ``GROUPS_SHAPES`` through this checkout's wrapper and its
+    default route: queued-event times, CUDA events a call, and the
+    outputs."""
+    from freedm_tpu_torch.kernels import dgi_kernels as dk
+
+    times, outs = {}, {}
+    for kind, n, lanes in GROUPS_SHAPES:
+        if kind == "superstep":
+            rs, al = cs.superstep_reach(torch, dev)
+            rank = cs.g1_rank(torch, cs.gm_priority(n), dev)
+        else:
+            reach, alive, prio = cs.g1_graph(n, lanes, seed=7 * n)
+            rank = cs.g1_rank(torch, prio, dev)
+            al = torch.as_tensor(alive, device=dev)
+            rs = torch.as_tensor(reach, device=dev)[None].contiguous()
+        key = f"{kind}_{n}x{lanes}"
+        outs[key] = [x.cpu() for x in dk.form_groups(al, rs, rank)]
+
+        def call():
+            return dk.form_groups(al, rs, rank)
+        times[key] = cs.queued_events_ms(torch, call, 30)
+        times[f"{key}_a_call"] = cs.events_ms(torch, call, 30)
+        torch.cuda.empty_cache()
+    return times, outs
 
 
 def solver_inputs(torch, cs) -> dict:
@@ -855,6 +945,11 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
     if "residual" in sections:
         times["residual"], outs["residual"] = measure_residual(
             torch, cs, data["residual"], dev)
+    if "bus_reduce" in sections:
+        times["bus_reduce"], outs["bus_reduce"] = measure_bus_reduce(
+            torch, cs, data["bus_reduce"], dev)
+    if "groups" in sections:
+        times["groups"], outs["groups"] = measure_groups(torch, cs, dev)
     if "delta" in sections:
         times["delta"], outs["delta"] = measure_delta(torch, cs, sys_,
                                                       data["delta"], dev)
@@ -1145,6 +1240,18 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
         moved = x.view(ints) != y.view(ints)
         errs[f"residual_{key}_moved_theta_v"] = [int(moved[:, :n].sum()),
                                                  int(moved[:, n:].sum())]
+    for key, outs in a.get("bus_reduce", {}).items():
+        same = all(torch.equal(x, y) if x.dtype == torch.int32
+                   else cs.same_bits(torch, x, y)
+                   for x, y in zip(outs, b["bus_reduce"][key]))
+        cs.check(same, f"{label}: Q1 {key} accumulators differ from this "
+                 f"checkout's")
+        errs[f"bus_reduce_{key}_same_bits"] = same
+    for key, outs in a.get("groups", {}).items():
+        same = all(torch.equal(x, y) for x, y in zip(outs, b["groups"][key]))
+        cs.check(same, f"{label}: G1 {key} outputs differ from this "
+                 f"checkout's")
+        errs[f"groups_{key}_same"] = same
     for key, (ta, va, sa) in a.get("delta", {}).items():
         tb, vb, sb = b["delta"][key]
         d = max(float((ta - tb).abs().max()), float((va - vb).abs().max()))
@@ -1196,7 +1303,9 @@ def main() -> int:
                          "i2 (I2 a call and a backward), wide (B1 from "
                          "2^15 nodes), topo (T1 and T2 at mesh118 x 4096 "
                          "and x 64, mesh2000 x 16384), residual (J1 and J2 "
-                         "at mesh2000 x 256 and x 64)")
+                         "at mesh2000 x 256 and x 64), bus_reduce (Q1 at "
+                         "mesh2000 x 1/64/256, mesh5000 x 64), groups (G1 "
+                         "at N = 1024 x 1/16/64 and 4096 x 1)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
@@ -1242,7 +1351,9 @@ def main() -> int:
                         "and T2 mesh118 x 4096 and x 64 (rank 2), mesh2000 "
                         "x 16384 (rank <= 3); J1 (f64, f32, status) and J2 "
                         "(MASKED, FULL) at the bench's mesh2000 x 256 and "
-                        "x 64",
+                        "x 64; Q1 mesh2000 x 1/64/256, mesh5000 x 64; G1 "
+                        "N = 1024 x 1 (the superstep's reach; sparse x 1, "
+                        "16, 64) and 4096 x 1",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
@@ -1313,6 +1424,15 @@ def main() -> int:
                 for key, dev in times.get("residual", {}).items():
                     print(f"ab {other.name} residual {key:<16} {which:<5} "
                           f"device (queued events) {dev:.4f} ms", flush=True)
+                for key, dev in times.get("bus_reduce", {}).items():
+                    print(f"ab {other.name} qsts_bus_reduce {key:<16} "
+                          f"{which:<5} device (queued events) {dev:.4f} ms",
+                          flush=True)
+                for key, dev in times.get("groups", {}).items():
+                    how = ("CUDA events a call" if key.endswith("_a_call")
+                           else "device (queued events)")
+                    print(f"ab {other.name} form_groups {key:<34} {which:<5}"
+                          f" {how} {dev:.4f} ms", flush=True)
                 for key, ms in times.get("wide", {}).items():
                     if not key.endswith("_form"):
                         print(f"ab {other.name} lb_rounds {key:<12} {which:<5}"

@@ -50,11 +50,9 @@ def test_g1_matches_plain_on_card(cuda_device, n, lanes, directed):
     rank = (torch.as_tensor(rng.permutation(n), device=cuda_device)
             + 1).to(torch.int32)
     want = dk.form_groups_plain(alive, reach, rank)
-    forms = [dk.GLOBAL] + ([dk.SHARED] if n < 1500 else [])
-    for form in forms:  # each form, bit for bit and on repeat
-        got = dk.form_groups(alive, reach, rank, form=form)
-        assert same(got, want)
-        assert same(got, dk.form_groups(alive, reach, rank, form=form))
+    got = dk.form_groups(alive, reach, rank)
+    assert same(got, want)  # bit for bit, and on repeat
+    assert same(got, dk.form_groups(alive, reach, rank))
 
 
 @pytest.mark.cuda
@@ -199,3 +197,40 @@ def test_lb_entry_points_at_2_15_nodes_on_card(cuda_device):
     assert torch.equal(rnd.state, one.states[0, 0])
     assert int(rnd.n_migrations) == int(one.migrations[0, 0])
     assert torch.equal(rnd.intransit, one.intransit[0])
+
+
+def islands(rng, n, k, density):
+    """A symmetric reach of k islands, each `density` dense (the
+    superstep's reach is 98% dense, split by its open switches)."""
+    part = rng.integers(0, k, n)
+    reach = (rng.uniform(size=(n, n)) < density) & (part[:, None]
+                                                    == part[None, :])
+    reach = np.triu(reach, 1)
+    return (reach | reach.T).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,lanes,kind", [(1024, 1, "dense"),
+                                          (1024, 1, "directed"),
+                                          (4096, 1, "sparse"),
+                                          (1026, 3, "dense"),
+                                          (256, 200, "sparse")])
+def test_g1_global_launch_on_card(cuda_device, n, lanes, kind):
+    """G1's cooperative launch: the superstep's N = 1024 x 1 on a
+    98%-dense reach, N = 4096 (the rows read from L2), a width off the
+    16-byte path and more lanes than the card holds CTAs."""
+    rng = np.random.default_rng(n + lanes)
+    graph = (sparse_graph(rng, n) if kind == "sparse"
+             else islands(rng, n, 4, 0.98))
+    if kind == "directed":
+        graph = np.triu(graph)
+    reach = torch.as_tensor(graph, device=cuda_device)[None]
+    alive = torch.as_tensor(rng.uniform(size=(lanes, n)) >= 0.02,
+                            device=cuda_device)
+    rank = (torch.as_tensor(rng.permutation(n), device=cuda_device)
+            + 1).to(torch.int32)
+    want = dk.form_groups_plain(alive, reach, rank)
+    got = dk.form_groups(alive, reach, rank)
+    assert same(got, want)
+    assert same(got, dk.form_groups(alive, reach, rank))
+    assert dk.launches()["form_groups"] >= 2

@@ -287,9 +287,10 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
         dk.lb_rounds_plain(torch.zeros(1, 3), torch.zeros(1, 3),
                            torch.zeros(1, 3, dtype=torch.int32), 1.0, 2,
                            round_outputs=True)
-    assert dk.g1_form(1024) == dk.GLOBAL and dk.g1_form(4096, 512) == dk.GLOBAL
-    assert dk.g1_form(1024, 64) == dk.SHARED == dk.g1_form(256, 256)
-    assert dk.g1_form(256, 128) == dk.GLOBAL
+    assert dk.g1_global_plan(1024, 1, 132).grid == 128 and dk.g1_staged(1024)
+    assert dk.g1_global_plan(4096, 1, 132).grid == 132
+    assert not dk.g1_staged(4096)
+    assert dk.g1_global_plan(256, 256, 264).grid == 264
     assert dk.lb_form(4096, 8) == dk.SHARED
     assert dk.lb_form(dk.LB_WIDE_NODES - 1, 8) == dk.GLOBAL
     assert dk.lb_form(dk.LB_WIDE_NODES, 4) == dk.CLUSTER

@@ -318,6 +318,44 @@ def test_q1_matches_plain_on_card(cuda_device, case, lanes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 64, 256])
+def test_q1_plans_on_card(cuda_device, lanes):
+    """Q1 at mesh2000 (a lane on one CTA of 512 threads): counts, envelope
+    and peak equal to the plain version's, the losses within 1e-12 and bit
+    for bit the host mirror's; staged or not, the same bits."""
+    from freedm_tpu_torch.serve.service import _resolve_bus_case
+
+    sys_ = _resolve_bus_case("mesh2000")
+    n = sys_.n_bus
+    rng = np.random.default_rng(lanes)
+    v = torch.as_tensor(rng.uniform(0.93, 1.07, (lanes, n)),
+                        device=cuda_device)
+    th = torch.as_tensor(rng.normal(0.0, 0.3, (lanes, n)),
+                         device=cuda_device)
+    p = torch.as_tensor(rng.normal(0.0, 1.0, (lanes, n)), device=cuda_device)
+    it = torch.as_tensor(rng.integers(1, 9, lanes).astype(np.int32),
+                         device=cuda_device)
+    conv = torch.as_tensor(rng.uniform(size=lanes) > 0.1, device=cuda_device)
+    op = qk.bus_reduce_operands(sys_, cuda_device)
+    acc0 = _acc(lanes, cuda_device, 5)
+
+    def run(fn, **kw):
+        acc = _clone(acc0)
+        fn(v, th, p, it, conv, op, acc, 15.0, 0.25, 0.95, 1.05, **kw)
+        return acc
+
+    got = run(qk.qsts_bus_reduce)
+    _acc_close(got, run(qk.qsts_bus_reduce_plain), run(qk.qsts_bus_reduce))
+    assert torch.equal(got.peak, run(qk.qsts_bus_reduce_plain).peak)
+    for x, y in zip(got, run(qk.bus_reduce_mirror)):
+        assert torch.equal(x, y)
+    for staged in (True, False):
+        plan = qk.BusReducePlan(staged, qk.bus_reduce_smem(n, staged))
+        for x, y in zip(got, run(qk.qsts_bus_reduce, plan=plan)):
+            assert torch.equal(x, y), plan
+
+
+@pytest.mark.cuda
 def test_q2_matches_plain_on_card(cuda_device):
     from freedm_tpu_torch.grid.cases import vvc_9bus
     from freedm_tpu_torch.pf.ladder import make_ladder_solver
