@@ -120,16 +120,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    and float32, random 0/1 status and single outages
    (``compare_assemble``: ``SPARSE_TOL``, bit-identical on repeat, the
    modes' bit relations; an all-in-service status gives the no-status
-   bits); N1 in every mode on identical inputs at case_ieee30, mesh118
-   and mesh511 × L ∈ {1, 64, 256} (``SMW_ATOL``); D1 in both modes at
+   bits); N1, the whole SMW screen in one launch (24 iterations), over
+   every secure outage of case14 and case_ieee30, mesh118 × 64 and
+   mesh511 × {1, 64, 256}: bit-identical on repeat, within ``SMW_ATOL``
+   of its plain version on the mirror's solves (``lu_solve_mirror``) and
+   within 1e-9 pu of it on ``lu_solve`` with equal ``converged``, lane
+   0's bits the same alone and in 64 and 256 lanes; D1 in both modes at
    mesh118 and mesh2000 × L ∈ {1, 1024} (``DC_ATOL``), and the bridges
    of case14 and case_ieee30 flagged islanded by kernel and plain
    version; then their times (events and device time) beside the plain
    versions and the bounds: S1 with status at mesh2000 × 64 and × 256,
    device time in turns with S1 without status on the same inputs
-   (with, without, without, with), N1 at mesh511 × 256 and
-   case_ieee30 × 64 in each mode, D1 SCREEN at mesh2000 × 1024 and SOLVE
-   at × 4096;
+   (with, without, without, with), N1's screen over case_ieee30's secure
+   outages (the row) and at mesh511 × 256 by queued events and by events
+   a call, D1 SCREEN at mesh2000 × 1024 and SOLVE at × 4096;
 10. n1 screens: ``make_n1_screen`` on mesh2000 × 256 chord outages
    (sparse; mixed on the served bf16 pair, f64 on the float64 LU pair)
    against the plain-version screen (every lane converged; f64: three
@@ -139,7 +143,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    launches (every S1
    call with the lanes' status) and a profile; the SMW screen over every
    secure outage of case_ieee30 and mesh511 × 256 against its plain
-   version (1e-9 pu), 2 + 2 × 24 N1 launches a screen; ``make_dc_solver``
+   version (1e-9 pu), one N1 launch a screen and no library solve
+   (``screen_library_solves``: no ``linalg``/``lu_solve`` operator on
+   the host, no library solve kernel in the profile); ``make_dc_solver``
    at mesh2000 (4096 injection lanes, 1024 outage lanes) and
    ``dc_prefilter=8`` over 64 chord outages against their plain versions;
 11. serve n1: the default config but ``max_batch=256`` (a request of
@@ -195,10 +201,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    solved, hours 0, 7.5, 15, 19 and 23.75, DR signal 0 and 1
    (``A1_STATE_RTOL``, ``QSTS_SUM_RTOL``, relays equal, bit-identical on
    repeat); Q1 at mesh2000 × 64 (a solved mixed step) and case_ieee30 × 1,
-   Q2 at vvc_9bus × 24·64 lanes (counts, worst count and envelope equal,
-   losses and peak within ``QSTS_SUM_RTOL``, bit-identical on repeat);
-   then their times (events and device time) beside the plain versions
-   and the bounds;
+   Q2 at vvc_9bus × 24·64 and × 24·1536 and radial2048 × 6·8 (counts,
+   worst count and envelope equal, losses and peak within
+   ``QSTS_SUM_RTOL``, bit-identical on repeat, ``feeder_reduce_mirror``'s
+   bits, and half the steps in each of two launches the bits of one);
+   then their times (events and device time; Q1 and Q2 by queued events,
+   Q2 at vvc_9bus × 24·64, the row, and × 24·1536) beside the plain
+   versions and the bounds;
 16. qsts: studies through ``run_study`` — (a) case14 × 16, 96 steps of
    15 min, chunks of 24, seed 5: warm against cold iterations, kill after
    2 chunks and resume exactly, the kernel path within ``QSTS_ATOL`` of
@@ -213,7 +222,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    of 8: agent-steps/s on the engine's second run, A1 and Q1 once a step,
    closed-loop against replayed, kill and resume; (d) vvc_9bus × 64, 96
    steps: L1 and Q2 once a chunk, within ``QSTS_ATOL`` of ``plain=True``,
-   kill and resume;
+   a repeat and chunks of 12 the same bits as chunks of 24, kill and
+   resume;
 17. serve qsts: a ``ServeServer`` with a ``JobManager`` over a temporary
    checkpoint directory: a mesh2000 × 16 job while the 64-request
    ``/v1/pf`` burst on case14 runs (p50/p99 beside the burst alone; every
@@ -412,12 +422,14 @@ other modes' ``*_values_f32``/``*_residual`` times and bounds, its
 status-mode times ``*_status_x64``/``*_status_x256`` with device times
 in turns with and without status on the same inputs
 (``device_ms_turns_*``), its served launches by mode,
-``launches_by_mode``, and those of the n1 path, all with status; N1 and
-D1 their other modes' times; L1 and L2 their per-iteration device times
+``launches_by_mode``, and those of the n1 path, all with status; N1 its
+mesh511 × 256 screen, its plan and its gap to the mirror's solves, D1
+its other mode's times; L1 and L2 their per-iteration device times
 and other shapes; A1 its S = 4 times; A1, Q1 and Q2 the path of their
 launches; T1 and T2 their mesh2000 × 16384 times, T2 DETAIL, the
 refactorization head-to-head and the |det C| margin, both their launches
-on the served paths; Y1-I1 their other shapes and modes, the float32
+on the served paths; Y1 its queued-events time; Y1-I1 their other
+shapes and modes, the float32
 gaps and the path of their launches, F1 the numbers of phase 22; G1, R1
 and B1 their other shapes, device times, G1's and R1's float32 squarings
 as a library composite, their launches in phase 25 (d) and the
@@ -2514,12 +2526,21 @@ def stream_isolation(torch, svc, case):
 #: S1 with a per-lane status against its plain version: the cases and
 #: lane counts (the served N-1 shape is mesh2000 × up to 256 lanes).
 STATUS_CASES = (("mesh118", (1, 3, 64, 256)), ("mesh2000", (1, 3, 64, 256)))
-#: N1 against its plain version: every mode on identical inputs, θ, V, the
-#: right-hand sides, P, Q and err within 1e-12 absolute (the two differ in
-#: sin/cos and the order of the lane's sums only; ≤ 3.1e-14 on an H100).
+#: N1 (the whole SMW screen in one launch) against its plain version on the
+#: mirror's solves (``cache_kernels.lu_solve_mirror``, the kernel's
+#: substitution order, each update rounded twice where the kernel fuses it,
+#: and sin/cos from two libraries): θ, V, P, Q and err within 1e-12
+#: absolute (≤ 3.7e-14 on an H100, 24 iterations); against the plain
+#: screen on ``torch.linalg.lu_solve`` within ``SOLVE_ATOL`` with equal
+#: ``converged`` flags.  The shapes: every secure outage of case14 and
+#: case_ieee30, mesh118 × 64, mesh511 × 1, 64 and 256 (the mirror's
+#: host loop at mesh511 × 1 alone) and mesh2900 × 4, past the 2880 buses
+#: whose lane vectors fit the shared memory (the spill route).
 SMW_ATOL = 1e-12
-SMW_CASES = ("case_ieee30", "mesh118", "mesh511")
-SMW_LANES = (1, 64, 256)
+SMW_SHAPES = (("case14", None), ("case_ieee30", None), ("mesh118", 64),
+              ("mesh511", 1), ("mesh511", 64), ("mesh511", 256),
+              ("mesh2900", 4))
+SMW_MIRROR_LANES = 64
 #: D1 against its plain version: angles, flows and severity within 1e-12
 #: absolute, ``islanded`` exactly.
 DC_ATOL = 1e-12
@@ -2596,64 +2617,82 @@ def compare_status_assemble(torch, sk, errs, dev="cuda"):
                     f"{e[1]:.1e}")
 
 
-def smw_steps(torch, sck, lu_p, lu_q, op, ks, sweep):
-    """One INIT, THETA, V, FINISH chain of N1 (``sweep``: the wrapper or
-    its plain version) from the flat start: every mode's outputs."""
-    lanes, n = int(ks.shape[0]), op.n
-    th, v, rhs = (torch.empty(lanes, n, dtype=torch.float64,
-                              device=ks.device) for _ in range(3))
-    outs = []
-    sweep(sck.INIT, ks, th, v, rhs, op)
-    outs += [th.clone(), v.clone(), rhs.clone()]
-    for mode, lu in ((sck.THETA, lu_p), (sck.V, lu_q)):
-        x0 = torch.linalg.lu_solve(lu[0], lu[1], rhs.mT)
-        sweep(mode, ks, th, v, rhs, op, x0)
-        outs += [th.clone(), v.clone(), rhs.clone()]
-    outs += list(sweep(sck.FINISH, ks, th, v, rhs, op))
-    return outs
+def smw_lanes(sys_, lanes):
+    """The outage lanes of an SMW shape: every secure outage (``lanes``
+    None) or that many of them, repeated in order."""
+    from freedm_tpu_torch.pf.n1 import secure_outages
+
+    sec = np.asarray(secure_outages(sys_), np.int64)
+    return sec if lanes is None else np.resize(sec, lanes)
 
 
-def compare_smw(torch, sck, errs, dev="cuda"):
-    """N1 in every mode against its plain version on identical inputs
-    (``SMW_ATOL``) and bit-identical on repeat, at case_ieee30, mesh118
-    and mesh511 over ``SMW_LANES`` of their secure outages (the pinned
-    endpoints of case_ieee30 among them)."""
-    from freedm_tpu_torch.pf.n1 import secure_outages, smw_operands
+def compare_smw(torch, sck, ck, errs, extra, dev="cuda"):
+    """N1, the whole screen in one launch, at ``SMW_SHAPES`` (N1_MAX_ITER
+    iterations): bit-identical on repeat; against its plain version on
+    the mirror's solves (``SMW_ATOL``, up to ``SMW_MIRROR_LANES`` lanes)
+    and on ``lu_solve`` (``SOLVE_ATOL``, equal ``converged``); a lane's
+    bits the same alone, in the first 64 and in 256 lanes (mesh511); the
+    spill route (the lanes' vectors in global memory) the default's bits
+    at mesh118 × 64, and the default past the shared memory at mesh2900."""
+    from freedm_tpu_torch.pf.n1 import smw_operands
 
-    for name in SMW_CASES:
+    worst_m = worst_p = 0.0
+    alone = {}
+    for name, lanes in SMW_SHAPES:
         sys_ = case_system(name)
-        sec = np.asarray(secure_outages(sys_), np.int64)
+        ks = torch.as_tensor(smw_lanes(sys_, lanes), device=dev)
         lu_p, lu_q, op = smw_operands(sys_, device=dev)
-        worst_e = 0.0
-        for lanes in SMW_LANES:
-            ks = torch.as_tensor(np.resize(sec, lanes), device=dev)
-            got = smw_steps(torch, sck, lu_p, lu_q, op, ks, sck.smw_sweep)
-            again = smw_steps(torch, sck, lu_p, lu_q, op, ks, sck.smw_sweep)
-            check(all(same_bits(torch, a, b) for a, b in zip(got, again)),
-                  f"N1 not bit-identical on repeat: {name} L={lanes}")
-            # Each mode on the kernel's own inputs: the plain chain from
-            # the same start would drift apart by its own roundings.
-            th, v, rhs = (t.clone() for t in got[:3])
-            for i, (mode, lu) in enumerate(((sck.THETA, lu_p),
-                                            (sck.V, lu_q))):
-                th0, v0, r0 = (t.clone() for t in got[3 * i:3 * i + 3])
-                x0 = torch.linalg.lu_solve(lu[0], lu[1], r0.mT)
-                sck.smw_sweep_plain(mode, ks, th0, v0, r0, op, x0)
-                for a, b in zip((th0, v0, r0), got[3 * i + 3:3 * i + 6]):
-                    worst_e = max(worst_e, float((a - b).abs().max()))
-            p_th, p_v, p_r = (t.clone() for t in got[6:9])
-            for a, b in zip(sck.smw_sweep_plain(sck.FINISH, ks, p_th, p_v,
-                                                p_r, op), got[9:]):
-                worst_e = max(worst_e, float((a - b).abs().max()))
-            sck.smw_sweep_plain(sck.INIT, ks, th, v, rhs, op)
-            for a, b in zip((th, v, rhs), got[:3]):
-                worst_e = max(worst_e, float((a - b).abs().max()))
+        fac = sck.smw_factors(lu_p, lu_q)
+        got = sck.smw_screen(ks, op, fac, N1_MAX_ITER)
+        again = sck.smw_screen(ks, op, fac, N1_MAX_ITER)
         sync(torch, dev)
-        log(f"screen kernels: N1 {name:>11} L in {SMW_LANES} "
-            f"({len(sec)} secure outages) max abs {worst_e:.1e}")
-        check(worst_e <= SMW_ATOL, f"smw_sweep disagrees on {name}: "
-                                   f"{worst_e} > {SMW_ATOL}")
-        errs["smw_sweep"] = max(errs["smw_sweep"], worst_e)
+        check(all(same_bits(torch, a, b) for a, b in zip(got, again)),
+              f"N1 not bit-identical on repeat: {name} x{len(ks)}")
+        spill = sck.SmwPlan(2, False, sck.smw_smem(op.n, 2, True), True)
+        if name == "mesh118" and torch.device(dev).type == "cuda":
+            check(all(same_bits(torch, a, b) for a, b in zip(
+                got, sck.smw_screen(ks, op, fac, N1_MAX_ITER, plan=spill))),
+                f"N1 {name} x{len(ks)}: the spill route has other bits")
+        plain = sck.smw_screen_plain(ks, op, lu_p, lu_q, N1_MAX_ITER)
+        d_p = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+        tol = 1e-8  # default_tol(float64), the screen's converged flag
+        check(d_p <= SOLVE_ATOL and torch.equal(got[4] < tol, plain[4] < tol),
+              f"N1 {name} x{len(ks)}: {d_p:.2e} from the plain screen, "
+              f"converged {int((got[4] < tol).sum())} vs "
+              f"{int((plain[4] < tol).sum())}")
+        worst_p = max(worst_p, d_p)
+        line = (f"screen kernels: N1 {name:>11} x{len(ks):<3} plan "
+                f"{tuple(sck.smw_plan(op.n))}: vs plain (lu_solve) "
+                f"{d_p:.1e}, converged {int((got[4] < tol).sum())}/"
+                f"{len(ks)} as plain")
+        if name != "mesh511" or len(ks) == 1:
+            m = min(len(ks), SMW_MIRROR_LANES)
+            mir = sck.smw_screen_plain(ks[:m], op, lu_p, lu_q, N1_MAX_ITER,
+                                       solve=ck.lu_solve_mirror)
+            d_m = max(float((a[:m] - b).abs().max())
+                      for a, b in zip(got, mir))
+            check(d_m <= SMW_ATOL, f"N1 {name} x{len(ks)}: {d_m:.2e} from "
+                  f"the plain screen on the mirror's solves")
+            worst_m = max(worst_m, d_m)
+            line += f", vs the mirror's solves {d_m:.1e} ({m} lanes)"
+        if name == "mesh511":
+            alone[len(ks)] = got
+        log(line + ", bit-identical on repeat")
+    if torch.device(dev).type == "cuda":  # the CPU's plain path: no claim
+        for w in (64, 256):
+            check(all(same_bits(torch, a[:1], b)
+                      for a, b in zip(alone[w], alone[1])),
+                  f"N1 mesh511: lane 0 in {w} lanes has other bits than "
+                  f"alone")
+        check(all(same_bits(torch, a[:64], b)
+                  for a, b in zip(alone[256], alone[64])),
+              "N1 mesh511: the first 64 of 256 lanes have other bits than "
+              "x64")
+        log("screen kernels: N1 mesh511 lane 0 the same bits alone, in 64 "
+            "and in 256 lanes; the first 64 the same in 64 and 256")
+    errs["smw_screen"] = max(errs["smw_screen"], worst_p)
+    extra["smw_screen"] = {"max_abs_err_mirror": worst_m,
+                           "lane_bits_at_every_width": True}
 
 
 def compare_dc(torch, sck, errs, dev="cuda"):
@@ -2718,16 +2757,64 @@ def compare_dc(torch, sck, errs, dev="cuda"):
     errs["dc_screen"] = max(errs["dc_screen"], worst_e)
 
 
+def smw_bound(n, m, lanes, iters):
+    """N1's least time: the substitutions (2 n² operations a lane and
+    solve, two solves an iteration) at the fp64 tensor-core rate, as the
+    tile products they could be, plus ~60 operations a list entry and ~48
+    a bus for each correction and mismatch pass at the FMA pipe's (each
+    pass waits on the solve before it and the next solve on it); against
+    the bytes of the factor pair, the operands, the lanes' ZM rows and the
+    outputs, each once."""
+    sub = lanes * 2 * iters * 2 * n * n
+    passes = lanes * 2 * iters * (48 * n + 120 * m)
+    t_ops = (sub / PEAK_FP64_TENSOR + passes / PEAK_FP64) * 1e3
+    bytes_ = (8 * (2 * n * n + 8 * m + 9 * n + 2 * m * 6)
+              + 4 * (n + 1 + 4 * m + 2 * n)
+              + 8 * lanes * (2 * 2 * n + 4 * n + 1))
+    t_bytes = bytes_ / PEAK_BYTES * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_smw(torch, sck, name, lanes, dev="cuda"):
+    """N1's whole screen at ``name`` × ``lanes`` (every secure outage with
+    None), ``N1_MAX_ITER`` iterations: device time by queued events, the
+    wrapper's call by CUDA events back to back, the plain screen (its host
+    loop around ``lu_solve``) and the bound."""
+    from freedm_tpu_torch.pf.n1 import smw_operands
+
+    sys_ = case_system(name)
+    ks = torch.as_tensor(smw_lanes(sys_, lanes), device=dev)
+    lu_p, lu_q, op = smw_operands(sys_, device=dev)
+    fac = sck.smw_factors(lu_p, lu_q)
+
+    def call():
+        return sck.smw_screen(ks, op, fac, N1_MAX_ITER)
+
+    q = queued_events_ms(torch, call, 20)
+    k = time_ms(torch, call, reps=20)
+    pl = time_ms(torch, lambda: sck.smw_screen_plain(ks, op, lu_p, lu_q,
+                                                     N1_MAX_ITER), reps=3)
+    b, by = smw_bound(op.n, op.m, len(ks), N1_MAX_ITER)
+    log(f"timing: smw_screen {name} x{len(ks)} ({N1_MAX_ITER} iterations, "
+        f"plan {tuple(sck.smw_plan(op.n))}): device (queued events) "
+        f"{q:.4f} ms, a call (events back to back) {k:.4f} ms  plain "
+        f"{pl:.3f} ms  bound {b:.4f} ms ({by})")
+    return {"ms": q, "events_back_to_back_ms": k, "plain_ms": pl,
+            "bound_ms": b, "bound_by": by,
+            "shape": f"{name} x{len(ks)}, {N1_MAX_ITER} iterations",
+            "plan": list(sck.smw_plan(op.n))}
+
+
 def time_screen_kernels(torch, sk, sck, rows, extra, dev="cuda"):
     """Times at the served shapes, CUDA events and device time, beside
     the plain versions and the bounds: S1 with status at mesh2000 × 256
-    (and × 64, beside S1 without status on the same inputs); N1 at
-    mesh511 × 256 (each mode) and case_ieee30 × 64; D1 SCREEN at mesh2000
-    × 1024 and SOLVE at × 4096."""
+    (and × 64, beside S1 without status on the same inputs); N1's whole
+    screen over every secure outage of case_ieee30 (the row) and at
+    mesh511 × 256 (``time_smw``); D1 SCREEN at mesh2000 × 1024 and SOLVE
+    at × 4096."""
     from freedm_tpu_torch.pf.dc import (dc_operands, make_dc_solver,
                                         outage_columns)
     from freedm_tpu_torch.pf.fdlf import decoupled_parts
-    from freedm_tpu_torch.pf.n1 import secure_outages, smw_operands
 
     sys_ = case_system("mesh2000")
     n, m = sys_.n_bus, sys_.n_branch
@@ -2771,64 +2858,19 @@ def time_screen_kernels(torch, sk, sck, rows, extra, dev="cuda"):
                 + " / ".join(f"{t_:.4f}" for t_ in turns)
                 + f")  plain {p:.4f} ms  bound {b:.4f} ms ({by})")
         del op, x, ps, qs, st
-    # N1: the served SMW shapes.
-    for name, lanes, main in (("mesh511", N1_LANES, True),
-                              ("case_ieee30", MAIN_LANES, False)):
-        sys5 = case_system(name)
-        n5, m5 = sys5.n_bus, sys5.n_branch
-        sec = np.asarray(secure_outages(sys5), np.int64)
-        lu_p, lu_q, op5 = smw_operands(sys5, device=dev)
-        ks = torch.as_tensor(np.resize(sec, lanes), device=dev)
-        th, v, rhs = (torch.empty(lanes, n5, dtype=torch.float64,
-                                  device=dev) for _ in range(3))
-        sck.smw_sweep(sck.INIT, ks, th, v, rhs, op5)
-        x0 = torch.linalg.lu_solve(lu_p[0], lu_p[1], rhs.mT)
-        # Bytes: x0, the lane's ZM rows, θ and V read, a half and the
-        # right-hand side written; the operands once.  Operations: sincos
-        # (~40) a bus, ~30 a list entry, ~8 a bus for the update.
-        opnd = 8 * (8 * m5 + 9 * n5) + 4 * (n5 + 1 + 4 * m5) + 16 * m5
-        b_mode = {
-            "INIT": opnd + w * 3 * lanes * n5,
-            "THETA": opnd + w * lanes * n5 * 7,
-            "V": opnd + w * lanes * n5 * 7,
-            "FINISH": opnd + w * lanes * (4 * n5 + 1)}
-        o_mode = lanes * (48 * n5 + 60 * m5)
-        times = {}
-        for mname in ("INIT", "THETA", "V", "FINISH"):
-            mode = getattr(sck, mname)
-
-            def fn(mode=mode):
-                # THETA and V rewrite θ (V) from the same x0 each call:
-                # the timed work of one half-iteration.
-                return sck.smw_sweep(mode, ks, th, v, rhs, op5,
-                                     x0 if mode in (sck.THETA, sck.V)
-                                     else None)
-            k = time_ms(torch, fn, reps=50)
-            kd = device_ms(torch, fn, reps=20)
-            pl = time_ms(torch, lambda mode=mode: sck.smw_sweep_plain(
-                mode, ks, th.clone(), v.clone(), rhs.clone(), op5,
-                x0 if mode in (sck.THETA, sck.V) else None), reps=5)
-            b, by = bound(b_mode[mname], o_mode)
-            times[mname] = (k, kd, pl, b, by)
-            log(f"timing: smw_sweep {name} x{lanes} {mname:<6} kernel "
-                f"{k:.4f} ms (device {kd:.4f})  plain {pl:.4f} ms  bound "
-                f"{b:.5f} ms ({by})")
-        lu_ms = device_ms(torch, lambda: torch.linalg.lu_solve(
-            lu_p[0], lu_p[1], rhs.mT), reps=20)
-        log(f"timing: lu_solve {name} [{n5}, {lanes}] device {lu_ms:.4f} ms "
-            f"(the SMW screen's base solve, 2 an iteration)")
-        key = "" if main else f"_{name}_x{lanes}"
+    # N1: the whole screen at the served SMW shapes.
+    for name, lanes, main in (("case_ieee30", None, True),
+                              ("mesh511", N1_LANES, False)):
+        t_ = time_smw(torch, sck, name, lanes, dev)
         if main:
-            k, kd, pl, b, by = times["THETA"]
-            rows["smw_sweep"] = (k, pl, None, b, by)
-            extra["smw_sweep"] = {"device_ms": kd, "shape": f"{name} x{lanes}"
-                                  " THETA (a half-iteration)",
-                                  "lu_solve_device_ms": lu_ms}
-        for mname, (k, kd, pl, b, by) in times.items():
-            extra["smw_sweep"].update({
-                f"ms_{mname}{key}": k, f"device_ms_{mname}{key}": kd,
-                f"plain_ms_{mname}{key}": pl, f"bound_ms_{mname}{key}": b})
-        del op5, lu_p, lu_q
+            rows["smw_screen"] = (t_["ms"], t_["plain_ms"], None,
+                                  t_["bound_ms"], t_["bound_by"])
+            extra.setdefault("smw_screen", {}).update(
+                {k: v for k, v in t_.items()
+                 if k not in ("ms", "plain_ms", "bound_ms", "bound_by")})
+            extra["smw_screen"]["ms_source"] = "queued CUDA events"
+        else:
+            extra.setdefault("smw_screen", {})[f"{name}_x{lanes}"] = t_
     # D1 at mesh2000, on the operands screen_outages hands it.
     dcs = make_dc_solver(sys_, device=dev)
     ks = torch.as_tensor(chords(sys_, DC_OUTAGE_LANES), device=dev)
@@ -2884,6 +2926,23 @@ def screen_launches(torch, sk, sck, nk, fn, dev):
     wall = (time.monotonic() - t0) * 1e3
     counts = {**sk.launches(), **nk.launches(), **sck.launches()}
     return r, wall, counts, sk.status_launches(), sck.mode_launches()
+
+
+def screen_library_solves(torch, fn):
+    """The library solves one call of ``fn`` makes: its host operators
+    (``aten::linalg_lu_solve`` and kin, which the profiler records on the
+    host whatever it records on the card) and the device kernels of
+    ``LIBRARY_SOLVE_KERNELS`` it recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if "lu_solve" in e.key or "linalg" in e.key
+                   or any(lib in e.key for lib in LIBRARY_SOLVE_KERNELS)})
 
 
 def n1_screens(torch, sk, sck, nk, dev="cuda"):
@@ -2973,8 +3032,8 @@ def n1_screens(torch, sk, sck, nk, dev="cuda"):
         screen = make_n1_screen(sys5, max_iter=N1_MAX_ITER, device=dev)
         build = time.monotonic() - t0
         screen(ks5)  # the first calls of these shapes
-        r, wall, counts, _, modes = screen_launches(torch, sk, sck, nk,
-                                                    lambda: screen(ks5), dev)
+        r, wall, counts, _, _ = screen_launches(torch, sk, sck, nk,
+                                                lambda: screen(ks5), dev)
         rp = make_n1_screen(sys5, max_iter=N1_MAX_ITER, device=dev,
                             plain=True)(ks5)
         d = max(float((getattr(r, k) - getattr(rp, k)).abs().max())
@@ -2983,17 +3042,18 @@ def n1_screens(torch, sk, sck, nk, dev="cuda"):
               and bool(r.converged.all()),
               f"n1 SMW {name}: {d:.2e} pu from the plain screen, converged "
               f"{int(r.converged.sum())}/{len(ks5)}")
-        check(not on_card or counts["smw_sweep"] == 2 + 2 * N1_MAX_ITER,
-              f"n1 SMW {name}: {counts['smw_sweep']} N1 launches, want "
-              f"{2 + 2 * N1_MAX_ITER}")
+        check(not on_card or counts["smw_screen"] == 1,
+              f"n1 SMW {name}: {counts['smw_screen']} N1 launches, want 1")
         ops, busy, pwall = profile_solve(
             torch, lambda: screen(ks5), f"n1 SMW {name} x{len(ks5)}", top=4)
+        libs = screen_library_solves(torch, lambda: screen(ks5))
+        check(not on_card or not libs,
+              f"n1 SMW {name}: the screen ran a library solve: {libs}")
         log(f"n1 screens: SMW {name} x{len(ks5)}: build {build:.2f} s, wall "
             f"{wall:.2f} ms, max mismatch {float(r.mismatch.max()):.2e}, vs "
-            f"plain {d:.2e} pu; N1 launches {modes['smw_sweep']}, device "
-            f"operations {ops} (2 + 4 x {N1_MAX_ITER} = "
-            f"{2 + 4 * N1_MAX_ITER} calls: lu_solve's own kernels counted "
-            f"apart)")
+            f"plain {d:.2e} pu; N1 launches {counts['smw_screen']}, device "
+            f"operations {ops} (one launch a screen; no library solve "
+            f"kernel), device busy {busy:.3f} ms of a {pwall:.2f} ms wall")
     dc = make_dc_solver(sys_, device=dev)
     dcp = make_dc_solver(sys_, device=dev, plain=True)
     pj = torch.as_tensor(np.random.default_rng(8).uniform(
@@ -3159,7 +3219,7 @@ def serve_n1(torch, sk, sck, nk, dev="cuda", case="mesh2000"):
         # K3 runs on the mixed path only in its full-precision phase.
         check(not on_card or all(counts[k] > 0 for k in (
             "sparse_assemble", "sparse_matvec", "gmres_block_orth",
-            "gmres_lstsq", "smw_sweep")),
+            "gmres_lstsq", "smw_screen")),
               f"a kernel of the n1 path was not launched: {counts}")
         check(sum(st.values()) == counts["sparse_assemble"],
               f"S1 ran without status on the n1 path: {st}")
@@ -4236,13 +4296,26 @@ def q1_inputs(torch, case, lanes, seed=4):
     return sys_, r
 
 
-def q2_inputs(torch, steps, lanes, seed=6):
-    """vvc_9bus: ``steps · lanes`` ladder lanes solved by L1 at load scales
-    0.5-1.3."""
-    from freedm_tpu_torch.grid.cases import vvc_9bus
+#: Q2's shapes: (feeder, steps, scenarios); the first is the table row's
+#: (a chunk of QSTS phase (d)).
+Q2_SHAPES = (("vvc_9bus", 24, MAIN_LANES), ("vvc_9bus", 24, 1536),
+             ("radial2048", 6, 8))
+
+
+def q2_feeder(name):
+    from freedm_tpu_torch.grid.cases import synthetic_radial, vvc_9bus
+
+    if name == "vvc_9bus":
+        return vvc_9bus()
+    return synthetic_radial(int(name[6:]), seed=0, load_kw=1.0)
+
+
+def q2_inputs(torch, steps, lanes, seed=6, feeder="vvc_9bus"):
+    """``steps · lanes`` ladder lanes of ``feeder`` (timestep-major) solved
+    by L1 at load scales 0.5-1.3."""
     from freedm_tpu_torch.pf.ladder import make_ladder_solver
 
-    f = vvc_9bus()
+    f = q2_feeder(feeder)
     scale = np.random.default_rng(seed).uniform(0.5, 1.3,
                                                 (steps * lanes, 1, 1))
     solve, _ = make_ladder_solver(f, device="cuda")
@@ -4271,20 +4344,54 @@ def compare_q(torch, qk, errs):
         log(f"qsts kernels: Q1 {case} x{lanes}: counts, envelope equal, "
             f"losses/peak rel {e:.3e}, bit-identical on repeat")
     errs["qsts_bus_reduce"] = worst
-    steps, lanes = 24, MAIN_LANES
-    f, r = q2_inputs(torch, steps, lanes)
-    op = qk.feeder_reduce_operands(f, dev)
+    worst = 0.0
+    for feeder, steps, lanes in Q2_SHAPES:
+        f, r = q2_inputs(torch, steps, lanes, feeder=feeder)
+        op = qk.feeder_reduce_operands(f, dev)
+        acc0 = random_acc(torch, qk, lanes, 7)
 
-    def run2(fn):
-        return lambda acc: fn(r, op, acc, steps, 15.0, 0.25, 0.95, 1.05)
+        def run2(fn, r=r, op=op, steps=steps):
+            return lambda acc: fn(r, op, acc, steps, 15.0, 0.25, 0.95, 1.05)
 
-    k, p, again = reduce_calls(torch, qk, run2(qk.qsts_feeder_reduce),
-                               run2(qk.qsts_feeder_reduce_plain),
-                               random_acc(torch, qk, lanes, 7))
-    e = compare_acc(torch, f"Q2 vvc_9bus x{steps}*{lanes}", k, p, again)
-    errs["qsts_feeder_reduce"] = e
-    log(f"qsts kernels: Q2 vvc_9bus {steps} steps x{lanes} lanes: counts, "
-        f"envelope equal, losses/peak rel {e:.3e}, bit-identical on repeat")
+        tag = f"Q2 {feeder} {steps} steps x{lanes}"
+        k, p, again = reduce_calls(torch, qk, run2(qk.qsts_feeder_reduce),
+                                   run2(qk.qsts_feeder_reduce_plain), acc0)
+        e = compare_acc(torch, tag, k, p, again)
+        worst = max(worst, e)
+        # The kernel's sums and fold on the card's IEEE operations.
+        mir = qk.StepAcc(*(t.clone() for t in acc0))
+        qk.feeder_reduce_mirror(r, op, mir, steps, 15.0, 0.25, 0.95, 1.05)
+        check(acc_bits(torch, k, mir),
+              f"{tag}: other bits than feeder_reduce_mirror")
+        # Two launches of half the steps each: the same bits.
+        half = qk.StepAcc(*(t.clone() for t in acc0))
+        h = steps // 2
+        for lo_, hi_ in ((0, h), (h, steps)):
+            sub = ladder_lanes(r, slice(lo_ * lanes, hi_ * lanes))
+            qk.qsts_feeder_reduce(sub, op, half, hi_ - lo_, 15.0, 0.25, 0.95,
+                                  1.05)
+        check(acc_bits(torch, k, half),
+              f"{tag}: {h} + {steps - h} steps in two launches give other "
+              f"bits than {steps} in one")
+        log(f"qsts kernels: {tag} (plan "
+            f"{tuple(qk.feeder_reduce_plan(int(op.root.shape[0])))}): counts, "
+            f"envelope equal, losses/peak rel {e:.3e}, bit-identical on "
+            f"repeat, the mirror's bits, {h} + {steps - h} steps the bits of "
+            f"{steps}")
+    errs["qsts_feeder_reduce"] = worst
+
+
+def acc_bits(torch, a, b):
+    """Two sets of Q1/Q2 accumulators bit for bit."""
+    return all(torch.equal(x, y) if x.dtype == torch.int32
+               else same_bits(torch, x, y) for x, y in zip(a, b))
+
+
+def ladder_lanes(res, rows):
+    """The ladder lanes ``rows`` of a :class:`LadderResult` (contiguous)."""
+    return type(res)(*(type(x)(x.re[rows].contiguous(), x.im[rows].contiguous())
+                       if hasattr(x, "re") else x[rows].contiguous()
+                       for x in res))
 
 
 def tensor_bytes(*ts):
@@ -4379,28 +4486,35 @@ def time_qsts(torch, qk, rows, extra):
             "ms": kw, "plain_ms": plw, "bound_ms": bw, "bound_by": byw}
         log(f"timing: qsts_bus_reduce mesh2000 x{lanes}: queued events "
             f"{kw:.4f} ms  plain {plw:.4f} ms  bound {bw:.5f} ms ({byw})")
-    steps, lanes = 24, MAIN_LANES
-    f, res = q2_inputs(torch, steps, lanes)
-    op2 = qk.feeder_reduce_operands(f, dev)
-    acc2 = random_acc(torch, qk, lanes, 7)
+    for feeder, steps, lanes in Q2_SHAPES[:2]:
+        f, res = q2_inputs(torch, steps, lanes, feeder=feeder)
+        op2 = qk.feeder_reduce_operands(f, dev)
+        acc2 = random_acc(torch, qk, lanes, 7)
 
-    def q2(fn=qk.qsts_feeder_reduce):
-        fn(res, op2, acc2, steps, 15.0, 0.25, 0.95, 1.05)
+        def q2(fn=qk.qsts_feeder_reduce, res=res, op2=op2, acc2=acc2,
+               steps=steps):
+            fn(res, op2, acc2, steps, 15.0, 0.25, 0.95, 1.05)
 
-    k = time_ms(torch, q2, reps=50)
-    kd, src = ladder_device_ms(torch, q2, 20, "Q2 vvc_9bus")
-    pl = time_ms(torch, lambda: q2(qk.qsts_feeder_reduce_plain), reps=3)
-    nbytes = (tensor_bytes(*res.v_node, *res.i_branch, *res.i_load,
-                           res.iterations, res.converged, op2.root,
-                           op2.live) + 2 * tensor_bytes(*acc2))
-    b, by = bound(nbytes, Q2_OPS * 3 * f.n_branches * steps * lanes)
-    log(f"timing: qsts_feeder_reduce vvc_9bus {steps} steps x{lanes}: kernel "
-        f"{k:.4f} ms (device {kd:.4f} [{src}])  plain {pl:.4f} ms  bound "
-        f"{b:.5f} ms ({by})")
-    rows["qsts_feeder_reduce"] = (k, pl, None, b, by)
-    extra["qsts_feeder_reduce"] = {
-        "device_ms": kd, "device_ms_source": src,
-        "shape": f"vvc_9bus, {steps} steps x{lanes} lanes"}
+        kq = queued_events_ms(torch, q2, 50)
+        k = time_ms(torch, q2, reps=50)
+        pl = time_ms(torch, lambda: q2(qk.qsts_feeder_reduce_plain), reps=3)
+        nbytes = (tensor_bytes(*res.v_node, *res.i_branch, *res.i_load,
+                               res.iterations, res.converged, op2.root,
+                               op2.live) + 2 * tensor_bytes(*acc2))
+        b, by = bound(nbytes, Q2_OPS * 3 * f.n_branches * steps * lanes)
+        plan = qk.feeder_reduce_plan(f.n_branches)
+        log(f"timing: qsts_feeder_reduce {feeder} {steps} steps x{lanes} "
+            f"(plan {tuple(plan)}): queued events {kq:.4f} ms, events back "
+            f"to back {k:.4f} ms  plain {pl:.4f} ms  bound {b:.5f} ms ({by})")
+        if lanes == MAIN_LANES:
+            rows["qsts_feeder_reduce"] = (kq, pl, None, b, by)
+            extra["qsts_feeder_reduce"] = {
+                "ms_source": "queued CUDA events",
+                "events_back_to_back_ms": k, "plan": list(plan),
+                "shape": f"{feeder}, {steps} steps x{lanes} lanes"}
+        else:
+            extra["qsts_feeder_reduce"][f"x{lanes}"] = {
+                "ms": kq, "plain_ms": pl, "bound_ms": b, "bound_by": by}
 
 
 def study_states(eng):
@@ -4426,6 +4540,18 @@ def compare_states(tag, a, b, atol, exact_ints=True):
         check(gap <= atol, f"{tag}: {name} {gap:.3e} from plain=True")
         worst = max(worst, gap)
     return worst
+
+
+def states_same_bits(a, b):
+    """Two carried study states field for field, bit for bit."""
+    for x, y in zip(a, b):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype.kind == "f":
+            x, y = x.view(np.int64 if x.itemsize == 8 else np.int32), \
+                y.view(np.int64 if y.itemsize == 8 else np.int32)
+        if x.shape != y.shape or not np.array_equal(x, y):
+            return False
+    return True
 
 
 def same_summary(a, b, drop=()):
@@ -4629,9 +4755,18 @@ def qsts_phase(torch, qk, lk):
         got = study_states(QstsEngine(spec))
         want = study_states(QstsEngine(spec, plain=True))
         gap = compare_states("(d) vs plain=True", got, want, QSTS_ATOL)
+        # Q2's steps' partials do not depend on the chunk: a repeat and a
+        # study in chunks of 12 carry the same bits.
+        for label, sp in (("a repeat", spec),
+                          ("chunks of 12", dataclasses.replace(
+                              spec, chunk_steps=12))):
+            other = study_states(QstsEngine(sp))
+            check(states_same_bits(got, other),
+                  f"(d): {label} carries other bits than chunks of 24")
         kill_and_resume("d-feeder", spec, feeder, tmp, stop=2)
         log(f"qsts: (d) vvc_9bus x{MAIN_LANES} x96: "
-            f"{feeder['scenario_steps_per_sec']} scenario-steps/s, L1 "
+            f"{feeder['scenario_steps_per_sec']} scenario-steps/s, a repeat "
+            f"and chunks of 12 the bits of chunks of 24, L1 "
             f"{l1} and Q2 {counts['qsts_feeder_reduce']} launches for "
             f"{n_chunks} chunks, within {gap:.3e} of plain=True, losses "
             f"{feeder['energy_loss_kwh_mean']:.3f} kWh a scenario")
@@ -6015,15 +6150,19 @@ def time_solver_kernels(torch, sol, nk, rows, extra):
           and float((want.imag - got[1]).abs().max()) <= KERNEL_ATOL,
           "Y1's library row computes another Ybus")
     lib = time_ms(torch, library_y1, reps=20)
+    kq = queued_events_ms(torch, lambda: sol.ybus_stamp(sol.YBUS, op, st), 30)
+    libq = queued_events_ms(torch, library_y1, 30)
     b, by = bound(b_y1, 0)
     rows["ybus_stamp"] = (k, p, lib, b, by)
     extra["ybus_stamp"] = {"device_ms": k_dev, "device_ms_source": src,
+                           "queued_ms": kq, "library_queued_ms": libq,
                            "shape": "mesh118 x 118 (bench_n1_118), YBUS",
                            "library": "torch.sparse_coo_tensor(idx, vals, "
                                       "(B, n, n)).to_dense(), complex128"}
     log(f"timing: ybus_stamp YBUS mesh118 x118 kernel {k:.4f} ms (device "
-        f"{k_dev:.4f}, {src})  plain {p:.4f} ms  bound {b:.4f} ms ({by})  "
-        f"library sparse COO to dense {lib:.4f} ms")
+        f"{k_dev:.4f}, {src}; queued events {kq:.4f})  plain {p:.4f} ms  "
+        f"bound {b:.4f} ms ({by})  library sparse COO to dense {lib:.4f} ms "
+        f"(queued events {libq:.4f})")
     for mode, key in ((sol.BPRIME, "bprime"), (sol.BDBL, "bdbl")):
         km, km_dev, src, pm = timed(
             "ybus_stamp", lambda: sol.ybus_stamp(mode, op, st),
@@ -8821,14 +8960,14 @@ def main() -> int:
         extra["delta_program"].update(delta_extra["delta_program"])
         counts.update(serve_cache(torch, ck, sk))
         compare_status_assemble(torch, sk, errs)
-        compare_smw(torch, sck, errs)
+        compare_smw(torch, sck, ck, errs, extra)
         compare_dc(torch, sck, errs)
         time_screen_kernels(torch, sk, sck, rows, extra)
         counts.update(n1_screens(torch, sk, sck, nk))
         n1_counts, n1_status = serve_n1(torch, sk, sck, nk)
-        counts["smw_sweep"] = n1_counts["smw_sweep"]
+        counts["smw_screen"] = n1_counts["smw_screen"]
         extra["sparse_assemble"]["launches_n1_with_status"] = n1_status
-        extra["smw_sweep"]["launches_path"] = "serve n1 phase"
+        extra["smw_screen"]["launches_path"] = "serve n1 phase"
         extra["dc_screen"]["launches_path"] = (
             "n1 screens phase: make_dc_solver and dc_prefilter")
         worst = compare_ladder(torch, errs)
@@ -8946,7 +9085,7 @@ def main() -> int:
                         "freedm_tpu/pf/krylov.py:479"),
         "delta_program": ("cuda", source + "csrc/cache.cu",
                           "freedm_tpu/serve/cache.py:284"),
-        "smw_sweep": ("cuda", source + "csrc/screen.cu",
+        "smw_screen": ("cuda", source + "csrc/screen.cu",
                       "freedm_tpu/pf/n1.py:340"),
         "dc_screen": ("cuda", source + "csrc/screen.cu",
                       "freedm_tpu/pf/dc.py:145"),

@@ -7,8 +7,9 @@ topology-sweep and DGI paths and the serving cache.
   (``csrc/sparse.cu``);
 - C1 ``delta_program``, the serving cache's delta program — CUDA C++
   (``csrc/cache.cu``);
-- N1 ``smw_sweep`` and D1 ``dc_screen``, the N-1 and DC screens' kernels
-  — CUDA C++ (``csrc/screen.cu``);
+- N1 ``smw_screen`` (a whole SMW N-1 screen, its triangular solves on
+  the B′/B″ LU pair included, in one launch) and D1 ``dc_screen``, the
+  N-1 and DC screens' kernels — CUDA C++ (``csrc/screen.cu``);
 - L1 ``ladder_solve`` and L2 ``ladder_vjp``, the radial ladder solve and
   its adjoint, and L4 ``ladder_doubling``, its pointer-jumping form —
   CUDA C++ (``csrc/ladder.cu``); L3 ``ladder_dense``, its form on the

@@ -48,15 +48,16 @@
 //     arrive as zeros.  The float32 factors are read with an L2 evict-last
 //     policy, so the pair (2 x 16 MB at mesh2000) stays in the 50 MB L2
 //     across sweeps; the float64 pair (64 MB) streams from HBM.
-//   - Rounding of the substitution: every row receives its updates one
-//     column at a time, in column order (ascending for L, descending for
-//     U), each as one fused multiply-add in the factors' type
-//     (b_i = fma(-a_ic, x_c, b_i)), and x_c = b_c / u_cc correctly
-//     rounded (`quot`): column-oriented substitution whatever the tiling,
-//     the sub-blocks and the cluster size.  Under mixed precision that type is
-//     float32: the right-hand side is the float32 rounding of dp (dq), the
-//     sums run in float32, and x is widened before it is added, as the
-//     reference's `.astype`.  No inverse is formed.
+//   - Rounding of the substitution (lu_subst.cuh, shared with N1): every
+//     row receives its updates one column at a time, in column order
+//     (ascending for L, descending for U), each as one fused multiply-add
+//     in the factors' type (b_i = fma(-a_ic, x_c, b_i)), and x_c = b_c /
+//     u_cc correctly rounded (`quot`): column-oriented substitution
+//     whatever the tiling, the sub-blocks and the cluster size.  Under
+//     mixed precision that type is float32: the right-hand side is the
+//     float32 rounding of dp (dq), the sums run in float32, and x is
+//     widened before it is added, as the reference's `.astype`.  No inverse
+//     is formed.
 //   - Mismatch passes.  A warp takes 32 buses of one lane; each thread
 //     walks its bus's incidence list (the port's CSR order: from-end edges,
 //     then to-end edges, each ascending) with the explicitly rounded
@@ -85,6 +86,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "lu_subst.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -92,7 +95,10 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;
-constexpr int kSub = 8;  // columns a diagonal sub-block solves in registers
+// Columns a diagonal sub-block solves in registers (lu_subst.cuh): 8 in
+// float32; 4 in float64, where 8 spill the kernel's registers.
+template <typename T>
+__host__ __device__ constexpr int sub_cols() { return sizeof(T) == 4 ? 8 : 4; }
 // Ring slots: 8 float32 tiles (128 KB) or 3 float64 tiles (96 KB, which
 // leaves room for 8 lanes at mesh5000).
 template <typename T>
@@ -143,32 +149,11 @@ struct Args {
   double tol;
 };
 
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+// mul_rn, fnma, fma_rn and quot (the substitution's rounding) come from
+// lu_subst.cuh.
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-// b - a x, rounded once.
-__device__ __forceinline__ double fnma(double a, double x, double b) { return __fma_rn(-a, x, b); }
-__device__ __forceinline__ float fnma(float a, float x, float b) { return __fmaf_rn(-a, x, b); }
-__device__ __forceinline__ double fma_rn(double a, double x, double b) { return __fma_rn(a, x, b); }
-__device__ __forceinline__ float fma_rn(float a, float x, float b) { return __fmaf_rn(a, x, b); }
-
-// a / u rounded to nearest, given y = 1 / u rounded to nearest (made once
-// per program build, `rdiag`): q = a y, then Markstein's
-// correction q + (a - q u) y with the remainder exact in an fma.  With y
-// the correctly rounded reciprocal and q within an ulp of a / u, the
-// result is the correctly rounded quotient for normal operands; a zero a
-// gives q itself, the quotient's signed zero (a non-finite a gives NaN
-// where a division gives +-inf: the lane is lost either way).  The
-// factors' pivots u are normal numbers; the chain of the back substitution
-// then waits on three roundings a column instead of a division.
-template <typename T>
-__device__ __forceinline__ T quot(T a, T u, T y) {
-  const T q = mul_rn(a, y);
-  const T q1 = fma_rn(fnma(q, u, a), y, q);
-  return a == T(0) ? q : q1;
-}
 
 // jnp.maximum: NaN if either operand is NaN.
 __device__ __forceinline__ double nanmax(double a, double b) {
@@ -457,65 +442,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       bb[p] = acc;
     }
   };
-  // The diagonal block bk: a warp per lane, rows lane and lane + 32, in
-  // sub-blocks of kSub columns.  Every lane solves a sub-block's triangle
-  // itself, in registers, from one batch of shuffles, and then applies its
-  // x to its own rows beyond the sub-block; each row still takes its
-  // updates one fma at a time in column order.
+  // The diagonal block bk: a warp per lane, in sub-blocks of kSub columns
+  // (lu_subst.cuh: every row takes its updates one fma at a time in column
+  // order; rows past n stay zero, and past n u_cc = 1 keeps x_c zero).
   auto diag = [&](const T* tile, int bk, int which, bool fwd) {
+    constexpr int kSub = sub_cols<T>();
     const int rows = min(kTile, n - bk * kTile);
     T* bb = bvec + (size_t)(bk / cs) * lb_elems;
+    const T* rd = rdg + ((size_t)which * nloc + bk / cs) * kTile;
     for (int l = warp; l < lanes; l += kWarps) {
-      T* bl = bb + l * kTile;
-      T b0 = bl[lane], b1 = bl[lane + 32];
-      T xs[kSub];
-      if (fwd) {  // unit lower: x_c = b_c; rows past n stay zero
-        for (int s0 = 0; s0 < kTile; s0 += kSub) {
-#pragma unroll
-          for (int j = 0; j < kSub; ++j)
-            xs[j] = __shfl_sync(0xffffffffu, s0 < 32 ? b0 : b1, (s0 + j) & 31);
-#pragma unroll
-          for (int j = 0; j < kSub; ++j)
-#pragma unroll
-            for (int r = j + 1; r < kSub; ++r)
-              xs[r] = fnma(tile[(s0 + j) * kTile + s0 + r], xs[j], xs[r]);
-#pragma unroll
-          for (int j = 0; j < kSub; ++j) {
-            const T* col = tile + (s0 + j) * kTile;
-            if (lane >= s0 + kSub) b0 = fnma(col[lane], xs[j], b0);
-            if (lane + 32 >= s0 + kSub) b1 = fnma(col[lane + 32], xs[j], b1);
-            if (lane == s0 + j) b0 = xs[j];
-            if (lane + 32 == s0 + j) b1 = xs[j];
-          }
-        }
-      } else {  // upper: x_c = b_c / u_cc; past n, u_cc = 1 keeps x_c zero
-        for (int s0 = kTile - kSub; s0 >= 0; s0 -= kSub) {
-#pragma unroll
-          for (int j = 0; j < kSub; ++j)
-            xs[j] = __shfl_sync(0xffffffffu, s0 < 32 ? b0 : b1, (s0 + j) & 31);
-          T ys[kSub];
-#pragma unroll
-          for (int j = 0; j < kSub; ++j)
-            ys[j] = rdg[((size_t)which * nloc + bk / cs) * kTile + s0 + j];
-#pragma unroll
-          for (int j = kSub - 1; j >= 0; --j) {
-            const T* col = tile + (s0 + j) * kTile;
-            xs[j] = quot(xs[j], s0 + j < rows ? col[s0 + j] : T(1), ys[j]);
-#pragma unroll
-            for (int r = 0; r < j; ++r) xs[r] = fnma(col[s0 + r], xs[j], xs[r]);
-          }
-#pragma unroll
-          for (int j = kSub - 1; j >= 0; --j) {
-            const T* col = tile + (s0 + j) * kTile;
-            if (lane < s0) b0 = fnma(col[lane], xs[j], b0);
-            if (lane + 32 < s0) b1 = fnma(col[lane + 32], xs[j], b1);
-            if (lane == s0 + j) b0 = xs[j];
-            if (lane + 32 == s0 + j) b1 = xs[j];
-          }
-        }
-      }
-      bl[lane] = b0;
-      bl[lane + 32] = b1;
+      if (fwd)
+        lu_diag_fwd<T, kSub, 1>(tile, bb + l * kTile, rows, lane);
+      else
+        lu_diag_bwd<T, kSub, 1>(tile, bb + l * kTile, rd, rows, lane);
     }
   };
   // Solved blocks travel through the x ring: the owner of block bk copies

@@ -60,11 +60,27 @@
 // Q2 qsts_feeder_reduce — replaces the step of scenarios/engine.py:647
 //   `_build_feeder_chunk` after its solve (:662-684).  The ladder restarts
 //   cold every step, so a chunk's Tc * S lanes are solved by one L1 launch;
-//   Q2 then walks the timesteps of each scenario lane in order (one CTA a
-//   lane): live-phase band minutes, total_loss_kw * dt (the losses summed
-//   in step order, as the reference's scan adds them), iterations, and the
-//   partials of the |V| envelope (dead phases read 1.0) and the peak
-//   |branch_power_kva|.
+//   Q2 then reduces each scenario's timesteps: live-phase band minutes,
+//   total_loss_kw * dt (the losses summed in step order, as the reference's
+//   scan adds them), iterations, and the partials of the |V| envelope (dead
+//   phases read 1.0) and the peak |branch_power_kva|.
+//
+//   Design (qsts_kernels.feeder_reduce_plan, a function of the branch count
+//   alone).  A step's partials — the band count, v_lo, v_hi, peak, the
+//   load's P and the three root-phase current sums (re, im), which give
+//   the substation's P — do not depend on one another across steps, so a
+//   CTA of 16 warps (one scenario) computes them side by side: W warps a
+//   step (1 on a feeder of up to 170 branches), its entries dealt to the
+//   W * 32 threads in a fixed order, each warp reduced by shuffles alone;
+//   no block barrier inside a step.  A batch of up to 32 steps' partials
+//   meets in shared memory, a thread a step combines its W warps' partials
+//   in warp order, and one thread folds the steps into the scenario's
+//   accumulators in step order with the plain version's expressions
+//   (qsts_kernels._update_acc).  A step's bits thus depend on W alone,
+//   never on how many steps or scenarios a launch holds
+//   (qsts_kernels.feeder_reduce_mirror is the kernel on the host).  The first form walked the steps in turn, a CTA of 256 threads
+//   doing about ten block reductions (two barriers each) a step with at
+//   most 27 threads busy at vvc_9bus: 0.053-0.057 ms at vvc_9bus x 24 * 64.
 //
 // Every block sum is a fixed tree (warp shuffles, then the warps' sums in
 // warp order); min and max propagate NaN as jnp.minimum / torch.minimum do.
@@ -118,17 +134,6 @@ __device__ double block_sum(double x, double* sh) {
   if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = x;
   __syncthreads();
   double t = 0.0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) t += sh[w];
-  return t;
-}
-
-__device__ int block_isum(int x, int* sh) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFull, x, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = x;
-  __syncthreads();
-  int t = 0;
   if (threadIdx.x == 0)
     for (int w = 0; w < kWarps; ++w) t += sh[w];
   return t;
@@ -328,20 +333,6 @@ struct Acc {
   double* peak;
 };
 
-// Thread 0: one step's lane results into the lane's accumulators.
-__device__ void acc_update(const Acc& acc, int s, int count, double loss, int it,
-                           bool conv, double vmin, double vmax, double peak,
-                           double dt_min, double dt_h) {
-  acc.viol[s] = acc.viol[s] + dt_min * (double)count;
-  acc.loss[s] = acc.loss[s] + loss * dt_h;
-  acc.it_sum[s] = acc.it_sum[s] + it;
-  acc.it_max[s] = max(acc.it_max[s], it);
-  acc.nonconv[s] = acc.nonconv[s] + (conv ? 0 : 1);
-  acc.v_lo[s] = nan_min(acc.v_lo[s], vmin);
-  acc.v_hi[s] = nan_max(acc.v_hi[s], vmax);
-  acc.peak[s] = nan_max(acc.peak[s], peak);
-}
-
 struct BusArgs {
   const double* v;  // [S, n]
   const double* th;
@@ -518,7 +509,8 @@ __global__ void __launch_bounds__(kBusThreads) bus_reduce_kernel(BusArgs a) {
     vmax = nan_max(vmax, rd[2 * kW + w]);
     peak = nan_max(peak, rd[3 * kW + w]);
   }
-  // acc_update's expressions, on the values read at the start.
+  // The plain version's expressions (qsts_kernels._update_acc), on the
+  // values read at the start.
   a.acc.viol[s] = o_viol + a.dt_min * (double)cnt;
   a.acc.loss[s] = o_loss + psum * a.dt_h;
   a.acc.it_sum[s] = o_sum + it;
@@ -541,59 +533,202 @@ struct FeederArgs {
   const double* root;         // [nb]
   const double* live;         // [nb + 1, 3]
   Acc acc;
-  int lanes, steps, nb;
+  int lanes, steps, nb, warps;
   double s_base, dt_min, dt_h, lo, hi;
 };
 
-__global__ void __launch_bounds__(kThreads) feeder_reduce_kernel(FeederArgs a) {
-  __shared__ double sh[kWarps];
-  __shared__ int shi[kWarps];
-  const int s = blockIdx.x, tid = threadIdx.x;
+// Q2's CTA (16 warps, one scenario), the steps whose partials meet in
+// shared memory at once (a batch), and the most warps a step
+// (qsts_kernels.FEEDER_MAX_WARPS reads it).
+constexpr int kFeederThreads = 512;
+constexpr int kFeederBatch = 32;
+constexpr int kFeederMaxWarps = 8;
+// A warp's partials of one step: vmin, vmax, peak, pload, ir[3], ii[3].
+constexpr int kFeederParts = 10;
+
+// A CTA of kFeederThreads a scenario; W = a.warps warps a step.  The
+// inputs are read through the read-only path (__ldg), so a warp's loads of
+// its steps are free to be issued ahead of its shared-memory stores.
+__global__ void __launch_bounds__(kFeederThreads) feeder_reduce_kernel(FeederArgs a) {
+  __shared__ double part[kFeederBatch * kFeederMaxWarps][kFeederParts];
+  __shared__ int pcnt[kFeederBatch * kFeederMaxWarps];
+  __shared__ double s_loss[kFeederBatch], s_lo[kFeederBatch], s_hi[kFeederBatch],
+      s_peak[kFeederBatch], s_v0[kFeederBatch][6];
+  __shared__ int s_cnt[kFeederBatch], s_it[kFeederBatch], s_conv[kFeederBatch];
+  const int s = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int W = a.warps, groups = kFeederThreads / 32 / W;
+  const int g = warp / W, wg = warp % W, stride = 32 * W, j0 = wg * 32 + lane;
   const int nn3 = (a.nb + 1) * 3, nb3 = a.nb * 3;
   const double sb = a.s_base;
-  for (int t = 0; t < a.steps; ++t) {
-    const size_t lane = (size_t)t * a.lanes + s;
-    const double* vr = a.v_re + lane * nn3;
-    const double* vi = a.v_im + lane * nn3;
-    const double* br = a.ib_re + lane * nb3;
-    const double* bi = a.ib_im + lane * nb3;
-    const double* lr = a.il_re + lane * nb3;
-    const double* li = a.il_im + lane * nb3;
-    int cnt = 0;
-    double vmin = INFINITY, vmax = -INFINITY, peak = -INFINITY, pload = 0.0;
-    double ir[3] = {0.0, 0.0, 0.0}, ii[3] = {0.0, 0.0, 0.0};
-    for (int e = tid; e < nn3; e += kThreads) {
-      const double vm = sqrt(vr[e] * vr[e] + vi[e] * vi[e]);
-      const bool live = a.live[e] > 0.0;
-      cnt += (live && (vm < a.lo || vm > a.hi)) ? 1 : 0;
-      const double vl = live ? vm : 1.0;
-      vmin = nan_min(vmin, vl);
-      vmax = nan_max(vmax, vl);
-    }
-    for (int e = tid; e < nb3; e += kThreads) {
-      const double nr = vr[e + 3], ni = vi[e + 3];  // the branch's receiving node
-      const double pr = (nr * br[e] + ni * bi[e]) * sb, pi = (ni * br[e] - nr * bi[e]) * sb;
-      peak = nan_max(peak, sqrt(pr * pr + pi * pi));
-      pload += (nr * lr[e] + ni * li[e]) * sb;
-      if (a.root[e / 3] > 0.0) {
-        ir[e % 3] += br[e];
-        ii[e % 3] += bi[e];
+  // Thread 0 carries the scenario's accumulators through the launch.
+  double o_viol = 0.0, o_loss = 0.0, o_lo = 0.0, o_hi = 0.0, o_peak = 0.0;
+  int o_sum = 0, o_max = 0, o_nc = 0;
+  if (tid == 0) {
+    o_viol = a.acc.viol[s];
+    o_loss = a.acc.loss[s];
+    o_sum = a.acc.it_sum[s];
+    o_max = a.acc.it_max[s];
+    o_nc = a.acc.nonconv[s];
+    o_lo = a.acc.v_lo[s];
+    o_hi = a.acc.v_hi[s];
+    o_peak = a.acc.peak[s];
+  }
+  for (int t0 = 0; t0 < a.steps; t0 += kFeederBatch) {
+    const int nsb = min(kFeederBatch, a.steps - t0);
+    // Each group of W warps: the partials of steps t0 + g, t0 + g + groups, ...
+    for (int j = g; j < nsb; j += groups) {
+      const size_t ln = (size_t)(t0 + j) * a.lanes + s;
+      const double* vr = a.v_re + ln * nn3;
+      const double* vi = a.v_im + ln * nn3;
+      const double* br = a.ib_re + ln * nb3;
+      const double* bi = a.ib_im + ln * nb3;
+      const double* lr = a.il_re + ln * nb3;
+      const double* li = a.il_im + ln * nb3;
+      // The step's iterations, flag and substation voltage (the first
+      // warp's lane 0), read with the entries.
+      int it = 0, cv = 0;
+      double v0[6];
+      if (wg == 0 && lane == 0) {
+        it = __ldg(a.it + ln);
+        cv = __ldg(a.conv + ln) != 0;
+        for (int ph = 0; ph < 3; ++ph) {
+          v0[ph] = __ldg(vr + ph);
+          v0[3 + ph] = __ldg(vi + ph);
+        }
+      }
+      int cnt = 0;
+      double vmin = INFINITY, vmax = -INFINITY, peak = -INFINITY, pload = 0.0;
+      double ir0 = 0.0, ir1 = 0.0, ir2 = 0.0, ii0 = 0.0, ii1 = 0.0, ii2 = 0.0;
+      // Node-phase entries e < nn3; branch-phase entries e < nb3 = nn3 - 3,
+      // each thread's in increasing e.
+      for (int e = j0; e < nn3; e += stride) {
+        const double xr = __ldg(vr + e), xi = __ldg(vi + e);
+        const bool live = __ldg(a.live + e) > 0.0;
+        const bool br_in = e < nb3;
+        double nr = 0.0, ni = 0.0, cr = 0.0, ci = 0.0, ldr = 0.0, ldi = 0.0;
+        bool root = false;
+        if (br_in) {
+          nr = __ldg(vr + e + 3);  // the branch's receiving node
+          ni = __ldg(vi + e + 3);
+          cr = __ldg(br + e);
+          ci = __ldg(bi + e);
+          ldr = __ldg(lr + e);
+          ldi = __ldg(li + e);
+          root = __ldg(a.root + e / 3) > 0.0;
+        }
+        const double vm = sqrt(xr * xr + xi * xi);
+        cnt += (live && (vm < a.lo || vm > a.hi)) ? 1 : 0;
+        const double vl = live ? vm : 1.0;
+        vmin = nan_min(vmin, vl);
+        vmax = nan_max(vmax, vl);
+        if (br_in) {
+          const double pr = (nr * cr + ni * ci) * sb, pi = (ni * cr - nr * ci) * sb;
+          peak = nan_max(peak, sqrt(pr * pr + pi * pi));
+          pload += (nr * ldr + ni * ldi) * sb;
+          if (root) {
+            const int ph = e % 3;
+            if (ph == 0) {
+              ir0 += cr;
+              ii0 += ci;
+            } else if (ph == 1) {
+              ir1 += cr;
+              ii1 += ci;
+            } else {
+              ir2 += cr;
+              ii2 += ci;
+            }
+          }
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        cnt += __shfl_down_sync(kFull, cnt, o);
+        vmin = nan_min(vmin, __shfl_down_sync(kFull, vmin, o));
+        vmax = nan_max(vmax, __shfl_down_sync(kFull, vmax, o));
+        peak = nan_max(peak, __shfl_down_sync(kFull, peak, o));
+        pload += __shfl_down_sync(kFull, pload, o);
+        ir0 += __shfl_down_sync(kFull, ir0, o);
+        ir1 += __shfl_down_sync(kFull, ir1, o);
+        ir2 += __shfl_down_sync(kFull, ir2, o);
+        ii0 += __shfl_down_sync(kFull, ii0, o);
+        ii1 += __shfl_down_sync(kFull, ii1, o);
+        ii2 += __shfl_down_sync(kFull, ii2, o);
+      }
+      if (lane == 0) {
+        double* pp = part[j * W + wg];
+        pp[0] = vmin;
+        pp[1] = vmax;
+        pp[2] = peak;
+        pp[3] = pload;
+        pp[4] = ir0;
+        pp[5] = ir1;
+        pp[6] = ir2;
+        pp[7] = ii0;
+        pp[8] = ii1;
+        pp[9] = ii2;
+        pcnt[j * W + wg] = cnt;
+        if (wg == 0) {
+          s_it[j] = it;
+          s_conv[j] = cv;
+          for (int q = 0; q < 6; ++q) s_v0[j][q] = v0[q];
+        }
       }
     }
-    cnt = block_isum(cnt, shi);
-    vmin = block_ext<false>(vmin, sh);
-    vmax = block_ext<true>(vmax, sh);
-    peak = block_ext<true>(peak, sh);
-    pload = block_sum(pload, sh);
-    double psub = 0.0;
-    for (int ph = 0; ph < 3; ++ph) {
-      const double re = block_sum(ir[ph], sh), im = block_sum(ii[ph], sh);
-      psub += (vr[ph] * re + vi[ph] * im) * sb;  // valid in thread 0
-    }
-    if (tid == 0)
-      acc_update(a.acc, s, cnt, psub - pload, a.it[lane], a.conv[lane] != 0, vmin,
-                 vmax, peak, a.dt_min, a.dt_h);
     __syncthreads();
+    // A thread a step: its W warps' partials in warp order, then its losses.
+    if (tid < nsb) {
+      const int j = tid;
+      const double* pp = part[j * W];
+      int cnt = pcnt[j * W];
+      double vmin = pp[0], vmax = pp[1], peak = pp[2], pload = pp[3];
+      double ir[3] = {pp[4], pp[5], pp[6]}, ii[3] = {pp[7], pp[8], pp[9]};
+      for (int w = 1; w < W; ++w) {
+        const double* q = part[j * W + w];
+        cnt += pcnt[j * W + w];
+        vmin = nan_min(vmin, q[0]);
+        vmax = nan_max(vmax, q[1]);
+        peak = nan_max(peak, q[2]);
+        pload = pload + q[3];
+        for (int ph = 0; ph < 3; ++ph) {
+          ir[ph] = ir[ph] + q[4 + ph];
+          ii[ph] = ii[ph] + q[7 + ph];
+        }
+      }
+      double psub = 0.0;
+      for (int ph = 0; ph < 3; ++ph)
+        psub += (s_v0[j][ph] * ir[ph] + s_v0[j][3 + ph] * ii[ph]) * sb;
+      s_loss[j] = psub - pload;
+      s_cnt[j] = cnt;
+      s_lo[j] = vmin;
+      s_hi[j] = vmax;
+      s_peak[j] = peak;
+    }
+    __syncthreads();
+    if (tid == 0) {  // the fold, in step order (qsts_kernels._update_acc)
+#pragma unroll 4
+      for (int j = 0; j < nsb; ++j) {
+        o_viol = o_viol + a.dt_min * (double)s_cnt[j];
+        o_loss = o_loss + s_loss[j] * a.dt_h;
+        o_sum = o_sum + s_it[j];
+        o_max = max(o_max, s_it[j]);
+        o_nc = o_nc + (s_conv[j] ? 0 : 1);
+        o_lo = nan_min(o_lo, s_lo[j]);
+        o_hi = nan_max(o_hi, s_hi[j]);
+        o_peak = nan_max(o_peak, s_peak[j]);
+      }
+    }
+    // The next batch's partials overwrite part only after every step of
+    // this one was combined (the barrier above), and s_* only after the
+    // fold (the next batch's barrier, which thread 0 reaches after it).
+  }
+  if (tid == 0) {
+    a.acc.viol[s] = o_viol;
+    a.acc.loss[s] = o_loss;
+    a.acc.it_sum[s] = o_sum;
+    a.acc.it_max[s] = o_max;
+    a.acc.nonconv[s] = o_nc;
+    a.acc.v_lo[s] = o_lo;
+    a.acc.v_hi[s] = o_hi;
+    a.acc.peak[s] = o_peak;
   }
 }
 
@@ -664,12 +799,15 @@ extern "C" int qsts_feeder_reduce(const double* v_re, const double* v_im,
                                   const double* root, const double* live, double* viol,
                                   double* loss, int* it_sum, int* it_max, int* nonconv,
                                   double* v_lo, double* v_hi, double* peak, int lanes,
-                                  int steps, int nb, double s_base, double dt_min,
-                                  double dt_h, double lo, double hi, void* stream) {
-  if (lanes <= 0 || steps <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
+                                  int steps, int nb, int warps, double s_base,
+                                  double dt_min, double dt_h, double lo, double hi,
+                                  void* stream) {
+  if (lanes <= 0 || steps <= 0 || nb <= 0 || warps < 1 || warps > kFeederMaxWarps ||
+      (warps & (warps - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
   FeederArgs a{v_re, v_im, ib_re, ib_im, il_re, il_im, it, conv, root, live,
                Acc{viol, loss, it_sum, it_max, nonconv, v_lo, v_hi, peak},
-               lanes, steps, nb, s_base, dt_min, dt_h, lo, hi};
-  feeder_reduce_kernel<<<(unsigned)lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
+               lanes, steps, nb, warps, s_base, dt_min, dt_h, lo, hi};
+  feeder_reduce_kernel<<<(unsigned)lanes, kFeederThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -49,6 +49,12 @@ count alone: a CTA a lane stages every bus's rotated voltage once and
 walks the branches.  The bus pass keeps one order on every plan and lane
 count (:func:`bus_reduce_mirror` is that order on the host), so the
 accumulators are the same bits whatever the plan and the lane count.
+
+**Q2's launch** follows :func:`feeder_reduce_plan`, a function of the
+branch count alone: a CTA a scenario computes its steps' partials side by
+side (``warps`` warps a step), then one thread folds them in step order
+(:func:`feeder_reduce_mirror` is the kernel on the host), so a study's
+accumulators are the same bits at any chunking and scenario count.
 """
 
 from __future__ import annotations
@@ -537,6 +543,31 @@ def feeder_reduce_operands(feeder, device) -> FeederReduceOperands:
         float(feeder.s_base_per_phase_kva))
 
 
+#: Q2: the most warps a step (``csrc/qsts.cu`` ``kFeederMaxWarps``) and
+#: the entries a thread should take at most before a step gets more warps.
+(FEEDER_MAX_WARPS,) = build.constants("qsts.cu", "kFeederMaxWarps")
+_FEEDER_ENTRIES = 16
+
+
+class FeederReducePlan(NamedTuple):
+    """Q2's launch: ``warps`` warps a step (1, 2, 4 or 8)."""
+
+    warps: int
+
+
+def feeder_reduce_plan(nb: int) -> FeederReducePlan:
+    """Q2's launch for a feeder of ``nb`` branches, never the scenario or
+    step count: the fewest warps a step (a power of two, at most
+    :data:`FEEDER_MAX_WARPS`) that give a thread at most 16 of the step's
+    ``3 nb`` branch-phase entries — one warp up to 170 branches."""
+    if nb < 1:
+        raise ValueError(f"feeder_reduce_plan needs nb >= 1, got {nb}")
+    warps = 1
+    while warps < FEEDER_MAX_WARPS and 3 * nb > 32 * warps * _FEEDER_ENTRIES:
+        warps *= 2
+    return FeederReducePlan(warps)
+
+
 def qsts_feeder_reduce_plain(res, op: FeederReduceOperands, acc: StepAcc,
                              steps: int, dt_min: float, dt_h: float,
                              lo: float, hi: float) -> None:
@@ -576,6 +607,73 @@ def qsts_feeder_reduce_plain(res, op: FeederReduceOperands, acc: StepAcc,
                     dt_min, dt_h)
 
 
+def _thread_sums(terms: Tensor, mask: Optional[Tensor], warps: int) -> Tensor:
+    """Q2's ordered sum of ``terms [B, E]`` (``mask [E]``: the entries
+    added) over ``warps`` warps: thread j of ``32 · warps`` adds entries j,
+    j + 32·warps, ... in turn from 0.0, each warp by ``__shfl_down_sync``
+    (offsets 16 to 1), then the warps' sums in warp order."""
+    b, e = terms.shape
+    width = 32 * warps
+    acc = terms.new_zeros(b, width)
+    for k0 in range(0, e, width):
+        w = min(width, e - k0)
+        add = acc[:, :w] + terms[:, k0:k0 + w]
+        if mask is not None:
+            add = torch.where(mask[k0:k0 + w], add, acc[:, :w])
+        acc = torch.cat([add, acc[:, w:]], dim=1)
+    x = acc.view(b, warps, 32)
+    for o in (16, 8, 4, 2, 1):
+        x = x[..., :o] + x[..., o:2 * o]
+    total = x[:, 0, 0]
+    for w in range(1, warps):
+        total = total + x[:, w, 0]
+    return total
+
+
+def feeder_reduce_mirror(res, op: FeederReduceOperands, acc: StepAcc,
+                         steps: int, dt_min: float, dt_h: float, lo: float,
+                         hi: float, plan: Optional[FeederReducePlan] = None
+                         ) -> None:
+    """Q2's kernel on the host, for tests: the arguments of
+    :func:`qsts_feeder_reduce_plain`, with the kernel's sums — the load's
+    P and the root-phase currents by :func:`_thread_sums` on ``plan``
+    (default :func:`feeder_reduce_plan`), the substation's P their phases
+    added in order from 0.0 — and its fold, step by step.  Counts,
+    envelope and peak are order-free."""
+    lanes = int(acc.viol.shape[0])
+    nb = int(op.root.shape[0])
+    plan = feeder_reduce_plan(nb) if plan is None else plan
+    b = steps * lanes
+    sb = op.s_base
+    vre, vim = res.v_node.re[:b], res.v_node.im[:b]
+    ibr, ibi = res.i_branch.re[:b], res.i_branch.im[:b]
+    ilr, ili = res.i_load.re[:b], res.i_load.im[:b]
+    live = op.live > 0
+    vm = torch.sqrt(vre * vre + vim * vim)
+    count = (((vm < lo) | (vm > hi)) & live).reshape(b, -1).sum(dim=1)
+    vl = torch.where(live, vm, torch.ones_like(vm)).reshape(b, -1)
+    nr, ni = vre[:, 1:], vim[:, 1:]
+    pr, pi = (nr * ibr + ni * ibi) * sb, (ni * ibr - nr * ibi) * sb
+    peak = torch.amax(torch.sqrt(pr * pr + pi * pi).reshape(b, -1), dim=1)
+    pload = _thread_sums(((nr * ilr + ni * ili) * sb).reshape(b, -1), None,
+                         plan.warps)
+    phase = torch.arange(3 * nb, device=vre.device) % 3
+    root = (op.root > 0).repeat_interleave(3)
+    psub = torch.zeros(b, dtype=vre.dtype, device=vre.device)
+    for ph in range(3):
+        sel = root & (phase == ph)
+        ir = _thread_sums(ibr.reshape(b, -1), sel, plan.warps)
+        ii = _thread_sums(ibi.reshape(b, -1), sel, plan.warps)
+        psub = psub + (vre[:, 0, ph] * ir + vim[:, 0, ph] * ii) * sb
+    loss = psub - pload
+    vmin, vmax = torch.amin(vl, dim=1), torch.amax(vl, dim=1)
+    for t in range(steps):
+        sl = slice(t * lanes, (t + 1) * lanes)
+        _update_acc(acc, count[sl], loss[sl], res.iterations[sl],
+                    res.converged[sl], vmin[sl], vmax[sl], peak[sl], dt_min,
+                    dt_h)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -586,7 +684,7 @@ _D = ctypes.c_double
 _SIGS = {
     "agent_step": [_P] * 30 + [_I] * 11 + [_D] * 2 + [_P],
     "qsts_bus_reduce": [_P] * 16 + [_I] * 4 + [_D] * 4 + [_P],
-    "qsts_feeder_reduce": [_P] * 18 + [_I] * 3 + [_D] * 5 + [_P],
+    "qsts_feeder_reduce": [_P] * 18 + [_I] * 4 + [_D] * 5 + [_P],
 }
 _lib_lock = threading.Lock()
 _fns: Dict[str, object] = {}
@@ -736,7 +834,8 @@ def qsts_feeder_reduce(res, op: FeederReduceOperands, acc: StepAcc,
                        steps: int, dt_min: float, dt_h: float, lo: float,
                        hi: float) -> None:
     """Q2: ``steps`` timesteps of ladder results into the lanes'
-    accumulators, in step order, in one launch (the arguments of
+    accumulators, in step order, in one launch on
+    :func:`feeder_reduce_plan` (the arguments of
     :func:`qsts_feeder_reduce_plain`)."""
     v = res.v_node.re
     if not _on_card(v, "qsts_feeder_reduce"):
@@ -745,6 +844,7 @@ def qsts_feeder_reduce(res, op: FeederReduceOperands, acc: StepAcc,
     dev, f64 = v.device, torch.float64
     lanes = int(acc.viol.shape[0])
     nb = int(op.root.shape[0])
+    warps = feeder_reduce_plan(nb).warps
     b = steps * lanes
     node3, br3 = (b, nb + 1, 3), (b, nb, 3)
     _want(dev, v_re=(res.v_node.re, node3, f64),
@@ -762,7 +862,7 @@ def qsts_feeder_reduce(res, op: FeederReduceOperands, acc: StepAcc,
             res.i_load.re.data_ptr(), res.i_load.im.data_ptr(),
             res.iterations.data_ptr(), res.converged.data_ptr(),
             op.root.data_ptr(), op.live.data_ptr(), *args, lanes, steps, nb,
-            float(op.s_base), float(dt_min), float(dt_h), float(lo),
+            warps, float(op.s_base), float(dt_min), float(dt_h), float(lo),
             float(hi), _stream(v))
     _raise_on(rc, "qsts_feeder_reduce")
     _count("qsts_feeder_reduce")

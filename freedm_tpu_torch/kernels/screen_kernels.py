@@ -3,9 +3,9 @@
 ==========================  =============================================  =====
 wrapper                     replaces                                       route
 ==========================  =============================================  =====
-:func:`smw_sweep`           ``freedm_tpu/pf/n1.py`` ``_make_smw_n1_screen``  CUDA
-                            (:340-495): the ``_solve_lane`` body around
-                            its base triangular solves
+:func:`smw_screen`          ``freedm_tpu/pf/n1.py`` ``_make_smw_n1_screen``  CUDA
+                            (:340-495): the whole ``_solve_lane`` scan
+                            with its base triangular solves
 :func:`dc_screen`           ``freedm_tpu/pf/dc.py`` ``_screen_impl``       CUDA
                             (:145-184) after its solves; with
                             :func:`dc_flows` the flows of ``_solve_impl``
@@ -14,11 +14,14 @@ wrapper                     replaces                                       route
 
 Both live in ``csrc/screen.cu`` (float64).  A wrapper given CPU tensors
 runs its plain PyTorch version; given CUDA tensors it launches its kernel
-or raises.  Each launch counts in :data:`LAUNCHES` (and by mode in
+or raises.  Each launch counts in :data:`LAUNCHES` (D1's also by mode in
 :data:`MODE_LAUNCHES`).
 
-N1 runs one of four modes over ``L`` outage lanes (``ks [L]``, int64
-branch indices) whose state ``theta``, ``v [L, n]`` it updates in place:
+N1 runs a whole SMW screen over ``L`` outage lanes (``ks [L]``, int64
+branch indices) in one launch: the flat start, ``max_iter`` fast-decoupled
+iterations, and the answer ``(θ, V, P, Q, err)``.  Its plain version,
+:func:`smw_screen_plain`, is the host loop of :func:`smw_sweep_plain` in
+its four modes around the base solves:
 
 - :data:`INIT` — the flat start (θ = 0, V = 1 on PQ buses and the set
   point elsewhere), and ``rhs ← dp`` at it;
@@ -32,10 +35,17 @@ branch indices) whose state ``theta``, ``v [L, n]`` it updates in place:
 ``smw(x0) = x0 − ZM_k·c``, ``c = cap_k⁻¹ (x0[f_k], x0[t_k])·mask_k`` (the
 2 × 2 solve as LAPACK's ``getrf``/``getrs``), and the mismatch is the
 reference's ``((p_s − P)/V·th_free, (q_s − Q)/V·v_free)`` with P and Q
-the branch-wise injections with branch ``k`` out of service.  ``rhs`` is
-``[L, n]``, lane-major: the base solve takes it as the column-major
-``[n, L]`` matrix ``rhs.mT`` and N1 reads the solve's answer through its
-strides.
+the branch-wise injections with branch ``k`` out of service.  The base
+solves are ``torch.linalg.lu_solve`` by default;
+``solve=cache_kernels.lu_solve_mirror`` gives the kernel's own
+substitution order (each row's updates one column at a time in column
+order, as C1's), which makes the plain screen the kernel's yardstick.
+
+The kernel takes the factors as :func:`smw_factors` lays them out once a
+screen (C1's column-major copies, the pivots' inverse permutations and the
+reciprocals of U's diagonal) and launches on :func:`smw_plan`, a function
+of the bus count alone: the lanes a CTA owns never depend on the batch,
+so a lane's bits do not either.
 
 D1 :func:`dc_screen` (mode SCREEN) takes the base angles ``theta0 [n]``,
 ``z = B′⁻¹ A [n, L]`` (any strides; column ``l`` the masked update
@@ -54,24 +64,24 @@ import torch
 
 from freedm_tpu_torch.kernels import build
 from freedm_tpu_torch.kernels.cache_kernels import (DeltaOperands,
-                                                    branch_injections)
-# N1 keeps 4 n float64 words of a lane in shared memory, D1 n.
+                                                    branch_injections,
+                                                    kernel_factor,
+                                                    lu_permutation)
+# D1 keeps a lane's n angles in shared memory.
 from freedm_tpu_torch.kernels.sparse_kernels import SMEM_LIMIT
 
 Tensor = torch.Tensor
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {"smw_sweep": 0, "dc_screen": 0}
-#: The launches by mode (their sums are :data:`LAUNCHES`).
+LAUNCHES: Dict[str, int] = {"smw_screen": 0, "dc_screen": 0}
+#: D1's launches by mode (their sum is its :data:`LAUNCHES`).
 MODE_LAUNCHES: Dict[str, Dict[str, int]] = {
-    "smw_sweep": {"INIT": 0, "THETA": 0, "V": 0, "FINISH": 0},
     "dc_screen": {"SCREEN": 0, "SOLVE": 0},
 }
 _launch_lock = threading.Lock()
 
-#: N1's modes.
+#: The modes of N1's plain building block :func:`smw_sweep_plain`.
 INIT, THETA, V, FINISH = 0, 1, 2, 3
-_SMW_MODES = ("INIT", "THETA", "V", "FINISH")
 #: D1's modes.
 SCREEN, SOLVE = 0, 1
 
@@ -80,10 +90,11 @@ SCREEN, SOLVE = 0, 1
 ISLAND_EPS = 1e-6
 
 
-def _count(name: str, mode: str) -> None:
+def _count(name: str, mode: Optional[str] = None) -> None:
     with _launch_lock:
         LAUNCHES[name] += 1
-        MODE_LAUNCHES[name][mode] += 1
+        if mode is not None:
+            MODE_LAUNCHES[name][mode] += 1
 
 
 def reset_launches() -> None:
@@ -138,6 +149,103 @@ class DcOperands(NamedTuple):
     t: Tensor
     w: Tensor
     th_free: Tensor
+
+
+class SmwFactors(NamedTuple):
+    """The base B′ and B″ ``lu_factor`` pairs ``lu_p``, ``lu_q`` as the
+    plain screen takes them, and N1's copies: ``lu`` the two factors
+    column-major ``[n, lda]`` (:func:`~freedm_tpu_torch.kernels.cache_kernels.kernel_factor`,
+    float64, ``lda`` even), ``pinv [2, n]`` int32 the pivots' inverse
+    permutations (row ``pinv[i]`` of ``Pᵀb`` is ``b[i]``) and ``rdiag [2,
+    n]`` the reciprocals of U's diagonal, rounded to nearest."""
+
+    lu_p: tuple
+    lu_q: tuple
+    lu: Tuple[Tensor, Tensor]
+    lda: int
+    pinv: Tensor
+    rdiag: Tensor
+
+
+def smw_factors(lu_p, lu_q) -> SmwFactors:
+    """Lay the base pair out for N1, once a screen, on the pair's device."""
+    dev = lu_p[0].device
+    lu, pinv, rdiag = [], [], []
+    lda = 0
+    for lu_mat, piv in (lu_p, lu_q):
+        buf, lda = kernel_factor(lu_mat, torch.float64)
+        perm = lu_permutation(piv)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0])
+        lu.append(buf)
+        pinv.append(inv.to(torch.int32))
+        rdiag.append(torch.reciprocal(torch.diagonal(lu_mat)))
+    return SmwFactors(lu_p, lu_q, tuple(lu), lda,
+                      torch.stack(pinv).to(dev).contiguous(),
+                      torch.stack(rdiag).contiguous())
+
+
+#: Threads of N1's CTA, the shared memory it keeps for its static arrays,
+#: the most lanes a CTA and the rows and columns of its tiles (a factor of
+#: at most one tile is staged whole for the launch): ``csrc/screen.cu``
+#: ``kScreenThreads``, ``kScreenStatic``, ``kMaxLanes``, ``kTile``.
+SCREEN_THREADS, SMW_STATIC, SMW_MAX_LANES, SMW_TILE = build.constants(
+    "screen.cu", "kScreenThreads", "kScreenStatic", "kMaxLanes", "kTile")
+
+
+class SmwPlan(NamedTuple):
+    """N1's launch: ``lanes`` a CTA (1 or 2), ``whole`` (each factor one
+    tile, staged once), ``smem`` dynamic shared bytes a CTA and ``spill``
+    (the lanes' vectors in a global work buffer, two lanes a CTA)."""
+
+    lanes: int
+    whole: bool
+    smem: int
+    spill: bool = False
+
+
+def smw_work(n: int, lanes: int) -> int:
+    """The lane vectors of one CTA in float64 values (``csrc/screen.cu``
+    ``smw_work``): the right-hand sides ``[rows, lanes]`` (rows: ``n``
+    rounded up to the tile), the lanes' θ, V and rotated voltages ``[4, n,
+    lanes]`` and both factors' ``1 / u_cc`` ``[2, rows]``."""
+    rows = -(-n // SMW_TILE) * SMW_TILE
+    return lanes * (rows + 4 * n) + 2 * rows
+
+
+def smw_smem(n: int, lanes: int, spill: bool = False) -> int:
+    """N1's dynamic shared memory a CTA (``csrc/screen.cu`` ``smw_smem``):
+    two 64 × 64 float64 tiles, then the lane vectors (:func:`smw_work`)
+    unless they spill to global memory."""
+    return 8 * (2 * SMW_TILE * SMW_TILE + (0 if spill else smw_work(n, lanes)))
+
+
+#: The most buses whose lane vectors fit a CTA's shared memory (one lane a
+#: CTA); past it N1 takes the spill route.
+SMW_SHARED_MAX_N = max(n for n in range(1, 8192)
+                       if smw_smem(n, 1) + SMW_STATIC <= SMEM_LIMIT)
+
+
+def smw_plan(n: int) -> SmwPlan:
+    """N1's launch at ``n`` buses — never from the lane count, so a lane's
+    bits do not depend on the batch: two lanes a CTA (one where two do not
+    fit its shared memory), each factor staged whole where it is one tile.
+    A lane's solves are chains of dependent multiply-adds, one warp long in
+    each diagonal block, so a CTA's time hardly depends on its lane count
+    while warps of more lanes contend for the SM: two lanes a CTA measured
+    fastest at mesh511 × 256 and mesh118 × 64 on an H100 (one lane 5-10%
+    faster at case14 and case_ieee30, where it doubles the CTAs a wide
+    batch needs; ``PERF.md`` §6).  Past :data:`SMW_SHARED_MAX_N` buses the
+    spill route: two lanes a CTA, their vectors in global memory (the same
+    bits)."""
+    if n < 1:
+        raise ValueError(f"smw_plan needs n >= 1, got {n}")
+    whole = n <= SMW_TILE
+    for lanes in (2, 1):
+        smem = smw_smem(n, lanes)
+        if smem + SMW_STATIC <= SMEM_LIMIT:
+            return SmwPlan(lanes, whole, smem)
+    return SmwPlan(2, False, smw_smem(n, 2, True), True)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +313,31 @@ def smw_sweep_plain(mode: int, ks: Tensor, theta: Tensor, v: Tensor,
     return None
 
 
+def smw_screen_plain(ks: Tensor, op: SmwOperands, lu_p, lu_q,
+                     max_iter: int, solve=None):
+    """N1's plain version: the whole screen as a host loop, INIT, then
+    ``max_iter`` × (base solve, THETA, base solve, V), then FINISH
+    (:func:`smw_sweep_plain`).  ``solve(lu, rhs [L, n]) -> [L, n]`` is the
+    base solve, ``torch.linalg.lu_solve`` by default; tests pass
+    :func:`~freedm_tpu_torch.kernels.cache_kernels.lu_solve_mirror`.
+    Returns ``(theta, v, P, Q, err)``."""
+    lanes, n = int(ks.shape[0]), op.n
+    theta, v, rhs = (torch.empty(lanes, n, dtype=torch.float64,
+                                 device=ks.device) for _ in range(3))
+
+    def base(lu):
+        if solve is None:
+            return torch.linalg.lu_solve(lu[0], lu[1], rhs.mT)
+        return solve(lu, rhs).mT
+
+    smw_sweep_plain(INIT, ks, theta, v, rhs, op)
+    for _ in range(int(max_iter)):
+        smw_sweep_plain(THETA, ks, theta, v, rhs, op, base(lu_p))
+        smw_sweep_plain(V, ks, theta, v, rhs, op, base(lu_q))
+    p, q, err = smw_sweep_plain(FINISH, ks, theta, v, rhs, op)
+    return theta, v, p, q, err
+
+
 def dc_screen_plain(theta0: Tensor, z: Tensor, ks: Tensor,
                     op: DcOperands) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """D1's SCREEN mode in the reference's expressions and order."""
@@ -238,7 +371,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGS = {
-    "smw_sweep_f64": [_P] * 4 + [_L] * 2 + [_P] * 20 + [_I] * 4 + [_P],
+    "smw_screen_f64": [_P] * 29 + [_I] * 8 + [_P],
     "dc_screen_f64": [_P] * 2 + [_L] * 2 + [_P] * 9 + [_I] * 4 + [_P],
 }
 _lib_lock = threading.Lock()
@@ -265,12 +398,12 @@ def _fn(name: str):
 def _screen_lib() -> None:
     """Build and load the kernels' library now (it happens at the first
     launch otherwise)."""
-    _fn("smw_sweep_f64")
+    _fn("smw_screen_f64")
 
 
 def _check_smw_mode(mode: int) -> None:
     if mode not in (INIT, THETA, V, FINISH):
-        raise ValueError(f"unknown smw_sweep mode {mode!r}")
+        raise ValueError(f"unknown smw_sweep_plain mode {mode!r}")
 
 
 def _want(dev, **tensors) -> None:
@@ -310,6 +443,19 @@ def _checked_smw(op: SmwOperands, dev) -> None:
           zm=(op.zm, f64, (2, m, n, 2)), cap=(op.cap, f64, (2, m, 2, 2)))
 
 
+def _checked_factors(fac: SmwFactors, dev, n: int) -> None:
+    f64 = torch.float64
+    lda = int(fac.lda)
+    if lda < n or lda % 2:
+        raise ValueError(f"the factors' leading dimension must be even and "
+                         f">= {n}, got {lda}")
+    _want(dev, lu_p=(fac.lu[0], f64, (n, lda)), lu_q=(fac.lu[1], f64, (n, lda)),
+          pinv=(fac.pinv, torch.int32, (2, n)), rdiag=(fac.rdiag, f64, (2, n)))
+    for name, t in (("lu_p", fac.lu[0]), ("lu_q", fac.lu[1])):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
 #: Operand sets already checked (by id, with the set kept alive).
 _checked: Dict[int, object] = {}
 
@@ -325,59 +471,75 @@ def _check_once(op, dev, check) -> None:
         _checked[key] = op
 
 
-def smw_sweep(mode: int, ks: Tensor, theta: Tensor, v: Tensor, rhs: Tensor,
-              op: SmwOperands, x0: Optional[Tensor] = None):
-    """N1: one mode of the SMW screen over every lane, in one launch (the
-    module docstring's modes).  ``ks [L]`` int64; ``theta``, ``v``, ``rhs``
-    contiguous ``[L, n]`` float64, updated in place; ``x0`` the base
-    solve's ``[n, L]`` answer (THETA and V, any strides).  FINISH returns
-    ``(P [L, n], Q [L, n], err [L])``."""
-    if theta.device.type == "cpu":
-        return smw_sweep_plain(mode, ks, theta, v, rhs, op, x0)
-    _check_smw_mode(mode)
-    if theta.device.type != "cuda":
-        raise ValueError(f"smw_sweep runs on CPU or CUDA tensors, got "
-                         f"{theta.device}")
-    dev = theta.device
-    n, m = op.n, op.m
-    lanes = int(ks.shape[0])
-    if 4 * n * 8 > SMEM_LIMIT:
-        raise ValueError(f"smw_sweep keeps 4 n words of a lane in shared "
-                         f"memory: n = {n} is too large")
-    f64 = torch.float64
-    _want(dev, ks=(ks, torch.int64, (lanes,)), theta=(theta, f64, (lanes, n)),
-          v=(v, f64, (lanes, n)), rhs=(rhs, f64, (lanes, n)))
+def smw_screen_check(ks: Tensor, op: SmwOperands, fac: SmwFactors,
+                     max_iter: int, plan: SmwPlan, dev) -> None:
+    """Everything :func:`smw_screen` checks before its launch, for
+    ``dev``: the lanes, the plan and every operand's device, dtype, shape
+    and contiguity."""
+    n = op.n
+    if ks.dim() != 1 or ks.shape[0] < 1:
+        raise ValueError(f"ks must be a [L] tensor of at least one outage, "
+                         f"got {tuple(ks.shape)}")
+    _want(dev, ks=(ks, torch.int64, (int(ks.shape[0]),)))
+    if int(max_iter) < 0:
+        raise ValueError(f"max_iter must be >= 0, got {max_iter}")
+    lanes, spill = int(plan.lanes), bool(plan.spill)
+    if (lanes < 1 or lanes > SMW_MAX_LANES or lanes & (lanes - 1)
+            or (plan.whole and (n > SMW_TILE or spill))
+            or (spill and lanes != 2)
+            or int(plan.smem) != smw_smem(n, lanes, spill)
+            or plan.smem + SMW_STATIC > SMEM_LIMIT):
+        raise ValueError(f"smw_screen has no plan {plan} at n = {n}")
     _check_once(op, dev, _checked_smw)
-    x0_ptr, x0_si, x0_sl = 0, 0, 0
-    if mode in (THETA, V):
-        _want(dev, x0=(x0, f64, None))
-        if tuple(x0.shape) != (n, lanes):
-            raise ValueError(f"x0 must be [{n}, {lanes}], got "
-                             f"{tuple(x0.shape)}")
-        x0_ptr, (x0_si, x0_sl) = x0.data_ptr(), x0.stride()
-    p = q = err = None
-    if mode == FINISH:
-        p = torch.empty(lanes, n, dtype=f64, device=dev)
-        q = torch.empty(lanes, n, dtype=f64, device=dev)
-        err = torch.empty(lanes, dtype=f64, device=dev)
+    _checked_factors(fac, dev, n)
+
+
+def smw_screen(ks: Tensor, op: SmwOperands, fac: SmwFactors, max_iter: int,
+               plan: Optional[SmwPlan] = None):
+    """N1: the whole SMW screen of the outage lanes ``ks [L]`` (int64), in
+    one launch (the module docstring): ``max_iter`` fast-decoupled
+    iterations from the flat start on the base pair of ``fac``.  Returns
+    ``(theta, v, P, Q [L, n], err [L])``.  ``plan`` forces a launch
+    (default :func:`smw_plan`); a lane's bits are the same on every plan
+    and batch width, and on the spill route."""
+    if ks.device.type == "cpu":
+        return smw_screen_plain(ks, op, fac.lu_p, fac.lu_q, max_iter)
+    if ks.device.type != "cuda":
+        raise ValueError(f"smw_screen runs on CPU or CUDA tensors, got "
+                         f"{ks.device}")
+    dev = ks.device
+    n, m = op.n, op.m
+    plan = smw_plan(n) if plan is None else plan
+    smw_screen_check(ks, op, fac, max_iter, plan, dev)
+    lanes = int(ks.shape[0])
+    slots = -(-lanes // plan.lanes) * plan.lanes
+    if slots > lanes:  # the last CTA's spare slots repeat the last lane
+        ks = torch.cat([ks, ks[-1:].expand(slots - lanes)])
+    f64 = torch.float64
+    theta, v, p, q = (torch.empty(slots, n, dtype=f64, device=dev)
+                      for _ in range(4))
+    err = torch.empty(slots, dtype=f64, device=dev)
+    work = (torch.empty(slots // plan.lanes * smw_work(n, plan.lanes),
+                        dtype=f64, device=dev) if plan.spill else None)
     d = op.dop
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(dev):
-        rc = _fn("smw_sweep_f64")(
-            ks.data_ptr(), theta.data_ptr(), v.data_ptr(), x0_ptr or None,
-            x0_si, x0_sl, rhs.data_ptr(), ptr(p), ptr(q), ptr(err),
-            d.inc_ptr.data_ptr(), d.inc_code.data_ptr(), d.inc_nbr.data_ptr(),
-            d.y.data_ptr(), d.g_sh.data_ptr(), d.b_sh.data_ptr(),
-            d.th_free.data_ptr(), d.v_free.data_ptr(), op.v_set.data_ptr(),
-            op.p_sched.data_ptr(), op.q_sched.data_ptr(), d.f.data_ptr(),
-            d.t.data_ptr(), op.mask.data_ptr(), op.zm.data_ptr(),
-            op.cap.data_ptr(), n, m, lanes, mode, _stream(theta))
-    _raise_on(rc, "smw_sweep")
-    _count("smw_sweep", _SMW_MODES[mode])
-    return (p, q, err) if mode == FINISH else None
+        rc = _fn("smw_screen_f64")(
+            ks.data_ptr(), theta.data_ptr(), v.data_ptr(), p.data_ptr(),
+            q.data_ptr(), err.data_ptr(), fac.lu[0].data_ptr(),
+            fac.lu[1].data_ptr(), fac.pinv[0].data_ptr(),
+            fac.pinv[1].data_ptr(), fac.rdiag[0].data_ptr(),
+            fac.rdiag[1].data_ptr(), d.inc_ptr.data_ptr(),
+            d.inc_code.data_ptr(), d.inc_nbr.data_ptr(), d.y.data_ptr(),
+            d.g_sh.data_ptr(), d.b_sh.data_ptr(), d.th_free.data_ptr(),
+            d.v_free.data_ptr(), op.v_set.data_ptr(), op.p_sched.data_ptr(),
+            op.q_sched.data_ptr(), d.f.data_ptr(), d.t.data_ptr(),
+            op.mask.data_ptr(), op.zm.data_ptr(), op.cap.data_ptr(),
+            None if work is None else work.data_ptr(), n, m, int(fac.lda),
+            slots, int(plan.lanes), int(plan.whole), int(plan.spill),
+            int(max_iter), _stream(ks))
+    _raise_on(rc, "smw_screen")
+    _count("smw_screen")
+    return theta[:lanes], v[:lanes], p[:lanes], q[:lanes], err[:lanes]
 
 
 def _checked_dc(op: DcOperands, dev) -> None:

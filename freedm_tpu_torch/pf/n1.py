@@ -21,12 +21,12 @@ Two screens, chosen by case size as the reference chooses
 
 - ``backend="dense"`` (below 512 buses under ``"auto"``): the SMW
   fast-decoupled screen, a fixed ``max_iter`` iterations per lane with no
-  exit test.  The base solves over every lane are one
-  ``torch.linalg.lu_solve`` a half-iteration (the reference leaves them to
-  XLA's triangular solve); everything else is kernel N1
-  (:func:`~freedm_tpu_torch.kernels.screen_kernels.smw_sweep`), one
-  launch a half-iteration — ``2 + 4·max_iter`` device operations a
-  screen, no host read in between.
+  exit test.  The whole screen of every lane is one launch of kernel N1
+  (:func:`~freedm_tpu_torch.kernels.screen_kernels.smw_screen`): the flat
+  start, each half-iteration's base triangular solve on the B′ or B″ LU
+  pair (written by hand, the reference leaves it to XLA's triangular
+  solve), its rank-2 correction and mismatch, and the answer — no host
+  read and no library call in between.
 - ``backend="sparse"``: the base case solved once, then every outage lane
   a status-traced sparse Newton solve warm-started from it — one batched
   call of :func:`~freedm_tpu_torch.pf.sparse.make_sparse_newton_solver`'s
@@ -318,22 +318,17 @@ def _make_smw_n1_screen(sys, tol, max_iter, dtype, device, plain):
         raise TypeError(f"the SMW screen runs in float64, got {dtype}")
     tol = float(default_tol(dtype) if tol is None else tol)
     max_iter = int(max_iter)
-    n = sys.n_bus
     lu_p, lu_q, op = smw_operands(sys, device=device)
-    sweep = sck.smw_sweep_plain if plain else sck.smw_sweep
+    fac = None if plain else sck.smw_factors(lu_p, lu_q)
 
     def screen(outages):
         ks = _outage_ks(outages, device)
         lanes = int(ks.shape[0])
-        theta, v, rhs = (torch.empty(lanes, n, dtype=dtype, device=device)
-                         for _ in range(3))
-        sweep(sck.INIT, ks, theta, v, rhs, op)
-        for _ in range(max_iter):
-            x0 = torch.linalg.lu_solve(lu_p[0], lu_p[1], rhs.mT)
-            sweep(sck.THETA, ks, theta, v, rhs, op, x0)
-            x0 = torch.linalg.lu_solve(lu_q[0], lu_q[1], rhs.mT)
-            sweep(sck.V, ks, theta, v, rhs, op, x0)
-        p, q, err = sweep(sck.FINISH, ks, theta, v, rhs, op)
+        if plain:
+            theta, v, p, q, err = sck.smw_screen_plain(ks, op, lu_p, lu_q,
+                                                       max_iter)
+        else:
+            theta, v, p, q, err = sck.smw_screen(ks, op, fac, max_iter)
         it = torch.full((lanes,), max_iter, dtype=torch.int32, device=device)
         return NewtonResult(v=v, theta=theta, p=p, q=q, iterations=it,
                             converged=err < tol, mismatch=err,

@@ -6,15 +6,15 @@
 (C1), L1 ``ladder_solve``, L2 ``ladder_vjp``, L3 ``ladder_dense``, L4
 ``ladder_doubling``, I2 ``cim_vjp``, B1 ``lb_rounds`` from 2¹⁵ nodes, T1
 ``topo_radiality``, T2 ``topo_screen``, J1 ``residual_jvp`` and J2
-``residual_vjp``, Q1 ``qsts_bus_reduce`` and G1 ``form_groups`` of this
-checkout against those of other checkouts of the repo, in turns on one
-card.
+``residual_vjp``, Q1 ``qsts_bus_reduce``, G1 ``form_groups``, the SMW
+N-1 screen (N1) and Q2 ``qsts_feeder_reduce`` of this checkout against
+those of other checkouts of the repo, in turns on one card.
 
     python3 kernel_ab.py OTHER [OTHER ...]
                          [--sections sparse,delta,newton,solvers,ladder,
                                      vjp,dense,doubling,superstep,qsts,
                                      i2,wide,topo,residual,bus_reduce,
-                                     groups]
+                                     groups,screen,feeder_reduce]
                          [--out FILE]
 
 Each ``OTHER`` is the root of another checkout, for example one written
@@ -54,7 +54,8 @@ work, host calls and copies), and from ``torch.profiler`` its device time,
 device operations and CUDA runtime calls per program.  The checkouts'
 theta and v must agree within ``chip_smoke.CACHE_ATOL`` with sweep counts
 at most one apart (each turn factorizes the pair anew, and cuSOLVER's
-factors may differ in the last bits between processes).
+factors may differ in the last bits between processes); whether theta, v
+and the sweeps are the same bits is printed (``same_bits``).
 
 The ``newton`` section times K1 and K2 at mesh2000 × 64 lanes in
 float64 with one Ybus for every lane (the dense backend without a branch
@@ -186,6 +187,25 @@ The ``groups`` section times G1 ``form_groups`` at ``GROUPS_SHAPES``
 events a call (the wrapper's host time counted in); every field of the
 outputs must be equal across the checkouts.
 
+The ``screen`` section times each checkout's SMW N-1 screen as
+``make_n1_screen`` builds it (``backend="dense"``, 24 iterations, the
+served ``ServeConfig.n1_max_iter``) at ``SCREEN_SHAPES`` (every secure
+outage of case_ieee30, mesh511 × 256): device time by queued events
+(the host issues a screen of many calls within the sleep that the events
+queue behind, or the time counts it) and CUDA events a screen, back to
+back; the checkouts' θ, V, P and Q agree within ``chip_smoke.SOLVE_ATOL``
+with equal ``converged`` flags, and whether they are the same bits is
+printed (``screen_*_same_bits``; each turn factorizes the base pair anew,
+so equal bits also need cuSOLVER's factors equal across processes).
+
+The ``feeder_reduce`` section times Q2 ``qsts_feeder_reduce`` alone at
+``FEEDER_SHAPES`` (vvc_9bus, 24 steps × 64 and × 1536 scenarios) on
+ladder results solved once here (``chip_smoke.q2_inputs``), each
+checkout on its own operands and default launch, by queued events; the
+checkouts' counts, iteration sums and envelope are equal, losses and peak
+within ``chip_smoke.QSTS_SUM_RTOL``, and the scenarios whose loss or peak
+moved bits are counted (``feeder_reduce_*_moved``).
+
 Prints the card's name and power limit, one line per turn and a JSON
 summary as the last line (also written to ``--out``).  Needs a CUDA card.
 """
@@ -209,7 +229,13 @@ KERNELS = ("sparse_assemble", "sparse_assemble_values_f32",
            "gmres_lstsq", "newton_update")
 SECTIONS = ("sparse", "delta", "newton", "solvers", "ladder", "vjp", "dense",
             "doubling", "superstep", "qsts", "i2", "wide", "topo",
-            "residual", "bus_reduce", "groups")
+            "residual", "bus_reduce", "groups", "screen", "feeder_reduce")
+#: The ``screen`` section's shapes: (case, lanes; None: every secure
+#: outage).
+SCREEN_SHAPES = (("case_ieee30", None), ("mesh511", 256))
+SCREEN_ITERS = 24
+#: The ``feeder_reduce`` section's shapes: (steps, scenarios) of vvc_9bus.
+FEEDER_SHAPES = ((24, 64), (24, 1536))
 #: The ``bus_reduce`` section's shapes: (case, lanes).
 BUS_REDUCE_SHAPES = (("mesh2000", 1), ("mesh2000", 64), ("mesh2000", 256),
                      ("mesh5000", 64))
@@ -294,6 +320,13 @@ def prepare(path: Path, sections) -> None:
             "status": torch.as_tensor(st)}
     if "bus_reduce" in sections:
         data["bus_reduce"] = bus_reduce_inputs(cs)
+    if "feeder_reduce" in sections:
+        data["feeder_reduce"] = {}
+        for steps, lanes in FEEDER_SHAPES:
+            _, r = cs.q2_inputs(torch, steps, lanes)
+            data["feeder_reduce"][(steps, lanes)] = [
+                (x.re.cpu(), x.im.cpu()) if hasattr(x, "re") else x.cpu()
+                for x in r]
     if "delta" in sections:
         case = cs.DeltaCase(torch, ck, "mesh2000")
         data["delta"] = [np.asarray(a) for a in case.inputs(
@@ -352,6 +385,54 @@ def measure_bus_reduce(torch, cs, data, dev):
         call()
         key = f"{case}_x{lanes}"
         outs[key] = [x.cpu() for x in acc]
+        times[key] = cs.queued_events_ms(torch, call, 50)
+    return times, outs
+
+
+def measure_screen(torch, cs, dev):
+    """The SMW N-1 screen at ``SCREEN_SHAPES`` through this checkout's
+    ``make_n1_screen``: queued-event times, CUDA events a screen, and one
+    screen's outputs."""
+    from freedm_tpu_torch.pf.n1 import make_n1_screen, secure_outages
+
+    times, outs = {}, {}
+    for case, lanes in SCREEN_SHAPES:
+        sys_ = cs.case_system(case)
+        sec = np.asarray(secure_outages(sys_), np.int64)
+        ks = sec if lanes is None else np.resize(sec, lanes)
+        screen = make_n1_screen(sys_, max_iter=SCREEN_ITERS, backend="dense",
+                                device=dev)
+        r = screen(ks)
+        key = f"{case}_x{len(ks)}"
+        outs[key] = [getattr(r, k).cpu() for k in ("v", "theta", "p", "q",
+                                                   "converged")]
+        times[key] = cs.queued_events_ms(torch, lambda: screen(ks), 10)
+        times[f"{key}_a_call"] = cs.time_ms(torch, lambda: screen(ks), 10)
+        torch.cuda.empty_cache()
+    return times, outs
+
+
+def measure_feeder_reduce(torch, cs, data, dev):
+    """Q2 at ``FEEDER_SHAPES`` through this checkout's wrapper, operands
+    and default launch: queued-event times, and one call's accumulators."""
+    from freedm_tpu_torch.cplx import C
+    from freedm_tpu_torch.grid.cases import vvc_9bus
+    from freedm_tpu_torch.kernels import qsts_kernels as qk
+    from freedm_tpu_torch.pf.ladder import LadderResult
+
+    op = qk.feeder_reduce_operands(vvc_9bus(), dev)
+    times, outs = {}, {}
+    for (steps, lanes), fields in data.items():
+        r = LadderResult(*(C(x[0].to(dev), x[1].to(dev))
+                           if isinstance(x, tuple) else x.to(dev)
+                           for x in fields))
+        acc = cs.random_acc(torch, qk, lanes, 7)
+        qk.qsts_feeder_reduce(r, op, acc, steps, 15.0, 0.25, 0.95, 1.05)
+        key = f"vvc_9bus_{steps}x{lanes}"
+        outs[key] = [x.cpu() for x in acc]
+
+        def call(acc=acc, r=r, steps=steps):
+            qk.qsts_feeder_reduce(r, op, acc, steps, 15.0, 0.25, 0.95, 1.05)
         times[key] = cs.queued_events_ms(torch, call, 50)
     return times, outs
 
@@ -950,6 +1031,11 @@ def measure(root: Path, inputs: Path, outputs: Path, sections) -> None:
             torch, cs, data["bus_reduce"], dev)
     if "groups" in sections:
         times["groups"], outs["groups"] = measure_groups(torch, cs, dev)
+    if "screen" in sections:
+        times["screen"], outs["screen"] = measure_screen(torch, cs, dev)
+    if "feeder_reduce" in sections:
+        times["feeder_reduce"], outs["feeder_reduce"] = measure_feeder_reduce(
+            torch, cs, data["feeder_reduce"], dev)
     if "delta" in sections:
         times["delta"], outs["delta"] = measure_delta(torch, cs, sys_,
                                                       data["delta"], dev)
@@ -1252,6 +1338,32 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
         cs.check(same, f"{label}: G1 {key} outputs differ from this "
                  f"checkout's")
         errs[f"groups_{key}_same"] = same
+    for key, outs in a.get("screen", {}).items():
+        other = b["screen"][key]
+        d = max(float((x - y).abs().max()) for x, y in zip(outs[:4],
+                                                           other[:4]))
+        cs.check(d <= cs.SOLVE_ATOL and torch.equal(outs[4], other[4]),
+                 f"{label}: SMW screen {key} {d:.3e} pu from this "
+                 f"checkout's, converged {int(outs[4].sum())} vs "
+                 f"{int(other[4].sum())}")
+        errs[f"screen_{key}_max_abs_pu"] = d
+        errs[f"screen_{key}_same_bits"] = all(
+            cs.same_bits(torch, x, y) for x, y in zip(outs[:4], other[:4]))
+    for key, outs in a.get("feeder_reduce", {}).items():
+        acc_a, acc_b = (dict(zip(("viol", "loss", "it_sum", "it_max",
+                                  "nonconv", "v_lo", "v_hi", "peak"), x))
+                        for x in (outs, b["feeder_reduce"][key]))
+        for name in ("viol", "it_sum", "it_max", "nonconv", "v_lo", "v_hi"):
+            cs.check(torch.equal(acc_a[name], acc_b[name]),
+                     f"{label}: Q2 {key} {name} differs from this checkout's")
+        e = max(cs.rel_err(acc_a[k], acc_b[k]) for k in ("loss", "peak"))
+        cs.check(e <= cs.QSTS_SUM_RTOL, f"{label}: Q2 {key} losses/peak "
+                 f"{e:.3e} from this checkout's")
+        errs[f"feeder_reduce_{key}_rel"] = e
+        errs[f"feeder_reduce_{key}_moved"] = {
+            k: int((acc_a[k].view(torch.int64)
+                    != acc_b[k].view(torch.int64)).sum())
+            for k in ("loss", "peak")}
     for key, (ta, va, sa) in a.get("delta", {}).items():
         tb, vb, sb = b["delta"][key]
         d = max(float((ta - tb).abs().max()), float((va - vb).abs().max()))
@@ -1259,7 +1371,10 @@ def agree(cs, torch, a: dict, b: dict, label: str) -> dict:
         cs.check(d <= cs.CACHE_ATOL and apart <= 1,
                  f"{label} disagrees with this checkout (delta {key}): "
                  f"{d:.3e} pu, sweeps {sa.tolist()} vs {sb.tolist()}")
-        errs[f"delta_{key}"] = {"max_abs_pu": d, "sweeps_apart": apart}
+        errs[f"delta_{key}"] = {
+            "max_abs_pu": d, "sweeps_apart": apart,
+            "same_bits": cs.same_bits(torch, ta, tb)
+            and cs.same_bits(torch, va, vb) and torch.equal(sa, sb)}
     for name in DTYPES:
         if name not in a:
             continue
@@ -1305,7 +1420,10 @@ def main() -> int:
                          "and x 64, mesh2000 x 16384), residual (J1 and J2 "
                          "at mesh2000 x 256 and x 64), bus_reduce (Q1 at "
                          "mesh2000 x 1/64/256, mesh5000 x 64), groups (G1 "
-                         "at N = 1024 x 1/16/64 and 4096 x 1)")
+                         "at N = 1024 x 1/16/64 and 4096 x 1), screen (the "
+                         "SMW N-1 screen at case_ieee30 and mesh511 x 256), "
+                         "feeder_reduce (Q2 at vvc_9bus x 24*64 and "
+                         "x 24*1536)")
     ap.add_argument("--prepare", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
@@ -1353,7 +1471,10 @@ def main() -> int:
                         "(MASKED, FULL) at the bench's mesh2000 x 256 and "
                         "x 64; Q1 mesh2000 x 1/64/256, mesh5000 x 64; G1 "
                         "N = 1024 x 1 (the superstep's reach; sparse x 1, "
-                        "16, 64) and 4096 x 1",
+                        "16, 64) and 4096 x 1; the SMW N-1 screen (24 "
+                        "iterations) over case_ieee30's secure outages and "
+                        "mesh511 x 256; Q2 vvc_9bus 24 steps x 64 and x "
+                        "1536",
                "turns": "other, this, this, other", "others": {}}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
@@ -1426,6 +1547,15 @@ def main() -> int:
                           f"device (queued events) {dev:.4f} ms", flush=True)
                 for key, dev in times.get("bus_reduce", {}).items():
                     print(f"ab {other.name} qsts_bus_reduce {key:<16} "
+                          f"{which:<5} device (queued events) {dev:.4f} ms",
+                          flush=True)
+                for key, dev in times.get("screen", {}).items():
+                    how = ("CUDA events a screen" if key.endswith("_a_call")
+                           else "device (queued events)")
+                    print(f"ab {other.name} smw_screen {key:<24} {which:<5} "
+                          f"{how} {dev:.4f} ms", flush=True)
+                for key, dev in times.get("feeder_reduce", {}).items():
+                    print(f"ab {other.name} qsts_feeder_reduce {key:<16} "
                           f"{which:<5} device (queued events) {dev:.4f} ms",
                           flush=True)
                 for key, dev in times.get("groups", {}).items():

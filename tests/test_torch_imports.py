@@ -238,7 +238,8 @@ def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
     assert set(ck.launches()) == {"delta_program"}
     from freedm_tpu_torch.kernels import screen_kernels as sck
 
-    assert set(sck.launches()) == {"smw_sweep", "dc_screen"}
+    assert set(sck.launches()) == {"smw_screen", "dc_screen"}
+    assert set(sck.mode_launches()) == {"dc_screen"}
     from freedm_tpu_torch.kernels import ladder_kernels as lk
 
     assert set(lk.launches()) == {"ladder_solve", "ladder_vjp",

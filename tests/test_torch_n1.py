@@ -542,13 +542,27 @@ def test_assemble_with_status_kernel_matches_plain_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_smw_sweep_kernel_matches_plain_on_card(cuda_device):
+    """The kernel screen (one N1 launch) against the plain screen on
+    ``lu_solve`` and on the mirror's solves, 1e-12."""
+    from freedm_tpu_torch.kernels import cache_kernels as ck
+
     _, sys = _systems("case_ieee30")
     ks = secure_outages(sys)
-    got = make_n1_screen(sys, max_iter=24, device=cuda_device)(ks)
+    screen = make_n1_screen(sys, max_iter=24, device=cuda_device)
+    screen(ks)
+    sck.reset_launches()
+    got = screen(ks)
+    assert sck.launches()["smw_screen"] == 1
     want = make_n1_screen(sys, max_iter=24, device=cuda_device,
                           plain=True)(ks)
     for k in ("v", "theta", "p", "q", "mismatch"):
         torch.testing.assert_close(getattr(got, k), getattr(want, k),
                                    rtol=0, atol=1e-12)
     assert torch.equal(got.converged, want.converged)
+    lu_p, lu_q, op = smw_operands(sys, device=cuda_device)
+    mirror = sck.smw_screen_plain(torch.as_tensor(ks, device=cuda_device),
+                                  op, lu_p, lu_q, 24,
+                                  solve=ck.lu_solve_mirror)
+    for g, w in zip((got.theta, got.v, got.p, got.q, got.mismatch), mirror):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-12)
     torch.cuda.synchronize()
